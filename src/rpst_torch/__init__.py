@@ -1,0 +1,28 @@
+"""rpst_torch: the PyTorch/CUDA port of rpst for NVIDIA Hopper (H100).
+
+The JAX package ``rpst`` is the reference; this package computes the same
+functions with PyTorch for plain tensor code and hand-written CUDA kernels
+where rpst has Pallas kernels. It imports ``torch`` and never ``jax``, and
+nothing of rpst: it reads rpst's config files and checkpoints with loaders
+of its own.
+
+Layer map, entry point down to the device (this slice: the flagship
+``multi_adain`` constant stack, folded inference and serving):
+
+  serve_torch.py                 folder sweep / ``--daemon`` CLI
+  rpst_torch.serving             resolve_mode, make_run_impl, DynamicBatcher,
+                                 serve_daemon
+  rpst_torch.models              build_model -> ModelBundle.stylize
+  rpst_torch.models.fast_path    stylize_multi_adain_folded (folded path)
+  rpst_torch.models.adain_rp     MultiScaleAdaINRP (standard path)
+  rpst_torch.nn.blocks           PadConv, Conv2dBlock, RPStack
+  rpst_torch.ops.folded          fold/unfold, folded kernels, rings, AdaIN
+  rpst_torch.ops.stats           calc_mean_std, AdaIN
+  rpst_torch.ops.folded_conv     B1 wrapper: fused_folded_conv (+ plain)
+  rpst_torch.kernels.build       nvcc build of csrc/*.cu, ctypes binding
+  rpst_torch/csrc/folded_conv.cu B1 CUDA kernel for sm_90a
+  rpst_torch.bridge              flax params / reference .pth -> state_dict
+  rpst_torch.config              load_config (rpst's YAML format)
+  rpst_torch.data                load_image, to_u8 (PIL)
+  rpst_torch.metrics             logger, save_image
+"""

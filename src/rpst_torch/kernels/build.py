@@ -1,0 +1,95 @@
+"""Build the CUDA sources under ``rpst_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled with nvcc
+into ``build/rpst_torch/lib<name>-<hash>.so`` at the repository root (a
+git-ignored directory) the first time a kernel is launched::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+        -Xcompiler -fPIC -Xptxas -v -o build/rpst_torch/lib<name>-<hash>.so <name>.cu
+
+The hash covers the source and the flags, so an edited source rebuilds and
+an unchanged one loads the cached library. A build that fails, or a missing
+nvcc, raises: there is no fallback. Nothing is built when a module is
+imported; the CPU tests never reach this file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "rpst_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# x, rings, k, b, y (device pointers), N, H, W, C4, C4o, alpha, stream
+_FOLDED_CONV_ARGS = [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR]
+# C signature of every exported function, by library: (argtypes, restype);
+# every function returns its launch's cudaError_t
+SIGNATURES = {
+    "folded_conv": {
+        "rpst_folded_conv_f32": (_FOLDED_CONV_ARGS, _INT),
+        "rpst_folded_conv_bf16": (_FOLDED_CONV_ARGS, _INT),
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time (0.0 when cached), "log": nvcc output}
+build_info: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(nvcc).exists():
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+            "rpst_torch are built from source at first use")
+    return nvcc
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
+    exists; returns the library's path."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    if lib.exists():
+        build_info[name] = {"seconds": 0.0, "log": "cached"}
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial .so
+    build_info[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library of ``csrc/<name>.cu``, built on first use, with
+    ``argtypes``/``restype`` set for every exported function."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return _libs[name]

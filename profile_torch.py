@@ -1,27 +1,31 @@
 #!/usr/bin/env python
-"""Where the device time goes in the port's folded stylize: profiles the
-flagship (multi_adain, constant stack, rp_blocks 5, hidden 32) at 512px with
-seeded weights, b1 and b8, float32 and bfloat16, on one CUDA device.
+"""Where the device time goes in the port's folded flagship (multi_adain,
+constant stack, rp_blocks 5, hidden 32) at 512px with seeded weights, on one
+CUDA device: the stylize call at b1 and b8 (default), or with ``--train``
+the train step (loss, backward, Adam; B1 + B2 + B3) at b1 and b4; float32
+and bfloat16 each.
 
 For each case it prints one Markdown table row:
 
-  | batch, type | ms per call | B1 share | other kernels by share | idle share |
+  | batch, type | ms per call | B1 [B2 B3] share | other kernels | idle share |
 
-  ms per call   median of 20 CUDA-event-timed calls after 3 warm-ups,
-                without the profiler
-  B1 share      device time of the B1 kernel (folded_conv_kernel) over all
-                device time, in the profiled calls
+  ms per call   median of CUDA-event-timed calls (20 stylize, 5 train
+                steps) after warm-ups, without the profiler
+  Bn share      device time of the kernel (B1 folded_conv_kernel, B2
+                grad_input_kernel, B3 grad_weight_partial + _reduce) over
+                all device time, in the profiled calls
   other         the three next kernels by device time, names shortened
   idle share    1 - (union of device activity) / (first start .. last end)
-                over 5 profiled calls after 3 warm-ups
+                over the profiled calls (5 stylize, 3 train steps)
 
 It also writes each case's ``key_averages()`` table to
-``chiprun_out/profile_torch.txt``. The card's name and power limit come
-first, as nvidia-smi gives them.
+``chiprun_out/profile_torch[_train].txt``. The card's name and power limit
+come first, as nvidia-smi gives them.
 
-    python3 profile_torch.py
+    python3 profile_torch.py [--train]
 """
 
+import argparse
 import re
 import statistics
 import subprocess
@@ -35,16 +39,18 @@ import numpy as np
 import torch
 
 from rpst_torch.config import load_config
-from rpst_torch.models import build_model
+from rpst_torch.models import build_model, build_vgg
 from rpst_torch.models.fast_path import stylize_multi_adain_folded
 from rpst_torch.nn.blocks import init_torch_default
+from rpst_torch.train.step import create_train_state, train_step
 
 FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
                 hidden_dim=32, inception_num=0, attention="none", seed=0,
                 exec_strategy="folded")
-IMG, CALLS = 512, 5
-B1_KERNEL = "folded_conv_kernel"
-OUT = REPO / "chiprun_out" / "profile_torch.txt"
+IMG = 512
+# report column -> the kernel-name prefixes it sums
+KERNELS = {"B1": ("folded_conv_kernel",), "B2": ("grad_input_kernel",),
+           "B3": ("grad_weight_partial", "grad_weight_reduce")}
 
 
 def short_name(name: str) -> str:
@@ -52,6 +58,13 @@ def short_name(name: str) -> str:
     name = re.sub(r"^void\s+|\(anonymous namespace\)::", "", name)
     name = name.split("<")[0].split("(")[0]
     return name.rsplit("::", 1)[-1].strip()
+
+
+def kernel_of(name: str):
+    for col, prefixes in KERNELS.items():
+        if name.startswith(prefixes):
+            return col
+    return None
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -69,9 +82,9 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn):
+def device_breakdown(fn, calls):
     """(device time by short kernel name, idle share, key_averages
-    table) over CALLS profiled calls of ``fn``."""
+    table) over ``calls`` profiled calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -79,7 +92,7 @@ def device_breakdown(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(CALLS):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -106,7 +119,29 @@ def device_breakdown(fn):
     return by_name, 1.0 - busy / window, table
 
 
+def report(label, fn, cols, iters, calls, card, tables):
+    """Time ``fn``, profile it, print its row and keep its table."""
+    ms = cuda_ms(fn, iters=iters, warmup=3)
+    by_name, idle, table = device_breakdown(fn, calls)
+    total = sum(by_name.values())
+    share = {col: sum(v for k, v in by_name.items() if kernel_of(k) == col)
+             for col in cols}
+    others = sorted(((v, k) for k, v in by_name.items()
+                     if kernel_of(k) is None), reverse=True)[:3]
+    print(f"| {label} | {ms:.3f} | "
+          + " | ".join(f"{100 * share[c] / total:.1f}%" for c in cols)
+          + " | " + ", ".join(f"{k} {100 * v / total:.1f}%"
+                              for v, k in others)
+          + f" | {100 * idle:.1f}% |", flush=True)
+    tables.append(f"=== {label} ({card})\n{table}")
+
+
 def main():
+    ap = argparse.ArgumentParser(description="device-time shares of the "
+                                 "folded flagship on one CUDA device")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of stylize")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -117,39 +152,42 @@ def main():
     print(card, flush=True)
 
     cfg = load_config(dict(FLAGSHIP, img_size=IMG))
-    bundle = build_model(cfg, "cuda")
-    init_torch_default(bundle.model, cfg.seed)
     rng = np.random.default_rng(0)
     tables = []
-    print("| batch, type | ms per call | B1 share | other kernels by share "
-          "| idle share |")
-    print("| --- | --- | --- | --- | --- |")
-    with torch.inference_mode():
-        for batch in (1, 8):
-            c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
-                                                np.float32)).cuda()
-                    for _ in range(2))
-            for dt in (torch.float32, torch.bfloat16):
-                w = bundle.folded_weights(dt)
-
-                def fn():
-                    return stylize_multi_adain_folded(w, c, s, dtype=dt)
-
-                ms = cuda_ms(fn)
-                by_name, idle, table = device_breakdown(fn)
-                total = sum(by_name.values())
-                b1 = sum(v for k, v in by_name.items() if B1_KERNEL in k)
-                others = sorted(((v, k) for k, v in by_name.items()
-                                 if B1_KERNEL not in k), reverse=True)[:3]
-                label = f"b{batch} {str(dt)[6:]}"
-                print(f"| {label} | {ms:.3f} | {100 * b1 / total:.1f}% | "
-                      + ", ".join(f"{k} {100 * v / total:.1f}%"
-                                  for v, k in others)
-                      + f" | {100 * idle:.1f}% |", flush=True)
-                tables.append(f"=== {label} ({card})\n{table}")
-    OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text("\n".join(tables))
-    print(f"key_averages tables -> {OUT}")
+    cols = ("B1", "B2", "B3") if args.train else ("B1",)
+    print("| batch, type | ms per " + ("step" if args.train else "call")
+          + " | " + " | ".join(f"{c} share" for c in cols)
+          + " | other kernels by share | idle share |")
+    print("| --- | --- | " + "--- | " * len(cols) + "--- | --- |")
+    for batch in ((1, 4) if args.train else (1, 8)):
+        c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
+                                            np.float32)).cuda()
+                for _ in range(2))
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"b{batch} {str(dt)[6:]}"
+            if args.train:
+                bundle = build_model(cfg.replace(
+                    compute_dtype=str(dt)[6:]), "cuda")
+                init_torch_default(bundle.model, cfg.seed)
+                vgg, _ = build_vgg(cfg, "cuda")
+                state = create_train_state(bundle)
+                report(label, lambda: train_step(state, vgg, c, s), cols,
+                       iters=5, calls=3, card=card, tables=tables)
+                del state, bundle
+                torch.cuda.empty_cache()
+                continue
+            bundle = build_model(cfg, "cuda")
+            init_torch_default(bundle.model, cfg.seed)
+            w = bundle.folded_weights(dt)
+            with torch.inference_mode():
+                report(label, lambda: stylize_multi_adain_folded(
+                    w, c, s, dtype=dt), cols, iters=20, calls=5, card=card,
+                    tables=tables)
+    out = REPO / "chiprun_out" / ("profile_torch_train.txt" if args.train
+                                  else "profile_torch.txt")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text("\n".join(tables))
+    print(f"key_averages tables -> {out}")
 
 
 if __name__ == "__main__":

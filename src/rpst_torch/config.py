@@ -27,6 +27,30 @@ DEFAULTS: Dict[str, Any] = {
     "seed": 0,
     "compute_dtype": "float32",  # 'float32' | 'bfloat16'
     "exec_strategy": "standard",  # 'standard' | 'folded'
+    # training (train_torch.py)
+    "lr": 1e-4,
+    "lr_decay": 0.0,
+    "content_weight": 1.0,
+    "style_weight": 1.0,
+    "batch_size": 1,
+    "max_iter": 1_000_000,
+    "log_iter": 1,
+    "snapshot_save_iter": 10000,
+    "test_iter": 10000,
+    "num_workers": 8,
+    "content_dir": "",
+    "style_dir": "",
+    "test_dir": "",
+    "output": "output/run",
+    "checkpoint_path": "",
+    "resume": False,
+    "vgg": "",
+    # options train_torch.py refuses until their slice is ported
+    "mesh_shape": None,
+    "distributed": False,
+    "grad_accum": 1,
+    "remat": False,
+    "train_q8_targets": False,
 }
 
 _NETWORKS = (

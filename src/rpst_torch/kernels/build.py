@@ -32,12 +32,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # x, rings, k, b, y (device pointers), N, H, W, C4, C4o, alpha, stream
 _FOLDED_CONV_ARGS = [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR]
+# gz, khat, dx (device pointers), N, H, W, C4o, C4, stream
+_GRAD_INPUT_ARGS = [_PTR] * 3 + [_INT] * 5 + [_PTR]
+# x, rings, gz, dk, db, dk_part, db_part (device pointers), N, H, W, C4,
+# C4o, seg_len, stream
+_GRAD_WEIGHT_ARGS = [_PTR] * 7 + [_INT] * 6 + [_PTR]
 # C signature of every exported function, by library: (argtypes, restype);
 # every function returns its launch's cudaError_t
 SIGNATURES = {
     "folded_conv": {
         "rpst_folded_conv_f32": (_FOLDED_CONV_ARGS, _INT),
         "rpst_folded_conv_bf16": (_FOLDED_CONV_ARGS, _INT),
+    },
+    "folded_conv_bwd": {
+        "rpst_folded_conv_grad_input_f32": (_GRAD_INPUT_ARGS, _INT),
+        "rpst_folded_conv_grad_input_bf16": (_GRAD_INPUT_ARGS, _INT),
+        "rpst_folded_conv_grad_weight_f32": (_GRAD_WEIGHT_ARGS, _INT),
+        "rpst_folded_conv_grad_weight_bf16": (_GRAD_WEIGHT_ARGS, _INT),
     },
 }
 
@@ -64,8 +75,8 @@ def build(name: str) -> Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
-        build_info[name] = {"seconds": 0.0, "log": "cached"}
+    if lib.exists():  # keep the log of this process's own build
+        build_info.setdefault(name, {"seconds": 0.0, "log": "cached"})
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -80,6 +91,15 @@ def build(name: str) -> Path:
     os.replace(tmp, lib)  # atomic: concurrent builders never see a partial .so
     build_info[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
     return lib
+
+
+def build_all() -> None:
+    """Build every library of ``SIGNATURES`` at once, one nvcc process per
+    source, all started together; raises the first build's error."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(SIGNATURES)) as pool:
+        for future in [pool.submit(build, name) for name in SIGNATURES]:
+            future.result()
 
 
 def load(name: str) -> ctypes.CDLL:

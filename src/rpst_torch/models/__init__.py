@@ -1,8 +1,8 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
-This slice ports one network, the flagship ``multi_adain`` (constant RP
-stack). ``build_model`` raises ``ValueError`` for the other 16, naming the
-ROADMAP.md slice that brings each.
+The port covers one network, the flagship ``multi_adain`` (constant RP
+stack), for serving and training. ``build_model`` raises ``ValueError`` for
+the other 16, naming the ROADMAP.md slice that brings each.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
@@ -10,21 +10,30 @@ device and exposes what the serving CLI calls:
     device (the reference's ``network.test`` path),
   * ``folded_exec()`` / ``folded_infer()``: whether the config asks for, and
     the model supports, folded execution,
-  * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``).
+  * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
+  * ``loss(vgg, content, style)`` -> (total, parts): the training loss
+    (rpst's ``ModelBundle.loss``), differentiable in the model's
+    parameters; ``build_vgg`` makes its frozen encoder.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..config import Config
+from ..nn.vgg import VGG19Encoder
+from ..nn.vgg_folded import ConvAct, perceptual_rp_losses_folded
+from ..ops.folded_conv import folded_conv_act
 from .adain_rp import MultiScaleAdaINRP
-from .fast_path import folded_blocks, stylize_multi_adain_folded
+from .base import perceptual_rp_losses
+from .fast_path import (folded_blocks, live_folded_blocks,
+                        stylize_multi_adain_folded)
 
-__all__ = ["build_model", "ModelBundle", "MultiScaleAdaINRP"]
+__all__ = ["build_model", "build_vgg", "ModelBundle", "MultiScaleAdaINRP"]
 
 # every other rpst registry network -> the ROADMAP.md section A slice that
 # ports it
@@ -69,6 +78,10 @@ class ModelBundle:
 
     def load_state_dict(self, state_dict) -> None:
         self.model.load_state_dict(state_dict)
+        self.weights_changed()
+
+    def weights_changed(self) -> None:
+        """Drop the folded serving weights (after a load or an update)."""
         self._folded.clear()
 
     def folded_weights(self, dtype: Optional[torch.dtype] = None):
@@ -78,6 +91,53 @@ class ModelBundle:
         if dtype not in self._folded:
             self._folded[dtype] = folded_blocks(self.model, dtype)
         return self._folded[dtype]
+
+    def _mix(self, parts: Dict[str, torch.Tensor]) -> torch.Tensor:
+        c = self.cfg
+        return (c.content_weight * parts["content_loss"]
+                + c.style_weight * parts["style_loss"])
+
+    def loss(self, vgg: VGG19Encoder, content: torch.Tensor,
+             style: torch.Tensor, targets=None,
+             conv_act: ConvAct = folded_conv_act
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss (rpst's ``ModelBundle.loss`` for the flagship):
+        (total, parts) with parts ``style_loss``, ``content_loss`` and
+        ``total_loss``, differentiable in ``self.model``'s parameters.
+
+        Folded (``folded_exec()``): ``stylize_multi_adain_folded`` on the
+        live folded weights, then the folded VGG loss, every folded conv
+        through ``conv_act`` (B1's autograd Function; a benchmark passes B1's
+        plain version to time the plain path). Standard: the module's
+        forward, then ``perceptual_rp_losses``, under bfloat16 autocast when
+        compute_dtype says so."""
+        if targets is not None:
+            raise NotImplementedError(
+                "precomputed loss targets (the target cache) are not ported "
+                "yet: ROADMAP.md section A item 7")
+        if self.cfg.get("train_q8_targets", False):
+            raise NotImplementedError(
+                "train_q8_targets (int8 no-grad VGG targets on B4/B5) is not "
+                "ported yet: ROADMAP.md section A slice 3")
+        c = self.cfg
+        if self.folded_exec():
+            dtype = self.folded_dtype()
+            stylized = stylize_multi_adain_folded(
+                live_folded_blocks(self.model, dtype), content, style,
+                dtype=dtype, conv=lambda x, k, b: conv_act(x, k, b, 0.2))
+            parts, _ = perceptual_rp_losses_folded(
+                vgg, stylized, style, content, c.content_weight,
+                c.style_weight, dtype=dtype, conv_act=conv_act)
+        else:
+            with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                enabled=c.compute_dtype == "bfloat16"):
+                stylized = self.model(content, style)
+                parts, _ = perceptual_rp_losses(
+                    vgg, stylized, style, content, c.content_weight,
+                    c.style_weight)
+            parts = {k: v for k, v in parts.items() if k != "total_loss"}
+        total = self._mix(parts)
+        return total, {**parts, "total_loss": total}
 
     def stylize(self, content: torch.Tensor, style: torch.Tensor,
                 batch_encode: bool = False,
@@ -118,5 +178,21 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
         enc_stack_way=cfg.enc_stack_way, inception_num=cfg.inception_num,
         attention=cfg.attention, shuffle=bool(cfg.shuffle),
         sort=bool(cfg.sort), use_mask=bool(cfg.use_mask), device=device)
-    model.eval()
+    model.eval()  # serving; training calls .train() (no BatchNorm: the same)
     return ModelBundle(network=n, model=model, cfg=cfg, device=device)
+
+
+def build_vgg(cfg: Config, device="cpu") -> Tuple[VGG19Encoder, str]:
+    """The frozen 4-stage VGG of the perceptual loss and where its weights
+    came from: ``cfg.vgg`` (``.pth`` or ``.npz``) when that file exists,
+    else ``bridge.vgg_weights_from_seed(cfg.seed + 1)`` (random: the losses
+    then hold no perceptual meaning, fine for smoke and timing runs)."""
+    from ..bridge import load_vgg_weights, vgg_from_flax, vgg_weights_from_seed
+    vgg = VGG19Encoder(num_stages=4)
+    if cfg.vgg and Path(cfg.vgg).exists():
+        vgg.load_state_dict(load_vgg_weights(cfg.vgg))
+        source = str(cfg.vgg)
+    else:
+        vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(cfg.seed + 1)))
+        source = f"random (vgg_weights_from_seed({cfg.seed + 1}))"
+    return vgg.to(device), source

@@ -1,16 +1,20 @@
-"""Folded (space-to-depth) inference of the flagship; port of
+"""Folded (space-to-depth) forward of the flagship; port of
 ``rpst.models.fast_path.stylize_multi_adain_folded``.
 
 ``stylize_multi_adain_folded`` runs MultiScaleAdaINRP (constant stack)
 entirely in the folded (H/2, W/2, 4C) domain: fold once at the input, every
 conv / pad / AdaIN / lrelu in folded space, unfold once at the output. It
-consumes the same parameters as the standard model, folded once by
-``folded_blocks``; it is an execution strategy, not a different model.
+consumes the same parameters as the standard model; it is an execution
+strategy, not a different model. Serving folds them once, detached, with
+``folded_blocks``; training folds the live parameters on every step with
+``live_folded_blocks``, so that B3's dk sums back through
+``fold_conv_kernel`` onto each HWIO kernel (36 placements of 9 taps).
 
 Every conv layer goes through ``_conv_lrelu``, the one dispatch point: on a
 CUDA tensor it launches the hand-written B1 kernel at every layer, the
-12->128 and 128->12 image layers included; on a CPU tensor it takes B1's
-plain PyTorch version. rpst's TPU batch policy and 128-lane gate do not
+12->128 and 128->12 image layers included, and under grad mode B1's
+autograd Function, whose backward is B2 + B3; on a CPU tensor it takes the
+kernels' plain PyTorch versions. rpst's TPU batch policy and 128-lane gate do not
 carry over.
 """
 
@@ -31,13 +35,16 @@ def _conv_lrelu(x, k, b):
     return fused_folded_conv(x, k, b, 0.2)
 
 
-def _stack_blocks(stack, dtype) -> Blocks:
+def _stack_blocks(stack, dtype, detach: bool = True) -> Blocks:
     out = []
     for blk in stack.blocks:
         conv = blk.PadConv_0.Conv_0
-        kernel = conv.weight.detach().permute(2, 3, 1, 0)  # OIHW -> HWIO
+        weight, bias = conv.weight, conv.bias
+        if detach:
+            weight, bias = weight.detach(), bias.detach()
+        kernel = weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
         out.append((fold_conv_kernel(kernel).to(dtype).contiguous(),
-                    fold_bias(conv.bias.detach()).to(dtype).contiguous()))
+                    fold_bias(bias).to(dtype).contiguous()))
     return out
 
 
@@ -46,6 +53,13 @@ def folded_blocks(model, dtype=torch.bfloat16) -> Tuple[Blocks, Blocks]:
     from a MultiScaleAdaINRP; fold once, stylize many times."""
     return (_stack_blocks(model.rp_shared_encoder, dtype),
             _stack_blocks(model.rp_decoder, dtype))
+
+
+def live_folded_blocks(model, dtype=torch.float32) -> Tuple[Blocks, Blocks]:
+    """``folded_blocks`` without the detach: folded from the live
+    parameters inside autograd, for the training step (fold every step)."""
+    return (_stack_blocks(model.rp_shared_encoder, dtype, detach=False),
+            _stack_blocks(model.rp_decoder, dtype, detach=False))
 
 
 def stylize_multi_adain_folded(blocks: Tuple[Blocks, Blocks], content,
@@ -60,7 +74,8 @@ def stylize_multi_adain_folded(blocks: Tuple[Blocks, Blocks], content,
     ``batch_encode`` runs content and style as one 2N encoder pass (exact:
     the encoder is shared), 5 + 5 layers instead of 5 + 5 + 5 at rp_blocks 5.
     ``conv`` is the layer function; a benchmark passes B1's plain version
-    to time it on the card."""
+    to time it on the card. With ``live_folded_blocks`` the result is
+    differentiable with respect to the model's parameters."""
     enc, dec = blocks
 
     def encode(img):

@@ -20,6 +20,9 @@ and is off the serving path).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,23 +44,42 @@ def unfold(x_f: torch.Tensor) -> torch.Tensor:
     return x.reshape(n, hh * 2, ww * 2, c)
 
 
-def fold_conv_kernel(kernel: torch.Tensor) -> torch.Tensor:
-    """(3, 3, Cin, Cout) HWIO -> (3, 3, 4Cin, 4Cout) folded-equivalent kernel."""
-    kh, kw, cin, cout = kernel.shape
-    if (kh, kw) != (3, 3):
-        raise ValueError("the folded path supports 3x3 kernels")
-    kf = kernel.new_zeros((3, 3, 4 * cin, 4 * cout))
+@functools.lru_cache(maxsize=None)
+def _fold_placement(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """P (3, 3, 4, 4, 9) of 0/1: P[fr, fc, s_in, s_out, tap] = 1 where the
+    image tap (di, dj) = divmod(tap, 3) - 1 of output sub-position s_out
+    reads input sub-position s_in at folded offset (fr, fc) - 1. Each of
+    the 9 taps lands at 4 places (one per s_out): 36 of the 144 blocks."""
+    p = np.zeros((3, 3, 4, 4, 9), np.float32)
     for oi in range(2):
         for oj in range(2):
-            s_out = 2 * oi + oj
             for di in (-1, 0, 1):
                 for dj in (-1, 0, 1):
                     fr, si = divmod(oi + di, 2)
                     fc, sj = divmod(oj + dj, 2)
-                    s_in = 2 * si + sj
-                    kf[fr + 1, fc + 1, s_in * cin:(s_in + 1) * cin,
-                       s_out * cout:(s_out + 1) * cout] = kernel[di + 1, dj + 1]
-    return kf
+                    p[fr + 1, fc + 1, 2 * si + sj, 2 * oi + oj,
+                      (di + 1) * 3 + dj + 1] = 1.0
+    # a normal tensor even when first asked for under inference_mode
+    # (serving), since training later saves it for backward
+    with torch.inference_mode(False):
+        return torch.from_numpy(p).to(device=device, dtype=dtype)
+
+
+def fold_conv_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO -> (3, 3, 4Cin, 4Cout) folded-equivalent kernel.
+
+    One contraction with the constant 0/1 placement tensor, so that inside
+    autograd (training folds the live kernel every step) the fold is one
+    op and its backward, which sums each tap's 4 placements, one more. Each
+    folded entry is one kernel entry times 1 plus zeros: exact in float32
+    (a non-finite entry, which a trained kernel never holds, would spread
+    through the products with 0)."""
+    kh, kw, cin, cout = kernel.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError("the folded path supports 3x3 kernels")
+    p = _fold_placement(kernel.dtype, kernel.device)
+    kf = torch.einsum("abstk,kio->absito", p, kernel.reshape(9, cin, cout))
+    return kf.reshape(3, 3, 4 * cin, 4 * cout)
 
 
 def fold_bias(bias: torch.Tensor) -> torch.Tensor:

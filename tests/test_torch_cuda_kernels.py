@@ -77,3 +77,73 @@ def test_b1_refuses_mixed_devices(cuda_device):
     x, k, b = _layer(1, 1, 4, 4, 2, 2, cuda_device)
     with pytest.raises(ValueError, match="is on cpu"):
         fused_folded_conv(x, k.cpu(), b)
+
+
+# ---------------------------------------------------------------- B2 / B3
+
+from rpst_torch.ops.folded_conv import (  # noqa: E402
+    FoldedConvAct, fused_folded_conv_grad_input,
+    fused_folded_conv_grad_input_plain, fused_folded_conv_grad_weight,
+    fused_folded_conv_grad_weight_plain)
+
+
+def _grad_case(seed, n, h, w, c4, c4o, device):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, h, w, c4, generator=g)
+    gz = torch.randn(n, h, w, c4o, generator=g)
+    kf = torch.randn(3, 3, c4, c4o, generator=g) * 0.1
+    return (x.to(device), gz.to(device),
+            kf.flip(0, 1).transpose(2, 3).contiguous().to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32, 48, 12, 128), (1, 32, 48, 128, 12),
+                                   (2, 38, 22, 128, 128), (1, 16, 16, 256, 512),
+                                   (2, 2, 2, 12, 12), (1, 3, 5, 128, 12)])
+def test_b2_b3_match_plain_on_card(cuda_device, dtype, shape):
+    """dx to B1's tolerances; dk/db (float32 sums of bf16 or f32 products)
+    rtol 1e-4, atol 2e-3 * sqrt(N*H*W / 512), scaled from
+    tests/test_folded.py's 2e-3 at 512 summed positions."""
+    n, h, w, _, _ = shape
+    x, gz, khat = _grad_case(0, *shape, cuda_device)
+    x, gz, khat = x.to(dtype), gz.to(dtype), khat.to(dtype)
+    before = (fused_folded_conv_grad_input.launches,
+              fused_folded_conv_grad_weight.launches)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        dx = fused_folded_conv_grad_input(gz, khat)
+        dk, db = fused_folded_conv_grad_weight(x, gz)
+        torch.cuda.synchronize()
+        rdx = fused_folded_conv_grad_input_plain(gz, khat)
+        rdk, rdb = fused_folded_conv_grad_weight_plain(x, gz)
+    assert (fused_folded_conv_grad_input.launches,
+            fused_folded_conv_grad_weight.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert dx.dtype == dtype and dk.dtype == db.dtype == torch.float32
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol, atol=tol)
+    atol = 2e-3 * (n * h * w / 512) ** 0.5
+    torch.testing.assert_close(dk, rdk, rtol=1e-4, atol=atol)
+    torch.testing.assert_close(db, rdb, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.2, 0.0])
+def test_function_on_card_matches_plain_autograd(cuda_device, alpha):
+    x, k, b = _layer(2, 2, 16, 12, 32, 16, cuda_device)
+    g = torch.randn(2, 16, 12, 64, device=cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (x, k, b)]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = torch.autograd.grad(
+            (fused_folded_conv_plain(*leaves, alpha) * g).sum(), leaves)
+        got = torch.autograd.grad(
+            (FoldedConvAct.apply(*leaves, alpha) * g).sum(), leaves)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_b2_refuses_float64_on_card(cuda_device):
+    x, gz, khat = _grad_case(1, 1, 4, 4, 8, 8, cuda_device)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        fused_folded_conv_grad_input(gz.double(), khat.double())

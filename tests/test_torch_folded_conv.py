@@ -87,19 +87,24 @@ def test_cpu_tensor_takes_plain_and_counts_no_launch(rng):
 
 
 def test_refuses_grad_instead_of_detaching(rng):
+    """An input that requires grad takes the autograd Function (B2/B3
+    backward) instead of being detached; the rings override, whose
+    gradient belongs to the halo path, is refused."""
     _, (xt, kt, bt) = _layer(rng, 1, 4, 4, 8, 8)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fused_folded_conv(xt, kt.requires_grad_(), bt)
+    y = fused_folded_conv(xt, kt.requires_grad_(), bt)
+    assert y.grad_fn is not None and "FoldedConvAct" in type(y.grad_fn).__name__
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        fused_folded_conv(xt, kt, bt, rings=torch.zeros(1, 2, 4, 32))
     with torch.no_grad():
-        fused_folded_conv(xt, kt, bt)
+        assert fused_folded_conv(xt, kt, bt).grad_fn is None
 
 
 def _bad_inputs(kind):
     x = torch.zeros(1, 4, 4, 8)
     k, b = torch.zeros(3, 3, 8, 12), torch.zeros(12)
     rings = None
-    if kind == "dtype":
-        x, k, b = x.double(), k.double(), b.double()
+    if kind == "dtype":  # float64 is taken on the CPU only (gradcheck)
+        x, k, b = x.half(), k.half(), b.half()
     elif kind == "mixed dtype":
         k = k.to(torch.bfloat16)
     elif kind == "kernel shape":

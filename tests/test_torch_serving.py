@@ -97,7 +97,7 @@ def test_batcher_contains_failures_per_batch():
 
 def test_batcher_threads_run_in_inference_mode():
     """Grad mode is thread-local: the worker enters inference mode itself,
-    so the forward-only B1 wrapper never sees grad-enabled inputs."""
+    so stylize never builds an autograd graph."""
     modes = []
 
     def run(c, s):
@@ -342,18 +342,22 @@ def test_serve_torch_refuses_missing_card_and_q8(serve_data):
 
 
 def test_port_never_imports_jax():
-    """Importing the port's modules (and serve_torch.py's) in a fresh
-    interpreter leaves jax, flax, optax and the rpst package itself out of
-    sys.modules."""
+    """Importing the port's modules (and serve_torch.py's and
+    train_torch.py's) in a fresh interpreter leaves jax, flax, optax and the
+    rpst package itself out of sys.modules."""
     code = (
         "import sys; sys.path.insert(0, 'src')\n"
         "import rpst_torch.serving, rpst_torch.models, rpst_torch.bridge\n"
         "import rpst_torch.ops.folded_conv, rpst_torch.kernels.build\n"
         "import rpst_torch.metrics, rpst_torch.models.fast_path\n"
         "import rpst_torch.config, rpst_torch.data\n"
+        "import rpst_torch.nn.vgg, rpst_torch.nn.vgg_folded\n"
+        "import rpst_torch.train.step, rpst_torch.train.checkpoint\n"
+        "import rpst_torch.train.metrics, rpst_torch.train.fault\n"
         "import importlib.util as u\n"
-        "spec = u.spec_from_file_location('serve_torch', 'serve_torch.py')\n"
-        "spec.loader.exec_module(u.module_from_spec(spec))\n"
+        "for name in ('serve_torch', 'train_torch'):\n"
+        "    spec = u.spec_from_file_location(name, name + '.py')\n"
+        "    spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'rpst')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n")
@@ -363,8 +367,8 @@ def test_port_never_imports_jax():
 
 
 PORT_FILES = sorted([*(REPO / "src" / "rpst_torch").rglob("*.py"),
-                     REPO / "serve_torch.py", REPO / "chip_smoke.py",
-                     REPO / "profile_torch.py"])
+                     REPO / "serve_torch.py", REPO / "train_torch.py",
+                     REPO / "chip_smoke.py", REPO / "profile_torch.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

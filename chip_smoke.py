@@ -35,6 +35,23 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                before and read after; exact B1/B2/B3 launches per step
  11. train timing  the 512px train step, b1/b4, f32/bf16: folded with the
                B-kernels, folded plain, standard, with CUDA events
+ 12. q8 kernels    B4 vs its plain version at the path's shape (1,256,256,
+               128->128) and a ragged one, all four (out_int8, with_stats)
+               modes: int8 identical, bf16 within one ulp, s1/s2 within rtol
+               1e-4 / atol 1e-3; B7 vs two B4 launches, identical; each
+               timed against its plain version
+ 13. q8 fixture    the q8 stylize on the card with rpst's act scales vs
+               rpst's JAX output (tests/fixtures/torch_port_q8.npz), f32 and
+               bf16, exact B1/B4 (and B1/B4/B7 with fuse_pairs) launches
+ 14. q8 parity     512px b2: q8 vs the port's folded f32 path (PSNR > 30
+               dB); fuse_pairs bit-equal to unfused
+ 15. q8 serve      the int8 main path: 8 requests through build_model ->
+               resolve_mode("q8") -> calibrate_scales -> make_run_impl ->
+               DynamicBatcher, counts reset before and read after, once
+               unfused (B1 + B4) and once with fuse_pairs (B1 + B4 + B7);
+               then serve_torch.py --mode q8 as a subprocess
+ 16. q8 timing     512px stylize b1/b8: q8 with B4, q8 with B7 pairs, beside
+               phase 7's folded B1 and standard rows
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -371,12 +388,19 @@ def main():
     train_launches = _train_main_path(dev)
     _train_timing(dev, rng, name_power)
 
+    # ---- 12-16. int8 (q8) serving -----------------------------------------
+    q8k = _q8_kernels(dev, name_power)
+    _q8_fixture(dev)
+    _q8_parity(dev, rng)
+    q8_launches = _q8_serve(dev, rng)
+    _q8_timing(dev, rng, name_power, rows)
+
     bwd_src = "src/rpst_torch/csrc/folded_conv_bwd.cu"
     kernels = {"kernels": [
         {"name": "fused_folded_conv", "route": "cuda",
          "source": "src/rpst_torch/csrc/folded_conv.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv.py:650",
-         "launches": main_launches + train_launches[0],
+         "launches": main_launches + train_launches[0] + q8_launches["B1"],
          "max_abs_err": f32_err, "ms": kernel_ms[torch.float32],
          "plain_ms": plain_ms[torch.float32]},
         {"name": "fused_folded_conv_grad_input", "route": "cuda",
@@ -388,7 +412,17 @@ def main():
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
          "launches": train_launches[2], "max_abs_err": bwd["B3"]["err"],
-         "ms": bwd["B3"]["ms"], "plain_ms": bwd["B3"]["plain_ms"]}]}
+         "ms": bwd["B3"]["ms"], "plain_ms": bwd["B3"]["plain_ms"]},
+        {"name": "fused_folded_conv_q8", "route": "cuda",
+         "source": "src/rpst_torch/csrc/folded_conv_q8.cu",
+         "replaces": "src/rpst/ops/pallas/folded_conv_q8.py:281",
+         "launches": q8_launches["B4"], "max_abs_err": q8k["B4"]["err"],
+         "ms": q8k["B4"]["ms"], "plain_ms": q8k["B4"]["plain_ms"]},
+        {"name": "fused_folded_conv2_q8", "route": "cuda",
+         "source": "src/rpst_torch/csrc/folded_conv2_q8.cu",
+         "replaces": "src/rpst/ops/pallas/folded_conv2_q8.py:254",
+         "launches": q8_launches["B7"], "max_abs_err": q8k["B7"]["err"],
+         "ms": q8k["B7"]["ms"], "plain_ms": q8k["B7"]["plain_ms"]}]}
     print(json.dumps(kernels), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -480,17 +514,25 @@ def _counters():
     from rpst_torch.ops.folded_conv import (fused_folded_conv,
                                             fused_folded_conv_grad_input,
                                             fused_folded_conv_grad_weight)
-    return (fused_folded_conv, fused_folded_conv_grad_input,
-            fused_folded_conv_grad_weight)
+    from rpst_torch.ops.folded_conv2_q8 import fused_folded_conv2_q8
+    from rpst_torch.ops.folded_conv_q8 import fused_folded_conv_q8
+    return {"B1": fused_folded_conv, "B2": fused_folded_conv_grad_input,
+            "B3": fused_folded_conv_grad_weight, "B4": fused_folded_conv_q8,
+            "B7": fused_folded_conv2_q8}
 
 
 def _reset_counts():
-    for c in _counters():
+    for c in _counters().values():
         c.launches = 0
 
 
-def _counts():
-    return tuple(c.launches for c in _counters())
+def _counts(names=("B1", "B2", "B3")):
+    """The launch counts of ``names``: the train step's kernels by default,
+    a dict of the q8 path's with ``Q8_KERNELS``."""
+    c = _counters()
+    if names == Q8_KERNELS:
+        return {k: c[k].launches for k in names}
+    return tuple(c[k].launches for k in names)
 
 
 def _grad_dict(model):
@@ -725,6 +767,374 @@ def _train_timing(dev, rng, name_power):
                     f"({name_power})")
                 del state, bundle
                 torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- q8
+
+Q8_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_q8.npz"
+# the q8 gates: stats at rpst's tests/test_q8.py:213-218; the stylize vs
+# rpst at PSNR >= 40 dB and MAE < 1e-3 (a one-ulp AdaIN difference can move
+# a decoder requantization by one step); vs folded f32 at rpst's
+# tests/test_q8.py:74 PSNR > 30 dB
+Q8_STATS_RTOL, Q8_STATS_ATOL = 1e-4, 1e-3
+Q8_FIXTURE_PSNR, Q8_FIXTURE_MAE, Q8_VS_FOLDED_PSNR = 40.0, 1e-3, 30.0
+Q8_KERNELS = ("B1", "B4", "B7")  # the kernels a q8 stylize launches
+
+
+def _psnr(got, ref):
+    import numpy as np
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    mse = float(np.mean((got - ref) ** 2))
+    span = float(ref.max() - ref.min()) or 1.0
+    return 10 * np.log10(span * span / max(mse, 1e-30))
+
+
+def _q8_plan(bundle, fuse_pairs):
+    """The scales and B1/B4/B7 launches one q8 stylize derives from the
+    bundle's layers (``fast_path_q8.q8_plan``)."""
+    import torch
+    from rpst_torch.models.fast_path_q8 import q8_plan
+    enc, dec = bundle.folded_weights(torch.float32)
+    return q8_plan([k for k, _ in enc], [k for k, _ in dec], fuse_pairs)
+
+
+def _q8_layer(rng, dev, n, h, w, c4, c4o, out_scale=0.05):
+    import numpy as np
+    import torch
+    x = rng.integers(-127, 128, (n, h, w, c4), dtype=np.int8)
+    k = rng.integers(-127, 128, (3, 3, c4, c4o), dtype=np.int8)
+    sc = np.stack([rng.uniform(2e-6, 6e-6, c4o), rng.normal(0, 0.2, c4o),
+                   np.full(c4o, 1.0 / out_scale)]).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, k, sc))
+
+
+def _bf16_ulps(a, b):
+    """Max distance in bf16 steps between two bf16 tensors (bit patterns
+    mapped to a monotonic integer order, -0 == +0)."""
+    import torch
+
+    def order(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+    return (order(a) - order(b)).abs().max().item()
+
+
+def _q8_compare(label, got, ref):
+    """int8: identical; bf16: within one ulp; float32 sums: Q8_STATS_*.
+    Returns (max abs err, detail)."""
+    import torch
+    err = (got.float() - ref.float()).abs().max().item()
+    if got.dtype == torch.int8:
+        ndiff = (got != ref).sum().item()
+        if ndiff:
+            raise AssertionError(f"{label}: {ndiff} int8 elements differ")
+        return err, "int8 identical"
+    if got.dtype == torch.bfloat16:
+        ulps = _bf16_ulps(got, ref)
+        if ulps > 1:
+            raise AssertionError(f"{label}: bf16 {ulps} ulps apart")
+        return err, f"bf16 within {ulps} ulp"
+    if not (torch.isfinite(got).all() and torch.allclose(
+            got, ref, rtol=Q8_STATS_RTOL, atol=Q8_STATS_ATOL)):
+        raise AssertionError(f"{label}: max abs err {err}")
+    return err, f"sums err {err:.3g}"
+
+
+def _q8_kernels(dev, name_power):
+    """Phase 12: B4 vs its plain version (float64 conv, exact integer sums)
+    and B7 vs two B4 launches, at the path's shape and a ragged one; each
+    timed against its plain version at the path's shape. Returns the
+    kernels JSON numbers."""
+    import numpy as np
+    import torch
+    from rpst_torch.ops.folded_conv2_q8 import (fused_folded_conv2_q8,
+                                                fused_folded_conv2_q8_plain)
+    from rpst_torch.ops.folded_conv_q8 import (fused_folded_conv_q8,
+                                               fused_folded_conv_q8_plain)
+    rng = np.random.default_rng(2)
+    out = {"B4": {"err": 0.0}, "B7": {"err": 0.0}}
+    cases = (("path (1,256,256,128->128)", (1, 256, 256, 128, 128)),
+             ("ragged (2,38,22,128->128)", (2, 38, 22, 128, 128)))
+    with torch.inference_mode():
+        for label, shape in cases:
+            x, k, sc = _q8_layer(rng, dev, *shape)
+            for out_int8 in (True, False):
+                for stats in (False, True):
+                    got = fused_folded_conv_q8(x, k, sc, out_int8, stats)
+                    torch.cuda.synchronize()
+                    ref = fused_folded_conv_q8_plain(x, k, sc, out_int8,
+                                                     stats)
+                    got, ref = ((got, ref) if stats else ((got,), (ref,)))
+                    msg = []
+                    for i, (g, r) in enumerate(zip(got, ref)):
+                        e, d = _q8_compare(f"B4 {label} out_int8={out_int8} "
+                                           f"stats={stats} [{i}]", g, r)
+                        out["B4"]["err"] = max(out["B4"]["err"], e)
+                        msg.append(d)
+                    log("12 q8 kernels", f"B4 {label} out_int8={out_int8} "
+                        f"with_stats={stats}: {'; '.join(msg)}")
+            n, h, w, c4, _ = shape
+            _, k2, sc2 = _q8_layer(rng, dev, n, h, w, 128, 128, 0.02)
+            for out_int8 in (True, False):
+                got = fused_folded_conv2_q8(x, k, sc, k2, sc2, out_int8, True)
+                y1, s11, s12 = fused_folded_conv_q8(x, k, sc, True, True)
+                y2, s21, s22 = fused_folded_conv_q8(y1, k2, sc2, out_int8,
+                                                    True)
+                torch.cuda.synchronize()
+                msg = []
+                for i, (g, r) in enumerate(zip(got, (y1, y2, s11, s12, s21,
+                                                     s22))):
+                    if g.dtype != torch.float32 and not torch.equal(g, r):
+                        raise AssertionError(
+                            f"B7 {label} out_int8={out_int8} [{i}]: "
+                            f"{(g != r).sum().item()} elements differ from "
+                            "two B4 launches")
+                    e, d = _q8_compare(f"B7 {label} [{i}]", g, r)
+                    out["B7"]["err"] = max(out["B7"]["err"], e)
+                    msg.append(d)
+                log("12 q8 kernels", f"B7 {label} out_int8={out_int8} vs two "
+                    f"B4 launches: {'; '.join(msg)}")
+        x, k, sc = _q8_layer(rng, dev, *cases[0][1])
+        _, k2, sc2 = _q8_layer(rng, dev, 1, 256, 256, 128, 128, 0.02)
+        t = {
+            "B4": cuda_ms(lambda: fused_folded_conv_q8(x, k, sc, True, True)),
+            "B4 plain": cuda_ms(lambda: fused_folded_conv_q8_plain(
+                x, k, sc, True, True), iters=5, warmup=1),
+            "B4 bf16": cuda_ms(lambda: fused_folded_conv_q8(x, k, sc, False)),
+            "B4 bf16 plain": cuda_ms(lambda: fused_folded_conv_q8_plain(
+                x, k, sc, False), iters=5, warmup=1),
+            "B7": cuda_ms(lambda: fused_folded_conv2_q8(
+                x, k, sc, k2, sc2, True, True)),
+            "B7 plain": cuda_ms(lambda: fused_folded_conv2_q8_plain(
+                x, k, sc, k2, sc2, True, True), iters=5, warmup=1),
+            "2xB4": cuda_ms(lambda: fused_folded_conv_q8(
+                fused_folded_conv_q8(x, k, sc, True, True)[0], k2, sc2, True,
+                True))}
+    log("12 q8 kernels", "(1,256,256,128->128) ms: B4 int8+stats "
+        f"{t['B4']:.4f} vs plain {t['B4 plain']:.4f}; B4 bf16 "
+        f"{t['B4 bf16']:.4f} vs plain {t['B4 bf16 plain']:.4f}; B7 pair "
+        f"{t['B7']:.4f} vs plain {t['B7 plain']:.4f} vs two B4 "
+        f"{t['2xB4']:.4f} ({name_power})")
+    out["B4"].update(ms=t["B4"], plain_ms=t["B4 plain"])
+    out["B7"].update(ms=t["B7"], plain_ms=t["B7 plain"])
+    return out
+
+
+def _q8_fixture(dev):
+    """Phase 13: the q8 stylize on the card with rpst's act scales vs
+    rpst's JAX output, f32 and bf16; exact launches; fuse_pairs bit-equal."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import load_weights
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    with np.load(Q8_FIXTURE) as fx:
+        fx = {k: fx[k] for k in ("content", "style", "act_scales", "out_f32",
+                                 "out_bf16")}
+    bundle = build_model(load_config(dict(
+        FLAGSHIP, img_size=fx["content"].shape[1])), dev)
+    bundle.load_state_dict(load_weights(Q8_FIXTURE))
+    c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+    scales = {"act_scales": fx["act_scales"]}
+    outs, msg = {}, []
+    for fuse in (False, True):
+        plan = _q8_plan(bundle, fuse)
+        if plan["scales"] != len(fx["act_scales"]):
+            raise AssertionError(f"plan {plan} vs {len(fx['act_scales'])} "
+                                 "fixture scales")
+        want = {k: plan[k] for k in Q8_KERNELS}
+        for dt, key in ((torch.float32, "out_f32"),
+                        (torch.bfloat16, "out_bf16")):
+            _reset_counts()
+            y = bundle.stylize_q8(c, s, scales, dtype=dt, fuse_pairs=fuse)
+            torch.cuda.synchronize()
+            if _counts(Q8_KERNELS) != want:
+                raise AssertionError(f"q8 fixture launches {_counts(Q8_KERNELS)}, "
+                                     f"expected {want}")
+            got = y.cpu().numpy()
+            psnr, mae = _psnr(got, fx[key]), float(
+                np.abs(got - fx[key]).mean())
+            if not (np.isfinite(got).all() and psnr >= Q8_FIXTURE_PSNR
+                    and mae < Q8_FIXTURE_MAE):
+                raise AssertionError(f"q8 fixture {key} fuse_pairs={fuse}: "
+                                     f"PSNR {psnr} dB, MAE {mae}")
+            outs[(fuse, key)] = y
+            if not fuse:
+                msg.append(f"{key} PSNR {psnr:.2f} dB, MAE {mae:.3g}, max "
+                           f"{float(np.abs(got - fx[key]).max()):.3g}")
+        msg.append(f"fuse_pairs={fuse} launches {want}")
+    for key in ("out_f32", "out_bf16"):
+        if not torch.equal(outs[(False, key)], outs[(True, key)]):
+            raise AssertionError(f"q8 fixture {key}: fuse_pairs changed it")
+    log("13 q8 fixture", f"64px rp5 h32 vs rpst JAX (interpret): "
+        f"{'; '.join(msg)}; fuse_pairs bit-equal")
+
+
+def _q8_parity(dev, rng):
+    """Phase 14: 512px b2 q8 (bf16, as served) vs the port's folded f32
+    path, and fuse_pairs bit-equal."""
+    import numpy as np
+    import torch
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    cfg = load_config(dict(FLAGSHIP, img_size=IMG, exec_strategy="folded"))
+    bundle = build_model(cfg, dev)
+    init_torch_default(bundle.model, cfg.seed)
+    c, s = (torch.from_numpy(rng.random((2, IMG, IMG, 3),
+                                        np.float32)).to(dev)
+            for _ in range(2))
+    scales = bundle.calibrate_q8(c, s)
+    q8 = bundle.stylize_q8(c, s, scales, fuse_pairs=False)
+    pairs = bundle.stylize_q8(c, s, scales, fuse_pairs=True)
+    folded = bundle.stylize(c, s, folded=True)
+    torch.cuda.synchronize()
+    psnr = _psnr(q8.cpu().numpy(), folded.cpu().numpy())
+    if not (torch.isfinite(q8).all() and psnr > Q8_VS_FOLDED_PSNR):
+        raise AssertionError(f"512px q8 vs folded f32: PSNR {psnr} dB")
+    if not torch.equal(q8, pairs):
+        raise AssertionError("512px fuse_pairs output differs from unfused")
+    log("14 q8 parity", f"512px b2 q8 (bf16) vs folded f32: PSNR {psnr:.2f} "
+        f"dB (bound > {Q8_VS_FOLDED_PSNR}); fuse_pairs bit-equal; "
+        f"{len(scales['act_scales'])} act scales")
+
+
+def _q8_serve(dev, rng):
+    """Phase 15: the int8 main path through the user's entry points, unfused
+    and with fuse_pairs, counts reset before and read after each; then
+    serve_torch.py --mode q8. Returns the main path's B1/B4/B7 launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rpst_torch.config import load_config
+    from rpst_torch.data import load_image
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.policy import FUSE_PAIRS
+    from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
+                                    make_run_impl, resolve_mode)
+    launches = {"B1": 0, "B4": 0, "B7": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for sub in ("content", "style"):
+            (tmp / sub).mkdir()
+        for i in range(8):
+            Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                            "RGB").save(tmp / "content" / f"c{i}.png")
+        Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                        "RGB").save(tmp / "style" / "s.png")
+        cfg_path = tmp / "cfg.yaml"
+        cfg_path.write_text(json.dumps(dict(FLAGSHIP, img_size=IMG)))
+        cfg = load_config(str(cfg_path), {"exec_strategy": "folded"})
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        mode = resolve_mode(bundle, "q8", batch=4)
+        if mode != "q8":
+            raise AssertionError(f"resolve_mode q8 gave {mode}")
+        imgs = [load_image(tmp / "content" / f"c{i}.png", IMG)
+                for i in range(8)]
+        style_img = load_image(tmp / "style" / "s.png", IMG)
+        calib = torch.from_numpy(np.stack(imgs[:4])).to(dev)
+        scales = calibrate_scales(bundle, calib, torch.from_numpy(
+            style_img)[None].to(dev).expand_as(calib).contiguous())
+        for fuse in (False, True):
+            plan = _q8_plan(bundle, fuse)
+            if len(scales["act_scales"]) != plan["scales"]:
+                raise AssertionError(f"{len(scales['act_scales'])} scales, "
+                                     f"plan {plan}")
+            run = make_run_impl(bundle, mode, scales, fuse_pairs=fuse)
+            batcher = DynamicBatcher(run, batch_size=4, max_wait_ms=50.0,
+                                     device=dev)
+            _reset_counts()  # this main path's count starts here
+            try:
+                outs = [f.result(timeout=300) for f in
+                        [batcher.submit(im, style_img) for im in imgs]]
+            finally:
+                batcher.close()
+            got = _counts(Q8_KERNELS)
+            batches = batcher.stats()["batches"]
+            want = {k: batches * plan[k] for k in Q8_KERNELS}
+            if got != want:
+                raise AssertionError(f"q8 main path fuse_pairs={fuse}: "
+                                     f"launches {got}, expected {want} "
+                                     f"({batches} batches x {plan})")
+            for o in outs:
+                if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
+                    raise AssertionError(f"q8 main path output {o.shape}")
+            for k in launches:
+                launches[k] += got[k]
+            log("15 q8 serve", f"8 requests via DynamicBatcher(b4), "
+                f"fuse_pairs={fuse}: {batcher.stats()}, launches {got} "
+                f"({batches} batches x {plan})")
+
+        swept = tmp / "swept"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "serve_torch.py"),
+             "--config", str(cfg_path), "--content", str(tmp / "content"),
+             "--style", str(tmp / "style" / "s.png"), "--out", str(swept),
+             "--mode", "q8", "--batch", "4", "--device", "cuda"],
+            capture_output=True, text=True, timeout=300, cwd=str(REPO))
+        text = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise AssertionError(f"serve_torch q8 rc {proc.returncode}:\n"
+                                 f"{text[-3000:]}")
+        plan = _q8_plan(bundle, FUSE_PAIRS)
+        child = {k: _logged_count(text, k) for k in Q8_KERNELS}
+        want = {k: 2 * plan[k] for k in Q8_KERNELS}  # 2 batches
+        # + calibration: one bf16 folded forward, B1 on every layer
+        enc, dec = bundle.folded_weights(torch.float32)
+        want["B1"] += 2 * len(enc) + len(dec)
+        pngs = sorted(swept.glob("*.png"))
+        if (len(pngs) != 8 or child != want or not child["B4"] > 0
+                or f"Calibrated {plan['scales']} layer scales" not in text):
+            raise AssertionError(f"serve_torch q8: {len(pngs)} PNGs, child "
+                                 f"launches {child} vs {want}:\n"
+                                 f"{text[-3000:]}")
+        rate = [ln for ln in text.splitlines() if "Stylized" in ln]
+        log("15 q8 serve", f"serve_torch.py --mode q8: 8 PNGs, 'Calibrated "
+            f"{plan['scales']} layer scales', child launches {child}, "
+            f"{time.perf_counter() - t0:.1f}s wall; "
+            f"{rate[-1].split(' - ')[-1] if rate else ''}")
+    return launches
+
+
+def _logged_count(text, label):
+    """The count serve_torch.py logs as '<label> <kernel> launches: N'."""
+    counts = [int(ln.rsplit(":", 1)[1]) for ln in text.splitlines()
+              if f" - {label} " in ln and " launches:" in ln]
+    return counts[-1] if counts else None
+
+
+def _q8_timing(dev, rng, name_power, rows):
+    """Phase 16: 512px q8 stylize b1/b8 (bf16, as served), with B4 alone
+    and with B7 pairs, CUDA events, beside phase 7's rows."""
+    import numpy as np
+    import torch
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    cfg = load_config(dict(FLAGSHIP, img_size=IMG, exec_strategy="folded"))
+    bundle = build_model(cfg, dev)
+    init_torch_default(bundle.model, cfg.seed)
+    with torch.inference_mode():
+        for batch in (1, 8):
+            c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
+                                                np.float32)).to(dev)
+                    for _ in range(2))
+            scales = bundle.calibrate_q8(c, s)
+            for path, fuse in (("q8 B4", False), ("q8 B7 pairs", True)):
+                ms = cuda_ms(lambda: bundle.stylize_q8(c, s, scales,
+                                                       fuse_pairs=fuse),
+                             iters=10)
+                log("16 q8 timing", f"512px b{batch} bfloat16 {path:12s}: "
+                    f"{ms:8.3f} ms  {batch * 1e3 / ms:8.2f} img/s  "
+                    f"({name_power})")
+            for b, dt, path, ms in rows:
+                if b == batch and path != "folded plain":
+                    log("16 q8 timing", f"512px b{batch} {dt:8s} {path:12s}: "
+                        f"{ms:8.3f} ms  {batch * 1e3 / ms:8.2f} img/s  "
+                        f"(phase 7, {name_power})")
 
 
 def _standard(bundle, c, s, dt):

@@ -3,7 +3,9 @@
 constant stack, rp_blocks 5, hidden 32) at 512px with seeded weights, on one
 CUDA device: the stylize call at b1 and b8 (default), or with ``--train``
 the train step (loss, backward, Adam; B1 + B2 + B3) at b1 and b4; float32
-and bfloat16 each.
+and bfloat16 each. With ``--q8``, the int8 stylize (bfloat16 around the
+int8 layers, as served) at b1 and b8, calibrated on the batch, once with B4
+alone and once with B7 pairs (``fuse_pairs``).
 
 For each case it prints one Markdown table row:
 
@@ -12,8 +14,10 @@ For each case it prints one Markdown table row:
   ms per call   median of CUDA-event-timed calls (20 stylize, 5 train
                 steps) after warm-ups, without the profiler
   Bn share      device time of the kernel (B1 folded_conv_kernel, B2
-                grad_input_kernel, B3 grad_weight_partial + _reduce) over
-                all device time, in the profiled calls
+                grad_input_kernel, B3 grad_weight_partial + _reduce, B4
+                folded_conv_q8_kernel, B7 folded_conv2_q8_kernel; the
+                stats' finalize_sums counts as other) over all device
+                time, in the profiled calls
   other         the three next kernels by device time, names shortened
   idle share    1 - (union of device activity) / (first start .. last end)
                 over the profiled calls (5 stylize, 3 train steps)
@@ -22,7 +26,7 @@ It also writes each case's ``key_averages()`` table to
 ``chiprun_out/profile_torch[_train].txt``. The card's name and power limit
 come first, as nvidia-smi gives them.
 
-    python3 profile_torch.py [--train]
+    python3 profile_torch.py [--train | --q8]
 """
 
 import argparse
@@ -50,7 +54,8 @@ FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
 IMG = 512
 # report column -> the kernel-name prefixes it sums
 KERNELS = {"B1": ("folded_conv_kernel",), "B2": ("grad_input_kernel",),
-           "B3": ("grad_weight_partial", "grad_weight_reduce")}
+           "B3": ("grad_weight_partial", "grad_weight_reduce"),
+           "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",)}
 
 
 def short_name(name: str) -> str:
@@ -139,8 +144,11 @@ def report(label, fn, cols, iters, calls, card, tables):
 def main():
     ap = argparse.ArgumentParser(description="device-time shares of the "
                                  "folded flagship on one CUDA device")
-    ap.add_argument("--train", action="store_true",
-                    help="profile the train step instead of stylize")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the train step instead of stylize")
+    mode.add_argument("--q8", action="store_true",
+                      help="profile the int8 stylize instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
@@ -154,7 +162,8 @@ def main():
     cfg = load_config(dict(FLAGSHIP, img_size=IMG))
     rng = np.random.default_rng(0)
     tables = []
-    cols = ("B1", "B2", "B3") if args.train else ("B1",)
+    cols = (("B1", "B2", "B3") if args.train
+            else ("B1", "B4", "B7") if args.q8 else ("B1",))
     print("| batch, type | ms per " + ("step" if args.train else "call")
           + " | " + " | ".join(f"{c} share" for c in cols)
           + " | other kernels by share | idle share |")
@@ -178,12 +187,24 @@ def main():
                 continue
             bundle = build_model(cfg, "cuda")
             init_torch_default(bundle.model, cfg.seed)
+            if args.q8:
+                if dt == torch.float32:
+                    continue  # q8 serves in bfloat16 around the int8 layers
+                scales = bundle.calibrate_q8(c, s)
+                for fuse in (False, True):
+                    report(f"b{batch} q8 {'B7 pairs' if fuse else 'B4'}",
+                           lambda: bundle.stylize_q8(c, s, scales,
+                                                     fuse_pairs=fuse),
+                           cols, iters=20, calls=5, card=card,
+                           tables=tables)
+                continue
             w = bundle.folded_weights(dt)
             with torch.inference_mode():
                 report(label, lambda: stylize_multi_adain_folded(
                     w, c, s, dtype=dt), cols, iters=20, calls=5, card=card,
                     tables=tables)
     out = REPO / "chiprun_out" / ("profile_torch_train.txt" if args.train
+                                  else "profile_torch_q8.txt" if args.q8
                                   else "profile_torch.txt")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text("\n".join(tables))

@@ -4,12 +4,22 @@ images against a style image, or serve a line-JSON TCP daemon with dynamic
 request batching. The counterpart of ``serve.py``, with the same flags
 except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
 
+  * ``--mode q8``       int8 PTQ serving: calibrates per-tensor activation
+                        scales on the first min(batch, 8) content images
+                        with the style, then runs the int8 layers on the
+                        hand-written B4 CUDA kernel (B7 pairs where
+                        ``rpst_torch.policy.FUSE_PAIRS``) and the image
+                        layers on B1 (on a CPU device: their plain
+                        versions); configs without int8 layers
+                        (4 * hidden_dim % 128) serve standard, with a
+                        warning,
   * ``--mode folded``   exact space-to-depth execution on the hand-written
                         B1 CUDA kernel (on a CPU device: its plain version),
   * ``--mode standard`` the plain model path,
-  * ``--mode auto``     the path measured fastest on the H100: standard
-                        (PERF.md section 6),
-  * ``--mode q8``       not ported yet: raises NotImplementedError.
+  * ``--mode auto``     the path measured fastest on the H100 at --batch
+                        (``rpst_torch.policy``, PERF.md section 6).
+
+At the end it logs the B1, B4 and B7 launch counts of the run.
 
 Weights: ``--weights`` takes a reference-layout ``.pth`` (written from an
 rpst checkpoint by ``tools/export_reference_checkpoint.py``) or an ``.npz``
@@ -41,12 +51,20 @@ from rpst_torch.metrics import logger, save_image
 from rpst_torch.models import build_model
 from rpst_torch.nn.blocks import init_torch_default
 from rpst_torch.ops.folded_conv import fused_folded_conv
-from rpst_torch.serving import (DynamicBatcher, make_run_impl, resolve_mode,
-                                serve_daemon)
+from rpst_torch.ops.folded_conv2_q8 import fused_folded_conv2_q8
+from rpst_torch.ops.folded_conv_q8 import fused_folded_conv_q8
+from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
+                                make_run_impl, resolve_mode, serve_daemon)
 
 
 def _load_images(path: Path, img_size: int):
     return [(p.stem, load_image(p, img_size)) for p in image_paths(path)]
+
+
+def _log_launches():
+    for label, fn in (("B1", fused_folded_conv), ("B4", fused_folded_conv_q8),
+                      ("B7", fused_folded_conv2_q8)):
+        logger.info(f"{label} {fn.__name__} launches: {fn.launches}")
 
 
 def main():
@@ -58,8 +76,7 @@ def main():
     parser.add_argument("--mode", default="folded",
                         choices=["standard", "folded", "q8", "auto"],
                         help="execution strategy; 'auto' picks the path "
-                        "measured fastest on the H100, standard (q8 is not "
-                        "ported yet)")
+                        "measured fastest on the H100 at --batch")
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (the default; exits if no "
@@ -94,7 +111,7 @@ def main():
     cfg = load_config(args.config, overrides)
 
     bundle = build_model(cfg, device)
-    mode = resolve_mode(bundle, args.mode)
+    mode = resolve_mode(bundle, args.mode, batch=args.batch)
     if args.weights:
         bundle.load_state_dict(load_weights(args.weights))
         logger.info(f"Loaded weights {args.weights}")
@@ -102,7 +119,20 @@ def main():
         init_torch_default(bundle.model, cfg.seed)
         logger.warning(f"No --weights: serving randomly initialized params "
                        f"(seed {cfg.seed})")
-    run_impl = make_run_impl(bundle, mode)
+
+    contents = _load_images(Path(args.content), cfg.img_size)
+    styles = _load_images(Path(args.style), cfg.img_size)
+    scales = None
+    if mode == "q8":
+        # per-tensor absmax needs few images; a large serving batch would
+        # make calibration's peak memory exceed serving's
+        calib = torch.from_numpy(np.stack(
+            [img for _, img in contents[:min(args.batch, 8)]])).to(device)
+        calib_style = torch.from_numpy(styles[0][1])[None].to(device)
+        scales = calibrate_scales(bundle, calib,
+                                  calib_style.expand_as(calib).contiguous())
+        logger.info(f"Calibrated {len(scales['act_scales'])} layer scales")
+    run_impl = make_run_impl(bundle, mode, scales)
 
     def run_u8(content, style):
         """uint8 across the host<->device boundary (4x less transfer than
@@ -112,8 +142,6 @@ def main():
         return (torch.clamp(y.float(), 0.0, 1.0) * 255.0 + 0.5).to(
             torch.uint8)
 
-    contents = _load_images(Path(args.content), cfg.img_size)
-    styles = _load_images(Path(args.style), cfg.img_size)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     style_u8 = to_u8(styles[0][1])
@@ -126,8 +154,7 @@ def main():
                          default_style=style_u8, to_u8=to_u8)
         finally:
             batcher.close()
-        logger.info(f"B1 fused_folded_conv launches: "
-                    f"{fused_folded_conv.launches}")
+        _log_launches()
         return
 
     style_dev = torch.from_numpy(style_u8)[None].to(device)
@@ -160,7 +187,7 @@ def main():
     logger.info(f"Stylized {n_done} images in {dt:.2f}s "
                 f"({n_done / dt:.1f} img/s incl host IO, {device}) "
                 f"-> {out_dir}")
-    logger.info(f"B1 fused_folded_conv launches: {fused_folded_conv.launches}")
+    _log_launches()
 
 
 if __name__ == "__main__":

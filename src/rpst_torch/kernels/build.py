@@ -7,8 +7,9 @@ git-ignored directory) the first time a kernel is launched::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -Xptxas -v -o build/rpst_torch/lib<name>-<hash>.so <name>.cu
 
-The hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one loads the cached library. A build that fails, or a missing
+The hash covers the source, every header under ``csrc`` and the flags, so
+an edited source or header rebuilds and an unchanged one loads the cached
+library. A build that fails, or a missing
 nvcc, raises: there is no fallback. Nothing is built when a module is
 imported; the CPU tests never reach this file.
 """
@@ -37,6 +38,12 @@ _GRAD_INPUT_ARGS = [_PTR] * 3 + [_INT] * 5 + [_PTR]
 # x, rings, gz, dk, db, dk_part, db_part (device pointers), N, H, W, C4,
 # C4o, seg_len, stream
 _GRAD_WEIGHT_ARGS = [_PTR] * 7 + [_INT] * 6 + [_PTR]
+# x, w, scales, y, s1, s2, part (device pointers), N, H, W, C4, C4o,
+# out_int8, with_stats, stream
+_FOLDED_CONV_Q8_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
+# x, w1, scales1, w2, scales2, y1, y2, s11, s12, s21, s22, part (device
+# pointers), N, H, W, C4, C4m, C4o, out_int8, with_stats, stream
+_FOLDED_CONV2_Q8_ARGS = [_PTR] * 12 + [_INT] * 8 + [_PTR]
 # C signature of every exported function, by library: (argtypes, restype);
 # every function returns its launch's cudaError_t
 SIGNATURES = {
@@ -49,6 +56,15 @@ SIGNATURES = {
         "rpst_folded_conv_grad_input_bf16": (_GRAD_INPUT_ARGS, _INT),
         "rpst_folded_conv_grad_weight_f32": (_GRAD_WEIGHT_ARGS, _INT),
         "rpst_folded_conv_grad_weight_bf16": (_GRAD_WEIGHT_ARGS, _INT),
+    },
+    "folded_conv_q8": {
+        "rpst_folded_conv_q8": (_FOLDED_CONV_Q8_ARGS, _INT),
+        # (H, W) -> the kernel's spatial tile count (sizes the stats scratch)
+        "rpst_folded_conv_q8_tiles": ([_INT, _INT], _INT),
+    },
+    "folded_conv2_q8": {
+        "rpst_folded_conv2_q8": (_FOLDED_CONV2_Q8_ARGS, _INT),
+        "rpst_folded_conv2_q8_tiles": ([_INT, _INT], _INT),
     },
 }
 
@@ -72,7 +88,8 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source hash
     exists; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():  # keep the log of this process's own build
@@ -113,3 +130,18 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return _libs[name]
+
+
+def launch(name: str, fn: str, what: str, *args) -> None:
+    """Call ``fn`` of ``csrc/<name>.cu`` on the current stream of the first
+    tensor's device; tensors pass as their data pointers. Raises if the
+    launch returns a CUDA error."""
+    import torch
+    cfn = getattr(load(name), fn)
+    device = next(a for a in args if isinstance(a, torch.Tensor)).device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = cfn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                    for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

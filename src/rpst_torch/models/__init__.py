@@ -1,7 +1,7 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
 The port covers one network, the flagship ``multi_adain`` (constant RP
-stack), for serving and training. ``build_model`` raises ``ValueError`` for
+stack), for serving (folded, standard and int8 q8) and training. ``build_model`` raises ``ValueError`` for
 the other 16, naming the ROADMAP.md slice that brings each.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
@@ -10,6 +10,9 @@ device and exposes what the serving CLI calls:
     device (the reference's ``network.test`` path),
   * ``folded_exec()`` / ``folded_infer()``: whether the config asks for, and
     the model supports, folded execution,
+  * ``q8_infer()`` / ``q8_recommended(batch)``: whether the int8 PTQ path
+    covers the config, and whether ``--mode auto`` should take it;
+    ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights,
   * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
   * ``loss(vgg, content, style)`` -> (total, parts): the training loss
     (rpst's ``ModelBundle.loss``), differentiable in the model's
@@ -32,6 +35,8 @@ from .adain_rp import MultiScaleAdaINRP
 from .base import perceptual_rp_losses
 from .fast_path import (folded_blocks, live_folded_blocks,
                         stylize_multi_adain_folded)
+from .fast_path_q8 import (calibrate_multi_adain_q8, quantize_blocks,
+                           stylize_multi_adain_folded_q8)
 
 __all__ = ["build_model", "build_vgg", "ModelBundle", "MultiScaleAdaINRP"]
 
@@ -52,25 +57,78 @@ class ModelBundle:
     model: MultiScaleAdaINRP
     cfg: Config
     device: torch.device
-    # dtype -> folded (encoder, decoder) weights; cleared by load_state_dict
-    _folded: Dict[torch.dtype, Any] = dataclasses.field(
+    # dtype -> folded (encoder, decoder) weights, and the int8 weight set
+    # ("q8"); cleared by weights_changed
+    _folded: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, init=False, repr=False)
+
+    def _folded_stack_ok(self) -> bool:
+        c = self.cfg
+        return (self.network == "multi_adain"
+                and c.enc_stack_way != "deeper"
+                and c.inception_num == 0 and c.attention == "none"
+                and not c.shuffle and not c.sort and not c.use_mask)
 
     def folded_exec(self) -> bool:
         """True when cfg asks for folded execution and the model supports
         it: multi_adain constant stacks without inception, attention,
         shuffle, sort or masks."""
-        c = self.cfg
-        return (c.get("exec_strategy", "standard") == "folded"
-                and self.network == "multi_adain"
-                and c.enc_stack_way != "deeper"
-                and c.inception_num == 0 and c.attention == "none"
-                and not c.shuffle and not c.sort and not c.use_mask)
+        return (self.cfg.get("exec_strategy", "standard") == "folded"
+                and self._folded_stack_ok())
 
     def folded_infer(self) -> bool:
         """rpst also folds sel_multi_adain, ccam and mst; none of them is
         ported yet, so here it equals ``folded_exec``."""
         return self.folded_exec()
+
+    def q8_infer(self) -> bool:
+        """The int8 folded path covers the folded stacks whose hidden
+        layers fill 128 folded lanes (4 * hidden_dim % 128 == 0): narrower
+        stacks have no int8 layer (rpst's gate, ``models/__init__.py``)."""
+        return (self._folded_stack_ok()
+                and (self.cfg.hidden_dim * 4) % 128 == 0)
+
+    def q8_recommended(self, batch: Optional[int] = None) -> bool:
+        """Should ``--mode auto`` serve q8 at ``batch``: only where the H100
+        measured it fastest (``rpst_torch.policy``)."""
+        from ..policy import q8_preferred
+        return self.q8_infer() and q8_preferred(batch)
+
+    def q8_weights(self):
+        """The eligible layers' int8 weights and scales
+        (``fast_path_q8.quantize_blocks`` of the float32 folded weights),
+        quantized once and cached until ``weights_changed``."""
+        if "q8" not in self._folded:
+            self._folded["q8"] = quantize_blocks(
+                self.folded_weights(torch.float32))
+        return self._folded["q8"]
+
+    def calibrate_q8(self, content: torch.Tensor,
+                     style: torch.Tensor) -> Dict[str, Any]:
+        """PTQ calibration: {'act_scales': (L,) float32} from one bfloat16
+        folded forward of (content, style) (rpst's
+        ``calibrate_multi_adain_q8``)."""
+        self._check_q8()
+        return calibrate_multi_adain_q8(self.folded_weights(torch.bfloat16),
+                                        content, style)
+
+    def stylize_q8(self, content: torch.Tensor, style: torch.Tensor,
+                   scales, dtype: torch.dtype = torch.bfloat16,
+                   fuse_pairs="auto") -> torch.Tensor:
+        """Int8 inference with calibrated ``scales``: (N, H, W, 3) content
+        and style on the bundle's device -> (N, H, W, 3) float32, in
+        bfloat16 around the int8 layers as rpst serves it. Runs under
+        ``torch.inference_mode``."""
+        self._check_q8()
+        with torch.inference_mode():
+            return stylize_multi_adain_folded_q8(
+                self.folded_weights(dtype), self.q8_weights(), scales,
+                content, style, dtype=dtype, fuse_pairs=fuse_pairs)
+
+    def _check_q8(self) -> None:
+        if not self.q8_infer():
+            raise ValueError("the int8 path needs a folded multi_adain stack "
+                             "with 4 * hidden_dim a multiple of 128")
 
     def folded_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
@@ -81,7 +139,8 @@ class ModelBundle:
         self.weights_changed()
 
     def weights_changed(self) -> None:
-        """Drop the folded serving weights (after a load or an update)."""
+        """Drop the folded and int8 serving weights (after a load or an
+        update)."""
         self._folded.clear()
 
     def folded_weights(self, dtype: Optional[torch.dtype] = None):
@@ -117,8 +176,9 @@ class ModelBundle:
                 "yet: ROADMAP.md section A item 7")
         if self.cfg.get("train_q8_targets", False):
             raise NotImplementedError(
-                "train_q8_targets (int8 no-grad VGG targets on B4/B5) is not "
-                "ported yet: ROADMAP.md section A slice 3")
+                "train_q8_targets (int8 no-grad VGG targets on B5, "
+                "vgg_target_taps_q8) is not ported yet: ROADMAP.md section A "
+                "slice 5")
         c = self.cfg
         if self.folded_exec():
             dtype = self.folded_dtype()

@@ -67,16 +67,9 @@ def _ring_rows(x_f):
 
 
 def _launch(lib_fn, what, *args):
-    from ..kernels.build import load
-    fn = getattr(load("folded_conv" if what == "B1" else "folded_conv_bwd"),
-                 lib_fn)
-    device = next(a for a in args if isinstance(a, torch.Tensor)).device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], stream)
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+    from ..kernels.build import launch
+    launch("folded_conv" if what == "B1" else "folded_conv_bwd", lib_fn, what,
+           *args)
 
 
 # ---------------------------------------------------------------- B1

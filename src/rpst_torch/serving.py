@@ -1,9 +1,10 @@
-"""Serving: execution-mode resolution, the dynamic batcher and the line-JSON
-TCP daemon; port of ``rpst.serving`` on PyTorch.
+"""Serving: execution-mode resolution, calibration, the dynamic batcher and
+the line-JSON TCP daemon; port of ``rpst.serving`` on PyTorch.
 
-  * ``resolve_mode`` / ``make_run_impl`` pick the execution path and build
-    ``run(content, style) -> stylized``, shared by the folder sweep
-    (``serve_torch.py``) and the daemon;
+  * ``resolve_mode`` / ``calibrate_scales`` / ``make_run_impl`` pick the
+    execution path (q8, folded or standard), calibrate the int8 path's
+    scales, and build ``run(content, style) -> stylized``, shared by the
+    folder sweep (``serve_torch.py``) and the daemon;
   * ``DynamicBatcher`` coalesces concurrent single-image requests into
     fixed-shape device batches: the first request opens a ``max_wait_ms``
     window, and the batch dispatches when full or when the window closes,
@@ -18,10 +19,9 @@ Protocol (one JSON object per line, localhost TCP):
   stats     {"cmd": "stats"}  ->  {"served": N, "batches": M, ...}
   shutdown  {"cmd": "shutdown"}
 
-Not ported: the q8 mode (int8 kernels B4, ROADMAP.md section A slice 3)
-raises ``NotImplementedError``. rpst's TPU crossover policy (``rpst.policy``)
-does not apply; ``auto`` resolves to the path measured fastest on the H100
-(PERF.md section 6).
+rpst's TPU crossover policy (``rpst.policy``) does not apply; ``auto``
+resolves by the port's own H100 measurements (``rpst_torch.policy``,
+PERF.md section 6).
 """
 
 from __future__ import annotations
@@ -43,35 +43,61 @@ import torch
 
 from .data import load_image
 from .metrics import logger, save_image
+from .policy import AUTO_MODE
 
 
-# the path ``auto`` takes: the H100 measurements in PERF.md section 6 put
-# the standard path ahead of folded B1 at b1 and b8, f32 and bf16
-AUTO_MODE = "standard"
-
-
-def resolve_mode(bundle, mode: str) -> str:
-    """Resolve ``--mode`` (folded | standard | auto) against the bundle's
-    coverage; ``q8`` raises until the int8 kernels are ported."""
-    if mode == "q8":
-        raise NotImplementedError(
-            "--mode q8 arrives with the B4 port (int8 folded conv, "
-            "ROADMAP.md section A slice 3); serve --mode folded meanwhile")
+def resolve_mode(bundle, mode: str, batch: Optional[int] = None) -> str:
+    """Resolve ``--mode`` (q8 | folded | standard | auto) against the
+    bundle's coverage. ``auto`` takes q8 at the batches where the H100
+    measured it fastest (``bundle.q8_recommended``), on a CUDA device only
+    (on the CPU the int8 kernels run their float64 plain versions), and
+    otherwise ``policy.AUTO_MODE``. A mode the config does not cover falls
+    back to standard with a warning (a config fallback, as in rpst)."""
     if mode == "auto":
-        mode = AUTO_MODE
-        logger.info(f"--mode auto resolved to {mode}")
-    if mode == "folded" and not bundle.folded_infer():
-        logger.warning("--mode folded is unsupported for this network/"
+        mode = ("q8" if bundle.device.type == "cuda"
+                and bundle.q8_recommended(batch) else AUTO_MODE)
+        logger.info(f"--mode auto resolved to {mode}"
+                    + (f" (batch {batch})" if batch else ""))
+    if mode not in ("q8", "folded", "standard"):
+        raise ValueError(f"unknown --mode {mode!r}")
+    covered = {"q8": bundle.q8_infer, "folded": bundle.folded_infer,
+               "standard": lambda: True}[mode]()
+    if not covered:
+        logger.warning(f"--mode {mode} is unsupported for this network/"
                        "config; falling back to standard")
         mode = "standard"
-    if mode not in ("folded", "standard"):
-        raise ValueError(f"unknown --mode {mode!r}")
     return mode
 
 
-def make_run_impl(bundle, mode: str) -> Callable:
+def calibrate_scales(bundle, calib: torch.Tensor,
+                     calib_style: torch.Tensor) -> Dict[str, Any]:
+    """One-shot PTQ calibration for ``mode='q8'`` on a representative
+    batch: {'act_scales': (L,) float32}. If the card runs out of memory the
+    pass retries once on the first image alone, as rpst does on
+    RESOURCE_EXHAUSTED: per-tensor absmax scales from one image beat a
+    dead serving process."""
+    try:
+        return bundle.calibrate_q8(calib, calib_style)
+    except torch.cuda.OutOfMemoryError:
+        if calib.shape[0] <= 1:
+            raise
+        logger.warning("calibration ran out of device memory; retrying "
+                       "with a single-image batch")
+        torch.cuda.empty_cache()
+        return bundle.calibrate_q8(calib[:1], calib_style[:1])
+
+
+def make_run_impl(bundle, mode: str, scales=None,
+                  fuse_pairs="auto") -> Callable:
     """``run_impl(content, style) -> stylized`` on the resolved mode's
-    path: the bundle's folded or standard stylize."""
+    path: the bundle's int8 (with ``scales`` from ``calibrate_scales``;
+    ``fuse_pairs`` as in ``stylize_multi_adain_folded_q8``), folded or
+    standard stylize."""
+    if mode == "q8":
+        if scales is None:
+            raise ValueError("mode q8 needs the scales of calibrate_scales")
+        return lambda content, style: bundle.stylize_q8(
+            content, style, scales, fuse_pairs=fuse_pairs)
     if mode not in ("folded", "standard"):
         raise ValueError(f"make_run_impl takes a resolved mode, got {mode!r}")
     folded = mode == "folded"

@@ -147,3 +147,79 @@ def test_b2_refuses_float64_on_card(cuda_device):
     x, gz, khat = _grad_case(1, 1, 4, 4, 8, 8, cuda_device)
     with pytest.raises(TypeError, match="float32/bfloat16"):
         fused_folded_conv_grad_input(gz.double(), khat.double())
+
+
+# ---------------------------------------------------------------- B4 / B7
+
+from rpst_torch.ops.folded_conv2_q8 import fused_folded_conv2_q8  # noqa: E402
+from rpst_torch.ops.folded_conv_q8 import (  # noqa: E402
+    fused_folded_conv_q8, fused_folded_conv_q8_plain)
+
+
+def _q8_layer(seed, n, h, w, c4, c4o, device, out_scale=0.05):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (n, h, w, c4), dtype=np.int8)
+    k = rng.integers(-127, 128, (3, 3, c4, c4o), dtype=np.int8)
+    sc = np.stack([rng.uniform(2e-6, 6e-6, c4o),
+                   rng.normal(0, 0.2, c4o),
+                   np.full(c4o, 1.0 / out_scale)]).astype(np.float32)
+    return (torch.from_numpy(x).to(device), torch.from_numpy(k).to(device),
+            torch.from_numpy(sc).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_int8", [True, False])
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("shape", [(1, 32, 48, 128, 128), (2, 19, 21, 128, 128),
+                                   (1, 2, 2, 16, 4), (2, 9, 17, 32, 260)])
+def test_b4_matches_plain_on_card(cuda_device, out_int8, with_stats, shape):
+    """int8 and bf16 outputs bit-equal to the plain version (exact int32
+    sums, the same float32 epilogue); s1/s2 at rpst's gate rtol 1e-4,
+    atol 1e-3 (float32 sums in another order)."""
+    x, k, sc = _q8_layer(0, *shape, cuda_device)
+    before = fused_folded_conv_q8.launches
+    got = fused_folded_conv_q8(x, k, sc, out_int8, with_stats)
+    torch.cuda.synchronize()
+    assert fused_folded_conv_q8.launches == before + 1
+    ref = fused_folded_conv_q8_plain(x, k, sc, out_int8, with_stats)
+    if not with_stats:
+        got, ref = (got,), (ref,)
+    assert got[0].dtype == ref[0].dtype and got[0].is_cuda
+    assert torch.equal(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_int8", [True, False])
+@pytest.mark.parametrize("shape", [(1, 32, 48, 128, 128, 128),
+                                   (2, 19, 21, 128, 128, 128),
+                                   (1, 2, 2, 16, 32, 4), (1, 9, 33, 32, 16, 8)])
+def test_b7_matches_two_b4_on_card(cuda_device, out_int8, shape):
+    """B7 bit-equal to two B4 launches (its documented contract); stats at
+    B4's tolerance."""
+    n, h, w, c4, c4m, c4o = shape
+    x, k1, sc1 = _q8_layer(1, n, h, w, c4, c4m, cuda_device)
+    _, k2, sc2 = _q8_layer(2, n, h, w, c4m, c4o, cuda_device, out_scale=0.02)
+    before = fused_folded_conv2_q8.launches
+    got = fused_folded_conv2_q8(x, k1, sc1, k2, sc2, out_int8, True)
+    torch.cuda.synchronize()
+    assert fused_folded_conv2_q8.launches == before + 1
+    y1, s11, s12 = fused_folded_conv_q8(x, k1, sc1, True, True)
+    y2, s21, s22 = fused_folded_conv_q8(y1, k2, sc2, out_int8, True)
+    assert torch.equal(got[0], y1) and torch.equal(got[1], y2)
+    for g, r in zip(got[2:], (s11, s12, s21, s22)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-3)
+    no_stats = fused_folded_conv2_q8(x, k1, sc1, k2, sc2, out_int8)
+    assert torch.equal(no_stats[0], y1) and torch.equal(no_stats[1], y2)
+
+
+@pytest.mark.cuda
+def test_b4_refuses_misaligned_and_mixed(cuda_device):
+    x, k, sc = _q8_layer(3, 1, 4, 4, 32, 16, cuda_device)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fused_folded_conv_q8(x, k.cpu(), sc, True)
+    flat = torch.zeros(x.numel() + 4, dtype=torch.int8, device=cuda_device)
+    shifted = flat[4:].view(x.shape)  # contiguous, 4 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_folded_conv_q8(shifted, k, sc, True)

@@ -171,19 +171,33 @@ def test_batcher_concurrent_submitters_stress():
     assert st["served"] == 120 and st["batches"] >= 30
 
 
-def test_resolve_mode():
+def test_resolve_mode(caplog, monkeypatch):
     cfg = dict(network="multi_adain", rp_blocks=2, hidden_dim=4)
     folded = build_model(load_config(dict(cfg, exec_strategy="folded")))
     standard = build_model(load_config(cfg))
-    # auto: the measured winner on the H100 (PERF.md), folded or not
+    # auto: the measured winner on the H100 (rpst_torch.policy, PERF.md);
+    # q8 never at hidden 4 (no int8 layer), and never on a CPU device
     assert resolve_mode(folded, "auto") == "standard"
     assert resolve_mode(folded, "folded") == "folded"
     assert resolve_mode(standard, "auto") == "standard"
     assert resolve_mode(standard, "folded") == "standard"  # unsupported
-    with pytest.raises(NotImplementedError, match="B4"):
-        resolve_mode(folded, "q8")
+    # q8 at hidden 32 (4 * 32 fills 128 folded lanes); at hidden 4 there is
+    # no int8 layer: standard, with a warning
+    q8_ok = build_model(load_config(dict(cfg, hidden_dim=32)))
+    assert q8_ok.q8_infer() and resolve_mode(q8_ok, "q8") == "q8"
+    assert not folded.q8_infer()
+    from rpst_torch.metrics import logger
+    monkeypatch.setattr(logger, "propagate", True)  # let caplog see it
+    with caplog.at_level("WARNING"):
+        assert resolve_mode(folded, "q8", batch=8) == "standard"
+    assert "--mode q8 is unsupported" in caplog.text
+    # auto at every batch on the CPU: the policy's q8 batches need a card
+    for batch in (1, 8):
+        assert resolve_mode(q8_ok, "auto", batch=batch) == "standard"
     with pytest.raises(ValueError):
         make_run_impl(folded, "auto")  # takes a resolved mode only
+    with pytest.raises(ValueError):
+        resolve_mode(folded, "int4")
 
 
 def test_make_run_impl_runs_the_mode_path(monkeypatch):
@@ -325,7 +339,13 @@ def test_serve_torch_daemon_cpu(serve_data):
 
 def test_serve_torch_refuses_missing_card_and_q8(serve_data):
     """--device cuda without a card exits non-zero (no CPU fallback), and
-    --mode q8 raises NotImplementedError."""
+    --mode q8 on --device cpu calibrates and serves: one PNG per content
+    image, 'Calibrated N layer scales' with the count the stack derives,
+    no kernel launched. (The name predates the q8 port, which made the
+    q8 half positive.)"""
+    from PIL import Image
+    from rpst_torch.models.fast_path_q8 import q8_plan
+
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card path is not "
                     "reachable")
@@ -334,11 +354,24 @@ def test_serve_torch_refuses_missing_card_and_q8(serve_data):
                           capture_output=True, text=True, timeout=120,
                           env=_env(), cwd=str(REPO))
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
-    proc = subprocess.run(_serve_cmd(data, cfg, data / "o", "--device", "cpu",
-                                     "--mode", "q8"),
-                          capture_output=True, text=True, timeout=120,
+    out = data / "q8"
+    proc = subprocess.run(_serve_cmd(data, cfg, out, "--device", "cpu",
+                                     "--mode", "q8", "--batch", "2",
+                                     "--set", "hidden_dim=32"),
+                          capture_output=True, text=True, timeout=300,
                           env=_env(), cwd=str(REPO))
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    bundle = build_model(load_config(str(cfg), {"hidden_dim": 32}))
+    enc, dec = bundle.folded_weights(torch.float32)
+    n_scales = q8_plan([k for k, _ in enc], [k for k, _ in dec],
+                       False)["scales"]
+    assert f"Calibrated {n_scales} layer scales" in proc.stderr
+    for label in ("B1", "B4", "B7"):
+        assert re.search(rf"{label} \w+ launches: 0", proc.stderr), label
+    pngs = sorted(out.glob("*.png"))
+    assert [p.name for p in pngs] == [f"{i:02d}-s.png" for i in range(3)]
+    for p in pngs:
+        assert np.asarray(Image.open(p)).shape == (32, 32, 3)
 
 
 def test_port_never_imports_jax():
@@ -354,6 +387,8 @@ def test_port_never_imports_jax():
         "import rpst_torch.nn.vgg, rpst_torch.nn.vgg_folded\n"
         "import rpst_torch.train.step, rpst_torch.train.checkpoint\n"
         "import rpst_torch.train.metrics, rpst_torch.train.fault\n"
+        "import rpst_torch.ops.folded_conv_q8, rpst_torch.ops.folded_conv2_q8\n"
+        "import rpst_torch.models.fast_path_q8, rpst_torch.policy\n"
         "import importlib.util as u\n"
         "for name in ('serve_torch', 'train_torch'):\n"
         "    spec = u.spec_from_file_location(name, name + '.py')\n"

@@ -5,7 +5,9 @@ on a machine that has no JAX (``chip_smoke.py``):
   * tests/fixtures/torch_port_flagship.npz: the flagship's folded stylize
     (serving);
   * tests/fixtures/torch_port_train.npz (``--train``): the flagship's folded
-    training loss, its gradients and a 3-step loss trajectory.
+    training loss, its gradients and a 3-step loss trajectory;
+  * tests/fixtures/torch_port_q8.npz (``--q8``): the flagship's int8 (q8)
+    serving.
 
 The flagship is multi_adain with the constant stack at full width
 (rp_blocks 5, hidden_dim 32, attention none), as bench.py builds it. The
@@ -30,9 +32,22 @@ The train fixture holds:
     steps of rpst's ``make_train_step`` (Adam, lr / (1 + decay (count+1)))
     on the same batch.
 
+The q8 fixture holds:
+  * ``params/<flax path>``, ``content``, ``style``: those of the flagship
+    fixture;
+  * ``act_scales``: rpst's ``calibrate_multi_adain_q8`` on (content, style);
+  * ``out_f32``, ``out_bf16``: rpst's ``stylize_multi_adain_folded_q8`` with
+    those scales, ``interpret=True`` on the CPU, at dtype float32 and
+    bfloat16 (both stored as float32);
+  * ``enc_q_<i>``, ``enc_scale_<i>``: the (int8, scale) encoder features of
+    the content encode (rpst's ``_encode_q8`` with ``fuse_stats``, float32),
+    and ``enc_mean_<i>``, ``enc_std_<i>`` for the layers whose statistics
+    come from the kernel sums (``_stats_from_sums``).
+
 Usage:
   python tools/make_torch_port_fixture.py [--seed 0] [--size 64] [dst.npz]
   python tools/make_torch_port_fixture.py --train [--seed 0] [--size 64] [dst]
+  python tools/make_torch_port_fixture.py --q8 [--seed 0] [--size 64] [dst]
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ sys.path.insert(0, str(REPO / "src"))
 
 DEFAULT_DST = REPO / "tests" / "fixtures" / "torch_port_flagship.npz"
 TRAIN_DST = REPO / "tests" / "fixtures" / "torch_port_train.npz"
+Q8_DST = REPO / "tests" / "fixtures" / "torch_port_q8.npz"
 TRAIN = dict(batch=2, vgg_seed=1, lr=1e-3, lr_decay=0.5, steps=3)
 FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
                 hidden_dim=32, inception_num=0, attention="none")
@@ -142,12 +158,61 @@ def make_train_fixture(seed: int = 0, size: int = 64) -> dict:
     return arrays
 
 
+def make_q8_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The q8 fixture's arrays, computed afresh with JAX on the CPU (rpst's
+    int8 kernels in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.models import fast_path_q8 as q8
+    from rpst.models.fast_path import _folded_blocks
+
+    arrays = make_fixture(seed, size)
+    arrays.pop("out")
+    params = _unflat({k[len("params/"):]: v for k, v in arrays.items()
+                      if k.startswith("params/")})
+    c, s = jnp.asarray(arrays["content"]), jnp.asarray(arrays["style"])
+    scales = q8.calibrate_multi_adain_q8(params, c, s)
+    arrays["act_scales"] = np.asarray(scales["act_scales"], np.float32)
+    for name, dt in (("out_f32", jnp.float32), ("out_bf16", jnp.bfloat16)):
+        out = q8.stylize_multi_adain_folded_q8(params, scales, c, s,
+                                               dtype=dt, interpret=True)
+        arrays[name] = np.asarray(out, np.float32)
+    enc = _folded_blocks(params["rp_shared_encoder"])
+    it = iter(range(len(arrays["act_scales"])))
+    conv_q = q8._make_conv_q(jnp.float32, 16, True)
+    feats, stats = q8._encode_q8(enc, arrays["act_scales"], it, c,
+                                 jnp.float32, conv_q, fuse_stats=True)
+    for i, ((q, scale), st) in enumerate(zip(feats, stats)):
+        arrays[f"enc_q_{i}"] = np.asarray(q, np.int8)
+        arrays[f"enc_scale_{i}"] = np.float32(scale)
+        if st is not None:
+            arrays[f"enc_mean_{i}"] = np.asarray(st[0], np.float32)
+            arrays[f"enc_std_{i}"] = np.asarray(st[1], np.float32)
+    jax.block_until_ready(arrays["out_f32"])
+    return arrays
+
+
+def _unflat(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--size", type=int, default=64)
     ap.add_argument("--train", action="store_true",
                     help="write the train fixture instead")
+    ap.add_argument("--q8", action="store_true",
+                    help="write the q8 fixture instead")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -158,6 +223,9 @@ def main():
     if args.train:
         arrays = make_train_fixture(args.seed, args.size)
         args.dst = args.dst or str(TRAIN_DST)
+    elif args.q8:
+        arrays = make_q8_fixture(args.seed, args.size)
+        args.dst = args.dst or str(Q8_DST)
     else:
         arrays = make_fixture(args.seed, args.size)
         args.dst = args.dst or str(DEFAULT_DST)

@@ -19,7 +19,7 @@ the card) or standard.
 logs the B1/B2/B3 launch counts of the run. Options of later slices raise
 ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape`` and
 ``distributed`` (slice 8), ``target_cache`` (section A item 7),
-``train_q8_targets`` (slice 3), ``grad_accum > 1`` and ``remat`` (slice
+``train_q8_targets`` (slice 5, on B5), ``grad_accum > 1`` and ``remat`` (slice
 8), ``test_dir`` test dumps (slice 7), and every network but
 ``multi_adain``.
 """
@@ -56,7 +56,7 @@ _UNPORTED = {
     "target_cache": (lambda c: bool(c.get("target_cache", 0)),
                      "section A item 7"),
     "train_q8_targets": (lambda c: bool(c.train_q8_targets),
-                         "section A slice 3"),
+                         "section A slice 5 (B5)"),
     "grad_accum": (lambda c: int(c.grad_accum) > 1, "section A slice 8"),
     "remat": (lambda c: bool(c.remat), "section A slice 8"),
     "test_dir": (lambda c: bool(c.test_dir), "section A slice 7 (test dumps)"),

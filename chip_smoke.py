@@ -1,15 +1,17 @@
 #!/usr/bin/env python
 """Quickest proof that the PyTorch/CUDA port runs on the GPU: builds the
 port's CUDA kernels from this checkout, checks each against its plain
-PyTorch version, drives the flagship's folded serving and training paths at
-512px through the user's entry points, and times them. Needs one NVIDIA
-Hopper card; run from the repository root with no arguments:
+PyTorch version, drives the flagship's folded and int8 serving and training
+paths and adain's and wct's serving at 512px through the user's entry
+points, and times them. Needs one NVIDIA Hopper card; run from the
+repository root with no arguments:
 
     python3 chip_smoke.py
 
 Phases (each prints its own line; any failed check raises, exit code != 0):
   1. build     nvcc-build every kernel of the paths, one nvcc per source, all
-               at once (B1 folded_conv.cu; B2, B3 folded_conv_bwd.cu)
+               at once (B1 folded_conv.cu; B2, B3 folded_conv_bwd.cu; B4
+               folded_conv_q8.cu; B7 folded_conv2_q8.cu; B5 conv2d_q8.cu)
   2. kernels   B1, B2, B3 vs their plain versions at the paths' shapes, f32 +
                bf16; B2/B3 timed against plain
   3. fixture   folded stylize on the card vs rpst's JAX output
@@ -53,6 +55,37 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  16. q8 timing     512px stylize b1/b8: q8 with B4, q8 with B7 pairs, beside
                phase 7's folded B1 and standard rows
 
+ 17. B5 kernels    B5 vs its plain version (float64 conv: exact integer
+               sums) at every shape the adain / wct stylize and the int8 VGG
+               targets give it (the 512px ones at 2N = 2), int8 and bf16 out:
+               int8 identical, bf16 within one ulp compared numerically (the
+               -0.0 of alpha = 0 equals +0.0; the bits are compared too and
+               reported); alpha {0, 0.2, 1} x pad {reflect, zero} x out at an
+               odd shape; the bf16 mode vs plain (2e-2); each path shape
+               timed against plain and against F.conv2d in bfloat16 on the
+               dequantized values
+ 18. wide fixtures  adain and wct on the card vs rpst's JAX output
+               (tests/fixtures/torch_port_{adain,wct}.npz, 64px, hidden 32):
+               standard f32, and q8 with rpst's scales (float32: PSNR >= 40
+               dB, MAE < 2e-3; bfloat16: PSNR >= 30 dB, MAE < 1e-2), exact
+               B5 launches
+ 19. q8 targets fixture  vgg_target_taps_q8 and
+               perceptual_rp_losses_q8targets on the card vs rpst's JAX
+               (tests/fixtures/torch_port_q8_targets.npz, 64px b4): the
+               int8 taps PSNR >= 40 dB, loss parts rtol 5e-3, 6 B5 launches
+ 20. wide serve    the adain / wct main path: 8 requests through build_model
+               -> resolve_mode("q8") -> calibrate_scales -> make_run_impl ->
+               DynamicBatcher(b4) at hidden 32, counts reset before and read
+               after (4 B5 per stylize); serve_torch.py --mode q8 as a
+               subprocess for adain (hidden 32, and the repository's
+               configs/train_deeper_rp_adain.yaml at hidden 16: 2 B5 per
+               stylize) and for wct
+ 21. q8-targets train  train_torch.py, flagship, train_q8_targets=true, b4
+               f32 folded, 3 steps in this process, counts reset before and
+               read after: exact B1/B2/B3/B5 launches per step
+ 22. wide timing   512px: adain b1/b4 standard f32/bf16 vs q8, wct b1; the
+               flagship train step b1/b4 with and without int8 targets
+
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
 repository, it exits non-zero and prints no result.
@@ -90,6 +123,16 @@ LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_REL, BF16_COS = 1e-4, 5e-3, 1e-4, 0.98
 # image) + the 4 VGG layers of the stylized pass = 17; B3 on the 15 RP
 # layers and never on the frozen VGG = 15
 PER_STEP = (23, 17, 15)
+# with train_q8_targets the 2N style/content target pass leaves the folded
+# VGG (4 B1 launches fewer) for the int8 chain: 6 B5 launches (conv_4 ..
+# conv_9 of the encoder); B2 and B3 never ran on the targets
+PER_STEP_Q8T = (PER_STEP[0] - 4, PER_STEP[1], PER_STEP[2])
+B5_PER_TARGET_PASS = 6
+# published dense peaks of one H100 SXM (operations per second by operand
+# type; float32 data is held to the TF32 tensor-core rate) and its memory
+# rate, for the kernels line's bound_ms
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 495e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(phase, msg):
@@ -129,6 +172,28 @@ def cuda_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound_ms(ops, nbytes, kind):
+    """(least ms the card could take, which limit binds): the larger of
+    ``ops`` over the peak rate of ``kind`` and ``nbytes`` (each input read
+    once, each output written once) over the memory rate."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def conv_bound(n, h, w, c, co, kind, in_size, out_sizes, extra_bytes=0,
+               layers=1):
+    """bound_ms of a 3x3 conv layer (or ``layers`` chained ones of one
+    width): 2 * 9 * C * Co operations per output pixel; the input, the
+    weights (of the input's type), the per-channel rows and every output
+    moved once. Sizes are bytes per element."""
+    px = n * h * w
+    ops = layers * 2 * 9 * px * c * co
+    nbytes = (px * c * in_size + layers * 9 * c * co * in_size
+              + sum(px * co * sz for sz in out_sizes) + extra_bytes)
+    return bound_ms(ops, nbytes, kind)
 
 
 def card():
@@ -395,34 +460,81 @@ def main():
     q8_launches = _q8_serve(dev, rng)
     _q8_timing(dev, rng, name_power, rows)
 
+    # ---- 17-22. the wide standard-layout path (B5) ------------------------
+    b5k = _b5_kernels(dev, name_power)
+    _wide_fixtures(dev)
+    _q8_targets_fixture(dev)
+    b5_serve = _wide_serve(dev, rng)
+    q8t_launches = _q8_targets_train(dev)
+    _wide_timing(dev, rng, name_power)
+
+    # bounds at the shapes the times were taken at (phases 2, 12, 17)
+    f4 = 4  # bytes of a float32
+    nb = 128 * f4  # one per-channel row
+    bnd = {
+        "B1": conv_bound(1, 256, 256, 128, 128, "f32", f4, [f4],
+                         extra_bytes=nb),
+        "B2": conv_bound(1, 256, 256, 128, 128, "f32", f4, [f4]),
+        # reads x and gz, writes dk and db
+        "B3": bound_ms(2 * 9 * 256 * 256 * 128 * 128,
+                       (2 * 256 * 256 * 128 + 9 * 128 * 128 + 128) * f4,
+                       "f32"),
+        "B4": conv_bound(1, 256, 256, 128, 128, "int8", 1, [1],
+                         extra_bytes=3 * nb + 2 * nb),
+        "B7": conv_bound(1, 256, 256, 128, 128, "int8", 1, [1, 1],
+                         extra_bytes=2 * (3 * nb + 2 * nb), layers=2),
+    }
     bwd_src = "src/rpst_torch/csrc/folded_conv_bwd.cu"
     kernels = {"kernels": [
         {"name": "fused_folded_conv", "route": "cuda",
          "source": "src/rpst_torch/csrc/folded_conv.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv.py:650",
-         "launches": main_launches + train_launches[0] + q8_launches["B1"],
+         "launches": (main_launches + train_launches[0] + q8_launches["B1"]
+                      + q8t_launches[0]),
          "max_abs_err": f32_err, "ms": kernel_ms[torch.float32],
-         "plain_ms": plain_ms[torch.float32]},
+         "plain_ms": plain_ms[torch.float32], "bound_ms": bnd["B1"][0],
+         "bound_by": bnd["B1"][1], "library_ms": None},
         {"name": "fused_folded_conv_grad_input", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:339",
-         "launches": train_launches[1], "max_abs_err": bwd["B2"]["err"],
-         "ms": bwd["B2"]["ms"], "plain_ms": bwd["B2"]["plain_ms"]},
+         "launches": train_launches[1] + q8t_launches[1],
+         "max_abs_err": bwd["B2"]["err"], "ms": bwd["B2"]["ms"],
+         "plain_ms": bwd["B2"]["plain_ms"], "bound_ms": bnd["B2"][0],
+         "bound_by": bnd["B2"][1], "library_ms": None},
         {"name": "fused_folded_conv_grad_weight", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
-         "launches": train_launches[2], "max_abs_err": bwd["B3"]["err"],
-         "ms": bwd["B3"]["ms"], "plain_ms": bwd["B3"]["plain_ms"]},
+         "launches": train_launches[2] + q8t_launches[2],
+         "max_abs_err": bwd["B3"]["err"], "ms": bwd["B3"]["ms"],
+         "plain_ms": bwd["B3"]["plain_ms"], "bound_ms": bnd["B3"][0],
+         "bound_by": bnd["B3"][1], "library_ms": None},
         {"name": "fused_folded_conv_q8", "route": "cuda",
          "source": "src/rpst_torch/csrc/folded_conv_q8.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv_q8.py:281",
          "launches": q8_launches["B4"], "max_abs_err": q8k["B4"]["err"],
-         "ms": q8k["B4"]["ms"], "plain_ms": q8k["B4"]["plain_ms"]},
+         "ms": q8k["B4"]["ms"], "plain_ms": q8k["B4"]["plain_ms"],
+         "bound_ms": bnd["B4"][0], "bound_by": bnd["B4"][1],
+         "library_ms": None},
         {"name": "fused_folded_conv2_q8", "route": "cuda",
          "source": "src/rpst_torch/csrc/folded_conv2_q8.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv2_q8.py:254",
          "launches": q8_launches["B7"], "max_abs_err": q8k["B7"]["err"],
-         "ms": q8k["B7"]["ms"], "plain_ms": q8k["B7"]["plain_ms"]}]}
+         "ms": q8k["B7"]["ms"], "plain_ms": q8k["B7"]["plain_ms"],
+         "bound_ms": bnd["B7"][0], "bound_by": bnd["B7"][1],
+         "library_ms": None},
+        # B5's numbers at the widest shape of the adain path (phase 17);
+        # library_ms is F.conv2d in bfloat16 on the dequantized values
+        {"name": "fused_conv2d_q8", "route": "cuda",
+         "source": "src/rpst_torch/csrc/conv2d_q8.cu",
+         "replaces": "src/rpst/ops/pallas/conv2d_q8.py:220",
+         "launches": b5_serve + q8t_launches[3],
+         "max_abs_err": b5k["err"], "ms": b5k["ms"],
+         "plain_ms": b5k["plain_ms"], "bound_ms": b5k["bound_ms"],
+         "bound_by": b5k["bound_by"], "library_ms": b5k["library_ms"]}]}
+    for k in kernels["kernels"]:
+        if not k["launches"] > 0:
+            raise AssertionError(f"{k['name']} was launched no time on the "
+                                 "main paths")
     print(json.dumps(kernels), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -515,10 +627,11 @@ def _counters():
                                             fused_folded_conv_grad_input,
                                             fused_folded_conv_grad_weight)
     from rpst_torch.ops.folded_conv2_q8 import fused_folded_conv2_q8
+    from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8
     from rpst_torch.ops.folded_conv_q8 import fused_folded_conv_q8
     return {"B1": fused_folded_conv, "B2": fused_folded_conv_grad_input,
             "B3": fused_folded_conv_grad_weight, "B4": fused_folded_conv_q8,
-            "B7": fused_folded_conv2_q8}
+            "B7": fused_folded_conv2_q8, "B5": fused_conv2d_q8}
 
 
 def _reset_counts():
@@ -1135,6 +1248,506 @@ def _q8_timing(dev, rng, name_power, rows):
                     log("16 q8 timing", f"512px b{batch} {dt:8s} {path:12s}: "
                         f"{ms:8.3f} ms  {batch * 1e3 / ms:8.2f} img/s  "
                         f"(phase 7, {name_power})")
+
+
+# ---------------------------------------------------------------- B5
+
+WIDE = dict(rp_blocks=5, hidden_dim=32, seed=0)
+ADAIN_YAML = REPO / "configs" / "train_deeper_rp_adain.yaml"  # hidden 16
+# every shape the paths give B5, (label, (N, H, W, C, Co), pad): the four
+# eligible layers of a 512px adain / wct stylize at hidden 32 (encoder on
+# the 2N batch, checked at 2N = 2; decoder at N = 2) and the six of the
+# int8 VGG targets at 512px (conv_6..8 share one shape)
+B5_SHAPES = (
+    ("adain enc 128->256", (2, 512, 512, 128, 256), "zero"),
+    ("adain enc 256->512", (2, 512, 512, 256, 512), "zero"),
+    ("adain dec 512->256", (2, 512, 512, 512, 256), "zero"),
+    ("adain dec 256->128", (2, 512, 512, 256, 128), "zero"),
+    ("VGG conv_4 128->128", (2, 256, 256, 128, 128), "reflect"),
+    ("VGG conv_5 128->256", (2, 128, 128, 128, 256), "reflect"),
+    ("VGG conv_6..8 256->256", (2, 128, 128, 256, 256), "reflect"),
+    ("VGG conv_9 256->512", (2, 64, 64, 256, 512), "reflect"))
+B5_WIDEST = "adain enc 256->512"
+WIDE_F32_TOL, WCT_F32_TOL = 1e-4, 1e-3  # wct: two 512x512 eigh in float32
+Q8T_LOSS_RTOL = 5e-3  # tests/test_torch_q8_targets.py states the reason
+
+
+def _b5_layer(rng, dev, n, h, w, c, co):
+    import numpy as np
+    import torch
+    x = rng.integers(-127, 128, (n, h, w, c), dtype=np.int8)
+    k = rng.integers(-127, 128, (3, 3, c, co), dtype=np.int8)
+    sc = np.stack([rng.uniform(2e-6, 6e-6, co) * (128 / c),
+                   rng.normal(0, 0.2, co),
+                   rng.uniform(10.0, 40.0, co)]).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, k, sc))
+
+
+def _b5_kernels(dev, name_power):
+    """Phase 17: B5 and its bf16 mode against their plain versions, and
+    B5's time per path shape beside its plain version, the one library call
+    and its bound. Returns the kernels JSON numbers (at B5_WIDEST)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from rpst_torch.ops.conv2d_q8 import (fused_conv2d_bf16,
+                                          fused_conv2d_bf16_plain,
+                                          fused_conv2d_q8,
+                                          fused_conv2d_q8_plain)
+    rng = np.random.default_rng(5)
+    out = {"err": 0.0}
+    with torch.inference_mode():
+        # every mode at an odd shape: H != W, W no multiple of the 16-wide
+        # tile, Co past one 128-channel block
+        x, k, sc = _b5_layer(rng, dev, 2, 13, 37, 36, 132)
+        for alpha in (0.0, 0.2, 1.0):
+            for pad in ("reflect", "zero"):
+                msg = []
+                for out_int8 in (True, False):
+                    got = fused_conv2d_q8(x, k, sc, out_int8, alpha, pad)
+                    torch.cuda.synchronize()
+                    ref = fused_conv2d_q8_plain(x, k, sc, out_int8, alpha,
+                                                pad)
+                    e, d = _q8_compare(f"B5 odd alpha={alpha} {pad} "
+                                       f"out_int8={out_int8}", got, ref)
+                    if not out_int8:
+                        d += (", bits equal (-0.0 kept)" if torch.equal(
+                            got.view(torch.int16), ref.view(torch.int16))
+                            else ", bits differ")
+                    out["err"] = max(out["err"], e)
+                    msg.append(d)
+                log("17 B5 kernels", f"odd (2,13,37,36->132) alpha={alpha} "
+                    f"{pad}: {'; '.join(msg)}")
+        # the paths' shapes, relu (alpha = 0), both outputs; then timed
+        for label, shape, pad in B5_SHAPES:
+            n, h, w, c, co = shape
+            x, k, sc = _b5_layer(rng, dev, *shape)
+            msg = []
+            for out_int8 in (True, False):
+                got = fused_conv2d_q8(x, k, sc, out_int8, 0.0, pad)
+                torch.cuda.synchronize()
+                ref = fused_conv2d_q8_plain(x, k, sc, out_int8, 0.0, pad)
+                e, d = _q8_compare(f"B5 {label} out_int8={out_int8}", got,
+                                   ref)
+                out["err"] = max(out["err"], e)
+                msg.append(d)
+                del got, ref
+            ms = cuda_ms(lambda: fused_conv2d_q8(x, k, sc, True, 0.0, pad),
+                         iters=10)
+            plain = cuda_ms(lambda: fused_conv2d_q8_plain(x, k, sc, True, 0.0,
+                                                          pad),
+                            iters=3, warmup=1)
+            # the one library call: conv + bias in bfloat16 on the
+            # dequantized values, channels-last as B5 reads them (no
+            # activation, no requantization; reflect pads outside the call)
+            xd = (x.float() * 0.01).to(torch.bfloat16).permute(0, 3, 1, 2)
+            wd = (k.float() * 0.01).to(torch.bfloat16).permute(3, 2, 0, 1) \
+                .contiguous(memory_format=torch.channels_last)
+            bd = sc[1].to(torch.bfloat16)
+            lib = cuda_ms(lambda: F.conv2d(xd, wd, bd, padding=1), iters=10)
+            b_ms, b_by = conv_bound(n, h, w, c, co, "int8", 1, [1],
+                                    extra_bytes=3 * co * 4)
+            log("17 B5 kernels", f"{label} {shape} {pad}: {'; '.join(msg)}; "
+                f"B5 {ms:.4f} ms vs plain {plain:.4f}, F.conv2d bf16 "
+                f"{lib:.4f}; bound {b_ms:.4f} ms by {b_by} "
+                f"({100 * b_ms / ms:.1f}% of it reached; {name_power})")
+            if label == B5_WIDEST:
+                out.update(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=b_ms, bound_by=b_by)
+            del x, k, sc, xd, wd
+            torch.cuda.empty_cache()
+        # the bf16 mode, at the widest VGG shape and an odd one
+        g = torch.Generator().manual_seed(6)
+        for shape in ((2, 128, 128, 256, 256), (2, 9, 19, 40, 72)):
+            n, h, w, c, co = shape
+            x = torch.randn(n, h, w, c, generator=g).to(dev)
+            k = (torch.randn(3, 3, c, co, generator=g) * (9 * c) ** -0.5).to(
+                dev)
+            b = torch.randn(co, generator=g).to(dev)
+            for pad in ("reflect", "zero"):
+                for alpha in (0.0, 0.2, 1.0):
+                    got = fused_conv2d_bf16(x, k, b, alpha, pad)
+                    torch.cuda.synchronize()
+                    err, _ = check_close(
+                        f"B5 bf16 mode {shape} {pad} alpha={alpha}", got,
+                        fused_conv2d_bf16_plain(x, k, b, alpha, pad),
+                        BF16_TOL)
+                    log("17 B5 kernels", f"bf16 mode {shape} {pad} "
+                        f"alpha={alpha}: max abs err {err:.3g} (tol "
+                        f"{BF16_TOL})")
+            if c == 256:
+                t = (cuda_ms(lambda: fused_conv2d_bf16(x, k, b, 0.0)),
+                     cuda_ms(lambda: fused_conv2d_bf16_plain(x, k, b, 0.0)))
+                b_ms, b_by = conv_bound(n, h, w, c, co, "bf16", 2, [2])
+                log("17 B5 kernels", f"bf16 mode {shape}: {t[0]:.4f} ms vs "
+                    f"plain {t[1]:.4f}; bound {b_ms:.4f} ms by {b_by} "
+                    f"({name_power})")
+    return out
+
+
+def _rpseq_bundle(network, dev, size, seed=0, **over):
+    """A bundle of adain / wct at full width with the weights that
+    ``rpseq_weights_from_seed(seed)`` draws (the fixtures' weights)."""
+    from rpst_torch.bridge import from_flax_params, rpseq_weights_from_seed
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    bundle = build_model(load_config(dict(WIDE, network=network,
+                                          img_size=size, **over)), dev)
+    bundle.load_state_dict(from_flax_params(rpseq_weights_from_seed(
+        seed, WIDE["rp_blocks"], WIDE["hidden_dim"])))
+    return bundle
+
+
+def _wide_fixtures(dev):
+    """Phase 18: adain and wct on the card vs rpst's JAX outputs."""
+    import numpy as np
+    import torch
+    from rpst_torch.models.fast_path_q8_std import std_q8_plan
+    for network, tol in (("adain", WIDE_F32_TOL), ("wct", WCT_F32_TOL)):
+        with np.load(REPO / "tests" / "fixtures" /
+                     f"torch_port_{network}.npz") as npz:
+            fx = {k: npz[k] for k in npz.files}
+        bundle = _rpseq_bundle(network, dev, fx["content"].shape[1],
+                               int(fx["weights_seed"]))
+        c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+        plan = std_q8_plan(*bundle.std_weights(torch.float32))
+        if plan != {"scales": len(fx["act_scales"]), "B5": 4}:
+            raise AssertionError(f"{network} plan {plan}")
+        _reset_counts()
+        out = bundle.stylize(c, s)
+        torch.cuda.synchronize()
+        err, mae = check_close(f"{network} fixture standard f32", out,
+                               torch.from_numpy(fx["out_f32"]).to(dev), tol)
+        msg = [f"standard f32 max abs err {err:.3g}, MAE {mae:.3g} (tol "
+               f"{tol})"]
+        scales = {"act_scales": fx["act_scales"]}
+        # float32 at phase 13's PSNR gate; its MAE bound doubles (the CPU
+        # rehearsal read 8e-4 to 9e-4): the narrow float32 layers' sums
+        # differ in the last bit between conv libraries, which moves a few
+        # first-quantization boundaries, and four int8 layers of up to 512
+        # channels (and wct's eigendecompositions) spread that. In bfloat16
+        # the six narrow layers round at different places in the two
+        # frameworks: rpst's own q8-vs-float gate (30 dB) and the bf16
+        # serving MAE bound (1e-2)
+        for dt, key, min_psnr, max_mae in (
+                (torch.float32, "out_q8_f32", Q8_FIXTURE_PSNR,
+                 2 * Q8_FIXTURE_MAE),
+                (torch.bfloat16, "out_q8_bf16", Q8_VS_FOLDED_PSNR, 1e-2)):
+            _reset_counts()
+            got = bundle.stylize_q8(c, s, scales, dtype=dt).cpu().numpy()
+            n_b5 = _counters()["B5"].launches
+            psnr = _psnr(got, fx[key])
+            mae = float(np.abs(got - fx[key]).mean())
+            if not (np.isfinite(got).all() and psnr >= min_psnr
+                    and mae < max_mae and n_b5 == plan["B5"]):
+                raise AssertionError(f"{network} fixture {key}: PSNR {psnr} "
+                                     f"dB, MAE {mae}, {n_b5} B5 launches")
+            msg.append(f"{key} PSNR {psnr:.2f} dB, MAE {mae:.3g}")
+        own = bundle.calibrate_q8(c, s)["act_scales"]
+        if not np.allclose(own, fx["act_scales"], rtol=2e-2):
+            raise AssertionError(f"{network} calibration {own} vs rpst "
+                                 f"{fx['act_scales']}")
+        log("18 wide fixtures", f"{network} 64px rp5 h32 b2 vs rpst JAX: "
+            f"{'; '.join(msg)}; {plan['B5']} B5 launches per q8 stylize; "
+            f"{plan['scales']} scales within 2e-2 of rpst's")
+
+
+def _q8_targets_fixture(dev):
+    """Phase 19: the int8 VGG targets and their loss on the card vs rpst."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import vgg_from_flax, vgg_weights_from_seed
+    from rpst_torch.models.fast_path_q8_std import (calibrate_vgg_targets_q8,
+                                                    vgg_q8_plan,
+                                                    vgg_target_taps_q8)
+    from rpst_torch.nn.vgg import VGG19Encoder
+    from rpst_torch.nn.vgg_folded import perceptual_rp_losses_q8targets
+    from rpst_torch.ops.stats import calc_mean_std
+    with np.load(REPO / "tests" / "fixtures" /
+                 "torch_port_q8_targets.npz") as npz:
+        fx = {k: npz[k] for k in npz.files}
+    vgg = VGG19Encoder()
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(
+        int(fx["vgg_seed"]))))
+    vgg = vgg.to(dev)
+    c, s, x = (torch.from_numpy(fx[k]).to(dev)
+               for k in ("content", "style", "stylized"))
+    scales = {"act_scales": fx["act_scales"]}
+    plan = vgg_q8_plan(vgg)
+    if plan != {"scales": len(fx["act_scales"]), "B5": B5_PER_TARGET_PASS}:
+        raise AssertionError(f"VGG q8 plan {plan}")
+    _reset_counts()
+    taps = vgg_target_taps_q8(vgg, scales, torch.cat([s, c]), torch.float32)
+    torch.cuda.synchronize()
+    if _counters()["B5"].launches != B5_PER_TARGET_PASS:
+        raise AssertionError(f"{_counters()['B5'].launches} B5 launches for "
+                             "one target pass")
+    msg = []
+    for i, t in enumerate(taps):
+        if i < 2:
+            # relu1_1, relu2_1 come from float convs: their statistics
+            m, sd = calc_mean_std(t.float())
+            for name, got in (("mean", m), ("std", sd)):
+                ref = torch.from_numpy(fx[f"tap_{name}_{i}"]).to(dev)
+                if not torch.allclose(got[:, 0, 0, :], ref, rtol=1e-3,
+                                      atol=1e-4 * float(ref.abs().max())):
+                    raise AssertionError(f"tap {i} {name} differs from rpst")
+        else:
+            # relu3_1, relu4_1 pass the int8 chain: the whole tap
+            got, ref = t.cpu().numpy(), fx[f"tap_{i}"]
+            psnr = _psnr(got, ref)
+            if not (got.shape == ref.shape and np.isfinite(got).all()
+                    and psnr >= Q8_FIXTURE_PSNR):
+                raise AssertionError(f"tap {i}: PSNR {psnr} dB vs rpst")
+            msg.append(f"relu{i + 1}_1 PSNR {psnr:.2f} dB")
+    parts, total = perceptual_rp_losses_q8targets(
+        vgg, scales, x, s, c, 1.0, 2.0, dtype=torch.float32)
+    got = {"style_loss": float(parts["style_loss"]),
+           "content_loss": float(parts["content_loss"]),
+           "total_loss": float(total)}
+    for k, v in got.items():
+        if not abs(v - float(fx[k])) <= Q8T_LOSS_RTOL * abs(float(fx[k])):
+            raise AssertionError(f"q8-targets {k}: {v} vs rpst {fx[k]}")
+    own = calibrate_vgg_targets_q8(vgg, c, s)["act_scales"]
+    if not np.allclose(own, fx["act_scales"], rtol=2e-2):
+        raise AssertionError(f"VGG target calibration {own} vs rpst "
+                             f"{fx['act_scales']}")
+    log("19 q8 targets fixture", f"64px b4 f32 vs rpst JAX (interpret): "
+        f"{'; '.join(msg)}; relu1_1/relu2_1 statistics within 1e-3; loss parts "
+        f"{ {k: round(v, 7) for k, v in got.items()} } vs "
+        f"{ {k: round(float(fx[k]), 7) for k in got} } (rtol "
+        f"{Q8T_LOSS_RTOL}); {B5_PER_TARGET_PASS} B5 launches, "
+        f"{plan['scales']} scales within 2e-2 of rpst's")
+
+
+def _serve_child(cfg_path, tmp, out_name, mode, extra=()):
+    """serve_torch.py as a subprocess on tmp's 8 PNGs at batch 4; returns
+    its log text and PNG count."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "serve_torch.py"), "--config",
+         str(cfg_path), "--content", str(tmp / "content"), "--style",
+         str(tmp / "style" / "s.png"), "--out", str(tmp / out_name),
+         "--mode", mode, "--batch", "4", "--device", "cuda", *extra],
+        capture_output=True, text=True, timeout=600, cwd=str(REPO))
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"serve_torch {out_name} rc {proc.returncode}:\n"
+                             f"{text[-3000:]}")
+    return text, len(list((tmp / out_name).glob("*.png")))
+
+
+def _wide_serve(dev, rng):
+    """Phase 20: the adain / wct int8 main path through the user's entry
+    points. Returns the in-process main path's B5 launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rpst_torch.config import load_config
+    from rpst_torch.data import load_image
+    from rpst_torch.models import build_model
+    from rpst_torch.models.fast_path_q8_std import std_q8_plan
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
+                                    make_run_impl, resolve_mode)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for sub in ("content", "style"):
+            (tmp / sub).mkdir()
+        for i in range(8):
+            Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                            "RGB").save(tmp / "content" / f"c{i}.png")
+        Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                        "RGB").save(tmp / "style" / "s.png")
+        cfg_path = tmp / "adain.yaml"
+        cfg_path.write_text(json.dumps(dict(WIDE, network="adain",
+                                            img_size=IMG)))
+        cfg = load_config(str(cfg_path))
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        plan = std_q8_plan(*bundle.std_weights(torch.float32))
+        if plan != {"scales": 5, "B5": 4}:
+            raise AssertionError(f"adain h32 plan {plan}")
+        mode = resolve_mode(bundle, "q8", batch=4)
+        if mode != "q8" or resolve_mode(bundle, "auto", batch=4) == "folded":
+            raise AssertionError(f"adain resolve_mode gave {mode}")
+        imgs = [load_image(tmp / "content" / f"c{i}.png", IMG)
+                for i in range(8)]
+        style_img = load_image(tmp / "style" / "s.png", IMG)
+        calib = torch.from_numpy(np.stack(imgs[:4])).to(dev)
+        scales = calibrate_scales(bundle, calib, torch.from_numpy(
+            style_img)[None].to(dev).expand_as(calib).contiguous())
+        if len(scales["act_scales"]) != plan["scales"]:
+            raise AssertionError(f"{len(scales['act_scales'])} scales")
+        batcher = DynamicBatcher(make_run_impl(bundle, mode, scales),
+                                 batch_size=4, max_wait_ms=50.0, device=dev)
+        _reset_counts()  # this main path's count starts here
+        try:
+            outs = [f.result(timeout=600) for f in
+                    [batcher.submit(im, style_img) for im in imgs]]
+        finally:
+            batcher.close()
+        launches = _counters()["B5"].launches
+        batches = batcher.stats()["batches"]
+        if launches != batches * plan["B5"] or batches < 2:
+            raise AssertionError(f"adain q8 main path: {launches} B5 "
+                                 f"launches in {batches} batches")
+        std = bundle.stylize(torch.from_numpy(np.stack(imgs[:4])).to(dev),
+                             torch.from_numpy(style_img)[None].to(dev)
+                             .expand(4, -1, -1, -1).contiguous()).cpu().numpy()
+        psnr = _psnr(np.stack(outs[:4]), std)
+        for o in outs:
+            if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
+                raise AssertionError(f"adain q8 main path output {o.shape}")
+        if not psnr > Q8_VS_FOLDED_PSNR:
+            raise AssertionError(f"adain q8 vs standard f32: PSNR {psnr} dB")
+        log("20 wide serve", f"adain h32 512px: 8 requests via "
+            f"DynamicBatcher(b4): {batcher.stats()}, {launches} B5 launches "
+            f"({batches} batches x {plan['B5']}); q8 vs standard f32 PSNR "
+            f"{psnr:.2f} dB (bound > {Q8_VS_FOLDED_PSNR})")
+        del bundle, batcher, calib
+        torch.cuda.empty_cache()
+
+        wct_path = tmp / "wct.yaml"
+        wct_path.write_text(json.dumps(dict(WIDE, network="wct",
+                                            img_size=IMG)))
+        for label, path, extra, per_call, n_scales in (
+                ("adain h32", cfg_path, (), 4, 5),
+                ("adain h16 (configs/train_deeper_rp_adain.yaml)",
+                 ADAIN_YAML, ("--set", f"img_size={IMG}"), 2, 3),
+                ("wct h32", wct_path, (), 4, 5)):
+            t0 = time.perf_counter()
+            text, n_png = _serve_child(path, tmp, label.split()[0] + str(
+                per_call), "q8", extra)
+            child = _logged_count(text, "B5")
+            if (n_png != 8 or child != 2 * per_call
+                    or f"Calibrated {n_scales} layer scales" not in text):
+                raise AssertionError(f"serve_torch {label}: {n_png} PNGs, "
+                                     f"{child} B5 launches:\n{text[-3000:]}")
+            rate = [ln for ln in text.splitlines() if "Stylized" in ln]
+            log("20 wide serve", f"serve_torch.py {label} --mode q8: 8 PNGs, "
+                f"'Calibrated {n_scales} layer scales', {child} B5 launches "
+                f"(2 batches x {per_call}), {time.perf_counter() - t0:.1f}s "
+                f"wall; {rate[-1].split(' - ')[-1] if rate else ''}")
+    return launches
+
+
+def _q8_targets_train(dev):
+    """Phase 21: train_torch.py with train_q8_targets=true on a 512px
+    synthetic corpus, b4 f32 folded, 3 steps through the entry point in this
+    process, counts reset before and read after. Returns the B1/B2/B3/B5
+    launches."""
+    import importlib.util
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        out = tmp / "run"
+        cfg_path = tmp / "train.yaml"
+        cfg_path.write_text(json.dumps(dict(
+            FLAGSHIP, img_size=IMG, exec_strategy="folded", batch_size=4,
+            max_iter=4, snapshot_save_iter=100, log_iter=1, num_workers=4,
+            train_q8_targets=True,
+            content_dir=str(tmp / "corpus" / "content"),
+            style_dir=str(tmp / "corpus" / "style"), output=str(out))))
+        spec = importlib.util.spec_from_file_location(
+            "train_torch", REPO / "train_torch.py")
+        driver = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(driver)
+        _reset_counts()  # the main path's count starts here
+        t0 = time.perf_counter()
+        driver.main(["--config", str(cfg_path), "--device", "cuda"])
+        launches = _counts(("B1", "B2", "B3", "B5"))
+        want = tuple(3 * n for n in PER_STEP_Q8T + (B5_PER_TARGET_PASS,))
+        if launches != want:
+            raise AssertionError(f"q8-targets train launches {launches}, "
+                                 f"expected 3 steps x "
+                                 f"{PER_STEP_Q8T + (B5_PER_TARGET_PASS,)}")
+        lines = [json.loads(ln) for ln in
+                 (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+        losses = [ln["total_loss"] for ln in lines]
+        if [ln["step"] for ln in lines] != [1, 2, 3] \
+                or not np.isfinite(losses).all() \
+                or any(ln["skipped"] for ln in lines):
+            raise AssertionError(f"metrics.jsonl: {lines}")
+    log("21 q8-targets train", f"train_torch.py b4 512px f32 folded, "
+        f"train_q8_targets=true, 3 steps in {time.perf_counter() - t0:.1f}s "
+        f"wall: total_loss {[round(v, 6) for v in losses]}; B1/B2/B3/B5 "
+        f"launches {launches} (3 steps x "
+        f"{PER_STEP_Q8T + (B5_PER_TARGET_PASS,)})")
+    return launches
+
+
+def _wide_timing(dev, rng, name_power):
+    """Phase 22: 512px stylize of adain (b1, b4) and wct (b1), standard
+    f32 / bf16 vs q8 (bf16 around the int8 layers, as served); the
+    flagship's train step b1 / b4 with and without int8 targets. CUDA
+    events, medians."""
+    import numpy as np
+    import torch
+    from rpst_torch import policy
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model, build_vgg
+    from rpst_torch.models.fast_path_q8_std import calibrate_vgg_targets_q8
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import create_train_state, train_step
+
+    def pair(batch):
+        return tuple(torch.from_numpy(rng.random((batch, IMG, IMG, 3),
+                                                 np.float32)).to(dev)
+                     for _ in range(2))
+
+    for network, batches in (("adain", (1, 4)), ("wct", (1,))):
+        bundle = _rpseq_bundle(network, dev, IMG)
+        with torch.inference_mode():
+            for batch in batches:
+                c, s = pair(batch)
+                scales = bundle.calibrate_q8(c, s)
+                paths = {
+                    "standard f32": lambda: _standard(bundle, c, s,
+                                                      torch.float32),
+                    "standard bf16": lambda: _standard(bundle, c, s,
+                                                       torch.bfloat16),
+                    "q8 B5": lambda: bundle.stylize_q8(c, s, scales)}
+                for path, fn in paths.items():
+                    ms = cuda_ms(fn, iters=7, warmup=2)
+                    log("22 wide timing", f"{network} 512px b{batch} "
+                        f"{path:14s}: {ms:9.3f} ms {batch * 1e3 / ms:8.2f} "
+                        f"img/s ({name_power})")
+        del bundle
+        torch.cuda.empty_cache()
+
+    cfg = load_config(dict(FLAGSHIP, img_size=IMG, exec_strategy="folded",
+                           train_q8_targets=True))
+    vgg, _ = build_vgg(cfg, dev)
+    min_batch = policy.TRAIN_Q8_TARGETS_MIN_BATCH
+    try:
+        policy.TRAIN_Q8_TARGETS_MIN_BATCH = 1  # time both sides at b1 too
+        for batch in (1, 4):
+            c, s = pair(batch)
+            scales = calibrate_vgg_targets_q8(vgg, c, s)
+            for dt in ("float32", "bfloat16"):
+                # float, int8, int8, float: both orders inside one call
+                for label, sc in (("float targets", None),
+                                  ("int8 targets B5", scales),
+                                  ("int8 targets B5", scales),
+                                  ("float targets", None)):
+                    bundle = build_model(cfg.replace(compute_dtype=dt), dev)
+                    init_torch_default(bundle.model, cfg.seed)
+                    bundle.q8_target_scales = sc
+                    state = create_train_state(bundle)
+                    ms = cuda_ms(lambda: train_step(state, vgg, c, s),
+                                 iters=5, warmup=2)
+                    log("22 wide timing", f"train step 512px b{batch} "
+                        f"{dt:8s} {label:16s}: {ms:9.3f} ms/step "
+                        f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
+                    del state, bundle
+                    torch.cuda.empty_cache()
+    finally:
+        policy.TRAIN_Q8_TARGETS_MIN_BATCH = min_batch
 
 
 def _standard(bundle, c, s, dt):

@@ -5,7 +5,11 @@ CUDA device: the stylize call at b1 and b8 (default), or with ``--train``
 the train step (loss, backward, Adam; B1 + B2 + B3) at b1 and b4; float32
 and bfloat16 each. With ``--q8``, the int8 stylize (bfloat16 around the
 int8 layers, as served) at b1 and b8, calibrated on the batch, once with B4
-alone and once with B7 pairs (``fuse_pairs``).
+alone and once with B7 pairs (``fuse_pairs``). With ``--network adain`` the
+adain stylize (rp_blocks 5, hidden 32) at b1 and b4: the standard path in
+float32 and bfloat16, or with ``--q8`` its int8 path on B5. With ``--train
+--q8-targets`` the flagship's train step with the int8 VGG loss targets on
+B5 (whatever ``rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH`` says).
 
 For each case it prints one Markdown table row:
 
@@ -15,18 +19,20 @@ For each case it prints one Markdown table row:
                 steps) after warm-ups, without the profiler
   Bn share      device time of the kernel (B1 folded_conv_kernel, B2
                 grad_input_kernel, B3 grad_weight_partial + _reduce, B4
-                folded_conv_q8_kernel, B7 folded_conv2_q8_kernel; the
-                stats' finalize_sums counts as other) over all device
+                folded_conv_q8_kernel, B7 folded_conv2_q8_kernel, B5
+                conv2d_q8_kernel; the stats' finalize_sums counts as other)
+                over all device
                 time, in the profiled calls
   other         the three next kernels by device time, names shortened
   idle share    1 - (union of device activity) / (first start .. last end)
                 over the profiled calls (5 stylize, 3 train steps)
 
 It also writes each case's ``key_averages()`` table to
-``chiprun_out/profile_torch[_train].txt``. The card's name and power limit
-come first, as nvidia-smi gives them.
+``chiprun_out/profile_torch[_train|_q8][_adain][_q8targets].txt``. The
+card's name and power limit come first, as nvidia-smi gives them.
 
-    python3 profile_torch.py [--train | --q8]
+    python3 profile_torch.py [--train [--q8-targets] | --q8]
+                             [--network adain]
 """
 
 import argparse
@@ -55,7 +61,9 @@ IMG = 512
 # report column -> the kernel-name prefixes it sums
 KERNELS = {"B1": ("folded_conv_kernel",), "B2": ("grad_input_kernel",),
            "B3": ("grad_weight_partial", "grad_weight_reduce"),
-           "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",)}
+           "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",),
+           "B5": ("conv2d_q8_kernel",)}
+ADAIN = dict(network="adain", rp_blocks=5, hidden_dim=32, seed=0)
 
 
 def short_name(name: str) -> str:
@@ -149,7 +157,18 @@ def main():
                       help="profile the train step instead of stylize")
     mode.add_argument("--q8", action="store_true",
                       help="profile the int8 stylize instead")
+    ap.add_argument("--network", choices=("multi_adain", "adain"),
+                    default="multi_adain",
+                    help="adain: its standard (or with --q8 its int8) "
+                    "stylize at b1 and b4")
+    ap.add_argument("--q8-targets", action="store_true",
+                    help="with --train: the int8 VGG loss targets on B5")
     args = ap.parse_args()
+    if args.q8_targets and not args.train:
+        ap.error("--q8-targets goes with --train")
+    adain = args.network == "adain"
+    if adain and args.train:
+        ap.error("--network adain profiles serving only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -159,16 +178,19 @@ def main():
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    cfg = load_config(dict(FLAGSHIP, img_size=IMG))
+    cfg = load_config(dict(ADAIN if adain else FLAGSHIP, img_size=IMG,
+                           train_q8_targets=args.q8_targets))
     rng = np.random.default_rng(0)
     tables = []
-    cols = (("B1", "B2", "B3") if args.train
+    cols = (("B5",) if adain
+            else ("B1", "B2", "B3", "B5") if args.q8_targets
+            else ("B1", "B2", "B3") if args.train
             else ("B1", "B4", "B7") if args.q8 else ("B1",))
     print("| batch, type | ms per " + ("step" if args.train else "call")
           + " | " + " | ".join(f"{c} share" for c in cols)
           + " | other kernels by share | idle share |")
     print("| --- | --- | " + "--- | " * len(cols) + "--- | --- |")
-    for batch in ((1, 4) if args.train else (1, 8)):
+    for batch in ((1, 4) if args.train or adain else (1, 8)):
         c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
                                             np.float32)).cuda()
                 for _ in range(2))
@@ -179,14 +201,35 @@ def main():
                     compute_dtype=str(dt)[6:]), "cuda")
                 init_torch_default(bundle.model, cfg.seed)
                 vgg, _ = build_vgg(cfg, "cuda")
+                if args.q8_targets:
+                    from rpst_torch import policy
+                    from rpst_torch.models.fast_path_q8_std import (
+                        calibrate_vgg_targets_q8)
+                    policy.TRAIN_Q8_TARGETS_MIN_BATCH = 1
+                    bundle.q8_target_scales = calibrate_vgg_targets_q8(
+                        vgg, c, s)
                 state = create_train_state(bundle)
                 report(label, lambda: train_step(state, vgg, c, s), cols,
                        iters=5, calls=3, card=card, tables=tables)
                 del state, bundle
                 torch.cuda.empty_cache()
                 continue
-            bundle = build_model(cfg, "cuda")
+            bundle = build_model(cfg.replace(compute_dtype=str(dt)[6:]),
+                                 "cuda")
             init_torch_default(bundle.model, cfg.seed)
+            if adain:
+                if args.q8 and dt == torch.bfloat16:
+                    scales = bundle.calibrate_q8(c, s)
+                    report(f"b{batch} adain q8 B5",
+                           lambda: bundle.stylize_q8(c, s, scales), cols,
+                           iters=10, calls=3, card=card, tables=tables)
+                elif not args.q8:
+                    report(f"b{batch} adain standard {str(dt)[6:]}",
+                           lambda: bundle.stylize(c, s), cols, iters=10,
+                           calls=3, card=card, tables=tables)
+                del bundle
+                torch.cuda.empty_cache()
+                continue
             if args.q8:
                 if dt == torch.float32:
                     continue  # q8 serves in bfloat16 around the int8 layers
@@ -203,9 +246,10 @@ def main():
                 report(label, lambda: stylize_multi_adain_folded(
                     w, c, s, dtype=dt), cols, iters=20, calls=5, card=card,
                     tables=tables)
-    out = REPO / "chiprun_out" / ("profile_torch_train.txt" if args.train
-                                  else "profile_torch_q8.txt" if args.q8
-                                  else "profile_torch.txt")
+    name = ("profile_torch" + ("_train" if args.train else "")
+            + ("_q8" if args.q8 else "") + ("_adain" if adain else "")
+            + ("_q8targets" if args.q8_targets else "") + ".txt")
+    out = REPO / "chiprun_out" / name
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text("\n".join(tables))
     print(f"key_averages tables -> {out}")

@@ -6,20 +6,24 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
 
   * ``--mode q8``       int8 PTQ serving: calibrates per-tensor activation
                         scales on the first min(batch, 8) content images
-                        with the style, then runs the int8 layers on the
-                        hand-written B4 CUDA kernel (B7 pairs where
-                        ``rpst_torch.policy.FUSE_PAIRS``) and the image
-                        layers on B1 (on a CPU device: their plain
-                        versions); configs without int8 layers
-                        (4 * hidden_dim % 128) serve standard, with a
-                        warning,
+                        with the style (adain and wct use at most 2 of
+                        them), then runs the int8 layers on the
+                        hand-written CUDA kernels: the flagship's folded
+                        layers on B4 (B7 pairs where
+                        ``rpst_torch.policy.FUSE_PAIRS``) with the image
+                        layers on B1, adain's and wct's wide
+                        standard-layout layers on B5 (on a CPU device:
+                        their plain versions); flagship configs without
+                        int8 layers (4 * hidden_dim % 128) serve standard,
+                        with a warning,
   * ``--mode folded``   exact space-to-depth execution on the hand-written
                         B1 CUDA kernel (on a CPU device: its plain version),
   * ``--mode standard`` the plain model path,
   * ``--mode auto``     the path measured fastest on the H100 at --batch
                         (``rpst_torch.policy``, PERF.md section 6).
 
-At the end it logs the B1, B4 and B7 launch counts of the run.
+At the end it logs the B1, B4, B7 and B5 launch counts of the run.
+Networks: multi_adain (the flagship), adain and wct.
 
 Weights: ``--weights`` takes a reference-layout ``.pth`` (written from an
 rpst checkpoint by ``tools/export_reference_checkpoint.py``) or an ``.npz``
@@ -50,6 +54,7 @@ from rpst_torch.data import image_paths, load_image, to_u8
 from rpst_torch.metrics import logger, save_image
 from rpst_torch.models import build_model
 from rpst_torch.nn.blocks import init_torch_default
+from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8
 from rpst_torch.ops.folded_conv import fused_folded_conv
 from rpst_torch.ops.folded_conv2_q8 import fused_folded_conv2_q8
 from rpst_torch.ops.folded_conv_q8 import fused_folded_conv_q8
@@ -63,7 +68,8 @@ def _load_images(path: Path, img_size: int):
 
 def _log_launches():
     for label, fn in (("B1", fused_folded_conv), ("B4", fused_folded_conv_q8),
-                      ("B7", fused_folded_conv2_q8)):
+                      ("B7", fused_folded_conv2_q8),
+                      ("B5", fused_conv2d_q8)):
         logger.info(f"{label} {fn.__name__} launches: {fn.launches}")
 
 

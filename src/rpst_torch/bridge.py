@@ -1,15 +1,22 @@
 """Weights into the port: flax parameter trees and reference checkpoints.
 
 Two sources, one target (the port's ``state_dict`` names, which follow the
-flax tree: ``rp_shared_encoder.block_{i}.PadConv_0.Conv_0.weight``):
+flax tree: ``rp_shared_encoder.block_{i}.PadConv_0.Conv_0.weight`` for the
+flagship's Conv2dBlock stacks, ``encoder.conv_{i}.Conv_0.weight`` for the
+``RPSequence`` stacks of adain and wct):
 
   * ``from_flax_params(tree)``: a nested dict of numpy arrays as rpst's
     flax model holds it (kernels HWIO) -> state_dict (kernels OIHW), the
     conversion ``tests/reference_oracle.py``'s ``inject_*`` helpers make;
+    it walks any conv subtree, so the flagship's, adain's and wct's
+    ``params`` all cross through it;
   * ``from_reference_checkpoint(ckpt)``: the reference ``.pth`` layout
-    ``{'encoder': sd, 'decoder': sd}`` with ``{i}.conv.weight`` keys, which
-    ``tools/export_reference_checkpoint.py`` writes from an rpst checkpoint.
-    A model trained with ``train.py`` is served here with no JAX installed.
+    ``{'encoder': sd, 'decoder': sd}``, which
+    ``tools/export_reference_checkpoint.py`` writes from an rpst
+    checkpoint: ``{i}.conv.weight`` keys for the flagship (rpstack),
+    ``{2i}.weight`` keys of ``nn.Sequential(Conv2d, ReLU)`` for adain and
+    wct (rpseq). A model trained with ``train.py`` is served here with no
+    JAX installed.
 
 ``load_weights(path)`` reads either file: ``.pth`` (reference layout) or
 ``.npz`` whose keys are flax paths (``rp_decoder/block_0/PadConv_0/Conv_0/
@@ -27,7 +34,9 @@ has three sources, all to the same state_dict:
 
 ``load_vgg_weights(path)`` reads a ``.pth`` or ``.npz``;
 ``vgg_weights_from_seed(seed)`` draws a VGG from numpy alone, so that a
-machine without JAX rebuilds the same weights.
+machine without JAX rebuilds the same weights, and
+``rpseq_weights_from_seed`` does the same for adain's and wct's stacks
+(their full-width weights are 12 MB, too large to keep in a fixture).
 """
 
 from __future__ import annotations
@@ -72,8 +81,10 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
 
 
 def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
-    """``{'encoder': {'{i}.conv.weight': OIHW, '{i}.conv.bias': ...},
-    'decoder': {...}}`` of numpy arrays or CPU tensors -> port state_dict."""
+    """``{'encoder': sd, 'decoder': sd}`` of numpy arrays or CPU tensors ->
+    port state_dict. ``{i}.conv.weight`` keys (OIHW) are the flagship's
+    Conv2dBlock stacks; ``{2i}.weight`` keys are the conv + ReLU Sequentials
+    of adain and wct, whose conv i sits at index 2i."""
     sd = {}
     for part, stack in _STACKS.items():
         if part not in ckpt:
@@ -81,11 +92,16 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
                            f"(keys {sorted(ckpt)})")
         for key, value in ckpt[part].items():
             parts = key.split(".")
-            if len(parts) != 3 or parts[1] != "conv":
-                raise ValueError(f"{part}.{key}: only plain Conv2dBlocks are "
-                                 "ported (no inception/attention state)")
-            sd[f"{stack}.block_{parts[0]}.PadConv_0.Conv_0.{parts[2]}"] = \
-                torch.tensor(np.asarray(value, np.float32))
+            if len(parts) == 3 and parts[1] == "conv":
+                name = f"{stack}.block_{parts[0]}.PadConv_0.Conv_0.{parts[2]}"
+            elif len(parts) == 2 and parts[0].isdigit() \
+                    and int(parts[0]) % 2 == 0:
+                name = f"{part}.conv_{int(parts[0]) // 2}.Conv_0.{parts[1]}"
+            else:
+                raise ValueError(f"{part}.{key}: only plain Conv2dBlocks and "
+                                 "conv + ReLU Sequentials are ported (no "
+                                 "inception/attention state)")
+            sd[name] = torch.tensor(np.asarray(value, np.float32))
     return sd
 
 
@@ -185,3 +201,31 @@ def vgg_weights_from_seed(seed: int, num_stages: int = 4) -> dict:
             "kernel": kernel.astype(np.float32),
             "bias": bias.astype(np.float32)}}
     return {"params": params}
+
+
+def rpseq_weights_from_seed(seed: int, rp_blocks: int = 5,
+                            hidden_dim: int = 32) -> dict:
+    """adain's / wct's ``params`` tree (``encoder`` and ``decoder``
+    RPSequences, HWIO float32 numpy kernels) drawn from
+    ``numpy.random.default_rng(seed)`` in conv order: He-uniform kernels,
+    U(+-sqrt(6 / fan_in)), so that the signal keeps its scale through the
+    ten conv + ReLU layers and the output depends on the images, and
+    U(+-1/sqrt(fan_in)) biases.
+    ``from_flax_params`` turns it into the port's state_dict; rpst takes it
+    as its flax ``params``."""
+    from .nn.blocks import rp_decrease_dims, rp_increase_dims
+    rng = np.random.default_rng(seed)
+    enc_out = hidden_dim * 2 ** (rp_blocks - 1)
+    stacks = {"encoder": rp_increase_dims(rp_blocks, 3, hidden_dim, enc_out),
+              "decoder": rp_decrease_dims(rp_blocks, enc_out, enc_out // 2, 3)}
+    tree: dict = {}
+    for name, dims in stacks.items():
+        tree[name] = {}
+        for i, (cin, cout) in enumerate(dims):
+            bound = (9 * cin) ** -0.5
+            he = (6.0 / (9 * cin)) ** 0.5
+            tree[name][f"conv_{i}"] = {"Conv_0": {
+                "kernel": rng.uniform(-he, he, (3, 3, cin, cout))
+                .astype(np.float32),
+                "bias": rng.uniform(-bound, bound, cout).astype(np.float32)}}
+    return tree

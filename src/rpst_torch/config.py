@@ -26,6 +26,8 @@ DEFAULTS: Dict[str, Any] = {
     "img_size": 512,
     "seed": 0,
     "compute_dtype": "float32",  # 'float32' | 'bfloat16'
+    "wct_method": "closed-form",  # | 'original'
+    "wct_dtype": "float32",  # | 'float64' (the reference whitens in float64)
     "exec_strategy": "standard",  # 'standard' | 'folded'
     # training (train_torch.py)
     "lr": 1e-4,
@@ -50,6 +52,7 @@ DEFAULTS: Dict[str, Any] = {
     "distributed": False,
     "grad_accum": 1,
     "remat": False,
+    # int8 no-grad VGG loss targets of the folded flagship loss (B5)
     "train_q8_targets": False,
 }
 

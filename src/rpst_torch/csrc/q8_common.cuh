@@ -1,8 +1,8 @@
-// Pieces shared by the int8 folded conv kernels B4 (folded_conv_q8.cu) and
-// B7 (folded_conv2_q8.cu): the folded reflect ring's source rule, the
-// weight repacking for __dp4a, the f32 epilogue of rpst's
-// ops/pallas/folded_conv_q8.py (:238-266), and the deterministic reduction
-// of per-tile channel sums.
+// Pieces shared by the int8 conv kernels B4 (folded_conv_q8.cu), B7
+// (folded_conv2_q8.cu) and B5 (conv2d_q8.cu): the folded reflect ring's
+// source rule, the weight repacking for __dp4a, the f32 epilogue of rpst's
+// ops/pallas/folded_conv_q8.py (:238-266) and conv2d_q8.py (:139-149), and
+// the deterministic reduction of per-tile channel sums.
 //
 // Layouts. Activations are NHWC int8 with 4C folded channels; a "word" is
 // 4 consecutive channels packed in an int32 (channel g in byte g % 4), the
@@ -90,6 +90,15 @@ __device__ __forceinline__ void stage_weights(
 __device__ __forceinline__ float epilogue(int32_t acc, float deq, float bias) {
   const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), deq), bias);
   return y >= 0.f ? y : __fmul_rn(0.2f, y);
+}
+
+// The same two roundings with the slope as an argument (B5, conv2d_q8.cu):
+// where(y >= 0, y, alpha * y), so alpha = 0 gives -0.0 for a negative y
+// and alpha = 1 gives y back, as rpst's ops/pallas/conv2d_q8.py (:142-143).
+__device__ __forceinline__ float epilogue_alpha(int32_t acc, float deq,
+                                                float bias, float alpha) {
+  const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), deq), bias);
+  return y >= 0.f ? y : __fmul_rn(alpha, y);
 }
 
 // clip(round_half_even(y * inv), -127, 127) as int8 bits in the low byte.

@@ -44,6 +44,11 @@ _FOLDED_CONV_Q8_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
 # x, w1, scales1, w2, scales2, y1, y2, s11, s12, s21, s22, part (device
 # pointers), N, H, W, C4, C4m, C4o, out_int8, with_stats, stream
 _FOLDED_CONV2_Q8_ARGS = [_PTR] * 12 + [_INT] * 8 + [_PTR]
+# x, w, scales, y (device pointers), N, H, W, C, Co, out_int8, reflect,
+# alpha, stream
+_CONV2D_Q8_ARGS = [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _PTR]
+# x, w, bias, y (device pointers), N, H, W, C, Co, reflect, alpha, stream
+_CONV2D_BF16_ARGS = [_PTR] * 4 + [_INT] * 6 + [_FLOAT, _PTR]
 # C signature of every exported function, by library: (argtypes, restype);
 # every function returns its launch's cudaError_t
 SIGNATURES = {
@@ -65,6 +70,10 @@ SIGNATURES = {
     "folded_conv2_q8": {
         "rpst_folded_conv2_q8": (_FOLDED_CONV2_Q8_ARGS, _INT),
         "rpst_folded_conv2_q8_tiles": ([_INT, _INT], _INT),
+    },
+    "conv2d_q8": {
+        "rpst_conv2d_q8": (_CONV2D_Q8_ARGS, _INT),
+        "rpst_conv2d_bf16": (_CONV2D_BF16_ARGS, _INT),
     },
 }
 

@@ -1,8 +1,11 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
-The port covers one network, the flagship ``multi_adain`` (constant RP
-stack), for serving (folded, standard and int8 q8) and training. ``build_model`` raises ``ValueError`` for
-the other 16, naming the ROADMAP.md slice that brings each.
+The port covers three networks: the flagship ``multi_adain`` (constant RP
+stack) for serving (folded, standard and int8 q8) and training (with
+float or int8 loss targets); ``adain`` for serving (standard and q8) and
+standard training; ``wct`` for serving (standard and q8). ``build_model``
+raises ``ValueError`` for the other 14, naming the ROADMAP.md slice that
+brings each.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
@@ -12,41 +15,50 @@ device and exposes what the serving CLI calls:
     the model supports, folded execution,
   * ``q8_infer()`` / ``q8_recommended(batch)``: whether the int8 PTQ path
     covers the config, and whether ``--mode auto`` should take it;
-    ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights,
+    ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights
+    (the flagship folded on B4/B7, adain and wct standard-layout on B5),
   * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
   * ``loss(vgg, content, style)`` -> (total, parts): the training loss
     (rpst's ``ModelBundle.loss``), differentiable in the model's
-    parameters; ``build_vgg`` makes its frozen encoder.
+    parameters; ``build_vgg`` makes its frozen encoder. With
+    ``train_q8_targets`` and ``q8_target_scales`` set (``train_torch.py``
+    calibrates them on the first batch) the flagship's style and content
+    targets come from the int8 VGG chain on B5.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..config import Config
 from ..nn.vgg import VGG19Encoder
-from ..nn.vgg_folded import ConvAct, perceptual_rp_losses_folded
+from ..nn.vgg_folded import (ConvAct, perceptual_rp_losses_folded,
+                             perceptual_rp_losses_q8targets)
 from ..ops.folded_conv import folded_conv_act
-from .adain_rp import MultiScaleAdaINRP
+from .adain_rp import AdaINRP, MultiScaleAdaINRP
 from .base import perceptual_rp_losses
 from .fast_path import (folded_blocks, live_folded_blocks,
                         stylize_multi_adain_folded)
 from .fast_path_q8 import (calibrate_multi_adain_q8, quantize_blocks,
                            stylize_multi_adain_folded_q8)
+from .fast_path_q8_std import (calibrate_adain_q8, calibrate_wct_q8,
+                               quantize_std, std_blocks, stylize_adain_q8,
+                               stylize_wct_q8)
+from .wct_rp import WCTRP
 
-__all__ = ["build_model", "build_vgg", "ModelBundle", "MultiScaleAdaINRP"]
+__all__ = ["build_model", "build_vgg", "ModelBundle", "MultiScaleAdaINRP",
+           "AdaINRP", "WCTRP"]
 
 # every other rpst registry network -> the ROADMAP.md section A slice that
 # ports it
 _NOT_PORTED = {
     **dict.fromkeys(("sel_multi_adain", "ccam", "mst"), "slice 4"),
-    **dict.fromkeys(("adain", "seg_adain", "wct", "mrf", "spade", "ld_adain",
-                     "ld_adain2", "ld_adain3", "ld_adain4", "ld_adain5"),
-                    "slice 5"),
+    **dict.fromkeys(("seg_adain", "mrf", "spade", "ld_adain", "ld_adain2",
+                     "ld_adain3", "ld_adain4", "ld_adain5"), "slice 5b"),
     **dict.fromkeys(("sanet", "dynamic_sanet", "src"), "slice 6"),
 }
 
@@ -54,13 +66,22 @@ _NOT_PORTED = {
 @dataclasses.dataclass
 class ModelBundle:
     network: str
-    model: MultiScaleAdaINRP
+    model: Union[MultiScaleAdaINRP, AdaINRP, WCTRP]
     cfg: Config
     device: torch.device
-    # dtype -> folded (encoder, decoder) weights, and the int8 weight set
-    # ("q8"); cleared by weights_changed
+    # activation scales of the int8 no-grad VGG loss targets
+    # (``train_q8_targets``), set by the training driver after
+    # ``fast_path_q8_std.calibrate_vgg_targets_q8`` on its first batch
+    q8_target_scales: Optional[Dict[str, Any]] = None
+    # dtype -> serving weights (folded for the flagship, ``std_blocks`` for
+    # adain and wct), and the int8 weight set ("q8"); cleared by
+    # weights_changed
     _folded: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, init=False, repr=False)
+
+    def _std_q8(self) -> bool:
+        """adain and wct: the int8 path runs on the standard layout (B5)."""
+        return self.network in ("adain", "wct")
 
     def _folded_stack_ok(self) -> bool:
         c = self.cfg
@@ -82,9 +103,15 @@ class ModelBundle:
         return self.folded_exec()
 
     def q8_infer(self) -> bool:
-        """The int8 folded path covers the folded stacks whose hidden
-        layers fill 128 folded lanes (4 * hidden_dim % 128 == 0): narrower
-        stacks have no int8 layer (rpst's gate, ``models/__init__.py``)."""
+        """The int8 path covers adain (without masks) and wct on the
+        standard layout, and the folded stacks whose hidden layers fill 128
+        folded lanes (4 * hidden_dim % 128 == 0): narrower folded stacks
+        have no int8 layer (rpst's gates, ``models/__init__.py:96-99,
+        147-152``)."""
+        if self.network == "adain":
+            return not self.cfg.use_mask
+        if self.network == "wct":
+            return True
         return (self._folded_stack_ok()
                 and (self.cfg.hidden_dim * 4) % 128 == 0)
 
@@ -92,23 +119,45 @@ class ModelBundle:
         """Should ``--mode auto`` serve q8 at ``batch``: only where the H100
         measured it fastest (``rpst_torch.policy``)."""
         from ..policy import q8_preferred
-        return self.q8_infer() and q8_preferred(batch)
+        return self.q8_infer() and q8_preferred(self.network, batch)
 
     def q8_weights(self):
-        """The eligible layers' int8 weights and scales
-        (``fast_path_q8.quantize_blocks`` of the float32 folded weights),
-        quantized once and cached until ``weights_changed``."""
+        """The eligible layers' int8 weights and scales (``quantize_blocks``
+        of the float32 folded weights, ``quantize_std`` of the float32
+        standard-layout stacks), quantized once and cached until
+        ``weights_changed``."""
         if "q8" not in self._folded:
-            self._folded["q8"] = quantize_blocks(
-                self.folded_weights(torch.float32))
+            self._folded["q8"] = (
+                quantize_std(self.std_weights(torch.float32))
+                if self._std_q8() else
+                quantize_blocks(self.folded_weights(torch.float32)))
         return self._folded["q8"]
+
+    def std_weights(self, dtype: torch.dtype):
+        """adain / wct: the (encoder, decoder) conv lists in ``dtype``
+        (``fast_path_q8_std.std_blocks``), cached until the next
+        ``load_state_dict``."""
+        key = ("std", dtype)
+        if key not in self._folded:
+            self._folded[key] = std_blocks(self.model, dtype)
+        return self._folded[key]
+
+    def _wct_args(self) -> Dict[str, Any]:
+        return {"method": self.model.method, "wct_dtype": self.model.wct_dtype}
 
     def calibrate_q8(self, content: torch.Tensor,
                      style: torch.Tensor) -> Dict[str, Any]:
         """PTQ calibration: {'act_scales': (L,) float32} from one bfloat16
-        folded forward of (content, style) (rpst's
-        ``calibrate_multi_adain_q8``)."""
+        forward of (content, style): folded for the flagship (rpst's
+        ``calibrate_multi_adain_q8``), standard-layout on at most 2 images
+        for adain and wct (``calibrate_adain_q8``, ``calibrate_wct_q8``)."""
         self._check_q8()
+        if self.network == "adain":
+            return calibrate_adain_q8(self.std_weights(torch.bfloat16),
+                                      content, style)
+        if self.network == "wct":
+            return calibrate_wct_q8(self.std_weights(torch.bfloat16), content,
+                                    style, **self._wct_args())
         return calibrate_multi_adain_q8(self.folded_weights(torch.bfloat16),
                                         content, style)
 
@@ -117,18 +166,26 @@ class ModelBundle:
                    fuse_pairs="auto") -> torch.Tensor:
         """Int8 inference with calibrated ``scales``: (N, H, W, 3) content
         and style on the bundle's device -> (N, H, W, 3) float32, in
-        bfloat16 around the int8 layers as rpst serves it. Runs under
+        bfloat16 around the int8 layers as rpst serves it. ``fuse_pairs``
+        applies to the flagship's folded encoder only. Runs under
         ``torch.inference_mode``."""
         self._check_q8()
         with torch.inference_mode():
+            if self._std_q8():
+                args = (self.std_weights(dtype), self.q8_weights(), scales,
+                        content, style)
+                if self.network == "adain":
+                    return stylize_adain_q8(*args, dtype=dtype)
+                return stylize_wct_q8(*args, dtype=dtype, **self._wct_args())
             return stylize_multi_adain_folded_q8(
                 self.folded_weights(dtype), self.q8_weights(), scales,
                 content, style, dtype=dtype, fuse_pairs=fuse_pairs)
 
     def _check_q8(self) -> None:
         if not self.q8_infer():
-            raise ValueError("the int8 path needs a folded multi_adain stack "
-                             "with 4 * hidden_dim a multiple of 128")
+            raise ValueError("the int8 path needs adain without masks, wct, "
+                             "or a folded multi_adain stack with 4 * "
+                             "hidden_dim a multiple of 128")
 
     def folded_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
@@ -167,27 +224,34 @@ class ModelBundle:
         Folded (``folded_exec()``): ``stylize_multi_adain_folded`` on the
         live folded weights, then the folded VGG loss, every folded conv
         through ``conv_act`` (B1's autograd Function; a benchmark passes B1's
-        plain version to time the plain path). Standard: the module's
+        plain version to time the plain path); where ``q8_targets_active``
+        the style and content targets come from the int8 VGG chain on B5
+        instead of the folded float pass. Standard: the module's
         forward, then ``perceptual_rp_losses``, under bfloat16 autocast when
         compute_dtype says so."""
         if targets is not None:
             raise NotImplementedError(
                 "precomputed loss targets (the target cache) are not ported "
                 "yet: ROADMAP.md section A item 7")
-        if self.cfg.get("train_q8_targets", False):
-            raise NotImplementedError(
-                "train_q8_targets (int8 no-grad VGG targets on B5, "
-                "vgg_target_taps_q8) is not ported yet: ROADMAP.md section A "
-                "slice 5")
         c = self.cfg
+        if self.network == "wct":
+            raise NotImplementedError(
+                "wct training (the frozen-encoder resume, freeze_prefixes) "
+                "is not ported yet: ROADMAP.md section A slice 5b")
         if self.folded_exec():
             dtype = self.folded_dtype()
             stylized = stylize_multi_adain_folded(
                 live_folded_blocks(self.model, dtype), content, style,
                 dtype=dtype, conv=lambda x, k, b: conv_act(x, k, b, 0.2))
-            parts, _ = perceptual_rp_losses_folded(
-                vgg, stylized, style, content, c.content_weight,
-                c.style_weight, dtype=dtype, conv_act=conv_act)
+            if self.q8_targets_active(content.shape[0]):
+                parts, _ = perceptual_rp_losses_q8targets(
+                    vgg, self.q8_target_scales, stylized, style, content,
+                    c.content_weight, c.style_weight, dtype=dtype,
+                    conv_act=conv_act)
+            else:
+                parts, _ = perceptual_rp_losses_folded(
+                    vgg, stylized, style, content, c.content_weight,
+                    c.style_weight, dtype=dtype, conv_act=conv_act)
         else:
             with torch.autocast(self.device.type, dtype=torch.bfloat16,
                                 enabled=c.compute_dtype == "bfloat16"):
@@ -198,6 +262,18 @@ class ModelBundle:
             parts = {k: v for k, v in parts.items() if k != "total_loss"}
         total = self._mix(parts)
         return total, {**parts, "total_loss": total}
+
+    def q8_targets_active(self, batch: int) -> bool:
+        """Does the folded loss take int8 targets at ``batch``: the knob is
+        on, the scales are calibrated, three exact 2x2 pools fit the image
+        (img_size % 8 == 0), and the batch reaches the H100's measured
+        crossover (``policy.TRAIN_Q8_TARGETS_MIN_BATCH``). Otherwise the
+        loss takes the folded float targets, as rpst does."""
+        from ..policy import TRAIN_Q8_TARGETS_MIN_BATCH
+        return (bool(self.cfg.get("train_q8_targets", False))
+                and self.q8_target_scales is not None
+                and self.cfg.img_size % 8 == 0
+                and batch >= TRAIN_Q8_TARGETS_MIN_BATCH)
 
     def stylize(self, content: torch.Tensor, style: torch.Tensor,
                 batch_encode: bool = False,
@@ -230,14 +306,22 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
     if n in _NOT_PORTED:
         raise ValueError(f"network {n!r} is not ported to rpst_torch yet: "
                          f"ROADMAP.md section A {_NOT_PORTED[n]}")
-    if n != "multi_adain":
-        raise ValueError(f"unknown network {n!r}")
     device = torch.device(device)
-    model = MultiScaleAdaINRP(
-        rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
-        enc_stack_way=cfg.enc_stack_way, inception_num=cfg.inception_num,
-        attention=cfg.attention, shuffle=bool(cfg.shuffle),
-        sort=bool(cfg.sort), use_mask=bool(cfg.use_mask), device=device)
+    if n == "adain":
+        model = AdaINRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
+                        use_mask=bool(cfg.use_mask), device=device)
+    elif n == "wct":
+        model = WCTRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
+                      method=cfg.wct_method, wct_dtype=cfg.wct_dtype,
+                      device=device)
+    elif n == "multi_adain":
+        model = MultiScaleAdaINRP(
+            rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
+            enc_stack_way=cfg.enc_stack_way, inception_num=cfg.inception_num,
+            attention=cfg.attention, shuffle=bool(cfg.shuffle),
+            sort=bool(cfg.sort), use_mask=bool(cfg.use_mask), device=device)
+    else:
+        raise ValueError(f"unknown network {n!r}")
     model.eval()  # serving; training calls .train() (no BatchNorm: the same)
     return ModelBundle(network=n, model=model, cfg=cfg, device=device)
 

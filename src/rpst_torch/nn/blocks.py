@@ -1,10 +1,11 @@
 """Convolution blocks and RP (resolution-preserving) stacks; port of
-``rpst.nn.blocks`` for the options the flagship uses.
+``rpst.nn.blocks`` for the options the flagship, adain and wct use.
 
 The modules take NCHW tensors, PyTorch's layout for ``F.conv2d``; module
 and parameter names follow the flax tree (``block_{i}.PadConv_0.Conv_0``),
 so ``rpst_torch.bridge`` maps flax params one to one. Every conv is
-stride-1 with reflection padding: full spatial resolution at every layer.
+stride-1: full spatial resolution at every layer. ``Conv2dBlock`` stacks
+pad by reflection; ``RPSequence`` (adain, wct) pads with zeros.
 
 Not ported in this slice (they raise ``NotImplementedError``): inception
 1x1 stacks, SE/SK attention, batch/instance norm and prelu, which belong to
@@ -42,6 +43,9 @@ class PadConv(nn.Module):
                                 bias=use_bias, device=device, dtype=dtype)
 
     def forward(self, x):
+        if self.pad_type == "zero":  # the conv pads with zeros itself
+            c = self.Conv_0
+            return F.conv2d(x, c.weight, c.bias, padding=self.padding)
         return self.Conv_0(pad2d(x, self.padding, self.pad_type))
 
 
@@ -165,6 +169,31 @@ class RPStack(nn.Module):
 
     def apply_block(self, x, idx: int):
         return self.blocks[idx](x)
+
+
+class RPSequence(nn.Module):
+    """Plain conv + ReLU sequence ``conv_0 .. conv_{n-1}`` (no Conv2dBlock
+    extras), the reference's build_increase/decrease_depth_rp_blocks
+    (``base.py:363-396``): zero-padded convs, unlike Conv2dBlock's reflect
+    default. NCHW in and out."""
+
+    def __init__(self, dims: Sequence[Tuple[int, int]], kernel_size: int = 3,
+                 device=None, dtype=None):
+        super().__init__()
+        self.num_convs = len(dims)
+        for i, (in_d, out_d) in enumerate(dims):
+            self.add_module(f"conv_{i}", PadConv(
+                in_d, out_d, kernel_size, kernel_size // 2, "zero",
+                device=device, dtype=dtype))
+
+    @property
+    def convs(self) -> List[PadConv]:
+        return [getattr(self, f"conv_{i}") for i in range(self.num_convs)]
+
+    def forward(self, x):
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        return x
 
 
 def init_torch_default(model: nn.Module, seed: int) -> None:

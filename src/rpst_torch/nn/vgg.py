@@ -16,7 +16,7 @@ inside.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List
 
 import torch
 import torch.nn.functional as F
@@ -64,8 +64,9 @@ class VGG19Encoder(nn.Module):
             self.add_module(f"conv_{idx}", PadConv(
                 cin, cout, k, pad, "reflect", device=device, dtype=dtype))
         self.requires_grad_(False)
-        # (dtype, device) -> folded stage-1/2 weights (vgg_folded)
-        self._folded: Dict[Tuple[torch.dtype, torch.device], list] = {}
+        # derived weights by key: (dtype, device) -> folded stage-1/2
+        # weights (vgg_folded); ("q8", ...) -> int8 layers (fast_path_q8_std)
+        self._folded: Dict[tuple, list] = {}
 
     def conv(self, idx: int) -> nn.Conv2d:
         return getattr(self, f"conv_{idx}").Conv_0
@@ -74,21 +75,25 @@ class VGG19Encoder(nn.Module):
         self._folded.clear()
         return super().load_state_dict(state_dict, strict)
 
+    def cached(self, key: tuple, make: Callable[[], list]) -> list:
+        """Weights derived from the frozen parameters, made once per key and
+        dropped by ``load_state_dict``. They are normal tensors even when
+        first asked for under inference_mode (serving, calibration): a
+        training step may save them for backward."""
+        if key not in self._folded:
+            with torch.inference_mode(False):
+                self._folded[key] = make()
+        return self._folded[key]
+
     def folded_weights(self, dtype: torch.dtype) -> List:
         """[(folded_kernel, folded_bias)] of conv_1..conv_4 in ``dtype``,
         for the folded stages 1-2; folded once per dtype and device (the
         encoder is frozen)."""
-        key = (dtype, self.conv(1).weight.device)
-        if key not in self._folded:
-            # normal tensors even when first asked for under inference_mode:
-            # the training step saves them for backward
-            with torch.inference_mode(False):
-                self._folded[key] = [
-                    (fold_conv_kernel(self.conv(i).weight.permute(2, 3, 1, 0))
-                     .to(dtype).contiguous(),
-                     fold_bias(self.conv(i).bias).to(dtype).contiguous())
-                    for i in range(1, 5)]
-        return self._folded[key]
+        return self.cached((dtype, self.conv(1).weight.device), lambda: [
+            (fold_conv_kernel(self.conv(i).weight.permute(2, 3, 1, 0))
+             .to(dtype).contiguous(),
+             fold_bias(self.conv(i).bias).to(dtype).contiguous())
+            for i in range(1, 5)])
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = x.permute(0, 3, 1, 2)

@@ -16,6 +16,9 @@ B2 backward into the stylized image; B3 never runs, since the encoder's
 weights are frozen. rpst's batch <= 4 and 128-lane gates and its Mosaic
 gate are TPU policy and do not carry over. Stages 3-4 stay standard
 ``F.conv2d``, as rpst leaves them to XLA.
+
+``perceptual_rp_losses_q8targets`` (``train_q8_targets``) computes the
+style and content targets through the int8 VGG chain on B5 instead.
 """
 
 from __future__ import annotations
@@ -112,5 +115,35 @@ def perceptual_rp_losses_folded(vgg: VGG19Encoder, stylized, style, content,
     loss_s = sum(mse(gm, tm[:n]) + mse(gs, ts[:n])
                  for (gm, gs), (tm, ts) in zip(g_stats, t_stats))
     loss_c = mse(g_relu4.float(), t_relu4[n:].float())
+    total = content_weight * loss_c + style_weight * loss_s
+    return {"style_loss": loss_s, "content_loss": loss_c}, total
+
+
+def perceptual_rp_losses_q8targets(vgg: VGG19Encoder, scales, stylized, style,
+                                   content, content_weight: float,
+                                   style_weight: float,
+                                   dtype: torch.dtype = torch.bfloat16,
+                                   conv_act: ConvAct = folded_conv_act):
+    """``perceptual_rp_losses_folded`` with the two no-grad target forwards
+    (style and content, one 2N pass) through the chained-int8 VGG encoder
+    on B5 (``fast_path_q8_std.vgg_target_taps_q8`` with ``scales`` from
+    ``calibrate_vgg_targets_q8``). Only the stylized image's VGG pass
+    carries gradients and it stays on the folded path; int8 perturbs the
+    target values by quantization noise and the backward sweep not at all."""
+    from ..models.base import mse  # models imports this module
+    from ..models.fast_path_q8_std import vgg_target_taps_q8
+    g_stats, g_relu4 = vgg_perceptual_stats(vgg, stylized, dtype, conv_act)
+    n = style.shape[0]
+    with torch.no_grad():
+        taps = vgg_target_taps_q8(vgg, scales,
+                                  torch.cat([style, content], dim=0), dtype)
+        t_stats = []
+        for t in taps:
+            m, s = calc_mean_std(t[:n].float())
+            t_stats.append((m[:, 0, 0, :], s[:, 0, 0, :]))
+        t_relu4 = taps[-1][n:]
+    loss_s = sum(mse(gm, tm) + mse(gs, ts)
+                 for (gm, gs), (tm, ts) in zip(g_stats, t_stats))
+    loss_c = mse(g_relu4.float(), t_relu4.float())
     total = content_weight * loss_c + style_weight * loss_s
     return {"style_loss": loss_s, "content_loss": loss_c}, total

@@ -72,7 +72,10 @@ def resolve_mode(bundle, mode: str, batch: Optional[int] = None) -> str:
 def calibrate_scales(bundle, calib: torch.Tensor,
                      calib_style: torch.Tensor) -> Dict[str, Any]:
     """One-shot PTQ calibration for ``mode='q8'`` on a representative
-    batch: {'act_scales': (L,) float32}. If the card runs out of memory the
+    batch: {'act_scales': (L,) float32}, by the network's calibrator
+    (``bundle.calibrate_q8``; adain and wct cap the batch at 2 images, whose
+    512-channel full-resolution activations a larger batch would hold all at
+    once). If the card runs out of memory the
     pass retries once on the first image alone, as rpst does on
     RESOURCE_EXHAUSTED: per-tensor absmax scales from one image beat a
     dead serving process."""
@@ -91,8 +94,9 @@ def make_run_impl(bundle, mode: str, scales=None,
                   fuse_pairs="auto") -> Callable:
     """``run_impl(content, style) -> stylized`` on the resolved mode's
     path: the bundle's int8 (with ``scales`` from ``calibrate_scales``;
-    ``fuse_pairs`` as in ``stylize_multi_adain_folded_q8``), folded or
-    standard stylize."""
+    ``fuse_pairs`` as in ``stylize_multi_adain_folded_q8``, for the flagship
+    only: adain and wct run their standard-layout int8 path on B5), folded
+    or standard stylize."""
     if mode == "q8":
         if scales is None:
             raise ValueError("mode q8 needs the scales of calibrate_scales")

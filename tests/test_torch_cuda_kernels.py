@@ -223,3 +223,82 @@ def test_b4_refuses_misaligned_and_mixed(cuda_device):
     shifted = flat[4:].view(x.shape)  # contiguous, 4 bytes past alignment
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_folded_conv_q8(shifted, k, sc, True)
+
+
+# ---------------------------------------------------------------- B5
+
+from rpst_torch.ops.conv2d_q8 import (  # noqa: E402
+    fused_conv2d_bf16, fused_conv2d_bf16_plain, fused_conv2d_q8,
+    fused_conv2d_q8_plain)
+
+
+def _b5_layer(seed, n, h, w, c, co, device):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (n, h, w, c), dtype=np.int8)
+    k = rng.integers(-127, 128, (3, 3, c, co), dtype=np.int8)
+    sc = np.stack([rng.uniform(2e-6, 6e-6, co) * (128 / c),
+                   rng.normal(0, 0.2, co),
+                   rng.uniform(10.0, 40.0, co)]).astype(np.float32)
+    return (torch.from_numpy(x).to(device), torch.from_numpy(k).to(device),
+            torch.from_numpy(sc).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_int8", [True, False])
+@pytest.mark.parametrize("alpha", [0.0, 0.2, 1.0])
+@pytest.mark.parametrize("pad_mode", ["reflect", "zero"])
+@pytest.mark.parametrize("shape", [(2, 13, 37, 128, 128), (1, 2, 2, 4, 4),
+                                   (2, 9, 19, 36, 260), (1, 32, 48, 256, 512)])
+def test_b5_matches_plain_on_card(cuda_device, out_int8, alpha, pad_mode,
+                                  shape):
+    """int8 and bf16 outputs bit-equal to the plain version (exact int32
+    sums, the same float32 epilogue): the bf16 bits include the -0.0 that
+    alpha = 0 leaves for a negative value."""
+    x, k, sc = _b5_layer(0, *shape, cuda_device)
+    before = fused_conv2d_q8.launches
+    got = fused_conv2d_q8(x, k, sc, out_int8, alpha, pad_mode)
+    torch.cuda.synchronize()
+    assert fused_conv2d_q8.launches == before + 1
+    ref = fused_conv2d_q8_plain(x, k, sc, out_int8, alpha, pad_mode)
+    assert got.dtype == ref.dtype and got.is_cuda
+    if out_int8:
+        assert torch.equal(got, ref)
+    else:
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.0, 0.2, 1.0])
+@pytest.mark.parametrize("pad_mode", ["reflect", "zero"])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 256, 256), (2, 9, 19, 40, 72),
+                                   (1, 2, 2, 8, 8)])
+def test_b5_bf16_mode_matches_plain_on_card(cuda_device, alpha, pad_mode,
+                                            shape):
+    n, h, w, c, co = shape
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(n, h, w, c, generator=g).to(cuda_device)
+    k = (torch.randn(3, 3, c, co, generator=g) * (9 * c) ** -0.5).to(
+        cuda_device)
+    b = torch.randn(co, generator=g).to(cuda_device)
+    before = fused_conv2d_bf16.launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = fused_conv2d_bf16(x, k, b, alpha, pad_mode)
+        torch.cuda.synchronize()
+        ref = fused_conv2d_bf16_plain(x, k, b, alpha, pad_mode)
+    assert fused_conv2d_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.is_cuda
+    torch.testing.assert_close(got.float(), ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_b5_refuses_misaligned_and_mixed(cuda_device):
+    x, k, sc = _b5_layer(3, 1, 4, 4, 32, 16, cuda_device)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fused_conv2d_q8(x, k.cpu(), sc, True)
+    flat = torch.zeros(x.numel() + 4, dtype=torch.int8, device=cuda_device)
+    shifted = flat[4:].view(x.shape)  # contiguous, 4 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_conv2d_q8(shifted, k, sc, True)
+    with pytest.raises(TypeError, match="scales is torch.float64"):
+        fused_conv2d_q8(x, k, sc.double(), True)

@@ -107,7 +107,7 @@ def test_load_state_dict_refolds(rng):
     assert not torch.equal(bundle.stylize(c, s), first)
 
 
-@pytest.mark.parametrize("network", ["adain", "sel_multi_adain", "ccam",
+@pytest.mark.parametrize("network", ["seg_adain", "sel_multi_adain", "ccam",
                                      "sanet", "ld_adain"])
 def test_unported_networks_raise(network):
     with pytest.raises(ValueError, match="ROADMAP.md section A slice"):

@@ -389,6 +389,8 @@ def test_port_never_imports_jax():
         "import rpst_torch.train.metrics, rpst_torch.train.fault\n"
         "import rpst_torch.ops.folded_conv_q8, rpst_torch.ops.folded_conv2_q8\n"
         "import rpst_torch.models.fast_path_q8, rpst_torch.policy\n"
+        "import rpst_torch.ops.conv2d_q8, rpst_torch.ops.wct\n"
+        "import rpst_torch.models.fast_path_q8_std, rpst_torch.models.wct_rp\n"
         "import importlib.util as u\n"
         "for name in ('serve_torch', 'train_torch'):\n"
         "    spec = u.spec_from_file_location(name, name + '.py')\n"

@@ -7,7 +7,11 @@ on a machine that has no JAX (``chip_smoke.py``):
   * tests/fixtures/torch_port_train.npz (``--train``): the flagship's folded
     training loss, its gradients and a 3-step loss trajectory;
   * tests/fixtures/torch_port_q8.npz (``--q8``): the flagship's int8 (q8)
-    serving.
+    serving;
+  * tests/fixtures/torch_port_adain.npz, torch_port_wct.npz (``--adain``,
+    ``--wct``): adain's / wct's standard and int8 serving at full width;
+  * tests/fixtures/torch_port_q8_targets.npz (``--q8-targets``): the int8
+    VGG loss targets of ``train_q8_targets``.
 
 The flagship is multi_adain with the constant stack at full width
 (rp_blocks 5, hidden_dim 32, attention none), as bench.py builds it. The
@@ -44,7 +48,28 @@ The q8 fixture holds:
     and ``enc_mean_<i>``, ``enc_std_<i>`` for the layers whose statistics
     come from the kernel sums (``_stats_from_sums``).
 
+The adain and wct fixtures (rp_blocks 5, hidden_dim 32, batch 2) hold:
+  * ``weights_seed``: the params are ``rpst_torch.bridge.
+    rpseq_weights_from_seed(weights_seed)`` (numpy only; 12 MB of weights
+    stored as their seed), put into rpst's flax ``params``;
+  * ``content``, ``style``; ``out_f32``: the flax model's float32 forward;
+  * ``act_scales``: rpst's ``calibrate_adain_q8`` / ``calibrate_wct_q8``;
+  * ``out_q8_f32``, ``out_q8_bf16``: rpst's ``stylize_adain_q8`` /
+    ``stylize_wct_q8`` with those scales, ``interpret=True``.
+
+The q8-targets fixture (batch 4) holds:
+  * ``vgg_seed``, ``content``, ``style`` and ``stylized`` (a third random
+    image batch standing for the model's output);
+  * ``act_scales``: rpst's ``calibrate_vgg_targets_q8``;
+  * ``tap_2``, ``tap_3``: relu3_1 and relu4_1 of the 2N (style, content)
+    batch from rpst's ``vgg_target_taps_q8`` (float32, ``interpret=True``,
+    the Pallas engine), the two taps behind the six int8 layers;
+    ``tap_mean_<i>``, ``tap_std_<i>``: the instance statistics of all four;
+  * ``style_loss``, ``content_loss``, ``total_loss``: rpst's
+    ``perceptual_rp_losses_q8targets`` (float32, weights 1 and 2).
+
 Usage:
+  python tools/make_torch_port_fixture.py --adain | --wct | --q8-targets
   python tools/make_torch_port_fixture.py [--seed 0] [--size 64] [dst.npz]
   python tools/make_torch_port_fixture.py --train [--seed 0] [--size 64] [dst]
   python tools/make_torch_port_fixture.py --q8 [--seed 0] [--size 64] [dst]
@@ -63,6 +88,10 @@ sys.path.insert(0, str(REPO / "src"))
 DEFAULT_DST = REPO / "tests" / "fixtures" / "torch_port_flagship.npz"
 TRAIN_DST = REPO / "tests" / "fixtures" / "torch_port_train.npz"
 Q8_DST = REPO / "tests" / "fixtures" / "torch_port_q8.npz"
+RPSEQ_DST = {n: REPO / "tests" / "fixtures" / f"torch_port_{n}.npz"
+             for n in ("adain", "wct")}
+Q8_TARGETS_DST = REPO / "tests" / "fixtures" / "torch_port_q8_targets.npz"
+WIDE = dict(rp_blocks=5, hidden_dim=32)
 TRAIN = dict(batch=2, vgg_seed=1, lr=1e-3, lr_decay=0.5, steps=3)
 FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
                 hidden_dim=32, inception_num=0, attention="none")
@@ -194,6 +223,82 @@ def make_q8_fixture(seed: int = 0, size: int = 64) -> dict:
     return arrays
 
 
+def make_rpseq_fixture(network: str, seed: int = 0, size: int = 64) -> dict:
+    """The adain / wct fixture's arrays, computed afresh with JAX on the
+    CPU (rpst's int8 kernel in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst.models import fast_path_q8 as q8
+    from rpst_torch.bridge import rpseq_weights_from_seed
+
+    rng = np.random.default_rng(seed)
+    content = rng.random((2, size, size, 3), dtype=np.float32)
+    style = rng.random((2, size, size, 3), dtype=np.float32)
+    params = jax.tree.map(jnp.asarray, rpseq_weights_from_seed(seed, **WIDE))
+    bundle = build_model(load_config(dict(WIDE, network=network,
+                                          img_size=size)))
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    out = jax.jit(lambda p, a, b: bundle.model.apply(
+        {"params": p}, a, b, train=False))(params, c, s)
+    calibrate, stylize = {
+        "adain": (q8.calibrate_adain_q8, q8.stylize_adain_q8),
+        "wct": (q8.calibrate_wct_q8, q8.stylize_wct_q8)}[network]
+    scales = calibrate(params, c, s)
+    arrays = dict(weights_seed=np.int64(seed), content=content, style=style,
+                  out_f32=np.asarray(out, np.float32),
+                  act_scales=np.asarray(scales["act_scales"], np.float32))
+    for name, dt in (("out_q8_f32", jnp.float32),
+                     ("out_q8_bf16", jnp.bfloat16)):
+        arrays[name] = np.asarray(stylize(params, scales, c, s, dtype=dt,
+                                          interpret=True), np.float32)
+    return arrays
+
+
+def make_q8_targets_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The q8-targets fixture's arrays, computed afresh with JAX on the CPU
+    (rpst's int8 kernel in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.models import fast_path_q8 as q8
+    from rpst.nn.vgg_folded import perceptual_rp_losses_q8targets
+    from rpst.ops.stats import calc_mean_std
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    rng = np.random.default_rng(seed)
+    content, style, stylized = (rng.random((4, size, size, 3),
+                                           dtype=np.float32)
+                                for _ in range(3))
+    vgg_vars = jax.tree.map(jnp.asarray,
+                            vgg_weights_from_seed(TRAIN["vgg_seed"]))
+    c, s, x = (jnp.asarray(a) for a in (content, style, stylized))
+    scales = q8.calibrate_vgg_targets_q8(vgg_vars, c, s)
+    taps = q8.vgg_target_taps_q8(vgg_vars, scales,
+                                 jnp.concatenate([s, c], axis=0), jnp.float32,
+                                 interpret=True, conv_impl="pallas")
+    parts, total = perceptual_rp_losses_q8targets(
+        vgg_vars, scales, x, s, c, 1.0, 2.0, dtype=jnp.float32,
+        interpret=True)
+    arrays = dict(vgg_seed=np.int64(TRAIN["vgg_seed"]), content=content,
+                  style=style, stylized=stylized,
+                  act_scales=np.asarray(scales["act_scales"], np.float32),
+                  tap_2=np.asarray(taps[2], np.float32),
+                  tap_3=np.asarray(taps[3], np.float32),
+                  style_loss=np.float32(parts["style_loss"]),
+                  content_loss=np.float32(parts["content_loss"]),
+                  total_loss=np.float32(total))
+    for i, t in enumerate(taps):
+        m, sd = calc_mean_std(t.astype(jnp.float32))
+        arrays[f"tap_mean_{i}"] = np.asarray(m[:, 0, 0, :], np.float32)
+        arrays[f"tap_std_{i}"] = np.asarray(sd[:, 0, 0, :], np.float32)
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -213,6 +318,12 @@ def main():
                     help="write the train fixture instead")
     ap.add_argument("--q8", action="store_true",
                     help="write the q8 fixture instead")
+    ap.add_argument("--adain", action="store_true",
+                    help="write the adain fixture instead")
+    ap.add_argument("--wct", action="store_true",
+                    help="write the wct fixture instead")
+    ap.add_argument("--q8-targets", action="store_true",
+                    help="write the q8-targets fixture instead")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -220,7 +331,14 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    if args.train:
+    if args.adain or args.wct:
+        network = "adain" if args.adain else "wct"
+        arrays = make_rpseq_fixture(network, args.seed, args.size)
+        args.dst = args.dst or str(RPSEQ_DST[network])
+    elif args.q8_targets:
+        arrays = make_q8_targets_fixture(args.seed, args.size)
+        args.dst = args.dst or str(Q8_TARGETS_DST)
+    elif args.train:
         arrays = make_train_fixture(args.seed, args.size)
         args.dst = args.dst or str(TRAIN_DST)
     elif args.q8:
@@ -230,7 +348,10 @@ def main():
         arrays = make_fixture(args.seed, args.size)
         args.dst = args.dst or str(DEFAULT_DST)
     Path(args.dst).parent.mkdir(parents=True, exist_ok=True)
-    np.savez(args.dst, **arrays)
+    # the new fixtures hold relu outputs, which compress well
+    save = (np.savez_compressed if args.adain or args.wct or args.q8_targets
+            else np.savez)
+    save(args.dst, **arrays)
     print(f"wrote {args.dst} ({len(arrays)} arrays)")
 
 

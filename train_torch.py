@@ -9,19 +9,22 @@ same cadence keys (``log_iter``, ``snapshot_save_iter``, ``max_iter``: steps
 mixing, Adam and lr schedule, and the same non-finite skip. The flagship
 (``multi_adain``, constant stack) trains folded (``exec_strategy: folded``:
 every folded conv on B1, its backward on B2 and B3 when the tensors are on
-the card) or standard.
+the card) or standard; with ``train_q8_targets: true`` its style and content
+loss targets come from the int8 VGG chain on B5, calibrated once on the
+first batch. ``adain`` trains standard (autograd through the library convs;
+it needs no kernel).
 
     python train_torch.py --config cfg.yaml [--set key=value ...]
                           [--device cuda|cpu]
 
 ``--device cuda`` (the default) without a CUDA device exits non-zero;
 ``--device cpu`` runs the kernels' plain PyTorch versions. At the end it
-logs the B1/B2/B3 launch counts of the run. Options of later slices raise
-``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape`` and
-``distributed`` (slice 8), ``target_cache`` (section A item 7),
-``train_q8_targets`` (slice 5, on B5), ``grad_accum > 1`` and ``remat`` (slice
-8), ``test_dir`` test dumps (slice 7), and every network but
-``multi_adain``.
+logs the B1/B2/B3 and B5 launch counts of the run. Options of later slices
+raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
+and ``distributed`` (slice 8), ``target_cache`` (section A item 7),
+``grad_accum > 1`` and ``remat`` (slice 8), ``test_dir`` test dumps (slice
+7), and every network but ``multi_adain`` and ``adain`` (wct training is
+slice 5b).
 """
 
 import argparse
@@ -39,7 +42,10 @@ from rpst_torch.config import load_config  # noqa: E402
 from rpst_torch.data import ImageFolderDataset, InfiniteLoader  # noqa: E402
 from rpst_torch.metrics import logger  # noqa: E402
 from rpst_torch.models import build_model, build_vgg  # noqa: E402
+from rpst_torch.models.fast_path_q8_std import (  # noqa: E402
+    calibrate_vgg_targets_q8)
 from rpst_torch.nn.blocks import init_torch_default  # noqa: E402
+from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8  # noqa: E402
 from rpst_torch.ops.folded_conv import (  # noqa: E402
     fused_folded_conv, fused_folded_conv_grad_input,
     fused_folded_conv_grad_weight)
@@ -55,8 +61,6 @@ _UNPORTED = {
     "distributed": (lambda c: bool(c.distributed), "section A slice 8"),
     "target_cache": (lambda c: bool(c.get("target_cache", 0)),
                      "section A item 7"),
-    "train_q8_targets": (lambda c: bool(c.train_q8_targets),
-                         "section A slice 5 (B5)"),
     "grad_accum": (lambda c: int(c.grad_accum) > 1, "section A slice 8"),
     "remat": (lambda c: bool(c.remat), "section A slice 8"),
     "test_dir": (lambda c: bool(c.test_dir), "section A slice 7 (test dumps)"),
@@ -65,10 +69,14 @@ _UNPORTED = {
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a config this port cannot train yet."""
-    if cfg.network != "multi_adain":
+    if cfg.network == "wct":
         raise NotImplementedError(
-            f"train_torch.py trains multi_adain only; {cfg.network!r} is "
-            "ROADMAP.md section A slices 4-6")
+            "train_torch.py: wct training (the frozen-encoder resume, "
+            "freeze_prefixes) is ROADMAP.md section A slice 5b")
+    if cfg.network not in ("multi_adain", "adain"):
+        raise NotImplementedError(
+            f"train_torch.py trains multi_adain and adain only; "
+            f"{cfg.network!r} is ROADMAP.md section A slices 4-6")
     for key, (asked, where) in _UNPORTED.items():
         if asked(cfg):
             raise NotImplementedError(
@@ -145,6 +153,24 @@ def main(argv=None):
                                   cfg.num_workers, seed=cfg.seed, skip=begin)
     style_iter = InfiniteLoader(style_ds, cfg.batch_size, cfg.num_workers,
                                 seed=cfg.seed + 1, skip=begin)
+    if cfg.train_q8_targets:
+        # int8 no-grad VGG loss targets: the encoder is frozen, so scales
+        # calibrated once on a representative batch hold for the whole run;
+        # only the folded loss consumes them (ModelBundle.loss)
+        if bundle.folded_exec() and cfg.img_size % 8 == 0:
+            bundle.q8_target_scales = calibrate_vgg_targets_q8(
+                vgg, torch.from_numpy(next(content_iter)).to(device),
+                torch.from_numpy(next(style_iter)).to(device))
+            logger.info("train_q8_targets: calibrated "
+                        f"{len(bundle.q8_target_scales['act_scales'])} VGG "
+                        "target scales (int8 no-grad loss targets"
+                        + ("" if bundle.q8_targets_active(cfg.batch_size)
+                           else "; inactive at this batch size: "
+                           "rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH")
+                        + ")")
+        else:
+            logger.warning("train_q8_targets ignored: needs a folded "
+                           "multi_adain config and img_size % 8 == 0")
     logger.info(f"Training {cfg.network} ({'folded' if bundle.folded_exec() else 'standard'}, "
                 f"{cfg.compute_dtype}) on {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
@@ -154,6 +180,7 @@ def main(argv=None):
     counters = (fused_folded_conv, fused_folded_conv_grad_input,
                 fused_folded_conv_grad_weight)
     launches0 = [c.launches for c in counters]
+    b5_0 = fused_conv2d_q8.launches
     timer = StepTimer(sync_every=max(cfg.log_iter, 10), device=device)
     try:
         with CheckpointOnSignal() as stop:
@@ -187,6 +214,8 @@ def main(argv=None):
         style_iter.close()
         writer.close()
     b1, b2, b3 = (c.launches - n for c, n in zip(counters, launches0))
+    logger.info(f"B5 fused_conv2d_q8 launches: "
+                f"{fused_conv2d_q8.launches - b5_0}")
     logger.info(f"B1/B2/B3 launches: {b1}/{b2}/{b3}")
 
 

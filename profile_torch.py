@@ -7,7 +7,11 @@ and bfloat16 each. With ``--q8``, the int8 stylize (bfloat16 around the
 int8 layers, as served) at b1 and b8, calibrated on the batch, once with B4
 alone and once with B7 pairs (``fuse_pairs``). With ``--network adain`` the
 adain stylize (rp_blocks 5, hidden 32) at b1 and b4: the standard path in
-float32 and bfloat16, or with ``--q8`` its int8 path on B5. With ``--train
+float32 and bfloat16, or with ``--q8`` its int8 path on B5. With ``--network
+sanet`` the static SANet (``configs/train_static_sanet.yaml``, seeded
+weights, a seeded 5-stage VGG) at b1 and b4: the standard stylize, with
+``--q8`` the int8 stylize (B5 + B6), with ``--train`` the train step (B6's
+forward with LSE, dQ and dK/dV). With ``--train
 --q8-targets`` the flagship's train step with the int8 VGG loss targets on
 B5 (whatever ``rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH`` says).
 
@@ -20,7 +24,9 @@ For each case it prints one Markdown table row:
   Bn share      device time of the kernel (B1 folded_conv_kernel, B2
                 grad_input_kernel, B3 grad_weight_partial + _reduce, B4
                 folded_conv_q8_kernel, B7 folded_conv2_q8_kernel, B5
-                conv2d_q8_kernel; the stats' finalize_sums counts as other)
+                conv2d_q8_kernel, B6 flash_fwd_kernel, B6c
+                flash_bwd_dq_kernel, B6d flash_bwd_dkv_kernel; the stats'
+                finalize_sums counts as other)
                 over all device
                 time, in the profiled calls
   other         the three next kernels by device time, names shortened
@@ -29,10 +35,11 @@ For each case it prints one Markdown table row:
 
 It also writes each case's ``key_averages()`` table to
 ``chiprun_out/profile_torch[_train|_q8][_adain][_q8targets].txt``. The
-card's name and power limit come first, as nvidia-smi gives them.
+card's name and power limit come first, as nvidia-smi gives them. (For
+sanet the file name has ``_sanet`` where adain's has ``_adain``.)
 
     python3 profile_torch.py [--train [--q8-targets] | --q8]
-                             [--network adain]
+                             [--network adain|sanet]
 """
 
 import argparse
@@ -62,8 +69,10 @@ IMG = 512
 KERNELS = {"B1": ("folded_conv_kernel",), "B2": ("grad_input_kernel",),
            "B3": ("grad_weight_partial", "grad_weight_reduce"),
            "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",),
-           "B5": ("conv2d_q8_kernel",)}
+           "B5": ("conv2d_q8_kernel",), "B6": ("flash_fwd_kernel",),
+           "B6c": ("flash_bwd_dq_kernel",), "B6d": ("flash_bwd_dkv_kernel",)}
 ADAIN = dict(network="adain", rp_blocks=5, hidden_dim=32, seed=0)
+SANET_YAML = REPO / "configs" / "train_static_sanet.yaml"
 
 
 def short_name(name: str) -> str:
@@ -157,10 +166,11 @@ def main():
                       help="profile the train step instead of stylize")
     mode.add_argument("--q8", action="store_true",
                       help="profile the int8 stylize instead")
-    ap.add_argument("--network", choices=("multi_adain", "adain"),
+    ap.add_argument("--network", choices=("multi_adain", "adain", "sanet"),
                     default="multi_adain",
                     help="adain: its standard (or with --q8 its int8) "
-                    "stylize at b1 and b4")
+                    "stylize at b1 and b4; sanet: the same, or with --train "
+                    "its train step")
     ap.add_argument("--q8-targets", action="store_true",
                     help="with --train: the int8 VGG loss targets on B5")
     args = ap.parse_args()
@@ -178,11 +188,20 @@ def main():
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    cfg = load_config(dict(ADAIN if adain else FLAGSHIP, img_size=IMG,
-                           train_q8_targets=args.q8_targets))
+    sanet = args.network == "sanet"
+    if sanet and args.q8_targets:
+        ap.error("--q8-targets is the flagship's")
+    if sanet:
+        cfg = load_config(str(SANET_YAML), dict(img_size=IMG, vgg="",
+                                                test_dir=""))
+    else:
+        cfg = load_config(dict(ADAIN if adain else FLAGSHIP, img_size=IMG,
+                               train_q8_targets=args.q8_targets))
     rng = np.random.default_rng(0)
     tables = []
-    cols = (("B5",) if adain
+    cols = (("B6", "B6c", "B6d") if sanet and args.train
+            else ("B6", "B5") if sanet
+            else ("B5",) if adain
             else ("B1", "B2", "B3", "B5") if args.q8_targets
             else ("B1", "B2", "B3") if args.train
             else ("B1", "B4", "B7") if args.q8 else ("B1",))
@@ -190,7 +209,7 @@ def main():
           + " | " + " | ".join(f"{c} share" for c in cols)
           + " | other kernels by share | idle share |")
     print("| --- | --- | " + "--- | " * len(cols) + "--- | --- |")
-    for batch in ((1, 4) if args.train or adain else (1, 8)):
+    for batch in ((1, 4) if args.train or adain or sanet else (1, 8)):
         c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
                                             np.float32)).cuda()
                 for _ in range(2))
@@ -201,6 +220,7 @@ def main():
                     compute_dtype=str(dt)[6:]), "cuda")
                 init_torch_default(bundle.model, cfg.seed)
                 vgg, _ = build_vgg(cfg, "cuda")
+                bundle.vgg = vgg
                 if args.q8_targets:
                     from rpst_torch import policy
                     from rpst_torch.models.fast_path_q8_std import (
@@ -217,14 +237,16 @@ def main():
             bundle = build_model(cfg.replace(compute_dtype=str(dt)[6:]),
                                  "cuda")
             init_torch_default(bundle.model, cfg.seed)
-            if adain:
+            if sanet:
+                bundle.vgg, _ = build_vgg(cfg, "cuda")
+            if adain or sanet:
                 if args.q8 and dt == torch.bfloat16:
                     scales = bundle.calibrate_q8(c, s)
-                    report(f"b{batch} adain q8 B5",
+                    report(f"b{batch} {args.network} q8 B5",
                            lambda: bundle.stylize_q8(c, s, scales), cols,
                            iters=10, calls=3, card=card, tables=tables)
                 elif not args.q8:
-                    report(f"b{batch} adain standard {str(dt)[6:]}",
+                    report(f"b{batch} {args.network} standard {str(dt)[6:]}",
                            lambda: bundle.stylize(c, s), cols, iters=10,
                            calls=3, card=card, tables=tables)
                 del bundle
@@ -248,6 +270,7 @@ def main():
                     tables=tables)
     name = ("profile_torch" + ("_train" if args.train else "")
             + ("_q8" if args.q8 else "") + ("_adain" if adain else "")
+            + ("_sanet" if sanet else "")
             + ("_q8targets" if args.q8_targets else "") + ".txt")
     out = REPO / "chiprun_out" / name
     out.parent.mkdir(parents=True, exist_ok=True)

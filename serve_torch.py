@@ -12,18 +12,26 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
                         layers on B4 (B7 pairs where
                         ``rpst_torch.policy.FUSE_PAIRS``) with the image
                         layers on B1, adain's and wct's wide
-                        standard-layout layers on B5 (on a CPU device:
-                        their plain versions); flagship configs without
-                        int8 layers (4 * hidden_dim % 128) serve standard,
-                        with a warning,
+                        standard-layout layers on B5, sanet's frozen VGG
+                        encode (conv_4 .. conv_13 on the 2N batch) and
+                        mirror decoder (conv0 .. conv5) on B5 with its two
+                        attention modules on B6 (on a CPU device: their
+                        plain versions); flagship configs without int8
+                        layers (4 * hidden_dim % 128) serve standard, with
+                        a warning,
   * ``--mode folded``   exact space-to-depth execution on the hand-written
                         B1 CUDA kernel (on a CPU device: its plain version),
-  * ``--mode standard`` the plain model path,
+  * ``--mode standard`` the plain model path (sanet: the frozen 5-stage
+                        VGG, the attention transform on the hand-written
+                        B6 kernel, the mirror decoder),
   * ``--mode auto``     the path measured fastest on the H100 at --batch
                         (``rpst_torch.policy``, PERF.md section 6).
 
-At the end it logs the B1, B4, B7 and B5 launch counts of the run.
-Networks: multi_adain (the flagship), adain and wct.
+At the end it logs the B1, B4, B7, B5 and B6 launch counts of the run.
+Networks: multi_adain (the flagship), adain, wct and sanet (``--mode
+folded`` falls back to standard for the last three, with a warning). sanet
+loads its frozen VGG from the config's ``vgg`` (``.pth`` or ``.npz``), or
+seeds a random one, with a warning.
 
 Weights: ``--weights`` takes a reference-layout ``.pth`` (written from an
 rpst checkpoint by ``tools/export_reference_checkpoint.py``) or an ``.npz``
@@ -52,9 +60,10 @@ from rpst_torch.bridge import load_weights
 from rpst_torch.config import load_config
 from rpst_torch.data import image_paths, load_image, to_u8
 from rpst_torch.metrics import logger, save_image
-from rpst_torch.models import build_model
+from rpst_torch.models import build_model, build_vgg
 from rpst_torch.nn.blocks import init_torch_default
 from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8
+from rpst_torch.ops.flash_attention import launch_counts
 from rpst_torch.ops.folded_conv import fused_folded_conv
 from rpst_torch.ops.folded_conv2_q8 import fused_folded_conv2_q8
 from rpst_torch.ops.folded_conv_q8 import fused_folded_conv_q8
@@ -71,6 +80,7 @@ def _log_launches():
                       ("B7", fused_folded_conv2_q8),
                       ("B5", fused_conv2d_q8)):
         logger.info(f"{label} {fn.__name__} launches: {fn.launches}")
+    logger.info(f"B6 flash_attention launches: {launch_counts()['B6_fwd']}")
 
 
 def main():
@@ -125,6 +135,14 @@ def main():
         init_torch_default(bundle.model, cfg.seed)
         logger.warning(f"No --weights: serving randomly initialized params "
                        f"(seed {cfg.seed})")
+
+    if bundle.network == "sanet":
+        bundle.vgg, vgg_source = build_vgg(cfg, device)
+        if cfg.vgg and vgg_source == str(cfg.vgg):
+            logger.info(f"Loaded VGG weights from {cfg.vgg}")
+        else:
+            logger.warning(f"VGG weights {cfg.vgg!r} not found: serving on "
+                           f"{vgg_source}")
 
     contents = _load_images(Path(args.content), cfg.img_size)
     styles = _load_images(Path(args.style), cfg.img_size)

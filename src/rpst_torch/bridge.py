@@ -3,20 +3,23 @@
 Two sources, one target (the port's ``state_dict`` names, which follow the
 flax tree: ``rp_shared_encoder.block_{i}.PadConv_0.Conv_0.weight`` for the
 flagship's Conv2dBlock stacks, ``encoder.conv_{i}.Conv_0.weight`` for the
-``RPSequence`` stacks of adain and wct):
+``RPSequence`` stacks of adain and wct, ``transform.sanet4_1.f.weight`` ..
+``transform.merge_conv.Conv_0.weight`` and ``decoder.conv{i}.Conv_0.weight``
+for the static SANet):
 
   * ``from_flax_params(tree)``: a nested dict of numpy arrays as rpst's
     flax model holds it (kernels HWIO) -> state_dict (kernels OIHW), the
     conversion ``tests/reference_oracle.py``'s ``inject_*`` helpers make;
-    it walks any conv subtree, so the flagship's, adain's and wct's
-    ``params`` all cross through it;
+    it walks any conv subtree (1x1 kernels too), so the flagship's,
+    adain's, wct's and sanet's ``params`` all cross through it;
   * ``from_reference_checkpoint(ckpt)``: the reference ``.pth`` layout
     ``{'encoder': sd, 'decoder': sd}``, which
     ``tools/export_reference_checkpoint.py`` writes from an rpst
     checkpoint: ``{i}.conv.weight`` keys for the flagship (rpstack),
     ``{2i}.weight`` keys of ``nn.Sequential(Conv2d, ReLU)`` for adain and
-    wct (rpseq). A model trained with ``train.py`` is served here with no
-    JAX installed.
+    wct (rpseq), and ``{'transform': sd, 'decoder': sd}`` for sanet (the
+    decoder's convs at the Sequential indices ``_MIRROR_DECODER_IDXS``). A
+    model trained with ``train.py`` is served here with no JAX installed.
 
 ``load_weights(path)`` reads either file: ``.pth`` (reference layout) or
 ``.npz`` whose keys are flax paths (``rp_decoder/block_0/PadConv_0/Conv_0/
@@ -36,7 +39,9 @@ has three sources, all to the same state_dict:
 ``vgg_weights_from_seed(seed)`` draws a VGG from numpy alone, so that a
 machine without JAX rebuilds the same weights, and
 ``rpseq_weights_from_seed`` does the same for adain's and wct's stacks
-(their full-width weights are 12 MB, too large to keep in a fixture).
+(their full-width weights are 12 MB, too large to keep in a fixture);
+``sanet_weights_from_seed`` for the static SANet's transform and decoder
+(~30 MB at its fixed width).
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ import torch
 from .nn.vgg import _STAGES, _TORCH_CONV_INDICES, num_convs
 
 _STACKS = {"encoder": "rp_shared_encoder", "decoder": "rp_decoder"}
+# the reference VGG-mirror decoder Sequential (base.py:25-55): the positions
+# of conv0..conv8 among its pad / relu / upsample layers
+_MIRROR_DECODER_IDXS = (1, 5, 8, 11, 14, 18, 21, 25, 28)
 
 
 def _flatten(tree, prefix=""):
@@ -85,6 +93,8 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
     port state_dict. ``{i}.conv.weight`` keys (OIHW) are the flagship's
     Conv2dBlock stacks; ``{2i}.weight`` keys are the conv + ReLU Sequentials
     of adain and wct, whose conv i sits at index 2i."""
+    if "transform" in ckpt:
+        return _sanet_from_reference(ckpt)
     sd = {}
     for part, stack in _STACKS.items():
         if part not in ckpt:
@@ -102,6 +112,30 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
                                  "conv + ReLU Sequentials are ported (no "
                                  "inception/attention state)")
             sd[name] = torch.tensor(np.asarray(value, np.float32))
+    return sd
+
+
+def _sanet_from_reference(ckpt) -> Dict[str, torch.Tensor]:
+    """``{'transform': sd, 'decoder': sd}`` (static SANet) -> port
+    state_dict; the adaptive modules' ``attention_layer`` keys raise."""
+    if "decoder" not in ckpt:
+        raise KeyError(f"reference checkpoint has no 'decoder' (keys "
+                       f"{sorted(ckpt)})")
+    sd = {}
+    for key, value in ckpt["transform"].items():
+        if "attention_layer" in key:
+            raise ValueError(f"transform.{key}: the adaptive SANet is not "
+                             "ported yet (ROADMAP.md section A slice 6b)")
+        name = key.replace("merge_conv.", "merge_conv.Conv_0.")
+        sd[f"transform.{name}"] = torch.tensor(np.asarray(value, np.float32))
+    for key, value in ckpt["decoder"].items():
+        idx, leaf = key.split(".")
+        if int(idx) not in _MIRROR_DECODER_IDXS:
+            raise ValueError(f"decoder.{key}: not a conv of the VGG-mirror "
+                             "decoder")
+        i = _MIRROR_DECODER_IDXS.index(int(idx))
+        sd[f"decoder.conv{i}.Conv_0.{leaf}"] = torch.tensor(
+            np.asarray(value, np.float32))
     return sd
 
 
@@ -229,3 +263,35 @@ def rpseq_weights_from_seed(seed: int, rp_blocks: int = 5,
                 .astype(np.float32),
                 "bias": rng.uniform(-bound, bound, cout).astype(np.float32)}}
     return tree
+
+
+def sanet_weights_from_seed(seed: int) -> dict:
+    """The static SANet's ``params`` tree (``transform``: two attention
+    modules and the merge conv; ``decoder``: conv0 .. conv8; HWIO float32
+    numpy kernels) drawn from ``numpy.random.default_rng(seed)`` in module
+    order. The 3x3 convs are He-uniform, U(+-sqrt(6 / fan_in)), so that the
+    signal keeps its scale through the decoder's ReLUs; the 1x1 attention
+    convs, which no ReLU follows, are U(+-1/sqrt(fan_in)) (PyTorch's
+    default), which puts the attention logits of mean-variance-normalized
+    512-channel features at a standard deviation near 8: a peaked softmax,
+    as a trained model's is. Biases are U(+-1/sqrt(fan_in)).
+    ``from_flax_params`` turns it into the port's state_dict; rpst takes it
+    as its flax ``params``."""
+    from .nn.decoder import MIRROR_DIMS
+    rng = np.random.default_rng(seed)
+
+    def conv(k, cin, cout, he):
+        fan_in = k * k * cin
+        lim = (6.0 / fan_in) ** 0.5 if he else fan_in ** -0.5
+        return {"kernel": rng.uniform(-lim, lim, (k, k, cin, cout))
+                .astype(np.float32),
+                "bias": rng.uniform(-fan_in ** -0.5, fan_in ** -0.5, cout)
+                .astype(np.float32)}
+
+    transform = {name: {leaf: conv(1, 512, 512, False)
+                        for leaf in ("f", "g", "h", "out_conv")}
+                 for name in ("sanet4_1", "sanet5_1")}
+    transform["merge_conv"] = {"Conv_0": conv(3, 512, 512, True)}
+    decoder = {f"conv{i}": {"Conv_0": conv(3, cin, cout, True)}
+               for i, (cin, cout) in enumerate(MIRROR_DIMS)}
+    return {"transform": transform, "decoder": decoder}

@@ -34,6 +34,8 @@ DEFAULTS: Dict[str, Any] = {
     "lr_decay": 0.0,
     "content_weight": 1.0,
     "style_weight": 1.0,
+    "l_identity1_weight": 50.0,  # sanet's two identity losses
+    "l_identity2_weight": 1.0,
     "batch_size": 1,
     "max_iter": 1_000_000,
     "log_iter": 1,

@@ -49,6 +49,12 @@ _FOLDED_CONV2_Q8_ARGS = [_PTR] * 12 + [_INT] * 8 + [_PTR]
 _CONV2D_Q8_ARGS = [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _PTR]
 # x, w, bias, y (device pointers), N, H, W, C, Co, reflect, alpha, stream
 _CONV2D_BF16_ARGS = [_PTR] * 4 + [_INT] * 6 + [_FLOAT, _PTR]
+# q, k, v, o, lse or NULL (device pointers), N, Nq, Nk, C, stream
+_FLASH_FWD_ARGS = [_PTR] * 5 + [_INT] * 4 + [_PTR]
+# q, k, v, d_o, lse, delta, dq (device pointers), N, Nq, Nk, C, stream
+_FLASH_DQ_ARGS = [_PTR] * 7 + [_INT] * 4 + [_PTR]
+# q, k, v, d_o, lse, delta, dk, dv (device pointers), N, Nq, Nk, C, stream
+_FLASH_DKV_ARGS = [_PTR] * 8 + [_INT] * 4 + [_PTR]
 # C signature of every exported function, by library: (argtypes, restype);
 # every function returns its launch's cudaError_t
 SIGNATURES = {
@@ -74,6 +80,14 @@ SIGNATURES = {
     "conv2d_q8": {
         "rpst_conv2d_q8": (_CONV2D_Q8_ARGS, _INT),
         "rpst_conv2d_bf16": (_CONV2D_BF16_ARGS, _INT),
+    },
+    "flash_attention": {
+        "rpst_flash_fwd_f32": (_FLASH_FWD_ARGS, _INT),
+        "rpst_flash_fwd_bf16": (_FLASH_FWD_ARGS, _INT),
+        "rpst_flash_bwd_dq_f32": (_FLASH_DQ_ARGS, _INT),
+        "rpst_flash_bwd_dq_bf16": (_FLASH_DQ_ARGS, _INT),
+        "rpst_flash_bwd_dkv_f32": (_FLASH_DKV_ARGS, _INT),
+        "rpst_flash_bwd_dkv_bf16": (_FLASH_DKV_ARGS, _INT),
     },
 }
 

@@ -1,29 +1,34 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
-The port covers three networks: the flagship ``multi_adain`` (constant RP
+The port covers four networks: the flagship ``multi_adain`` (constant RP
 stack) for serving (folded, standard and int8 q8) and training (with
 float or int8 loss targets); ``adain`` for serving (standard and q8) and
-standard training; ``wct`` for serving (standard and q8). ``build_model``
-raises ``ValueError`` for the other 14, naming the ROADMAP.md slice that
-brings each.
+standard training; ``wct`` for serving (standard and q8); the static
+``sanet`` for serving (standard and q8) and training, its attention on B6.
+``build_model`` raises ``ValueError`` for the other 13, naming the
+ROADMAP.md slice that brings each.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
   * ``stylize(content, style)`` -> image, NHWC in [0, 1] on the bundle's
-    device (the reference's ``network.test`` path),
+    device (the reference's ``network.test`` path); sanet stylizes from
+    the features of ``bundle.vgg``, the frozen 5-stage encoder the caller
+    sets (``build_vgg``),
   * ``folded_exec()`` / ``folded_infer()``: whether the config asks for, and
     the model supports, folded execution,
   * ``q8_infer()`` / ``q8_recommended(batch)``: whether the int8 PTQ path
     covers the config, and whether ``--mode auto`` should take it;
     ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights
-    (the flagship folded on B4/B7, adain and wct standard-layout on B5),
+    (the flagship folded on B4/B7; adain, wct and sanet standard-layout on
+    B5),
   * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
   * ``loss(vgg, content, style)`` -> (total, parts): the training loss
     (rpst's ``ModelBundle.loss``), differentiable in the model's
     parameters; ``build_vgg`` makes its frozen encoder. With
     ``train_q8_targets`` and ``q8_target_scales`` set (``train_torch.py``
     calibrates them on the first batch) the flagship's style and content
-    targets come from the int8 VGG chain on B5.
+    targets come from the int8 VGG chain on B5. sanet's loss is
+    ``SAModel.loss`` (content, style and two identity terms).
 """
 
 from __future__ import annotations
@@ -45,13 +50,15 @@ from .fast_path import (folded_blocks, live_folded_blocks,
                         stylize_multi_adain_folded)
 from .fast_path_q8 import (calibrate_multi_adain_q8, quantize_blocks,
                            stylize_multi_adain_folded_q8)
-from .fast_path_q8_std import (calibrate_adain_q8, calibrate_wct_q8,
-                               quantize_std, std_blocks, stylize_adain_q8,
-                               stylize_wct_q8)
+from .fast_path_q8_std import (calibrate_adain_q8, calibrate_sanet_q8,
+                               calibrate_wct_q8, quantize_convs, quantize_std,
+                               sanet_blocks, std_blocks, stylize_adain_q8,
+                               stylize_sanet_q8, stylize_wct_q8)
+from .sanet import SAModel
 from .wct_rp import WCTRP
 
-__all__ = ["build_model", "build_vgg", "ModelBundle", "MultiScaleAdaINRP",
-           "AdaINRP", "WCTRP"]
+__all__ = ["build_model", "build_vgg", "vgg_stages", "ModelBundle",
+           "MultiScaleAdaINRP", "AdaINRP", "WCTRP", "SAModel"]
 
 # every other rpst registry network -> the ROADMAP.md section A slice that
 # ports it
@@ -59,16 +66,25 @@ _NOT_PORTED = {
     **dict.fromkeys(("sel_multi_adain", "ccam", "mst"), "slice 4"),
     **dict.fromkeys(("seg_adain", "mrf", "spade", "ld_adain", "ld_adain2",
                      "ld_adain3", "ld_adain4", "ld_adain5"), "slice 5b"),
-    **dict.fromkeys(("sanet", "dynamic_sanet", "src"), "slice 6"),
+    **dict.fromkeys(("dynamic_sanet", "src"), "slice 6b"),
 }
+
+
+def vgg_stages(network: str) -> int:
+    """The taps the network's frozen VGG gives: relu1_1 .. relu5_1 for the
+    SANet models, .. relu4_1 for the others."""
+    return 5 if network in ("sanet", "dynamic_sanet") else 4
 
 
 @dataclasses.dataclass
 class ModelBundle:
     network: str
-    model: Union[MultiScaleAdaINRP, AdaINRP, WCTRP]
+    model: Union[MultiScaleAdaINRP, AdaINRP, WCTRP, SAModel]
     cfg: Config
     device: torch.device
+    # the frozen encoder whose features sanet stylizes from (``build_vgg``,
+    # ``vgg_stages`` taps); the caller sets it before stylize / calibrate
+    vgg: Optional[VGG19Encoder] = None
     # activation scales of the int8 no-grad VGG loss targets
     # (``train_q8_targets``), set by the training driver after
     # ``fast_path_q8_std.calibrate_vgg_targets_q8`` on its first batch
@@ -79,9 +95,20 @@ class ModelBundle:
     _folded: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, init=False, repr=False)
 
+    @property
+    def vgg_stages(self) -> int:
+        return vgg_stages(self.network)
+
     def _std_q8(self) -> bool:
         """adain and wct: the int8 path runs on the standard layout (B5)."""
         return self.network in ("adain", "wct")
+
+    def _feature_vgg(self) -> VGG19Encoder:
+        if self.vgg is None or self.vgg.num_stages != self.vgg_stages:
+            raise ValueError(
+                f"{self.network} stylizes from VGG features: set bundle.vgg "
+                f"to the {self.vgg_stages}-stage encoder of build_vgg first")
+        return self.vgg
 
     def _folded_stack_ok(self) -> bool:
         c = self.cfg
@@ -103,15 +130,19 @@ class ModelBundle:
         return self.folded_exec()
 
     def q8_infer(self) -> bool:
-        """The int8 path covers adain (without masks) and wct on the
+        """The int8 path covers adain (without masks), wct and sanet on the
         standard layout, and the folded stacks whose hidden layers fill 128
         folded lanes (4 * hidden_dim % 128 == 0): narrower folded stacks
-        have no int8 layer (rpst's gates, ``models/__init__.py:96-99,
+        have no int8 layer (rpst's gates, ``models/__init__.py:96-105,
         147-152``)."""
         if self.network == "adain":
             return not self.cfg.use_mask
         if self.network == "wct":
             return True
+        if self.network == "sanet":
+            # the int8 VGG encode pools by exact 2x2 halving where the float
+            # path pools in ceil mode: four pools to relu5_1
+            return self.cfg.img_size % 16 == 0
         return (self._folded_stack_ok()
                 and (self.cfg.hidden_dim * 4) % 128 == 0)
 
@@ -127,19 +158,24 @@ class ModelBundle:
         standard-layout stacks), quantized once and cached until
         ``weights_changed``."""
         if "q8" not in self._folded:
-            self._folded["q8"] = (
-                quantize_std(self.std_weights(torch.float32))
-                if self._std_q8() else
-                quantize_blocks(self.folded_weights(torch.float32)))
+            if self.network == "sanet":  # the decoder's eligible convs
+                q8 = quantize_convs(
+                    self.std_weights(torch.float32)["decoder"])
+            elif self._std_q8():
+                q8 = quantize_std(self.std_weights(torch.float32))
+            else:
+                q8 = quantize_blocks(self.folded_weights(torch.float32))
+            self._folded["q8"] = q8
         return self._folded["q8"]
 
     def std_weights(self, dtype: torch.dtype):
         """adain / wct: the (encoder, decoder) conv lists in ``dtype``
-        (``fast_path_q8_std.std_blocks``), cached until the next
-        ``load_state_dict``."""
+        (``fast_path_q8_std.std_blocks``); sanet: its ``sanet_blocks``.
+        Cached until the next ``load_state_dict``."""
         key = ("std", dtype)
         if key not in self._folded:
-            self._folded[key] = std_blocks(self.model, dtype)
+            make = sanet_blocks if self.network == "sanet" else std_blocks
+            self._folded[key] = make(self.model, dtype)
         return self._folded[key]
 
     def _wct_args(self) -> Dict[str, Any]:
@@ -150,8 +186,13 @@ class ModelBundle:
         """PTQ calibration: {'act_scales': (L,) float32} from one bfloat16
         forward of (content, style): folded for the flagship (rpst's
         ``calibrate_multi_adain_q8``), standard-layout on at most 2 images
-        for adain and wct (``calibrate_adain_q8``, ``calibrate_wct_q8``)."""
+        for adain and wct (``calibrate_adain_q8``, ``calibrate_wct_q8``),
+        the whole batch for sanet (``calibrate_sanet_q8``)."""
         self._check_q8()
+        if self.network == "sanet":
+            return calibrate_sanet_q8(
+                self._feature_vgg(), self.std_weights(torch.bfloat16),
+                self.q8_weights(), content, style)
         if self.network == "adain":
             return calibrate_adain_q8(self.std_weights(torch.bfloat16),
                                       content, style)
@@ -171,6 +212,11 @@ class ModelBundle:
         ``torch.inference_mode``."""
         self._check_q8()
         with torch.inference_mode():
+            if self.network == "sanet":
+                return stylize_sanet_q8(
+                    self._feature_vgg(), self.std_weights(dtype),
+                    self.q8_weights(), scales, content, style, dtype=dtype,
+                    attention=self.model.attention)
             if self._std_q8():
                 args = (self.std_weights(dtype), self.q8_weights(), scales,
                         content, style)
@@ -184,8 +230,9 @@ class ModelBundle:
     def _check_q8(self) -> None:
         if not self.q8_infer():
             raise ValueError("the int8 path needs adain without masks, wct, "
-                             "or a folded multi_adain stack with 4 * "
-                             "hidden_dim a multiple of 128")
+                             "sanet with img_size a multiple of 16, or a "
+                             "folded multi_adain stack with 4 * hidden_dim a "
+                             "multiple of 128")
 
     def folded_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
@@ -210,8 +257,13 @@ class ModelBundle:
 
     def _mix(self, parts: Dict[str, torch.Tensor]) -> torch.Tensor:
         c = self.cfg
-        return (c.content_weight * parts["content_loss"]
-                + c.style_weight * parts["style_loss"])
+        total = (c.content_weight * parts["content_loss"]
+                 + c.style_weight * parts["style_loss"])
+        if "l_identity1_loss" in parts:
+            total = total + (c.l_identity1_weight * parts["l_identity1_loss"]
+                             + c.l_identity2_weight
+                             * parts["l_identity2_loss"])
+        return total
 
     def loss(self, vgg: VGG19Encoder, content: torch.Tensor,
              style: torch.Tensor, targets=None,
@@ -219,7 +271,9 @@ class ModelBundle:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss (rpst's ``ModelBundle.loss`` for the flagship):
         (total, parts) with parts ``style_loss``, ``content_loss`` and
-        ``total_loss``, differentiable in ``self.model``'s parameters.
+        ``total_loss`` (sanet: also ``l_identity1_loss`` and
+        ``l_identity2_loss``, from ``SAModel.loss`` on the 5-stage ``vgg``),
+        differentiable in ``self.model``'s parameters.
 
         Folded (``folded_exec()``): ``stylize_multi_adain_folded`` on the
         live folded weights, then the folded VGG loss, every folded conv
@@ -238,7 +292,11 @@ class ModelBundle:
             raise NotImplementedError(
                 "wct training (the frozen-encoder resume, freeze_prefixes) "
                 "is not ported yet: ROADMAP.md section A slice 5b")
-        if self.folded_exec():
+        if self.network == "sanet":
+            with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                enabled=c.compute_dtype == "bfloat16"):
+                parts = self.model.loss(vgg, content, style)
+        elif self.folded_exec():
             dtype = self.folded_dtype()
             stylized = stylize_multi_adain_folded(
                 live_folded_blocks(self.model, dtype), content, style,
@@ -281,7 +339,8 @@ class ModelBundle:
         """Inference: (N, H, W, 3) content and style on the bundle's device
         -> (N, H, W, 3) float32. ``folded`` (default ``folded_infer()``)
         picks the folded path; otherwise the standard model runs, under
-        bfloat16 autocast when compute_dtype says so. Runs under
+        bfloat16 autocast when compute_dtype says so (sanet: on the features
+        of one 2N pass of ``bundle.vgg``, its attention on B6). Runs under
         ``torch.inference_mode``."""
         if folded is None:
             folded = self.folded_infer()
@@ -295,6 +354,11 @@ class ModelBundle:
                     dtype=self.folded_dtype(), batch_encode=batch_encode)
             with torch.autocast(self.device.type, dtype=torch.bfloat16,
                                 enabled=self.cfg.compute_dtype == "bfloat16"):
+                if self.network == "sanet":
+                    n = content.shape[0]
+                    feats = self._feature_vgg()(torch.cat([content, style]))
+                    return self.model([f[:n] for f in feats],
+                                      [f[n:] for f in feats]).float()
                 return self.model(content, style).float()
 
 
@@ -314,6 +378,8 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
         model = WCTRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
                       method=cfg.wct_method, wct_dtype=cfg.wct_dtype,
                       device=device)
+    elif n == "sanet":
+        model = SAModel(adaptive=False, img_size=cfg.img_size, device=device)
     elif n == "multi_adain":
         model = MultiScaleAdaINRP(
             rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
@@ -327,16 +393,19 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
 
 
 def build_vgg(cfg: Config, device="cpu") -> Tuple[VGG19Encoder, str]:
-    """The frozen 4-stage VGG of the perceptual loss and where its weights
-    came from: ``cfg.vgg`` (``.pth`` or ``.npz``) when that file exists,
-    else ``bridge.vgg_weights_from_seed(cfg.seed + 1)`` (random: the losses
-    then hold no perceptual meaning, fine for smoke and timing runs)."""
+    """The frozen VGG of the perceptual loss (and of sanet's features), with
+    ``vgg_stages(cfg.network)`` taps, and where its weights came from:
+    ``cfg.vgg`` (``.pth`` or ``.npz``) when that file exists, else
+    ``bridge.vgg_weights_from_seed(cfg.seed + 1)`` (random: the losses then
+    hold no perceptual meaning, fine for smoke and timing runs)."""
     from ..bridge import load_vgg_weights, vgg_from_flax, vgg_weights_from_seed
-    vgg = VGG19Encoder(num_stages=4)
+    stages = vgg_stages(cfg.network)
+    vgg = VGG19Encoder(num_stages=stages)
     if cfg.vgg and Path(cfg.vgg).exists():
-        vgg.load_state_dict(load_vgg_weights(cfg.vgg))
+        vgg.load_state_dict(load_vgg_weights(cfg.vgg, stages))
         source = str(cfg.vgg)
     else:
-        vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(cfg.seed + 1)))
+        vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(
+            cfg.seed + 1, stages)))
         source = f"random (vgg_weights_from_seed({cfg.seed + 1}))"
     return vgg.to(device), source

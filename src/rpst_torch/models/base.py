@@ -18,7 +18,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..ops.stats import calc_mean_std
+from ..ops.stats import calc_mean_std, mean_variance_norm
 
 VGGFeatures = Callable[[torch.Tensor], List[torch.Tensor]]
 
@@ -34,6 +34,14 @@ def style_stat_loss(input_feat: torch.Tensor,
     im, istd = calc_mean_std(input_feat)
     tm, tstd = calc_mean_std(target_feat)
     return mse(im, tm) + mse(istd, tstd)
+
+
+def normalized_content_loss(input_feat: torch.Tensor,
+                            target_feat: torch.Tensor) -> torch.Tensor:
+    """SANet's mean-variance-normalized content MSE (sanet.py:226-230); the
+    target carries no gradient."""
+    return mse(mean_variance_norm(input_feat),
+               mean_variance_norm(target_feat.detach()))
 
 
 def perceptual_rp_losses(vgg_features: VGGFeatures, stylized: torch.Tensor,

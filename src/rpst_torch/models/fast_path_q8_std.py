@@ -22,6 +22,14 @@ on the 2N style + content batch. rpst can send these layers to its
 compiler's own int8 conv instead (``conv_impl='xla'``); PyTorch has no int8
 conv on CUDA, so here every eligible layer goes to B5.
 
+Static SANet (``stylize_sanet_q8``, rpst's :1289-1360) chains the same VGG
+program through all five stages on the 2N batch (conv_4 .. conv_13: 10 B5
+launches), runs the attention transform in the working type (the softmax
+attention is the style signal; it goes to B6, two launches), and decodes
+through the VGG-mirror decoder, whose conv0 .. conv5 run on B5 (6 launches,
+nearest upsamples in int8, which commute with the symmetric quantizer): 16
+B5 launches and 16 activation scales per stylize.
+
 Tensors are NHWC throughout (B5's layout); weights are the modules' OIHW
 tensors for ``F.conv2d`` and HWIO int8 for B5. Scale arithmetic follows
 rpst: Python float64, then float32; divisions by Python scalars go through
@@ -30,7 +38,7 @@ rpst: Python float64, then float32; divisions by Python scalars go through
 Usage::
 
     convs = std_blocks(model, torch.bfloat16)
-    scales = calibrate_adain_q8(std_blocks(model, torch.bfloat16), c, s)
+    scales = calibrate_adain_q8(convs, c, s)
     img = stylize_adain_q8(convs, quantize_std(std_blocks(model,
                            torch.float32)), scales, c, s)
 """
@@ -43,13 +51,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..nn.decoder import MIRROR_UP_BEFORE
+from ..nn.decoder import upsample_nearest_2x_nhwc as _upsample2x_any
 from ..nn.vgg import _STAGES, VGG19Encoder
 from ..ops.conv2d_q8 import fused_conv2d_q8
+from ..ops.flash_attention import sanet_attention
 from ..ops.folded_conv_q8 import (div_f32, quantize_activations,
                                   quantize_weights)
 from ..ops.stats import adaptive_instance_normalization as adain
 from ..ops.wct import wct_fuse
 from .fast_path_q8 import Q8Layer, _scale_rows
+from .sanet import Attention, SAModel, sanet_attention_block
 
 # [(weight OIHW, bias)] of one conv stack, in the working type
 Convs = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -383,10 +395,11 @@ def _conv_chain_q8(convs: Convs, qconvs: QConvs, program, x, dtype, conv_q,
                    st: _ScaleStream, taps=()):
     """Drive a reflect + relu conv chain through B5.
 
-    ``program[i]`` = (pre, act): pre "pool" or None applied before conv i,
-    act False only for a conv without activation. Eligible convs (``qconvs``
-    entry set, act True) run int8, chained int8 while the next conv is also
-    eligible (pools are transparent to the chain); the rest run
+    ``program[i]`` = (pre, act): pre "pool", "up" or None applied before
+    conv i, act False only for a conv without activation. Eligible convs
+    (``qconvs`` entry set, act True) run int8, chained int8 while the next
+    conv is also eligible (pools and upsamples are transparent to the
+    chain); the rest run
     ``F.conv2d``. ``taps``: indices whose post-activation output is returned
     dequantized. Returns (x, {i: tap}). When ``st.recording`` everything runs
     float and the stream records absmaxes at exactly the points the replay
@@ -403,6 +416,8 @@ def _conv_chain_q8(convs: Convs, qconvs: QConvs, program, x, dtype, conv_q,
         pre, act = program[li]
         if pre == "pool":
             x = _maxpool2x_any(x)
+        elif pre == "up":
+            x = _upsample2x_any(x)
         if eligible(li):
             is_q = virt if st.recording else x_s is not None
             if not is_q:
@@ -464,14 +479,21 @@ def _vgg_encode_q8(vgg, x, num_stages, dtype, conv_q, st):
     return [taps[i] for i in tap_idx]
 
 
-def vgg_q8_plan(vgg: VGG19Encoder, num_stages: int = 4) -> Dict[str, int]:
-    """The scales and B5 launches of one ``vgg_target_taps_q8`` call."""
-    _, qconvs, program, _ = _vgg_q8_layers(vgg, num_stages, torch.float32)
+def _chain_plan(qconvs: QConvs, program) -> Dict[str, int]:
+    """The scales one ``_conv_chain_q8`` replay consumes (one where a run of
+    eligible convs starts, one per chained output) and its B5 launches."""
     elig = [q is not None and program[i][1] for i, q in enumerate(qconvs)]
     scales = sum(int(e and not (i and elig[i - 1]))
                  + int(e and i + 1 < len(elig) and elig[i + 1])
                  for i, e in enumerate(elig))
     return {"scales": scales, "B5": sum(elig)}
+
+
+def vgg_q8_plan(vgg: VGG19Encoder, num_stages: int = 4) -> Dict[str, int]:
+    """The scales and B5 launches of one ``vgg_target_taps_q8`` call (or of
+    the ``num_stages`` encode of a SANet stylize)."""
+    _, qconvs, program, _ = _vgg_q8_layers(vgg, num_stages, torch.float32)
+    return _chain_plan(qconvs, program)
 
 
 def calibrate_vgg_targets_q8(vgg: VGG19Encoder, content,
@@ -496,3 +518,100 @@ def vgg_target_taps_q8(vgg: VGG19Encoder, scales, imgs,
     with torch.no_grad():
         return _vgg_encode_q8(vgg, imgs.detach(), 4, dtype,
                               make_conv_q(dtype, "reflect"), st)
+
+
+# ---------------------------------------------------------------------------
+# static SANet: int8 VGG encode, attention in the working type, int8 decode
+# ---------------------------------------------------------------------------
+
+# the VGG-mirror decoder's program (nn/decoder.py): (pre, act) per conv
+_MIRROR_PROGRAM = [("up" if i in MIRROR_UP_BEFORE else None, i != 8)
+                   for i in range(9)]
+
+
+def sanet_blocks(model: SAModel, dtype: torch.dtype) -> Dict[str, object]:
+    """The trained weights of a static SANet in ``dtype``, detached:
+    ``sanet4_1`` / ``sanet5_1`` (the f, g, h, out_conv (weight, bias)
+    pairs), ``merge`` and the ``decoder`` conv list."""
+    def pair(conv):
+        return (conv.weight.detach().to(dtype), conv.bias.detach().to(dtype))
+    t = model.transform
+    return {"sanet4_1": [pair(m) for m in (t.sanet4_1.f, t.sanet4_1.g,
+                                           t.sanet4_1.h, t.sanet4_1.out_conv)],
+            "sanet5_1": [pair(m) for m in (t.sanet5_1.f, t.sanet5_1.g,
+                                           t.sanet5_1.h, t.sanet5_1.out_conv)],
+            "merge": pair(t.merge_conv.Conv_0),
+            "decoder": [pair(c) for c in model.decoder.convs()]}
+
+
+def sanet_q8_plan(vgg: VGG19Encoder, qdec: QConvs) -> Dict[str, int]:
+    """What one ``stylize_sanet_q8`` runs: the act scales it consumes, its
+    B5 launches (the 5-stage encode of the 2N batch, then the decoder) and
+    its two B6 launches (the relu4_1 and relu5_1 attention modules)."""
+    enc, dec = vgg_q8_plan(vgg, 5), _chain_plan(qdec, _MIRROR_PROGRAM)
+    return {"scales": enc["scales"] + dec["scales"],
+            "B5": enc["B5"] + dec["B5"], "B6": 2}
+
+
+def _mirror_decode_q8(dec: Convs, qdec: QConvs, x, dtype, conv_q, st):
+    """The VGG-mirror decoder with its eligible convs int8; the last conv
+    has no activation and stays float."""
+    out, _ = _conv_chain_q8(dec, qdec, _MIRROR_PROGRAM, x, dtype, conv_q, st)
+    return out
+
+
+def _sanet_transform(blocks, feats, n: int, attention: Attention):
+    """The attention transform on the 2N-batched relu4_1 / relu5_1 taps, in
+    their (the working) type: the port's ``Transform`` on detached weights,
+    attention on B6. NHWC in and out."""
+    c4, s4 = feats[3][:n], feats[3][n:]
+    c5, s5 = feats[4][:n], feats[4][n:]
+    a4 = sanet_attention_block(c4, s4, *blocks["sanet4_1"],
+                               attention=attention)
+    a5 = sanet_attention_block(c5, s5, *blocks["sanet5_1"],
+                               attention=attention)
+    return _reflect_conv(a4 + _upsample2x_any(a5), *blocks["merge"],
+                         act=False)
+
+
+def _sanet_q8_pass(vgg, blocks, qdec, content, style, st, dtype, conv_q,
+                   attention: Attention = sanet_attention):
+    n = content.shape[0]
+    feats = _vgg_encode_q8(vgg, torch.cat([content, style], dim=0), 5, dtype,
+                           conv_q, st)
+    fusion = _sanet_transform(blocks, feats, n, attention)
+    return _mirror_decode_q8(blocks["decoder"], qdec, fusion.to(dtype), dtype,
+                             conv_q, st)
+
+
+def calibrate_sanet_q8(vgg: VGG19Encoder, blocks, qdec: QConvs, content,
+                       style) -> Dict[str, np.ndarray]:
+    """One calibration pass -> {'act_scales'} for ``stylize_sanet_q8``: the
+    same code path with a recording stream, in the type of ``blocks`` (rpst
+    calibrates in bfloat16). It launches none of the int8 kernels; its two
+    attention modules run on B6."""
+    with torch.inference_mode():
+        st = _ScaleStream()
+        _sanet_q8_pass(vgg, blocks, qdec, content, style, st,
+                       blocks["merge"][0].dtype, None)
+        return _scales_from(st.absmax)
+
+
+def stylize_sanet_q8(vgg: VGG19Encoder, blocks, qdec: QConvs, scales, content,
+                     style, dtype: torch.dtype = torch.bfloat16,
+                     attention: Attention = sanet_attention) -> torch.Tensor:
+    """Int8 static-SANet serving: the chained-int8 5-stage VGG encode of
+    both images (one 2N batch), the attention transform in ``dtype``, the
+    int8 VGG-mirror decode. ``blocks``: ``sanet_blocks`` in ``dtype``;
+    ``qdec``: ``quantize_convs`` of the float32 decoder; content, style (N,
+    H, W, 3) with H, W multiples of 16 (four exact 2x2 pools).
+    ``attention`` replaces B6's public function (a benchmark times the plain
+    version or a library call in its place)."""
+    want = sanet_q8_plan(vgg, qdec)["scales"]
+    if len(scales["act_scales"]) != want:
+        raise ValueError(f"{len(scales['act_scales'])} act scales for a model "
+                         f"that consumes {want}: calibrate this model")
+    st = _ScaleStream(scales["act_scales"])
+    out = _sanet_q8_pass(vgg, blocks, qdec, content, style, st, dtype,
+                         make_conv_q(dtype, "reflect"), attention)
+    return out.to(content.dtype)

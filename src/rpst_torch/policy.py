@@ -29,6 +29,10 @@ AUTO_MODE = "standard"
 # standard bfloat16's 60.8 (float32 112.3). B5 runs on __dp4a at 5.5% of the
 # int8 tensor-core peak, cuDNN's bfloat16 conv on the tensor cores: q8 is
 # fastest at no batch, so neither network has an entry.
+# sanet (configs/train_static_sanet.yaml): q8 (16 B5 + 2 B6) read 11.5-12.0
+# ms at b1 and 36.1-36.5 at b4 against standard bfloat16's 7.7-11.0 and
+# 23.4-24.4 (standard float32 without TF32: 19.4-19.6 and 345-411, where
+# cuDNN takes an FFT algorithm): no entry either. rpst's own sanet entry was a TPU's and is not copied.
 Q8_AUTO_BATCHES: Dict[str, frozenset] = {}
 
 # same card: B7 pairs 46.2-46.5 ms against B4's 40.0-40.7 at b8; at b1 the

@@ -75,7 +75,8 @@ def calibrate_scales(bundle, calib: torch.Tensor,
     batch: {'act_scales': (L,) float32}, by the network's calibrator
     (``bundle.calibrate_q8``; adain and wct cap the batch at 2 images, whose
     512-channel full-resolution activations a larger batch would hold all at
-    once). If the card runs out of memory the
+    once; sanet calibrates on the whole batch through ``bundle.vgg``). If
+    the card runs out of memory the
     pass retries once on the first image alone, as rpst does on
     RESOURCE_EXHAUSTED: per-tensor absmax scales from one image beat a
     dead serving process."""
@@ -95,8 +96,8 @@ def make_run_impl(bundle, mode: str, scales=None,
     """``run_impl(content, style) -> stylized`` on the resolved mode's
     path: the bundle's int8 (with ``scales`` from ``calibrate_scales``;
     ``fuse_pairs`` as in ``stylize_multi_adain_folded_q8``, for the flagship
-    only: adain and wct run their standard-layout int8 path on B5), folded
-    or standard stylize."""
+    only: adain, wct and sanet run their standard-layout int8 path on B5,
+    sanet's attention on B6), folded or standard stylize."""
     if mode == "q8":
         if scales is None:
             raise ValueError("mode q8 needs the scales of calibrate_scales")

@@ -302,3 +302,102 @@ def test_b5_refuses_misaligned_and_mixed(cuda_device):
         fused_conv2d_q8(shifted, k, sc, True)
     with pytest.raises(TypeError, match="scales is torch.float64"):
         fused_conv2d_q8(x, k, sc.double(), True)
+
+
+# ---------------------------------------------------------------- B6
+
+from rpst_torch.ops import flash_attention as fa  # noqa: E402
+
+
+def _attention_inputs(seed, device, dtype, n, nq, nk, c, scale=1.0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, f=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                * f / c ** 0.25).to(device).to(dtype)
+    return (t(n, nq, c, f=scale), t(n, nk, c, f=scale), t(n, nk, c),
+            t(n, nq, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("shape,scale", [((2, 20, 12, 128), 1.0),
+                                         ((1, 1, 1, 128), 1.0),
+                                         ((3, 33, 130, 256), 1.0),
+                                         ((1, 160, 97, 512), 1.0),
+                                         ((2, 64, 64, 384), 1.0),
+                                         ((2, 64, 64, 128), 30.0),
+                                         ((5, 1024, 1024, 512), 1.0)])
+def test_b6_matches_plain_on_card(cuda_device, dtype, tol, shape, scale):
+    """B6a-d against their plain versions: ragged tiles, every C the kernel
+    takes, both register builds (the last case has more blocks than SMs),
+    large logits (q and k x 30 at rpst's own 64 x 64 size, where the
+    softmax is one-hot; with many more keys two of them nearly tie in some
+    row, and float32 rounding of scores near 1e3 then moves that row's P by
+    ~1e-3 in either version); dK/dV bit-equal across two runs."""
+    q, k, v, d_o = _attention_inputs(0, cuda_device, dtype, *shape,
+                                     scale=scale)
+    before = fa.launch_counts()
+    o = fa.flash_fwd(q, k, v)
+    o2, lse = fa.flash_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
+    delta = (d_o.float() * ref_o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, d_o, ref_lse, delta)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, d_o, ref_lse, delta)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, d_o, ref_lse, delta)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"B6_fwd": before["B6_fwd"] + 2,
+                                  "B6_dq": before["B6_dq"] + 1,
+                                  "B6_dkv": before["B6_dkv"] + 2}
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, d_o, ref_lse, delta)
+    for got, ref in ((o, ref_o), (o2, ref_o), (dk, ref_dk), (dv, ref_dv),
+                     (dq, fa.flash_bwd_dq_plain(q, k, v, d_o, ref_lse,
+                                                delta))):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_b6_function_on_card(cuda_device):
+    """The autograd Function launches B6b, B6c and B6d once each; without a
+    gradient to record the public function launches B6a."""
+    q, k, v, d_o = _attention_inputs(1, cuda_device, torch.float32, 2, 70,
+                                     50, 128)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    wrappers = (fa.flash_fwd, fa.flash_fwd_lse, fa.flash_bwd_dq,
+                fa.flash_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    out = fa.flash_attention(*leaves)
+    out.backward(d_o)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [0, 1, 1, 1]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_fwd_plain(*ref_leaves).backward(d_o)
+    for got, ref in zip(leaves, ref_leaves):
+        torch.testing.assert_close(got.grad, ref.grad, rtol=1e-3, atol=1e-4)
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+    assert fa.flash_fwd.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+def test_b6_refuses_what_the_kernel_does_not_take(cuda_device):
+    q, k, v, _ = _attention_inputs(2, cuda_device, torch.float32, 1, 8, 8,
+                                   128)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fa.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_fwd(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                     v[..., :64].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    flat = torch.zeros(q.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(flat[1:].view(q.shape), k, v)

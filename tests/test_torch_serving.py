@@ -391,6 +391,8 @@ def test_port_never_imports_jax():
         "import rpst_torch.models.fast_path_q8, rpst_torch.policy\n"
         "import rpst_torch.ops.conv2d_q8, rpst_torch.ops.wct\n"
         "import rpst_torch.models.fast_path_q8_std, rpst_torch.models.wct_rp\n"
+        "import rpst_torch.ops.flash_attention, rpst_torch.models.sanet\n"
+        "import rpst_torch.nn.decoder\n"
         "import importlib.util as u\n"
         "for name in ('serve_torch', 'train_torch'):\n"
         "    spec = u.spec_from_file_location(name, name + '.py')\n"

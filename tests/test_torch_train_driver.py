@@ -75,7 +75,7 @@ def test_cpu_run_writes_metrics_and_checkpoints_and_resumes(run_dir):
     ("mesh_shape={data: 2}", "slice 8"), ("distributed=true", "slice 8"),
     ("target_cache=64", "item 7"), ("network=wct", "slice 5b"),
     ("grad_accum=2", "slice 8"), ("remat=true", "slice 8"),
-    ("test_dir=/x", "slice 7"), ("network=sanet", "slices 4-6")])
+    ("test_dir=/x", "slice 7"), ("network=dynamic_sanet", "slices 4-6b")])
 def test_unported_options_raise(run_dir, override, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         _driver().main(["--config", str(run_dir / "cfg.yaml"), "--device",

@@ -11,7 +11,9 @@ on a machine that has no JAX (``chip_smoke.py``):
   * tests/fixtures/torch_port_adain.npz, torch_port_wct.npz (``--adain``,
     ``--wct``): adain's / wct's standard and int8 serving at full width;
   * tests/fixtures/torch_port_q8_targets.npz (``--q8-targets``): the int8
-    VGG loss targets of ``train_q8_targets``.
+    VGG loss targets of ``train_q8_targets``;
+  * tests/fixtures/torch_port_sanet.npz (``--sanet``): the static SANet's
+    standard and int8 serving and its training loss and gradients.
 
 The flagship is multi_adain with the constant stack at full width
 (rp_blocks 5, hidden_dim 32, attention none), as bench.py builds it. The
@@ -68,8 +70,25 @@ The q8-targets fixture (batch 4) holds:
   * ``style_loss``, ``content_loss``, ``total_loss``: rpst's
     ``perceptual_rp_losses_q8targets`` (float32, weights 1 and 2).
 
+The sanet fixture (batch 2, the model's fixed width of 512) holds:
+  * ``weights_seed``, ``vgg_seed``: the params are ``rpst_torch.bridge.
+    sanet_weights_from_seed(weights_seed)`` and the 5-stage VGG
+    ``vgg_weights_from_seed(vgg_seed, 5)`` (numpy only; ~30 MB and ~50 MB
+    stored as their seeds); ``content``, ``style``;
+  * ``out_f32``: rpst's ``ModelBundle.stylize`` in float32 (on the CPU its
+    attention takes the dense route);
+  * ``act_scales``, ``out_q8_f32``, ``out_q8_bf16``: rpst's
+    ``calibrate_sanet_q8`` and ``stylize_sanet_q8`` (``interpret=True``);
+  * ``content_loss``, ``style_loss``, ``l_identity1_loss``,
+    ``l_identity2_loss``, ``total_loss``: rpst's ``ModelBundle.loss`` with
+    ``configs/train_static_sanet.yaml``'s weights (1, 3, 50, 1), and from
+    its ``jax.value_and_grad``: ``gradnorm/<flax path>`` (the norm of every
+    leaf's gradient), ``grads/<flax path>`` for every bias in full, and
+    ``gradpatch/<flax path>``, the [..., :8, :8] corner of every kernel's.
+
 Usage:
   python tools/make_torch_port_fixture.py --adain | --wct | --q8-targets
+  python tools/make_torch_port_fixture.py --sanet
   python tools/make_torch_port_fixture.py [--seed 0] [--size 64] [dst.npz]
   python tools/make_torch_port_fixture.py --train [--seed 0] [--size 64] [dst]
   python tools/make_torch_port_fixture.py --q8 [--seed 0] [--size 64] [dst]
@@ -91,6 +110,9 @@ Q8_DST = REPO / "tests" / "fixtures" / "torch_port_q8.npz"
 RPSEQ_DST = {n: REPO / "tests" / "fixtures" / f"torch_port_{n}.npz"
              for n in ("adain", "wct")}
 Q8_TARGETS_DST = REPO / "tests" / "fixtures" / "torch_port_q8_targets.npz"
+SANET_DST = REPO / "tests" / "fixtures" / "torch_port_sanet.npz"
+SANET = dict(network="sanet", content_weight=1.0, style_weight=3.0,
+             l_identity1_weight=50.0, l_identity2_weight=1.0)
 WIDE = dict(rp_blocks=5, hidden_dim=32)
 TRAIN = dict(batch=2, vgg_seed=1, lr=1e-3, lr_decay=0.5, steps=3)
 FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
@@ -299,6 +321,58 @@ def make_q8_targets_fixture(seed: int = 0, size: int = 64) -> dict:
     return arrays
 
 
+def make_sanet_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The sanet fixture's arrays, computed afresh with JAX on the CPU
+    (rpst's int8 kernel in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst.models import fast_path_q8 as q8
+    from rpst_torch.bridge import (sanet_weights_from_seed,
+                                   vgg_weights_from_seed)
+
+    rng = np.random.default_rng(seed)
+    content = rng.random((2, size, size, 3), dtype=np.float32)
+    style = rng.random((2, size, size, 3), dtype=np.float32)
+    params = jax.tree.map(jnp.asarray, sanet_weights_from_seed(seed))
+    vgg_vars = jax.tree.map(jnp.asarray,
+                            vgg_weights_from_seed(TRAIN["vgg_seed"], 5))
+    bundle = build_model(load_config(dict(SANET, img_size=size)))
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    variables = {"params": params}
+    out = jax.jit(bundle.stylize)(variables, vgg_vars, c, s)
+    scales = q8.calibrate_sanet_q8(variables, vgg_vars, c, s)
+    arrays = dict(weights_seed=np.int64(seed),
+                  vgg_seed=np.int64(TRAIN["vgg_seed"]), content=content,
+                  style=style, out_f32=np.asarray(out, np.float32),
+                  act_scales=np.asarray(scales["act_scales"], np.float32))
+    for name, dt in (("out_q8_f32", jnp.float32),
+                     ("out_q8_bf16", jnp.bfloat16)):
+        arrays[name] = np.asarray(q8.stylize_sanet_q8(
+            variables, vgg_vars, scales, c, s, dtype=dt, interpret=True),
+            np.float32)
+
+    def loss_fn(p):
+        total, (parts, _) = bundle.loss({"params": p}, vgg_vars, c, s,
+                                        train=True)
+        return total, parts
+
+    (_, parts), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params)
+    arrays.update({k: np.float32(v) for k, v in parts.items()})
+    for k, v in _flat(grads):
+        g = np.asarray(v, np.float32)
+        arrays[f"gradnorm/{k}"] = np.float32(np.linalg.norm(g))
+        if k.endswith("bias"):
+            arrays[f"grads/{k}"] = g
+        else:
+            arrays[f"gradpatch/{k}"] = g[..., :8, :8].copy()
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -324,6 +398,8 @@ def main():
                     help="write the wct fixture instead")
     ap.add_argument("--q8-targets", action="store_true",
                     help="write the q8-targets fixture instead")
+    ap.add_argument("--sanet", action="store_true",
+                    help="write the sanet fixture instead")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -338,6 +414,9 @@ def main():
     elif args.q8_targets:
         arrays = make_q8_targets_fixture(args.seed, args.size)
         args.dst = args.dst or str(Q8_TARGETS_DST)
+    elif args.sanet:
+        arrays = make_sanet_fixture(args.seed, args.size)
+        args.dst = args.dst or str(SANET_DST)
     elif args.train:
         arrays = make_train_fixture(args.seed, args.size)
         args.dst = args.dst or str(TRAIN_DST)
@@ -349,7 +428,8 @@ def main():
         args.dst = args.dst or str(DEFAULT_DST)
     Path(args.dst).parent.mkdir(parents=True, exist_ok=True)
     # the new fixtures hold relu outputs, which compress well
-    save = (np.savez_compressed if args.adain or args.wct or args.q8_targets
+    save = (np.savez_compressed
+            if args.adain or args.wct or args.q8_targets or args.sanet
             else np.savez)
     save(args.dst, **arrays)
     print(f"wrote {args.dst} ({len(arrays)} arrays)")

@@ -12,19 +12,22 @@ every folded conv on B1, its backward on B2 and B3 when the tensors are on
 the card) or standard; with ``train_q8_targets: true`` its style and content
 loss targets come from the int8 VGG chain on B5, calibrated once on the
 first batch. ``adain`` trains standard (autograd through the library convs;
-it needs no kernel).
+it needs no kernel). ``sanet`` (``configs/train_static_sanet.yaml``) trains
+standard over a frozen 5-stage VGG: every attention module runs B6's forward
+with its log-sum-exp and the two B6 backward kernels (three stylize passes of
+two modules: 6 / 6 / 6 launches per step).
 
     python train_torch.py --config cfg.yaml [--set key=value ...]
                           [--device cuda|cpu]
 
 ``--device cuda`` (the default) without a CUDA device exits non-zero;
 ``--device cpu`` runs the kernels' plain PyTorch versions. At the end it
-logs the B1/B2/B3 and B5 launch counts of the run. Options of later slices
+logs the B6, B5 and B1/B2/B3 launch counts of the run. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
 and ``distributed`` (slice 8), ``target_cache`` (section A item 7),
 ``grad_accum > 1`` and ``remat`` (slice 8), ``test_dir`` test dumps (slice
-7), and every network but ``multi_adain`` and ``adain`` (wct training is
-slice 5b).
+7), and every network but ``multi_adain``, ``adain`` and ``sanet`` (wct
+training is slice 5b, ``dynamic_sanet`` and ``src`` slice 6b).
 """
 
 import argparse
@@ -46,6 +49,7 @@ from rpst_torch.models.fast_path_q8_std import (  # noqa: E402
     calibrate_vgg_targets_q8)
 from rpst_torch.nn.blocks import init_torch_default  # noqa: E402
 from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8  # noqa: E402
+from rpst_torch.ops.flash_attention import launch_counts  # noqa: E402
 from rpst_torch.ops.folded_conv import (  # noqa: E402
     fused_folded_conv, fused_folded_conv_grad_input,
     fused_folded_conv_grad_weight)
@@ -73,10 +77,10 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             "train_torch.py: wct training (the frozen-encoder resume, "
             "freeze_prefixes) is ROADMAP.md section A slice 5b")
-    if cfg.network not in ("multi_adain", "adain"):
+    if cfg.network not in ("multi_adain", "adain", "sanet"):
         raise NotImplementedError(
-            f"train_torch.py trains multi_adain and adain only; "
-            f"{cfg.network!r} is ROADMAP.md section A slices 4-6")
+            f"train_torch.py trains multi_adain, adain and sanet only; "
+            f"{cfg.network!r} is ROADMAP.md section A slices 4-6b")
     for key, (asked, where) in _UNPORTED.items():
         if asked(cfg):
             raise NotImplementedError(
@@ -117,6 +121,7 @@ def main(argv=None):
     bundle = build_model(cfg, device)
     init_torch_default(bundle.model, cfg.seed)
     vgg, vgg_source = build_vgg(cfg, device)
+    bundle.vgg = vgg  # sanet stylizes from its features
     if cfg.vgg and vgg_source == str(cfg.vgg):
         logger.info(f"Loaded VGG weights from {cfg.vgg}")
     else:
@@ -181,6 +186,7 @@ def main(argv=None):
                 fused_folded_conv_grad_weight)
     launches0 = [c.launches for c in counters]
     b5_0 = fused_conv2d_q8.launches
+    b6_0 = launch_counts()
     timer = StepTimer(sync_every=max(cfg.log_iter, 10), device=device)
     try:
         with CheckpointOnSignal() as stop:
@@ -214,6 +220,8 @@ def main(argv=None):
         style_iter.close()
         writer.close()
     b1, b2, b3 = (c.launches - n for c, n in zip(counters, launches0))
+    logger.info("B6 fwd/dq/dkv launches: " + "/".join(
+        str(n - b6_0[k]) for k, n in launch_counts().items()))
     logger.info(f"B5 fused_conv2d_q8 launches: "
                 f"{fused_conv2d_q8.launches - b5_0}")
     logger.info(f"B1/B2/B3 launches: {b1}/{b2}/{b3}")

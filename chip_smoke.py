@@ -62,9 +62,12 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                int8 identical, bf16 within one ulp compared numerically (the
                -0.0 of alpha = 0 equals +0.0; the bits are compared too and
                reported); alpha {0, 0.2, 1} x pad {reflect, zero} x out at an
-               odd shape; the bf16 mode vs plain (2e-2); each path shape
-               timed against plain and against F.conv2d in bfloat16 on the
-               dequantized values
+               odd shape, and both pads x both outputs at the edges of the
+               tensor-core tilings (C = 4, 36, 48; Co = 4, 132; H or W = 2;
+               W = 33, 37); the bf16 mode vs plain (2e-2); each path shape
+               timed (weights packed once, as the paths keep them) against
+               plain and against F.conv2d in bfloat16 on the dequantized
+               values
  18. wide fixtures  adain and wct on the card vs rpst's JAX output
                (tests/fixtures/torch_port_{adain,wct}.npz, 64px, hidden 32):
                standard f32, and q8 with rpst's scales (float32: PSNR >= 40
@@ -91,7 +94,9 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                versions at the shapes of a 512px SANet stylize, relu4_1 (N,
                4096, 4096, 512) and relu5_1 (N, 1024, 1024, 512) at N = 1
                and 4, f32 (1e-4) and bf16 (2e-2), LSE 1e-4, a ragged
-               rectangular case and inputs x 30; dK/dV bit-equal across two
+               rectangular case and inputs x 30; the bfloat16 forward (a
+               tensor-core kernel of its own) also around its 32 x 64 tiles
+               at C = 128, 256, 384, N = 3; dK/dV bit-equal across two
                runs; each timed against plain and against
                F.scaled_dot_product_attention(scale=1.0) and its autograd
                backward; B5 at the SANet path's six new shapes is in phase 17
@@ -110,7 +115,9 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  27. sanet train    train_torch.py on configs/train_static_sanet.yaml's
                settings (512px, batch 4, f32): 3 steps as a subprocess, then a
                resume for 2 more in this process with the counts reset before
-               and read after: exact 6 / 6 / 6 B6 fwd / dQ / dK/dV per step
+               and read after: exact 6 / 6 / 6 B6 fwd / dQ / dK/dV per step;
+               then 2 steps in bfloat16 the same way (the forward is then the
+               tensor-core kernel)
  28. sanet timing   512px stylize b1 / b4 standard f32, bf16 and q8, and the
                train step b1 / b4 f32 and bf16, each with B6, with the plain
                attention and with the SDPA call in B6's place (in this script
@@ -137,6 +144,12 @@ FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
 IMG = 512
 F32_TOL = 1e-4   # rtol = atol: K = 9*128 products summed in another order
 BF16_TOL = 2e-2  # rtol = atol: about two bf16 ulps at O(1) values
+# the bfloat16 attention forward's O is an average over Nk keys, far below
+# O(1) (max |O| ~0.03 at Nk = 4096), so BF16_TOL alone would pass half of O
+# or a dropped V tile: O is also held to the data's own size, max abs err <=
+# 2e-2 x max |ref| (a few bf16 ulps of the largest value) and mean abs err
+# <= 2e-3 x max |ref| (a half-ulp rounding of typical values is ~3e-4)
+BF16_O_REL, BF16_O_MEAN_REL = 2e-2, 2e-3
 # B3's dk/db: rtol 1e-4 and an atol that grows with the summed length L =
 # N*H*W as f32 rounding of a sum of L O(1) products does: 2e-3 at L = 512,
 # the bound of tests/test_folded.py:406-411 at 16x16, batch 2
@@ -184,6 +197,19 @@ def check_close(name, got, ref, tol, mae_max=None):
     if mae_max is not None and not mae < mae_max:
         raise AssertionError(f"{name}: MAE {mae} >= {mae_max}")
     return max_err, mae
+
+
+def check_scaled(name, got, ref, rel, mean_rel):
+    """Raise unless max |got - ref| <= rel * max |ref| and mean |got - ref|
+    <= mean_rel * max |ref|; return (max abs err, mean abs err) / max |ref|."""
+    got, ref = got.float(), ref.float()
+    err, size = (got - ref).abs(), ref.abs().max().item()
+    max_err, mae = err.max().item(), err.mean().item()
+    if not (max_err <= rel * size and mae <= mean_rel * size):
+        raise AssertionError(
+            f"{name}: max abs err {max_err}, mean {mae} against max |ref| "
+            f"{size} (limits {rel} and {mean_rel} of it)")
+    return max_err / size, mae / size
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -572,13 +598,20 @@ def main():
     # B6's numbers at relu4_1 of a 512px stylize, (1, 4096, 4096, 512) f32
     # (phase 23); library_ms is F.scaled_dot_product_attention(scale=1.0)
     # forward for B6a / B6b and its autograd backward, which yields dQ, dK
-    # and dV together, for B6c and B6d
-    b6_launches = {"B6a": sanet_serve["B6a"], "B6b": sanet_train[0],
-                   "B6c": sanet_train[1], "B6d": sanet_train[2]}
+    # and dV together, for B6c and B6d. The bfloat16 forward is a kernel of
+    # its own (tensor cores): its launches are the q8 serving path's and the
+    # bfloat16 train run's, the float32 kernel's are the others
+    b6_launches = {"B6a": sanet_serve["B6a"] - sanet_serve["B6a_bf16"],
+                   "B6b": sanet_train[0],
+                   "B6c": sanet_train[1], "B6d": sanet_train[2],
+                   "B6a_bf16": sanet_serve["B6a_bf16"],
+                   "B6b_bf16": sanet_train[3]}
     for key, fn_name, line in (("B6a", "flash_fwd", 260),
                                ("B6b", "flash_fwd_lse", 109),
                                ("B6c", "flash_bwd_dq", 220),
-                               ("B6d", "flash_bwd_dkv", 240)):
+                               ("B6d", "flash_bwd_dkv", 240),
+                               ("B6a_bf16", "flash_fwd_bf16", 260),
+                               ("B6b_bf16", "flash_fwd_lse_bf16", 109)):
         kernels["kernels"].append(
             {"name": fn_name, "route": "cuda",
              "source": "src/rpst_torch/csrc/flash_attention.cu",
@@ -694,6 +727,14 @@ def _counters():
 def _reset_counts():
     for c in _counters().values():
         c.launches = 0
+        if hasattr(c, "launches_bf16"):
+            c.launches_bf16 = 0
+
+
+def _bf16_fwd_counts():
+    """(B6a, B6b) launches of the bfloat16 (tensor-core) forward kernel."""
+    c = _counters()
+    return c["B6a"].launches_bf16, c["B6b"].launches_bf16
 
 
 def _counts(names=("B1", "B2", "B3")):
@@ -1333,6 +1374,11 @@ B5_SHAPES = (
     ("mirror conv4 256->128", (1, 128, 128, 256, 128), "reflect"),
     ("mirror conv5 128->128", (1, 256, 256, 128, 128), "reflect"))
 B5_WIDEST = "adain enc 256->512"
+# (N, H, W, C, Co) at the edges of B5's tilings (16 pixel columns x 8 rows,
+# 64 or 128 output channels, 32 input channels a step): the k tail at C = 4,
+# 36, 48; Co = 4 and 132; H or W = 2; W = 33, 37
+B5_EDGES = ((1, 2, 2, 4, 4), (1, 2, 37, 48, 4), (2, 9, 2, 4, 132),
+            (1, 5, 17, 36, 68), (3, 16, 33, 128, 192))
 WIDE_F32_TOL, WCT_F32_TOL = 1e-4, 1e-3  # wct: two 512x512 eigh in float32
 Q8T_LOSS_RTOL = 5e-3  # tests/test_torch_q8_targets.py states the reason
 
@@ -1358,10 +1404,28 @@ def _b5_kernels(dev, name_power):
     from rpst_torch.ops.conv2d_q8 import (fused_conv2d_bf16,
                                           fused_conv2d_bf16_plain,
                                           fused_conv2d_q8,
-                                          fused_conv2d_q8_plain)
+                                          fused_conv2d_q8_plain,
+                                          pack_conv2d_weights)
     rng = np.random.default_rng(5)
     out = {"err": 0.0}
     with torch.inference_mode():
+        # the edges of the tilings, both pads, both outputs, bits compared
+        for shape in B5_EDGES:
+            x, k, sc = _b5_layer(rng, dev, *shape)
+            for pad in ("reflect", "zero"):
+                for out_int8 in (True, False):
+                    got = fused_conv2d_q8(x, k, sc, out_int8, 0.2, pad)
+                    torch.cuda.synchronize()
+                    ref = fused_conv2d_q8_plain(x, k, sc, out_int8, 0.2, pad)
+                    e, _ = _q8_compare(f"B5 edge {shape} {pad} out_int8="
+                                       f"{out_int8}", got, ref)
+                    if not out_int8 and not torch.equal(
+                            got.view(torch.int16), ref.view(torch.int16)):
+                        raise AssertionError(f"B5 edge {shape} {pad}: bf16 "
+                                             "bits differ")
+                    out["err"] = max(out["err"], e)
+            log("17 B5 kernels", f"edge {shape}: int8 identical, bf16 bits "
+                "equal, both pads")
         # every mode at an odd shape: H != W, W no multiple of the 16-wide
         # tile, Co past one 128-channel block
         x, k, sc = _b5_layer(rng, dev, 2, 13, 37, 36, 132)
@@ -1397,8 +1461,10 @@ def _b5_kernels(dev, name_power):
                 out["err"] = max(out["err"], e)
                 msg.append(d)
                 del got, ref
-            ms = cuda_ms(lambda: fused_conv2d_q8(x, k, sc, True, 0.0, pad),
-                         iters=10)
+            # as the paths call it: the layer keeps its packed weights
+            kp = pack_conv2d_weights(k)
+            ms = cuda_ms(lambda: fused_conv2d_q8(x, k, sc, True, 0.0, pad,
+                                                 w_packed=kp), iters=10)
             plain = cuda_ms(lambda: fused_conv2d_q8_plain(x, k, sc, True, 0.0,
                                                           pad),
                             iters=3, warmup=1)
@@ -1419,7 +1485,7 @@ def _b5_kernels(dev, name_power):
             if label == B5_WIDEST:
                 out.update(ms=ms, plain_ms=plain, library_ms=lib,
                            bound_ms=b_ms, bound_by=b_by)
-            del x, k, sc, xd, wd
+            del x, k, kp, sc, xd, wd
             torch.cuda.empty_cache()
         # the bf16 mode, at the widest VGG shape and an odd one
         g = torch.Generator().manual_seed(6)
@@ -1441,12 +1507,21 @@ def _b5_kernels(dev, name_power):
                         f"alpha={alpha}: max abs err {err:.3g} (tol "
                         f"{BF16_TOL})")
             if c == 256:
-                t = (cuda_ms(lambda: fused_conv2d_bf16(x, k, b, 0.0)),
-                     cuda_ms(lambda: fused_conv2d_bf16_plain(x, k, b, 0.0)))
+                xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
+                xd = xb.permute(0, 3, 1, 2)
+                wd = kb.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                bd = b.to(torch.bfloat16)
+                t = (cuda_ms(lambda: fused_conv2d_bf16(xb, kb, b, 0.0)),
+                     cuda_ms(lambda: fused_conv2d_bf16_plain(x, k, b, 0.0)),
+                     cuda_ms(lambda: F.conv2d(F.pad(xd, (1, 1, 1, 1),
+                                                    mode="reflect"), wd, bd)))
                 b_ms, b_by = conv_bound(n, h, w, c, co, "bf16", 2, [2])
-                log("17 B5 kernels", f"bf16 mode {shape}: {t[0]:.4f} ms vs "
-                    f"plain {t[1]:.4f}; bound {b_ms:.4f} ms by {b_by} "
-                    f"({name_power})")
+                log("17 B5 kernels", f"bf16 mode {shape}: {t[0]:.4f} ms "
+                    f"(weights repacked per call) vs plain {t[1]:.4f}, "
+                    f"reflect pad + F.conv2d bf16 {t[2]:.4f}; bound "
+                    f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / t[0]:.1f}% of "
+                    f"it reached; {name_power})")
     return out
 
 
@@ -1777,7 +1852,10 @@ def _wide_timing(dev, rng, name_power):
                     "standard bf16": lambda: _standard(bundle, c, s,
                                                        torch.bfloat16),
                     "q8 B5": lambda: bundle.stylize_q8(c, s, scales)}
-                for path, fn in paths.items():
+                # bf16, q8, q8, bf16: the policy's A/B in both orders
+                for path in ("standard f32", "standard bf16", "q8 B5",
+                             "q8 B5", "standard bf16"):
+                    fn = paths[path]
                     ms = cuda_ms(fn, iters=7, warmup=2)
                     log("22 wide timing", f"{network} 512px b{batch} "
                         f"{path:14s}: {ms:9.3f} ms {batch * 1e3 / ms:8.2f} "
@@ -1825,6 +1903,10 @@ B6_SHAPES = (("relu4_1 b1", (1, 4096, 4096, 512)),
              ("relu4_1 b4", (4, 4096, 4096, 512)),
              ("relu5_1 b4", (4, 1024, 1024, 512)))
 B6_JSON_SHAPE = "relu4_1 b1"
+# (N, Nq, Nk, C) around the bfloat16 forward's tiles (32 query rows x 64
+# keys): one below, at and one above each, at the widths below 512, N = 3
+B6_FWD_EDGES = tuple((3, nq, nk, c) for c in (128, 256, 384)
+                     for nq, nk in ((31, 63), (32, 64), (33, 65)))
 LSE_TOL = 1e-4
 # per 512px SANet call: two attention modules per stylize; the q8 plan's 16
 # B5 (VGG conv_4 .. conv_13 on the 2N batch, mirror conv0 .. conv5); a train
@@ -1902,6 +1984,14 @@ def _b6_compare(label, dev, dtype, shape, scale, tol):
     ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
     err = {"B6a": check_close(f"B6a {label}", o, ref_o, tol)[0],
            "B6b": check_close(f"B6b {label}", o2, ref_o, tol)[0]}
+    scaled = ""
+    if dtype == torch.bfloat16:  # the tensor-core forward, at O's own size
+        rel = [check_scaled(f"{key} {label}", got, ref_o, BF16_O_REL,
+                            BF16_O_MEAN_REL)
+               for key, got in (("B6a", o), ("B6b", o2))]
+        scaled = (f"; fwd O err / max |ref|: max {max(r[0] for r in rel):.3g}"
+                  f" (limit {BF16_O_REL}), mean {max(r[1] for r in rel):.3g} "
+                  f"(limit {BF16_O_MEAN_REL})")
     # the LSE's own tolerance scales with the logits' size
     lse_err = (lse - ref_lse).abs().max().item()
     if not torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL):
@@ -1921,17 +2011,43 @@ def _b6_compare(label, dev, dtype, shape, scale, tol):
     log("23 B6 kernels", f"{label} {shape} {str(dtype)[6:]} x{scale:g}: max "
         f"abs err fwd {err['B6a']:.3g}, fwd+lse {err['B6b']:.3g} (lse "
         f"{lse_err:.3g}), dq {err['B6c']:.3g}, dk/dv {err['B6d']:.3g} (tol "
-        f"{tol}); dK/dV bit-equal across two runs")
+        f"{tol}); dK/dV bit-equal across two runs{scaled}")
     return err
 
 
 def _b6_kernels(dev, name_power):
     """Phase 23: B6a-d against their plain versions, then timed beside
     plain, SDPA and their bounds at every shape of a 512px stylize. Returns
-    the kernels JSON numbers per kernel (f32 at B6_JSON_SHAPE)."""
+    the kernels JSON numbers per kernel at B6_JSON_SHAPE: B6a-d in f32, and
+    the bfloat16 forward (a kernel of its own) as B6a_bf16 / B6b_bf16."""
     import torch
     from rpst_torch.ops import flash_attention as fa
     worst = {k: 0.0 for k in ("B6a", "B6b", "B6c", "B6d")}
+    worst_bf16 = {"B6a": 0.0, "B6b": 0.0}
+    worst_rel = [0.0, 0.0]
+    for shape in B6_FWD_EDGES:
+        q, k, v, _ = _attention_inputs(dev, torch.bfloat16, *shape)
+        o = fa.flash_fwd(q, k, v)
+        o2, lse = fa.flash_fwd_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
+        worst_bf16["B6a"] = max(worst_bf16["B6a"], check_close(
+            f"B6a edge {shape}", o, ref_o, BF16_TOL)[0])
+        worst_bf16["B6b"] = max(worst_bf16["B6b"], check_close(
+            f"B6b edge {shape}", o2, ref_o, BF16_TOL)[0])
+        for got in (o, o2):
+            rel = check_scaled(f"B6 edge {shape}", got, ref_o, BF16_O_REL,
+                               BF16_O_MEAN_REL)
+            worst_rel = [max(a, b) for a, b in zip(worst_rel, rel)]
+        if not torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL):
+            raise AssertionError(f"B6b edge {shape} lse: max abs err "
+                                 f"{(lse - ref_lse).abs().max().item()}")
+    log("23 B6 kernels", f"bf16 forward at {len(B6_FWD_EDGES)} tile-edge "
+        f"shapes (N = 3; C 128, 256, 384; Nq 31-33, Nk 63-65): max abs err "
+        f"{max(worst_bf16.values()):.3g} (tol {BF16_TOL}), err / max |ref| "
+        f"max {worst_rel[0]:.3g} (limit {BF16_O_REL}), mean "
+        f"{worst_rel[1]:.3g} (limit {BF16_O_MEAN_REL}), lse within "
+        f"{LSE_TOL}")
     for label, shape, dtype, scale in (
             ("ragged", (2, 100, 70, 512), torch.float32, 1.0),
             ("ragged", (2, 100, 70, 512), torch.bfloat16, 1.0),
@@ -1942,6 +2058,8 @@ def _b6_kernels(dev, name_power):
         for k, e in _b6_compare(label, dev, dtype, shape, scale, tol).items():
             if dtype == torch.float32:
                 worst[k] = max(worst[k], e)
+            elif k in worst_bf16:
+                worst_bf16[k] = max(worst_bf16[k], e)
     out = {}
     for label, shape in B6_SHAPES:
         n, nq, nk, c = shape
@@ -1951,6 +2069,8 @@ def _b6_kernels(dev, name_power):
                                     tol).items():
                 if dtype == torch.float32:
                     worst[k] = max(worst[k], e)
+                elif k in worst_bf16:
+                    worst_bf16[k] = max(worst_bf16[k], e)
             q, k_, v, d_o = _attention_inputs(dev, dtype, *shape)
             with torch.no_grad():
                 o, lse = fa.flash_fwd_lse(q, k_, v)
@@ -1996,14 +2116,17 @@ def _b6_kernels(dev, name_power):
                     f"{backends}); bound {b_ms:.4f} ms by {b_by} "
                     f"({100 * b_ms / ms[key]:.1f}% of it reached; "
                     f"{name_power})")
-                if label == B6_JSON_SHAPE and dtype == torch.float32:
-                    out[key] = {"ms": ms[key], "plain_ms": plain[key],
-                                "bound_ms": b_ms, "bound_by": b_by,
-                                "library_ms": lib[key]}
+                if label == B6_JSON_SHAPE and (dtype == torch.float32
+                                               or key in worst_bf16):
+                    name = key if dtype == torch.float32 else key + "_bf16"
+                    out[name] = {"ms": ms[key], "plain_ms": plain[key],
+                                 "bound_ms": b_ms, "bound_by": b_by,
+                                 "library_ms": lib[key]}
             del q, k_, v, d_o, o, lse, delta
             torch.cuda.empty_cache()
     for key in out:
-        out[key]["max_abs_err"] = worst[key]
+        out[key]["max_abs_err"] = (worst_bf16[key[:3]]
+                                   if key.endswith("_bf16") else worst[key])
     return out
 
 
@@ -2181,14 +2304,15 @@ def _sanet_parity(dev, rng):
 
 def _sanet_serve(dev, rng):
     """Phase 26: the SANet serving main path, standard and q8, through the
-    user's entry points. Returns the in-process runs' B6a and B5 launches."""
+    user's entry points. Returns the in-process runs' B6a and B5 launches,
+    and how many of the B6a launches were the bfloat16 kernel's."""
     import numpy as np
     import torch
     from PIL import Image
     from rpst_torch.data import load_image
     from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
                                     make_run_impl, resolve_mode)
-    total = {"B6a": 0, "B5": 0}
+    total = {"B6a": 0, "B5": 0, "B6a_bf16": 0}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for sub in ("content", "style"):
@@ -2233,6 +2357,11 @@ def _sanet_serve(dev, rng):
             for o in outs[mode]:
                 if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
                     raise AssertionError(f"sanet {mode} output {o.shape}")
+            # q8 serves bfloat16 around the int8 layers: its B6a launches
+            # are the tensor-core kernel's, the standard f32 path's are not
+            got["B6a_bf16"] = _bf16_fwd_counts()[0]
+            if got["B6a_bf16"] != got["B6a"] * (mode == "q8"):
+                raise AssertionError(f"sanet {mode} main path: {got}")
             for k in total:
                 total[k] += got[k]
             log("26 sanet serve", f"{mode}: 8 requests via DynamicBatcher(b4): "
@@ -2272,7 +2401,9 @@ def _sanet_train(dev):
     """Phase 27: train_torch.py on the repository's static-SANet yaml (512px,
     batch 4, f32): 3 steps as a subprocess, then 2 resumed steps through the
     same entry point in this process, counts reset before and read after.
-    Returns the resumed run's B6 forward-with-LSE / dQ / dK/dV launches."""
+    Then 2 steps in bfloat16 the same way. Returns the resumed run's B6
+    forward-with-LSE / dQ / dK/dV launches and the bfloat16 run's forward-
+    with-LSE launches."""
     import importlib.util
     import numpy as np
 
@@ -2311,10 +2442,10 @@ def _sanet_train(dev):
 
         spec = importlib.util.spec_from_file_location(
             "train_torch", REPO / "train_torch.py")
-        driver = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(driver)
+        train_cli = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(train_cli)
         _reset_counts()  # the main path's count starts here
-        driver.main([*args, "resume=true", "max_iter=3"])
+        train_cli.main([*args, "resume=true", "max_iter=3"])
         launches = _counts(("B6b", "B6c", "B6d"))
         if launches != tuple(2 * n for n in B6_PER_STEP) \
                 or _counts(("B6a",)) != (0,):
@@ -2328,10 +2459,28 @@ def _sanet_train(dev):
         if steps != [1, 2, 3, 4, 5] or not np.isfinite(losses).all() \
                 or any(ln["skipped"] for ln in lines):
             raise AssertionError(f"sanet metrics.jsonl: {lines}")
+        # the same entry point in bfloat16 (compute_dtype), 2 steps: the
+        # forward with LSE is then the tensor-core kernel
+        _reset_counts()
+        train_cli.main([*args[:-1], f"output={tmp / 'run_bf16'}",
+                     "compute_dtype=bfloat16", "max_iter=3"])
+        bf16 = _counts(("B6b", "B6c", "B6d"))
+        bf16_fwd = _bf16_fwd_counts()[1]
+        if bf16 != tuple(2 * n for n in B6_PER_STEP) or bf16_fwd != bf16[0]:
+            raise AssertionError(f"bf16 sanet run launches {bf16}, bf16 "
+                                 f"forward {bf16_fwd}, expected 2 steps x "
+                                 f"{B6_PER_STEP}")
+        bf16_lines = [json.loads(ln) for ln in (
+            tmp / "run_bf16" / "logs" / "metrics.jsonl").read_text()
+            .splitlines()]
+        if len(bf16_lines) != 2 or not np.isfinite(
+                [ln["total_loss"] for ln in bf16_lines]).all():
+            raise AssertionError(f"bf16 sanet metrics.jsonl: {bf16_lines}")
     log("27 sanet train", f"resumed at step 3 for steps 4-5; total_loss "
         f"{[round(v, 4) for v in losses]}; B6 fwd+lse/dq/dkv launches "
-        f"{launches} (2 steps x {B6_PER_STEP})")
-    return launches
+        f"{launches} (2 steps x {B6_PER_STEP}); bfloat16, 2 steps: {bf16}, "
+        f"total_loss {[round(ln['total_loss'], 4) for ln in bf16_lines]}")
+    return launches + (bf16_fwd,)
 
 
 def _sanet_timing(dev, rng, name_power):
@@ -2359,8 +2508,11 @@ def _sanet_timing(dev, rng, name_power):
                 scales = bundle.calibrate_q8(c, s)
                 paths.append(("q8 B5", lambda: bundle.stylize_q8(c, s,
                                                                  scales)))
-            for path, fn in paths:
-                for label, attention in attentions:
+            # bf16, q8, q8, bf16 on B6: the policy's A/B in both orders
+            again = [paths[1], paths[0]] if dt == "bfloat16" else []
+            for i, (path, fn) in enumerate(paths + again):
+                for label, attention in (attentions if i < len(paths)
+                                         else attentions[:1]):
                     bundle.model.attention = attention
                     ms = cuda_ms(fn, iters=7, warmup=2)
                     log("28 sanet timing", f"stylize {IMG}px b{batch} "

@@ -1,5 +1,5 @@
 // B5 on Hopper: the standard-layout 3x3 conv of the wide-channel paths, int8
-// (quantized serving, int8 VGG loss targets) and bf16.
+// (quantized serving, int8 VGG loss targets) and bf16, on the tensor cores.
 //
 // Replaces the TPU kernels `fused_conv2d_q8` (wrapper :220) and
 // `fused_conv2d_bf16` (:154) of src/rpst/ops/pallas/conv2d_q8.py, which
@@ -10,45 +10,88 @@
 //   bf16:  out = bf16(act(conv3x3(pad(x)) in float + bias))
 //   act(y) = y >= 0 ? y : alpha * y   (alpha 0 = relu, 1 = none, 0.2 = lrelu)
 //
-// with x (N, H, W, C), w (3, 3, C, Co) HWIO, and for int8 scales (3, Co)
-// float rows [deq = x_scale * w_scale, bias, inv = 1 / out_scale]. `pad` is
-// one pixel of reflection (row -1 = row 1, row H = row H-2, the same for
-// columns) or of zeros, which is exact on int8 because the quantizer is
-// symmetric. The halo is read by index while a tile is staged: there are no
-// row slabs and no `rings` operand as in the TPU kernel. The int8 epilogue
-// rounds as rpst's does (q8_common.cuh: two roundings, no FMA, half to
-// even), so int8 and bf16 outputs are bit-equal to the plain version.
+// with x (N, H, W, C) and, for int8, scales (3, Co) float rows [deq = x_scale
+// * w_scale, bias, inv = 1 / out_scale]. `pad` is one pixel of reflection
+// (row -1 = row 1, row H = row H-2, the same for columns) or of zeros, which
+// is exact on int8 because the quantizer is symmetric. The halo is read by
+// index while a tile is staged: there are no row slabs and no `rings` operand
+// as in the TPU kernel. The int8 epilogue rounds as rpst's does
+// (q8_common.cuh: two roundings, no FMA, half to even) and the int32 sum is
+// exact in any order, so int8 and bf16 outputs are bit-equal to the plain
+// version.
+//
+// Weights arrive repacked once per layer (ops/conv2d_q8.py
+// `pack_conv2d_weights`), K-major in 32-byte steps: (3, 3, ceil(C / KE), Co,
+// KE) with KE = 32 int8 or 16 bf16 input channels, zeros past C. The public
+// functions keep taking HWIO.
 //
 // What bounds it on the card. The widest layer of a 512px adain stylize,
-// (2, 512, 512, 256 -> 512), is 6.2e11 multiply-adds; __dp4a does 4 a lane,
-// 64 lanes per SM and clock, so about 11 ms at 1.7 GHz on 132 SMs, against
-// 0.6 ms on the int8 tensor cores and 0.12 ms for its 400 MB of device
-// memory traffic. So it is bound by operations: by the integer pipe and by
-// feeding it from shared memory.
+// (2, 512, 512, 256 -> 512), is 1.2e12 operations against 400 MB of tensors:
+// 0.6 ms on the int8 tensor cores, 0.12 ms of memory traffic. Bound by
+// operations; the integer pipe (__dp4a) cannot go below ~11 ms there.
 //
-// What this simple design does about it. B4's tiling (folded_conv_q8.cu)
-// on the unfolded layout: one block owns a TH x TW tile of pixels and TCO =
-// 128 output channels, walks the input channels in chunks of KW words,
-// stages the input tile with its halo as packed words and the chunk's 9
-// taps of weights repacked to input-channel words, and each thread
-// accumulates PX pixels x TN channels in int32 registers. The bf16 mode has
-// the same tiling on CUDA-core FMAs with float staging (no path of the port
-// calls it; it is held against its plain version). No tensor cores yet
-// (int8 mma/wgmma), no TMA: that is later work held to this kernel.
+// What the design does about it. An implicit GEMM on `mma.sync` (m16n8k32 s8
+// -> s32; m16n8k16 bf16 -> f32 for the bf16 mode): M = the tile's pixels, N =
+// output channels, K = 9 taps x C. `mma.sync` and not `wgmma`: wgmma reads A
+// through a shared-memory matrix descriptor, which cannot express "the same
+// halo tile shifted by one pixel row / column" for a ragged 18-wide halo
+// without staging the tile once per tap; with mma.sync a tap is an address
+// offset into one staged tile.
+//   * A block of 256 threads (8 warps, 4 along pixels x 2 along channels)
+//     owns 8 rows x 16 columns of pixels and TCO output channels. An mma row
+//     block is 16 consecutive pixels of one tile row. Two tilings are built,
+//     TCO = 128 and 64, and a launch takes 128 only when that still gives
+//     every SM 16 blocks (`pick_tile`): measured on the H100 at the paths' 14
+//     shapes, 128 channels win by 10% on the 512 x 512 layers (4096 blocks
+//     and more) and lose by up to 40% on the deep small ones ((2, 32, 32, 512
+//     -> 512) is 64 blocks of 128 x 128 for 132 SMs); between 256 and 1024
+//     blocks the two read within 7%. A third tiling of 4 rows x 64 channels
+//     won at no shape and was dropped.
+//   * K is walked in steps of 32 bytes per pixel. The halo tile ((TH + 2) x
+//     18 pixels x 32 bytes) is staged once per step and serves all 9 taps;
+//     the step's weights are 9 x TCO rows of 32 bytes. Both arrive by
+//     `cp.async` (16 bytes, zero-filled for padding, ragged edges, channels
+//     past C or Co) into a ring of 2 (TCO = 128) or 3 (TCO = 64) stages, so
+//     the next step's loads run under this step's mma, with one
+//     __syncthreads a step.
+//     C that is no multiple of 16 bytes (C = 36) takes plain 4-byte loads for
+//     the input instead, since cp.async needs aligned sources.
+//   * Fragments without bank conflicts and without ldmatrix: the order of K
+//     inside a step is free as long as A and B agree, so lane t of a quad
+//     takes bytes [8t, 8t + 8) of a row for both k-halves of its fragment
+//     (one 8-byte shared load); the 4 rows a half-warp reads are 128
+//     contiguous bytes.
+//   * Epilogue: an accumulator fragment holds 2 adjacent channels of rows g
+//     and g + 8; neighbouring lanes swap halves so each ends with 4
+//     consecutive channels of one pixel, stored as one packed word (int8) or
+//     two (bf16).
+
+#include <type_traits>
 
 #include "q8_common.cuh"
 
 namespace {
 
-constexpr int TH = 8;        // output rows per block
-constexpr int TW = 16;       // output cols per block
-constexpr int PX = 4;        // consecutive output pixels per thread (along W)
-constexpr int CG = 8;        // channel groups per block
-constexpr int TN = 16;       // output channels per thread
-constexpr int TCO = CG * TN;                    // 128 channels per block
-constexpr int THREADS = CG * (TH * TW / PX);    // 256
-constexpr int KW = 8;        // int8: input words (32 channels) per chunk
-constexpr int KC = 8;        // bf16: input channels per chunk
+constexpr int TH = 8;         // tile rows
+constexpr int TW = 16;        // tile columns: one mma row block
+constexpr int HALO_W = TW + 2;
+constexpr int KB = 32;        // bytes of K per pixel and step
+constexpr int THREADS = 256;
+constexpr int WM = 4;         // warps along pixels
+constexpr int WN = 2;         // warps along output channels
+
+template <int TCO>
+struct Tile {
+  static constexpr int MT = TH / WM;        // mma row blocks per warp
+  static constexpr int NT = TCO / WN / 8;   // mma column blocks per warp
+  static constexpr int STAGES = TCO == 128 ? 2 : 3;
+  static constexpr int X_PIECES = (TH + 2) * HALO_W * 2;  // 16-byte pieces
+  static constexpr int XP = (X_PIECES + THREADS - 1) / THREADS;
+  static constexpr int W_PIECES = 9 * TCO * 2;
+  static constexpr int XS_BYTES = X_PIECES * 16;
+  static constexpr int STAGE_BYTES = XS_BYTES + W_PIECES * 16;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
+};
 
 // Source row/column of padded index i in [-1, n]: itself inside the image;
 // for reflect -1 -> 1 and n -> n - 2; -1 (no source: zero) otherwise.
@@ -61,112 +104,212 @@ __device__ __forceinline__ int pad_src(int i, int n) {
   return -1;
 }
 
-template <bool OUT_INT8, bool REFLECT>
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// c += a b on one 16 x 8 block. a0/a1: rows g / g + 8, the lane's first
+// k-half; a2/a3: the same rows, second k-half; b0/b1: column g, the two
+// k-halves.
+__device__ __forceinline__ void mma_step(int32_t (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_step(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// MODE 0: int8 in, int8 out; 1: int8 in, bf16 out; 2: bf16 in and out.
+// x (N, H, W, C) with rows of CB = C * sizeof(element) bytes; wp the packed
+// weights (9, ksteps, Co, 32 bytes); rows: MODE 0/1 the (3, Co) scales, MODE
+// 2 the (Co,) bias. grid (tiles, ceil(Co / TCO), N).
+template <int TCO, int MODE, bool REFLECT>
 __global__ void __launch_bounds__(THREADS, 2)
-    conv2d_q8_kernel(const int8_t* __restrict__ x,
-                     const int8_t* __restrict__ w,
-                     const float* __restrict__ scales, void* y, int H, int W,
-                     int C, int Co, int tiles_w, float alpha) {
-  __shared__ int32_t xs[KW][TH + 2][TW + 2];
-  __shared__ __align__(16) int32_t ws[9 * KW * TCO];
+    conv2d_mma_kernel(const unsigned char* __restrict__ x,
+                      const unsigned char* __restrict__ wp,
+                      const float* __restrict__ rows, void* y, int H, int W,
+                      int CB, int ksteps, int Co, int tiles_w, float alpha) {
+  using T = Tile<TCO>;
+  using Acc = typename std::conditional<MODE == 2, float, int32_t>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
   const int tile = blockIdx.x;
   const int r0 = (tile / tiles_w) * TH;
   const int c0 = (tile % tiles_w) * TW;
   const int co0 = blockIdx.y * TCO;
-  const int n = blockIdx.z;
-  const int CW = C / 4;
+  const size_t n = blockIdx.z;
+  const unsigned char* xn = x + n * H * W * CB;
+  const bool x16 = CB % 16 == 0;  // cp.async needs 16-byte aligned sources
 
-  const int tc = tid % CG;
-  const int tp = tid / CG;
-  const int ty = tp / (TW / PX);
-  const int tx = (tp % (TW / PX)) * PX;
-
-  const int8_t* xn = x + (size_t)n * H * W * C;
-
-  int32_t acc[PX][TN];
+  // the thread's pieces of the halo tile: byte offset of the source pixel
+  // (+ 16 for the second piece), -1 where the tile stages zeros
+  long long xoff[T::XP];
 #pragma unroll
-  for (int p = 0; p < PX; ++p)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[p][q] = 0;
-
-  for (int cw0 = 0; cw0 < CW; cw0 += KW) {
-    // ---- input tile + halo as words; zeros where the pad is zero, beyond
-    // the halo of a ragged tile, and past C
-    for (int idx = tid; idx < KW * (TH + 2) * (TW + 2); idx += THREADS) {
-      const int cw = idx % KW;
-      const int pix = idx / KW;
-      const int cc = pix % (TW + 2);
-      const int rr = pix / (TW + 2);
-      const int g = 4 * (cw0 + cw);
-      const int sr = pad_src<REFLECT>(r0 - 1 + rr, H);
-      const int sc = pad_src<REFLECT>(c0 - 1 + cc, W);
-      int32_t v = 0;
-      if (g < C && sr >= 0 && sc >= 0)
-        v = *reinterpret_cast<const int32_t*>(
-            xn + ((size_t)sr * W + sc) * C + g);
-      xs[cw][rr][cc] = v;
-    }
-    q8::stage_weights(w, ws, TCO, C, Co, cw0, KW, co0, TCO / 4, tid, THREADS);
-    __syncthreads();
-
-#pragma unroll
-    for (int dr = 0; dr < 3; ++dr) {
-#pragma unroll 2
-      for (int cw = 0; cw < KW; ++cw) {
-        int32_t a[PX + 2];
-#pragma unroll
-        for (int m = 0; m < PX + 2; ++m) a[m] = xs[cw][ty + dr][tx + m];
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc) {
-          const int4* wp = reinterpret_cast<const int4*>(
-              ws + ((dr * 3 + dc) * KW + cw) * TCO);
-          int32_t wq[TN];
-#pragma unroll
-          for (int j = 0; j < TN / 4; ++j) {
-            const int4 v = wp[j * CG + tc];
-            wq[4 * j] = v.x; wq[4 * j + 1] = v.y;
-            wq[4 * j + 2] = v.z; wq[4 * j + 3] = v.w;
-          }
-#pragma unroll
-          for (int p = 0; p < PX; ++p)
-#pragma unroll
-            for (int q = 0; q < TN; ++q)
-              acc[p][q] = __dp4a(a[p + dc], wq[q], acc[p][q]);
-        }
-      }
-    }
-    __syncthreads();
+  for (int p = 0; p < T::XP; ++p) {
+    const int idx = tid + p * THREADS;
+    const int pix = idx >> 1;
+    const int sr = pad_src<REFLECT>(r0 - 1 + pix / HALO_W, H);
+    const int sc = pad_src<REFLECT>(c0 - 1 + pix % HALO_W, W);
+    xoff[p] = (idx < T::X_PIECES && sr >= 0 && sc >= 0)
+                  ? ((long long)sr * W + sc) * CB + (idx & 1) * 16
+                  : -1;
   }
 
-  // ---- epilogue: the thread's channels j * (CG * 4) + tc * 4 + e, in
-  // groups of 4 consecutive (one packed store per pixel and group)
-  const int r = r0 + ty;
+  auto load_stage = [&](int ks, int stage) {
+    unsigned char* xs = smem + stage * T::STAGE_BYTES;
+    unsigned char* ws = xs + T::XS_BYTES;
+    const int kb = ks * KB;
 #pragma unroll
-  for (int j = 0; j < TN / 4; ++j) {
-    const int go = co0 + j * (CG * 4) + tc * 4;
+    for (int p = 0; p < T::XP; ++p) {
+      const int idx = tid + p * THREADS;
+      if (idx >= T::X_PIECES) continue;
+      const int b0 = kb + (idx & 1) * 16;  // first byte of the piece in a row
+      if (x16) {
+        const bool ok = xoff[p] >= 0 && b0 < CB;
+        cp_async16(xs + idx * 16, ok ? xn + xoff[p] + kb : xn, ok ? 16 : 0);
+      } else {  // CB % 4 == 0: word by word, zeros past the row's end
+        int32_t v[4] = {0, 0, 0, 0};
+        if (xoff[p] >= 0) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (b0 + 4 * j < CB)
+              v[j] = *reinterpret_cast<const int32_t*>(xn + xoff[p] + kb +
+                                                       4 * j);
+        }
+        *reinterpret_cast<int4*>(xs + idx * 16) =
+            make_int4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    for (int idx = tid; idx < T::W_PIECES; idx += THREADS) {
+      const int co = (idx >> 1) % TCO;
+      const int tap = (idx >> 1) / TCO;
+      const bool ok = co0 + co < Co;
+      const unsigned char* src =
+          wp + (((size_t)tap * ksteps + ks) * Co + co0 + co) * KB +
+          (idx & 1) * 16;
+      cp_async16(ws + idx * 16, ok ? src : wp, ok ? 16 : 0);
+    }
+  };
+
+  Acc acc[T::MT][T::NT][4];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < ksteps) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int ks = 0; ks < ksteps; ++ks) {
+    // step ks has landed; every warp is past step ks - 1, whose stage the
+    // next load overwrites
+    cp_async_wait<T::STAGES - 2>();
+    __syncthreads();
+    if (ks + T::STAGES - 1 < ksteps)
+      load_stage(ks + T::STAGES - 1, (ks + T::STAGES - 1) % T::STAGES);
+    cp_async_commit();
+
+    const unsigned char* xs = smem + (ks % T::STAGES) * T::STAGE_BYTES;
+    const unsigned char* ws = xs + T::XS_BYTES;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dr = tap / 3, dc = tap % 3;
+      uint2 lo[T::MT], hi[T::MT];  // pixels g and g + 8 of the row block
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) {
+        const int pix = (wm * T::MT + i + dr) * HALO_W + dc + g;
+        lo[i] = *reinterpret_cast<const uint2*>(xs + pix * KB + 8 * t);
+        hi[i] = *reinterpret_cast<const uint2*>(xs + (pix + 8) * KB + 8 * t);
+      }
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int co = wn * (T::NT * 8) + j * 8 + g;
+        const uint2 b = *reinterpret_cast<const uint2*>(
+            ws + (tap * TCO + co) * KB + 8 * t);
+#pragma unroll
+        for (int i = 0; i < T::MT; ++i)
+          mma_step(acc[i][j], lo[i].x, hi[i].x, lo[i].y, hi[i].y, b.x, b.y);
+      }
+    }
+  }
+
+  // ---- epilogue. A fragment has channels 2t, 2t + 1 of pixels g (c[0],
+  // c[1]) and g + 8 (c[2], c[3]); lanes t and t ^ 1 swap so the even lane
+  // holds 4 consecutive channels of pixel g and the odd lane of pixel g + 8.
+  const bool odd = t & 1;
+  const int c = c0 + g + (odd ? 8 : 0);
+#pragma unroll
+  for (int j = 0; j < T::NT; ++j) {
+    const int go = co0 + wn * (T::NT * 8) + j * 8 + 2 * (t & ~1);
     const bool okc = go < Co;  // Co % 4 == 0: all 4 channels or none
     float deq[4], bias[4], inv[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      deq[e] = okc ? __ldg(scales + go + e) : 0.f;
-      bias[e] = okc ? __ldg(scales + Co + go + e) : 0.f;
-      inv[e] = (okc && OUT_INT8) ? __ldg(scales + 2 * Co + go + e) : 0.f;
+      if constexpr (MODE == 2) {
+        bias[e] = okc ? __ldg(rows + go + e) : 0.f;
+        deq[e] = inv[e] = 0.f;
+      } else {
+        deq[e] = okc ? __ldg(rows + go + e) : 0.f;
+        bias[e] = okc ? __ldg(rows + Co + go + e) : 0.f;
+        inv[e] = (okc && MODE == 0) ? __ldg(rows + 2 * Co + go + e) : 0.f;
+      }
     }
 #pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int c = c0 + tx + p;
+    for (int i = 0; i < T::MT; ++i) {
+      const Acc* a = acc[i][j];
+      const Acc g0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+      const Acc g1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+      const Acc q[4] = {odd ? g0 : a[0], odd ? g1 : a[1], odd ? a[2] : g0,
+                        odd ? a[3] : g1};
       float v[4];
       uint32_t b[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        v[e] = q8::epilogue_alpha(acc[p][4 * j + e], deq[e], bias[e], alpha);
-        if constexpr (OUT_INT8) b[e] = q8::requant(v[e], inv[e]);
+        if constexpr (MODE == 2) {
+          const float s = q[e] + bias[e];
+          v[e] = s >= 0.f ? s : alpha * s;
+        } else {
+          v[e] = q8::epilogue_alpha(q[e], deq[e], bias[e], alpha);
+          if constexpr (MODE == 0) b[e] = q8::requant(v[e], inv[e]);
+        }
       }
+      const int r = r0 + wm * T::MT + i;
       if (r < H && c < W && okc) {
-        const size_t off = (((size_t)n * H + r) * W + c) * Co + go;
-        if constexpr (OUT_INT8)
+        const size_t off = ((n * H + r) * W + c) * Co + go;
+        if constexpr (MODE == 0)
           *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(y) + off) =
               q8::pack4(b);
         else
@@ -176,181 +319,94 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// bf16 in, float accumulate, bf16 out: the same tiling, operands staged as
-// floats, KC input channels per chunk.
-template <bool REFLECT>
-__global__ void __launch_bounds__(THREADS, 2)
-    conv2d_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ w,
-                       const float* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ y, int H, int W, int C,
-                       int Co, int tiles_w, float alpha) {
-  __shared__ float xs[KC][TH + 2][TW + 2];
-  __shared__ __align__(16) float ws[9 * KC * TCO];
-
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int r0 = (tile / tiles_w) * TH;
-  const int c0 = (tile % tiles_w) * TW;
-  const int co0 = blockIdx.y * TCO;
-  const int n = blockIdx.z;
-
-  const int tc = tid % CG;
-  const int tp = tid / CG;
-  const int ty = tp / (TW / PX);
-  const int tx = (tp % (TW / PX)) * PX;
-
-  const __nv_bfloat16* xn = x + (size_t)n * H * W * C;
-
-  float acc[PX][TN];
-#pragma unroll
-  for (int p = 0; p < PX; ++p)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[p][q] = 0.f;
-
-  for (int k0 = 0; k0 < C; k0 += KC) {  // C % KC == 0
-    // ---- input tile + halo: one 16-byte read (8 channels) per pixel
-    for (int pix = tid; pix < (TH + 2) * (TW + 2); pix += THREADS) {
-      const int cc = pix % (TW + 2);
-      const int rr = pix / (TW + 2);
-      const int sr = pad_src<REFLECT>(r0 - 1 + rr, H);
-      const int sc = pad_src<REFLECT>(c0 - 1 + cc, W);
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (sr >= 0 && sc >= 0)
-        u = *reinterpret_cast<const uint4*>(xn + ((size_t)sr * W + sc) * C +
-                                            k0);
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-      for (int k = 0; k < KC; ++k) xs[k][rr][cc] = __bfloat162float(h[k]);
-    }
-    // ---- the chunk's 9 taps of weights: ws[(tap * KC + k) * TCO + co]
-    for (int u8 = tid; u8 < 9 * KC * (TCO / 8); u8 += THREADS) {
-      const int co8 = u8 % (TCO / 8);
-      const int k = (u8 / (TCO / 8)) % KC;
-      const int tap = u8 / ((TCO / 8) * KC);
-      const int go = co0 + 8 * co8;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (go < Co)  // Co % 8 == 0: all 8 channels or none
-        u = *reinterpret_cast<const uint4*>(
-            w + ((size_t)tap * C + k0 + k) * Co + go);
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-      float* dst = ws + (tap * KC + k) * TCO + 8 * co8;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(h[e]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int dr = 0; dr < 3; ++dr) {
-#pragma unroll 2
-      for (int k = 0; k < KC; ++k) {
-        float a[PX + 2];
-#pragma unroll
-        for (int m = 0; m < PX + 2; ++m) a[m] = xs[k][ty + dr][tx + m];
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc) {
-          const float4* wp = reinterpret_cast<const float4*>(
-              ws + ((dr * 3 + dc) * KC + k) * TCO);
-          float wq[TN];
-#pragma unroll
-          for (int j = 0; j < TN / 4; ++j) {
-            const float4 v = wp[j * CG + tc];
-            wq[4 * j] = v.x; wq[4 * j + 1] = v.y;
-            wq[4 * j + 2] = v.z; wq[4 * j + 3] = v.w;
-          }
-#pragma unroll
-          for (int p = 0; p < PX; ++p)
-#pragma unroll
-            for (int q = 0; q < TN; ++q)
-              acc[p][q] = fmaf(a[p + dc], wq[q], acc[p][q]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int r = r0 + ty;
-#pragma unroll
-  for (int j = 0; j < TN / 4; ++j) {
-    const int go = co0 + j * (CG * 4) + tc * 4;
-    const bool okc = go < Co;
-    float b[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) b[e] = okc ? __ldg(bias + go + e) : 0.f;
-#pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int c = c0 + tx + p;
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float t = acc[p][4 * j + e] + b[e];
-        v[e] = t >= 0.f ? t : alpha * t;
-      }
-      if (r < H && c < W && okc)
-        q8::store_bf16x4(y + (((size_t)n * H + r) * W + c) * Co + go, v);
-    }
-  }
+template <int TCO, int MODE, bool REFLECT>
+int launch_tile(const void* x, const void* wp, const float* rows, void* y,
+                int N, int H, int W, int C, int Co, float alpha,
+                cudaStream_t s) {
+  using T = Tile<TCO>;
+  constexpr int ESIZE = MODE == 2 ? 2 : 1;
+  auto kernel = conv2d_mma_kernel<TCO, MODE, REFLECT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_w = (W + TW - 1) / TW;
+  const dim3 grid(tiles_w * ((H + TH - 1) / TH), (Co + TCO - 1) / TCO, N);
+  const int CB = C * ESIZE;
+  kernel<<<grid, THREADS, T::SMEM_BYTES, s>>>(
+      static_cast<const unsigned char*>(x),
+      static_cast<const unsigned char*>(wp), rows, y, H, W, CB,
+      (CB + KB - 1) / KB, Co, tiles_w, alpha);
+  return static_cast<int>(cudaGetLastError());
 }
 
-dim3 grid_of(int N, int H, int W, int Co, int* tiles_w) {
-  *tiles_w = (W + TW - 1) / TW;
-  return dim3(*tiles_w * ((H + TH - 1) / TH), (Co + TCO - 1) / TCO, N);
+// 1: TCO = 128, 2: TCO = 64 (see the header: 128 channels pay only on grids
+// that fill the card many times over).
+int pick_tile(int N, int H, int W, int Co) {
+  int dev = 0, sms = 0;  // of the current device, asked at every launch
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  const long long blocks = (long long)((W + TW - 1) / TW) *
+                           ((H + TH - 1) / TH) * ((Co + 127) / 128) * N;
+  return blocks >= 16LL * sms ? 1 : 2;
 }
 
-template <bool OUT_INT8, bool REFLECT>
-void launch_q8(const int8_t* x, const int8_t* w, const float* scales, void* y,
-               int N, int H, int W, int C, int Co, float alpha,
-               cudaStream_t s) {
-  int tiles_w;
-  const dim3 grid = grid_of(N, H, W, Co, &tiles_w);
-  conv2d_q8_kernel<OUT_INT8, REFLECT><<<grid, THREADS, 0, s>>>(
-      x, w, scales, y, H, W, C, Co, tiles_w, alpha);
+template <int MODE, bool REFLECT>
+int launch_mode(const void* x, const void* wp, const float* rows, void* y,
+                int N, int H, int W, int C, int Co, float alpha,
+                cudaStream_t s) {
+  if (pick_tile(N, H, W, Co) == 1)
+    return launch_tile<128, MODE, REFLECT>(x, wp, rows, y, N, H, W, C, Co,
+                                              alpha, s);
+  return launch_tile<64, MODE, REFLECT>(x, wp, rows, y, N, H, W, C, Co,
+                                           alpha, s);
+}
+
+bool shape_ok(int N, int H, int W, int C, int Co, int unit) {
+  return N >= 1 && N <= 65535 && H >= 2 && W >= 2 && C >= unit &&
+         Co >= unit && C % unit == 0 && Co % unit == 0 &&
+         (Co + 63) / 64 <= 65535;
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Pointers are device pointers of contiguous,
-// 16-byte aligned tensors. Each returns the cudaError_t of its launch.
+// 16-byte aligned tensors. Each returns the cudaError_t of its launch
+// (cudaErrorInvalidValue for a shape it refuses).
 //
-// int8: x (N, H, W, C) and w (3, 3, C, Co) int8, scales (3, Co) float, y
-// int8 (out_int8) or bf16. Needs C % 4 == 0, Co % 4 == 0, H, W >= 2.
-extern "C" int rpst_conv2d_q8(const void* x, const void* w,
+// int8: x (N, H, W, C) int8; wp the packed weights (3, 3, ceil(C / 32), Co,
+// 32) int8; scales (3, Co) float; y int8 (out_int8) or bf16. Needs C % 4 ==
+// 0, Co % 4 == 0, H, W >= 2.
+extern "C" int rpst_conv2d_q8(const void* x, const void* wp,
                               const void* scales, void* y, int N, int H,
                               int W, int C, int Co, int out_int8, int reflect,
                               float alpha, void* stream) {
+  if (!shape_ok(N, H, W, C, Co, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
   const float* sp = static_cast<const float*>(scales);
   if (out_int8 && reflect)
-    launch_q8<true, true>(xp, wp, sp, y, N, H, W, C, Co, alpha, s);
-  else if (out_int8)
-    launch_q8<true, false>(xp, wp, sp, y, N, H, W, C, Co, alpha, s);
-  else if (reflect)
-    launch_q8<false, true>(xp, wp, sp, y, N, H, W, C, Co, alpha, s);
-  else
-    launch_q8<false, false>(xp, wp, sp, y, N, H, W, C, Co, alpha, s);
-  return static_cast<int>(cudaGetLastError());
+    return launch_mode<0, true>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
+  if (out_int8)
+    return launch_mode<0, false>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
+  if (reflect)
+    return launch_mode<1, true>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
+  return launch_mode<1, false>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
 }
 
-// bf16: x (N, H, W, C), w (3, 3, C, Co) and y (N, H, W, Co) bf16, bias (Co,)
-// float. Needs C % 8 == 0, Co % 8 == 0, H, W >= 2.
-extern "C" int rpst_conv2d_bf16(const void* x, const void* w,
+// bf16: x (N, H, W, C) and y (N, H, W, Co) bf16; wp the packed weights (3,
+// 3, ceil(C / 16), Co, 16) bf16; bias (Co,) float. Needs C % 8 == 0, Co % 8
+// == 0, H, W >= 2.
+extern "C" int rpst_conv2d_bf16(const void* x, const void* wp,
                                 const void* bias, void* y, int N, int H,
                                 int W, int C, int Co, int reflect,
                                 float alpha, void* stream) {
+  if (!shape_ok(N, H, W, C, Co, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
   const float* bp = static_cast<const float*>(bias);
-  __nv_bfloat16* yp = static_cast<__nv_bfloat16*>(y);
-  int tiles_w;
-  const dim3 grid = grid_of(N, H, W, Co, &tiles_w);
   if (reflect)
-    conv2d_bf16_kernel<true><<<grid, THREADS, 0, s>>>(xp, wp, bp, yp, H, W, C,
-                                                      Co, tiles_w, alpha);
-  else
-    conv2d_bf16_kernel<false><<<grid, THREADS, 0, s>>>(xp, wp, bp, yp, H, W,
-                                                       C, Co, tiles_w, alpha);
-  return static_cast<int>(cudaGetLastError());
+    return launch_mode<2, true>(x, wp, bp, y, N, H, W, C, Co, alpha, s);
+  return launch_mode<2, false>(x, wp, bp, y, N, H, W, C, Co, alpha, s);
 }

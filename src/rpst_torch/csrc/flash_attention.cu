@@ -23,13 +23,42 @@
 //
 // What bounds it on the card. The relu4_1 module of a 512px stylize, Nq = Nk
 // = 4096 at C = 512, is 3.4e10 operations forward, against 25 MB of tensors:
-// bound by operations by three orders of magnitude. This kernel runs them as
-// float FMAs on the CUDA cores (the float32 entry point must keep float32
-// products: TF32 would lose the 1e-4 agreement, and the logits are unscaled),
-// whose peak is 67 TFLOP/s, a seventh of the TF32 tensor-core rate the bound
-// is stated against.
+// bound by operations by three orders of magnitude. The float32 entry points
+// run them as float FMAs on the CUDA cores (they must keep float32 products:
+// TF32 would lose the 1e-4 agreement, and the logits are unscaled), whose
+// peak is 67 TFLOP/s, a seventh of the TF32 tensor-core rate the bound is
+// stated against. The bfloat16 forward runs both products on the bf16 tensor
+// cores; there the limit is feeding `mma` from shared memory.
 //
-// What this simple design does about it.
+// The bfloat16 forward (B6a, B6b: `flash_fwd_mma_kernel`).
+//   * bf16 x bf16 products are exact in float and summed in float
+//     (`mma.sync.m16n8k16`, bf16 -> f32), so it computes what the float-FMA
+//     kernel computed; P is rounded to bf16 before the second product, where
+//     rpst rounds it, and the row sum is taken from the unrounded p.
+//     `mma.sync` and not `wgmma`: wgmma's 64-row tile would leave 64 blocks
+//     for the 132 SMs at Nq = 4096, batch 1.
+//   * One block of 256 threads owns QM = 32 query rows, resident in shared
+//     memory, and sweeps the keys in tiles of KN = 64. The 8 warps are 2 row
+//     groups of 16 rows x 4: in the score product warp w takes the tile's
+//     keys 16w .. 16w + 15 over all of C; in the second product it takes the
+//     channels [wC/4, (w + 1)C/4) over all 64 keys, so the (32, C) float
+//     accumulator is 64 registers a thread at C = 512.
+//   * The running max and sum of a row are combined across its 4 warps
+//     through 1 KB of shared memory in a fixed order (bit-stable runs). P
+//     goes once through a 5 KB bf16 tile, written in the order the `mma` A
+//     fragment reads it (one 8-byte store and load per lane).
+//   * K and V tiles (64 x C bf16, 64 KB at C = 512) arrive by `cp.async` in a
+//     ring of two buffers over the sequence K0, V0, K1, V1, ...: V_j loads
+//     under the score product of tile j, K_j+1 under its second product.
+//     Rows are padded so fragment loads hit every bank once: Q and K rows by
+//     32 bytes (lane t of a quad reads bytes [8t, 8t + 8) of a 32-byte k-step
+//     for both k-halves, the order of K inside a step being free), V rows by
+//     16 (read through `ldmatrix.trans`, which makes the transposed operand
+//     of P V free).
+//   * Ragged shapes: rows past Nq or Nk are staged as zeros (cp.async
+//     zero-fill), keys past Nk scored -inf, rows past Nq never stored.
+//
+// The float32 forward and the two backward kernels (both types).
 //   * One block of 256 threads owns BM = 32 rows (of Q; of K in the dK/dV
 //     kernel) and sweeps the other operand in tiles of BN = 128 rows; the
 //     sequential grid axis of the TPU kernel is the loop inside the block.
@@ -51,13 +80,16 @@
 //     their P is 0) and never stored. C must be a multiple of 128, at most
 //     512 (SANet's width).
 // Occupancy at batch 1: Nq = 4096 gives 128 blocks for 132 SMs, Nq = 1024
-// gives 32; K is not split across blocks (that needs a second pass). No
-// tensor cores (mma / wgmma for the bfloat16 entry points), no TMA, no
-// double buffering yet: that is later work held to this kernel.
+// gives 32; K is not split across blocks (that needs a second pass). The
+// backward kernels' bfloat16 entry points still run float FMAs on converted
+// values: tensor cores for them are later work held to this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -263,7 +295,8 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0,
   }
 }
 
-// B6a (WITH_LSE false) and B6b (true). grid (ceil(Nq / BM), N).
+// B6a (WITH_LSE false) and B6b (true) on the CUDA cores: the float32 entry
+// points. grid (ceil(Nq / BM), N).
 template <typename T, bool WITH_LSE, int MINB>
 __global__ void __launch_bounds__(THREADS, MINB)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -331,6 +364,262 @@ __global__ void __launch_bounds__(THREADS, MINB)
       const int r = q0 + RW * w + i;
       if (r < Nq) lse[n * Nq + r] = m[i] + logf(l[i]);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bfloat16 forward on the tensor cores.
+
+namespace tc {
+
+constexpr int QM = 32;           // query rows a block owns
+constexpr int KN = 64;           // keys per tile
+constexpr int PS = KN * 2 + 32;  // bytes of a P row (padded)
+constexpr int RED_FLOATS = 2 * (QM / 16) * 4 * 16;  // max and sum partials
+
+// bytes of a Q or K row (padded by 32) and of a V row (padded by 16)
+__host__ __device__ constexpr int qk_stride(int C) { return 2 * C + 32; }
+__host__ __device__ constexpr int v_stride(int C) { return 2 * C + 16; }
+__host__ __device__ constexpr int smem_bytes(int C) {
+  return (QM + 2 * KN) * qk_stride(C) + QM * PS + RED_FLOATS * 4;
+}
+
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros and
+// reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// c += a b on one 16 x 8 block, bf16 operands, float sum. a0/a1: rows g and
+// g + 8, k = 2t, 2t + 1; a2/a3: the same rows, k = 2t + 8, 2t + 9; b0/b1:
+// column g, the same two k pairs.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lane l names row l % 8 of matrix
+// l / 8; register i holds, of matrix i, elements [2t][g] and [2t + 1][g].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Rows [r0, r0 + rows) of a (n_rows, CB bytes) matrix -> dst rows of
+// `stride` bytes; rows past n_rows become zeros. A warp takes whole rows.
+__device__ __forceinline__ void stage_rows(unsigned char* dst, int stride,
+                                           const unsigned char* src, int r0,
+                                           int rows, int n_rows, int CB,
+                                           int warp, int lane) {
+  for (int row = warp; row < rows; row += THREADS / 32) {
+    const bool ok = r0 + row < n_rows;
+    const unsigned char* s = src + (size_t)(r0 + row) * CB;
+    for (int pc = lane; pc < CB / 16; pc += 32)
+      cp_async16(dst + row * stride + pc * 16, ok ? s + pc * 16 : src,
+                 ok ? 16 : 0);
+  }
+}
+
+}  // namespace tc
+
+// B6a (WITH_LSE false) and B6b (true), bfloat16. grid (ceil(Nq / 32), N).
+template <bool WITH_LSE>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int Nq, int Nk, int C) {
+  using namespace tc;
+  extern __shared__ __align__(128) unsigned char sm[];
+  const int CB = 2 * C, QS = qk_stride(C), VS = v_stride(C);
+  unsigned char* qs = sm;
+  unsigned char* kbuf = qs + QM * QS;   // ring buffer 0: the K tiles
+  unsigned char* vbuf = kbuf + KN * QS;  // ring buffer 1: the V tiles
+  unsigned char* ps = vbuf + KN * QS;
+  float* red_max = reinterpret_cast<float*>(ps + QM * PS);
+  float* red_sum = red_max + RED_FLOATS / 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp >> 2, wq = warp & 3;  // row group, warp of the group
+  const int q0 = blockIdx.x * QM;
+  const size_t n = blockIdx.y;
+  const unsigned char* qg =
+      reinterpret_cast<const unsigned char*>(q + n * Nq * C);
+  const unsigned char* kg =
+      reinterpret_cast<const unsigned char*>(k + n * Nk * C);
+  const unsigned char* vg =
+      reinterpret_cast<const unsigned char*>(v + n * Nk * C);
+  o += n * Nq * C;
+
+  stage_rows(qs, QS, qg, q0, QM, Nq, CB, warp, lane);
+  stage_rows(kbuf, QS, kg, 0, KN, Nk, CB, warp, lane);
+  cp_async_commit();
+
+  // rows rg * 16 + g (index 0) and + 8 (index 1)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[16][4];  // column block j: channels wq * C / 4 + 8j + 2t, + 1
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int pairs = C / 64;  // pairs of column blocks of this warp's C / 4
+  const float* rmax = red_max + rg * 64;
+  const float* rsum = red_sum + rg * 64;
+
+  for (int k0 = 0; k0 < Nk; k0 += KN) {
+    // K of this tile has landed; every warp is past the last tile's second
+    // product, so the V buffer and the P tile are free
+    cp_async_wait_all();
+    __syncthreads();
+    stage_rows(vbuf, VS, vg, k0, KN, Nk, CB, warp, lane);
+    cp_async_commit();
+
+    // ---- scores of rows rg * 16 .. + 15 x keys wq * 16 .. + 15
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const unsigned char* qa = qs + (rg * 16 + g) * QS + 8 * t;
+    const unsigned char* kb = kbuf + (wq * 16 + g) * QS + 8 * t;
+#pragma unroll 4
+    for (int kk = 0; kk < C / 16; ++kk) {
+      const uint2 a_lo = *reinterpret_cast<const uint2*>(qa + kk * 32);
+      const uint2 a_hi =
+          *reinterpret_cast<const uint2*>(qa + 8 * QS + kk * 32);
+      const uint2 b0 = *reinterpret_cast<const uint2*>(kb + kk * 32);
+      const uint2 b1 = *reinterpret_cast<const uint2*>(kb + 8 * QS + kk * 32);
+      mma_bf16(s[0], a_lo.x, a_hi.x, a_lo.y, a_hi.y, b0.x, b0.y);
+      mma_bf16(s[1], a_lo.x, a_hi.x, a_lo.y, a_hi.y, b1.x, b1.y);
+    }
+    // s[j][0], s[j][1]: row g, keys wq * 16 + 8j + 2t, + 1; s[j][2], [3]:
+    // row g + 8
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + wq * 16 + 8 * j + 2 * t + (e & 1) >= Nk) s[j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if (t == 0) red_max[rg * 64 + wq * 16 + g + 8 * r] = mx[r];
+    }
+    __syncthreads();
+
+    // every tile holds a key below Nk, so m_new is finite and every exp
+    // below takes a non-positive argument (exp(-inf) = 0 on the first tile)
+    float alpha[2], sum[2];
+    uint32_t pw[2][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      const float m_new = fmaxf(
+          m[r], fmaxf(fmaxf(rmax[row], rmax[16 + row]),
+                      fmaxf(rmax[32 + row], rmax[48 + row])));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      float p[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) p[j][e] = expf(s[j][2 * r + e] - m_new);
+      sum[r] = (p[0][0] + p[0][1]) + (p[1][0] + p[1][1]);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      if (t == 0) red_sum[rg * 64 + wq * 16 + row] = sum[r];
+      pw[r][0] = pack_bf16(p[0][0], p[0][1]);  // k = 2t, 2t + 1 of step wq
+      pw[r][1] = pack_bf16(p[1][0], p[1][1]);  // k = 2t + 8, 2t + 9
+      *reinterpret_cast<uint2*>(ps + (rg * 16 + row) * PS + wq * 32 + 8 * t) =
+          make_uint2(pw[r][0], pw[r][1]);
+    }
+    // V of this tile has landed; P and the sums are written; every warp is
+    // past the score product, so the K buffer is free
+    cp_async_wait_all();
+    __syncthreads();
+    if (k0 + KN < Nk) stage_rows(kbuf, QS, kg, k0 + KN, KN, Nk, CB, warp, lane);
+    cp_async_commit();
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      l[r] = l[r] * alpha[r] +
+             (((rsum[row] + rsum[16 + row]) + rsum[32 + row]) + rsum[48 + row]);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // ---- acc += P V over the tile's 4 steps of 16 keys
+    const unsigned char* pa = ps + (rg * 16 + g) * PS + 8 * t;
+    // ldmatrix: lane -> key (lane & 7) + 8 * ((lane >> 3) & 1) of the step,
+    // channels + 8 * (lane >> 4)
+    const unsigned char* vb = vbuf + ((lane & 7) + 8 * ((lane >> 3) & 1)) * VS +
+                              2 * (wq * (C / 4) + 8 * (lane >> 4));
+#pragma unroll
+    for (int ks = 0; ks < KN / 16; ++ks) {
+      const uint2 a_lo = *reinterpret_cast<const uint2*>(pa + ks * 32);
+      const uint2 a_hi =
+          *reinterpret_cast<const uint2*>(pa + 8 * PS + ks * 32);
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        if (np < pairs) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vb + ks * 16 * VS + np * 32);
+          mma_bf16(acc[2 * np], a_lo.x, a_hi.x, a_lo.y, a_hi.y, b[0], b[1]);
+          mma_bf16(acc[2 * np + 1], a_lo.x, a_hi.x, a_lo.y, a_hi.y, b[2],
+                   b[3]);
+        }
+      }
+    }
+  }
+
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rg * 16 + g + 8 * r;
+    if (row >= Nq) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (j < 2 * pairs)
+        *reinterpret_cast<uint32_t*>(o + (size_t)row * C + wq * (C / 4) +
+                                     8 * j + 2 * t) =
+            pack_bf16(acc[j][2 * r] * inv[r], acc[j][2 * r + 1] * inv[r]);
+    if (WITH_LSE && wq == 0 && t == 0)
+      lse[n * Nq + row] = m[r] + logf(l[r]);
   }
 }
 
@@ -477,16 +766,45 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+template <bool WITH_LSE>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int N, int Nq, int Nk, int C, void* stream) {
+  const int bytes = tc::smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<WITH_LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Nq + tc::QM - 1) / tc::QM, N);
+  flash_fwd_mma_kernel<WITH_LSE>
+      <<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Nq, Nk,
+          C);
+  return (int)cudaGetLastError();
+}
+
+// float32: the CUDA-core kernel; bfloat16: the tensor-core kernel
 template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int N,
         int Nq, int Nk, int C, void* stream) {
   if (!shape_ok(N, Nq, Nk, C)) return (int)cudaErrorInvalidValue;
-  const bool one = one_block_per_sm(((Nq + BM - 1) / BM) * N);
-  if (lse != nullptr)
-    return one ? launch_fwd<T, true, 1>(q, k, v, o, lse, N, Nq, Nk, C, stream)
-               : launch_fwd<T, true, 2>(q, k, v, o, lse, N, Nq, Nk, C, stream);
-  return one ? launch_fwd<T, false, 1>(q, k, v, o, lse, N, Nq, Nk, C, stream)
-             : launch_fwd<T, false, 2>(q, k, v, o, lse, N, Nq, Nk, C, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return lse != nullptr
+               ? launch_fwd_mma<true>(q, k, v, o, lse, N, Nq, Nk, C, stream)
+               : launch_fwd_mma<false>(q, k, v, o, lse, N, Nq, Nk, C, stream);
+  } else {
+    const bool one = one_block_per_sm(((Nq + BM - 1) / BM) * N);
+    if (lse != nullptr)
+      return one
+                 ? launch_fwd<T, true, 1>(q, k, v, o, lse, N, Nq, Nk, C, stream)
+                 : launch_fwd<T, true, 2>(q, k, v, o, lse, N, Nq, Nk, C,
+                                          stream);
+    return one ? launch_fwd<T, false, 1>(q, k, v, o, lse, N, Nq, Nk, C, stream)
+               : launch_fwd<T, false, 2>(q, k, v, o, lse, N, Nq, Nk, C,
+                                         stream);
+  }
 }
 
 template <typename T, int MINB>

@@ -44,10 +44,11 @@ _FOLDED_CONV_Q8_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
 # x, w1, scales1, w2, scales2, y1, y2, s11, s12, s21, s22, part (device
 # pointers), N, H, W, C4, C4m, C4o, out_int8, with_stats, stream
 _FOLDED_CONV2_Q8_ARGS = [_PTR] * 12 + [_INT] * 8 + [_PTR]
-# x, w, scales, y (device pointers), N, H, W, C, Co, out_int8, reflect,
-# alpha, stream
+# x, packed w (ops.conv2d_q8.pack_conv2d_weights), scales, y (device
+# pointers), N, H, W, C, Co, out_int8, reflect, alpha, stream
 _CONV2D_Q8_ARGS = [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _PTR]
-# x, w, bias, y (device pointers), N, H, W, C, Co, reflect, alpha, stream
+# x, packed w, bias, y (device pointers), N, H, W, C, Co, reflect, alpha,
+# stream
 _CONV2D_BF16_ARGS = [_PTR] * 4 + [_INT] * 6 + [_FLOAT, _PTR]
 # q, k, v, o, lse or NULL (device pointers), N, Nq, Nk, C, stream
 _FLASH_FWD_ARGS = [_PTR] * 5 + [_INT] * 4 + [_PTR]

@@ -38,14 +38,17 @@ from ..ops.folded_conv_q8 import (div_f32, fused_folded_conv_q8,
 from .fast_path import Blocks, _conv_lrelu
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class Q8Layer:
     """One eligible layer's int8 weights: the folded kernel quantized per
     output lane (3, 3, 4C, 4Co) int8, its (4Co,) float32 scales, and the
-    folded bias in float32."""
+    folded bias in float32. The standard-layout path (B5) builds its
+    layers with its kernel's repacked copy of ``w_q`` in ``w_packed``; a
+    layer is not changed after it is built."""
     w_q: torch.Tensor
     w_scale: torch.Tensor
     bias: torch.Tensor
+    w_packed: Optional[torch.Tensor] = None
 
 
 QBlocks = List[Optional[Q8Layer]]

@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from ..nn.decoder import MIRROR_UP_BEFORE
 from ..nn.decoder import upsample_nearest_2x_nhwc as _upsample2x_any
 from ..nn.vgg import _STAGES, VGG19Encoder
-from ..ops.conv2d_q8 import fused_conv2d_q8
+from ..ops.conv2d_q8 import fused_conv2d_q8, pack_conv2d_weights
 from ..ops.flash_attention import sanet_attention
 from ..ops.folded_conv_q8 import (div_f32, quantize_activations,
                                   quantize_weights)
@@ -86,7 +86,8 @@ def std_blocks(model, dtype: torch.dtype) -> Tuple[Convs, Convs]:
 
 def quantize_convs(convs: Convs) -> QConvs:
     """``Q8Layer`` (HWIO int8 weights per output channel, their scales, the
-    float32 bias) for the eligible layers, None for the others; from the
+    float32 bias, and on a CUDA device B5's K-major copy of the weights,
+    made here once) for the eligible layers, None for the others; from the
     float32 weights, as rpst quantizes ``k.astype(float32)``."""
     out: QConvs = []
     for w, b in convs:
@@ -94,7 +95,9 @@ def quantize_convs(convs: Convs) -> QConvs:
             out.append(None)
             continue
         w_q, w_scale = quantize_weights(w.float().permute(2, 3, 1, 0))
-        out.append(Q8Layer(w_q.contiguous(), w_scale, b.float()))
+        w_q = w_q.contiguous()
+        out.append(Q8Layer(w_q, w_scale, b.float(),
+                           pack_conv2d_weights(w_q) if w_q.is_cuda else None))
     return out
 
 
@@ -162,7 +165,8 @@ def make_conv_q(dtype: torch.dtype, pad_mode: str = "zero") -> Callable:
         y = fused_conv2d_q8(x_q.contiguous(), layer.w_q,
                             _scale_rows(x_scale, layer, out_scale),
                             out_int8=out_scale is not None, alpha=0.0,
-                            pad_mode=pad_mode)
+                            pad_mode=pad_mode,
+                            w_packed=layer.w_packed)
         return y if out_scale is not None else y.to(dtype)
     return conv_q
 

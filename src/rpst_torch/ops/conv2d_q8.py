@@ -8,11 +8,17 @@ bf16; port of ``rpst.ops.pallas.conv2d_q8``.
     sum (no path of rpst or of the port calls it; rpst keeps it as a
     verified utility, and so does the port).
 
-Both run ``csrc/conv2d_q8.cu`` on CUDA tensors. ``pad_mode`` is "reflect"
-(one pixel: row -1 = row 1, row H = row H-2, the same for columns) or
-"zero"; ``alpha`` is the leaky slope (0.0 = relu, 1.0 = no activation, 0.2 =
-the Conv2dBlock lrelu), computed as ``where(y >= 0, y, alpha * y)``, so
-alpha = 0 leaves -0.0 for a negative y in the bfloat16 output, as rpst does.
+Both run ``csrc/conv2d_q8.cu`` on CUDA tensors: an implicit GEMM on the
+int8 (bfloat16) tensor cores. The kernel reads its weights K-major in
+32-byte steps (``pack_conv2d_weights``); the public functions take HWIO and
+repack per call unless the caller hands in the packed copy it keeps
+(``w_packed``, as ``models.fast_path_q8_std`` does per layer).
+
+``pad_mode`` is "reflect" (one pixel: row -1 = row 1, row H = row H-2, the
+same for columns) or "zero"; ``alpha`` is the leaky slope (0.0 = relu, 1.0
+= no activation, 0.2 = the Conv2dBlock lrelu), computed as ``where(y >= 0,
+y, alpha * y)``, so alpha = 0 leaves -0.0 for a negative y in the bfloat16
+output, as rpst does.
 
 Layout: activations are NHWC, ``(N, H, W, C)`` contiguous (a channels-last
 image), weights HWIO ``(3, 3, C, Co)``, as in rpst, so the tests compare
@@ -72,6 +78,37 @@ def fused_conv2d_bf16_plain(x, w, b, alpha: float = 0.0,
     return _act(y, alpha).to(torch.bfloat16)
 
 
+def pack_conv2d_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, C, Co) int8 or bfloat16 weights in the CUDA kernel's
+    order: (3, 3, ceil(C / KE), Co, KE) contiguous, KE = 32 int8 or 16
+    bfloat16 input channels (32 bytes, one k-step of the kernel's ``mma``),
+    zeros past C. ``packed[dr, dc, s, co, e] = w[dr, dc, s * KE + e, co]``."""
+    if w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) \
+            or w.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"pack_conv2d_weights: expected (3, 3, C, Co) int8 "
+                         f"or bfloat16, got {tuple(w.shape)} {w.dtype}")
+    ke = 32 // w.element_size()
+    c, co = w.shape[2], w.shape[3]
+    steps = -(-c // ke)
+    padded = F.pad(w, (0, 0, 0, steps * ke - c))
+    return padded.reshape(3, 3, steps, ke, co).permute(0, 1, 2, 4, 3) \
+        .contiguous()
+
+
+def _packed(name, w, w_packed):
+    if w_packed is None:
+        return pack_conv2d_weights(w)
+    ke = 32 // w.element_size()
+    want = (3, 3, -(-w.shape[2] // ke), w.shape[3], ke)
+    if tuple(w_packed.shape) != want or w_packed.dtype != w.dtype \
+            or w_packed.device != w.device or not w_packed.is_contiguous():
+        raise ValueError(f"{name}: w_packed must be pack_conv2d_weights(w): "
+                         f"{want} {w.dtype} contiguous on {w.device}, got "
+                         f"{tuple(w_packed.shape)} {w_packed.dtype} on "
+                         f"{w_packed.device}")
+    return w_packed
+
+
 def _check_layer(name, x, w, pad_mode, unit):
     if pad_mode not in _PAD:
         raise ValueError(f"unknown pad_mode {pad_mode!r}")
@@ -89,14 +126,16 @@ def _check_layer(name, x, w, pad_mode, unit):
 
 
 def fused_conv2d_q8(x_q, w_q, scales, out_int8: bool, alpha: float = 0.2,
-                    pad_mode: str = "reflect"):
+                    pad_mode: str = "reflect", w_packed=None):
     """Quantized act_alpha(conv3x3(pad(x)) + bias) in the standard layout.
 
     x_q (N, H, W, C) int8, NHWC contiguous; w_q (3, 3, C, Co) int8, HWIO;
     scales (3, Co) float32 rows [x_scale * w_scale, bias, 1 / out_scale]
     (row 2 unused when ``out_int8`` is False); C and Co multiples of 4, H
-    and W at least 2, all on one device. Returns (N, H, W, Co) int8
-    (requantized with row 2) or bfloat16."""
+    and W at least 2, all on one device; ``w_packed`` is
+    ``pack_conv2d_weights(w_q)`` where the caller keeps it (the CUDA kernel
+    reads that copy; without it the call repacks). Returns (N, H, W, Co)
+    int8 (requantized with row 2) or bfloat16."""
     name = "fused_conv2d_q8"
     co = _check_layer(name, x_q, w_q, pad_mode, 4)
     if tuple(scales.shape) != (3, co):
@@ -112,8 +151,9 @@ def fused_conv2d_q8(x_q, w_q, scales, out_int8: bool, alpha: float = 0.2,
     y = torch.empty((n, h, w, co), device=x_q.device,
                     dtype=torch.int8 if out_int8 else torch.bfloat16)
     from ..kernels.build import launch
-    launch("conv2d_q8", "rpst_conv2d_q8", "B5", x_q, w_q, scales, y, n, h, w,
-           c, co, int(out_int8), int(pad_mode == "reflect"), float(alpha))
+    launch("conv2d_q8", "rpst_conv2d_q8", "B5", x_q,
+           _packed(name, w_q, w_packed), scales, y, n, h, w, c, co,
+           int(out_int8), int(pad_mode == "reflect"), float(alpha))
     _count(fused_conv2d_q8)
     return y
 
@@ -139,8 +179,9 @@ def fused_conv2d_bf16(x, w, b, alpha: float = 0.0, pad_mode: str = "reflect"):
     n, h, wd, c = x.shape
     y = torch.empty((n, h, wd, co), device=x.device, dtype=torch.bfloat16)
     from ..kernels.build import launch
-    launch("conv2d_q8", "rpst_conv2d_bf16", "B5 (bf16)", x, w, b, y, n, h, wd,
-           c, co, int(pad_mode == "reflect"), float(alpha))
+    launch("conv2d_q8", "rpst_conv2d_bf16", "B5 (bf16)", x,
+           pack_conv2d_weights(w), b, y, n, h, wd, c, co,
+           int(pad_mode == "reflect"), float(alpha))
     _count(fused_conv2d_bf16)
     return y
 

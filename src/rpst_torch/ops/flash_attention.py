@@ -24,6 +24,12 @@ float32; P and dS rounded to the tensors' type before their second
 product), which the CPU tests hold against rpst's kernels in interpret mode
 and a float64 numpy oracle. ``<wrapper>.launches`` counts kernel launches
 and nothing else; ``launch_counts()`` sums them as B6_fwd / B6_dq / B6_dkv.
+The two forward wrappers launch one of two kernels by the tensors' type:
+float32 the CUDA-core kernel (float32 products, which TF32 would not
+keep), bfloat16 the tensor-core kernel (``mma.sync`` on 32 query rows x 64
+keys per step, K and V tiles arriving by ``cp.async`` in a ring of two);
+``<wrapper>.launches_bf16`` counts the latter's launches among
+``launches``.
 
 The CUDA kernels mask ragged tiles themselves, so every Nq, Nk >= 1
 launches them: rpst's dense route for short or unaligned sequences
@@ -38,7 +44,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from .folded_conv import _ENTRY, _acc, _check_common, _count
+from .folded_conv import (_ENTRY, _acc, _check_common, _count,
+                          _launch_lock)
 
 _LIB = "flash_attention"
 _C_UNIT, _C_MAX = 128, 512
@@ -141,6 +148,14 @@ def _launch(what, fn, dtype, *args):
     launch(_LIB, f"rpst_flash_{fn}_{_ENTRY[dtype]}", what, *args)
 
 
+def _count_fwd(wrapper, dtype) -> None:
+    """One launch of a forward wrapper; bfloat16 is the tensor-core kernel."""
+    _count(wrapper)
+    if dtype == torch.bfloat16:
+        with _launch_lock:
+            wrapper.launches_bf16 += 1
+
+
 def flash_fwd(q, k, v) -> torch.Tensor:
     """softmax(q k^T) v for q (N, Nq, C), k, v (N, Nk, C), float32 or
     bfloat16, contiguous, on one device; the output has q's type."""
@@ -149,11 +164,12 @@ def flash_fwd(q, k, v) -> torch.Tensor:
         return flash_fwd_plain(q, k, v)
     o = torch.empty_like(q)
     _launch("B6a", "fwd", q.dtype, q, k, v, o, None, n, nq, nk, c)
-    _count(flash_fwd)
+    _count_fwd(flash_fwd, q.dtype)
     return o
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_bf16 = 0
 
 
 def flash_fwd_lse(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -164,11 +180,12 @@ def flash_fwd_lse(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     o = torch.empty_like(q)
     lse = torch.empty((n, nq), device=q.device, dtype=torch.float32)
     _launch("B6b", "fwd", q.dtype, q, k, v, o, lse, n, nq, nk, c)
-    _count(flash_fwd_lse)
+    _count_fwd(flash_fwd_lse, q.dtype)
     return o, lse
 
 
 flash_fwd_lse.launches = 0
+flash_fwd_lse.launches_bf16 = 0
 
 
 def flash_bwd_dq(q, k, v, d_o, lse, delta) -> torch.Tensor:

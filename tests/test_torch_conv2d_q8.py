@@ -22,7 +22,8 @@ from rpst.ops.pallas.conv2d_q8 import fused_conv2d_bf16 as jax_conv2d_bf16
 from rpst.ops.pallas.conv2d_q8 import fused_conv2d_q8 as jax_conv2d_q8
 from rpst_torch.ops.conv2d_q8 import (fused_conv2d_bf16,
                                       fused_conv2d_bf16_plain, fused_conv2d_q8,
-                                      fused_conv2d_q8_plain)
+                                      fused_conv2d_q8_plain,
+                                      pack_conv2d_weights)
 
 
 def _layer(seed, n, h, w, c, co):
@@ -192,3 +193,60 @@ def test_q8_wrapper_refuses_types_and_layout():
         fused_conv2d_q8(x.float(), k, sc, True)
     with pytest.raises(ValueError, match="must be contiguous"):
         fused_conv2d_q8(x.permute(0, 2, 1, 3), k, sc, True)
+
+
+@pytest.mark.parametrize("c,co,dtype", [(4, 4, torch.int8),
+                                        (36, 132, torch.int8),
+                                        (48, 8, torch.int8),
+                                        (128, 64, torch.int8),
+                                        (8, 8, torch.bfloat16),
+                                        (40, 72, torch.bfloat16)])
+def test_packed_weights_are_the_hwio_weights_k_major(c, co, dtype):
+    """``pack_conv2d_weights``: (3, 3, steps, Co, KE) with 32 bytes of input
+    channels per step, zeros past C; summing tap by tap over the packed
+    copy gives the plain conv's integer sums."""
+    g = torch.Generator().manual_seed(c + co)
+    w = torch.randint(-127, 128, (3, 3, c, co), generator=g).to(dtype)
+    packed = pack_conv2d_weights(w)
+    ke = 32 if dtype == torch.int8 else 16
+    steps = -(-c // ke)
+    assert packed.shape == (3, 3, steps, co, ke) and packed.is_contiguous()
+    assert packed.dtype == dtype
+    back = packed.permute(0, 1, 2, 4, 3).reshape(3, 3, steps * ke, co)
+    assert torch.equal(back[:, :, :c], w)
+    assert not back[:, :, c:].any()
+    x = torch.randint(-127, 128, (1, 4, 5, c), generator=g).double()
+    xp = F.pad(x, (0, steps * ke - c)).reshape(1, 4, 5, steps, ke)
+    for dr in range(3):
+        for dc in range(3):
+            got = torch.einsum("nhwse,soe->nhwo", xp, packed[dr, dc].double())
+            assert torch.equal(got, x @ w[dr, dc].double())
+
+
+def test_packed_weights_argument_is_checked():
+    x, k, sc = (torch.from_numpy(a) for a in _layer(0, 1, 4, 4, 36, 8))
+    packed = pack_conv2d_weights(k)
+    ref = fused_conv2d_q8(x, k, sc, True)
+    assert torch.equal(fused_conv2d_q8(x, k, sc, True, w_packed=packed), ref)
+    with pytest.raises(ValueError, match="pack_conv2d_weights"):
+        pack_conv2d_weights(k.float())
+    with pytest.raises(ValueError, match="pack_conv2d_weights"):
+        pack_conv2d_weights(k[0])
+
+
+def test_quantized_layer_is_built_whole_and_frozen():
+    """``quantize_convs`` builds a layer with everything B5 reads (on the
+    CPU no packed copy: the plain version reads HWIO), and a built layer
+    cannot be given other weights under its packed copy."""
+    import dataclasses
+
+    from rpst_torch.models.fast_path_q8_std import quantize_convs
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(128, 128, 3, 3, generator=g)
+    layer, small = quantize_convs([(w, torch.zeros(128)),
+                                   (w[:8, :8], torch.zeros(8))])
+    assert small is None
+    assert layer.w_q.shape == (3, 3, 128, 128) and layer.w_q.dtype == torch.int8
+    assert layer.w_packed is None
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        layer.w_q = layer.w_q.clone()

@@ -23,6 +23,11 @@ from rpst_torch.ops.folded_conv import (fused_folded_conv,  # noqa: E402
 
 F32_TOL = 1e-4   # K = 9 * 4C products summed in another order
 BF16_TOL = 2e-2  # about two bf16 ulps at O(1) values
+# the bfloat16 attention forward's O averages over Nk keys and is far below
+# O(1), so it is also held to its own size: max abs err <= 2e-2 x max |ref|
+# and mean abs err <= 2e-3 x max |ref| (half of O, a dropped V tile or
+# permuted channels fail both)
+BF16_O_REL, BF16_O_MEAN_REL = 2e-2, 2e-3
 
 
 @pytest.fixture
@@ -229,7 +234,7 @@ def test_b4_refuses_misaligned_and_mixed(cuda_device):
 
 from rpst_torch.ops.conv2d_q8 import (  # noqa: E402
     fused_conv2d_bf16, fused_conv2d_bf16_plain, fused_conv2d_q8,
-    fused_conv2d_q8_plain)
+    fused_conv2d_q8_plain, pack_conv2d_weights)
 
 
 def _b5_layer(seed, n, h, w, c, co, device):
@@ -265,6 +270,43 @@ def test_b5_matches_plain_on_card(cuda_device, out_int8, alpha, pad_mode,
         assert torch.equal(got, ref)
     else:
         assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_int8", [True, False])
+@pytest.mark.parametrize("pad_mode", ["reflect", "zero"])
+@pytest.mark.parametrize("shape", [
+    (1, 2, 37, 4, 4), (2, 9, 2, 36, 132), (1, 8, 16, 48, 4),
+    (1, 5, 17, 36, 68), (2, 13, 37, 48, 132), (3, 16, 33, 128, 192),
+    (2, 512, 256, 32, 256), (2, 32, 32, 512, 512)])
+def test_b5_tiling_edges_on_card(cuda_device, out_int8, pad_mode, shape):
+    """The edges of the tensor-core tilings (16 pixel columns x 8 rows, 64
+    or 128 output channels, 32 input channels a step): the k tail at C = 4,
+    36, 48 (36 takes the unaligned staging), Co = 4 and 132, H or W = 2, W =
+    33 and 37, and a shape for each of the two tilings a launch picks from
+    (the last but one has 4096 blocks of 128 channels); with the weights
+    packed by the caller, as the paths keep them. Bits equal."""
+    x, k, sc = _b5_layer(1, *shape, cuda_device)
+    packed = pack_conv2d_weights(k)
+    got = fused_conv2d_q8(x, k, sc, out_int8, 0.2, pad_mode, w_packed=packed)
+    again = fused_conv2d_q8(x, k, sc, out_int8, 0.2, pad_mode)
+    torch.cuda.synchronize()
+    ref = fused_conv2d_q8_plain(x, k, sc, out_int8, 0.2, pad_mode)
+    view = (lambda t: t) if out_int8 else (lambda t: t.view(torch.int16))
+    assert torch.equal(view(got), view(ref))
+    assert torch.equal(view(again), view(ref))
+    with pytest.raises(ValueError, match="w_packed"):
+        fused_conv2d_q8(x, k, sc, out_int8, 0.2, pad_mode,
+                        w_packed=packed[..., :4])
+
+
+@pytest.mark.cuda
+def test_quantized_layer_carries_its_packed_weights_on_card(cuda_device):
+    from rpst_torch.models.fast_path_q8_std import quantize_convs
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(128, 128, 3, 3, generator=g).to(cuda_device)
+    layer, = quantize_convs([(w, torch.zeros(128, device=cuda_device))])
+    assert torch.equal(layer.w_packed, pack_conv2d_weights(layer.w_q))
 
 
 @pytest.mark.cuda
@@ -307,6 +349,13 @@ def test_b5_refuses_misaligned_and_mixed(cuda_device):
 # ---------------------------------------------------------------- B6
 
 from rpst_torch.ops import flash_attention as fa  # noqa: E402
+
+
+def _assert_bf16_o_close(got, ref):
+    got, ref = got.float(), ref.float()
+    err, size = (got - ref).abs(), ref.abs().max().item()
+    assert err.max().item() <= BF16_O_REL * size
+    assert err.mean().item() <= BF16_O_MEAN_REL * size
 
 
 def _attention_inputs(seed, device, dtype, n, nq, nk, c, scale=1.0):
@@ -359,7 +408,49 @@ def test_b6_matches_plain_on_card(cuda_device, dtype, tol, shape, scale):
         assert got.dtype == dtype and torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
                                    atol=tol)
+    if dtype == torch.bfloat16:
+        _assert_bf16_o_close(o, ref_o)
+        _assert_bf16_o_close(o2, ref_o)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 256, 384, 512])
+@pytest.mark.parametrize("nq", [31, 32, 33])
+@pytest.mark.parametrize("nk", [63, 64, 65, 129])
+def test_b6_bf16_forward_tile_edges_on_card(cuda_device, c, nq, nk):
+    """The bfloat16 forward (tensor cores; 32 query rows x 64 keys a tile)
+    one below, at and one above each tile size, at every width, N = 3: O
+    within the bf16 tolerance and within 2% (mean 0.2%) of its own largest
+    value, LSE 1e-4, B6a and B6b bit-equal to each
+    other, and bit-stable from run to run; the launches count as bfloat16
+    ones."""
+    q, k, v, _ = _attention_inputs(c + nq + nk, cuda_device, torch.bfloat16,
+                                   3, nq, nk, c)
+    before = (fa.flash_fwd.launches_bf16, fa.flash_fwd_lse.launches_bf16)
+    o = fa.flash_fwd(q, k, v)
+    o2, lse = fa.flash_fwd_lse(q, k, v)
+    o3 = fa.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches_bf16, fa.flash_fwd_lse.launches_bf16) == (
+        before[0] + 2, before[1] + 1)
+    ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(o, o3)
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), ref_o.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    _assert_bf16_o_close(o, ref_o)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_b6_float32_forward_is_not_counted_as_bf16(cuda_device):
+    q, k, v, _ = _attention_inputs(0, cuda_device, torch.float32, 1, 40, 70,
+                                   128)
+    before = (fa.flash_fwd.launches, fa.flash_fwd.launches_bf16)
+    fa.flash_fwd(q, k, v)
+    assert (fa.flash_fwd.launches, fa.flash_fwd.launches_bf16) == (
+        before[0] + 1, before[1])
 
 
 @pytest.mark.cuda

@@ -200,6 +200,35 @@ def test_resolve_mode(caplog, monkeypatch):
         resolve_mode(folded, "int4")
 
 
+@pytest.mark.parametrize("network,over", [
+    ("multi_adain", dict(hidden_dim=32)),
+    ("adain", dict(hidden_dim=32)),
+    ("wct", dict(hidden_dim=32)),
+    ("sanet", dict(img_size=32))])
+def test_auto_mode_follows_the_q8_table(network, over, monkeypatch):
+    """For every ported network ``--mode auto`` on a card resolves to what
+    ``policy.Q8_AUTO_BATCHES`` says: q8 at the batches it lists, the
+    policy's ``AUTO_MODE`` elsewhere; an entry added to the table is picked
+    up at its batch and at no other. The device is named, not used:
+    ``resolve_mode`` only asks where the bundle lives."""
+    from rpst_torch import policy
+    bundle = build_model(load_config(dict(network=network, rp_blocks=2,
+                                          **over)))
+    assert bundle.q8_infer()
+    monkeypatch.setattr(bundle, "device", torch.device("cuda"))
+    listed = policy.Q8_AUTO_BATCHES.get(network, frozenset())
+    for batch in (1, 2, 4, 8, 16):
+        want = "q8" if batch in listed else policy.AUTO_MODE
+        assert resolve_mode(bundle, "auto", batch=batch) == want, batch
+    assert resolve_mode(bundle, "auto") == (
+        "q8" if 8 in listed else policy.AUTO_MODE)  # the default batch, 8
+    monkeypatch.setitem(policy.Q8_AUTO_BATCHES, network, frozenset({4}))
+    assert resolve_mode(bundle, "auto", batch=4) == "q8"
+    assert resolve_mode(bundle, "auto", batch=1) == policy.AUTO_MODE
+    monkeypatch.setattr(bundle, "device", torch.device("cpu"))
+    assert resolve_mode(bundle, "auto", batch=4) == policy.AUTO_MODE
+
+
 def test_make_run_impl_runs_the_mode_path(monkeypatch):
     """The mode, not the config, picks the path: a bundle configured folded
     serves standard when the resolved mode is standard, and both agree."""

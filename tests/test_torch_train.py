@@ -62,12 +62,20 @@ def _check_grads(model, ref):
             msg=name)
 
 
-@pytest.mark.parametrize("strategy", ["folded", "standard"])
+def _case_config(case, **over):
+    """'folded' / 'standard': the small multi_adain on that strategy;
+    'adain': the single-scale adain network (standard only)."""
+    if case == "adain":
+        return dict(SMALL, network="adain", exec_strategy="standard", **over)
+    return dict(SMALL, exec_strategy=case, **over)
+
+
+@pytest.mark.parametrize("strategy", ["folded", "standard", "adain"])
 def test_loss_and_grads_match_rpst(strategy):
     content, style = _images(0)
     tree = vgg_weights_from_seed(1)
     jvgg = jax.tree.map(jnp.asarray, tree)
-    jb = j_build_model(j_load_config(dict(SMALL, exec_strategy=strategy)))
+    jb = j_build_model(j_load_config(_case_config(strategy)))
     c, s = jnp.asarray(content), jnp.asarray(style)
     params = jb.init(jax.random.PRNGKey(0), c, s, jvgg)["params"]
 
@@ -77,7 +85,7 @@ def test_loss_and_grads_match_rpst(strategy):
 
     (_, ref_parts), ref_grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
         params)
-    bundle = build_model(load_config(dict(SMALL, exec_strategy=strategy)))
+    bundle = build_model(load_config(_case_config(strategy)))
     assert bundle.folded_exec() == (strategy == "folded")
     bundle.load_state_dict(from_flax_params(jax.tree.map(np.asarray, params)))
     total, parts = bundle.loss(_vgg(1), torch.from_numpy(content),
@@ -90,6 +98,66 @@ def test_loss_and_grads_match_rpst(strategy):
                                    err_msg=k)
     _check_grads(bundle.model,
                  from_flax_params(jax.tree.map(np.asarray, ref_grads)))
+
+
+# bfloat16 keeps 8 significant bits: a loss part agrees with rpst's bfloat16
+# loss to that digit
+BF16_LOSS_RTOL = 2e-2
+# the port's bfloat16 gradients against float32 gradients (rpst's and the
+# port's own), as a share of each tensor's largest float32 gradient (at this size and seed
+# the worst weight tensor reads 4.5% and the worst bias 3.4%; an earlier
+# one-off check on other images read 6% and 1.5%)
+BF16_WEIGHT_GRAD_ATOL_REL, BF16_BIAS_GRAD_ATOL_REL = 0.08, 0.05
+
+
+@pytest.mark.parametrize("case", ["standard", "adain"])
+def test_bf16_loss_matches_rpst_and_grads_match_f32(case):
+    """compute_dtype bfloat16 at 32px. The loss parts are held against
+    rpst's bfloat16 loss. The gradients are held against rpst's float32
+    gradients (jax.value_and_grad on the same inputs) and against the port's
+    own float32 gradients, not against rpst's bfloat16 ones: on the CPU rpst's
+    bfloat16 bias gradients sit 8-79% of the tensor's max away from rpst's
+    float32 gradients (the bias gradient sums N*H*W bfloat16 terms there),
+    while the port's autocast keeps the parameters and their gradient sums
+    in float32. That spread is a property of the reference's bfloat16
+    backward, so it is no yardstick for the port's."""
+    content, style = _images(3, size=32)
+    over = dict(img_size=32)
+    jvgg = jax.tree.map(jnp.asarray, vgg_weights_from_seed(1))
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    jb32 = j_build_model(j_load_config(_case_config(case, **over)))
+    jb16 = j_build_model(j_load_config(
+        _case_config(case, compute_dtype="bfloat16", **over)))
+    params = jb32.init(jax.random.PRNGKey(0), c, s, jvgg)["params"]
+    ref_parts = jax.jit(lambda p: jb16.loss({"params": p}, jvgg, c, s,
+                                            train=True)[1][0])(params)
+    ref_g32 = from_flax_params(jax.tree.map(np.asarray, jax.jit(jax.grad(
+        lambda p: jb32.loss({"params": p}, jvgg, c, s, train=True)[0]))(
+            params)))
+    state = from_flax_params(jax.tree.map(np.asarray, params))
+    grads = {}
+    for dtype in ("float32", "bfloat16"):
+        bundle = build_model(load_config(
+            _case_config(case, compute_dtype=dtype, **over)))
+        bundle.load_state_dict(state)
+        total, parts = bundle.loss(_vgg(1), torch.from_numpy(content),
+                                   torch.from_numpy(style))
+        total.backward()
+        grads[dtype] = {k: p.grad for k, p in bundle.model.named_parameters()}
+    for k in ("content_loss", "style_loss", "total_loss"):
+        np.testing.assert_allclose(float(parts[k].detach()),
+                                   float(ref_parts[k]), rtol=BF16_LOSS_RTOL,
+                                   err_msg=k)
+    assert set(ref_g32) == set(grads["float32"])
+    for name, g16 in grads["bfloat16"].items():
+        assert g16.dtype == torch.float32, name
+        rel = (BF16_BIAS_GRAD_ATOL_REL if name.endswith("bias")
+               else BF16_WEIGHT_GRAD_ATOL_REL)
+        for whose, g32 in (("rpst", ref_g32[name]),
+                           ("port", grads["float32"][name])):
+            err = (g16 - g32).abs().max().item()
+            assert err <= rel * g32.abs().max().item(), (
+                name, whose, err, g32.abs().max().item())
 
 
 def test_flagship_matches_train_fixture():

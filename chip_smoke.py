@@ -94,9 +94,15 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                versions at the shapes of a 512px SANet stylize, relu4_1 (N,
                4096, 4096, 512) and relu5_1 (N, 1024, 1024, 512) at N = 1
                and 4, f32 (1e-4) and bf16 (2e-2), LSE 1e-4, a ragged
-               rectangular case and inputs x 30; the bfloat16 forward (a
-               tensor-core kernel of its own) also around its 32 x 64 tiles
-               at C = 128, 256, 384, N = 3; dK/dV bit-equal across two
+               rectangular case and inputs x 30; both forwards' O also
+               against its own size at x 1 (f32 1e-5 of max |ref|, mean
+               1e-6; bf16 2e-2, 2e-3), and the f32 forward's O at x 30
+               against a float64 oracle (at most 3x the plain version's
+               error, or 3 x 2^-20 of max |O| where that is more:
+               rpst_torch.ops.flash_attention.f32_oracle_limit); each
+               forward (a tensor-core kernel per type) also
+               around its tiles, bf16 32 x 64 at C = 128, 256, 384, f32
+               32 x 32 at C = 128-512, N = 3; dK/dV bit-equal across two
                runs; each timed against plain and against
                F.scaled_dot_product_attention(scale=1.0) and its autograd
                backward; B5 at the SANet path's six new shapes is in phase 17
@@ -210,6 +216,20 @@ def check_scaled(name, got, ref, rel, mean_rel):
             f"{name}: max abs err {max_err}, mean {mae} against max |ref| "
             f"{size} (limits {rel} and {mean_rel} of it)")
     return max_err / size, mae / size
+
+
+def check_oracle(name, got, ref64, limit):
+    """Raise unless max |got - ref64| <= limit, ref64 a float64 oracle;
+    return that max abs err."""
+    import torch
+    if got.shape != ref64.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref64.shape)} or non-finite output")
+    err = (got.double() - ref64).abs().max().item()
+    if not err <= limit:
+        raise AssertionError(f"{name}: max abs err from the float64 oracle "
+                             f"{err} > {limit}")
+    return err
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -1973,8 +1993,10 @@ def _sdpa_backends(q, k, v):
 
 
 def _b6_compare(label, dev, dtype, shape, scale, tol):
-    """B6a-d against their plain versions on one input; returns the max abs
-    error per kernel."""
+    """B6a-d against their plain versions on one input (the float32 forward
+    at scale != 1 against the float64 oracle instead, by
+    ``fa.f32_oracle_limit``); returns the max abs error against plain per
+    kernel held to it."""
     import torch
     from rpst_torch.ops import flash_attention as fa
     q, k, v, d_o = _attention_inputs(dev, dtype, *shape, scale=scale)
@@ -1982,16 +2004,30 @@ def _b6_compare(label, dev, dtype, shape, scale, tol):
     o2, lse = fa.flash_fwd_lse(q, k, v)
     torch.cuda.synchronize()
     ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
-    err = {"B6a": check_close(f"B6a {label}", o, ref_o, tol)[0],
-           "B6b": check_close(f"B6b {label}", o2, ref_o, tol)[0]}
+    f32 = dtype == torch.float32
+    if f32 and scale != 1.0:
+        ref64 = fa.attention_f64(q, k, v)
+        limit = fa.f32_oracle_limit(ref_o, ref64)
+        ora = max(check_oracle(f"{key} {label}", got, ref64, limit)
+                  for key, got in (("B6a", o), ("B6b", o2)))
+        err = {}
+        fwd = (f"fwd O from the float64 oracle {ora:.3g} (limit {limit:.3g}: "
+               f"{fa.F32_ORACLE_X:g}x max(plain's "
+               f"{(ref_o.double() - ref64).abs().max().item():.3g}, 2^-20 "
+               f"max |O|))")
+    else:
+        err = {"B6a": check_close(f"B6a {label}", o, ref_o, tol)[0],
+               "B6b": check_close(f"B6b {label}", o2, ref_o, tol)[0]}
+        fwd = f"fwd {err['B6a']:.3g}, fwd+lse {err['B6b']:.3g}"
     scaled = ""
-    if dtype == torch.bfloat16:  # the tensor-core forward, at O's own size
-        rel = [check_scaled(f"{key} {label}", got, ref_o, BF16_O_REL,
-                            BF16_O_MEAN_REL)
+    if scale == 1.0:  # both tensor-core forwards, at O's own size
+        rel_max, rel_mean = ((fa.F32_O_REL, fa.F32_O_MEAN_REL) if f32
+                             else (BF16_O_REL, BF16_O_MEAN_REL))
+        rel = [check_scaled(f"{key} {label}", got, ref_o, rel_max, rel_mean)
                for key, got in (("B6a", o), ("B6b", o2))]
         scaled = (f"; fwd O err / max |ref|: max {max(r[0] for r in rel):.3g}"
-                  f" (limit {BF16_O_REL}), mean {max(r[1] for r in rel):.3g} "
-                  f"(limit {BF16_O_MEAN_REL})")
+                  f" (limit {rel_max}), mean {max(r[1] for r in rel):.3g} "
+                  f"(limit {rel_mean})")
     # the LSE's own tolerance scales with the logits' size
     lse_err = (lse - ref_lse).abs().max().item()
     if not torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL):
@@ -2009,9 +2045,9 @@ def _b6_compare(label, dev, dtype, shape, scale, tol):
     err["B6d"] = max(check_close(f"B6d dk {label}", dk, ref_dk, tol)[0],
                      check_close(f"B6d dv {label}", dv, ref_dv, tol)[0])
     log("23 B6 kernels", f"{label} {shape} {str(dtype)[6:]} x{scale:g}: max "
-        f"abs err fwd {err['B6a']:.3g}, fwd+lse {err['B6b']:.3g} (lse "
-        f"{lse_err:.3g}), dq {err['B6c']:.3g}, dk/dv {err['B6d']:.3g} (tol "
-        f"{tol}); dK/dV bit-equal across two runs{scaled}")
+        f"abs err {fwd} (lse {lse_err:.3g}), dq {err['B6c']:.3g}, dk/dv "
+        f"{err['B6d']:.3g} (tol {tol}); dK/dV bit-equal across two "
+        f"runs{scaled}")
     return err
 
 
@@ -2048,6 +2084,33 @@ def _b6_kernels(dev, name_power):
         f"max {worst_rel[0]:.3g} (limit {BF16_O_REL}), mean "
         f"{worst_rel[1]:.3g} (limit {BF16_O_MEAN_REL}), lse within "
         f"{LSE_TOL}")
+    worst_rel = [0.0, 0.0]
+    edges_f32 = [(3, nq, nk, c) for c in (128, 256, 384, 512)
+                 for nq, nk in fa.F32_FWD_EDGES]
+    for shape in edges_f32:
+        q, k, v, _ = _attention_inputs(dev, torch.float32, *shape)
+        o = fa.flash_fwd(q, k, v)
+        o2, lse = fa.flash_fwd_lse(q, k, v)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
+        if not torch.equal(o, o2):
+            raise AssertionError(f"B6 edge {shape} f32: B6a and B6b differ")
+        worst["B6a"] = max(worst["B6a"], check_close(
+            f"B6a edge {shape}", o, ref_o, F32_TOL)[0])
+        worst["B6b"] = max(worst["B6b"], check_close(
+            f"B6b edge {shape}", o2, ref_o, F32_TOL)[0])
+        rel = check_scaled(f"B6 edge {shape} f32", o, ref_o, fa.F32_O_REL,
+                           fa.F32_O_MEAN_REL)
+        worst_rel = [max(a, b) for a, b in zip(worst_rel, rel)]
+        if not torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL):
+            raise AssertionError(f"B6b edge {shape} f32 lse: max abs err "
+                                 f"{(lse - ref_lse).abs().max().item()}")
+    log("23 B6 kernels", f"f32 forward at {len(edges_f32)} tile-edge "
+        f"shapes (N = 3; C 128-512; Nq 31-33, Nk 31-33 and 65): max abs err "
+        f"{max(worst['B6a'], worst['B6b']):.3g} (tol {F32_TOL}), err / max "
+        f"|ref| max {worst_rel[0]:.3g} (limit {fa.F32_O_REL}), mean "
+        f"{worst_rel[1]:.3g} (limit {fa.F32_O_MEAN_REL}); B6a and B6b "
+        f"bit-equal; lse within {LSE_TOL}")
     for label, shape, dtype, scale in (
             ("ragged", (2, 100, 70, 512), torch.float32, 1.0),
             ("ragged", (2, 100, 70, 512), torch.bfloat16, 1.0),

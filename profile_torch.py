@@ -24,7 +24,7 @@ For each case it prints one Markdown table row:
   Bn share      device time of the kernel (B1 folded_conv_kernel, B2
                 grad_input_kernel, B3 grad_weight_partial + _reduce, B4
                 folded_conv_q8_kernel, B7 folded_conv2_q8_kernel, B5
-                conv2d_mma_kernel, B6 flash_fwd_kernel (float32) and
+                conv2d_mma_kernel, B6 flash_fwd_tf32_kernel (float32) and
                 flash_fwd_mma_kernel (bfloat16), B6c
                 flash_bwd_dq_kernel, B6d flash_bwd_dkv_kernel; the stats'
                 finalize_sums counts as other)
@@ -71,7 +71,7 @@ KERNELS = {"B1": ("folded_conv_kernel",), "B2": ("grad_input_kernel",),
            "B3": ("grad_weight_partial", "grad_weight_reduce"),
            "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",),
            "B5": ("conv2d_mma_kernel",),
-           "B6": ("flash_fwd_kernel", "flash_fwd_mma_kernel"),
+           "B6": ("flash_fwd_tf32_kernel", "flash_fwd_mma_kernel"),
            "B6c": ("flash_bwd_dq_kernel",), "B6d": ("flash_bwd_dkv_kernel",)}
 ADAIN = dict(network="adain", rp_blocks=5, hidden_dim=32, seed=0)
 SANET_YAML = REPO / "configs" / "train_static_sanet.yaml"

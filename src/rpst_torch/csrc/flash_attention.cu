@@ -23,17 +23,20 @@
 //
 // What bounds it on the card. The relu4_1 module of a 512px stylize, Nq = Nk
 // = 4096 at C = 512, is 3.4e10 operations forward, against 25 MB of tensors:
-// bound by operations by three orders of magnitude. The float32 entry points
-// run them as float FMAs on the CUDA cores (they must keep float32 products:
-// TF32 would lose the 1e-4 agreement, and the logits are unscaled), whose
-// peak is 67 TFLOP/s, a seventh of the TF32 tensor-core rate the bound is
-// stated against. The bfloat16 forward runs both products on the bf16 tensor
-// cores; there the limit is feeding `mma` from shared memory.
+// bound by operations by three orders of magnitude. Both forward entry points
+// run their two products on the tensor cores. A float32 product must stay as
+// accurate as float32 (the logits are unscaled; one TF32 product moves O by
+// 5e-4 of its size), so the float32 forward runs three TF32 products per
+// fragment (below): its ceiling is a third of the 495 TFLOP/s TF32 rate the
+// bound is stated against, still 2.5x the 67 TFLOP/s of float FMAs on the
+// CUDA cores, which the backward kernels use. In both forwards the limit is
+// feeding `mma` from shared memory, and in float32 also the instructions that
+// split each operand.
 //
 // The bfloat16 forward (B6a, B6b: `flash_fwd_mma_kernel`).
 //   * bf16 x bf16 products are exact in float and summed in float
-//     (`mma.sync.m16n8k16`, bf16 -> f32), so it computes what the float-FMA
-//     kernel computed; P is rounded to bf16 before the second product, where
+//     (`mma.sync.m16n8k16`, bf16 -> f32), so its scores are float sums of
+//     exact products; P is rounded to bf16 before the second product, where
 //     rpst rounds it, and the row sum is taken from the unrounded p.
 //     `mma.sync` and not `wgmma`: wgmma's 64-row tile would leave 64 blocks
 //     for the 132 SMs at Nq = 4096, batch 1.
@@ -58,7 +61,51 @@
 //   * Ragged shapes: rows past Nq or Nk are staged as zeros (cp.async
 //     zero-fill), keys past Nk scored -inf, rows past Nq never stored.
 //
-// The float32 forward and the two backward kernels (both types).
+// The float32 forward (B6a, B6b: `flash_fwd_tf32_kernel`).
+//   * Three TF32 products per fragment (`mma.sync.m16n8k8` tf32 -> f32, as
+//     CUTLASS's OpMultiplyAddFastF32): each float32 operand x is loaded from
+//     shared memory once and split in registers into hi = x rounded to TF32
+//     (to nearest) and lo = x - hi (exact), which `mma` truncates to TF32; a
+//     b = a_lo b_hi + a_hi b_lo + a_hi b_hi, the two corrections summed
+//     first, a_lo b_lo (< 2^-22 of a b) dropped. Used for S = Q K^T and for
+//     P V; P is not rounded in float32, so it is split like any operand. A
+//     split is 3 instructions (`split`), the kernel's largest cost after the
+//     products: one TF32 product would be 3x fewer `mma` and no split, but
+//     moves O by 5e-4 of its size.
+//   * The sums inside `mma` are not IEEE round-to-nearest on every
+//     generation, so no `mma` chain is long: a score is summed over 16
+//     channels (6 products) in `mma`, and those partial sums are added in
+//     float32; a tile's P V (12 products) goes into a fresh accumulator and
+//     then into the running one as acc * alpha + tile, one float32 FMA.
+//   * Shared memory decides the tiling: a float32 row is 2 KB at C = 512, so
+//     a block owns QM = 32 query rows (64 KB, resident) and sweeps the keys
+//     in tiles of KN = 32; the K and V tiles (64 KB each) alternate through
+//     a two-buffer `cp.async` ring (V_j under the scores of tile j, K_j+1
+//     under its P V), 224 KB in all, one block per SM.
+//   * Warps are laid out so that a split operand feeds several products.
+//     Scores: warp (rg, wq) of 2 row groups x 4 forms the partial scores of
+//     its 16 rows x all 32 keys over a quarter of C (an A fragment feeds 4 n
+//     blocks); the four partial tiles go through 20 KB of shared memory and
+//     are added in a fixed order. P V: warp w owns the 32-channel groups w
+//     and w + 8 of all 32 rows (a V fragment feeds 2 m blocks): 64
+//     accumulator registers, and 64 for the tile's.
+//   * Fragments are read without bank conflicts by 16-byte loads. Q and K
+//     rows are padded to C + 16 floats and lane t of a quad reads channels
+//     4t .. 4t + 3 of a 16-channel step: 4t and 4t + 1 are its k = t and t + 4
+//     of the first m16n8k8, 4t + 2 and 4t + 3 of the second (the order of k
+//     inside a step is free as long as A and B agree). V rows are padded to
+//     C + 8 floats, and the 4 n blocks of a group take interleaved channels
+//     (column j of block r is channel 4j + r of the group's 32), so lane g
+//     reads its B values of all four with one 16-byte load per key; the
+//     output store undoes the interleave. P goes through a 4.5 KB float tile.
+//   * Row max and sum cross the 4 warps of a row group through 1 KB of shared
+//     memory in a fixed order; the sum is taken from the unrounded p; the
+//     running max and sum, 1/l and LSE = m + log(l) stay float32 in
+//     registers, kept by every warp for all 32 rows. Runs are bit-stable.
+//   * Ragged shapes: rows past Nq or Nk are staged as zeros (cp.async
+//     zero-fill), keys past Nk scored -inf, rows past Nq never stored.
+//
+// The two backward kernels (both types).
 //   * One block of 256 threads owns BM = 32 rows (of Q; of K in the dK/dV
 //     kernel) and sweeps the other operand in tiles of BN = 128 rows; the
 //     sequential grid axis of the TPU kernel is the loop inside the block.
@@ -67,8 +114,7 @@
 //     the channels 4l..4l+3 of each 128-channel group.
 //   * The score tile (32 x 128) is a register-blocked product, 4 x 4 a thread
 //     (rows 4w+i, columns l + 32j), with C walked in chunks of KC = 32 staged
-//     in shared memory; a row's 128 scores then sit in one warp, so the
-//     running max and sum are warp shuffles and never touch shared memory.
+//     in shared memory.
 //   * P (or dS) goes through a 16 KB shared tile into the second product,
 //     whose other operand is staged JV = 16 rows (32 KB) at a time.
 //   * The dK/dV kernel never uses atomics: a block owns its K rows and sweeps
@@ -79,10 +125,10 @@
 //   * Ragged shapes: rows past Nq or Nk are staged as zeros, scored -inf (so
 //     their P is 0) and never stored. C must be a multiple of 128, at most
 //     512 (SANet's width).
-// Occupancy at batch 1: Nq = 4096 gives 128 blocks for 132 SMs, Nq = 1024
-// gives 32; K is not split across blocks (that needs a second pass). The
-// backward kernels' bfloat16 entry points still run float FMAs on converted
-// values: tensor cores for them are later work held to this file.
+// Occupancy at batch 1 (every kernel owns 32 rows a block): Nq = 4096 gives
+// 128 blocks for 132 SMs, Nq = 1024 gives 32; K is not split across blocks
+// (that needs a second pass). The backward kernels still run float FMAs on
+// converted values: tensor cores for them are later work held to this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,8 +146,8 @@ constexpr int KCP = KC + 4;        // padded row: float4 reads hit 8 bank groups
 constexpr int JV = 16;             // swept rows per chunk of the second product
 constexpr int CMAX = 512;          // widest C (4 groups of 128 channels)
 constexpr int THREADS = 256;
-// Each kernel is built for 1 and for 2 blocks per SM (MINB: 255 or 128
-// registers a thread) and a launch picks by its block count
+// The backward kernels are built for 1 and for 2 blocks per SM (MINB: 255
+// or 128 registers a thread) and a launch picks by its block count
 // (one_block_per_sm). -DB6_MIN_BLOCKS=1|2 forces one build for every launch
 // (tools/b6_compile_check.py --min-blocks), to compare the two.
 #ifndef B6_MIN_BLOCKS
@@ -146,16 +192,6 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 __device__ __forceinline__ float comp(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
@@ -292,78 +328,6 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0,
         store4(dst + (size_t)r * C + 128 * g + 4 * lane,
                make_float4(acc[i][g][0] * scale[i], acc[i][g][1] * scale[i],
                            acc[i][g][2] * scale[i], acc[i][g][3] * scale[i]));
-  }
-}
-
-// B6a (WITH_LSE false) and B6b (true) on the CUDA cores: the float32 entry
-// points. grid (ceil(Nq / BM), N).
-template <typename T, bool WITH_LSE, int MINB>
-__global__ void __launch_bounds__(THREADS, MINB)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int Nq, int Nk, int C) {
-  extern __shared__ __align__(16) float smem[];
-  float* stage = smem;
-  float* P = smem + STAGE_FLOATS;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BM;
-  const size_t n = blockIdx.y;
-  q += n * Nq * C;
-  k += n * Nk * C;
-  v += n * Nk * C;
-  o += n * Nq * C;
-
-  float m[RW], l[RW], acc[RW][NCC][4];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  zero_acc(acc);
-
-  for (int k0 = 0; k0 < Nk; k0 += BN) {
-    float s[RW][CJ];
-    score_tile(q, q0, Nq, k, k0, Nk, C, stage, s, tid);
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        if (k0 + lane + 32 * j >= Nk) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // every tile holds a column below Nk, so m_new is finite and every exp
-      // below takes a non-positive argument (exp(-inf) = 0 on the first tile)
-      const float m_new = fmaxf(m[i], warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        P[(RW * w + i) * BN + lane + 32 * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha + warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < NCC; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][g][e] *= alpha;
-    }
-    __syncwarp();
-    accumulate_tile(P, v, k0, Nk, C, stage, acc, tid);
-  }
-
-  float inv[RW];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) inv[i] = 1.f / l[i];
-  store_rows(o, q0, Nq, C, acc, inv, tid);
-  if (WITH_LSE && lane == 0) {
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const int r = q0 + RW * w + i;
-      if (r < Nq) lse[n * Nq + r] = m[i] + logf(l[i]);
-    }
   }
 }
 
@@ -623,6 +587,351 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 forward on the tensor cores, three TF32 products a fragment.
+
+namespace tf {
+
+constexpr int QM = 32;         // query rows a block owns
+constexpr int KN = 32;         // keys per tile
+constexpr int PSW = KN + 4;    // floats of a P row (padded)
+constexpr int SPW = KN + 8;    // floats of a partial score row (padded)
+constexpr int RED_FLOATS = 2 * (QM / 16) * 4 * 16;  // max and sum partials
+constexpr int PART_FLOATS = 4 * QM * SPW;           // 4 partial score tiles
+
+// floats of a Q or K row (16 mod 32: 16-byte fragment loads of 8 lanes hit 8
+// bank groups) and of a V row (8 mod 32); the V buffer is sized as K's
+__host__ __device__ constexpr int qk_stride(int C) { return C + 16; }
+__host__ __device__ constexpr int v_stride(int C) { return C + 8; }
+__host__ __device__ constexpr int smem_bytes(int C) {
+  return 4 * ((QM + 2 * KN) * qk_stride(C) + PART_FLOATS + QM * PSW +
+              RED_FLOATS);
+}
+
+// x = hi + lo, both TF32 as `mma` reads them. `mma` takes a tf32 operand
+// from the top 19 bits of its register and drops the other 13, so adding
+// half an ulp to the bits (0x1000) makes hi cvt.rna.tf32(x) for a finite x,
+// 1 instruction where `cvt.rna` compiles to 4 (it also tests for inf and
+// NaN); x - hi is exact in float, and lo is passed as it is, so `mma`
+// truncates it to 11 bits (rounding it too read no closer to the plain
+// version on the card and cost 4% of the kernel's time).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi & 0xffffe000u)));
+}
+
+// d = a b + c on one 16 x 8 block, TF32 operands, float sum. a[0]/a[1]:
+// rows g and g + 8, k = t; a[2]/a[3]: the same rows, k = t + 4; b0/b1:
+// column g, k = t and t + 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1,
+                                         const float* c) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// d = a b + c in three products, a = ah + al and b = bh + bl: the two
+// corrections first, then ah bh
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0, uint32_t bl1,
+                                     const float* c) {
+  mma_tf32(d, al, bh0, bh1, c);
+  mma_tf32(d, ah, bl0, bl1, d);
+  mma_tf32(d, ah, bh0, bh1, d);
+}
+
+}  // namespace tf
+
+// B6a (WITH_LSE false) and B6b (true), float32. grid (ceil(Nq / 32), N).
+template <bool WITH_LSE>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int Nq, int Nk, int C) {
+  using namespace tf;
+  extern __shared__ __align__(128) float smf[];
+  const int QS = qk_stride(C), VS = v_stride(C), CB = 4 * C;
+  float* qs = smf;
+  float* kbuf = qs + QM * QS;    // ring buffer 0: the K tiles
+  float* vbuf = kbuf + KN * QS;  // ring buffer 1: the V tiles
+  float* part = vbuf + KN * QS;  // [wq][row][key] partial scores
+  float* ps = part + PART_FLOATS;
+  float* red_max = ps + QM * PSW;
+  float* red_sum = red_max + RED_FLOATS / 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp >> 2, wq = warp & 3;  // row group, warp of the group
+  const int q0 = blockIdx.x * QM;
+  const size_t n = blockIdx.y;
+  const unsigned char* qg =
+      reinterpret_cast<const unsigned char*>(q + n * Nq * C);
+  const unsigned char* kg =
+      reinterpret_cast<const unsigned char*>(k + n * Nk * C);
+  const unsigned char* vg =
+      reinterpret_cast<const unsigned char*>(v + n * Nk * C);
+  o += n * Nq * C;
+  unsigned char* qs_b = reinterpret_cast<unsigned char*>(qs);
+  unsigned char* kbuf_b = reinterpret_cast<unsigned char*>(kbuf);
+  unsigned char* vbuf_b = reinterpret_cast<unsigned char*>(vbuf);
+
+  tc::stage_rows(qs_b, 4 * QS, qg, q0, QM, Nq, CB, warp, lane);
+  tc::stage_rows(kbuf_b, 4 * QS, kg, 0, KN, Nk, CB, warp, lane);
+  tc::cp_async_commit();
+
+  // the softmax state of rows 16mb + g (h = 0) and + 8 (h = 1), kept by
+  // every warp (the same operations in the same order: equal everywhere)
+  float m[2][2], l[2][2];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[mb][h] = -INFINITY;
+      l[mb][h] = 0.f;
+    }
+  // P V: this warp owns the 32-channel groups warp and warp + 8 (below C /
+  // 32) of all 32 rows; acc[gs][mb][r] is n block r of group warp + 8gs,
+  // m block mb: column j is channel 32 (warp + 8gs) + 4j + r; elements 0, 1
+  // row 16mb + g, columns 2t, 2t + 1; elements 2, 3 row 16mb + g + 8
+  float acc[2][2][4][4];
+#pragma unroll
+  for (int gs = 0; gs < 2; ++gs)
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gs][mb][r][e] = 0.f;
+  const int groups = C / 32;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int k0 = 0; k0 < Nk; k0 += KN) {
+    // K of this tile has landed; every warp is past the last tile's second
+    // product, so the V buffer and the P tile are free
+    tc::cp_async_wait_all();
+    __syncthreads();
+    tc::stage_rows(vbuf_b, 4 * VS, vg, k0, KN, Nk, CB, warp, lane);
+    tc::cp_async_commit();
+
+    // ---- partial scores of rows rg * 16 .. + 15 x the tile's 32 keys over
+    // the channels [wq C / 4, (wq + 1) C / 4), 16 at a time: lane t reads
+    // channels 4t .. 4t + 3 of each (4t, 4t + 1 are k = t, t + 4 of the
+    // first k-step, 4t + 2, 4t + 3 of the second)
+    float s[4][4];  // key block j: row g, keys 8j + 2t, + 1; row g + 8
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const float* qa = qs + (rg * 16 + g) * QS + wq * (C / 4) + 4 * t;
+    const float* kb = kbuf + g * QS + wq * (C / 4) + 4 * t;
+#pragma unroll 1
+    for (int c0 = 0; c0 < C / 4; c0 += 16) {
+      const float4 x0 = *reinterpret_cast<const float4*>(qa + c0);
+      const float4 x8 = *reinterpret_cast<const float4*>(qa + 8 * QS + c0);
+      float4 y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        y[j] = *reinterpret_cast<const float4*>(kb + 8 * j * QS + c0);
+      uint32_t ah[4], al[4];
+      float sum16[4][4];
+      split(x0.x, ah[0], al[0]);
+      split(x8.x, ah[1], al[1]);
+      split(x0.y, ah[2], al[2]);
+      split(x8.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(y[j].x, bh0, bl0);
+        split(y[j].y, bh1, bl1);
+        mma3(sum16[j], ah, al, bh0, bh1, bl0, bl1, zero);
+      }
+      split(x0.z, ah[0], al[0]);
+      split(x8.z, ah[1], al[1]);
+      split(x0.w, ah[2], al[2]);
+      split(x8.w, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(y[j].z, bh0, bl0);
+        split(y[j].w, bh1, bl1);
+        mma3(sum16[j], ah, al, bh0, bh1, bl0, bl1, sum16[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += sum16[j][e];
+    }
+    {
+      float* dst = part + wq * (QM * SPW) + (rg * 16 + g) * SPW + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(s[j][0], s[j][1]);
+        *reinterpret_cast<float2*>(dst + 8 * SPW + 8 * j) =
+            make_float2(s[j][2], s[j][3]);
+      }
+    }
+    __syncthreads();
+
+    // ---- the scores of rows rg * 16 + g (+ 8) x keys wq * 8 + 2t, + 1: the
+    // four partial sums added in order
+    float sc[4];
+    {
+      const float* src = part + (rg * 16 + g) * SPW + wq * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2 a = *reinterpret_cast<const float2*>(src + 8 * h * SPW);
+#pragma unroll
+        for (int w = 1; w < 4; ++w) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              src + w * (QM * SPW) + 8 * h * SPW);
+          a.x += b.x;
+          a.y += b.y;
+        }
+        sc[2 * h] = a.x;
+        sc[2 * h + 1] = a.y;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (k0 + wq * 8 + 2 * t + (e & 1) >= Nk) sc[e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[e]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t == 0) red_max[rg * 64 + wq * 16 + g + 8 * h] = mx[h];
+    }
+    __syncthreads();
+
+    // every tile holds a key below Nk, so m_new is finite and every exp
+    // below takes a non-positive argument (exp(-inf) = 0 on the first tile)
+    float alpha[2][2];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* rmax = red_max + mb * 64 + g + 8 * h;
+        const float m_new =
+            fmaxf(m[mb][h], fmaxf(fmaxf(rmax[0], rmax[16]),
+                                  fmaxf(rmax[32], rmax[48])));
+        alpha[mb][h] = expf(m[mb][h] - m_new);
+        m[mb][h] = m_new;
+        if (mb == rg) {  // this warp's scores: P and its row sum
+          const float p0 = expf(sc[2 * h] - m_new);
+          const float p1 = expf(sc[2 * h + 1] - m_new);
+          float sum = p0 + p1;
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          if (t == 0) red_sum[mb * 64 + wq * 16 + g + 8 * h] = sum;
+          *reinterpret_cast<float2*>(ps + (mb * 16 + g + 8 * h) * PSW +
+                                     wq * 8 + 2 * t) = make_float2(p0, p1);
+        }
+      }
+    // V of this tile has landed; P and the sums are written; every warp is
+    // past the score product, so the K buffer is free
+    tc::cp_async_wait_all();
+    __syncthreads();
+    if (k0 + KN < Nk)
+      tc::stage_rows(kbuf_b, 4 * QS, kg, k0 + KN, KN, Nk, CB, warp, lane);
+    tc::cp_async_commit();
+
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* rsum = red_sum + mb * 64 + g + 8 * h;
+        l[mb][h] = l[mb][h] * alpha[mb][h] +
+                   (((rsum[0] + rsum[16]) + rsum[32]) + rsum[48]);
+      }
+
+    // ---- tile = P V over the tile's 4 steps of 8 keys, then acc = acc *
+    // alpha + tile
+    float tile[2][2][4][4];
+#pragma unroll
+    for (int ks = 0; ks < KN / 8; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb) {
+        const float* pa = ps + (mb * 16 + g) * PSW + 8 * ks + t;
+        split(pa[0], ah[mb][0], al[mb][0]);
+        split(pa[8 * PSW], ah[mb][1], al[mb][1]);
+        split(pa[4], ah[mb][2], al[mb][2]);
+        split(pa[8 * PSW + 4], ah[mb][3], al[mb][3]);
+      }
+#pragma unroll
+      for (int gs = 0; gs < 2; ++gs) {
+        const int grp = warp + 8 * gs;
+        if (grp < groups) {
+          // keys 8ks + t and + 4, channels 32 grp + 4g .. + 3: column g of
+          // the group's 4 n blocks
+          const float* vb = vbuf + (8 * ks + t) * VS + 32 * grp + 4 * g;
+          const float4 v0 = *reinterpret_cast<const float4*>(vb);
+          const float4 v1 = *reinterpret_cast<const float4*>(vb + 4 * VS);
+          const float b0[4] = {v0.x, v0.y, v0.z, v0.w};
+          const float b1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(b0[r], bh0, bl0);
+            split(b1[r], bh1, bl1);
+#pragma unroll
+            for (int mb = 0; mb < 2; ++mb)
+              mma3(tile[gs][mb][r], ah[mb], al[mb], bh0, bh1, bl0, bl1,
+                   ks == 0 ? zero : tile[gs][mb][r]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int gs = 0; gs < 2; ++gs) {
+      if (warp + 8 * gs < groups) {
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[gs][mb][r][e] = fmaf(acc[gs][mb][r][e], alpha[mb][e >> 1],
+                                       tile[gs][mb][r][e]);
+      }
+    }
+  }
+
+  // columns 2t (element 2h) and 2t + 1 (2h + 1) of the group's n blocks 0..3:
+  // channels 32 grp + 8t .. + 3 and 32 grp + 8t + 4 .. + 7
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + mb * 16 + g + 8 * h;
+      if (row >= Nq) continue;
+      const float inv = 1.f / l[mb][h];
+#pragma unroll
+      for (int gs = 0; gs < 2; ++gs) {
+        const int grp = warp + 8 * gs;
+        if (grp < groups) {
+          const float(&a)[4][4] = acc[gs][mb];
+          float* dst = o + (size_t)row * C + 32 * grp + 8 * t;
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(a[0][2 * h] * inv, a[1][2 * h] * inv,
+                          a[2][2 * h] * inv, a[3][2 * h] * inv);
+          *reinterpret_cast<float4*>(dst + 4) =
+              make_float4(a[0][2 * h + 1] * inv, a[1][2 * h + 1] * inv,
+                          a[2][2 * h + 1] * inv, a[3][2 * h + 1] * inv);
+        }
+      }
+      if (WITH_LSE && warp == 0 && t == 0)
+        lse[n * Nq + row] = m[mb][h] + logf(l[mb][h]);
+    }
+}
+
 // B6c: dQ. grid (ceil(Nq / BM), N).
 template <typename T, int MINB>
 __global__ void __launch_bounds__(THREADS, MINB)
@@ -752,20 +1061,6 @@ bool one_block_per_sm(int blocks) {
   return blocks <= sms;
 }
 
-template <typename T, bool WITH_LSE, int MINB>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               int N, int Nq, int Nk, int C, void* stream) {
-  cudaError_t err = opt_in(flash_fwd_kernel<T, WITH_LSE, MINB>);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Nq + BM - 1) / BM, N);
-  flash_fwd_kernel<T, WITH_LSE, MINB>
-      <<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o),
-          static_cast<float*>(lse), Nq, Nk, C);
-  return (int)cudaGetLastError();
-}
-
 template <bool WITH_LSE>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
                    void* lse, int N, int Nq, int Nk, int C, void* stream) {
@@ -785,26 +1080,37 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// float32: the CUDA-core kernel; bfloat16: the tensor-core kernel
+template <bool WITH_LSE>
+int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int N, int Nq, int Nk, int C, void* stream) {
+  const int bytes = tf::smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<WITH_LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Nq + tf::QM - 1) / tf::QM, N);
+  flash_fwd_tf32_kernel<WITH_LSE>
+      <<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o),
+          static_cast<float*>(lse), Nq, Nk, C);
+  return (int)cudaGetLastError();
+}
+
+// float32: three TF32 products a fragment; bfloat16: one bf16 product
 template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int N,
         int Nq, int Nk, int C, void* stream) {
   if (!shape_ok(N, Nq, Nk, C)) return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return lse != nullptr
                ? launch_fwd_mma<true>(q, k, v, o, lse, N, Nq, Nk, C, stream)
                : launch_fwd_mma<false>(q, k, v, o, lse, N, Nq, Nk, C, stream);
-  } else {
-    const bool one = one_block_per_sm(((Nq + BM - 1) / BM) * N);
-    if (lse != nullptr)
-      return one
-                 ? launch_fwd<T, true, 1>(q, k, v, o, lse, N, Nq, Nk, C, stream)
-                 : launch_fwd<T, true, 2>(q, k, v, o, lse, N, Nq, Nk, C,
-                                          stream);
-    return one ? launch_fwd<T, false, 1>(q, k, v, o, lse, N, Nq, Nk, C, stream)
-               : launch_fwd<T, false, 2>(q, k, v, o, lse, N, Nq, Nk, C,
-                                         stream);
-  }
+  else
+    return lse != nullptr
+               ? launch_fwd_tf32<true>(q, k, v, o, lse, N, Nq, Nk, C, stream)
+               : launch_fwd_tf32<false>(q, k, v, o, lse, N, Nq, Nk, C,
+                                        stream);
 }
 
 template <typename T, int MINB>

@@ -24,12 +24,14 @@ float32; P and dS rounded to the tensors' type before their second
 product), which the CPU tests hold against rpst's kernels in interpret mode
 and a float64 numpy oracle. ``<wrapper>.launches`` counts kernel launches
 and nothing else; ``launch_counts()`` sums them as B6_fwd / B6_dq / B6_dkv.
-The two forward wrappers launch one of two kernels by the tensors' type:
-float32 the CUDA-core kernel (float32 products, which TF32 would not
-keep), bfloat16 the tensor-core kernel (``mma.sync`` on 32 query rows x 64
-keys per step, K and V tiles arriving by ``cp.async`` in a ring of two);
-``<wrapper>.launches_bf16`` counts the latter's launches among
-``launches``.
+The two forward wrappers launch one of two tensor-core kernels by the
+tensors' type, each with K and V tiles arriving by ``cp.async`` in a ring
+of two: bfloat16 one ``mma.sync`` bf16 product per fragment on 32 query
+rows x 64 keys a step; float32 three TF32 products per fragment (each
+operand split as hi + lo, as CUTLASS's fast float32 GEMM does, which keeps
+float32 accuracy where one TF32 product moves O by 5e-4 of its size) on 32
+query rows x 32 keys a step. ``<wrapper>.launches_bf16`` counts the bfloat16
+kernel's launches among ``launches``.
 
 The CUDA kernels mask ragged tiles themselves, so every Nq, Nk >= 1
 launches them: rpst's dense route for short or unaligned sequences
@@ -87,6 +89,47 @@ def flash_fwd_lse_plain(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
 def flash_fwd_plain(q, k, v) -> torch.Tensor:
     """B6a in plain PyTorch."""
     return flash_fwd_lse_plain(q, k, v)[0]
+
+
+def attention_f64(q, k, v) -> torch.Tensor:
+    """softmax(q k^T) v in float64 from the same inputs, on their device:
+    the oracle of the float32 forward at large logits."""
+    q, k, v = (t.double() for t in (q, k, v))
+    return torch.softmax(q @ k.transpose(-1, -2), dim=-1) @ v
+
+
+# The float32 forward's O (three TF32 products a fragment) is checked at
+# both ends of the logit scale. At inputs x 1, a tolerance of 1e-4 is ~0.4%
+# of max |O| and would pass one TF32 product, so O is also held to its own
+# size: max abs err <= F32_O_REL x max |ref|, mean <= F32_O_MEAN_REL x max
+# |ref| (a numpy emulation at (1, 1024, 1024, 512) read, against the plain
+# version: float32 summed in order 1.2e-6 / 9.8e-8, three TF32 products
+# 1.5e-6 / 1.0e-7, one TF32 product 5.3e-4 / 5.7e-5). At x 30 the logits
+# reach ~1e3 and any change of summation order moves O by more than 1e-4,
+# so O is held to a float64 oracle instead (``f32_oracle_limit``).
+F32_O_REL, F32_O_MEAN_REL = 1e-5, 1e-6
+F32_ORACLE_X, F32_ORACLE_FLOOR = 3.0, 2.0 ** -20
+# (Nq, Nk) one below, at and one above the float32 forward's tiles (32 query
+# rows x 32 keys), and into a third key tile: its tile-edge checks
+F32_FWD_EDGES = tuple((nq, nk) for nq in (31, 32, 33)
+                      for nk in (31, 32, 33)) + ((33, 65),)
+
+
+def f32_oracle_limit(plain, ref64) -> float:
+    """The most the float32 forward's O may lie from the float64 oracle
+    ``ref64`` (max abs): F32_ORACLE_X x the float32 plain version's error,
+    or x 2^-20 of max |ref64| (eight float32 ulps) where that is more.
+
+    The plain error is set by rows whose two largest logits nearly tie,
+    where rounding a score near 1e3 moves P by ~1e-3 in any float32 order;
+    a draw without such a row leaves plain copying one V row exactly, and
+    the floor then stands for the 22 of V's 24 bits that the split keeps.
+    In the emulation three products read 0.05-0.41 of this limit at
+    (1, 64, 64, 512), (2, 100, 70, 512) and (1, 1024, 1024, 512) x 30, one
+    product 92-406x it."""
+    e_plain = (plain.double() - ref64).abs().max().item()
+    size = ref64.abs().max().item()
+    return F32_ORACLE_X * max(e_plain, F32_ORACLE_FLOOR * size)
 
 
 def _p_ds(q, k, v, d_o, lse, delta):

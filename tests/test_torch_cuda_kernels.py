@@ -351,11 +351,12 @@ def test_b5_refuses_misaligned_and_mixed(cuda_device):
 from rpst_torch.ops import flash_attention as fa  # noqa: E402
 
 
-def _assert_bf16_o_close(got, ref):
+def _assert_o_close(got, ref, rel=BF16_O_REL, mean_rel=BF16_O_MEAN_REL):
+    """O within rel x max |ref|, its mean abs err within mean_rel x it."""
     got, ref = got.float(), ref.float()
     err, size = (got - ref).abs(), ref.abs().max().item()
-    assert err.max().item() <= BF16_O_REL * size
-    assert err.mean().item() <= BF16_O_MEAN_REL * size
+    assert err.max().item() <= rel * size
+    assert err.mean().item() <= mean_rel * size
 
 
 def _attention_inputs(seed, device, dtype, n, nq, nk, c, scale=1.0):
@@ -380,11 +381,14 @@ def _attention_inputs(seed, device, dtype, n, nq, nk, c, scale=1.0):
                                          ((5, 1024, 1024, 512), 1.0)])
 def test_b6_matches_plain_on_card(cuda_device, dtype, tol, shape, scale):
     """B6a-d against their plain versions: ragged tiles, every C the kernel
-    takes, both register builds (the last case has more blocks than SMs),
-    large logits (q and k x 30 at rpst's own 64 x 64 size, where the
-    softmax is one-hot; with many more keys two of them nearly tie in some
-    row, and float32 rounding of scores near 1e3 then moves that row's P by
-    ~1e-3 in either version); dK/dV bit-equal across two runs."""
+    takes, both register builds of B6c / B6d (the last case has more blocks
+    than SMs), large logits (q and k x 30 at rpst's own 64 x 64 size, where
+    the softmax is nearly one-hot; with many more keys two of them nearly
+    tie in some row, and float32 rounding of scores near 1e3 then moves that
+    row's P by ~1e-3 in either version; the float32 forward's O is there
+    held against a float64 oracle, by ``fa.f32_oracle_limit``); the float32
+    forward's O at x 1 also within 1e-5 (mean 1e-6) of its own largest value
+    (``fa.F32_O_REL``); dK/dV bit-equal across two runs."""
     q, k, v, d_o = _attention_inputs(0, cuda_device, dtype, *shape,
                                      scale=scale)
     before = fa.launch_counts()
@@ -402,15 +406,27 @@ def test_b6_matches_plain_on_card(cuda_device, dtype, tol, shape, scale):
                                   "B6_dkv": before["B6_dkv"] + 2}
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, d_o, ref_lse, delta)
-    for got, ref in ((o, ref_o), (o2, ref_o), (dk, ref_dk), (dv, ref_dv),
-                     (dq, fa.flash_bwd_dq_plain(q, k, v, d_o, ref_lse,
-                                                delta))):
+    f32_x30 = dtype == torch.float32 and scale != 1.0
+    held = [(dk, ref_dk), (dv, ref_dv),
+            (dq, fa.flash_bwd_dq_plain(q, k, v, d_o, ref_lse, delta))]
+    if not f32_x30:
+        held += [(o, ref_o), (o2, ref_o)]
+    for got, ref in held:
         assert got.dtype == dtype and torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
                                    atol=tol)
-    if dtype == torch.bfloat16:
-        _assert_bf16_o_close(o, ref_o)
-        _assert_bf16_o_close(o2, ref_o)
+    if f32_x30:
+        ref64 = fa.attention_f64(q, k, v)
+        limit = fa.f32_oracle_limit(ref_o, ref64)
+        for got in (o, o2):
+            assert torch.isfinite(got).all()
+            assert (got.double() - ref64).abs().max().item() <= limit
+    elif dtype == torch.float32:
+        _assert_o_close(o, ref_o, fa.F32_O_REL, fa.F32_O_MEAN_REL)
+        _assert_o_close(o2, ref_o, fa.F32_O_REL, fa.F32_O_MEAN_REL)
+    else:
+        _assert_o_close(o, ref_o)
+        _assert_o_close(o2, ref_o)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
 
 
@@ -439,7 +455,34 @@ def test_b6_bf16_forward_tile_edges_on_card(cuda_device, c, nq, nk):
     assert torch.isfinite(o.float()).all()
     torch.testing.assert_close(o.float(), ref_o.float(), rtol=BF16_TOL,
                                atol=BF16_TOL)
-    _assert_bf16_o_close(o, ref_o)
+    _assert_o_close(o, ref_o)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 256, 384, 512])
+@pytest.mark.parametrize("nq,nk", fa.F32_FWD_EDGES)
+def test_b6_f32_forward_tile_edges_on_card(cuda_device, c, nq, nk):
+    """The float32 forward (tensor cores, three TF32 products; 32 query rows
+    x 32 keys a tile) one below, at and one above each tile size and into a
+    third key tile, at every width, N = 3: O within 1e-4 of its plain
+    version and within 1e-5 (mean 1e-6) of its own largest value, LSE 1e-4,
+    B6a and B6b bit-equal to each other and from run to run; no launch
+    counts as a bfloat16 one."""
+    q, k, v, _ = _attention_inputs(c + nq + nk, cuda_device, torch.float32,
+                                   3, nq, nk, c)
+    before = (fa.flash_fwd.launches_bf16, fa.flash_fwd_lse.launches_bf16)
+    o = fa.flash_fwd(q, k, v)
+    o2, lse = fa.flash_fwd_lse(q, k, v)
+    o3 = fa.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches_bf16,
+            fa.flash_fwd_lse.launches_bf16) == before
+    ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(o, o3)
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o, ref_o, rtol=F32_TOL, atol=F32_TOL)
+    _assert_o_close(o, ref_o, fa.F32_O_REL, fa.F32_O_MEAN_REL)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
 
 

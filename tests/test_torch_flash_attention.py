@@ -244,3 +244,69 @@ def test_cpu_calls_count_no_launch():
     q, k, v, g = _inputs(12, 1, 8, 8, 4)
     _torch_grads(q, k, v, g)
     assert fa.launch_counts() == before
+
+
+def _tf32(x, nearest=True):
+    """float32 to TF32 (10 mantissa bits) in numpy: ``cvt.rna.tf32.f32``
+    (to nearest, ties away from zero), or truncated as ``mma`` reads an
+    operand's register."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if nearest:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a, b, products, chunk):
+    """a @ b as the float32 forward kernel forms it: exact products of TF32
+    operands, a = a_hi + a_lo and b = b_hi + b_lo with hi rounded to nearest
+    and lo = x - hi truncated (a_lo b_hi + a_hi b_lo + a_hi b_hi with three
+    products, a_hi b_hi with one), summed over ``chunk`` of the inner
+    dimension at a time, the chunk sums added in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b - b_hi, False)
+    terms = [(a_hi, b_hi)] if products == 1 else [(a_lo, b_hi), (a_hi, b_lo),
+                                                  (a_hi, b_hi)]
+    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for c0 in range(0, a.shape[1], chunk):
+        part = sum(x[:, c0:c0 + chunk].astype(np.float64)
+                   @ y[c0:c0 + chunk].astype(np.float64) for x, y in terms)
+        out = out + part.astype(np.float32)
+    return out
+
+
+def _tf32_attention(q, k, v, products):
+    """O of the float32 forward kernel's arithmetic: scores summed 16
+    channels at a time, P V 32 keys (a tile) at a time."""
+    s = _tf32_product(q, k.T, products, 16)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    l = p.sum(-1, keepdims=True, dtype=np.float32)
+    return _tf32_product(p, v, products, 32) / l
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0])
+@pytest.mark.parametrize("shape", [(2, 100, 70, 512), (1, 1024, 1024, 512),
+                                   (1, 64, 64, 512)],
+                         ids=["ragged", "relu5_1", "64x64"])
+def test_three_tf32_products_are_float32_accurate(shape, scale):
+    """The arithmetic of the float32 CUDA forward (three TF32 products per
+    operand pair), emulated in numpy on whole draws made as chip_smoke.py's
+    phase 23 makes them (its ``_attention_inputs``: all four tensors x scale
+    / C^(1/4)): O is no further from a float64 oracle than
+    ``f32_oracle_limit``, the limit phase 23 holds the kernel to at x 30;
+    one TF32 product misses that limit by more than 50x (it moves O by
+    ~5e-4 of its size at x 1). The two large draws hold rows whose two top
+    logits nearly tie at x 30, which set the plain version's error; the
+    64 x 64 one holds none, so there the limit is its float32 floor."""
+    n, nq, nk, c = shape
+    rng = np.random.default_rng(n + nq + nk)
+    q, k, v = (rng.standard_normal((n, m, c)).astype(np.float32)
+               * np.float32(scale / c ** 0.25) for m in (nq, nk, nk))
+    ref = _oracle(q, k, v)[0]
+    ref64 = fa.attention_f64(*_t(q, k, v))
+    np.testing.assert_allclose(ref64.numpy(), ref, rtol=1e-9, atol=1e-9)
+    limit = fa.f32_oracle_limit(fa.flash_fwd_plain(*_t(q, k, v)), ref64)
+    for products, bound in ((3, lambda e: e <= limit),
+                            (1, lambda e: e > 50 * limit)):
+        err = max(np.abs(_tf32_attention(q[i], k[i], v[i], products)
+                         - ref[i]).max() for i in range(n))
+        assert bound(err), (products, err, limit)

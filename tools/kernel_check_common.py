@@ -25,11 +25,15 @@ def parent_library(name: str, source: Path):
     return lib
 
 
-def sass_counts(name: str, mnemonics) -> str:
-    """'SASS: n IMMA, ...' of the built ``csrc/<name>.cu``, by cuobjdump."""
+def sass_counts(name: str, mnemonics, function: str = "") -> str:
+    """'SASS: n IMMA, ...' of the built ``csrc/<name>.cu``, by cuobjdump; with
+    ``function``, of the kernels whose (mangled) name contains it only."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return "cuobjdump not in the toolkit"
     text = subprocess.run([str(tool), "-sass", str(build.build(name))],
                           capture_output=True, text=True).stdout
+    if function:
+        text = "".join(part for part in text.split("Function : ")[1:]
+                       if function in part.split("\n", 1)[0])
     return "SASS: " + ", ".join(f"{text.count(m)} {m}" for m in mnemonics)

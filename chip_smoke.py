@@ -99,11 +99,19 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                1e-6; bf16 2e-2, 2e-3), and the f32 forward's O at x 30
                against a float64 oracle (at most 3x the plain version's
                error, or 3 x 2^-20 of max |O| where that is more:
-               rpst_torch.ops.flash_attention.f32_oracle_limit); each
+               rpst_torch.ops.flash_attention.f32_oracle_limit); the f32
+               dQ, dK, dV at x 1 also within 1e-5 (mean 1e-6) of max |ref|
+               from the float64 oracle of their own function
+               (attention_grads_f64 of the same LSE and Delta), at x 30
+               against it in place of plain (f32_oracle_limit); the
+               bf16 dQ, dK, dV within 2e-2 (mean 2e-3) of max |plain|
+               (rpst_torch.ops.flash_attention.check_backward); each
                forward (a tensor-core kernel per type) also
                around its tiles, bf16 32 x 64 at C = 128, 256, 384, f32
-               32 x 32 at C = 128-512, N = 3; dK/dV bit-equal across two
-               runs; each timed against plain and against
+               32 x 32 at C = 128-512, N = 3; the backward in both types
+               around its 16 x 32 tiles at C = 128-512, N = 3; dQ, dK, dV
+               bit-equal across two runs; each timed against plain and
+               against
                F.scaled_dot_product_attention(scale=1.0) and its autograd
                backward; B5 at the SANet path's six new shapes is in phase 17
  24. sanet fixture  the static SANet on the card vs rpst's JAX output
@@ -618,20 +626,25 @@ def main():
     # B6's numbers at relu4_1 of a 512px stylize, (1, 4096, 4096, 512) f32
     # (phase 23); library_ms is F.scaled_dot_product_attention(scale=1.0)
     # forward for B6a / B6b and its autograd backward, which yields dQ, dK
-    # and dV together, for B6c and B6d. The bfloat16 forward is a kernel of
-    # its own (tensor cores): its launches are the q8 serving path's and the
-    # bfloat16 train run's, the float32 kernel's are the others
+    # and dV together, for B6c and B6d. Each bfloat16 kernel is a kernel of
+    # its own (tensor cores, one bf16 product a fragment): the forward's
+    # launches are the q8 serving path's and the bfloat16 train run's, the
+    # backward's the bfloat16 train run's; the float32 kernels' are the
+    # others
     b6_launches = {"B6a": sanet_serve["B6a"] - sanet_serve["B6a_bf16"],
                    "B6b": sanet_train[0],
                    "B6c": sanet_train[1], "B6d": sanet_train[2],
                    "B6a_bf16": sanet_serve["B6a_bf16"],
-                   "B6b_bf16": sanet_train[3]}
+                   "B6b_bf16": sanet_train[3], "B6c_bf16": sanet_train[4],
+                   "B6d_bf16": sanet_train[5]}
     for key, fn_name, line in (("B6a", "flash_fwd", 260),
                                ("B6b", "flash_fwd_lse", 109),
                                ("B6c", "flash_bwd_dq", 220),
                                ("B6d", "flash_bwd_dkv", 240),
                                ("B6a_bf16", "flash_fwd_bf16", 260),
-                               ("B6b_bf16", "flash_fwd_lse_bf16", 109)):
+                               ("B6b_bf16", "flash_fwd_lse_bf16", 109),
+                               ("B6c_bf16", "flash_bwd_dq_bf16", 220),
+                               ("B6d_bf16", "flash_bwd_dkv_bf16", 240)):
         kernels["kernels"].append(
             {"name": fn_name, "route": "cuda",
              "source": "src/rpst_torch/csrc/flash_attention.cu",
@@ -1993,9 +2006,9 @@ def _sdpa_backends(q, k, v):
 
 
 def _b6_compare(label, dev, dtype, shape, scale, tol):
-    """B6a-d against their plain versions on one input (the float32 forward
-    at scale != 1 against the float64 oracle instead, by
-    ``fa.f32_oracle_limit``); returns the max abs error against plain per
+    """B6a-d against their plain versions on one input (float32 at scale !=
+    1, the forward's O and the gradients, against float64 oracles instead,
+    by ``fa.f32_oracle_limit``); returns the max abs error against plain per
     kernel held to it."""
     import torch
     from rpst_torch.ops import flash_attention as fa
@@ -2033,22 +2046,37 @@ def _b6_compare(label, dev, dtype, shape, scale, tol):
     if not torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL):
         raise AssertionError(f"B6b {label} lse: max abs err {lse_err}")
     delta = (d_o.float() * ref_o.float()).sum(-1)
-    dq = fa.flash_bwd_dq(q, k, v, d_o, ref_lse, delta)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, d_o, ref_lse, delta)
-    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, d_o, ref_lse, delta)
-    torch.cuda.synchronize()
-    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-        raise AssertionError(f"B6d {label}: dK/dV differ between two runs")
-    err["B6c"] = check_close(f"B6c {label}", dq, fa.flash_bwd_dq_plain(
-        q, k, v, d_o, ref_lse, delta), tol)[0]
-    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, d_o, ref_lse, delta)
-    err["B6d"] = max(check_close(f"B6d dk {label}", dk, ref_dk, tol)[0],
-                     check_close(f"B6d dv {label}", dv, ref_dv, tol)[0])
+    bwd, text, _ = _b6_backward(label, q, k, v, d_o, ref_lse, delta, scale,
+                                tol)
     log("23 B6 kernels", f"{label} {shape} {str(dtype)[6:]} x{scale:g}: max "
-        f"abs err {fwd} (lse {lse_err:.3g}), dq {err['B6c']:.3g}, dk/dv "
-        f"{err['B6d']:.3g} (tol {tol}); dK/dV bit-equal across two "
-        f"runs{scaled}")
-    return err
+        f"abs err {fwd} (lse {lse_err:.3g}), {text}{scaled}")
+    return {**err, **bwd}
+
+
+def _b6_backward(label, q, k, v, d_o, lse, delta, scale, tol):
+    """B6c and B6d under ``fa.check_backward``: against their plain
+    versions, at their own size (float32 at x 1 from the float64 oracle of
+    their own function, bfloat16 from the plain versions), float32 at x 30
+    from that oracle by ``fa.f32_oracle_limit`` in place of the plain
+    version, each run twice for bit-equal results. Returns the max abs error
+    against plain per kernel held to it, the log text, and the worst (max,
+    mean) share of max |ref| of the own-size checks (None where none was
+    taken)."""
+    from rpst_torch.ops import flash_attention as fa
+    try:
+        readings = fa.check_backward(q, k, v, d_o, lse, delta, tol, scale)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+    kernel = {"dq": "B6c", "dk": "B6d", "dv": "B6d"}
+    err, own = {}, None
+    for name, r in readings.items():
+        if r["plain"] is not None:
+            err[kernel[name]] = max(err.get(kernel[name], 0.0), r["plain"])
+        if "own" in r:
+            own = tuple(max(a, b) for a, b in zip(own or (0.0, 0.0),
+                                                  r["own"]))
+    return err, (f"{fa.describe_backward(readings)} (tol {tol}); dQ, dK, dV "
+                 f"bit-equal across two runs"), own
 
 
 def _b6_kernels(dev, name_power):
@@ -2059,7 +2087,7 @@ def _b6_kernels(dev, name_power):
     import torch
     from rpst_torch.ops import flash_attention as fa
     worst = {k: 0.0 for k in ("B6a", "B6b", "B6c", "B6d")}
-    worst_bf16 = {"B6a": 0.0, "B6b": 0.0}
+    worst_bf16 = {k: 0.0 for k in ("B6a", "B6b", "B6c", "B6d")}
     worst_rel = [0.0, 0.0]
     for shape in B6_FWD_EDGES:
         q, k, v, _ = _attention_inputs(dev, torch.bfloat16, *shape)
@@ -2111,6 +2139,36 @@ def _b6_kernels(dev, name_power):
         f"|ref| max {worst_rel[0]:.3g} (limit {fa.F32_O_REL}), mean "
         f"{worst_rel[1]:.3g} (limit {fa.F32_O_MEAN_REL}); B6a and B6b "
         f"bit-equal; lse within {LSE_TOL}")
+    # around the backward kernels' tiles (16 rows a block x 32 swept rows,
+    # both types), at every width, N = 3
+    edges_bwd = [(3, nq, nk, c) for c in (128, 256, 384, 512)
+                 for nq, nk in fa.BWD_EDGES]
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        edge, own = {"B6c": 0.0, "B6d": 0.0}, (0.0, 0.0)
+        for shape in edges_bwd:
+            q, k, v, d_o = _attention_inputs(dev, dtype, *shape)
+            ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
+            delta = (d_o.float() * ref_o.float()).sum(-1)
+            e, _, rel = _b6_backward(f"edge {shape}", q, k, v, d_o, ref_lse,
+                                     delta, 1.0, tol)
+            edge = {key: max(edge[key], e[key]) for key in edge}
+            own = tuple(max(a, b) for a, b in zip(own, rel or own))
+        for key, val in edge.items():
+            if dtype == torch.float32:
+                worst[key] = max(worst[key], val)
+            else:
+                worst_bf16[key] = max(worst_bf16[key], val)
+        log("23 B6 kernels", f"{str(dtype)[6:]} backward at "
+            f"{len(edges_bwd)} tile-edge shapes (N = 3; C 128-512; (Nq, "
+            f"Nk) {fa.BWD_EDGES}): max abs err dq {edge['B6c']:.3g}, dk/dv "
+            f"{edge['B6d']:.3g} (tol {tol}), from the "
+            + (f"float64 oracle max {own[0]:.3g} / mean {own[1]:.3g} of max "
+               f"|ref| (limits {fa.F32_GRAD_REL} / {fa.F32_GRAD_MEAN_REL})"
+               if dtype == torch.float32 else
+               f"plain version max {own[0]:.3g} / mean {own[1]:.3g} of max "
+               f"|ref| (limits {fa.BF16_GRAD_REL} / "
+               f"{fa.BF16_GRAD_MEAN_REL})")
+            + "; dQ, dK, dV bit-equal across two runs")
     for label, shape, dtype, scale in (
             ("ragged", (2, 100, 70, 512), torch.float32, 1.0),
             ("ragged", (2, 100, 70, 512), torch.bfloat16, 1.0),
@@ -2177,8 +2235,11 @@ def _b6_kernels(dev, name_power):
                     f"{'forward' if key in ('B6a', 'B6b') else 'backward'} "
                     f"{lib[key]:.4f} (backends that take the call: "
                     f"{backends}); bound {b_ms:.4f} ms by {b_by} "
-                    f"({100 * b_ms / ms[key]:.1f}% of it reached; "
-                    f"{name_power})")
+                    f"({100 * b_ms / ms[key]:.1f}% of it reached"
+                    + (f"; the 3xTF32 ceiling {3 * b_ms:.4f} ms, "
+                       f"{100 * 3 * b_ms / ms[key]:.1f}% of it"
+                       if kind == "f32" and b_by == "operations" else "")
+                    + f"; {name_power})")
                 if label == B6_JSON_SHAPE and (dtype == torch.float32
                                                or key in worst_bf16):
                     name = key if dtype == torch.float32 else key + "_bf16"
@@ -2466,7 +2527,7 @@ def _sanet_train(dev):
     same entry point in this process, counts reset before and read after.
     Then 2 steps in bfloat16 the same way. Returns the resumed run's B6
     forward-with-LSE / dQ / dK/dV launches and the bfloat16 run's forward-
-    with-LSE launches."""
+    with-LSE / dQ / dK/dV launches."""
     import importlib.util
     import numpy as np
 
@@ -2543,7 +2604,7 @@ def _sanet_train(dev):
         f"{[round(v, 4) for v in losses]}; B6 fwd+lse/dq/dkv launches "
         f"{launches} (2 steps x {B6_PER_STEP}); bfloat16, 2 steps: {bf16}, "
         f"total_loss {[round(ln['total_loss'], 4) for ln in bf16_lines]}")
-    return launches + (bf16_fwd,)
+    return launches + (bf16_fwd,) + bf16[1:]
 
 
 def _sanet_timing(dev, rng, name_power):

@@ -23,15 +23,14 @@
 //
 // What bounds it on the card. The relu4_1 module of a 512px stylize, Nq = Nk
 // = 4096 at C = 512, is 3.4e10 operations forward, against 25 MB of tensors:
-// bound by operations by three orders of magnitude. Both forward entry points
-// run their two products on the tensor cores. A float32 product must stay as
-// accurate as float32 (the logits are unscaled; one TF32 product moves O by
-// 5e-4 of its size), so the float32 forward runs three TF32 products per
-// fragment (below): its ceiling is a third of the 495 TFLOP/s TF32 rate the
-// bound is stated against, still 2.5x the 67 TFLOP/s of float FMAs on the
-// CUDA cores, which the backward kernels use. In both forwards the limit is
-// feeding `mma` from shared memory, and in float32 also the instructions that
-// split each operand.
+// bound by operations by three orders of magnitude. Every kernel runs its
+// products on the tensor cores. A float32 product must stay as accurate as
+// float32 (the logits are unscaled; one TF32 product moves O by 5e-4 of its
+// size, the gradients by 4e-4 to 8e-4), so the float32 kernels run three
+// TF32 products per fragment (below): their ceiling is a third of the 495
+// TFLOP/s TF32 rate the bound is stated against, still 2.5x the 67 TFLOP/s
+// of float FMAs on the CUDA cores. The limit is feeding `mma` from shared
+// memory, and in float32 also the instructions that split each operand.
 //
 // The bfloat16 forward (B6a, B6b: `flash_fwd_mma_kernel`).
 //   * bf16 x bf16 products are exact in float and summed in float
@@ -105,30 +104,50 @@
 //   * Ragged shapes: rows past Nq or Nk are staged as zeros (cp.async
 //     zero-fill), keys past Nk scored -inf, rows past Nq never stored.
 //
-// The two backward kernels (both types).
-//   * One block of 256 threads owns BM = 32 rows (of Q; of K in the dK/dV
-//     kernel) and sweeps the other operand in tiles of BN = 128 rows; the
-//     sequential grid axis of the TPU kernel is the loop inside the block.
-//   * C = 512 is the hard part: a (32, 512) float accumulator is 64 KB. It
-//     lives in registers, 64 a thread: warp w owns rows 4w..4w+3 and lane l
-//     the channels 4l..4l+3 of each 128-channel group.
-//   * The score tile (32 x 128) is a register-blocked product, 4 x 4 a thread
-//     (rows 4w+i, columns l + 32j), with C walked in chunks of KC = 32 staged
-//     in shared memory.
-//   * P (or dS) goes through a 16 KB shared tile into the second product,
-//     whose other operand is staged JV = 16 rows (32 KB) at a time.
-//   * The dK/dV kernel never uses atomics: a block owns its K rows and sweeps
-//     all Q tiles, so its sums have a fixed order. Two (32, 512) accumulators
-//     do not fit the registers, so the grid's y axis picks dV or dK and each
-//     half recomputes its score tile (10 products of a tile where a fused
-//     kernel would do 8).
-//   * Ragged shapes: rows past Nq or Nk are staged as zeros, scored -inf (so
-//     their P is 0) and never stored. C must be a multiple of 128, at most
-//     512 (SANet's width).
-// Occupancy at batch 1 (every kernel owns 32 rows a block): Nq = 4096 gives
-// 128 blocks for 132 SMs, Nq = 1024 gives 32; K is not split across blocks
-// (that needs a second pass). The backward kernels still run float FMAs on
-// converted values: tensor cores for them are later work held to this file.
+// The two backward kernels (B6c: `flash_bwd_dq_kernel`, B6d:
+// `flash_bwd_dkv_kernel`; both types, one source each).
+//   * A block of 256 threads owns RM = 16 rows (of Q in B6c, of K in B6d),
+//     resident in shared memory with their dO (or V) rows, and sweeps the
+//     other side in tiles of TN = 32 rows; the sequential grid axis of the
+//     TPU kernel is the loop inside the block. No sum crosses blocks, so
+//     there are no atomics and dQ, dK and dV are bit-equal run to run.
+//   * Products on the tensor cores as in the forward of the same type:
+//     bfloat16 one `mma.sync.m16n8k16` product per fragment (operands by
+//     `ldmatrix`, the transposed B operand by `ldmatrix.trans`; rows padded
+//     by 16 bytes so every 8-row load hits each bank once); float32 three
+//     TF32 `mma.sync.m16n8k8` products per fragment (`tf::split`,
+//     `tf::mma3`), fragments by 16-byte loads, a fresh `mma` chain per 8
+//     channels of a score and per tile of the second product, added to the
+//     float32 sums outside `mma`.
+//   * Per tile, the score tile S and dP = dO V^T (16 x 32 each), one after
+//     the other: in bfloat16 warp w forms the 16 x 8 block w % 4 over half
+//     of C (w / 4); in float32 the blocks 2 (w % 2) and + 1 over a quarter
+//     of C (w / 2), so a split A fragment feeds two blocks (eight 3-product
+//     chains in flight a warp). The parts go through shared memory (10 KB
+//     bf16, 20 KB f32) and are added in order, then P = exp(S - LSE) and
+//     dS = P (dP - Delta) are formed once per element (float; rounded to
+//     the tensors' type only where they are stored as the next product's A
+//     operand, as rpst casts them) into a 16 x 32 tile. Keys past Nk and rows past Nq give P = dS = 0
+//     explicitly (a zero row with LSE read as 0 would give P = 1).
+//   * Second products: warp w owns the 32-channel groups w and w + 8 of
+//     the block's 16 rows. B6c: dQ += dS K. B6d: dV += P^T dO, then dK +=
+//     dS^T Q, from the one score tile (8 tile products, where blocks split
+//     by output would form it twice, 10). The accumulators: 32 registers
+//     a thread for dQ, 64 for dK and dV.
+//   * The swept operands arrive through a two-buffer `cp.async` ring, one
+//     load in flight under each phase: B6c loads K_j under dO V_j^T and
+//     V_j+1 under S and dS K_j; B6d loads Q_j under V dO_j^T and dO_j+1
+//     under dS^T Q_j.
+//   * Shared memory at C = 512: float32 223 KB (a staged row is 2 KB), one
+//     block per SM; bfloat16 110 KB, two. Registers (ptxas): B6c 182 f32 /
+//     104 bf16, B6d 210 / 127, no spills. At batch 1, Nq = 4096 gives 256
+//     blocks, Nq = 1024 gives 64 for the 132 SMs.
+//   * What bounds them: in bfloat16 the swept side that each block re-reads,
+//     ~2 GB from L2 at (1, 4096, 4096, 512); in float32 the instructions
+//     that split each operand, as in the forward (~20% of the 3 x TF32
+//     ceiling; splitting the `mma` chains further gained 1.15x).
+// C must be a multiple of 128, at most 512 (SANet's width), for every
+// kernel of this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,197 +158,8 @@
 
 namespace {
 
-constexpr int BM = 32;             // rows a block owns
-constexpr int BN = 128;            // rows of the swept operand per tile
-constexpr int KC = 32;             // channels per staged chunk of a score tile
-constexpr int KCP = KC + 4;        // padded row: float4 reads hit 8 bank groups
-constexpr int JV = 16;             // swept rows per chunk of the second product
-constexpr int CMAX = 512;          // widest C (4 groups of 128 channels)
 constexpr int THREADS = 256;
-// The backward kernels are built for 1 and for 2 blocks per SM (MINB: 255
-// or 128 registers a thread) and a launch picks by its block count
-// (one_block_per_sm). -DB6_MIN_BLOCKS=1|2 forces one build for every launch
-// (tools/b6_compile_check.py --min-blocks), to compare the two.
-#ifndef B6_MIN_BLOCKS
-#define B6_MIN_BLOCKS 0
-#endif
-constexpr int RW = BM / (THREADS / 32);   // 4 rows per warp
-constexpr int CJ = BN / 32;               // 4 score columns per lane
-constexpr int NCC = CMAX / 128;           // 4 channel groups per lane
-// staging (the larger of the two phases) + the P / dS tile
-constexpr int STAGE_FLOATS =
-    (JV * CMAX > (BM + BN) * KCP) ? JV * CMAX : (BM + BN) * KCP;
-constexpr int SMEM_BYTES = (STAGE_FLOATS + BM * BN) * (int)sizeof(float);
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned int*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-// x rounded to the tensors' type, as a float
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float comp(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// Stage rows [r0, r0 + rows) x channels [c0, c0 + KC) of a (n_rows, C) matrix
-// into dst[rows][KCP] as floats; rows past n_rows become zeros.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(const T* __restrict__ src, int r0,
-                                            int n_rows, int rows, int C,
-                                            int c0, float* dst, int tid) {
-  for (int t = tid; t < rows * (KC / 4); t += THREADS) {
-    const int row = t / (KC / 4);
-    const int c4 = t % (KC / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < n_rows)
-      v = load4(src + (size_t)(r0 + row) * C + c0 + 4 * c4);
-    store4(dst + row * KCP + 4 * c4, v);
-  }
-}
-
-// s[i][j] = sum_c A[a0 + 4w + i][c] * B[b0 + lane + 32j][c]: the (BM, BN)
-// score tile, 4 x 4 a thread. Ends with every thread past the last read of
-// the staging buffer.
-template <typename T>
-__device__ __forceinline__ void score_tile(const T* __restrict__ A, int a0,
-                                           int na, const T* __restrict__ B,
-                                           int b0, int nb, int C, float* stage,
-                                           float (&s)[RW][CJ], int tid) {
-  float* As = stage;
-  float* Bs = stage + BM * KCP;
-  const int w = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    stage_chunk(A, a0, na, BM, C, c0, As, tid);
-    stage_chunk(B, b0, nb, BN, C, c0, Bs, tid);
-    __syncthreads();
-#pragma unroll
-    for (int c4 = 0; c4 < KC / 4; ++c4) {
-      float4 a[RW], b[CJ];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) a[i] = load4(As + (RW * w + i) * KCP + 4 * c4);
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) b[j] = load4(Bs + (lane + 32 * j) * KCP + 4 * c4);
-#pragma unroll
-      for (int i = 0; i < RW; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-}
-
-// acc[i][g][e] += sum_j P[4w + i][j] * V[b0 + j][128g + 4 lane + e] over the
-// tile's BN rows (those below nb): the second product, V staged JV rows at a
-// time. P is the block's shared (BM, BN) tile; a warp reads only the rows it
-// wrote. Ends with every thread past the last read of the staging buffer.
-template <typename T>
-__device__ __forceinline__ void accumulate_tile(const float* P,
-                                                const T* __restrict__ V,
-                                                int b0, int nb, int C,
-                                                float* stage,
-                                                float (&acc)[RW][NCC][4],
-                                                int tid) {
-  const int w = tid >> 5, lane = tid & 31;
-  const int c4n = C / 4;
-  for (int j0 = 0; j0 < BN && b0 + j0 < nb; j0 += JV) {
-    for (int t = tid; t < JV * c4n; t += THREADS) {
-      const int row = t / c4n;
-      const int c4 = t % c4n;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (b0 + j0 + row < nb)
-        v = load4(V + (size_t)(b0 + j0 + row) * C + 4 * c4);
-      store4(stage + row * C + 4 * c4, v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j4 = 0; j4 < JV; j4 += 4) {
-      float4 p[RW];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) p[i] = load4(P + (RW * w + i) * BN + j0 + j4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int g = 0; g < NCC; ++g) {
-          if (128 * g < C) {
-            const float4 v = load4(stage + (j4 + e) * C + 128 * g + 4 * lane);
-#pragma unroll
-            for (int i = 0; i < RW; ++i) {
-              const float pv = comp(p[i], e);
-              acc[i][g][0] = fmaf(pv, v.x, acc[i][g][0]);
-              acc[i][g][1] = fmaf(pv, v.y, acc[i][g][1]);
-              acc[i][g][2] = fmaf(pv, v.z, acc[i][g][2]);
-              acc[i][g][3] = fmaf(pv, v.w, acc[i][g][3]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[RW][NCC][4]) {
-#pragma unroll
-  for (int i = 0; i < RW; ++i)
-#pragma unroll
-    for (int g = 0; g < NCC; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
-}
-
-// Rows r0 + 4w + i (below n_rows) of a (n_rows, C) matrix <- acc * scale[i].
-template <typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0,
-                                           int n_rows, int C,
-                                           const float (&acc)[RW][NCC][4],
-                                           const float (&scale)[RW], int tid) {
-  const int w = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int r = r0 + RW * w + i;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int g = 0; g < NCC; ++g)
-      if (128 * g < C)
-        store4(dst + (size_t)r * C + 128 * g + 4 * lane,
-               make_float4(acc[i][g][0] * scale[i], acc[i][g][1] * scale[i],
-                           acc[i][g][2] * scale[i], acc[i][g][3] * scale[i]));
-  }
-}
+constexpr int CMAX = 512;  // widest C (SANet's width)
 
 // ---------------------------------------------------------------------------
 // The bfloat16 forward on the tensor cores.
@@ -375,6 +205,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices: lane l names row l % 8 of matrix l / 8;
+// register i holds, of matrix i, elements [g][2t] and [g][2t + 1].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 // Four 8 x 8 bf16 matrices, transposed: lane l names row l % 8 of matrix
@@ -932,133 +772,489 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 }
 
-// B6c: dQ. grid (ceil(Nq / BM), N).
-template <typename T, int MINB>
-__global__ void __launch_bounds__(THREADS, MINB)
+// ---------------------------------------------------------------------------
+// The backward kernels on the tensor cores (both types).
+
+namespace bw {
+
+constexpr int RM = 16;       // rows a block owns: of Q (B6c), of K (B6d)
+constexpr int TN = 32;       // rows of the swept operand per tile
+constexpr int SPW = TN + 8;  // floats of a partial score row (padded)
+
+// How the 8 warps share a 16 x 32 score tile: warp w forms NBW of its four
+// 16 x 8 blocks over one of PARTS parts of C. float32 two blocks over a
+// quarter (a split A fragment feeds both), bfloat16 one over a half.
+template <typename T>
+struct score_split {
+  static constexpr int NBW = std::is_same<T, float>::value ? 2 : 1;
+  static constexpr int PARTS = 2 * NBW;
+  // [S, dP][part of C][row][column]: the parts' partial scores
+  static constexpr int FLOATS = 2 * PARTS * RM * SPW;
+};
+
+// Elements of a staged row: C + 8 bf16 (16 bytes over: `ldmatrix` rows hit
+// every bank once) or C + 16 floats (16-byte fragment loads of 8 lanes hit
+// 8 bank groups). Elements of a P or dS tile row: 40 bf16 (80 bytes,
+// `ldmatrix`) or 36 floats (scalar fragment loads).
+template <typename T>
+__host__ __device__ constexpr int row_stride(int C) {
+  return std::is_same<T, float>::value ? C + 16 : C + 8;
+}
+template <typename T>
+__host__ __device__ constexpr int tile_stride() {
+  return std::is_same<T, float>::value ? TN + 4 : TN + 8;
+}
+// Q, dO (or K, V) resident, a K and a V (or Q and dO) tile, the partial
+// scores and two P / dS tiles: 223 KB in float32 at C = 512, one block per
+// SM; 110 KB in bfloat16, two
+template <typename T>
+__host__ __device__ constexpr int smem_bytes(int C) {
+  return (2 * RM + 2 * TN) * row_stride<T>(C) * (int)sizeof(T) +
+         score_split<T>::FLOATS * 4 +
+         2 * RM * tile_stride<T>() * (int)sizeof(T);
+}
+template <typename T>
+struct blocks_per_sm {
+  static constexpr int value = std::is_same<T, float>::value ? 1 : 2;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = tc::pack_bf16(a, b);
+}
+
+// s[j] += a b^T over the channels [c0, c1) on 16 x 8 block j: rows g and
+// g + 8 of a (the block's 16 rows), row g of the 8 rows b + 8j. float32:
+// two blocks, three TF32 products per fragment; lane t reads channels
+// 4t .. 4t + 3 of a 16-channel step (4t, 4t + 1 are k = t, t + 4 of its
+// first m16n8k8, 4t + 2, 4t + 3 of its second), and the A fragment is split
+// once for both blocks. Each m16n8k8 is a fresh `mma` chain of three
+// products, so two steps of 16 channels give eight independent chains
+// (`mma`'s latency, not its rate, bounds a chain); a step's two sums are
+// added, then the step's sum to s, in float32.
+__device__ __forceinline__ void score_part(float (&s)[2][4], const float* a,
+                                           const float* b, int rs, int c0,
+                                           int c1, int lane) {
+  constexpr int STEPS = 2;  // 16-channel steps per iteration
+  const int g = lane >> 2, t = lane & 3;
+  const float* pa = a + g * rs + 4 * t;
+  const float* pb = b + g * rs + 4 * t;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int c = c0; c < c1; c += 16 * STEPS) {
+    float sum[STEPS][2][2][4];  // step, block, k-step
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i) {
+      const int ci = c + 16 * i;
+      const float4 x0 = ld4(pa + ci), x8 = ld4(pa + 8 * rs + ci);
+      const float4 y[2] = {ld4(pb + ci), ld4(pb + 8 * rs + ci)};
+      uint32_t ah[2][4], al[2][4];
+      tf::split(x0.x, ah[0][0], al[0][0]);
+      tf::split(x8.x, ah[0][1], al[0][1]);
+      tf::split(x0.y, ah[0][2], al[0][2]);
+      tf::split(x8.y, ah[0][3], al[0][3]);
+      tf::split(x0.z, ah[1][0], al[1][0]);
+      tf::split(x8.z, ah[1][1], al[1][1]);
+      tf::split(x0.w, ah[1][2], al[1][2]);
+      tf::split(x8.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bh[4], bl[4];
+        tf::split(y[j].x, bh[0], bl[0]);
+        tf::split(y[j].y, bh[1], bl[1]);
+        tf::split(y[j].z, bh[2], bl[2]);
+        tf::split(y[j].w, bh[3], bl[3]);
+        tf::mma3(sum[i][j][0], ah[0], al[0], bh[0], bh[1], bl[0], bl[1],
+                 zero);
+        tf::mma3(sum[i][j][1], ah[1], al[1], bh[2], bh[3], bl[2], bl[3],
+                 zero);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += sum[i][j][0][e] + sum[i][j][1][e];
+  }
+}
+// bfloat16: one product per fragment, A and B by `ldmatrix`, 32 channels a
+// step, the two 16-channel halves of a step into two `mma` chains added at
+// the end.
+__device__ __forceinline__ void score_part(float (&s1)[1][4],
+                                           const __nv_bfloat16* a,
+                                           const __nv_bfloat16* b, int rs,
+                                           int c0, int c1, int lane) {
+  const __nv_bfloat16* pa = a + (lane & 15) * rs + 8 * (lane >> 4);
+  const __nv_bfloat16* pb = b + (lane & 7) * rs + 8 * (lane >> 3);
+  float(&s)[4] = s1[0];
+  float s2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+  for (int c = c0; c < c1; c += 32) {
+    uint32_t x[4], y[4], z[4];
+    tc::ldmatrix_x4(x, pa + c);
+    tc::ldmatrix_x4(y, pa + c + 16);
+    tc::ldmatrix_x4(z, pb + c);
+    tc::mma_bf16(s, x[0], x[1], x[2], x[3], z[0], z[1]);
+    tc::mma_bf16(s2, y[0], y[1], y[2], y[3], z[2], z[3]);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] += s2[e];
+}
+
+// A warp's NB partial score blocks nb0 .. nb0 + NB - 1 into the partial
+// tile `part` (rows g and g + 8, columns 8 nb + 2t, + 1)
+template <int NB>
+__device__ __forceinline__ void put_part(float* part, const float (&s)[NB][4],
+                                         int nb0, int lane) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float* p = part + (lane >> 2) * SPW + 8 * (nb0 + j) + 2 * (lane & 3);
+    store2(p, s[j][0], s[j][1]);
+    store2(p + 8 * SPW, s[j][2], s[j][3]);
+  }
+}
+// Element (r, c), (r, c + 1) of a score tile: its PARTS parts added in order
+template <int PARTS>
+__device__ __forceinline__ float2 sum_part(const float* part, int r, int c) {
+  float2 a = *reinterpret_cast<const float2*>(part + r * SPW + c);
+#pragma unroll
+  for (int i = 1; i < PARTS; ++i) {
+    const float2 b =
+        *reinterpret_cast<const float2*>(part + i * RM * SPW + r * SPW + c);
+    a.x += b.x;
+    a.y += b.y;
+  }
+  return a;
+}
+
+// acc += tile bt over the tile's TN rows: tile (RM x TN, P or dS) is the A
+// operand, bt (TN rows x C, k along its rows) the B operand. A warp owns the
+// 32-channel groups warp and warp + 8 (below C / 32), 4 n blocks each.
+// float32: column j of n block r is channel 32 grp + 4j + r, so lane g reads
+// its B values of all four with one 16-byte load per row; the tile's 12
+// products go into a fresh sum, added to acc in float32.
+__device__ __forceinline__ void second(float (&acc)[2][4][4],
+                                       const float* tile, const float* bt,
+                                       int rs, int C, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3, groups = C / 32;
+  constexpr int TS = tile_stride<float>();
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  float sum[2][4][4];
+#pragma unroll
+  for (int ks = 0; ks < TN / 8; ++ks) {
+    const float* pa = tile + g * TS + 8 * ks + t;
+    uint32_t ah[4], al[4];
+    tf::split(pa[0], ah[0], al[0]);
+    tf::split(pa[8 * TS], ah[1], al[1]);
+    tf::split(pa[4], ah[2], al[2]);
+    tf::split(pa[8 * TS + 4], ah[3], al[3]);
+#pragma unroll
+    for (int gs = 0; gs < 2; ++gs) {
+      const int grp = warp + 8 * gs;
+      if (grp < groups) {
+        const float* pb = bt + (8 * ks + t) * rs + 32 * grp + 4 * g;
+        const float4 v0 = ld4(pb), v1 = ld4(pb + 4 * rs);
+        const float b0[4] = {v0.x, v0.y, v0.z, v0.w};
+        const float b1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          uint32_t bh0, bl0, bh1, bl1;
+          tf::split(b0[r], bh0, bl0);
+          tf::split(b1[r], bh1, bl1);
+          tf::mma3(sum[gs][r], ah, al, bh0, bh1, bl0, bl1,
+                   ks == 0 ? zero : sum[gs][r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int gs = 0; gs < 2; ++gs)
+    if (warp + 8 * gs < groups)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gs][r][e] += sum[gs][r][e];
+}
+// bfloat16: n block nb of a group is channels 32 grp + 8 nb .. + 7; the tile
+// by `ldmatrix`, bt by `ldmatrix.trans`; summed in acc by `mma`.
+__device__ __forceinline__ void second(float (&acc)[2][4][4],
+                                       const __nv_bfloat16* tile,
+                                       const __nv_bfloat16* bt, int rs, int C,
+                                       int warp, int lane) {
+  const int groups = C / 32;
+  constexpr int TS = tile_stride<__nv_bfloat16>();
+  const __nv_bfloat16* pa = tile + (lane & 15) * TS + 8 * (lane >> 4);
+  // ldmatrix.trans: lane -> row (lane & 7) + 8 ((lane >> 3) & 1) of the
+  // step, channels + 8 (lane >> 4)
+  const __nv_bfloat16* pb =
+      bt + ((lane & 7) + 8 * ((lane >> 3) & 1)) * rs + 8 * (lane >> 4);
+#pragma unroll
+  for (int ks = 0; ks < TN / 16; ++ks) {
+    uint32_t a[4];
+    tc::ldmatrix_x4(a, pa + 16 * ks);
+#pragma unroll
+    for (int gs = 0; gs < 2; ++gs) {
+      const int grp = warp + 8 * gs;
+      if (grp < groups) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t b[4];
+          tc::ldmatrix_x4_trans(b, pb + 16 * ks * rs + 32 * grp + 16 * h);
+          tc::mma_bf16(acc[gs][2 * h], a[0], a[1], a[2], a[3], b[0], b[1]);
+          tc::mma_bf16(acc[gs][2 * h + 1], a[0], a[1], a[2], a[3], b[2],
+                       b[3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows g and g + 8 (below `rows`) of a block's 16 output rows from acc
+__device__ __forceinline__ void store_out(float* dst, int rows, int C,
+                                          const float (&acc)[2][4][4],
+                                          int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (g + 8 * h >= rows) continue;
+#pragma unroll
+    for (int gs = 0; gs < 2; ++gs) {
+      const int grp = warp + 8 * gs;
+      if (grp < C / 32) {
+        const float(&a)[4][4] = acc[gs];
+        float* d = dst + (size_t)(g + 8 * h) * C + 32 * grp + 8 * t;
+        *reinterpret_cast<float4*>(d) =
+            make_float4(a[0][2 * h], a[1][2 * h], a[2][2 * h], a[3][2 * h]);
+        *reinterpret_cast<float4*>(d + 4) =
+            make_float4(a[0][2 * h + 1], a[1][2 * h + 1], a[2][2 * h + 1],
+                        a[3][2 * h + 1]);
+      }
+    }
+  }
+}
+__device__ __forceinline__ void store_out(__nv_bfloat16* dst, int rows, int C,
+                                          const float (&acc)[2][4][4],
+                                          int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (g + 8 * h >= rows) continue;
+#pragma unroll
+    for (int gs = 0; gs < 2; ++gs) {
+      const int grp = warp + 8 * gs;
+      if (grp < C / 32)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          store2(dst + (size_t)(g + 8 * h) * C + 32 * grp + 8 * nb + 2 * t,
+                 acc[gs][nb][2 * h], acc[gs][nb][2 * h + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int gs = 0; gs < 2; ++gs)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[gs][r][e] = 0.f;
+}
+
+}  // namespace bw
+
+// B6c: dQ of the block's 16 query rows, the keys swept in tiles of 32.
+// grid (ceil(Nq / 16), N).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, bw::blocks_per_sm<T>::value)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ d_o,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int Nq, int Nk, int C) {
-  extern __shared__ __align__(16) float smem[];
-  float* stage = smem;
-  float* P = smem + STAGE_FLOATS;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BM;
+  using namespace bw;
+  extern __shared__ __align__(128) unsigned char sm[];
+  const int RS = row_stride<T>(C), TS = tile_stride<T>();
+  const int RB = RS * (int)sizeof(T), CB = C * (int)sizeof(T);
+  T* qs = reinterpret_cast<T*>(sm);
+  T* dos = qs + RM * RS;
+  T* kb = dos + RM * RS;  // ring buffer 0: the K tiles
+  T* vb = kb + TN * RS;   // ring buffer 1: the V tiles
+  float* part = reinterpret_cast<float*>(vb + TN * RS);
+  T* ds = reinterpret_cast<T*>(part + score_split<T>::FLOATS);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this warp's score blocks NBW nbg .. + NBW - 1 over part pc of C
+  constexpr int NBW = score_split<T>::NBW, PARTS = score_split<T>::PARTS;
+  const int nbg = warp % (4 / NBW), pc = warp / (4 / NBW);
+  const int c0 = pc * (C / PARTS), c1 = c0 + C / PARTS;
+  float* part_s = part + pc * RM * SPW;
+  float* part_dp = part + (PARTS + pc) * RM * SPW;
+  const int q0 = blockIdx.x * RM;
   const size_t n = blockIdx.y;
-  q += n * Nq * C;
-  d_o += n * Nq * C;
-  dq += n * Nq * C;
-  k += n * Nk * C;
-  v += n * Nk * C;
-  lse += n * Nq;
-  delta += n * Nq;
+  const auto bytes = [](const T* p) {
+    return reinterpret_cast<const unsigned char*>(p);
+  };
+  const unsigned char* kg = bytes(k + n * Nk * C);
+  const unsigned char* vg = bytes(v + n * Nk * C);
+  tc::stage_rows(sm, RB, bytes(q + n * Nq * C), q0, RM, Nq, CB, warp, lane);
+  tc::stage_rows(reinterpret_cast<unsigned char*>(dos), RB,
+                 bytes(d_o + n * Nq * C), q0, RM, Nq, CB, warp, lane);
+  tc::stage_rows(reinterpret_cast<unsigned char*>(vb), RB, vg, 0, TN, Nk, CB,
+                 warp, lane);
+  tc::cp_async_commit();
 
-  float row_lse[RW], row_delta[RW], acc[RW][NCC][4];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int r = q0 + RW * w + i;
-    row_lse[i] = r < Nq ? lse[r] : 0.f;
-    row_delta[i] = r < Nq ? delta[r] : 0.f;
-  }
-  zero_acc(acc);
+  // the element-wise step's two values: row er, keys ec and ec + 1
+  const int er = tid >> 4, ec = 2 * (tid & 15);
+  const bool row_ok = q0 + er < Nq;
+  const float row_lse = row_ok ? lse[n * Nq + q0 + er] : 0.f;
+  const float row_delta = row_ok ? delta[n * Nq + q0 + er] : 0.f;
+  float acc[2][4][4];
+  zero(acc);
 
-  for (int k0 = 0; k0 < Nk; k0 += BN) {
-    float s[RW][CJ], dp[RW][CJ];
-    score_tile(q, q0, Nq, k, k0, Nk, C, stage, s, tid);
-    score_tile(d_o, q0, Nq, v, k0, Nk, C, stage, dp, tid);
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const bool ok = k0 + lane + 32 * j < Nk && q0 + RW * w + i < Nq;
-        const float p = ok ? expf(s[i][j] - row_lse[i]) : 0.f;
-        P[(RW * w + i) * BN + lane + 32 * j] =
-            round_to<T>(p * (dp[i][j] - row_delta[i]));
-      }
-    __syncwarp();
-    accumulate_tile(P, k, k0, Nk, C, stage, acc, tid);
+  for (int k0 = 0; k0 < Nk; k0 += TN) {
+    // V of this tile has landed; every warp is past the last tile's dS K,
+    // so the K buffer is free
+    tc::cp_async_wait_all();
+    __syncthreads();
+    tc::stage_rows(reinterpret_cast<unsigned char*>(kb), RB, kg, k0, TN, Nk,
+                   CB, warp, lane);
+    tc::cp_async_commit();
+    float dp[NBW][4] = {};
+    score_part(dp, dos, vb + 8 * NBW * nbg * RS, RS, c0, c1, lane);
+    put_part(part_dp, dp, NBW * nbg, lane);
+    // K of this tile has landed; every warp is past dO V^T, so the V buffer
+    // is free
+    tc::cp_async_wait_all();
+    __syncthreads();
+    if (k0 + TN < Nk)
+      tc::stage_rows(reinterpret_cast<unsigned char*>(vb), RB, vg, k0 + TN,
+                     TN, Nk, CB, warp, lane);
+    tc::cp_async_commit();
+    float s[NBW][4] = {};
+    score_part(s, qs, kb + 8 * NBW * nbg * RS, RS, c0, c1, lane);
+    put_part(part_s, s, NBW * nbg, lane);
+    __syncthreads();
+    {
+      const float2 sv = sum_part<PARTS>(part, er, ec);
+      const float2 dv = sum_part<PARTS>(part + PARTS * RM * SPW, er, ec);
+      const float p0 = row_ok && k0 + ec < Nk ? expf(sv.x - row_lse) : 0.f;
+      const float p1 =
+          row_ok && k0 + ec + 1 < Nk ? expf(sv.y - row_lse) : 0.f;
+      store2(ds + er * TS + ec, p0 * (dv.x - row_delta),
+             p1 * (dv.y - row_delta));
+    }
+    __syncthreads();
+    second(acc, ds, kb, RS, C, warp, lane);
   }
-  const float one[RW] = {1.f, 1.f, 1.f, 1.f};
-  store_rows(dq, q0, Nq, C, acc, one, tid);
+  store_out(dq + (n * Nq + q0) * C, Nq - q0, C, acc, warp, lane);
 }
 
-// B6d: dV (blockIdx.y == 0) or dK (1) of the block's BM rows of K, swept over
-// all Q tiles in order. grid (ceil(Nk / BM), 2, N).
-template <typename T, int MINB>
-__global__ void __launch_bounds__(THREADS, MINB)
+// B6d: dK and dV of the block's 16 key rows, the queries swept in tiles of
+// 32 in order (no atomics). grid (ceil(Nk / 16), N).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, bw::blocks_per_sm<T>::value)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ d_o,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
                          T* __restrict__ dv, int Nq, int Nk, int C) {
-  extern __shared__ __align__(16) float smem[];
-  float* stage = smem;
-  float* P = smem + STAGE_FLOATS;
-  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
-  const int j0 = blockIdx.x * BM;
-  const bool want_dk = blockIdx.y == 1;
-  const size_t n = blockIdx.z;
-  q += n * Nq * C;
-  d_o += n * Nq * C;
-  k += n * Nk * C;
-  v += n * Nk * C;
+  using namespace bw;
+  extern __shared__ __align__(128) unsigned char sm[];
+  const int RS = row_stride<T>(C), TS = tile_stride<T>();
+  const int RB = RS * (int)sizeof(T), CB = C * (int)sizeof(T);
+  T* ks = reinterpret_cast<T*>(sm);
+  T* vs = ks + RM * RS;
+  T* qb = vs + RM * RS;   // ring buffer 0: the Q tiles
+  T* dob = qb + TN * RS;  // ring buffer 1: the dO tiles
+  float* part = reinterpret_cast<float*>(dob + TN * RS);
+  T* pt = reinterpret_cast<T*>(part + score_split<T>::FLOATS);  // P^T
+  T* dst = pt + RM * TS;                               // dS^T
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this warp's score blocks NBW nbg .. + NBW - 1 over part pc of C
+  constexpr int NBW = score_split<T>::NBW, PARTS = score_split<T>::PARTS;
+  const int nbg = warp % (4 / NBW), pc = warp / (4 / NBW);
+  const int c0 = pc * (C / PARTS), c1 = c0 + C / PARTS;
+  float* part_s = part + pc * RM * SPW;
+  float* part_dp = part + (PARTS + pc) * RM * SPW;
+  const int j0 = blockIdx.x * RM;
+  const size_t n = blockIdx.y;
+  const auto bytes = [](const T* p) {
+    return reinterpret_cast<const unsigned char*>(p);
+  };
+  const unsigned char* qg = bytes(q + n * Nq * C);
+  const unsigned char* dog = bytes(d_o + n * Nq * C);
   lse += n * Nq;
   delta += n * Nq;
-  T* out = (want_dk ? dk : dv) + n * Nk * C;
+  tc::stage_rows(sm, RB, bytes(k + n * Nk * C), j0, RM, Nk, CB, warp, lane);
+  tc::stage_rows(reinterpret_cast<unsigned char*>(vs), RB,
+                 bytes(v + n * Nk * C), j0, RM, Nk, CB, warp, lane);
+  tc::stage_rows(reinterpret_cast<unsigned char*>(dob), RB, dog, 0, TN, Nq,
+                 CB, warp, lane);
+  tc::cp_async_commit();
 
-  float acc[RW][NCC][4];
-  zero_acc(acc);
+  // the element-wise step's two values: key er, queries ec and ec + 1
+  const int er = tid >> 4, ec = 2 * (tid & 15);
+  const bool key_ok = j0 + er < Nk;
+  float acc_k[2][4][4], acc_v[2][4][4];
+  zero(acc_k);
+  zero(acc_v);
 
-  for (int r0 = 0; r0 < Nq; r0 += BN) {
-    // the tile transposed: s[i][j] = S[r0 + lane + 32j][j0 + 4w + i]
-    float s[RW][CJ], dp[RW][CJ], col_lse[CJ], col_delta[CJ];
+  for (int q0 = 0; q0 < Nq; q0 += TN) {
+    // dO of this tile has landed; every warp is past the last tile's
+    // dS^T Q, so the Q buffer is free
+    tc::cp_async_wait_all();
+    __syncthreads();
+    tc::stage_rows(reinterpret_cast<unsigned char*>(qb), RB, qg, q0, TN, Nq,
+                   CB, warp, lane);
+    tc::cp_async_commit();
+    float dp[NBW][4] = {};
+    score_part(dp, vs, dob + 8 * NBW * nbg * RS, RS, c0, c1, lane);
+    put_part(part_dp, dp, NBW * nbg, lane);
+    tc::cp_async_wait_all();  // Q of this tile has landed
+    __syncthreads();
+    float s[NBW][4] = {};
+    score_part(s, ks, qb + 8 * NBW * nbg * RS, RS, c0, c1, lane);
+    put_part(part_s, s, NBW * nbg, lane);
+    __syncthreads();
+    {
+      const float2 sv = sum_part<PARTS>(part, er, ec);
+      const float2 dpv = sum_part<PARTS>(part + PARTS * RM * SPW, er, ec);
+      const float sc[2] = {sv.x, sv.y}, dd[2] = {dpv.x, dpv.y};
+      float p[2], d[2];
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const int r = r0 + lane + 32 * j;
-      col_lse[j] = r < Nq ? lse[r] : 0.f;
-      col_delta[j] = r < Nq ? delta[r] : 0.f;
-    }
-    score_tile(k, j0, Nk, q, r0, Nq, C, stage, s, tid);
-    if (want_dk) score_tile(v, j0, Nk, d_o, r0, Nq, C, stage, dp, tid);
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const bool ok = r0 + lane + 32 * j < Nq && j0 + RW * w + i < Nk;
-        const float p = ok ? expf(s[i][j] - col_lse[j]) : 0.f;
-        P[(RW * w + i) * BN + lane + 32 * j] =
-            round_to<T>(want_dk ? p * (dp[i][j] - col_delta[j]) : p);
+      for (int e = 0; e < 2; ++e) {
+        const int col = q0 + ec + e;
+        const bool ok = key_ok && col < Nq;
+        p[e] = ok ? expf(sc[e] - lse[col]) : 0.f;
+        d[e] = ok ? p[e] * (dd[e] - delta[col]) : 0.f;
       }
-    __syncwarp();
-    accumulate_tile(P, want_dk ? q : d_o, r0, Nq, C, stage, acc, tid);
+      store2(pt + er * TS + ec, p[0], p[1]);
+      store2(dst + er * TS + ec, d[0], d[1]);
+    }
+    __syncthreads();
+    second(acc_v, pt, dob, RS, C, warp, lane);
+    // every warp is past P^T dO, so the dO buffer is free
+    __syncthreads();
+    if (q0 + TN < Nq)
+      tc::stage_rows(reinterpret_cast<unsigned char*>(dob), RB, dog, q0 + TN,
+                     TN, Nq, CB, warp, lane);
+    tc::cp_async_commit();
+    second(acc_k, dst, qb, RS, C, warp, lane);
   }
-  const float one[RW] = {1.f, 1.f, 1.f, 1.f};
-  store_rows(out, j0, Nk, C, acc, one, tid);
-}
-
-template <typename K>
-cudaError_t opt_in(K kernel) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  store_out(dk + (n * Nk + j0) * C, Nk - j0, C, acc_k, warp, lane);
+  store_out(dv + (n * Nk + j0) * C, Nk - j0, C, acc_v, warp, lane);
 }
 
 bool shape_ok(int N, int Nq, int Nk, int C) {
   return N >= 1 && N <= 65535 && Nq >= 1 && Nk >= 1 && C >= 128 &&
          C <= CMAX && C % 128 == 0;
-}
-
-// Which register budget a launch of `blocks` blocks takes: when they fit one
-// per SM, the 255-register build (no spills; a second resident block would
-// find no work), else the 128-register build with two blocks per SM.
-bool one_block_per_sm(int blocks) {
-  if (B6_MIN_BLOCKS) return B6_MIN_BLOCKS == 1;
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return false;
-  return blocks <= sms;
 }
 
 template <bool WITH_LSE>
@@ -1113,15 +1309,29 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int N,
                                         stream);
 }
 
-template <typename T, int MINB>
-int launch_dq(const void* q, const void* k, const void* v, const void* d_o,
-              const void* lse, const void* delta, void* dq, int N, int Nq,
-              int Nk, int C, void* stream) {
-  cudaError_t err = opt_in(flash_bwd_dq_kernel<T, MINB>);
+// Shared memory beyond 48 KB, and the carveout that holds two bfloat16
+// blocks on an SM
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T>
+int bwd_dq(const void* q, const void* k, const void* v, const void* d_o,
+           const void* lse, const void* delta, void* dq, int N, int Nq, int Nk,
+           int C, void* stream) {
+  if (!shape_ok(N, Nq, Nk, C)) return (int)cudaErrorInvalidValue;
+  const int bytes = bw::smem_bytes<T>(C);
+  const cudaError_t err = opt_in(flash_bwd_dq_kernel<T>, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Nq + BM - 1) / BM, N);
-  flash_bwd_dq_kernel<T, MINB>
-      <<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((Nq + bw::RM - 1) / bw::RM, N);
+  flash_bwd_dq_kernel<T>
+      <<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(d_o),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1130,43 +1340,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* d_o,
 }
 
 template <typename T>
-int bwd_dq(const void* q, const void* k, const void* v, const void* d_o,
-           const void* lse, const void* delta, void* dq, int N, int Nq, int Nk,
-           int C, void* stream) {
+int bwd_dkv(const void* q, const void* k, const void* v, const void* d_o,
+            const void* lse, const void* delta, void* dk, void* dv, int N,
+            int Nq, int Nk, int C, void* stream) {
   if (!shape_ok(N, Nq, Nk, C)) return (int)cudaErrorInvalidValue;
-  return one_block_per_sm(((Nq + BM - 1) / BM) * N)
-             ? launch_dq<T, 1>(q, k, v, d_o, lse, delta, dq, N, Nq, Nk, C,
-                               stream)
-             : launch_dq<T, 2>(q, k, v, d_o, lse, delta, dq, N, Nq, Nk, C,
-                               stream);
-}
-
-template <typename T, int MINB>
-int launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
-               const void* lse, const void* delta, void* dk, void* dv, int N,
-               int Nq, int Nk, int C, void* stream) {
-  cudaError_t err = opt_in(flash_bwd_dkv_kernel<T, MINB>);
+  const int bytes = bw::smem_bytes<T>(C);
+  const cudaError_t err = opt_in(flash_bwd_dkv_kernel<T>, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Nk + BM - 1) / BM, 2, N);
-  flash_bwd_dkv_kernel<T, MINB>
-      <<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((Nk + bw::RM - 1) / bw::RM, N);
+  flash_bwd_dkv_kernel<T>
+      <<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(d_o),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
           static_cast<T*>(dk), static_cast<T*>(dv), Nq, Nk, C);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* d_o,
-            const void* lse, const void* delta, void* dk, void* dv, int N,
-            int Nq, int Nk, int C, void* stream) {
-  if (!shape_ok(N, Nq, Nk, C)) return (int)cudaErrorInvalidValue;
-  return one_block_per_sm(((Nk + BM - 1) / BM) * 2 * N)
-             ? launch_dkv<T, 1>(q, k, v, d_o, lse, delta, dk, dv, N, Nq, Nk,
-                                C, stream)
-             : launch_dkv<T, 2>(q, k, v, d_o, lse, delta, dk, dv, N, Nq, Nk,
-                                C, stream);
 }
 
 }  // namespace

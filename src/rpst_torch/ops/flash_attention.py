@@ -31,7 +31,12 @@ rows x 64 keys a step; float32 three TF32 products per fragment (each
 operand split as hi + lo, as CUTLASS's fast float32 GEMM does, which keeps
 float32 accuracy where one TF32 product moves O by 5e-4 of its size) on 32
 query rows x 32 keys a step. ``<wrapper>.launches_bf16`` counts the bfloat16
-kernel's launches among ``launches``.
+kernel's launches among ``launches``. The two backward wrappers launch one
+kernel each, both types on the tensor cores in the same way (bf16 one
+product, float32 three, a fragment): a block owns 16 rows (of Q for dQ, of
+K for dK/dV) and sweeps the other side in tiles of 32 through a ``cp.async``
+ring of two; dK/dV come from one sweep (the score tile is formed once for
+both), and no sum uses atomics, so both are bit-equal run to run.
 
 The CUDA kernels mask ragged tiles themselves, so every Nq, Nk >= 1
 launches them: rpst's dense route for short or unaligned sequences
@@ -130,6 +135,64 @@ def f32_oracle_limit(plain, ref64) -> float:
     e_plain = (plain.double() - ref64).abs().max().item()
     size = ref64.abs().max().item()
     return F32_ORACLE_X * max(e_plain, F32_ORACLE_FLOOR * size)
+
+
+def attention_grads_f64(q, k, v, d_o, lse=None, delta=None):
+    """(dQ, dK, dV) in float64 from the same inputs, on their device: the
+    oracle of the backward kernels. Without ``lse`` and ``delta``, the
+    gradients of sum(softmax(q k^T) v * d_o); with them, the backward
+    kernels' own function of those rows, P = exp(q k^T - lse) and dS = P *
+    (d_o v^T - delta), each product in float64.
+
+    The second is what B6c / B6d are held to at large logits: there a
+    score near 1e3 carries ~1e-3 of float32 rounding in any summation order,
+    and exp(S - LSE) turns a score that differs from the one LSE was taken
+    from into a relative error of P of that size. Given the plain forward's
+    LSE, the plain backward forms its scores in the same (cuBLAS's) order
+    and the kernels do not, so at x 30 the kernels lie ~1e-3 of their size
+    from the plain version (far past 1e-4) while lying closer than it to
+    this oracle."""
+    q, k, v, d_o = (t.double() for t in (q, k, v, d_o))
+    s = q @ k.transpose(-1, -2)
+    dp = d_o @ v.transpose(-1, -2)
+    if lse is None:
+        p = torch.softmax(s, dim=-1)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    else:
+        p = torch.exp(s - lse.double().unsqueeze(-1))
+        ds = p * (dp - delta.double().unsqueeze(-1))
+    return (ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ d_o)
+
+
+# The float32 backward (three TF32 products a fragment) is held to its own
+# size at inputs x 1 as the forward's O is: max abs err <= F32_GRAD_REL x
+# max |ref|, mean <= F32_GRAD_MEAN_REL x max |ref|, ref the float64 oracle
+# ``attention_grads_f64`` of the kernels' own function. A numpy emulation of
+# the kernels' arithmetic (tests/test_torch_flash_attention.py) at (2, 100,
+# 70, 512), (1, 1024, 1024, 512) and (1, 64, 64, 512) read for dQ, dK, dV:
+# three products at most 4.8e-7 / 3.4e-8 (max / mean), the float32 plain
+# version 1.4e-6 / 8e-8, one TF32 product 4.0e-4 to 7.5e-4 / 5.3e-5 to
+# 6.9e-5. At x 30 the kernels are held to ``f32_oracle_limit`` against the
+# same oracle (three products 0.06-0.24 of it there, one 141-539x). With
+# one key, P = 1 and dS = P (dO V^T - Delta) = 0: dQ and dK are then the
+# rounding of Delta, with no size of their own, and take no own-size check
+# (as a bias gradient that is zero by construction takes no relative one).
+F32_GRAD_REL, F32_GRAD_MEAN_REL = 1e-5, 1e-6
+# The bfloat16 backward is held to its own size against the plain versions
+# as the bfloat16 forward's O is. With entries of std C^-1/4 a gradient
+# entry is ~1e-2 to 1e-1, so rtol = atol = 2e-2 alone would pass a kernel
+# 30-50% off or one that drops a swept tile. Both versions compute one
+# function (P and dS rounded to bfloat16 before their second product) in
+# other orders and round each gradient once, so they differ by about one
+# bfloat16 ulp at an element (up to 2^-7 of it) where the float sums fall on
+# either side of a rounding step: max abs err <= BF16_GRAD_REL x max |plain|
+# (two ulps of the largest value), mean <= BF16_GRAD_MEAN_REL x max |plain|.
+BF16_GRAD_REL, BF16_GRAD_MEAN_REL = 2e-2, 2e-3
+# (Nq, Nk) one below, at and one above the backward kernels' tiles (16 rows
+# a block, of Q in B6c and of K in B6d, x 32 swept rows), in both roles,
+# and into a third swept tile: their tile-edge checks
+BWD_EDGES = ((15, 31), (16, 32), (17, 33), (31, 15), (32, 16), (33, 17),
+             (17, 65), (65, 17))
 
 
 def _p_ds(q, k, v, d_o, lse, delta):
@@ -250,7 +313,8 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, d_o, lse, delta):
     """(dK, dV), each (N, Nk, C) in k's type; deterministic run to run (a
-    block owns its K rows and sweeps the Q tiles in order, no atomics)."""
+    block owns its K rows and sweeps the Q tiles in order, no atomics), as
+    dQ is (a block owns its Q rows)."""
     n, nq, nk, c = _check("flash_bwd_dkv", q, k, v, (("d_o", d_o),),
                           (("lse", lse), ("delta", delta)))
     if q.device.type == "cpu":
@@ -263,6 +327,95 @@ def flash_bwd_dkv(q, k, v, d_o, lse, delta):
 
 
 flash_bwd_dkv.launches = 0
+
+
+def backward_readings(q, k, v, d_o, lse, delta, grads, tol, scale=1.0):
+    """How the (dQ, dK, dV) ``grads`` of B6c / B6d (or of a variant of them)
+    lie from what the card checks hold them to, and whether they pass:
+
+      * float32 at inputs x ``scale`` != 1: from the float64 oracle
+        ``attention_grads_f64`` of the same rows, within ``f32_oracle_limit``
+        (in place of the plain version, which shares LSE's summation order);
+      * else within rtol = atol = ``tol`` of the plain versions, and within
+        their own size: float32 from the float64 oracle by F32_GRAD_REL /
+        F32_GRAD_MEAN_REL, bfloat16 from the plain versions by BF16_GRAD_REL
+        / BF16_GRAD_MEAN_REL; with one key dQ and dK are zero and take no
+        own-size check.
+
+    Returns {"dq" | "dk" | "dv": reading}, a reading a dict of ``ok``,
+    ``plain`` (max abs err from the plain version, or None), ``oracle`` and
+    ``limit`` (float32 at x != 1), and where taken ``own`` ((max, mean) abs
+    err over max |ref|) and ``own_limits``."""
+    f32 = q.dtype == torch.float32
+    plain = dict(zip(("dq", "dk", "dv"),
+                     (flash_bwd_dq_plain(q, k, v, d_o, lse, delta),
+                      *flash_bwd_dkv_plain(q, k, v, d_o, lse, delta))))
+    ref64 = dict(zip(plain, attention_grads_f64(q, k, v, d_o, lse, delta))
+                 ) if f32 else {}
+    readings = {}
+    for name, got in zip(plain, grads):
+        r = {"plain": None}
+        ok = (got.shape == plain[name].shape and got.dtype == q.dtype
+              and bool(torch.isfinite(got).all()))
+        if f32 and scale != 1.0:
+            r["limit"] = f32_oracle_limit(plain[name], ref64[name])
+            r["oracle"] = (got.double() - ref64[name]).abs().max().item()
+            ok = ok and r["oracle"] <= r["limit"]
+        else:
+            r["plain"] = (got.float() - plain[name].float()).abs().max().item()
+            ok = ok and torch.allclose(got.float(), plain[name].float(),
+                                       rtol=tol, atol=tol)
+            if name == "dv" or k.shape[1] > 1:
+                ref, r["own_limits"] = (
+                    (ref64[name], (F32_GRAD_REL, F32_GRAD_MEAN_REL)) if f32
+                    else (plain[name].double(),
+                          (BF16_GRAD_REL, BF16_GRAD_MEAN_REL)))
+                err = (got.double() - ref).abs()
+                size = ref.abs().max().item() or 1.0
+                r["own"] = (err.max().item() / size, err.mean().item() / size)
+                ok = ok and all(e <= lim for e, lim in
+                                zip(r["own"], r["own_limits"]))
+        r["ok"] = bool(ok)
+        readings[name] = r
+    return readings
+
+
+def describe_backward(readings) -> str:
+    """``backward_readings``' numbers on one line."""
+    parts = []
+    for name, r in readings.items():
+        if r["plain"] is None:
+            text = (f"{name} from the float64 oracle {r['oracle']:.3g} "
+                    f"(limit {r['limit']:.3g})")
+        else:
+            text = f"{name} {r['plain']:.3g}"
+        if "own" in r:
+            text += (f" (own size {r['own'][0]:.3g} / {r['own'][1]:.3g}, "
+                     f"limits {r['own_limits'][0]:g} / "
+                     f"{r['own_limits'][1]:g})")
+        parts.append(text + ("" if r["ok"] else " OUT OF LIMITS"))
+    return ", ".join(parts)
+
+
+def check_backward(q, k, v, d_o, lse, delta, tol, scale=1.0):
+    """B6c and B6d, each run twice, under ``backward_readings``: raises
+    AssertionError unless dQ, dK and dV pass and are bit-equal across the
+    two runs; returns the readings."""
+    dq = flash_bwd_dq(q, k, v, d_o, lse, delta)
+    dq2 = flash_bwd_dq(q, k, v, d_o, lse, delta)
+    dk, dv = flash_bwd_dkv(q, k, v, d_o, lse, delta)
+    dk2, dv2 = flash_bwd_dkv(q, k, v, d_o, lse, delta)
+    readings = backward_readings(q, k, v, d_o, lse, delta, (dq, dk, dv), tol,
+                                 scale)
+    bad = [name for name, r in readings.items() if not r["ok"]]
+    if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+            and torch.equal(dv, dv2)):
+        bad.append("bit-equality across two runs")
+    if bad:
+        raise AssertionError(f"B6c / B6d {tuple(q.shape)}, {tuple(k.shape)} "
+                             f"x{scale:g}: {', '.join(bad)} failed (tol "
+                             f"{tol}): {describe_backward(readings)}")
+    return readings
 
 
 def launch_counts() -> Dict[str, int]:

@@ -381,14 +381,20 @@ def _attention_inputs(seed, device, dtype, n, nq, nk, c, scale=1.0):
                                          ((5, 1024, 1024, 512), 1.0)])
 def test_b6_matches_plain_on_card(cuda_device, dtype, tol, shape, scale):
     """B6a-d against their plain versions: ragged tiles, every C the kernel
-    takes, both register builds of B6c / B6d (the last case has more blocks
-    than SMs), large logits (q and k x 30 at rpst's own 64 x 64 size, where
-    the softmax is nearly one-hot; with many more keys two of them nearly
-    tie in some row, and float32 rounding of scores near 1e3 then moves that
-    row's P by ~1e-3 in either version; the float32 forward's O is there
-    held against a float64 oracle, by ``fa.f32_oracle_limit``); the float32
-    forward's O at x 1 also within 1e-5 (mean 1e-6) of its own largest value
-    (``fa.F32_O_REL``); dK/dV bit-equal across two runs."""
+    takes, more blocks than SMs (the last case), large logits (q and k x 30
+    at rpst's own 64 x 64 size, where the softmax is nearly one-hot; with
+    many more keys two of them nearly tie in some row, and float32 rounding
+    of scores near 1e3 then moves that row's P by ~1e-3 in either version;
+    the float32 forward's O and the float32 gradients are there held
+    against float64 oracles, by ``fa.f32_oracle_limit``: the gradients'
+    P = exp(S - LSE) moves by the difference between the kernels' scores
+    and those LSE was taken from, which no other summation order than
+    plain's keeps below 1e-4); the float32 forward's O at x 1 also within
+    1e-5 (mean 1e-6) of its own largest value (``fa.F32_O_REL``), the
+    float32 gradients within 1e-5 (mean 1e-6) of their size from the
+    float64 oracle (``fa.F32_GRAD_REL``), the bfloat16 gradients within 2e-2
+    (mean 2e-3) of theirs from the plain versions (``fa.BF16_GRAD_REL``);
+    dQ, dK and dV bit-equal across two runs (``fa.check_backward``)."""
     q, k, v, d_o = _attention_inputs(0, cuda_device, dtype, *shape,
                                      scale=scale)
     before = fa.launch_counts()
@@ -397,20 +403,12 @@ def test_b6_matches_plain_on_card(cuda_device, dtype, tol, shape, scale):
     torch.cuda.synchronize()
     ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
     delta = (d_o.float() * ref_o.float()).sum(-1)
-    dq = fa.flash_bwd_dq(q, k, v, d_o, ref_lse, delta)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, d_o, ref_lse, delta)
-    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, d_o, ref_lse, delta)
-    torch.cuda.synchronize()
-    assert fa.launch_counts() == {"B6_fwd": before["B6_fwd"] + 2,
-                                  "B6_dq": before["B6_dq"] + 1,
-                                  "B6_dkv": before["B6_dkv"] + 2}
-    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
-    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, d_o, ref_lse, delta)
     f32_x30 = dtype == torch.float32 and scale != 1.0
-    held = [(dk, ref_dk), (dv, ref_dv),
-            (dq, fa.flash_bwd_dq_plain(q, k, v, d_o, ref_lse, delta))]
-    if not f32_x30:
-        held += [(o, ref_o), (o2, ref_o)]
+    fa.check_backward(q, k, v, d_o, ref_lse, delta, tol, scale)
+    assert fa.launch_counts() == {"B6_fwd": before["B6_fwd"] + 2,
+                                  "B6_dq": before["B6_dq"] + 2,
+                                  "B6_dkv": before["B6_dkv"] + 2}
+    held = [] if f32_x30 else [(o, ref_o), (o2, ref_o)]
     for got, ref in held:
         assert got.dtype == dtype and torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
@@ -428,6 +426,22 @@ def test_b6_matches_plain_on_card(cuda_device, dtype, tol, shape, scale):
         _assert_o_close(o, ref_o)
         _assert_o_close(o2, ref_o)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("c", [128, 256, 384, 512])
+@pytest.mark.parametrize("nq,nk", fa.BWD_EDGES)
+def test_b6_backward_tile_edges_on_card(cuda_device, dtype, tol, c, nq, nk):
+    """B6c and B6d one below, at and one above their tiles (16 rows a block
+    x 32 swept rows), in both roles, N = 3, against the plain versions and
+    within their own-size limits (``fa.check_backward``); bit-equal across
+    two runs."""
+    q, k, v, d_o = _attention_inputs(4, cuda_device, dtype, 3, nq, nk, c)
+    ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v)
+    delta = (d_o.float() * ref_o.float()).sum(-1)
+    fa.check_backward(q, k, v, d_o, ref_lse, delta, tol)
 
 
 @pytest.mark.cuda

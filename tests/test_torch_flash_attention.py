@@ -37,9 +37,11 @@ def _inputs(seed, n, nq, nk, c, scale=1.0):
                   ((n, nq, c), 1.0)))
 
 
-def _oracle(q, k, v, g=None):
+def _oracle(q, k, v, g=None, rows=None):
     """float64 numpy: (o, lse) and, with an upstream gradient g, (dq, dk,
-    dv) of sum(o * g) by the dense softmax backward."""
+    dv) of sum(o * g) by the dense softmax backward; with ``rows`` = (lse,
+    delta) given, (dq, dk, dv) of the backward kernels' function of those
+    rows instead: P = exp(S - lse), dS = P * (g v^T - delta)."""
     q, k, v = (a.astype(np.float64) for a in (q, k, v))
     s = np.einsum("nqc,nkc->nqk", q, k)
     m = s.max(-1, keepdims=True)
@@ -51,9 +53,14 @@ def _oracle(q, k, v, g=None):
     if g is None:
         return o, lse
     g = g.astype(np.float64)
-    dv = np.einsum("nqk,nqc->nkc", p, g)
     dp = np.einsum("nqc,nkc->nqk", g, v)
-    ds = p * (dp - (dp * p).sum(-1, keepdims=True))
+    if rows is None:
+        ds = p * (dp - (dp * p).sum(-1, keepdims=True))
+    else:
+        lse_in, delta_in = (np.asarray(r, np.float64)[..., None] for r in rows)
+        p = np.exp(s - lse_in)
+        ds = p * (dp - delta_in)
+    dv = np.einsum("nqk,nqc->nkc", p, g)
     return o, lse, (np.einsum("nqk,nkc->nqc", ds, k),
                     np.einsum("nqk,nqc->nkc", ds, q), dv)
 
@@ -256,22 +263,29 @@ def _tf32(x, nearest=True):
     return (bits & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _tf32_product(a, b, products, chunk):
-    """a @ b as the float32 forward kernel forms it: exact products of TF32
+def _tf32_product(a, b, products, chunk, parts=1):
+    """a @ b as the float32 kernels form it: exact products of TF32
     operands, a = a_hi + a_lo and b = b_hi + b_lo with hi rounded to nearest
     and lo = x - hi truncated (a_lo b_hi + a_hi b_lo + a_hi b_hi with three
     products, a_hi b_hi with one), summed over ``chunk`` of the inner
-    dimension at a time, the chunk sums added in float32."""
+    dimension at a time, the chunk sums added in float32; with ``parts``, the
+    inner dimension is cut into that many equal parts, each summed so, and
+    the parts' sums added in order (the backward kernels' quarters of C)."""
     a_hi, b_hi = _tf32(a), _tf32(b)
     a_lo, b_lo = _tf32(a - a_hi, False), _tf32(b - b_hi, False)
     terms = [(a_hi, b_hi)] if products == 1 else [(a_lo, b_hi), (a_hi, b_lo),
                                                   (a_hi, b_hi)]
-    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for c0 in range(0, a.shape[1], chunk):
-        part = sum(x[:, c0:c0 + chunk].astype(np.float64)
-                   @ y[c0:c0 + chunk].astype(np.float64) for x, y in terms)
-        out = out + part.astype(np.float32)
-    return out
+    step = a.shape[1] // parts
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for p0 in range(0, a.shape[1], step):
+        out = np.zeros_like(total)
+        for c0 in range(p0, p0 + step, chunk):
+            c1 = min(c0 + chunk, p0 + step)
+            part = sum(x[:, c0:c1].astype(np.float64)
+                       @ y[c0:c1].astype(np.float64) for x, y in terms)
+            out = out + part.astype(np.float32)
+        total = out if p0 == 0 else total + out
+    return total
 
 
 def _tf32_attention(q, k, v, products):
@@ -310,3 +324,126 @@ def test_three_tf32_products_are_float32_accurate(shape, scale):
         err = max(np.abs(_tf32_attention(q[i], k[i], v[i], products)
                          - ref[i]).max() for i in range(n))
         assert bound(err), (products, err, limit)
+
+
+def _tf32_grads(q, k, v, g, lse, delta, products):
+    """(dq, dk, dv) of one image by the float32 backward kernels'
+    arithmetic: S and dO V^T over each quarter of C, each 8 channels (one
+    m16n8k8) a sum of its own, the quarters added in order; P = exp(S -
+    lse), dS = P (dO V^T - delta) in float32; dS K, dS^T Q and P^T dO in
+    tiles of 32 keys (or queries)."""
+    s = _tf32_product(q, k.T, products, 8, parts=4)
+    dp = _tf32_product(g, v.T, products, 8, parts=4)
+    p = np.exp(s - lse[:, None])
+    ds = p * (dp - delta[:, None])
+    return (_tf32_product(ds, k, products, 32),
+            _tf32_product(np.ascontiguousarray(ds.T), q, products, 32),
+            _tf32_product(np.ascontiguousarray(p.T), g, products, 32))
+
+
+@pytest.mark.parametrize("scale", [1.0, 30.0])
+@pytest.mark.parametrize("shape", [(2, 100, 70, 512), (1, 1024, 1024, 512),
+                                   (1, 64, 64, 512)],
+                         ids=["ragged", "relu5_1", "64x64"])
+def test_three_tf32_products_hold_the_backward_to_float32(shape, scale):
+    """The arithmetic of the float32 CUDA backward (B6c, B6d: three TF32
+    products per operand pair), emulated in numpy on draws made as
+    chip_smoke.py's phase 23 makes them (all four tensors x scale /
+    C^(1/4)), with LSE and Delta from the plain float32 forward as phase 23
+    passes them. At x 1, dQ, dK and dV lie within ``F32_GRAD_REL`` (max) and
+    ``F32_GRAD_MEAN_REL`` (mean) of the tensor's size from the exact float64
+    gradients; one TF32 product misses both by more than 30x. At x 30 they
+    lie within ``f32_oracle_limit`` of the float64 evaluation of the
+    kernels' own function of those LSE and Delta rows (the limit phase 23
+    holds the kernels to there), one product misses it by more than 50x."""
+    n, nq, nk, c = shape
+    rng = np.random.default_rng(n + nq + nk)
+    q, k, v, g = (rng.standard_normal((n, m, c)).astype(np.float32)
+                  * np.float32(scale / c ** 0.25) for m in (nq, nk, nk, nq))
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = fa.flash_fwd_lse_plain(tq, tk, tv)
+    delta = (tg * o).sum(-1)
+    plain = (fa.flash_bwd_dq_plain(tq, tk, tv, tg, lse, delta),
+             *fa.flash_bwd_dkv_plain(tq, tk, tv, tg, lse, delta))
+    rows = (lse.numpy(), delta.numpy())
+    ref = _oracle(q, k, v, g, rows=None if scale == 1.0 else rows)[2]
+    for products in (3, 1):
+        got = [_tf32_grads(q[i], k[i], v[i], g[i], lse[i].numpy(),
+                           delta[i].numpy(), products) for i in range(n)]
+        for j, name in enumerate(("dq", "dk", "dv")):
+            err = np.abs(np.stack([x[j] for x in got]) - ref[j])
+            size = np.abs(ref[j]).max()
+            if scale == 1.0:
+                rel = (err.max() / size / fa.F32_GRAD_REL,
+                       err.mean() / size / fa.F32_GRAD_MEAN_REL)
+                ok = max(rel) <= 1 if products == 3 else min(rel) > 30
+            else:
+                rel = err.max() / fa.f32_oracle_limit(
+                    plain[j], torch.from_numpy(ref[j]))
+                ok = rel <= 1 if products == 3 else rel > 50
+            assert ok, (products, name, rel)
+
+
+@pytest.mark.parametrize("with_rows", [False, True], ids=["softmax", "rows"])
+def test_attention_grads_f64_matches_oracle(with_rows):
+    """The float64 gradient oracle the card holds B6c / B6d to, against the
+    numpy oracle: the softmax gradients, and the kernels' function of given
+    LSE and Delta rows (here rows a little off the exact ones, so that the
+    two forms differ)."""
+    q, k, v, g = _inputs(13, 2, 24, 40, 16)
+    o, lse = _oracle(q, k, v)
+    delta = (g.astype(np.float64) * o).sum(-1)
+    rows = (lse + 1e-3, delta - 1e-2) if with_rows else None
+    got = fa.attention_grads_f64(*_t(q, k, v, g, dtype=torch.float64),
+                                 *(() if rows is None else
+                                   (torch.from_numpy(r) for r in rows)))
+    for name, a, r in zip(("dq", "dk", "dv"), got,
+                          _oracle(q, k, v, g, rows=rows)[2]):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), r, rtol=1e-10, atol=1e-12,
+                                   err_msg=name)
+    if with_rows:
+        exact = _oracle(q, k, v, g)[2]
+        assert not np.allclose(got[2].numpy(), exact[2], rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("fault", [None, "key tile", "query tile", "x 0.9"])
+def test_check_backward_refuses_a_faulty_backward(dtype, tol, fault):
+    """The card's backward check (``fa.check_backward``) on the CPU, where
+    the wrappers take the plain versions: those pass, and gradients with
+    one swept tile of 32 dropped (keys 32-63 from dQ, queries 32-63 from dK
+    and dV) or 10% off fail it. The upstream gradient is small, as at the
+    path's shapes, so that in bfloat16 rtol = atol = 2e-2 alone passes the
+    10% error and only the own-size limits refuse it."""
+    n, nq, nk, c = 1, 64, 96, 128
+    q, k, v, g = (a / c ** 0.25 for a in _inputs(17, n, nq, nk, c))
+    q, k, v, d_o = _t(q, k, v, g * 0.1, dtype=dtype)
+    o, lse = fa.flash_fwd_lse_plain(q, k, v)
+    delta = (d_o.float() * o.float()).sum(-1)
+    readings = fa.check_backward(q, k, v, d_o, lse, delta, tol)
+    assert all(r["ok"] and "own" in r for r in readings.values())
+    if fault is None:
+        return
+    dq = fa.flash_bwd_dq_plain(q, k, v, d_o, lse, delta)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, d_o, lse, delta)
+    keep = torch.cat([torch.arange(32), torch.arange(64, 96)])
+    if fault == "key tile":
+        bad = {"dq": fa.flash_bwd_dq_plain(q, k[:, keep], v[:, keep], d_o,
+                                           lse, delta)}
+    elif fault == "query tile":
+        bad = dict(zip(("dk", "dv"), fa.flash_bwd_dkv_plain(
+            q[:, :32], k, v, d_o[:, :32], lse[:, :32], delta[:, :32])))
+    else:
+        bad = {name: t * 0.9 for name, t in
+               (("dq", dq), ("dk", dk), ("dv", dv))}
+    grads = {"dq": dq, "dk": dk, "dv": dv, **bad}
+    got = fa.backward_readings(q, k, v, d_o, lse, delta,
+                               tuple(grads.values()), tol)
+    assert {name for name, r in got.items() if not r["ok"]} == set(bad)
+    if dtype == torch.bfloat16 and fault == "x 0.9":
+        assert all(torch.allclose(grads[name].float(), t.float(), rtol=tol,
+                                  atol=tol) for name, t in
+                   (("dq", dq), ("dk", dk), ("dv", dv)))

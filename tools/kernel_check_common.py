@@ -10,11 +10,12 @@ from pathlib import Path
 from rpst_torch.kernels import build
 
 
-def parent_library(name: str, source: Path):
+def parent_library(name: str, source: Path, tag: str = "parent"):
     """``source``, an earlier version of ``csrc/<name>.cu`` with the same C
     interface (its headers beside it), built with the package's nvcc flags
-    and loaded with the signatures of ``build.SIGNATURES[name]``."""
-    out = build.BUILD_DIR / f"parent_{name}.so"
+    into ``<tag>_<name>.so`` (one tag a source: a library is loaded once a
+    path) and loaded with the signatures of ``build.SIGNATURES[name]``."""
+    out = build.BUILD_DIR / f"{tag}_{name}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in build.NVCC_FLAGS if not f.startswith("-DB")]
     subprocess.run([build._nvcc(), *flags, "-o", str(out), str(source)],

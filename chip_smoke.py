@@ -14,7 +14,14 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                folded_conv_q8.cu; B7 folded_conv2_q8.cu; B5 conv2d_q8.cu; B6
                flash_attention.cu)
   2. kernels   B1, B2, B3 vs their plain versions at the paths' shapes, f32 +
-               bf16; B2/B3 timed against plain
+               bf16, B1 and B2 with folded (36 of 144 blocks non-zero) and
+               dense kernels; B1 and B2 timed at (1,256,256,128->128) and
+               (1,128,128,512->512), both types and both kernel kinds,
+               beside plain, the library call on the folded layout
+               (F.conv2d on the ring-padded tensor; conv2d_input), the
+               unfolded conv the standard path runs (reflect pad + F.conv2d
+               on (N, C, 2H, 2W); conv2d_input) and the dense and
+               structured bounds; B3 against plain and conv2d_weight
   3. fixture   folded stylize on the card vs rpst's JAX output
                (tests/fixtures/torch_port_flagship.npz)
   4. parity    512px: folded (B1) vs the port's standard path; bf16 vs f32;
@@ -24,8 +31,9 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                counts reset before and read after; then serve_torch.py's
                folder sweep as a subprocess
   6. daemon    serve_torch.py --daemon: 6 requests + stats + shutdown
-  7. timing    512px stylize b1/b8, f32/bf16: folded B1, folded plain,
-               standard, with CUDA events
+  7. timing    512px stylize b1/b8, f32/bf16: folded B1 and standard in
+               both orders (folded, standard, folded plain, standard,
+               folded), with CUDA events
   8. train fixture  the folded train step on the card (B1/B2/B3) vs rpst's
                JAX loss, gradients and 3-step trajectory
                (tests/fixtures/torch_port_train.npz)
@@ -330,11 +338,15 @@ def main():
     # ---- 2. kernel vs plain -----------------------------------------------
     g = torch.Generator().manual_seed(0)
 
-    def layer(n, h, w, c, co):
+    def layer(n, h, w, c, co, dense=False):
+        """x, a folded kernel (or a dense one: every block non-zero) and
+        the folded bias of a c -> co layer."""
         bound = (9 * c) ** -0.5
         x = torch.rand(n, h, w, 4 * c, generator=g) * 2 - 0.5
         k = fold_conv_kernel((torch.rand(3, 3, c, co, generator=g) * 2 - 1)
                              * bound)
+        if dense:
+            k = (torch.rand(k.shape, generator=g) * 2 - 1) * bound / 2
         b = fold_bias((torch.rand(co, generator=g) * 2 - 1) * bound)
         return x.to(dev), k.to(dev).contiguous(), b.to(dev)
 
@@ -347,12 +359,19 @@ def main():
              ("VGG relu2_1 256->512", (1, 128, 128, 64, 128), 0.0, False),
              ("VGG relu2_2 512->512", (1, 128, 128, 128, 128), 0.0, False),
              ("ragged 2x38x22", (2, 38, 22, 32, 32), 0.2, False),
-             ("rings override", (1, 64, 64, 32, 32), 0.2, True)]
+             ("rings override", (1, 64, 64, 32, 32), 0.2, True),
+             ("2x2", (2, 2, 2, 32, 32), 0.2, False)]
+    # the same function on dense kernels (all 144 blocks listed)
+    cases += [(f"{label} dense", shape, alpha, rings, True)
+              for label, shape, alpha, rings in cases
+              if label in ("12->128", "128->128", "128->12",
+                           "VGG relu2_2 512->512", "ragged 2x38x22",
+                           "rings override", "2x2")]
     fused_folded_conv.launches = 0
-    f32_err, kernel_ms, plain_ms = 0.0, {}, {}
+    f32_err = 0.0
     with torch.inference_mode():
-        for label, shape, alpha, with_rings in cases:
-            x, k, b = layer(*shape)
+        for label, shape, alpha, with_rings, *dense in cases:
+            x, k, b = layer(*shape, *dense)
             rings = None
             if with_rings:
                 rings = (torch.rand(x.shape[0], 2, x.shape[2], x.shape[3],
@@ -369,20 +388,12 @@ def main():
                 err, _ = check_close(f"B1 {label} {dt}", y, ref, tol)
                 if dt == torch.float32:
                     f32_err = max(f32_err, err)
-                if label == "128->128":
-                    kernel_ms[dt] = cuda_ms(
-                        lambda: fused_folded_conv(xd, kd, bd, alpha))
-                    plain_ms[dt] = cuda_ms(
-                        lambda: fused_folded_conv_plain(xd, kd, bd, alpha))
                 log("2 kernels", f"{label} x{tuple(x.shape)}->4Co "
                     f"{k.shape[3]} {str(dt)[6:]}: max abs err {err:.3g} "
                     f"(tol {tol})")
-    log("2 kernels", f"{fused_folded_conv.launches} comparison launches; "
-        f"(1,256,256,128->128) B1 vs plain ms: f32 "
-        f"{kernel_ms[torch.float32]:.4f} vs {plain_ms[torch.float32]:.4f}, "
-        f"bf16 {kernel_ms[torch.bfloat16]:.4f} vs "
-        f"{plain_ms[torch.bfloat16]:.4f} ({name_power})")
+    log("2 kernels", f"{fused_folded_conv.launches} comparison launches")
     bwd = _check_backward_kernels(dev, name_power)
+    b12 = _b1_b2_timing(dev, name_power)
 
     # ---- 3. slice vs the JAX reference fixture ----------------------------
     fx_path = REPO / "tests" / "fixtures" / "torch_port_flagship.npz"
@@ -524,8 +535,11 @@ def main():
                         w, c, s, dtype=dt, conv=plain_lrelu),
                     "standard": lambda: _standard(std_bundle, c, s, dt),
                 }
-                for path, fn in paths.items():
-                    ms = cuda_ms(fn)
+                # folded B1 against standard in both orders (the A/B of the
+                # serving policy), plain between them
+                for path in ("folded B1", "standard", "folded plain",
+                             "standard", "folded B1"):
+                    ms = cuda_ms(paths[path])
                     rows.append((batch, str(dt)[6:], path, ms))
                     log("7 timing", f"512px b{batch} {str(dt)[6:]:8s} "
                         f"{path:12s}: {ms:8.3f} ms  "
@@ -564,9 +578,9 @@ def main():
     f4 = 4  # bytes of a float32
     nb = 128 * f4  # one per-channel row
     bnd = {
-        "B1": conv_bound(1, 256, 256, 128, 128, "f32", f4, [f4],
-                         extra_bytes=nb),
-        "B2": conv_bound(1, 256, 256, 128, 128, "f32", f4, [f4]),
+        # B1 and B2 at the timed folded kernel: its 36 listed blocks
+        "B1": b12["B1"]["bound"],
+        "B2": b12["B2"]["bound"],
         # reads x and gz, writes dk and db
         "B3": bound_ms(2 * 9 * 256 * 256 * 128 * 128,
                        (2 * 256 * 256 * 128 + 9 * 128 * 128 + 128) * f4,
@@ -583,23 +597,23 @@ def main():
          "replaces": "src/rpst/ops/pallas/folded_conv.py:650",
          "launches": (main_launches + train_launches[0] + q8_launches["B1"]
                       + q8t_launches[0]),
-         "max_abs_err": f32_err, "ms": kernel_ms[torch.float32],
-         "plain_ms": plain_ms[torch.float32], "bound_ms": bnd["B1"][0],
-         "bound_by": bnd["B1"][1], "library_ms": None},
+         "max_abs_err": f32_err, "ms": b12["B1"]["ms"],
+         "plain_ms": b12["B1"]["plain_ms"], "bound_ms": bnd["B1"][0],
+         "bound_by": bnd["B1"][1], "library_ms": b12["B1"]["library_ms"]},
         {"name": "fused_folded_conv_grad_input", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:339",
          "launches": train_launches[1] + q8t_launches[1],
-         "max_abs_err": bwd["B2"]["err"], "ms": bwd["B2"]["ms"],
-         "plain_ms": bwd["B2"]["plain_ms"], "bound_ms": bnd["B2"][0],
-         "bound_by": bnd["B2"][1], "library_ms": None},
+         "max_abs_err": bwd["B2"]["err"], "ms": b12["B2"]["ms"],
+         "plain_ms": b12["B2"]["plain_ms"], "bound_ms": bnd["B2"][0],
+         "bound_by": bnd["B2"][1], "library_ms": b12["B2"]["library_ms"]},
         {"name": "fused_folded_conv_grad_weight", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
          "launches": train_launches[2] + q8t_launches[2],
          "max_abs_err": bwd["B3"]["err"], "ms": bwd["B3"]["ms"],
          "plain_ms": bwd["B3"]["plain_ms"], "bound_ms": bnd["B3"][0],
-         "bound_by": bnd["B3"][1], "library_ms": None},
+         "bound_by": bnd["B3"][1], "library_ms": bwd["B3"]["library_ms"]},
         {"name": "fused_folded_conv_q8", "route": "cuda",
          "source": "src/rpst_torch/csrc/folded_conv_q8.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv_q8.py:281",
@@ -661,21 +675,31 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def _grad_case(g, dev, n, h, w, c4, c4o):
+def _grad_case(g, dev, n, h, w, c4, c4o, folded=False):
+    """x, gz and khat of a layer: khat of a dense random kernel, or of one
+    from fold_conv_kernel (36 of 144 blocks non-zero)."""
     import torch
+    from rpst_torch.ops.folded import fold_conv_kernel
     x = torch.randn(n, h, w, c4, generator=g)
     gz = torch.randn(n, h, w, c4o, generator=g)
     kf = torch.randn(3, 3, c4, c4o, generator=g) * 0.1
+    if folded:
+        kf = fold_conv_kernel(torch.randn(3, 3, c4 // 4, c4o // 4,
+                                          generator=g) * 0.2)
     return (x.to(dev), gz.to(dev),
             kf.flip(0, 1).transpose(2, 3).contiguous().to(dev))
 
 
 def _check_backward_kernels(dev, name_power):
     """Phase 2, backward: B2 and B3 against their plain versions at every
-    width of the training path, f32 and bf16, and timed against plain at
-    (1,256,256,128->128) and (1,128,128,512->512). Returns the f32 max abs
-    errors and the 128->128 f32 times for the kernels JSON."""
+    width of the training path, f32 and bf16, B2 with dense and with folded
+    kernels; B3 timed against plain and torch.nn.grad.conv2d_weight on the
+    ring-padded folded tensor at (1,256,256,128->128) and
+    (1,128,128,512->512). Returns the f32 max abs errors and B3's 128->128
+    f32 times for the kernels JSON."""
     import torch
+    from torch.nn.grad import conv2d_weight
+    from rpst_torch.ops.folded import folded_reflect_pad
     from rpst_torch.ops.folded_conv import (
         fused_folded_conv_grad_input, fused_folded_conv_grad_input_plain,
         fused_folded_conv_grad_weight, fused_folded_conv_grad_weight_plain)
@@ -692,9 +716,13 @@ def _check_backward_kernels(dev, name_power):
              ("VGG relu2_2 512->512", (1, 128, 128, 512, 512)),
              ("ragged 2x38x22", (2, 38, 22, 128, 128)),
              ("2x2", (2, 2, 2, 12, 12))]
+    # khat of folded kernels: B2 takes their 36 listed blocks
+    cases += [(f"{label} folded", shape, True) for label, shape in cases
+              if label in ("RP 12->128", "RP 128->128", "RP 128->12",
+                           "VGG relu2_2 512->512", "ragged 2x38x22", "2x2")]
     err = {"B2": 0.0, "B3": 0.0}
-    for label, shape in cases:
-        x, gz, khat = _grad_case(g, dev, *shape)
+    for label, shape, *folded in cases:
+        x, gz, khat = _grad_case(g, dev, *shape, *folded)
         n, h, w = shape[:3]
         dk_atol = DK_ATOL_512 * (n * h * w / 512) ** 0.5
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -722,22 +750,123 @@ def _check_backward_kernels(dev, name_power):
                 f"(atol {dk_atol:.3g})")
     out = {"B2": {"err": err["B2"]}, "B3": {"err": err["B3"]}}
     for shape in ((1, 256, 256, 128, 128), (1, 128, 128, 512, 512)):
-        x, gz, khat = _grad_case(g, dev, *shape)
+        x, gz, _ = _grad_case(g, dev, *shape)
         for dt in (torch.float32, torch.bfloat16):
-            xd, gd, kd = x.to(dt), gz.to(dt), khat.to(dt)
-            t = {"B2": cuda_ms(lambda: fused_folded_conv_grad_input(gd, kd)),
-                 "B2 plain": cuda_ms(
-                     lambda: fused_folded_conv_grad_input_plain(gd, kd)),
-                 "B3": cuda_ms(lambda: fused_folded_conv_grad_weight(xd, gd)),
+            xd, gd = x.to(dt), gz.to(dt)
+            # the library call on the folded layout: the kernel gradient of
+            # one conv over the ring-padded tensor
+            xp = folded_reflect_pad(xd).permute(0, 3, 1, 2)
+            gp = gd.permute(0, 3, 1, 2)
+            wsize = (shape[4], shape[3], 3, 3)
+            t = {"B3": cuda_ms(lambda: fused_folded_conv_grad_weight(xd, gd)),
                  "B3 plain": cuda_ms(
-                     lambda: fused_folded_conv_grad_weight_plain(xd, gd))}
-            log("2 kernels", f"{tuple(shape)} {str(dt)[6:]}: B2 "
-                f"{t['B2']:.4f} ms vs plain {t['B2 plain']:.4f}; B3 "
-                f"{t['B3']:.4f} ms vs plain {t['B3 plain']:.4f} "
-                f"({name_power})")
+                     lambda: fused_folded_conv_grad_weight_plain(xd, gd)),
+                 "B3 lib": cuda_ms(lambda: conv2d_weight(xp, wsize, gp))}
+            log("2 kernels", f"{tuple(shape)} {str(dt)[6:]}: B3 "
+                f"{t['B3']:.4f} ms vs plain {t['B3 plain']:.4f}, "
+                f"conv2d_weight on the ring-padded tensor "
+                f"{t['B3 lib']:.4f} ({name_power})")
             if shape[3] == 128 and dt == torch.float32:
-                for k in ("B2", "B3"):
-                    out[k].update(ms=t[k], plain_ms=t[f"{k} plain"])
+                out["B3"].update(ms=t["B3"], plain_ms=t["B3 plain"],
+                                 library_ms=t["B3 lib"])
+    return out
+
+
+def folded_bound(n, h, w, c4, c4o, kind, size, structured):
+    """bound_ms of B1 / B2 at (N, Hf, Wf, 4C -> 4Co): the operations of the
+    listed blocks (all 144 of a dense kernel; the 36 of a folded one, the
+    unfolded conv's) at the peak of ``kind``; the input, the kernel and the
+    output moved once, ``size`` bytes each."""
+    px = n * h * w
+    ops = 2 * 9 * px * c4 * c4o // (4 if structured else 1)
+    return bound_ms(ops, (px * (c4 + c4o) + 9 * c4 * c4o) * size, kind)
+
+
+def _b1_b2_timing(dev, name_power):
+    """Phase 2, timing: B1 and B2 at (1,256,256,128->128) and
+    (1,128,128,512->512), f32 and bf16, with a folded kernel and a dense
+    one, beside the plain version, the library call on the folded layout
+    (F.conv2d on the ring-padded tensor; torch.nn.grad.conv2d_input on it),
+    the unfolded conv the standard path runs for a folded kernel (reflect
+    pad + F.conv2d on (N, C, 2H, 2W); conv2d_input there) and the dense and
+    structured bounds. The kernels' times include each launch's packing
+    and block table (a small kernel ahead of the main one). Returns the
+    kernels JSON numbers: f32, 128->128, folded."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input
+    from rpst_torch.ops.folded import (fold_bias, fold_conv_kernel,
+                                       folded_reflect_pad, unfold)
+    from rpst_torch.ops.folded_conv import (
+        fused_folded_conv, fused_folded_conv_grad_input,
+        fused_folded_conv_grad_input_plain, fused_folded_conv_plain)
+    g = torch.Generator().manual_seed(2)
+    cl = torch.channels_last
+    out = {}
+    for n, h, w, c4, c4o in ((1, 256, 256, 128, 128),
+                             (1, 128, 128, 512, 512)):
+        c, co = c4 // 4, c4o // 4
+        x = torch.randn(n, h, w, c4, generator=g)
+        gz = torch.randn(n, h, w, c4o, generator=g)
+        k3 = torch.randn(3, 3, c, co, generator=g) * (9 * c) ** -0.5
+        b = torch.randn(co, generator=g) * 0.1
+        kinds = {"folded": fold_conv_kernel(k3),
+                 "dense": torch.randn(3, 3, c4, c4o, generator=g)
+                 * (9 * c4) ** -0.5}
+        for dt in (torch.float32, torch.bfloat16):
+            kind, size = ("f32", 4) if dt == torch.float32 else ("bf16", 2)
+            xd, gd = x.to(dev, dt), gz.to(dev, dt)
+            bu = b.to(dev, dt)
+            bd = fold_bias(bu)
+            xp = folded_reflect_pad(xd).permute(0, 3, 1, 2)
+            gp = gd.permute(0, 3, 1, 2)
+            # the unfolded layer: (N, C, 2H, 2W) channels-last views
+            xu = unfold(xd).permute(0, 3, 1, 2)
+            gu = unfold(gd).permute(0, 3, 1, 2)
+            wu = k3.to(dev, dt).permute(3, 2, 0, 1).contiguous(
+                memory_format=cl)
+            unfolded = {
+                "B1": cuda_ms(lambda: F.conv2d(
+                    F.pad(xu, (1, 1, 1, 1), mode="reflect"), wu, bu)),
+                "B2": cuda_ms(lambda: conv2d_input(
+                    (n, c, 2 * h + 2, 2 * w + 2), wu, gu))}
+            for kname, kf in kinds.items():
+                kd = kf.to(dev, dt).contiguous()
+                khat = kd.flip(0, 1).transpose(2, 3).contiguous()
+                wf = kd.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+                t = {"B1": cuda_ms(lambda: fused_folded_conv(xd, kd, bd, 0.2)),
+                     "B1 plain": cuda_ms(
+                         lambda: fused_folded_conv_plain(xd, kd, bd, 0.2)),
+                     "B1 lib": cuda_ms(lambda: F.conv2d(xp, wf, bd)),
+                     "B2": cuda_ms(
+                         lambda: fused_folded_conv_grad_input(gd, khat)),
+                     "B2 plain": cuda_ms(
+                         lambda: fused_folded_conv_grad_input_plain(gd, khat)),
+                     "B2 lib": cuda_ms(lambda: conv2d_input(xp.shape, wf, gp))}
+                bounds = [folded_bound(n, h, w, c4, c4o, kind, size, s)
+                          for s in (False, True)]
+                listed = bounds[1] if kname == "folded" else bounds[0]
+                tf3 = ""
+                if kind == "f32":  # three TF32 products: 3x the operations
+                    ops = 2 * 9 * n * h * w * c4 * c4o \
+                        // (4 if kname == "folded" else 1)
+                    tf3 = (f", 3xTF32 ceiling "
+                           f"{3 * ops / PEAK_OPS['f32'] * 1e3:.4f}")
+                for op in ("B1", "B2"):
+                    unf = (f", unfolded {unfolded[op]:.4f}"
+                           if kname == "folded" else "")
+                    log("2 kernels", f"{op} ({n},{h},{w},{c4}->{c4o}) "
+                        f"{kind} {kname}: {t[op]:.4f} ms vs plain "
+                        f"{t[op + ' plain']:.4f}, lib {t[op + ' lib']:.4f}"
+                        f"{unf}; bound dense {bounds[0][0]:.4f} / "
+                        f"structured {bounds[1][0]:.4f} ms{tf3} "
+                        f"({100 * listed[0] / t[op]:.1f}% of the listed "
+                        f"blocks' bound; {name_power})")
+                if (c4, kind, kname) == (128, "f32", "folded"):
+                    for op in ("B1", "B2"):
+                        out[op] = {"ms": t[op], "plain_ms": t[op + " plain"],
+                                   "library_ms": t[op + " lib"],
+                                   "bound": bounds[1]}
     return out
 
 

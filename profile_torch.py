@@ -21,8 +21,10 @@ For each case it prints one Markdown table row:
 
   ms per call   median of CUDA-event-timed calls (20 stylize, 5 train
                 steps) after warm-ups, without the profiler
-  Bn share      device time of the kernel (B1 folded_conv_kernel, B2
-                grad_input_kernel, B3 grad_weight_partial + _reduce, B4
+  Bn share      device time of the kernel (B1 and B2 folded_mma_kernel,
+                told apart by its BWD template argument; their per-launch
+                weight packing, prep_weights_kernel, counts as other; B3
+                grad_weight_partial + _reduce, B4
                 folded_conv_q8_kernel, B7 folded_conv2_q8_kernel, B5
                 conv2d_mma_kernel, B6 flash_fwd_tf32_kernel (float32) and
                 flash_fwd_mma_kernel (bfloat16), B6c
@@ -67,7 +69,8 @@ FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
                 exec_strategy="folded")
 IMG = 512
 # report column -> the kernel-name prefixes it sums
-KERNELS = {"B1": ("folded_conv_kernel",), "B2": ("grad_input_kernel",),
+KERNELS = {"B1": ("folded_mma_kernel[B1]",),
+           "B2": ("folded_mma_kernel[B2]",),
            "B3": ("grad_weight_partial", "grad_weight_reduce"),
            "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",),
            "B5": ("conv2d_mma_kernel",),
@@ -78,7 +81,13 @@ SANET_YAML = REPO / "configs" / "train_static_sanet.yaml"
 
 
 def short_name(name: str) -> str:
-    """'void at::native::reduce_kernel<512, 1, ...>(...)' -> 'reduce_kernel'."""
+    """'void at::native::reduce_kernel<512, 1, ...>(...)' -> 'reduce_kernel';
+    B1 and B2's shared kernel 'folded::folded_mma_kernel<T, WIDE, BWD, ...>'
+    -> 'folded_mma_kernel[B1]' or '[B2]' by its BWD argument."""
+    bwd = re.search(r"folded_mma_kernel<[^,]+,\s*\w+,\s*(\w+)", name)
+    if bwd:
+        op = "B2" if bwd.group(1) in ("true", "1") else "B1"
+        return f"folded_mma_kernel[{op}]"
     name = re.sub(r"^void\s+|\(anonymous namespace\)::", "", name)
     name = name.split("<")[0].split("(")[0]
     return name.rsplit("::", 1)[-1].strip()

@@ -31,6 +31,8 @@ constant stack: folded inference and serving, and training on one device):
   rpst_torch.kernels.build       nvcc build of csrc/*.cu, ctypes binding
   rpst_torch/csrc/folded_conv.cu      B1 CUDA kernel for sm_90a
   rpst_torch/csrc/folded_conv_bwd.cu  B2, B3 CUDA kernels for sm_90a
+  rpst_torch/csrc/folded_mma.cuh      B1 / B2's tensor-core main loop
+  rpst_torch/csrc/mma_common.cuh      cp.async, mma.sync, TF32 split helpers
   rpst_torch.bridge              flax params / reference .pth / VGG -> state_dict
   rpst_torch.config              load_config (rpst's YAML format)
   rpst_torch.data                load_image, to_u8 (PIL); training datasets,

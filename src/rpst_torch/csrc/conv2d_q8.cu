@@ -68,9 +68,12 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
 #include "q8_common.cuh"
 
 namespace {
+
+using namespace hmma;  // cp.async, mma_bf16
 
 constexpr int TH = 8;         // tile rows
 constexpr int TW = 16;        // tile columns: one mma row block
@@ -104,22 +107,6 @@ __device__ __forceinline__ int pad_src(int i, int n) {
   return -1;
 }
 
-// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros and
-// reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // c += a b on one 16 x 8 block. a0/a1: rows g / g + 8, the lane's first
 // k-half; a2/a3: the same rows, second k-half; b0/b1: column g, the two
 // k-halves.
@@ -137,11 +124,7 @@ __device__ __forceinline__ void mma_step(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  mma_bf16(c, a0, a1, a2, a3, b0, b1);
 }
 
 // MODE 0: int8 in, int8 out; 1: int8 in, bf16 out; 2: bf16 in and out.

@@ -33,8 +33,10 @@
 // columns by sub-column block, as rpst's `_lane_select_half` and
 // `_col_shifts` do at :197-204), w2 replaces w1, and layer 2 runs on the
 // tile. Layer-1 statistics are summed over the tile's own positions only,
-// never over the recomputed halo. Stats reduce per tile in a fixed order
-// and a second kernel sums the tiles in order (deterministic).
+// never over the recomputed halo, in a second pass in B4's thread layout
+// and order, so that all four sums are bit-equal to two B4 launches'. Stats
+// reduce per tile in a fixed order and a second kernel sums the tiles in
+// order (deterministic).
 
 #include "q8_common.cuh"
 
@@ -154,9 +156,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
 
   // ---- layer 1 over the R1H x R1W region (image rows r0-1.., cols c0-1..)
-  float s11[TN], s12[TN];
-#pragma unroll
-  for (int q = 0; q < TN; ++q) s11[q] = s12[q] = 0.f;
   for (int it = tid; it < R1H * (R1W / PX1) * CG; it += THREADS) {
     const int pg = it / CG;
     const int rr = pg / (R1W / PX1);
@@ -183,16 +182,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                            rr <= TH && cc >= 1 && cc <= TW;
         uint32_t b[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = q8::epilogue(acc[p][4 * j + e], deq[e], bias[e]);
-          if constexpr (STATS) {
-            if (owned) {
-              s11[4 * j + e] += v;
-              s12[4 * j + e] += v * v;
-            }
-          }
-          b[e] = q8::requant(v, inv[e]);
-        }
+        for (int e = 0; e < 4; ++e)
+          b[e] = q8::requant(q8::epilogue(acc[p][4 * j + e], deq[e], bias[e]),
+                             inv[e]);
         if (okc) {
           const uint32_t word = q8::pack4(b);
           y1s[((go / 4) * R1H + rr) * R1W + cc] = static_cast<int32_t>(word);
@@ -206,6 +198,43 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();  // y1s complete; w1 and the x tile no longer read
 
   if constexpr (STATS) {
+    // layer-1 statistics in B4's order (folded_conv_q8.cu), so that they are
+    // bit-equal to a B4 launch's: thread (tc, tp) sums its PX2 consecutive
+    // pixels of the tile, channel by channel, their int32 sums recomputed
+    // from the staged x and w1 (exact in any order), then the same block
+    // reduction. It costs a second layer-1 pass over the tile's 128 of the
+    // region's 180 positions.
+    const int tp = tid / CG;
+    const int ty = tp / (TW / PX2), tx = (tp % (TW / PX2)) * PX2;
+    int32_t acc[PX2][TN];
+    conv_item<PX2>(xt, XH, XW, CW, wt, ty + 1, tx + 1, tc, acc);
+    float s11[TN], s12[TN];
+    const int r = r0 + ty;
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j) {
+      const int go = j * (CG * 4) + tc * 4;
+      const bool okc = go < C4m;
+      float deq[4], bias[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        deq[e] = okc ? __ldg(sc1 + go + e) : 0.f;
+        bias[e] = okc ? __ldg(sc1 + C4m + go + e) : 0.f;
+        s11[4 * j + e] = 0.f;
+        s12[4 * j + e] = 0.f;
+      }
+#pragma unroll
+      for (int p = 0; p < PX2; ++p) {
+        const bool valid = r < H && c0 + tx + p < W;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = q8::epilogue(acc[p][4 * j + e], deq[e], bias[e]);
+          if (valid) {
+            s11[4 * j + e] += v;
+            s12[4 * j + e] += v * v;
+          }
+        }
+      }
+    }
     q8::block_channel_sums<TN, CG>(s11, red, tpart, C4m, tid, THREADS);
     q8::block_channel_sums<TN, CG>(s12, red, tpart + C4m, C4m, tid, THREADS);
   }

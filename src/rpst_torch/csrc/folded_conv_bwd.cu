@@ -35,278 +35,62 @@
 // corners by the column rule, as B1 builds them).
 //
 // What bounds them on the card. Both do the MACs of B1: at 512px one
-// 128->128 folded layer is 19.3 GFLOP for each of them, against 67 TFLOP/s
-// of float32 FMA on an H100 SXM at 700 W (data sheet); the tensors they read
-// and write are tens of MB. So they are bound by arithmetic, as long as each
-// value staged in shared memory is reused many times.
+// 128->128 folded layer is 19.3 GFLOP for each of them with a dense folded
+// kernel (4.83 GFLOP of it non-zero), against 495 TFLOP/s of TF32 or 67
+// TFLOP/s of float32 FMA on an H100 SXM at 700 W (data sheet); the tensors
+// they read and write are tens of MB. So they are bound by arithmetic, as
+// long as each value staged in shared memory is reused many times.
 //
-// What this simple design does about it.
-//   B2 is B1's tiling with the zero halo: a block owns TH x TW output pixels
-//   and TCO dx channels, stages gz with a one-pixel zero halo and the 9 x KC
-//   x TCO khat chunk in shared memory as float, and accumulates a 4-pixel x
-//   TN-channel register tile in float32. The ring adjoint touches only the
-//   two outer rows and columns on each side; the threads that own them add
-//   it in the epilogue from global memory (a few 1-pixel dot products).
-//   B3 is a GEMM per tap, dk[tap] = window_tap(xpad)^T . gz, reduced over
-//   N*H*W positions. A block owns one tap and a TI x TO tile of (i, o) (128
-//   x 128 at the hidden widths) and walks a segment of positions, KP at a
-//   time, through shared memory; each thread holds an 8 x 8 register tile
-//   fed by float4 reads. Per chunk, 2 KP threads first resolve each
-//   position's source row (ring row or x row, reflect column by channel
-//   parity), so that staging is a plain indexed load per value. Segments split the reduction so
-//   that the narrow layers still fill the card. The reduction is
-//   deterministic: each block writes its partial once, and a second small
-//   kernel sums the partials in a fixed order (no float atomicAdd). db is
-//   summed in the same pass by the blocks of tap 0 and the first i tile.
-//   No tensor cores (wgmma) and no TMA yet: that is later work.
+// What the designs do about it.
+//   B2 runs on the tensor cores: B1's main loop (folded_mma.cuh) over the
+//   zero-padded gz with khat, skipping khat's zero blocks as B1 skips kf's,
+//   and the ring adjoint as four more mma row blocks of the same loop (the
+//   ring rows above and below, the ring columns left and right, in the
+//   tiles that touch them), added to the outputs they land on through
+//   shared memory in the epilogue. dx is written once, with no atomics.
+//   B3 is a GEMM per tap on the CUDA cores, dk[tap] = window_tap(xpad)^T .
+//   gz, reduced over N*H*W positions. A block owns one tap and a TI x TO
+//   tile of (i, o) (128 x 128 at the hidden widths) and walks a segment of
+//   positions, KP at a time, through shared memory; each thread holds an 8
+//   x 8 register tile fed by float4 reads. Per chunk, 2 KP threads first
+//   resolve each position's source row (ring row or x row, reflect column
+//   by channel parity), so that staging is a plain indexed load per value.
+//   Segments split the reduction so that the narrow layers still fill the
+//   card. The reduction is deterministic: each block writes its partial
+//   once, and a second small kernel sums the partials in a fixed order (no
+//   float atomicAdd). db is summed in the same pass by the blocks of tap 0
+//   and the first i tile. No tensor cores (wgmma) and no TMA for B3 yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "folded_mma.cuh"
 
 namespace {
 
-constexpr int TH = 8;        // B2: output rows per block
-constexpr int TW = 16;       // B2: output cols per block
-constexpr int KC = 16;       // B2: gz channels per shared-memory chunk
-constexpr int PX = 4;        // B2: consecutive output pixels per thread
-constexpr int CG = 8;        // B2: channel groups per block
-constexpr int THREADS = CG * (TH * TW / PX);  // 256
 constexpr int KP = 32;       // B3: positions per shared-memory chunk
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using folded::to_f32;
 
+// B2: bf16 two blocks per SM, two cp.async stages, as B1; float32 one block
+// per SM (the ring blocks' accumulators beside the split operands take ~190
+// registers), three stages
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// acc[q] += sum_o g[o] * kt[o * C4 + g0 + q] for the channels g0 + q < C4:
-// one gz pixel (C4o values) against one khat tap (C4o x C4).
-template <typename T, int TN>
-__device__ __forceinline__ void pixel_dot(float (&acc)[TN],
-                                          const T* __restrict__ g,
-                                          const T* __restrict__ kt, int C4o,
-                                          int C4, int g0) {
-  for (int o = 0; o < C4o; ++o) {
-    const float gv = to_f32(g[o]);
-    const T* kp = kt + (size_t)o * C4 + g0;
-#pragma unroll
-    for (int q = 0; q < TN; ++q)
-      if (g0 + q < C4) acc[q] = fmaf(gv, to_f32(kp[q]), acc[q]);
-  }
-}
-
-// ---------------------------------------------------------------- B2
-template <typename T, int TN>
-__global__ void __launch_bounds__(THREADS)
-    grad_input_kernel(const T* __restrict__ gz, const T* __restrict__ khat,
-                      T* __restrict__ dx, int H, int W, int C4o, int C4,
-                      int tiles_w) {
-  constexpr int TCO = CG * TN;
-  __shared__ float gs[KC][TH + 2][TW + 2];
-  __shared__ __align__(16) float ws[9][KC][TCO];
-
-  const int tid = threadIdx.x;
-  const int r0 = (blockIdx.x / tiles_w) * TH;
-  const int c0 = (blockIdx.x % tiles_w) * TW;
-  const int co0 = blockIdx.y * TCO;
-  const int n = blockIdx.z;
-
-  const int tc = tid % CG;
-  const int tp = tid / CG;
-  const int ty = tp / (TW / PX);
-  const int tx = (tp % (TW / PX)) * PX;
-
-  const T* gn = gz + (size_t)n * H * W * C4o;
-  const size_t tap_stride = (size_t)C4o * C4;
-
-  float acc[PX][TN];
-#pragma unroll
-  for (int j = 0; j < PX; ++j)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[j][q] = 0.f;
-
-  for (int ci0 = 0; ci0 < C4o; ci0 += KC) {
-    // ---- stage the gz tile with a one-pixel ZERO halo (SAME-zero conv)
-    for (int idx = tid; idx < KC * (TH + 2) * (TW + 2); idx += THREADS) {
-      const int ci = idx % KC;
-      const int pix = idx / KC;
-      const int cc = pix % (TW + 2);
-      const int rr = pix / (TW + 2);
-      const int o = ci0 + ci;
-      const int rg = r0 - 1 + rr;
-      const int cg = c0 - 1 + cc;
-      float v = 0.f;
-      if (o < C4o && rg >= 0 && rg < H && cg >= 0 && cg < W)
-        v = to_f32(gn[((size_t)rg * W + cg) * C4o + o]);
-      gs[ci][rr][cc] = v;
-    }
-    // ---- stage the 9 x KC x TCO khat chunk (zeros past C4o / C4)
-    for (int idx = tid; idx < 9 * KC * TCO; idx += THREADS) {
-      const int co = idx % TCO;
-      const int ci = (idx / TCO) % KC;
-      const int tap = idx / (TCO * KC);
-      const int o = ci0 + ci;
-      const int g = co0 + co;
-      float v = 0.f;
-      if (o < C4o && g < C4) v = to_f32(khat[tap * tap_stride + (size_t)o * C4 + g]);
-      ws[tap][ci][co] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int dr = 0; dr < 3; ++dr) {
-#pragma unroll 4
-      for (int ci = 0; ci < KC; ++ci) {
-        float a[PX + 2];
-#pragma unroll
-        for (int m = 0; m < PX + 2; ++m) a[m] = gs[ci][ty + dr][tx + m];
-#pragma unroll
-        for (int dc = 0; dc < 3; ++dc) {
-          float w[TN];
-          const float* wp = &ws[dr * 3 + dc][ci][tc * TN];
-          if constexpr (TN % 4 == 0) {
-#pragma unroll
-            for (int q = 0; q < TN; q += 4) {
-              const float4 w4 = *reinterpret_cast<const float4*>(wp + q);
-              w[q] = w4.x; w[q + 1] = w4.y; w[q + 2] = w4.z; w[q + 3] = w4.w;
-            }
-          } else {
-#pragma unroll
-            for (int q = 0; q < TN; ++q) w[q] = wp[q];
-          }
-#pragma unroll
-          for (int j = 0; j < PX; ++j)
-#pragma unroll
-            for (int q = 0; q < TN; ++q)
-              acc[j][q] = fmaf(a[j + dc], w[q], acc[j][q]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int r = r0 + ty;
-  if (r >= H) return;
-  const int C = C4 / 4;
-  const int cb = c0 + tx;           // this thread's first column
-  const int g0 = co0 + tc * TN;     // this thread's first dx channel
-
-  // ---- adjoint of the ring COLUMNS (interior rows r-1..r+1 of gz)
-  const bool need_l = cb <= 1;
-  const bool need_r = cb <= W - 1 && cb + PX - 1 >= W - 2;
-  if (need_l || need_r) {
-    float vl[TN], vr[TN];
-#pragma unroll
-    for (int q = 0; q < TN; ++q) vl[q] = vr[q] = 0.f;
-    for (int e = 0; e < 3; ++e) {
-      const int rr = r - 1 + e;
-      if (rr < 0 || rr >= H) continue;
-      if (need_l)
-        pixel_dot<T, TN>(vl, gn + (size_t)rr * W * C4o,
-                         khat + (e * 3 + 2) * tap_stride, C4o, C4, g0);
-      if (need_r)
-        pixel_dot<T, TN>(vr, gn + ((size_t)rr * W + W - 1) * C4o,
-                         khat + (e * 3 + 0) * tap_stride, C4o, C4, g0);
-    }
-#pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      const int c = cb + j;
-#pragma unroll
-      for (int q = 0; q < TN; ++q) {
-        const bool sj0 = (((g0 + q) / C) & 1) == 0;
-        if (need_l && ((c == 1 && sj0) || (c == 0 && !sj0))) acc[j][q] += vl[q];
-        if (need_r && ((c == W - 1 && sj0) || (c == W - 2 && !sj0)))
-          acc[j][q] += vr[q];
-      }
-    }
-  }
-
-  // ---- adjoint of the ring ROWS: top from gz row 0 with khat[2, :],
-  // bottom from gz row H-1 with khat[0, :], each with its corner columns
-  for (int side = 0; side < 2; ++side) {
-    const bool top = side == 0;
-    if (top ? r > 1 : r < H - 2) continue;
-    const int kr = top ? 2 : 0;
-    const T* grow = gn + (size_t)(top ? 0 : H - 1) * W * C4o;
-#pragma unroll
-    for (int j = 0; j < PX; ++j) {
-      const int c = cb + j;
-      if (c >= W) continue;
-      float v[TN];
-#pragma unroll
-      for (int q = 0; q < TN; ++q) v[q] = 0.f;
-      for (int f = 0; f < 3; ++f) {
-        const int cc = c - 1 + f;
-        if (cc < 0 || cc >= W) continue;
-        pixel_dot<T, TN>(v, grow + (size_t)cc * C4o,
-                         khat + (kr * 3 + f) * tap_stride, C4o, C4, g0);
-      }
-      if (c <= 1 || c >= W - 2) {  // corners, scattered by the column rule
-        float cl[TN], cr[TN];
-#pragma unroll
-        for (int q = 0; q < TN; ++q) cl[q] = cr[q] = 0.f;
-        if (c <= 1)
-          pixel_dot<T, TN>(cl, grow, khat + (kr * 3 + 2) * tap_stride, C4o,
-                           C4, g0);
-        if (c >= W - 2)
-          pixel_dot<T, TN>(cr, grow + (size_t)(W - 1) * C4o,
-                           khat + (kr * 3 + 0) * tap_stride, C4o, C4, g0);
-#pragma unroll
-        for (int q = 0; q < TN; ++q) {
-          const bool sj0 = (((g0 + q) / C) & 1) == 0;
-          if ((c == 1 && sj0) || (c == 0 && !sj0)) v[q] += cl[q];
-          if ((c == W - 1 && sj0) || (c == W - 2 && !sj0)) v[q] += cr[q];
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < TN; ++q) {
-        const bool si0 = ((g0 + q) / C) < 2;
-        const bool hit = top ? ((r == 1 && si0) || (r == 0 && !si0))
-                             : ((r == H - 1 && si0) || (r == H - 2 && !si0));
-        if (hit) acc[j][q] += v[q];
-      }
-    }
-  }
-
-  T* drow = dx + ((size_t)n * H + r) * W * C4;
-#pragma unroll
-  for (int j = 0; j < PX; ++j) {
-    const int c = cb + j;
-    if (c >= W) continue;
-#pragma unroll
-    for (int q = 0; q < TN; ++q)
-      if (g0 + q < C4) drow[(size_t)c * C4 + g0 + q] = from_f32<T>(acc[j][q]);
-  }
-}
-
-template <typename T>
-int launch_grad_input(const void* gz, const void* khat, void* dx, int N,
-                      int H, int W, int C4o, int C4, void* stream) {
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles = tiles_w * ((H + TH - 1) / TH);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* gp = static_cast<const T*>(gz);
+int launch_grad_input(const void* gz, const void* khat, void* wp, void* bits,
+                      void* dx, int N, int H, int W, int C4o, int C4,
+                      void* stream) {
+  folded::Args<T> a{};
+  a.x = static_cast<const T*>(gz);
+  a.y = static_cast<T*>(dx);
+  a.H = H;
+  a.W = W;
+  a.C4in = C4o;
+  a.C4out = C4;
   const T* kp = static_cast<const T*>(khat);
-  T* dp = static_cast<T*>(dx);
-  if (C4 <= 2 * CG) {  // the 12-wide dx of an image layer
-    dim3 grid(tiles, (C4 + 2 * CG - 1) / (2 * CG), N);
-    grad_input_kernel<T, 2><<<grid, THREADS, 0, s>>>(gp, kp, dp, H, W, C4o,
-                                                     C4, tiles_w);
-  } else {
-    dim3 grid(tiles, (C4 + 8 * CG - 1) / (8 * CG), N);
-    grad_input_kernel<T, 8><<<grid, THREADS, 0, s>>>(gp, kp, dp, H, W, C4o,
-                                                     C4, tiles_w);
-  }
-  return static_cast<int>(cudaGetLastError());
+  T* wpp = static_cast<T*>(wp);
+  unsigned* bp = static_cast<unsigned*>(bits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, float>::value)
+    return folded::launch<T, true, 1, 3>(a, kp, wpp, bp, N, s);
+  else
+    return folded::launch<T, true, 2, 2>(a, kp, wpp, bp, N, s);
 }
 
 // ---------------------------------------------------------------- B3
@@ -511,20 +295,27 @@ int launch_grad_weight(const void* x, const void* rings, const void* gz,
 // tensors; `stream` is a cudaStream_t. Each returns the cudaError_t of its
 // launches.
 //
-// B2: gz (N, H, W, C4o), khat (3, 3, C4o, C4), dx (N, H, W, C4), all of T.
+// B2: gz (N, H, W, C4o) and dx (N, H, W, C4) of T; khat (3, 3, C4o, C4) of
+// T; wp scratch of 9 * ceil(C4o / KE) * C4 * KE T (KE = 8 float or 16 bf16)
+// and bits scratch of 9 uint32, filled by the launch with khat packed
+// K-major and its non-zero block table. cudaErrorInvalidValue for a shape
+// it refuses (H, W >= 2, channels multiples of 4).
 extern "C" int rpst_folded_conv_grad_input_f32(const void* gz,
-                                               const void* khat, void* dx,
-                                               int N, int H, int W, int C4o,
-                                               int C4, void* stream) {
-  return launch_grad_input<float>(gz, khat, dx, N, H, W, C4o, C4, stream);
+                                               const void* khat, void* wp,
+                                               void* bits, void* dx, int N,
+                                               int H, int W, int C4o, int C4,
+                                               void* stream) {
+  return launch_grad_input<float>(gz, khat, wp, bits, dx, N, H, W, C4o, C4,
+                                  stream);
 }
 
 extern "C" int rpst_folded_conv_grad_input_bf16(const void* gz,
-                                                const void* khat, void* dx,
-                                                int N, int H, int W, int C4o,
+                                                const void* khat, void* wp,
+                                                void* bits, void* dx, int N,
+                                                int H, int W, int C4o,
                                                 int C4, void* stream) {
-  return launch_grad_input<__nv_bfloat16>(gz, khat, dx, N, H, W, C4o, C4,
-                                          stream);
+  return launch_grad_input<__nv_bfloat16>(gz, khat, wp, bits, dx, N, H, W,
+                                          C4o, C4, stream);
 }
 
 // B3: x (N, H, W, C4), rings (N, 2, W, C4), gz (N, H, W, C4o) of T; dk

@@ -31,10 +31,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# x, rings, k, b, y (device pointers), N, H, W, C4, C4o, alpha, stream
-_FOLDED_CONV_ARGS = [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR]
-# gz, khat, dx (device pointers), N, H, W, C4o, C4, stream
-_GRAD_INPUT_ARGS = [_PTR] * 3 + [_INT] * 5 + [_PTR]
+# x, rings, k, wp and bits scratch (the kernel packed K-major and its
+# non-zero block table, filled by the launch), b, y (device pointers), N, H,
+# W, C4, C4o, alpha, stream
+_FOLDED_CONV_ARGS = [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR]
+# gz, khat, wp and bits scratch, dx (device pointers), N, H, W, C4o, C4,
+# stream
+_GRAD_INPUT_ARGS = [_PTR] * 5 + [_INT] * 5 + [_PTR]
 # x, rings, gz, dk, db, dk_part, db_part (device pointers), N, H, W, C4,
 # C4o, seg_len, stream
 _GRAD_WEIGHT_ARGS = [_PTR] * 7 + [_INT] * 6 + [_PTR]
@@ -44,7 +47,7 @@ _FOLDED_CONV_Q8_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
 # x, w1, scales1, w2, scales2, y1, y2, s11, s12, s21, s22, part (device
 # pointers), N, H, W, C4, C4m, C4o, out_int8, with_stats, stream
 _FOLDED_CONV2_Q8_ARGS = [_PTR] * 12 + [_INT] * 8 + [_PTR]
-# x, packed w (ops.conv2d_q8.pack_conv2d_weights), scales, y (device
+# x, packed w (ops.folded_conv.pack_k_major), scales, y (device
 # pointers), N, H, W, C, Co, out_int8, reflect, alpha, stream
 _CONV2D_Q8_ARGS = [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _PTR]
 # x, packed w, bias, y (device pointers), N, H, W, C, Co, reflect, alpha,

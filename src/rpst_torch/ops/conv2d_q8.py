@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .folded_conv import _count
+from .folded_conv import _count, pack_k_major
 from .folded_conv_q8 import check_q8_tensors
 
 _PAD = {"reflect": "reflect", "zero": "constant"}
@@ -87,12 +87,7 @@ def pack_conv2d_weights(w: torch.Tensor) -> torch.Tensor:
             or w.dtype not in (torch.int8, torch.bfloat16):
         raise ValueError(f"pack_conv2d_weights: expected (3, 3, C, Co) int8 "
                          f"or bfloat16, got {tuple(w.shape)} {w.dtype}")
-    ke = 32 // w.element_size()
-    c, co = w.shape[2], w.shape[3]
-    steps = -(-c // ke)
-    padded = F.pad(w, (0, 0, 0, steps * ke - c))
-    return padded.reshape(3, 3, steps, ke, co).permute(0, 1, 2, 4, 3) \
-        .contiguous()
+    return pack_k_major(w)
 
 
 def _packed(name, w, w_packed):

@@ -14,6 +14,14 @@ Each wrapper takes a CUDA tensor to its hand-written kernel or raises; a
 CPU tensor takes its ``*_plain`` version, the same function in plain
 PyTorch, which the CPU tests hold against rpst. ``<wrapper>.launches``
 counts the wrapper's kernel launches and nothing else.
+
+B1 and B2 run on the tensor cores and take only the non-zero blocks of the
+folded kernel: each launch packs the kernel K-major (``pack_k_major``'s
+layout) and lists its non-zero (tap, input block, output block) blocks
+(``block_table``'s table) on the device, in scratch the wrapper allocates,
+with no host sync. A kernel from ``fold_conv_kernel`` lists 36 of the 144
+blocks, so B1 and B2 do the MACs of the unfolded conv; any other kernel
+gives the same function, at the cost of the blocks it lists.
 """
 
 from __future__ import annotations
@@ -66,6 +74,39 @@ def _ring_rows(x_f):
     return torch.cat([_row_ring(x_f, True), _row_ring(x_f, False)], dim=1)
 
 
+def block_table(k):
+    """(3, 3, 4, 4) uint8 of a (3, 3, 4C, 4Co) kernel: 1 where the C x Co
+    block of (tap, input sub-position block, output sub-position block)
+    holds a non-zero (NaN included), the blocks B1 and B2 take (their
+    launches build the same table on the card, as bits)."""
+    c4, c4o = k.shape[2], k.shape[3]
+    nz = k.reshape(3, 3, 4, c4 // 4, 4, c4o // 4).ne(0)
+    return nz.any(dim=5).any(dim=3).to(torch.uint8)
+
+
+def pack_k_major(w):
+    """HWIO (3, 3, C, Co) weights in the order of the tensor-core kernels'
+    ``mma`` (B1 / B2 here, B5 in ``ops.conv2d_q8``): (3, 3, ceil(C / KE),
+    Co, KE) contiguous, KE input channels = 32 bytes (one k-step: 8
+    float32, 16 bfloat16, 32 int8), zeros past C. ``packed[dr, dc, s, co,
+    e] = w[dr, dc, s * KE + e, co]``."""
+    ke = 32 // w.element_size()
+    c, co = w.shape[2], w.shape[3]
+    steps = -(-c // ke)
+    padded = F.pad(w, (0, 0, 0, steps * ke - c))
+    return padded.reshape(3, 3, steps, ke, co).permute(0, 1, 2, 4, 3) \
+        .contiguous()
+
+
+def _scratch(k):
+    """The launch's scratch for ``k`` (3, 3, Cin, Cout): its K-major copy
+    (``pack_k_major``'s size) and its block table as 9 words of bits."""
+    ke = 32 // k.element_size()
+    packed = torch.empty(9 * -(-k.shape[2] // ke) * k.shape[3] * ke,
+                         dtype=k.dtype, device=k.device)
+    return packed, torch.empty(9, dtype=torch.int32, device=k.device)
+
+
 def _launch(lib_fn, what, *args):
     from ..kernels.build import launch
     launch("folded_conv" if what == "B1" else "folded_conv_bwd", lib_fn, what,
@@ -95,12 +136,13 @@ def _check(x_f, k, b, rings):
     if c4 % 4 or c4o % 4:
         raise ValueError(f"need 4C, 4Co multiples of 4; got x "
                          f"{tuple(x_f.shape)}, k {tuple(k.shape)}")
-    if tuple(rings.shape) != (n, 2, w, c4):
+    if rings is not None and tuple(rings.shape) != (n, 2, w, c4):
         raise ValueError(f"rings must be {(n, 2, w, c4)}, got "
                          f"{tuple(rings.shape)}")
-    _check_common("fused_folded_conv", (("x_f", x_f), ("kernel", k),
-                                        ("bias", b), ("rings", rings)),
-                  x_f.dtype, x_f.device)
+    tensors = (("x_f", x_f), ("kernel", k), ("bias", b))
+    if rings is not None:
+        tensors += (("rings", rings),)
+    _check_common("fused_folded_conv", tensors, x_f.dtype, x_f.device)
 
 
 def _check_x(name, x_f):
@@ -132,9 +174,8 @@ def fused_folded_conv(x_f, folded_kernel, folded_bias, alpha=0.2,
                 "slice 8")
         return FoldedConvAct.apply(x_f, folded_kernel, folded_bias, alpha)
     _check_x("fused_folded_conv", x_f)
-    if rings is None:
-        rings = _ring_rows(x_f)
-    rings = rings.to(x_f.dtype)
+    if rings is not None:  # else the kernel reads the reflect ring of x
+        rings = rings.to(x_f.dtype)
     _check(x_f, folded_kernel, folded_bias, rings)
     if x_f.device.type == "cpu":
         return fused_folded_conv_plain(x_f, folded_kernel, folded_bias,
@@ -143,7 +184,8 @@ def fused_folded_conv(x_f, folded_kernel, folded_bias, alpha=0.2,
     c4o = folded_kernel.shape[3]
     y = torch.empty((n, h, w, c4o), dtype=x_f.dtype, device=x_f.device)
     _launch(f"rpst_folded_conv_{_ENTRY[x_f.dtype]}", "B1", x_f, rings,
-            folded_kernel, folded_bias, y, n, h, w, c4, c4o, float(alpha))
+            folded_kernel, *_scratch(folded_kernel), folded_bias, y, n, h, w,
+            c4, c4o, float(alpha))
     _count(fused_folded_conv)
     return y
 
@@ -207,7 +249,7 @@ def fused_folded_conv_grad_input(gz, khat):
     c4 = khat.shape[3]
     dx = torch.empty((n, h, w, c4), dtype=gz.dtype, device=gz.device)
     _launch(f"rpst_folded_conv_grad_input_{_ENTRY[gz.dtype]}", "B2", gz,
-            khat, dx, n, h, w, c4o, c4)
+            khat, *_scratch(khat), dx, n, h, w, c4o, c4)
     _count(fused_folded_conv_grad_input)
     return dx
 

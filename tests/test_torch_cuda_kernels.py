@@ -147,6 +147,65 @@ def test_function_on_card_matches_plain_autograd(cuda_device, alpha):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=2e-3)
 
 
+def _offset_copy(t, elems):
+    """``t`` in a buffer ``elems`` elements in: contiguous, its data pointer
+    off 16-byte alignment (cp.async's) for elems * size % 16 != 0."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape", [(1, 9, 17, 32, 32), (2, 9, 17, 32, 3),
+                                   (2, 17, 33, 3, 32), (1, 3, 5, 4, 5),
+                                   (1, 10, 18, 16, 8), (1, 2, 3, 2, 64),
+                                   (2, 2, 2, 3, 3)])
+def test_b1_b2_tile_edges_on_card(cuda_device, dtype, tol, dense, shape):
+    """B1 and B2 (folded_mma.cuh) at the edges of their 8 x 16 tiles and
+    tilings, with a folded kernel (36 blocks listed) and a dense one (144):
+    rows / columns H-2, H-1 in two tiles, the 12-wide sides, Co = 5 and 8,
+    two channel tiles, the smallest image; B1 also with a rings override
+    and with x off 16-byte alignment. (N, H, W, C, Co) of a 4C -> 4Co
+    layer."""
+    n, h, w, c, co = shape
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(n, h, w, 4 * c, generator=g)
+    gz = torch.randn(n, h, w, 4 * co, generator=g)
+    k = fold_conv_kernel(torch.randn(3, 3, c, co, generator=g) * 0.2)
+    if dense:
+        k = torch.randn(3, 3, 4 * c, 4 * co, generator=g) * 0.1
+    b = fold_bias(torch.randn(co, generator=g))
+    rings = torch.rand(n, 2, w, 4 * c, generator=g)
+    x, gz, k, b, rings = (t.to(cuda_device, dtype).contiguous()
+                          for t in (x, gz, k, b, rings))
+    khat = k.flip(0, 1).transpose(2, 3).contiguous()
+    before = (fused_folded_conv.launches,
+              fused_folded_conv_grad_input.launches)
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        got = [fused_folded_conv(x, k, b, 0.2),
+               fused_folded_conv(x, k, b, 0.0, rings),
+               fused_folded_conv(_offset_copy(x, 2), k, b, 0.2),
+               fused_folded_conv_grad_input(gz, khat)]
+        torch.cuda.synchronize()
+        f = [t.float() for t in (x, k, b, rings, gz, khat)]
+        ref = [fused_folded_conv_plain(f[0], f[1], f[2], 0.2),
+               fused_folded_conv_plain(f[0], f[1], f[2], 0.0, f[3]),
+               fused_folded_conv_plain(f[0], f[1], f[2], 0.2),
+               fused_folded_conv_grad_input_plain(f[4], f[5])]
+    assert (fused_folded_conv.launches,
+            fused_folded_conv_grad_input.launches) == (before[0] + 3,
+                                                       before[1] + 1)
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), r.to(dtype).float(), rtol=tol,
+                                   atol=tol)
+
+
 @pytest.mark.cuda
 def test_b2_refuses_float64_on_card(cuda_device):
     x, gz, khat = _grad_case(1, 1, 4, 4, 8, 8, cuda_device)

@@ -1,7 +1,7 @@
-"""What the per-kernel compile checks (``b5_compile_check.py``,
-``b6_compile_check.py``) share: building an earlier version of a kernel
-source by hand, to time it beside the current one, and counting instruction
-mnemonics in a built library's SASS."""
+"""What the per-kernel compile checks (``b1_compile_check.py``,
+``b5_compile_check.py``, ``b6_compile_check.py``) share: building an earlier
+version of a kernel source by hand, to time it beside the current one, and
+counting instruction mnemonics in a built library's SASS."""
 
 import ctypes
 import subprocess
@@ -10,18 +10,21 @@ from pathlib import Path
 from rpst_torch.kernels import build
 
 
-def parent_library(name: str, source: Path, tag: str = "parent"):
-    """``source``, an earlier version of ``csrc/<name>.cu`` with the same C
-    interface (its headers beside it), built with the package's nvcc flags
-    into ``<tag>_<name>.so`` (one tag a source: a library is loaded once a
-    path) and loaded with the signatures of ``build.SIGNATURES[name]``."""
+def parent_library(name: str, source: Path, tag: str = "parent",
+                   signatures=None):
+    """``source``, an earlier version of ``csrc/<name>.cu`` (its headers
+    beside it), built with the package's nvcc flags into
+    ``<tag>_<name>.so`` (one tag a source: a library is loaded once a path)
+    and loaded with ``signatures`` ({function: (argtypes, restype)}), by
+    default those of ``build.SIGNATURES[name]`` (the same C interface)."""
     out = build.BUILD_DIR / f"{tag}_{name}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in build.NVCC_FLAGS if not f.startswith("-DB")]
     subprocess.run([build._nvcc(), *flags, "-o", str(out), str(source)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
-    for fn, (argtypes, restype) in build.SIGNATURES[name].items():
+    for fn, (argtypes, restype) in (signatures
+                                    or build.SIGNATURES[name]).items():
         getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
     return lib
 

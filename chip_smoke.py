@@ -21,7 +21,12 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                (F.conv2d on the ring-padded tensor; conv2d_input), the
                unfolded conv the standard path runs (reflect pad + F.conv2d
                on (N, C, 2H, 2W); conv2d_input) and the dense and
-               structured bounds; B3 against plain and conv2d_weight
+               structured bounds; B3 dense and listed (the fold's 36
+               blocks) at every case, each bit-equal across two runs, the
+               listed one's unfolded-kernel gradient equal to the dense
+               one's, and timed in both modes beside plain, conv2d_weight
+               on the ring-padded folded tensor and on the reflect-padded
+               unfolded image, and the dense and structured bounds
   3. fixture   folded stylize on the card vs rpst's JAX output
                (tests/fixtures/torch_port_flagship.npz)
   4. parity    512px: folded (B1) vs the port's standard path; bf16 vs f32;
@@ -581,10 +586,8 @@ def main():
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
         "B1": b12["B1"]["bound"],
         "B2": b12["B2"]["bound"],
-        # reads x and gz, writes dk and db
-        "B3": bound_ms(2 * 9 * 256 * 256 * 128 * 128,
-                       (2 * 256 * 256 * 128 + 9 * 128 * 128 + 128) * f4,
-                       "f32"),
+        # B3 at the timed listed mode: the 36 blocks a fold lists
+        "B3": bwd["B3"]["bound"],
         "B4": conv_bound(1, 256, 256, 128, 128, "int8", 1, [1],
                          extra_bytes=3 * nb + 2 * nb),
         "B7": conv_bound(1, 256, 256, 128, 128, "int8", 1, [1, 1],
@@ -690,16 +693,73 @@ def _grad_case(g, dev, n, h, w, c4, c4o, folded=False):
             kf.flip(0, 1).transpose(2, 3).contiguous().to(dev))
 
 
+def _plain_act(x_f, folded_kernel, folded_bias, alpha, listed=False):
+    """B1's plain version as a ``conv_act`` (autograd of plain PyTorch
+    computes every block; ``listed`` changes nothing there)."""
+    from rpst_torch.ops.folded_conv import fused_folded_conv_plain
+    return fused_folded_conv_plain(x_f, folded_kernel, folded_bias, alpha)
+
+
+def _unfolded_kernel_grad(dk):
+    """The image kernel's gradient (3, 3, C, Co) that a folded kernel's
+    gradient dk (3, 3, 4C, 4Co) sends back through fold_conv_kernel: each
+    tap's four placements summed (the einsum's backward)."""
+    import torch
+    from rpst_torch.ops.folded import _fold_placement
+    c, co = dk.shape[2] // 4, dk.shape[3] // 4
+    p = _fold_placement(torch.float32, dk.device)
+    k = torch.einsum("abstk,absito->kio", p, dk.reshape(3, 3, 4, c, 4, co))
+    return k.reshape(3, 3, c, co)
+
+
+def _check_b3(label, xd, gd, dk_atol):
+    """B3 in both modes against its plain version (rtol 1e-4, atol
+    dk_atol), each bit-equal across two runs, and the listed mode's
+    unfolded-kernel gradient against the dense mode's (the same limits);
+    returns the max abs error."""
+    import torch
+    from rpst_torch.ops.folded_conv import (
+        fused_folded_conv_grad_weight, fused_folded_conv_grad_weight_plain)
+
+    def close(name, got, ref):
+        if not (torch.isfinite(got).all() and torch.allclose(
+                got, ref, rtol=1e-4, atol=dk_atol)):
+            raise AssertionError(
+                f"B3 {label} {name}: max abs err "
+                f"{(got - ref).abs().max().item()} (rtol 1e-4, atol "
+                f"{dk_atol:.3g})")
+        return (got - ref).abs().max().item()
+
+    err, out = 0.0, {}
+    for mode, listed in (("dense", False), ("listed", True)):
+        dk, db = fused_folded_conv_grad_weight(xd, gd, listed)
+        dk2, db2 = fused_folded_conv_grad_weight(xd, gd, listed)
+        torch.cuda.synchronize()
+        if not (torch.equal(dk, dk2) and torch.equal(db, db2)):
+            raise AssertionError(f"B3 {label} {mode}: two runs differ")
+        rdk, rdb = fused_folded_conv_grad_weight_plain(xd, gd, listed)
+        err = max(err, close(f"{mode} dk", dk, rdk), close(f"{mode} db", db,
+                                                          rdb))
+        out[mode] = dk
+    close("listed vs dense, unfolded kernel gradient",
+          _unfolded_kernel_grad(out["listed"]),
+          _unfolded_kernel_grad(out["dense"]))
+    return err
+
+
 def _check_backward_kernels(dev, name_power):
     """Phase 2, backward: B2 and B3 against their plain versions at every
     width of the training path, f32 and bf16, B2 with dense and with folded
-    kernels; B3 timed against plain and torch.nn.grad.conv2d_weight on the
-    ring-padded folded tensor at (1,256,256,128->128) and
-    (1,128,128,512->512). Returns the f32 max abs errors and B3's 128->128
-    f32 times for the kernels JSON."""
+    kernels, B3 dense and listed (``_check_b3``); B3 timed in both modes
+    against plain, torch.nn.grad.conv2d_weight on the ring-padded folded
+    tensor and on the reflect-padded unfolded image (what the standard path
+    runs) at (1,256,256,128->128) and (1,128,128,512->512). Returns the f32
+    max abs errors and B3's listed 128->128 f32 times for the kernels
+    JSON."""
     import torch
+    import torch.nn.functional as F
     from torch.nn.grad import conv2d_weight
-    from rpst_torch.ops.folded import folded_reflect_pad
+    from rpst_torch.ops.folded import folded_reflect_pad, unfold
     from rpst_torch.ops.folded_conv import (
         fused_folded_conv_grad_input, fused_folded_conv_grad_input_plain,
         fused_folded_conv_grad_weight, fused_folded_conv_grad_weight_plain)
@@ -728,47 +788,58 @@ def _check_backward_kernels(dev, name_power):
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             xd, gd, kd = x.to(dt), gz.to(dt), khat.to(dt)
             dx = fused_folded_conv_grad_input(gd, kd)
-            dk, db = fused_folded_conv_grad_weight(xd, gd)
             torch.cuda.synchronize()
             e2, _ = check_close(f"B2 {label} {dt}", dx,
                                 fused_folded_conv_grad_input_plain(gd, kd),
                                 tol)
-            rdk, rdb = fused_folded_conv_grad_weight_plain(xd, gd)
-            e3 = 0.0
-            for name, got, ref in (("dk", dk, rdk), ("db", db, rdb)):
-                if not (torch.isfinite(got).all() and torch.allclose(
-                        got, ref, rtol=1e-4, atol=dk_atol)):
-                    raise AssertionError(
-                        f"B3 {label} {dt} {name}: max abs err "
-                        f"{(got - ref).abs().max().item()} (rtol 1e-4, atol "
-                        f"{dk_atol:.3g})")
-                e3 = max(e3, (got - ref).abs().max().item())
+            e3 = _check_b3(f"{label} {dt}", xd, gd, dk_atol)
             if dt == torch.float32:
                 err["B2"], err["B3"] = max(err["B2"], e2), max(err["B3"], e3)
             log("2 kernels", f"{label} {tuple(shape)} {str(dt)[6:]}: B2 dx "
-                f"max abs err {e2:.3g} (tol {tol}), B3 dk/db {e3:.3g} "
-                f"(atol {dk_atol:.3g})")
+                f"max abs err {e2:.3g} (tol {tol}), B3 dk/db dense and "
+                f"listed {e3:.3g} (atol {dk_atol:.3g}; bit-equal across two "
+                f"runs; listed = dense through the fold)")
     out = {"B2": {"err": err["B2"]}, "B3": {"err": err["B3"]}}
     for shape in ((1, 256, 256, 128, 128), (1, 128, 128, 512, 512)):
+        n, h, w, c4, c4o = shape
         x, gz, _ = _grad_case(g, dev, *shape)
         for dt in (torch.float32, torch.bfloat16):
+            kind, size = ("f32", 4) if dt == torch.float32 else ("bf16", 2)
             xd, gd = x.to(dt), gz.to(dt)
-            # the library call on the folded layout: the kernel gradient of
-            # one conv over the ring-padded tensor
+            # the library calls: the kernel gradient of one conv over the
+            # ring-padded folded tensor (all 144 blocks), and of the
+            # unfolded conv over the reflect-padded image
             xp = folded_reflect_pad(xd).permute(0, 3, 1, 2)
             gp = gd.permute(0, 3, 1, 2)
-            wsize = (shape[4], shape[3], 3, 3)
-            t = {"B3": cuda_ms(lambda: fused_folded_conv_grad_weight(xd, gd)),
-                 "B3 plain": cuda_ms(
-                     lambda: fused_folded_conv_grad_weight_plain(xd, gd)),
-                 "B3 lib": cuda_ms(lambda: conv2d_weight(xp, wsize, gp))}
-            log("2 kernels", f"{tuple(shape)} {str(dt)[6:]}: B3 "
-                f"{t['B3']:.4f} ms vs plain {t['B3 plain']:.4f}, "
-                f"conv2d_weight on the ring-padded tensor "
-                f"{t['B3 lib']:.4f} ({name_power})")
-            if shape[3] == 128 and dt == torch.float32:
-                out["B3"].update(ms=t["B3"], plain_ms=t["B3 plain"],
-                                 library_ms=t["B3 lib"])
+            xu = F.pad(unfold(xd).permute(0, 3, 1, 2), (1, 1, 1, 1),
+                       mode="reflect")
+            gu = unfold(gd).permute(0, 3, 1, 2)
+            lib = {"folded": cuda_ms(lambda: conv2d_weight(
+                       xp, (c4o, c4, 3, 3), gp)),
+                   "unfolded": cuda_ms(lambda: conv2d_weight(
+                       xu, (c4o // 4, c4 // 4, 3, 3), gu))}
+            for mode, listed in (("dense", False), ("listed", True)):
+                t = {"B3": cuda_ms(lambda: fused_folded_conv_grad_weight(
+                         xd, gd, listed)),
+                     "B3 plain": cuda_ms(
+                         lambda: fused_folded_conv_grad_weight_plain(
+                             xd, gd, listed))}
+                bnd = folded_bound(n, h, w, c4, c4o, kind, size, listed)
+                tf3 = ""
+                if kind == "f32":  # three TF32 products: 3x the operations
+                    ops = 2 * 9 * n * h * w * c4 * c4o // (4 if listed else 1)
+                    tf3 = (f", 3xTF32 ceiling "
+                           f"{3 * ops / PEAK_OPS['f32'] * 1e3:.4f}")
+                log("2 kernels", f"B3 {tuple(shape)} {kind} {mode}: "
+                    f"{t['B3']:.4f} ms vs plain {t['B3 plain']:.4f}, "
+                    f"conv2d_weight on the ring-padded tensor "
+                    f"{lib['folded']:.4f}, on the unfolded image "
+                    f"{lib['unfolded']:.4f}; bound {bnd[0]:.4f} ms by "
+                    f"{bnd[1]}{tf3} ({100 * bnd[0] / t['B3']:.1f}% of it; "
+                    f"{name_power})")
+                if (c4, kind, mode) == (128, "f32", "listed"):
+                    out["B3"].update(ms=t["B3"], plain_ms=t["B3 plain"],
+                                     library_ms=lib["folded"], bound=bnd)
     return out
 
 
@@ -991,7 +1062,6 @@ def _train_parity(dev, rng):
     from rpst_torch.config import load_config
     from rpst_torch.models import build_model, build_vgg
     from rpst_torch.nn.blocks import init_torch_default
-    from rpst_torch.ops.folded_conv import fused_folded_conv_plain
 
     cfg = load_config(dict(FLAGSHIP, img_size=IMG, exec_strategy="folded"))
     vgg, _ = build_vgg(cfg, dev)
@@ -999,7 +1069,7 @@ def _train_parity(dev, rng):
             for _ in range(2))
     runs = {}
     for label, over, conv_act in (
-            ("kernels", {}, None), ("plain", {}, fused_folded_conv_plain),
+            ("kernels", {}, None), ("plain", {}, _plain_act),
             ("standard", {"exec_strategy": "standard"}, None),
             ("bf16", {"compute_dtype": "bfloat16"}, None)):
         bundle = build_model(cfg.replace(**over), dev)
@@ -1114,7 +1184,6 @@ def _train_timing(dev, rng, name_power):
     from rpst_torch.config import load_config
     from rpst_torch.models import build_model, build_vgg
     from rpst_torch.nn.blocks import init_torch_default
-    from rpst_torch.ops.folded_conv import fused_folded_conv_plain
     from rpst_torch.train.step import create_train_state, train_step
 
     cfg = load_config(dict(FLAGSHIP, img_size=IMG, exec_strategy="folded"))
@@ -1126,8 +1195,7 @@ def _train_timing(dev, rng, name_power):
         for dt in ("float32", "bfloat16"):
             for path, strategy, kw in (
                     ("folded B1/B2/B3", "folded", {}),
-                    ("folded plain", "folded",
-                     {"conv_act": fused_folded_conv_plain}),
+                    ("folded plain", "folded", {"conv_act": _plain_act}),
                     ("standard", "standard", {})):
                 bundle = build_model(cfg.replace(exec_strategy=strategy,
                                                  compute_dtype=dt), dev)

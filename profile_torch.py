@@ -24,7 +24,7 @@ For each case it prints one Markdown table row:
   Bn share      device time of the kernel (B1 and B2 folded_mma_kernel,
                 told apart by its BWD template argument; their per-launch
                 weight packing, prep_weights_kernel, counts as other; B3
-                grad_weight_partial + _reduce, B4
+                grad_weight_mma + _reduce, B4
                 folded_conv_q8_kernel, B7 folded_conv2_q8_kernel, B5
                 conv2d_mma_kernel, B6 flash_fwd_tf32_kernel (float32) and
                 flash_fwd_mma_kernel (bfloat16), B6c
@@ -71,7 +71,7 @@ IMG = 512
 # report column -> the kernel-name prefixes it sums
 KERNELS = {"B1": ("folded_mma_kernel[B1]",),
            "B2": ("folded_mma_kernel[B2]",),
-           "B3": ("grad_weight_partial", "grad_weight_reduce"),
+           "B3": ("grad_weight_mma", "grad_weight_reduce"),
            "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",),
            "B5": ("conv2d_mma_kernel",),
            "B6": ("flash_fwd_tf32_kernel", "flash_fwd_mma_kernel"),

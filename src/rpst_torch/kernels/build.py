@@ -38,9 +38,9 @@ _FOLDED_CONV_ARGS = [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR]
 # gz, khat, wp and bits scratch, dx (device pointers), N, H, W, C4o, C4,
 # stream
 _GRAD_INPUT_ARGS = [_PTR] * 5 + [_INT] * 5 + [_PTR]
-# x, rings, gz, dk, db, dk_part, db_part (device pointers), N, H, W, C4,
-# C4o, seg_len, stream
-_GRAD_WEIGHT_ARGS = [_PTR] * 7 + [_INT] * 6 + [_PTR]
+# x, gz, items (B3's work list), dk, db, dk_part, db_part (device
+# pointers), n_items, N, H, W, C4, C4o, seg_len, stream
+_GRAD_WEIGHT_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
 # x, w, scales, y, s1, s2, part (device pointers), N, H, W, C4, C4o,
 # out_int8, with_stats, stream
 _FOLDED_CONV_Q8_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]

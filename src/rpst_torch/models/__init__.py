@@ -278,7 +278,10 @@ class ModelBundle:
         Folded (``folded_exec()``): ``stylize_multi_adain_folded`` on the
         live folded weights, then the folded VGG loss, every folded conv
         through ``conv_act`` (B1's autograd Function; a benchmark passes B1's
-        plain version to time the plain path); where ``q8_targets_active``
+        plain version to time the plain path), the RP layers with
+        ``listed=True`` (their kernels are ``fold_conv_kernel``'s output,
+        so B3 computes only the 36 blocks the fold reads); where
+        ``q8_targets_active``
         the style and content targets come from the int8 VGG chain on B5
         instead of the folded float pass. Standard: the module's
         forward, then ``perceptual_rp_losses``, under bfloat16 autocast when
@@ -300,7 +303,8 @@ class ModelBundle:
             dtype = self.folded_dtype()
             stylized = stylize_multi_adain_folded(
                 live_folded_blocks(self.model, dtype), content, style,
-                dtype=dtype, conv=lambda x, k, b: conv_act(x, k, b, 0.2))
+                dtype=dtype,
+                conv=lambda x, k, b: conv_act(x, k, b, 0.2, listed=True))
             if self.q8_targets_active(content.shape[0]):
                 parts, _ = perceptual_rp_losses_q8targets(
                     vgg, self.q8_target_scales, stylized, style, content,

@@ -34,8 +34,10 @@ from ..ops.stats import calc_mean_std
 from .blocks import pad2d
 from .vgg import VGG19Encoder, maxpool_ceil
 
-ConvAct = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float],
-                   torch.Tensor]
+# conv_act(x_f, folded_kernel, folded_bias, alpha, listed=False): the live
+# training fold passes listed=True (the kernel is fold_conv_kernel's output,
+# so B3 may compute only its 36 listed blocks); the frozen VGG never does
+ConvAct = Callable[..., torch.Tensor]
 Stats = List[Tuple[torch.Tensor, torch.Tensor]]
 
 

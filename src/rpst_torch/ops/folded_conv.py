@@ -22,23 +22,33 @@ layout) and lists its non-zero (tap, input block, output block) blocks
 with no host sync. A kernel from ``fold_conv_kernel`` lists 36 of the 144
 blocks, so B1 and B2 do the MACs of the unfolded conv; any other kernel
 gives the same function, at the cost of the blocks it lists.
+
+B3 runs on the tensor cores too, as per-tap GEMMs reduced over positions
+(``b3_items`` lists its tiles). Which blocks it computes cannot come from
+the kernel's values: the gradient of a zero block is not zero. So it is
+dense (rpst's function, all 144 blocks) unless the caller says that the
+folded kernel is ``fold_conv_kernel``'s output (``listed``, passed by the
+live training fold through ``FoldedConvAct``): then it computes the 36
+blocks the fold's backward reads and writes zeros in the others.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .folded import _row_ring, conv_nhwc, folded_conv, folded_reflect_pad
+from .folded import (_fold_placement, conv_nhwc, folded_conv,
+                     folded_reflect_pad)
 
 _ENTRY = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _launch_lock = threading.Lock()
-# B3 sizing: the kernel's tile widths (16 for a 12-wide side, else 128), the
-# positions per shared-memory chunk, and the blocks to aim for (4 per SM of
-# an H100's 132) when cutting the reduction into segments
-_B3_KP, _B3_TARGET_BLOCKS = 32, 4 * 132
+# B3: the blocks to aim for (4 per SM of an H100's 132) when cutting the
+# reduction into segments
+_B3_TARGET_BLOCKS = 4 * 132
 
 
 def _count(wrapper) -> None:
@@ -67,11 +77,6 @@ def _acc(t):
     """``t`` in the plain versions' accumulation type: float32, or float64
     for float64 input."""
     return t if t.dtype == torch.float64 else t.float()
-
-
-def _ring_rows(x_f):
-    """The reflect ring rows (N, 2, W, 4C): row 0 above x_f, row 1 below."""
-    return torch.cat([_row_ring(x_f, True), _row_ring(x_f, False)], dim=1)
 
 
 def block_table(k):
@@ -259,16 +264,30 @@ fused_folded_conv_grad_input.launches = 0
 
 # ---------------------------------------------------------------- B3
 
-def fused_folded_conv_grad_weight_plain(x_f, gz):
+def listed_blocks():
+    """(3, 3, 4, 4) bool: the (tap, input block, output block) C x Co blocks
+    that ``fold_conv_kernel`` places the image kernel in, 36 of 144 (its
+    placement tensor's support). The only blocks whose gradient reaches the
+    image kernel through the fold."""
+    return _fold_placement(torch.float32, torch.device("cpu")).any(dim=-1)
+
+
+def fused_folded_conv_grad_weight_plain(x_f, gz, listed=False):
     """B3 in plain PyTorch: dk[dr, dc] = window(dr, dc) of the ring-padded
     x_f, transposed, times gz, summed over every position; db = sum of gz.
-    Both float32 (float64 for float64 input)."""
+    Both float32 (float64 for float64 input). ``listed``: dk is zero outside
+    the 36 blocks of ``listed_blocks``."""
     h, w = x_f.shape[1], x_f.shape[2]
     xp = folded_reflect_pad(_acc(x_f))
     g = _acc(gz)
     dk = torch.stack([torch.stack([
         torch.einsum("nhwi,nhwo->io", xp[:, dr:dr + h, dc:dc + w], g)
         for dc in range(3)]) for dr in range(3)])
+    if listed:
+        c4, c4o = dk.shape[2], dk.shape[3]
+        mask = listed_blocks().to(dk.device)[:, :, :, None, :, None]
+        dk = (dk.reshape(3, 3, 4, c4 // 4, 4, c4o // 4) * mask).reshape(
+            dk.shape)
     return dk, g.sum(dim=(0, 1, 2))
 
 
@@ -276,21 +295,91 @@ def _ceil_div(a, b):
     return -(-a // b)
 
 
-def _b3_segment(n, h, w, c4, c4o):
-    """Positions per segment of B3's reduction: enough segments that the
-    narrow layers fill the card, each a whole number of chunks."""
-    tiles = _ceil_div(c4, 16 if c4 <= 16 else 128) \
-        * _ceil_div(c4o, 16 if c4o <= 16 else 128) * 9
-    p = n * h * w
-    s = max(1, min(_ceil_div(_B3_TARGET_BLOCKS, tiles), _ceil_div(p, 256)))
-    return _ceil_div(_ceil_div(p, s), _B3_KP) * _B3_KP
+def _pow2_ceil(v):
+    return 1 << (v - 1).bit_length()
 
 
-def fused_folded_conv_grad_weight(x_f, gz):
+# B3's work list: one row per item (one block of the kernel's grid along
+# x), B3_FIELDS int32 each; an item's partial tile holds B3_TILE floats (8
+# warp tiles of 32 x 32)
+B3_FIELDS, B3_TILE = 8, 8192
+# positions per shared-memory chunk (8 mma K steps), by element size
+B3_CHUNK = {4: 64, 2: 128}
+
+
+def _pack_blocks(blocks):
+    """count | block j << (4 + 4 j): the channel blocks of a gathered axis."""
+    return len(blocks) | sum(b << (4 + 4 * j) for j, b in enumerate(blocks))
+
+
+@functools.lru_cache(maxsize=None)
+def b3_items(c4, c4o, listed):
+    """B3's items for a (4C -> 4Co) layer, (items, B3_FIELDS) int32 numpy.
+
+    Per tap, the blocks B3 computes form a dense sub-GEMM over a set of
+    input blocks S_in and output blocks S_out (all 4 x 4 when dense; with
+    ``listed``, ``listed_blocks``: 4 x 4 at the centre tap, 2 x 2 at an
+    edge tap, 1 x 1 at a corner). Its rows (input channels, gathered block
+    by block in S_in's order) and columns (output channels, by S_out) are
+    cut into tiles of wtm x wtn warp tiles of 32 x 32, at most 8 warp tiles
+    and 4 along each side, sized to the sub-GEMM so that no tile is mostly
+    padding; a tile of fewer than 8 warp tiles splits each chunk's K steps
+    among 8 / (wtm wtn) groups of warps. Row fields: tap, m0, n0 (the
+    tile's first gathered row and column), wtm, wtn, S_in and S_out packed
+    (``_pack_blocks``), and 0. Then db's items: 1 in the last field, no
+    input block, every output block, up to 128 output channels each; their
+    blocks stage gz alone and sum its columns."""
+    c, co = c4 // 4, c4o // 4
+    table = listed_blocks().numpy() if listed else np.ones((3, 3, 4, 4),
+                                                             bool)
+    rows = []
+    for tap in range(9):
+        t = table[tap // 3, tap % 3]
+        s_in = [s for s in range(4) if t[s].any()]
+        s_out = [s for s in range(4) if t[:, s].any()]
+        if int(t.sum()) != len(s_in) * len(s_out):
+            raise AssertionError(f"tap {tap}: listed blocks not a product")
+        mg, ng = len(s_in) * c, len(s_out) * co
+        wtn = min(4, _pow2_ceil(_ceil_div(ng, 32)))
+        wtm = min(8 // wtn, 4, _pow2_ceil(_ceil_div(mg, 32)))
+        for m0 in range(0, mg, 32 * wtm):
+            for n0 in range(0, ng, 32 * wtn):
+                rows.append([tap, m0, n0, wtm, wtn, _pack_blocks(s_in),
+                             _pack_blocks(s_out), 0])
+    wtn = min(4, _pow2_ceil(_ceil_div(c4o, 32)))
+    for n0 in range(0, c4o, 32 * wtn):
+        rows.append([4, 0, n0, 1, wtn, _pack_blocks([]),
+                     _pack_blocks([0, 1, 2, 3]), 1])
+    out = np.asarray(rows, np.int32)
+    out.flags.writeable = False  # cached: one array for every caller
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _b3_items_on(c4, c4o, listed, device):
+    """``b3_items`` as a device tensor, copied once per layer shape."""
+    return torch.tensor(b3_items(c4, c4o, listed), device=device)
+
+
+def b3_segment(p, items, chunk):
+    """Positions per segment of B3's reduction over ``p`` positions: enough
+    segments that ``items`` x segments blocks fill the card (4 per SM of
+    an H100's 132), each at least 4 chunks and a whole number of them."""
+    s = max(1, min(_ceil_div(_B3_TARGET_BLOCKS, items),
+                   _ceil_div(p, 4 * chunk)))
+    return _ceil_div(_ceil_div(p, s), chunk) * chunk
+
+
+def fused_folded_conv_grad_weight(x_f, gz, listed=False):
     """(dL/dKf (3, 3, 4C, 4Co), dL/db (4Co,)), both float32, for the fused
     folded conv: x_f (N, H, W, 4C) and gz (N, H, W, 4Co) of one type,
-    contiguous, on one device. The ring rows are the reflect ring, built
-    here as B1's wrapper builds them."""
+    contiguous, on one device; the kernel reads the reflect ring from x_f.
+
+    ``listed`` is the caller's word that the folded kernel is
+    ``fold_conv_kernel``'s output, so that only the 36 blocks of
+    ``listed_blocks`` reach a parameter: B3 computes those and writes zeros
+    in the other 108. Never inferred from the kernel's values (the gradient
+    of a zero block of a free kernel is not zero); dense by default."""
     _check_x("fused_folded_conv_grad_weight", x_f)
     if gz.ndim != 4 or tuple(gz.shape[:3]) != tuple(x_f.shape[:3]) \
             or x_f.shape[3] % 4 or gz.shape[3] % 4:
@@ -299,20 +388,23 @@ def fused_folded_conv_grad_weight(x_f, gz):
     _check_common("fused_folded_conv_grad_weight",
                   (("x_f", x_f), ("gz", gz)), x_f.dtype, x_f.device)
     if x_f.device.type == "cpu":
-        return fused_folded_conv_grad_weight_plain(x_f, gz)
+        return fused_folded_conv_grad_weight_plain(x_f, gz, listed)
     n, h, w, c4 = x_f.shape
     c4o = gz.shape[3]
-    rings = _ring_rows(x_f)
-    seg = _b3_segment(n, h, w, c4, c4o)
+    listed = bool(listed)
+    items = _b3_items_on(c4, c4o, listed, x_f.device)
+    n_items = items.shape[0]
+    seg = b3_segment(n * h * w, n_items, B3_CHUNK[x_f.element_size()])
     segments = _ceil_div(n * h * w, seg)
     f32 = dict(dtype=torch.float32, device=x_f.device)
-    dk = torch.empty((3, 3, c4, c4o), **f32)
+    # the listed mode's work list leaves 108 blocks of dk unwritten
+    dk = (torch.zeros if listed else torch.empty)((3, 3, c4, c4o), **f32)
     db = torch.empty((c4o,), **f32)
-    part = (torch.empty((segments, 9 * c4 * c4o), **f32),
+    part = (torch.empty((segments, n_items * B3_TILE), **f32),
             torch.empty((segments, c4o), **f32)) if segments > 1 \
         else (None, None)
     _launch(f"rpst_folded_conv_grad_weight_{_ENTRY[x_f.dtype]}", "B3", x_f,
-            rings, gz, dk, db, *part, n, h, w, c4, c4o, seg)
+            gz, items, dk, db, *part, n_items, n, h, w, c4, c4o, seg)
     _count(fused_folded_conv_grad_weight)
     return dk, db
 
@@ -334,13 +426,15 @@ class FoldedConvAct(torch.autograd.Function):
     y). Backward: gz = where(y > 0, g, alpha g); B2 with khat =
     kf.flip(0, 1).transpose(2, 3) when x needs a gradient, B3 when the
     kernel or bias does (never for the frozen VGG), cast to the kernel's
-    type as rpst does."""
+    type as rpst does. ``listed`` (the caller's word that the kernel is
+    ``fold_conv_kernel``'s output) has B3 compute only the 36 blocks the
+    fold's backward reads, zeros elsewhere; dense by default."""
 
     @staticmethod
-    def forward(ctx, x_f, folded_kernel, folded_bias, alpha):
+    def forward(ctx, x_f, folded_kernel, folded_bias, alpha, listed=False):
         y = fused_folded_conv(x_f, folded_kernel, folded_bias, alpha)
         ctx.save_for_backward(x_f, folded_kernel, y)
-        ctx.alpha = alpha
+        ctx.alpha, ctx.listed = alpha, listed
         return y
 
     @staticmethod
@@ -353,13 +447,15 @@ class FoldedConvAct(torch.autograd.Function):
             khat = kf.flip(0, 1).transpose(2, 3).contiguous()
             dx = fused_folded_conv_grad_input(gz, khat)
         if need_k or need_b:
-            dk, db = fused_folded_conv_grad_weight(x_f, gz)
+            dk, db = fused_folded_conv_grad_weight(x_f, gz, ctx.listed)
             dk, db = dk.to(kf.dtype), db.to(kf.dtype)
-        return dx, dk, db, None
+        return dx, dk, db, None, None
 
 
-def folded_conv_act(x_f, folded_kernel, folded_bias, alpha):
-    return FoldedConvAct.apply(x_f, folded_kernel, folded_bias, alpha)
+def folded_conv_act(x_f, folded_kernel, folded_bias, alpha, listed=False):
+    """``FoldedConvAct``; ``listed`` only where ``folded_kernel`` is
+    ``fold_conv_kernel``'s output (the live training fold)."""
+    return FoldedConvAct.apply(x_f, folded_kernel, folded_bias, alpha, listed)
 
 
 # rpst's names for the two epilogues: lrelu 0.2 (RP stacks) and relu (VGG)

@@ -52,10 +52,14 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  11. train timing  the 512px train step, b1/b4, f32/bf16: folded with the
                B-kernels, folded plain, standard, with CUDA events
  12. q8 kernels    B4 vs its plain version at the path's shape (1,256,256,
-               128->128) and a ragged one, all four (out_int8, with_stats)
-               modes: int8 identical, bf16 within one ulp, s1/s2 within rtol
-               1e-4 / atol 1e-3; B7 vs two B4 launches, identical; each
-               timed against its plain version
+               128->128), a ragged one and the tilings' edges (N = 3; W =
+               33, 37; H = 2; 4C = 16; 4Co = 4, 132), each with a quantized
+               fold (36 listed blocks) and a dense kernel, all four
+               (out_int8, with_stats) modes: int8 identical, bf16 within one
+               ulp, s1/s2 within rtol 1e-4 / atol 1e-3; B7's six outputs
+               (float32 sums included) equal to two B4 launches; each timed
+               against its plain version, folded and dense, beside B1 bf16
+               at the same shape
  13. q8 fixture    the q8 stylize on the card with rpst's act scales vs
                rpst's JAX output (tests/fixtures/torch_port_q8.npz), f32 and
                bf16, exact B1/B4 (and B1/B4/B7 with fuse_pairs) launches
@@ -66,8 +70,9 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                DynamicBatcher, counts reset before and read after, once
                unfused (B1 + B4) and once with fuse_pairs (B1 + B4 + B7);
                then serve_torch.py --mode q8 as a subprocess
- 16. q8 timing     512px stylize b1/b8: q8 with B4, q8 with B7 pairs, beside
-               phase 7's folded B1 and standard rows
+ 16. q8 timing     512px stylize b1/b8 in bfloat16: q8 with B4, q8 with B7
+               pairs, folded B1 and standard, in both orders (the policy's
+               A/B), beside phase 7's rows
 
  17. B5 kernels    B5 vs its plain version (float64 conv: exact integer
                sums) at every shape the adain / wct stylize and the int8 VGG
@@ -291,6 +296,19 @@ def conv_bound(n, h, w, c, co, kind, in_size, out_sizes, extra_bytes=0,
     nbytes = (px * c * in_size + layers * 9 * c * co * in_size
               + sum(px * co * sz for sz in out_sizes) + extra_bytes)
     return bound_ms(ops, nbytes, kind)
+
+
+def q8_bound(n, h, w, c4, c4o, structured, out_size=1, layers=1):
+    """bound_ms of B4 (``layers`` 1) or B7 (2: 4C -> 4Co -> 4Co) at (N, Hf,
+    Wf): the listed blocks' operations (the 36 of a folded kernel, the
+    unfolded conv's; all 144 of a dense one) at the int8 peak; x, each
+    layer's int8 output (the last one ``out_size`` bytes an element), the
+    kernels, the per-channel rows and the sums moved once."""
+    px = n * h * w
+    ops = layers * 2 * 9 * px * c4 * c4o // (4 if structured else 1)
+    nbytes = (px * c4 + (layers - 1) * px * c4o + px * c4o * out_size
+              + layers * (9 * c4 * c4o + 3 * 4 * c4o + 2 * 4 * n * c4o))
+    return bound_ms(ops, nbytes, "int8")
 
 
 def card():
@@ -580,18 +598,15 @@ def main():
     _sanet_timing(dev, rng, name_power)
 
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
-    f4 = 4  # bytes of a float32
-    nb = 128 * f4  # one per-channel row
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
         "B1": b12["B1"]["bound"],
         "B2": b12["B2"]["bound"],
         # B3 at the timed listed mode: the 36 blocks a fold lists
         "B3": bwd["B3"]["bound"],
-        "B4": conv_bound(1, 256, 256, 128, 128, "int8", 1, [1],
-                         extra_bytes=3 * nb + 2 * nb),
-        "B7": conv_bound(1, 256, 256, 128, 128, "int8", 1, [1, 1],
-                         extra_bytes=2 * (3 * nb + 2 * nb), layers=2),
+        # B4 and B7 at the timed quantized folds: their 36 listed blocks
+        "B4": q8_bound(1, 256, 256, 128, 128, True),
+        "B7": q8_bound(1, 256, 256, 128, 128, True, layers=2),
     }
     bwd_src = "src/rpst_torch/csrc/folded_conv_bwd.cu"
     kernels = {"kernels": [
@@ -1281,83 +1296,142 @@ def _q8_compare(label, got, ref):
     return err, f"sums err {err:.3g}"
 
 
+def _q8_case(rng, dev, n, h, w, c4, c4o, dense, out_scale=0.05):
+    """x_q, w_q and scales of a (4C -> 4Co) int8 layer (``_q8_layer``), w_q
+    dense random int8 or a quantized ``fold_conv_kernel`` of a random image
+    kernel: 36 of its 144 blocks non-zero, the blocks B4 and B7 take."""
+    import torch
+    from rpst_torch.ops.folded import fold_conv_kernel
+    from rpst_torch.ops.folded_conv_q8 import quantize_weights
+    x, k, sc = _q8_layer(rng, dev, n, h, w, c4, c4o, out_scale)
+    if not dense:
+        k3 = torch.from_numpy(rng.standard_normal(
+            (3, 3, c4 // 4, c4o // 4)).astype("float32"))
+        k = quantize_weights(fold_conv_kernel(k3))[0].to(dev).contiguous()
+    return x, k, sc
+
+
+# B4 (N, H, W, 4C, 4Co): the path's shape, a ragged one, and the edges of
+# the tensor-core tilings: N = 3 and W = 33; H = 2, W = 37, 4C = 16 (a
+# 32-channel K step spans the four input blocks) and 4Co = 132 (contiguous
+# channels, two channel tiles); 4Co = 4 (the narrow tiling)
+B4_CASES = (("path (1,256,256,128->128)", (1, 256, 256, 128, 128)),
+            ("ragged (2,38,22,128->128)", (2, 38, 22, 128, 128)),
+            ("edge (3,10,33,128->128)", (3, 10, 33, 128, 128)),
+            ("edge (1,2,37,16->132)", (1, 2, 37, 16, 132)),
+            ("edge (2,9,17,128->4)", (2, 9, 17, 128, 4)))
+
+
 def _q8_kernels(dev, name_power):
     """Phase 12: B4 vs its plain version (float64 conv, exact integer sums)
-    and B7 vs two B4 launches, at the path's shape and a ragged one; each
-    timed against its plain version at the path's shape. Returns the
-    kernels JSON numbers."""
+    at the path's shape and the tilings' edges, with a quantized fold (36
+    listed blocks) and a dense kernel, and B7's six outputs equal to two B4
+    launches; each timed against its plain version at the path's shape,
+    beside B1 bf16 there (the rival q8 must beat). Returns the kernels JSON
+    numbers (B4 and B7 with folded kernels)."""
     import numpy as np
     import torch
+    from rpst_torch.ops.folded import fold_bias, fold_conv_kernel
+    from rpst_torch.ops.folded_conv import fused_folded_conv
     from rpst_torch.ops.folded_conv2_q8 import (fused_folded_conv2_q8,
                                                 fused_folded_conv2_q8_plain)
     from rpst_torch.ops.folded_conv_q8 import (fused_folded_conv_q8,
                                                fused_folded_conv_q8_plain)
     rng = np.random.default_rng(2)
     out = {"B4": {"err": 0.0}, "B7": {"err": 0.0}}
-    cases = (("path (1,256,256,128->128)", (1, 256, 256, 128, 128)),
-             ("ragged (2,38,22,128->128)", (2, 38, 22, 128, 128)))
     with torch.inference_mode():
-        for label, shape in cases:
-            x, k, sc = _q8_layer(rng, dev, *shape)
-            for out_int8 in (True, False):
-                for stats in (False, True):
-                    got = fused_folded_conv_q8(x, k, sc, out_int8, stats)
-                    torch.cuda.synchronize()
-                    ref = fused_folded_conv_q8_plain(x, k, sc, out_int8,
-                                                     stats)
-                    got, ref = ((got, ref) if stats else ((got,), (ref,)))
-                    msg = []
-                    for i, (g, r) in enumerate(zip(got, ref)):
-                        e, d = _q8_compare(f"B4 {label} out_int8={out_int8} "
-                                           f"stats={stats} [{i}]", g, r)
-                        out["B4"]["err"] = max(out["B4"]["err"], e)
-                        msg.append(d)
-                    log("12 q8 kernels", f"B4 {label} out_int8={out_int8} "
-                        f"with_stats={stats}: {'; '.join(msg)}")
-            n, h, w, c4, _ = shape
-            _, k2, sc2 = _q8_layer(rng, dev, n, h, w, 128, 128, 0.02)
-            for out_int8 in (True, False):
-                got = fused_folded_conv2_q8(x, k, sc, k2, sc2, out_int8, True)
-                y1, s11, s12 = fused_folded_conv_q8(x, k, sc, True, True)
-                y2, s21, s22 = fused_folded_conv_q8(y1, k2, sc2, out_int8,
-                                                    True)
-                torch.cuda.synchronize()
+        for label, shape in B4_CASES:
+            for dense in (False, True):
+                kind = "dense" if dense else "folded"
+                x, k, sc = _q8_case(rng, dev, *shape, dense)
                 msg = []
-                for i, (g, r) in enumerate(zip(got, (y1, y2, s11, s12, s21,
-                                                     s22))):
-                    if g.dtype != torch.float32 and not torch.equal(g, r):
-                        raise AssertionError(
-                            f"B7 {label} out_int8={out_int8} [{i}]: "
-                            f"{(g != r).sum().item()} elements differ from "
-                            "two B4 launches")
-                    e, d = _q8_compare(f"B7 {label} [{i}]", g, r)
-                    out["B7"]["err"] = max(out["B7"]["err"], e)
-                    msg.append(d)
-                log("12 q8 kernels", f"B7 {label} out_int8={out_int8} vs two "
-                    f"B4 launches: {'; '.join(msg)}")
-        x, k, sc = _q8_layer(rng, dev, *cases[0][1])
-        _, k2, sc2 = _q8_layer(rng, dev, 1, 256, 256, 128, 128, 0.02)
-        t = {
-            "B4": cuda_ms(lambda: fused_folded_conv_q8(x, k, sc, True, True)),
-            "B4 plain": cuda_ms(lambda: fused_folded_conv_q8_plain(
-                x, k, sc, True, True), iters=5, warmup=1),
-            "B4 bf16": cuda_ms(lambda: fused_folded_conv_q8(x, k, sc, False)),
-            "B4 bf16 plain": cuda_ms(lambda: fused_folded_conv_q8_plain(
-                x, k, sc, False), iters=5, warmup=1),
-            "B7": cuda_ms(lambda: fused_folded_conv2_q8(
-                x, k, sc, k2, sc2, True, True)),
-            "B7 plain": cuda_ms(lambda: fused_folded_conv2_q8_plain(
-                x, k, sc, k2, sc2, True, True), iters=5, warmup=1),
-            "2xB4": cuda_ms(lambda: fused_folded_conv_q8(
-                fused_folded_conv_q8(x, k, sc, True, True)[0], k2, sc2, True,
-                True))}
-    log("12 q8 kernels", "(1,256,256,128->128) ms: B4 int8+stats "
-        f"{t['B4']:.4f} vs plain {t['B4 plain']:.4f}; B4 bf16 "
-        f"{t['B4 bf16']:.4f} vs plain {t['B4 bf16 plain']:.4f}; B7 pair "
-        f"{t['B7']:.4f} vs plain {t['B7 plain']:.4f} vs two B4 "
-        f"{t['2xB4']:.4f} ({name_power})")
-    out["B4"].update(ms=t["B4"], plain_ms=t["B4 plain"])
-    out["B7"].update(ms=t["B7"], plain_ms=t["B7 plain"])
+                for out_int8 in (True, False):
+                    for stats in (False, True):
+                        got = fused_folded_conv_q8(x, k, sc, out_int8, stats)
+                        torch.cuda.synchronize()
+                        ref = fused_folded_conv_q8_plain(x, k, sc, out_int8,
+                                                         stats)
+                        got, ref = ((got, ref) if stats
+                                    else ((got,), (ref,)))
+                        for i, (g, r) in enumerate(zip(got, ref)):
+                            e, d = _q8_compare(
+                                f"B4 {label} {kind} out_int8={out_int8} "
+                                f"stats={stats} [{i}]", g, r)
+                            out["B4"]["err"] = max(out["B4"]["err"], e)
+                            msg.append(d)
+                log("12 q8 kernels", f"B4 {label} {kind}, 4 modes: "
+                    f"{'; '.join(sorted(set(msg)))}")
+        for label, shape in B4_CASES[:2]:
+            n, h, w, c4, _ = shape
+            for dense in (False, True):
+                x, k, sc = _q8_case(rng, dev, *shape, dense)
+                _, k2, sc2 = _q8_case(rng, dev, n, h, w, 128, 128, dense,
+                                      0.02)
+                for out_int8 in (True, False):
+                    got = fused_folded_conv2_q8(x, k, sc, k2, sc2, out_int8,
+                                                True)
+                    y1, s11, s12 = fused_folded_conv_q8(x, k, sc, True, True)
+                    y2, s21, s22 = fused_folded_conv_q8(y1, k2, sc2,
+                                                        out_int8, True)
+                    torch.cuda.synchronize()
+                    for i, (g, r) in enumerate(zip(
+                            got, (y1, y2, s11, s12, s21, s22))):
+                        if not torch.equal(g, r):
+                            raise AssertionError(
+                                f"B7 {label} out_int8={out_int8} [{i}]: "
+                                f"{(g != r).sum().item()} elements differ "
+                                "from two B4 launches")
+                    ref = fused_folded_conv2_q8_plain(x, k, sc, k2, sc2,
+                                                      out_int8, True)
+                    for i, (g, r) in enumerate(zip(got, ref)):
+                        e, _ = _q8_compare(f"B7 {label} vs plain [{i}]", g, r)
+                        out["B7"]["err"] = max(out["B7"]["err"], e)
+                    log("12 q8 kernels", f"B7 {label} "
+                        f"{'dense' if dense else 'folded'} out_int8="
+                        f"{out_int8}: six outputs equal to two B4 launches")
+        t = {}
+        for dense in (False, True):
+            kind = "dense" if dense else "folded"
+            x, k, sc = _q8_case(rng, dev, 1, 256, 256, 128, 128, dense)
+            _, k2, sc2 = _q8_case(rng, dev, 1, 256, 256, 128, 128, dense,
+                                  0.02)
+            t[kind] = {
+                "B4": cuda_ms(lambda: fused_folded_conv_q8(x, k, sc, True,
+                                                           True)),
+                "B4 plain": cuda_ms(lambda: fused_folded_conv_q8_plain(
+                    x, k, sc, True, True), iters=5, warmup=1),
+                "B4 bf16": cuda_ms(lambda: fused_folded_conv_q8(x, k, sc,
+                                                                False)),
+                "B7": cuda_ms(lambda: fused_folded_conv2_q8(
+                    x, k, sc, k2, sc2, True, True)),
+                "B7 plain": cuda_ms(lambda: fused_folded_conv2_q8_plain(
+                    x, k, sc, k2, sc2, True, True), iters=5, warmup=1),
+                "2xB4": cuda_ms(lambda: fused_folded_conv_q8(
+                    fused_folded_conv_q8(x, k, sc, True, True)[0], k2, sc2,
+                    True, True))}
+        # the rival: B1 in bfloat16 on the same layer's float form
+        g = torch.Generator().manual_seed(3)
+        xb = torch.randn(1, 256, 256, 128, generator=g).to(dev, torch.bfloat16)
+        kb = fold_conv_kernel(torch.randn(3, 3, 32, 32, generator=g)
+                              * (9 * 32) ** -0.5).to(dev, torch.bfloat16)
+        bb = fold_bias(torch.randn(32, generator=g) * 0.1).to(dev,
+                                                              torch.bfloat16)
+        t["B1 bf16"] = cuda_ms(lambda: fused_folded_conv(
+            xb, kb.contiguous(), bb, 0.2))
+    bnd = {kind: (q8_bound(1, 256, 256, 128, 128, kind == "folded")[0],
+                  q8_bound(1, 256, 256, 128, 128, kind == "folded",
+                           layers=2)[0]) for kind in t if kind != "B1 bf16"}
+    for kind in ("folded", "dense"):
+        tk = t[kind]
+        log("12 q8 kernels", f"(1,256,256,128->128) {kind} kernel, ms: B4 "
+            f"int8+stats {tk['B4']:.4f} vs plain {tk['B4 plain']:.4f} "
+            f"(bound {bnd[kind][0]:.4f}, {100 * bnd[kind][0] / tk['B4']:.1f}"
+            f"%); B4 bf16 {tk['B4 bf16']:.4f}; B7 pair {tk['B7']:.4f} vs "
+            f"plain {tk['B7 plain']:.4f} vs two B4 {tk['2xB4']:.4f} (bound "
+            f"{bnd[kind][1]:.4f}); B1 bf16 {t['B1 bf16']:.4f} "
+            f"({name_power})")
+    out["B4"].update(ms=t["folded"]["B4"], plain_ms=t["folded"]["B4 plain"])
+    out["B7"].update(ms=t["folded"]["B7"], plain_ms=t["folded"]["B7 plain"])
     return out
 
 
@@ -1549,25 +1623,39 @@ def _logged_count(text, label):
 
 def _q8_timing(dev, rng, name_power, rows):
     """Phase 16: 512px q8 stylize b1/b8 (bf16, as served), with B4 alone
-    and with B7 pairs, CUDA events, beside phase 7's rows."""
+    and with B7 pairs, beside folded B1 and standard in bfloat16, all four
+    in both orders in this call (the A/B of policy.FUSE_PAIRS and
+    Q8_AUTO_BATCHES), CUDA events; then phase 7's rows."""
     import numpy as np
     import torch
     from rpst_torch.config import load_config
     from rpst_torch.models import build_model
+    from rpst_torch.models.fast_path import stylize_multi_adain_folded
     from rpst_torch.nn.blocks import init_torch_default
     cfg = load_config(dict(FLAGSHIP, img_size=IMG, exec_strategy="folded"))
     bundle = build_model(cfg, dev)
     init_torch_default(bundle.model, cfg.seed)
+    std = build_model(cfg.replace(exec_strategy="standard"), dev)
+    std.load_state_dict(bundle.model.state_dict())
+    bf = torch.bfloat16
+    w = bundle.folded_weights(bf)
     with torch.inference_mode():
         for batch in (1, 8):
             c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
                                                 np.float32)).to(dev)
                     for _ in range(2))
             scales = bundle.calibrate_q8(c, s)
-            for path, fuse in (("q8 B4", False), ("q8 B7 pairs", True)):
-                ms = cuda_ms(lambda: bundle.stylize_q8(c, s, scales,
-                                                       fuse_pairs=fuse),
-                             iters=10)
+            paths = {
+                "q8 B4": lambda: bundle.stylize_q8(c, s, scales,
+                                                   fuse_pairs=False),
+                "q8 B7 pairs": lambda: bundle.stylize_q8(c, s, scales,
+                                                         fuse_pairs=True),
+                "folded B1": lambda: stylize_multi_adain_folded(
+                    w, c, s, dtype=bf),
+                "standard": lambda: _standard(std, c, s, bf)}
+            order = list(paths)
+            for path in order + order[::-1]:
+                ms = cuda_ms(paths[path], iters=10)
                 log("16 q8 timing", f"512px b{batch} bfloat16 {path:12s}: "
                     f"{ms:8.3f} ms  {batch * 1e3 / ms:8.2f} img/s  "
                     f"({name_power})")

@@ -1,4 +1,5 @@
-// B7 on Hopper: two chained int8 folded conv layers in one kernel.
+// B7 on Hopper: two chained int8 folded conv layers in one kernel, on the
+// tensor cores.
 //
 // Replaces the TPU kernel `fused_folded_conv2_q8` in
 // src/rpst/ops/pallas/folded_conv2_q8.py (wrapper :254, body
@@ -11,379 +12,394 @@
 // same f32 epilogue and requantization (q8_common.cuh), and layer 2 reads
 // the requantized y1 with its reflect ring built from y1 itself. With stats
 // it writes the four per-image channel sums of both layers' post-activation
-// values (s11, s12 over y1; s21, s22 over y2), as B4 does for one layer.
+// values (s11, s12 over y1; s21, s22 over y2), float32 sums included
+// bit-equal to B4's.
 //
-// What bounds it on the card. Each layer's arithmetic is B4's (9.7 G
-// multiply-adds per 128->128 layer of a 512px image, on the __dp4a pipe);
-// the pair saves only the read of y1 from device memory (8 MB per 512px
-// image), and pays for the halo of layer 1 it recomputes. Which of the two
-// wins is a measurement (PERF.md), as it was on the TPU (rpst.policy
-// FUSED2_ENCODE).
+// What bounds it on the card. Each layer is B4's work (2.42 G multiply-adds
+// of a folded 128->128 kernel on a 512px image, 0.0024 ms of int8), plus the
+// layer-1 halo it recomputes (1.5x layer 1's mma here); its bytes are x,
+// y1 and y2 once, 25.2 MB (0.0075 ms at 3.35 TB/s). Against two B4
+// launches it saves one write and one read of y1 (16.8 MB a 512px image,
+// ~5 us) and pays for the halo: which wins is a measurement (PERF.md,
+// rpst_torch.policy.FUSE_PAIRS).
 //
-// What the design does about it. rpst keeps whole rows in VMEM; a block
-// here owns a TH x TW tile of output pixels and keeps in shared memory:
-// the input tile with a 2-pixel halo (x's reflect ring rows and columns
-// built as it is staged), one layer's full repacked weights (at most 4C,
-// 4Cm, 4Co = 128: 147 KB of dynamic shared memory, the only way both fit),
-// and layer 1's requantized output over the tile plus a 1-pixel halo.
-// Layer 1 is computed at every in-image position of that halo region
-// (recomputed by the neighbouring blocks too, identically), so no block
-// waits on another. The halo positions outside the image are then filled
-// by the reflect rule from the computed ones (rows by channel half,
-// columns by sub-column block, as rpst's `_lane_select_half` and
-// `_col_shifts` do at :197-204), w2 replaces w1, and layer 2 runs on the
-// tile. Layer-1 statistics are summed over the tile's own positions only,
-// never over the recomputed halo, in a second pass in B4's thread layout
-// and order, so that all four sums are bit-equal to two B4 launches'. Stats
-// reduce per tile in a fixed order and a second kernel sums the tiles in
-// order (deterministic).
+// What the design does about it. B4's main loop (folded_mma.cuh), twice, in
+// one block of 256 threads on B4's 8 x 16 output tile:
+//   * Layer 1 runs on x staged with a 2-pixel border (x's reflect ring at
+//     -1 / H / W, zeros beyond) in B4's exact warp and fragment layout on
+//     the tile's interior, so that its per-tile stats partials are B4's by
+//     construction (q8_epilogue's written order). Its 1-pixel halo ring
+//     (two rows of 18, two columns of 8) is four more mma row blocks with
+//     the B fragments the interior loads anyway (as B2's ring adjoint):
+//     block 0 the row above (columns -1 .. 14), 1 the row below, 2 the
+//     column left (rows 0 .. 7) and right, 3 the four corners' neighbours
+//     (columns 15, 16 of both rows), one block per warp row.
+//   * y1 is requantized into shared memory as layer 2's A tile ((TH + 2) x
+//     (TW + 2) pixels, 32 channels a K step), at every in-image position of
+//     the region (the neighbouring blocks recompute the same values); the
+//     positions on y1's reflect ring are then filled from the computed ones
+//     by the channel-half (rows) and sub-column (columns) rule, as rpst's
+//     `_lane_select_half` / `_col_shifts` (:197-204). The tile's own y1 goes
+//     to device memory from there, 16 bytes a thread.
+//   * Layer 2 runs from that tile, w2 streamed through the same `cp.async`
+//     ring, and B4's epilogue writes y2 and its stats.
+// Each layer takes only its kernel's listed blocks (a per-launch table for
+// each, built on the device). Stats reduce per tile in the written order
+// and one more kernel (q8::finalize_sums, B4's) sums the tiles in a fixed
+// order: deterministic.
 
-#include "q8_common.cuh"
+#include "folded_mma.cuh"
 
 namespace {
 
-constexpr int TH = 8;                 // output rows per block
-constexpr int TW = 16;                // output cols per block
-constexpr int R1H = TH + 2;           // layer-1 rows computed (1-pixel halo)
-constexpr int R1W = TW + 2;
-constexpr int XH = TH + 4;            // input rows staged (2-pixel halo)
-constexpr int XW = TW + 4;
-constexpr int CG = 8;                 // channel groups per block
-constexpr int TN = 16;                // output channels per thread
-constexpr int TCO = CG * TN;          // 128: every channel of a layer
-constexpr int THREADS = 256;
-constexpr int PX1 = 3;                // layer-1 pixels per item (R1W = 6 * 3)
-constexpr int PX2 = 4;                // layer-2 pixels per item (TW = 4 * 4)
-static_assert(R1W % PX1 == 0 && TW % PX2 == 0, "item widths");
+using folded::KB;
+using folded::THREADS;
+using folded::TH;
+using folded::TW;
 
-size_t smem_words(int C4, int C4m) {
-  const int CW = C4 / 4, CWm = C4m / 4;
-  return (size_t)CW * XH * XW + (size_t)9 * (CW > CWm ? CW : CWm) * TCO +
-         (size_t)CWm * R1H * R1W + 8 * 128;
-}
+constexpr int STAGES = 2;
+constexpr int R1W = TW + 2;          // layer 1's region: the tile and its
+constexpr int R1PX = (TH + 2) * R1W;  // 1-pixel halo, layer 2's A tile
 
-// acc[p][q] += conv over the `cw_n` input words of `src` (word-major planes
-// of `rows` x `cols` words) at rows row0 + dr, cols col0 + p + dc, with the
-// weights `wt` [(tap * cw_n + cw) * TCO + channel].
-template <int PX>
-__device__ __forceinline__ void conv_item(const int32_t* __restrict__ src,
-                                          int rows, int cols, int cw_n,
-                                          const int32_t* __restrict__ wt,
-                                          int row0, int col0, int tc,
-                                          int32_t (&acc)[PX][TN]) {
-#pragma unroll
-  for (int p = 0; p < PX; ++p)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[p][q] = 0;
-#pragma unroll
-  for (int dr = 0; dr < 3; ++dr) {
-#pragma unroll 2
-    for (int cw = 0; cw < cw_n; ++cw) {
-      const int32_t* row = src + ((size_t)cw * rows + row0 + dr) * cols + col0;
-      int32_t a[PX + 2];
-#pragma unroll
-      for (int m = 0; m < PX + 2; ++m) a[m] = row[m];
-#pragma unroll
-      for (int dc = 0; dc < 3; ++dc) {
-        const int4* wp = reinterpret_cast<const int4*>(
-            wt + ((dr * 3 + dc) * cw_n + cw) * TCO);
-        int32_t wq[TN];
-#pragma unroll
-        for (int j = 0; j < TN / 4; ++j) {
-          const int4 v = wp[j * CG + tc];
-          wq[4 * j] = v.x; wq[4 * j + 1] = v.y;
-          wq[4 * j + 2] = v.z; wq[4 * j + 3] = v.w;
-        }
-#pragma unroll
-        for (int p = 0; p < PX; ++p)
-#pragma unroll
-          for (int q = 0; q < TN; ++q)
-            acc[p][q] = __dp4a(a[p + dc], wq[q], acc[p][q]);
-      }
-    }
+struct PairArgs {
+  const int8_t* x;
+  const unsigned char* wp1;  // w1, w2 packed K-major
+  const unsigned char* wp2;
+  const unsigned* bits1;     // their block tables (9 words each)
+  const unsigned* bits2;
+  const float* sc1;
+  const float* sc2;
+  int8_t* y1;
+  void* y2;
+  float* part;               // (N, tiles, 2 * C4m + 2 * C4o) with stats
+  int H, W, C4, C4m, C4o, ks1, ks2, tiles_w;
+};
+
+// Position (pr, pc) of row m of layer 1's ring block rb, relative to the
+// tile's first pixel (-1 .. TH, -1 .. TW); false for rows 4 .. 15 of block
+// 3, which are computed at a position inside the staged tile and dropped.
+__device__ __forceinline__ bool ring_pos(int rb, int m, int& pr, int& pc) {
+  if (rb < 2) {
+    pr = rb == 0 ? -1 : TH;
+    pc = m - 1;
+    return true;
   }
+  if (rb == 2) {
+    pr = m & 7;
+    pc = m < 8 ? -1 : TW;
+    return true;
+  }
+  pr = (m & 2) ? TH : -1;
+  pc = TW - 1 + (m & 1);
+  return m < 4;
 }
 
-template <bool OUT2_INT8, bool STATS>
+template <bool W1, bool W2>
+struct PairShape {
+  using S1 = folded::Shape<W1, 2>;  // layer 1: x with a 2-pixel border
+  using S2 = folded::Shape<W2, 1>;  // layer 2: A from the y1 tile
+  static constexpr int STRIDE = S1::STAGE_BYTES > S2::WS_BYTES
+                                    ? S1::STAGE_BYTES
+                                    : S2::WS_BYTES;
+  static constexpr int RED_BYTES = 2 * S1::WM * S1::TCO * 4 >
+                                           2 * S2::WM * S2::TCO * 4
+                                       ? 2 * S1::WM * S1::TCO * 4
+                                       : 2 * S2::WM * S2::TCO * 4;
+  static_assert(RED_BYTES <= STAGES * STRIDE, "stats scratch in the ring");
+  static int smem_bytes(int ks2) { return STAGES * STRIDE + ks2 * R1PX * KB; }
+};
+
+// one block per SM: held to 128 registers (two blocks), layer 1's 96
+// accumulators spill, 1-11% slower on the H100 (PERF.md)
+template <bool W1, bool W2, bool OUT2_INT8, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
-    folded_conv2_q8_kernel(const int8_t* __restrict__ x,
-                           const int8_t* __restrict__ w1,
-                           const float* __restrict__ sc1,
-                           const int8_t* __restrict__ w2,
-                           const float* __restrict__ sc2,
-                           int8_t* __restrict__ y1, void* y2,
-                           float* __restrict__ part, int H, int W, int C4,
-                           int C4m, int C4o, int tiles_w) {
-  extern __shared__ __align__(16) int32_t smem[];
-  const int CW = C4 / 4, CWm = C4m / 4;
-  int32_t* xt = smem;                                  // [CW][XH][XW]
-  int32_t* wt = xt + CW * XH * XW;                     // [9][CW|CWm][TCO]
-  int32_t* y1s = wt + 9 * (CW > CWm ? CW : CWm) * TCO;  // [CWm][R1H][R1W]
-  float* red = reinterpret_cast<float*>(y1s + CWm * R1H * R1W);  // [8][128]
+    folded_conv2_q8_kernel(const PairArgs a) {
+  using P = PairShape<W1, W2>;
+  using S1 = typename P::S1;
+  using S2 = typename P::S2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* y1s = smem + STAGES * P::STRIDE;  // [ks2][R1PX][32]
+  // the stats' scratch: the ring, between the two layers' pipelines
+  float* red = reinterpret_cast<float*>(smem);
+  __shared__ folded::Tables tb1, tb2;
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int H = a.H, W = a.W;
   const int tile = blockIdx.x;
-  const int r0 = (tile / tiles_w) * TH;
-  const int c0 = (tile % tiles_w) * TW;
-  const int n = blockIdx.z;
-  const int tc = tid % CG;
-  const int tiles = gridDim.x;
-  const int stride = 2 * C4m + 2 * C4o;  // floats of one tile's partials
-  float* tpart = part + ((size_t)n * tiles + tile) * stride;
+  const int r0 = (tile / a.tiles_w) * TH;
+  const int c0 = (tile % a.tiles_w) * TW;
+  const size_t n = blockIdx.z;
+  const folded::Layer<W1> L1(a.C4, a.C4m, a.ks1, 0);
+  const folded::Layer<W2> L2(a.C4m, a.C4o, a.ks2, 0);
+  folded::init_tables(tb1, a.bits1, L1, KB, tid);
+  folded::init_tables(tb2, a.bits2, L2, KB, tid);
+  float* tpart =
+      a.part + ((size_t)n * gridDim.x + tile) * (2 * a.C4m + 2 * a.C4o);
 
-  // ---- stage x rows r0-2 .. r0+TH+1, cols c0-2 .. c0+TW+1 with the
-  // reflect ring at -1 / H / W; positions beyond the ring are never read
-  // by an in-image layer-1 position and stay zero
-  const int8_t* xn = x + (size_t)n * H * W * C4;
-  for (int idx = tid; idx < CW * XH * XW; idx += THREADS) {
-    const int cw = idx % CW;
-    const int pix = idx / CW;
-    const int cc = pix % XW;
-    const int rr = pix / XW;
-    const int g = 4 * cw;
-    const int rg = r0 - 2 + rr;
-    const int cg = c0 - 2 + cc;
-    int32_t v = 0;
-    if (rg >= -1 && rg <= H && cg >= -1 && cg <= W) {
-      const int sr = q8::ring_row(rg, H, q8::first_half(g, C4));
-      const int sc = q8::ring_col(cg, W, q8::subcol0(g, C4));
-      v = *reinterpret_cast<const int32_t*>(xn + ((size_t)sr * W + sc) * C4 +
-                                            g);
-    }
-    xt[(cw * XH + rr) * XW + cc] = v;
-  }
-  q8::stage_weights(w1, wt, TCO, C4, C4m, 0, CW, 0, TCO / 4, tid, THREADS);
-  __syncthreads();
-
-  // ---- layer 1 over the R1H x R1W region (image rows r0-1.., cols c0-1..)
-  for (int it = tid; it < R1H * (R1W / PX1) * CG; it += THREADS) {
-    const int pg = it / CG;
-    const int rr = pg / (R1W / PX1);
-    const int cc0 = (pg % (R1W / PX1)) * PX1;
-    int32_t acc[PX1][TN];
-    conv_item<PX1>(xt, XH, XW, CW, wt, rr, cc0, tc, acc);
-    const int r = r0 - 1 + rr;
+  // ---- layer 1 on the tile and its 1-pixel halo
+  {
+    const int wm = warp % S1::WM, wn = warp / S1::WM;
+    const folded::Halo<int8_t, S1, false> halo(a.x, nullptr, n, r0, c0, H, W,
+                                               a.C4, tid);
+    const folded::Weights<W1> wts(L1, tb1, a.wp1, tid);
+    const folded::Tiles<W1> nt(L1, tb1, wn);
+    int apix[S1::MT];  // the interior: tile row ti at staged row ti + 1
 #pragma unroll
-    for (int j = 0; j < TN / 4; ++j) {
-      const int go = j * (CG * 4) + tc * 4;
-      const bool okc = go < C4m;
-      float deq[4], bias[4], inv[4];
+    for (int i = 0; i < S1::MT; ++i)
+      apix[i] = (wm * S1::MT + i + 1) * S1::HALO_W + 1 + g;
+    // the warp row's ring block (wm < 4): its rows g and g + 8
+    const bool has_ring = wm < 4;
+    int rpr[2], rpc[2], rbase[2];
+    bool rused[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rused[h] = ring_pos(wm & 3, g + 8 * h, rpr[h], rpc[h]);
+      rbase[h] = (rpr[h] + 1) * S1::HALO_W + rpc[h] + 1;
+    }
+
+    int32_t acc[S1::MT][S1::NT][4], racc[S1::NT][4];
+#pragma unroll
+    for (int j = 0; j < S1::NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        deq[e] = okc ? __ldg(sc1 + go + e) : 0.f;
-        bias[e] = okc ? __ldg(sc1 + C4m + go + e) : 0.f;
-        inv[e] = okc ? __ldg(sc1 + 2 * C4m + go + e) : 0.f;
+        racc[j][e] = 0;
+#pragma unroll
+        for (int i = 0; i < S1::MT; ++i) acc[i][j][e] = 0;
       }
+
+    auto load = [&](int ks, unsigned char* stage) {
+      halo.load(stage, ks, tid);
+      wts.load(stage + S1::XS_BYTES, ks,
+               folded::step_mask(tb1, L1.C4in, L1.Cin, KB, ks));
+    };
+    auto compute = [&](int ks, unsigned char* stage) {
+      auto ring = [&](int dr, int dc, uint2& rlo, uint2& rhi) -> bool {
+        if (!has_ring) return false;
+        const int off = dr * S1::HALO_W + dc;
+        rlo = folded::lds64(stage + (rbase[0] + off) * KB + 8 * t);
+        rhi = folded::lds64(stage + (rbase[1] + off) * KB + 8 * t);
+        return true;
+      };
+      folded::mma_taps<int8_t, S1::HALO_W, W1, true>(
+          stage, stage + S1::XS_BYTES,
+          folded::step_mask(tb1, L1.C4in, L1.Cin, KB, ks), apix, nt, g, t,
+          acc, racc, ring);
+    };
+    folded::prefetch<STAGES>(L1.ksteps, smem, P::STRIDE, load);
+    folded::run<STAGES>(L1.ksteps, smem, P::STRIDE, load, compute);
+    hmma::cp_async_wait<0>();
+    __syncthreads();  // the ring is free: the stats' scratch
+
+    // two requantized channels (ch, ch + 1) of region pixel pix into y1s
+    auto put = [&](int pix, int ch, float v0, float v1, float i0, float i1) {
+      const uint32_t b = q8::requant(v0, i0) | (q8::requant(v1, i1) << 8);
+      *reinterpret_cast<uint16_t*>(y1s + ((ch / KB) * R1PX + pix) * KB +
+                                   ch % KB) = static_cast<uint16_t>(b);
+    };
+    // the interior: B4's stats, then y1 into y1s
+    folded::q8_epilogue<W1, STATS>(
+        L1, nt, a.sc1, acc, wm, lane, r0, c0, H, W, red, tpart,
+        tpart + a.C4m, [&](int i, int j, const float (&v)[4]) {
+          const int ch = L1.chan(nt.ncol[j] + 2 * t);
+          if (ch < 0) return;
+          const float i0 = __ldg(a.sc1 + 2 * a.C4m + ch);
+          const float i1 = __ldg(a.sc1 + 2 * a.C4m + ch + 1);
+          const int pix = (wm * S1::MT + i + 1) * R1W + g + 1;
+          put(pix, ch, v[0], v[1], i0, i1);
+          put(pix + 8, ch, v[2], v[3], i0, i1);
+        });
+    // the ring, at its in-image positions
+    if (has_ring) {
 #pragma unroll
-      for (int p = 0; p < PX1; ++p) {
-        const int cc = cc0 + p;
-        const int c = c0 - 1 + cc;
-        const bool owned = r >= 0 && r < H && c >= 0 && c < W && rr >= 1 &&
-                           rr <= TH && cc >= 1 && cc <= TW;
-        uint32_t b[4];
+      for (int j = 0; j < S1::NT; ++j) {
+        const int ch = L1.chan(nt.ncol[j] + 2 * t);
+        if (ch < 0) continue;
+        float deq[2], bias[2], inv[2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          b[e] = q8::requant(q8::epilogue(acc[p][4 * j + e], deq[e], bias[e]),
-                             inv[e]);
-        if (okc) {
-          const uint32_t word = q8::pack4(b);
-          y1s[((go / 4) * R1H + rr) * R1W + cc] = static_cast<int32_t>(word);
-          if (owned)
-            *reinterpret_cast<uint32_t*>(
-                y1 + (((size_t)n * H + r) * W + c) * C4m + go) = word;
+        for (int e = 0; e < 2; ++e) {
+          deq[e] = __ldg(a.sc1 + ch + e);
+          bias[e] = __ldg(a.sc1 + a.C4m + ch + e);
+          inv[e] = __ldg(a.sc1 + 2 * a.C4m + ch + e);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + rpr[h], c = c0 + rpc[h];
+          if (!rused[h] || r < 0 || r >= H || c < 0 || c >= W) continue;
+          put((rpr[h] + 1) * R1W + rpc[h] + 1, ch,
+              q8::epilogue(racc[j][2 * h], deq[0], bias[0]),
+              q8::epilogue(racc[j][2 * h + 1], deq[1], bias[1]), inv[0],
+              inv[1]);
         }
       }
     }
   }
-  __syncthreads();  // y1s complete; w1 and the x tile no longer read
+  __syncthreads();  // y1s holds every in-image position of the region
 
-  if constexpr (STATS) {
-    // layer-1 statistics in B4's order (folded_conv_q8.cu), so that they are
-    // bit-equal to a B4 launch's: thread (tc, tp) sums its PX2 consecutive
-    // pixels of the tile, channel by channel, their int32 sums recomputed
-    // from the staged x and w1 (exact in any order), then the same block
-    // reduction. It costs a second layer-1 pass over the tile's 128 of the
-    // region's 180 positions.
-    const int tp = tid / CG;
-    const int ty = tp / (TW / PX2), tx = (tp % (TW / PX2)) * PX2;
-    int32_t acc[PX2][TN];
-    conv_item<PX2>(xt, XH, XW, CW, wt, ty + 1, tx + 1, tc, acc);
-    float s11[TN], s12[TN];
-    const int r = r0 + ty;
-#pragma unroll
-    for (int j = 0; j < TN / 4; ++j) {
-      const int go = j * (CG * 4) + tc * 4;
-      const bool okc = go < C4m;
-      float deq[4], bias[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        deq[e] = okc ? __ldg(sc1 + go + e) : 0.f;
-        bias[e] = okc ? __ldg(sc1 + C4m + go + e) : 0.f;
-        s11[4 * j + e] = 0.f;
-        s12[4 * j + e] = 0.f;
-      }
-#pragma unroll
-      for (int p = 0; p < PX2; ++p) {
-        const bool valid = r < H && c0 + tx + p < W;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = q8::epilogue(acc[p][4 * j + e], deq[e], bias[e]);
-          if (valid) {
-            s11[4 * j + e] += v;
-            s12[4 * j + e] += v * v;
-          }
-        }
-      }
-    }
-    q8::block_channel_sums<TN, CG>(s11, red, tpart, C4m, tid, THREADS);
-    q8::block_channel_sums<TN, CG>(s12, red, tpart + C4m, C4m, tid, THREADS);
-  }
-
-  // ---- layer 2's reflect ring from y1 (out-of-image halo positions take
-  // the in-image position the folded rule names), and w2 in place of w1
-  for (int idx = tid; idx < CWm * R1H * R1W; idx += THREADS) {
-    const int cw = idx % CWm;
-    const int pix = idx / CWm;
-    const int cc = pix % R1W;
-    const int rr = pix / R1W;
-    const int r = r0 - 1 + rr;
-    const int c = c0 - 1 + cc;
+  // ---- y1's reflect ring in y1s, a word (4 channels: one block, one half)
+  // at a time from the in-image position the folded rule names
+  const int words = a.C4m / 4;
+  for (int idx = tid; idx < R1PX * words; idx += THREADS) {
+    const int pix = idx / words, wd = idx % words;
+    const int r = r0 - 1 + pix / R1W, c = c0 - 1 + pix % R1W;
     const bool on_ring = r == -1 || r == H || c == -1 || c == W;
-    if (on_ring && r >= -1 && r <= H && c >= -1 && c <= W) {
-      const int g = 4 * cw;
-      const int sr = q8::ring_row(r, H, q8::first_half(g, C4m));
-      const int sc = q8::ring_col(c, W, q8::subcol0(g, C4m));
-      y1s[(cw * R1H + rr) * R1W + cc] =
-          y1s[(cw * R1H + (sr - r0 + 1)) * R1W + (sc - c0 + 1)];
-    }
+    if (!on_ring || r < -1 || r > H || c < -1 || c > W) continue;
+    const int ch = 4 * wd;
+    const int sr = q8::ring_row(r, H, q8::first_half(ch, a.C4m));
+    const int sc = q8::ring_col(c, W, q8::subcol0(ch, a.C4m));
+    const int spix = (sr - r0 + 1) * R1W + (sc - c0 + 1);
+    const int base = (ch / KB) * R1PX;
+    *reinterpret_cast<uint32_t*>(y1s + (base + pix) * KB + ch % KB) =
+        *reinterpret_cast<const uint32_t*>(y1s + (base + spix) * KB +
+                                           ch % KB);
   }
-  q8::stage_weights(w2, wt, TCO, C4m, C4o, 0, CWm, 0, TCO / 4, tid, THREADS);
-  __syncthreads();
-
-  // ---- layer 2 over the owned TH x TW tile
-  float s21[TN], s22[TN];
-#pragma unroll
-  for (int q = 0; q < TN; ++q) s21[q] = s22[q] = 0.f;
-  for (int it = tid; it < TH * (TW / PX2) * CG; it += THREADS) {
-    const int pg = it / CG;
-    const int ty = pg / (TW / PX2);
-    const int tx = (pg % (TW / PX2)) * PX2;
-    int32_t acc[PX2][TN];
-    conv_item<PX2>(y1s, R1H, R1W, CWm, wt, ty, tx, tc, acc);
-    const int r = r0 + ty;
-#pragma unroll
-    for (int j = 0; j < TN / 4; ++j) {
-      const int go = j * (CG * 4) + tc * 4;
-      const bool okc = go < C4o;
-      float deq[4], bias[4], inv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        deq[e] = okc ? __ldg(sc2 + go + e) : 0.f;
-        bias[e] = okc ? __ldg(sc2 + C4o + go + e) : 0.f;
-        inv[e] = okc ? __ldg(sc2 + 2 * C4o + go + e) : 0.f;
-      }
-#pragma unroll
-      for (int p = 0; p < PX2; ++p) {
-        const int c = c0 + tx + p;
-        const bool valid = r < H && c < W;
-        float v[4];
-        uint32_t b[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          v[e] = q8::epilogue(acc[p][4 * j + e], deq[e], bias[e]);
-          if constexpr (STATS) {
-            if (valid) {
-              s21[4 * j + e] += v[e];
-              s22[4 * j + e] += v[e] * v[e];
-            }
-          }
-          if constexpr (OUT2_INT8) b[e] = q8::requant(v[e], inv[e]);
-        }
-        if (valid && okc) {
-          const size_t off = (((size_t)n * H + r) * W + c) * C4o + go;
-          if constexpr (OUT2_INT8)
-            *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(y2) + off) =
-                q8::pack4(b);
-          else
-            q8::store_bf16x4(static_cast<__nv_bfloat16*>(y2) + off, v);
-        }
-      }
-    }
+  // ---- the tile's own y1 to device memory, 16 bytes a thread
+  const int pieces = a.C4m / 16;
+  for (int idx = tid; idx < TH * TW * pieces; idx += THREADS) {
+    const int p = idx / pieces, b = (idx % pieces) * 16;
+    const int r = r0 + p / TW, c = c0 + p % TW;
+    if (r >= H || c >= W) continue;
+    const int pix = (p / TW + 1) * R1W + p % TW + 1;
+    *reinterpret_cast<uint4*>(a.y1 + (((size_t)n * H + r) * W + c) * a.C4m +
+                              b) =
+        *reinterpret_cast<const uint4*>(y1s + ((b / KB) * R1PX + pix) * KB +
+                                        b % KB);
   }
+  __syncthreads();  // the ring filled before layer 2 reads it
 
-  if constexpr (STATS) {
-    q8::block_channel_sums<TN, CG>(s21, red, tpart + 2 * C4m, C4o, tid,
-                                   THREADS);
-    q8::block_channel_sums<TN, CG>(s22, red, tpart + 2 * C4m + C4o, C4o, tid,
-                                   THREADS);
+  // ---- layer 2 from y1s
+  {
+    const int wm = warp % S2::WM, wn = warp / S2::WM;
+    const folded::Weights<W2> wts(L2, tb2, a.wp2, tid);
+    const folded::Tiles<W2> nt(L2, tb2, wn);
+    int apix[S2::MT];
+#pragma unroll
+    for (int i = 0; i < S2::MT; ++i) apix[i] = (wm * S2::MT + i) * R1W + g;
+    int32_t acc[S2::MT][S2::NT][4];
+#pragma unroll
+    for (int i = 0; i < S2::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < S2::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    int no_ring = 0;
+
+    auto load = [&](int ks, unsigned char* stage) {
+      wts.load(stage, ks, folded::step_mask(tb2, L2.C4in, L2.Cin, KB, ks));
+    };
+    auto compute = [&](int ks, unsigned char* stage) {
+      folded::mma_taps<int8_t, R1W, W2, false>(
+          y1s + ks * R1PX * KB, stage,
+          folded::step_mask(tb2, L2.C4in, L2.Cin, KB, ks), apix, nt, g, t,
+          acc, no_ring, [](int, int, uint2&, uint2&) { return false; });
+    };
+    folded::prefetch<STAGES>(L2.ksteps, smem, P::STRIDE, load);
+    folded::run<STAGES>(L2.ksteps, smem, P::STRIDE, load, compute);
+    hmma::cp_async_wait<0>();
+    __syncthreads();
+
+    float* p2 = tpart + 2 * a.C4m;
+    folded::q8_epilogue<W2, STATS>(
+        L2, nt, a.sc2, acc, wm, lane, r0, c0, H, W, red, p2, p2 + a.C4o,
+        [&](int i, int j, const float (&v)[4]) {
+          folded::q8_store<W2, OUT2_INT8>(L2, nt, a.sc2, a.y2, n,
+                                          r0 + wm * S2::MT + i, c0, H, W,
+                                          lane, j, v);
+        });
   }
 }
 
-template <bool OUT2_INT8, bool STATS>
-int launch_main(const int8_t* x, const int8_t* w1, const float* sc1,
-                const int8_t* w2, const float* sc2, int8_t* y1, void* y2,
-                float* part, int N, int H, int W, int C4, int C4m, int C4o,
-                cudaStream_t s) {
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles = tiles_w * ((H + TH - 1) / TH);
-  const size_t bytes = 4 * smem_words(C4, C4m);
-  auto kernel = folded_conv2_q8_kernel<OUT2_INT8, STATS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <bool W1, bool W2, bool OUT2_INT8, bool STATS>
+int launch_cfg(const PairArgs& a, int N, cudaStream_t s) {
+  auto kernel = folded_conv2_q8_kernel<W1, W2, OUT2_INT8, STATS>;
+  const int smem = PairShape<W1, W2>::smem_bytes(a.ks2);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(tiles, 1, N);
-  kernel<<<grid, THREADS, bytes, s>>>(x, w1, sc1, w2, sc2, y1, y2, part, H,
-                                      W, C4, C4m, C4o, tiles_w);
+  const dim3 grid(a.tiles_w * ((a.H + TH - 1) / TH), 1, N);
+  kernel<<<grid, THREADS, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the tilings B4 takes for 4Cm and 4Co (folded::launch: narrow at <= 16)
+template <bool OUT2_INT8, bool STATS>
+int launch_mode(const PairArgs& a, int N, cudaStream_t s) {
+  const bool w1 = a.C4m > 16, w2 = a.C4o > 16;
+  if (w1 && w2) return launch_cfg<true, true, OUT2_INT8, STATS>(a, N, s);
+  if (w1) return launch_cfg<true, false, OUT2_INT8, STATS>(a, N, s);
+  if (w2) return launch_cfg<false, true, OUT2_INT8, STATS>(a, N, s);
+  return launch_cfg<false, false, OUT2_INT8, STATS>(a, N, s);
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. Pointers are device pointers of contiguous
-// tensors (x, w1, w2, y1 int8; scales, stats float; y2 int8 or bf16);
-// `part` is float scratch of N * tiles * (2 * C4m + 2 * C4o) (tiles from
+// Plain C interface for ctypes. Pointers are device pointers of contiguous,
+// 16-byte aligned tensors (x, w1, w2, y1 int8; scales, stats float; y2 int8
+// or bf16); wp is int8 scratch of 9 * 32 * (ceil(4C / 32) * 4Cm +
+// ceil(4Cm / 32) * 4Co) and bits uint32 scratch of 18, which the launch
+// fills with w1 then w2 packed K-major and their block tables; `part` is
+// float scratch of N * tiles * (2 * C4m + 2 * C4o) (tiles from
 // rpst_folded_conv2_q8_tiles); the stats and part may be null without
 // stats. Needs C4 % 16 == 0, C4m % 16 == 0, C4o % 4 == 0, each <= 128, and
-// H, W >= 2. Returns the cudaError_t of the launches.
+// H, W >= 2. Returns the cudaError_t of the launches (cudaErrorInvalidValue
+// for a shape it refuses).
 extern "C" int rpst_folded_conv2_q8_tiles(int H, int W) {
   return ((W + TW - 1) / TW) * ((H + TH - 1) / TH);
 }
 
 extern "C" int rpst_folded_conv2_q8(
     const void* x, const void* w1, const void* scales1, const void* w2,
-    const void* scales2, void* y1, void* y2, void* s11, void* s12, void* s21,
-    void* s22, void* part, int N, int H, int W, int C4, int C4m, int C4o,
-    int out_int8, int with_stats, void* stream) {
+    const void* scales2, void* wp, void* bits, void* y1, void* y2, void* s11,
+    void* s12, void* s21, void* s22, void* part, int N, int H, int W, int C4,
+    int C4m, int C4o, int out_int8, int with_stats, void* stream) {
+  if (!folded::shape_ok(N, H, W, C4, C4m) ||
+      !folded::shape_ok(N, H, W, C4m, C4o) || C4 % 16 || C4m % 16 ||
+      C4 > 128 || C4m > 128 || C4o > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const int8_t* w1p = static_cast<const int8_t*>(w1);
-  const int8_t* w2p = static_cast<const int8_t*>(w2);
-  const float* s1p = static_cast<const float*>(scales1);
-  const float* s2p = static_cast<const float*>(scales2);
-  int8_t* y1p = static_cast<int8_t*>(y1);
-  float* pp = static_cast<float*>(part);
-  int err;
+  PairArgs a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.ks1 = folded::ksteps_of(C4, 1);
+  a.ks2 = folded::ksteps_of(C4m, 1);
+  int8_t* wp1 = static_cast<int8_t*>(wp);
+  int8_t* wp2 = wp1 + (size_t)9 * a.ks1 * C4m * KB;
+  unsigned* bits1 = static_cast<unsigned*>(bits);
+  a.wp1 = reinterpret_cast<const unsigned char*>(wp1);
+  a.wp2 = reinterpret_cast<const unsigned char*>(wp2);
+  a.bits1 = bits1;
+  a.bits2 = bits1 + 9;
+  a.sc1 = static_cast<const float*>(scales1);
+  a.sc2 = static_cast<const float*>(scales2);
+  a.y1 = static_cast<int8_t*>(y1);
+  a.y2 = y2;
+  a.part = static_cast<float*>(part);
+  a.H = H;
+  a.W = W;
+  a.C4 = C4;
+  a.C4m = C4m;
+  a.C4o = C4o;
+  a.tiles_w = (W + TW - 1) / TW;
+  int err = folded::prep_weights<int8_t>(static_cast<const int8_t*>(w1), wp1,
+                                         bits1, C4, C4m, a.ks1, s);
+  if (err == 0)
+    err = folded::prep_weights<int8_t>(static_cast<const int8_t*>(w2), wp2,
+                                       bits1 + 9, C4m, C4o, a.ks2, s);
+  if (err != 0) return err;
   if (out_int8 && with_stats)
-    err = launch_main<true, true>(xp, w1p, s1p, w2p, s2p, y1p, y2, pp, N, H,
-                                  W, C4, C4m, C4o, s);
+    err = launch_mode<true, true>(a, N, s);
   else if (out_int8)
-    err = launch_main<true, false>(xp, w1p, s1p, w2p, s2p, y1p, y2, pp, N, H,
-                                   W, C4, C4m, C4o, s);
+    err = launch_mode<true, false>(a, N, s);
   else if (with_stats)
-    err = launch_main<false, true>(xp, w1p, s1p, w2p, s2p, y1p, y2, pp, N, H,
-                                   W, C4, C4m, C4o, s);
+    err = launch_mode<false, true>(a, N, s);
   else
-    err = launch_main<false, false>(xp, w1p, s1p, w2p, s2p, y1p, y2, pp, N,
-                                    H, W, C4, C4m, C4o, s);
+    err = launch_mode<false, false>(a, N, s);
   if (err != 0 || !with_stats) return err;
-  const int tiles = rpst_folded_conv2_q8_tiles(H, W);
-  const int stride = 2 * C4m + 2 * C4o;
-  q8::launch_finalize(pp, static_cast<float*>(s11), N, tiles, stride, C4m, s);
-  q8::launch_finalize(pp + C4m, static_cast<float*>(s12), N, tiles, stride,
-                      C4m, s);
-  q8::launch_finalize(pp + 2 * C4m, static_cast<float*>(s21), N, tiles,
-                      stride, C4o, s);
-  q8::launch_finalize(pp + 2 * C4m + C4o, static_cast<float*>(s22), N, tiles,
-                      stride, C4o, s);
+  const q8::SumOuts o{{static_cast<float*>(s11), static_cast<float*>(s12),
+                       static_cast<float*>(s21), static_cast<float*>(s22)},
+                      {0, C4m, 2 * C4m, 2 * C4m + C4o, 2 * C4m + 2 * C4o},
+                      4};
+  q8::launch_finalize(a.part, o, N, rpst_folded_conv2_q8_tiles(H, W),
+                      2 * C4m + 2 * C4o, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
-// Hopper building blocks shared by the tensor-core kernels: B1 / B2
-// (folded_mma.cuh), B5 (conv2d_q8.cu) and B6 (flash_attention.cu).
+// Hopper building blocks shared by the tensor-core kernels: B1 / B2 / B4 /
+// B7 (folded_mma.cuh), B5 (conv2d_q8.cu) and B6 (flash_attention.cu).
 //
 //   * `cp.async`: 16 bytes global -> shared without registers, in commit
 //     groups;
 //   * `mma.sync` m16n8k16 bf16 -> f32, and `ldmatrix` for its fragments;
+//   * `mma.sync` m16n8k32 s8 -> s32 (exact: int32 adds in any order);
 //   * float32 on the tensor cores as three TF32 products per fragment
 //     (namespace `tf32`): a float is split into hi + lo, both read by `mma`
 //     as TF32, and a b = al bh + ah bl + ah bh (the al bl term is below
@@ -54,6 +55,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a b on one 16 x 8 block, int8 operands, int32 sum. a0/a1: rows g and
+// g + 8, k = 4t .. 4t + 3; a2/a3: the same rows, k = 16 + 4t .. 16 + 4t + 3;
+// b0/b1: column g, the same two k quads.
+__device__ __forceinline__ void mma_s8(int32_t (&c)[4], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 

@@ -1,14 +1,8 @@
 // Pieces shared by the int8 conv kernels B4 (folded_conv_q8.cu), B7
 // (folded_conv2_q8.cu) and B5 (conv2d_q8.cu): the folded reflect ring's
-// source rule, the weight repacking for __dp4a, the f32 epilogue of rpst's
-// ops/pallas/folded_conv_q8.py (:238-266) and conv2d_q8.py (:139-149), and
-// the deterministic reduction of per-tile channel sums.
-//
-// Layouts. Activations are NHWC int8 with 4C folded channels; a "word" is
-// 4 consecutive channels packed in an int32 (channel g in byte g % 4), the
-// operand __dp4a takes. Weights (3, 3, 4C, 4Co) int8 are repacked on the
-// chip into words of 4 consecutive INPUT channels for one output channel,
-// so that __dp4a(x_word, w_word) is 4 products of one output channel.
+// source rule, the f32 epilogue of rpst's ops/pallas/folded_conv_q8.py
+// (:238-266) and conv2d_q8.py (:139-149), and the deterministic sum of
+// per-tile channel sums. Activations are NHWC int8 with 4C folded channels.
 
 #pragma once
 
@@ -41,48 +35,6 @@ __device__ __forceinline__ int ring_col(int c, int W, bool subcol0) {
 __device__ __forceinline__ bool first_half(int g, int C4) { return g < C4 / 2; }
 __device__ __forceinline__ bool subcol0(int g, int C4) {
   return ((g / (C4 / 4)) & 1) == 0;
-}
-
-// rows r[k] = bytes (co0..co3) of input channel ci + k -> out[j] = bytes
-// (ci..ci+3) of output channel co0 + j (a 4x4 byte transpose).
-__device__ __forceinline__ void transpose4x4(const int32_t r[4],
-                                             int32_t out[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // a0 b0 a1 b1
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);  // c0 d0 c1 d1
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // a2 b2 a3 b3
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);  // c2 d2 c3 d3
-  out[0] = __byte_perm(t0, t1, 0x5410);                 // a0 b0 c0 d0
-  out[1] = __byte_perm(t0, t1, 0x7632);                 // a1 b1 c1 d1
-  out[2] = __byte_perm(t2, t3, 0x5410);
-  out[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// Stage the repacked words of output channels [co0, co0 + 4 * units_co)
-// and input words [cw0, cw0 + n_cw) of all 9 taps: dst[(tap * n_cw + cw) *
-// dst_stride + co] (co relative to co0). Words past C4 or C4o are zero.
-__device__ __forceinline__ void stage_weights(
-    const int8_t* __restrict__ w, int32_t* dst, int dst_stride, int C4,
-    int C4o, int cw0, int n_cw, int co0, int units_co, int tid,
-    int nthreads) {
-  const int total = 9 * n_cw * units_co;
-  for (int u = tid; u < total; u += nthreads) {
-    const int co4 = u % units_co;
-    const int cw = (u / units_co) % n_cw;
-    const int tap = u / (units_co * n_cw);
-    const int g = 4 * (cw0 + cw);
-    const int go = co0 + 4 * co4;
-    int32_t r[4] = {0, 0, 0, 0};
-    if (g < C4 && go < C4o) {
-      const int8_t* base = w + ((size_t)tap * C4 + g) * C4o + go;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        r[k] = *reinterpret_cast<const int32_t*>(base + (size_t)k * C4o);
-    }
-    int32_t c[4];
-    transpose4x4(r, c);
-    *reinterpret_cast<int4*>(dst + (size_t)(tap * n_cw + cw) * dst_stride +
-                             4 * co4) = make_int4(c[0], c[1], c[2], c[3]);
-  }
 }
 
 // rpst's epilogue, rounding for rounding: y = float(acc) * deq + bias as
@@ -124,60 +76,54 @@ __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst,
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-// Block-level channel sums, deterministic: each thread holds TN partial
-// sums of the channels its lane group owns (lanes l, l^8, l^16, l^24 share
-// channels when CG = 8); they are combined by a fixed shuffle pattern, the
-// 8 warps' results then summed in warp order by one thread per channel.
-// red: >= nwarps * 128 floats of shared scratch. Writes out[co] for co <
-// n_co (co relative to the block's first channel), channel of q given by
-// chan(q).
-template <int TN, int CG>
-__device__ __forceinline__ void block_channel_sums(const float (&v)[TN],
-                                                   float* red, float* out,
-                                                   int n_co, int tid,
-                                                   int nthreads) {
-  static_assert(CG == 8, "lane groups assume 8 channel groups per warp");
-  const int lane = tid & 31, warp = tid >> 5, tc = lane & (CG - 1);
-  float s[TN];
-#pragma unroll
-  for (int q = 0; q < TN; ++q) {
-    s[q] = v[q];
-    s[q] += __shfl_xor_sync(0xffffffffu, s[q], 8);
-    s[q] += __shfl_xor_sync(0xffffffffu, s[q], 16);
-  }
-  if (lane < CG) {
-#pragma unroll
-    for (int q = 0; q < TN; ++q)
-      red[warp * 128 + (q / 4) * (CG * 4) + tc * 4 + (q % 4)] = s[q];
-  }
-  __syncthreads();
-  const int nwarps = nthreads >> 5;
-  for (int co = tid; co < n_co; co += nthreads) {
-    float acc = 0.f;
-    for (int k = 0; k < nwarps; ++k) acc += red[k * 128 + co];
-    out[co] = acc;
-  }
-  __syncthreads();
-}
+// The per-image sums of per-tile partials: part holds, per image n and
+// tile t, a row of `stride` floats; columns [start[k], start[k + 1]) of the
+// rows are summed into out[k] (N, start[k + 1] - start[k]). Deterministic
+// and parallel: a block of FIN_CHUNKS x FIN_COLS threads takes FIN_COLS
+// columns of one image; thread (chunk, column) adds its contiguous chunk of
+// the tiles in order in double, then the chunks' sums are added in chunk
+// order in double and rounded to float.
+constexpr int FIN_COLS = 32, FIN_CHUNKS = 32;
 
-// out[n, c] = sum over t of part[(n * tiles + t) * stride + c], c < C, in
-// tile order, accumulated in double: one thread per (n, c).
-__global__ void finalize_sums(const float* __restrict__ part,
-                              float* __restrict__ out, int tiles, int stride,
-                              int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y;
-  if (c >= C) return;
+struct SumOuts {
+  float* out[4];
+  int start[5];
+  int count;  // outputs; columns [0, start[count])
+};
+
+__global__ void __launch_bounds__(FIN_COLS * FIN_CHUNKS)
+    finalize_sums(const float* __restrict__ part, const SumOuts o, int tiles,
+                  int stride) {
+  __shared__ double red[FIN_CHUNKS][FIN_COLS + 1];
+  const int col = threadIdx.x % FIN_COLS, chunk = threadIdx.x / FIN_COLS;
+  const int c = blockIdx.x * FIN_COLS + col;
+  const size_t n = blockIdx.y;
+  const int ncols = o.start[o.count];
+  const int per = (tiles + FIN_CHUNKS - 1) / FIN_CHUNKS;
+  const int t0 = chunk * per;
+  const int t1 = t0 + per < tiles ? t0 + per : tiles;
   double acc = 0.0;
-  for (int t = 0; t < tiles; ++t)
-    acc += part[((size_t)n * tiles + t) * stride + c];
-  out[(size_t)n * C + c] = static_cast<float>(acc);
+  if (c < ncols) {
+    const float* p = part + n * tiles * stride + c;
+#pragma unroll 4
+    for (int t = t0; t < t1; ++t) acc += p[(size_t)t * stride];
+  }
+  red[chunk][col] = acc;
+  __syncthreads();
+  if (chunk != 0 || c >= ncols) return;
+  double sum = 0.0;
+  for (int k = 0; k < FIN_CHUNKS; ++k) sum += red[k][col];
+  int k = 0;
+  while (c >= o.start[k + 1]) ++k;
+  const int width = o.start[k + 1] - o.start[k];
+  o.out[k][n * width + c - o.start[k]] = static_cast<float>(sum);
 }
 
-inline void launch_finalize(const float* part, float* out, int N, int tiles,
-                            int stride, int C, cudaStream_t s) {
-  dim3 grid((C + 127) / 128, N);
-  finalize_sums<<<grid, 128, 0, s>>>(part, out, tiles, stride, C);
+inline void launch_finalize(const float* part, const SumOuts& o, int N,
+                            int tiles, int stride, cudaStream_t s) {
+  const dim3 grid((o.start[o.count] + FIN_COLS - 1) / FIN_COLS, N);
+  finalize_sums<<<grid, FIN_COLS * FIN_CHUNKS, 0, s>>>(part, o, tiles,
+                                                        stride);
 }
 
 }  // namespace q8

@@ -41,12 +41,14 @@ _GRAD_INPUT_ARGS = [_PTR] * 5 + [_INT] * 5 + [_PTR]
 # x, gz, items (B3's work list), dk, db, dk_part, db_part (device
 # pointers), n_items, N, H, W, C4, C4o, seg_len, stream
 _GRAD_WEIGHT_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
-# x, w, scales, y, s1, s2, part (device pointers), N, H, W, C4, C4o,
-# out_int8, with_stats, stream
-_FOLDED_CONV_Q8_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
-# x, w1, scales1, w2, scales2, y1, y2, s11, s12, s21, s22, part (device
-# pointers), N, H, W, C4, C4m, C4o, out_int8, with_stats, stream
-_FOLDED_CONV2_Q8_ARGS = [_PTR] * 12 + [_INT] * 8 + [_PTR]
+# x, w, wp and bits scratch (w packed K-major and its block table, filled
+# by the launch), scales, y, s1, s2, part (device pointers), N, H, W, C4,
+# C4o, out_int8, with_stats, stream
+_FOLDED_CONV_Q8_ARGS = [_PTR] * 9 + [_INT] * 7 + [_PTR]
+# x, w1, scales1, w2, scales2, wp and bits scratch (both kernels packed and
+# their block tables), y1, y2, s11, s12, s21, s22, part (device pointers),
+# N, H, W, C4, C4m, C4o, out_int8, with_stats, stream
+_FOLDED_CONV2_Q8_ARGS = [_PTR] * 14 + [_INT] * 8 + [_PTR]
 # x, packed w (ops.folded_conv.pack_k_major), scales, y (device
 # pointers), N, H, W, C, Co, out_int8, reflect, alpha, stream
 _CONV2D_Q8_ARGS = [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _PTR]

@@ -20,8 +20,9 @@ from .folded_conv_q8 import (check_q8_input, check_q8_layer,
                              check_q8_tensors, fused_folded_conv_q8_plain,
                              stats_scratch)
 
-# the kernel keeps one layer's whole weight set and every channel of a
-# position in its block: 4C, 4Cm, 4Co at most 128 (the flagship's widths)
+# the kernel keeps every channel of layer 1's output tile in its block (one
+# channel tile of the tensor-core loop): 4C, 4Cm, 4Co at most 128 (the
+# flagship's widths)
 MAX_CHANNELS = 128
 
 
@@ -81,10 +82,16 @@ def fused_folded_conv2_q8(x_q, w1_q, scales1, w2_q, scales2,
         stats = [torch.empty((n, c), **f32) for c in (c4m, c4m, c4o, c4o)]
         part = stats_scratch("folded_conv2_q8", "rpst_folded_conv2_q8_tiles",
                              n, h, w, 2 * c4m + 2 * c4o, dev)
+    # the launch packs both kernels (ops.folded_conv.pack_k_major's layout:
+    # 32 channels a K step, w2 after w1) and lists their non-zero blocks (9
+    # words each) into this scratch
+    wp = torch.empty(sum(9 * -(-k.shape[2] // 32) * 32 * k.shape[3]
+                         for k in (w1_q, w2_q)), dtype=torch.int8, device=dev)
+    bits = torch.empty(18, dtype=torch.int32, device=dev)
     from ..kernels.build import launch
     launch("folded_conv2_q8", "rpst_folded_conv2_q8", "B7", x_q, w1_q,
-           scales1, w2_q, scales2, y1, y2, *stats, part, n, h, w, c4, c4m,
-           c4o, int(out_int8), int(with_stats))
+           scales1, w2_q, scales2, wp, bits, y1, y2, *stats, part, n, h, w,
+           c4, c4m, c4o, int(out_int8), int(with_stats))
     _count(fused_folded_conv2_q8)
     return (y1, y2, *stats) if with_stats else (y1, y2)
 

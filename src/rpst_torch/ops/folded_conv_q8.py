@@ -7,7 +7,11 @@
     (x_scale * w_scale) + bias) on the folded layout, int8 x int8 summed in
     int32, an f32 epilogue, int8 (requantized) or bfloat16 out, and with
     ``with_stats`` the f32 per-image channel sums of the post-activation
-    values that feed AdaIN (CUDA ``csrc/folded_conv_q8.cu``).
+    values that feed AdaIN (CUDA ``csrc/folded_conv_q8.cu``: B1's
+    tensor-core main loop, ``csrc/folded_mma.cuh``, with int8 operands;
+    each launch packs ``w_q`` and lists its non-zero blocks on the device,
+    as B1's do, so a quantized fold of an image kernel costs its 36 of 144
+    blocks).
 
 A CUDA tensor reaches the kernel or raises; a CPU tensor takes
 ``fused_folded_conv_q8_plain``, the same function in plain PyTorch, which
@@ -22,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .folded import conv_nhwc, folded_reflect_pad
-from .folded_conv import _count
+from .folded_conv import _count, _scratch
 
 
 def div_f32(t: torch.Tensor, v: float) -> torch.Tensor:
@@ -145,8 +149,9 @@ def fused_folded_conv_q8(x_q, w_q, scales, out_int8: bool,
         part = stats_scratch("folded_conv_q8", "rpst_folded_conv_q8_tiles",
                              n, h, w, 2 * c4o, dev)
     from ..kernels.build import launch
-    launch("folded_conv_q8", "rpst_folded_conv_q8", "B4", x_q, w_q, scales,
-           y, s1, s2, part, n, h, w, c4, c4o, int(out_int8), int(with_stats))
+    launch("folded_conv_q8", "rpst_folded_conv_q8", "B4", x_q, w_q,
+           *_scratch(w_q), scales, y, s1, s2, part, n, h, w, c4, c4o,
+           int(out_int8), int(with_stats))
     _count(fused_folded_conv_q8)
     return (y, s1, s2) if with_stats else y
 

@@ -22,9 +22,12 @@ AUTO_MODE = "standard"
 # 512px on an H100 80GB HBM3 at 700 W (PERF.md section 6); since B5 and the
 # bfloat16 B6 forward run on the tensor cores, standard bfloat16 against q8
 # was read in both orders inside one call (bf16, q8, q8, bf16).
-# multi_adain (flagship): q8 on B4 read 6.6-8.8 ms at b1 against standard's
-# 5.6-5.9, and 40.0-40.7 ms at b8 against standard's 40.5-41.2 and folded
-# plain bf16's 26.3: fastest at no batch.
+# multi_adain (flagship), with B4 on the tensor cores: q8 read 4.89 / 5.08
+# ms at b1 against folded bfloat16's 3.04 / 3.03 and standard's 5.60 / 5.72,
+# and 23.45 / 23.47 ms at b8 against 18.30 / 18.44 and 40.76 / 40.51 (q8,
+# folded, standard, then the reverse, in one call): ahead of standard,
+# behind folded bfloat16 at both batches, so no entry (the float glue
+# between the int8 layers is ~72% of a b8 q8 stylize, B4 19%).
 # adain (hidden 32): q8 on B5 read 16.6 / 16.5 ms at b1 against standard
 # bfloat16's 13.4 / 14.1, and 62.4 / 62.5 at b4 against 43.4 / 43.5 (with B5
 # on __dp4a it was 33.5-33.9 and 130.2-130.8; standard float32 without TF32:
@@ -43,8 +46,12 @@ AUTO_MODE = "standard"
 # An entry needs q8 ahead in both orders of every call made.
 Q8_AUTO_BATCHES: Dict[str, frozenset] = {}
 
-# same card: B7 pairs 46.2-46.5 ms against B4's 40.0-40.7 at b8; at b1 the
-# call is host-bound (17-65% idle) and the two read 6.6-8.8 ms either way
+# same card, both on the tensor cores (the same call): the q8 stylize with
+# B7 pairs read 26.68 / 26.63 ms at b8 against B4's 23.45 / 23.47; at b1,
+# host-bound (59-66% idle), 4.67 / 4.63 against 4.89 / 5.08 in that call
+# but 7.25 against 5.10 in another (profile_torch.py). One flag serves every
+# batch, and the serving default, b8, loses 13% with pairs. B7 alone is
+# 1.6-2.0x two B4 launches on the card (tools/b4_compile_check.py)
 FUSE_PAIRS = False
 
 # same card, the flagship's folded 512px train step, float targets against

@@ -266,8 +266,8 @@ def test_b4_matches_plain_on_card(cuda_device, out_int8, with_stats, shape):
                                    (2, 19, 21, 128, 128, 128),
                                    (1, 2, 2, 16, 32, 4), (1, 9, 33, 32, 16, 8)])
 def test_b7_matches_two_b4_on_card(cuda_device, out_int8, shape):
-    """B7 bit-equal to two B4 launches (its documented contract); stats at
-    B4's tolerance."""
+    """B7 bit-equal to two B4 launches (its documented contract), the
+    float32 sums included: B7's layer 1 sums in B4's written order."""
     n, h, w, c4, c4m, c4o = shape
     x, k1, sc1 = _q8_layer(1, n, h, w, c4, c4m, cuda_device)
     _, k2, sc2 = _q8_layer(2, n, h, w, c4m, c4o, cuda_device, out_scale=0.02)
@@ -277,11 +277,68 @@ def test_b7_matches_two_b4_on_card(cuda_device, out_int8, shape):
     assert fused_folded_conv2_q8.launches == before + 1
     y1, s11, s12 = fused_folded_conv_q8(x, k1, sc1, True, True)
     y2, s21, s22 = fused_folded_conv_q8(y1, k2, sc2, out_int8, True)
-    assert torch.equal(got[0], y1) and torch.equal(got[1], y2)
-    for g, r in zip(got[2:], (s11, s12, s21, s22)):
-        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-3)
+    for g, r in zip(got, (y1, y2, s11, s12, s21, s22)):
+        assert torch.equal(g, r)
     no_stats = fused_folded_conv2_q8(x, k1, sc1, k2, sc2, out_int8)
     assert torch.equal(no_stats[0], y1) and torch.equal(no_stats[1], y2)
+
+
+def _q8_folded_kernel(seed, c4, c4o, device):
+    """A quantized fold of a random image kernel: 36 of its 144 blocks
+    non-zero, the blocks B4 and B7 take."""
+    from rpst_torch.ops.folded_conv_q8 import quantize_weights
+    rng = np.random.default_rng(seed)
+    k = torch.from_numpy(rng.standard_normal((3, 3, c4 // 4, c4o // 4),
+                                             dtype=np.float32))
+    return quantize_weights(fold_conv_kernel(k))[0].contiguous().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape", [(1, 256, 256, 128, 128),
+                                   (3, 10, 33, 128, 128), (1, 2, 37, 16, 132),
+                                   (2, 9, 17, 128, 4), (1, 3, 5, 48, 64)])
+def test_b4_listed_blocks_match_plain_on_card(cuda_device, dense, shape):
+    """The tensor-core B4 takes only the listed blocks: with a quantized
+    fold (36 blocks) and a dense kernel (144), at the path's shape and the
+    tilings' edges (N = 3, W = 33 / 37, H = 2, 4C = 16 and 48, whose K steps
+    span several input blocks, 4Co = 4 and 132), int8 and bf16 outputs
+    bit-equal to the plain version; s1/s2 at rpst's gate rtol 1e-4, atol
+    1e-3 (float32 sums in another order)."""
+    x, k, sc = _q8_layer(4, *shape, cuda_device)
+    if not dense:
+        k = _q8_folded_kernel(5, shape[3], shape[4], cuda_device)
+    for out_int8 in (True, False):
+        got = fused_folded_conv_q8(x, k, sc, out_int8, True)
+        torch.cuda.synchronize()
+        ref = fused_folded_conv_q8_plain(x, k, sc, out_int8, True)
+        assert torch.equal(got[0].view(torch.int8) if out_int8
+                           else got[0].view(torch.int16),
+                           ref[0].view(torch.int8) if out_int8
+                           else ref[0].view(torch.int16))
+        for g, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 64, 48, 128, 128, 128),
+                                   (3, 10, 37, 16, 48, 128),
+                                   (1, 2, 37, 128, 16, 12)])
+def test_b7_listed_blocks_equal_two_b4_on_card(cuda_device, shape):
+    """B7 with quantized folds in both layers: all six outputs, float32 sums
+    included, equal to two B4 launches (phase 13's fuse_pairs equality)."""
+    n, h, w, c4, c4m, c4o = shape
+    x, _, sc1 = _q8_layer(6, n, h, w, c4, c4m, cuda_device)
+    _, _, sc2 = _q8_layer(7, n, h, w, c4m, c4o, cuda_device, out_scale=0.02)
+    k1 = _q8_folded_kernel(8, c4, c4m, cuda_device)
+    k2 = _q8_folded_kernel(9, c4m, c4o, cuda_device)
+    for out_int8 in (True, False):
+        got = fused_folded_conv2_q8(x, k1, sc1, k2, sc2, out_int8, True)
+        y1, s11, s12 = fused_folded_conv_q8(x, k1, sc1, True, True)
+        y2, s21, s22 = fused_folded_conv_q8(y1, k2, sc2, out_int8, True)
+        torch.cuda.synchronize()
+        for g, r in zip(got, (y1, y2, s11, s12, s21, s22)):
+            assert torch.equal(g, r)
 
 
 @pytest.mark.cuda

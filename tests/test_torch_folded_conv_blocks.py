@@ -75,7 +75,7 @@ def _chans(by, c4out):
     return out
 
 
-def _halo(x, rings, n, r0, c0, bwd):
+def _halo(x, rings, n, r0, c0, bwd, dtype=np.float64):
     """The staged halo tile (TH + 2, TW + 2, C4in) of image n: B1 reads the
     ring rows from ``rings``, or without it from x by the reflect rule (row
     -1: the first half of the channels from row 1, the second from row 0;
@@ -88,7 +88,7 @@ def _halo(x, rings, n, r0, c0, bwd):
     if rings is None:
         rings = np.stack([np.where(first, x[:, 1], x[:, 0]),
                           np.where(first, x[:, h - 1], x[:, h - 2])], 1)
-    out = np.zeros((TH + 2, TW + 2, c4), np.float64)
+    out = np.zeros((TH + 2, TW + 2, c4), dtype)
     for hr in range(TH + 2):
         for hc in range(TW + 2):
             rg, cg = r0 - 1 + hr, c0 - 1 + hc
@@ -106,12 +106,15 @@ def _halo(x, rings, n, r0, c0, bwd):
     return out
 
 
-def _emulate(x, k, ke, rings=None, bias=None, alpha=0.2, bwd=False):
+def _emulate(x, k, ke, rings=None, bias=None, alpha=0.2, bwd=False,
+             dtype=np.float64):
     """The kernels' loop over the block table, in float64.
 
     B1 (bwd False): x (N, H, W, 4C), k the folded kernel, ``rings`` (N, 2,
     W, 4C), the bias and slope. B2 (bwd True): x = gz, k = khat. ``ke`` is
-    the channels of a K step (32 bytes: 8 float32, 16 bfloat16)."""
+    the channels of a K step (32 bytes: 8 float32, 16 bfloat16, 32 int8);
+    ``dtype`` the sums' type (int64 for int8: exact, as the kernel's
+    int32)."""
     n_, h, w, c4in = x.shape
     c4out = k.shape[3]
     cin, cout = c4in // 4, c4out // 4
@@ -119,12 +122,12 @@ def _emulate(x, k, ke, rings=None, bias=None, alpha=0.2, bwd=False):
     bits = [table[:, :, s, :].reshape(9, 4).astype(bool) for s in range(4)]
     _, _, tco, gy = _tiling(c4out)
     ksteps = -(-c4in // ke)
-    y = np.zeros((n_, h, w, c4out), np.float64)
+    y = np.zeros((n_, h, w, c4out), dtype)
     taps_run = 0
     for n in range(n_):
         for r0 in range(0, h, TH):
             for c0 in range(0, w, TW):
-                halo = _halo(x, rings, n, r0, c0, bwd)
+                halo = _halo(x, rings, n, r0, c0, bwd, dtype)
                 need = [r0 == 0, r0 + TH - 1 >= h - 2, c0 == 0,
                         c0 + TW - 1 >= w - 2]
                 hb = h - r0
@@ -136,8 +139,8 @@ def _emulate(x, k, ke, rings=None, bias=None, alpha=0.2, bwd=False):
                         ntm[cl // 8, chans[cl] // cout] = True
                     # n-tiles run in pairs (2p, 2p + 1) on their union
                     ntm = ntm | ntm[np.arange(tco // 8) ^ 1]
-                    acc = np.zeros((TH, TW, tco))
-                    racc = np.zeros((4, RING_ROWS, tco))
+                    acc = np.zeros((TH, TW, tco), dtype)
+                    racc = np.zeros((4, RING_ROWS, tco), dtype)
                     for ks in range(ksteps):
                         k0, k1 = ks * ke, min(ks * ke + ke, c4in)
                         m = np.zeros((9, 4), bool)
@@ -155,7 +158,7 @@ def _emulate(x, k, ke, rings=None, bias=None, alpha=0.2, bwd=False):
                                     continue
                                 taps_run += 1
                                 cols = chans[nt * 8:nt * 8 + 8]
-                                wt = np.zeros((k1 - k0, 8))
+                                wt = np.zeros((k1 - k0, 8), dtype)
                                 wt[:, cols >= 0] = \
                                     k[dr, dc, k0:k1][:, cols[cols >= 0]]
                                 acc[:, :, nt * 8:nt * 8 + 8] += a @ wt

@@ -436,7 +436,8 @@ def test_port_never_imports_jax():
 
 PORT_FILES = sorted([*(REPO / "src" / "rpst_torch").rglob("*.py"),
                      REPO / "serve_torch.py", REPO / "train_torch.py",
-                     REPO / "chip_smoke.py", REPO / "profile_torch.py"])
+                     REPO / "chip_smoke.py", REPO / "profile_torch.py",
+                     REPO / "tools" / "b4_compile_check.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -47,7 +47,8 @@ import torch  # noqa: E402
 
 from chip_smoke import (BF16_TOL, DK_ATOL_512, F32_TOL, card,  # noqa: E402
                         check_close, folded_bound)
-from kernel_check_common import parent_library, sass_counts  # noqa: E402
+from kernel_check_common import (check_prep, device_ms,  # noqa: E402
+                                 parent_library, sass_counts)
 from rpst_torch.kernels import build  # noqa: E402
 from rpst_torch.ops import folded_conv as fc  # noqa: E402
 from rpst_torch.ops.folded import (_row_ring, fold_bias,  # noqa: E402
@@ -104,25 +105,6 @@ def offset_copy(t, elems):
     return out
 
 
-def device_ms(fn, reps=10, iters=5):
-    """Median ms of one ``fn()`` over ``iters`` timings of ``reps`` calls
-    back to back between two CUDA events, so that the card, not the host's
-    launch latency, sets the time (``chip_smoke.cuda_ms`` times one call from
-    an idle card)."""
-    fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return sorted(times)[iters // 2]
-
-
 def compare(label, got, ref, dt):
     try:
         err, _ = check_close(label, got, ref,
@@ -131,19 +113,6 @@ def compare(label, got, ref, dt):
     except AssertionError as e:
         print(f"  {e}")
         return 1, float("nan")
-
-
-def check_prep(op, k, packed, bits):
-    """The launch's packing and block table against pack_k_major and
-    block_table: 1 if either differs."""
-    table = torch.stack([(bits.cpu() >> i) & 1 for i in range(16)], -1)
-    ok = (torch.equal(packed, fc.pack_k_major(k).flatten())
-          and torch.equal(table.view(3, 3, 4, 4).to(torch.uint8),
-                          fc.block_table(k).cpu()))
-    if not ok:
-        print(f"  {op}: the launch's packed weights or block table differ "
-              "from pack_k_major / block_table")
-    return int(not ok)
 
 
 def check_b3(shape, xd, gd):

@@ -2,8 +2,9 @@
 """Quickest proof that the PyTorch/CUDA port runs on the GPU: builds the
 port's CUDA kernels from this checkout, checks each against its plain
 PyTorch version, drives the flagship's folded and int8 serving and training
-paths, adain's and wct's serving and the static SANet's serving and training
-at 512px through the user's entry points, and times them. Needs one NVIDIA
+paths, adain's and wct's serving, and the serving and training of the static
+SANet, the adaptive SANet (dynamic_sanet) and SourceNet (src) at 512px
+through the user's entry points, and times them. Needs one NVIDIA
 Hopper card; run from the repository root with no arguments:
 
     python3 chip_smoke.py
@@ -154,6 +155,32 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                train step b1 / b4 f32 and bf16, each with B6, with the plain
                attention and with the SDPA call in B6's place (in this script
                only)
+
+ 29. 6b fixtures  dynamic_sanet and src on the card vs rpst's JAX output
+               (tests/fixtures/torch_port_{dynamic_sanet,src}.npz, 64px b2):
+               dynamic_sanet f32 on the dense and the streamed route (1e-4),
+               src f32 (1e-4), q8 with rpst's scales (f32 PSNR >= 35 dB,
+               bf16 >= 30), loss parts (rtol 1e-4) and gradients, exact B5
+               launches (16 / 12 per q8 stylize) and no B6; the adaptive
+               attention's streamed O against its dense form at (1, 4096,
+               4096, 512) f32, both variants, 1e-5 of max |O|
+ 30. 6b serve      8 requests per network through build_model -> build_vgg
+               -> resolve_mode -> [calibrate_scales ->] make_run_impl ->
+               DynamicBatcher(b4), standard and q8, 512px, counts reset
+               before and read after (q8: 16 / 12 B5 per batch, 0 B6); then
+               serve_torch.py --mode q8 as a subprocess for each network
+ 31. 6b train      train_torch.py on configs/train_dynamic_sanet.yaml's
+               settings (512px, b1, relu, f32; the streamed route under
+               autograd) and configs/train_source_adain.yaml's (512px, b8):
+               3 steps as a subprocess, then a resume for 2 more in this
+               process, counts reset before and read after (no kernel),
+               the resumed run's peak device memory printed
+ 32. 6b parity     512px b2: dynamic_sanet streamed vs dense, f32 (1e-3) and
+               bf16 (2e-2 x span); q8 vs f32 for both networks (> 30 dB)
+ 33. 6b timing     512px stylize b1 / b4: dynamic_sanet streamed and dense,
+               standard f32, bf16 and q8, src f32, bf16 and q8, q8 against
+               bf16 in both orders (the policy's A/B); each network's train
+               step at its config's batch (b1, b8), f32
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -597,6 +624,13 @@ def main():
     sanet_train = _sanet_train(dev)
     _sanet_timing(dev, rng, name_power)
 
+    # ---- 29-33. slice 6b: dynamic_sanet and src on B5 ----------------------
+    _6b_fixtures(dev)
+    b5_6b = _6b_serve(dev, rng)
+    _6b_train(dev)
+    _6b_parity(dev, rng)
+    _6b_timing(dev, rng, name_power)
+
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -651,7 +685,8 @@ def main():
         {"name": "fused_conv2d_q8", "route": "cuda",
          "source": "src/rpst_torch/csrc/conv2d_q8.cu",
          "replaces": "src/rpst/ops/pallas/conv2d_q8.py:220",
-         "launches": b5_serve + q8t_launches[3] + sanet_serve["B5"],
+         "launches": (b5_serve + q8t_launches[3] + sanet_serve["B5"]
+                      + b5_6b),
          "max_abs_err": b5k["err"], "ms": b5k["ms"],
          "plain_ms": b5k["plain_ms"], "bound_ms": b5k["bound_ms"],
          "bound_by": b5k["bound_by"], "library_ms": b5k["library_ms"]}]}
@@ -2632,10 +2667,12 @@ def _sanet_fixture(dev):
 
 def _check_sanet_grads(model, fx):
     """The model's gradients against the fixture's: every bias in full, the
-    [..., :8, :8] corner of every kernel, every leaf's norm. The g convs'
-    biases shift all of a query's logits alike, so their gradient is zero up
-    to rounding: held below 1e-3 of the f bias's. Returns the worst max abs
-    err / max |ref|; raises with every leaf that is out of tolerance."""
+    [..., :8, :8] corner of every kernel (dynamic_sanet's psi Linears in
+    rpst's (in, out) layout), every leaf's norm. The g convs' biases shift
+    all of a query's logits alike, so their gradient is zero up to rounding:
+    held below 1e-3 of the f bias's. The f, g and psi leaves lie behind the
+    softmax. Returns the worst max abs err / max |ref|; raises with every
+    leaf that is out of tolerance."""
     import numpy as np
     params = dict(model.named_parameters())
     worst, bad = 0.0, []
@@ -2643,8 +2680,10 @@ def _check_sanet_grads(model, fx):
         kind, _, path = key.partition("/")
         if kind not in ("grads", "gradpatch", "gradnorm"):
             continue
-        name = path.replace("/", ".").replace("kernel", "weight")
+        name = _port_grad_name(path)
         grad = params[name].grad.detach().float()
+        if grad.ndim == 2:
+            grad = grad.t()
         if name.endswith(".g.bias"):
             f_max = params[name.replace(".g.", ".f.")].grad.abs().max().item()
             if not grad.abs().max().item() <= 1e-3 * f_max:
@@ -2655,10 +2694,10 @@ def _check_sanet_grads(model, fx):
             if not abs(grad.norm().item() - float(ref)) <= 1e-3 * float(ref):
                 bad.append(f"{name}: norm {grad.norm().item()} vs {ref}")
             continue
-        got = (grad if kind == "grads" else
-               grad.permute(2, 3, 1, 0)[..., :8, :8]).cpu().numpy()
+        got = (grad if kind == "grads" else grad[:8, :8] if grad.ndim == 2
+               else grad.permute(2, 3, 1, 0)[..., :8, :8]).cpu().numpy()
         scale = float(np.abs(ref).max())
-        softmax = any(t in name for t in (".f.", ".g."))
+        softmax = any(t in name for t in (".f.", ".g.", ".attention_layer."))
         rel = SANET_SOFTMAX_GRAD_ATOL_REL if softmax else SANET_GRAD_ATOL_REL
         err = float(np.abs(got - ref).max()) / max(scale, 1e-30)
         if not (np.isfinite(got).all() and np.allclose(
@@ -2943,6 +2982,451 @@ def _sanet_timing(dev, rng, name_power):
                     f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
                 del state, bundle
                 torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# slice 6b: the adaptive SANet (dynamic_sanet) and SourceNet (src)
+# ---------------------------------------------------------------------------
+
+DYN_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_dynamic_sanet.npz"
+SRC_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_src.npz"
+DYN_YAML = REPO / "configs" / "train_dynamic_sanet.yaml"
+SRC_YAML = REPO / "configs" / "train_source_adain.yaml"
+# the plans' B5 launches per q8 stylize (tests/test_torch_{dynamic_sanet,
+# src}.py hold them on the CPU): dynamic_sanet conv_4 .. conv_13 of the 2N
+# encode + mirror conv0 .. conv5; src conv_4 .. conv_9 + conv0 .. conv5. No
+# network of the slice launches B6: the adaptive attention is plain PyTorch
+B5_PER_6B = {"dynamic_sanet": 16, "src": 12}
+# the adaptive attention's streamed O against its dense form on the card:
+# the same float32 products, the scores summed by cuBLAS over other row
+# counts: 1e-5 of max |O|
+ADAPTIVE_O_REL = 1e-5
+# the model streamed against dense at 512px, float32: rpst's own tolerance
+# (tests/test_adaptive_blockwise.py: 1e-3)
+ADAPTIVE_ROUTES_TOL = 1e-3
+
+
+def _6b_weights(network, size, seed=0):
+    from rpst_torch.bridge import (dynamic_sanet_weights_from_seed,
+                                   src_weights_from_seed)
+    return (dynamic_sanet_weights_from_seed(seed, size)
+            if network == "dynamic_sanet" else src_weights_from_seed(seed))
+
+
+def _6b_bundle(dev, network, size, seeded=True, **over):
+    """A dynamic_sanet or src bundle on the repository's yaml (src with
+    use_mask off, so that q8 serves) with its VGG set: seeded weights, or
+    what the drivers seed without --weights."""
+    from rpst_torch.bridge import from_flax_params
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model, build_vgg
+    from rpst_torch.nn.blocks import init_torch_default
+    yaml = DYN_YAML if network == "dynamic_sanet" else SRC_YAML
+    extra = {} if network == "dynamic_sanet" else {"use_mask": False}
+    cfg = load_config(str(yaml), dict(img_size=size, test_dir="", vgg="",
+                                      **extra, **over))
+    bundle = build_model(cfg, dev)
+    if seeded:
+        bundle.load_state_dict(from_flax_params(_6b_weights(network, size)))
+    else:
+        init_torch_default(bundle.model, cfg.seed)
+    bundle.vgg, _ = build_vgg(cfg, dev)
+    return bundle
+
+
+def _port_grad_name(path):
+    """rpst's leaf path -> the port's parameter name."""
+    from rpst_torch.bridge import PSI_NAMES
+    name = "." + path.replace("/", ".")
+    for k, v in PSI_NAMES.items():
+        name = name.replace(k, v)
+    return name[1:].replace("kernel", "weight")
+
+
+def _6b_fixtures(dev):
+    """Phase 29: dynamic_sanet and src on the card against their JAX
+    fixtures; the adaptive attention's streamed O against its dense form at
+    full scale. Returns the worst streamed-vs-dense O error / max |O|."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import (from_flax_params, vgg_from_flax,
+                                   vgg_weights_from_seed)
+    from rpst_torch.models.fast_path_q8_std import sanet_q8_plan, src_q8_plan
+    from rpst_torch.nn.vgg import VGG19Encoder
+    from rpst_torch.ops.adaptive_attention import (
+        adaptive_attention_dense, adaptive_reweighted_attention)
+    msgs = []
+    for network, path, over in (
+            ("dynamic_sanet", DYN_FIXTURE, dict(content_weight=1.0,
+                                                style_weight=3.0)),
+            ("src", SRC_FIXTURE, dict(content_weight=1.0,
+                                      style_weight=2.0))):
+        with np.load(path) as npz:
+            fx = {k: npz[k] for k in npz.files}
+        size = fx["content"].shape[1]
+        bundle = _6b_bundle(dev, network, size, **over)
+        stages = bundle.vgg_stages
+        vgg = VGG19Encoder(stages)
+        vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(
+            int(fx["vgg_seed"]), stages)))
+        bundle.vgg = vgg = vgg.to(dev)
+        c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+        adaptive = network == "dynamic_sanet"
+        plan = (sanet_q8_plan(vgg, bundle.q8_weights(), adaptive=True)
+                if adaptive else src_q8_plan(vgg, bundle.q8_weights()))
+        if plan != {"scales": len(fx["act_scales"]), "B5": B5_PER_6B[network],
+                    "B6": 0}:
+            raise AssertionError(f"{network} q8 plan {plan}")
+        msg = []
+        routes = ((("never", "out_f32"), ("always", "out_f32_always"))
+                  if adaptive else (("-", "out_f32"),))
+        for route, key in routes:
+            if adaptive:
+                bundle.model.transform.blockwise = route
+            _reset_counts()
+            out = bundle.stylize(c, s)
+            torch.cuda.synchronize()
+            if _counts(("B5", "B6a")) != (0, 0):
+                raise AssertionError(f"{network} stylize launches "
+                                     f"{_counts(('B5', 'B6a'))}")
+            err, _ = check_close(f"{network} fixture {route} f32", out,
+                                 torch.from_numpy(fx[key]).to(dev), F32_TOL)
+            msg.append(f"{route} f32 max abs err {err:.3g}")
+        if adaptive:
+            bundle.model.transform.blockwise = "auto"
+        scales = {"act_scales": fx["act_scales"]}
+        for dt, key, min_psnr in ((torch.float32, "out_q8_f32",
+                                   SANET_Q8_F32_PSNR),
+                                  (torch.bfloat16, "out_q8_bf16",
+                                   Q8_VS_FOLDED_PSNR)):
+            _reset_counts()
+            got = bundle.stylize_q8(c, s, scales, dtype=dt).cpu().numpy()
+            n = _counts(("B5", "B6a"))
+            psnr = _psnr(got, fx[key])
+            if not (np.isfinite(got).all() and psnr >= min_psnr
+                    and n == (plan["B5"], 0)):
+                raise AssertionError(f"{network} fixture {key}: PSNR {psnr} "
+                                     f"dB, B5 / B6 launches {n}")
+            msg.append(f"{key} PSNR {psnr:.2f} dB (>= {min_psnr})")
+        own = bundle.calibrate_q8(c, s)["act_scales"]
+        if not np.allclose(own, fx["act_scales"], rtol=2e-2):
+            raise AssertionError(f"{network} calibration {own} vs rpst "
+                                 f"{fx['act_scales']}")
+        _reset_counts()
+        total, parts = bundle.loss(vgg, c, s)
+        total.backward()
+        torch.cuda.synchronize()
+        if any(_counts(("B5", "B6a", "B6b", "B6c", "B6d"))):
+            raise AssertionError(f"{network} loss launched a kernel")
+        for k in parts:
+            got, want = float(parts[k].detach()), float(fx[k])
+            if not abs(got - want) <= LOSS_RTOL * abs(want):
+                raise AssertionError(f"{network} fixture {k}: {got} vs rpst "
+                                     f"{want}")
+        worst = _check_sanet_grads(bundle.model, fx)
+        log("29 6b fixtures", f"{network} 64px b2 vs rpst JAX: "
+            f"{'; '.join(msg)}; {plan['B5']} B5 + 0 B6 per q8 stylize, "
+            f"{plan['scales']} scales within 2e-2 of rpst's; total_loss "
+            f"{float(parts['total_loss'].detach()):.7g} vs "
+            f"{float(fx['total_loss']):.7g}, worst gradient err / max "
+            f"{worst:.3g}")
+        msgs.append(msg)
+        del bundle
+        torch.cuda.empty_cache()
+    # the op at relu4_1 of a 512px stylize: streamed against dense
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+    for variant in ("aea", "aea_lrelu"):
+        # logits of standard deviation ~4 (the seeded model's, relu5_1):
+        # the softmax peaks and P crosses the thresholds in some entries
+        f, k, v = (torch.randn(1, 4096, 512, device=dev, generator=g) * 0.42
+                   for _ in range(3))
+        clamp = torch.rand(1, 4096, 1, device=dev, generator=g) * 0.6 + 0.3
+        with torch.inference_mode():
+            got = adaptive_reweighted_attention(f, k, v, clamp, variant)
+            ref, prob, _ = adaptive_attention_dense(f, k, v, clamp, variant)
+        crossed = (prob > clamp).float().mean().item()
+        rel, mean_rel = check_scaled(f"adaptive attention {variant}", got,
+                                     ref, ADAPTIVE_O_REL,
+                                     ADAPTIVE_O_REL / 10)
+        if not 0.0 < crossed < 0.5:
+            raise AssertionError(f"adaptive attention {variant}: P > c in "
+                                 f"{crossed} of the entries")
+        worst = max(worst, rel)
+        log("29 6b fixtures", f"adaptive attention {variant} (1, 4096, "
+            f"4096, 512) f32, streamed (block 512) vs dense: max abs err "
+            f"{rel:.3g}, mean {mean_rel:.3g} of max |O| "
+            f"{ref.abs().max().item():.4g} (limit {ADAPTIVE_O_REL}); P > c in "
+            f"{crossed:.2e} of the entries")
+    return worst
+
+
+def _6b_images(tmp, rng):
+    import numpy as np
+    from PIL import Image
+    from rpst_torch.data import load_image
+    for sub in ("content", "style"):
+        (tmp / sub).mkdir(exist_ok=True)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                        "RGB").save(tmp / "content" / f"c{i}.png")
+    Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                    "RGB").save(tmp / "style" / "s.png")
+    return ([load_image(tmp / "content" / f"c{i}.png", IMG)
+             for i in range(8)], load_image(tmp / "style" / "s.png", IMG))
+
+
+def _6b_serve(dev, rng):
+    """Phase 30: dynamic_sanet and src serving, standard and q8, through the
+    user's entry points at 512px. Returns the in-process q8 runs' B5
+    launches."""
+    import numpy as np
+    import torch
+    from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
+                                    make_run_impl, resolve_mode)
+    total_b5 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        imgs, style_img = _6b_images(tmp, rng)
+        for network in ("dynamic_sanet", "src"):
+            bundle = _6b_bundle(dev, network, IMG, seeded=False)
+            outs = {}
+            for asked in ("standard", "q8"):
+                mode = resolve_mode(bundle, asked, batch=4)
+                if mode != asked:
+                    raise AssertionError(f"{network} resolve_mode({asked}) = "
+                                         f"{mode}")
+                scales = None
+                if mode == "q8":
+                    calib = torch.from_numpy(np.stack(imgs[:4])).to(dev)
+                    scales = calibrate_scales(bundle, calib, torch.from_numpy(
+                        style_img)[None].to(dev).expand_as(calib)
+                        .contiguous())
+                batcher = DynamicBatcher(make_run_impl(bundle, mode, scales),
+                                         batch_size=4, max_wait_ms=50.0,
+                                         device=dev)
+                _reset_counts()  # this main path's count starts here
+                try:
+                    outs[mode] = [f.result(timeout=600) for f in
+                                  [batcher.submit(im, style_img)
+                                   for im in imgs]]
+                finally:
+                    batcher.close()
+                got = dict(zip(("B5", "B6"), _counts(("B5", "B6a"))))
+                batches = batcher.stats()["batches"]
+                want = {"B5": batches * B5_PER_6B[network] * (mode == "q8"),
+                        "B6": 0}
+                if got != want or batches < 2:
+                    raise AssertionError(f"{network} {mode} main path: "
+                                         f"launches {got} in {batches} "
+                                         f"batches, expected {want}")
+                for o in outs[mode]:
+                    if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
+                        raise AssertionError(f"{network} {mode} output "
+                                             f"{o.shape}")
+                total_b5 += got["B5"]
+                log("30 6b serve", f"{network} {mode}: 8 requests via "
+                    f"DynamicBatcher(b4): {batcher.stats()}, launches {got} "
+                    f"({batches} batches)")
+            psnr = _psnr(np.stack(outs["q8"]), np.stack(outs["standard"]))
+            if not psnr > Q8_VS_FOLDED_PSNR:
+                raise AssertionError(f"{network} q8 vs standard f32: PSNR "
+                                     f"{psnr} dB")
+            log("30 6b serve", f"{network} q8 vs standard f32 PSNR "
+                f"{psnr:.2f} dB (bound > {Q8_VS_FOLDED_PSNR})")
+            del bundle, batcher
+            torch.cuda.empty_cache()
+            # the child: 8 PNGs in 2 batches, calibration first (no kernel)
+            yaml = DYN_YAML if network == "dynamic_sanet" else SRC_YAML
+            extra = ("--set", f"img_size={IMG}", "vgg=", "test_dir=",
+                     *(() if network == "dynamic_sanet"
+                       else ("use_mask=false",)))
+            t0 = time.perf_counter()
+            text, n_png = _serve_child(yaml, tmp, f"{network}_q8", "q8",
+                                       extra)
+            child = (_logged_count(text, "B5"), _logged_count(text, "B6"))
+            n_scales = 16 if network == "dynamic_sanet" else 12
+            if n_png != 8 or child != (2 * B5_PER_6B[network], 0) or \
+                    f"Calibrated {n_scales} layer scales" not in text:
+                raise AssertionError(f"serve_torch {network} q8: {n_png} "
+                                     f"PNGs, B5 / B6 launches {child}:\n"
+                                     f"{text[-3000:]}")
+            rate = [ln for ln in text.splitlines() if "Stylized" in ln]
+            log("30 6b serve", f"serve_torch.py {yaml.name} --mode q8: 8 "
+                f"PNGs, B5 / B6 launches {child}, "
+                f"{time.perf_counter() - t0:.1f}s wall; "
+                f"{rate[-1].split(' - ')[-1] if rate else ''}")
+    return total_b5
+
+
+def _6b_train(dev):
+    """Phase 31: train_torch.py on the repository's dynamic_sanet yaml
+    (512px, batch 1, relu, float32; the streamed route, under autograd) and
+    src yaml (512px, batch 8): 3 steps as a subprocess, then a resume for 2
+    more in this process, counts reset before and read after (no kernel on
+    either path), peak device memory read over the resumed run."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from rpst_torch.models.sanet import use_streamed
+
+    if not (use_streamed("auto", dev, 4096, 4096)
+            and use_streamed("auto", dev, 1024, 1024)):
+        raise AssertionError("adaptive_blockwise auto does not stream at "
+                             "512px on the card")
+    spec = importlib.util.spec_from_file_location("train_torch",
+                                                  REPO / "train_torch.py")
+    train_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_cli)
+    peaks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        for network, yaml, batch in (("dynamic_sanet", DYN_YAML, 1),
+                                     ("src", SRC_YAML, 8)):
+            out = tmp / network
+            args = ["--config", str(yaml), "--device", "cuda", "--set",
+                    f"img_size={IMG}", "vgg=", "test_dir=", "num_workers=4",
+                    "log_iter=1", "snapshot_save_iter=2",
+                    f"content_dir={tmp / 'corpus' / 'content'}",
+                    f"style_dir={tmp / 'corpus' / 'style'}",
+                    f"output={out}"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(REPO / "train_torch.py"), *args,
+                 "max_iter=4"], capture_output=True, text=True, timeout=900,
+                cwd=str(REPO))
+            text = proc.stdout + proc.stderr
+            head = (f"Training {network} (standard, float32) on cuda")
+            if proc.returncode != 0 or head not in text \
+                    or f"batch {batch}, {IMG}px" not in text:
+                raise AssertionError(f"train_torch.py {network} rc "
+                                     f"{proc.returncode}:\n{text[-3000:]}")
+            rates = [ln.split("img/s ")[1].split(",")[0]
+                     for ln in text.splitlines() if "img/s" in ln]
+            log("31 6b train", f"train_torch.py {yaml.name} b{batch} {IMG}px "
+                f"f32, 3 steps in {time.perf_counter() - t0:.1f}s wall "
+                f"(img/s per step {rates})")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()  # the main path's count starts here
+            train_cli.main([*args, "resume=true", "max_iter=3"])
+            torch.cuda.synchronize()
+            peaks[network] = torch.cuda.max_memory_allocated(dev)
+            if any(_counts(("B1", "B2", "B3", "B5", "B6a", "B6b", "B6c",
+                            "B6d"))):
+                raise AssertionError(f"{network} training launched a kernel")
+            lines = [json.loads(ln) for ln in
+                     (out / "logs" / "metrics.jsonl").read_text()
+                     .splitlines()]
+            losses = [ln["total_loss"] for ln in lines]
+            if [ln["step"] for ln in lines] != [1, 2, 3, 4, 5] \
+                    or not np.isfinite(losses).all() \
+                    or any(ln["skipped"] for ln in lines):
+                raise AssertionError(f"{network} metrics.jsonl: {lines}")
+            log("31 6b train", f"{network} resumed at step 3 for steps 4-5; "
+                f"total_loss {[round(v, 4) for v in losses]}; no kernel "
+                f"launched; peak device memory of the resumed run "
+                f"{peaks[network] / 2 ** 30:.3f} GiB "
+                f"(torch.cuda.max_memory_allocated)")
+            torch.cuda.empty_cache()
+    return peaks
+
+
+def _6b_parity(dev, rng):
+    """Phase 32: 512px b2, dynamic_sanet streamed against dense in float32
+    and bfloat16; q8 against float32 for both networks."""
+    import numpy as np
+    import torch
+    c, s = (torch.from_numpy(rng.random((2, IMG, IMG, 3), np.float32)).to(dev)
+            for _ in range(2))
+    msg = []
+    for dt in ("float32", "bfloat16"):
+        bundle = _6b_bundle(dev, "dynamic_sanet", IMG, compute_dtype=dt)
+        outs = {}
+        for route in ("never", "always"):
+            bundle.model.transform.blockwise = route
+            outs[route] = bundle.stylize(c, s)
+        torch.cuda.synchronize()
+        ref, got = outs["never"], outs["always"]
+        span = float(ref.max() - ref.min())
+        err = (got - ref).abs().max().item()
+        if dt == "float32":
+            check_close("512px dynamic_sanet streamed vs dense f32", got,
+                        ref, ADAPTIVE_ROUTES_TOL)
+        elif not (torch.isfinite(got).all() and err <= BF16_TOL * span):
+            raise AssertionError(f"512px dynamic_sanet streamed vs dense "
+                                 f"bf16: max abs err {err} > {BF16_TOL} x "
+                                 f"span {span}")
+        msg.append(f"dynamic_sanet streamed vs dense {dt}: max abs err "
+                   f"{err:.3g} (span {span:.3g})")
+        del bundle
+        torch.cuda.empty_cache()
+    for network in ("dynamic_sanet", "src"):
+        bundle = _6b_bundle(dev, network, IMG)
+        ref = bundle.stylize(c, s).cpu().numpy()
+        scales = bundle.calibrate_q8(c, s)
+        got = bundle.stylize_q8(c, s, scales).cpu().numpy()
+        psnr = _psnr(got, ref)
+        if not psnr > Q8_VS_FOLDED_PSNR:
+            raise AssertionError(f"512px {network} q8 vs f32: PSNR {psnr} dB")
+        msg.append(f"{network} q8 (bf16 around int8) vs f32 PSNR "
+                   f"{psnr:.2f} dB")
+        del bundle
+        torch.cuda.empty_cache()
+    log("32 6b parity", f"{IMG}px b2: {'; '.join(msg)}")
+
+
+def _6b_timing(dev, rng, name_power):
+    """Phase 33: 512px b1 / b4 stylize of dynamic_sanet (streamed and dense;
+    standard float32, bfloat16 and q8) and src (float32, bfloat16, q8), q8
+    against bfloat16 in both orders (bf16, q8, q8, bf16); each network's
+    train step at its config's batch. CUDA events, medians."""
+    import numpy as np
+    import torch
+    from rpst_torch.train.step import create_train_state, train_step
+
+    def pair(batch):
+        return tuple(torch.from_numpy(rng.random((batch, IMG, IMG, 3),
+                                                 np.float32)).to(dev)
+                     for _ in range(2))
+
+    for batch in (1, 4):
+        c, s = pair(batch)
+        for network in ("dynamic_sanet", "src"):
+            routes = (("streamed", "always"), ("dense", "never")) \
+                if network == "dynamic_sanet" else (("", None),)
+            for route, blockwise in routes:
+                for dt in ("float32", "bfloat16"):
+                    bundle = _6b_bundle(dev, network, IMG, compute_dtype=dt)
+                    if blockwise:
+                        bundle.model.transform.blockwise = blockwise
+                    paths = [(f"standard {dt}", lambda: bundle.stylize(c, s))]
+                    if dt == "bfloat16":
+                        scales = bundle.calibrate_q8(c, s)
+                        paths.append(("q8 B5", lambda: bundle.stylize_q8(
+                            c, s, scales)))
+                        paths += [paths[1], paths[0]]  # both orders
+                    for path, fn in paths:
+                        ms = cuda_ms(fn, iters=7, warmup=2)
+                        log("33 6b timing", f"stylize {IMG}px b{batch} "
+                            f"{network} {route:8s} {path:17s}: {ms:9.3f} ms "
+                            f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
+                    del bundle
+                    torch.cuda.empty_cache()
+    for network, batch in (("dynamic_sanet", 1), ("src", 8)):
+        c, s = pair(batch)
+        bundle = _6b_bundle(dev, network, IMG)
+        state = create_train_state(bundle)
+        ms = cuda_ms(lambda: train_step(state, bundle.vgg, c, s), iters=5,
+                     warmup=2)
+        log("33 6b timing", f"train step {IMG}px b{batch} {network} float32: "
+            f"{ms:9.3f} ms/step {batch * 1e3 / ms:8.2f} img/s ({name_power})")
+        del state, bundle
+        torch.cuda.empty_cache()
 
 
 def _standard(bundle, c, s, dt):

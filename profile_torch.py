@@ -11,7 +11,12 @@ float32 and bfloat16, or with ``--q8`` its int8 path on B5. With ``--network
 sanet`` the static SANet (``configs/train_static_sanet.yaml``, seeded
 weights, a seeded 5-stage VGG) at b1 and b4: the standard stylize, with
 ``--q8`` the int8 stylize (B5 + B6), with ``--train`` the train step (B6's
-forward with LSE, dQ and dK/dV). With ``--train
+forward with LSE, dQ and dK/dV). With ``--network dynamic_sanet`` or ``src``
+the adaptive SANet (``configs/train_dynamic_sanet.yaml``: ``relu``, the
+streamed attention at 512px) or SourceNet (``configs/train_source_adain.yaml``
+with ``use_mask`` off), seeded weights and VGG, at b1 and b4: the standard
+stylize, with ``--q8`` the int8 stylize (B5; no B6), with ``--train`` the
+train step (no kernel of the port: the B5 column reads 0). With ``--train
 --q8-targets`` the flagship's train step with the int8 VGG loss targets on
 B5 (whatever ``rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH`` says).
 
@@ -39,10 +44,11 @@ For each case it prints one Markdown table row:
 It also writes each case's ``key_averages()`` table to
 ``chiprun_out/profile_torch[_train|_q8][_adain][_q8targets].txt``. The
 card's name and power limit come first, as nvidia-smi gives them. (For
-sanet the file name has ``_sanet`` where adain's has ``_adain``.)
+sanet, dynamic_sanet and src the file name has ``_<network>`` where adain's
+has ``_adain``.)
 
     python3 profile_torch.py [--train [--q8-targets] | --q8]
-                             [--network adain|sanet]
+                             [--network adain|sanet|dynamic_sanet|src]
 """
 
 import argparse
@@ -77,7 +83,12 @@ KERNELS = {"B1": ("folded_mma_kernel[B1]",),
            "B6": ("flash_fwd_tf32_kernel", "flash_fwd_mma_kernel"),
            "B6c": ("flash_bwd_dq_kernel",), "B6d": ("flash_bwd_dkv_kernel",)}
 ADAIN = dict(network="adain", rp_blocks=5, hidden_dim=32, seed=0)
-SANET_YAML = REPO / "configs" / "train_static_sanet.yaml"
+# the feature models' configs (src serves q8 only without masks)
+FEATURE_YAMLS = {
+    "sanet": (REPO / "configs" / "train_static_sanet.yaml", {}),
+    "dynamic_sanet": (REPO / "configs" / "train_dynamic_sanet.yaml", {}),
+    "src": (REPO / "configs" / "train_source_adain.yaml",
+            {"use_mask": False})}
 
 
 def short_name(name: str) -> str:
@@ -177,11 +188,12 @@ def main():
                       help="profile the train step instead of stylize")
     mode.add_argument("--q8", action="store_true",
                       help="profile the int8 stylize instead")
-    ap.add_argument("--network", choices=("multi_adain", "adain", "sanet"),
+    ap.add_argument("--network", choices=("multi_adain", "adain", "sanet",
+                                          "dynamic_sanet", "src"),
                     default="multi_adain",
                     help="adain: its standard (or with --q8 its int8) "
-                    "stylize at b1 and b4; sanet: the same, or with --train "
-                    "its train step")
+                    "stylize at b1 and b4; sanet, dynamic_sanet, src: the "
+                    "same, or with --train their train step")
     ap.add_argument("--q8-targets", action="store_true",
                     help="with --train: the int8 VGG loss targets on B5")
     args = ap.parse_args()
@@ -200,11 +212,13 @@ def main():
     print(card, flush=True)
 
     sanet = args.network == "sanet"
-    if sanet and args.q8_targets:
+    feature = args.network in FEATURE_YAMLS
+    if feature and args.q8_targets:
         ap.error("--q8-targets is the flagship's")
-    if sanet:
-        cfg = load_config(str(SANET_YAML), dict(img_size=IMG, vgg="",
-                                                test_dir=""))
+    if feature:
+        yaml, extra = FEATURE_YAMLS[args.network]
+        cfg = load_config(str(yaml), dict(img_size=IMG, vgg="", test_dir="",
+                                          **extra))
     else:
         cfg = load_config(dict(ADAIN if adain else FLAGSHIP, img_size=IMG,
                                train_q8_targets=args.q8_targets))
@@ -212,7 +226,7 @@ def main():
     tables = []
     cols = (("B6", "B6c", "B6d") if sanet and args.train
             else ("B6", "B5") if sanet
-            else ("B5",) if adain
+            else ("B5",) if adain or feature
             else ("B1", "B2", "B3", "B5") if args.q8_targets
             else ("B1", "B2", "B3") if args.train
             else ("B1", "B4", "B7") if args.q8 else ("B1",))
@@ -220,7 +234,7 @@ def main():
           + " | " + " | ".join(f"{c} share" for c in cols)
           + " | other kernels by share | idle share |")
     print("| --- | --- | " + "--- | " * len(cols) + "--- | --- |")
-    for batch in ((1, 4) if args.train or adain or sanet else (1, 8)):
+    for batch in ((1, 4) if args.train or adain or feature else (1, 8)):
         c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
                                             np.float32)).cuda()
                 for _ in range(2))
@@ -248,9 +262,9 @@ def main():
             bundle = build_model(cfg.replace(compute_dtype=str(dt)[6:]),
                                  "cuda")
             init_torch_default(bundle.model, cfg.seed)
-            if sanet:
+            if feature:
                 bundle.vgg, _ = build_vgg(cfg, "cuda")
-            if adain or sanet:
+            if adain or feature:
                 if args.q8 and dt == torch.bfloat16:
                     scales = bundle.calibrate_q8(c, s)
                     report(f"b{batch} {args.network} q8 B5",
@@ -280,8 +294,8 @@ def main():
                     w, c, s, dtype=dt), cols, iters=20, calls=5, card=card,
                     tables=tables)
     name = ("profile_torch" + ("_train" if args.train else "")
-            + ("_q8" if args.q8 else "") + ("_adain" if adain else "")
-            + ("_sanet" if sanet else "")
+            + ("_q8" if args.q8 else "")
+            + (f"_{args.network}" if args.network != "multi_adain" else "")
             + ("_q8targets" if args.q8_targets else "") + ".txt")
     out = REPO / "chiprun_out" / name
     out.parent.mkdir(parents=True, exist_ok=True)

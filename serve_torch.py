@@ -12,10 +12,13 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
                         layers on B4 (B7 pairs where
                         ``rpst_torch.policy.FUSE_PAIRS``) with the image
                         layers on B1, adain's and wct's wide
-                        standard-layout layers on B5, sanet's frozen VGG
-                        encode (conv_4 .. conv_13 on the 2N batch) and
-                        mirror decoder (conv0 .. conv5) on B5 with its two
-                        attention modules on B6 (on a CPU device: their
+                        standard-layout layers on B5, sanet's and
+                        dynamic_sanet's frozen VGG encode (conv_4 ..
+                        conv_13 on the 2N batch) and mirror decoder (conv0
+                        .. conv5) on B5, sanet's two attention modules on
+                        B6, dynamic_sanet's adaptive attention in plain
+                        PyTorch, src's 4-stage encode (conv_4 .. conv_9)
+                        and decoder on B5 (on a CPU device: the kernels'
                         plain versions); flagship configs without int8
                         layers (4 * hidden_dim % 128) serve standard, with
                         a warning,
@@ -23,15 +26,18 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
                         B1 CUDA kernel (on a CPU device: its plain version),
   * ``--mode standard`` the plain model path (sanet: the frozen 5-stage
                         VGG, the attention transform on the hand-written
-                        B6 kernel, the mirror decoder),
+                        B6 kernel, the mirror decoder; dynamic_sanet the
+                        same with its adaptive transform; src: the 4-stage
+                        VGG, AdaIN, the mirror decoder),
   * ``--mode auto``     the path measured fastest on the H100 at --batch
                         (``rpst_torch.policy``, PERF.md section 6).
 
 At the end it logs the B1, B4, B7, B5 and B6 launch counts of the run.
-Networks: multi_adain (the flagship), adain, wct and sanet (``--mode
-folded`` falls back to standard for the last three, with a warning). sanet
-loads its frozen VGG from the config's ``vgg`` (``.pth`` or ``.npz``), or
-seeds a random one, with a warning.
+Networks: multi_adain (the flagship), adain, wct, sanet, dynamic_sanet and
+src (``--mode folded`` falls back to standard for all but the flagship,
+with a warning; src's ``use_mask: true`` serves standard). The feature
+models (sanet, dynamic_sanet, src) load their frozen VGG from the config's
+``vgg`` (``.pth`` or ``.npz``), or seed a random one, with a warning.
 
 Weights: ``--weights`` takes a reference-layout ``.pth`` (written from an
 rpst checkpoint by ``tools/export_reference_checkpoint.py``) or an ``.npz``
@@ -136,7 +142,7 @@ def main():
         logger.warning(f"No --weights: serving randomly initialized params "
                        f"(seed {cfg.seed})")
 
-    if bundle.network == "sanet":
+    if bundle.from_features:
         bundle.vgg, vgg_source = build_vgg(cfg, device)
         if cfg.vgg and vgg_source == str(cfg.vgg):
             logger.info(f"Loaded VGG weights from {cfg.vgg}")

@@ -5,21 +5,29 @@ flax tree: ``rp_shared_encoder.block_{i}.PadConv_0.Conv_0.weight`` for the
 flagship's Conv2dBlock stacks, ``encoder.conv_{i}.Conv_0.weight`` for the
 ``RPSequence`` stacks of adain and wct, ``transform.sanet4_1.f.weight`` ..
 ``transform.merge_conv.Conv_0.weight`` and ``decoder.conv{i}.Conv_0.weight``
-for the static SANet):
+for the SANets, with ``transform.sanet4_1.attention_layer.f_psi.{0,2}.weight``
+for the adaptive one's threshold MLP, and ``decoder.conv{i}.Conv_0.weight``
+alone for SourceNet):
 
   * ``from_flax_params(tree)``: a nested dict of numpy arrays as rpst's
     flax model holds it (kernels HWIO) -> state_dict (kernels OIHW), the
     conversion ``tests/reference_oracle.py``'s ``inject_*`` helpers make;
     it walks any conv subtree (1x1 kernels too), so the flagship's,
-    adain's, wct's and sanet's ``params`` all cross through it;
+    adain's, wct's, the SANets' and SourceNet's ``params`` all cross
+    through it; dynamic_sanet's ``aea/psi0`` and ``aea/psi1`` Dense kernels
+    (in, out) become ``attention_layer.f_psi.0`` and ``.2`` Linear weights
+    (out, in);
   * ``from_reference_checkpoint(ckpt)``: the reference ``.pth`` layout
     ``{'encoder': sd, 'decoder': sd}``, which
     ``tools/export_reference_checkpoint.py`` writes from an rpst
     checkpoint: ``{i}.conv.weight`` keys for the flagship (rpstack),
     ``{2i}.weight`` keys of ``nn.Sequential(Conv2d, ReLU)`` for adain and
-    wct (rpseq), and ``{'transform': sd, 'decoder': sd}`` for sanet (the
-    decoder's convs at the Sequential indices ``_MIRROR_DECODER_IDXS``). A
-    model trained with ``train.py`` is served here with no JAX installed.
+    wct (rpseq), ``{'transform': sd, 'decoder': sd}`` for sanet and
+    dynamic_sanet (the decoder's convs at the Sequential indices
+    ``_MIRROR_DECODER_IDXS``; the adaptive modules' ``attention_layer.
+    f_psi.*`` keys under the port's own names), and ``{'decoder': sd}``
+    for SourceNet. A model trained with ``train.py`` is served here with no
+    JAX installed.
 
 ``load_weights(path)`` reads either file: ``.pth`` (reference layout) or
 ``.npz`` whose keys are flax paths (``rp_decoder/block_0/PadConv_0/Conv_0/
@@ -41,7 +49,9 @@ machine without JAX rebuilds the same weights, and
 ``rpseq_weights_from_seed`` does the same for adain's and wct's stacks
 (their full-width weights are 12 MB, too large to keep in a fixture);
 ``sanet_weights_from_seed`` for the static SANet's transform and decoder
-(~30 MB at its fixed width).
+(~30 MB at its fixed width), ``dynamic_sanet_weights_from_seed`` for the
+adaptive one (its psi widths follow the image size) and
+``src_weights_from_seed`` for SourceNet's decoder.
 """
 
 from __future__ import annotations
@@ -69,13 +79,28 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+# dynamic_sanet's threshold MLP: rpst's Dense names -> the reference's
+# (and the port's) Sequential positions
+PSI_NAMES = {".aea.psi0.": ".attention_layer.f_psi.0.",
+        ".aea.psi1.": ".attention_layer.f_psi.2."}
+
+
 def from_flax_params(tree) -> Dict[str, torch.Tensor]:
     """rpst params tree (``{'rp_shared_encoder': {'block_0': {'PadConv_0':
     {'Conv_0': {'kernel', 'bias'}}}}, ...}``) -> port state_dict."""
     sd = {}
     for key, value in _flatten(tree):
         arr = np.array(value, np.float32)  # a writable copy
-        if key.endswith(".kernel"):
+        psi = [k for k in PSI_NAMES if k in f".{key}"]
+        if psi:
+            key = f".{key}".replace(psi[0], PSI_NAMES[psi[0]])[1:]
+            if key.endswith(".kernel"):
+                if arr.ndim != 2:
+                    raise ValueError(f"{key}: expected a Dense kernel (in, "
+                                     f"out), got shape {arr.shape}")
+                key, arr = key[:-len("kernel")] + "weight", arr.T.copy()
+            sd[key] = torch.from_numpy(arr)
+        elif key.endswith(".kernel"):
             if arr.ndim != 4:
                 raise ValueError(f"{key}: expected an HWIO conv kernel, got "
                                  f"shape {arr.shape}")
@@ -92,9 +117,12 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
     """``{'encoder': sd, 'decoder': sd}`` of numpy arrays or CPU tensors ->
     port state_dict. ``{i}.conv.weight`` keys (OIHW) are the flagship's
     Conv2dBlock stacks; ``{2i}.weight`` keys are the conv + ReLU Sequentials
-    of adain and wct, whose conv i sits at index 2i."""
+    of adain and wct, whose conv i sits at index 2i. ``{'transform': sd,
+    'decoder': sd}`` is a SANet's, ``{'decoder': sd}`` SourceNet's."""
     if "transform" in ckpt:
         return _sanet_from_reference(ckpt)
+    if set(ckpt) == {"decoder"} and _is_mirror_decoder(ckpt["decoder"]):
+        return _mirror_decoder_from_reference(ckpt["decoder"])
     sd = {}
     for part, stack in _STACKS.items():
         if part not in ckpt:
@@ -116,19 +144,34 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
 
 
 def _sanet_from_reference(ckpt) -> Dict[str, torch.Tensor]:
-    """``{'transform': sd, 'decoder': sd}`` (static SANet) -> port
-    state_dict; the adaptive modules' ``attention_layer`` keys raise."""
+    """``{'transform': sd, 'decoder': sd}`` (sanet, or dynamic_sanet with
+    its ``attention_layer.f_psi.*`` keys, already the port's names) -> port
+    state_dict."""
     if "decoder" not in ckpt:
         raise KeyError(f"reference checkpoint has no 'decoder' (keys "
                        f"{sorted(ckpt)})")
     sd = {}
     for key, value in ckpt["transform"].items():
-        if "attention_layer" in key:
-            raise ValueError(f"transform.{key}: the adaptive SANet is not "
-                             "ported yet (ROADMAP.md section A slice 6b)")
         name = key.replace("merge_conv.", "merge_conv.Conv_0.")
         sd[f"transform.{name}"] = torch.tensor(np.asarray(value, np.float32))
-    for key, value in ckpt["decoder"].items():
+    return {**sd, **_mirror_decoder_from_reference(ckpt["decoder"])}
+
+
+def _is_mirror_decoder(dec) -> bool:
+    """Are all keys ``{idx}.weight`` / ``{idx}.bias`` of the VGG-mirror
+    decoder Sequential's convs (a flagship decoder alone is not)?"""
+    def conv_key(key):
+        idx, _, leaf = key.partition(".")
+        return (idx.isdigit() and int(idx) in _MIRROR_DECODER_IDXS
+                and leaf in ("weight", "bias"))
+    return bool(dec) and all(conv_key(k) for k in dec)
+
+
+def _mirror_decoder_from_reference(dec) -> Dict[str, torch.Tensor]:
+    """The reference VGG-mirror decoder Sequential's conv keys -> the port's
+    ``decoder.conv{i}.Conv_0`` names."""
+    sd = {}
+    for key, value in dec.items():
         idx, leaf = key.split(".")
         if int(idx) not in _MIRROR_DECODER_IDXS:
             raise ValueError(f"decoder.{key}: not a conv of the VGG-mirror "
@@ -265,6 +308,41 @@ def rpseq_weights_from_seed(seed: int, rp_blocks: int = 5,
     return tree
 
 
+def _sanet_tree(rng, psi_dims=None) -> dict:
+    """The SANets' ``params`` tree drawn from ``rng`` in module order (see
+    ``sanet_weights_from_seed``); ``psi_dims`` (relu4_1, relu5_1 style
+    positions) adds each adaptive module's ``aea`` threshold MLP after its
+    convs."""
+    from .nn.decoder import MIRROR_DIMS
+
+    def conv(k, cin, cout, he):
+        fan_in = k * k * cin
+        lim = (6.0 / fan_in) ** 0.5 if he else fan_in ** -0.5
+        return {"kernel": rng.uniform(-lim, lim, (k, k, cin, cout))
+                .astype(np.float32),
+                "bias": rng.uniform(-fan_in ** -0.5, fan_in ** -0.5, cout)
+                .astype(np.float32)}
+
+    def dense(cin, cout):
+        lim = cin ** -0.5 if cin else 0.0
+        return {"kernel": rng.uniform(-lim, lim, (cin, cout))
+                .astype(np.float32),
+                "bias": np.zeros(cout, np.float32)}
+
+    transform = {}
+    for i, name in enumerate(("sanet4_1", "sanet5_1")):
+        transform[name] = {leaf: conv(1, 512, 512, False)
+                           for leaf in ("f", "g", "h", "out_conv")}
+        if psi_dims is not None:
+            hw = psi_dims[i]
+            transform[name]["aea"] = {"psi0": dense(hw, hw // 16),
+                                      "psi1": dense(hw // 16, 1)}
+    transform["merge_conv"] = {"Conv_0": conv(3, 512, 512, True)}
+    decoder = {f"conv{i}": {"Conv_0": conv(3, cin, cout, True)}
+               for i, (cin, cout) in enumerate(MIRROR_DIMS)}
+    return {"transform": transform, "decoder": decoder}
+
+
 def sanet_weights_from_seed(seed: int) -> dict:
     """The static SANet's ``params`` tree (``transform``: two attention
     modules and the merge conv; ``decoder``: conv0 .. conv8; HWIO float32
@@ -277,21 +355,22 @@ def sanet_weights_from_seed(seed: int) -> dict:
     as a trained model's is. Biases are U(+-1/sqrt(fan_in)).
     ``from_flax_params`` turns it into the port's state_dict; rpst takes it
     as its flax ``params``."""
-    from .nn.decoder import MIRROR_DIMS
-    rng = np.random.default_rng(seed)
+    return _sanet_tree(np.random.default_rng(seed))
 
-    def conv(k, cin, cout, he):
-        fan_in = k * k * cin
-        lim = (6.0 / fan_in) ** 0.5 if he else fan_in ** -0.5
-        return {"kernel": rng.uniform(-lim, lim, (k, k, cin, cout))
-                .astype(np.float32),
-                "bias": rng.uniform(-fan_in ** -0.5, fan_in ** -0.5, cout)
-                .astype(np.float32)}
 
-    transform = {name: {leaf: conv(1, 512, 512, False)
-                        for leaf in ("f", "g", "h", "out_conv")}
-                 for name in ("sanet4_1", "sanet5_1")}
-    transform["merge_conv"] = {"Conv_0": conv(3, 512, 512, True)}
-    decoder = {f"conv{i}": {"Conv_0": conv(3, cin, cout, True)}
-               for i, (cin, cout) in enumerate(MIRROR_DIMS)}
-    return {"transform": transform, "decoder": decoder}
+def dynamic_sanet_weights_from_seed(seed: int, img_size: int) -> dict:
+    """The adaptive SANet's ``params`` tree at ``img_size``: the static
+    one's draws, with each attention module's ``aea`` psi0 (HWs, HWs // 16)
+    and psi1 (HWs // 16, 1) Dense kernels drawn after its convs, HWs =
+    (img_size // 8) ** 2 at relu4_1 and (img_size // 16) ** 2 at relu5_1.
+    The psi kernels are U(+-1/sqrt(fan_in)) with zero biases, rpst's
+    ``_linear`` init (``sanet.py:37-43``)."""
+    return _sanet_tree(np.random.default_rng(seed),
+                       ((img_size // 8) ** 2, (img_size // 16) ** 2))
+
+
+def src_weights_from_seed(seed: int) -> dict:
+    """SourceNet's ``params`` tree (``decoder``: conv0 .. conv8, He-uniform
+    kernels and U(+-1/sqrt(fan_in)) biases, as the SANets' decoder) drawn
+    from ``numpy.random.default_rng(seed)``."""
+    return {"decoder": _sanet_tree(np.random.default_rng(seed))["decoder"]}

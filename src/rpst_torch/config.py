@@ -29,6 +29,13 @@ DEFAULTS: Dict[str, Any] = {
     "wct_method": "closed-form",  # | 'original'
     "wct_dtype": "float32",  # | 'float64' (the reference whitens in float64)
     "exec_strategy": "standard",  # 'standard' | 'folded'
+    # dynamic_sanet: the threshold module ('aea': sigmoid, 'relu': tanh +
+    # relu + softmax) and the adaptive attention's route ('never': dense
+    # (HWc, HWs) matrices, 'always': streamed by query blocks, 'auto':
+    # streamed on a CUDA device from rpst_torch.policy.ADAPTIVE_STREAM_ROWS
+    # rows on both sides)
+    "ada_module": "aea",
+    "adaptive_blockwise": "auto",
     # training (train_torch.py)
     "lr": 1e-4,
     "lr_decay": 0.0,
@@ -118,4 +125,9 @@ def load_config(path_or_dict, overrides: Optional[Dict[str, Any]] = None
         raise ValueError(f"unknown enc_stack_way {cfg['enc_stack_way']!r}")
     if cfg["attention"] not in ("none", "se", "sk"):
         raise ValueError(f"unknown attention {cfg['attention']!r}")
+    if cfg["ada_module"] not in ("aea", "relu"):
+        raise ValueError(f"unknown ada_module {cfg['ada_module']!r}")
+    if cfg["adaptive_blockwise"] not in ("auto", "always", "never"):
+        raise ValueError(
+            f"unknown adaptive_blockwise {cfg['adaptive_blockwise']!r}")
     return Config(cfg)

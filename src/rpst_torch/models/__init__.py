@@ -1,34 +1,39 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
-The port covers four networks: the flagship ``multi_adain`` (constant RP
+The port covers six networks: the flagship ``multi_adain`` (constant RP
 stack) for serving (folded, standard and int8 q8) and training (with
 float or int8 loss targets); ``adain`` for serving (standard and q8) and
 standard training; ``wct`` for serving (standard and q8); the static
-``sanet`` for serving (standard and q8) and training, its attention on B6.
-``build_model`` raises ``ValueError`` for the other 13, naming the
-ROADMAP.md slice that brings each.
+``sanet`` for serving (standard and q8) and training, its attention on B6;
+the adaptive ``dynamic_sanet`` (its attention plain PyTorch, dense or
+streamed) and ``src`` (SourceNet, AdaIN at relu4_1), each for serving
+(standard and q8 on B5) and training. ``build_model`` raises ``ValueError``
+for the other 11, naming the ROADMAP.md slice that brings each.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
   * ``stylize(content, style)`` -> image, NHWC in [0, 1] on the bundle's
-    device (the reference's ``network.test`` path); sanet stylizes from
-    the features of ``bundle.vgg``, the frozen 5-stage encoder the caller
-    sets (``build_vgg``),
+    device (the reference's ``network.test`` path); the feature models
+    (sanet, dynamic_sanet, src) stylize from the features of ``bundle.vgg``,
+    the frozen encoder the caller sets (``build_vgg``);
+    ``stylize_with_aux`` also returns dynamic_sanet's claim maps,
   * ``folded_exec()`` / ``folded_infer()``: whether the config asks for, and
     the model supports, folded execution,
   * ``q8_infer()`` / ``q8_recommended(batch)``: whether the int8 PTQ path
     covers the config, and whether ``--mode auto`` should take it;
     ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights
-    (the flagship folded on B4/B7; adain, wct and sanet standard-layout on
-    B5),
+    (the flagship folded on B4/B7; adain, wct and the feature models
+    standard-layout on B5),
   * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
   * ``loss(vgg, content, style)`` -> (total, parts): the training loss
     (rpst's ``ModelBundle.loss``), differentiable in the model's
     parameters; ``build_vgg`` makes its frozen encoder. With
     ``train_q8_targets`` and ``q8_target_scales`` set (``train_torch.py``
     calibrates them on the first batch) the flagship's style and content
-    targets come from the int8 VGG chain on B5. sanet's loss is
-    ``SAModel.loss`` (content, style and two identity terms).
+    targets come from the int8 VGG chain on B5. The feature models' loss is
+    the model's own: ``SAModel.loss`` (content, style and two identity
+    terms) for sanet and dynamic_sanet, ``SourceNet.loss`` (style, and
+    content against the AdaIN target) for src.
 """
 
 from __future__ import annotations
@@ -51,14 +56,18 @@ from .fast_path import (folded_blocks, live_folded_blocks,
 from .fast_path_q8 import (calibrate_multi_adain_q8, quantize_blocks,
                            stylize_multi_adain_folded_q8)
 from .fast_path_q8_std import (calibrate_adain_q8, calibrate_sanet_q8,
-                               calibrate_wct_q8, quantize_convs, quantize_std,
-                               sanet_blocks, std_blocks, stylize_adain_q8,
-                               stylize_sanet_q8, stylize_wct_q8)
+                               calibrate_src_q8, calibrate_wct_q8,
+                               quantize_convs, quantize_std, sanet_blocks,
+                               src_blocks, std_blocks, stylize_adain_q8,
+                               stylize_sanet_q8, stylize_src_q8,
+                               stylize_wct_q8)
 from .sanet import SAModel
+from .src_adain import SourceNet
 from .wct_rp import WCTRP
 
-__all__ = ["build_model", "build_vgg", "vgg_stages", "ModelBundle",
-           "MultiScaleAdaINRP", "AdaINRP", "WCTRP", "SAModel"]
+__all__ = ["build_model", "build_vgg", "vgg_stages", "roadmap_slice",
+           "ModelBundle", "MultiScaleAdaINRP", "AdaINRP", "WCTRP", "SAModel",
+           "SourceNet"]
 
 # every other rpst registry network -> the ROADMAP.md section A slice that
 # ports it
@@ -66,8 +75,15 @@ _NOT_PORTED = {
     **dict.fromkeys(("sel_multi_adain", "ccam", "mst"), "slice 4"),
     **dict.fromkeys(("seg_adain", "mrf", "spade", "ld_adain", "ld_adain2",
                      "ld_adain3", "ld_adain4", "ld_adain5"), "slice 5b"),
-    **dict.fromkeys(("dynamic_sanet", "src"), "slice 6b"),
 }
+# the networks that stylize from the features of a frozen VGG (bundle.vgg)
+_FEAT_MODELS = ("sanet", "dynamic_sanet", "src")
+
+
+def roadmap_slice(network: str) -> Optional[str]:
+    """The ROADMAP.md section A slice that ports ``network``, None for a
+    ported one."""
+    return _NOT_PORTED.get(network)
 
 
 def vgg_stages(network: str) -> int:
@@ -79,11 +95,12 @@ def vgg_stages(network: str) -> int:
 @dataclasses.dataclass
 class ModelBundle:
     network: str
-    model: Union[MultiScaleAdaINRP, AdaINRP, WCTRP, SAModel]
+    model: Union[MultiScaleAdaINRP, AdaINRP, WCTRP, SAModel, SourceNet]
     cfg: Config
     device: torch.device
-    # the frozen encoder whose features sanet stylizes from (``build_vgg``,
-    # ``vgg_stages`` taps); the caller sets it before stylize / calibrate
+    # the frozen encoder whose features the feature models stylize from
+    # (``build_vgg``, ``vgg_stages`` taps); the caller sets it before
+    # stylize / calibrate
     vgg: Optional[VGG19Encoder] = None
     # activation scales of the int8 no-grad VGG loss targets
     # (``train_q8_targets``), set by the training driver after
@@ -98,6 +115,12 @@ class ModelBundle:
     @property
     def vgg_stages(self) -> int:
         return vgg_stages(self.network)
+
+    @property
+    def from_features(self) -> bool:
+        """Does the network stylize from ``bundle.vgg``'s features (sanet,
+        dynamic_sanet, src)? Then the caller sets ``bundle.vgg``."""
+        return self.network in _FEAT_MODELS
 
     def _std_q8(self) -> bool:
         """adain and wct: the int8 path runs on the standard layout (B5)."""
@@ -130,19 +153,21 @@ class ModelBundle:
         return self.folded_exec()
 
     def q8_infer(self) -> bool:
-        """The int8 path covers adain (without masks), wct and sanet on the
-        standard layout, and the folded stacks whose hidden layers fill 128
-        folded lanes (4 * hidden_dim % 128 == 0): narrower folded stacks
-        have no int8 layer (rpst's gates, ``models/__init__.py:96-105,
-        147-152``)."""
+        """The int8 path covers adain (without masks), wct, sanet,
+        dynamic_sanet and src (without masks) on the standard layout, and
+        the folded stacks whose hidden layers fill 128 folded lanes (4 *
+        hidden_dim % 128 == 0): narrower folded stacks have no int8 layer
+        (rpst's gates, ``models/__init__.py:96-115, 147-152``)."""
         if self.network == "adain":
             return not self.cfg.use_mask
         if self.network == "wct":
             return True
-        if self.network == "sanet":
+        if self.network in ("sanet", "dynamic_sanet"):
             # the int8 VGG encode pools by exact 2x2 halving where the float
             # path pools in ceil mode: four pools to relu5_1
             return self.cfg.img_size % 16 == 0
+        if self.network == "src":  # three exact pools to relu4_1
+            return not self.cfg.use_mask and self.cfg.img_size % 8 == 0
         return (self._folded_stack_ok()
                 and (self.cfg.hidden_dim * 4) % 128 == 0)
 
@@ -158,7 +183,7 @@ class ModelBundle:
         standard-layout stacks), quantized once and cached until
         ``weights_changed``."""
         if "q8" not in self._folded:
-            if self.network == "sanet":  # the decoder's eligible convs
+            if self.from_features:  # the decoder's eligible convs
                 q8 = quantize_convs(
                     self.std_weights(torch.float32)["decoder"])
             elif self._std_q8():
@@ -170,11 +195,13 @@ class ModelBundle:
 
     def std_weights(self, dtype: torch.dtype):
         """adain / wct: the (encoder, decoder) conv lists in ``dtype``
-        (``fast_path_q8_std.std_blocks``); sanet: its ``sanet_blocks``.
-        Cached until the next ``load_state_dict``."""
+        (``fast_path_q8_std.std_blocks``); sanet and dynamic_sanet their
+        ``sanet_blocks``, src its ``src_blocks``. Cached until the next
+        ``load_state_dict``."""
         key = ("std", dtype)
         if key not in self._folded:
-            make = sanet_blocks if self.network == "sanet" else std_blocks
+            make = {"sanet": sanet_blocks, "dynamic_sanet": sanet_blocks,
+                    "src": src_blocks}.get(self.network, std_blocks)
             self._folded[key] = make(self.model, dtype)
         return self._folded[key]
 
@@ -187,10 +214,15 @@ class ModelBundle:
         forward of (content, style): folded for the flagship (rpst's
         ``calibrate_multi_adain_q8``), standard-layout on at most 2 images
         for adain and wct (``calibrate_adain_q8``, ``calibrate_wct_q8``),
-        the whole batch for sanet (``calibrate_sanet_q8``)."""
+        the whole batch for the feature models (``calibrate_sanet_q8``,
+        ``calibrate_src_q8``)."""
         self._check_q8()
-        if self.network == "sanet":
+        if self.network in ("sanet", "dynamic_sanet"):
             return calibrate_sanet_q8(
+                self._feature_vgg(), self.std_weights(torch.bfloat16),
+                self.q8_weights(), content, style, **self._blockwise())
+        if self.network == "src":
+            return calibrate_src_q8(
                 self._feature_vgg(), self.std_weights(torch.bfloat16),
                 self.q8_weights(), content, style)
         if self.network == "adain":
@@ -212,11 +244,15 @@ class ModelBundle:
         ``torch.inference_mode``."""
         self._check_q8()
         with torch.inference_mode():
-            if self.network == "sanet":
+            if self.network in ("sanet", "dynamic_sanet"):
                 return stylize_sanet_q8(
                     self._feature_vgg(), self.std_weights(dtype),
                     self.q8_weights(), scales, content, style, dtype=dtype,
-                    attention=self.model.attention)
+                    attention=self.model.attention, **self._blockwise())
+            if self.network == "src":
+                return stylize_src_q8(
+                    self._feature_vgg(), self.std_weights(dtype),
+                    self.q8_weights(), scales, content, style, dtype=dtype)
             if self._std_q8():
                 args = (self.std_weights(dtype), self.q8_weights(), scales,
                         content, style)
@@ -227,12 +263,19 @@ class ModelBundle:
                 self.folded_weights(dtype), self.q8_weights(), scales,
                 content, style, dtype=dtype, fuse_pairs=fuse_pairs)
 
+    def _blockwise(self) -> Dict[str, str]:
+        """dynamic_sanet's attention route for its int8 path."""
+        if self.network != "dynamic_sanet":
+            return {}
+        return {"blockwise": self.model.transform.blockwise}
+
     def _check_q8(self) -> None:
         if not self.q8_infer():
             raise ValueError("the int8 path needs adain without masks, wct, "
-                             "sanet with img_size a multiple of 16, or a "
-                             "folded multi_adain stack with 4 * hidden_dim a "
-                             "multiple of 128")
+                             "sanet or dynamic_sanet with img_size a multiple "
+                             "of 16, src without masks with img_size a "
+                             "multiple of 8, or a folded multi_adain stack "
+                             "with 4 * hidden_dim a multiple of 128")
 
     def folded_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
@@ -271,9 +314,10 @@ class ModelBundle:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss (rpst's ``ModelBundle.loss`` for the flagship):
         (total, parts) with parts ``style_loss``, ``content_loss`` and
-        ``total_loss`` (sanet: also ``l_identity1_loss`` and
-        ``l_identity2_loss``, from ``SAModel.loss`` on the 5-stage ``vgg``),
-        differentiable in ``self.model``'s parameters.
+        ``total_loss`` (sanet and dynamic_sanet: also ``l_identity1_loss``
+        and ``l_identity2_loss``, from ``SAModel.loss`` on the 5-stage
+        ``vgg``; src: ``SourceNet.loss`` on the 4-stage one), differentiable
+        in ``self.model``'s parameters.
 
         Folded (``folded_exec()``): ``stylize_multi_adain_folded`` on the
         live folded weights, then the folded VGG loss, every folded conv
@@ -295,7 +339,7 @@ class ModelBundle:
             raise NotImplementedError(
                 "wct training (the frozen-encoder resume, freeze_prefixes) "
                 "is not ported yet: ROADMAP.md section A slice 5b")
-        if self.network == "sanet":
+        if self.from_features:
             with torch.autocast(self.device.type, dtype=torch.bfloat16,
                                 enabled=c.compute_dtype == "bfloat16"):
                 parts = self.model.loss(vgg, content, style)
@@ -343,8 +387,9 @@ class ModelBundle:
         """Inference: (N, H, W, 3) content and style on the bundle's device
         -> (N, H, W, 3) float32. ``folded`` (default ``folded_infer()``)
         picks the folded path; otherwise the standard model runs, under
-        bfloat16 autocast when compute_dtype says so (sanet: on the features
-        of one 2N pass of ``bundle.vgg``, its attention on B6). Runs under
+        bfloat16 autocast when compute_dtype says so (the feature models: on
+        the features of one 2N pass of ``bundle.vgg``; sanet's attention on
+        B6, dynamic_sanet's adaptive transform in float32). Runs under
         ``torch.inference_mode``."""
         if folded is None:
             folded = self.folded_infer()
@@ -356,14 +401,36 @@ class ModelBundle:
                 return stylize_multi_adain_folded(
                     self.folded_weights(), content, style,
                     dtype=self.folded_dtype(), batch_encode=batch_encode)
-            with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                                enabled=self.cfg.compute_dtype == "bfloat16"):
-                if self.network == "sanet":
-                    n = content.shape[0]
-                    feats = self._feature_vgg()(torch.cat([content, style]))
-                    return self.model([f[:n] for f in feats],
-                                      [f[n:] for f in feats]).float()
+            with self._autocast():
+                if self.from_features:
+                    return self.model(*self._features(content,
+                                                      style)).float()
                 return self.model(content, style).float()
+
+    def _autocast(self):
+        return torch.autocast(self.device.type, dtype=torch.bfloat16,
+                              enabled=self.cfg.compute_dtype == "bfloat16")
+
+    def _features(self, content, style):
+        """The content and style feature lists of one 2N pass of
+        ``bundle.vgg``."""
+        n = content.shape[0]
+        feats = self._feature_vgg()(torch.cat([content, style]))
+        return [f[:n] for f in feats], [f[n:] for f in feats]
+
+    def stylize_with_aux(self, content: torch.Tensor, style: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Stylize and return visualization maps (rpst's
+        ``ModelBundle.stylize_with_aux``): dynamic_sanet's claim maps per
+        module, ``{"relu4_1": {"claim_value", "claim_before",
+        "claim_after"}, "relu5_1": ...}``, on the dense route; every other
+        network returns ``stylize`` and no maps."""
+        if self.network != "dynamic_sanet":
+            return self.stylize(content, style), {}
+        with torch.inference_mode(), self._autocast():
+            out, aux = self.model.stylize_with_aux(
+                *self._features(content, style))
+            return out.float(), aux
 
 
 def build_model(cfg: Config, device="cpu") -> ModelBundle:
@@ -384,6 +451,12 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
                       device=device)
     elif n == "sanet":
         model = SAModel(adaptive=False, img_size=cfg.img_size, device=device)
+    elif n == "dynamic_sanet":
+        model = SAModel(adaptive=True, img_size=cfg.img_size,
+                        ada_module=cfg.ada_module,
+                        blockwise=cfg.adaptive_blockwise, device=device)
+    elif n == "src":
+        model = SourceNet(use_mask=bool(cfg.use_mask), device=device)
     elif n == "multi_adain":
         model = MultiScaleAdaINRP(
             rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
@@ -397,7 +470,8 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
 
 
 def build_vgg(cfg: Config, device="cpu") -> Tuple[VGG19Encoder, str]:
-    """The frozen VGG of the perceptual loss (and of sanet's features), with
+    """The frozen VGG of the perceptual loss (and of the feature models'
+    features), with
     ``vgg_stages(cfg.network)`` taps, and where its weights came from:
     ``cfg.vgg`` (``.pth`` or ``.npz``) when that file exists, else
     ``bridge.vgg_weights_from_seed(cfg.seed + 1)`` (random: the losses then

@@ -28,7 +28,13 @@ launches), runs the attention transform in the working type (the softmax
 attention is the style signal; it goes to B6, two launches), and decodes
 through the VGG-mirror decoder, whose conv0 .. conv5 run on B5 (6 launches,
 nearest upsamples in int8, which commute with the symmetric quantizer): 16
-B5 launches and 16 activation scales per stylize.
+B5 launches and 16 activation scales per stylize. The adaptive SANet
+(dynamic_sanet, the same function with ``sanet_blocks`` of an adaptive model)
+runs its transform in float32, as rpst's does, and its attention in plain
+PyTorch (``ops.adaptive_attention``): 16 B5 launches and no B6. SourceNet
+(``stylize_src_q8``, rpst's :1363-1395) encodes four stages (conv_4 ..
+conv_9), fuses by AdaIN in float32 and decodes the same way: 12 B5 launches
+and 12 activation scales per stylize.
 
 Tensors are NHWC throughout (B5's layout); weights are the modules' OIHW
 tensors for ``F.conv2d`` and HWIO int8 for B5. Scale arithmetic follows
@@ -61,7 +67,9 @@ from ..ops.folded_conv_q8 import (div_f32, quantize_activations,
 from ..ops.stats import adaptive_instance_normalization as adain
 from ..ops.wct import wct_fuse
 from .fast_path_q8 import Q8Layer, _scale_rows
-from .sanet import Attention, SAModel, sanet_attention_block
+from .sanet import (Attention, SAModel, adaptive_attention_block,
+                    check_style_size, sanet_attention_block, use_streamed)
+from .src_adain import SourceNet
 
 # [(weight OIHW, bias)] of one conv stack, in the working type
 Convs = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -533,28 +541,43 @@ _MIRROR_PROGRAM = [("up" if i in MIRROR_UP_BEFORE else None, i != 8)
                    for i in range(9)]
 
 
+def _pairs(modules, dtype):
+    return [(m.weight.detach().to(dtype), m.bias.detach().to(dtype))
+            for m in modules]
+
+
 def sanet_blocks(model: SAModel, dtype: torch.dtype) -> Dict[str, object]:
-    """The trained weights of a static SANet in ``dtype``, detached:
-    ``sanet4_1`` / ``sanet5_1`` (the f, g, h, out_conv (weight, bias)
-    pairs), ``merge`` and the ``decoder`` conv list."""
-    def pair(conv):
-        return (conv.weight.detach().to(dtype), conv.bias.detach().to(dtype))
+    """The trained weights of a SANet, detached: ``sanet4_1`` / ``sanet5_1``
+    (the f, g, h, out_conv (weight, bias) pairs; the adaptive model's also
+    psi0 and psi1), ``merge`` and the ``decoder`` conv list, in ``dtype``.
+    The adaptive model's transform stays float32 (rpst's flax modules there
+    take no dtype and compute in their float32 parameters' type), and its
+    ``ada_module`` is set."""
     t = model.transform
-    return {"sanet4_1": [pair(m) for m in (t.sanet4_1.f, t.sanet4_1.g,
-                                           t.sanet4_1.h, t.sanet4_1.out_conv)],
-            "sanet5_1": [pair(m) for m in (t.sanet5_1.f, t.sanet5_1.g,
-                                           t.sanet5_1.h, t.sanet5_1.out_conv)],
-            "merge": pair(t.merge_conv.Conv_0),
-            "decoder": [pair(c) for c in model.decoder.convs()]}
+    t_dtype = torch.float32 if model.adaptive else dtype
+    out = {name: _pairs([getattr(t, name).f, getattr(t, name).g,
+                         getattr(t, name).h, getattr(t, name).out_conv],
+                        t_dtype)
+           for name in ("sanet4_1", "sanet5_1")}
+    out["merge"] = _pairs([t.merge_conv.Conv_0], t_dtype)[0]
+    out["decoder"] = _pairs(model.decoder.convs(), dtype)
+    if model.adaptive:
+        for name in ("sanet4_1", "sanet5_1"):
+            psi = getattr(t, name).attention_layer.f_psi
+            out[name] += _pairs([psi[0], psi[2]], torch.float32)
+        out["ada_module"] = t.sanet4_1.ada_module
+    return out
 
 
-def sanet_q8_plan(vgg: VGG19Encoder, qdec: QConvs) -> Dict[str, int]:
+def sanet_q8_plan(vgg: VGG19Encoder, qdec: QConvs,
+                  adaptive: bool = False) -> Dict[str, int]:
     """What one ``stylize_sanet_q8`` runs: the act scales it consumes, its
     B5 launches (the 5-stage encode of the 2N batch, then the decoder) and
-    its two B6 launches (the relu4_1 and relu5_1 attention modules)."""
+    its B6 launches: two for the static model's attention modules, none for
+    the adaptive model's (plain PyTorch, ``ops.adaptive_attention``)."""
     enc, dec = vgg_q8_plan(vgg, 5), _chain_plan(qdec, _MIRROR_PROGRAM)
     return {"scales": enc["scales"] + dec["scales"],
-            "B5": enc["B5"] + dec["B5"], "B6": 2}
+            "B5": enc["B5"] + dec["B5"], "B6": 0 if adaptive else 2}
 
 
 def _mirror_decode_q8(dec: Convs, qdec: QConvs, x, dtype, conv_q, st):
@@ -564,58 +587,131 @@ def _mirror_decode_q8(dec: Convs, qdec: QConvs, x, dtype, conv_q, st):
     return out
 
 
-def _sanet_transform(blocks, feats, n: int, attention: Attention):
-    """The attention transform on the 2N-batched relu4_1 / relu5_1 taps, in
-    their (the working) type: the port's ``Transform`` on detached weights,
-    attention on B6. NHWC in and out."""
+def _sanet_transform(blocks, feats, n: int, attention: Attention,
+                     blockwise: str = "auto"):
+    """The attention transform on the 2N-batched relu4_1 / relu5_1 taps: the
+    port's ``Transform`` on detached weights in their (the working) type,
+    attention on B6; or the adaptive transform in float32, its attention's
+    route by ``blockwise`` (``sanet.use_streamed``). NHWC in and out."""
     c4, s4 = feats[3][:n], feats[3][n:]
     c5, s5 = feats[4][:n], feats[4][n:]
-    a4 = sanet_attention_block(c4, s4, *blocks["sanet4_1"],
-                               attention=attention)
-    a5 = sanet_attention_block(c5, s5, *blocks["sanet5_1"],
-                               attention=attention)
+    if "ada_module" in blocks:
+        check_style_size((blocks["sanet4_1"][4][0].shape[1],
+                          blocks["sanet5_1"][4][0].shape[1]), s4, s5)
+        a4, a5 = (adaptive_attention_block(
+            c, s, *blocks[name], ada_module=blocks["ada_module"],
+            streamed=use_streamed(blockwise, c.device, c.shape[1] * c.shape[2],
+                                  s.shape[1] * s.shape[2]))[0]
+            for name, c, s in (("sanet4_1", c4, s4), ("sanet5_1", c5, s5)))
+    else:
+        a4 = sanet_attention_block(c4, s4, *blocks["sanet4_1"],
+                                   attention=attention)
+        a5 = sanet_attention_block(c5, s5, *blocks["sanet5_1"],
+                                   attention=attention)
     return _reflect_conv(a4 + _upsample2x_any(a5), *blocks["merge"],
                          act=False)
 
 
 def _sanet_q8_pass(vgg, blocks, qdec, content, style, st, dtype, conv_q,
-                   attention: Attention = sanet_attention):
+                   attention: Attention = sanet_attention,
+                   blockwise: str = "auto"):
     n = content.shape[0]
     feats = _vgg_encode_q8(vgg, torch.cat([content, style], dim=0), 5, dtype,
                            conv_q, st)
-    fusion = _sanet_transform(blocks, feats, n, attention)
+    fusion = _sanet_transform(blocks, feats, n, attention, blockwise)
     return _mirror_decode_q8(blocks["decoder"], qdec, fusion.to(dtype), dtype,
                              conv_q, st)
 
 
 def calibrate_sanet_q8(vgg: VGG19Encoder, blocks, qdec: QConvs, content,
-                       style) -> Dict[str, np.ndarray]:
+                       style, blockwise: str = "auto"
+                       ) -> Dict[str, np.ndarray]:
     """One calibration pass -> {'act_scales'} for ``stylize_sanet_q8``: the
-    same code path with a recording stream, in the type of ``blocks`` (rpst
-    calibrates in bfloat16). It launches none of the int8 kernels; its two
-    attention modules run on B6."""
+    same code path with a recording stream, in the decoder's type of
+    ``blocks`` (rpst calibrates in bfloat16). It launches none of the int8
+    kernels; the static model's two attention modules run on B6."""
     with torch.inference_mode():
         st = _ScaleStream()
         _sanet_q8_pass(vgg, blocks, qdec, content, style, st,
-                       blocks["merge"][0].dtype, None)
+                       blocks["decoder"][0][0].dtype, None,
+                       blockwise=blockwise)
         return _scales_from(st.absmax)
 
 
 def stylize_sanet_q8(vgg: VGG19Encoder, blocks, qdec: QConvs, scales, content,
                      style, dtype: torch.dtype = torch.bfloat16,
-                     attention: Attention = sanet_attention) -> torch.Tensor:
-    """Int8 static-SANet serving: the chained-int8 5-stage VGG encode of
-    both images (one 2N batch), the attention transform in ``dtype``, the
-    int8 VGG-mirror decode. ``blocks``: ``sanet_blocks`` in ``dtype``;
-    ``qdec``: ``quantize_convs`` of the float32 decoder; content, style (N,
-    H, W, 3) with H, W multiples of 16 (four exact 2x2 pools).
-    ``attention`` replaces B6's public function (a benchmark times the plain
-    version or a library call in its place)."""
+                     attention: Attention = sanet_attention,
+                     blockwise: str = "auto") -> torch.Tensor:
+    """Int8 SANet serving: the chained-int8 5-stage VGG encode of both images
+    (one 2N batch), the attention transform (in ``dtype``; the adaptive one
+    in float32), the int8 VGG-mirror decode. ``blocks``: ``sanet_blocks`` in
+    ``dtype``; ``qdec``: ``quantize_convs`` of the float32 decoder; content,
+    style (N, H, W, 3) with H, W multiples of 16 (four exact 2x2 pools).
+    ``attention`` replaces B6's public function in the static transform (a
+    benchmark times the plain version or a library call in its place);
+    ``blockwise`` is the adaptive attention's route."""
     want = sanet_q8_plan(vgg, qdec)["scales"]
     if len(scales["act_scales"]) != want:
         raise ValueError(f"{len(scales['act_scales'])} act scales for a model "
                          f"that consumes {want}: calibrate this model")
     st = _ScaleStream(scales["act_scales"])
     out = _sanet_q8_pass(vgg, blocks, qdec, content, style, st, dtype,
-                         make_conv_q(dtype, "reflect"), attention)
+                         make_conv_q(dtype, "reflect"), attention, blockwise)
+    return out.to(content.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SourceNet: int8 4-stage VGG encode, AdaIN in float32, int8 decode
+# ---------------------------------------------------------------------------
+
+def src_blocks(model: SourceNet, dtype: torch.dtype) -> Dict[str, object]:
+    """SourceNet's trained weights in ``dtype``, detached: the ``decoder``
+    conv list."""
+    return {"decoder": _pairs(model.decoder.convs(), dtype)}
+
+
+def src_q8_plan(vgg: VGG19Encoder, qdec: QConvs) -> Dict[str, int]:
+    """What one ``stylize_src_q8`` runs: the act scales it consumes and its
+    B5 launches (the 4-stage encode of the 2N batch, conv_4 .. conv_9, then
+    the decoder's conv0 .. conv5); no B6."""
+    enc, dec = vgg_q8_plan(vgg, 4), _chain_plan(qdec, _MIRROR_PROGRAM)
+    return {"scales": enc["scales"] + dec["scales"],
+            "B5": enc["B5"] + dec["B5"], "B6": 0}
+
+
+def _src_q8_pass(vgg, blocks, qdec, content, style, st, dtype, conv_q):
+    n = content.shape[0]
+    feats = _vgg_encode_q8(vgg, torch.cat([content, style], dim=0), 4, dtype,
+                           conv_q, st)
+    f4 = feats[3].float()
+    t = adain(f4[:n], f4[n:])
+    return _mirror_decode_q8(blocks["decoder"], qdec, t.to(dtype), dtype,
+                             conv_q, st)
+
+
+def calibrate_src_q8(vgg: VGG19Encoder, blocks, qdec: QConvs, content,
+                     style) -> Dict[str, np.ndarray]:
+    """One calibration pass -> {'act_scales'} for ``stylize_src_q8``, in the
+    type of ``blocks`` (rpst calibrates in bfloat16); no int8 kernel."""
+    with torch.inference_mode():
+        st = _ScaleStream()
+        _src_q8_pass(vgg, blocks, qdec, content, style, st,
+                     blocks["decoder"][0][0].dtype, None)
+        return _scales_from(st.absmax)
+
+
+def stylize_src_q8(vgg: VGG19Encoder, blocks, qdec: QConvs, scales, content,
+                   style, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Int8 SourceNet serving (reference base.py:562-649): the chained-int8
+    4-stage VGG encode of both images (one 2N batch), AdaIN in float32 at
+    relu4_1, the int8 VGG-mirror decode. ``blocks``: ``src_blocks`` in
+    ``dtype``; ``qdec``: ``quantize_convs`` of the float32 decoder; content,
+    style (N, H, W, 3) with H, W multiples of 8 (three exact 2x2 pools)."""
+    want = src_q8_plan(vgg, qdec)["scales"]
+    if len(scales["act_scales"]) != want:
+        raise ValueError(f"{len(scales['act_scales'])} act scales for a model "
+                         f"that consumes {want}: calibrate this model")
+    st = _ScaleStream(scales["act_scales"])
+    out = _src_q8_pass(vgg, blocks, qdec, content, style, st, dtype,
+                       make_conv_q(dtype, "reflect"))
     return out.to(content.dtype)

@@ -1,0 +1,65 @@
+"""SourceNet, the baseline AdaIN of Huang & Belongie; port of
+``rpst.models.src_adain`` (reference ``network/base.py:562-649``).
+
+A frozen 4-stage VGG encoder (``bundle.vgg``) and a trainable VGG-mirror
+decoder: the relu4_1 features are fused by AdaIN and decoded. The content
+loss compares the stylized image's relu4_1 against the AdaIN target ``t``
+(base.py:634-639), not against the content's features. ``use_mask`` changes
+nothing here: rpst reads it only for labelled test-mode stylize (masked
+AdaIN, ROADMAP.md section A slice 7), which raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence
+
+import torch
+from torch import nn
+
+from ..nn.decoder import VGGMirrorDecoder
+from ..ops.stats import adaptive_instance_normalization as adain
+from .base import mse, style_stat_loss
+
+
+class SourceNet(nn.Module):
+    """``forward(content_feats, style_feats)``: [relu1_1 .. relu4_1] NHWC
+    feature lists -> image (N, H, W, 3)."""
+
+    def __init__(self, use_mask: bool = False, device=None, dtype=None):
+        super().__init__()
+        self.use_mask = use_mask
+        self.decoder = VGGMirrorDecoder(device, dtype)
+
+    def decode(self, t: torch.Tensor) -> torch.Tensor:
+        """NHWC relu4_1-sized feature -> NHWC image."""
+        return self.decoder(t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def stylize_from_feats(self, content_feats: Sequence[torch.Tensor],
+                           style_feats: Sequence[torch.Tensor],
+                           c_labels=None, s_labels=None) -> torch.Tensor:
+        if c_labels is not None or s_labels is not None:
+            raise NotImplementedError(
+                "SourceNet with segmentation labels (masked AdaIN) is not "
+                "ported yet: ROADMAP.md section A slice 7 (masks)")
+        return self.decode(adain(content_feats[-1], style_feats[-1]))
+
+    def forward(self, content_feats, style_feats, c_labels=None,
+                s_labels=None):
+        return self.stylize_from_feats(content_feats, style_feats, c_labels,
+                                       s_labels)
+
+    def loss(self, vgg_features: Callable[[torch.Tensor], List[torch.Tensor]],
+             content: torch.Tensor,
+             style: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The loss parts: style statistics over the four taps, and the
+        content loss of the stylized relu4_1 against the AdaIN target; the
+        content and style features, and so the target, carry no gradient."""
+        with torch.no_grad():
+            content_feats = vgg_features(content)
+            style_feats = vgg_features(style)
+            t = adain(content_feats[-1], style_feats[-1])
+        g_t_feats = vgg_features(self.decode(t))
+        loss_c = mse(g_t_feats[-1], t)
+        loss_s = sum(style_stat_loss(g, s)
+                     for g, s in zip(g_t_feats, style_feats))
+        return {"style_loss": loss_s, "content_loss": loss_c}

@@ -198,9 +198,11 @@ class RPSequence(nn.Module):
 
 def init_torch_default(model: nn.Module, seed: int) -> None:
     """Seeded PyTorch Conv2d default init, U(+-1/sqrt(fan_in)) for kernel and
-    bias (what rpst's ``torch_conv_kernel_init`` mirrors). Values are drawn
-    on the CPU from one ``torch.Generator`` in module order, so a seed gives
-    the same weights on every device."""
+    bias (what rpst's ``torch_conv_kernel_init`` mirrors), and rpst's
+    ``nn.Dense`` init for a Linear (dynamic_sanet's threshold MLP, rpst
+    ``sanet.py:37-43``): U(+-1/sqrt(fan_in)) weights, zero biases. Values
+    are drawn on the CPU from one ``torch.Generator`` in module order, so a
+    seed gives the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -211,3 +213,8 @@ def init_torch_default(model: nn.Module, seed: int) -> None:
                     if p is not None:
                         p.copy_(torch.empty(p.shape).uniform_(
                             -bound, bound, generator=g))
+            elif isinstance(m, nn.Linear):
+                bound = m.in_features ** -0.5 if m.in_features else 0.0
+                m.weight.copy_(torch.empty(m.weight.shape).uniform_(
+                    -bound, bound, generator=g))
+                m.bias.zero_()

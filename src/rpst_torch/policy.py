@@ -11,6 +11,9 @@ whose table was measured on a TPU v5e.
     layers as one B7 launch (``fuse_pairs="auto"``), by the B7-vs-2xB4 A/B.
   * ``TRAIN_Q8_TARGETS_MIN_BATCH``: the smallest batch at which
     ``train_q8_targets`` takes the int8 VGG loss targets (B5).
+  * ``ADAPTIVE_STREAM_ROWS``: from how many positions dynamic_sanet's
+    adaptive attention streams under ``adaptive_blockwise: auto``; rpst's
+    memory rule, kept because the H100's A/B of the two routes reads level.
 """
 
 from __future__ import annotations
@@ -43,6 +46,22 @@ AUTO_MODE = "standard"
 # 18.46 / 18.21 against 18.56 / 18.67 (it was 11.5-12.0 and 36.1-36.5 against
 # 7.7-11.0 and 23.4-24.4): level within 2%, ahead in one call at b4 only, so
 # no entry. rpst's own sanet entry was a TPU's and is not copied.
+# dynamic_sanet (configs/train_dynamic_sanet.yaml, relu; chip_smoke.py phase
+# 33, bf16, q8, q8, bf16): streamed route b1 8.45 / 9.63 ms bfloat16 against
+# q8's 10.63 / 8.70, b4 26.74 / 26.65 against 26.95 / 26.69; dense route b1
+# 8.24 / 8.10 against 8.61 / 8.40, b4 27.95 / 27.42 against 27.96 / 28.03:
+# level or behind (the adaptive attention and the float glue around the
+# 16 B5 launches take the rest). A second call (the final chip_smoke.py run)
+# read the streamed b1 bf16 12.59 / 13.03 against q8's 11.94 / 10.89 (the
+# b1 stylize is host-bound and moves by a third between calls), dense b1
+# 9.27 / 8.27 against 10.98 / 11.60, b4 27.07 / 27.11 against 27.06 /
+# 27.58 and 27.84 / 28.27 against 28.46 / 28.01: q8 ahead in one call
+# only, so no entry.
+# src (configs/train_source_adain.yaml, use_mask off; same calls): b1 4.33
+# / 4.41 ms bfloat16 against q8's 4.64 / 4.68, b4 14.92 / 15.00 against
+# 15.42 / 15.45; second call b1 4.36 / 4.47 against 4.56 / 5.85, b4 15.42 /
+# 15.31 against 15.59 / 15.35: q8 behind or level, so no entry; rpst's TPU
+# crossover at b4 for both is not copied.
 # An entry needs q8 ahead in both orders of every call made.
 Q8_AUTO_BATCHES: Dict[str, frozenset] = {}
 
@@ -69,3 +88,15 @@ def q8_preferred(network: str, batch: Optional[int] = None) -> bool:
     about the serving default, batch 8."""
     return (8 if batch is None else batch) in Q8_AUTO_BATCHES.get(
         network, frozenset())
+
+# dynamic_sanet's adaptive attention under adaptive_blockwise "auto": the
+# streamed route (query blocks, factorized thresholds) on a CUDA device when
+# both sides have at least this many positions, the dense (HWc, HWs) route
+# otherwise. rpst's rule (1024 rows, on the TPU), chosen for memory: the
+# dense route holds three (HWc, HWs) float32 matrices per module and image
+# (200 MB at 512px relu4_1). Same card, 512px stylize (phase 33, one call),
+# streamed against dense: b1 float32 19.31 / 19.44 ms, bfloat16 8.45-9.63
+# / 8.10-8.24, b4 float32 442.9 / 420.0 (cuDNN's FFT convs, PERF.md section
+# 7), bfloat16 26.65-26.74 / 27.42-27.95: within 5% either way, so the
+# memory rule stands
+ADAPTIVE_STREAM_ROWS = 1024

@@ -108,7 +108,7 @@ def test_load_state_dict_refolds(rng):
 
 
 @pytest.mark.parametrize("network", ["seg_adain", "sel_multi_adain", "ccam",
-                                     "dynamic_sanet", "ld_adain"])
+                                     "mrf", "ld_adain"])
 def test_unported_networks_raise(network):
     with pytest.raises(ValueError, match="ROADMAP.md section A slice"):
         build_model(load_config(dict(network=network)))

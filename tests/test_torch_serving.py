@@ -204,7 +204,9 @@ def test_resolve_mode(caplog, monkeypatch):
     ("multi_adain", dict(hidden_dim=32)),
     ("adain", dict(hidden_dim=32)),
     ("wct", dict(hidden_dim=32)),
-    ("sanet", dict(img_size=32))])
+    ("sanet", dict(img_size=32)),
+    ("dynamic_sanet", dict(img_size=32)),
+    ("src", dict(img_size=32))])
 def test_auto_mode_follows_the_q8_table(network, over, monkeypatch):
     """For every ported network ``--mode auto`` on a card resolves to what
     ``policy.Q8_AUTO_BATCHES`` says: q8 at the batches it lists, the
@@ -421,7 +423,8 @@ def test_port_never_imports_jax():
         "import rpst_torch.ops.conv2d_q8, rpst_torch.ops.wct\n"
         "import rpst_torch.models.fast_path_q8_std, rpst_torch.models.wct_rp\n"
         "import rpst_torch.ops.flash_attention, rpst_torch.models.sanet\n"
-        "import rpst_torch.nn.decoder\n"
+        "import rpst_torch.nn.decoder, rpst_torch.models.src_adain\n"
+        "import rpst_torch.ops.affinity, rpst_torch.ops.adaptive_attention\n"
         "import importlib.util as u\n"
         "for name in ('serve_torch', 'train_torch'):\n"
         "    spec = u.spec_from_file_location(name, name + '.py')\n"

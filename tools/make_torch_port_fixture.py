@@ -13,7 +13,10 @@ on a machine that has no JAX (``chip_smoke.py``):
   * tests/fixtures/torch_port_q8_targets.npz (``--q8-targets``): the int8
     VGG loss targets of ``train_q8_targets``;
   * tests/fixtures/torch_port_sanet.npz (``--sanet``): the static SANet's
-    standard and int8 serving and its training loss and gradients.
+    standard and int8 serving and its training loss and gradients;
+  * tests/fixtures/torch_port_dynamic_sanet.npz, torch_port_src.npz
+    (``--dynamic-sanet``, ``--src``): the same for the adaptive SANet and
+    SourceNet.
 
 The flagship is multi_adain with the constant stack at full width
 (rp_blocks 5, hidden_dim 32, attention none), as bench.py builds it. The
@@ -86,9 +89,30 @@ The sanet fixture (batch 2, the model's fixed width of 512) holds:
     leaf's gradient), ``grads/<flax path>`` for every bias in full, and
     ``gradpatch/<flax path>``, the [..., :8, :8] corner of every kernel's.
 
+The dynamic_sanet fixture (batch 2, the model's fixed width of 512,
+``configs/train_dynamic_sanet.yaml``'s ``ada_module: relu`` and loss
+weights) holds the sanet fixture's keys, with the params from
+``rpst_torch.bridge.dynamic_sanet_weights_from_seed(weights_seed, size)``
+(psi0 / psi1 under ``transform/sanet{4,5}_1/aea``), and:
+  * ``out_f32`` on rpst's dense route (``adaptive_blockwise: never``, what
+    the CPU takes under ``auto``), ``out_f32_always`` on its streamed route,
+    ``out_f32_aea``: the same weights with ``ada_module: aea``, dense;
+  * ``aux/<relu4_1|relu5_1>/<claim_value|claim_before|claim_after>``:
+    rpst's ``ModelBundle.stylize_with_aux``;
+  * ``q8_tap_3``, ``q8_tap_4``: relu4_1 and relu5_1 of the 2N (content,
+    style) batch from rpst's int8 VGG encode in float32 (interpret mode),
+    the inputs of the q8 stylize's transform.
+
+The src fixture (batch 2, ``use_mask`` off, loss weights 1 and 2) holds
+``weights_seed`` (``src_weights_from_seed``), ``vgg_seed`` (a 4-stage
+VGG), ``content``, ``style``, ``out_f32``, ``act_scales``, ``out_q8_f32``,
+``out_q8_bf16`` (rpst's ``calibrate_src_q8`` / ``stylize_src_q8``),
+``style_loss``, ``content_loss``, ``total_loss`` and the gradient keys of
+the sanet fixture.
+
 Usage:
   python tools/make_torch_port_fixture.py --adain | --wct | --q8-targets
-  python tools/make_torch_port_fixture.py --sanet
+  python tools/make_torch_port_fixture.py --sanet | --dynamic-sanet | --src
   python tools/make_torch_port_fixture.py [--seed 0] [--size 64] [dst.npz]
   python tools/make_torch_port_fixture.py --train [--seed 0] [--size 64] [dst]
   python tools/make_torch_port_fixture.py --q8 [--seed 0] [--size 64] [dst]
@@ -113,6 +137,12 @@ Q8_TARGETS_DST = REPO / "tests" / "fixtures" / "torch_port_q8_targets.npz"
 SANET_DST = REPO / "tests" / "fixtures" / "torch_port_sanet.npz"
 SANET = dict(network="sanet", content_weight=1.0, style_weight=3.0,
              l_identity1_weight=50.0, l_identity2_weight=1.0)
+DYNAMIC_SANET_DST = (REPO / "tests" / "fixtures"
+                     / "torch_port_dynamic_sanet.npz")
+DYNAMIC_SANET = dict(SANET, network="dynamic_sanet", ada_module="relu")
+SRC_DST = REPO / "tests" / "fixtures" / "torch_port_src.npz"
+SRC = dict(network="src", use_mask=False, content_weight=1.0,
+           style_weight=2.0)
 WIDE = dict(rp_blocks=5, hidden_dim=32)
 TRAIN = dict(batch=2, vgg_seed=1, lr=1e-3, lr_decay=0.5, steps=3)
 FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
@@ -321,39 +351,12 @@ def make_q8_targets_fixture(seed: int = 0, size: int = 64) -> dict:
     return arrays
 
 
-def make_sanet_fixture(seed: int = 0, size: int = 64) -> dict:
-    """The sanet fixture's arrays, computed afresh with JAX on the CPU
-    (rpst's int8 kernel in interpret mode)."""
+def _loss_and_grads(bundle, vgg_vars, params, c, s, arrays):
+    """rpst's loss parts and, from its ``jax.value_and_grad``, every leaf's
+    gradient norm, every bias's gradient in full and the [..., :8, :8]
+    corner of every kernel's, into ``arrays``."""
     import jax
-    import jax.numpy as jnp
     import numpy as np
-
-    from rpst.config import load_config
-    from rpst.models import build_model
-    from rpst.models import fast_path_q8 as q8
-    from rpst_torch.bridge import (sanet_weights_from_seed,
-                                   vgg_weights_from_seed)
-
-    rng = np.random.default_rng(seed)
-    content = rng.random((2, size, size, 3), dtype=np.float32)
-    style = rng.random((2, size, size, 3), dtype=np.float32)
-    params = jax.tree.map(jnp.asarray, sanet_weights_from_seed(seed))
-    vgg_vars = jax.tree.map(jnp.asarray,
-                            vgg_weights_from_seed(TRAIN["vgg_seed"], 5))
-    bundle = build_model(load_config(dict(SANET, img_size=size)))
-    c, s = jnp.asarray(content), jnp.asarray(style)
-    variables = {"params": params}
-    out = jax.jit(bundle.stylize)(variables, vgg_vars, c, s)
-    scales = q8.calibrate_sanet_q8(variables, vgg_vars, c, s)
-    arrays = dict(weights_seed=np.int64(seed),
-                  vgg_seed=np.int64(TRAIN["vgg_seed"]), content=content,
-                  style=style, out_f32=np.asarray(out, np.float32),
-                  act_scales=np.asarray(scales["act_scales"], np.float32))
-    for name, dt in (("out_q8_f32", jnp.float32),
-                     ("out_q8_bf16", jnp.bfloat16)):
-        arrays[name] = np.asarray(q8.stylize_sanet_q8(
-            variables, vgg_vars, scales, c, s, dtype=dt, interpret=True),
-            np.float32)
 
     def loss_fn(p):
         total, (parts, _) = bundle.loss({"params": p}, vgg_vars, c, s,
@@ -370,7 +373,121 @@ def make_sanet_fixture(seed: int = 0, size: int = 64) -> dict:
             arrays[f"grads/{k}"] = g
         else:
             arrays[f"gradpatch/{k}"] = g[..., :8, :8].copy()
+
+
+def _feature_fixture(cfg: dict, params, num_stages: int, seed: int,
+                     size: int, q8_pair):
+    """(bundle, vgg_vars, c, s, arrays) with the stylize, the int8 stylize
+    (``q8_pair`` = (calibrate, stylize), interpret mode) and the loss of a
+    feature model, computed afresh with JAX on the CPU."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    rng = np.random.default_rng(seed)
+    content = rng.random((2, size, size, 3), dtype=np.float32)
+    style = rng.random((2, size, size, 3), dtype=np.float32)
+    params = jax.tree.map(jnp.asarray, params)
+    vgg_vars = jax.tree.map(jnp.asarray, vgg_weights_from_seed(
+        TRAIN["vgg_seed"], num_stages))
+    bundle = build_model(load_config(dict(cfg, img_size=size)))
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    out = jax.jit(bundle.stylize)({"params": params}, vgg_vars, c, s)
+    calibrate, stylize = q8_pair
+    scales = calibrate(params, vgg_vars, c, s)
+    arrays = dict(weights_seed=np.int64(seed),
+                  vgg_seed=np.int64(TRAIN["vgg_seed"]), content=content,
+                  style=style, out_f32=np.asarray(out, np.float32),
+                  act_scales=np.asarray(scales["act_scales"], np.float32))
+    for name, dt in (("out_q8_f32", jnp.float32),
+                     ("out_q8_bf16", jnp.bfloat16)):
+        arrays[name] = np.asarray(stylize(params, vgg_vars, scales, c, s, dt),
+                                  np.float32)
+    _loss_and_grads(bundle, vgg_vars, params, c, s, arrays)
+    return bundle, vgg_vars, c, s, arrays
+
+
+def make_sanet_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The sanet fixture's arrays, computed afresh with JAX on the CPU
+    (rpst's int8 kernel in interpret mode)."""
+    from rpst.models import fast_path_q8 as q8
+    from rpst_torch.bridge import sanet_weights_from_seed
+
+    def calibrate(p, vgg_vars, c, s):
+        return q8.calibrate_sanet_q8({"params": p}, vgg_vars, c, s)
+
+    def stylize(p, vgg_vars, scales, c, s, dt):
+        return q8.stylize_sanet_q8({"params": p}, vgg_vars, scales, c, s,
+                                   dtype=dt, interpret=True)
+
+    return _feature_fixture(SANET, sanet_weights_from_seed(seed), 5, seed,
+                            size, (calibrate, stylize))[-1]
+
+
+def make_dynamic_sanet_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The dynamic_sanet fixture's arrays (``ada_module: relu``; rpst's
+    int8 kernel in interpret mode, the attention on its dense route)."""
+    import jax
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst.models import fast_path_q8 as q8
+    from rpst_torch.bridge import dynamic_sanet_weights_from_seed
+
+    ada = dict(adaptive=True, ada_module=DYNAMIC_SANET["ada_module"])
+
+    def calibrate(p, vgg_vars, c, s):
+        return q8.calibrate_sanet_q8({"params": p}, vgg_vars, c, s, **ada)
+
+    def stylize(p, vgg_vars, scales, c, s, dt):
+        return q8.stylize_sanet_q8({"params": p}, vgg_vars, scales, c, s,
+                                   dtype=dt, interpret=True, **ada)
+
+    bundle, vgg_vars, c, s, arrays = _feature_fixture(
+        dict(DYNAMIC_SANET, adaptive_blockwise="never"),
+        dynamic_sanet_weights_from_seed(seed, size), 5, seed, size,
+        (calibrate, stylize))
+    variables = {"params": jax.tree.map(
+        jax.numpy.asarray, dynamic_sanet_weights_from_seed(seed, size))}
+    for key, over in (("out_f32_always", dict(adaptive_blockwise="always")),
+                      ("out_f32_aea", dict(adaptive_blockwise="never",
+                                           ada_module="aea"))):
+        other = build_model(load_config(dict(DYNAMIC_SANET, img_size=size,
+                                             **over)))
+        arrays[key] = np.asarray(jax.jit(other.stylize)(variables, vgg_vars,
+                                                        c, s), np.float32)
+    _, aux = jax.jit(bundle.stylize_with_aux)(variables, vgg_vars, c, s)
+    for layer, maps in aux.items():
+        for name, v in maps.items():
+            arrays[f"aux/{layer}/{name}"] = np.asarray(v, np.float32)
+    # the int8 encode's relu4_1 / relu5_1 taps of the float32 q8 stylize
+    # (2N batch), the adaptive transform's inputs
+    taps = q8._vgg_encode_q8(
+        vgg_vars["params"], jax.numpy.concatenate([c, s]), 5,
+        jax.numpy.float32,
+        q8._make_conv_q_std(jax.numpy.float32, 16, True, "reflect"),
+        q8._ScaleStream(arrays["act_scales"]))
+    for i in (3, 4):
+        arrays[f"q8_tap_{i}"] = np.asarray(taps[i], np.float32)
     return arrays
+
+
+def make_src_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The src fixture's arrays (rpst's int8 kernel in interpret mode)."""
+    from rpst.models import fast_path_q8 as q8
+    from rpst_torch.bridge import src_weights_from_seed
+
+    def stylize(p, vgg_vars, scales, c, s, dt):
+        return q8.stylize_src_q8(p, vgg_vars, scales, c, s, dtype=dt,
+                                 interpret=True)
+
+    return _feature_fixture(SRC, src_weights_from_seed(seed), 4, seed, size,
+                            (q8.calibrate_src_q8, stylize))[-1]
 
 
 def _unflat(flat: dict) -> dict:
@@ -400,6 +517,10 @@ def main():
                     help="write the q8-targets fixture instead")
     ap.add_argument("--sanet", action="store_true",
                     help="write the sanet fixture instead")
+    ap.add_argument("--dynamic-sanet", action="store_true",
+                    help="write the dynamic_sanet fixture instead")
+    ap.add_argument("--src", action="store_true",
+                    help="write the src fixture instead")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -417,6 +538,12 @@ def main():
     elif args.sanet:
         arrays = make_sanet_fixture(args.seed, args.size)
         args.dst = args.dst or str(SANET_DST)
+    elif args.dynamic_sanet:
+        arrays = make_dynamic_sanet_fixture(args.seed, args.size)
+        args.dst = args.dst or str(DYNAMIC_SANET_DST)
+    elif args.src:
+        arrays = make_src_fixture(args.seed, args.size)
+        args.dst = args.dst or str(SRC_DST)
     elif args.train:
         arrays = make_train_fixture(args.seed, args.size)
         args.dst = args.dst or str(TRAIN_DST)
@@ -429,7 +556,8 @@ def main():
     Path(args.dst).parent.mkdir(parents=True, exist_ok=True)
     # the new fixtures hold relu outputs, which compress well
     save = (np.savez_compressed
-            if args.adain or args.wct or args.q8_targets or args.sanet
+            if (args.adain or args.wct or args.q8_targets or args.sanet
+                or args.dynamic_sanet or args.src)
             else np.savez)
     save(args.dst, **arrays)
     print(f"wrote {args.dst} ({len(arrays)} arrays)")

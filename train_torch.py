@@ -15,7 +15,12 @@ first batch. ``adain`` trains standard (autograd through the library convs;
 it needs no kernel). ``sanet`` (``configs/train_static_sanet.yaml``) trains
 standard over a frozen 5-stage VGG: every attention module runs B6's forward
 with its log-sum-exp and the two B6 backward kernels (three stylize passes of
-two modules: 6 / 6 / 6 launches per step).
+two modules: 6 / 6 / 6 launches per step). ``dynamic_sanet``
+(``configs/train_dynamic_sanet.yaml``) trains the same way with the adaptive
+transform in float32, its attention plain PyTorch (streamed by query blocks
+under ``torch.utils.checkpoint`` where ``adaptive_blockwise`` says so; no
+kernel), and ``src`` (``configs/train_source_adain.yaml``) trains its
+decoder over a frozen 4-stage VGG (no kernel; ``use_mask`` is not read).
 
     python train_torch.py --config cfg.yaml [--set key=value ...]
                           [--device cuda|cpu]
@@ -26,8 +31,9 @@ logs the B6, B5 and B1/B2/B3 launch counts of the run. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
 and ``distributed`` (slice 8), ``target_cache`` (section A item 7),
 ``grad_accum > 1`` and ``remat`` (slice 8), ``test_dir`` test dumps (slice
-7), and every network but ``multi_adain``, ``adain`` and ``sanet`` (wct
-training is slice 5b, ``dynamic_sanet`` and ``src`` slice 6b).
+7), and every network but ``multi_adain``, ``adain``, ``sanet``,
+``dynamic_sanet`` and ``src`` (wct training is slice 5b, the others slices
+4-5b).
 """
 
 import argparse
@@ -44,7 +50,8 @@ import torch  # noqa: E402
 from rpst_torch.config import load_config  # noqa: E402
 from rpst_torch.data import ImageFolderDataset, InfiniteLoader  # noqa: E402
 from rpst_torch.metrics import logger  # noqa: E402
-from rpst_torch.models import build_model, build_vgg  # noqa: E402
+from rpst_torch.models import (build_model, build_vgg,  # noqa: E402
+                               roadmap_slice)
 from rpst_torch.models.fast_path_q8_std import (  # noqa: E402
     calibrate_vgg_targets_q8)
 from rpst_torch.nn.blocks import init_torch_default  # noqa: E402
@@ -77,10 +84,12 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             "train_torch.py: wct training (the frozen-encoder resume, "
             "freeze_prefixes) is ROADMAP.md section A slice 5b")
-    if cfg.network not in ("multi_adain", "adain", "sanet"):
+    if roadmap_slice(cfg.network):
         raise NotImplementedError(
-            f"train_torch.py trains multi_adain, adain and sanet only; "
-            f"{cfg.network!r} is ROADMAP.md section A slices 4-6b")
+            "train_torch.py trains multi_adain, adain, sanet, dynamic_sanet "
+            "and src only (the other networks are ROADMAP.md section A "
+            f"slices 4-5b); {cfg.network!r} is section A "
+            f"{roadmap_slice(cfg.network)}")
     for key, (asked, where) in _UNPORTED.items():
         if asked(cfg):
             raise NotImplementedError(
@@ -121,7 +130,7 @@ def main(argv=None):
     bundle = build_model(cfg, device)
     init_torch_default(bundle.model, cfg.seed)
     vgg, vgg_source = build_vgg(cfg, device)
-    bundle.vgg = vgg  # sanet stylizes from its features
+    bundle.vgg = vgg  # the feature models stylize from its features
     if cfg.vgg and vgg_source == str(cfg.vgg):
         logger.info(f"Loaded VGG weights from {cfg.vgg}")
     else:

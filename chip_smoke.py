@@ -4,7 +4,9 @@ port's CUDA kernels from this checkout, checks each against its plain
 PyTorch version, drives the flagship's folded and int8 serving and training
 paths, adain's and wct's serving, and the serving and training of the static
 SANet, the adaptive SANet (dynamic_sanet) and SourceNet (src) at 512px
-through the user's entry points, and times them. Needs one NVIDIA
+through the user's entry points, the flagship's three variants
+(sel_multi_adain, ccam, mst: folded, int8 and training) and the flagship's
+target cache, and times them. Needs one NVIDIA
 Hopper card; run from the repository root with no arguments:
 
     python3 chip_smoke.py
@@ -39,7 +41,7 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
   6. daemon    serve_torch.py --daemon: 6 requests + stats + shutdown
   7. timing    512px stylize b1/b8, f32/bf16: folded B1 and standard in
                both orders (folded, standard, folded plain, standard,
-               folded), with CUDA events
+               folded), with CUDA events, 10 calls each
   8. train fixture  the folded train step on the card (B1/B2/B3) vs rpst's
                JAX loss, gradients and 3-step trajectory
                (tests/fixtures/torch_port_train.npz)
@@ -181,6 +183,46 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                standard f32, bf16 and q8, src f32, bf16 and q8, q8 against
                bf16 in both orders (the policy's A/B); each network's train
                step at its config's batch (b1, b8), f32
+
+ 34. slice-4 fixture  sel_multi_adain, ccam and mst on the card vs rpst's JAX
+               (tests/fixtures/torch_port_{sel_multi_adain,ccam,mst}.npz,
+               64px b2, full width): folded f32 and standard (1e-4), folded
+               bf16 (MAE < 1e-2 or 3 x rpst's own bf16 distance), q8 with
+               rpst's scales (f32 >= 35 dB, bf16 >= 30), loss parts (rtol
+               1e-4), gradients (rtol 5e-3, atol 1e-4 x max or 4 x the
+               tensor's own float32 error in rpst; the folded and standard
+               paths' distances from rpst's float64 gradients printed),
+               sel's moved BatchNorm statistics,
+               mst's k-means labels; exact launches (15 B1 a stylize, 3 B1 +
+               12 B4 a q8 stylize, 23/17/15 B1/B2/B3 a loss + backward, mst
+               23/8/5); the target cache's cached flagship step vs rpst's
+               pretargets loss and gradients (19/17/15) and the recomputed
+               step (tests/fixtures/torch_port_target_cache.npz)
+ 35. slice-4 parity   512px b2: each folded variant vs its standard module
+               (1e-4), bf16 vs f32 (MAE < 2e-2), q8 vs folded f32 (> 30 dB);
+               mst's style-channel label flips folded vs standard and bf16
+               vs f32, its fused features on the channels whose cluster
+               agrees, its output when no label flips
+ 36. slice-4 serve    sel_multi_adain's main path, 8 requests through
+               build_model -> resolve_mode -> [calibrate_scales ->]
+               make_run_impl -> DynamicBatcher(b4), folded and q8, counts
+               reset before and read after (15 B1; 3 B1 + 12 B4 a batch;
+               calibration 15 B1); serve_torch.py --mode folded and q8 for
+               each variant (ccam's and mst's yamls with shuffle=false); the
+               daemon on ccam
+ 37. slice-4 train    train_torch.py for each variant at 512px folded
+               (sel_multi_adain b4 f32, ccam and mst their yamls' b2 bf16):
+               3 steps as a subprocess, a resume for 2 in this process with
+               exact B1/B2/B3 launches; sel's BatchNorm statistics kept over
+               a forced non-finite step; the flagship b4 with target_cache
+               512 on an 8-image corpus: the hits and misses of stats()
+               against the loaders' key streams, 23/17/15 a miss and 19/17/15
+               a hit
+ 38. slice-4 timing   512px stylize b1 / b8 of each variant (folded bf16,
+               standard bf16, q8, folded f32) in both orders; the train step
+               at each variant's settings; the flagship's b1 / b4 step, f32
+               and bf16, with float targets, int8 targets and the cache
+               hitting, in both orders
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -589,7 +631,7 @@ def main():
                 # serving policy), plain between them
                 for path in ("folded B1", "standard", "folded plain",
                              "standard", "folded B1"):
-                    ms = cuda_ms(paths[path])
+                    ms = cuda_ms(paths[path], iters=10)
                     rows.append((batch, str(dt)[6:], path, ms))
                     log("7 timing", f"512px b{batch} {str(dt)[6:]:8s} "
                         f"{path:12s}: {ms:8.3f} ms  "
@@ -631,6 +673,13 @@ def main():
     _6b_parity(dev, rng)
     _6b_timing(dev, rng, name_power)
 
+    # ---- 34-38. slice 4 (sel_multi_adain, ccam, mst), the target cache ----
+    _s4_fixtures(dev)
+    _s4_parity(dev, rng)
+    s4_serve = _s4_serve(dev, rng)
+    s4_train = _s4_train(dev)
+    _s4_timing(dev, rng, name_power)
+
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -648,28 +697,29 @@ def main():
          "source": "src/rpst_torch/csrc/folded_conv.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv.py:650",
          "launches": (main_launches + train_launches[0] + q8_launches["B1"]
-                      + q8t_launches[0]),
+                      + q8t_launches[0] + s4_serve["B1"] + s4_train[0]),
          "max_abs_err": f32_err, "ms": b12["B1"]["ms"],
          "plain_ms": b12["B1"]["plain_ms"], "bound_ms": bnd["B1"][0],
          "bound_by": bnd["B1"][1], "library_ms": b12["B1"]["library_ms"]},
         {"name": "fused_folded_conv_grad_input", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:339",
-         "launches": train_launches[1] + q8t_launches[1],
+         "launches": train_launches[1] + q8t_launches[1] + s4_train[1],
          "max_abs_err": bwd["B2"]["err"], "ms": b12["B2"]["ms"],
          "plain_ms": b12["B2"]["plain_ms"], "bound_ms": bnd["B2"][0],
          "bound_by": bnd["B2"][1], "library_ms": b12["B2"]["library_ms"]},
         {"name": "fused_folded_conv_grad_weight", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
-         "launches": train_launches[2] + q8t_launches[2],
+         "launches": train_launches[2] + q8t_launches[2] + s4_train[2],
          "max_abs_err": bwd["B3"]["err"], "ms": bwd["B3"]["ms"],
          "plain_ms": bwd["B3"]["plain_ms"], "bound_ms": bnd["B3"][0],
          "bound_by": bnd["B3"][1], "library_ms": bwd["B3"]["library_ms"]},
         {"name": "fused_folded_conv_q8", "route": "cuda",
          "source": "src/rpst_torch/csrc/folded_conv_q8.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv_q8.py:281",
-         "launches": q8_launches["B4"], "max_abs_err": q8k["B4"]["err"],
+         "launches": q8_launches["B4"] + s4_serve["B4"],
+         "max_abs_err": q8k["B4"]["err"],
          "ms": q8k["B4"]["ms"], "plain_ms": q8k["B4"]["plain_ms"],
          "bound_ms": bnd["B4"][0], "bound_by": bnd["B4"][1],
          "library_ms": None},
@@ -694,16 +744,14 @@ def main():
     # (phase 23); library_ms is F.scaled_dot_product_attention(scale=1.0)
     # forward for B6a / B6b and its autograd backward, which yields dQ, dK
     # and dV together, for B6c and B6d. Each bfloat16 kernel is a kernel of
-    # its own (tensor cores, one bf16 product a fragment): the forward's
-    # launches are the q8 serving path's and the bfloat16 train run's, the
-    # backward's the bfloat16 train run's; the float32 kernels' are the
-    # others
-    b6_launches = {"B6a": sanet_serve["B6a"] - sanet_serve["B6a_bf16"],
-                   "B6b": sanet_train[0],
+    # its own (tensor cores, one bf16 product a fragment), held against its
+    # plain version in phase 23; since the static transform runs float32 as
+    # rpst's (its flax convs take no dtype), no main path launches them:
+    # every SANet launch is the float32 kernels'
+    b6_launches = {"B6a": sanet_serve["B6a"], "B6b": sanet_train[0],
                    "B6c": sanet_train[1], "B6d": sanet_train[2],
-                   "B6a_bf16": sanet_serve["B6a_bf16"],
-                   "B6b_bf16": sanet_train[3], "B6c_bf16": sanet_train[4],
-                   "B6d_bf16": sanet_train[5]}
+                   "B6a_bf16": sanet_serve["B6a_bf16"], "B6b_bf16": 0,
+                   "B6c_bf16": 0, "B6d_bf16": 0}
     for key, fn_name, line in (("B6a", "flash_fwd", 260),
                                ("B6b", "flash_fwd_lse", 109),
                                ("B6c", "flash_bwd_dq", 220),
@@ -718,7 +766,7 @@ def main():
              "replaces": f"src/rpst/ops/pallas/flash_attention.py:{line}",
              "launches": b6_launches[key], **b6k[key]})
     for k in kernels["kernels"]:
-        if not k["launches"] > 0:
+        if not (k["launches"] > 0 or k["name"] in OFF_PATH):
             raise AssertionError(f"{k['name']} was launched no time on the "
                                  "main paths")
     print(json.dumps(kernels), flush=True)
@@ -2267,6 +2315,10 @@ LSE_TOL = 1e-4
 # each module's forward with LSE once and both backward kernels once (f, g
 # and h are trained, so dQ, dK and dV are all needed)
 B6_PER_STYLIZE, SANET_Q8_B5, B6_PER_STEP = 2, 16, (6, 6, 6)
+# the bfloat16 instances of B6: on no main path since the static SANet's
+# transform runs float32 as rpst's (phase 23 still holds them against plain)
+OFF_PATH = ("flash_fwd_bf16", "flash_fwd_lse_bf16", "flash_bwd_dq_bf16",
+            "flash_bwd_dkv_bf16")
 # gradients through the softmax (f and g, and f's bias): logits with a
 # standard deviation near 8 amplify the float32 rounding of the scores, so
 # the two frameworks' sums agree to ~1e-3 of the tensor's max there
@@ -2283,6 +2335,10 @@ SANET_GRAD_ATOL_REL = 5e-4
 # with two peaked softmax modules between them spread the flips (the card
 # read 40.2 dB). bfloat16: the 30 dB of the other q8 fixtures.
 SANET_Q8_F32_PSNR = 35.0
+# bfloat16 around the int8 layers with the attention transform in float32,
+# as rpst's: the card reads 43.1 dB, the CPU test 38.8 (30 before the
+# transform's type was repaired)
+SANET_Q8_BF16_PSNR = 40.0
 
 
 def _attention_inputs(dev, dtype, n, nq, nk, c, scale=1.0, seed=0):
@@ -2626,13 +2682,14 @@ def _sanet_fixture(dev):
     scales = {"act_scales": fx["act_scales"]}
     for dt, key, min_psnr in ((torch.float32, "out_q8_f32", SANET_Q8_F32_PSNR),
                               (torch.bfloat16, "out_q8_bf16",
-                               Q8_VS_FOLDED_PSNR)):
+                               SANET_Q8_BF16_PSNR)):
         _reset_counts()
         got = bundle.stylize_q8(c, s, scales, dtype=dt).cpu().numpy()
-        n = _counts(("B5", "B6a"))
+        # the attention transform is float32 in both types (rpst's)
+        n = _counts(("B5", "B6a")) + (_bf16_fwd_counts()[0],)
         psnr = _psnr(got, fx[key])
         if not (np.isfinite(got).all() and psnr >= min_psnr
-                and n == (SANET_Q8_B5, B6_PER_STYLIZE)):
+                and n == (SANET_Q8_B5, B6_PER_STYLIZE, 0)):
             raise AssertionError(f"sanet fixture {key}: PSNR {psnr} dB, B5 / "
                                  f"B6 launches {n}")
         msg.append(f"{key} PSNR {psnr:.2f} dB (>= {min_psnr})")
@@ -2805,10 +2862,11 @@ def _sanet_serve(dev, rng):
             for o in outs[mode]:
                 if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
                     raise AssertionError(f"sanet {mode} output {o.shape}")
-            # q8 serves bfloat16 around the int8 layers: its B6a launches
-            # are the tensor-core kernel's, the standard f32 path's are not
+            # q8 serves bfloat16 around the int8 layers, but the attention
+            # transform runs float32 as rpst's: no launch of the bfloat16
+            # (tensor-core) forward on either path
             got["B6a_bf16"] = _bf16_fwd_counts()[0]
-            if got["B6a_bf16"] != got["B6a"] * (mode == "q8"):
+            if got["B6a_bf16"] != 0:
                 raise AssertionError(f"sanet {mode} main path: {got}")
             for k in total:
                 total[k] += got[k]
@@ -2849,9 +2907,9 @@ def _sanet_train(dev):
     """Phase 27: train_torch.py on the repository's static-SANet yaml (512px,
     batch 4, f32): 3 steps as a subprocess, then 2 resumed steps through the
     same entry point in this process, counts reset before and read after.
-    Then 2 steps in bfloat16 the same way. Returns the resumed run's B6
-    forward-with-LSE / dQ / dK/dV launches and the bfloat16 run's forward-
-    with-LSE / dQ / dK/dV launches."""
+    Then 2 steps in bfloat16 the same way (the attention transform still
+    float32, as rpst's). Returns the B6 forward-with-LSE / dQ / dK/dV
+    launches of both runs, all of the float32 kernels."""
     import importlib.util
     import numpy as np
 
@@ -2908,13 +2966,14 @@ def _sanet_train(dev):
                 or any(ln["skipped"] for ln in lines):
             raise AssertionError(f"sanet metrics.jsonl: {lines}")
         # the same entry point in bfloat16 (compute_dtype), 2 steps: the
-        # forward with LSE is then the tensor-core kernel
+        # attention transform leaves autocast (float32, as rpst's), so the
+        # float32 kernels run and the bfloat16 forward never does
         _reset_counts()
         train_cli.main([*args[:-1], f"output={tmp / 'run_bf16'}",
                      "compute_dtype=bfloat16", "max_iter=3"])
         bf16 = _counts(("B6b", "B6c", "B6d"))
         bf16_fwd = _bf16_fwd_counts()[1]
-        if bf16 != tuple(2 * n for n in B6_PER_STEP) or bf16_fwd != bf16[0]:
+        if bf16 != tuple(2 * n for n in B6_PER_STEP) or bf16_fwd != 0:
             raise AssertionError(f"bf16 sanet run launches {bf16}, bf16 "
                                  f"forward {bf16_fwd}, expected 2 steps x "
                                  f"{B6_PER_STEP}")
@@ -2928,7 +2987,7 @@ def _sanet_train(dev):
         f"{[round(v, 4) for v in losses]}; B6 fwd+lse/dq/dkv launches "
         f"{launches} (2 steps x {B6_PER_STEP}); bfloat16, 2 steps: {bf16}, "
         f"total_loss {[round(ln['total_loss'], 4) for ln in bf16_lines]}")
-    return launches + (bf16_fwd,) + bf16[1:]
+    return tuple(a + b for a, b in zip(launches, bf16))
 
 
 def _sanet_timing(dev, rng, name_power):
@@ -3497,6 +3556,809 @@ def _daemon_round_trip(cfg_path, tmp, env):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# phases 34-38: slice 4 (sel_multi_adain, ccam, mst) and the target cache
+# ---------------------------------------------------------------------------
+
+CCAM_YAML = (REPO / "configs"
+             / "train_constant_multiscale_rp_adain_channel_attention.yaml")
+MST_YAML = REPO / "configs" / "train_constant_multiscale_rp_adain_global_mst.yaml"
+S4_NETWORKS = ("sel_multi_adain", "ccam", "mst")
+# the fixtures' configs (tools/make_torch_port_fixture.py SLICE4)
+S4_FIXTURE_CFG = {
+    "sel_multi_adain": dict(FLAGSHIP, network="sel_multi_adain"),
+    "ccam": dict(FLAGSHIP, network="ccam", stylized_layers=5, shuffle=False),
+    "mst": dict(FLAGSHIP, network="mst", stylized_layers=1, n_clusters=3,
+                mst_lambda=0.0)}
+S4_LOSS = dict(content_weight=1.0, style_weight=2.0)
+# launches per call of each variant (rpst's code): a folded stylize runs the
+# flagship's 15 RP layers on B1; a q8 stylize 3 B1 (the image layers) + 12
+# B4 (B7 is the flagship's alone); calibration one float folded forward,
+# 15 B1. A folded train step runs 23 / 17 / 15 B1 / B2 / B3 as the
+# flagship's (the SE bottleneck's and CCAM's ops are not on B1); mst's
+# transform detaches its inputs, so its encoder has no backward and its
+# first decoder layer no input gradient: 23 / 8 (decoder layers 1-4 + the
+# stylized VGG pass) / 5 (the decoder)
+S4_STYLIZE_B1, S4_Q8, S4_CALIB_B1 = 15, {"B1": 3, "B4": 12, "B7": 0}, 15
+S4_PER_STEP = {"sel_multi_adain": PER_STEP, "ccam": PER_STEP,
+               "mst": (23, 8, 5)}
+# a folded step whose loss targets come from the cache runs no VGG target
+# pass: 4 B1 launches fewer
+TCACHE_HIT_STEP = PER_STEP_Q8T
+S4_Q8_F32_PSNR = 35.0  # as the other q8 fixtures on the card (phase 24)
+# a gradient against rpst's: atol 1e-4 x max, or this many times the
+# tensor's own float32 error in rpst (its folded gradient against its
+# standard and its float64 ones) where that is more
+# (test_torch_sel_multi_adain.py's rule, 2 there): ccam's float32 gradients
+# on the card, through B1-B3 and through the standard path's cuDNN (no
+# kernel of the port) alike, sit several times further from rpst's float64
+# ones than rpst's float32 ones do (phase 34 prints both; PERF.md), so
+# float32 on the card is held at 4
+GRAD_SPREAD = 4.0
+# a bfloat16 folded stylize against rpst's: MAE < 1e-2, or 3 x rpst's own
+# bfloat16 distance from its float32 output where that is more (each
+# framework's bf16 output sits about that far from the f32 one, in its own
+# direction; ccam's CCAM softmax makes it 2.2e-2 at the fixture's point)
+BF16_OWN = 3.0
+TCACHE_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_target_cache.npz"
+# 512px bfloat16 against float32 (phase 35): 2x the flagship's budget; the
+# variants' fusions re-normalize bf16 features at every scale
+BF16_S4_MAE = 2e-2
+
+
+def _s4_cfg(network, size, **over):
+    """The variant's 512px serving / training config: bench.py:476-487's
+    flagship widths for sel_multi_adain, the repository yaml for ccam and
+    mst with ``shuffle: false`` (their test-time shuffle does not fold) and
+    ``exec_strategy: folded``."""
+    from rpst_torch.config import load_config
+    base = dict(img_size=size, exec_strategy="folded", shuffle=False,
+                test_dir="", vgg="", **over)
+    if network in ("multi_adain", "sel_multi_adain"):
+        return load_config(dict(FLAGSHIP, network=network, **base))
+    return load_config(str(CCAM_YAML if network == "ccam" else MST_YAML),
+                       base)
+
+
+def _s4_fixture(network):
+    import numpy as np
+    from rpst_torch.bridge import flax_tree_from_npz
+    with np.load(REPO / "tests" / "fixtures"
+                 / f"torch_port_{network}.npz") as npz:
+        trees = flax_tree_from_npz(npz)
+        fx = {k: npz[k] for k in npz.files if "/" not in k}
+    return fx, trees
+
+
+def _s4_fixture_bundle(dev, network, fx, trees, **over):
+    """The fixture's variant at its weights and VGG, on the card."""
+    from rpst_torch.bridge import (from_flax_batch_stats, from_flax_params,
+                                   vgg_from_flax, vgg_weights_from_seed)
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.vgg import VGG19Encoder
+    cfg = load_config(dict(S4_FIXTURE_CFG[network],
+                           img_size=fx["content"].shape[1],
+                           exec_strategy="folded", lr=float(fx["lr"]),
+                           lr_decay=float(fx["lr_decay"]), **S4_LOSS, **over))
+    bundle = build_model(cfg, dev)
+    params = {k: v for k, v in trees.items()
+              if k not in ("batch_stats", "grads", "grads_std",
+                           "grads_f64", "stats_after")}
+    sd = from_flax_params(params)
+    sd.update(from_flax_batch_stats(trees.get("batch_stats", {})))
+    bundle.load_state_dict(sd)
+    vgg = VGG19Encoder()
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(
+        int(fx["vgg_seed"]))))
+    return bundle, vgg.to(dev)
+
+
+def _f64_err_ratio(model, ref, f64):
+    """Median and max over the parameters of |grad - rpst's float64| over
+    |rpst's float32 - rpst's float64| (each tensor's max norm)."""
+    import numpy as np
+    ratios = []
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        truth = f64[name].to(p.device)
+        own = float((ref[name].to(p.device) - truth).abs().max())
+        if own > 0.0:
+            ratios.append(float((p.grad - truth).abs().max()) / own)
+    return float(np.median(ratios)), max(ratios)
+
+
+def _check_s4_grads(label, model, ref, std, f64):
+    """Every parameter's gradient against rpst's: rtol 5e-3 and atol 1e-4 x
+    max, or GRAD_SPREAD x the tensor's own float32 error in rpst x max where
+    that is more (the larger distance of rpst's folded gradient from its
+    standard one and from its float64 one, over the tensor's max:
+    test_torch_sel_multi_adain.py's rule); a parameter with no path from
+    the loss has rpst's zeros. Returns the worst err / max and the worst
+    err / own error."""
+    import torch
+    worst = ratio = 0.0
+    for name, p in model.named_parameters():
+        r = ref[name].to(p.device)
+        size = float(r.abs().max())
+        if p.grad is None:
+            if size != 0.0:
+                raise AssertionError(f"{label} {name}: no gradient, rpst's "
+                                     f"max {size}")
+            continue
+        own = max(float((r - std[name].to(p.device)).abs().max()),
+                  float((r - f64[name].to(p.device)).abs().max())) / size
+        atol = max(GRAD_ATOL_REL, GRAD_SPREAD * own) * size
+        err = float((p.grad - r).abs().max()) / size
+        if not torch.allclose(p.grad, r, rtol=GRAD_RTOL, atol=atol):
+            raise AssertionError(
+                f"{label} {name}: max err {err * size} (max {size}, atol "
+                f"{atol}, rpst's own error {own * size})")
+        worst = max(worst, err)
+        ratio = max(ratio, err / max(own, 1e-30))
+    return worst, ratio
+
+
+def _s4_fixtures(dev):
+    """Phase 34: the three variants on the card against their JAX fixtures
+    (folded f32 / standard / bf16 stylize, q8 with rpst's scales, loss
+    parts, gradients, BatchNorm statistics, mst's labels), exact launches;
+    then the target cache's losses and gradients against rpst's."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import from_flax_batch_stats, from_flax_params
+    from rpst_torch.models.fast_path import _encode_folded
+    from rpst_torch.ops.folded import unfold
+    from rpst_torch.ops.kmeans import kmeans
+    for network in S4_NETWORKS:
+        fx, trees = _s4_fixture(network)
+        bundle, vgg = _s4_fixture_bundle(dev, network, fx, trees)
+        c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+        msg = []
+        _reset_counts()
+        out = bundle.stylize(c, s)
+        torch.cuda.synchronize()
+        if _counts(("B1", "B4")) != (S4_STYLIZE_B1, 0):
+            raise AssertionError(f"{network} stylize launches "
+                                 f"{_counts(('B1', 'B4'))}")
+        err, _ = check_close(f"{network} folded f32", out,
+                             torch.from_numpy(fx["out_folded"]).to(dev),
+                             F32_TOL)
+        std_out = bundle.stylize(c, s, folded=False)
+        err_std, _ = check_close(f"{network} standard f32", std_out,
+                                 torch.from_numpy(fx["out_std"]).to(dev),
+                                 F32_TOL)
+        msg.append(f"folded f32 {err:.3g}, standard {err_std:.3g} (tol "
+                   f"{F32_TOL}), {S4_STYLIZE_B1} B1")
+        b16, _ = _s4_fixture_bundle(dev, network, fx, trees,
+                                    compute_dtype="bfloat16")
+        out16 = b16.stylize(c, s).cpu().numpy()
+        own = float(np.abs(fx["out_folded_bf16"] - fx["out_folded"]).mean())
+        mae16 = float(np.abs(out16 - fx["out_folded_bf16"]).mean())
+        if not mae16 < max(1e-2, BF16_OWN * own):
+            raise AssertionError(f"{network} bf16 folded vs rpst bf16 MAE "
+                                 f"{mae16} (rpst's own bf16 vs f32 {own})")
+        msg.append(f"bf16 MAE {mae16:.3g} vs rpst's bf16 (bound "
+                   f"{max(1e-2, BF16_OWN * own):.3g}), "
+                   f"{float(np.abs(out16 - fx['out_folded']).mean()):.3g} "
+                   "vs rpst's f32")
+        scales = {"act_scales": fx["act_scales"]}
+        for dt, key, limit in ((torch.float32, "out_q8_f32", S4_Q8_F32_PSNR),
+                               (torch.bfloat16, "out_q8_bf16",
+                                Q8_VS_FOLDED_PSNR)):
+            _reset_counts()
+            got = bundle.stylize_q8(c, s, scales, dtype=dt).cpu().numpy()
+            n = _counts(Q8_KERNELS)
+            psnr = _psnr(got, fx[key])
+            if not (np.isfinite(got).all() and psnr >= limit and n == S4_Q8):
+                raise AssertionError(f"{network} {key}: PSNR {psnr} dB, "
+                                     f"launches {n}")
+            msg.append(f"{key} {psnr:.2f} dB (>= {limit})")
+        # the loss and its gradients, train mode (sel: batch statistics)
+        bundle.model.train()
+        _reset_counts()
+        total, parts = bundle.loss(vgg, c, s)
+        total.backward()
+        torch.cuda.synchronize()
+        if _counts() != S4_PER_STEP[network]:
+            raise AssertionError(f"{network} loss launches {_counts()}, "
+                                 f"expected {S4_PER_STEP[network]}")
+        for k in ("content_loss", "style_loss", "total_loss"):
+            got, want = float(parts[k].detach()), float(fx[k])
+            if not abs(got - want) <= LOSS_RTOL * abs(want):
+                raise AssertionError(f"{network} {k}: {got} vs rpst {want}")
+        grads = [from_flax_params(trees[k])
+                 for k in ("grads", "grads_std", "grads_f64")]
+        worst, ratio = _check_s4_grads(network, bundle.model, *grads)
+        # the standard path's float32 gradients on the card (cuDNN, no
+        # kernel of the port), against rpst's float64 ones: what float32
+        # on the card reads at this point, beside the folded path's
+        plain, _ = _s4_fixture_bundle(dev, network, fx, trees)
+        plain.cfg = plain.cfg.replace(exec_strategy="standard")
+        plain.model.train()
+        plain.loss(vgg, c, s)[0].backward()
+        f64_err = {k: _f64_err_ratio(m, grads[0], grads[2])
+                   for k, m in (("folded", bundle.model),
+                                ("standard", plain.model))}
+        msg.append(f"loss {float(total):.7g} vs {float(fx['total_loss']):.7g}"
+                   f", worst gradient err / max {worst:.3g}, at most "
+                   f"{ratio:.3g} x the tensor's own float32 error in rpst "
+                   f"(limit {GRAD_SPREAD}); distance from rpst's float64 "
+                   f"gradients over rpst's float32 one, median / max: "
+                   f"folded (B1-B3) {f64_err['folded'][0]:.3g} / "
+                   f"{f64_err['folded'][1]:.3g}, standard (cuDNN) "
+                   f"{f64_err['standard'][0]:.3g} / "
+                   f"{f64_err['standard'][1]:.3g}; B1/B2/B3 "
+                   f"{S4_PER_STEP[network]}")
+        del plain
+        if network == "sel_multi_adain":
+            moved = from_flax_batch_stats(trees["stats_after"])
+            bufs = dict(bundle.model.named_buffers())
+            for k, v in moved.items():
+                if not torch.allclose(bufs[k], v.to(dev), rtol=1e-5,
+                                      atol=1e-6):
+                    raise AssertionError(f"sel running statistic {k}")
+            msg.append("moved BatchNorm statistics within 1e-5")
+        if network == "mst":
+            with torch.inference_mode():
+                cf, sf = _encode_folded(bundle.folded_weights(torch.float32),
+                                        c, s, torch.float32)
+            for i in range(c.shape[0]):
+                sfi = unfold(sf[-1])[i]
+                labels, _ = kmeans(sfi.reshape(-1, sfi.shape[-1]).t(), 3)
+                if not np.array_equal(labels.cpu().numpy(),
+                                      fx["s_labels"][i]):
+                    raise AssertionError(f"mst labels {labels} vs rpst "
+                                         f"{fx['s_labels'][i]}")
+            msg.append("deepest-scale k-means labels equal rpst's")
+        log("34 slice-4 fixture", f"{network} 64px b2 vs rpst JAX: "
+            f"{'; '.join(msg)}")
+        del bundle, b16
+    _tcache_fixture(dev)
+
+
+def _tcache_fixture(dev):
+    """The flagship's cached step (targets from DeviceTargetCache, a hit)
+    against rpst's pretargets loss and gradients, and against the port's
+    own recomputed step."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import (flax_tree_from_npz, from_flax_params,
+                                   vgg_from_flax, vgg_weights_from_seed)
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.vgg import VGG19Encoder
+    from rpst_torch.train.target_cache import DeviceTargetCache
+    with np.load(REPO / "tests" / "fixtures" / "torch_port_train.npz") as npz:
+        tree = flax_tree_from_npz(npz)
+        fx = {k: npz[k] for k in npz.files if "/" not in k}
+    tree.pop("grads")
+    with np.load(TCACHE_FIXTURE) as npz:
+        ref_tree = flax_tree_from_npz(npz)
+        ref = {k: npz[k] for k in npz.files if "/" not in k}
+    bundle = build_model(load_config(dict(
+        FLAGSHIP, img_size=fx["content"].shape[1], exec_strategy="folded")),
+        dev)
+    bundle.load_state_dict(from_flax_params(tree))
+    vgg = VGG19Encoder()
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(
+        int(fx["vgg_seed"]))))
+    vgg = vgg.to(dev)
+    c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+    cache = DeviceTargetCache(c.shape[1], torch.float32, 4, 4, device=dev)
+    cache.targets_for_batch(vgg, s, c, [0, 1], [0, 1])
+    targets = cache.targets_for_batch(vgg, s, c, [0, 1], [0, 1])
+    if cache.stats()["hit_steps"] != 1:
+        raise AssertionError(f"target cache {cache.stats()}")
+    runs = {}
+    for label, t in (("cached", targets), ("recomputed", None)):
+        bundle.model.zero_grad(set_to_none=True)
+        _reset_counts()
+        total, parts = bundle.loss(vgg, c, s, targets=t)
+        total.backward()
+        torch.cuda.synchronize()
+        want = TCACHE_HIT_STEP if t is not None else PER_STEP
+        if _counts() != want:
+            raise AssertionError(f"{label} loss launches {_counts()}, "
+                                 f"expected {want}")
+        runs[label] = (parts, {n: p.grad.clone() for n, p in
+                               bundle.model.named_parameters()})
+    parts, grads = runs["cached"]
+    for k in ("content_loss", "style_loss", "total_loss"):
+        got = float(parts[k].detach())
+        if not (abs(got - float(ref[k])) <= LOSS_RTOL * abs(float(ref[k]))
+                and abs(got - float(runs["recomputed"][0][k].detach()))
+                <= 1e-5 * abs(got)):
+            raise AssertionError(f"cached {k} {got} vs rpst {ref[k]}")
+    rgrads = from_flax_params(ref_tree["grads"])
+    worst = 0.0
+    for name, g in grads.items():
+        r = rgrads[name].to(dev)
+        size = float(r.abs().max())
+        if not torch.allclose(g, r, rtol=GRAD_RTOL, atol=GRAD_ATOL_REL * size):
+            raise AssertionError(f"cached step gradient {name}")
+        worst = max(worst, float((g - runs["recomputed"][1][name]).abs()
+                                 .max()) / size)
+    log("34 slice-4 fixture", f"target cache: the cached flagship step (64px "
+        f"b2) vs rpst's pretargets loss (rtol {LOSS_RTOL}) and gradients, "
+        f"B1/B2/B3 {TCACHE_HIT_STEP} against {PER_STEP} recomputed; cached "
+        f"vs recomputed gradients {worst:.3g} of max")
+
+
+def _mst_parity(bundle, c, s, folded, standard):
+    """Phase 35's mst check: the deepest scale's k-means labels, folded
+    against standard and bf16 against f32 (the flip shares), the fused
+    features on the content channels whose matched cluster holds the same
+    style channels in both layouts (all of them when no label flips), and
+    the stylized output when no label flips; all at F32_TOL."""
+    import torch
+    from rpst_torch.models.fast_path import _encode_folded
+    from rpst_torch.ops.folded import unfold
+    from rpst_torch.ops.kmeans import kmeans
+    from rpst_torch.ops.mst import mst_labels, mst_transfer_batch
+    with torch.inference_mode():
+        feats = {dt: _encode_folded(bundle.folded_weights(dt), c, s, dt)
+                 for dt in (torch.float32, torch.bfloat16)}
+        cf_std, sf_std = bundle.model.ms.encode(c, s)
+        cf_f, sf_f = (unfold(f[-1]) for f in feats[torch.float32])
+        cf_s, sf_s = (f[-1].permute(0, 2, 3, 1) for f in (cf_std, sf_std))
+        width = cf_f.shape[-1]
+        flips = {"standard": 0, "bf16": 0}
+        keep = []
+        for i in range(cf_f.shape[0]):
+            lab_f, match_f = mst_labels(cf_f[i].reshape(-1, width),
+                                        sf_f[i].reshape(-1, width))
+            lab_s, match_s = mst_labels(cf_s[i].reshape(-1, width),
+                                        sf_s[i].reshape(-1, width))
+            lab16 = kmeans(unfold(feats[torch.bfloat16][1][-1])[i]
+                           .reshape(-1, width).t().float(), 3)[0]
+            flips["standard"] += int((lab_s != lab_f).sum())
+            flips["bf16"] += int((lab16 != lab_f).sum())
+            members_f = lab_f[None, :] == match_f[:, None]
+            members_s = lab_s[None, :] == match_s[:, None]
+            keep.append((members_f == members_s).all(dim=1))
+        keep = torch.stack(keep)                       # (N, C)
+        if not bool(keep.any()):
+            raise AssertionError("512 mst: no content channel's cluster "
+                                 "agrees folded vs standard")
+        fused_f = mst_transfer_batch(cf_f, sf_f)
+        fused_s = mst_transfer_batch(cf_s, sf_s)
+    n_ch = keep.numel()
+    mask = keep[:, None, None, :].expand_as(fused_f)
+    err, _ = check_close("mst fused folded vs standard", fused_f[mask],
+                         fused_s[mask], F32_TOL)
+    msg = (f"style-channel label flips folded vs standard "
+           f"{flips['standard'] / n_ch:.3f}, bf16 vs f32 "
+           f"{flips['bf16'] / n_ch:.3f} of {n_ch} channels; fused features "
+           f"{err:.3g} on the {int(keep.sum())} of {n_ch} content channels "
+           f"whose cluster agrees")
+    if flips["standard"] == 0:
+        out_err, mae = check_close("512 mst folded vs standard", folded,
+                                   standard, F32_TOL)
+        msg = (f"f32 folded vs standard max err {out_err:.3g}, MAE "
+               f"{mae:.3g}; " + msg)
+    else:
+        msg += "; the output is not compared (labels flipped)"
+    return msg
+
+
+def _s4_parity(dev, rng):
+    """Phase 35: 512px b2, each variant's folded path (B1) against its
+    standard module, bf16 against f32, q8 against folded f32; mst's
+    through ``_mst_parity``."""
+    import numpy as np
+    import torch
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    c = torch.from_numpy(rng.random((2, IMG, IMG, 3), np.float32)).to(dev)
+    s = torch.from_numpy(rng.random((2, IMG, IMG, 3), np.float32)).to(dev)
+    for network in S4_NETWORKS:
+        cfg = _s4_cfg(network, IMG, compute_dtype="float32")
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        folded = bundle.stylize(c, s)
+        standard = bundle.stylize(c, s, folded=False)
+        torch.cuda.synchronize()
+        msg = []
+        if network == "mst":
+            msg.append(_mst_parity(bundle, c, s, folded, standard))
+        else:
+            err, mae = check_close(f"512 {network} folded vs standard",
+                                   folded, standard, F32_TOL)
+            msg.append(f"f32 folded vs standard max err {err:.3g}, MAE "
+                       f"{mae:.3g}")
+        b16 = build_model(cfg.replace(compute_dtype="bfloat16"), dev)
+        b16.load_state_dict(bundle.model.state_dict())
+        out16 = b16.stylize(c, s)
+        mae16 = (out16 - folded).abs().mean().item()
+        if not (torch.isfinite(out16).all() and mae16 < BF16_S4_MAE):
+            raise AssertionError(f"512 {network} bf16 vs f32 MAE {mae16}")
+        scales = bundle.calibrate_q8(c, s)
+        q8 = bundle.stylize_q8(c, s, scales).cpu().numpy()
+        psnr = _psnr(q8, folded.cpu().numpy())
+        if not psnr > Q8_VS_FOLDED_PSNR:
+            raise AssertionError(f"512 {network} q8 vs f32 {psnr} dB")
+        msg.append(f"bf16 vs f32 MAE {mae16:.3g}; q8 vs folded f32 "
+                   f"{psnr:.2f} dB")
+        log("35 slice-4 parity", f"512px b2 {network}: {'; '.join(msg)}")
+        del bundle, b16
+        torch.cuda.empty_cache()
+
+
+
+def _s4_serve(dev, rng):
+    """Phase 36: sel_multi_adain's serving main path (8 requests through
+    build_model -> resolve_mode -> [calibrate_scales ->] make_run_impl ->
+    DynamicBatcher(b4), folded and q8, counts reset before and read after);
+    serve_torch.py --mode folded and --mode q8 for each variant; the daemon
+    for ccam. Returns the in-process runs' B1 and B4 launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rpst_torch.data import load_image
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
+                                    make_run_impl, resolve_mode)
+    total = {"B1": 0, "B4": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for sub in ("content", "style"):
+            (tmp / sub).mkdir()
+        for i in range(8):
+            Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                            "RGB").save(tmp / "content" / f"c{i}.png")
+        Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                        "RGB").save(tmp / "style" / "s.png")
+        imgs = [load_image(tmp / "content" / f"c{i}.png", IMG)
+                for i in range(8)]
+        style_img = load_image(tmp / "style" / "s.png", IMG)
+        cfg = _s4_cfg("sel_multi_adain", IMG)
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        for asked in ("folded", "q8"):
+            mode = resolve_mode(bundle, asked, batch=4)
+            if mode != asked:
+                raise AssertionError(f"sel resolve_mode({asked}) = {mode}")
+            scales = None
+            if mode == "q8":
+                calib = torch.from_numpy(np.stack(imgs[:4])).to(dev)
+                _reset_counts()
+                scales = calibrate_scales(bundle, calib, torch.from_numpy(
+                    style_img)[None].to(dev).expand_as(calib).contiguous())
+                if (len(scales["act_scales"]) != 14
+                        or _counts(("B1", "B4")) != (S4_CALIB_B1, 0)):
+                    raise AssertionError(f"sel calibration: "
+                                         f"{len(scales['act_scales'])} "
+                                         f"scales, {_counts(('B1', 'B4'))}")
+            batcher = DynamicBatcher(make_run_impl(bundle, mode, scales),
+                                     batch_size=4, max_wait_ms=50.0,
+                                     device=dev)
+            _reset_counts()  # this main path's count starts here
+            try:
+                outs = [f.result(timeout=600) for f in
+                        [batcher.submit(im, style_img) for im in imgs]]
+            finally:
+                batcher.close()
+            got = dict(zip(("B1", "B4"), _counts(("B1", "B4"))))
+            batches = batcher.stats()["batches"]
+            per = ({"B1": S4_STYLIZE_B1, "B4": 0} if mode == "folded"
+                   else {"B1": S4_Q8["B1"], "B4": S4_Q8["B4"]})
+            want = {k: batches * v for k, v in per.items()}
+            if got != want or batches < 2:
+                raise AssertionError(f"sel {mode} main path: launches {got} "
+                                     f"in {batches} batches, expected {want}")
+            for o in outs:
+                if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
+                    raise AssertionError(f"sel {mode} output {o.shape}")
+            for k in total:
+                total[k] += got[k]
+            log("36 slice-4 serve", f"sel_multi_adain {mode}: 8 requests via "
+                f"DynamicBatcher(b4): {batcher.stats()}, launches {got}")
+        del bundle
+        torch.cuda.empty_cache()
+        for network in S4_NETWORKS:
+            if network == "sel_multi_adain":
+                cfg_path = tmp / "sel.yaml"
+                cfg_path.write_text(json.dumps(dict(
+                    FLAGSHIP, network=network, img_size=IMG)))
+                extra = ()
+            else:
+                cfg_path = CCAM_YAML if network == "ccam" else MST_YAML
+                extra = ("--set", f"img_size={IMG}", "shuffle=false",
+                         "test_dir=", "vgg=")
+            for mode, b1, b4 in (
+                    ("folded", 2 * S4_STYLIZE_B1, 0),
+                    ("q8", S4_CALIB_B1 + 2 * S4_Q8["B1"], 2 * S4_Q8["B4"])):
+                t0 = time.perf_counter()
+                text, n_png = _serve_child(cfg_path, tmp, f"{network}_{mode}",
+                                           mode, extra)
+                child = (_logged_count(text, "B1"), _logged_count(text, "B4"))
+                if n_png != 8 or child != (b1, b4) or (
+                        mode == "q8"
+                        and "Calibrated 14 layer scales" not in text):
+                    raise AssertionError(f"serve_torch {network} {mode}: "
+                                         f"{n_png} PNGs, B1 / B4 {child}:\n"
+                                         f"{text[-3000:]}")
+                rate = [ln for ln in text.splitlines() if "Stylized" in ln]
+                log("36 slice-4 serve", f"serve_torch.py {network} --mode "
+                    f"{mode}: 8 PNGs, B1 / B4 launches {child}, "
+                    f"{time.perf_counter() - t0:.1f}s wall; "
+                    f"{rate[-1].split(' - ')[-1] if rate else ''}")
+        # the daemon on ccam's yaml (folded)
+        import yaml
+        ccam_cfg = tmp / "ccam.yaml"
+        ccam_cfg.write_text(json.dumps(dict(
+            yaml.safe_load(CCAM_YAML.read_text()), img_size=IMG,
+            shuffle=False, test_dir="", vgg="")))
+        _, stats = _daemon_round_trip(ccam_cfg, tmp, dict(os.environ))
+        log("36 slice-4 serve", f"ccam daemon: 6/6 ok replies, stats {stats}")
+    return total
+
+
+def _tcache_expected(n_imgs, batch, steps, seed):
+    """(hit steps, miss steps) of rpst's whole-batch rule over the two
+    loaders' key streams (``data.InfiniteSampler``, seeds seed and seed + 1;
+    slots enough for every key)."""
+    from rpst_torch.data import InfiniteSampler
+    streams = (InfiniteSampler(n_imgs, seed), InfiniteSampler(n_imgs,
+                                                                seed + 1))
+    cached = (set(), set())
+    hits = 0
+    for _ in range(steps):
+        keys = [[next(st) for _ in range(batch)] for st in streams]
+        if all(k in c for ks, c in zip(keys, cached) for k in ks):
+            hits += 1
+        for ks, c in zip(keys, cached):
+            c.update(ks)
+    return hits, steps - hits
+
+
+def _s4_train(dev):
+    """Phase 37: train_torch.py for each variant at its settings (512px,
+    folded; sel_multi_adain b4 f32, ccam and mst their yamls' b2 bf16): 3
+    steps as a subprocess, then a resume for 2 in this process, counts
+    reset before and read after; sel_multi_adain's running statistics put
+    back on a forced non-finite step; the flagship with ``target_cache:
+    512`` on a corpus revisited within the run. Returns the in-process B1 /
+    B2 / B3 launches."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from rpst_torch.models import build_model, build_vgg
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import create_train_state, train_step
+
+    spec = importlib.util.spec_from_file_location("train_torch",
+                                                  REPO / "train_torch.py")
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    total = [0, 0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        corpus = [f"content_dir={tmp / 'corpus' / 'content'}",
+                  f"style_dir={tmp / 'corpus' / 'style'}"]
+        for network in S4_NETWORKS:
+            out = tmp / f"run_{network}"
+            if network == "sel_multi_adain":
+                cfg_path = tmp / "sel_train.yaml"
+                cfg_path.write_text(json.dumps(dict(
+                    FLAGSHIP, network=network, img_size=IMG,
+                    exec_strategy="folded", batch_size=4)))
+                sets = []
+            else:
+                cfg_path = CCAM_YAML if network == "ccam" else MST_YAML
+                # the yamls' checkpoint_path is a warm start that resume
+                # would read: the run resumes from its own checkpoints
+                sets = ["shuffle=false", "exec_strategy=folded", "vgg=",
+                        "test_dir=", "checkpoint_path="]
+            args = ["--config", str(cfg_path), "--device", "cuda", "--set",
+                    *sets, f"img_size={IMG}", "num_workers=4", "log_iter=1",
+                    "snapshot_save_iter=2", *corpus, f"output={out}"]
+            per = S4_PER_STEP[network]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(REPO / "train_torch.py"), *args,
+                 "max_iter=4"], capture_output=True, text=True, timeout=900,
+                cwd=str(REPO))
+            text = proc.stdout + proc.stderr
+            child = [tuple(int(v) for v in ln.rsplit(":", 1)[1].split("/"))
+                     for ln in text.splitlines()
+                     if "B1/B2/B3 launches:" in ln]
+            if proc.returncode != 0 or child != [tuple(3 * n for n in per)]:
+                raise AssertionError(f"train_torch.py {network} rc "
+                                     f"{proc.returncode}, launches {child}, "
+                                     f"expected 3 x {per}:\n{text[-3000:]}")
+            rates = [ln.split("img/s ")[1].split(",")[0]
+                     for ln in text.splitlines() if "img/s" in ln]
+            _reset_counts()  # the main path's count starts here
+            driver.main([*args, "resume=true", "max_iter=3"])
+            launches = _counts()
+            if launches != tuple(2 * n for n in per):
+                raise AssertionError(f"resumed {network} launches "
+                                     f"{launches}, expected 2 x {per}")
+            lines = [json.loads(ln) for ln in (out / "logs" / "metrics.jsonl")
+                     .read_text().splitlines()]
+            if [ln["step"] for ln in lines] != [1, 2, 3, 4, 5] or any(
+                    ln["skipped"] or not np.isfinite(ln["total_loss"])
+                    for ln in lines):
+                raise AssertionError(f"{network} metrics.jsonl: {lines}")
+            total = [a + b for a, b in zip(total, launches)]
+            log("37 slice-4 train", f"train_torch.py {network} {IMG}px "
+                f"folded: 3 steps in {time.perf_counter() - t0:.1f}s wall "
+                f"(img/s per step {rates}), child launches {child[0]}; "
+                f"resumed for steps 4-5: B1/B2/B3 {launches} (2 x {per}), "
+                f"total_loss {[round(ln['total_loss'], 5) for ln in lines]}")
+
+        # sel_multi_adain's BatchNorm statistics across a skipped step
+        cfg = _s4_cfg("sel_multi_adain", IMG, batch_size=2)
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        vgg, _ = build_vgg(cfg, dev)
+        state = create_train_state(bundle)
+        g = torch.Generator().manual_seed(0)
+        c, s = (torch.rand(2, IMG, IMG, 3, generator=g).to(dev)
+                for _ in range(2))
+        train_step(state, vgg, c, s)
+        before = [b.clone() for b in bundle.model.buffers()]
+        bad = s.clone()
+        bad[0, 0, 0, 0] = float("nan")
+        skipped = float(train_step(state, vgg, c, bad)["skipped"])
+        same = all(torch.equal(a, b) for a, b in
+                   zip(bundle.model.buffers(), before))
+        moved = float(train_step(state, vgg, c, s)["skipped"]) == 0.0 and \
+            not all(torch.equal(a, b) for a, b in
+                    zip(bundle.model.buffers(), before))
+        if not (skipped == 1.0 and same and moved and len(before) == 6):
+            raise AssertionError(f"sel skip: skipped {skipped}, statistics "
+                                 f"kept {same}, moved after {moved}")
+        log("37 slice-4 train", "sel_multi_adain b2: a non-finite step is "
+            "skipped and its 6 BatchNorm running statistics stay bit-equal; "
+            "the next finite step moves them")
+        del bundle, state
+        torch.cuda.empty_cache()
+
+        # the flagship with the target cache: 8 images a side at b4
+        out = tmp / "run_tcache"
+        cfg_path = tmp / "tcache.yaml"
+        steps = 7
+        cfg_path.write_text(json.dumps(dict(
+            FLAGSHIP, img_size=IMG, exec_strategy="folded", batch_size=4,
+            max_iter=steps + 1, snapshot_save_iter=100, log_iter=1,
+            num_workers=4, target_cache=512,
+            content_dir=str(tmp / "corpus" / "content"),
+            style_dir=str(tmp / "corpus" / "style"), output=str(out))))
+        hits, misses = _tcache_expected(8, 4, steps, 0)
+        _reset_counts()
+        lines = []
+
+        import logging
+
+        class _Keep(logging.Handler):  # the driver's log lines
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        from rpst_torch.metrics import logger
+        keep = _Keep()
+        logger.addHandler(keep)
+        try:
+            driver.main(["--config", str(cfg_path), "--device", "cuda"])
+        finally:
+            logger.removeHandler(keep)
+        launches = _counts()
+        want = tuple(misses * a + hits * b
+                     for a, b in zip(PER_STEP, TCACHE_HIT_STEP))
+        stats = [ln for ln in lines if "target_cache stats:" in ln]
+        slot_line = [ln for ln in lines if "content slots" in ln]
+        if (launches != want or not stats
+                or f"'hit_steps': {hits}, 'miss_steps': {misses}"
+                not in stats[-1]):
+            raise AssertionError(f"target cache run: launches {launches} "
+                                 f"(expected {want}), {stats}")
+        total = [a + b for a, b in zip(total, launches)]
+        log("37 slice-4 train", f"flagship b4 f32 target_cache 512: "
+            f"{steps} steps, {stats[-1].split('stats: ')[1]} (the loaders' "
+            f"key streams give {hits} hits / {misses} misses), B1/B2/B3 "
+            f"{launches}; {slot_line[0] if slot_line else ''}")
+    return tuple(total)
+
+
+def _s4_timing(dev, rng, name_power):
+    """Phase 38: 512px stylize b1 / b8 for each variant (folded B1,
+    standard, q8 on B4; bf16, as the yamls serve, and f32 folded) in both
+    orders; each variant's train step at its settings; the flagship's b1 /
+    b4 step, f32 and bf16, with float targets, int8 targets and the cache
+    hitting, in both orders."""
+    import numpy as np
+    import torch
+    from rpst_torch.models import build_model, build_vgg
+    from rpst_torch.models.fast_path_q8_std import calibrate_vgg_targets_q8
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import create_train_state, train_step
+    from rpst_torch.train.target_cache import DeviceTargetCache
+
+    def img(n):
+        return torch.from_numpy(rng.random((n, IMG, IMG, 3),
+                                           np.float32)).to(dev)
+
+    for network in S4_NETWORKS:
+        cfg = _s4_cfg(network, IMG, compute_dtype="bfloat16")
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        f32 = build_model(cfg.replace(compute_dtype="float32"), dev)
+        f32.load_state_dict(bundle.model.state_dict())
+        for batch in (1, 8):
+            c, s = img(batch), img(batch)
+            scales = bundle.calibrate_q8(c, s)
+            paths = {
+                "folded f32": lambda: f32.stylize(c, s),
+                "folded bf16": lambda: bundle.stylize(c, s),
+                "standard bf16": lambda: bundle.stylize(c, s, folded=False),
+                "q8 bf16": lambda: bundle.stylize_q8(c, s, scales)}
+            order = ("folded bf16", "standard bf16", "q8 bf16", "folded f32",
+                     "q8 bf16", "standard bf16", "folded bf16")
+            for path in order:
+                ms = cuda_ms(paths[path], iters=5, warmup=2)
+                log("38 slice-4 timing", f"{network} 512px b{batch} "
+                    f"{path:13s}: {ms:8.3f} ms {batch * 1e3 / ms:8.2f} "
+                    f"img/s ({name_power})")
+        del bundle, f32
+        torch.cuda.empty_cache()
+
+    # the train step at each variant's settings, then the flagship's
+    settings = [("sel_multi_adain", 4, "float32"),
+                ("sel_multi_adain", 4, "bfloat16"), ("ccam", 2, "bfloat16"),
+                ("mst", 2, "bfloat16")]
+    for network, batch, dt in settings:
+        cfg = _s4_cfg(network, IMG, compute_dtype=dt, batch_size=batch)
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        vgg, _ = build_vgg(cfg, dev)
+        state = create_train_state(bundle)
+        c, s = img(batch), img(batch)
+        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=5, warmup=2)
+        log("38 slice-4 timing", f"{network} train step 512px b{batch} "
+            f"{dt}: {ms:8.3f} ms {batch * 1e3 / ms:8.2f} img/s "
+            f"({name_power})")
+        del bundle, state
+        torch.cuda.empty_cache()
+
+    for batch in (1, 4):
+        for dt in ("float32", "bfloat16"):
+            cfg = _s4_cfg("multi_adain", IMG, compute_dtype=dt,
+                          batch_size=batch)
+            bundle = build_model(cfg, dev)
+            init_torch_default(bundle.model, cfg.seed)
+            vgg, _ = build_vgg(cfg, dev)
+            state = create_train_state(bundle)
+            c, s = img(batch), img(batch)
+            cache = DeviceTargetCache(IMG, bundle.folded_dtype(), batch,
+                                      batch, device=dev)
+            keys = list(range(batch))
+            cache.targets_for_batch(vgg, s, c, keys, keys)  # the one miss
+            q8s = calibrate_vgg_targets_q8(vgg, c, s)
+
+            def step(kind):
+                bundle.q8_target_scales = q8s if kind == "int8" else None
+                targets = (cache.targets_for_batch(vgg, s, c, keys, keys)
+                           if kind == "cache" else None)
+                return train_step(state, vgg, c, s, targets=targets)
+
+            bundle.cfg = cfg.replace(train_q8_targets=True)
+            for kind in ("float", "int8", "cache", "cache", "int8", "float"):
+                ms = cuda_ms(lambda: step(kind), iters=5, warmup=2)
+                log("38 slice-4 timing", f"flagship train step 512px "
+                    f"b{batch} {dt:8s} {kind:5s} targets: {ms:8.3f} ms "
+                    f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
+            del bundle, state, cache
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,12 @@ with ``use_mask`` off), seeded weights and VGG, at b1 and b4: the standard
 stylize, with ``--q8`` the int8 stylize (B5; no B6), with ``--train`` the
 train step (no kernel of the port: the B5 column reads 0). With ``--train
 --q8-targets`` the flagship's train step with the int8 VGG loss targets on
-B5 (whatever ``rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH`` says).
+B5 (whatever ``rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH`` says). With
+``--network sel_multi_adain``, ``ccam`` or ``mst`` the flagship's variants
+(sel_multi_adain at the flagship's widths; ccam and mst at their yamls'
+settings with ``shuffle`` off), folded, seeded weights, as the flagship:
+the stylize at b1 and b8, ``--q8`` the int8 stylize (B4 alone), ``--train``
+the train step at b1 and b4.
 
 For each case it prints one Markdown table row:
 
@@ -48,7 +53,8 @@ sanet, dynamic_sanet and src the file name has ``_<network>`` where adain's
 has ``_adain``.)
 
     python3 profile_torch.py [--train [--q8-targets] | --q8]
-                             [--network adain|sanet|dynamic_sanet|src]
+                             [--network adain|sanet|dynamic_sanet|src|
+                                        sel_multi_adain|ccam|mst]
 """
 
 import argparse
@@ -83,6 +89,14 @@ KERNELS = {"B1": ("folded_mma_kernel[B1]",),
            "B6": ("flash_fwd_tf32_kernel", "flash_fwd_mma_kernel"),
            "B6c": ("flash_bwd_dq_kernel",), "B6d": ("flash_bwd_dkv_kernel",)}
 ADAIN = dict(network="adain", rp_blocks=5, hidden_dim=32, seed=0)
+# the flagship's variants: sel_multi_adain at the flagship's widths
+# (bench.py:476-478), ccam and mst at their yamls'
+VARIANT_YAMLS = {
+    "sel_multi_adain": None,
+    "ccam": REPO / "configs"
+    / "train_constant_multiscale_rp_adain_channel_attention.yaml",
+    "mst": REPO / "configs"
+    / "train_constant_multiscale_rp_adain_global_mst.yaml"}
 # the feature models' configs (src serves q8 only without masks)
 FEATURE_YAMLS = {
     "sanet": (REPO / "configs" / "train_static_sanet.yaml", {}),
@@ -189,7 +203,8 @@ def main():
     mode.add_argument("--q8", action="store_true",
                       help="profile the int8 stylize instead")
     ap.add_argument("--network", choices=("multi_adain", "adain", "sanet",
-                                          "dynamic_sanet", "src"),
+                                          "dynamic_sanet", "src",
+                                          *VARIANT_YAMLS),
                     default="multi_adain",
                     help="adain: its standard (or with --q8 its int8) "
                     "stylize at b1 and b4; sanet, dynamic_sanet, src: the "
@@ -219,6 +234,12 @@ def main():
         yaml, extra = FEATURE_YAMLS[args.network]
         cfg = load_config(str(yaml), dict(img_size=IMG, vgg="", test_dir="",
                                           **extra))
+    elif args.network in VARIANT_YAMLS:
+        yaml = VARIANT_YAMLS[args.network]
+        over = dict(img_size=IMG, vgg="", test_dir="", shuffle=False,
+                    exec_strategy="folded", train_q8_targets=args.q8_targets)
+        cfg = (load_config(dict(FLAGSHIP, network=args.network, **over))
+               if yaml is None else load_config(str(yaml), over))
     else:
         cfg = load_config(dict(ADAIN if adain else FLAGSHIP, img_size=IMG,
                                train_q8_targets=args.q8_targets))
@@ -281,12 +302,19 @@ def main():
                 if dt == torch.float32:
                     continue  # q8 serves in bfloat16 around the int8 layers
                 scales = bundle.calibrate_q8(c, s)
-                for fuse in (False, True):
+                # B7 pairs are the flagship's alone (as in rpst)
+                for fuse in ((False, True) if args.network == "multi_adain"
+                             else (False,)):
                     report(f"b{batch} q8 {'B7 pairs' if fuse else 'B4'}",
                            lambda: bundle.stylize_q8(c, s, scales,
                                                      fuse_pairs=fuse),
                            cols, iters=20, calls=5, card=card,
                            tables=tables)
+                continue
+            if args.network in VARIANT_YAMLS:
+                report(f"{label} {args.network}",
+                       lambda: bundle.stylize(c, s), cols, iters=20,
+                       calls=5, card=card, tables=tables)
                 continue
             w = bundle.folded_weights(dt)
             with torch.inference_mode():

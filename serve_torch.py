@@ -11,7 +11,9 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
                         hand-written CUDA kernels: the flagship's folded
                         layers on B4 (B7 pairs where
                         ``rpst_torch.policy.FUSE_PAIRS``) with the image
-                        layers on B1, adain's and wct's wide
+                        layers on B1, the same for sel_multi_adain, ccam
+                        and mst (B4 alone; their SE bottleneck, CCAM
+                        residuals and MST transform in plain PyTorch), adain's and wct's wide
                         standard-layout layers on B5, sanet's and
                         dynamic_sanet's frozen VGG encode (conv_4 ..
                         conv_13 on the 2N batch) and mirror decoder (conv0
@@ -33,9 +35,12 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
                         (``rpst_torch.policy``, PERF.md section 6).
 
 At the end it logs the B1, B4, B7, B5 and B6 launch counts of the run.
-Networks: multi_adain (the flagship), adain, wct, sanet, dynamic_sanet and
-src (``--mode folded`` falls back to standard for all but the flagship,
-with a warning; src's ``use_mask: true`` serves standard). The feature
+Networks: multi_adain (the flagship), sel_multi_adain, ccam, mst, adain,
+wct, sanet, dynamic_sanet and src (``--mode folded`` and ``q8`` fall back
+to standard, with a warning, for a config the folded path does not cover:
+the feature models, adain, wct, and ccam's and mst's yamls with their
+``shuffle: true``, which ``--set shuffle=false`` turns off; src's
+``use_mask: true`` serves standard). The feature
 models (sanet, dynamic_sanet, src) load their frozen VGG from the config's
 ``vgg`` (``.pth`` or ``.npz``), or seed a random one, with a warning.
 

@@ -6,8 +6,10 @@ flagship's Conv2dBlock stacks, ``encoder.conv_{i}.Conv_0.weight`` for the
 ``RPSequence`` stacks of adain and wct, ``transform.sanet4_1.f.weight`` ..
 ``transform.merge_conv.Conv_0.weight`` and ``decoder.conv{i}.Conv_0.weight``
 for the SANets, with ``transform.sanet4_1.attention_layer.f_psi.{0,2}.weight``
-for the adaptive one's threshold MLP, and ``decoder.conv{i}.Conv_0.weight``
-alone for SourceNet):
+for the adaptive one's threshold MLP, ``decoder.conv{i}.Conv_0.weight``
+alone for SourceNet, and ``ms.rp_shared_encoder...`` with
+``attention_block.*`` (the SE bottleneck) or ``ccam_{i}.scale`` for
+sel_multi_adain and ccam):
 
   * ``from_flax_params(tree)``: a nested dict of numpy arrays as rpst's
     flax model holds it (kernels HWIO) -> state_dict (kernels OIHW), the
@@ -16,7 +18,10 @@ alone for SourceNet):
     adain's, wct's, the SANets' and SourceNet's ``params`` all cross
     through it; dynamic_sanet's ``aea/psi0`` and ``aea/psi1`` Dense kernels
     (in, out) become ``attention_layer.f_psi.0`` and ``.2`` Linear weights
-    (out, in);
+    (out, in), as do the SE layer's ``Dense_0`` / ``Dense_1``; a
+    BatchNorm's ``scale`` becomes its ``weight``, and
+    ``from_flax_batch_stats`` maps rpst's ``batch_stats`` (``mean``,
+    ``var``) onto the BatchNorm buffers;
   * ``from_reference_checkpoint(ckpt)``: the reference ``.pth`` layout
     ``{'encoder': sd, 'decoder': sd}``, which
     ``tools/export_reference_checkpoint.py`` writes from an rpst
@@ -87,29 +92,46 @@ PSI_NAMES = {".aea.psi0.": ".attention_layer.f_psi.0.",
 
 def from_flax_params(tree) -> Dict[str, torch.Tensor]:
     """rpst params tree (``{'rp_shared_encoder': {'block_0': {'PadConv_0':
-    {'Conv_0': {'kernel', 'bias'}}}}, ...}``) -> port state_dict."""
+    {'Conv_0': {'kernel', 'bias'}}}}, ...}``) -> port state_dict. Conv
+    kernels (HWIO) become OIHW weights, Dense kernels (in, out) Linear
+    weights (out, in), a BatchNorm's ``scale`` its ``weight``; a CCAM
+    module's ``scale`` keeps its name."""
     sd = {}
     for key, value in _flatten(tree):
         arr = np.array(value, np.float32)  # a writable copy
         psi = [k for k in PSI_NAMES if k in f".{key}"]
         if psi:
             key = f".{key}".replace(psi[0], PSI_NAMES[psi[0]])[1:]
-            if key.endswith(".kernel"):
-                if arr.ndim != 2:
-                    raise ValueError(f"{key}: expected a Dense kernel (in, "
-                                     f"out), got shape {arr.shape}")
-                key, arr = key[:-len("kernel")] + "weight", arr.T.copy()
-            sd[key] = torch.from_numpy(arr)
-        elif key.endswith(".kernel"):
-            if arr.ndim != 4:
-                raise ValueError(f"{key}: expected an HWIO conv kernel, got "
-                                 f"shape {arr.shape}")
-            sd[key[:-len("kernel")] + "weight"] = torch.from_numpy(
-                np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
-        elif key.endswith(".bias"):
-            sd[key] = torch.from_numpy(arr)
-        else:
+        if key.endswith(".kernel"):
+            key = key[:-len("kernel")] + "weight"
+            if arr.ndim == 2:
+                arr = arr.T.copy()
+            elif arr.ndim == 4:
+                arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+            else:
+                raise ValueError(f"{key}: expected an HWIO conv kernel or a "
+                                 f"Dense kernel (in, out), got shape "
+                                 f"{arr.shape}")
+        elif key.endswith(".scale") and key.split(".")[-2].startswith("bn"):
+            key = key[:-len("scale")] + "weight"
+        elif not (key.endswith(".bias") or key.endswith(".scale")):
             raise ValueError(f"unexpected flax param {key!r}")
+        sd[key] = torch.from_numpy(arr)
+    return sd
+
+
+def from_flax_batch_stats(tree) -> Dict[str, torch.Tensor]:
+    """rpst's ``batch_stats`` collection (``{'attention_block': {'bn1':
+    {'mean', 'var'}}}``) -> the port's BatchNorm buffers
+    (``attention_block.bn1.running_mean`` / ``.running_var``)."""
+    names = {"mean": "running_mean", "var": "running_var"}
+    sd = {}
+    for key, value in _flatten(tree):
+        stem, _, leaf = key.rpartition(".")
+        if leaf not in names:
+            raise ValueError(f"unexpected flax batch stat {key!r}")
+        sd[f"{stem}.{names[leaf]}"] = torch.from_numpy(
+            np.array(value, np.float32))
     return sd
 
 

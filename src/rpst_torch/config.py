@@ -21,7 +21,13 @@ DEFAULTS: Dict[str, Any] = {
     "enc_stack_way": "constant",
     "attention": "none",
     "shuffle": False,
+    "shuffle_layers": 1,
     "sort": False,
+    # ccam / mst: the fused scales (None -> rp_blocks), MST's k-means
+    # cluster count and Potts weight (the reference's lambda is 0)
+    "stylized_layers": None,
+    "n_clusters": 3,
+    "mst_lambda": 0.0,
     "use_mask": False,
     "img_size": 512,
     "seed": 0,
@@ -61,7 +67,7 @@ DEFAULTS: Dict[str, Any] = {
     "distributed": False,
     "grad_accum": 1,
     "remat": False,
-    # int8 no-grad VGG loss targets of the folded flagship loss (B5)
+    # int8 no-grad VGG loss targets of the folded families' loss (B5)
     "train_q8_targets": False,
 }
 
@@ -114,6 +120,8 @@ def load_config(path_or_dict, overrides: Optional[Dict[str, Any]] = None
     cfg = dict(DEFAULTS)
     cfg.update({k: v for k, v in user.items() if v is not None})
     cfg.update(overrides or {})
+    if cfg["stylized_layers"] is None:
+        cfg["stylized_layers"] = cfg["rp_blocks"]
     if cfg["attention"] in (False, None):
         cfg["attention"] = "none"
     if cfg["network"] not in _NETWORKS:

@@ -95,11 +95,15 @@ class InfiniteLoader:
     Unlike rpst's loader, batches come out in sampler order whatever the
     number of workers, so a seed fixes the stream; ``skip`` drops that many
     batches' indices first (no decoding), so a resumed run continues the
-    stream where it stopped. A worker's error is raised by ``next``."""
+    stream where it stopped. A worker's error is raised by ``next``. With
+    ``with_indices`` it yields (dataset indices, batch), the keys of the
+    target cache (``train.target_cache``), as rpst's loader does."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 seed=None, prefetch: int = 4, skip: int = 0):
+                 seed=None, prefetch: int = 4, skip: int = 0,
+                 with_indices: bool = False):
         self.dataset = dataset
+        self.with_indices = with_indices
         self.batch_size = batch_size
         self.prefetch = max(1, prefetch)
         self._sampler = InfiniteSampler(len(dataset), seed)
@@ -128,6 +132,8 @@ class InfiniteLoader:
                 idx = [next(self._sampler) for _ in range(self.batch_size)]
             try:
                 batch = np.stack([self.dataset[i] for i in idx])
+                if self.with_indices:
+                    batch = (tuple(idx), batch)
             except Exception as e:  # handed to the consumer, raised there
                 batch = e
             with self._cond:
@@ -137,7 +143,7 @@ class InfiniteLoader:
     def __iter__(self):
         return self
 
-    def __next__(self) -> np.ndarray:
+    def __next__(self):
         with self._cond:
             while self._out_seq not in self._ready:
                 self._cond.wait()

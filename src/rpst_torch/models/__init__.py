@@ -1,14 +1,18 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
-The port covers six networks: the flagship ``multi_adain`` (constant RP
+The port covers nine networks: the flagship ``multi_adain`` (constant RP
 stack) for serving (folded, standard and int8 q8) and training (with
-float or int8 loss targets); ``adain`` for serving (standard and q8) and
+float, int8 or cached loss targets); its three variants on the same stack,
+``sel_multi_adain`` (an SE bottleneck on the last fusion), ``ccam`` (a
+cross-channel attention residual) and ``mst`` (k-means channel matching),
+each for serving (folded, standard and q8 on B4) and training (folded and
+standard); ``adain`` for serving (standard and q8) and
 standard training; ``wct`` for serving (standard and q8); the static
 ``sanet`` for serving (standard and q8) and training, its attention on B6;
 the adaptive ``dynamic_sanet`` (its attention plain PyTorch, dense or
 streamed) and ``src`` (SourceNet, AdaIN at relu4_1), each for serving
 (standard and q8 on B5) and training. ``build_model`` raises ``ValueError``
-for the other 11, naming the ROADMAP.md slice that brings each.
+for the other 8, naming the ROADMAP.md slice that brings each.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
@@ -22,15 +26,18 @@ device and exposes what the serving CLI calls:
   * ``q8_infer()`` / ``q8_recommended(batch)``: whether the int8 PTQ path
     covers the config, and whether ``--mode auto`` should take it;
     ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights
-    (the flagship folded on B4/B7; adain, wct and the feature models
-    standard-layout on B5),
+    (the flagship and its three variants folded on B4, the flagship's
+    encoder pairs on B7 with ``fuse_pairs``; adain, wct and the feature
+    models standard-layout on B5),
   * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
   * ``loss(vgg, content, style)`` -> (total, parts): the training loss
     (rpst's ``ModelBundle.loss``), differentiable in the model's
     parameters; ``build_vgg`` makes its frozen encoder. With
     ``train_q8_targets`` and ``q8_target_scales`` set (``train_torch.py``
     calibrates them on the first batch) the flagship's style and content
-    targets come from the int8 VGG chain on B5. The feature models' loss is
+    targets come from the int8 VGG chain on B5; with ``targets`` (the target
+    cache, ``train.target_cache``) the folded families' targets are given.
+    The feature models' loss is
     the model's own: ``SAModel.loss`` (content, style and two identity
     terms) for sanet and dynamic_sanet, ``SourceNet.loss`` (style, and
     content against the AdaIN target) for src.
@@ -47,14 +54,21 @@ import torch
 from ..config import Config
 from ..nn.vgg import VGG19Encoder
 from ..nn.vgg_folded import (ConvAct, perceptual_rp_losses_folded,
+                             perceptual_rp_losses_folded_pretargets,
                              perceptual_rp_losses_q8targets)
 from ..ops.folded_conv import folded_conv_act
-from .adain_rp import AdaINRP, MultiScaleAdaINRP
+from .adain_rp import CCAMRP, MSTRP, AdaINRP, MultiScaleAdaINRP, SELastRP
 from .base import perceptual_rp_losses
-from .fast_path import (folded_blocks, live_folded_blocks,
-                        stylize_multi_adain_folded)
-from .fast_path_q8 import (calibrate_multi_adain_q8, quantize_blocks,
-                           stylize_multi_adain_folded_q8)
+from .fast_path import (folded_blocks, live_folded_blocks, se_weights,
+                        stylize_ccam_folded, stylize_mst_folded,
+                        stylize_multi_adain_folded,
+                        stylize_sel_multi_adain_folded)
+from .fast_path_q8 import (calibrate_ccam_q8, calibrate_mst_q8,
+                           calibrate_multi_adain_q8,
+                           calibrate_sel_multi_adain_q8, quantize_blocks,
+                           stylize_ccam_folded_q8, stylize_mst_folded_q8,
+                           stylize_multi_adain_folded_q8,
+                           stylize_sel_multi_adain_folded_q8)
 from .fast_path_q8_std import (calibrate_adain_q8, calibrate_sanet_q8,
                                calibrate_src_q8, calibrate_wct_q8,
                                quantize_convs, quantize_std, sanet_blocks,
@@ -67,17 +81,21 @@ from .wct_rp import WCTRP
 
 __all__ = ["build_model", "build_vgg", "vgg_stages", "roadmap_slice",
            "ModelBundle", "MultiScaleAdaINRP", "AdaINRP", "WCTRP", "SAModel",
-           "SourceNet"]
+           "SourceNet", "SELastRP", "CCAMRP", "MSTRP"]
 
 # every other rpst registry network -> the ROADMAP.md section A slice that
 # ports it
-_NOT_PORTED = {
-    **dict.fromkeys(("sel_multi_adain", "ccam", "mst"), "slice 4"),
-    **dict.fromkeys(("seg_adain", "mrf", "spade", "ld_adain", "ld_adain2",
-                     "ld_adain3", "ld_adain4", "ld_adain5"), "slice 5b"),
-}
+_NOT_PORTED = dict.fromkeys(
+    ("seg_adain", "mrf", "spade", "ld_adain", "ld_adain2", "ld_adain3",
+     "ld_adain4", "ld_adain5"), "slice 5b")
 # the networks that stylize from the features of a frozen VGG (bundle.vgg)
 _FEAT_MODELS = ("sanet", "dynamic_sanet", "src")
+# the flagship's constant stack and its three variants: folded and int8 q8
+# paths on B1-B4
+_FOLDED_FAMILY = ("multi_adain", "sel_multi_adain", "ccam", "mst")
+# the networks whose standard stylize runs in test mode (the channel
+# shuffle)
+_TEST_MODE_MODELS = ("multi_adain", "ccam")
 
 
 def roadmap_slice(network: str) -> Optional[str]:
@@ -95,7 +113,8 @@ def vgg_stages(network: str) -> int:
 @dataclasses.dataclass
 class ModelBundle:
     network: str
-    model: Union[MultiScaleAdaINRP, AdaINRP, WCTRP, SAModel, SourceNet]
+    model: Union[MultiScaleAdaINRP, SELastRP, CCAMRP, MSTRP, AdaINRP, WCTRP,
+                 SAModel, SourceNet]
     cfg: Config
     device: torch.device
     # the frozen encoder whose features the feature models stylize from
@@ -135,29 +154,34 @@ class ModelBundle:
 
     def _folded_stack_ok(self) -> bool:
         c = self.cfg
-        return (self.network == "multi_adain"
+        return (self.network in _FOLDED_FAMILY
                 and c.enc_stack_way != "deeper"
                 and c.inception_num == 0 and c.attention == "none"
                 and not c.shuffle and not c.sort and not c.use_mask)
 
     def folded_exec(self) -> bool:
-        """True when cfg asks for folded execution and the model supports
-        it: multi_adain constant stacks without inception, attention,
-        shuffle, sort or masks."""
-        return (self.cfg.get("exec_strategy", "standard") == "folded"
+        """True when cfg asks for folded execution of the flagship:
+        multi_adain constant stacks without inception, attention, shuffle,
+        sort or masks."""
+        return (self.network == "multi_adain"
+                and self.cfg.get("exec_strategy", "standard") == "folded"
                 and self._folded_stack_ok())
 
     def folded_infer(self) -> bool:
-        """rpst also folds sel_multi_adain, ccam and mst; none of them is
-        ported yet, so here it equals ``folded_exec``."""
-        return self.folded_exec()
+        """Folded execution of the flagship and of sel_multi_adain, ccam and
+        mst (the SE bottleneck, the CCAM residuals and the MST transform
+        fold exactly), for stylize and for the training loss (rpst's
+        ``folded_infer``)."""
+        return (self.cfg.get("exec_strategy", "standard") == "folded"
+                and self._folded_stack_ok())
 
     def q8_infer(self) -> bool:
         """The int8 path covers adain (without masks), wct, sanet,
         dynamic_sanet and src (without masks) on the standard layout, and
-        the folded stacks whose hidden layers fill 128 folded lanes (4 *
-        hidden_dim % 128 == 0): narrower folded stacks have no int8 layer
-        (rpst's gates, ``models/__init__.py:96-115, 147-152``)."""
+        the folded constant stacks (the flagship and its three variants)
+        whose hidden layers fill 128 folded lanes (4 * hidden_dim % 128 ==
+        0): narrower folded stacks have no int8 layer (rpst's gates,
+        ``models/__init__.py:96-115, 147-152``)."""
         if self.network == "adain":
             return not self.cfg.use_mask
         if self.network == "wct":
@@ -210,13 +234,28 @@ class ModelBundle:
 
     def calibrate_q8(self, content: torch.Tensor,
                      style: torch.Tensor) -> Dict[str, Any]:
-        """PTQ calibration: {'act_scales': (L,) float32} from one bfloat16
-        forward of (content, style): folded for the flagship (rpst's
-        ``calibrate_multi_adain_q8``), standard-layout on at most 2 images
-        for adain and wct (``calibrate_adain_q8``, ``calibrate_wct_q8``),
-        the whole batch for the feature models (``calibrate_sanet_q8``,
-        ``calibrate_src_q8``)."""
+        """PTQ calibration: {'act_scales': (L,) float32} from one forward of
+        (content, style), in rpst's type for each network: folded bfloat16
+        for the flagship and mst (rpst's ``calibrate_multi_adain_q8``,
+        ``calibrate_mst_q8``), folded float32 for sel_multi_adain and ccam
+        (``calibrate_sel_multi_adain_q8``, ``calibrate_ccam_q8``),
+        standard-layout bfloat16 on at most 2 images for adain and wct
+        (``calibrate_adain_q8``, ``calibrate_wct_q8``), the whole batch for
+        the feature models (``calibrate_sanet_q8``, ``calibrate_src_q8``)."""
         self._check_q8()
+        c = self.cfg
+        if self.network == "sel_multi_adain":
+            return calibrate_sel_multi_adain_q8(
+                self.folded_weights(torch.float32),
+                self.folded_extras(torch.float32), content, style)
+        if self.network == "ccam":
+            return calibrate_ccam_q8(
+                self.folded_weights(torch.float32),
+                self.folded_extras(torch.float32), content, style,
+                c.stylized_layers)
+        if self.network == "mst":
+            return calibrate_mst_q8(self.folded_weights(torch.bfloat16),
+                                    content, style, **self._mst_args())
         if self.network in ("sanet", "dynamic_sanet"):
             return calibrate_sanet_q8(
                 self._feature_vgg(), self.std_weights(torch.bfloat16),
@@ -240,10 +279,23 @@ class ModelBundle:
         """Int8 inference with calibrated ``scales``: (N, H, W, 3) content
         and style on the bundle's device -> (N, H, W, 3) float32, in
         bfloat16 around the int8 layers as rpst serves it. ``fuse_pairs``
-        applies to the flagship's folded encoder only. Runs under
-        ``torch.inference_mode``."""
+        applies to the flagship's folded encoder only (rpst offers it to no
+        other network). Runs under ``torch.inference_mode``."""
         self._check_q8()
         with torch.inference_mode():
+            if self.network in ("sel_multi_adain", "ccam", "mst"):
+                args = (self.folded_weights(dtype), self.q8_weights())
+                if self.network == "sel_multi_adain":
+                    return stylize_sel_multi_adain_folded_q8(
+                        *args, self.folded_extras(dtype), scales, content,
+                        style, dtype=dtype)
+                if self.network == "ccam":
+                    return stylize_ccam_folded_q8(
+                        *args, self.folded_extras(torch.float32), scales,
+                        content, style, self.cfg.stylized_layers,
+                        dtype=dtype)
+                return stylize_mst_folded_q8(*args, scales, content, style,
+                                             dtype=dtype, **self._mst_args())
             if self.network in ("sanet", "dynamic_sanet"):
                 return stylize_sanet_q8(
                     self._feature_vgg(), self.std_weights(dtype),
@@ -263,6 +315,11 @@ class ModelBundle:
                 self.folded_weights(dtype), self.q8_weights(), scales,
                 content, style, dtype=dtype, fuse_pairs=fuse_pairs)
 
+    def _mst_args(self) -> Dict[str, Any]:
+        c = self.cfg
+        return {"stylized_layers": c.stylized_layers,
+                "n_clusters": c.n_clusters, "mst_lambda": c.mst_lambda}
+
     def _blockwise(self) -> Dict[str, str]:
         """dynamic_sanet's attention route for its int8 path."""
         if self.network != "dynamic_sanet":
@@ -274,7 +331,8 @@ class ModelBundle:
             raise ValueError("the int8 path needs adain without masks, wct, "
                              "sanet or dynamic_sanet with img_size a multiple "
                              "of 16, src without masks with img_size a "
-                             "multiple of 8, or a folded multi_adain stack "
+                             "multiple of 8, or a folded constant stack "
+                             "(multi_adain, sel_multi_adain, ccam, mst) "
                              "with 4 * hidden_dim a multiple of 128")
 
     def folded_dtype(self) -> torch.dtype:
@@ -291,12 +349,57 @@ class ModelBundle:
         self._folded.clear()
 
     def folded_weights(self, dtype: Optional[torch.dtype] = None):
-        """The model's weights folded for ``stylize_multi_adain_folded``,
-        cached per dtype until the next ``load_state_dict``."""
+        """The RP stacks' weights folded for the folded paths, (encoder,
+        decoder), cached per dtype until the next ``load_state_dict``."""
         dtype = dtype or self.folded_dtype()
         if dtype not in self._folded:
             self._folded[dtype] = folded_blocks(self.model, dtype)
         return self._folded[dtype]
+
+    def folded_extras(self, dtype: Optional[torch.dtype] = None,
+                      live: bool = False):
+        """What a variant's folded path needs beside the stacks:
+        sel_multi_adain's ``se_weights`` of its bottleneck in ``dtype``,
+        ccam's ``ccam_{i}.scale`` parameters; None for the others. Detached
+        and cached per dtype for serving, or ``live`` (the training step's,
+        not cached)."""
+        dtype = dtype or self.folded_dtype()
+        if self.network == "sel_multi_adain":
+            if live:
+                return se_weights(self.model.attention_block, dtype,
+                                  detach=False)
+            key = ("se", dtype)
+            if key not in self._folded:
+                self._folded[key] = se_weights(self.model.attention_block,
+                                               dtype)
+            return self._folded[key]
+        if self.network == "ccam":
+            return [m.scale if live else m.scale.detach()
+                    for m in self.model.channel_attentions]
+        return None
+
+    def stylize_folded(self, blocks, extras, content, style, dtype,
+                       conv=None, train: bool = False,
+                       batch_encode: bool = False) -> torch.Tensor:
+        """The network's folded forward on ``blocks`` (``folded_blocks`` or
+        ``live_folded_blocks``) and ``extras`` (``folded_extras``); ``conv``
+        the RP layer function (B1 by default), ``train`` sel_multi_adain's
+        batch-statistic BatchNorms."""
+        kw = {} if conv is None else {"conv": conv}
+        c = self.cfg
+        if self.network == "sel_multi_adain":
+            return stylize_sel_multi_adain_folded(
+                blocks, extras, content, style, dtype=dtype, train=train,
+                **kw)
+        if self.network == "ccam":
+            return stylize_ccam_folded(blocks, extras, content, style,
+                                       c.stylized_layers, dtype=dtype, **kw)
+        if self.network == "mst":
+            return stylize_mst_folded(blocks, content, style, dtype=dtype,
+                                      **self._mst_args(), **kw)
+        return stylize_multi_adain_folded(blocks, content, style,
+                                          dtype=dtype,
+                                          batch_encode=batch_encode, **kw)
 
     def _mix(self, parts: Dict[str, torch.Tensor]) -> torch.Tensor:
         c = self.cfg
@@ -312,29 +415,31 @@ class ModelBundle:
              style: torch.Tensor, targets=None,
              conv_act: ConvAct = folded_conv_act
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The training loss (rpst's ``ModelBundle.loss`` for the flagship):
+        """The training loss (rpst's ``ModelBundle.loss``):
         (total, parts) with parts ``style_loss``, ``content_loss`` and
         ``total_loss`` (sanet and dynamic_sanet: also ``l_identity1_loss``
         and ``l_identity2_loss``, from ``SAModel.loss`` on the 5-stage
         ``vgg``; src: ``SourceNet.loss`` on the 4-stage one), differentiable
         in ``self.model``'s parameters.
 
-        Folded (``folded_exec()``): ``stylize_multi_adain_folded`` on the
-        live folded weights, then the folded VGG loss, every folded conv
-        through ``conv_act`` (B1's autograd Function; a benchmark passes B1's
-        plain version to time the plain path), the RP layers with
-        ``listed=True`` (their kernels are ``fold_conv_kernel``'s output,
-        so B3 computes only the 36 blocks the fold reads); where
-        ``q8_targets_active``
-        the style and content targets come from the int8 VGG chain on B5
-        instead of the folded float pass. Standard: the module's
-        forward, then ``perceptual_rp_losses``, under bfloat16 autocast when
-        compute_dtype says so."""
-        if targets is not None:
-            raise NotImplementedError(
-                "precomputed loss targets (the target cache) are not ported "
-                "yet: ROADMAP.md section A item 7")
+        Folded (``folded_infer()``: the flagship and its three variants):
+        the network's folded forward (``stylize_folded``) on the live folded
+        weights, sel_multi_adain's BatchNorms on the batch statistics (their
+        running statistics move), then the folded VGG loss, every folded
+        conv through ``conv_act`` (B1's autograd Function; a benchmark
+        passes B1's plain version to time the plain path), the RP layers
+        with ``listed=True`` (their kernels are ``fold_conv_kernel``'s
+        output, so B3 computes only the 36 blocks the fold reads). The
+        style and content targets are ``targets`` when given ((t_stats,
+        t_relu4) from ``train.target_cache.DeviceTargetCache``: one VGG
+        sweep, the stylized pass); else, where ``q8_targets_active``, from
+        the int8 VGG chain on B5; else the folded float pass. Standard: the
+        module's forward in train mode, then ``perceptual_rp_losses``, under
+        bfloat16 autocast when compute_dtype says so."""
         c = self.cfg
+        if targets is not None and not self.folded_infer():
+            raise ValueError("precomputed loss targets (the target cache) "
+                             "need a folded-family config (folded_infer)")
         if self.network == "wct":
             raise NotImplementedError(
                 "wct training (the frozen-encoder resume, freeze_prefixes) "
@@ -343,13 +448,18 @@ class ModelBundle:
             with torch.autocast(self.device.type, dtype=torch.bfloat16,
                                 enabled=c.compute_dtype == "bfloat16"):
                 parts = self.model.loss(vgg, content, style)
-        elif self.folded_exec():
+        elif self.folded_infer():
             dtype = self.folded_dtype()
-            stylized = stylize_multi_adain_folded(
-                live_folded_blocks(self.model, dtype), content, style,
-                dtype=dtype,
-                conv=lambda x, k, b: conv_act(x, k, b, 0.2, listed=True))
-            if self.q8_targets_active(content.shape[0]):
+            stylized = self.stylize_folded(
+                live_folded_blocks(self.model, dtype),
+                self.folded_extras(dtype, live=True), content, style, dtype,
+                conv=lambda x, k, b: conv_act(x, k, b, 0.2, listed=True),
+                train=True)
+            if targets is not None:
+                parts, _ = perceptual_rp_losses_folded_pretargets(
+                    vgg, stylized, *targets, c.content_weight,
+                    c.style_weight, dtype=dtype, conv_act=conv_act)
+            elif self.q8_targets_active(content.shape[0]):
                 parts, _ = perceptual_rp_losses_q8targets(
                     vgg, self.q8_target_scales, stylized, style, content,
                     c.content_weight, c.style_weight, dtype=dtype,
@@ -374,7 +484,8 @@ class ModelBundle:
         on, the scales are calibrated, three exact 2x2 pools fit the image
         (img_size % 8 == 0), and the batch reaches the H100's measured
         crossover (``policy.TRAIN_Q8_TARGETS_MIN_BATCH``). Otherwise the
-        loss takes the folded float targets, as rpst does."""
+        loss takes the folded float targets, as rpst does. Any folded
+        family's loss reads it (rpst's gate is ``folded_infer``)."""
         from ..policy import TRAIN_Q8_TARGETS_MIN_BATCH
         return (bool(self.cfg.get("train_q8_targets", False))
                 and self.q8_target_scales is not None
@@ -386,11 +497,12 @@ class ModelBundle:
                 folded: Optional[bool] = None) -> torch.Tensor:
         """Inference: (N, H, W, 3) content and style on the bundle's device
         -> (N, H, W, 3) float32. ``folded`` (default ``folded_infer()``)
-        picks the folded path; otherwise the standard model runs, under
-        bfloat16 autocast when compute_dtype says so (the feature models: on
-        the features of one 2N pass of ``bundle.vgg``; sanet's attention on
-        B6, dynamic_sanet's adaptive transform in float32). Runs under
-        ``torch.inference_mode``."""
+        picks the folded path; otherwise the standard model runs in eval
+        mode (BatchNorm on its running statistics; multi_adain's and ccam's
+        test-time channel shuffle), under bfloat16 autocast when
+        compute_dtype says so (the feature models: on the features of one 2N
+        pass of ``bundle.vgg``; sanet's attention on B6 and both SANets'
+        transforms in float32). Runs under ``torch.inference_mode``."""
         if folded is None:
             folded = self.folded_infer()
         elif folded and not self.folded_infer():
@@ -398,14 +510,21 @@ class ModelBundle:
                              "and a network/config the folded path covers")
         with torch.inference_mode():
             if folded:
-                return stylize_multi_adain_folded(
-                    self.folded_weights(), content, style,
-                    dtype=self.folded_dtype(), batch_encode=batch_encode)
-            with self._autocast():
-                if self.from_features:
-                    return self.model(*self._features(content,
-                                                      style)).float()
-                return self.model(content, style).float()
+                return self.stylize_folded(
+                    self.folded_weights(), self.folded_extras(), content,
+                    style, self.folded_dtype(), batch_encode=batch_encode)
+            training = self.model.training
+            self.model.eval()
+            try:
+                with self._autocast():
+                    if self.from_features:
+                        return self.model(*self._features(content,
+                                                          style)).float()
+                    kw = ({"test_mode": True}
+                          if self.network in _TEST_MODE_MODELS else {})
+                    return self.model(content, style, **kw).float()
+            finally:
+                self.model.train(training)
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -457,16 +576,37 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
                         blockwise=cfg.adaptive_blockwise, device=device)
     elif n == "src":
         model = SourceNet(use_mask=bool(cfg.use_mask), device=device)
-    elif n == "multi_adain":
-        model = MultiScaleAdaINRP(
-            rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
-            enc_stack_way=cfg.enc_stack_way, inception_num=cfg.inception_num,
-            attention=cfg.attention, shuffle=bool(cfg.shuffle),
-            sort=bool(cfg.sort), use_mask=bool(cfg.use_mask), device=device)
+    elif n in _FOLDED_FAMILY:
+        stack = dict(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
+                     enc_stack_way=_stack_way(cfg),
+                     inception_num=cfg.inception_num,
+                     attention=cfg.attention, device=device)
+        shuffle = dict(shuffle=bool(cfg.shuffle),
+                       shuffle_layers=cfg.shuffle_layers, sort=bool(cfg.sort))
+        if n == "multi_adain":
+            model = MultiScaleAdaINRP(**stack, **shuffle,
+                                      use_mask=bool(cfg.use_mask))
+        elif n == "sel_multi_adain":
+            model = SELastRP(**stack, use_mask=bool(cfg.use_mask))
+        elif n == "ccam":
+            model = CCAMRP(**stack, **shuffle,
+                           stylized_layers=cfg.stylized_layers,
+                           use_mask=bool(cfg.use_mask))
+        else:
+            model = MSTRP(**stack, stylized_layers=cfg.stylized_layers,
+                          n_clusters=cfg.n_clusters,
+                          mst_lambda=cfg.mst_lambda)
     else:
         raise ValueError(f"unknown network {n!r}")
-    model.eval()  # serving; training calls .train() (no BatchNorm: the same)
+    model.eval()  # serving; training calls .train() (BatchNorm state)
     return ModelBundle(network=n, model=model, cfg=cfg, device=device)
+
+
+def _stack_way(cfg: Config) -> str:
+    """rpst's reading of ``enc_stack_way``: 'adain' / 'NONE' in reference
+    YAMLs mean the constant stack."""
+    way = cfg.enc_stack_way
+    return way if way in ("deeper", "constant") else "constant"
 
 
 def build_vgg(cfg: Config, device="cpu") -> Tuple[VGG19Encoder, str]:

@@ -4,26 +4,39 @@
     at the deepest feature between an increasing and a decreasing plain
     conv + ReLU stack (``RPSequence``);
   * ``MultiScaleAdaINRP`` (``adain_rp.py:141-345``), the flagship, with a
-    constant RP stack.
+    constant RP stack and the test-time channel shuffle;
+  * ``CCAMRP`` (``adain_rp.py:348-422``): AdaIN plus a cross-channel
+    attention residual (``CCAMDec``) before each decoder block;
+  * ``SELastRP`` (``adain_rp.py:451-481``): the running AdaIN re-fusion
+    with an SE bottleneck on the last fusion;
+  * ``MSTRP`` (``adain_rp.py:425-448``): k-means channel matching
+    (``ops.mst``) at the fused scales; the transform detaches its inputs,
+    so only the decoder trains.
 
-MultiScaleAdaINRP.decode(): AdaIN at the deepest scale, then, walking the decoder blocks, each
-shallower scale is re-fused and added residually:
+MultiScaleAdaINRP.decode(): AdaIN at the deepest scale, then, walking the decoder blocks,
+each shallower scale is re-fused and added residually:
 ``stylized = dec[i+1](stylized + AdaIN(content_feat_i, style_feat_i))``.
+The three variants keep the flagship under ``ms`` and rpst's parameter
+names (``attention_block``, ``ccam_{i}.scale``).
 
-Of MultiScaleAdaINRP only the constant stack without inception,
-attention, shuffle, sort or masks is ported; the other options, and
-AdaINRP's ``use_mask``, raise ``NotImplementedError`` naming their
-ROADMAP.md slice.
+Of MultiScaleAdaINRP only the constant stack without inception, attention
+(in the encoder), sort or masks is ported; those options, and AdaINRP's
+``use_mask``, raise ``NotImplementedError`` naming their ROADMAP.md slice.
 """
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 from torch import nn
 
+from ..nn.attention import SEBottleneck
 from ..nn.blocks import (RPSequence, RPStack, rp_constant_dims,
                          rp_decrease_dims, rp_increase_dims)
+from ..ops.mst import mst_transfer_batch
 from ..ops.stats import adaptive_instance_normalization
+from .base import channel_shuffle
 
 
 def _adain_nchw(content_feat, style_feat):
@@ -80,31 +93,49 @@ class AdaINRP(nn.Module):
 
 class MultiScaleAdaINRP(nn.Module):
     """Multiscale RP AdaIN with the shared encoder ``rp_shared_encoder`` and
-    the decoder ``rp_decoder`` (the flax module names)."""
+    the decoder ``rp_decoder`` (the flax module names). ``shuffle`` shuffles
+    the channels of the features 0 .. ``shuffle_layers`` at test time only
+    (``forward(..., test_mode=True)``, what serving runs)."""
 
     def __init__(self, rp_blocks: int = 5, hidden_dim: int = 32,
                  enc_stack_way: str = "constant", inception_num: int = 0,
                  attention: str = "none", shuffle: bool = False,
-                 sort: bool = False, use_mask: bool = False,
-                 device=None, dtype=None):
+                 shuffle_layers: int = 1, sort: bool = False,
+                 use_mask: bool = False, device=None, dtype=None):
         super().__init__()
         unported = (
             ("enc_stack_way='deeper'", enc_stack_way == "deeper",
-             "slice 4 (the other multi_adain stacks)"),
-            ("shuffle", shuffle, "slice 4 (the other multi_adain options)"),
-            ("sort", sort, "slice 4 (needs SE attention)"),
+             "slice 4 (its remainder: the deeper stacks)"),
+            ("sort", sort, "slice 4 (its remainder: needs SE attention in "
+             "the encoder)"),
             ("use_mask", use_mask, "slice 7 (masks)"))
         for what, on, where in unported:
             if on:
                 raise NotImplementedError(
                     f"MultiScaleAdaINRP {what} is not ported yet: ROADMAP.md "
                     f"section A {where}")
+        self.shuffle, self.shuffle_layers = shuffle, shuffle_layers
         enc_dims = rp_constant_dims(rp_blocks, 3, hidden_dim, hidden_dim)
         dec_dims = rp_constant_dims(rp_blocks, hidden_dim, hidden_dim, 3)
         self.rp_shared_encoder = RPStack(enc_dims, inception_num=inception_num,
                                          attention=attention, device=device,
                                          dtype=dtype)
         self.rp_decoder = RPStack(dec_dims, device=device, dtype=dtype)
+
+    def encode(self, content, style):
+        """NHWC content and style -> their NCHW intermediate feature lists
+        (two passes of the shared encoder, as rpst runs them)."""
+        c = content.permute(0, 3, 1, 2).contiguous()
+        s = style.permute(0, 3, 1, 2).contiguous()
+        return (self.rp_shared_encoder.intermediates(c),
+                self.rp_shared_encoder.intermediates(s))
+
+    def prep_feats(self, feats, test_mode: bool):
+        """The test-time channel shuffle of features 0 .. shuffle_layers."""
+        if not (test_mode and self.shuffle):
+            return feats
+        return [channel_shuffle(f) if i <= self.shuffle_layers else f
+                for i, f in enumerate(feats)]
 
     def decode(self, content_feats, style_feats):
         stylized = _adain_nchw(content_feats[-1], style_feats[-1])
@@ -115,11 +146,145 @@ class MultiScaleAdaINRP(nn.Module):
             stylized = self.rp_decoder.apply_block(stylized + fusion, i + 1)
         return stylized
 
-    def forward(self, content: torch.Tensor, style: torch.Tensor):
+    def forward(self, content: torch.Tensor, style: torch.Tensor,
+                test_mode: bool = False):
         """content, style (N, H, W, 3) NHWC -> stylized (N, H, W, 3) NHWC;
         NCHW-contiguous inside."""
-        c = content.permute(0, 3, 1, 2).contiguous()
-        s = style.permute(0, 3, 1, 2).contiguous()
-        cf = self.rp_shared_encoder.intermediates(c)
-        sf = self.rp_shared_encoder.intermediates(s)
+        cf, sf = self.encode(content, style)
+        cf, sf = (self.prep_feats(f, test_mode) for f in (cf, sf))
         return self.decode(cf, sf).permute(0, 2, 3, 1)
+
+
+class CCAMDec(nn.Module):
+    """Cross-channel attention decode (reference ``adain_rp.py:348-385``) on
+    NCHW features: x + scale * (softmax(max - x.y^T) y), both inputs
+    detached. ``scale`` starts at 0 and is a trainable parameter (the
+    reference's registration slip, which froze it, is not kept; the math
+    is)."""
+
+    def __init__(self, device=None, dtype=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(1, device=device, dtype=dtype))
+
+    def forward(self, x, y):
+        x, y = x.detach(), y.detach()
+        n, c, h, w = x.shape
+        xr = x.reshape(n, c, h * w)
+        yr = y.reshape(n, y.shape[1], h * w)
+        energy = torch.einsum("ncp,nkp->nck", xr, yr)
+        energy_new = energy.amax(dim=-1, keepdim=True) - energy
+        attention = torch.softmax(energy_new, dim=-1)
+        out = torch.einsum("nck,nkp->ncp", attention, yr).reshape(n, c, h, w)
+        return x + self.scale * out
+
+
+class CCAMRP(nn.Module):
+    """Multiscale AdaIN + a CCAM residual before each decoder block
+    (CrossChannelAttentionRPNet): the shallower fusions are
+    ``AdaIN(stylized, style_feat)`` and ``stylized_layers`` limits how many
+    scales fuse. The attention modules are ``ccam_0 .. ccam_{rp_blocks-1}``
+    (rpst's names), ``channel_attentions`` lists them."""
+
+    def __init__(self, rp_blocks: int = 5, hidden_dim: int = 32,
+                 enc_stack_way: str = "constant", inception_num: int = 0,
+                 attention: str = "none", shuffle: bool = False,
+                 shuffle_layers: int = 1, sort: bool = False,
+                 stylized_layers: int = 5, use_mask: bool = False,
+                 device=None, dtype=None):
+        super().__init__()
+        self.ms = MultiScaleAdaINRP(
+            rp_blocks, hidden_dim, enc_stack_way, inception_num, attention,
+            shuffle, shuffle_layers, sort, use_mask, device, dtype)
+        self.stylized_layers = stylized_layers
+        for i in range(rp_blocks):
+            self.add_module(f"ccam_{i}", CCAMDec(device, dtype))
+
+    @property
+    def channel_attentions(self) -> List[CCAMDec]:
+        return [getattr(self, f"ccam_{i}")
+                for i in range(self.ms.rp_decoder.num_blocks)]
+
+    def forward(self, content, style, test_mode: bool = False):
+        # the reference's CCAM decode drops the sort branch; the shuffle
+        # applies at test time
+        cf, sf = self.ms.encode(content, style)
+        cf, sf = (self.ms.prep_feats(f, test_mode) for f in (cf, sf))
+        dec, att = self.ms.rp_decoder, self.channel_attentions
+        stylized = _adain_nchw(cf[-1], sf[-1])
+        stylized = dec.apply_block(stylized + att[0](cf[-1], sf[-1]), 0)
+        for i, sfi in enumerate(sf[:-1][::-1]):
+            if i + 1 < self.stylized_layers:
+                stylized = _adain_nchw(stylized, sfi)
+                stylized = dec.apply_block(
+                    stylized + att[i + 1](stylized, sfi), i + 1)
+            else:
+                stylized = dec.apply_block(stylized, i + 1)
+        return stylized.permute(0, 2, 3, 1)
+
+
+class SELastRP(nn.Module):
+    """Multiscale AdaIN with one SE bottleneck on the final fusion
+    (SELastMultiScaleAdaINRPNet): the shallower fusions are
+    ``AdaIN(stylized, style_feat)``, no residual add."""
+
+    def __init__(self, rp_blocks: int = 5, hidden_dim: int = 32,
+                 enc_stack_way: str = "constant", inception_num: int = 0,
+                 attention: str = "none", use_mask: bool = False,
+                 device=None, dtype=None):
+        super().__init__()
+        self.ms = MultiScaleAdaINRP(
+            rp_blocks, hidden_dim, enc_stack_way, inception_num, attention,
+            use_mask=use_mask, device=device, dtype=dtype)
+        self.attention_block = SEBottleneck(hidden_dim, device=device,
+                                            dtype=dtype)
+
+    def forward(self, content, style):
+        cf, sf = self.ms.encode(content, style)
+        dec = self.ms.rp_decoder
+        stylized = dec.apply_block(_adain_nchw(cf[-1], sf[-1]), 0)
+        pairs = sf[:-1][::-1]
+        for i, sfi in enumerate(pairs):
+            stylized = _adain_nchw(stylized, sfi)
+            if i == len(pairs) - 1:
+                stylized, _ = self.attention_block(stylized)
+            stylized = dec.apply_block(stylized, i + 1)
+        return stylized.permute(0, 2, 3, 1)
+
+
+def mst_nchw(content_feat, style_feat, n_clusters: int, lam: float):
+    """``ops.mst.mst_transfer_batch`` on NCHW features."""
+    out = mst_transfer_batch(content_feat.permute(0, 2, 3, 1),
+                             style_feat.permute(0, 2, 3, 1), n_clusters, lam)
+    return out.permute(0, 3, 1, 2)
+
+
+class MSTRP(nn.Module):
+    """Multiscale RP with MST fusion (GlobalMSTRPNet): the transform
+    detaches both inputs, so gradients reach only the decoder. rpst builds
+    its ``ms`` without shuffle, so the yaml's ``shuffle`` is not read."""
+
+    def __init__(self, rp_blocks: int = 5, hidden_dim: int = 32,
+                 enc_stack_way: str = "constant", inception_num: int = 0,
+                 attention: str = "none", stylized_layers: int = 1,
+                 n_clusters: int = 3, mst_lambda: float = 0.0, device=None,
+                 dtype=None):
+        super().__init__()
+        self.ms = MultiScaleAdaINRP(
+            rp_blocks, hidden_dim, enc_stack_way, inception_num, attention,
+            device=device, dtype=dtype)
+        self.stylized_layers = stylized_layers
+        self.n_clusters, self.mst_lambda = n_clusters, mst_lambda
+
+    def forward(self, content, style):
+        cf, sf = self.ms.encode(content, style)
+        dec = self.ms.rp_decoder
+        stylized = dec.apply_block(mst_nchw(
+            cf[-1].detach(), sf[-1].detach(), self.n_clusters,
+            self.mst_lambda), 0)
+        for i, sfi in enumerate(sf[:-1][::-1]):
+            if i + 1 < self.stylized_layers:
+                # rpst detaches the style feature only here
+                stylized = mst_nchw(stylized, sfi.detach(), self.n_clusters,
+                                    self.mst_lambda)
+            stylized = dec.apply_block(stylized, i + 1)
+        return stylized.permute(0, 2, 3, 1)

@@ -5,7 +5,8 @@
     stylized image's frozen-VGG features and the style image's, summed over
     relu1_1 .. relu4_1;
   * content loss: the MSE between the relu4_1 features of the stylized
-    image and the content image.
+    image and the content image;
+  * ``channel_shuffle``, the test-time shuffle of the multiscale models.
 
 The targets (style and content features) carry no gradient: they run under
 ``torch.no_grad`` as one batched 2N VGG forward, where rpst wraps the same
@@ -59,3 +60,12 @@ def perceptual_rp_losses(vgg_features: VGGFeatures, stylized: torch.Tensor,
     total = content_weight * loss_c + style_weight * loss_s
     return {"style_loss": loss_s, "content_loss": loss_c,
             "total_loss": total}, total
+
+
+def channel_shuffle(feat: torch.Tensor, groups: int = 4) -> torch.Tensor:
+    """Channel shuffle of an NCHW tensor (rpst ``models/base.py:78-85``, the
+    reference's ``adain_rp.py:304-311``): channel g * (C / groups) + j moves
+    to j * groups + g."""
+    n, c, h, w = feat.shape
+    return (feat.reshape(n, groups, c // groups, h, w).transpose(1, 2)
+            .reshape(n, c, h, w))

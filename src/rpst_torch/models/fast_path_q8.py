@@ -31,11 +31,13 @@ import numpy as np
 import torch
 
 from .. import policy
-from ..ops.folded import fold, folded_adain, unfold
+from ..ops.folded import fold, folded_adain, folded_calc_mean_std, unfold
 from ..ops.folded_conv2_q8 import fused_folded_conv2_q8
 from ..ops.folded_conv_q8 import (div_f32, fused_folded_conv_q8,
                                   quantize_activations, quantize_weights)
-from .fast_path import Blocks, _conv_lrelu
+from ..ops.mst import mst_transfer_batch
+from .fast_path import (Blocks, _block_eye4, _ccam_attention, _conv_lrelu,
+                        _folded_se_bottleneck)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +111,29 @@ def q8_plan(enc_kernels, dec_kernels, fuse_pairs: bool) -> Dict[str, int]:
 # calibration
 # ---------------------------------------------------------------------------
 
+def _encode_collect(enc: Blocks, img, dtype, absmax: List[torch.Tensor]):
+    """The float folded encoder of a calibration pass, recording the output
+    absmax of each layer whose output the int8 chain quantizes (the next
+    layer is eligible, or it is the last layer and eligible itself)."""
+    x = fold(img.to(dtype))
+    feats = []
+    for li, (k, b) in enumerate(enc):
+        x = _conv_lrelu(x, k, b)
+        nxt_eligible = li + 1 < len(enc) and _q8_eligible(enc[li + 1][0])
+        if nxt_eligible or (li == len(enc) - 1 and _q8_eligible(k)):
+            absmax.append(x.float().abs().amax())
+        feats.append(x)
+    return feats
+
+
+def _scales_of(absmax: List[torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{'act_scales'}: absmax / 127 (at least 1e-6 / 127) in Python float64,
+    then float32, as rpst computes them (one device sync)."""
+    values = torch.stack(absmax).cpu().tolist()
+    return {"act_scales": np.asarray([max(float(a), 1e-6) / 127.0
+                                      for a in values], np.float32)}
+
+
 def _forward_collect(blocks, content, style):
     """The folded forward in the blocks' type (bfloat16 for calibration),
     recording the observables in exactly the order
@@ -119,20 +144,8 @@ def _forward_collect(blocks, content, style):
     enc, dec = blocks
     dtype = enc[0][0].dtype
     absmax: List[torch.Tensor] = []
-
-    def encode(img):
-        x = fold(img.to(dtype))
-        feats = []
-        for li, (k, b) in enumerate(enc):
-            x = _conv_lrelu(x, k, b)
-            nxt_eligible = li + 1 < len(enc) and _q8_eligible(enc[li + 1][0])
-            if nxt_eligible or (li == len(enc) - 1 and _q8_eligible(k)):
-                absmax.append(x.float().abs().amax())
-            feats.append(x)
-        return feats
-
-    c_feats = encode(content)
-    s_feats = encode(style)
+    c_feats = _encode_collect(enc, content, dtype, absmax)
+    s_feats = _encode_collect(enc, style, dtype, absmax)
     stylized = folded_adain(c_feats[-1], s_feats[-1])
     k, b = dec[0]
     if _q8_eligible(k):
@@ -154,10 +167,7 @@ def calibrate_multi_adain_q8(blocks, content, style) -> Dict[str, np.ndarray]:
     float64 as rpst does. ``blocks`` are the bfloat16 folded weights (rpst
     calibrates its bf16 forward); feed representative batches."""
     with torch.inference_mode():
-        _, absmax = _forward_collect(blocks, content, style)
-        values = torch.stack(absmax).cpu().tolist()  # one device sync
-    return {"act_scales": np.asarray([max(float(a), 1e-6) / 127.0
-                                      for a in values], np.float32)}
+        return _scales_of(_forward_collect(blocks, content, style)[1])
 
 
 # ---------------------------------------------------------------------------
@@ -171,13 +181,19 @@ def _tile4(v):
 def _folded_stats_q8(q, scale: float, eps: float = 1e-5):
     """folded_calc_mean_std of an int8 tensor with a per-tensor scale: the
     statistics are linear in the scale, so they reduce over the int8 values
-    and rescale once. The integer sums are exact (int64), then float32."""
+    and rescale once. The integer sums are exact (int64), then float32. A
+    float tensor (the calibration passes' exact features, scale 1) sums in
+    float32, as rpst's does."""
     n, hh, ww, c4 = q.shape
     c = c4 // 4
     m = hh * ww * 4
-    v = q.to(torch.int32).reshape(n, hh * ww, 4, c)
-    s1 = v.sum(dim=(1, 2)).float()
-    s2 = (v * v).sum(dim=(1, 2)).float()
+    if q.dtype.is_floating_point:
+        v = q.float().reshape(n, hh * ww, 4, c)
+        s1, s2 = v.sum(dim=(1, 2)), (v * v).sum(dim=(1, 2))
+    else:
+        v = q.to(torch.int32).reshape(n, hh * ww, 4, c)
+        s1 = v.sum(dim=(1, 2)).float()
+        s2 = (v * v).sum(dim=(1, 2)).float()
     mean = div_f32(s1, float(m)) * scale
     var = (div_f32(s2, float(max(m - 1, 1)))
            - div_f32(s1 * s1, float(m) * float(max(m - 1, 1)))) \
@@ -243,12 +259,13 @@ def _conv2_q(x_q, x_scale: float, l1: Q8Layer, out1: float, l2: Q8Layer,
 
 
 def _encode_q8(enc: Blocks, enc_q: QBlocks, act_scales, it, img, dtype,
-               fuse_pairs: bool):
-    """The chained int8 constant-stack encoder (rpst's ``_encode_q8`` with
-    ``fuse_stats``): feats are (int8, scale) pairs, stats the per-layer
-    (mean4, std4) from the kernel epilogues (None for layers on B1). With
-    ``fuse_pairs`` consecutive eligible layers run as one B7 launch, in the
-    same scale order (bit-equal to the unfused chain)."""
+               fuse_pairs: bool = False, fuse_stats: bool = True):
+    """The chained int8 constant-stack encoder (rpst's ``_encode_q8``):
+    feats are (int8, scale) pairs, and with ``fuse_stats`` stats the
+    per-layer (mean4, std4) from the kernel epilogues (None for layers on
+    B1; every entry None without). With ``fuse_pairs`` consecutive eligible
+    layers run as one B7 launch, in the same scale order (bit-equal to the
+    unfused chain)."""
     x = fold(img.to(dtype))
     feats, stats = [], []
     li = 0
@@ -286,9 +303,12 @@ def _encode_q8(enc: Blocks, enc_q: QBlocks, act_scales, it, img, dtype,
         else:
             x_q, x_scale = x
             out_s = float(act_scales[next(it)])
-            y, s1, s2 = _conv_q(x_q, x_scale, enc_q[li], out_s,
-                                want_stats=True)
-            st = _stats_from_sums(s1, s2, y.shape[1] * y.shape[2] * 4)
+            if fuse_stats:
+                y, s1, s2 = _conv_q(x_q, x_scale, enc_q[li], out_s,
+                                    want_stats=True)
+                st = _stats_from_sums(s1, s2, y.shape[1] * y.shape[2] * 4)
+            else:
+                y = _conv_q(x_q, x_scale, enc_q[li], out_s)
             x = (y, out_s)
         feats.append(x)
         stats.append(st)
@@ -345,4 +365,273 @@ def stylize_multi_adain_folded_q8(blocks: Tuple[Blocks, Blocks],
                                dec_q[i + 1]).to(dtype)
         else:
             stylized = _conv_lrelu(stylized + fusion, k, b)
+    return unfold(stylized).to(content.dtype)
+
+
+def _check_scales(act_scales, blocks: Tuple[Blocks, Blocks]) -> None:
+    want = q8_plan([k for k, _ in blocks[0]], [k for k, _ in blocks[1]],
+                   False)["scales"]
+    if len(act_scales) != want:
+        raise ValueError(f"{len(act_scales)} act scales for a stack that "
+                         f"consumes {want}: calibrate this model's weights")
+
+
+def _dec_conv_q8(x, k, b, layer: Optional[Q8Layer], dtype, act_scales, it,
+                 collect: Optional[list], want_stats: bool = False):
+    """One decoder conv of the three variants' int8 paths -> (out in
+    ``dtype``, (mean4, std4) from B4's sums or None). An eligible layer
+    (``_q8_eligible(k)``) quantizes its float32 input with the next act
+    scale and runs on B4; the others run the float conv on B1. With
+    ``collect`` (a calibration pass) it records the eligible input's absmax
+    and runs the float conv instead."""
+    if _q8_eligible(k):
+        if collect is not None:
+            collect.append(x.float().abs().amax())
+            return _conv_lrelu(x.to(dtype), k, b), None
+        s_in = float(act_scales[next(it)])
+        x_q = quantize_activations(x.float(), s_in)
+        if want_stats:
+            y, s1, s2 = _conv_q(x_q, s_in, layer, want_stats=True)
+            return y.to(dtype), _stats_from_sums(
+                s1, s2, y.shape[1] * y.shape[2] * 4)
+        return _conv_q(x_q, s_in, layer).to(dtype), None
+    return _conv_lrelu(x.to(dtype), k, b), None
+
+
+def _float_feats(feats) -> list:
+    """Exact float features as (x, 1.0) pairs: the calibration passes'
+    decoders read them where the int8 paths read (int8, scale)."""
+    return [(f, 1.0) for f in feats]
+
+
+# ---------------------------------------------------------------------------
+# sel_multi_adain (rpst ``fast_path_q8.py:333-469``)
+# ---------------------------------------------------------------------------
+
+def _sel_decode_q8(se, c_feats, s_feats, dec: Blocks, dec_q: QBlocks,
+                   act_scales, it, dtype, collect=None, c_stats=None,
+                   s_stats=None):
+    """SELastRP's decode on (int8, scale) encoder features: the running
+    fusion's statistics from B4's sums where there are some (the style's
+    from the encoder, the running ``stylized``'s from the previous decoder
+    conv), the SE bottleneck in ``dtype`` (running-statistic BatchNorms and
+    a sigmoid gate). With ``collect`` the same walk records calibration
+    absmax."""
+    last = [None]
+
+    def dec_conv(x, i, want_stats=False):
+        y, last[0] = _dec_conv_q8(x, *dec[i], dec_q[i], dtype, act_scales,
+                                  it, collect, want_stats)
+        return y
+
+    def enc_stats(stats, idx, feat):
+        if stats is not None and stats[idx] is not None:
+            return stats[idx]
+        return _folded_stats_q8(*feat)
+
+    stylized = _adain_affine_q8(
+        c_feats[-1], s_feats[-1],
+        c_stats[-1] if c_stats is not None else None,
+        s_stats[-1] if s_stats is not None else None)
+    stylized = dec_conv(stylized, 0, want_stats=True)
+    pairs = s_feats[:-1][::-1]
+    for i, sf in enumerate(pairs):
+        cm, cstd = (last[0] if last[0] is not None
+                    else folded_calc_mean_std(stylized.float()))
+        sm, sstd = enc_stats(s_stats, len(pairs) - 1 - i, sf)
+        stylized = (stylized.float() - cm) / cstd * sstd + sm
+        if i == len(pairs) - 1:
+            stylized = _folded_se_bottleneck(stylized.to(dtype), se, dtype)
+        stylized = dec_conv(stylized, i + 1, want_stats=i + 1 < len(pairs))
+    return unfold(stylized.float())
+
+
+def calibrate_sel_multi_adain_q8(blocks, se, content, style
+                                 ) -> Dict[str, np.ndarray]:
+    """Calibration absmax for ``stylize_sel_multi_adain_folded_q8`` in
+    consumption order (content encode, style encode, each quantized decoder
+    input), from one float32 folded forward (rpst calibrates this family in
+    float32): ``blocks`` and ``se`` in float32."""
+    with torch.inference_mode():
+        absmax: List[torch.Tensor] = []
+        enc, dec = blocks
+        feats = [_float_feats(_encode_collect(enc, img, torch.float32,
+                                              absmax))
+                 for img in (content, style)]
+        _sel_decode_q8(se, *feats, dec, [None] * len(dec), None, None,
+                       torch.float32, collect=absmax)
+        return _scales_of(absmax)
+
+
+def stylize_sel_multi_adain_folded_q8(blocks, qblocks, se, scales, content,
+                                      style, dtype=torch.bfloat16
+                                      ) -> torch.Tensor:
+    """Int8 folded serving of SELastRP: the chained int8 encoder with B4's
+    fused statistics, the running-fusion decode, the SE bottleneck in
+    ``dtype``. ``blocks`` / ``se`` in ``dtype``, ``qblocks`` from
+    ``quantize_blocks``, ``scales`` from ``calibrate_sel_multi_adain_q8``."""
+    act_scales = np.asarray(scales["act_scales"], np.float32)
+    _check_scales(act_scales, blocks)
+    it = iter(range(len(act_scales)))
+    (enc, dec), (enc_q, dec_q) = blocks, qblocks
+    c_feats, c_stats = _encode_q8(enc, enc_q, act_scales, it, content, dtype)
+    s_feats, s_stats = _encode_q8(enc, enc_q, act_scales, it, style, dtype)
+    out = _sel_decode_q8(se, c_feats, s_feats, dec, dec_q, act_scales, it,
+                         dtype, c_stats=c_stats, s_stats=s_stats)
+    return out.to(content.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ccam (rpst ``fast_path_q8.py:470-619``)
+# ---------------------------------------------------------------------------
+
+def _folded_ccam_q8(x_feat, y_feat, scale):
+    """CCAMDec on folded (int8, scale) or float features. The energy is
+    bilinear, so it reduces over the int8 values (exactly, in float64: no
+    int8 product on CUDA; rpst's is an int32 einsum) and rescales once:
+    energy = (sum x_q y_q) s_x s_y; the recombination dequantizes y."""
+    def split(f):
+        if isinstance(f, tuple):
+            return f[0], 1.0 if f[1] is None else f[1]
+        return f, 1.0
+
+    xq, sx = split(x_feat)
+    yq, sy = split(y_feat)
+    n, hh, ww, c4 = xq.shape
+    xr = xq.reshape(n, hh * ww, c4)
+    yr = yq.reshape(n, hh * ww, c4)
+    if xr.dtype == torch.int8 and yr.dtype == torch.int8:
+        e4 = torch.einsum("npa,npb->nab", xr.double(), yr.double()).float()
+    else:
+        e4 = torch.einsum("npa,npb->nab", xr.float(), yr.float())
+    att4 = _block_eye4(_ccam_attention(e4, sx * sy))
+    out = torch.einsum("npk,nck->npc", yr.float() * sy, att4)
+    return xq.float() * sx + scale * out.reshape(n, hh, ww, c4)
+
+
+def _ccam_decode_q8(scales, c_feats, s_feats, dec: Blocks, dec_q: QBlocks,
+                    stylized_layers: int, act_scales, it, dtype,
+                    collect=None):
+    """CCAMRP's decode on (int8, scale) encoder features, the AdaIN
+    statistics reduced over the int8 values; with ``collect`` the
+    calibration walk. ``scales`` are the ``ccam_{i}.scale`` values."""
+    def dec_conv(x, i):
+        return _dec_conv_q8(x, *dec[i], dec_q[i], dtype, act_scales, it,
+                            collect)[0]
+
+    def scale(i):
+        return scales[i].float()
+
+    stylized = _adain_affine_q8(c_feats[-1], s_feats[-1])
+    att_res = _folded_ccam_q8(c_feats[-1], s_feats[-1], scale(0))
+    stylized = dec_conv(stylized + att_res, 0)
+    for i, sf in enumerate(s_feats[:-1][::-1]):
+        if i + 1 < stylized_layers:
+            cm, cstd = folded_calc_mean_std(stylized.float())
+            sm, sstd = _folded_stats_q8(*sf)
+            stylized = (stylized.float() - cm) / cstd * sstd + sm
+            att_res = _folded_ccam_q8(stylized, sf, scale(i + 1))
+            stylized = dec_conv(stylized + att_res, i + 1)
+        else:
+            stylized = dec_conv(stylized, i + 1)
+    return unfold(stylized.float())
+
+
+def calibrate_ccam_q8(blocks, scales, content, style,
+                      stylized_layers: int = 5) -> Dict[str, np.ndarray]:
+    """Calibration absmax for ``stylize_ccam_folded_q8``, from one float32
+    folded forward (``blocks`` in float32), as rpst's."""
+    with torch.inference_mode():
+        absmax: List[torch.Tensor] = []
+        enc, dec = blocks
+        feats = [_float_feats(_encode_collect(enc, img, torch.float32,
+                                              absmax))
+                 for img in (content, style)]
+        _ccam_decode_q8(scales, *feats, dec, [None] * len(dec),
+                        stylized_layers, None, None, torch.float32,
+                        collect=absmax)
+        return _scales_of(absmax)
+
+
+def stylize_ccam_folded_q8(blocks, qblocks, ccam_scales, scales, content,
+                           style, stylized_layers: int = 5,
+                           dtype=torch.bfloat16) -> torch.Tensor:
+    """Int8 folded serving of CCAMRP: the chained int8 encoder, the CCAM
+    energies reduced over int8, the AdaIN fusions with int8-reduced style
+    statistics."""
+    act_scales = np.asarray(scales["act_scales"], np.float32)
+    _check_scales(act_scales, blocks)
+    it = iter(range(len(act_scales)))
+    (enc, dec), (enc_q, dec_q) = blocks, qblocks
+    c_feats, _ = _encode_q8(enc, enc_q, act_scales, it, content, dtype,
+                            fuse_stats=False)
+    s_feats, _ = _encode_q8(enc, enc_q, act_scales, it, style, dtype,
+                            fuse_stats=False)
+    out = _ccam_decode_q8(ccam_scales, c_feats, s_feats, dec, dec_q,
+                          stylized_layers, act_scales, it, dtype)
+    return out.to(content.dtype)
+
+
+# ---------------------------------------------------------------------------
+# mst (rpst ``fast_path_q8.py:921-1032``)
+# ---------------------------------------------------------------------------
+
+def _mst_fuse_f32(cf_f, sf_f, n_clusters: int, lam: float):
+    """The MST transform on folded float32 features, unfolded to raster
+    order for it (as ``fast_path.stylize_mst_folded``)."""
+    return fold(mst_transfer_batch(unfold(cf_f).float(), unfold(sf_f).float(),
+                                   n_clusters, lam))
+
+
+def calibrate_mst_q8(blocks, content, style, stylized_layers: int = 1,
+                     n_clusters: int = 3, mst_lambda: float = 0.0
+                     ) -> Dict[str, np.ndarray]:
+    """Calibration absmax for ``stylize_mst_folded_q8``: the encoder chain
+    scales of both images, then each eligible decoder conv's input, from one
+    bfloat16 folded forward (``blocks`` in bfloat16), as rpst's."""
+    with torch.inference_mode():
+        absmax: List[torch.Tensor] = []
+        enc, dec = blocks
+        dtype = enc[0][0].dtype
+        c_feats, s_feats = (_encode_collect(enc, img, dtype, absmax)
+                            for img in (content, style))
+        stylized = _mst_fuse_f32(c_feats[-1], s_feats[-1], n_clusters,
+                                 mst_lambda)
+        for i, sf in enumerate([None] + s_feats[:-1][::-1]):
+            if 0 < i < stylized_layers:
+                stylized = _mst_fuse_f32(stylized, sf, n_clusters,
+                                         mst_lambda)
+            stylized = _dec_conv_q8(stylized, *dec[i], None, dtype, None,
+                                    None, absmax)[0]
+        return _scales_of(absmax)
+
+
+def stylize_mst_folded_q8(blocks, qblocks, scales, content, style,
+                          stylized_layers: int = 1, n_clusters: int = 3,
+                          mst_lambda: float = 0.0,
+                          dtype=torch.bfloat16) -> torch.Tensor:
+    """Int8 folded serving of MSTRP: the chained int8 encode of both images,
+    the MST transform in float32 on raster-order features, the decoder's
+    eligible convs on B4."""
+    act_scales = np.asarray(scales["act_scales"], np.float32)
+    _check_scales(act_scales, blocks)
+    it = iter(range(len(act_scales)))
+    (enc, dec), (enc_q, dec_q) = blocks, qblocks
+    c_feats, _ = _encode_q8(enc, enc_q, act_scales, it, content, dtype,
+                            fuse_stats=False)
+    s_feats, _ = _encode_q8(enc, enc_q, act_scales, it, style, dtype,
+                            fuse_stats=False)
+
+    def deq(pair):
+        q, s = pair
+        return q.float() * s if s is not None else q.float()
+
+    stylized = _mst_fuse_f32(deq(c_feats[-1]), deq(s_feats[-1]), n_clusters,
+                             mst_lambda)
+    for i, sf in enumerate([None] + s_feats[:-1][::-1]):
+        if 0 < i < stylized_layers:
+            stylized = _mst_fuse_f32(stylized, deq(sf), n_clusters,
+                                     mst_lambda)
+        stylized = _dec_conv_q8(stylized.float(), *dec[i], dec_q[i], dtype,
+                                act_scales, it, None)[0]
     return unfold(stylized).to(content.dtype)

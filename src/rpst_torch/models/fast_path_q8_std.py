@@ -549,17 +549,16 @@ def _pairs(modules, dtype):
 def sanet_blocks(model: SAModel, dtype: torch.dtype) -> Dict[str, object]:
     """The trained weights of a SANet, detached: ``sanet4_1`` / ``sanet5_1``
     (the f, g, h, out_conv (weight, bias) pairs; the adaptive model's also
-    psi0 and psi1), ``merge`` and the ``decoder`` conv list, in ``dtype``.
-    The adaptive model's transform stays float32 (rpst's flax modules there
-    take no dtype and compute in their float32 parameters' type), and its
+    psi0 and psi1) and ``merge`` in float32 (rpst's flax transform modules
+    take no dtype and compute in their float32 parameters' type), and the
+    ``decoder`` conv list in ``dtype``; the adaptive model's
     ``ada_module`` is set."""
     t = model.transform
-    t_dtype = torch.float32 if model.adaptive else dtype
+    f32 = torch.float32
     out = {name: _pairs([getattr(t, name).f, getattr(t, name).g,
-                         getattr(t, name).h, getattr(t, name).out_conv],
-                        t_dtype)
+                         getattr(t, name).h, getattr(t, name).out_conv], f32)
            for name in ("sanet4_1", "sanet5_1")}
-    out["merge"] = _pairs([t.merge_conv.Conv_0], t_dtype)[0]
+    out["merge"] = _pairs([t.merge_conv.Conv_0], f32)[0]
     out["decoder"] = _pairs(model.decoder.convs(), dtype)
     if model.adaptive:
         for name in ("sanet4_1", "sanet5_1"):
@@ -589,10 +588,10 @@ def _mirror_decode_q8(dec: Convs, qdec: QConvs, x, dtype, conv_q, st):
 
 def _sanet_transform(blocks, feats, n: int, attention: Attention,
                      blockwise: str = "auto"):
-    """The attention transform on the 2N-batched relu4_1 / relu5_1 taps: the
-    port's ``Transform`` on detached weights in their (the working) type,
-    attention on B6; or the adaptive transform in float32, its attention's
-    route by ``blockwise`` (``sanet.use_streamed``). NHWC in and out."""
+    """The attention transform on the 2N-batched relu4_1 / relu5_1 taps, in
+    float32 as rpst's: the static modules on detached weights, attention on
+    B6's float32 kernel; or the adaptive transform, its attention's route by
+    ``blockwise`` (``sanet.use_streamed``). NHWC in and out."""
     c4, s4 = feats[3][:n], feats[3][n:]
     c5, s5 = feats[4][:n], feats[4][n:]
     if "ada_module" in blocks:

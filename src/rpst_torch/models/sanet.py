@@ -38,7 +38,8 @@ psi0's width is the style's position count, so the adaptive model serves
 one size: (img_size // 8) ** 2 positions at relu4_1 and (img_size // 16) **
 2 at relu5_1. The adaptive transform runs in float32 whatever the working
 type: rpst's flax modules there take no dtype and promote the bfloat16
-features to their float32 parameters.
+features to their float32 parameters. So does the static transform (the
+attention on B6's float32 kernel).
 """
 
 from __future__ import annotations
@@ -76,16 +77,22 @@ def conv1x1_nhwc(x: torch.Tensor, weight: torch.Tensor,
 
 def sanet_attention_block(content, style, f, g, h, out_conv,
                           attention: Attention = sanet_attention):
-    """One style-attention module on NHWC features; ``f`` .. ``out_conv``
-    are (weight, bias) pairs of 1x1 convs. Shared by the module and the int8
-    serving path, which holds detached weights in its working type."""
-    n, hc, wc, c = content.shape
-    fm = conv1x1_nhwc(mean_variance_norm(content), *f).reshape(n, hc * wc, -1)
-    gm = conv1x1_nhwc(mean_variance_norm(style), *g).reshape(
-        n, style.shape[1] * style.shape[2], -1)
-    hm = conv1x1_nhwc(style, *h).reshape(gm.shape)
-    o = attention(fm, gm, hm).reshape(n, hc, wc, -1)
-    return conv1x1_nhwc(o, *out_conv) + content
+    """One style-attention module on NHWC features, in float32 whatever the
+    working type (an enclosing autocast is left): rpst's flax 1x1 convs take
+    no dtype, so they promote bfloat16 features to their float32 parameters.
+    ``mean_variance_norm`` runs in the features' own type first, as rpst's
+    does, and its output is cast. ``f`` .. ``out_conv`` are float32 (weight,
+    bias) pairs of 1x1 convs. Shared by the module and the int8 serving
+    path."""
+    with torch.autocast(content.device.type, enabled=False):
+        n, hc, wc, c = content.shape
+        fm = conv1x1_nhwc(mean_variance_norm(content).float(), *f).reshape(
+            n, hc * wc, -1)
+        gm = conv1x1_nhwc(mean_variance_norm(style).float(), *g).reshape(
+            n, style.shape[1] * style.shape[2], -1)
+        hm = conv1x1_nhwc(style.float(), *h).reshape(gm.shape)
+        o = attention(fm, gm, hm).reshape(n, hc, wc, -1)
+        return conv1x1_nhwc(o, *out_conv) + content.float()
 
 
 class SANetAttention(nn.Module):
@@ -108,7 +115,9 @@ class SANetAttention(nn.Module):
 
 
 class Transform(nn.Module):
-    """Merge the relu4_1 and the upsampled relu5_1 attention outputs."""
+    """Merge the relu4_1 and the upsampled relu5_1 attention outputs, in
+    float32 whatever the working type, as rpst's (its merge conv, too,
+    takes no dtype)."""
 
     def __init__(self, in_planes: int = 512, device=None, dtype=None):
         super().__init__()
@@ -122,8 +131,9 @@ class Transform(nn.Module):
         decoder's layout)."""
         a4 = self.sanet4_1(c4, s4, attention)
         a5 = self.sanet5_1(c5, s5, attention)
-        merged = a4 + upsample_nearest_2x_nhwc(a5)
-        return self.merge_conv(merged.permute(0, 3, 1, 2))
+        with torch.autocast(c4.device.type, enabled=False):
+            merged = a4 + upsample_nearest_2x_nhwc(a5)
+            return self.merge_conv(merged.permute(0, 3, 1, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,11 @@ so ``rpst_torch.bridge`` maps flax params one to one. Every conv is
 stride-1: full spatial resolution at every layer. ``Conv2dBlock`` stacks
 pad by reflection; ``RPSequence`` (adain, wct) pads with zeros.
 
-Not ported in this slice (they raise ``NotImplementedError``): inception
-1x1 stacks, SE/SK attention, batch/instance norm and prelu, which belong to
-ROADMAP.md section A slices 4 (sel_multi_adain) and 5 (the wide families).
+Not ported yet (they raise ``NotImplementedError``): inception 1x1 stacks,
+SE/SK attention inside the blocks, batch/instance norm and prelu, which
+belong to ROADMAP.md section A slice 4's remainder and slice 5 (the wide
+families). sel_multi_adain's SE bottleneck after the last fusion is
+``nn.attention``.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ class PadConv(nn.Module):
 
 
 _SLICE_OF_OPTION = {
-    "inception_num": "slice 4 (sel_multi_adain) and the inception configs",
-    "attention": "slice 4 (sel_multi_adain's SE bottleneck)",
+    "inception_num": "slice 4 (its remainder: the inception configs)",
+    "attention": "slice 4 (its remainder: SE/SK attention in the blocks)",
     "norm": "slice 5 (the wide standard-layout families)",
     "activation": "slice 5 (the wide standard-layout families)",
 }
@@ -200,7 +202,9 @@ def init_torch_default(model: nn.Module, seed: int) -> None:
     """Seeded PyTorch Conv2d default init, U(+-1/sqrt(fan_in)) for kernel and
     bias (what rpst's ``torch_conv_kernel_init`` mirrors), and rpst's
     ``nn.Dense`` init for a Linear (dynamic_sanet's threshold MLP, rpst
-    ``sanet.py:37-43``): U(+-1/sqrt(fan_in)) weights, zero biases. Values
+    ``sanet.py:37-43``; the SE layer's bias-free ``Dense``):
+    U(+-1/sqrt(fan_in)) weights, zero biases. BatchNorms keep their
+    ones / zeros and running (0, 1), CCAM scales their 0. Values
     are drawn on the CPU from one ``torch.Generator`` in module order, so a
     seed gives the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
@@ -217,4 +221,5 @@ def init_torch_default(model: nn.Module, seed: int) -> None:
                 bound = m.in_features ** -0.5 if m.in_features else 0.0
                 m.weight.copy_(torch.empty(m.weight.shape).uniform_(
                     -bound, bound, generator=g))
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()

@@ -18,7 +18,9 @@ gate are TPU policy and do not carry over. Stages 3-4 stay standard
 ``F.conv2d``, as rpst leaves them to XLA.
 
 ``perceptual_rp_losses_q8targets`` (``train_q8_targets``) computes the
-style and content targets through the int8 VGG chain on B5 instead.
+style and content targets through the int8 VGG chain on B5 instead, and
+``perceptual_rp_losses_folded_pretargets`` takes them precomputed (the
+target cache).
 """
 
 from __future__ import annotations
@@ -117,6 +119,26 @@ def perceptual_rp_losses_folded(vgg: VGG19Encoder, stylized, style, content,
     loss_s = sum(mse(gm, tm[:n]) + mse(gs, ts[:n])
                  for (gm, gs), (tm, ts) in zip(g_stats, t_stats))
     loss_c = mse(g_relu4.float(), t_relu4[n:].float())
+    total = content_weight * loss_c + style_weight * loss_s
+    return {"style_loss": loss_s, "content_loss": loss_c}, total
+
+
+def perceptual_rp_losses_folded_pretargets(
+        vgg: VGG19Encoder, stylized, t_stats: Stats, t_relu4: torch.Tensor,
+        content_weight: float, style_weight: float,
+        dtype: torch.dtype = torch.bfloat16,
+        conv_act: ConvAct = folded_conv_act):
+    """``perceptual_rp_losses_folded`` with the style and content targets
+    given, precomputed (``train.target_cache``): the style images' relu1..4_1
+    (mean, std) pairs ``t_stats``, each (N, C) float32, and the content
+    images' relu4_1 ``t_relu4``. They depend only on the images and the
+    frozen encoder, so the step keeps one VGG sweep, the stylized pass that
+    carries the gradient (rpst ``nn/vgg_folded.py:166-192``)."""
+    from ..models.base import mse  # models imports this module
+    g_stats, g_relu4 = vgg_perceptual_stats(vgg, stylized, dtype, conv_act)
+    loss_s = sum(mse(gm, tm.detach()) + mse(gs, ts.detach())
+                 for (gm, gs), (tm, ts) in zip(g_stats, t_stats))
+    loss_c = mse(g_relu4.float(), t_relu4.detach().float())
     total = content_weight * loss_c + style_weight * loss_s
     return {"style_loss": loss_s, "content_loss": loss_c}, total
 

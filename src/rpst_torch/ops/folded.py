@@ -15,7 +15,9 @@ Channel layout: folded channel (2*si + sj)*C + c holds original pixel
 (2i+si, 2j+sj, c). The rpst version builds the ring selects from lane-iota
 ``where``s to dodge an XLA:TPU miscompile; here they are plain slices.
 ``folded_conv(impl="bc")`` is not ported (it measured slower on the TPU
-and is off the serving path).
+and is off the serving path). The SE bottleneck's folded pieces
+(``fold_conv1x1_kernel``, ``folded_zero_conv``, ``folded_channel_pool``,
+``folded_channel_affine``) stay plain PyTorch, as rpst leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -154,15 +156,21 @@ def folded_conv(x_f: torch.Tensor, folded_kernel: torch.Tensor,
 def folded_calc_mean_std(x_f: torch.Tensor, eps: float = 1e-5):
     """Per-original-channel instance stats from the folded tensor: mean, std
     of shape (N, 1, 1, 4C), block-tiled. Unbiased variance over the original
-    H*W, eps inside the sqrt, one-pass ``s2 - m*mean^2`` form in float32."""
+    H*W, eps inside the sqrt, rpst's one-pass ``s2 - m*mean^2`` form. Each
+    folded row is summed in float32 and the row sums in float64 (no extra
+    pass over the tensor): the sums' rounding is what the CCAM softmax and
+    the SE bottleneck's BatchNorm backward amplify, and one float32 sum
+    over all positions moved sel_multi_adain's gradients much further from
+    rpst's than rpst's own two paths sit apart (``tools/grad_noise.py``)."""
     n, hh, ww, c4 = x_f.shape
     c = c4 // 4
     m = hh * ww * 4  # original pixel count per channel
-    v = x_f.float().reshape(n, hh * ww, 4, c)
-    s1 = v.sum(dim=(1, 2))
-    s2 = (v * v).sum(dim=(1, 2))
+    v = x_f.float().reshape(n, hh, ww * 4, c)
+    s1 = v.sum(dim=2).double().sum(dim=1)
+    s2 = (v * v).sum(dim=2).double().sum(dim=1)
     mean = s1 / m
-    var = (s2 - m * mean * mean) / max(m - 1, 1)
+    var = ((s2 - m * mean * mean) / max(m - 1, 1)).float()
+    mean = mean.float()
     std = torch.sqrt(torch.clamp(var, min=0.0) + eps)
     mean4 = mean.repeat(1, 4)[:, None, None, :].to(x_f.dtype)
     std4 = std.repeat(1, 4)[:, None, None, :].to(x_f.dtype)
@@ -174,3 +182,52 @@ def folded_adain(content_f: torch.Tensor, style_f: torch.Tensor,
     cm, cs = folded_calc_mean_std(content_f, eps)
     sm, ss = folded_calc_mean_std(style_f, eps)
     return (content_f - cm) / cs * ss + sm
+
+
+# ---------------------------------------------------------------------------
+# the SE bottleneck's pieces (rpst ``ops/folded.py:246-290``): XLA in rpst,
+# so plain PyTorch here
+# ---------------------------------------------------------------------------
+
+def fold_conv1x1_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """(1, 1, Cin, Cout) -> (1, 1, 4Cin, 4Cout): a 1x1 conv acts on each
+    sub-position block alone, so the folded kernel is the block-diagonal
+    kron(I4, W) (one differentiable op)."""
+    w = kernel[0, 0]
+    return torch.block_diag(w, w, w, w)[None, None]
+
+
+def folded_zero_conv(x_f: torch.Tensor, folded_kernel: torch.Tensor
+                     ) -> torch.Tensor:
+    """A 1x1 or 3x3 conv with 1-pixel zero padding in the folded domain,
+    no bias: an original-domain zero ring folds to an all-zero folded ring,
+    so SAME zero padding of the folded tensor is exact."""
+    pad = folded_kernel.shape[0] // 2
+    y = F.conv2d(x_f.permute(0, 3, 1, 2), folded_kernel.permute(3, 2, 0, 1),
+                 padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def folded_channel_pool(x_f: torch.Tensor) -> torch.Tensor:
+    """The exact per-original-channel global average pool: (N, Hf, Wf, 4C)
+    -> (N, C) in x_f's type (the mean accumulates in float32, as
+    ``jnp.mean`` does): the 4 sub-position blocks of a channel hold equal
+    pixel counts."""
+    n, hh, ww, c4 = x_f.shape
+    return x_f.reshape(n, hh * ww, 4, c4 // 4).float().mean(
+        dim=(1, 2)).to(x_f.dtype)
+
+
+def _tile_channels(v: torch.Tensor) -> torch.Tensor:
+    """(C,) -> (4C,), or (N, C) -> (N, 1, 1, 4C)."""
+    if v.ndim == 2:
+        return v.repeat(1, 4)[:, None, None, :]
+    return v.repeat(4)
+
+
+def folded_channel_affine(x_f: torch.Tensor, scale: torch.Tensor,
+                          shift=None) -> torch.Tensor:
+    """A per-original-channel affine (scale and shift (C,) or (N, C)) on a
+    folded tensor, tiled over the 4 sub-position blocks."""
+    y = x_f * _tile_channels(scale)
+    return y if shift is None else y + _tile_channels(shift)

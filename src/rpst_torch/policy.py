@@ -62,8 +62,16 @@ AUTO_MODE = "standard"
 # 15.42 / 15.45; second call b1 4.36 / 4.47 against 4.56 / 5.85, b4 15.42 /
 # 15.31 against 15.59 / 15.35: q8 behind or level, so no entry; rpst's TPU
 # crossover at b4 for both is not copied.
+# The flagship's variants (chip_smoke.py phase 38, 512px, bf16: folded,
+# standard, q8, folded f32, q8, standard, folded in one call):
+# sel_multi_adain b8 q8 21.13 / 21.05 ms against folded bfloat16's 26.83 /
+# 27.02 and standard's 43.44 / 43.19: ahead in both orders, so b8 is
+# listed; b1 (host-bound) q8 6.19 / 5.37 against folded 6.52 / 4.22: not.
+# ccam: q8 8.36 / 9.05 (b1) and 51.05 / 50.87 (b8) against folded 6.39 /
+# 7.78 and 40.43 / 40.46; mst: q8 8.79 / 13.56 and 90.74 / 88.34 against
+# folded 8.16 / 8.14 and 64.47 / 81.08: behind, so no entry.
 # An entry needs q8 ahead in both orders of every call made.
-Q8_AUTO_BATCHES: Dict[str, frozenset] = {}
+Q8_AUTO_BATCHES: Dict[str, frozenset] = {"sel_multi_adain": frozenset({8})}
 
 # same card, both on the tensor cores (the same call): the q8 stylize with
 # B7 pairs read 26.68 / 26.63 ms at b8 against B4's 23.45 / 23.47; at b1,

@@ -1,7 +1,8 @@
 """Checkpoints of the training state; port of ``rpst.train.checkpoint``.
 
 One ``torch.save`` per checkpoint, ``<root>/<step>/state.pt``, holding
-``{step, params, opt_state, rng}``: the model's state_dict, the Adam
+``{step, params, opt_state, rng}``: the model's state_dict (parameters
+and buffers: sel_multi_adain's BatchNorm running statistics), the Adam
 state_dict (moments and count), and the ``torch.Generator`` state. The
 step is stored in the file and mirrored in the directory name. Restoring
 all of it makes a resumed run continue the same computation.

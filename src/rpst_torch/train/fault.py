@@ -5,7 +5,9 @@
     state (moments and count, so also the lr schedule) stay as they were,
     and the caller reports ``skipped``. rpst selects between the old and
     new state inside its jitted step; here one host read of a single flag
-    decides, so a skipped step costs no update at all.
+    decides, so a skipped step costs no update at all. The model's buffers
+    (BatchNorm running statistics, which a train forward moves) are put
+    back by ``step.train_step``.
   * ``CheckpointOnSignal``: SIGTERM/SIGINT ask for a last checkpoint
     instead of killing the run.
 """

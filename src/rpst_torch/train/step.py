@@ -6,7 +6,13 @@ betas and eps (optax's ``adam`` is the same rule) and sets the lr before
 every update to ``lr / (1 + lr_decay * (count + 1))``, ``count`` the
 number of updates applied so far (rpst ``step.py:34-38``). A skipped
 non-finite step applies no update, so it leaves ``count`` and the schedule
-where they were.
+where they were, and puts back the model's buffers (sel_multi_adain's
+BatchNorm running statistics, which its train forward moves), as rpst's
+skip rolls back ``batch_stats`` with the rest of the state
+(``step.py:171-181``).
+
+A step may take precomputed loss targets (``train.target_cache``); rpst
+refuses them with ``grad_accum`` and with labels (``check_target_cache``).
 
 Not ported: ``freeze_prefixes`` (wct resume only), gradient accumulation
 and rematerialization (``train_torch.py`` refuses ``grad_accum > 1`` and
@@ -54,7 +60,8 @@ def adam_count(optimizer: torch.optim.Optimizer) -> int:
 @dataclasses.dataclass
 class TrainState:
     """What a checkpoint holds: the step count (advances on every step,
-    skipped or not), the bundle with the model's parameters, the optimizer
+    skipped or not), the bundle with the model's parameters and buffers
+    (BatchNorm running statistics), the optimizer
     with its Adam state, and the run's ``torch.Generator``."""
     step: int
     bundle: ModelBundle
@@ -69,7 +76,7 @@ class TrainState:
 
 def create_train_state(bundle: ModelBundle) -> TrainState:
     """Training state over the bundle's current weights; puts the model in
-    train mode (the flagship has no BatchNorm, so it computes the same)."""
+    train mode (sel_multi_adain's BatchNorms then take batch statistics)."""
     cfg = bundle.cfg
     bundle.model.train()
     return TrainState(step=0, bundle=bundle,
@@ -78,21 +85,44 @@ def create_train_state(bundle: ModelBundle) -> TrainState:
                       schedule=reference_lr_schedule(cfg.lr, cfg.lr_decay))
 
 
+def check_target_cache(cfg, with_labels: bool = False) -> None:
+    """rpst's two refusals of precomputed loss targets
+    (``make_train_step``): the cache keys are per image, so microbatching
+    them (``grad_accum``) is not done, and the cache is for the
+    perceptual-loss families, not a labelled step."""
+    if int(cfg.get("grad_accum", 1)) > 1:
+        raise ValueError("target caching and grad_accum are mutually "
+                         "exclusive")
+    if with_labels:
+        raise ValueError("target caching is for the perceptual-loss "
+                         "families")
+
+
 def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
-               style: torch.Tensor,
-               conv_act: ConvAct = folded_conv_act) -> Dict[str, torch.Tensor]:
+               style: torch.Tensor, conv_act: ConvAct = folded_conv_act,
+               targets=None) -> Dict[str, torch.Tensor]:
     """One step on a (content, style) batch, NHWC in [0, 1] on the model's
     device: loss, backward, then Adam unless the loss or a gradient is not
-    finite. Returns the loss parts (detached device scalars) with
-    ``skipped`` 1.0 or 0.0; ``state.step`` advances either way."""
+    finite; a skipped step also puts the model's buffers back. ``targets``
+    are precomputed loss targets (``DeviceTargetCache.targets_for_batch``).
+    Returns the loss parts (detached device scalars) with ``skipped`` 1.0 or
+    0.0; ``state.step`` advances either way."""
+    if targets is not None:
+        check_target_cache(state.bundle.cfg)
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
-    total, parts = state.bundle.loss(vgg, content, style, conv_act=conv_act)
+    buffers = [b.clone() for b in state.model.buffers()]
+    total, parts = state.bundle.loss(vgg, content, style, targets=targets,
+                                     conv_act=conv_act)
     total.backward()
     lr = state.schedule(adam_count(opt))
     for group in opt.param_groups:
         group["lr"] = lr
     skipped = apply_update_if_finite(opt, total)
+    if skipped:
+        with torch.no_grad():
+            for b, old in zip(state.model.buffers(), buffers):
+                b.copy_(old)
     state.step += 1
     if not skipped:
         state.bundle.weights_changed()

@@ -107,7 +107,7 @@ def test_load_state_dict_refolds(rng):
     assert not torch.equal(bundle.stylize(c, s), first)
 
 
-@pytest.mark.parametrize("network", ["seg_adain", "sel_multi_adain", "ccam",
+@pytest.mark.parametrize("network", ["seg_adain", "spade", "ld_adain2",
                                      "mrf", "ld_adain"])
 def test_unported_networks_raise(network):
     with pytest.raises(ValueError, match="ROADMAP.md section A slice"):
@@ -115,8 +115,41 @@ def test_unported_networks_raise(network):
 
 
 @pytest.mark.parametrize("extra", [dict(attention="se"), dict(use_mask=True),
-                                   dict(inception_num=1), dict(shuffle=True),
+                                   dict(inception_num=1), dict(sort=True),
                                    dict(enc_stack_way="deeper")])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(load_config(dict(SMALL, hidden_dim=8, **extra)))
+
+
+def test_bf16_folded_stylize_matches_rpst():
+    """The bfloat16 folded flagship (compute_dtype bfloat16: rpst's
+    ``_folded_dtype``) against rpst's bfloat16 folded stylize, full width
+    at 64px on the flagship fixture's params: MAE < 1e-2, the bf16 budget
+    above (the two frameworks round bfloat16 at other places), and no
+    further from rpst's float32 output than rpst's own bfloat16 output is,
+    give or take that budget."""
+    from pathlib import Path
+
+    from rpst_torch.bridge import flax_tree_from_npz
+    fixture = (Path(__file__).resolve().parent / "fixtures"
+               / "torch_port_flagship.npz")
+    with np.load(fixture) as npz:
+        params = flax_tree_from_npz(npz)
+        content, style, out_f32 = (npz[k] for k in ("content", "style",
+                                                    "out"))
+    cfg = load_config(dict(SMALL, rp_blocks=5, hidden_dim=32,
+                           img_size=content.shape[1],
+                           exec_strategy="folded", compute_dtype="bfloat16"))
+    jb = j_build_model(cfg)
+    ref = np.asarray(jax.jit(lambda p, c, s: jb.stylize(
+        {"params": p}, None, c, s))(jax.tree.map(jnp.asarray, params),
+                                     jnp.asarray(content),
+                                     jnp.asarray(style)), np.float32)
+    bundle = build_model(cfg)
+    bundle.load_state_dict(from_flax_params(params))
+    got = bundle.stylize(torch.from_numpy(content), torch.from_numpy(style))
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - ref).mean() < 1e-2
+    assert np.abs(got.numpy() - out_f32).mean() < \
+        np.abs(ref - out_f32).mean() + 1e-2

@@ -164,6 +164,30 @@ def test_transform_matches_flax_and_reaches_b6_contiguous():
     assert seen == [[True] * 3] * 2
 
 
+def test_transform_in_bfloat16_computes_float32_as_rpst():
+    """rpst's flax ``Transform`` builds its 1x1 and merge convs without a
+    dtype, so on bfloat16 features (its bf16 stylize and q8 paths) it
+    promotes to its float32 parameters: the port's transform under bfloat16
+    autocast computes the same float32 function."""
+    rng = np.random.default_rng(4)
+    c4, s4 = (rng.normal(size=(2, 8, 8, 512)) for _ in range(2))
+    c5, s5 = (rng.normal(size=(2, 4, 4, 512)) for _ in range(2))
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (c4, s4, c5, s5)]
+    mod = JaxTransform(512, dtype=jnp.bfloat16)
+    params = mod.init(jax.random.PRNGKey(2), *args)["params"]
+    ref = mod.apply({"params": params}, *args)
+    assert ref.dtype == jnp.float32
+    tr = Transform(512)
+    tr.load_state_dict(from_flax_params(_np_tree(params)))
+    feats = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+             for a in args]
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        got = tr(*feats)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(ref), **TOL)
+
+
 def test_reference_checkpoint_layout_loads(bundle):
     """tools/export_reference_checkpoint.py's {'transform', 'decoder'} file
     layout gives the same state_dict as the flax tree."""
@@ -253,7 +277,7 @@ def test_q8_plan_calibration_and_stylize_match_rpst(bundle, fx):
     np.testing.assert_allclose(own, fx["act_scales"], rtol=2e-2)
     scales = {"act_scales": fx["act_scales"]}
     for dt, key, min_psnr in ((torch.float32, "out_q8_f32", 40.0),
-                              (torch.bfloat16, "out_q8_bf16", 30.0)):
+                              (torch.bfloat16, "out_q8_bf16", 38.0)):
         got = bundle.stylize_q8(c, s, scales, dtype=dt)
         assert got.dtype == torch.float32
         assert _psnr(got.numpy(), fx[key]) >= min_psnr, key

@@ -202,6 +202,9 @@ def test_resolve_mode(caplog, monkeypatch):
 
 @pytest.mark.parametrize("network,over", [
     ("multi_adain", dict(hidden_dim=32)),
+    ("sel_multi_adain", dict(hidden_dim=32)),
+    ("ccam", dict(hidden_dim=32)),
+    ("mst", dict(hidden_dim=32)),
     ("adain", dict(hidden_dim=32)),
     ("wct", dict(hidden_dim=32)),
     ("sanet", dict(img_size=32)),

@@ -110,7 +110,7 @@ BF16_LOSS_RTOL = 2e-2
 BF16_WEIGHT_GRAD_ATOL_REL, BF16_BIAS_GRAD_ATOL_REL = 0.08, 0.05
 
 
-@pytest.mark.parametrize("case", ["standard", "adain"])
+@pytest.mark.parametrize("case", ["standard", "adain", "folded"])
 def test_bf16_loss_matches_rpst_and_grads_match_f32(case):
     """compute_dtype bfloat16 at 32px. The loss parts are held against
     rpst's bfloat16 loss. The gradients are held against rpst's float32

@@ -110,9 +110,56 @@ VGG), ``content``, ``style``, ``out_f32``, ``act_scales``, ``out_q8_f32``,
 ``style_loss``, ``content_loss``, ``total_loss`` and the gradient keys of
 the sanet fixture.
 
+The sel_multi_adain, ccam and mst fixtures (``--sel-multi-adain``,
+``--ccam``, ``--mst``: the flagship's stack at full width, rp_blocks 5,
+hidden_dim 32, 64px, batch 2; ccam and mst at their yamls' stylized_layers
+5 and 1, ``shuffle`` off, loss weights 1 and 2) hold:
+  * ``params/<flax path>`` from ``model.init`` at ``PRNGKey(seed)``, the
+    RP stacks' kernels redrawn He-uniform from numpy (``_he_stacks``: the
+    default init shrinks the signal under AdaIN's eps), ccam's five
+    ``scale`` set to 0.3 .. 0.7 (they start at 0, which would hide the
+    attention) and sel_multi_adain's BatchNorm scale / bias drawn from
+    numpy, and ``batch_stats/<path>`` (sel_multi_adain: one train-mode
+    apply's);
+  * ``content``, ``style``, ``vgg_seed``;
+  * ``out_folded``, ``out_folded_bf16``: rpst's folded stylize in float32
+    and bfloat16 (stored float32); ``out_std``: the standard module's
+    (test mode); ccam's ``out_std_shuffle``: with ``shuffle: true``;
+  * ``content_loss``, ``style_loss``, ``total_loss``, ``grads/<path>``:
+    rpst's folded float32 ``ModelBundle.loss`` and ``jax.value_and_grad``;
+    ``grads_std/<path>``: the standard path's, and ``grads_f64/<path>``:
+    the standard path's in float64 (``slice4_grads_f64``; rpst's float32
+    gradients sit up to ~2.5e-2 of a tensor's max from each other and from
+    these for sel_multi_adain and ccam at this size, the error the port's
+    gradients are held to);
+    sel_multi_adain's ``stats_after/<path>``: the loss's updated
+    ``batch_stats``; ``lr``, ``lr_decay``, ``trajectory``,
+    ``trajectory_std``: 3 steps of ``make_train_step``, folded and
+    standard (Adam's first steps move each weight by about lr whatever its
+    gradient's size, so float32 noise in a small gradient moves the
+    trajectory: the two paths' spread is what it can be held to);
+  * ``act_scales``, ``out_q8_f32``, ``out_q8_bf16``: rpst's calibration and
+    int8 folded stylize (``interpret=True``);
+  * mst's ``s_labels``, ``c_labels``, ``label_gap``: the deepest scale's
+    k-means labels of the style channels and the matched cluster of each
+    content channel per sample, and the smallest margin between a
+    channel's nearest and second-nearest center over both (squared
+    distance for k-means, cosine distance for the match, each relative to
+    its scale): labels can flip only below it.
+
+The target-cache fixture (``--target-cache``) holds, on the train
+fixture's params, content, style and VGG: ``t_mean_<i>``, ``t_std_<i>``,
+``t_relu4``: rpst's ``vgg_perceptual_stats`` of the (style, content) batch
+(the targets ``DeviceTargetCache`` stores), and ``content_loss``,
+``style_loss``, ``total_loss``, ``grads/<path>``: rpst's folded loss and
+gradients with those targets given (``ModelBundle.loss(targets=...)``).
+
 Usage:
   python tools/make_torch_port_fixture.py --adain | --wct | --q8-targets
   python tools/make_torch_port_fixture.py --sanet | --dynamic-sanet | --src
+  python tools/make_torch_port_fixture.py --sel-multi-adain | --ccam | --mst
+      [--grads-f64]
+  python tools/make_torch_port_fixture.py --target-cache
   python tools/make_torch_port_fixture.py [--seed 0] [--size 64] [dst.npz]
   python tools/make_torch_port_fixture.py --train [--seed 0] [--size 64] [dst]
   python tools/make_torch_port_fixture.py --q8 [--seed 0] [--size 64] [dst]
@@ -147,6 +194,16 @@ WIDE = dict(rp_blocks=5, hidden_dim=32)
 TRAIN = dict(batch=2, vgg_seed=1, lr=1e-3, lr_decay=0.5, steps=3)
 FLAGSHIP = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=5,
                 hidden_dim=32, inception_num=0, attention="none")
+SLICE4 = {"sel_multi_adain": dict(FLAGSHIP, network="sel_multi_adain"),
+          "ccam": dict(FLAGSHIP, network="ccam", stylized_layers=5,
+                       shuffle=False, shuffle_layers=1),
+          "mst": dict(FLAGSHIP, network="mst", stylized_layers=1,
+                      n_clusters=3, mst_lambda=0.0)}
+SLICE4_DST = {n: REPO / "tests" / "fixtures" / f"torch_port_{n}.npz"
+              for n in SLICE4}
+SLICE4_LOSS = dict(content_weight=1.0, style_weight=2.0)
+CCAM_SCALES = (0.3, 0.4, 0.5, 0.6, 0.7)
+TARGET_CACHE_DST = REPO / "tests" / "fixtures" / "torch_port_target_cache.npz"
 
 
 def _flat(tree, prefix=""):
@@ -490,6 +547,287 @@ def make_src_fixture(seed: int = 0, size: int = 64) -> dict:
                             (q8.calibrate_src_q8, stylize))[-1]
 
 
+def mst_labels(cf, sf, n_clusters: int = 3):
+    """rpst's MST labels of one sample's (H, W, C) features: the k-means
+    labels of the style channels, the matched cluster of each content
+    channel (lambda 0: the argmin), and the smallest relative margin
+    between a channel's nearest and second-nearest choice."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.ops.kmeans import _pairwise_sq_dist, kmeans
+
+    c = cf.shape[-1]
+    s_ch = jnp.asarray(sf, jnp.float32).reshape(-1, c).T
+    c_ch = jnp.asarray(cf, jnp.float32).reshape(-1, c).T
+    s_labels, centers = kmeans(s_ch, n_clusters)
+    d_s = np.sort(np.asarray(_pairwise_sq_dist(s_ch, centers)), axis=1)
+    dots = c_ch @ centers.T
+    norm = (jnp.linalg.norm(c_ch, axis=1, keepdims=True)
+            @ jnp.linalg.norm(centers, axis=1, keepdims=True).T)
+    d_c = np.asarray(1.0 - dots / jnp.maximum(norm, 1e-12))
+    c_labels = d_c.argmin(axis=1)
+    d_c = np.sort(d_c, axis=1)
+    gap = min(float(((d_s[:, 1] - d_s[:, 0]) / d_s[:, 1].max()).min()),
+              float(((d_c[:, 1] - d_c[:, 0])
+                     / max(float(np.abs(d_c).max()), 1e-12)).min()))
+    return (np.asarray(s_labels, np.int32), c_labels.astype(np.int32), gap)
+
+
+def _he_stacks(ms: dict, rng) -> dict:
+    """The RP stacks' kernels drawn He-uniform, U(+-sqrt(6 / fan_in)), and
+    biases U(+-1/sqrt(fan_in)) from ``rng`` (block order, encoder first):
+    with ``model.init``'s PyTorch-default kernels the encoder's signal
+    shrinks ~2.5x a layer, to a deepest std of ~9e-4, under AdaIN's eps,
+    where the float32 gradients of both frameworks sit up to 2e-2 of their
+    max from the float64 ones."""
+    import numpy as np
+    out = {}
+    for stack in ("rp_shared_encoder", "rp_decoder"):
+        out[stack] = {}
+        for blk in sorted(ms[stack], key=lambda b: int(b.split("_")[1])):
+            kernel = ms[stack][blk]["PadConv_0"]["Conv_0"]["kernel"]
+            fan_in = int(np.prod(kernel.shape[:3]))
+            he, lim = (6.0 / fan_in) ** 0.5, fan_in ** -0.5
+            out[stack][blk] = {"PadConv_0": {"Conv_0": {
+                "kernel": rng.uniform(-he, he, kernel.shape)
+                .astype(np.float32),
+                "bias": rng.uniform(-lim, lim, kernel.shape[3])
+                .astype(np.float32)}}}
+    return out
+
+
+def make_slice4_fixture(network: str, seed: int = 0, size: int = 64) -> dict:
+    """The sel_multi_adain / ccam / mst fixture's arrays, computed afresh
+    with JAX on the CPU (rpst's int8 kernel in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst.models import fast_path as fp
+    from rpst.models import fast_path_q8 as q8
+    from rpst.ops.folded import unfold
+    from rpst.train.step import TrainState, make_optimizer, make_train_step
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN["batch"], size, size, 3)
+    content = rng.random(shape, dtype=np.float32)
+    style = rng.random(shape, dtype=np.float32)
+    base = dict(SLICE4[network], img_size=size, lr=TRAIN["lr"],
+                lr_decay=TRAIN["lr_decay"], **SLICE4_LOSS)
+    cfg = load_config(dict(base, exec_strategy="folded"))
+    bundle = build_model(cfg)
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    variables = jax.jit(bundle.model.init)(jax.random.PRNGKey(seed), c, s)
+    variables = jax.tree.map(np.asarray, dict(variables))
+    params = dict(variables["params"])
+    params["ms"] = _he_stacks(params["ms"], rng)
+    extra = {}
+    if network == "ccam":
+        for i, v in enumerate(CCAM_SCALES):
+            params[f"ccam_{i}"] = {"scale": np.full((1,), v, np.float32)}
+    if network == "sel_multi_adain":
+        att = jax.tree.map(np.array, params["attention_block"])
+        for bn in ("bn1", "bn2", "bn3"):
+            n = att[bn]["scale"].shape[0]
+            att[bn]["scale"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+            att[bn]["bias"] = rng.uniform(-0.2, 0.2, n).astype(np.float32)
+        params["attention_block"] = att
+        _, muts = jax.jit(lambda v: bundle.model.apply(
+            v, c, s, train=True, mutable=["batch_stats"]))(
+            {"params": params, **{k: v for k, v in variables.items()
+                                  if k != "params"}})
+        extra = {"batch_stats": jax.tree.map(np.asarray,
+                                             muts["batch_stats"])}
+    params = jax.tree.map(jnp.asarray, params)
+    var = {"params": params, **extra}
+    vgg_vars = jax.tree.map(jnp.asarray,
+                            vgg_weights_from_seed(TRAIN["vgg_seed"]))
+    arrays = {f"params/{k}": np.asarray(v, np.float32).copy()
+              for k, v in _flat(params)}
+    arrays.update({f"batch_stats/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(extra.get("batch_stats", {}))})
+    arrays.update(content=content, style=style,
+                  vgg_seed=np.int64(TRAIN["vgg_seed"]),
+                  lr=np.float32(TRAIN["lr"]),
+                  lr_decay=np.float32(TRAIN["lr_decay"]))
+    arrays["out_folded"] = np.asarray(jax.jit(bundle.stylize)(
+        var, vgg_vars, c, s), np.float32)
+    bf16 = build_model(load_config(dict(base, exec_strategy="folded",
+                                        compute_dtype="bfloat16")))
+    arrays["out_folded_bf16"] = np.asarray(jax.jit(bf16.stylize)(
+        var, vgg_vars, c, s), np.float32)
+    std = build_model(load_config(base))
+    arrays["out_std"] = np.asarray(jax.jit(std.stylize)(var, vgg_vars, c, s),
+                                   np.float32)
+    if network == "ccam":
+        shuffled = build_model(load_config(dict(base, shuffle=True)))
+        arrays["out_std_shuffle"] = np.asarray(jax.jit(shuffled.stylize)(
+            var, vgg_vars, c, s), np.float32)
+
+    def loss_fn(p):
+        total, (parts, muts) = bundle.loss({"params": p, **extra}, vgg_vars,
+                                           c, s, train=True)
+        return total, (parts, muts)
+
+    (_, (parts, muts)), grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
+    arrays.update({k: np.float32(parts[k]) for k in
+                   ("content_loss", "style_loss", "total_loss")})
+    arrays.update({f"grads/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(grads)})
+    arrays.update({f"stats_after/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(muts.get("batch_stats", {}))})
+    # the standard path's gradients: the spread between rpst's two float32
+    # paths is what its own gradients can be held to
+    std_grads = jax.jit(jax.grad(lambda p: std.loss(
+        {"params": p, **extra}, vgg_vars, c, s, train=True)[0]))(params)
+    arrays.update({f"grads_std/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(std_grads)})
+    tx = make_optimizer(cfg)
+    for key, b in (("trajectory", bundle), ("trajectory_std", std)):
+        # the step donates its state: it runs on copies
+        own = jax.tree.map(lambda a: jnp.asarray(np.array(a)),
+                           {"params": params, "extra": extra})
+        state = TrainState(step=jnp.zeros((), jnp.int32),
+                           params=own["params"], extra=own["extra"],
+                           opt_state=tx.init(own["params"]),
+                           rng=jax.random.PRNGKey(seed))
+        step = make_train_step(b, tx)
+        trajectory = []
+        for _ in range(TRAIN["steps"]):
+            state, step_parts = step(state, vgg_vars, c, s)
+            trajectory.append(float(step_parts["total_loss"]))
+        arrays[key] = np.asarray(trajectory, np.float32)
+
+    if network == "sel_multi_adain":
+        scales = q8.calibrate_sel_multi_adain_q8(var, c, s)
+        run = lambda dt: q8.stylize_sel_multi_adain_folded_q8(  # noqa: E731
+            var, scales, c, s, dtype=dt, interpret=True)
+    elif network == "ccam":
+        scales = q8.calibrate_ccam_q8(var, c, s, cfg.stylized_layers)
+        run = lambda dt: q8.stylize_ccam_folded_q8(  # noqa: E731
+            var, scales, c, s, cfg.stylized_layers, dtype=dt,
+            interpret=True)
+    else:
+        mst = dict(stylized_layers=cfg.stylized_layers,
+                   n_clusters=cfg.n_clusters, mst_lambda=cfg.mst_lambda)
+        scales = q8.calibrate_mst_q8(params, c, s, **mst)
+        run = lambda dt: q8.stylize_mst_folded_q8(  # noqa: E731
+            params, scales, c, s, dtype=dt, interpret=True, **mst)
+    arrays["act_scales"] = np.asarray(scales["act_scales"], np.float32)
+    for name, dt in (("out_q8_f32", jnp.float32),
+                     ("out_q8_bf16", jnp.bfloat16)):
+        arrays[name] = np.asarray(run(dt), np.float32)
+
+    if network == "mst":
+        enc = fp._folded_blocks(params["ms"]["rp_shared_encoder"])
+
+        def deepest(img):
+            x = fp.fold(img)
+            for k, b in enc:
+                x = fp._lrelu(fp.folded_conv(x, k, b))
+            return unfold(x)
+
+        cf, sf = jax.jit(deepest)(c), jax.jit(deepest)(s)
+        labels = [mst_labels(cf[i], sf[i], cfg.n_clusters)
+                  for i in range(cf.shape[0])]
+        arrays["s_labels"] = np.stack([lab[0] for lab in labels])
+        arrays["c_labels"] = np.stack([lab[1] for lab in labels])
+        arrays["label_gap"] = np.float32(min(lab[2] for lab in labels))
+    return arrays
+
+
+def slice4_grads_f64(network: str, arrays: dict) -> dict:
+    """rpst's standard-path gradients in float64 at a slice-4 fixture's
+    point (its params, batch_stats, images and VGG): ``grads_f64/<path>``.
+    Where rpst's two float32 gradients sit as far from these as from each
+    other or further, float32 rounding that both paths share (the same
+    elementwise ops on almost the same inputs round alike) is what the
+    port's gradients can be held to. Turns on JAX's float64 mode."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    jax.config.update("jax_enable_x64", True)
+
+    def tree(prefix):
+        return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), _unflat(
+            {k[len(prefix):]: v for k, v in arrays.items()
+             if k.startswith(prefix)}))
+
+    params, stats = tree("params/"), tree("batch_stats/")
+    extra = {"batch_stats": stats} if stats else {}
+    c, s = (jnp.asarray(arrays[k], jnp.float64) for k in ("content", "style"))
+    vgg_vars = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                            vgg_weights_from_seed(int(arrays["vgg_seed"])))
+    std = build_model(load_config(dict(
+        SLICE4[network], img_size=c.shape[1], lr=TRAIN["lr"],
+        lr_decay=TRAIN["lr_decay"], **SLICE4_LOSS)))
+    grads = jax.jit(jax.grad(lambda p, e, v, x, y: std.loss(
+        {"params": p, **e}, v, x, y, train=True)[0]))(params, extra,
+                                                       vgg_vars, c, s)
+    out = {f"grads_f64/{k}": np.asarray(v, np.float64)
+           for k, v in _flat(grads)}
+    assert all(v.dtype == np.float64 for v in out.values())
+    return out
+
+
+def make_target_cache_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The target-cache fixture's arrays on the train fixture's inputs,
+    computed afresh with JAX on the CPU."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst.nn.vgg_folded import vgg_perceptual_stats
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    with np.load(TRAIN_DST) as npz:
+        train = {k: npz[k] for k in npz.files}
+    params = jax.tree.map(jnp.asarray, _unflat(
+        {k[len("params/"):]: v for k, v in train.items()
+         if k.startswith("params/")}))
+    c, s = jnp.asarray(train["content"]), jnp.asarray(train["style"])
+    n = c.shape[0]
+    vgg_vars = jax.tree.map(jnp.asarray,
+                            vgg_weights_from_seed(int(train["vgg_seed"])))
+    bundle = build_model(load_config(dict(FLAGSHIP, img_size=size,
+                                          exec_strategy="folded")))
+    stats, relu4 = jax.jit(lambda x: vgg_perceptual_stats(
+        vgg_vars, x, jnp.float32))(jnp.concatenate([s, c], axis=0))
+    t_stats = [(m[:n], sd[:n]) for m, sd in stats]
+    t_relu4 = relu4[n:]
+
+    def loss_fn(p):
+        total, (parts, _) = bundle.loss({"params": p}, vgg_vars, c, s,
+                                        train=True,
+                                        targets=(t_stats, t_relu4))
+        return total, parts
+
+    (_, parts), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params)
+    arrays = {f"t_mean_{i}": np.asarray(m, np.float32)
+              for i, (m, _) in enumerate(t_stats)}
+    arrays.update({f"t_std_{i}": np.asarray(sd, np.float32)
+                   for i, (_, sd) in enumerate(t_stats)})
+    arrays["t_relu4"] = np.asarray(t_relu4, np.float32)
+    arrays.update({k: np.float32(parts[k]) for k in
+                   ("content_loss", "style_loss", "total_loss")})
+    arrays.update({f"grads/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(grads)})
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -521,6 +859,17 @@ def main():
                     help="write the dynamic_sanet fixture instead")
     ap.add_argument("--src", action="store_true",
                     help="write the src fixture instead")
+    ap.add_argument("--sel-multi-adain", action="store_true",
+                    help="write the sel_multi_adain fixture instead")
+    ap.add_argument("--ccam", action="store_true",
+                    help="write the ccam fixture instead")
+    ap.add_argument("--mst", action="store_true",
+                    help="write the mst fixture instead")
+    ap.add_argument("--target-cache", action="store_true",
+                    help="write the target-cache fixture instead")
+    ap.add_argument("--grads-f64", action="store_true",
+                    help="with a slice-4 network: only (re)compute the "
+                         "fixture's float64 gradients")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -528,7 +877,20 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    if args.adain or args.wct:
+    slice4 = [n for n in SLICE4 if getattr(args, n)]
+    if slice4:
+        args.dst = args.dst or str(SLICE4_DST[slice4[0]])
+        if args.grads_f64:
+            with np.load(args.dst) as npz:
+                arrays = {k: npz[k] for k in npz.files
+                          if not k.startswith("grads_f64/")}
+        else:
+            arrays = make_slice4_fixture(slice4[0], args.seed, args.size)
+        arrays.update(slice4_grads_f64(slice4[0], arrays))
+    elif args.target_cache:
+        arrays = make_target_cache_fixture(args.seed, args.size)
+        args.dst = args.dst or str(TARGET_CACHE_DST)
+    elif args.adain or args.wct:
         network = "adain" if args.adain else "wct"
         arrays = make_rpseq_fixture(network, args.seed, args.size)
         args.dst = args.dst or str(RPSEQ_DST[network])
@@ -557,7 +919,8 @@ def main():
     # the new fixtures hold relu outputs, which compress well
     save = (np.savez_compressed
             if (args.adain or args.wct or args.q8_targets or args.sanet
-                or args.dynamic_sanet or args.src)
+                or args.dynamic_sanet or args.src or slice4
+                or args.target_cache)
             else np.savez)
     save(args.dst, **arrays)
     print(f"wrote {args.dst} ({len(arrays)} arrays)")

@@ -6,12 +6,18 @@ Same flags (``--config <yaml>``, ``--set key=value``), same YAML files, same
 output tree (``<output>/logs/metrics.jsonl``, ``<output>/checkpoints/<step>``),
 same cadence keys (``log_iter``, ``snapshot_save_iter``, ``max_iter``: steps
 1 .. max_iter-1 of each run, numbered after the resumed step), same loss
-mixing, Adam and lr schedule, and the same non-finite skip. The flagship
-(``multi_adain``, constant stack) trains folded (``exec_strategy: folded``:
-every folded conv on B1, its backward on B2 and B3 when the tensors are on
-the card) or standard; with ``train_q8_targets: true`` its style and content
+mixing, Adam and lr schedule, and the same non-finite skip (which also puts
+back sel_multi_adain's BatchNorm running statistics). The flagship
+(``multi_adain``, constant stack) and its three variants
+(``sel_multi_adain``, ``ccam``, ``mst``; ccam's and mst's yamls need
+``--set shuffle=false`` to fold) train folded (``exec_strategy: folded``:
+every RP conv on B1, its backward on B2 and B3 when the tensors are on the
+card) or standard; with ``train_q8_targets: true`` their style and content
 loss targets come from the int8 VGG chain on B5, calibrated once on the
-first batch. ``adain`` trains standard (autograd through the library convs;
+first batch, and with ``target_cache: N`` (N content slots,
+``target_cache_style_slots`` style slots) from the device-resident target
+cache, keyed by dataset index, which supersedes ``train_q8_targets``.
+``adain`` trains standard (autograd through the library convs;
 it needs no kernel). ``sanet`` (``configs/train_static_sanet.yaml``) trains
 standard over a frozen 5-stage VGG: every attention module runs B6's forward
 with its log-sum-exp and the two B6 backward kernels (three stylize passes of
@@ -29,11 +35,9 @@ decoder over a frozen 4-stage VGG (no kernel; ``use_mask`` is not read).
 ``--device cpu`` runs the kernels' plain PyTorch versions. At the end it
 logs the B6, B5 and B1/B2/B3 launch counts of the run. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
-and ``distributed`` (slice 8), ``target_cache`` (section A item 7),
-``grad_accum > 1`` and ``remat`` (slice 8), ``test_dir`` test dumps (slice
-7), and every network but ``multi_adain``, ``adain``, ``sanet``,
-``dynamic_sanet`` and ``src`` (wct training is slice 5b, the others slices
-4-5b).
+and ``distributed`` (slice 8), ``grad_accum > 1`` and ``remat`` (slice 8),
+``test_dir`` test dumps (slice 7), and the networks of slice 5b (wct
+training among them).
 """
 
 import argparse
@@ -65,13 +69,12 @@ from rpst_torch.train.checkpoint import (latest_step,  # noqa: E402
 from rpst_torch.train.fault import CheckpointOnSignal  # noqa: E402
 from rpst_torch.train.metrics import MetricWriter, StepTimer  # noqa: E402
 from rpst_torch.train.step import create_train_state, train_step  # noqa: E402
+from rpst_torch.train.target_cache import DeviceTargetCache  # noqa: E402
 
 # config key -> (is it asked for?, the ROADMAP.md place that ports it)
 _UNPORTED = {
     "mesh_shape": (lambda c: bool(c.mesh_shape), "section A slice 8"),
     "distributed": (lambda c: bool(c.distributed), "section A slice 8"),
-    "target_cache": (lambda c: bool(c.get("target_cache", 0)),
-                     "section A item 7"),
     "grad_accum": (lambda c: int(c.grad_accum) > 1, "section A slice 8"),
     "remat": (lambda c: bool(c.remat), "section A slice 8"),
     "test_dir": (lambda c: bool(c.test_dir), "section A slice 7 (test dumps)"),
@@ -86,10 +89,10 @@ def check_ported(cfg) -> None:
             "freeze_prefixes) is ROADMAP.md section A slice 5b")
     if roadmap_slice(cfg.network):
         raise NotImplementedError(
-            "train_torch.py trains multi_adain, adain, sanet, dynamic_sanet "
-            "and src only (the other networks are ROADMAP.md section A "
-            f"slices 4-5b); {cfg.network!r} is section A "
-            f"{roadmap_slice(cfg.network)}")
+            "train_torch.py trains multi_adain, sel_multi_adain, ccam, mst, "
+            "adain, sanet, dynamic_sanet and src only (the other networks "
+            f"are ROADMAP.md section A slice 5b); {cfg.network!r} is section "
+            f"A {roadmap_slice(cfg.network)}")
     for key, (asked, where) in _UNPORTED.items():
         if asked(cfg):
             raise NotImplementedError(
@@ -161,17 +164,42 @@ def main(argv=None):
         else:
             logger.warning(f"resume requested but no checkpoint at {ckpt}")
 
+    # the device-resident target cache (rpst train.py:199-213): the folded
+    # families on one device, grad_accum 1 (the port trains no other way)
+    use_tcache = (bool(cfg.get("target_cache", 0)) and bundle.folded_infer()
+                  and cfg.img_size % 8 == 0
+                  and int(cfg.get("grad_accum", 1)) == 1)
+    if cfg.get("target_cache", 0) and not use_tcache:
+        logger.warning("target_cache ignored: needs a single-device "
+                       "folded-family run with grad_accum=1")
+    target_cache = None
+    if use_tcache:
+        target_cache = DeviceTargetCache(
+            img_size=cfg.img_size, dtype=bundle.folded_dtype(),
+            content_slots=int(cfg.get("target_cache")),
+            style_slots=int(cfg.get("target_cache_style_slots", 8192)),
+            device=device)
+        logger.info(f"target_cache: {target_cache.content_slots} content "
+                    f"slots ({target_cache.nbytes() / 2 ** 20:.0f} MiB of "
+                    f"device memory), {target_cache.style_slots} style slots "
+                    "— the style/content VGG target pass is skipped on hits")
+
     # the resumed run continues both image streams where the saved run
-    # stopped (one batch per step)
+    # stopped (one batch per step); the cache keys batches by dataset index
     content_iter = InfiniteLoader(content_ds, cfg.batch_size,
-                                  cfg.num_workers, seed=cfg.seed, skip=begin)
+                                  cfg.num_workers, seed=cfg.seed, skip=begin,
+                                  with_indices=use_tcache)
     style_iter = InfiniteLoader(style_ds, cfg.batch_size, cfg.num_workers,
-                                seed=cfg.seed + 1, skip=begin)
-    if cfg.train_q8_targets:
+                                seed=cfg.seed + 1, skip=begin,
+                                with_indices=use_tcache)
+    if cfg.train_q8_targets and use_tcache:
+        logger.info("train_q8_targets superseded by target_cache (the "
+                    "target pass it quantizes is skipped entirely)")
+    elif cfg.train_q8_targets:
         # int8 no-grad VGG loss targets: the encoder is frozen, so scales
         # calibrated once on a representative batch hold for the whole run;
         # only the folded loss consumes them (ModelBundle.loss)
-        if bundle.folded_exec() and cfg.img_size % 8 == 0:
+        if bundle.folded_infer() and cfg.img_size % 8 == 0:
             bundle.q8_target_scales = calibrate_vgg_targets_q8(
                 vgg, torch.from_numpy(next(content_iter)).to(device),
                 torch.from_numpy(next(style_iter)).to(device))
@@ -183,9 +211,9 @@ def main(argv=None):
                            "rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH")
                         + ")")
         else:
-            logger.warning("train_q8_targets ignored: needs a folded "
-                           "multi_adain config and img_size % 8 == 0")
-    logger.info(f"Training {cfg.network} ({'folded' if bundle.folded_exec() else 'standard'}, "
+            logger.warning("train_q8_targets ignored: needs a folded-family "
+                           "config and img_size % 8 == 0")
+    logger.info(f"Training {cfg.network} ({'folded' if bundle.folded_infer() else 'standard'}, "
                 f"{cfg.compute_dtype}) on {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else "")
@@ -201,9 +229,19 @@ def main(argv=None):
         with CheckpointOnSignal() as stop:
             for i in range(1, cfg.max_iter):
                 start = time.perf_counter()
-                content = torch.from_numpy(next(content_iter)).to(device)
-                style = torch.from_numpy(next(style_iter)).to(device)
-                parts = train_step(state, vgg, content, style)
+                targets = None
+                if use_tcache:
+                    c_idx, content_np = next(content_iter)
+                    s_idx, style_np = next(style_iter)
+                    content = torch.from_numpy(content_np).to(device)
+                    style = torch.from_numpy(style_np).to(device)
+                    targets = target_cache.targets_for_batch(
+                        vgg, style, content, s_idx, c_idx)
+                else:
+                    content = torch.from_numpy(next(content_iter)).to(device)
+                    style = torch.from_numpy(next(style_iter)).to(device)
+                parts = train_step(state, vgg, content, style,
+                                   targets=targets)
                 timer.tick()
                 if i % cfg.log_iter == 0:
                     values = {k: float(v) for k, v in parts.items()}
@@ -215,6 +253,10 @@ def main(argv=None):
                                 f", img/s {cfg.batch_size / elapsed:.2f}")
                     loss_str = "".join(f", {k} {v}"
                                        for k, v in sorted(values.items()))
+                    if use_tcache:
+                        tc = target_cache.stats()
+                        loss_str += (f", tcache_hit_steps {tc['hit_steps']}"
+                                     f"/{tc['hit_steps'] + tc['miss_steps']}")
                     logger.info(f"Iterations {begin + i}, elapsed time: "
                                 f"{elapsed:.3f}{rate_str}{loss_str}")
                 if (i % cfg.snapshot_save_iter == 0 or (i + 1) == cfg.max_iter
@@ -233,6 +275,8 @@ def main(argv=None):
         str(n - b6_0[k]) for k, n in launch_counts().items()))
     logger.info(f"B5 fused_conv2d_q8 launches: "
                 f"{fused_conv2d_q8.launches - b5_0}")
+    if use_tcache:
+        logger.info(f"target_cache stats: {target_cache.stats()}")
     logger.info(f"B1/B2/B3 launches: {b1}/{b2}/{b3}")
 
 

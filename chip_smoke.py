@@ -5,8 +5,10 @@ PyTorch version, drives the flagship's folded and int8 serving and training
 paths, adain's and wct's serving, and the serving and training of the static
 SANet, the adaptive SANet (dynamic_sanet) and SourceNet (src) at 512px
 through the user's entry points, the flagship's three variants
-(sel_multi_adain, ccam, mst: folded, int8 and training) and the flagship's
-target cache, and times them. Needs one NVIDIA
+(sel_multi_adain, ccam, mst: folded, int8 and training), the flagship's
+target cache, and mrf, spade and seg_adain (standard and int8 serving,
+training) with wct's training and its frozen-encoder resume, and times
+them. Needs one NVIDIA
 Hopper card; run from the repository root with no arguments:
 
     python3 chip_smoke.py
@@ -41,7 +43,8 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
   6. daemon    serve_torch.py --daemon: 6 requests + stats + shutdown
   7. timing    512px stylize b1/b8, f32/bf16: folded B1 and standard in
                both orders (folded, standard, folded plain, standard,
-               folded), with CUDA events, 10 calls each
+               folded), with CUDA events, 5 calls each (the later timing
+               phases: 3 calls after 1 warm-up, phases 39-43's 5 after 2)
   8. train fixture  the folded train step on the card (B1/B2/B3) vs rpst's
                JAX loss, gradients and 3-step trajectory
                (tests/fixtures/torch_port_train.npz)
@@ -223,6 +226,40 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                at each variant's settings; the flagship's b1 / b4 step, f32
                and bf16, with float targets, int8 targets and the cache
                hitting, in both orders
+
+ 39. 5b fixtures  mrf, spade, seg_adain and wct training on the card vs
+               rpst's JAX (tests/fixtures/torch_port_{mrf,spade,seg_adain,
+               wct_train}.npz, 64px b2, hidden 32): stylize f32 (1e-4) and
+               bf16 (MAE < 1e-2 or 3 x rpst's own bf16 distance), q8 with
+               rpst's scales (f32 >= 35 dB, bf16 >= 30) with exact B5
+               launches (7 / 4 / 4), calibration within 2e-2 of rpst's,
+               loss parts (rtol 1e-4), gradients in float32 and float64
+               (tests/test_torch_mrf.py's rule, 4 x the frameworks' own
+               float32 errors on the card), the 3-step trajectory (seg_adain
+               with labels, wct with the encoder frozen and bit-unchanged)
+ 40. 5b parity    512px b2 at bench.py's widths: q8 vs f32 (> 30 dB) and
+               bf16 vs f32 (MAE < 2e-2) for the three networks; the MRF
+               loss streamed (chunk 1024) vs its dense threshold form at
+               relu4_1 (4096 positions), the dense top-k route beside it;
+               B5 at the mrf decoder head's (1,512,512,1024->512) vs plain
+               (int8 identical, bf16 bits equal)
+ 41. 5b serve     each network's main path: 8 requests through build_model
+               -> resolve_mode -> [calibrate_scales ->] make_run_impl ->
+               DynamicBatcher(b4), standard and q8, counts reset before and
+               read after (q8: 7 / 4 / 4 B5 a batch, no other kernel);
+               serve_torch.py --mode q8 as a subprocess for each, and for
+               spade at configs/TrainConfig.yaml (hidden 2: 0 scales, 0 B5)
+ 42. 5b train     train_torch.py at 512px: mrf, spade, seg_adain b1 at
+               bench.py's widths, seg_adain on a synthetic side-by-side
+               seg_dir, spade at configs/TrainConfig.yaml, wct at
+               configs/train_deeper_rp_wct.yaml (b4) with resume: true
+               (the encoder frozen): 3 steps as a subprocess, a resume for 2
+               in this process (no kernel launched), the resumed run's peak
+               memory, the frozen encoder's bytes unchanged; a wct
+               checkpoint saved without the freeze refused on resume
+ 43. 5b timing    512px stylize b1 / b4 of the three networks: f32, then
+               bf16 against q8 in both orders; the train step b1 of the
+               three and of wct, f32, with its peak memory
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -410,6 +447,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False  # F.conv2d in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
     name_power = card()
     log("card", f"{name_power} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -631,18 +669,20 @@ def main():
                 # serving policy), plain between them
                 for path in ("folded B1", "standard", "folded plain",
                              "standard", "folded B1"):
-                    ms = cuda_ms(paths[path], iters=10)
+                    ms = cuda_ms(paths[path], iters=5, warmup=2)
                     rows.append((batch, str(dt)[6:], path, ms))
                     log("7 timing", f"512px b{batch} {str(dt)[6:]:8s} "
                         f"{path:12s}: {ms:8.3f} ms  "
                         f"{batch * 1e3 / ms:8.2f} img/s  ({name_power})")
 
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 8-11")
     # ---- 8-11. training ---------------------------------------------------
     _train_fixture(dev)
     _train_parity(dev, rng)
     train_launches = _train_main_path(dev)
     _train_timing(dev, rng, name_power)
 
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 12-16")
     # ---- 12-16. int8 (q8) serving -----------------------------------------
     q8k = _q8_kernels(dev, name_power)
     _q8_fixture(dev)
@@ -650,6 +690,7 @@ def main():
     q8_launches = _q8_serve(dev, rng)
     _q8_timing(dev, rng, name_power, rows)
 
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 17-22")
     # ---- 17-22. the wide standard-layout path (B5) ------------------------
     b5k = _b5_kernels(dev, name_power)
     _wide_fixtures(dev)
@@ -658,6 +699,7 @@ def main():
     q8t_launches = _q8_targets_train(dev)
     _wide_timing(dev, rng, name_power)
 
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 23-28")
     # ---- 23-28. the static SANet on B6 -----------------------------------
     b6k = _b6_kernels(dev, name_power)
     _sanet_fixture(dev)
@@ -666,6 +708,7 @@ def main():
     sanet_train = _sanet_train(dev)
     _sanet_timing(dev, rng, name_power)
 
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 29-33")
     # ---- 29-33. slice 6b: dynamic_sanet and src on B5 ----------------------
     _6b_fixtures(dev)
     b5_6b = _6b_serve(dev, rng)
@@ -673,6 +716,7 @@ def main():
     _6b_parity(dev, rng)
     _6b_timing(dev, rng, name_power)
 
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 34-38")
     # ---- 34-38. slice 4 (sel_multi_adain, ccam, mst), the target cache ----
     _s4_fixtures(dev)
     _s4_parity(dev, rng)
@@ -680,6 +724,15 @@ def main():
     s4_train = _s4_train(dev)
     _s4_timing(dev, rng, name_power)
 
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 39-43")
+    # ---- 39-43. slice 5b (mrf, spade, seg_adain), wct training -----------
+    _5b_fixtures(dev)
+    _5b_parity(dev, rng)
+    b5_5b = _5b_serve(dev, rng)
+    _5b_train(dev)
+    _5b_timing(dev, rng, name_power)
+
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-43")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -736,7 +789,7 @@ def main():
          "source": "src/rpst_torch/csrc/conv2d_q8.cu",
          "replaces": "src/rpst/ops/pallas/conv2d_q8.py:220",
          "launches": (b5_serve + q8t_launches[3] + sanet_serve["B5"]
-                      + b5_6b),
+                      + b5_6b + b5_5b),
          "max_abs_err": b5k["err"], "ms": b5k["ms"],
          "plain_ms": b5k["plain_ms"], "bound_ms": b5k["bound_ms"],
          "bound_by": b5k["bound_by"], "library_ms": b5k["library_ms"]}]}
@@ -1300,7 +1353,7 @@ def _train_timing(dev, rng, name_power):
                 init_torch_default(bundle.model, cfg.seed)
                 state = create_train_state(bundle)
                 ms = cuda_ms(lambda: train_step(state, vgg, c, s, **kw),
-                             iters=5, warmup=2)
+                             iters=3, warmup=1)
                 log("11 train timing", f"{IMG}px b{batch} {dt:8s} {path:16s}: "
                     f"{ms:9.3f} ms/step {batch * 1e3 / ms:8.2f} img/s "
                     f"({name_power})")
@@ -1738,7 +1791,7 @@ def _q8_timing(dev, rng, name_power, rows):
                 "standard": lambda: _standard(std, c, s, bf)}
             order = list(paths)
             for path in order + order[::-1]:
-                ms = cuda_ms(paths[path], iters=10)
+                ms = cuda_ms(paths[path], iters=5, warmup=2)
                 log("16 q8 timing", f"512px b{batch} bfloat16 {path:12s}: "
                     f"{ms:8.3f} ms  {batch * 1e3 / ms:8.2f} img/s  "
                     f"({name_power})")
@@ -1755,10 +1808,12 @@ WIDE = dict(rp_blocks=5, hidden_dim=32, seed=0)
 ADAIN_YAML = REPO / "configs" / "train_deeper_rp_adain.yaml"  # hidden 16
 # every shape the paths give B5, (label, (N, H, W, C, Co), pad): the four
 # eligible layers of a 512px adain / wct stylize at hidden 32 (encoder on
-# the 2N batch, checked at 2N = 2; decoder at N = 2), the six of the
-# int8 VGG targets at 512px (conv_6..8 share one shape), and the six shapes
-# a 512px SANet q8 stylize adds at batch 1 (the deeper VGG stages on the 2N
-# batch, the mirror decoder's conv0 .. conv5)
+# the 2N batch, checked at 2N = 2; decoder at N = 2; seg_adain's are
+# adain's), the six of the int8 VGG targets at 512px (conv_6..8 share one
+# shape), the six shapes a 512px SANet q8 stylize adds at batch 1 (the
+# deeper VGG stages on the 2N batch, the mirror decoder's conv0 .. conv5),
+# and the three a b1 mrf / spade stylize adds (the encoder tails, one pass
+# per encoder, and mrf's decoder head on the 1024-channel concat)
 B5_SHAPES = (
     ("adain enc 128->256", (2, 512, 512, 128, 256), "zero"),
     ("adain enc 256->512", (2, 512, 512, 256, 512), "zero"),
@@ -1773,7 +1828,10 @@ B5_SHAPES = (
     ("mirror conv0 512->256", (1, 64, 64, 512, 256), "reflect"),
     ("mirror conv1..3 256->256", (1, 128, 128, 256, 256), "reflect"),
     ("mirror conv4 256->128", (1, 128, 128, 256, 128), "reflect"),
-    ("mirror conv5 128->128", (1, 256, 256, 128, 128), "reflect"))
+    ("mirror conv5 128->128", (1, 256, 256, 128, 128), "reflect"),
+    ("mrf/spade enc 128->256", (1, 512, 512, 128, 256), "zero"),
+    ("mrf/spade enc 256->512", (1, 512, 512, 256, 512), "zero"),
+    ("mrf dec 1024->512", (1, 512, 512, 1024, 512), "zero"))
 B5_WIDEST = "adain enc 256->512"
 # (N, H, W, C, Co) at the edges of B5's tilings (16 pixel columns x 8 rows,
 # 64 or 128 output channels, 32 input channels a step): the k tail at C = 4,
@@ -2257,7 +2315,7 @@ def _wide_timing(dev, rng, name_power):
                 for path in ("standard f32", "standard bf16", "q8 B5",
                              "q8 B5", "standard bf16"):
                     fn = paths[path]
-                    ms = cuda_ms(fn, iters=7, warmup=2)
+                    ms = cuda_ms(fn, iters=3, warmup=1)
                     log("22 wide timing", f"{network} 512px b{batch} "
                         f"{path:14s}: {ms:9.3f} ms {batch * 1e3 / ms:8.2f} "
                         f"img/s ({name_power})")
@@ -2284,7 +2342,7 @@ def _wide_timing(dev, rng, name_power):
                     bundle.q8_target_scales = sc
                     state = create_train_state(bundle)
                     ms = cuda_ms(lambda: train_step(state, vgg, c, s),
-                                 iters=5, warmup=2)
+                                 iters=3, warmup=1)
                     log("22 wide timing", f"train step 512px b{batch} "
                         f"{dt:8s} {label:16s}: {ms:9.3f} ms/step "
                         f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
@@ -3021,7 +3079,7 @@ def _sanet_timing(dev, rng, name_power):
                 for label, attention in (attentions if i < len(paths)
                                          else attentions[:1]):
                     bundle.model.attention = attention
-                    ms = cuda_ms(fn, iters=7, warmup=2)
+                    ms = cuda_ms(fn, iters=3, warmup=1)
                     log("28 sanet timing", f"stylize {IMG}px b{batch} "
                         f"{path:17s} attention {label:5s}: {ms:9.3f} ms "
                         f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
@@ -3035,7 +3093,7 @@ def _sanet_timing(dev, rng, name_power):
                 bundle.model.attention = attention
                 state = create_train_state(bundle)
                 ms = cuda_ms(lambda: train_step(state, bundle.vgg, c, s),
-                             iters=5, warmup=2)
+                             iters=3, warmup=1)
                 log("28 sanet timing", f"train step {IMG}px b{batch} {dt:8s} "
                     f"attention {label:5s}: {ms:9.3f} ms/step "
                     f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
@@ -3470,7 +3528,7 @@ def _6b_timing(dev, rng, name_power):
                             c, s, scales)))
                         paths += [paths[1], paths[0]]  # both orders
                     for path, fn in paths:
-                        ms = cuda_ms(fn, iters=7, warmup=2)
+                        ms = cuda_ms(fn, iters=3, warmup=1)
                         log("33 6b timing", f"stylize {IMG}px b{batch} "
                             f"{network} {route:8s} {path:17s}: {ms:9.3f} ms "
                             f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
@@ -3480,8 +3538,8 @@ def _6b_timing(dev, rng, name_power):
         c, s = pair(batch)
         bundle = _6b_bundle(dev, network, IMG)
         state = create_train_state(bundle)
-        ms = cuda_ms(lambda: train_step(state, bundle.vgg, c, s), iters=5,
-                     warmup=2)
+        ms = cuda_ms(lambda: train_step(state, bundle.vgg, c, s), iters=3,
+                     warmup=1)
         log("33 6b timing", f"train step {IMG}px b{batch} {network} float32: "
             f"{ms:9.3f} ms/step {batch * 1e3 / ms:8.2f} img/s ({name_power})")
         del state, bundle
@@ -4305,7 +4363,7 @@ def _s4_timing(dev, rng, name_power):
             order = ("folded bf16", "standard bf16", "q8 bf16", "folded f32",
                      "q8 bf16", "standard bf16", "folded bf16")
             for path in order:
-                ms = cuda_ms(paths[path], iters=5, warmup=2)
+                ms = cuda_ms(paths[path], iters=3, warmup=1)
                 log("38 slice-4 timing", f"{network} 512px b{batch} "
                     f"{path:13s}: {ms:8.3f} ms {batch * 1e3 / ms:8.2f} "
                     f"img/s ({name_power})")
@@ -4323,7 +4381,7 @@ def _s4_timing(dev, rng, name_power):
         vgg, _ = build_vgg(cfg, dev)
         state = create_train_state(bundle)
         c, s = img(batch), img(batch)
-        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=5, warmup=2)
+        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=3, warmup=1)
         log("38 slice-4 timing", f"{network} train step 512px b{batch} "
             f"{dt}: {ms:8.3f} ms {batch * 1e3 / ms:8.2f} img/s "
             f"({name_power})")
@@ -4353,12 +4411,645 @@ def _s4_timing(dev, rng, name_power):
 
             bundle.cfg = cfg.replace(train_q8_targets=True)
             for kind in ("float", "int8", "cache", "cache", "int8", "float"):
-                ms = cuda_ms(lambda: step(kind), iters=5, warmup=2)
+                ms = cuda_ms(lambda: step(kind), iters=3, warmup=1)
                 log("38 slice-4 timing", f"flagship train step 512px "
                     f"b{batch} {dt:8s} {kind:5s} targets: {ms:8.3f} ms "
                     f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
             del bundle, state, cache
             torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 39-43: slice 5b (mrf, spade, seg_adain) and wct training
+# ---------------------------------------------------------------------------
+
+S5B_NETWORKS = ("mrf", "spade", "seg_adain")
+# the fixtures' configs (tools/make_torch_port_fixture.py SLICE5B) and their
+# loss weights
+S5B_FIXTURE_CFG = {
+    "mrf": dict(WIDE, network="mrf", k=5, mrf_chunk=0, mrf_weight=1.0),
+    "spade": dict(WIDE, network="spade", ndf=2, spade_norm="instance"),
+    "seg_adain": dict(WIDE, network="seg_adain", seg_hidden_dim=32,
+                      class_num=19, seg_loss_weight=1.0),
+    "wct_train": dict(WIDE, network="wct")}
+S5B_LOSS = dict(content_weight=1.0, style_weight=2.0)
+# the act scales and B5 launches of one q8 stylize at bench.py's widths
+# (rp_blocks 5, hidden 32; the plans, held on the CPU by
+# tests/test_torch_{mrf,spade,seg_adain}.py): mrf each encoder's 128->256 and
+# 256->512 (one pass each) and the decoder's 1024->512, 512->256, 256->128;
+# spade its two encoders' (the SPADE generator is float); seg_adain adain's
+# (the 2N encode's two, the decoder's two)
+S5B_PLAN = {"mrf": {"scales": 9, "B5": 7}, "spade": {"scales": 6, "B5": 4},
+            "seg_adain": {"scales": 5, "B5": 4}}
+TRAIN_CONFIG_YAML = REPO / "configs" / "TrainConfig.yaml"
+WCT_YAML = REPO / "configs" / "train_deeper_rp_wct.yaml"
+# the fixtures' gradients (tests/test_torch_mrf.py's rule, GRAD_SPREAD 4 on
+# the card as phase 34's): the port's float64 gradients against rpst's
+# float64 ones at 1e-4 x max (wct 1e-3: both whiten in float32, and
+# cuSOLVER's eigh moves the card's fused features from the CPU's: the
+# decoder's float32 gradients read 6.7e-4 of max from rpst's); the float32
+# ones at that floor or S5B_GRAD_SPREAD x the larger of the two frameworks'
+# own float32 errors; the port's own capped at S5B_MAX_OWN or twice rpst's
+# worst over the network; rpst's float64 gradient below S5B_ZERO x the
+# largest is zero up to rounding (spade's biases before an instance norm),
+# the port's then below S5B_NOISE x the largest
+S5B_GRAD_SPREAD, S5B_MAX_OWN = 4.0, 3e-3
+S5B_ZERO, S5B_NOISE = 1e-9, 1e-7
+WCT_F64_ATOL = 1e-3
+# 512px bfloat16 against float32 (phase 40): slice 4's budget
+S5B_BF16_MAE = 2e-2
+# the streamed MRF loss against its dense threshold form at 512px relu4_1
+# (4096 positions): rpst's tolerance (tests/test_ops_affinity.py: 1e-4);
+# chunked and whole similarity products may round a near-tie apart
+MRF_STREAM_RTOL = 1e-4
+
+
+def _5b_weights(network, seed=0):
+    """The seeded params tree of a slice-5b network (bridge's draws)."""
+    from rpst_torch import bridge
+    width = dict(rp_blocks=WIDE["rp_blocks"], hidden_dim=WIDE["hidden_dim"])
+    if network == "mrf":
+        return bridge.mrf_weights_from_seed(seed, **width)
+    if network == "spade":
+        return bridge.spade_weights_from_seed(seed, ndf=2, **width)
+    if network == "seg_adain":
+        return bridge.seg_adain_weights_from_seed(seed, **width)
+    return bridge.rpseq_weights_from_seed(seed, **width)
+
+
+def _5b_bundle(dev, network, size, seeded=True, **over):
+    """The network at bench.py's widths (the fixture's config for the
+    fixture's name), seeded weights or the drivers' default init."""
+    from rpst_torch.bridge import from_flax_params
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    cfg = load_config(dict(S5B_FIXTURE_CFG[network], img_size=size, vgg="",
+                           test_dir="", **over))
+    bundle = build_model(cfg, dev)
+    if seeded:
+        bundle.load_state_dict(from_flax_params(_5b_weights(network)))
+    else:
+        init_torch_default(bundle.model, cfg.seed)
+    return bundle
+
+
+def _5b_vgg(dev, seed):
+    from rpst_torch.bridge import vgg_from_flax, vgg_weights_from_seed
+    from rpst_torch.nn.vgg import VGG19Encoder
+    vgg = VGG19Encoder()
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(seed)))
+    return vgg.to(dev)
+
+
+def _5b_check_grads(label, g32, g64, fx, f64_atol):
+    """The port's float32 and float64 gradients (name -> tensor) against a
+    slice-5b fixture (the rule above the constants); returns (worst float32
+    err / max, worst float64 err / max, zero-gradient tensors)."""
+    import numpy as np
+    keys = [k for k in fx if k.partition("/")[0] in ("grads", "gradpatch")]
+    top = max(float(np.abs(fx[f"f64/{k}"]).max()) for k in keys)
+    live = [k for k in keys
+            if float(np.abs(fx[f"f64/{k}"]).max()) >= S5B_ZERO * top]
+    rpst_worst = max(float(np.abs(fx[k] - fx[f"f64/{k}"]).max())
+                     / float(np.abs(fx[f"f64/{k}"]).max()) for k in live)
+    worst32 = worst64 = 0.0
+    zero = 0
+    names = set()
+    for key in keys:
+        kind, _, path = key.partition("/")
+        name = path.replace("/", ".").replace("kernel", "weight")
+        names.add(name)
+        got, got64 = ((g if kind == "grads" else g.permute(2, 3, 1, 0)[
+            ..., :8, :8]).double().cpu().numpy() for g in (g32[name],
+                                                            g64[name]))
+        ref, ref64 = fx[key], fx[f"f64/{key}"]
+        if key not in live:
+            if not (float(np.abs(got).max()) <= S5B_NOISE * top
+                    and float(np.abs(got64).max()) <= S5B_ZERO * top):
+                raise AssertionError(f"{label} {name}: a zero gradient reads "
+                                     f"{np.abs(got).max()} / "
+                                     f"{np.abs(got64).max()}")
+            zero += 1
+            continue
+        size = float(np.abs(ref64).max())
+        e64 = float(np.abs(got64 - ref64).max())
+        if not np.all(np.abs(got64 - ref64)
+                      <= f64_atol * size + 5e-3 * np.abs(ref64)):
+            raise AssertionError(f"{label} {name} float64: max err {e64} "
+                                 f"(max {size})")
+        own_rpst = float(np.abs(ref - ref64).max()) / size
+        own_port = float(np.abs(got - got64).max()) / size
+        if own_port > max(S5B_MAX_OWN, 2 * rpst_worst):
+            raise AssertionError(f"{label} {name}: the port's own float32 "
+                                 f"error {own_port}, rpst's worst "
+                                 f"{rpst_worst}")
+        atol = max(f64_atol, S5B_GRAD_SPREAD * max(own_rpst, own_port))
+        e32 = float(np.abs(got - ref).max())
+        if not np.all(np.abs(got - ref) <= atol * size
+                      + GRAD_RTOL * np.abs(ref)):
+            raise AssertionError(f"{label} {name}: max err {e32} (max {size}"
+                                 f", atol {atol * size})")
+        worst32, worst64 = max(worst32, e32 / size), max(worst64, e64 / size)
+    if names != set(g32):
+        raise AssertionError(f"{label}: gradients unchecked "
+                             f"{set(g32) - names}")
+    return worst32, worst64, zero
+
+
+def _5b_fixtures(dev):
+    """Phase 39: mrf, spade, seg_adain and wct training on the card against
+    their JAX fixtures: stylize f32 and bf16, q8 with rpst's scales and
+    exact B5 launches, loss parts, gradients (float32 and float64) and the
+    3-step trajectory (seg_adain with labels, wct with the encoder frozen,
+    left bit-unchanged)."""
+    import numpy as np
+    import torch
+    from rpst_torch.train.step import adam_count, create_train_state, \
+        train_step
+    for network in (*S5B_NETWORKS, "wct_train"):
+        with np.load(REPO / "tests" / "fixtures"
+                     / f"torch_port_{network}.npz") as npz:
+            fx = {k: npz[k] for k in npz.files}
+        size = fx["content"].shape[1]
+        over = dict(lr=float(fx["lr"]), lr_decay=float(fx["lr_decay"]),
+                    **S5B_LOSS)
+        bundle = _5b_bundle(dev, network, size, **over)
+        vgg = _5b_vgg(dev, int(fx["vgg_seed"]))
+        c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+        kw = ({"content_label": torch.from_numpy(fx["label"]).to(dev)}
+              if "label" in fx else {})
+        msg = []
+        if network != "wct_train":
+            _reset_counts()
+            out = bundle.stylize(c, s)
+            torch.cuda.synchronize()
+            err, _ = check_close(f"{network} fixture f32", out,
+                                 torch.from_numpy(fx["out_f32"]).to(dev),
+                                 F32_TOL)
+            bf16 = _5b_bundle(dev, network, size, compute_dtype="bfloat16")
+            got16 = bf16.stylize(c, s).cpu().numpy()
+            own = float(np.abs(fx["out_bf16"] - fx["out_f32"]).mean())
+            mae16 = float(np.abs(got16 - fx["out_bf16"]).mean())
+            if not mae16 < max(1e-2, BF16_OWN * own) or _counts(("B5",))[0]:
+                raise AssertionError(f"{network} fixture bf16 MAE {mae16} "
+                                     f"(rpst's own {own}), B5 "
+                                     f"{_counts(('B5',))}")
+            msg.append(f"f32 max abs err {err:.3g}, bf16 MAE {mae16:.3g} "
+                       f"(rpst's own bf16 distance {own:.3g})")
+            plan = S5B_PLAN[network]
+            if len(fx["act_scales"]) != plan["scales"]:
+                raise AssertionError(f"{network}: {len(fx['act_scales'])} "
+                                     f"scales, plan {plan}")
+            scales = {"act_scales": fx["act_scales"]}
+            for dt, key, min_psnr in ((torch.float32, "out_q8_f32",
+                                       SANET_Q8_F32_PSNR),
+                                      (torch.bfloat16, "out_q8_bf16",
+                                       Q8_VS_FOLDED_PSNR)):
+                _reset_counts()
+                got = bundle.stylize_q8(c, s, scales, dtype=dt).cpu().numpy()
+                n = _counts(("B5",))[0]
+                psnr = _psnr(got, fx[key])
+                if not (np.isfinite(got).all() and psnr >= min_psnr
+                        and n == plan["B5"]):
+                    raise AssertionError(f"{network} fixture {key}: PSNR "
+                                         f"{psnr} dB, B5 launches {n}")
+                msg.append(f"{key} PSNR {psnr:.2f} dB (>= {min_psnr}), "
+                           f"{n} B5")
+            own_scales = bundle.calibrate_q8(c, s)["act_scales"]
+            if not np.allclose(own_scales, fx["act_scales"], rtol=2e-2):
+                raise AssertionError(f"{network} calibration {own_scales} "
+                                     f"vs rpst {fx['act_scales']}")
+        grads = {}
+        for dt in (torch.float32, torch.float64):
+            b = _5b_bundle(dev, network, size, **over)
+            b.model.to(dt).train()
+            _reset_counts()
+            total, parts = b.loss(vgg.to(dt), c.to(dt), s.to(dt), **kw)
+            total.backward()
+            if any(_counts(("B1", "B2", "B3", "B5"))):
+                raise AssertionError(f"{network} loss launched a kernel")
+            grads[dt] = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                         for n, p in b.model.named_parameters()}
+            if dt == torch.float32:
+                for k, v in parts.items():
+                    got, want = float(v.detach()), float(fx[k])
+                    if not abs(got - want) <= LOSS_RTOL * abs(want):
+                        raise AssertionError(f"{network} {k}: {got} vs rpst "
+                                             f"{want}")
+            del b
+        vgg = vgg.float()
+        w32, w64, zero = _5b_check_grads(
+            network, grads[torch.float32], grads[torch.float64], fx,
+            WCT_F64_ATOL if network == "wct_train" else GRAD_ATOL_REL)
+        frozen = ("encoder",) if network == "wct_train" else ()
+        fresh = _5b_bundle(dev, network, size, **over)
+        before = {k: v.clone() for k, v in fresh.model.state_dict().items()}
+        state = create_train_state(fresh, freeze_prefixes=frozen)
+        losses = [float(train_step(state, vgg, c, s, **kw)["total_loss"])
+                  for _ in range(len(fx["trajectory"]))]
+        rel = np.abs(np.asarray(losses) - fx["trajectory"]) \
+            / np.abs(fx["trajectory"])
+        if not (rel[0] <= LOSS_RTOL and (rel[1:] <= 1e-2).all()
+                and adam_count(state.optimizer) == 3):
+            raise AssertionError(f"{network} trajectory {losses} vs rpst "
+                                 f"{fx['trajectory']}")
+        if frozen:
+            moved = [k for k, v in fresh.model.state_dict().items()
+                     if k.startswith("encoder.")
+                     and not torch.equal(v, before[k])]
+            if moved:
+                raise AssertionError(f"wct's frozen encoder moved: {moved}")
+            msg.append("the frozen encoder bit-unchanged over 3 steps")
+        log("39 5b fixtures", f"{network} 64px b2 vs rpst JAX: "
+            f"{'; '.join(msg)}; loss parts within {LOSS_RTOL}; gradients "
+            f"worst err / max {w32:.3g} (float32), {w64:.3g} (float64), "
+            f"{zero} zero up to rounding; trajectory rel err "
+            f"{[f'{r:.2g}' for r in rel]}")
+        del bundle, state, fresh, grads
+        torch.cuda.empty_cache()
+
+
+def _mrf_streamed_vs_dense(dev, rng):
+    """The MRF loss at 512px relu4_1 (4096 positions) on the seeded mrf's
+    stylized image and a style image: the streamed route (row chunks of
+    1024) against the dense threshold union computed whole, and the dense
+    top-k route (lower index among exact ties, as rpst's) beside it."""
+    import numpy as np
+    import torch
+    from rpst_torch.models.mrf_rp import mrf_loss
+    from rpst_torch.ops import affinity as aff
+    bundle = _5b_bundle(dev, "mrf", IMG)
+    vgg = _5b_vgg(dev, 1)
+    c, s = (torch.from_numpy(rng.random((1, IMG, IMG, 3), np.float32)).to(dev)
+            for _ in range(2))
+    with torch.no_grad():
+        f, g = vgg(bundle.model(c, s))[-1], vgg(s)[-1]
+        dense = float(mrf_loss(f, g, 5, 0))
+        t0 = time.perf_counter()
+        streamed = float(mrf_loss(f, g, 5, 1024))
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+        _, h, w, ch = f.shape
+        a, b = f[0].reshape(-1, ch), g[0].reshape(-1, ch)
+        sim = aff.l2_normalize_channels(a[None])[0] \
+            @ aff.l2_normalize_channels(b[None])[0].T
+        row = torch.topk(sim, 5, dim=1).values[:, -1:]
+        col = torch.topk(sim, 5, dim=0).values[-1:]
+        union = (sim >= row) | (sim >= col)
+        ref = float((union * aff.cal_dist(a.T, b.T)).sum()) / (h * w * 5)
+        # entries at or above a k-th value beyond the k a row / column takes
+        ties = int((sim >= row).sum() + (sim >= col).sum()) - 10 * h * w
+    if not abs(streamed - ref) <= MRF_STREAM_RTOL * abs(ref):
+        raise AssertionError(f"512px MRF streamed {streamed} vs its dense "
+                             f"threshold form {ref}")
+    return (f"mrf loss {IMG}px relu4_1 ({h * w} positions): streamed "
+            f"(chunk 1024, {t_stream * 1e3:.1f} ms) {streamed:.7g} vs the "
+            f"dense threshold union {ref:.7g} (rel "
+            f"{abs(streamed - ref) / ref:.2g}, limit {MRF_STREAM_RTOL}), the "
+            f"dense top-k route {dense:.7g} (rel {abs(dense - ref) / ref:.2g}"
+            f"; {ties} entries tied at a k-th value beyond the k a row or "
+            "column takes)")
+
+
+def _5b_parity(dev, rng):
+    """Phase 40: 512px b2 at bench.py's widths: q8 against float32 (> 30
+    dB) and bfloat16 against float32 (MAE < 2e-2) for the three networks;
+    the MRF loss streamed against dense; B5 at the mrf decoder head's
+    1024 -> 512 against its plain version."""
+    import numpy as np
+    import torch
+    from rpst_torch.ops.conv2d_q8 import (fused_conv2d_q8,
+                                          fused_conv2d_q8_plain)
+    c, s = (torch.from_numpy(rng.random((2, IMG, IMG, 3), np.float32)).to(dev)
+            for _ in range(2))
+    msg = []
+    for network in S5B_NETWORKS:
+        bundle = _5b_bundle(dev, network, IMG)
+        ref = bundle.stylize(c, s).cpu().numpy()
+        bf16 = _5b_bundle(dev, network, IMG, compute_dtype="bfloat16")
+        mae = float(np.abs(bf16.stylize(c, s).cpu().numpy() - ref).mean())
+        scales = bundle.calibrate_q8(c, s)
+        got = bundle.stylize_q8(c, s, scales).cpu().numpy()
+        psnr = _psnr(got, ref)
+        if not (psnr > Q8_VS_FOLDED_PSNR and mae < S5B_BF16_MAE
+                and np.isfinite(got).all()):
+            raise AssertionError(f"512px {network}: q8 vs f32 PSNR {psnr} "
+                                 f"dB, bf16 vs f32 MAE {mae}")
+        msg.append(f"{network} q8 vs f32 {psnr:.2f} dB, bf16 vs f32 MAE "
+                   f"{mae:.3g}")
+        del bundle, bf16
+        torch.cuda.empty_cache()
+    msg.append(_mrf_streamed_vs_dense(dev, rng))
+    x, k, sc = _b5_layer(np.random.default_rng(40), dev, 1, IMG, IMG, 1024,
+                         512)
+    parts = []
+    with torch.inference_mode():
+        for out_int8 in (True, False):
+            _reset_counts()
+            got = fused_conv2d_q8(x, k, sc, out_int8, 0.0, "zero")
+            torch.cuda.synchronize()
+            if _counts(("B5",))[0] != 1:
+                raise AssertionError("B5 1024->512 did not launch")
+            want = fused_conv2d_q8_plain(x, k, sc, out_int8, 0.0, "zero")
+            _, d = _q8_compare(f"B5 1024->512 out_int8={out_int8}", got,
+                               want)
+            if not out_int8 and not torch.equal(got.view(torch.int16),
+                                                want.view(torch.int16)):
+                raise AssertionError("B5 1024->512 bf16 bits differ")
+            parts.append(d)
+    msg.append(f"B5 (1,512,512,1024->512) zero vs plain: "
+               f"{'; '.join(parts)}, bf16 bits equal")
+    log("40 5b parity", f"{IMG}px b2: {'; '.join(msg)}")
+
+
+def _5b_serve(dev, rng):
+    """Phase 41: the three networks' serving main paths at 512px (bench.py's
+    widths): 8 requests through build_model -> resolve_mode ->
+    [calibrate_scales ->] make_run_impl -> DynamicBatcher(b4), standard and
+    q8, counts reset before and read after (q8: 7 / 4 / 4 B5 a batch); then
+    serve_torch.py --mode q8 as a subprocess for each, and for spade at
+    configs/TrainConfig.yaml (hidden 2: 0 B5). Returns the in-process q8
+    runs' B5 launches."""
+    import numpy as np
+    import torch
+    from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
+                                    make_run_impl, resolve_mode)
+    total_b5 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        imgs, style_img = _6b_images(tmp, rng)
+        for network in S5B_NETWORKS:
+            bundle = _5b_bundle(dev, network, IMG, seeded=False)
+            outs = {}
+            for asked in ("standard", "q8"):
+                mode = resolve_mode(bundle, asked, batch=4)
+                if mode != asked:
+                    raise AssertionError(f"{network} resolve_mode({asked}) = "
+                                         f"{mode}")
+                scales = None
+                if mode == "q8":
+                    calib = torch.from_numpy(np.stack(imgs[:4])).to(dev)
+                    scales = calibrate_scales(bundle, calib, torch.from_numpy(
+                        style_img)[None].to(dev).expand_as(calib)
+                        .contiguous())
+                    if len(scales["act_scales"]) != \
+                            S5B_PLAN[network]["scales"]:
+                        raise AssertionError(f"{network} calibrated "
+                                             f"{len(scales['act_scales'])}")
+                batcher = DynamicBatcher(make_run_impl(bundle, mode, scales),
+                                         batch_size=4, max_wait_ms=50.0,
+                                         device=dev)
+                _reset_counts()  # this main path's count starts here
+                try:
+                    outs[mode] = [f.result(timeout=600) for f in
+                                  [batcher.submit(im, style_img)
+                                   for im in imgs]]
+                finally:
+                    batcher.close()
+                n_b5 = _counts(("B5",))[0]
+                others = _counts(("B1", "B4", "B7", "B6a"))
+                batches = batcher.stats()["batches"]
+                want = batches * S5B_PLAN[network]["B5"] * (mode == "q8")
+                if n_b5 != want or any(others) or batches < 2:
+                    raise AssertionError(f"{network} {mode} main path: B5 "
+                                         f"{n_b5} (want {want}), others "
+                                         f"{others} in {batches} batches")
+                for o in outs[mode]:
+                    if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
+                        raise AssertionError(f"{network} {mode} output "
+                                             f"{o.shape}")
+                total_b5 += n_b5
+                log("41 5b serve", f"{network} {mode}: 8 requests via "
+                    f"DynamicBatcher(b4): {batcher.stats()}, {n_b5} B5 "
+                    f"({batches} batches)")
+            psnr = _psnr(np.stack(outs["q8"]), np.stack(outs["standard"]))
+            if not psnr > Q8_VS_FOLDED_PSNR:
+                raise AssertionError(f"{network} q8 vs standard f32: PSNR "
+                                     f"{psnr} dB")
+            log("41 5b serve", f"{network} q8 vs standard f32 PSNR "
+                f"{psnr:.2f} dB (bound > {Q8_VS_FOLDED_PSNR})")
+            del bundle, batcher
+            torch.cuda.empty_cache()
+        cases = [(network, None, (f"network={network}", "rp_blocks=5",
+                                  "hidden_dim=32"),
+                  S5B_PLAN[network]) for network in S5B_NETWORKS]
+        cases.append(("spade", TRAIN_CONFIG_YAML, (), {"scales": 0, "B5": 0}))
+        for network, yaml, sets, plan in cases:
+            cfg = yaml
+            if cfg is None:
+                cfg = tmp / f"{network}.yaml"
+                cfg.write_text(json.dumps({"network": network}))
+            t0 = time.perf_counter()
+            text, n_png = _serve_child(
+                cfg, tmp, f"{network}_{'yaml' if yaml else 'q8'}", "q8",
+                ("--set", f"img_size={IMG}", "vgg=", "test_dir=", *sets))
+            child = _logged_count(text, "B5")
+            if n_png != 8 or child != 2 * plan["B5"] or \
+                    f"Calibrated {plan['scales']} layer scales" not in text:
+                raise AssertionError(f"serve_torch {network} q8: {n_png} "
+                                     f"PNGs, B5 {child}:\n{text[-3000:]}")
+            rate = [ln for ln in text.splitlines() if "Stylized" in ln]
+            log("41 5b serve", f"serve_torch.py {network} "
+                f"{yaml.name if yaml else 'bench widths'} --mode q8: 8 PNGs,"
+                f" {plan['scales']} scales, B5 {child}, "
+                f"{time.perf_counter() - t0:.1f}s wall; "
+                f"{rate[-1].split(' - ')[-1] if rate else ''}")
+    return total_b5
+
+
+def _seg_dir(root, n, size):
+    """Cityscapes side-by-side PNGs (content | gray raw ids 0 .. 33)."""
+    import numpy as np
+    from PIL import Image
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(42)
+    for i in range(n):
+        img = np.zeros((size, 2 * size, 3), np.uint8)
+        img[:, :size] = rng.integers(0, 256, (size, size, 3), np.uint8)
+        img[:, size:] = rng.integers(0, 34, (size, size, 1), np.uint8)
+        Image.fromarray(img, "RGB").save(root / f"{i}.png")
+    return root
+
+
+def _5b_train(dev):
+    """Phase 42: train_torch.py at 512px: mrf (mrf_weight 1), spade and
+    seg_adain at bench.py's widths b1, spade at configs/TrainConfig.yaml,
+    seg_adain on a synthetic side-by-side seg_dir, wct at
+    configs/train_deeper_rp_wct.yaml (b4) with resume: true from the start
+    (the encoder frozen): 3 steps as a subprocess, then a resume for 2 in
+    this process, counts reset before and read after (no kernel of the port
+    runs), the resumed run's peak memory; the frozen encoder's bytes
+    unchanged; a wct checkpoint saved without the freeze refused on resume.
+    Returns the peaks."""
+    import importlib.util
+    import numpy as np
+    import torch
+    spec = importlib.util.spec_from_file_location("train_torch",
+                                                  REPO / "train_torch.py")
+    train_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_cli)
+    peaks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        seg = _seg_dir(tmp / "seg", 4, IMG)
+        wide = ("rp_blocks=5", "hidden_dim=32", "batch_size=1",
+                "compute_dtype=float32")
+        runs = [("mrf", None, (*wide, "network=mrf", "mrf_weight=1.0")),
+                ("spade", None, (*wide, "network=spade")),
+                ("seg_adain", None, (*wide, "network=seg_adain")),
+                ("seg_adain seg_dir", None, (*wide, "network=seg_adain",
+                                             f"seg_dir={seg}")),
+                ("spade TrainConfig.yaml", TRAIN_CONFIG_YAML, ()),
+                # the yaml's checkpoint_path names an adain run's checkpoint
+                ("wct frozen", WCT_YAML, ("resume=true", "checkpoint_path="))]
+        for label, yaml, sets in runs:
+            cfg = yaml
+            if cfg is None:
+                cfg = tmp / f"{label.split()[0]}.yaml"
+                cfg.write_text(json.dumps({}))
+            out = tmp / label.replace(" ", "_").replace(".", "_")
+            args = ["--config", str(cfg), "--device", "cuda", "--set",
+                    f"img_size={IMG}", "vgg=", "test_dir=", "num_workers=4",
+                    "log_iter=1", "snapshot_save_iter=2",
+                    f"content_dir={tmp / 'corpus' / 'content'}",
+                    f"style_dir={tmp / 'corpus' / 'style'}",
+                    f"output={out}", *sets]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(REPO / "train_torch.py"), *args,
+                 "max_iter=4"], capture_output=True, text=True, timeout=900,
+                cwd=str(REPO))
+            text = proc.stdout + proc.stderr
+            if proc.returncode != 0 or "on cuda" not in text:
+                raise AssertionError(f"train_torch.py {label} rc "
+                                     f"{proc.returncode}:\n{text[-3000:]}")
+            if "seg_dir" in label and "labelled content" not in text:
+                raise AssertionError(f"{label}: no labelled content:\n"
+                                     f"{text[-2000:]}")
+            rates = [ln.split("img/s ")[1].split(",")[0]
+                     for ln in text.splitlines() if "img/s" in ln]
+            log("42 5b train", f"train_torch.py {label} {IMG}px, 3 steps in "
+                f"{time.perf_counter() - t0:.1f}s wall (img/s per step "
+                f"{rates})")
+            first = torch.load(out / "checkpoints" / "3" / "state.pt",
+                               map_location="cpu", weights_only=True)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()  # the main path's count starts here
+            train_cli.main([*args, "resume=true", "max_iter=3"])
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated(dev)
+            if any(_counts(("B1", "B2", "B3", "B4", "B5", "B6a", "B6b",
+                            "B6c", "B6d"))):
+                raise AssertionError(f"{label} training launched a kernel")
+            lines = [json.loads(ln) for ln in
+                     (out / "logs" / "metrics.jsonl").read_text()
+                     .splitlines()]
+            losses = [ln["total_loss"] for ln in lines]
+            if [ln["step"] for ln in lines] != [1, 2, 3, 4, 5] \
+                    or not np.isfinite(losses).all() \
+                    or any(ln["skipped"] for ln in lines) \
+                    or ("seg_dir" in label
+                        and not all(ln["seg_loss"] > 0 for ln in lines)):
+                raise AssertionError(f"{label} metrics.jsonl: {lines}")
+            extra = ""
+            if label.startswith("wct"):
+                last = torch.load(out / "checkpoints" / "5" / "state.pt",
+                                  map_location="cpu", weights_only=True)
+                enc = [k for k in last["params"] if k.startswith("encoder.")]
+                if not enc or any(not torch.equal(last["params"][k],
+                                                  first["params"][k])
+                                  for k in enc):
+                    raise AssertionError("wct's frozen encoder moved")
+                extra = (f"; the {len(enc)} encoder tensors bit-equal at "
+                         "steps 3 and 5")
+            log("42 5b train", f"{label} resumed at step 3 for steps 4-5; "
+                f"total_loss {[round(v, 4) for v in losses]}; no kernel "
+                f"launched; peak device memory of the resumed run "
+                f"{peaks[label] / 2 ** 30:.3f} GiB "
+                f"(torch.cuda.max_memory_allocated){extra}")
+            torch.cuda.empty_cache()
+        # wct without the freeze, then resumed: refused, as rpst refuses it
+        out = tmp / "wct_plain"
+        args = ["--config", str(WCT_YAML), "--device", "cuda", "--set",
+                f"img_size={IMG}", "vgg=", "test_dir=", "num_workers=4",
+                "snapshot_save_iter=2", "batch_size=1", "checkpoint_path=",
+                f"content_dir={tmp / 'corpus' / 'content'}",
+                f"style_dir={tmp / 'corpus' / 'style'}", f"output={out}"]
+        train_cli.main([*args, "max_iter=3"])
+        try:
+            train_cli.main([*args, "resume=true", "max_iter=3"])
+        except ValueError as e:
+            if "without the freeze" not in str(e):
+                raise
+            log("42 5b train", f"wct resume of a checkpoint saved without "
+                f"the freeze refused: {e}")
+        else:
+            raise AssertionError("wct resume of an unfrozen checkpoint was "
+                                 "not refused")
+    return peaks
+
+
+def _5b_timing(dev, rng, name_power):
+    """Phase 43: 512px b1 / b4 stylize of mrf, spade and seg_adain (bench.py's
+    widths), float32, then bfloat16 against q8 in both orders (bf16, q8, q8,
+    bf16); the train step b1 of the three and of wct (its yaml's widths),
+    float32. CUDA events, medians."""
+    import numpy as np
+    import torch
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import create_train_state, train_step
+
+    def pair(batch):
+        return tuple(torch.from_numpy(rng.random((batch, IMG, IMG, 3),
+                                                 np.float32)).to(dev)
+                     for _ in range(2))
+
+    for batch in (1, 4):
+        c, s = pair(batch)
+        for network in S5B_NETWORKS:
+            for dt in ("float32", "bfloat16"):
+                bundle = _5b_bundle(dev, network, IMG, compute_dtype=dt)
+                paths = [(f"standard {dt}", lambda: bundle.stylize(c, s))]
+                if dt == "bfloat16":
+                    scales = bundle.calibrate_q8(c, s)
+                    paths.append(("q8 B5", lambda: bundle.stylize_q8(
+                        c, s, scales)))
+                    paths += [paths[1], paths[0]]  # both orders
+                for path, fn in paths:
+                    # spade's float32 generator: ~0.24 s an image
+                    ms = cuda_ms(fn, iters=3 if network == "spade" else 5,
+                                 warmup=1 if network == "spade" else 2)
+                    log("43 5b timing", f"stylize {IMG}px b{batch} "
+                        f"{network:9s} {path:17s}: {ms:9.3f} ms "
+                        f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
+                del bundle
+                torch.cuda.empty_cache()
+    c, s = pair(1)
+    vgg = _5b_vgg(dev, 1)
+    for network in (*S5B_NETWORKS, "wct"):
+        if network == "wct":
+            bundle = build_model(load_config(str(WCT_YAML), dict(
+                img_size=IMG, vgg="", test_dir="")), dev)
+            init_torch_default(bundle.model, 0)
+        else:
+            bundle = _5b_bundle(dev, network, IMG)
+        state = create_train_state(bundle)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log("43 5b timing", f"train step {IMG}px b1 {network} float32: "
+            f"{ms:9.3f} ms/step {1e3 / ms:8.2f} img/s, peak {peak:.2f} GiB "
+            f"({name_power})")
+        del state, bundle
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -23,7 +23,13 @@ B5 (whatever ``rpst_torch.policy.TRAIN_Q8_TARGETS_MIN_BATCH`` says). With
 (sel_multi_adain at the flagship's widths; ccam and mst at their yamls'
 settings with ``shuffle`` off), folded, seeded weights, as the flagship:
 the stylize at b1 and b8, ``--q8`` the int8 stylize (B4 alone), ``--train``
-the train step at b1 and b4.
+the train step at b1 and b4. With ``--network mrf``, ``spade`` or
+``seg_adain`` (``bench.py``'s widths: rp_blocks 5, hidden 32; spade with the
+instance norm, ndf 2) the standard stylize at b1 and b4 in float32 and
+bfloat16, ``--q8`` the int8 stylize on B5 (7 / 4 / 4 launches a call), and
+``--train`` (also for ``wct``) the standard train step at b1 and b4 (no
+kernel of the port; spade at b1 only: its b4 float32 step outgrew the
+card's 80 GB).
 
 For each case it prints one Markdown table row:
 
@@ -54,7 +60,8 @@ has ``_adain``.)
 
     python3 profile_torch.py [--train [--q8-targets] | --q8]
                              [--network adain|sanet|dynamic_sanet|src|
-                                        sel_multi_adain|ccam|mst]
+                                        sel_multi_adain|ccam|mst|wct|mrf|
+                                        spade|seg_adain]
 """
 
 import argparse
@@ -89,6 +96,9 @@ KERNELS = {"B1": ("folded_mma_kernel[B1]",),
            "B6": ("flash_fwd_tf32_kernel", "flash_fwd_mma_kernel"),
            "B6c": ("flash_bwd_dq_kernel",), "B6d": ("flash_bwd_dkv_kernel",)}
 ADAIN = dict(network="adain", rp_blocks=5, hidden_dim=32, seed=0)
+# the wide standard-layout networks at bench.py's widths (bench.py:466-473,
+# 501-506)
+WIDE_NETWORKS = ("adain", "wct", "mrf", "spade", "seg_adain")
 # the flagship's variants: sel_multi_adain at the flagship's widths
 # (bench.py:476-478), ccam and mst at their yamls'
 VARIANT_YAMLS = {
@@ -202,8 +212,8 @@ def main():
                       help="profile the train step instead of stylize")
     mode.add_argument("--q8", action="store_true",
                       help="profile the int8 stylize instead")
-    ap.add_argument("--network", choices=("multi_adain", "adain", "sanet",
-                                          "dynamic_sanet", "src",
+    ap.add_argument("--network", choices=("multi_adain", *WIDE_NETWORKS,
+                                          "sanet", "dynamic_sanet", "src",
                                           *VARIANT_YAMLS),
                     default="multi_adain",
                     help="adain: its standard (or with --q8 its int8) "
@@ -214,8 +224,8 @@ def main():
     args = ap.parse_args()
     if args.q8_targets and not args.train:
         ap.error("--q8-targets goes with --train")
-    adain = args.network == "adain"
-    if adain and args.train:
+    adain = args.network in WIDE_NETWORKS
+    if args.network == "adain" and args.train:
         ap.error("--network adain profiles serving only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
@@ -241,8 +251,9 @@ def main():
         cfg = (load_config(dict(FLAGSHIP, network=args.network, **over))
                if yaml is None else load_config(str(yaml), over))
     else:
-        cfg = load_config(dict(ADAIN if adain else FLAGSHIP, img_size=IMG,
-                               train_q8_targets=args.q8_targets))
+        cfg = load_config(dict(
+            dict(ADAIN, network=args.network) if adain else FLAGSHIP,
+            img_size=IMG, train_q8_targets=args.q8_targets))
     rng = np.random.default_rng(0)
     tables = []
     cols = (("B6", "B6c", "B6d") if sanet and args.train
@@ -255,7 +266,10 @@ def main():
           + " | " + " | ".join(f"{c} share" for c in cols)
           + " | other kernels by share | idle share |")
     print("| --- | --- | " + "--- | " * len(cols) + "--- | --- |")
-    for batch in ((1, 4) if args.train or adain or feature else (1, 8)):
+    batches = ((1, 4) if args.train or adain or feature else (1, 8))
+    if args.train and args.network == "spade":
+        batches = (1,)  # b4 float32 outgrew 80 GB (the 19 SPADE MLPs)
+    for batch in batches:
         c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
                                             np.float32)).cuda()
                 for _ in range(2))

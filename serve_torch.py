@@ -6,15 +6,20 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
 
   * ``--mode q8``       int8 PTQ serving: calibrates per-tensor activation
                         scales on the first min(batch, 8) content images
-                        with the style (adain and wct use at most 2 of
-                        them), then runs the int8 layers on the
+                        with the style (the wide standard-layout
+                        networks use at most 2 of them), then runs the
+                        int8 layers on the
                         hand-written CUDA kernels: the flagship's folded
                         layers on B4 (B7 pairs where
                         ``rpst_torch.policy.FUSE_PAIRS``) with the image
                         layers on B1, the same for sel_multi_adain, ccam
                         and mst (B4 alone; their SE bottleneck, CCAM
-                        residuals and MST transform in plain PyTorch), adain's and wct's wide
-                        standard-layout layers on B5, sanet's and
+                        residuals and MST transform in plain PyTorch),
+                        the wide standard-layout layers of adain, wct,
+                        seg_adain (adain's stacks), mrf (its two encoders
+                        one pass each, the 1024-channel decoder head) and
+                        spade (its encoders; the SPADE generator float32,
+                        instance norm only) on B5, sanet's and
                         dynamic_sanet's frozen VGG encode (conv_4 ..
                         conv_13 on the 2N batch) and mirror decoder (conv0
                         .. conv5) on B5, sanet's two attention modules on
@@ -36,11 +41,13 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
 
 At the end it logs the B1, B4, B7, B5 and B6 launch counts of the run.
 Networks: multi_adain (the flagship), sel_multi_adain, ccam, mst, adain,
-wct, sanet, dynamic_sanet and src (``--mode folded`` and ``q8`` fall back
-to standard, with a warning, for a config the folded path does not cover:
-the feature models, adain, wct, and ccam's and mst's yamls with their
+wct, mrf, spade, seg_adain, sanet, dynamic_sanet and src (``--mode
+folded`` and ``q8`` fall back to standard, with a warning, for a config
+the folded path does not cover: the feature models, the wide
+standard-layout networks, and ccam's and mst's yamls with their
 ``shuffle: true``, which ``--set shuffle=false`` turns off; src's
-``use_mask: true`` serves standard). The feature
+``use_mask: true`` and spade's batch norms serve standard). The LD family
+is ROADMAP.md section A slice 5b. The feature
 models (sanet, dynamic_sanet, src) load their frozen VGG from the config's
 ``vgg`` (``.pth`` or ``.npz``), or seed a random one, with a warning.
 

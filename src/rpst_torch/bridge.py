@@ -7,9 +7,13 @@ flagship's Conv2dBlock stacks, ``encoder.conv_{i}.Conv_0.weight`` for the
 ``transform.merge_conv.Conv_0.weight`` and ``decoder.conv{i}.Conv_0.weight``
 for the SANets, with ``transform.sanet4_1.attention_layer.f_psi.{0,2}.weight``
 for the adaptive one's threshold MLP, ``decoder.conv{i}.Conv_0.weight``
-alone for SourceNet, and ``ms.rp_shared_encoder...`` with
+alone for SourceNet, ``ms.rp_shared_encoder...`` with
 ``attention_block.*`` (the SE bottleneck) or ``ccam_{i}.scale`` for
-sel_multi_adain and ccam):
+sel_multi_adain and ccam, ``rp_content_encoder.conv_{i}.Conv_0.weight``,
+``rp_style_encoder...`` and ``rp_decoder...`` for mrf and spade (spade's
+generator ``rp_decoder.head.norm_s.mlp_shared.weight``, ``...conv_s``,
+``...conv_0``, ``...conv_img``), ``adain_rp.encoder...`` and
+``seg_head.seg_head.block_{i}.PadConv_0.Conv_0.weight`` for seg_adain):
 
   * ``from_flax_params(tree)``: a nested dict of numpy arrays as rpst's
     flax model holds it (kernels HWIO) -> state_dict (kernels OIHW), the
@@ -21,7 +25,8 @@ sel_multi_adain and ccam):
     (out, in), as do the SE layer's ``Dense_0`` / ``Dense_1``; a
     BatchNorm's ``scale`` becomes its ``weight``, and
     ``from_flax_batch_stats`` maps rpst's ``batch_stats`` (``mean``,
-    ``var``) onto the BatchNorm buffers;
+    ``var``) onto the BatchNorm buffers (sel_multi_adain's, spade's
+    ``pf_bn``);
   * ``from_reference_checkpoint(ckpt)``: the reference ``.pth`` layout
     ``{'encoder': sd, 'decoder': sd}``, which
     ``tools/export_reference_checkpoint.py`` writes from an rpst
@@ -55,8 +60,11 @@ machine without JAX rebuilds the same weights, and
 (their full-width weights are 12 MB, too large to keep in a fixture);
 ``sanet_weights_from_seed`` for the static SANet's transform and decoder
 (~30 MB at its fixed width), ``dynamic_sanet_weights_from_seed`` for the
-adaptive one (its psi widths follow the image size) and
-``src_weights_from_seed`` for SourceNet's decoder.
+adaptive one (its psi widths follow the image size),
+``src_weights_from_seed`` for SourceNet's decoder, and
+``mrf_weights_from_seed``, ``spade_weights_from_seed`` and
+``seg_adain_weights_from_seed`` for the slice-5b networks (30-40 MB at full
+width).
 """
 
 from __future__ import annotations
@@ -302,6 +310,27 @@ def vgg_weights_from_seed(seed: int, num_stages: int = 4) -> dict:
     return {"params": params}
 
 
+def _conv_draw(rng, k: int, cin: int, cout: int, he: bool = True,
+               bias: bool = True) -> dict:
+    """One conv's flax leaves drawn from ``rng``: an HWIO kernel, He-uniform
+    U(+-sqrt(6 / fan_in)) (``he``) or U(+-1/sqrt(fan_in)), then a
+    U(+-1/sqrt(fan_in)) bias."""
+    fan_in = k * k * cin
+    lim = (6.0 / fan_in) ** 0.5 if he else fan_in ** -0.5
+    out = {"kernel": rng.uniform(-lim, lim, (k, k, cin, cout))
+           .astype(np.float32)}
+    if bias:
+        out["bias"] = rng.uniform(-fan_in ** -0.5, fan_in ** -0.5,
+                                  cout).astype(np.float32)
+    return out
+
+
+def _rpseq_draw(rng, dims) -> dict:
+    """An ``RPSequence``'s tree (``conv_{i}/Conv_0``), He-uniform."""
+    return {f"conv_{i}": {"Conv_0": _conv_draw(rng, 3, cin, cout)}
+            for i, (cin, cout) in enumerate(dims)}
+
+
 def rpseq_weights_from_seed(seed: int, rp_blocks: int = 5,
                             hidden_dim: int = 32) -> dict:
     """adain's / wct's ``params`` tree (``encoder`` and ``decoder``
@@ -315,19 +344,95 @@ def rpseq_weights_from_seed(seed: int, rp_blocks: int = 5,
     from .nn.blocks import rp_decrease_dims, rp_increase_dims
     rng = np.random.default_rng(seed)
     enc_out = hidden_dim * 2 ** (rp_blocks - 1)
-    stacks = {"encoder": rp_increase_dims(rp_blocks, 3, hidden_dim, enc_out),
-              "decoder": rp_decrease_dims(rp_blocks, enc_out, enc_out // 2, 3)}
-    tree: dict = {}
-    for name, dims in stacks.items():
-        tree[name] = {}
-        for i, (cin, cout) in enumerate(dims):
-            bound = (9 * cin) ** -0.5
-            he = (6.0 / (9 * cin)) ** 0.5
-            tree[name][f"conv_{i}"] = {"Conv_0": {
-                "kernel": rng.uniform(-he, he, (3, 3, cin, cout))
-                .astype(np.float32),
-                "bias": rng.uniform(-bound, bound, cout).astype(np.float32)}}
+    return {"encoder": _rpseq_draw(rng, rp_increase_dims(
+                rp_blocks, 3, hidden_dim, enc_out)),
+            "decoder": _rpseq_draw(rng, rp_decrease_dims(
+                rp_blocks, enc_out, enc_out // 2, 3))}
+
+
+def mrf_weights_from_seed(seed: int, rp_blocks: int = 5,
+                          hidden_dim: int = 32) -> dict:
+    """MRFRP's ``params`` tree (``rp_content_encoder``, ``rp_style_encoder``,
+    ``rp_decoder``; HWIO float32 numpy kernels) drawn from
+    ``numpy.random.default_rng(seed)`` in that order, as
+    ``rpseq_weights_from_seed`` draws (He-uniform kernels,
+    U(+-1/sqrt(fan_in)) biases)."""
+    from .nn.blocks import rp_decrease_dims, rp_increase_dims
+    rng = np.random.default_rng(seed)
+    enc_out = hidden_dim * 2 ** (rp_blocks - 1)
+    enc = rp_increase_dims(rp_blocks, 3, hidden_dim, enc_out)
+    return {"rp_content_encoder": _rpseq_draw(rng, enc),
+            "rp_style_encoder": _rpseq_draw(rng, enc),
+            "rp_decoder": _rpseq_draw(rng, rp_decrease_dims(
+                rp_blocks, 2 * enc_out, enc_out, 3))}
+
+
+def spade_weights_from_seed(seed: int, rp_blocks: int = 5,
+                            hidden_dim: int = 32, ndf: int = 2) -> dict:
+    """SpadeRP's ``params`` tree drawn from ``numpy.random.default_rng(
+    seed)``: the two encoders as ``mrf_weights_from_seed``'s, then the
+    generator block by block (``head``, ``rp_middle_0``, ``rp_middle_1``,
+    ``d1`` .. ``d4``; in each ``conv_s`` (bias-free), ``norm_s``, ``conv_0``,
+    ``norm_0``, ``conv_1``, ``norm_1``, each norm's ``mlp_shared``,
+    ``mlp_gamma``, ``mlp_beta``) and ``conv_img``. The convs that an
+    activation or a norm follows are He-uniform; ``mlp_gamma``,
+    ``mlp_beta`` and ``conv_img`` U(+-1/sqrt(fan_in)), PyTorch's default,
+    so that the modulation 1 + gamma stays near 1. The param-free norms
+    have no parameters."""
+    from .nn.blocks import rp_increase_dims
+    rng = np.random.default_rng(seed)
+    enc_out = hidden_dim * 2 ** (rp_blocks - 1)
+    enc = rp_increase_dims(rp_blocks, 3, hidden_dim, enc_out)
+    tree = {"rp_content_encoder": _rpseq_draw(rng, enc),
+            "rp_style_encoder": _rpseq_draw(rng, enc)}
+
+    def spade(norm_nc):
+        return {"mlp_shared": _conv_draw(rng, 3, enc_out, 128),
+                "mlp_gamma": _conv_draw(rng, 3, 128, norm_nc, he=False),
+                "mlp_beta": _conv_draw(rng, 3, 128, norm_nc, he=False)}
+
+    widths = [(enc_out, 16 * ndf), (16 * ndf, 16 * ndf), (16 * ndf, 16 * ndf),
+              (16 * ndf, 8 * ndf), (8 * ndf, 4 * ndf), (4 * ndf, 2 * ndf),
+              (2 * ndf, ndf)]
+    dec: dict = {}
+    for name, (fin, fout) in zip(("head", "rp_middle_0", "rp_middle_1",
+                                  "d1", "d2", "d3", "d4"), widths):
+        fmid = min(fin, fout)
+        blk = {}
+        if fin != fout:
+            blk["conv_s"] = _conv_draw(rng, 1, fin, fout, bias=False)
+            blk["norm_s"] = spade(fin)
+        blk["conv_0"] = _conv_draw(rng, 3, fin, fmid)
+        blk["norm_0"] = spade(fin)
+        blk["conv_1"] = _conv_draw(rng, 3, fmid, fout)
+        blk["norm_1"] = spade(fmid)
+        dec[name] = blk
+    dec["conv_img"] = _conv_draw(rng, 3, ndf, 3, he=False)
+    tree["rp_decoder"] = dec
     return tree
+
+
+def seg_adain_weights_from_seed(seed: int, rp_blocks: int = 5,
+                                hidden_dim: int = 32,
+                                seg_hidden_dim: int = 32,
+                                class_num: int = 19) -> dict:
+    """SegAdaINRP's ``params`` tree: ``adain_rp`` as
+    ``rpseq_weights_from_seed(seed)`` draws it, then, from the same stream,
+    the segmentation head ``seg_head/seg_head/block_{i}/PadConv_0/Conv_0``
+    (the constant stack over the encoder's features, He-uniform)."""
+    from .nn.blocks import (rp_constant_dims, rp_decrease_dims,
+                            rp_increase_dims)
+    rng = np.random.default_rng(seed)
+    enc_out = hidden_dim * 2 ** (rp_blocks - 1)
+    adain = {"encoder": _rpseq_draw(rng, rp_increase_dims(
+                 rp_blocks, 3, hidden_dim, enc_out)),
+             "decoder": _rpseq_draw(rng, rp_decrease_dims(
+                 rp_blocks, enc_out, enc_out // 2, 3))}
+    head = {f"block_{i}": {"PadConv_0": {"Conv_0": _conv_draw(rng, 3, cin,
+                                                               cout)}}
+            for i, (cin, cout) in enumerate(rp_constant_dims(
+                rp_blocks, enc_out, seg_hidden_dim, class_num))}
+    return {"adain_rp": adain, "seg_head": {"seg_head": head}}
 
 
 def _sanet_tree(rng, psi_dims=None) -> dict:
@@ -337,14 +442,6 @@ def _sanet_tree(rng, psi_dims=None) -> dict:
     convs."""
     from .nn.decoder import MIRROR_DIMS
 
-    def conv(k, cin, cout, he):
-        fan_in = k * k * cin
-        lim = (6.0 / fan_in) ** 0.5 if he else fan_in ** -0.5
-        return {"kernel": rng.uniform(-lim, lim, (k, k, cin, cout))
-                .astype(np.float32),
-                "bias": rng.uniform(-fan_in ** -0.5, fan_in ** -0.5, cout)
-                .astype(np.float32)}
-
     def dense(cin, cout):
         lim = cin ** -0.5 if cin else 0.0
         return {"kernel": rng.uniform(-lim, lim, (cin, cout))
@@ -353,14 +450,14 @@ def _sanet_tree(rng, psi_dims=None) -> dict:
 
     transform = {}
     for i, name in enumerate(("sanet4_1", "sanet5_1")):
-        transform[name] = {leaf: conv(1, 512, 512, False)
+        transform[name] = {leaf: _conv_draw(rng, 1, 512, 512, he=False)
                            for leaf in ("f", "g", "h", "out_conv")}
         if psi_dims is not None:
             hw = psi_dims[i]
             transform[name]["aea"] = {"psi0": dense(hw, hw // 16),
                                       "psi1": dense(hw // 16, 1)}
-    transform["merge_conv"] = {"Conv_0": conv(3, 512, 512, True)}
-    decoder = {f"conv{i}": {"Conv_0": conv(3, cin, cout, True)}
+    transform["merge_conv"] = {"Conv_0": _conv_draw(rng, 3, 512, 512)}
+    decoder = {f"conv{i}": {"Conv_0": _conv_draw(rng, 3, cin, cout)}
                for i, (cin, cout) in enumerate(MIRROR_DIMS)}
     return {"transform": transform, "decoder": decoder}
 

@@ -42,11 +42,26 @@ DEFAULTS: Dict[str, Any] = {
     # rows on both sides)
     "ada_module": "aea",
     "adaptive_blockwise": "auto",
+    # mrf: the top-k of its affinity mask and the MRF loss's streaming (0:
+    # dense (HW, HW) matrices; > 0: row chunks of that many positions)
+    "k": 5,
+    "mrf_chunk": 0,
+    # spade: the generator's base width and param-free norm ('instance' |
+    # 'batch' | 'syncbatch', the latter two flax's BatchNorm)
+    "ndf": 2,
+    "spade_norm": "instance",
+    # seg_adain: the segmentation head's classes and width, its loss weight
+    # (0: no head) and the Cityscapes side-by-side folder that feeds it
+    "class_num": 19,
+    "seg_hidden_dim": 32,
+    "seg_loss_weight": 1.0,
+    "seg_dir": "",
     # training (train_torch.py)
     "lr": 1e-4,
     "lr_decay": 0.0,
     "content_weight": 1.0,
     "style_weight": 1.0,
+    "mrf_weight": 0.0,
     "l_identity1_weight": 50.0,  # sanet's two identity losses
     "l_identity2_weight": 1.0,
     "batch_size": 1,

@@ -1,6 +1,7 @@
 """Host-side image IO of the port; counterpart of ``rpst.data.transforms``
 and, for training, of ``rpst.data``'s ``ImageFolderDataset``,
-``InfiniteSampler`` and ``InfiniteLoader``.
+``CityscapesDataset`` (with ``convert_label``), ``InfiniteSampler`` and
+``InfiniteLoader``.
 
 The reference transform is a bilinear squash to ``img_size`` x ``img_size``
 and a [0, 1] float, with no mean/std normalization. rpst decodes with a
@@ -10,6 +11,7 @@ it, so the bytes are the same.
 
 from __future__ import annotations
 
+import os
 import threading
 from pathlib import Path
 
@@ -71,6 +73,71 @@ class ImageFolderDataset:
         return load_image(self.paths[index], self.img_size)
 
 
+_IGNORE = -1
+# the 34 raw Cityscapes ids -> the 19 train ids, -1 ignored
+# (datasets/cityspaces.py:36-49)
+CITYSCAPES_LABEL_MAPPING = {
+    -1: _IGNORE, 0: _IGNORE, 1: _IGNORE, 2: _IGNORE, 3: _IGNORE, 4: _IGNORE,
+    5: _IGNORE, 6: _IGNORE, 7: 0, 8: 1, 9: _IGNORE, 10: _IGNORE, 11: 2,
+    12: 3, 13: 4, 14: _IGNORE, 15: _IGNORE, 16: _IGNORE, 17: 5, 18: _IGNORE,
+    19: 6, 20: 7, 21: 8, 22: 9, 23: 10, 24: 11, 25: 12, 26: 13, 27: 14,
+    28: 15, 29: _IGNORE, 30: _IGNORE, 31: 16, 32: 17, 33: 18,
+}
+# ids 0..255 -> train ids; an id outside the mapping keeps its value, as
+# the reference's in-place remap touches only mapped keys
+_LUT = np.arange(256, dtype=np.int32)
+for _k, _v in CITYSCAPES_LABEL_MAPPING.items():
+    if _k >= 0:
+        _LUT[_k] = _v
+
+
+def convert_label(label: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """Raw ids -> train ids (``inverse``: train ids -> raw ids)."""
+    if not inverse:
+        return _LUT[label.astype(np.int32).clip(0, 255)]
+    out = label.copy()
+    for k, v in CITYSCAPES_LABEL_MAPPING.items():
+        out[label == v] = k
+    return out
+
+
+class CityscapesDataset:
+    """(content, label) pairs from side-by-side images, the sorted files of
+    ``img_dir`` (rpst's ``CityscapesDataset``, reference
+    ``datasets/cityspaces.py:28-84``): columns [0, s) are the content,
+    squashed to (s, s) float32 in [0, 1]; columns [s, 2s) are the label,
+    kept at the file's height, its ITU-R 601 luma rounded to an id and
+    mapped by ``convert_label`` (int32, -1 ignored)."""
+
+    def __init__(self, img_dir, img_size: int = 256):
+        self.img_dir = img_dir
+        self.img_names = sorted(os.listdir(img_dir))
+        self.img_size = img_size
+
+    def __len__(self):
+        return len(self.img_names)
+
+    def __getitem__(self, index):
+        path = os.path.join(self.img_dir, self.img_names[index])
+        img = np.asarray(Image.open(path).convert("RGB"))
+        s = self.img_size
+        label_rgb = img[:, s:2 * s, :]
+        label = np.round(label_rgb[..., 0] * 0.299 + label_rgb[..., 1] * 0.587
+                         + label_rgb[..., 2] * 0.114).astype(np.int32)
+        content = Image.fromarray(img[:, :s, :]).resize((s, s),
+                                                        Image.BILINEAR)
+        return (np.asarray(content, np.float32) / 255.0,
+                convert_label(label))
+
+
+def collate(items):
+    """Stack a batch of samples: arrays, or tuples of arrays field by
+    field."""
+    if isinstance(items[0], tuple):
+        return tuple(np.stack(field) for field in zip(*items))
+    return np.stack(items)
+
+
 def InfiniteSampler(n: int, seed=None):
     """Endless stream of indices, a fresh permutation each epoch, the same
     stream as rpst's ``InfiniteSampler`` for the same seed. The reference
@@ -97,7 +164,9 @@ class InfiniteLoader:
     batches' indices first (no decoding), so a resumed run continues the
     stream where it stopped. A worker's error is raised by ``next``. With
     ``with_indices`` it yields (dataset indices, batch), the keys of the
-    target cache (``train.target_cache``), as rpst's loader does."""
+    target cache (``train.target_cache``), as rpst's loader does. A dataset
+    of (content, label) pairs (``CityscapesDataset``) yields a tuple of two
+    stacked batches."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  seed=None, prefetch: int = 4, skip: int = 0,
@@ -131,7 +200,7 @@ class InfiniteLoader:
                 self._next_seq += 1
                 idx = [next(self._sampler) for _ in range(self.batch_size)]
             try:
-                batch = np.stack([self.dataset[i] for i in idx])
+                batch = collate([self.dataset[i] for i in idx])
                 if self.with_indices:
                     batch = (tuple(idx), batch)
             except Exception as e:  # handed to the consumer, raised there

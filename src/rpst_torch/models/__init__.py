@@ -1,18 +1,22 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
-The port covers nine networks: the flagship ``multi_adain`` (constant RP
-stack) for serving (folded, standard and int8 q8) and training (with
+The port covers twelve networks: the flagship ``multi_adain`` (constant
+RP stack) for serving (folded, standard and int8 q8) and training (with
 float, int8 or cached loss targets); its three variants on the same stack,
 ``sel_multi_adain`` (an SE bottleneck on the last fusion), ``ccam`` (a
 cross-channel attention residual) and ``mst`` (k-means channel matching),
 each for serving (folded, standard and q8 on B4) and training (folded and
-standard); ``adain`` for serving (standard and q8) and
-standard training; ``wct`` for serving (standard and q8); the static
-``sanet`` for serving (standard and q8) and training, its attention on B6;
-the adaptive ``dynamic_sanet`` (its attention plain PyTorch, dense or
-streamed) and ``src`` (SourceNet, AdaIN at relu4_1), each for serving
-(standard and q8 on B5) and training. ``build_model`` raises ``ValueError``
-for the other 8, naming the ROADMAP.md slice that brings each.
+standard); the wide standard-layout families, each for serving (standard
+and q8 on B5) and standard training: ``adain``, ``wct`` (its encoder frozen
+on a resume), ``mrf`` (two encoders, a concat, the MRF loss),
+``spade`` (a SPADE generator; q8 with the instance norm only) and
+``seg_adain`` (adain's stylize, a segmentation head trained on labelled
+batches); the static ``sanet`` for serving (standard and q8) and training,
+its attention on B6; the adaptive ``dynamic_sanet`` (its attention plain
+PyTorch, dense or streamed) and ``src`` (SourceNet, AdaIN at relu4_1), each
+for serving (standard and q8 on B5) and training. ``build_model`` raises
+``ValueError`` for the other 5 (the LD family), naming the ROADMAP.md slice
+that brings them.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
@@ -27,8 +31,8 @@ device and exposes what the serving CLI calls:
     covers the config, and whether ``--mode auto`` should take it;
     ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights
     (the flagship and its three variants folded on B4, the flagship's
-    encoder pairs on B7 with ``fuse_pairs``; adain, wct and the feature
-    models standard-layout on B5),
+    encoder pairs on B7 with ``fuse_pairs``; adain, wct, mrf, spade,
+    seg_adain and the feature models standard-layout on B5),
   * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
   * ``loss(vgg, content, style)`` -> (total, parts): the training loss
     (rpst's ``ModelBundle.loss``), differentiable in the model's
@@ -40,7 +44,10 @@ device and exposes what the serving CLI calls:
     The feature models' loss is
     the model's own: ``SAModel.loss`` (content, style and two identity
     terms) for sanet and dynamic_sanet, ``SourceNet.loss`` (style, and
-    content against the AdaIN target) for src.
+    content against the AdaIN target) for src, ``MRFRP.loss`` (the MRF
+    term and the two cycle losses) for mrf, ``SegAdaINRP.loss`` (the
+    perceptual losses, and the segmentation loss on a labelled batch) for
+    seg_adain.
 """
 
 from __future__ import annotations
@@ -69,25 +76,31 @@ from .fast_path_q8 import (calibrate_ccam_q8, calibrate_mst_q8,
                            stylize_ccam_folded_q8, stylize_mst_folded_q8,
                            stylize_multi_adain_folded_q8,
                            stylize_sel_multi_adain_folded_q8)
-from .fast_path_q8_std import (calibrate_adain_q8, calibrate_sanet_q8,
-                               calibrate_src_q8, calibrate_wct_q8,
+from .fast_path_q8_std import (calibrate_adain_q8, calibrate_mrf_q8,
+                               calibrate_sanet_q8, calibrate_spade_q8,
+                               calibrate_src_q8, calibrate_wct_q8, mrf_blocks,
                                quantize_convs, quantize_std, sanet_blocks,
-                               src_blocks, std_blocks, stylize_adain_q8,
-                               stylize_sanet_q8, stylize_src_q8,
-                               stylize_wct_q8)
+                               spade_blocks, src_blocks, std_blocks,
+                               stylize_adain_q8, stylize_mrf_q8,
+                               stylize_sanet_q8, stylize_spade_q8,
+                               stylize_src_q8, stylize_wct_q8)
+from .mrf_rp import MRFRP
 from .sanet import SAModel
+from .seg_adain import SegAdaINRP
+from .spade_rp import SpadeRP
 from .src_adain import SourceNet
 from .wct_rp import WCTRP
 
 __all__ = ["build_model", "build_vgg", "vgg_stages", "roadmap_slice",
            "ModelBundle", "MultiScaleAdaINRP", "AdaINRP", "WCTRP", "SAModel",
-           "SourceNet", "SELastRP", "CCAMRP", "MSTRP"]
+           "SourceNet", "SELastRP", "CCAMRP", "MSTRP", "MRFRP", "SpadeRP",
+           "SegAdaINRP"]
 
 # every other rpst registry network -> the ROADMAP.md section A slice that
 # ports it
 _NOT_PORTED = dict.fromkeys(
-    ("seg_adain", "mrf", "spade", "ld_adain", "ld_adain2", "ld_adain3",
-     "ld_adain4", "ld_adain5"), "slice 5b")
+    ("ld_adain", "ld_adain2", "ld_adain3", "ld_adain4", "ld_adain5"),
+    "slice 5b")
 # the networks that stylize from the features of a frozen VGG (bundle.vgg)
 _FEAT_MODELS = ("sanet", "dynamic_sanet", "src")
 # the flagship's constant stack and its three variants: folded and int8 q8
@@ -96,6 +109,11 @@ _FOLDED_FAMILY = ("multi_adain", "sel_multi_adain", "ccam", "mst")
 # the networks whose standard stylize runs in test mode (the channel
 # shuffle)
 _TEST_MODE_MODELS = ("multi_adain", "ccam")
+# the RPSequence families whose int8 path runs on the standard layout (B5),
+# and the functions that take their float conv lists from the model
+_STD_Q8 = {"adain": std_blocks, "wct": std_blocks, "mrf": mrf_blocks,
+           "spade": spade_blocks,
+           "seg_adain": lambda m, dt: std_blocks(m.adain_rp, dt)}
 
 
 def roadmap_slice(network: str) -> Optional[str]:
@@ -114,7 +132,7 @@ def vgg_stages(network: str) -> int:
 class ModelBundle:
     network: str
     model: Union[MultiScaleAdaINRP, SELastRP, CCAMRP, MSTRP, AdaINRP, WCTRP,
-                 SAModel, SourceNet]
+                 MRFRP, SpadeRP, SegAdaINRP, SAModel, SourceNet]
     cfg: Config
     device: torch.device
     # the frozen encoder whose features the feature models stylize from
@@ -142,8 +160,9 @@ class ModelBundle:
         return self.network in _FEAT_MODELS
 
     def _std_q8(self) -> bool:
-        """adain and wct: the int8 path runs on the standard layout (B5)."""
-        return self.network in ("adain", "wct")
+        """adain, wct, mrf, spade, seg_adain: the int8 path runs on the
+        standard layout (B5)."""
+        return self.network in _STD_Q8
 
     def _feature_vgg(self) -> VGG19Encoder:
         if self.vgg is None or self.vgg.num_stages != self.vgg_stages:
@@ -176,16 +195,21 @@ class ModelBundle:
                 and self._folded_stack_ok())
 
     def q8_infer(self) -> bool:
-        """The int8 path covers adain (without masks), wct, sanet,
-        dynamic_sanet and src (without masks) on the standard layout, and
-        the folded constant stacks (the flagship and its three variants)
-        whose hidden layers fill 128 folded lanes (4 * hidden_dim % 128 ==
-        0): narrower folded stacks have no int8 layer (rpst's gates,
-        ``models/__init__.py:96-115, 147-152``)."""
+        """The int8 path covers adain (without masks), wct, mrf, seg_adain,
+        spade with the instance norm (the batch norms' statistics are not
+        threaded through it), sanet, dynamic_sanet and src (without masks)
+        on the standard layout, and the folded constant stacks (the flagship
+        and its three variants) whose hidden layers fill 128 folded lanes (4
+        * hidden_dim % 128 == 0): narrower folded stacks have no int8 layer
+        (rpst's gates, ``models/__init__.py:96-119, 147-152``). A standard
+        stack narrower than 128 channels everywhere has no int8 layer either
+        and serves q8 on the float convs alone, as rpst's."""
         if self.network == "adain":
             return not self.cfg.use_mask
-        if self.network == "wct":
+        if self.network in ("wct", "mrf", "seg_adain"):
             return True
+        if self.network == "spade":
+            return self.cfg.spade_norm == "instance"
         if self.network in ("sanet", "dynamic_sanet"):
             # the int8 VGG encode pools by exact 2x2 halving where the float
             # path pools in ceil mode: four pools to relu5_1
@@ -218,14 +242,17 @@ class ModelBundle:
         return self._folded["q8"]
 
     def std_weights(self, dtype: torch.dtype):
-        """adain / wct: the (encoder, decoder) conv lists in ``dtype``
-        (``fast_path_q8_std.std_blocks``); sanet and dynamic_sanet their
-        ``sanet_blocks``, src its ``src_blocks``. Cached until the next
-        ``load_state_dict``."""
+        """adain / wct / seg_adain: the (encoder, decoder) conv lists in
+        ``dtype`` (``fast_path_q8_std.std_blocks``, seg_adain's of its
+        ``adain_rp``); mrf its (content encoder, style encoder, decoder)
+        lists, spade its two encoders' (``mrf_blocks``, ``spade_blocks``);
+        sanet and dynamic_sanet their ``sanet_blocks``, src its
+        ``src_blocks``. Cached until the next ``load_state_dict``."""
         key = ("std", dtype)
         if key not in self._folded:
             make = {"sanet": sanet_blocks, "dynamic_sanet": sanet_blocks,
-                    "src": src_blocks}.get(self.network, std_blocks)
+                    "src": src_blocks}.get(self.network) \
+                or _STD_Q8[self.network]
             self._folded[key] = make(self.model, dtype)
         return self._folded[key]
 
@@ -239,9 +266,11 @@ class ModelBundle:
         for the flagship and mst (rpst's ``calibrate_multi_adain_q8``,
         ``calibrate_mst_q8``), folded float32 for sel_multi_adain and ccam
         (``calibrate_sel_multi_adain_q8``, ``calibrate_ccam_q8``),
-        standard-layout bfloat16 on at most 2 images for adain and wct
-        (``calibrate_adain_q8``, ``calibrate_wct_q8``), the whole batch for
-        the feature models (``calibrate_sanet_q8``, ``calibrate_src_q8``)."""
+        standard-layout bfloat16 on at most 2 images for adain, wct,
+        seg_adain (adain's on its nested stacks), mrf and spade
+        (``calibrate_adain_q8``, ``calibrate_wct_q8``, ``calibrate_mrf_q8``,
+        ``calibrate_spade_q8``), the whole batch for the feature models
+        (``calibrate_sanet_q8``, ``calibrate_src_q8``)."""
         self._check_q8()
         c = self.cfg
         if self.network == "sel_multi_adain":
@@ -264,8 +293,14 @@ class ModelBundle:
             return calibrate_src_q8(
                 self._feature_vgg(), self.std_weights(torch.bfloat16),
                 self.q8_weights(), content, style)
-        if self.network == "adain":
+        if self.network in ("adain", "seg_adain"):
             return calibrate_adain_q8(self.std_weights(torch.bfloat16),
+                                      content, style)
+        if self.network == "mrf":
+            return calibrate_mrf_q8(self.std_weights(torch.bfloat16),
+                                    content, style)
+        if self.network == "spade":
+            return calibrate_spade_q8(self.std_weights(torch.bfloat16),
                                       content, style)
         if self.network == "wct":
             return calibrate_wct_q8(self.std_weights(torch.bfloat16), content,
@@ -308,8 +343,13 @@ class ModelBundle:
             if self._std_q8():
                 args = (self.std_weights(dtype), self.q8_weights(), scales,
                         content, style)
-                if self.network == "adain":
+                if self.network in ("adain", "seg_adain"):
                     return stylize_adain_q8(*args, dtype=dtype)
+                if self.network == "mrf":
+                    return stylize_mrf_q8(*args, dtype=dtype)
+                if self.network == "spade":
+                    return stylize_spade_q8(*args, self.model.rp_decoder,
+                                            dtype=dtype)
                 return stylize_wct_q8(*args, dtype=dtype, **self._wct_args())
             return stylize_multi_adain_folded_q8(
                 self.folded_weights(dtype), self.q8_weights(), scales,
@@ -329,6 +369,8 @@ class ModelBundle:
     def _check_q8(self) -> None:
         if not self.q8_infer():
             raise ValueError("the int8 path needs adain without masks, wct, "
+                             "mrf, seg_adain, spade with spade_norm "
+                             "'instance', "
                              "sanet or dynamic_sanet with img_size a multiple "
                              "of 16, src without masks with img_size a "
                              "multiple of 8, or a folded constant stack "
@@ -405,22 +447,29 @@ class ModelBundle:
         c = self.cfg
         total = (c.content_weight * parts["content_loss"]
                  + c.style_weight * parts["style_loss"])
+        if "mrf_loss" in parts:
+            total = total + c.mrf_weight * parts["mrf_loss"]
         if "l_identity1_loss" in parts:
             total = total + (c.l_identity1_weight * parts["l_identity1_loss"]
                              + c.l_identity2_weight
                              * parts["l_identity2_loss"])
+        if "seg_loss" in parts:
+            total = total + c.seg_loss_weight * parts["seg_loss"]
         return total
 
     def loss(self, vgg: VGG19Encoder, content: torch.Tensor,
              style: torch.Tensor, targets=None,
-             conv_act: ConvAct = folded_conv_act
+             conv_act: ConvAct = folded_conv_act,
+             content_label: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss (rpst's ``ModelBundle.loss``):
         (total, parts) with parts ``style_loss``, ``content_loss`` and
         ``total_loss`` (sanet and dynamic_sanet: also ``l_identity1_loss``
         and ``l_identity2_loss``, from ``SAModel.loss`` on the 5-stage
-        ``vgg``; src: ``SourceNet.loss`` on the 4-stage one), differentiable
-        in ``self.model``'s parameters.
+        ``vgg``; src: ``SourceNet.loss`` on the 4-stage one; mrf: also
+        ``mrf_loss``, from ``MRFRP.loss``; seg_adain: ``SegAdaINRP.loss``,
+        with ``seg_loss`` when ``content_label`` (N, H, W) is given),
+        differentiable in ``self.model``'s parameters.
 
         Folded (``folded_infer()``: the flagship and its three variants):
         the network's folded forward (``stylize_folded``) on the live folded
@@ -440,14 +489,14 @@ class ModelBundle:
         if targets is not None and not self.folded_infer():
             raise ValueError("precomputed loss targets (the target cache) "
                              "need a folded-family config (folded_infer)")
-        if self.network == "wct":
-            raise NotImplementedError(
-                "wct training (the frozen-encoder resume, freeze_prefixes) "
-                "is not ported yet: ROADMAP.md section A slice 5b")
-        if self.from_features:
+        if content_label is not None and self.network != "seg_adain":
+            raise ValueError("content labels are seg_adain's")
+        if self.from_features or self.network in ("mrf", "seg_adain"):
+            kw = ({"content_label": content_label}
+                  if self.network == "seg_adain" else {})
             with torch.autocast(self.device.type, dtype=torch.bfloat16,
                                 enabled=c.compute_dtype == "bfloat16"):
-                parts = self.model.loss(vgg, content, style)
+                parts = self.model.loss(vgg, content, style, **kw)
         elif self.folded_infer():
             dtype = self.folded_dtype()
             stylized = self.stylize_folded(
@@ -576,6 +625,18 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
                         blockwise=cfg.adaptive_blockwise, device=device)
     elif n == "src":
         model = SourceNet(use_mask=bool(cfg.use_mask), device=device)
+    elif n == "mrf":
+        model = MRFRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
+                      k=cfg.k, mrf_chunk=cfg.mrf_chunk, device=device)
+    elif n == "spade":
+        model = SpadeRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
+                        ndf=cfg.ndf, spade_norm=cfg.spade_norm,
+                        device=device)
+    elif n == "seg_adain":
+        model = SegAdaINRP(rp_blocks=cfg.rp_blocks,
+                           hidden_dim=cfg.hidden_dim, class_num=cfg.class_num,
+                           seg_hidden_dim=cfg.seg_hidden_dim,
+                           seg_loss_weight=cfg.seg_loss_weight, device=device)
     elif n in _FOLDED_FAMILY:
         stack = dict(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
                      enc_stack_way=_stack_way(cfg),

@@ -1,8 +1,9 @@
 """Int8 serving on the standard (unfolded) layout, and the int8 VGG chain
 of the training loss's targets; port of the standard-layout sections of
-``rpst.models.fast_path_q8`` (:620-862 adain and wct, :1105-1286 the VGG
-chain). It lives beside ``fast_path_q8`` (the folded flagship path) so that
-each file reads as one path.
+``rpst.models.fast_path_q8`` (:620-862 adain and wct, :865-918 spade,
+:1033-1103 mrf, :1105-1286 the VGG chain). It lives beside
+``fast_path_q8`` (the folded flagship path) so that each file reads as one
+path.
 
 The adain and wct families run full-resolution zero-padded convs whose
 widths double up to 512 channels. Their layers with both widths a multiple
@@ -13,7 +14,18 @@ layers stay ``F.conv2d`` in the working type, as rpst leaves them to its
 compiler. AdaIN statistics reduce over the int8 deepest features and
 rescale; the WCT eigendecomposition stays float32. The 128 gate was a TPU
 tiling rule in rpst, but it decides which layers are quantized and so what
-the function computes: it is kept as is.
+the function computes: it is kept as is. seg_adain stylizes with adain's
+stacks (its ``adain_rp``), so it serves on adain's path.
+
+mrf (``stylize_mrf_q8``) encodes content and style through two encoders of
+their own, one pass each (no 2N batch), concatenates the dequantized
+deepest features and decodes through the halving stack: at hidden_dim 32
+the encoders' 128->256 and 256->512 and the decoder's 1024->512, 512->256
+and 256->128 run on B5, 7 launches and 9 activation scales per stylize.
+spade (``stylize_spade_q8``) encodes the same way (4 launches, 6 scales at
+hidden 32; none at the repository yaml's hidden 2, where no width reaches
+128) and runs the SPADE generator on the dequantized features in float32,
+as rpst's (``nn.spade``).
 
 The VGG chain (``vgg_target_taps_q8``) runs the frozen encoder's aligned
 reflect + relu convs on B5: conv_4 (128->128) at img/2, conv_5 (128->256)
@@ -83,13 +95,31 @@ def q8_eligible(w: torch.Tensor) -> bool:
             and w.shape[1] % 128 == 0)
 
 
+def _stack(seq, dtype) -> Convs:
+    return [(c.Conv_0.weight.detach().to(dtype),
+             c.Conv_0.bias.detach().to(dtype)) for c in seq.convs]
+
+
 def std_blocks(model, dtype: torch.dtype) -> Tuple[Convs, Convs]:
     """(encoder, decoder) conv lists of an ``AdaINRP`` / ``WCTRP`` in
     ``dtype``, detached from the parameters."""
-    def stack(seq):
-        return [(c.Conv_0.weight.detach().to(dtype),
-                 c.Conv_0.bias.detach().to(dtype)) for c in seq.convs]
-    return stack(model.encoder), stack(model.decoder)
+    return _stack(model.encoder, dtype), _stack(model.decoder, dtype)
+
+
+def mrf_blocks(model, dtype: torch.dtype) -> Tuple[Convs, Convs, Convs]:
+    """(content encoder, style encoder, decoder) conv lists of an ``MRFRP``
+    in ``dtype``, detached."""
+    return (_stack(model.rp_content_encoder, dtype),
+            _stack(model.rp_style_encoder, dtype),
+            _stack(model.rp_decoder, dtype))
+
+
+def spade_blocks(model, dtype: torch.dtype) -> Tuple[Convs, Convs]:
+    """(content encoder, style encoder) conv lists of a ``SpadeRP`` in
+    ``dtype``, detached (its generator runs on the module's float32
+    weights)."""
+    return (_stack(model.rp_content_encoder, dtype),
+            _stack(model.rp_style_encoder, dtype))
 
 
 def quantize_convs(convs: Convs) -> QConvs:
@@ -109,8 +139,10 @@ def quantize_convs(convs: Convs) -> QConvs:
     return out
 
 
-def quantize_std(blocks: Tuple[Convs, Convs]) -> Tuple[QConvs, QConvs]:
-    return quantize_convs(blocks[0]), quantize_convs(blocks[1])
+def quantize_std(blocks: Sequence[Convs]) -> Tuple[QConvs, ...]:
+    """``quantize_convs`` of each conv list of ``std_blocks`` /
+    ``mrf_blocks`` / ``spade_blocks``."""
+    return tuple(quantize_convs(convs) for convs in blocks)
 
 
 def std_q8_plan(enc: Convs, dec: Convs) -> Dict[str, int]:
@@ -135,6 +167,25 @@ def std_q8_plan(enc: Convs, dec: Convs) -> Dict[str, int]:
         else:
             prev_q = False
     return {"scales": scales, "B5": sum(e) + sum(d)}
+
+
+def _add_plans(*plans: Dict[str, int]) -> Dict[str, int]:
+    return {k: sum(p[k] for p in plans) for k in plans[0]}
+
+
+def mrf_q8_plan(blocks) -> Dict[str, int]:
+    """The scales and B5 launches of one ``stylize_mrf_q8``: each encoder's
+    (one pass each), then the decoder's."""
+    enc_c, enc_s, dec = blocks
+    return _add_plans(std_q8_plan(enc_c, []), std_q8_plan(enc_s, []),
+                      std_q8_plan([], dec))
+
+
+def spade_q8_plan(blocks) -> Dict[str, int]:
+    """The scales and B5 launches of one ``stylize_spade_q8``: the two
+    encoders' (the SPADE generator has no int8 layer)."""
+    enc_c, enc_s = blocks
+    return _add_plans(std_q8_plan(enc_c, []), std_q8_plan(enc_s, []))
 
 
 # ---------------------------------------------------------------------------
@@ -318,10 +369,7 @@ def _stylize_std_q8(blocks, qblocks, scales, content, style, dtype, fuse):
     enc, dec = blocks
     enc_q, dec_q = qblocks
     act_scales = np.asarray(scales["act_scales"], np.float32)
-    want = std_q8_plan(enc, dec)["scales"]
-    if len(act_scales) != want:
-        raise ValueError(f"{len(act_scales)} act scales for a stack that "
-                         f"consumes {want}: calibrate this model's weights")
+    _check_scales(act_scales, std_q8_plan(enc, dec))
     it = iter(range(len(act_scales)))
     conv_q = make_conv_q(dtype)
     n = content.shape[0]
@@ -361,6 +409,99 @@ def stylize_wct_q8(blocks, qblocks, scales, content, style,
         return wct_fuse(cf, sf, method=method, dtype=wct_dtype)
     return _stylize_std_q8(blocks, qblocks, scales, content, style, dtype,
                            fuse)
+
+
+# ---------------------------------------------------------------------------
+# mrf and spade: two encoders, one pass each
+# ---------------------------------------------------------------------------
+
+def _collect_encoders(encoders: Sequence[Convs], images):
+    """Each encoder's forward on its image in the convs' type, recording
+    the absmaxes its int8 encode consumes; (deepest features, absmaxes)."""
+    feats, absmax = [], []
+    for enc, img in zip(encoders, images):
+        f, a = _collect_rp_sequence(enc, [], img.to(enc[0][0].dtype),
+                                    lambda x: x)
+        feats.append(f)
+        absmax += a
+    return feats, absmax
+
+
+def _check_scales(act_scales, plan):
+    if len(act_scales) != plan["scales"]:
+        raise ValueError(f"{len(act_scales)} act scales for a stack that "
+                         f"consumes {plan['scales']}: calibrate this model's "
+                         "weights")
+
+
+def _encode_each_q8(encoders, qencoders, act_scales, it, images, dtype,
+                    conv_q):
+    """Each encoder's chained int8 encode of its image; the deepest
+    features dequantized to ``dtype`` (float as they left a float layer)."""
+    out = []
+    for enc, enc_q, img in zip(encoders, qencoders, images):
+        x, x_s = _encode_std_q8(enc, enc_q, act_scales, it, img.to(dtype),
+                                conv_q)
+        out.append(_deq(x, x_s, dtype) if x_s is not None else x)
+    return out
+
+
+def calibrate_mrf_q8(blocks, content, style) -> Dict[str, np.ndarray]:
+    """One calibration pass -> {'act_scales'} for ``stylize_mrf_q8``: the
+    content encoder's scales, the style encoder's, then the decoder's on
+    their channel concat; ``blocks`` are the bfloat16 ``mrf_blocks`` (rpst
+    calibrates in bf16) and the batch is capped at 2 images."""
+    content, style = _calib_cap(content, style)
+    enc_c, enc_s, dec = blocks
+    with torch.inference_mode():
+        (cf, sf), absmax = _collect_encoders((enc_c, enc_s), (content, style))
+        _, a_d = _collect_rp_sequence([], dec, torch.cat([cf, sf], dim=-1),
+                                      lambda x: x)
+        return _scales_from(absmax + a_d)
+
+
+def stylize_mrf_q8(blocks, qblocks, scales, content, style,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Int8 MRFRP serving (reference mrf_rp.py:63-108): the chained int8
+    encode of content and of style through their own encoders, the channel
+    concat of the dequantized deepest features, the int8 decode. ``blocks``:
+    ``mrf_blocks`` in ``dtype``; ``qblocks``: ``quantize_std`` of the
+    float32 blocks; content, style (N, H, W, 3)."""
+    act_scales = np.asarray(scales["act_scales"], np.float32)
+    _check_scales(act_scales, mrf_q8_plan(blocks))
+    it = iter(range(len(act_scales)))
+    conv_q = make_conv_q(dtype)
+    cf, sf = _encode_each_q8(blocks[:2], qblocks[:2], act_scales, it,
+                             (content, style), dtype, conv_q)
+    out = _decode_std_q8(blocks[2], qblocks[2], act_scales, it,
+                         torch.cat([cf, sf], dim=-1), conv_q)
+    return out.to(content.dtype)
+
+
+def calibrate_spade_q8(blocks, content, style) -> Dict[str, np.ndarray]:
+    """One calibration pass -> {'act_scales'} for ``stylize_spade_q8``: the
+    content encoder's scales, then the style encoder's (the generator has
+    no int8 layer); bfloat16 ``spade_blocks``, at most 2 images."""
+    content, style = _calib_cap(content, style)
+    with torch.inference_mode():
+        return _scales_from(_collect_encoders(blocks, (content, style))[1])
+
+
+def stylize_spade_q8(blocks, qblocks, scales, content, style, decoder,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Int8 SpadeRP serving (reference spade_rp.py:149-247): the chained
+    int8 encode of content and of style through their own encoders, then
+    ``decoder`` (the model's ``SpadeDecoder``, float32 with the working
+    type ``dtype`` for its param-free norms) decoding the style features
+    conditioned on the content features. ``blocks``: ``spade_blocks`` in
+    ``dtype``; ``qblocks``: ``quantize_std`` of the float32 blocks."""
+    act_scales = np.asarray(scales["act_scales"], np.float32)
+    _check_scales(act_scales, spade_q8_plan(blocks))
+    it = iter(range(len(act_scales)))
+    cf, sf = _encode_each_q8(blocks, qblocks, act_scales, it,
+                             (content, style), dtype, make_conv_q(dtype))
+    out = decoder(sf.permute(0, 3, 1, 2), cf.permute(0, 3, 1, 2), dtype)
+    return out.permute(0, 2, 3, 1).to(content.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,9 @@
 
 The increasing RP encoder and decreasing RP decoder of ``AdaINRP`` with a
 whitening-coloring fuse at the deepest feature. The fuse detaches both
-inputs, so only the decoder receives gradients through it. Serving only in
-this port so far: wct training with its frozen-encoder resume is ROADMAP.md
-section A slice 5b.
+inputs, so only the decoder receives gradients through it (the encoder's
+are zero, as in rpst). A training run that resumes freezes the encoder
+(``train_torch.py``, rpst's ``freeze_prefixes``).
 """
 
 from __future__ import annotations

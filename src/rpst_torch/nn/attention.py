@@ -41,13 +41,18 @@ def bn_batch_stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor,
 class BatchNorm(nn.Module):
     """Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW tensors:
     batch statistics in train mode (and the running ones moved in place),
-    the running statistics in eval mode."""
+    the running statistics in eval mode. ``affine=False`` is flax's
+    ``use_scale=False, use_bias=False`` (SPADE's param-free norm): no
+    parameters, the normalization in float32, cast to x's type."""
 
-    def __init__(self, features: int, device=None, dtype=None):
+    def __init__(self, features: int, device=None, dtype=None,
+                 affine: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.ones(features, **kw))
-        self.bias = nn.Parameter(torch.zeros(features, **kw))
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features, **kw))
+            self.bias = nn.Parameter(torch.zeros(features, **kw))
         self.register_buffer("running_mean",
                              torch.zeros(features, device=device))
         self.register_buffer("running_var",
@@ -67,8 +72,11 @@ class BatchNorm(nn.Module):
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + BN_EPS) * self.weight
         shape = (1, -1, 1, 1)
+        if not self.affine:  # flax's use_scale / use_bias False: float32
+            return ((x.float() - mean.view(shape))
+                    * torch.rsqrt(var + BN_EPS).view(shape)).to(x.dtype)
+        inv = torch.rsqrt(var + BN_EPS) * self.weight
         return ((x - mean.view(shape).to(x.dtype)) * inv.view(shape).to(x.dtype)
                 + self.bias.view(shape).to(x.dtype))
 

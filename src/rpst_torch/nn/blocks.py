@@ -51,6 +51,17 @@ class PadConv(nn.Module):
         return self.Conv_0(pad2d(x, self.padding, self.pad_type))
 
 
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """torch's InstanceNorm2d without affine on an NCHW tensor: the mean and
+    the biased variance over H, W (rpst ``nn/blocks.py:106-110``), reduced
+    in float32 at least and rounded to x's type, the normalization in x's
+    type (as ``jnp.mean`` / ``jnp.var`` reduce a bfloat16 tensor)."""
+    v = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = v.mean(dim=(2, 3), keepdim=True)
+    var = ((v - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    return (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
+
+
 _SLICE_OF_OPTION = {
     "inception_num": "slice 4 (its remainder: the inception configs)",
     "attention": "slice 4 (its remainder: SE/SK attention in the blocks)",

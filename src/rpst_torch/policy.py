@@ -70,6 +70,16 @@ AUTO_MODE = "standard"
 # ccam: q8 8.36 / 9.05 (b1) and 51.05 / 50.87 (b8) against folded 6.39 /
 # 7.78 and 40.43 / 40.46; mst: q8 8.79 / 13.56 and 90.74 / 88.34 against
 # folded 8.16 / 8.14 and 64.47 / 81.08: behind, so no entry.
+# mrf, spade, seg_adain (chip_smoke.py phase 43, 512px, bench.py's widths:
+# bf16, q8, q8, bf16 in each of two calls): mrf b1 11.07 / 11.05 and 10.86 /
+# 10.53 ms bfloat16 against q8's 16.51 / 16.55 and 16.41 / 16.25, b4 41.3 /
+# 40.9 and 41.6 / 41.4 against 62.9 / 62.6 and 62.9 / 62.3; seg_adain (adain's
+# path) b1 13.85 / 13.96 and 13.56 / 13.69 against 16.40 / 16.27 and 16.20 /
+# 16.23, b4 43.5 / 43.5 and 43.2 / 43.2 against 62.2 / 62.1 and 62.3 / 62.0;
+# spade b1 237.9 / 238.3 and 239.1 / 238.2 against 239.4 / 239.7 and 240.9 /
+# 240.3, b4 929.1 / 929.4 and 928.9 / 929.3 against 936.6 / 936.5 and 936.4
+# / 936.5 (its float32 SPADE generator, rpst's type, is ~99% of every path):
+# q8 behind in both orders of both calls, so no entry.
 # An entry needs q8 ahead in both orders of every call made.
 Q8_AUTO_BATCHES: Dict[str, frozenset] = {"sel_multi_adain": frozenset({8})}
 

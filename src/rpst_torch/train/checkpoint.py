@@ -46,9 +46,23 @@ def latest_step(root) -> Optional[int]:
 
 def restore_checkpoint(path, state):
     """Load the checkpoint directory ``path`` into ``state`` (in place, and
-    returned): parameters, Adam state, generator and step."""
+    returned): parameters, Adam state, generator and step. A checkpoint
+    whose optimizer covers other parameters than ``state``'s (one saved
+    without wct's resume freeze, loaded into a frozen run) raises
+    ``ValueError``, as rpst's restore does."""
     saved = torch.load(Path(path) / STATE_FILE, map_location="cpu",
                        weights_only=True)
+    have, want = (sum(len(g["params"]) for g in groups) for groups in
+                  (saved["opt_state"]["param_groups"],
+                   state.optimizer.param_groups))
+    if have != want:
+        # rpst's orbax restore refuses the same checkpoint: a frozen
+        # optimizer state (optax.multi_transform) has another tree
+        raise ValueError(f"{path}: its optimizer state covers {have} "
+                         f"parameters, this run trains {want}"
+                         + (f" (frozen: {', '.join(state.frozen)}; a "
+                            "checkpoint saved without the freeze cannot "
+                            "resume a frozen run)" if state.frozen else ""))
     state.bundle.load_state_dict(saved["params"])
     state.optimizer.load_state_dict(saved["opt_state"])
     state.generator.set_state(saved["rng"])

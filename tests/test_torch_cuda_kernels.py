@@ -423,6 +423,23 @@ def test_b5_tiling_edges_on_card(cuda_device, out_int8, pad_mode, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_int8", [True, False])
+def test_b5_mrf_decoder_head_on_card(cuda_device, out_int8):
+    """The mrf decoder head's layer: 1024 -> 512, zero pad, relu, on the
+    concat of the two encoders (a shape no earlier path gave B5), at a
+    reduced size (64 x 64) and as the path packs it; bits equal to plain."""
+    x, k, sc = _b5_layer(7, 1, 64, 64, 1024, 512, cuda_device)
+    packed = pack_conv2d_weights(k)
+    before = fused_conv2d_q8.launches
+    got = fused_conv2d_q8(x, k, sc, out_int8, 0.0, "zero", w_packed=packed)
+    torch.cuda.synchronize()
+    assert fused_conv2d_q8.launches == before + 1
+    ref = fused_conv2d_q8_plain(x, k, sc, out_int8, 0.0, "zero")
+    view = (lambda t: t) if out_int8 else (lambda t: t.view(torch.int16))
+    assert got.shape == (1, 64, 64, 512) and torch.equal(view(got), view(ref))
+
+
+@pytest.mark.cuda
 def test_quantized_layer_carries_its_packed_weights_on_card(cuda_device):
     from rpst_torch.models.fast_path_q8_std import quantize_convs
     g = torch.Generator().manual_seed(0)

@@ -107,8 +107,8 @@ def test_load_state_dict_refolds(rng):
     assert not torch.equal(bundle.stylize(c, s), first)
 
 
-@pytest.mark.parametrize("network", ["seg_adain", "spade", "ld_adain2",
-                                     "mrf", "ld_adain"])
+@pytest.mark.parametrize("network", ["ld_adain3", "ld_adain4", "ld_adain2",
+                                     "ld_adain5", "ld_adain"])
 def test_unported_networks_raise(network):
     with pytest.raises(ValueError, match="ROADMAP.md section A slice"):
         build_model(load_config(dict(network=network)))

@@ -207,6 +207,9 @@ def test_resolve_mode(caplog, monkeypatch):
     ("mst", dict(hidden_dim=32)),
     ("adain", dict(hidden_dim=32)),
     ("wct", dict(hidden_dim=32)),
+    ("mrf", dict(hidden_dim=32)),
+    ("spade", dict(hidden_dim=32)),
+    ("seg_adain", dict(hidden_dim=32)),
     ("sanet", dict(img_size=32)),
     ("dynamic_sanet", dict(img_size=32)),
     ("src", dict(img_size=32))])

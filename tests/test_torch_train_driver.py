@@ -73,7 +73,7 @@ def test_cpu_run_writes_metrics_and_checkpoints_and_resumes(run_dir):
 
 @pytest.mark.parametrize("override,slice_", [
     ("mesh_shape={data: 2}", "slice 8"), ("distributed=true", "slice 8"),
-    ("network=seg_adain", "slice 5b"), ("network=wct", "slice 5b"),
+    ("network=ld_adain2", "slice 5b"), ("network=ld_adain3", "slice 5b"),
     ("grad_accum=2", "slice 8"), ("remat=true", "slice 8"),
     ("test_dir=/x", "slice 7"), ("network=ld_adain", "slice 5b")])
 def test_unported_options_raise(run_dir, override, slice_):

@@ -154,7 +154,33 @@ fixture's params, content, style and VGG: ``t_mean_<i>``, ``t_std_<i>``,
 ``style_loss``, ``total_loss``, ``grads/<path>``: rpst's folded loss and
 gradients with those targets given (``ModelBundle.loss(targets=...)``).
 
+The slice-5b fixtures (``--mrf``, ``--spade``, ``--seg-adain``,
+``--wct-train``; 64px, batch 2, full width: rp_blocks 5, hidden_dim 32;
+spade's condition 512 channels, ndf 2, the instance norm; seg_adain's head
+32 wide over 19 classes; loss weights content 1, style 2, mrf 1, seg 1)
+hold:
+  * ``weights_seed``: the params are ``rpst_torch.bridge.
+    {mrf,spade,seg_adain}_weights_from_seed(weights_seed)`` (wct:
+    ``rpseq_weights_from_seed``), numpy only, 30-40 MB stored as their seed;
+    ``vgg_seed``, ``content``, ``style``, ``lr``, ``lr_decay``; seg_adain's
+    ``label`` (2, 64, 64) int32 train ids in -1 .. 18;
+  * ``out_f32``, ``out_bf16`` (not wct): rpst's ``ModelBundle.stylize`` in
+    float32 and at compute_dtype bfloat16 (stored float32);
+  * ``act_scales``, ``out_q8_f32``, ``out_q8_bf16`` (not wct): rpst's
+    calibration and int8 stylize (``interpret=True``);
+  * the loss parts (``mrf_loss``, ``seg_loss`` where the network has them)
+    and, from ``jax.value_and_grad`` of ``ModelBundle.loss`` (seg_adain
+    with the labels), ``gradnorm/<path>``, ``grads/<path>`` for every bias
+    and ``gradpatch/<path>`` (the [..., :8, :8] corner) for every kernel,
+    the same three under ``f64/`` from rpst's float64 loss at the same
+    point (the gradient's own float32 error; stored as float32);
+  * ``trajectory``: the total loss of 3 steps of rpst's ``make_train_step``
+    (seg_adain ``with_labels``; wct with ``make_optimizer(cfg,
+    ("encoder",))``, the resume's freeze) on the same batch.
+
 Usage:
+  python tools/make_torch_port_fixture.py --mrf | --spade | --seg-adain
+      | --wct-train
   python tools/make_torch_port_fixture.py --adain | --wct | --q8-targets
   python tools/make_torch_port_fixture.py --sanet | --dynamic-sanet | --src
   python tools/make_torch_port_fixture.py --sel-multi-adain | --ccam | --mst
@@ -204,6 +230,17 @@ SLICE4_DST = {n: REPO / "tests" / "fixtures" / f"torch_port_{n}.npz"
 SLICE4_LOSS = dict(content_weight=1.0, style_weight=2.0)
 CCAM_SCALES = (0.3, 0.4, 0.5, 0.6, 0.7)
 TARGET_CACHE_DST = REPO / "tests" / "fixtures" / "torch_port_target_cache.npz"
+# the slice-5b networks' fixture configs (full width, the loss weights the
+# fixtures' parts and gradients are taken at)
+SLICE5B = {
+    "mrf": dict(WIDE, network="mrf", k=5, mrf_chunk=0, mrf_weight=1.0),
+    "spade": dict(WIDE, network="spade", ndf=2, spade_norm="instance"),
+    "seg_adain": dict(WIDE, network="seg_adain", seg_hidden_dim=32,
+                      class_num=19, seg_loss_weight=1.0),
+    "wct_train": dict(WIDE, network="wct")}
+SLICE5B_LOSS = dict(content_weight=1.0, style_weight=2.0)
+SLICE5B_DST = {n: REPO / "tests" / "fixtures" / f"torch_port_{n}.npz"
+               for n in SLICE5B}
 
 
 def _flat(tree, prefix=""):
@@ -828,6 +865,146 @@ def make_target_cache_fixture(seed: int = 0, size: int = 64) -> dict:
     return arrays
 
 
+def slice5b_params(network: str, seed: int) -> dict:
+    """The slice-5b fixture's flax ``params`` (numpy), drawn as the port's
+    ``bridge`` draws them."""
+    from rpst_torch import bridge
+    cfg = SLICE5B[network]
+    width = dict(rp_blocks=cfg["rp_blocks"], hidden_dim=cfg["hidden_dim"])
+    if network == "mrf":
+        return bridge.mrf_weights_from_seed(seed, **width)
+    if network == "spade":
+        return bridge.spade_weights_from_seed(seed, ndf=cfg["ndf"], **width)
+    if network == "seg_adain":
+        return bridge.seg_adain_weights_from_seed(
+            seed, seg_hidden_dim=cfg["seg_hidden_dim"],
+            class_num=cfg["class_num"], **width)
+    return bridge.rpseq_weights_from_seed(seed, **width)
+
+
+def _grad_keys(grads, prefix=""):
+    """``gradnorm/``, ``grads/`` (biases in full) and ``gradpatch/`` (the
+    [..., :8, :8] corner of the kernels) of a gradient tree."""
+    import numpy as np
+    out = {}
+    for k, v in _flat(grads):
+        g = np.asarray(v)
+        out[f"{prefix}gradnorm/{k}"] = np.asarray(np.linalg.norm(g), g.dtype)
+        if k.endswith("bias"):
+            out[f"{prefix}grads/{k}"] = g
+        else:
+            out[f"{prefix}gradpatch/{k}"] = g[..., :8, :8].copy()
+    return out
+
+
+def make_slice5b_fixture(network: str, seed: int = 0,
+                         size: int = 64) -> dict:
+    """The mrf / spade / seg_adain / wct_train fixture's arrays, computed
+    afresh with JAX on the CPU (rpst's int8 kernel in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst.models import fast_path_q8 as q8
+    from rpst.train.step import TrainState, make_optimizer, make_train_step
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN["batch"], size, size, 3)
+    content = rng.random(shape, dtype=np.float32)
+    style = rng.random(shape, dtype=np.float32)
+    base = dict(SLICE5B[network], img_size=size, lr=TRAIN["lr"],
+                lr_decay=TRAIN["lr_decay"], **SLICE5B_LOSS)
+    cfg = load_config(base)
+    bundle = build_model(cfg)
+    np_params = slice5b_params(network, seed)
+    params = jax.tree.map(jnp.asarray, np_params)
+    vgg_vars = jax.tree.map(jnp.asarray,
+                            vgg_weights_from_seed(TRAIN["vgg_seed"]))
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    arrays = dict(weights_seed=np.int64(seed),
+                  vgg_seed=np.int64(TRAIN["vgg_seed"]), content=content,
+                  style=style, lr=np.float32(TRAIN["lr"]),
+                  lr_decay=np.float32(TRAIN["lr_decay"]))
+    label = None
+    if network == "seg_adain":
+        arrays["label"] = rng.integers(-1, cfg.class_num, shape[:3],
+                                       dtype=np.int32)
+        label = jnp.asarray(arrays["label"])
+
+    if network != "wct_train":
+        var = {"params": params}
+        arrays["out_f32"] = np.asarray(jax.jit(bundle.stylize)(
+            var, vgg_vars, c, s), np.float32)
+        bf16 = build_model(load_config(dict(base, compute_dtype="bfloat16")))
+        arrays["out_bf16"] = np.asarray(jax.jit(bf16.stylize)(
+            var, vgg_vars, c, s), np.float32)
+        if network == "mrf":
+            scales = q8.calibrate_mrf_q8(params, c, s)
+            run = lambda dt: q8.stylize_mrf_q8(  # noqa: E731
+                params, scales, c, s, dtype=dt, interpret=True)
+        elif network == "spade":
+            scales = q8.calibrate_spade_q8(params, c, s)
+            run = lambda dt: q8.stylize_spade_q8(  # noqa: E731
+                params, scales, c, s, ndf=cfg.ndf, spade_norm=cfg.spade_norm,
+                dtype=dt, interpret=True)
+        else:
+            scales = q8.calibrate_adain_q8(params["adain_rp"], c, s)
+            run = lambda dt: q8.stylize_adain_q8(  # noqa: E731
+                params["adain_rp"], scales, c, s, dtype=dt, interpret=True)
+        arrays["act_scales"] = np.asarray(scales["act_scales"], np.float32)
+        for name, dt in (("out_q8_f32", jnp.float32),
+                         ("out_q8_bf16", jnp.bfloat16)):
+            arrays[name] = np.asarray(run(dt), np.float32)
+
+    def loss_fn(p, v, x, y, lab):
+        total, (parts, _) = bundle.loss({"params": p}, v, x, y, train=True,
+                                        content_label=lab)
+        return total, parts
+
+    (_, parts), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params, vgg_vars, c, s, label)
+    arrays.update({k: np.float32(v) for k, v in parts.items()})
+    arrays.update(_grad_keys(jax.tree.map(
+        lambda a: np.asarray(a, np.float32), grads)))
+
+    freeze = ("encoder",) if network == "wct_train" else ()
+    tx = make_optimizer(cfg, freeze)
+    own = jax.tree.map(lambda a: jnp.asarray(np.array(a)), np_params)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=own, extra={},
+                       opt_state=tx.init(own), rng=jax.random.PRNGKey(seed))
+    step = make_train_step(bundle, tx, with_labels=label is not None)
+    trajectory = []
+    for _ in range(TRAIN["steps"]):
+        state, step_parts = (step(state, vgg_vars, c, s, label)
+                             if label is not None
+                             else step(state, vgg_vars, c, s))
+        trajectory.append(float(step_parts["total_loss"]))
+    arrays["trajectory"] = np.asarray(trajectory, np.float32)
+    if freeze:  # the frozen encoder left bit-unchanged by rpst's steps
+        before = dict(_flat(np_params["encoder"]))
+        for k, v in _flat(state.params["encoder"]):
+            assert np.array_equal(np.asarray(v), before[k]), k
+
+    # the same loss and gradients in float64: each gradient's own float32
+    # error, where it is larger than the bounds' floor
+    jax.config.update("jax_enable_x64", True)
+    try:
+        def f64(tree):
+            return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+        _, g64 = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+            f64(np_params), f64(vgg_weights_from_seed(TRAIN["vgg_seed"])),
+            jnp.asarray(content, jnp.float64),
+            jnp.asarray(style, jnp.float64), label)
+        arrays.update(_grad_keys(jax.tree.map(
+            lambda a: np.asarray(a, np.float32), g64), "f64/"))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -867,6 +1044,9 @@ def main():
                     help="write the mst fixture instead")
     ap.add_argument("--target-cache", action="store_true",
                     help="write the target-cache fixture instead")
+    for name in SLICE5B:
+        ap.add_argument(f"--{name.replace('_', '-')}", action="store_true",
+                        help=f"write the {name} fixture instead")
     ap.add_argument("--grads-f64", action="store_true",
                     help="with a slice-4 network: only (re)compute the "
                          "fixture's float64 gradients")
@@ -878,7 +1058,11 @@ def main():
     import numpy as np
 
     slice4 = [n for n in SLICE4 if getattr(args, n)]
-    if slice4:
+    slice5b = [n for n in SLICE5B if getattr(args, n)]
+    if slice5b:
+        arrays = make_slice5b_fixture(slice5b[0], args.seed, args.size)
+        args.dst = args.dst or str(SLICE5B_DST[slice5b[0]])
+    elif slice4:
         args.dst = args.dst or str(SLICE4_DST[slice4[0]])
         if args.grads_f64:
             with np.load(args.dst) as npz:
@@ -919,7 +1103,7 @@ def main():
     # the new fixtures hold relu outputs, which compress well
     save = (np.savez_compressed
             if (args.adain or args.wct or args.q8_targets or args.sanet
-                or args.dynamic_sanet or args.src or slice4
+                or args.dynamic_sanet or args.src or slice4 or slice5b
                 or args.target_cache)
             else np.savez)
     save(args.dst, **arrays)

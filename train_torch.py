@@ -27,6 +27,15 @@ transform in float32, its attention plain PyTorch (streamed by query blocks
 under ``torch.utils.checkpoint`` where ``adaptive_blockwise`` says so; no
 kernel), and ``src`` (``configs/train_source_adain.yaml``) trains its
 decoder over a frozen 4-stage VGG (no kernel; ``use_mask`` is not read).
+``wct``, ``mrf``, ``spade`` and ``seg_adain`` train standard (no kernel of
+the port). A wct run with ``resume: true`` freezes the encoder (rpst's
+``freeze_prefixes``): its parameters get no update and no Adam state, so a
+checkpoint saved without the freeze is refused, as rpst refuses it.
+seg_adain with ``seg_dir`` (a folder of Cityscapes side-by-side images:
+content on the left ``img_size`` columns, the label ids on the next)
+trains on labelled content batches, its segmentation head through the
+class-weighted cross entropy; without it, unlabelled (the head then gets
+zero gradients).
 
     python train_torch.py --config cfg.yaml [--set key=value ...]
                           [--device cuda|cpu]
@@ -36,8 +45,7 @@ decoder over a frozen 4-stage VGG (no kernel; ``use_mask`` is not read).
 logs the B6, B5 and B1/B2/B3 launch counts of the run. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
 and ``distributed`` (slice 8), ``grad_accum > 1`` and ``remat`` (slice 8),
-``test_dir`` test dumps (slice 7), and the networks of slice 5b (wct
-training among them).
+``test_dir`` test dumps (slice 7), and the LD family (slice 5b).
 """
 
 import argparse
@@ -52,7 +60,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch  # noqa: E402
 
 from rpst_torch.config import load_config  # noqa: E402
-from rpst_torch.data import ImageFolderDataset, InfiniteLoader  # noqa: E402
+from rpst_torch.data import (CityscapesDataset,  # noqa: E402
+                             ImageFolderDataset, InfiniteLoader)
 from rpst_torch.metrics import logger  # noqa: E402
 from rpst_torch.models import (build_model, build_vgg,  # noqa: E402
                                roadmap_slice)
@@ -83,16 +92,10 @@ _UNPORTED = {
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a config this port cannot train yet."""
-    if cfg.network == "wct":
-        raise NotImplementedError(
-            "train_torch.py: wct training (the frozen-encoder resume, "
-            "freeze_prefixes) is ROADMAP.md section A slice 5b")
     if roadmap_slice(cfg.network):
         raise NotImplementedError(
-            "train_torch.py trains multi_adain, sel_multi_adain, ccam, mst, "
-            "adain, sanet, dynamic_sanet and src only (the other networks "
-            f"are ROADMAP.md section A slice 5b); {cfg.network!r} is section "
-            f"A {roadmap_slice(cfg.network)}")
+            f"train_torch.py: {cfg.network!r} is not ported yet: ROADMAP.md "
+            f"section A {roadmap_slice(cfg.network)} (the LD family)")
     for key, (asked, where) in _UNPORTED.items():
         if asked(cfg):
             raise NotImplementedError(
@@ -141,16 +144,25 @@ def main(argv=None):
                        "(perceptual losses hold no meaning; fine for smoke "
                        "runs)")
 
-    content_ds = ImageFolderDataset(cfg.content_dir, cfg.img_size, fmt="*")
+    # labelled content (rpst train.py:112-132): seg_adain on a Cityscapes
+    # side-by-side folder yields (content, label) batches
+    seg_training = bool(cfg.network == "seg_adain" and cfg.seg_dir)
+    content_ds = (CityscapesDataset(cfg.seg_dir, cfg.img_size)
+                  if seg_training else
+                  ImageFolderDataset(cfg.content_dir, cfg.img_size, fmt="*"))
     style_ds = ImageFolderDataset(cfg.style_dir, cfg.img_size, fmt="*/*")
     if len(style_ds) == 0:  # the reference uses '*/*' for wikiart subdirs
         style_ds = ImageFolderDataset(cfg.style_dir, cfg.img_size, fmt="*")
     if not len(content_ds) or not len(style_ds):
         raise SystemExit(f"no images: {len(content_ds)} content in "
-                         f"{cfg.content_dir!r}, {len(style_ds)} style in "
-                         f"{cfg.style_dir!r}")
+                         f"{cfg.seg_dir if seg_training else cfg.content_dir!r}"
+                         f", {len(style_ds)} style in {cfg.style_dir!r}")
 
-    state = create_train_state(bundle)
+    # a wct resume freezes the encoder (rpst train.py:158)
+    freeze = ("encoder",) if (cfg.network == "wct" and cfg.resume) else ()
+    state = create_train_state(bundle, freeze_prefixes=freeze)
+    if freeze:
+        logger.info(f"Frozen for this run: {', '.join(freeze)}")
     begin = 0
     if cfg.resume:
         ckpt = cfg.checkpoint_path or None
@@ -167,7 +179,7 @@ def main(argv=None):
     # the device-resident target cache (rpst train.py:199-213): the folded
     # families on one device, grad_accum 1 (the port trains no other way)
     use_tcache = (bool(cfg.get("target_cache", 0)) and bundle.folded_infer()
-                  and cfg.img_size % 8 == 0
+                  and not seg_training and cfg.img_size % 8 == 0
                   and int(cfg.get("grad_accum", 1)) == 1)
     if cfg.get("target_cache", 0) and not use_tcache:
         logger.warning("target_cache ignored: needs a single-device "
@@ -214,7 +226,9 @@ def main(argv=None):
             logger.warning("train_q8_targets ignored: needs a folded-family "
                            "config and img_size % 8 == 0")
     logger.info(f"Training {cfg.network} ({'folded' if bundle.folded_infer() else 'standard'}, "
-                f"{cfg.compute_dtype}) on {device}"
+                f"{cfg.compute_dtype}"
+                + (", labelled content from seg_dir" if seg_training else "")
+                + f") on {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else "")
                 + f", batch {cfg.batch_size}, {cfg.img_size}px")
@@ -229,8 +243,13 @@ def main(argv=None):
         with CheckpointOnSignal() as stop:
             for i in range(1, cfg.max_iter):
                 start = time.perf_counter()
-                targets = None
-                if use_tcache:
+                targets = label = None
+                if seg_training:
+                    content_np, label_np = next(content_iter)
+                    content = torch.from_numpy(content_np).to(device)
+                    label = torch.from_numpy(label_np).to(device)
+                    style = torch.from_numpy(next(style_iter)).to(device)
+                elif use_tcache:
                     c_idx, content_np = next(content_iter)
                     s_idx, style_np = next(style_iter)
                     content = torch.from_numpy(content_np).to(device)
@@ -241,7 +260,7 @@ def main(argv=None):
                     content = torch.from_numpy(next(content_iter)).to(device)
                     style = torch.from_numpy(next(style_iter)).to(device)
                 parts = train_step(state, vgg, content, style,
-                                   targets=targets)
+                                   targets=targets, content_label=label)
                 timer.tick()
                 if i % cfg.log_iter == 0:
                     values = {k: float(v) for k, v in parts.items()}

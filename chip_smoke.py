@@ -6,9 +6,11 @@ paths, adain's and wct's serving, and the serving and training of the static
 SANet, the adaptive SANet (dynamic_sanet) and SourceNet (src) at 512px
 through the user's entry points, the flagship's three variants
 (sel_multi_adain, ccam, mst: folded, int8 and training), the flagship's
-target cache, and mrf, spade and seg_adain (standard and int8 serving,
-training) with wct's training and its frozen-encoder resume, and times
-them. Needs one NVIDIA
+target cache, mrf, spade and seg_adain (standard and int8 serving,
+training) with wct's training and its frozen-encoder resume, and the LD
+family (ld_adain .. ld_adain5: standard serving and training, int8 serving
+of v1 and v2, v1's 7x7 convs on B5's 7x7 form), and times them. Needs one
+NVIDIA
 Hopper card; run from the repository root with no arguments:
 
     python3 chip_smoke.py
@@ -151,7 +153,7 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                read after (2 B6 per stylize; q8 16 B5 + 2 B6); serve_torch.py
                --mode standard and --mode q8 as subprocesses
  27. sanet train    train_torch.py on configs/train_static_sanet.yaml's
-               settings (512px, batch 4, f32): 3 steps as a subprocess, then a
+               settings (512px, batch 4, f32): 3 steps in this process, then a
                resume for 2 more in this process with the counts reset before
                and read after: exact 6 / 6 / 6 B6 fwd / dQ / dK/dV per step;
                then 2 steps in bfloat16 the same way (the forward is then the
@@ -177,7 +179,7 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  31. 6b train      train_torch.py on configs/train_dynamic_sanet.yaml's
                settings (512px, b1, relu, f32; the streamed route under
                autograd) and configs/train_source_adain.yaml's (512px, b8):
-               3 steps as a subprocess, then a resume for 2 more in this
+               3 steps in this process, then a resume for 2 more in this
                process, counts reset before and read after (no kernel),
                the resumed run's peak device memory printed
  32. 6b parity     512px b2: dynamic_sanet streamed vs dense, f32 (1e-3) and
@@ -194,7 +196,7 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                rpst's scales (f32 >= 35 dB, bf16 >= 30), loss parts (rtol
                1e-4), gradients (rtol 5e-3, atol 1e-4 x max or 4 x the
                tensor's own float32 error in rpst; the folded and standard
-               paths' distances from rpst's float64 gradients printed),
+               paths' distances to rpst's float64 gradients printed),
                sel's moved BatchNorm statistics,
                mst's k-means labels; exact launches (15 B1 a stylize, 3 B1 +
                12 B4 a q8 stylize, 23/17/15 B1/B2/B3 a loss + backward, mst
@@ -215,7 +217,7 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                daemon on ccam
  37. slice-4 train    train_torch.py for each variant at 512px folded
                (sel_multi_adain b4 f32, ccam and mst their yamls' b2 bf16):
-               3 steps as a subprocess, a resume for 2 in this process with
+               3 steps in this process, a resume for 2 in this process with
                exact B1/B2/B3 launches; sel's BatchNorm statistics kept over
                a forced non-finite step; the flagship b4 with target_cache
                512 on an 8-image corpus: the hits and misses of stats()
@@ -253,13 +255,42 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                bench.py's widths, seg_adain on a synthetic side-by-side
                seg_dir, spade at configs/TrainConfig.yaml, wct at
                configs/train_deeper_rp_wct.yaml (b4) with resume: true
-               (the encoder frozen): 3 steps as a subprocess, a resume for 2
+               (the encoder frozen): 3 steps in this process, a resume for 2
                in this process (no kernel launched), the resumed run's peak
                memory, the frozen encoder's bytes unchanged; a wct
                checkpoint saved without the freeze refused on resume
  43. 5b timing    512px stylize b1 / b4 of the three networks: f32, then
                bf16 against q8 in both orders; the train step b1 of the
                three and of wct, f32, with its peak memory
+
+ 44. B5 7x7     B5's 7x7 form vs its plain version at LD v1's two 512px
+               shapes, (2,512,512,128->128) and (256->256), and around its
+               tiles (H, W = 4, 5, 17, 33; C = 4, 32, 36; Co = 4, 68, 132,
+               200, 260), int8 and bf16 out, alpha 0.2 and 0: bit-equal to
+               plain and across two runs; its occupancy from ptxas; each path
+               shape timed raw, through the wrapper, beside plain, F.conv2d
+               bf16 7x7 and the bound of its int8 operations
+ 45. LD fixtures  the five LD networks on the card vs rpst's JAX
+               (tests/fixtures/torch_port_ld_adain*.npz, 32px b2, the
+               yamls' widths): stylize f32 (1e-4) and bf16 (MAE < 1e-2 or 3
+               x rpst's own), v1 / v2 q8 with rpst's scales (f32 >= 35 dB,
+               bf16 >= 30) with exact launches (6 B5, two 7x7; 4 B5), the
+               first eligible layer's int8 features on rpst's int8 input
+               (one step on under 1e-3), loss parts, gradients (float32,
+               and float64 with the feature statistics in float64), the
+               3-step trajectory
+ 46. LD serve     each network's main path at 512px: 4 requests through
+               build_model -> resolve_mode -> [calibrate_scales ->]
+               make_run_impl -> DynamicBatcher(b2), standard for the five,
+               q8 for v1 / v2, counts reset before and read after;
+               serve_torch.py on each yaml at b1 (v1 / v2 --mode q8, v1
+               with use_mask=false; v3-v5 --mode folded, served standard)
+ 47. LD train     train_torch.py on each LD yaml's settings at 512px: 3
+               steps and a resume for 2, in this process, no kernel
+               launched, the resumed run's peak memory
+ 48. LD timing    512px stylize b1 / b4: v1 / v2 standard bf16 against q8
+               in both orders, v3-v5 bf16; v2's 2N encode against two
+               passes at b1, b2, b4 in both orders; each yaml's train step
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -732,7 +763,15 @@ def main():
     _5b_train(dev)
     _5b_timing(dev, rng, name_power)
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-43")
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 44-48")
+    # ---- 44-48. the LD family, B5's 7x7 form -------------------------------
+    b5_7 = _ld_kernels(dev, name_power)
+    _ld_fixtures(dev)
+    ld_serve = _ld_serve(dev, rng)
+    _ld_train(dev)
+    _ld_timing(dev, rng, name_power)
+
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-48")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -789,10 +828,23 @@ def main():
          "source": "src/rpst_torch/csrc/conv2d_q8.cu",
          "replaces": "src/rpst/ops/pallas/conv2d_q8.py:220",
          "launches": (b5_serve + q8t_launches[3] + sanet_serve["B5"]
-                      + b5_6b + b5_5b),
+                      + b5_6b + b5_5b + ld_serve[0] - ld_serve[1]),
          "max_abs_err": b5k["err"], "ms": b5k["ms"],
          "plain_ms": b5k["plain_ms"], "bound_ms": b5k["bound_ms"],
-         "bound_by": b5k["bound_by"], "library_ms": b5k["library_ms"]}]}
+         "bound_by": b5k["bound_by"], "library_ms": b5k["library_ms"]},
+        # B5's 7x7 form at LD v1's widest shape, (2, 512, 512, 256 -> 256)
+        # (phase 44): it replaces no Pallas kernel but what rpst asks of
+        # its compiler's int8 conv (_xla_conv_q8); library_ms is F.conv2d
+        # bf16 7x7 on the dequantized values, not the same function (no
+        # PyTorch call takes int8 on CUDA); its launches are LD v1's q8
+        # main path's (phase 46)
+        {"name": "fused_conv2d_q8_7x7", "route": "cuda",
+         "source": "src/rpst_torch/csrc/conv2d_q8.cu",
+         "replaces": "src/rpst/models/fast_path_q8.py:1415",
+         "launches": ld_serve[1], "max_abs_err": b5_7["err"],
+         "ms": b5_7["ms"], "plain_ms": b5_7["plain_ms"],
+         "bound_ms": b5_7["bound_ms"], "bound_by": b5_7["bound_by"],
+         "library_ms": b5_7["library_ms"]}]}
     # B6's numbers at relu4_1 of a 512px stylize, (1, 4096, 4096, 512) f32
     # (phase 23); library_ms is F.scaled_dot_product_attention(scale=1.0)
     # forward for B6a / B6b and its autograd backward, which yields dQ, dK
@@ -1111,8 +1163,9 @@ def _counters():
 def _reset_counts():
     for c in _counters().values():
         c.launches = 0
-        if hasattr(c, "launches_bf16"):
-            c.launches_bf16 = 0
+        for sub in ("launches_bf16", "launches_7x7"):
+            if hasattr(c, sub):
+                setattr(c, sub, 0)
 
 
 def _bf16_fwd_counts():
@@ -1128,6 +1181,34 @@ def _counts(names=("B1", "B2", "B3")):
     if names == Q8_KERNELS:
         return {k: c[k].launches for k in names}
     return tuple(c[k].launches for k in names)
+
+
+def _train_cli(argv):
+    """``train_torch.py`` run in this process on ``argv``: its ``main``, the
+    entry point its command line calls, without an interpreter's start-up
+    (~15 s of each run as a subprocess), the launch counts reset first.
+    Returns a ``CompletedProcess`` whose stdout holds the port logger's
+    messages; a failing run raises."""
+    import importlib.util
+    import logging
+    spec = importlib.util.spec_from_file_location("train_torch",
+                                                  REPO / "train_torch.py")
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+    handler = Keep()
+    logger = logging.getLogger("rpst_torch")
+    logger.addHandler(handler)
+    _reset_counts()
+    try:
+        driver.main(list(argv))
+    finally:
+        logger.removeHandler(handler)
+    return subprocess.CompletedProcess(argv, 0, "\n".join(lines), "")
 
 
 def _grad_dict(model):
@@ -2090,7 +2171,7 @@ def _q8_targets_fixture(dev):
                 ref = torch.from_numpy(fx[f"tap_{name}_{i}"]).to(dev)
                 if not torch.allclose(got[:, 0, 0, :], ref, rtol=1e-3,
                                       atol=1e-4 * float(ref.abs().max())):
-                    raise AssertionError(f"tap {i} {name} differs from rpst")
+                    raise AssertionError(f"tap {i} {name}: rpst's differs")
         else:
             # relu3_1, relu4_1 pass the int8 chain: the whole tap
             got, ref = t.cpu().numpy(), fx[f"tap_{i}"]
@@ -2963,7 +3044,7 @@ def _sanet_serve(dev, rng):
 
 def _sanet_train(dev):
     """Phase 27: train_torch.py on the repository's static-SANet yaml (512px,
-    batch 4, f32): 3 steps as a subprocess, then 2 resumed steps through the
+    batch 4, f32): 3 steps in this process, then 2 resumed steps through the
     same entry point in this process, counts reset before and read after.
     Then 2 steps in bfloat16 the same way (the attention transform still
     float32, as rpst's). Returns the B6 forward-with-LSE / dQ / dK/dV
@@ -2984,10 +3065,7 @@ def _sanet_train(dev):
                 f"content_dir={tmp / 'corpus' / 'content'}",
                 f"style_dir={tmp / 'corpus' / 'style'}", f"output={out}"]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(REPO / "train_torch.py"), *args,
-             "max_iter=4"], capture_output=True, text=True, timeout=900,
-            cwd=str(REPO))
+        proc = _train_cli([*args, "max_iter=4"])
         text = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise AssertionError(f"train_torch.py sanet rc {proc.returncode}:"
@@ -3002,7 +3080,7 @@ def _sanet_train(dev):
                  for ln in text.splitlines() if "img/s" in ln]
         log("27 sanet train", f"train_torch.py sanet b4 {IMG}px f32, 3 steps "
             f"in {time.perf_counter() - t0:.1f}s wall (img/s per step "
-            f"{rates}); child B6 fwd/dq/dkv launches {child[0]}")
+            f"{rates}); B6 fwd/dq/dkv launches of the 3 steps {child[0]}")
 
         spec = importlib.util.spec_from_file_location(
             "train_torch", REPO / "train_torch.py")
@@ -3379,7 +3457,7 @@ def _6b_serve(dev, rng):
 def _6b_train(dev):
     """Phase 31: train_torch.py on the repository's dynamic_sanet yaml
     (512px, batch 1, relu, float32; the streamed route, under autograd) and
-    src yaml (512px, batch 8): 3 steps as a subprocess, then a resume for 2
+    src yaml (512px, batch 8): 3 steps in this process, then a resume for 2
     more in this process, counts reset before and read after (no kernel on
     either path), peak device memory read over the resumed run."""
     import importlib.util
@@ -3412,10 +3490,7 @@ def _6b_train(dev):
                     f"style_dir={tmp / 'corpus' / 'style'}",
                     f"output={out}"]
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, str(REPO / "train_torch.py"), *args,
-                 "max_iter=4"], capture_output=True, text=True, timeout=900,
-                cwd=str(REPO))
+            proc = _train_cli([*args, "max_iter=4"])
             text = proc.stdout + proc.stderr
             head = (f"Training {network} (standard, float32) on cuda")
             if proc.returncode != 0 or head not in text \
@@ -3651,7 +3726,7 @@ S4_Q8_F32_PSNR = 35.0  # as the other q8 fixtures on the card (phase 24)
 # standard and its float64 ones) where that is more
 # (test_torch_sel_multi_adain.py's rule, 2 there): ccam's float32 gradients
 # on the card, through B1-B3 and through the standard path's cuDNN (no
-# kernel of the port) alike, sit several times further from rpst's float64
+# kernel of the port) alike, sit several times further off rpst's float64
 # ones than rpst's float32 ones do (phase 34 prints both; PERF.md), so
 # float32 on the card is held at 4
 GRAD_SPREAD = 4.0
@@ -3844,7 +3919,7 @@ def _s4_fixtures(dev):
         msg.append(f"loss {float(total):.7g} vs {float(fx['total_loss']):.7g}"
                    f", worst gradient err / max {worst:.3g}, at most "
                    f"{ratio:.3g} x the tensor's own float32 error in rpst "
-                   f"(limit {GRAD_SPREAD}); distance from rpst's float64 "
+                   f"(limit {GRAD_SPREAD}); distance to rpst's float64 "
                    f"gradients over rpst's float32 one, median / max: "
                    f"folded (B1-B3) {f64_err['folded'][0]:.3g} / "
                    f"{f64_err['folded'][1]:.3g}, standard (cuDNN) "
@@ -4178,7 +4253,7 @@ def _tcache_expected(n_imgs, batch, steps, seed):
 def _s4_train(dev):
     """Phase 37: train_torch.py for each variant at its settings (512px,
     folded; sel_multi_adain b4 f32, ccam and mst their yamls' b2 bf16): 3
-    steps as a subprocess, then a resume for 2 in this process, counts
+    steps in this process, then a resume for 2 in this process, counts
     reset before and read after; sel_multi_adain's running statistics put
     back on a forced non-finite step; the flagship with ``target_cache:
     512`` on a corpus revisited within the run. Returns the in-process B1 /
@@ -4222,10 +4297,7 @@ def _s4_train(dev):
                     "snapshot_save_iter=2", *corpus, f"output={out}"]
             per = S4_PER_STEP[network]
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, str(REPO / "train_torch.py"), *args,
-                 "max_iter=4"], capture_output=True, text=True, timeout=900,
-                cwd=str(REPO))
+            proc = _train_cli([*args, "max_iter=4"])
             text = proc.stdout + proc.stderr
             child = [tuple(int(v) for v in ln.rsplit(":", 1)[1].split("/"))
                      for ln in text.splitlines()
@@ -4251,7 +4323,8 @@ def _s4_train(dev):
             total = [a + b for a, b in zip(total, launches)]
             log("37 slice-4 train", f"train_torch.py {network} {IMG}px "
                 f"folded: 3 steps in {time.perf_counter() - t0:.1f}s wall "
-                f"(img/s per step {rates}), child launches {child[0]}; "
+                f"(img/s per step {rates}), launches of the 3 steps "
+                f"{child[0]}; "
                 f"resumed for steps 4-5: B1/B2/B3 {launches} (2 x {per}), "
                 f"total_loss {[round(ln['total_loss'], 5) for ln in lines]}")
 
@@ -4447,7 +4520,7 @@ WCT_YAML = REPO / "configs" / "train_deeper_rp_wct.yaml"
 # the card as phase 34's): the port's float64 gradients against rpst's
 # float64 ones at 1e-4 x max (wct 1e-3: both whiten in float32, and
 # cuSOLVER's eigh moves the card's fused features from the CPU's: the
-# decoder's float32 gradients read 6.7e-4 of max from rpst's); the float32
+# decoder's float32 gradients read 6.7e-4 of max off rpst's); the float32
 # ones at that floor or S5B_GRAD_SPREAD x the larger of the two frameworks'
 # own float32 errors; the port's own capped at S5B_MAX_OWN or twice rpst's
 # worst over the network; rpst's float64 gradient below S5B_ZERO x the
@@ -4518,11 +4591,16 @@ def _5b_check_grads(label, g32, g64, fx, f64_atol):
     names = set()
     for key in keys:
         kind, _, path = key.partition("/")
-        name = path.replace("/", ".").replace("kernel", "weight")
+        name = path.replace("/", ".")
+        # LD v5's upsampler kernels keep flax's name and (s, s, C, Co)
+        # layout in the port; conv kernels become OIHW weights
+        up = name.startswith("up_") and name.endswith(".kernel")
+        if not up:
+            name = name.replace("kernel", "weight")
         names.add(name)
-        got, got64 = ((g if kind == "grads" else g.permute(2, 3, 1, 0)[
-            ..., :8, :8]).double().cpu().numpy() for g in (g32[name],
-                                                            g64[name]))
+        got, got64 = ((g if kind == "grads" else (
+            g if up else g.permute(2, 3, 1, 0))[..., :8, :8]).double().cpu()
+            .numpy() for g in (g32[name], g64[name]))
         ref, ref64 = fx[key], fx[f"f64/{key}"]
         if key not in live:
             if not (float(np.abs(got).max()) <= S5B_NOISE * top
@@ -4877,7 +4955,7 @@ def _5b_train(dev):
     seg_adain at bench.py's widths b1, spade at configs/TrainConfig.yaml,
     seg_adain on a synthetic side-by-side seg_dir, wct at
     configs/train_deeper_rp_wct.yaml (b4) with resume: true from the start
-    (the encoder frozen): 3 steps as a subprocess, then a resume for 2 in
+    (the encoder frozen): 3 steps in this process, then a resume for 2 in
     this process, counts reset before and read after (no kernel of the port
     runs), the resumed run's peak memory; the frozen encoder's bytes
     unchanged; a wct checkpoint saved without the freeze refused on resume.
@@ -4920,10 +4998,7 @@ def _5b_train(dev):
                     f"style_dir={tmp / 'corpus' / 'style'}",
                     f"output={out}", *sets]
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, str(REPO / "train_torch.py"), *args,
-                 "max_iter=4"], capture_output=True, text=True, timeout=900,
-                cwd=str(REPO))
+            proc = _train_cli([*args, "max_iter=4"])
             text = proc.stdout + proc.stderr
             if proc.returncode != 0 or "on cuda" not in text:
                 raise AssertionError(f"train_torch.py {label} rc "
@@ -5047,6 +5122,614 @@ def _5b_timing(dev, rng, name_power):
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         log("43 5b timing", f"train step {IMG}px b1 {network} float32: "
             f"{ms:9.3f} ms/step {1e3 / ms:8.2f} img/s, peak {peak:.2f} GiB "
+            f"({name_power})")
+        del state, bundle
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 44-48: the LD family (ld_adain .. ld_adain5), B5's 7x7 form
+# ---------------------------------------------------------------------------
+
+LD_NETWORKS = ("ld_adain", "ld_adain2", "ld_adain3", "ld_adain4",
+               "ld_adain5")
+LD_Q8 = ("ld_adain", "ld_adain2")
+LD_YAML = {n: REPO / "configs" / f"train_{t}_multiscale_rp_adain.yaml"
+           for n, t in zip(LD_NETWORKS, ("ld", "ld2", "ld3", "ld4", "ld5"))}
+# the fixtures' configs (tools/make_torch_port_fixture.py SLICE5B's LD
+# entries: the yamls' widths, 5 layers, all stylized, use_mask off)
+LD_FIXTURE_CFG = {n: dict(network=n, rp_blocks=5, ld_layer_num=5,
+                          stylized_layers=5, inception_num=0, use_mask=False,
+                          hidden_dim={"ld_adain": 16, "ld_adain2": 8}.get(
+                              n, 32)) for n in LD_NETWORKS}
+# one q8 stylize at the yamls' widths (held on the CPU by
+# tests/test_torch_ld_q8.py): v1 layers 3 and 4 (a 3x3 and a 7x7 each) and
+# decoder convs 0 and 1; v2 layer 4's small branch, conv_a and conv_b, and
+# decoder conv 0
+LD_PLAN = {"ld_adain": {"scales": 4, "B5": 6, "B5_7x7": 2},
+           "ld_adain2": {"scales": 4, "B5": 4, "B5_7x7": 0}}
+# LD v1's two 7x7 shapes at 512px (the 2N batch of one pair)
+B5_7X7_SHAPES = (("LD v1 layer 3 7x7 128->128", (2, 512, 512, 128, 128)),
+                 ("LD v1 layer 4 7x7 256->256", (2, 512, 512, 256, 256)))
+# around the 7x7 form's tiles: the smallest maps (H, W = 4, 5), ragged
+# 8 x 16 tiles (17, 33), Co off the 64 / 128 channel blocks, C = 4 and 36
+# (a partial 32-byte K step, word loads)
+B5_7X7_EDGES = ((1, 4, 4, 4, 4), (2, 5, 5, 36, 68), (1, 17, 33, 128, 132),
+                (2, 33, 17, 256, 200), (1, 4, 37, 64, 260), (3, 5, 4, 32, 4))
+# rpst's int8 features against the card's: one step on under this share
+LD_FEATURE_TIES = 1e-3
+
+
+def _b5_layer7(rng, dev, n, h, w, c, co):
+    """int8 x and (7, 7, C, Co) weights, scale rows near a real layer's."""
+    import numpy as np
+    import torch
+    x = rng.integers(-127, 128, (n, h, w, c), dtype=np.int8)
+    k = rng.integers(-127, 128, (7, 7, c, co), dtype=np.int8)
+    sc = np.stack([rng.uniform(2e-6, 6e-6, co) * (128 / c) * (9 / 49),
+                   rng.normal(0, 0.2, co),
+                   rng.uniform(10.0, 40.0, co)]).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, k, sc))
+
+
+def _ptxas_occupancy(log_text, k):
+    """Blocks and warps per SM of the 7x7 instances from ptxas's register
+    counts (``-Xptxas -v``) and their dynamic shared memory (the kernel's
+    Tile sizes): '' when the build was cached."""
+    import re
+    lines = log_text.splitlines()
+    out = {}
+    for i, ln in enumerate(lines):
+        m = re.search(r"conv2d_mma_kernelILi(\d+)ELi(\d+)ELi(\d)", ln)
+        if not m or int(m.group(1)) != k:
+            continue
+        regs = next((int(r.group(1)) for r in (
+            re.search(r"Used (\d+) registers", x) for x in lines[i:i + 4])
+            if r), None)
+        tco, mode = int(m.group(2)), int(m.group(3))
+        stage = ((8 + (3 if k == 3 else 1) - 1) * (16 + k - 1) * 2 * 16
+                 + (9 if k == 3 else k) * tco * 32)
+        smem = (2 if k == 3 and tco == 128 else 3) * stage
+        blocks = min(65536 // (regs * 256) if regs else 0,
+                     233472 // (smem + 1024), 8)
+        out[tco, mode] = (f"TCO {tco} {('int8', 'bf16')[mode]} out: {regs} "
+                          f"registers, {smem} B shared, {blocks} blocks "
+                          f"({8 * blocks} of 64 warps) a SM")
+    return "; ".join(out.values())
+
+
+def b5_7x7_checks(dev, name_power, timed=True):
+    """B5's 7x7 form against its plain version: int8 and bf16 out, alpha
+    0.2 and 0, at B5_7X7_EDGES and LD v1's two 512px shapes, each output
+    compared bit for bit with the plain version and with a second run; with
+    ``timed`` each path shape timed raw (the C interface on fixed buffers),
+    through the wrapper (packed weights kept, as the path keeps them),
+    beside the plain version, F.conv2d bf16 7x7 on the dequantized values
+    (not the same function: no PyTorch call takes int8 on CUDA) and the
+    bound of its int8 operations. Returns (failed checks, the kernels
+    line's numbers at 256 -> 256)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from rpst_torch.kernels import build
+    from rpst_torch.ops.conv2d_q8 import (fused_conv2d_q8,
+                                          fused_conv2d_q8_plain,
+                                          pack_conv2d_weights)
+    rng = np.random.default_rng(44)
+    out = {"err": 0.0}
+    bad = 0
+
+    def check(label, x, k, sc, out_int8, alpha):
+        before = fused_conv2d_q8.launches_7x7
+        got = fused_conv2d_q8(x, k, sc, out_int8, alpha, "reflect")
+        again = fused_conv2d_q8(x, k, sc, out_int8, alpha, "reflect")
+        torch.cuda.synchronize()
+        ref = fused_conv2d_q8_plain(x, k, sc, out_int8, alpha, "reflect")
+        bits = (lambda t: t.view(torch.int16)) if not out_int8 else \
+            (lambda t: t)
+        same = torch.equal(bits(got), bits(ref))
+        stable = torch.equal(bits(got), bits(again))
+        launched = fused_conv2d_q8.launches_7x7 - before == 2
+        out["err"] = max(out["err"],
+                         (got.float() - ref.float()).abs().max().item())
+        if not (same and stable and launched):
+            log("44 B5 7x7", f"{label}: FAILED (equal to plain {same}, "
+                f"equal across runs {stable}, 7x7 launched {launched}; "
+                f"{int((got != ref).sum())} of {got.numel()} differ)")
+        return int(not (same and stable and launched))
+
+    for shape in B5_7X7_EDGES:
+        x, k, sc = _b5_layer7(rng, dev, *shape)
+        n = sum(check(f"edge {shape} out_int8={o} alpha={a}", x, k, sc, o, a)
+                for o in (True, False) for a in (0.2, 0.0))
+        state = ("bit-equal to plain and across two runs" if not n
+                 else f"{n} FAILED")
+        log("44 B5 7x7", f"edge {shape}: int8 and bf16 out, alpha 0.2 and "
+            f"0: {state}")
+        bad += n
+    occ = _ptxas_occupancy(build.build_info.get("conv2d_q8", {}).get(
+        "log", ""), 7)
+    log("44 B5 7x7", f"occupancy (ptxas registers, the tile's shared "
+        f"memory): {occ or 'not measured (cached build)'}")
+    lib = build.load("conv2d_q8")
+    for label, shape in B5_7X7_SHAPES:
+        n_, h, w, c, co = shape
+        x, k, sc = _b5_layer7(rng, dev, *shape)
+        nb = sum(check(f"{label} out_int8={o} alpha={a}", x, k, sc, o, a)
+                 for o in (True, False) for a in (0.2, 0.0))
+        bad += nb
+        msg = f"{label} {shape}: " + (
+            "bit-equal to plain and across two runs, int8 and bf16 out, "
+            "alpha 0.2 and 0" if not nb else f"{nb} FAILED")
+        if timed:
+            kp = pack_conv2d_weights(k)
+            y = torch.empty((n_, h, w, co), device=dev, dtype=torch.int8)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def raw():
+                err = lib.rpst_conv2d_q8_7x7(
+                    x.data_ptr(), kp.data_ptr(), sc.data_ptr(), y.data_ptr(),
+                    n_, h, w, c, co, 1, 0.2, stream)
+                assert err == 0, err
+            t_raw = cuda_ms(raw, iters=5, warmup=2)
+            t_wrap = cuda_ms(lambda: fused_conv2d_q8(
+                x, k, sc, True, 0.2, "reflect", w_packed=kp), iters=5,
+                warmup=1)
+            t_plain = cuda_ms(lambda: fused_conv2d_q8_plain(
+                x, k, sc, True, 0.2, "reflect"), iters=2, warmup=1)
+            xd = (x.float() * 0.01).to(torch.bfloat16).permute(0, 3, 1, 2)
+            wd = (k.float() * 0.01).to(torch.bfloat16).permute(3, 2, 0, 1) \
+                .contiguous(memory_format=torch.channels_last)
+            bd = sc[1].to(torch.bfloat16)
+            t_lib = cuda_ms(lambda: F.conv2d(xd, wd, bd, padding=3),
+                            iters=5, warmup=2)
+            ops = 2 * 49 * n_ * h * w * c * co
+            b_ms, b_by = bound_ms(ops, n_ * h * w * (c + co) + 49 * c * co
+                                  + 3 * co * 4, "int8")
+            msg += (f"; raw {t_raw:.4f} ms ({ops / t_raw / 1e9:.0f} TOP/s), "
+                    f"through the wrapper {t_wrap:.4f}, plain (float64) "
+                    f"{t_plain:.2f}, F.conv2d bf16 7x7 {t_lib:.4f}; bound "
+                    f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / t_raw:.1f}% of "
+                    f"it reached raw; {name_power})")
+            if c == 256:
+                out.update(ms=t_wrap, raw_ms=t_raw, plain_ms=t_plain,
+                           library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+            del kp, y, xd, wd
+        log("44 B5 7x7", msg)
+        del x, k, sc
+        torch.cuda.empty_cache()
+    return bad, out
+
+
+def _ld_kernels(dev, name_power):
+    """Phase 44: B5's 7x7 form (b5_7x7_checks); raises on any failed
+    check. The 3x3 form's checks are phase 17's, unchanged."""
+    import torch
+    with torch.inference_mode():
+        bad, out = b5_7x7_checks(dev, name_power)
+    if bad:
+        raise AssertionError(f"B5 7x7: {bad} checks failed")
+    return out
+
+
+def _ld_bundle(dev, network, size, seeded=True, **over):
+    """An LD network at its fixture's config (the yamls' widths), the
+    weights of ``ld_weights_from_seed(network, 0)`` or the drivers' default
+    init."""
+    from rpst_torch.bridge import from_flax_params, ld_weights_from_seed
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    cfg = load_config(dict(LD_FIXTURE_CFG[network], img_size=size, vgg="",
+                           test_dir="", **over))
+    bundle = build_model(cfg, dev)
+    if seeded:
+        c = LD_FIXTURE_CFG[network]
+        bundle.load_state_dict(from_flax_params(ld_weights_from_seed(
+            network, 0, c["ld_layer_num"], c["hidden_dim"],
+            c["stylized_layers"])))
+    else:
+        init_torch_default(bundle.model, cfg.seed)
+    return bundle
+
+
+def _f64_stats():
+    """The port's feature statistics in float64 for a float64 run (the LD
+    fixtures' float64 gradients take rpst's so: tools/
+    make_torch_port_fixture.py ``ld_f64_stats``); returns the undo."""
+    import torch
+    from rpst_torch.models import base
+    from rpst_torch.ops import stats
+
+    def f64(feat, eps=1e-5):
+        mean = feat.mean(dim=(1, 2), keepdim=True)
+        n = feat.shape[1] * feat.shape[2]
+        var = ((feat - mean) ** 2).sum(dim=(1, 2), keepdim=True) \
+            / max(n - 1, 1)
+        return mean, torch.sqrt(var + eps)
+    old = stats.calc_mean_std, base.calc_mean_std
+    stats.calc_mean_std = base.calc_mean_std = f64
+
+    def undo():
+        stats.calc_mean_std, base.calc_mean_std = old
+    return undo
+
+
+def _ld_counts():
+    """(B5 launches, of them 7x7)."""
+    from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8
+    return fused_conv2d_q8.launches, fused_conv2d_q8.launches_7x7
+
+
+def _ld_fixtures(dev):
+    """Phase 45: the five LD networks on the card against their JAX
+    fixtures (32px b2, the yamls' widths): stylize f32 (1e-4) and bf16
+    (MAE < 1e-2 or 3 x rpst's own bf16 distance); v1 / v2 q8 with rpst's
+    scales (f32 >= 35 dB, bf16 >= 30) with exact B5 launches (6, two 7x7;
+    4), calibration within 2e-2, the first eligible layer's int8 features
+    on rpst's own int8 input (one step on under 1e-3 of them); loss
+    parts (rtol 1e-4), gradients (float32, and float64 with the feature
+    statistics in float64 as the fixture's), the 3-step trajectory."""
+    import numpy as np
+    import torch
+    from rpst_torch.models.fast_path_q8 import _scale_rows
+    from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8
+    from rpst_torch.train.step import adam_count, create_train_state, \
+        train_step
+    for network in LD_NETWORKS:
+        with np.load(REPO / "tests" / "fixtures"
+                     / f"torch_port_{network}.npz") as npz:
+            fx = {k: npz[k] for k in npz.files}
+        size = fx["content"].shape[1]
+        over = dict(lr=float(fx["lr"]), lr_decay=float(fx["lr_decay"]),
+                    **S5B_LOSS)
+        bundle = _ld_bundle(dev, network, size, **over)
+        vgg = _5b_vgg(dev, int(fx["vgg_seed"]))
+        c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+        msg = []
+        _reset_counts()
+        out = bundle.stylize(c, s)
+        torch.cuda.synchronize()
+        err, _ = check_close(f"{network} fixture f32", out,
+                             torch.from_numpy(fx["out_f32"]).to(dev), F32_TOL)
+        bf16 = _ld_bundle(dev, network, size, compute_dtype="bfloat16")
+        got16 = bf16.stylize(c, s).cpu().numpy()
+        own = float(np.abs(fx["out_bf16"] - fx["out_f32"]).mean())
+        mae16 = float(np.abs(got16 - fx["out_bf16"]).mean())
+        if not mae16 < max(1e-2, BF16_OWN * own) or _counts(("B5",))[0]:
+            raise AssertionError(f"{network} fixture bf16 MAE {mae16} "
+                                 f"(rpst's own {own}), B5 {_counts(('B5',))}")
+        msg.append(f"f32 max abs err {err:.3g}, bf16 MAE {mae16:.3g} (rpst's "
+                   f"own bf16 distance {own:.3g})")
+        if network in LD_Q8:
+            plan = LD_PLAN[network]
+            scales = {"act_scales": fx["act_scales"]}
+            for dt, key, min_psnr in ((torch.float32, "out_q8_f32",
+                                       SANET_Q8_F32_PSNR),
+                                      (torch.bfloat16, "out_q8_bf16",
+                                       Q8_VS_FOLDED_PSNR)):
+                _reset_counts()
+                got = bundle.stylize_q8(c, s, scales, dtype=dt).cpu().numpy()
+                n = _ld_counts()
+                psnr = _psnr(got, fx[key])
+                if not (np.isfinite(got).all() and psnr >= min_psnr
+                        and n == (plan["B5"], plan["B5_7x7"])):
+                    raise AssertionError(f"{network} fixture {key}: PSNR "
+                                         f"{psnr} dB, B5 launches {n}")
+                msg.append(f"{key} PSNR {psnr:.2f} dB (>= {min_psnr}), "
+                           f"{n[0]} B5 ({n[1]} 7x7)")
+            own_scales = bundle.calibrate_q8(c, s)["act_scales"]
+            if not np.allclose(own_scales, fx["act_scales"], rtol=2e-2):
+                raise AssertionError(f"{network} calibration {own_scales} "
+                                     f"vs rpst {fx['act_scales']}")
+            enc_q, _ = bundle.q8_weights()
+            act = [float(a) for a in fx["act_scales"]]
+            x_q = torch.from_numpy(fx["q8_in"]).to(dev)
+            layer = enc_q[int(fx["q8_layer"])]
+            with torch.inference_mode():
+                if network == "ld_adain":
+                    feat = torch.cat([fused_conv2d_q8(
+                        x_q, q.w_q, _scale_rows(act[0], q, act[1]), True, 0.2,
+                        "reflect", w_packed=q.w_packed) for q in layer], -1)
+                else:
+                    q = layer[1]
+                    feat = fused_conv2d_q8(x_q, q.w_q, _scale_rows(
+                        act[1], q, act[2]), True, 0.0, "reflect",
+                        w_packed=q.w_packed)
+            diff = (feat.cpu().int() - torch.from_numpy(fx["q8_out"]).int()
+                    ).abs()
+            share = float((diff > 0).float().mean())
+            if not (int(diff.max()) <= 1 and share < LD_FEATURE_TIES):
+                raise AssertionError(f"{network} int8 features: max "
+                                     f"{int(diff.max())} steps, {share} off")
+            msg.append(f"int8 features of layer {int(fx['q8_layer'])} from "
+                       f"rpst's int8 input: max {int(diff.max())} step, "
+                       f"{share:.2g} of {diff.numel()} off (limit "
+                       f"{LD_FEATURE_TIES})")
+        grads = {}
+        for dt in (torch.float32, torch.float64):
+            b = _ld_bundle(dev, network, size, **over)
+            b.model.to(dt).train()
+            undo = _f64_stats() if dt == torch.float64 else (lambda: None)
+            try:
+                _reset_counts()
+                total, parts = b.loss(vgg.to(dt), c.to(dt), s.to(dt))
+                total.backward()
+            finally:
+                undo()
+            if any(_counts(("B1", "B2", "B3", "B5"))):
+                raise AssertionError(f"{network} loss launched a kernel")
+            grads[dt] = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                         for n, p in b.model.named_parameters()}
+            if dt == torch.float32:
+                for k, v in parts.items():
+                    got, want = float(v.detach()), float(fx[k])
+                    if not abs(got - want) <= LOSS_RTOL * abs(want):
+                        raise AssertionError(f"{network} {k}: {got} vs rpst "
+                                             f"{want}")
+            del b
+        vgg = vgg.float()
+        w32, w64, zero = _5b_check_grads(
+            network, grads[torch.float32], grads[torch.float64], fx,
+            GRAD_ATOL_REL)
+        fresh = _ld_bundle(dev, network, size, **over)
+        state = create_train_state(fresh)
+        losses = [float(train_step(state, vgg, c, s)["total_loss"])
+                  for _ in range(len(fx["trajectory"]))]
+        rel = np.abs(np.asarray(losses) - fx["trajectory"]) \
+            / np.abs(fx["trajectory"])
+        if not (rel[0] <= LOSS_RTOL and (rel[1:] <= 1e-2).all()
+                and adam_count(state.optimizer) == 3):
+            raise AssertionError(f"{network} trajectory {losses} vs rpst "
+                                 f"{fx['trajectory']}")
+        log("45 LD fixtures", f"{network} {size}px b2 vs rpst JAX: "
+            f"{'; '.join(msg)}; loss parts within {LOSS_RTOL}; gradients "
+            f"worst err / max {w32:.3g} (float32), {w64:.3g} (float64), "
+            f"{zero} zero up to rounding; trajectory rel err "
+            f"{[f'{r:.2g}' for r in rel]}")
+        del bundle, bf16, state, fresh, grads
+        torch.cuda.empty_cache()
+
+
+def _ld_serve(dev, rng):
+    """Phase 46: each LD network's serving main path at 512px (the yamls'
+    widths, default init): 4 requests through build_model -> resolve_mode
+    -> [calibrate_scales ->] make_run_impl -> DynamicBatcher(b2), standard
+    for the five and q8 for v1 / v2, counts reset before and read after
+    (q8: 6 B5, two 7x7, and 4 B5 a batch; standard none); then
+    serve_torch.py on each yaml at b1 as a subprocess (v1 and v2 --mode q8,
+    v1 with use_mask=false; v3-v5 --mode folded, which serves standard with
+    a warning). Returns the q8 runs' (B5, 7x7) launches."""
+    import numpy as np
+    import torch
+    from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
+                                    make_run_impl, resolve_mode)
+    total = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        imgs, style_img = _6b_images(tmp, rng)
+        for network in LD_NETWORKS:
+            bundle = _ld_bundle(dev, network, IMG, seeded=False)
+            outs = {}
+            for asked in ("standard", "q8") if network in LD_Q8 else \
+                    ("standard",):
+                mode = resolve_mode(bundle, asked, batch=2)
+                if mode != asked:
+                    raise AssertionError(f"{network} resolve_mode({asked}) = "
+                                         f"{mode}")
+                scales = None
+                if mode == "q8":
+                    calib = torch.from_numpy(np.stack(imgs[:2])).to(dev)
+                    scales = calibrate_scales(bundle, calib, torch.from_numpy(
+                        style_img)[None].to(dev).expand_as(calib)
+                        .contiguous())
+                    if len(scales["act_scales"]) != \
+                            LD_PLAN[network]["scales"]:
+                        raise AssertionError(f"{network} calibrated "
+                                             f"{len(scales['act_scales'])}")
+                batcher = DynamicBatcher(make_run_impl(bundle, mode, scales),
+                                         batch_size=2, max_wait_ms=50.0,
+                                         device=dev)
+                _reset_counts()  # this main path's count starts here
+                try:
+                    outs[mode] = [f.result(timeout=600) for f in
+                                  [batcher.submit(im, style_img)
+                                   for im in imgs[:4]]]
+                finally:
+                    batcher.close()
+                n = _ld_counts()
+                others = _counts(("B1", "B4", "B7", "B6a"))
+                batches = batcher.stats()["batches"]
+                plan = LD_PLAN.get(network, {"B5": 0, "B5_7x7": 0})
+                want = ((batches * plan["B5"], batches * plan["B5_7x7"])
+                        if mode == "q8" else (0, 0))
+                if n != want or any(others) or batches < 2:
+                    raise AssertionError(f"{network} {mode} main path: B5 "
+                                         f"{n} (want {want}), others "
+                                         f"{others} in {batches} batches")
+                for o in outs[mode]:
+                    if o.shape != (IMG, IMG, 3) or not np.isfinite(o).all():
+                        raise AssertionError(f"{network} {mode} output "
+                                             f"{o.shape}")
+                total = [total[0] + n[0], total[1] + n[1]]
+                log("46 LD serve", f"{network} {mode}: 4 requests via "
+                    f"DynamicBatcher(b2): {batcher.stats()}, {n[0]} B5 "
+                    f"({n[1]} 7x7) in {batches} batches")
+            if "q8" in outs:
+                psnr = _psnr(np.stack(outs["q8"]), np.stack(outs["standard"]))
+                if not psnr > Q8_VS_FOLDED_PSNR:
+                    raise AssertionError(f"{network} q8 vs standard f32: "
+                                         f"PSNR {psnr} dB")
+                log("46 LD serve", f"{network} q8 vs standard f32 PSNR "
+                    f"{psnr:.2f} dB (bound > {Q8_VS_FOLDED_PSNR})")
+            del bundle, batcher
+            torch.cuda.empty_cache()
+        for network in LD_NETWORKS:
+            q8 = network in LD_Q8
+            sets = ("--set", f"img_size={IMG}", "vgg=", "test_dir=",
+                    *(("use_mask=false",) if network == "ld_adain" else ()))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(REPO / "serve_torch.py"), "--config",
+                 str(LD_YAML[network]), "--content", str(tmp / "content"),
+                 "--style", str(tmp / "style" / "s.png"), "--out",
+                 str(tmp / f"out_{network}"), "--mode",
+                 "q8" if q8 else "folded", "--batch", "1", "--device",
+                 "cuda", *sets], capture_output=True, text=True,
+                timeout=600, cwd=str(REPO))
+            text = proc.stdout + proc.stderr
+            n_png = len(list((tmp / f"out_{network}").glob("*.png")))
+            b5, b7 = _logged_count(text, "B5"), _logged_7x7(text)
+            plan = LD_PLAN.get(network)
+            ok = proc.returncode == 0 and n_png == 8 and (
+                (b5 == 8 * plan["B5"] and b7 == 8 * plan["B5_7x7"]
+                 and f"Calibrated {plan['scales']} layer scales" in text)
+                if q8 else (b5 == 0 and "falling back to standard" in text))
+            if not ok:
+                raise AssertionError(f"serve_torch {network}: rc "
+                                     f"{proc.returncode}, {n_png} PNGs, B5 "
+                                     f"{b5} ({b7} 7x7):\n{text[-3000:]}")
+            rate = [ln for ln in text.splitlines() if "Stylized" in ln]
+            log("46 LD serve", f"serve_torch.py {LD_YAML[network].name} "
+                f"--mode {'q8' if q8 else 'folded (standard)'} b1: 8 PNGs, "
+                f"B5 {b5} ({b7} 7x7), {time.perf_counter() - t0:.1f}s wall; "
+                f"{rate[-1].split(' - ')[-1] if rate else ''}")
+    return total
+
+
+def _logged_7x7(text):
+    """The 7x7 count serve_torch.py / train_torch.py log."""
+    counts = [int(ln.rsplit(":", 1)[1]) for ln in text.splitlines()
+              if " - 7x7 B5 " in ln and " launches:" in ln]
+    return counts[-1] if counts else None
+
+
+def _ld_train(dev):
+    """Phase 47: train_torch.py on each LD yaml's settings at 512px (their
+    batch and type; lr as the yaml), 3 steps, then a resume for 2 more,
+    both in this process through the driver's main, counts reset before and
+    read after (no kernel of the port runs), the resumed run's peak device
+    memory. Returns the peaks."""
+    import importlib.util
+    import numpy as np
+    import torch
+    spec = importlib.util.spec_from_file_location("train_torch",
+                                                  REPO / "train_torch.py")
+    train_cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_cli)
+    peaks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        for network in LD_NETWORKS:
+            out = tmp / network
+            args = ["--config", str(LD_YAML[network]), "--device", "cuda",
+                    "--set", f"img_size={IMG}", "vgg=", "test_dir=",
+                    "num_workers=4", "log_iter=1", "snapshot_save_iter=2",
+                    f"content_dir={tmp / 'corpus' / 'content'}",
+                    f"style_dir={tmp / 'corpus' / 'style'}",
+                    f"output={out}"]
+            t0 = time.perf_counter()
+            _reset_counts()
+            train_cli.main([*args, "max_iter=4"])
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            train_cli.main([*args, "resume=true", "max_iter=3"])
+            torch.cuda.synchronize()
+            peaks[network] = torch.cuda.max_memory_allocated(dev)
+            if any(_counts(("B1", "B2", "B3", "B4", "B5", "B6a", "B6b",
+                            "B6c", "B6d"))):
+                raise AssertionError(f"{network} training launched a kernel")
+            lines = [json.loads(ln) for ln in
+                     (out / "logs" / "metrics.jsonl").read_text()
+                     .splitlines()]
+            losses = [ln["total_loss"] for ln in lines]
+            if [ln["step"] for ln in lines] != [1, 2, 3, 4, 5] \
+                    or not np.isfinite(losses).all() \
+                    or any(ln["skipped"] for ln in lines):
+                raise AssertionError(f"{network} metrics.jsonl: {lines}")
+            log("47 LD train", f"train_torch.py {LD_YAML[network].name} "
+                f"{IMG}px: 3 steps in {first:.1f}s wall, resumed at step 3 "
+                f"for steps 4-5; total_loss "
+                f"{[round(v, 4) for v in losses]}; no kernel launched; peak "
+                f"device memory of the resumed run "
+                f"{peaks[network] / 2 ** 30:.3f} GiB")
+            torch.cuda.empty_cache()
+    return peaks
+
+
+def _ld_timing(dev, rng, name_power):
+    """Phase 48: 512px stylize of the LD networks (the yamls' widths):
+    b1 / b4 standard bfloat16 against q8 for v1 / v2 in both orders (bf16,
+    q8, q8, bf16), v3-v5 bfloat16; v2's 2N encode against two passes at
+    b1, b2 and b4 in both orders (2N, two, two, 2N); the train step at each
+    yaml's batch and type, with its peak memory. CUDA events, medians of 3
+    after 1."""
+    import numpy as np
+    import torch
+    from rpst_torch import policy
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import create_train_state, train_step
+
+    def pair(batch):
+        return tuple(torch.from_numpy(rng.random((batch, IMG, IMG, 3),
+                                                 np.float32)).to(dev)
+                     for _ in range(2))
+
+    for batch in (1, 4):
+        c, s = pair(batch)
+        for network in LD_NETWORKS:
+            bundle = _ld_bundle(dev, network, IMG, compute_dtype="bfloat16")
+            paths = [("standard bfloat16", lambda: bundle.stylize(c, s))]
+            if network in LD_Q8:
+                scales = bundle.calibrate_q8(c, s)
+                paths.append(("q8 B5", lambda: bundle.stylize_q8(c, s,
+                                                                 scales)))
+                paths += [paths[1], paths[0]]  # both orders
+            for path, fn in paths:
+                ms = cuda_ms(fn, iters=3, warmup=1)
+                log("48 LD timing", f"stylize {IMG}px b{batch} {network:9s} "
+                    f"{path:17s}: {ms:9.3f} ms {batch * 1e3 / ms:8.2f} img/s "
+                    f"({name_power})")
+            del bundle
+            torch.cuda.empty_cache()
+    old = policy.LD2_2N_ENCODE_MIN_BATCH
+    try:
+        for batch in (1, 2, 4):
+            c, s = pair(batch)
+            bundle = _ld_bundle(dev, "ld_adain2", IMG,
+                                compute_dtype="bfloat16")
+            for label, gate in (("2N encode", 1), ("two passes", 10 ** 9),
+                                ("two passes", 10 ** 9), ("2N encode", 1)):
+                policy.LD2_2N_ENCODE_MIN_BATCH = gate
+                ms = cuda_ms(lambda: bundle.stylize(c, s), iters=3, warmup=1)
+                log("48 LD timing", f"ld_adain2 {IMG}px b{batch} bfloat16 "
+                    f"{label:10s}: {ms:9.3f} ms ({name_power})")
+            del bundle
+            torch.cuda.empty_cache()
+    finally:
+        policy.LD2_2N_ENCODE_MIN_BATCH = old
+    vgg = _5b_vgg(dev, 1)
+    for network in LD_NETWORKS:
+        cfg = load_config(str(LD_YAML[network]), dict(img_size=IMG, vgg="",
+                                                      test_dir=""))
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, 0)
+        c, s = pair(cfg.batch_size)
+        state = create_train_state(bundle)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log("48 LD timing", f"train step {IMG}px b{cfg.batch_size} "
+            f"{network} {cfg.compute_dtype}: {ms:9.3f} ms/step "
+            f"{cfg.batch_size * 1e3 / ms:8.2f} img/s, peak {peak:.2f} GiB "
             f"({name_power})")
         del state, bundle
         torch.cuda.empty_cache()

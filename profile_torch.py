@@ -29,7 +29,12 @@ instance norm, ndf 2) the standard stylize at b1 and b4 in float32 and
 bfloat16, ``--q8`` the int8 stylize on B5 (7 / 4 / 4 launches a call), and
 ``--train`` (also for ``wct``) the standard train step at b1 and b4 (no
 kernel of the port; spade at b1 only: its b4 float32 step outgrew the
-card's 80 GB).
+card's 80 GB). With ``--network ld_adain`` .. ``ld_adain5`` the LD network
+at its yaml's settings (``configs/train_ld*_rp_adain.yaml``, ``use_mask``
+off) the same way: the standard stylize at b1 and b4 in float32 and
+bfloat16, ``--q8`` the int8 stylize of v1 / v2 (B5 and its 7x7 form, both
+``conv2d_mma_kernel``: one column), ``--train`` the train step (no kernel
+of the port).
 
 For each case it prints one Markdown table row:
 
@@ -61,7 +66,8 @@ has ``_adain``.)
     python3 profile_torch.py [--train [--q8-targets] | --q8]
                              [--network adain|sanet|dynamic_sanet|src|
                                         sel_multi_adain|ccam|mst|wct|mrf|
-                                        spade|seg_adain]
+                                        spade|seg_adain|ld_adain|
+                                        ld_adain2..5]
 """
 
 import argparse
@@ -107,6 +113,11 @@ VARIANT_YAMLS = {
     / "train_constant_multiscale_rp_adain_channel_attention.yaml",
     "mst": REPO / "configs"
     / "train_constant_multiscale_rp_adain_global_mst.yaml"}
+# the LD family at its yamls' settings
+LD_YAMLS = {n: REPO / "configs" / f"train_{t}_multiscale_rp_adain.yaml"
+            for n, t in (("ld_adain", "ld"), ("ld_adain2", "ld2"),
+                         ("ld_adain3", "ld3"), ("ld_adain4", "ld4"),
+                         ("ld_adain5", "ld5"))}
 # the feature models' configs (src serves q8 only without masks)
 FEATURE_YAMLS = {
     "sanet": (REPO / "configs" / "train_static_sanet.yaml", {}),
@@ -214,7 +225,7 @@ def main():
                       help="profile the int8 stylize instead")
     ap.add_argument("--network", choices=("multi_adain", *WIDE_NETWORKS,
                                           "sanet", "dynamic_sanet", "src",
-                                          *VARIANT_YAMLS),
+                                          *VARIANT_YAMLS, *LD_YAMLS),
                     default="multi_adain",
                     help="adain: its standard (or with --q8 its int8) "
                     "stylize at b1 and b4; sanet, dynamic_sanet, src: the "
@@ -224,7 +235,7 @@ def main():
     args = ap.parse_args()
     if args.q8_targets and not args.train:
         ap.error("--q8-targets goes with --train")
-    adain = args.network in WIDE_NETWORKS
+    adain = args.network in WIDE_NETWORKS or args.network in LD_YAMLS
     if args.network == "adain" and args.train:
         ap.error("--network adain profiles serving only")
     if not torch.cuda.is_available():
@@ -244,6 +255,9 @@ def main():
         yaml, extra = FEATURE_YAMLS[args.network]
         cfg = load_config(str(yaml), dict(img_size=IMG, vgg="", test_dir="",
                                           **extra))
+    elif args.network in LD_YAMLS:
+        cfg = load_config(str(LD_YAMLS[args.network]), dict(
+            img_size=IMG, vgg="", test_dir="", use_mask=False))
     elif args.network in VARIANT_YAMLS:
         yaml = VARIANT_YAMLS[args.network]
         over = dict(img_size=IMG, vgg="", test_dir="", shuffle=False,

@@ -25,8 +25,13 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
                         .. conv5) on B5, sanet's two attention modules on
                         B6, dynamic_sanet's adaptive attention in plain
                         PyTorch, src's 4-stage encode (conv_4 .. conv_9)
-                        and decoder on B5 (on a CPU device: the kernels'
-                        plain versions); flagship configs without int8
+                        and decoder on B5, LD v1's (``ld_adain``) 3x3
+                        small branches and decoder convs on B5 and its 7x7
+                        big branches on B5's 7x7 form, LD v2's
+                        (``ld_adain2``) small branch, pooled-branch conv_a
+                        / conv_b and decoder convs on B5 (on a CPU device:
+                        the kernels' plain versions); flagship configs
+                        without int8
                         layers (4 * hidden_dim % 128) serve standard, with
                         a warning,
   * ``--mode folded``   exact space-to-depth execution on the hand-written
@@ -35,19 +40,23 @@ except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
                         VGG, the attention transform on the hand-written
                         B6 kernel, the mirror decoder; dynamic_sanet the
                         same with its adaptive transform; src: the 4-stage
-                        VGG, AdaIN, the mirror decoder),
+                        VGG, AdaIN, the mirror decoder; the LD family its
+                        dual-branch stacks in PyTorch),
   * ``--mode auto``     the path measured fastest on the H100 at --batch
                         (``rpst_torch.policy``, PERF.md section 6).
 
-At the end it logs the B1, B4, B7, B5 and B6 launch counts of the run.
-Networks: multi_adain (the flagship), sel_multi_adain, ccam, mst, adain,
-wct, mrf, spade, seg_adain, sanet, dynamic_sanet and src (``--mode
-folded`` and ``q8`` fall back to standard, with a warning, for a config
-the folded path does not cover: the feature models, the wide
-standard-layout networks, and ccam's and mst's yamls with their
-``shuffle: true``, which ``--set shuffle=false`` turns off; src's
-``use_mask: true`` and spade's batch norms serve standard). The LD family
-is ROADMAP.md section A slice 5b. The feature
+At the end it logs the B1, B4, B7, B5 (and, among B5's, its 7x7 form's)
+and B6 launch counts of the run. Networks: all 17 of the registry:
+multi_adain (the flagship), sel_multi_adain, ccam, mst, adain, wct, mrf,
+spade, seg_adain, sanet, dynamic_sanet, src and ld_adain .. ld_adain5
+(``--mode folded`` and ``q8`` fall back to standard, with a warning, for a
+config the folded path does not cover: the feature models, the wide
+standard-layout networks, the LD family, and ccam's and mst's yamls with
+their ``shuffle: true``, which ``--set shuffle=false`` turns off; src's
+and ld_adain's ``use_mask: true``, spade's batch norms and ld_adain3-5
+serve standard under q8; ``--set use_mask=false`` serves ld_adain's q8;
+``--mode auto`` serves the LD family standard, ``rpst_torch.policy``). The
+feature
 models (sanet, dynamic_sanet, src) load their frozen VGG from the config's
 ``vgg`` (``.pth`` or ``.npz``), or seed a random one, with a warning.
 
@@ -98,6 +107,8 @@ def _log_launches():
                       ("B7", fused_folded_conv2_q8),
                       ("B5", fused_conv2d_q8)):
         logger.info(f"{label} {fn.__name__} launches: {fn.launches}")
+    logger.info(f"7x7 B5 {fused_conv2d_q8.__name__} launches: "
+                f"{fused_conv2d_q8.launches_7x7}")
     logger.info(f"B6 flash_attention launches: {launch_counts()['B6_fwd']}")
 
 

@@ -13,14 +13,20 @@ sel_multi_adain and ccam, ``rp_content_encoder.conv_{i}.Conv_0.weight``,
 ``rp_style_encoder...`` and ``rp_decoder...`` for mrf and spade (spade's
 generator ``rp_decoder.head.norm_s.mlp_shared.weight``, ``...conv_s``,
 ``...conv_0``, ``...conv_img``), ``adain_rp.encoder...`` and
-``seg_head.seg_head.block_{i}.PadConv_0.Conv_0.weight`` for seg_adain):
+``seg_head.seg_head.block_{i}.PadConv_0.Conv_0.weight`` for seg_adain,
+``rp_enc{i}_small_revf.PadConv_0.Conv_0.weight``,
+``rp_enc{i}_big_revf...`` (v1's Conv2dBlock, or the pooled branch's
+``conv1x1.weight``, ``conv_a.Conv_0.weight``, ``conv_b...``),
+``rp_dec{i}...`` and v5's ``up_{i}.kernel`` for the LD family):
 
   * ``from_flax_params(tree)``: a nested dict of numpy arrays as rpst's
     flax model holds it (kernels HWIO) -> state_dict (kernels OIHW), the
     conversion ``tests/reference_oracle.py``'s ``inject_*`` helpers make;
     it walks any conv subtree (1x1 kernels too), so the flagship's,
-    adain's, wct's, the SANets' and SourceNet's ``params`` all cross
-    through it; dynamic_sanet's ``aea/psi0`` and ``aea/psi1`` Dense kernels
+    adain's, wct's, the SANets', SourceNet's and the LD family's ``params``
+    all cross through it (the LD v5 upsamplers' ``up_{i}/kernel`` keeps its
+    name and flax's (s, s, C, Co) layout: ``NonOverlapConvTranspose`` reads
+    it so); dynamic_sanet's ``aea/psi0`` and ``aea/psi1`` Dense kernels
     (in, out) become ``attention_layer.f_psi.0`` and ``.2`` Linear weights
     (out, in), as do the SE layer's ``Dense_0`` / ``Dense_1``; a
     BatchNorm's ``scale`` becomes its ``weight``, and
@@ -64,11 +70,12 @@ adaptive one (its psi widths follow the image size),
 ``src_weights_from_seed`` for SourceNet's decoder, and
 ``mrf_weights_from_seed``, ``spade_weights_from_seed`` and
 ``seg_adain_weights_from_seed`` for the slice-5b networks (30-40 MB at full
-width).
+width), ``ld_weights_from_seed`` for the LD family.
 """
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from pathlib import Path
 from typing import Dict
@@ -92,6 +99,8 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+# the LD v5 upsamplers' kernel: kept in flax's (s, s, C, Co) layout
+_UP_KERNEL = re.compile(r"(^|\.)up_\d+\.kernel$")
 # dynamic_sanet's threshold MLP: rpst's Dense names -> the reference's
 # (and the port's) Sequential positions
 PSI_NAMES = {".aea.psi0.": ".attention_layer.f_psi.0.",
@@ -110,7 +119,9 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
         psi = [k for k in PSI_NAMES if k in f".{key}"]
         if psi:
             key = f".{key}".replace(psi[0], PSI_NAMES[psi[0]])[1:]
-        if key.endswith(".kernel"):
+        if _UP_KERNEL.search(key):
+            pass
+        elif key.endswith(".kernel"):
             key = key[:-len("kernel")] + "weight"
             if arr.ndim == 2:
                 arr = arr.T.copy()
@@ -493,3 +504,45 @@ def src_weights_from_seed(seed: int) -> dict:
     kernels and U(+-1/sqrt(fan_in)) biases, as the SANets' decoder) drawn
     from ``numpy.random.default_rng(seed)``."""
     return {"decoder": _sanet_tree(np.random.default_rng(seed))["decoder"]}
+
+
+def ld_weights_from_seed(network: str, seed: int, layer_num: int = 5,
+                         hidden_dim: int = 16,
+                         stylized_layers: int = 5) -> dict:
+    """An LD network's ``params`` tree (``ld_adain`` .. ``ld_adain5``: per
+    layer ``rp_enc{i}_small_revf`` then ``rp_enc{i}_big_revf``, then the
+    decoder ``rp_dec{i}``, then v5's ``up_{i}``) drawn from
+    ``numpy.random.default_rng(seed)`` in that order: He-uniform kernels
+    U(+-sqrt(6 / fan_in)) and U(+-1/sqrt(fan_in)) biases for the convs, as
+    ``rpseq_weights_from_seed`` draws, and the upsamplers' kernels normal
+    with variance 1 / fan_in beside zero biases (flax's ``ConvTranspose``
+    defaults)."""
+    from .models.ld_adain import ld_decoder_dims, ld_widths
+    variant = 1 if network == "ld_adain" else int(network[-1])
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    cin = 3
+    for i, w in enumerate(ld_widths(variant, layer_num, hidden_dim)):
+        tree[f"rp_enc{i}_small_revf"] = {
+            "PadConv_0": {"Conv_0": _conv_draw(rng, 3, cin, w)}}
+        if variant == 1:
+            tree[f"rp_enc{i}_big_revf"] = {"PadConv_0": {
+                "Conv_0": _conv_draw(rng, 3 if i == 0 else 7, cin, w)}}
+        else:
+            tree[f"rp_enc{i}_big_revf"] = {
+                "conv1x1": _conv_draw(rng, 1, cin, w),
+                "conv_a": {"Conv_0": _conv_draw(rng, 3, w, w)},
+                "conv_b": {"Conv_0": _conv_draw(rng, 3, w, w)}}
+        cin = 2 * w if variant in (1, 2) else w
+    for i, (c_in, c_out) in enumerate(ld_decoder_dims(
+            variant, layer_num, hidden_dim, stylized_layers)):
+        tree[f"rp_dec{i}"] = {"PadConv_0": {"Conv_0": _conv_draw(
+            rng, 3, c_in, c_out)}}
+    if variant == 5:
+        for i in range(layer_num):
+            s = 2 ** (i + 1)
+            tree[f"up_{i}"] = {
+                "kernel": (rng.standard_normal((s, s, hidden_dim, hidden_dim))
+                           * (s * s * hidden_dim) ** -0.5).astype(np.float32),
+                "bias": np.zeros(hidden_dim, np.float32)}
+    return tree

@@ -26,6 +26,8 @@ DEFAULTS: Dict[str, Any] = {
     # ccam / mst: the fused scales (None -> rp_blocks), MST's k-means
     # cluster count and Potts weight (the reference's lambda is 0)
     "stylized_layers": None,
+    # the LD family's layer count (None -> rp_blocks)
+    "ld_layer_num": None,
     "n_clusters": 3,
     "mst_lambda": 0.0,
     "use_mask": False,
@@ -137,6 +139,8 @@ def load_config(path_or_dict, overrides: Optional[Dict[str, Any]] = None
     cfg.update(overrides or {})
     if cfg["stylized_layers"] is None:
         cfg["stylized_layers"] = cfg["rp_blocks"]
+    if cfg["ld_layer_num"] is None:
+        cfg["ld_layer_num"] = cfg["rp_blocks"]
     if cfg["attention"] in (False, None):
         cfg["attention"] = "none"
     if cfg["network"] not in _NETWORKS:

@@ -1,9 +1,12 @@
 // B5 on Hopper: the standard-layout 3x3 conv of the wide-channel paths, int8
-// (quantized serving, int8 VGG loss targets) and bf16, on the tensor cores.
+// (quantized serving, int8 VGG loss targets) and bf16, on the tensor cores,
+// and its 7x7 int8 form (the LD v1 network's big-branch convs).
 //
 // Replaces the TPU kernels `fused_conv2d_q8` (wrapper :220) and
 // `fused_conv2d_bf16` (:154) of src/rpst/ops/pallas/conv2d_q8.py, which
-// share the body `_make_kernel` (:36). On the plain NHWC layout:
+// share the body `_make_kernel` (:36). The 7x7 form replaces no Pallas
+// kernel: it computes what src/rpst/models/fast_path_q8.py `_xla_conv_q8`
+// (:1415) asks of the TPU compiler's own int8 conv. On the plain NHWC layout:
 //
 //   int8:  y   = act(float(conv3x3(pad(x)) as int32) * deq + bias)
 //          out = clip(round_half_even(y * inv), -127, 127) as int8, or bf16(y)
@@ -13,7 +16,10 @@
 // with x (N, H, W, C) and, for int8, scales (3, Co) float rows [deq = x_scale
 // * w_scale, bias, inv = 1 / out_scale]. `pad` is one pixel of reflection
 // (row -1 = row 1, row H = row H-2, the same for columns) or of zeros, which
-// is exact on int8 because the quantizer is symmetric. The halo is read by
+// is exact on int8 because the quantizer is symmetric. The 7x7 form takes
+// three pixels of reflection (row -3 = row 3, row H + 2 = row H - 4), so it
+// needs H, W >= 4; its int32 sum is exact while 49 * C * 127^2 < 2^31, that
+// is for C <= 2048 (the C interface refuses more). The halo is read by
 // index while a tile is staged: there are no row slabs and no `rings` operand
 // as in the TPU kernel. The int8 epilogue rounds as rpst's does
 // (q8_common.cuh: two roundings, no FMA, half to even) and the int32 sum is
@@ -61,6 +67,13 @@
 //     takes bytes [8t, 8t + 8) of a row for both k-halves of its fragment
 //     (one 8-byte shared load); the 4 rows a half-warp reads are 128
 //     contiguous bytes.
+//   * The 7x7 form is the same kernel with the tap count K a template
+//     parameter. Staging all 49 taps' weights for a K step would take 49 x
+//     TCO x 32 bytes (200 KB at TCO = 128) a stage, so a step of the 7x7
+//     form is one kernel row of one 32-byte K chunk: the 8 x 22-pixel input
+//     rows that row reads and its 7 taps' weights (34 KB at TCO = 128), in a
+//     ring of 3 stages (103 KB: two blocks a SM, as the 3x3 form). The 3x3
+//     form keeps one step per K chunk for all 9 taps, as before.
 //   * Epilogue: an accumulator fragment holds 2 adjacent channels of rows g
 //     and g + 8; neighbouring lanes swap halves so each ends with 4
 //     consecutive channels of one pixel, stored as one packed word (int8) or
@@ -77,33 +90,41 @@ using namespace hmma;  // cp.async, mma_bf16
 
 constexpr int TH = 8;         // tile rows
 constexpr int TW = 16;        // tile columns: one mma row block
-constexpr int HALO_W = TW + 2;
 constexpr int KB = 32;        // bytes of K per pixel and step
 constexpr int THREADS = 256;
 constexpr int WM = 4;         // warps along pixels
 constexpr int WN = 2;         // warps along output channels
 
-template <int TCO>
+// K: the kernel's taps per side (3 or 7). A step stages KR kernel rows of
+// one K chunk: all of them for K = 3, one for K = 7 (GROUPS steps a chunk).
+template <int K, int TCO>
 struct Tile {
+  static constexpr int P = K / 2;           // pad
+  static constexpr int KR = K == 3 ? 3 : 1;
+  static constexpr int GROUPS = K / KR;
+  static constexpr int TAPS = KR * K;       // taps per step
+  static constexpr int HALO_W = TW + K - 1;
+  static constexpr int XROWS = TH + KR - 1;  // staged input rows per step
   static constexpr int MT = TH / WM;        // mma row blocks per warp
   static constexpr int NT = TCO / WN / 8;   // mma column blocks per warp
-  static constexpr int STAGES = TCO == 128 ? 2 : 3;
-  static constexpr int X_PIECES = (TH + 2) * HALO_W * 2;  // 16-byte pieces
+  static constexpr int STAGES = K == 3 && TCO == 128 ? 2 : 3;
+  static constexpr int X_PIECES = XROWS * HALO_W * 2;  // 16-byte pieces
   static constexpr int XP = (X_PIECES + THREADS - 1) / THREADS;
-  static constexpr int W_PIECES = 9 * TCO * 2;
+  static constexpr int W_PIECES = TAPS * TCO * 2;
   static constexpr int XS_BYTES = X_PIECES * 16;
   static constexpr int STAGE_BYTES = XS_BYTES + W_PIECES * 16;
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
 };
 
-// Source row/column of padded index i in [-1, n]: itself inside the image;
-// for reflect -1 -> 1 and n -> n - 2; -1 (no source: zero) otherwise.
-template <bool REFLECT>
+// Source row/column of padded index i in [-P, n + P): itself inside the
+// image; for reflect -j -> j and n - 1 + j -> n - 1 - j (j = 1 .. P); -1 (no
+// source: zero) otherwise.
+template <bool REFLECT, int P>
 __device__ __forceinline__ int pad_src(int i, int n) {
   if (i >= 0 && i < n) return i;
   if (!REFLECT) return -1;
-  if (i == -1) return 1;
-  if (i == n) return n - 2;
+  if (i < 0 && i >= -P) return -i;
+  if (i >= n && i < n + P) return 2 * n - 2 - i;
   return -1;
 }
 
@@ -129,15 +150,16 @@ __device__ __forceinline__ void mma_step(float (&c)[4], uint32_t a0,
 
 // MODE 0: int8 in, int8 out; 1: int8 in, bf16 out; 2: bf16 in and out.
 // x (N, H, W, C) with rows of CB = C * sizeof(element) bytes; wp the packed
-// weights (9, ksteps, Co, 32 bytes); rows: MODE 0/1 the (3, Co) scales, MODE
-// 2 the (Co,) bias. grid (tiles, ceil(Co / TCO), N).
-template <int TCO, int MODE, bool REFLECT>
+// weights (K * K, ksteps, Co, 32 bytes); rows: MODE 0/1 the (3, Co) scales,
+// MODE 2 the (Co,) bias. grid (tiles, ceil(Co / TCO), N).
+template <int K, int TCO, int MODE, bool REFLECT>
 __global__ void __launch_bounds__(THREADS, 2)
     conv2d_mma_kernel(const unsigned char* __restrict__ x,
                       const unsigned char* __restrict__ wp,
                       const float* __restrict__ rows, void* y, int H, int W,
                       int CB, int ksteps, int Co, int tiles_w, float alpha) {
-  using T = Tile<TCO>;
+  using T = Tile<K, TCO>;
+  constexpr int HALO_W = T::HALO_W;
   using Acc = typename std::conditional<MODE == 2, float, int32_t>::type;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -153,40 +175,45 @@ __global__ void __launch_bounds__(THREADS, 2)
   const unsigned char* xn = x + n * H * W * CB;
   const bool x16 = CB % 16 == 0;  // cp.async needs 16-byte aligned sources
 
-  // the thread's pieces of the halo tile: byte offset of the source pixel
-  // (+ 16 for the second piece), -1 where the tile stages zeros
-  long long xoff[T::XP];
-#pragma unroll
-  for (int p = 0; p < T::XP; ++p) {
+  // the thread's pieces of the staged input rows: byte offset of the source
+  // pixel (+ 16 for the second piece) when the step's first kernel row is
+  // dr0, -1 where the tile stages zeros
+  auto piece_src = [&](int p, int dr0) -> long long {
     const int idx = tid + p * THREADS;
     const int pix = idx >> 1;
-    const int sr = pad_src<REFLECT>(r0 - 1 + pix / HALO_W, H);
-    const int sc = pad_src<REFLECT>(c0 - 1 + pix % HALO_W, W);
-    xoff[p] = (idx < T::X_PIECES && sr >= 0 && sc >= 0)
-                  ? ((long long)sr * W + sc) * CB + (idx & 1) * 16
-                  : -1;
-  }
+    const int sr = pad_src<REFLECT, T::P>(r0 - T::P + dr0 + pix / HALO_W, H);
+    const int sc = pad_src<REFLECT, T::P>(c0 - T::P + pix % HALO_W, W);
+    return (idx < T::X_PIECES && sr >= 0 && sc >= 0)
+               ? ((long long)sr * W + sc) * CB + (idx & 1) * 16
+               : -1;
+  };
+  long long xoff[T::XP];  // one step a chunk (3x3): the offsets of every step
+#pragma unroll
+  for (int p = 0; p < T::XP; ++p) xoff[p] = piece_src(p, 0);
 
-  auto load_stage = [&](int ks, int stage) {
+  // step st: K chunk st / GROUPS, kernel rows from (st % GROUPS) * KR
+  auto load_stage = [&](int st, int stage) {
     unsigned char* xs = smem + stage * T::STAGE_BYTES;
     unsigned char* ws = xs + T::XS_BYTES;
+    const int ks = st / T::GROUPS;
+    const int dr0 = (st % T::GROUPS) * T::KR;
     const int kb = ks * KB;
 #pragma unroll
     for (int p = 0; p < T::XP; ++p) {
       const int idx = tid + p * THREADS;
       if (idx >= T::X_PIECES) continue;
+      const long long off = T::GROUPS == 1 ? xoff[p] : piece_src(p, dr0);
       const int b0 = kb + (idx & 1) * 16;  // first byte of the piece in a row
       if (x16) {
-        const bool ok = xoff[p] >= 0 && b0 < CB;
-        cp_async16(xs + idx * 16, ok ? xn + xoff[p] + kb : xn, ok ? 16 : 0);
+        const bool ok = off >= 0 && b0 < CB;
+        cp_async16(xs + idx * 16, ok ? xn + off + kb : xn, ok ? 16 : 0);
       } else {  // CB % 4 == 0: word by word, zeros past the row's end
         int32_t v[4] = {0, 0, 0, 0};
-        if (xoff[p] >= 0) {
+        if (off >= 0) {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             if (b0 + 4 * j < CB)
-              v[j] = *reinterpret_cast<const int32_t*>(xn + xoff[p] + kb +
-                                                       4 * j);
+              v[j] = *reinterpret_cast<const int32_t*>(xn + off + kb + 4 * j);
         }
         *reinterpret_cast<int4*>(xs + idx * 16) =
             make_int4(v[0], v[1], v[2], v[3]);
@@ -196,8 +223,9 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int co = (idx >> 1) % TCO;
       const int tap = (idx >> 1) / TCO;
       const bool ok = co0 + co < Co;
+      const int ktap = dr0 * K + tap;  // the tap's index in the kernel
       const unsigned char* src =
-          wp + (((size_t)tap * ksteps + ks) * Co + co0 + co) * KB +
+          wp + (((size_t)ktap * ksteps + ks) * Co + co0 + co) * KB +
           (idx & 1) * 16;
       cp_async16(ws + idx * 16, ok ? src : wp, ok ? 16 : 0);
     }
@@ -211,25 +239,26 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
+  const int steps = ksteps * T::GROUPS;
 #pragma unroll
   for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < ksteps) load_stage(s, s);
+    if (s < steps) load_stage(s, s);
     cp_async_commit();
   }
-  for (int ks = 0; ks < ksteps; ++ks) {
-    // step ks has landed; every warp is past step ks - 1, whose stage the
+  for (int st = 0; st < steps; ++st) {
+    // step st has landed; every warp is past step st - 1, whose stage the
     // next load overwrites
     cp_async_wait<T::STAGES - 2>();
     __syncthreads();
-    if (ks + T::STAGES - 1 < ksteps)
-      load_stage(ks + T::STAGES - 1, (ks + T::STAGES - 1) % T::STAGES);
+    if (st + T::STAGES - 1 < steps)
+      load_stage(st + T::STAGES - 1, (st + T::STAGES - 1) % T::STAGES);
     cp_async_commit();
 
-    const unsigned char* xs = smem + (ks % T::STAGES) * T::STAGE_BYTES;
+    const unsigned char* xs = smem + (st % T::STAGES) * T::STAGE_BYTES;
     const unsigned char* ws = xs + T::XS_BYTES;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dr = tap / 3, dc = tap % 3;
+    for (int tap = 0; tap < T::TAPS; ++tap) {
+      const int dr = tap / K, dc = tap % K;  // within the step's rows
       uint2 lo[T::MT], hi[T::MT];  // pixels g and g + 8 of the row block
 #pragma unroll
       for (int i = 0; i < T::MT; ++i) {
@@ -302,13 +331,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <int TCO, int MODE, bool REFLECT>
+template <int K, int TCO, int MODE, bool REFLECT>
 int launch_tile(const void* x, const void* wp, const float* rows, void* y,
                 int N, int H, int W, int C, int Co, float alpha,
                 cudaStream_t s) {
-  using T = Tile<TCO>;
+  using T = Tile<K, TCO>;
   constexpr int ESIZE = MODE == 2 ? 2 : 1;
-  auto kernel = conv2d_mma_kernel<TCO, MODE, REFLECT>;
+  auto kernel = conv2d_mma_kernel<K, TCO, MODE, REFLECT>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -335,19 +364,19 @@ int pick_tile(int N, int H, int W, int Co) {
   return blocks >= 16LL * sms ? 1 : 2;
 }
 
-template <int MODE, bool REFLECT>
+template <int MODE, bool REFLECT, int K = 3>
 int launch_mode(const void* x, const void* wp, const float* rows, void* y,
                 int N, int H, int W, int C, int Co, float alpha,
                 cudaStream_t s) {
   if (pick_tile(N, H, W, Co) == 1)
-    return launch_tile<128, MODE, REFLECT>(x, wp, rows, y, N, H, W, C, Co,
+    return launch_tile<K, 128, MODE, REFLECT>(x, wp, rows, y, N, H, W, C,
+                                                 Co, alpha, s);
+  return launch_tile<K, 64, MODE, REFLECT>(x, wp, rows, y, N, H, W, C, Co,
                                               alpha, s);
-  return launch_tile<64, MODE, REFLECT>(x, wp, rows, y, N, H, W, C, Co,
-                                           alpha, s);
 }
 
-bool shape_ok(int N, int H, int W, int C, int Co, int unit) {
-  return N >= 1 && N <= 65535 && H >= 2 && W >= 2 && C >= unit &&
+bool shape_ok(int N, int H, int W, int C, int Co, int unit, int min_hw = 2) {
+  return N >= 1 && N <= 65535 && H >= min_hw && W >= min_hw && C >= unit &&
          Co >= unit && C % unit == 0 && Co % unit == 0 &&
          (Co + 63) / 64 <= 65535;
 }
@@ -376,6 +405,22 @@ extern "C" int rpst_conv2d_q8(const void* x, const void* wp,
   if (reflect)
     return launch_mode<1, true>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
   return launch_mode<1, false>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
+}
+
+// int8, 7x7, reflect pad 3: as rpst_conv2d_q8 with wp (7, 7, ceil(C / 32), Co,
+// 32) int8. Needs C % 4 == 0, Co % 4 == 0, C <= 2048 (the exact int32 sum),
+// H, W >= 4.
+extern "C" int rpst_conv2d_q8_7x7(const void* x, const void* wp,
+                                  const void* scales, void* y, int N, int H,
+                                  int W, int C, int Co, int out_int8,
+                                  float alpha, void* stream) {
+  if (!shape_ok(N, H, W, C, Co, 4, 4) || C > 2048)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sp = static_cast<const float*>(scales);
+  if (out_int8)
+    return launch_mode<0, true, 7>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
+  return launch_mode<1, true, 7>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
 }
 
 // bf16: x (N, H, W, C) and y (N, H, W, Co) bf16; wp the packed weights (3,

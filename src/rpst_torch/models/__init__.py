@@ -1,8 +1,9 @@
 """Model registry of the port; counterpart of ``rpst.models``.
 
-The port covers twelve networks: the flagship ``multi_adain`` (constant
-RP stack) for serving (folded, standard and int8 q8) and training (with
-float, int8 or cached loss targets); its three variants on the same stack,
+The port covers all 17 registry networks: the flagship ``multi_adain``
+(constant RP stack) for serving (folded, standard and int8 q8) and
+training (with float, int8 or cached loss targets); its three variants on
+the same stack,
 ``sel_multi_adain`` (an SE bottleneck on the last fusion), ``ccam`` (a
 cross-channel attention residual) and ``mst`` (k-means channel matching),
 each for serving (folded, standard and q8 on B4) and training (folded and
@@ -14,9 +15,10 @@ on a resume), ``mrf`` (two encoders, a concat, the MRF loss),
 batches); the static ``sanet`` for serving (standard and q8) and training,
 its attention on B6; the adaptive ``dynamic_sanet`` (its attention plain
 PyTorch, dense or streamed) and ``src`` (SourceNet, AdaIN at relu4_1), each
-for serving (standard and q8 on B5) and training. ``build_model`` raises
-``ValueError`` for the other 5 (the LD family), naming the ROADMAP.md slice
-that brings them.
+for serving (standard and q8 on B5) and training; the LD family
+(``ld_adain`` .. ``ld_adain5``, dual-branch RP stacks) for standard serving
+and training, with q8 serving for v1 (its 7x7 big branch on B5's 7x7 form)
+and v2, both on B5.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
@@ -32,7 +34,7 @@ device and exposes what the serving CLI calls:
     ``calibrate_q8`` and ``stylize_q8`` run it on the cached int8 weights
     (the flagship and its three variants folded on B4, the flagship's
     encoder pairs on B7 with ``fuse_pairs``; adain, wct, mrf, spade,
-    seg_adain and the feature models standard-layout on B5),
+    seg_adain, the feature models and LD v1 / v2 standard-layout on B5),
   * ``load_state_dict(sd)``: weights in the port's names (see ``bridge``),
   * ``loss(vgg, content, style)`` -> (total, parts): the training loss
     (rpst's ``ModelBundle.loss``), differentiable in the model's
@@ -76,6 +78,8 @@ from .fast_path_q8 import (calibrate_ccam_q8, calibrate_mst_q8,
                            stylize_ccam_folded_q8, stylize_mst_folded_q8,
                            stylize_multi_adain_folded_q8,
                            stylize_sel_multi_adain_folded_q8)
+from .fast_path_q8_ld import (calibrate_ld_q8, ld_blocks, quantize_ld,
+                              stylize_ld_q8)
 from .fast_path_q8_std import (calibrate_adain_q8, calibrate_mrf_q8,
                                calibrate_sanet_q8, calibrate_spade_q8,
                                calibrate_src_q8, calibrate_wct_q8, mrf_blocks,
@@ -84,6 +88,7 @@ from .fast_path_q8_std import (calibrate_adain_q8, calibrate_mrf_q8,
                                stylize_adain_q8, stylize_mrf_q8,
                                stylize_sanet_q8, stylize_spade_q8,
                                stylize_src_q8, stylize_wct_q8)
+from .ld_adain import LDAdaINRP
 from .mrf_rp import MRFRP
 from .sanet import SAModel
 from .seg_adain import SegAdaINRP
@@ -94,21 +99,22 @@ from .wct_rp import WCTRP
 __all__ = ["build_model", "build_vgg", "vgg_stages", "roadmap_slice",
            "ModelBundle", "MultiScaleAdaINRP", "AdaINRP", "WCTRP", "SAModel",
            "SourceNet", "SELastRP", "CCAMRP", "MSTRP", "MRFRP", "SpadeRP",
-           "SegAdaINRP"]
+           "SegAdaINRP", "LDAdaINRP"]
 
-# every other rpst registry network -> the ROADMAP.md section A slice that
-# ports it
-_NOT_PORTED = dict.fromkeys(
-    ("ld_adain", "ld_adain2", "ld_adain3", "ld_adain4", "ld_adain5"),
-    "slice 5b")
+# every rpst registry network the port does not build -> the ROADMAP.md
+# section A slice that ports it (none since the LD family came)
+_NOT_PORTED: Dict[str, str] = {}
+_LD = ("ld_adain", "ld_adain2", "ld_adain3", "ld_adain4", "ld_adain5")
+# the LD variants with an int8 path (B5, its 7x7 form for v1)
+_LD_Q8 = ("ld_adain", "ld_adain2")
 # the networks that stylize from the features of a frozen VGG (bundle.vgg)
 _FEAT_MODELS = ("sanet", "dynamic_sanet", "src")
 # the flagship's constant stack and its three variants: folded and int8 q8
 # paths on B1-B4
 _FOLDED_FAMILY = ("multi_adain", "sel_multi_adain", "ccam", "mst")
 # the networks whose standard stylize runs in test mode (the channel
-# shuffle)
-_TEST_MODE_MODELS = ("multi_adain", "ccam")
+# shuffle; the LD family's masks, slice 7)
+_TEST_MODE_MODELS = ("multi_adain", "ccam") + _LD
 # the RPSequence families whose int8 path runs on the standard layout (B5),
 # and the functions that take their float conv lists from the model
 _STD_Q8 = {"adain": std_blocks, "wct": std_blocks, "mrf": mrf_blocks,
@@ -132,7 +138,7 @@ def vgg_stages(network: str) -> int:
 class ModelBundle:
     network: str
     model: Union[MultiScaleAdaINRP, SELastRP, CCAMRP, MSTRP, AdaINRP, WCTRP,
-                 MRFRP, SpadeRP, SegAdaINRP, SAModel, SourceNet]
+                 MRFRP, SpadeRP, SegAdaINRP, SAModel, SourceNet, LDAdaINRP]
     cfg: Config
     device: torch.device
     # the frozen encoder whose features the feature models stylize from
@@ -198,12 +204,24 @@ class ModelBundle:
         """The int8 path covers adain (without masks), wct, mrf, seg_adain,
         spade with the instance norm (the batch norms' statistics are not
         threaded through it), sanet, dynamic_sanet and src (without masks)
-        on the standard layout, and the folded constant stacks (the flagship
-        and its three variants) whose hidden layers fill 128 folded lanes (4
-        * hidden_dim % 128 == 0): narrower folded stacks have no int8 layer
-        (rpst's gates, ``models/__init__.py:96-119, 147-152``). A standard
-        stack narrower than 128 channels everywhere has no int8 layer either
-        and serves q8 on the float convs alone, as rpst's."""
+        on the standard layout, LD v1 and v2 without masks or inception
+        stacks whose deepest layer (hidden_dim * 2^(ld_layer_num - 1), at
+        least 2 layers) fills 128 lanes (v2 also an even img_size: the int8
+        path pools by exact 2x2 halving), and the folded constant stacks
+        (the flagship and its three variants) whose hidden layers fill 128
+        folded lanes (4 * hidden_dim % 128 == 0): narrower folded stacks
+        have no int8 layer (rpst's gates, ``models/__init__.py:96-152``);
+        LD v3-v5 never. A standard stack narrower than 128 channels
+        everywhere has no int8 layer either and serves q8 on the float
+        convs alone, as rpst's."""
+        c = self.cfg
+        if self.network in _LD_Q8:
+            return (not c.use_mask and c.inception_num == 0
+                    and c.ld_layer_num >= 2
+                    and (c.hidden_dim * 2 ** (c.ld_layer_num - 1)) % 128 == 0
+                    and (self.network == "ld_adain" or c.img_size % 2 == 0))
+        if self.network in _LD:
+            return False
         if self.network == "adain":
             return not self.cfg.use_mask
         if self.network in ("wct", "mrf", "seg_adain"):
@@ -234,6 +252,8 @@ class ModelBundle:
             if self.from_features:  # the decoder's eligible convs
                 q8 = quantize_convs(
                     self.std_weights(torch.float32)["decoder"])
+            elif self.network in _LD_Q8:
+                q8 = quantize_ld(self.std_weights(torch.float32))
             elif self._std_q8():
                 q8 = quantize_std(self.std_weights(torch.float32))
             else:
@@ -247,11 +267,13 @@ class ModelBundle:
         ``adain_rp``); mrf its (content encoder, style encoder, decoder)
         lists, spade its two encoders' (``mrf_blocks``, ``spade_blocks``);
         sanet and dynamic_sanet their ``sanet_blocks``, src its
-        ``src_blocks``. Cached until the next ``load_state_dict``."""
+        ``src_blocks``, LD v1 / v2 their ``ld_blocks``. Cached until the
+        next ``load_state_dict``."""
         key = ("std", dtype)
         if key not in self._folded:
             make = {"sanet": sanet_blocks, "dynamic_sanet": sanet_blocks,
-                    "src": src_blocks}.get(self.network) \
+                    "src": src_blocks, "ld_adain": ld_blocks,
+                    "ld_adain2": ld_blocks}.get(self.network) \
                 or _STD_Q8[self.network]
             self._folded[key] = make(self.model, dtype)
         return self._folded[key]
@@ -269,10 +291,14 @@ class ModelBundle:
         standard-layout bfloat16 on at most 2 images for adain, wct,
         seg_adain (adain's on its nested stacks), mrf and spade
         (``calibrate_adain_q8``, ``calibrate_wct_q8``, ``calibrate_mrf_q8``,
-        ``calibrate_spade_q8``), the whole batch for the feature models
-        (``calibrate_sanet_q8``, ``calibrate_src_q8``)."""
+        ``calibrate_spade_q8``, LD v1 / v2 ``calibrate_ld_q8``), the whole
+        batch for the feature models (``calibrate_sanet_q8``,
+        ``calibrate_src_q8``)."""
         self._check_q8()
         c = self.cfg
+        if self.network in _LD_Q8:
+            return calibrate_ld_q8(self.std_weights(torch.bfloat16), content,
+                                   style, c.stylized_layers)
         if self.network == "sel_multi_adain":
             return calibrate_sel_multi_adain_q8(
                 self.folded_weights(torch.float32),
@@ -318,6 +344,11 @@ class ModelBundle:
         other network). Runs under ``torch.inference_mode``."""
         self._check_q8()
         with torch.inference_mode():
+            if self.network in _LD_Q8:
+                return stylize_ld_q8(self.std_weights(dtype),
+                                     self.q8_weights(), scales, content,
+                                     style, self.cfg.stylized_layers,
+                                     dtype=dtype)
             if self.network in ("sel_multi_adain", "ccam", "mst"):
                 args = (self.folded_weights(dtype), self.q8_weights())
                 if self.network == "sel_multi_adain":
@@ -373,9 +404,13 @@ class ModelBundle:
                              "'instance', "
                              "sanet or dynamic_sanet with img_size a multiple "
                              "of 16, src without masks with img_size a "
-                             "multiple of 8, or a folded constant stack "
-                             "(multi_adain, sel_multi_adain, ccam, mst) "
-                             "with 4 * hidden_dim a multiple of 128")
+                             "multiple of 8, ld_adain / ld_adain2 without "
+                             "masks or inception with hidden_dim * "
+                             "2^(ld_layer_num - 1) a multiple of 128 "
+                             "(ld_adain2: an even img_size), or a folded "
+                             "constant stack (multi_adain, sel_multi_adain, "
+                             "ccam, mst) with 4 * hidden_dim a multiple of "
+                             "128")
 
     def folded_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
@@ -637,6 +672,13 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
                            hidden_dim=cfg.hidden_dim, class_num=cfg.class_num,
                            seg_hidden_dim=cfg.seg_hidden_dim,
                            seg_loss_weight=cfg.seg_loss_weight, device=device)
+    elif n in _LD:
+        model = LDAdaINRP(variant=1 if n == "ld_adain" else int(n[-1]),
+                          layer_num=cfg.ld_layer_num,
+                          hidden_dim=cfg.hidden_dim,
+                          stylized_layers=cfg.stylized_layers,
+                          inception_num=cfg.inception_num,
+                          use_mask=bool(cfg.use_mask), device=device)
     elif n in _FOLDED_FAMILY:
         stack = dict(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
                      enc_stack_way=_stack_way(cfg),

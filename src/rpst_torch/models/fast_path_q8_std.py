@@ -122,14 +122,16 @@ def spade_blocks(model, dtype: torch.dtype) -> Tuple[Convs, Convs]:
             _stack(model.rp_style_encoder, dtype))
 
 
-def quantize_convs(convs: Convs) -> QConvs:
+def quantize_convs(convs: Convs,
+                   eligible: Callable[[torch.Tensor], bool] = q8_eligible
+                   ) -> QConvs:
     """``Q8Layer`` (HWIO int8 weights per output channel, their scales, the
     float32 bias, and on a CUDA device B5's K-major copy of the weights,
-    made here once) for the eligible layers, None for the others; from the
-    float32 weights, as rpst quantizes ``k.astype(float32)``."""
+    made here once) for the ``eligible`` layers, None for the others; from
+    the float32 weights, as rpst quantizes ``k.astype(float32)``."""
     out: QConvs = []
     for w, b in convs:
-        if not q8_eligible(w):
+        if not eligible(w):
             out.append(None)
             continue
         w_q, w_scale = quantize_weights(w.float().permute(2, 3, 1, 0))
@@ -214,16 +216,18 @@ def _reflect_conv(x, w, b, act: bool = True):
     return _conv_nhwc(x, w, b, "reflect", act)
 
 
-def make_conv_q(dtype: torch.dtype, pad_mode: str = "zero") -> Callable:
-    """The B5 layer closure, with relu (alpha = 0): ``pad_mode='zero'`` is
-    the RPSequence block, ``'reflect'`` the VGG block. ``conv_q(x_q,
+def make_conv_q(dtype: torch.dtype, pad_mode: str = "zero",
+                alpha: float = 0.0) -> Callable:
+    """The B5 layer closure, with relu (alpha = 0; 0.2 is the LD family's
+    lrelu): ``pad_mode='zero'`` is the RPSequence block, ``'reflect'`` the
+    VGG block; a 7x7 layer runs B5's 7x7 form. ``conv_q(x_q,
     x_scale, layer, out_scale)`` returns int8 with ``out_scale``, else B5's
     bfloat16 output cast to ``dtype`` (rounded to bfloat16 first even when
     ``dtype`` is float32, as rpst's is)."""
     def conv_q(x_q, x_scale: float, layer: Q8Layer, out_scale=None):
         y = fused_conv2d_q8(x_q.contiguous(), layer.w_q,
                             _scale_rows(x_scale, layer, out_scale),
-                            out_int8=out_scale is not None, alpha=0.0,
+                            out_int8=out_scale is not None, alpha=alpha,
                             pad_mode=pad_mode,
                             w_packed=layer.w_packed)
         return y if out_scale is not None else y.to(dtype)

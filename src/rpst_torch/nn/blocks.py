@@ -215,7 +215,8 @@ def init_torch_default(model: nn.Module, seed: int) -> None:
     ``nn.Dense`` init for a Linear (dynamic_sanet's threshold MLP, rpst
     ``sanet.py:37-43``; the SE layer's bias-free ``Dense``):
     U(+-1/sqrt(fan_in)) weights, zero biases. BatchNorms keep their
-    ones / zeros and running (0, 1), CCAM scales their 0. Values
+    ones / zeros and running (0, 1), CCAM scales their 0; a module with a
+    ``seed_init(generator)`` (the LD v5 upsamplers) draws its own. Values
     are drawn on the CPU from one ``torch.Generator`` in module order, so a
     seed gives the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
@@ -234,3 +235,5 @@ def init_torch_default(model: nn.Module, seed: int) -> None:
                     -bound, bound, generator=g))
                 if m.bias is not None:
                     m.bias.zero_()
+            elif hasattr(m, "seed_init"):  # a module with its own init
+                m.seed_init(g)

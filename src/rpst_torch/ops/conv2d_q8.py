@@ -1,9 +1,14 @@
 """B5: the standard-layout 3x3 conv of the wide-channel paths, int8 and
-bf16; port of ``rpst.ops.pallas.conv2d_q8``.
+bf16; port of ``rpst.ops.pallas.conv2d_q8``; and its 7x7 int8 form.
 
   * ``fused_conv2d_q8``: act_alpha(conv3x3(pad(x_q)) * (x_scale * w_scale) +
     bias) on the plain (unfolded) layout, int8 x int8 summed in int32, an
     f32 epilogue, int8 (requantized by a stored reciprocal) or bfloat16 out;
+    given a (7, 7, C, Co) weight, the same with a 7x7 kernel and three
+    pixels of reflection: what rpst's LD v1 int8 path asks of its
+    compiler's int8 conv (``rpst.models.fast_path_q8._xla_conv_q8``, which
+    divides by the output scale where this multiplies by its stored
+    reciprocal: one int8 step apart at exact ties);
   * ``fused_conv2d_bf16``: the same conv on bfloat16 operands with a float32
     sum (no path of rpst or of the port calls it; rpst keeps it as a
     verified utility, and so does the port).
@@ -31,6 +36,8 @@ int64 oracle. ``<wrapper>.launches`` counts kernel launches and nothing
 else. rpst's Mosaic knobs (``block_rows``, ``wide_k``, the slab double
 buffer, the ``rings`` operand, ``interpret``) are how the TPU kernel is
 built, not what it computes, and have no counterpart here.
+``fused_conv2d_q8.launches_7x7`` counts the 7x7 form's launches among
+``launches``.
 """
 
 from __future__ import annotations
@@ -38,15 +45,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .folded_conv import _count, pack_k_major
+from .folded_conv import _count, _launch_lock, pack_k_major
 from .folded_conv_q8 import check_q8_tensors
 
 _PAD = {"reflect": "reflect", "zero": "constant"}
 
 
 def _pad_conv(x: torch.Tensor, w: torch.Tensor, pad_mode: str):
-    """conv3x3(pad(x)) for NHWC x and HWIO w in their own float type."""
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=_PAD[pad_mode])
+    """convKxK(pad(x)) for NHWC x and HWIO w (K, K, C, Co) in their own
+    float type, padded by K // 2."""
+    p = w.shape[0] // 2
+    xp = F.pad(x.permute(0, 3, 1, 2), (p, p, p, p), mode=_PAD[pad_mode])
     return F.conv2d(xp, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
 
 
@@ -56,11 +65,12 @@ def _act(y: torch.Tensor, alpha: float) -> torch.Tensor:
 
 def fused_conv2d_q8_plain(x_q, w_q, scales, out_int8: bool,
                           alpha: float = 0.2, pad_mode: str = "reflect"):
-    """B5 in plain PyTorch. The padded int8 values are convolved in float64,
-    where every partial sum (at most 9 * C * 127^2) is an exact integer, as
-    the kernel's int32 sum is; the epilogue is the kernel's float32
-    arithmetic: two roundings (no fused multiply-add), ``alpha * y`` for a
-    negative y, a multiply by the stored reciprocal, round half to even."""
+    """B5 in plain PyTorch, 3x3 or 7x7 by the weight. The padded int8 values
+    are convolved in float64, where every partial sum (at most K * K * C *
+    127^2) is an exact integer, as the kernel's int32 sum is; the epilogue
+    is the kernel's float32 arithmetic: two roundings (no fused
+    multiply-add), ``alpha * y`` for a negative y, a multiply by the stored
+    reciprocal, round half to even."""
     acc = _pad_conv(x_q.to(torch.float64), w_q.to(torch.float64), pad_mode)
     y = _act(acc.float() * scales[0] + scales[1], alpha)
     if out_int8:
@@ -79,14 +89,17 @@ def fused_conv2d_bf16_plain(x, w, b, alpha: float = 0.0,
 
 
 def pack_conv2d_weights(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (3, 3, C, Co) int8 or bfloat16 weights in the CUDA kernel's
-    order: (3, 3, ceil(C / KE), Co, KE) contiguous, KE = 32 int8 or 16
-    bfloat16 input channels (32 bytes, one k-step of the kernel's ``mma``),
-    zeros past C. ``packed[dr, dc, s, co, e] = w[dr, dc, s * KE + e, co]``."""
-    if w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) \
-            or w.dtype not in (torch.int8, torch.bfloat16):
+    """HWIO (3, 3, C, Co) int8 or bfloat16, or (7, 7, C, Co) int8, weights in
+    the CUDA kernel's order: (K, K, ceil(C / KE), Co, KE) contiguous, KE = 32
+    int8 or 16 bfloat16 input channels (32 bytes, one k-step of the kernel's
+    ``mma``), zeros past C. ``packed[dr, dc, s, co, e] = w[dr, dc, s * KE +
+    e, co]``."""
+    k = tuple(w.shape[:2]) if w.ndim == 4 else None
+    if not (k == (3, 3) and w.dtype in (torch.int8, torch.bfloat16)
+            or k == (7, 7) and w.dtype == torch.int8):
         raise ValueError(f"pack_conv2d_weights: expected (3, 3, C, Co) int8 "
-                         f"or bfloat16, got {tuple(w.shape)} {w.dtype}")
+                         f"or bfloat16 or (7, 7, C, Co) int8, got "
+                         f"{tuple(w.shape)} {w.dtype}")
     return pack_k_major(w)
 
 
@@ -94,7 +107,7 @@ def _packed(name, w, w_packed):
     if w_packed is None:
         return pack_conv2d_weights(w)
     ke = 32 // w.element_size()
-    want = (3, 3, -(-w.shape[2] // ke), w.shape[3], ke)
+    want = (*w.shape[:2], -(-w.shape[2] // ke), w.shape[3], ke)
     if tuple(w_packed.shape) != want or w_packed.dtype != w.dtype \
             or w_packed.device != w.device or not w_packed.is_contiguous():
         raise ValueError(f"{name}: w_packed must be pack_conv2d_weights(w): "
@@ -104,16 +117,34 @@ def _packed(name, w, w_packed):
     return w_packed
 
 
-def _check_layer(name, x, w, pad_mode, unit):
+# the 7x7 form's largest C: 49 * C * 127^2 stays below 2^31, so the int32 sum
+# is exact
+C_MAX_7X7 = 2048
+
+
+def _check_layer(name, x, w, pad_mode, unit, sizes=(3,)):
+    """The layer's checks; returns Co. ``sizes``: the kernel sizes the
+    wrapper takes (the 7x7 form: int8, reflect pad 3, H and W at least 4,
+    C at most ``C_MAX_7X7``)."""
     if pad_mode not in _PAD:
         raise ValueError(f"unknown pad_mode {pad_mode!r}")
-    if x.ndim != 4 or x.shape[1] < 2 or x.shape[2] < 2:
-        raise ValueError(f"{name}: expected x (N, H, W, C) with H, W >= 2, "
-                         f"got {tuple(x.shape)}")
+    k = w.shape[0] if w.ndim == 4 else None
+    if k not in sizes or tuple(w.shape[:2]) != (k, k):
+        raise ValueError(f"{name}: w must be HWIO (K, K, C, Co) with K in "
+                         f"{sizes}, got {tuple(w.shape)}")
+    least = 2 if k == 3 else 4
+    if x.ndim != 4 or x.shape[1] < least or x.shape[2] < least:
+        raise ValueError(f"{name}: expected x (N, H, W, C) with H, W >= "
+                         f"{least} for a {k}x{k} kernel, got "
+                         f"{tuple(x.shape)}")
     c = x.shape[3]
-    if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, c):
-        raise ValueError(f"{name}: w must be (3, 3, {c}, Co), got "
+    if w.shape[2] != c:
+        raise ValueError(f"{name}: w must be ({k}, {k}, {c}, Co), got "
                          f"{tuple(w.shape)}")
+    if k == 7 and (pad_mode != "reflect" or c > C_MAX_7X7):
+        raise ValueError(f"{name}: the 7x7 form takes reflect padding and C "
+                         f"<= {C_MAX_7X7} (an exact int32 sum), got "
+                         f"{pad_mode!r}, C = {c}")
     if c % unit or w.shape[3] % unit:
         raise ValueError(f"{name}: C and Co must be multiples of {unit} (the "
                          f"kernel's packed reads), got {c} -> {w.shape[3]}")
@@ -122,17 +153,19 @@ def _check_layer(name, x, w, pad_mode, unit):
 
 def fused_conv2d_q8(x_q, w_q, scales, out_int8: bool, alpha: float = 0.2,
                     pad_mode: str = "reflect", w_packed=None):
-    """Quantized act_alpha(conv3x3(pad(x)) + bias) in the standard layout.
+    """Quantized act_alpha(convKxK(pad(x)) + bias) in the standard layout.
 
-    x_q (N, H, W, C) int8, NHWC contiguous; w_q (3, 3, C, Co) int8, HWIO;
+    x_q (N, H, W, C) int8, NHWC contiguous; w_q (3, 3, C, Co) int8, HWIO,
+    or (7, 7, C, Co) (reflect pad 3, H and W at least 4, C at most 2048);
     scales (3, Co) float32 rows [x_scale * w_scale, bias, 1 / out_scale]
     (row 2 unused when ``out_int8`` is False); C and Co multiples of 4, H
     and W at least 2, all on one device; ``w_packed`` is
     ``pack_conv2d_weights(w_q)`` where the caller keeps it (the CUDA kernel
     reads that copy; without it the call repacks). Returns (N, H, W, Co)
-    int8 (requantized with row 2) or bfloat16."""
+    int8 (requantized with row 2) or bfloat16. A CUDA tensor reaches the
+    kernel of its size or raises."""
     name = "fused_conv2d_q8"
-    co = _check_layer(name, x_q, w_q, pad_mode, 4)
+    co = _check_layer(name, x_q, w_q, pad_mode, 4, sizes=(3, 7))
     if tuple(scales.shape) != (3, co):
         raise ValueError(f"{name}: scales must be (3, {co}) rows [x_scale * "
                          f"w_scale, bias, 1 / out_scale], got "
@@ -146,14 +179,22 @@ def fused_conv2d_q8(x_q, w_q, scales, out_int8: bool, alpha: float = 0.2,
     y = torch.empty((n, h, w, co), device=x_q.device,
                     dtype=torch.int8 if out_int8 else torch.bfloat16)
     from ..kernels.build import launch
-    launch("conv2d_q8", "rpst_conv2d_q8", "B5", x_q,
-           _packed(name, w_q, w_packed), scales, y, n, h, w, c, co,
-           int(out_int8), int(pad_mode == "reflect"), float(alpha))
+    if w_q.shape[0] == 7:
+        launch("conv2d_q8", "rpst_conv2d_q8_7x7", "B5 (7x7)", x_q,
+               _packed(name, w_q, w_packed), scales, y, n, h, w, c, co,
+               int(out_int8), float(alpha))
+        with _launch_lock:
+            fused_conv2d_q8.launches_7x7 += 1
+    else:
+        launch("conv2d_q8", "rpst_conv2d_q8", "B5", x_q,
+               _packed(name, w_q, w_packed), scales, y, n, h, w, c, co,
+               int(out_int8), int(pad_mode == "reflect"), float(alpha))
     _count(fused_conv2d_q8)
     return y
 
 
 fused_conv2d_q8.launches = 0
+fused_conv2d_q8.launches_7x7 = 0
 
 
 def fused_conv2d_bf16(x, w, b, alpha: float = 0.0, pad_mode: str = "reflect"):

@@ -90,16 +90,16 @@ def block_table(k):
 
 
 def pack_k_major(w):
-    """HWIO (3, 3, C, Co) weights in the order of the tensor-core kernels'
-    ``mma`` (B1 / B2 here, B5 in ``ops.conv2d_q8``): (3, 3, ceil(C / KE),
-    Co, KE) contiguous, KE input channels = 32 bytes (one k-step: 8
-    float32, 16 bfloat16, 32 int8), zeros past C. ``packed[dr, dc, s, co,
-    e] = w[dr, dc, s * KE + e, co]``."""
+    """HWIO (K, K, C, Co) weights in the order of the tensor-core kernels'
+    ``mma`` (B1 / B2 here, B5 and its 7x7 form in ``ops.conv2d_q8``): (K, K,
+    ceil(C / KE), Co, KE) contiguous, KE input channels = 32 bytes (one
+    k-step: 8 float32, 16 bfloat16, 32 int8), zeros past C. ``packed[dr, dc,
+    s, co, e] = w[dr, dc, s * KE + e, co]``."""
     ke = 32 // w.element_size()
-    c, co = w.shape[2], w.shape[3]
+    k, c, co = w.shape[0], w.shape[2], w.shape[3]
     steps = -(-c // ke)
     padded = F.pad(w, (0, 0, 0, steps * ke - c))
-    return padded.reshape(3, 3, steps, ke, co).permute(0, 1, 2, 4, 3) \
+    return padded.reshape(k, k, steps, ke, co).permute(0, 1, 2, 4, 3) \
         .contiguous()
 
 

@@ -11,6 +11,8 @@ whose table was measured on a TPU v5e.
     layers as one B7 launch (``fuse_pairs="auto"``), by the B7-vs-2xB4 A/B.
   * ``TRAIN_Q8_TARGETS_MIN_BATCH``: the smallest batch at which
     ``train_q8_targets`` takes the int8 VGG loss targets (B5).
+  * ``LD2_2N_ENCODE_MIN_BATCH``: from which batch LD v2 encodes content and
+    style in one 2N pass rather than two (the same function either way).
   * ``ADAPTIVE_STREAM_ROWS``: from how many positions dynamic_sanet's
     adaptive attention streams under ``adaptive_blockwise: auto``; rpst's
     memory rule, kept because the H100's A/B of the two routes reads level.
@@ -80,8 +82,20 @@ AUTO_MODE = "standard"
 # 240.3, b4 929.1 / 929.4 and 928.9 / 929.3 against 936.6 / 936.5 and 936.4
 # / 936.5 (its float32 SPADE generator, rpst's type, is ~99% of every path):
 # q8 behind in both orders of both calls, so no entry.
+# The LD family (chip_smoke.py phase 48, 512px, the yamls' widths, use_mask
+# off; bf16, q8, q8, bf16 in each of three calls): ld_adain (hidden 16) b1
+# q8 33.02 / 33.07, 32.86 / 32.87 and 33.03 / 33.00 ms against standard
+# bfloat16's 120.97 / 119.91, 119.76 / 119.97 and 119.99 / 119.92 (cuDNN
+# picks a slow implicit-GEMM kernel for the bf16 7x7 convs at this batch:
+# 79% of the bf16 stylize, profile_torch.py), b4 122.30 / 121.79, 122.65 /
+# 121.75 and 122.13 / 121.74 against 128.63 / 128.29, 127.96 / 128.45 and
+# 128.24 / 128.27: ahead in both orders of every call at both batches, so
+# b1 and b4 are listed. ld_adain2 (hidden 8) b1 21.28 / 21.28
+# and 21.47 / 21.51 against 19.27 / 18.91 and 19.24 / 18.27, b4 76.3-76.4
+# against 67.7-68.3: behind, no entry. v3-v5 have no int8 path.
 # An entry needs q8 ahead in both orders of every call made.
-Q8_AUTO_BATCHES: Dict[str, frozenset] = {"sel_multi_adain": frozenset({8})}
+Q8_AUTO_BATCHES: Dict[str, frozenset] = {"sel_multi_adain": frozenset({8}),
+                                         "ld_adain": frozenset({1, 4})}
 
 # same card, both on the tensor cores (the same call): the q8 stylize with
 # B7 pairs read 26.68 / 26.63 ms at b8 against B4's 23.45 / 23.47; at b1,
@@ -118,3 +132,16 @@ def q8_preferred(network: str, batch: Optional[int] = None) -> bool:
 # 7), bfloat16 26.65-26.74 / 27.42-27.95: within 5% either way, so the
 # memory rule stands
 ADAPTIVE_STREAM_ROWS = 1024
+
+# LD v2 (ld_adain2) encodes content and style in one 2N pass of its stack
+# from this batch on, in two passes below it (exact either way: no op of
+# the stacks couples the batch). rpst's 4 was a TPU v5e reading and is not
+# copied. Same card, 512px bfloat16 stylize at the yaml's hidden 8
+# (chip_smoke.py phase 48, 2N, two passes, two passes, 2N in each of three
+# calls): b1 18.12 / 18.68, 18.47 / 18.14 and 18.68 / 18.34 ms against
+# 18.73 / 19.00, 18.57 / 19.90 and 19.37 / 18.61; b2 35.18 / 35.35, 35.46 /
+# 35.34 and 35.31 / 35.26 against 35.98 / 36.06, 35.99 / 35.30 and 35.96 /
+# 35.41; b4 68.02 / 67.69, 67.59 / 67.71 and 67.96 / 68.34 against 68.62 /
+# 68.55, 68.53 / 68.42 and 69.12 / 69.29: the 2N pass ahead by up to 4% or
+# level within 0.5%, never behind beyond that: from batch 1 on
+LD2_2N_ENCODE_MIN_BATCH = 1

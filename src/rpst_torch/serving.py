@@ -73,8 +73,8 @@ def calibrate_scales(bundle, calib: torch.Tensor,
                      calib_style: torch.Tensor) -> Dict[str, Any]:
     """One-shot PTQ calibration for ``mode='q8'`` on a representative
     batch: {'act_scales': (L,) float32}, by the network's calibrator
-    (``bundle.calibrate_q8``; adain, wct, mrf, spade and seg_adain cap the
-    batch at 2 images, whose 512-channel full-resolution activations a
+    (``bundle.calibrate_q8``; adain, wct, mrf, spade, seg_adain and LD v1 /
+    v2 cap the batch at 2 images, whose wide full-resolution activations a
     larger batch would hold all at once; sanet calibrates on the whole batch
     through ``bundle.vgg``). If
     the card runs out of memory the
@@ -97,9 +97,9 @@ def make_run_impl(bundle, mode: str, scales=None,
     """``run_impl(content, style) -> stylized`` on the resolved mode's
     path: the bundle's int8 (with ``scales`` from ``calibrate_scales``;
     ``fuse_pairs`` as in ``stylize_multi_adain_folded_q8``, for the flagship
-    only: adain, wct, mrf, spade, seg_adain and sanet run their
-    standard-layout int8 path on B5, sanet's attention on B6), folded or
-    standard stylize."""
+    only: adain, wct, mrf, spade, seg_adain, sanet and LD v1 / v2 run their
+    standard-layout int8 path on B5, sanet's attention on B6, LD v1's 7x7
+    convs on B5's 7x7 form), folded or standard stylize."""
     if mode == "q8":
         if scales is None:
             raise ValueError("mode q8 needs the scales of calibrate_scales")

@@ -46,6 +46,7 @@ from rpst_torch.models import fast_path_q8_std as q8s
 from rpst_torch.ops import wct
 from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8
 from rpst_torch.serving import calibrate_scales, make_run_impl, resolve_mode
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 WIDE = dict(rp_blocks=5, hidden_dim=32, img_size=32)  # tests/test_q8.py:146

@@ -423,6 +423,38 @@ def test_b5_tiling_edges_on_card(cuda_device, out_int8, pad_mode, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_int8,alpha", [(True, 0.2), (False, 0.0)])
+@pytest.mark.parametrize("shape", [(1, 4, 4, 4, 4), (2, 5, 17, 36, 68),
+                                   (1, 33, 17, 128, 132),
+                                   (2, 64, 64, 256, 256)])
+def test_b5_7x7_matches_plain_on_card(cuda_device, out_int8, alpha, shape):
+    """B5's 7x7 form (LD v1's big branch; reflect pad 3): the smallest map
+    it takes, ragged tiles, Co off the channel blocks, a reduced path
+    shape; bits equal to plain in both outputs and across two runs, one
+    7x7 launch a call."""
+    rng = np.random.default_rng(7)
+    n, h, w, c, co = shape
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c),
+                                      dtype=np.int8)).to(cuda_device)
+    k = torch.from_numpy(rng.integers(-127, 128, (7, 7, c, co),
+                                      dtype=np.int8)).to(cuda_device)
+    sc = torch.from_numpy(np.stack([
+        rng.uniform(2e-6, 6e-6, co) * (128 / c) * (9 / 49),
+        rng.normal(0, 0.2, co), rng.uniform(10.0, 40.0, co)]).astype(
+            np.float32)).to(cuda_device)
+    before = fused_conv2d_q8.launches_7x7
+    got = fused_conv2d_q8(x, k, sc, out_int8, alpha, "reflect")
+    again = fused_conv2d_q8(x, k, sc, out_int8, alpha, "reflect",
+                            w_packed=pack_conv2d_weights(k))
+    torch.cuda.synchronize()
+    assert fused_conv2d_q8.launches_7x7 == before + 2
+    ref = fused_conv2d_q8_plain(x, k, sc, out_int8, alpha, "reflect")
+    view = (lambda t: t) if out_int8 else (lambda t: t.view(torch.int16))
+    assert torch.equal(view(got), view(ref))
+    assert torch.equal(view(again), view(ref))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("out_int8", [True, False])
 def test_b5_mrf_decoder_head_on_card(cuda_device, out_int8):
     """The mrf decoder head's layer: 1024 -> 512, zero pad, relu, on the

@@ -66,6 +66,7 @@ from rpst_torch.nn.vgg import VGG19Encoder
 from rpst_torch.ops.adaptive_attention import (adaptive_attention_dense,
                                                adaptive_reweighted_attention)
 from rpst_torch.ops.affinity import cal_affinity_matrix
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tests" / "fixtures" / "torch_port_dynamic_sanet.npz"

@@ -17,6 +17,7 @@ from rpst_torch.models import build_model
 from rpst_torch.models.fast_path import (folded_blocks,
                                          stylize_multi_adain_folded)
 from rpst_torch.ops.folded_conv import fused_folded_conv
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=3,
              attention="none", inception_num=0)
@@ -110,8 +111,26 @@ def test_load_state_dict_refolds(rng):
 @pytest.mark.parametrize("network", ["ld_adain3", "ld_adain4", "ld_adain2",
                                      "ld_adain5", "ld_adain"])
 def test_unported_networks_raise(network):
-    with pytest.raises(ValueError, match="ROADMAP.md section A slice"):
-        build_model(load_config(dict(network=network)))
+    """The LD networks, the last that ``build_model`` refused (slice 5b),
+    build at their yamls' widths and stylize a 32px pair (these cases keep
+    their ids); no registry network is left to a later slice."""
+    from pathlib import Path
+
+    from rpst_torch.config import load_config as port_config
+    from rpst_torch.models import roadmap_slice
+    from rpst_torch.nn.blocks import init_torch_default
+    tag = {"ld_adain": "ld"}.get(network, f"ld{network[-1]}")
+    cfg = port_config(Path(__file__).resolve().parent.parent / "configs"
+                      / f"train_{tag}_multiscale_rp_adain.yaml",
+                      dict(img_size=32))
+    assert roadmap_slice(network) is None
+    bundle = build_model(cfg)
+    init_torch_default(bundle.model, 0)
+    rng = np.random.default_rng(1)
+    c, s = (torch.from_numpy(rng.random((1, 32, 32, 3), dtype=np.float32))
+            for _ in range(2))
+    out = bundle.stylize(c, s)
+    assert out.shape == (1, 32, 32, 3) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("extra", [dict(attention="se"), dict(use_mask=True),

@@ -20,6 +20,7 @@ import torch
 from rpst.ops.pallas.flash_attention import _dense_attention
 from rpst.ops.pallas.flash_attention import flash_attention as jax_flash
 from rpst_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=1e-4)

@@ -28,6 +28,7 @@ from rpst_torch.ops.folded_conv import (FoldedConvAct,
                                         fused_folded_conv_grad_weight,
                                         fused_folded_conv_grad_weight_plain,
                                         fused_folded_conv_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_folded.py:406-411: dx 1e-4; dk/db rtol 1e-4, atol 2e-3 (sums
 # of 512 products of N(0,1) values at 16x16, batch 2)

@@ -51,6 +51,7 @@ later losses).
 import contextlib
 import json
 import logging
+import re
 from pathlib import Path
 
 import jax
@@ -163,6 +164,15 @@ def _grads(model):
             for n, p in model.named_parameters()}
 
 
+def port_name(path):
+    """A flax param path's name in the port (conv kernels become OIHW
+    ``weight``s; the LD v5 upsamplers' ``kernel`` keeps flax's name and
+    layout)."""
+    name = path.replace("/", ".")
+    return name if re.search(r"(^|\.)up_\d+\.kernel$", name) else \
+        name.replace("kernel", "weight")
+
+
 def check_grads(grads, grads64, fx, f64_atol=1e-4):
     """The port's float32 and float64 gradients (name -> tensor) against the
     fixture's norms, biases and kernel corners (see the module docstring);
@@ -180,10 +190,11 @@ def check_grads(grads, grads64, fx, f64_atol=1e-4):
     for key in keys:
         ref, ref64 = fx[key], fx[f"f64/{key}"]
         kind, _, path = key.partition("/")
-        name = path.replace("/", ".").replace("kernel", "weight")
-        got, got64 = ((g if kind == "grads" else
-                       g.permute(2, 3, 1, 0)[..., :8, :8]).double().numpy()
-                      for g in (grads[name], grads64[name]))
+        name = port_name(path)
+        got, got64 = ((g if kind == "grads" else (
+            g if name.endswith(".kernel") else g.permute(2, 3, 1, 0))[
+                ..., :8, :8]).double().numpy()
+            for g in (grads[name], grads64[name]))
         checked.add(name)
         if key not in live:
             # zero up to rounding (a bias before an instance norm)
@@ -205,7 +216,7 @@ def check_grads(grads, grads64, fx, f64_atol=1e-4):
             err_msg=name)
     for key in fx:
         kind, _, path = key.partition("/")
-        name = path.replace("/", ".").replace("kernel", "weight")
+        name = port_name(path)
         if kind == "gradnorm" and name not in zero:
             np.testing.assert_allclose(float(grads64[name].norm()),
                                        float(fx[f"f64/{key}"]), rtol=1e-4,
@@ -217,21 +228,48 @@ def check_grads(grads, grads64, fx, f64_atol=1e-4):
     return len(checked)
 
 
+def _f64_calc_mean_std(feat, eps=1e-5):
+    """The port's ``calc_mean_std`` with its reductions in the features'
+    own type (it casts them to float32, as rpst does)."""
+    mean = feat.mean(dim=(1, 2), keepdim=True)
+    n = feat.shape[1] * feat.shape[2]
+    var = ((feat - mean) ** 2).sum(dim=(1, 2), keepdim=True) / max(n - 1, 1)
+    return mean, torch.sqrt(var + eps)
+
+
+@contextlib.contextmanager
+def float64_stats():
+    """The port's feature statistics (AdaIN, the style loss) in float64
+    inside the block: the float64 runs held against the LD fixtures, whose
+    rpst float64 gradients take them so (tools/make_torch_port_fixture.py
+    ``ld_f64_stats``)."""
+    from rpst_torch.models import base
+    from rpst_torch.ops import stats
+    old = stats.calc_mean_std, base.calc_mean_std
+    stats.calc_mean_std = base.calc_mean_std = _f64_calc_mean_std
+    try:
+        yield
+    finally:
+        stats.calc_mean_std, base.calc_mean_std = old
+
+
 def check_loss_grads_trajectory(network, label=None, freeze=(),
-                                f64_atol=1e-4):
+                                f64_atol=1e-4, f64_stats=False):
     """3 train steps (with ``label`` as content labels, ``freeze`` left out
     of the optimizer) against rpst's trajectory; the first step's loss
     parts and its gradients, read before Adam applies them, against rpst's
     float32 ones, with the model's float64 gradients against rpst's float64
     ones. Returns the stepped state. ``f64_atol``: the float64 gradients'
-    bound (x max), and the float32 ones' floor."""
+    bound (x max), and the float32 ones' floor; ``f64_stats``: the float64
+    run takes its feature statistics in float64 (the LD fixtures')."""
     fx = load_fixture(network)
     c, s = images(fx)
     kw = {} if label is None else {"content_label": label}
     b64, vgg64 = fixture_bundle(network, fx)
     b64.model.double().train()
-    total, _ = b64.loss(vgg64.double(), c.double(), s.double(), **kw)
-    total.backward()
+    with float64_stats() if f64_stats else contextlib.nullcontext():
+        total, _ = b64.loss(vgg64.double(), c.double(), s.double(), **kw)
+        total.backward()
     bundle, vgg = fixture_bundle(network, fx)
     state = create_train_state(bundle, freeze_prefixes=freeze)
     first = {}

@@ -48,6 +48,7 @@ from rpst_torch.ops.folded_conv_q8 import (fused_folded_conv_q8,
                                            quantize_activations,
                                            quantize_weights)
 from rpst_torch.serving import calibrate_scales, make_run_impl, resolve_mode
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 Q8_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_q8.npz"

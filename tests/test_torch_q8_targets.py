@@ -43,6 +43,7 @@ from rpst_torch.nn.blocks import init_torch_default
 from rpst_torch.nn.vgg import VGG19Encoder
 from rpst_torch.nn.vgg_folded import perceptual_rp_losses_q8targets
 from rpst_torch.ops.conv2d_q8 import fused_conv2d_q8
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 IMG, BATCH = 32, 4

@@ -47,6 +47,7 @@ from rpst_torch.models.sanet import SANetAttention, Transform
 from rpst_torch.nn.decoder import VGGMirrorDecoder, upsample_nearest_2x
 from rpst_torch.nn.vgg import VGG19Encoder
 from rpst_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tests" / "fixtures" / "torch_port_sanet.npz"

@@ -70,6 +70,7 @@ from rpst_torch.nn.vgg import VGG19Encoder
 from rpst_torch.ops import folded
 from rpst_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from rpst_torch.train.step import adam_count, create_train_state, train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -295,18 +296,6 @@ def check_drivers(root: Path, network: str, **over):
 
 
 # ------------------------------------------------------------------ tests
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the module (the slice-4 files import this):
-    their many small ops (the 25-step k-means, the 64px fixture steps)
-    run 5-20 x slower when several pytest-xdist workers each spin up a
-    thread per core."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
-
 
 
 def test_channel_shuffle_matches_rpst():

@@ -212,18 +212,31 @@ def test_resolve_mode(caplog, monkeypatch):
     ("seg_adain", dict(hidden_dim=32)),
     ("sanet", dict(img_size=32)),
     ("dynamic_sanet", dict(img_size=32)),
-    ("src", dict(img_size=32))])
+    ("src", dict(img_size=32)),
+    ("ld_adain", dict(hidden_dim=64)),
+    ("ld_adain2", dict(hidden_dim=64, img_size=32)),
+    ("ld_adain3", dict(hidden_dim=8)),
+    ("ld_adain4", dict(hidden_dim=8)),
+    ("ld_adain5", dict(hidden_dim=8))])
 def test_auto_mode_follows_the_q8_table(network, over, monkeypatch):
     """For every ported network ``--mode auto`` on a card resolves to what
     ``policy.Q8_AUTO_BATCHES`` says: q8 at the batches it lists, the
     policy's ``AUTO_MODE`` elsewhere; an entry added to the table is picked
-    up at its batch and at no other. The device is named, not used:
-    ``resolve_mode`` only asks where the bundle lives."""
+    up at its batch and at no other. A network without an int8 path (LD
+    v3-v5) never resolves to q8, even with an entry. The device is named,
+    not used: ``resolve_mode`` only asks where the bundle lives."""
     from rpst_torch import policy
     bundle = build_model(load_config(dict(network=network, rp_blocks=2,
                                           **over)))
-    assert bundle.q8_infer()
     monkeypatch.setattr(bundle, "device", torch.device("cuda"))
+    if network in ("ld_adain3", "ld_adain4", "ld_adain5"):
+        assert not bundle.q8_infer()
+        monkeypatch.setitem(policy.Q8_AUTO_BATCHES, network,
+                            frozenset({1, 2, 4, 8}))
+        assert all(resolve_mode(bundle, "auto", batch=b) == policy.AUTO_MODE
+                   for b in (1, 2, 4, 8, 16))
+        return
+    assert bundle.q8_infer()
     listed = policy.Q8_AUTO_BATCHES.get(network, frozenset())
     for batch in (1, 2, 4, 8, 16):
         want = "q8" if batch in listed else policy.AUTO_MODE

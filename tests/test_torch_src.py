@@ -31,6 +31,7 @@ from rpst_torch.models import build_model, build_vgg
 from rpst_torch.models.fast_path_q8_std import src_blocks, src_q8_plan
 from rpst_torch.models.src_adain import SourceNet
 from rpst_torch.nn.vgg import VGG19Encoder
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tests" / "fixtures" / "torch_port_src.npz"

@@ -31,6 +31,7 @@ from rpst_torch.train.metrics import MetricWriter
 from rpst_torch.train.step import (adam_count, create_train_state,
                                    make_optimizer, reference_lr_schedule,
                                    train_step)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN_FIXTURE = (Path(__file__).resolve().parent / "fixtures"
                  / "torch_port_train.npz")

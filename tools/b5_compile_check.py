@@ -8,8 +8,14 @@ paths give it, compare each output bit for bit with the plain PyTorch
 version, check the bf16 mode, and time the kernel beside ``F.conv2d`` in
 bfloat16. The short first call after a change to the kernel;
 ``chip_smoke.py`` phase 17 repeats the checks with bounds beside them.
+``--k7`` checks the 7x7 form instead (int8 and bf16 out, alpha 0.2 and 0,
+at H, W = 4, 5, 17, 33, Co off the tile, and at LD v1's two path shapes,
+each bit for bit against the plain version and across two runs), prints
+its occupancy from ptxas's registers and its shared memory, and times it
+raw, through the wrapper and beside ``F.conv2d`` bf16 7x7; chip_smoke.py
+phase 44 repeats it.
 
-    python3 tools/b5_compile_check.py [--parent OLD.cu] [--quick]
+    python3 tools/b5_compile_check.py [--parent OLD.cu] [--quick] [--k7]
 
 ``--parent`` names an earlier version of the source that takes HWIO weights
 (its ``q8_common.cuh`` beside it); it is built by hand and timed in turns
@@ -31,7 +37,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from chip_smoke import B5_SHAPES, _b5_layer, card, cuda_ms  # noqa: E402
+from chip_smoke import (B5_SHAPES, _b5_layer, b5_7x7_checks,  # noqa: E402
+                        card, cuda_ms)
 from kernel_check_common import parent_library, sass_counts  # noqa: E402
 from rpst_torch.kernels import build  # noqa: E402
 from rpst_torch.ops import conv2d_q8 as b5  # noqa: E402
@@ -72,6 +79,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--k7", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("b5_compile_check: no CUDA device")
@@ -84,6 +92,12 @@ def main():
                     .splitlines()
                     if "registers" in ln or "spill" in ln or "warning" in ln))
     print(sass_counts("conv2d_q8", ("IMMA", "HMMA", "LDGSTS", "IDP")))
+    if args.k7:
+        with torch.inference_mode():
+            bad, _ = b5_7x7_checks(dev, name_power, timed=not args.quick)
+        if bad:
+            raise SystemExit(f"b5_compile_check: {bad} 7x7 checks failed")
+        return
 
     rng = np.random.default_rng(5)
     bad = 0

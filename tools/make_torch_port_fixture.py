@@ -178,9 +178,30 @@ hold:
     (seg_adain ``with_labels``; wct with ``make_optimizer(cfg,
     ("encoder",))``, the resume's freeze) on the same batch.
 
+The LD fixtures (``--ld`` writes all five, ``--ld-adain`` ..
+``--ld-adain5`` one; 32px, the smallest size at which v5's 32x upsampler
+lines up, batch 2, the yamls' widths: hidden 16 for v1, 8 for v2, 32 for
+v3-v5, 5 layers, all 5 stylized, ``use_mask`` off, loss weights content 1,
+style 2, lr 1e-4) hold the slice-5b fixtures' keys (the ``f64/`` gradients
+with rpst's feature statistics in float64 too: ``ld_f64_stats``), the params
+``rpst_torch.bridge.ld_weights_from_seed(network, weights_seed, ...)``,
+``act_scales``, ``out_q8_f32`` and ``out_q8_bf16`` for v1 and v2 only
+(rpst's ``calibrate_ld_q8`` / ``stylize_ld_q8`` and ``calibrate_ld2_q8`` /
+``stylize_ld2_q8`` with ``conv_impl='pallas'``, the 3x3 convs on the
+standard-layout kernel in interpret mode and v1's 7x7 convs on its
+compiler's int8 conv), and the int8 features at the first eligible layer of
+the q8 f32 pass, for the first image of the 2N batch: v1's ``q8_in`` (the
+layer-3 input quantized with ``act_scales[0]``) and ``q8_out`` (the int8
+concat of its 3x3 small and 7x7 big branch, requantized with
+``act_scales[1]``); v2's ``q8_in`` (conv_a's input, the 1x1 head's output
+quantized with ``act_scales[1]``) and ``q8_out`` (conv_a's int8 output at
+``act_scales[2]``).
+
 Usage:
   python tools/make_torch_port_fixture.py --mrf | --spade | --seg-adain
       | --wct-train
+  python tools/make_torch_port_fixture.py --ld | --ld-adain | ... |
+      --ld-adain5
   python tools/make_torch_port_fixture.py --adain | --wct | --q8-targets
   python tools/make_torch_port_fixture.py --sanet | --dynamic-sanet | --src
   python tools/make_torch_port_fixture.py --sel-multi-adain | --ccam | --mst
@@ -238,6 +259,17 @@ SLICE5B = {
     "seg_adain": dict(WIDE, network="seg_adain", seg_hidden_dim=32,
                       class_num=19, seg_loss_weight=1.0),
     "wct_train": dict(WIDE, network="wct")}
+# the LD family at its yamls' widths (configs/train_ld*_rp_adain.yaml)
+LD = ("ld_adain", "ld_adain2", "ld_adain3", "ld_adain4", "ld_adain5")
+LD_HIDDEN = {"ld_adain": 16, "ld_adain2": 8}
+SLICE5B.update({n: dict(network=n, rp_blocks=5, ld_layer_num=5,
+                        stylized_layers=5, hidden_dim=LD_HIDDEN.get(n, 32),
+                        inception_num=0, use_mask=False) for n in LD})
+# the LD fixtures' learning rate: configs/train_ld4_multiscale_rp_adain.yaml's
+# (at TRAIN's 1e-3 the seeded LD v1's third loss moves 5% between the port's
+# own float32 and float64 runs: a trajectory float32 cannot pin)
+LD_LR = 1e-4
+LD_SIZE = 32
 SLICE5B_LOSS = dict(content_weight=1.0, style_weight=2.0)
 SLICE5B_DST = {n: REPO / "tests" / "fixtures" / f"torch_port_{n}.npz"
                for n in SLICE5B}
@@ -879,7 +911,61 @@ def slice5b_params(network: str, seed: int) -> dict:
         return bridge.seg_adain_weights_from_seed(
             seed, seg_hidden_dim=cfg["seg_hidden_dim"],
             class_num=cfg["class_num"], **width)
+    if network in LD:
+        return bridge.ld_weights_from_seed(
+            network, seed, cfg["ld_layer_num"], cfg["hidden_dim"],
+            cfg["stylized_layers"])
     return bridge.rpseq_weights_from_seed(seed, **width)
+
+
+def ld_q8_features(network: str, params, scales, content, style) -> dict:
+    """rpst's int8 features at the first eligible layer of the float32 q8
+    pass (the module docstring's ``q8_in`` / ``q8_out``), re-run with rpst's
+    own pieces in the order its pass runs them, for the first image."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.models import fast_path_q8 as q8
+
+    f32 = jnp.float32
+    act = [float(a) for a in scales["act_scales"]]
+    conv_q = q8._make_conv_q_std(f32, 16, True, "reflect", alpha=0.2)
+    x = jnp.concatenate([content, style], axis=0).astype(f32)
+    if network == "ld_adain":
+        enc, _ = q8._ld_stacks(params)
+        for i, ((ks, bs), (kg, bg)) in enumerate(enc):
+            if q8._q8_eligible(ks) and q8._q8_eligible(kg):
+                x_q = q8.quantize_activations(x, act[0])
+                out = jnp.concatenate([
+                    conv_q(x_q, act[0], ks, bs, out_scale=act[1]),
+                    q8._xla_conv_q8(x_q, act[0], kg, bg, f32,
+                                    out_scale=act[1])], axis=-1)
+                return {"q8_layer": np.int64(i),
+                        "q8_in": np.asarray(x_q[:1]),
+                        "q8_out": np.asarray(out[:1])}
+            x = jnp.concatenate([q8._lrelu_conv(x, ks, bs, f32),
+                                 q8._lrelu_conv(x, kg, bg, f32)], axis=-1)
+    else:
+        from rpst.models.ld_adain import _resize_nearest
+        enc, _ = q8._ld2_stacks(params)
+        for i, ((ks, bs), c1, (ka, ba), (kb_, bb)) in enumerate(enc):
+            h, w = x.shape[1], x.shape[2]
+            t = q8._conv1x1(x, *c1, f32)
+            if all(q8._q8_eligible(k) for k in (ks, ka, kb_)):
+                conv_relu = q8._make_conv_q_std(f32, 16, True, "reflect",
+                                                alpha=0.0)
+                t_q = q8.quantize_activations(t, act[1])
+                a = conv_relu(t_q, act[1], ka, ba, out_scale=act[2])
+                return {"q8_layer": np.int64(i),
+                        "q8_in": np.asarray(t_q[:1]),
+                        "q8_out": np.asarray(a[:1])}
+            sm = q8._lrelu_conv(x, ks, bs, f32)
+            bg = q8._reflect_conv(q8._reflect_conv(t, ka, ba, f32), kb_, bb,
+                                  f32)
+            bg = q8._maxpool2x_any(bg)
+            bg = jnp.pad(bg, ((0, 0), (1, 1), (1, 1), (0, 0)), mode="reflect")
+            x = jnp.concatenate([sm, _resize_nearest(bg, h, w)], axis=-1)
+    raise ValueError(f"{network}: no eligible layer")
 
 
 def _grad_keys(grads, prefix=""):
@@ -915,7 +1001,8 @@ def make_slice5b_fixture(network: str, seed: int = 0,
     shape = (TRAIN["batch"], size, size, 3)
     content = rng.random(shape, dtype=np.float32)
     style = rng.random(shape, dtype=np.float32)
-    base = dict(SLICE5B[network], img_size=size, lr=TRAIN["lr"],
+    lr = LD_LR if network in LD else TRAIN["lr"]
+    base = dict(SLICE5B[network], img_size=size, lr=lr,
                 lr_decay=TRAIN["lr_decay"], **SLICE5B_LOSS)
     cfg = load_config(base)
     bundle = build_model(cfg)
@@ -926,7 +1013,7 @@ def make_slice5b_fixture(network: str, seed: int = 0,
     c, s = jnp.asarray(content), jnp.asarray(style)
     arrays = dict(weights_seed=np.int64(seed),
                   vgg_seed=np.int64(TRAIN["vgg_seed"]), content=content,
-                  style=style, lr=np.float32(TRAIN["lr"]),
+                  style=style, lr=np.float32(lr),
                   lr_decay=np.float32(TRAIN["lr_decay"]))
     label = None
     if network == "seg_adain":
@@ -936,6 +1023,7 @@ def make_slice5b_fixture(network: str, seed: int = 0,
 
     if network != "wct_train":
         var = {"params": params}
+        sl = cfg.stylized_layers
         arrays["out_f32"] = np.asarray(jax.jit(bundle.stylize)(
             var, vgg_vars, c, s), np.float32)
         bf16 = build_model(load_config(dict(base, compute_dtype="bfloat16")))
@@ -950,14 +1038,27 @@ def make_slice5b_fixture(network: str, seed: int = 0,
             run = lambda dt: q8.stylize_spade_q8(  # noqa: E731
                 params, scales, c, s, ndf=cfg.ndf, spade_norm=cfg.spade_norm,
                 dtype=dt, interpret=True)
-        else:
+        elif network in ("ld_adain", "ld_adain2"):
+            v1 = network == "ld_adain"
+            scales = (q8.calibrate_ld_q8 if v1 else q8.calibrate_ld2_q8)(
+                params, c, s, stylized_layers=sl)
+            stylize = q8.stylize_ld_q8 if v1 else q8.stylize_ld2_q8
+            run = lambda dt: stylize(  # noqa: E731
+                params, scales, c, s, stylized_layers=sl, dtype=dt,
+                interpret=True, conv_impl="pallas")
+            arrays.update(ld_q8_features(network, params, scales, c, s))
+        elif network == "seg_adain":
             scales = q8.calibrate_adain_q8(params["adain_rp"], c, s)
             run = lambda dt: q8.stylize_adain_q8(  # noqa: E731
                 params["adain_rp"], scales, c, s, dtype=dt, interpret=True)
-        arrays["act_scales"] = np.asarray(scales["act_scales"], np.float32)
-        for name, dt in (("out_q8_f32", jnp.float32),
-                         ("out_q8_bf16", jnp.bfloat16)):
-            arrays[name] = np.asarray(run(dt), np.float32)
+        else:  # LD v3-v5: no int8 path
+            run = None
+        if run is not None:
+            arrays["act_scales"] = np.asarray(scales["act_scales"],
+                                              np.float32)
+            for name, dt in (("out_q8_f32", jnp.float32),
+                             ("out_q8_bf16", jnp.bfloat16)):
+                arrays[name] = np.asarray(run(dt), np.float32)
 
     def loss_fn(p, v, x, y, lab):
         total, (parts, _) = bundle.loss({"params": p}, v, x, y, train=True,
@@ -989,8 +1090,10 @@ def make_slice5b_fixture(network: str, seed: int = 0,
             assert np.array_equal(np.asarray(v), before[k]), k
 
     # the same loss and gradients in float64: each gradient's own float32
-    # error, where it is larger than the bounds' floor
+    # error, where it is larger than the bounds' floor; the LD family's with
+    # the feature statistics in float64 too (ld_f64_stats)
     jax.config.update("jax_enable_x64", True)
+    undo = ld_f64_stats() if network in LD else (lambda: None)
     try:
         def f64(tree):
             return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
@@ -1001,8 +1104,39 @@ def make_slice5b_fixture(network: str, seed: int = 0,
         arrays.update(_grad_keys(jax.tree.map(
             lambda a: np.asarray(a, np.float32), g64), "f64/"))
     finally:
+        undo()
         jax.config.update("jax_enable_x64", False)
     return arrays
+
+
+def _f64_calc_mean_std(feat, eps: float = 1e-5):
+    """rpst's ``calc_mean_std`` with the reductions in the features' own
+    type (rpst's casts them to float32, also for float64 features)."""
+    import jax.numpy as jnp
+    mean = jnp.mean(feat, axis=(1, 2), keepdims=True)
+    n = feat.shape[1] * feat.shape[2]
+    var = jnp.sum((feat - mean) ** 2, axis=(1, 2),
+                  keepdims=True) / max(n - 1, 1)
+    return mean, jnp.sqrt(var + eps)
+
+
+def ld_f64_stats():
+    """Run rpst's feature statistics (AdaIN, the style loss) in float64 for
+    the LD fixtures' float64 gradients, until the returned undo is called.
+    With the statistics rounded to float32, as rpst computes them, the two
+    frameworks' float64 gradients of the LD family sit up to 4e-4 of max
+    apart (each rounds its float32 sums in another order, and the LD losses
+    amplify that); with them in float64 the loss agrees to 1e-15 and the
+    gradients to 5e-8 of max, which shows the same function. The port's
+    tests hold their float64 run to these under the same change."""
+    from rpst.models import base
+    from rpst.ops import stats
+    old = stats.calc_mean_std, base.calc_mean_std
+    stats.calc_mean_std = base.calc_mean_std = _f64_calc_mean_std
+
+    def undo():
+        stats.calc_mean_std, base.calc_mean_std = old
+    return undo
 
 
 def _unflat(flat: dict) -> dict:
@@ -1019,7 +1153,8 @@ def _unflat(flat: dict) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--size", type=int, default=64)
+    ap.add_argument("--size", type=int, default=None,
+                    help="image size (default 64; the LD fixtures 32)")
     ap.add_argument("--train", action="store_true",
                     help="write the train fixture instead")
     ap.add_argument("--q8", action="store_true",
@@ -1047,6 +1182,8 @@ def main():
     for name in SLICE5B:
         ap.add_argument(f"--{name.replace('_', '-')}", action="store_true",
                         help=f"write the {name} fixture instead")
+    ap.add_argument("--ld", action="store_true",
+                    help="write the five LD fixtures instead")
     ap.add_argument("--grads-f64", action="store_true",
                     help="with a slice-4 network: only (re)compute the "
                          "fixture's float64 gradients")
@@ -1059,6 +1196,15 @@ def main():
 
     slice4 = [n for n in SLICE4 if getattr(args, n)]
     slice5b = [n for n in SLICE5B if getattr(args, n)]
+    if args.ld:
+        for network in LD:
+            arrays = make_slice5b_fixture(network, args.seed,
+                                          args.size or LD_SIZE)
+            np.savez_compressed(SLICE5B_DST[network], **arrays)
+            print(f"wrote {SLICE5B_DST[network]} ({len(arrays)} arrays)")
+        return
+    size = args.size or (LD_SIZE if slice5b and slice5b[0] in LD else 64)
+    args.size = size
     if slice5b:
         arrays = make_slice5b_fixture(slice5b[0], args.seed, args.size)
         args.dst = args.dst or str(SLICE5B_DST[slice5b[0]])

@@ -28,9 +28,13 @@ under ``torch.utils.checkpoint`` where ``adaptive_blockwise`` says so; no
 kernel), and ``src`` (``configs/train_source_adain.yaml``) trains its
 decoder over a frozen 4-stage VGG (no kernel; ``use_mask`` is not read).
 ``wct``, ``mrf``, ``spade`` and ``seg_adain`` train standard (no kernel of
-the port). A wct run with ``resume: true`` freezes the encoder (rpst's
-``freeze_prefixes``): its parameters get no update and no Adam state, so a
-checkpoint saved without the freeze is refused, as rpst refuses it.
+the port), and so does the LD family (``ld_adain`` .. ``ld_adain5``, their
+``configs/train_ld*_rp_adain.yaml``; ``ld_layer_num`` defaults to
+``rp_blocks``; the v1 and v4 yamls' ``use_mask: true`` is not read in
+training, as in rpst). A wct run with ``resume: true`` freezes the encoder
+(rpst's ``freeze_prefixes``): its parameters get no update and no Adam
+state, so a checkpoint saved without the freeze is refused, as rpst
+refuses it.
 seg_adain with ``seg_dir`` (a folder of Cityscapes side-by-side images:
 content on the left ``img_size`` columns, the label ids on the next)
 trains on labelled content batches, its segmentation head through the
@@ -45,7 +49,7 @@ zero gradients).
 logs the B6, B5 and B1/B2/B3 launch counts of the run. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
 and ``distributed`` (slice 8), ``grad_accum > 1`` and ``remat`` (slice 8),
-``test_dir`` test dumps (slice 7), and the LD family (slice 5b).
+and ``test_dir`` test dumps (slice 7).
 """
 
 import argparse
@@ -63,8 +67,7 @@ from rpst_torch.config import load_config  # noqa: E402
 from rpst_torch.data import (CityscapesDataset,  # noqa: E402
                              ImageFolderDataset, InfiniteLoader)
 from rpst_torch.metrics import logger  # noqa: E402
-from rpst_torch.models import (build_model, build_vgg,  # noqa: E402
-                               roadmap_slice)
+from rpst_torch.models import build_model, build_vgg  # noqa: E402
 from rpst_torch.models.fast_path_q8_std import (  # noqa: E402
     calibrate_vgg_targets_q8)
 from rpst_torch.nn.blocks import init_torch_default  # noqa: E402
@@ -92,10 +95,6 @@ _UNPORTED = {
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a config this port cannot train yet."""
-    if roadmap_slice(cfg.network):
-        raise NotImplementedError(
-            f"train_torch.py: {cfg.network!r} is not ported yet: ROADMAP.md "
-            f"section A {roadmap_slice(cfg.network)} (the LD family)")
     for key, (asked, where) in _UNPORTED.items():
         if asked(cfg):
             raise NotImplementedError(

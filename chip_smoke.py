@@ -9,7 +9,8 @@ through the user's entry points, the flagship's three variants
 target cache, mrf, spade and seg_adain (standard and int8 serving,
 training) with wct's training and its frozen-encoder resume, and the LD
 family (ld_adain .. ld_adain5: standard serving and training, int8 serving
-of v1 and v2, v1's 7x7 convs on B5's 7x7 form), and times them. Needs one
+of v1 and v2, v1's 7x7 convs on B5's 7x7 form) and adain's training, and
+times them. Needs one
 NVIDIA
 Hopper card; run from the repository root with no arguments:
 
@@ -18,8 +19,8 @@ Hopper card; run from the repository root with no arguments:
 Phases (each prints its own line; any failed check raises, exit code != 0):
   1. build     nvcc-build every kernel of the paths, one nvcc per source, all
                at once (B1 folded_conv.cu; B2, B3 folded_conv_bwd.cu; B4
-               folded_conv_q8.cu; B7 folded_conv2_q8.cu; B5 conv2d_q8.cu; B6
-               flash_attention.cu)
+               folded_conv_q8.cu; B7 folded_conv2_q8.cu; B5 conv2d_q8.cu and
+               its 7x7 form conv2d_q8_7x7.cu; B6 flash_attention.cu)
   2. kernels   B1, B2, B3 vs their plain versions at the paths' shapes, f32 +
                bf16, B1 and B2 with folded (36 of 144 blocks non-zero) and
                dense kernels; B1 and B2 timed at (1,256,256,128->128) and
@@ -196,7 +197,12 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                rpst's scales (f32 >= 35 dB, bf16 >= 30), loss parts (rtol
                1e-4), gradients (rtol 5e-3, atol 1e-4 x max or 4 x the
                tensor's own float32 error in rpst; the folded and standard
-               paths' distances to rpst's float64 gradients printed),
+               paths' distances to rpst's float64 gradients printed); the
+               standard path (cuDNN) held as phases 39 / 45 hold theirs:
+               float64 against rpst's float64 with float64 statistics
+               (grads_f64s, 1e-4 x max), float32 against rpst's standard
+               float32 at 4 x the larger own float32 error, the worst
+               tensor's errors and its layer's cuDNN kernels by name,
                sel's moved BatchNorm statistics,
                mst's k-means labels; exact launches (15 B1 a stylize, 3 B1 +
                12 B4 a q8 stylize, 23/17/15 B1/B2/B3 a loss + backward, mst
@@ -263,13 +269,15 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                bf16 against q8 in both orders; the train step b1 of the
                three and of wct, f32, with its peak memory
 
- 44. B5 7x7     B5's 7x7 form vs its plain version at LD v1's two 512px
-               shapes, (2,512,512,128->128) and (256->256), and around its
-               tiles (H, W = 4, 5, 17, 33; C = 4, 32, 36; Co = 4, 68, 132,
-               200, 260), int8 and bf16 out, alpha 0.2 and 0: bit-equal to
-               plain and across two runs; its occupancy from ptxas; each path
-               shape timed raw, through the wrapper, beside plain, F.conv2d
-               bf16 7x7 and the bound of its int8 operations
+ 44. B5 7x7     B5's 7x7 form (wgmma, conv2d_q8_7x7.cu) vs its plain
+               version at LD v1's two 512px shapes, (2,512,512,128->128) and
+               (256->256) (and at N = 8, int8 out), and around its tiles (H, W
+               = 4, 5, 16, 17, 19, 21, 33; C = 4, 32, 36, 2048; Co = 4, 68,
+               128, 132, 136, 200, 260; N = 8), int8 and bf16 out, alpha 0.2
+               and 0: bit-equal to plain and across two runs; its occupancy
+               from ptxas; the bytes its tiling stages from L2; each path
+               shape timed raw, through the wrapper, beside plain (N = 2),
+               F.conv2d bf16 7x7 and the bound of its int8 operations
  45. LD fixtures  the five LD networks on the card vs rpst's JAX
                (tests/fixtures/torch_port_ld_adain*.npz, 32px b2, the
                yamls' widths): stylize f32 (1e-4) and bf16 (MAE < 1e-2 or 3
@@ -291,6 +299,13 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  48. LD timing    512px stylize b1 / b4: v1 / v2 standard bf16 against q8
                in both orders, v3-v5 bf16; v2's 2N encode against two
                passes at b1, b2, b4 in both orders; each yaml's train step
+
+ 49. adain train  adain's training vs rpst's JAX
+               (tests/fixtures/torch_port_adain_train.npz: the widths of
+               configs/train_deeper_rp_adain.yaml, 64px b2): loss parts,
+               float32 and float64 gradients by the slice-5b rule, the
+               3-step trajectory, no kernel launched; the yaml's 512px b8
+               train step timed in float32 and bfloat16 with its peak memory
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -771,7 +786,11 @@ def main():
     _ld_train(dev)
     _ld_timing(dev, rng, name_power)
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-48")
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phase 49")
+    # ---- 49. adain training on the card ------------------------------------
+    _adain_train(dev, name_power)
+
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-49")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -832,14 +851,14 @@ def main():
          "max_abs_err": b5k["err"], "ms": b5k["ms"],
          "plain_ms": b5k["plain_ms"], "bound_ms": b5k["bound_ms"],
          "bound_by": b5k["bound_by"], "library_ms": b5k["library_ms"]},
-        # B5's 7x7 form at LD v1's widest shape, (2, 512, 512, 256 -> 256)
-        # (phase 44): it replaces no Pallas kernel but what rpst asks of
-        # its compiler's int8 conv (_xla_conv_q8); library_ms is F.conv2d
-        # bf16 7x7 on the dequantized values, not the same function (no
-        # PyTorch call takes int8 on CUDA); its launches are LD v1's q8
+        # B5's 7x7 form (wgmma) at LD v1's widest shape, (2, 512, 512, 256
+        # -> 256) (phase 44): it replaces no Pallas kernel but what rpst
+        # asks of its compiler's int8 conv (_xla_conv_q8); library_ms is
+        # F.conv2d bf16 7x7 on the dequantized values, not the same function
+        # (no PyTorch call takes int8 on CUDA); its launches are LD v1's q8
         # main path's (phase 46)
         {"name": "fused_conv2d_q8_7x7", "route": "cuda",
-         "source": "src/rpst_torch/csrc/conv2d_q8.cu",
+         "source": "src/rpst_torch/csrc/conv2d_q8_7x7.cu",
          "replaces": "src/rpst/models/fast_path_q8.py:1415",
          "launches": ld_serve[1], "max_abs_err": b5_7["err"],
          "ms": b5_7["ms"], "plain_ms": b5_7["plain_ms"],
@@ -3730,6 +3749,11 @@ S4_Q8_F32_PSNR = 35.0  # as the other q8 fixtures on the card (phase 24)
 # ones than rpst's float32 ones do (phase 34 prints both; PERF.md), so
 # float32 on the card is held at 4
 GRAD_SPREAD = 4.0
+# the standard path's float64 gradients on the card against rpst's float64
+# ones with float64 statistics (the fixtures' grads_f64s): the same function
+# (5.9e-6 / 4.8e-8 / 3.7e-7 of max on the CPU for sel / ccam / mst); also the
+# float32 bound's floor (phases 39 and 45's GRAD_ATOL_REL)
+S4_STD_F64_ATOL = 1e-4
 # a bfloat16 folded stylize against rpst's: MAE < 1e-2, or 3 x rpst's own
 # bfloat16 distance from its float32 output where that is more (each
 # framework's bf16 output sits about that far from the f32 one, in its own
@@ -3779,7 +3803,7 @@ def _s4_fixture_bundle(dev, network, fx, trees, **over):
     bundle = build_model(cfg, dev)
     params = {k: v for k, v in trees.items()
               if k not in ("batch_stats", "grads", "grads_std",
-                           "grads_f64", "stats_after")}
+                           "grads_f64", "grads_f64s", "stats_after")}
     sd = from_flax_params(params)
     sd.update(from_flax_batch_stats(trees.get("batch_stats", {})))
     bundle.load_state_dict(sd)
@@ -3791,7 +3815,8 @@ def _s4_fixture_bundle(dev, network, fx, trees, **over):
 
 def _f64_err_ratio(model, ref, f64):
     """Median and max over the parameters of |grad - rpst's float64| over
-    |rpst's float32 - rpst's float64| (each tensor's max norm)."""
+    |rpst's float32 - rpst's float64| (each tensor's max norm), and the
+    tensor of the max."""
     import numpy as np
     ratios = []
     for name, p in model.named_parameters():
@@ -3800,8 +3825,139 @@ def _f64_err_ratio(model, ref, f64):
         truth = f64[name].to(p.device)
         own = float((ref[name].to(p.device) - truth).abs().max())
         if own > 0.0:
-            ratios.append(float((p.grad - truth).abs().max()) / own)
-    return float(np.median(ratios)), max(ratios)
+            ratios.append((float((p.grad - truth).abs().max()) / own, name))
+    top = max(ratios)
+    return float(np.median([r for r, _ in ratios])), top[0], top[1]
+
+
+def _s4_standard_grads(dev, network, fx, trees, vgg, c, s):
+    """The standard path's gradients of the fixture's loss on the card in
+    float32 (cuDNN, TF32 off) and in float64 (the feature statistics in
+    float64, as grads_f64s), and the float32 backward under the profiler:
+    {"model": the float32 model, "f32" / "f64": name -> gradient, "prof"}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        plain, _ = _s4_fixture_bundle(dev, network, fx, trees)
+        plain.cfg = plain.cfg.replace(exec_strategy="standard")
+        plain.model.to(dt).train()
+        undo = _f64_stats() if dt == torch.float64 else (lambda: None)
+        try:
+            total = plain.loss(vgg.to(dt), c.to(dt), s.to(dt))[0]
+            if dt == torch.float64:
+                total.backward()
+            else:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
+                    total.backward()
+                    torch.cuda.synchronize()
+                out["prof"], out["model"] = prof, plain.model
+        finally:
+            undo()
+        out["f32" if dt == torch.float32 else "f64"] = {
+            n: p.grad for n, p in plain.model.named_parameters()
+            if p.grad is not None}
+    vgg.float()
+    return out
+
+
+def _check_s4_standard(label, std, ref_std, f64s):
+    """The standard path's gradients on the card against rpst's standard
+    path, by phases 39 and 45's rule: its float64 gradients against rpst's
+    float64 ones (grads_f64s) at S4_STD_F64_ATOL x max + 5e-3 x |value|;
+    its float32 ones against rpst's standard float32 ones (grads_std) at
+    S4_STD_F64_ATOL x max, or S5B_GRAD_SPREAD x the larger of the two
+    frameworks' own float32 errors where that is more (each one's standard
+    float32 gradient against its float64 one, over the max), + GRAD_RTOL x
+    |value|; the port's own float32 error capped at S5B_MAX_OWN or twice
+    rpst's worst over the network. A parameter without a gradient has
+    rpst's zeros. Logs the three tensors of the largest own errors; raises
+    after the log on any failed check. Returns a summary."""
+    rows, bad = [], []
+    live = [n for n in f64s if float(f64s[n].abs().max()) > 0.0]
+    rpst_worst = max(float((ref_std[n].double() - f64s[n]).abs().max())
+                     / float(f64s[n].abs().max()) for n in live)
+    for name, truth in f64s.items():
+        size = float(truth.abs().max())
+        if name not in std["f64"]:
+            if size != 0.0 or name in std["f32"]:
+                bad.append(f"{name}: no float64 gradient, rpst's max {size}")
+            continue
+        truth = truth.to(std["f64"][name].device)
+        g64, g32 = std["f64"][name], std["f32"][name].double()
+        r32 = ref_std[name].to(truth.device).double()
+        if size == 0.0:
+            bad.append(f"{name}: rpst's float64 gradient is zero")
+            continue
+        e64 = float((g64 - truth).abs().max()) / size
+        if not bool(((g64 - truth).abs() <= S4_STD_F64_ATOL * size
+                     + 5e-3 * truth.abs()).all()):
+            bad.append(f"{name} float64: max err {e64:.3g} x max")
+        own_rpst = float((r32 - truth).abs().max()) / size
+        own_port = float((g32 - g64).abs().max()) / size
+        if own_port > max(S5B_MAX_OWN, 2 * rpst_worst):
+            bad.append(f"{name}: the port's own float32 error "
+                       f"{own_port:.3g}, rpst's worst {rpst_worst:.3g}")
+        atol = max(S4_STD_F64_ATOL, S5B_GRAD_SPREAD * max(own_rpst, own_port))
+        e32 = float((g32 - r32).abs().max()) / size
+        if not bool(((g32 - r32).abs() <= atol * size
+                     + GRAD_RTOL * r32.abs()).all()):
+            bad.append(f"{name} float32: max err {e32:.3g} x max (atol "
+                       f"{atol:.3g})")
+        rows.append((own_port, name, e64, e32, own_rpst,
+                     e32 / max(own_rpst, own_port, 1e-30)))
+    if set(std["f32"]) != set(std["f64"]) or not set(std["f64"]) <= set(f64s):
+        bad.append("gradients unchecked")
+    rows.sort(reverse=True)
+    log("34 slice-4 fixture", f"{label} standard path, largest own float32 "
+        "errors (tensor: the port's own, rpst's own, float32 err, float64 "
+        "err, over max): " + "; ".join(
+            f"{n} {o:.3g} / {r:.3g} / {e32:.3g} / {e64:.3g}"
+            for o, n, e64, e32, r, _ in rows[:3]) + f"; rpst's worst own "
+        f"{rpst_worst:.3g}")
+    if bad:
+        raise AssertionError(f"{label} standard path: " + "; ".join(bad))
+    return (f"standard path held: float64 worst err / max "
+            f"{max(r[2] for r in rows):.3g} (limit {S4_STD_F64_ATOL}), "
+            f"float32 {max(r[3] for r in rows):.3g} against rpst's standard "
+            f"float32, at most {max(r[5] for r in rows):.3g} x the larger own "
+            f"float32 error (limit {S5B_GRAD_SPREAD})")
+
+
+def _standard_wgrad_kernels(std, name, ref, ref_std, f64s):
+    """Parameter ``name``'s float32 errors on the standard path (the port's
+    and rpst's standard path's against their float64 gradients, rpst's
+    folded path's beside them, over the max) and the CUDA kernels of the
+    profiled float32 backward's convolution_backward ops of its layer
+    (matched by the layer weight's shape): the cuDNN algorithm that
+    computes its gradient."""
+    import collections
+    size = float(f64s[name].abs().max())
+    truth = f64s[name].to(std["f64"][name].device)
+
+    def own(g):
+        return float((g.to(truth.device).double() - truth).abs().max()) / size
+    weight = name.rsplit(".", 1)[0] + ".weight"
+    shape = list(std["f32"][weight if weight in std["f32"] else name].shape)
+    kernels = collections.Counter()
+    for ev in std["prof"].events():
+        if ev.name != "aten::convolution_backward" or \
+                shape not in [list(x) for x in ev.input_shapes if x]:
+            continue
+        stack = [ev]
+        while stack:
+            e = stack.pop()
+            kernels.update(k.name[:90] for k in e.kernels)
+            stack.extend(e.cpu_children)
+    return (f"{name}: own float32 error over max, the port's standard "
+            f"{float((std['f32'][name].double() - std['f64'][name]).abs().max()) / size:.3g}"
+            f", rpst's standard {own(ref_std[name]):.3g}, rpst's folded "
+            f"{own(ref[name]):.3g}; its layer's float32 convolution_backward "
+            f"(weight {tuple(shape)}) runs " + ("; ".join(
+                f"{k} x{n}" for k, n in kernels.most_common(4))
+                or "no CUDA kernel recorded"))
 
 
 def _check_s4_grads(label, model, ref, std, f64):
@@ -3906,16 +4062,15 @@ def _s4_fixtures(dev):
         grads = [from_flax_params(trees[k])
                  for k in ("grads", "grads_std", "grads_f64")]
         worst, ratio = _check_s4_grads(network, bundle.model, *grads)
-        # the standard path's float32 gradients on the card (cuDNN, no
-        # kernel of the port), against rpst's float64 ones: what float32
-        # on the card reads at this point, beside the folded path's
-        plain, _ = _s4_fixture_bundle(dev, network, fx, trees)
-        plain.cfg = plain.cfg.replace(exec_strategy="standard")
-        plain.model.train()
-        plain.loss(vgg, c, s)[0].backward()
+        # the standard path (cuDNN, no kernel of the port) in float32 and
+        # float64 on the card, held by phases 39 / 45's rule against rpst's
+        # float64 gradients with float64 statistics (grads_f64s)
+        std = _s4_standard_grads(dev, network, fx, trees, vgg, c, s)
+        f64s = from_flax_params(trees["grads_f64s"])
+        held = _check_s4_standard(network, std, grads[1], f64s)
         f64_err = {k: _f64_err_ratio(m, grads[0], grads[2])
                    for k, m in (("folded", bundle.model),
-                                ("standard", plain.model))}
+                                ("standard", std["model"]))}
         msg.append(f"loss {float(total):.7g} vs {float(fx['total_loss']):.7g}"
                    f", worst gradient err / max {worst:.3g}, at most "
                    f"{ratio:.3g} x the tensor's own float32 error in rpst "
@@ -3924,9 +4079,12 @@ def _s4_fixtures(dev):
                    f"folded (B1-B3) {f64_err['folded'][0]:.3g} / "
                    f"{f64_err['folded'][1]:.3g}, standard (cuDNN) "
                    f"{f64_err['standard'][0]:.3g} / "
-                   f"{f64_err['standard'][1]:.3g}; B1/B2/B3 "
+                   f"{f64_err['standard'][1]:.3g} (at "
+                   f"{f64_err['standard'][2]}); {held}; B1/B2/B3 "
                    f"{S4_PER_STEP[network]}")
-        del plain
+        msg.append(_standard_wgrad_kernels(std, f64_err["standard"][2],
+                                           grads[0], grads[1], f64s))
+        del std
         if network == "sel_multi_adain":
             moved = from_flax_batch_stats(trees["stats_after"])
             bufs = dict(bundle.model.named_buffers())
@@ -5148,14 +5306,23 @@ LD_FIXTURE_CFG = {n: dict(network=n, rp_blocks=5, ld_layer_num=5,
 # decoder conv 0
 LD_PLAN = {"ld_adain": {"scales": 4, "B5": 6, "B5_7x7": 2},
            "ld_adain2": {"scales": 4, "B5": 4, "B5_7x7": 0}}
-# LD v1's two 7x7 shapes at 512px (the 2N batch of one pair)
+# LD v1's two 7x7 shapes at 512px: the 2N batch of one pair (b1) and of
+# four (b4)
 B5_7X7_SHAPES = (("LD v1 layer 3 7x7 128->128", (2, 512, 512, 128, 128)),
-                 ("LD v1 layer 4 7x7 256->256", (2, 512, 512, 256, 256)))
-# around the 7x7 form's tiles: the smallest maps (H, W = 4, 5), ragged
-# 8 x 16 tiles (17, 33), Co off the 64 / 128 channel blocks, C = 4 and 36
-# (a partial 32-byte K step, word loads)
+                 ("LD v1 layer 4 7x7 256->256", (2, 512, 512, 256, 256)),
+                 ("LD v1 layer 3 7x7 128->128 b4", (8, 512, 512, 128, 128)),
+                 ("LD v1 layer 4 7x7 256->256 b4", (8, 512, 512, 256, 256)))
+# around the 7x7 form's tiles (16 x 16 pixels, 128 channels, clusters of
+# two blocks): maps smaller than a tile and a grid smaller than a cluster (4
+# x 4, 5 x 5, 5 x 4), one whole tile, ragged tiles both ways (17 x 33, 33 x
+# 17, 4 x 37), Co off the 8-channel groups and the 128-channel block (4, 68,
+# 132, 200, 260), C = 4 and 36 (a partial 32-byte chunk, rows not 16-byte
+# aligned: word loads), N = 8, and C = 2048 (64 chunks, the exact int32
+# sum's limit)
 B5_7X7_EDGES = ((1, 4, 4, 4, 4), (2, 5, 5, 36, 68), (1, 17, 33, 128, 132),
-                (2, 33, 17, 256, 200), (1, 4, 37, 64, 260), (3, 5, 4, 32, 4))
+                (2, 33, 17, 256, 200), (1, 4, 37, 64, 260), (3, 5, 4, 32, 4),
+                (1, 16, 16, 32, 128), (8, 19, 21, 64, 136),
+                (1, 6, 6, 2048, 8))
 # rpst's int8 features against the card's: one step on under this share
 LD_FEATURE_TIES = 1e-3
 
@@ -5172,47 +5339,49 @@ def _b5_layer7(rng, dev, n, h, w, c, co):
     return tuple(torch.from_numpy(a).to(dev) for a in (x, k, sc))
 
 
-def _ptxas_occupancy(log_text, k):
-    """Blocks and warps per SM of the 7x7 instances from ptxas's register
-    counts (``-Xptxas -v``) and their dynamic shared memory (the kernel's
-    Tile sizes): '' when the build was cached."""
+def _ptxas_occupancy(log_text):
+    """Blocks and warps per SM of the 7x7 kernel's two instances from
+    ptxas's register counts (``-Xptxas -v``) and their dynamic shared memory
+    (``b5_7x7_plan``): '' when the build was cached."""
     import re
+    from rpst_torch.ops.conv2d_q8 import THREADS_7X7, b5_7x7_plan
+    smem = b5_7x7_plan(1, 16, 16, 32, 128)["smem_bytes"]
     lines = log_text.splitlines()
     out = {}
     for i, ln in enumerate(lines):
-        m = re.search(r"conv2d_mma_kernelILi(\d+)ELi(\d+)ELi(\d)", ln)
-        if not m or int(m.group(1)) != k:
+        m = re.search(r"conv7x7_wgmma_kernelILb(\d)E", ln)
+        if not m:
             continue
         regs = next((int(r.group(1)) for r in (
             re.search(r"Used (\d+) registers", x) for x in lines[i:i + 4])
             if r), None)
-        tco, mode = int(m.group(2)), int(m.group(3))
-        stage = ((8 + (3 if k == 3 else 1) - 1) * (16 + k - 1) * 2 * 16
-                 + (9 if k == 3 else k) * tco * 32)
-        smem = (2 if k == 3 and tco == 128 else 3) * stage
-        blocks = min(65536 // (regs * 256) if regs else 0,
-                     233472 // (smem + 1024), 8)
-        out[tco, mode] = (f"TCO {tco} {('int8', 'bf16')[mode]} out: {regs} "
-                          f"registers, {smem} B shared, {blocks} blocks "
-                          f"({8 * blocks} of 64 warps) a SM")
+        threads = -(-THREADS_7X7 // 32) * 32
+        blocks = min(65536 // (regs * threads) if regs else 0,
+                     233472 // (smem + 1024))
+        out[m.group(1)] = (f"{('bf16', 'int8')[int(m.group(1))]} out: {regs} "
+                           f"registers x {THREADS_7X7} threads, {smem} B "
+                           f"shared, {blocks} block(s) ({blocks * threads // 32}"
+                           f" of 64 warps) a SM")
     return "; ".join(out.values())
 
 
 def b5_7x7_checks(dev, name_power, timed=True):
     """B5's 7x7 form against its plain version: int8 and bf16 out, alpha
-    0.2 and 0, at B5_7X7_EDGES and LD v1's two 512px shapes, each output
-    compared bit for bit with the plain version and with a second run; with
-    ``timed`` each path shape timed raw (the C interface on fixed buffers),
-    through the wrapper (packed weights kept, as the path keeps them),
-    beside the plain version, F.conv2d bf16 7x7 on the dequantized values
-    (not the same function: no PyTorch call takes int8 on CUDA) and the
-    bound of its int8 operations. Returns (failed checks, the kernels
-    line's numbers at 256 -> 256)."""
+    0.2 and 0, at B5_7X7_EDGES and LD v1's two 512px shapes at N = 2 (int8
+    out, alpha 0.2, at N = 8), each output compared bit for bit with the
+    plain version and with a second run; the bytes its tiling stages from
+    L2 (``b5_7x7_plan``) at each path shape; with ``timed`` each path shape
+    timed raw (the C interface on fixed buffers), through the wrapper
+    (packed weights kept, as the path keeps them), beside the plain version
+    (N = 2), F.conv2d bf16 7x7 on the dequantized values (not the same
+    function: no PyTorch call takes int8 on CUDA) and the bound of its int8
+    operations. Returns (failed checks, the kernels line's numbers at (2,
+    512, 512, 256 -> 256))."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from rpst_torch.kernels import build
-    from rpst_torch.ops.conv2d_q8 import (fused_conv2d_q8,
+    from rpst_torch.ops.conv2d_q8 import (b5_7x7_plan, fused_conv2d_q8,
                                           fused_conv2d_q8_plain,
                                           pack_conv2d_weights)
     rng = np.random.default_rng(44)
@@ -5247,20 +5416,29 @@ def b5_7x7_checks(dev, name_power, timed=True):
         log("44 B5 7x7", f"edge {shape}: int8 and bf16 out, alpha 0.2 and "
             f"0: {state}")
         bad += n
-    occ = _ptxas_occupancy(build.build_info.get("conv2d_q8", {}).get(
-        "log", ""), 7)
+    occ = _ptxas_occupancy(build.build_info.get("conv2d_q8_7x7", {}).get(
+        "log", ""))
     log("44 B5 7x7", f"occupancy (ptxas registers, the tile's shared "
         f"memory): {occ or 'not measured (cached build)'}")
-    lib = build.load("conv2d_q8")
+    lib = build.load("conv2d_q8_7x7")
     for label, shape in B5_7X7_SHAPES:
         n_, h, w, c, co = shape
         x, k, sc = _b5_layer7(rng, dev, *shape)
+        modes = ((True, 0.2), (True, 0.0), (False, 0.2), (False, 0.0)) \
+            if n_ == 2 else ((True, 0.2),)
         nb = sum(check(f"{label} out_int8={o} alpha={a}", x, k, sc, o, a)
-                 for o in (True, False) for a in (0.2, 0.0))
+                 for o, a in modes)
         bad += nb
+        plan = b5_7x7_plan(*shape)
         msg = f"{label} {shape}: " + (
-            "bit-equal to plain and across two runs, int8 and bf16 out, "
-            "alpha 0.2 and 0" if not nb else f"{nb} FAILED")
+            ("bit-equal to plain and across two runs, int8 and bf16 out, "
+             "alpha 0.2 and 0" if n_ == 2 else "int8 out alpha 0.2 "
+             "bit-equal to plain and across two runs") if not nb
+            else f"{nb} FAILED") + (
+            f"; L2 -> shared {plan['l2_bytes'] / 1e9:.3f} GB (weights "
+            f"{plan['weight_bytes'] / 1e9:.3f}, halos "
+            f"{plan['halo_bytes'] / 1e9:.3f}) over {plan['items']} "
+            f"cluster work items, a grid of {plan['grid']} blocks")
         if timed:
             kp = pack_conv2d_weights(k)
             y = torch.empty((n_, h, w, co), device=dev, dtype=torch.int8)
@@ -5276,7 +5454,8 @@ def b5_7x7_checks(dev, name_power, timed=True):
                 x, k, sc, True, 0.2, "reflect", w_packed=kp), iters=5,
                 warmup=1)
             t_plain = cuda_ms(lambda: fused_conv2d_q8_plain(
-                x, k, sc, True, 0.2, "reflect"), iters=2, warmup=1)
+                x, k, sc, True, 0.2, "reflect"), iters=2, warmup=1) \
+                if n_ == 2 else None
             xd = (x.float() * 0.01).to(torch.bfloat16).permute(0, 3, 1, 2)
             wd = (k.float() * 0.01).to(torch.bfloat16).permute(3, 2, 0, 1) \
                 .contiguous(memory_format=torch.channels_last)
@@ -5286,12 +5465,14 @@ def b5_7x7_checks(dev, name_power, timed=True):
             ops = 2 * 49 * n_ * h * w * c * co
             b_ms, b_by = bound_ms(ops, n_ * h * w * (c + co) + 49 * c * co
                                   + 3 * co * 4, "int8")
-            msg += (f"; raw {t_raw:.4f} ms ({ops / t_raw / 1e9:.0f} TOP/s), "
+            msg += (f"; raw {t_raw:.4f} ms ({ops / t_raw / 1e9:.0f} TOP/s, "
+                    f"{plan['l2_bytes'] / t_raw / 1e9:.2f} TB/s from L2), "
                     f"through the wrapper {t_wrap:.4f}, plain (float64) "
-                    f"{t_plain:.2f}, F.conv2d bf16 7x7 {t_lib:.4f}; bound "
-                    f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / t_raw:.1f}% of "
-                    f"it reached raw; {name_power})")
-            if c == 256:
+                    + (f"{t_plain:.2f}" if t_plain else "not timed at N = 8")
+                    + f", F.conv2d bf16 7x7 {t_lib:.4f}; bound {b_ms:.4f} ms "
+                    f"by {b_by} ({100 * b_ms / t_raw:.1f}% of it reached raw"
+                    f"; {name_power})")
+            if (n_, c) == (2, 256):
                 out.update(ms=t_wrap, raw_ms=t_raw, plain_ms=t_plain,
                            library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
             del kp, y, xd, wd
@@ -5732,6 +5913,111 @@ def _ld_timing(dev, rng, name_power):
             f"{cfg.batch_size * 1e3 / ms:8.2f} img/s, peak {peak:.2f} GiB "
             f"({name_power})")
         del state, bundle
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 49: adain training on the card
+# ---------------------------------------------------------------------------
+
+ADAIN_TRAIN_YAML = REPO / "configs" / "train_deeper_rp_adain.yaml"
+# the fixture's network: the yaml's (tools/make_torch_port_fixture.py
+# SLICE5B["adain_train"])
+ADAIN_TRAIN_CFG = dict(network="adain", rp_blocks=5, hidden_dim=16)
+
+
+def _adain_train(dev, name_power):
+    """Phase 49: adain's training on the card against
+    torch_port_adain_train.npz (the yaml's widths, 64px b2, seeded
+    weights): loss parts (rtol 1e-4), float32 and float64 gradients by the
+    slice-5b rule (_5b_check_grads: float64 1e-4 x max, float32 S5B_GRAD_SPREAD
+    x the larger own error), the 3-step trajectory (1e-2), no kernel of the
+    port launched; then the yaml's 512px b8 train step (test_dir cleared)
+    timed in float32 and in its own bfloat16, with the peak device memory.
+    CUDA events, medians of 3 after 1."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import from_flax_params, rpseq_weights_from_seed
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import adam_count, create_train_state, \
+        train_step
+    with np.load(REPO / "tests" / "fixtures"
+                 / "torch_port_adain_train.npz") as npz:
+        fx = {k: npz[k] for k in npz.files}
+    size = fx["content"].shape[1]
+    cfg = load_config(dict(ADAIN_TRAIN_CFG, img_size=size, vgg="",
+                           test_dir="", lr=float(fx["lr"]),
+                           lr_decay=float(fx["lr_decay"]), **S5B_LOSS))
+    weights = from_flax_params(rpseq_weights_from_seed(
+        int(fx["weights_seed"]), rp_blocks=ADAIN_TRAIN_CFG["rp_blocks"],
+        hidden_dim=ADAIN_TRAIN_CFG["hidden_dim"]))
+
+    def bundle():
+        b = build_model(cfg, dev)
+        b.load_state_dict(weights)
+        return b
+    vgg = _5b_vgg(dev, int(fx["vgg_seed"]))
+    c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+    grads = {}
+    for dt in (torch.float32, torch.float64):
+        b = bundle()
+        b.model.to(dt).train()
+        _reset_counts()
+        total, parts = b.loss(vgg.to(dt), c.to(dt), s.to(dt))
+        total.backward()
+        if any(_counts(("B1", "B2", "B3", "B5"))):
+            raise AssertionError("adain's loss launched a kernel")
+        grads[dt] = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                     for n, p in b.model.named_parameters()}
+        if dt == torch.float32:
+            for k, v in parts.items():
+                got, want = float(v.detach()), float(fx[k])
+                if not abs(got - want) <= LOSS_RTOL * abs(want):
+                    raise AssertionError(f"adain {k}: {got} vs rpst {want}")
+        del b
+    vgg = vgg.float()
+    w32, w64, zero = _5b_check_grads("adain_train", grads[torch.float32],
+                                     grads[torch.float64], fx, GRAD_ATOL_REL)
+    state = create_train_state(bundle())
+    losses = [float(train_step(state, vgg, c, s)["total_loss"])
+              for _ in range(len(fx["trajectory"]))]
+    rel = np.abs(np.asarray(losses) - fx["trajectory"]) \
+        / np.abs(fx["trajectory"])
+    if not (rel[0] <= LOSS_RTOL and (rel[1:] <= 1e-2).all()
+            and adam_count(state.optimizer) == 3):
+        raise AssertionError(f"adain trajectory {losses} vs rpst "
+                             f"{fx['trajectory']}")
+    log("49 adain train", f"adain (rp_blocks 5, hidden 16) {size}px b2 vs "
+        f"rpst JAX: loss parts within {LOSS_RTOL}; gradients worst err / "
+        f"max {w32:.3g} (float32), {w64:.3g} (float64), {zero} zero up to "
+        f"rounding; trajectory rel err {[f'{r:.2g}' for r in rel]}; no "
+        "kernel of the port")
+    del state, grads
+    vgg = _5b_vgg(dev, 1)
+    rng = np.random.default_rng(49)
+    for dt in ("float32", "bfloat16"):
+        cfg = load_config(str(ADAIN_TRAIN_YAML), dict(
+            img_size=IMG, vgg="", test_dir="", compute_dtype=dt))
+        b = build_model(cfg, dev)
+        init_torch_default(b.model, 0)
+        c, s = (torch.from_numpy(rng.random((cfg.batch_size, IMG, IMG, 3),
+                                            np.float32)).to(dev)
+                for _ in range(2))
+        state = create_train_state(b)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if any(_counts(("B1", "B2", "B3", "B5"))):
+            raise AssertionError("adain's train step launched a kernel")
+        log("49 adain train", f"train step {ADAIN_TRAIN_YAML.name} {IMG}px "
+            f"b{cfg.batch_size} {dt}: {ms:9.3f} ms/step "
+            f"{cfg.batch_size * 1e3 / ms:8.2f} img/s, peak {peak:.2f} GiB "
+            f"({name_power})")
+        del state, b, c, s
         torch.cuda.empty_cache()
 
 

@@ -32,9 +32,9 @@ kernel of the port; spade at b1 only: its b4 float32 step outgrew the
 card's 80 GB). With ``--network ld_adain`` .. ``ld_adain5`` the LD network
 at its yaml's settings (``configs/train_ld*_rp_adain.yaml``, ``use_mask``
 off) the same way: the standard stylize at b1 and b4 in float32 and
-bfloat16, ``--q8`` the int8 stylize of v1 / v2 (B5 and its 7x7 form, both
-``conv2d_mma_kernel``: one column), ``--train`` the train step (no kernel
-of the port).
+bfloat16, ``--q8`` the int8 stylize of v1 / v2 (B5's ``conv2d_mma_kernel``
+and its 7x7 form's ``conv7x7_wgmma_kernel``, a column each), ``--train`` the
+train step (no kernel of the port).
 
 For each case it prints one Markdown table row:
 
@@ -47,7 +47,8 @@ For each case it prints one Markdown table row:
                 weight packing, prep_weights_kernel, counts as other; B3
                 grad_weight_mma + _reduce, B4
                 folded_conv_q8_kernel, B7 folded_conv2_q8_kernel, B5
-                conv2d_mma_kernel, B6 flash_fwd_tf32_kernel (float32) and
+                conv2d_mma_kernel, B5 7x7 conv7x7_wgmma_kernel, B6
+                flash_fwd_tf32_kernel (float32) and
                 flash_fwd_mma_kernel (bfloat16), B6c
                 flash_bwd_dq_kernel, B6d flash_bwd_dkv_kernel; the stats'
                 finalize_sums counts as other)
@@ -99,6 +100,7 @@ KERNELS = {"B1": ("folded_mma_kernel[B1]",),
            "B3": ("grad_weight_mma", "grad_weight_reduce"),
            "B4": ("folded_conv_q8_kernel",), "B7": ("folded_conv2_q8_kernel",),
            "B5": ("conv2d_mma_kernel",),
+           "B5 7x7": ("conv7x7_wgmma_kernel",),
            "B6": ("flash_fwd_tf32_kernel", "flash_fwd_mma_kernel"),
            "B6c": ("flash_bwd_dq_kernel",), "B6d": ("flash_bwd_dkv_kernel",)}
 ADAIN = dict(network="adain", rp_blocks=5, hidden_dim=32, seed=0)
@@ -272,6 +274,7 @@ def main():
     tables = []
     cols = (("B6", "B6c", "B6d") if sanet and args.train
             else ("B6", "B5") if sanet
+            else ("B5", "B5 7x7") if args.network == "ld_adain"
             else ("B5",) if adain or feature
             else ("B1", "B2", "B3", "B5") if args.q8_targets
             else ("B1", "B2", "B3") if args.train

@@ -1,12 +1,11 @@
 // B5 on Hopper: the standard-layout 3x3 conv of the wide-channel paths, int8
-// (quantized serving, int8 VGG loss targets) and bf16, on the tensor cores,
-// and its 7x7 int8 form (the LD v1 network's big-branch convs).
+// (quantized serving, int8 VGG loss targets) and bf16, on the tensor cores.
+// Its 7x7 int8 form (the LD v1 network's big-branch convs) is
+// conv2d_q8_7x7.cu.
 //
 // Replaces the TPU kernels `fused_conv2d_q8` (wrapper :220) and
 // `fused_conv2d_bf16` (:154) of src/rpst/ops/pallas/conv2d_q8.py, which
-// share the body `_make_kernel` (:36). The 7x7 form replaces no Pallas
-// kernel: it computes what src/rpst/models/fast_path_q8.py `_xla_conv_q8`
-// (:1415) asks of the TPU compiler's own int8 conv. On the plain NHWC layout:
+// share the body `_make_kernel` (:36). On the plain NHWC layout:
 //
 //   int8:  y   = act(float(conv3x3(pad(x)) as int32) * deq + bias)
 //          out = clip(round_half_even(y * inv), -127, 127) as int8, or bf16(y)
@@ -16,10 +15,7 @@
 // with x (N, H, W, C) and, for int8, scales (3, Co) float rows [deq = x_scale
 // * w_scale, bias, inv = 1 / out_scale]. `pad` is one pixel of reflection
 // (row -1 = row 1, row H = row H-2, the same for columns) or of zeros, which
-// is exact on int8 because the quantizer is symmetric. The 7x7 form takes
-// three pixels of reflection (row -3 = row 3, row H + 2 = row H - 4), so it
-// needs H, W >= 4; its int32 sum is exact while 49 * C * 127^2 < 2^31, that
-// is for C <= 2048 (the C interface refuses more). The halo is read by
+// is exact on int8 because the quantizer is symmetric. The halo is read by
 // index while a tile is staged: there are no row slabs and no `rings` operand
 // as in the TPU kernel. The int8 epilogue rounds as rpst's does
 // (q8_common.cuh: two roundings, no FMA, half to even) and the int32 sum is
@@ -67,13 +63,9 @@
 //     takes bytes [8t, 8t + 8) of a row for both k-halves of its fragment
 //     (one 8-byte shared load); the 4 rows a half-warp reads are 128
 //     contiguous bytes.
-//   * The 7x7 form is the same kernel with the tap count K a template
-//     parameter. Staging all 49 taps' weights for a K step would take 49 x
-//     TCO x 32 bytes (200 KB at TCO = 128) a stage, so a step of the 7x7
-//     form is one kernel row of one 32-byte K chunk: the 8 x 22-pixel input
-//     rows that row reads and its 7 taps' weights (34 KB at TCO = 128), in a
-//     ring of 3 stages (103 KB: two blocks a SM, as the 3x3 form). The 3x3
-//     form keeps one step per K chunk for all 9 taps, as before.
+//   * The tap count K is a template parameter whose one instance is 3 (the
+//     7x7 form that also instantiated it moved to conv2d_q8_7x7.cu); its
+//     step stages all 9 taps of one K chunk.
 //   * Epilogue: an accumulator fragment holds 2 adjacent channels of rows g
 //     and g + 8; neighbouring lanes swap halves so each ends with 4
 //     consecutive channels of one pixel, stored as one packed word (int8) or
@@ -375,8 +367,8 @@ int launch_mode(const void* x, const void* wp, const float* rows, void* y,
                                               alpha, s);
 }
 
-bool shape_ok(int N, int H, int W, int C, int Co, int unit, int min_hw = 2) {
-  return N >= 1 && N <= 65535 && H >= min_hw && W >= min_hw && C >= unit &&
+bool shape_ok(int N, int H, int W, int C, int Co, int unit) {
+  return N >= 1 && N <= 65535 && H >= 2 && W >= 2 && C >= unit &&
          Co >= unit && C % unit == 0 && Co % unit == 0 &&
          (Co + 63) / 64 <= 65535;
 }
@@ -405,22 +397,6 @@ extern "C" int rpst_conv2d_q8(const void* x, const void* wp,
   if (reflect)
     return launch_mode<1, true>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
   return launch_mode<1, false>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
-}
-
-// int8, 7x7, reflect pad 3: as rpst_conv2d_q8 with wp (7, 7, ceil(C / 32), Co,
-// 32) int8. Needs C % 4 == 0, Co % 4 == 0, C <= 2048 (the exact int32 sum),
-// H, W >= 4.
-extern "C" int rpst_conv2d_q8_7x7(const void* x, const void* wp,
-                                  const void* scales, void* y, int N, int H,
-                                  int W, int C, int Co, int out_int8,
-                                  float alpha, void* stream) {
-  if (!shape_ok(N, H, W, C, Co, 4, 4) || C > 2048)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sp = static_cast<const float*>(scales);
-  if (out_int8)
-    return launch_mode<0, true, 7>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
-  return launch_mode<1, true, 7>(x, wp, sp, y, N, H, W, C, Co, alpha, s);
 }
 
 // bf16: x (N, H, W, C) and y (N, H, W, Co) bf16; wp the packed weights (3,

@@ -52,8 +52,8 @@ _FOLDED_CONV2_Q8_ARGS = [_PTR] * 14 + [_INT] * 8 + [_PTR]
 # x, packed w (ops.folded_conv.pack_k_major), scales, y (device
 # pointers), N, H, W, C, Co, out_int8, reflect, alpha, stream
 _CONV2D_Q8_ARGS = [_PTR] * 4 + [_INT] * 7 + [_FLOAT, _PTR]
-# the 7x7 form: x, packed w, scales, y, N, H, W, C, Co, out_int8, alpha,
-# stream (reflect pad 3 only)
+# B5's 7x7 form: x, packed w (wgmma's order), scales, y, N, H, W, C, Co,
+# out_int8, alpha, stream (reflect pad 3 only)
 _CONV2D_Q8_7X7_ARGS = [_PTR] * 4 + [_INT] * 6 + [_FLOAT, _PTR]
 # x, packed w, bias, y (device pointers), N, H, W, C, Co, reflect, alpha,
 # stream
@@ -88,8 +88,10 @@ SIGNATURES = {
     },
     "conv2d_q8": {
         "rpst_conv2d_q8": (_CONV2D_Q8_ARGS, _INT),
-        "rpst_conv2d_q8_7x7": (_CONV2D_Q8_7X7_ARGS, _INT),
         "rpst_conv2d_bf16": (_CONV2D_BF16_ARGS, _INT),
+    },
+    "conv2d_q8_7x7": {
+        "rpst_conv2d_q8_7x7": (_CONV2D_Q8_7X7_ARGS, _INT),
     },
     "flash_attention": {
         "rpst_flash_fwd_f32": (_FLASH_FWD_ARGS, _INT),

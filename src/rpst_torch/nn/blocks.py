@@ -9,8 +9,8 @@ pad by reflection; ``RPSequence`` (adain, wct) pads with zeros.
 
 Not ported yet (they raise ``NotImplementedError``): inception 1x1 stacks,
 SE/SK attention inside the blocks, batch/instance norm and prelu, which
-belong to ROADMAP.md section A slice 4's remainder and slice 5 (the wide
-families). sel_multi_adain's SE bottleneck after the last fusion is
+belong to ROADMAP.md section A slice 4's remainder (the Conv2dBlock
+options). sel_multi_adain's SE bottleneck after the last fusion is
 ``nn.attention``.
 """
 
@@ -65,8 +65,8 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 _SLICE_OF_OPTION = {
     "inception_num": "slice 4 (its remainder: the inception configs)",
     "attention": "slice 4 (its remainder: SE/SK attention in the blocks)",
-    "norm": "slice 5 (the wide standard-layout families)",
-    "activation": "slice 5 (the wide standard-layout families)",
+    "norm": "slice 4 (its remainder: the Conv2dBlock norm bn / in)",
+    "activation": "slice 4 (its remainder: the Conv2dBlock prelu)",
 }
 
 

@@ -14,10 +14,14 @@ bf16; port of ``rpst.ops.pallas.conv2d_q8``; and its 7x7 int8 form.
     verified utility, and so does the port).
 
 Both run ``csrc/conv2d_q8.cu`` on CUDA tensors: an implicit GEMM on the
-int8 (bfloat16) tensor cores. The kernel reads its weights K-major in
-32-byte steps (``pack_conv2d_weights``); the public functions take HWIO and
-repack per call unless the caller hands in the packed copy it keeps
-(``w_packed``, as ``models.fast_path_q8_std`` does per layer).
+int8 (bfloat16) tensor cores; the 7x7 form runs ``csrc/conv2d_q8_7x7.cu``
+(``wgmma`` with both operands in shared memory, two blocks of a cluster
+sharing each weight stage; ``b5_7x7_plan`` counts its tiles and staged
+bytes). The kernels read their weights K-major in 32-byte steps
+(``pack_conv2d_weights``; the 7x7 form in ``wgmma``'s core-matrix order);
+the public functions take HWIO and repack per call unless the caller hands
+in the packed copy it keeps (``w_packed``, as ``models.fast_path_q8_std``
+does per layer).
 
 ``pad_mode`` is "reflect" (one pixel: row -1 = row 1, row H = row H-2, the
 same for columns) or "zero"; ``alpha`` is the leaky slope (0.0 = relu, 1.0
@@ -88,26 +92,47 @@ def fused_conv2d_bf16_plain(x, w, b, alpha: float = 0.0,
     return _act(y, alpha).to(torch.bfloat16)
 
 
+def packed_shape(w: torch.Tensor) -> tuple:
+    """The shape ``pack_conv2d_weights(w)`` returns for HWIO ``w``."""
+    k, c, co = w.shape[0], w.shape[2], w.shape[3]
+    if k == 7:
+        return (7, 7, -(-c // 32), -(-co // 8), 2, 8, 16)
+    ke = 32 // w.element_size()
+    return (k, k, -(-c // ke), co, ke)
+
+
 def pack_conv2d_weights(w: torch.Tensor) -> torch.Tensor:
     """HWIO (3, 3, C, Co) int8 or bfloat16, or (7, 7, C, Co) int8, weights in
-    the CUDA kernel's order: (K, K, ceil(C / KE), Co, KE) contiguous, KE = 32
-    int8 or 16 bfloat16 input channels (32 bytes, one k-step of the kernel's
-    ``mma``), zeros past C. ``packed[dr, dc, s, co, e] = w[dr, dc, s * KE +
-    e, co]``."""
+    the CUDA kernel's order, zeros past C (and Co).
+
+    3x3: (3, 3, ceil(C / KE), Co, KE) contiguous, KE = 32 int8 or 16
+    bfloat16 input channels (32 bytes, one k-step of the kernel's ``mma``):
+    ``packed[dr, dc, s, co, e] = w[dr, dc, s * KE + e, co]``.
+
+    7x7: ``wgmma``'s K-major core matrices without swizzle, (7, 7, ceil(C /
+    32), ceil(Co / 8), 2, 8, 16): ``packed[dr, dc, s, q, h, r, b] = w[dr, dc,
+    32 s + 16 h + b, 8 q + r]``, so a (tap, chunk) block of output channels
+    is one contiguous run: per 8 channels two core matrices of 8 rows x 16
+    bytes, the K halves 128 bytes apart, the 8-channel groups 256."""
     k = tuple(w.shape[:2]) if w.ndim == 4 else None
     if not (k == (3, 3) and w.dtype in (torch.int8, torch.bfloat16)
             or k == (7, 7) and w.dtype == torch.int8):
         raise ValueError(f"pack_conv2d_weights: expected (3, 3, C, Co) int8 "
                          f"or bfloat16 or (7, 7, C, Co) int8, got "
                          f"{tuple(w.shape)} {w.dtype}")
-    return pack_k_major(w)
+    if k == (3, 3):
+        return pack_k_major(w)
+    _, _, steps, groups, _, _, _ = packed_shape(w)
+    c, co = w.shape[2], w.shape[3]
+    padded = F.pad(w, (0, groups * 8 - co, 0, steps * 32 - c))
+    return padded.reshape(7, 7, steps, 2, 16, groups, 8) \
+        .permute(0, 1, 2, 5, 3, 6, 4).contiguous()
 
 
 def _packed(name, w, w_packed):
     if w_packed is None:
         return pack_conv2d_weights(w)
-    ke = 32 // w.element_size()
-    want = (*w.shape[:2], -(-w.shape[2] // ke), w.shape[3], ke)
+    want = packed_shape(w)
     if tuple(w_packed.shape) != want or w_packed.dtype != w.dtype \
             or w_packed.device != w.device or not w_packed.is_contiguous():
         raise ValueError(f"{name}: w_packed must be pack_conv2d_weights(w): "
@@ -120,6 +145,35 @@ def _packed(name, w, w_packed):
 # the 7x7 form's largest C: 49 * C * 127^2 stays below 2^31, so the int32 sum
 # is exact
 C_MAX_7X7 = 2048
+# the 7x7 kernel's tiling (csrc/conv2d_q8_7x7.cu): pixel tile, output
+# channels, blocks of a cluster (which share each weight stage), threads (two
+# consumer warpgroups and a producer warpgroup) and weight stages
+TILE_7X7, TCO_7X7, CLUSTER_7X7 = 16, 128, 2
+THREADS_7X7, STAGES_7X7 = 384, 7
+
+
+def b5_7x7_plan(n: int, h: int, w: int, c: int, co: int) -> dict:
+    """The 7x7 kernel's launch at (N, H, W, C -> Co) on an H100 (132 SMs,
+    which the kernel asks the device for): its work items (a cluster's pair of 16 x 16 pixel tiles, one
+    128-channel block, one image), its persistent grid (one block a SM at
+    most, whole clusters), the bytes it stages from L2 into shared memory
+    (each item's weight stages: 49 taps x 32-byte chunks x the channel
+    block's rows of 32 bytes, padded to 8 channels; each block's halo:
+    (16 + 6)^2 pixels x 32 bytes a chunk, at most, since zero-filled pieces
+    read nothing) and a block's dynamic shared memory."""
+    tiles = -(-h // TILE_7X7) * -(-w // TILE_7X7)
+    pairs = -(-tiles // CLUSTER_7X7)
+    steps, co8 = -(-c // 32), -(-co // 8) * 8
+    rows = [min(TCO_7X7, co8 - co0) for co0 in range(0, co8, TCO_7X7)]
+    items = pairs * len(rows) * n
+    weight = pairs * n * 49 * steps * sum(rows) * 32
+    halo = items * CLUSTER_7X7 * steps * (TILE_7X7 + 6) ** 2 * 32
+    # the weight ring, two halos of two 16-byte planes, 18 barriers
+    smem = (STAGES_7X7 * 7 * TCO_7X7 * 32 + 2 * 2 * (TILE_7X7 + 6) ** 2 * 16
+            + 8 * 2 * (STAGES_7X7 + 2))
+    return dict(items=items, grid=min(items, 132 // CLUSTER_7X7)
+                * CLUSTER_7X7, weight_bytes=weight, halo_bytes=halo,
+                l2_bytes=weight + halo, smem_bytes=smem)
 
 
 def _check_layer(name, x, w, pad_mode, unit, sizes=(3,)):
@@ -180,7 +234,7 @@ def fused_conv2d_q8(x_q, w_q, scales, out_int8: bool, alpha: float = 0.2,
                     dtype=torch.int8 if out_int8 else torch.bfloat16)
     from ..kernels.build import launch
     if w_q.shape[0] == 7:
-        launch("conv2d_q8", "rpst_conv2d_q8_7x7", "B5 (7x7)", x_q,
+        launch("conv2d_q8_7x7", "rpst_conv2d_q8_7x7", "B5 (7x7)", x_q,
                _packed(name, w_q, w_packed), scales, y, n, h, w, c, co,
                int(out_int8), float(alpha))
         with _launch_lock:

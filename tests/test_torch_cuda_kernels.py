@@ -454,6 +454,70 @@ def test_b5_7x7_matches_plain_on_card(cuda_device, out_int8, alpha, shape):
     assert torch.equal(view(again), view(ref))
 
 
+def _b5_7x7_layer(shape, device, seed=7):
+    """int8 x, (7, 7, C, Co) weights and scale rows near a real layer's."""
+    rng = np.random.default_rng(seed)
+    n, h, w, c, co = shape
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c),
+                                      dtype=np.int8)).to(device)
+    k = torch.from_numpy(rng.integers(-127, 128, (7, 7, c, co),
+                                      dtype=np.int8)).to(device)
+    sc = torch.from_numpy(np.stack([
+        rng.uniform(2e-6, 6e-6, co) * (128 / c) * (9 / 49),
+        rng.normal(0, 0.2, co), rng.uniform(10.0, 40.0, co)]).astype(
+            np.float32)).to(device)
+    return x, k, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_int8,alpha", [(True, 0.2), (False, 0.0),
+                                            (True, 0.0), (False, 0.2)])
+@pytest.mark.parametrize("shape", [
+    (1, 4, 4, 32, 128), (2, 17, 33, 64, 128), (1, 33, 17, 64, 128),
+    (1, 20, 20, 32, 4), (1, 20, 20, 32, 68), (1, 20, 20, 32, 132),
+    (1, 20, 20, 32, 200), (1, 20, 20, 32, 260), (2, 19, 21, 4, 64),
+    (2, 19, 21, 36, 64), (1, 5, 5, 64, 64), (8, 24, 24, 64, 128)])
+def test_b5_7x7_wgmma_tile_edges_on_card(cuda_device, out_int8, alpha,
+                                         shape):
+    """The edges of the 7x7 form's tiling (16 x 16 pixels a block, 128
+    output channels, 32-byte K chunks, clusters of two blocks sharing each
+    weight stage): a map smaller than one tile (4 x 4, 5 x 5: the grid is
+    padded to the cluster, one block computes outside the image), ragged
+    tiles both ways (17 x 33, 33 x 17), Co off the 8-channel groups and the
+    128-channel block (4, 68, 132, 200, 260), C = 4 and 36 (a partial
+    chunk, rows not 16-byte aligned), N = 8; with the weights packed by the
+    caller, as the path keeps them. Bits equal to plain in both outputs and
+    across two runs, one 7x7 launch a call."""
+    x, k, sc = _b5_7x7_layer(shape, cuda_device)
+    packed = pack_conv2d_weights(k)
+    before = fused_conv2d_q8.launches_7x7
+    got = fused_conv2d_q8(x, k, sc, out_int8, alpha, "reflect",
+                          w_packed=packed)
+    again = fused_conv2d_q8(x, k, sc, out_int8, alpha, "reflect",
+                            w_packed=packed)
+    torch.cuda.synchronize()
+    assert fused_conv2d_q8.launches_7x7 == before + 2
+    ref = fused_conv2d_q8_plain(x, k, sc, out_int8, alpha, "reflect")
+    view = (lambda t: t) if out_int8 else (lambda t: t.view(torch.int16))
+    assert torch.equal(view(got), view(ref))
+    assert torch.equal(view(again), view(got))
+
+
+@pytest.mark.cuda
+def test_b5_7x7_refuses_what_its_kernel_does_not_take(cuda_device):
+    """A 7x7 weight on the card reaches its kernel or raises: packed weights
+    of the 3x3 order are refused, and so is a C past the exact int32 sum."""
+    x, k, sc = _b5_7x7_layer((1, 8, 8, 32, 8), cuda_device)
+    with pytest.raises(ValueError, match="w_packed"):
+        fused_conv2d_q8(x, k, sc, True, 0.2, "reflect",
+                        w_packed=pack_conv2d_weights(k).view(7, 7, 1, 8, 32))
+    big = torch.zeros((1, 4, 4, 2052), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="C <= 2048"):
+        fused_conv2d_q8(big, torch.zeros((7, 7, 2052, 4), dtype=torch.int8,
+                                         device=cuda_device),
+                        torch.zeros((3, 4), device=cuda_device), True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_int8", [True, False])
 def test_b5_mrf_decoder_head_on_card(cuda_device, out_int8):

@@ -141,6 +141,25 @@ def test_unported_options_raise(extra):
         build_model(load_config(dict(SMALL, hidden_dim=8, **extra)))
 
 
+@pytest.mark.parametrize("option", [dict(norm="bn"), dict(norm="in"),
+                                    dict(activation="prelu")])
+def test_block_refusals_name_a_queued_slice(option):
+    """rpst's Conv2dBlock norm bn / in and prelu (``nn/blocks.py:142-155``)
+    are refused with the slice that queues them: slice 4's remainder, which
+    ROADMAP.md section A still lists (slice 5 is closed)."""
+    from pathlib import Path
+
+    from rpst_torch.nn.blocks import Conv2dBlock
+    with pytest.raises(NotImplementedError) as err:
+        Conv2dBlock(8, 8, **option)
+    msg = str(err.value)
+    assert "ROADMAP.md section A slice 4 (its remainder" in msg, msg
+    roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md") \
+        .read_text()
+    queue = roadmap.split("### A.", 1)[1].split("### B.", 1)[0]
+    assert "**Slice 4's remainder" in queue and "slice 5" not in msg
+
+
 def test_bf16_folded_stylize_matches_rpst():
     """The bfloat16 folded flagship (compute_dtype bfloat16: rpst's
     ``_folded_dtype``) against rpst's bfloat16 folded stylize, full width

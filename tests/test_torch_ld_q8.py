@@ -153,7 +153,8 @@ def test_7x7_off_the_cpu_reaches_its_kernel_or_raises(monkeypatch):
     before = (b5.fused_conv2d_q8.launches, b5.fused_conv2d_q8.launches_7x7)
     with pytest.raises(RuntimeError, match="no card"):
         b5.fused_conv2d_q8(x, k, sc, True, 0.2, "reflect")
-    assert calls == [("conv2d_q8", "rpst_conv2d_q8_7x7", (7, 7, 1, 8, 32))]
+    assert calls == [("conv2d_q8_7x7", "rpst_conv2d_q8_7x7",
+                      (7, 7, 1, 1, 2, 8, 16))]
     assert (b5.fused_conv2d_q8.launches,
             b5.fused_conv2d_q8.launches_7x7) == before
     monkeypatch.undo()
@@ -166,15 +167,60 @@ def test_7x7_off_the_cpu_reaches_its_kernel_or_raises(monkeypatch):
 
 @pytest.mark.parametrize("c,co", [(4, 4), (36, 132), (128, 64)])
 def test_7x7_packed_weights_are_the_hwio_weights_k_major(c, co):
+    """The 7x7 kernel's packing: K-major core matrices of wgmma, (7, 7,
+    steps, Co groups of 8, 2 K halves, 8 channels, 16 bytes), zeros past C
+    and Co; element by element packed[dr, dc, s, q, h, r, b] = w[dr, dc, 32
+    s + 16 h + b, 8 q + r]."""
     g = torch.Generator().manual_seed(c + co)
     w = torch.randint(-127, 128, (7, 7, c, co), generator=g).to(torch.int8)
     packed = b5.pack_conv2d_weights(w)
-    steps = -(-c // 32)
-    assert packed.shape == (7, 7, steps, co, 32) and packed.is_contiguous()
-    back = packed.permute(0, 1, 2, 4, 3).reshape(7, 7, steps * 32, co)
-    assert torch.equal(back[:, :, :c], w) and not back[:, :, c:].any()
+    steps, groups = -(-c // 32), -(-co // 8)
+    assert packed.shape == (7, 7, steps, groups, 2, 8, 16)
+    assert packed.is_contiguous()
+    back = packed.permute(0, 1, 2, 4, 6, 3, 5).reshape(7, 7, steps * 32,
+                                                       groups * 8)
+    assert torch.equal(back[:, :, :c, :co], w)
+    assert not back[:, :, c:].any() and not back[:, :, :, co:].any()
+    dr, dc, s, q, h, r, b = 3, 5, steps - 1, groups - 1, 0, 1, 2
+    want = w[dr, dc, 32 * s + 16 * h + b, 8 * q + r] \
+        if 32 * s + 16 * h + b < c and 8 * q + r < co else 0
+    assert int(packed[dr, dc, s, q, h, r, b]) == int(want)
     with pytest.raises(ValueError, match="pack_conv2d_weights"):
         b5.pack_conv2d_weights(w.to(torch.bfloat16))
+
+
+def test_7x7_plan_counts_the_kernels_tiles_and_bytes():
+    """``b5_7x7_plan`` at LD v1's shapes and the tiling's edges, and its
+    constants against the kernel source's: the weight and halo bytes a
+    launch stages from L2 (the widest shape within the 4 GB budget), the
+    grid padded to the cluster, the channel blocks' rows."""
+    import re
+    from pathlib import Path
+    src = (Path(b5.__file__).resolve().parent.parent / "csrc"
+           / "conv2d_q8_7x7.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)[;,]", src)[1])
+    assert (const("TH"), const("TCO"), const("CLUSTER"), const("STAGES")) \
+        == (b5.TILE_7X7, b5.TCO_7X7, b5.CLUSTER_7X7, b5.STAGES_7X7)
+    assert re.search(r"THREADS = CONSUMERS \* 128 \+ 128", src) \
+        and const("CONSUMERS") * 128 + 128 == b5.THREADS_7X7
+    wide = b5.b5_7x7_plan(2, 512, 512, 256, 256)
+    assert wide["items"] == 2048 and wide["grid"] == 132
+    assert wide["weight_bytes"] == 2048 * 49 * 8 * 128 * 32
+    assert wide["halo_bytes"] == 4096 * 8 * 22 * 22 * 32
+    assert wide["l2_bytes"] == 3_795_845_120 < 4e9
+    narrow = b5.b5_7x7_plan(2, 512, 512, 128, 128)
+    assert (narrow["weight_bytes"], narrow["halo_bytes"]) == (
+        1024 * 49 * 4 * 128 * 32, 2048 * 4 * 22 * 22 * 32)
+    tiny = b5.b5_7x7_plan(1, 4, 4, 4, 4)
+    assert tiny["items"] == 1 and tiny["grid"] == 2
+    assert tiny["weight_bytes"] == 49 * 8 * 32  # 4 channels padded to 8
+    ragged = b5.b5_7x7_plan(3, 17, 33, 36, 260)
+    assert ragged["items"] == 3 * 3 * 3 and ragged["grid"] == 54
+    assert ragged["weight_bytes"] == 9 * 49 * 2 * (128 + 128 + 8) * 32
+    assert wide["smem_bytes"] == (b5.STAGES_7X7 * 7 * 4096 + 2 * 15488
+                                  + 8 * 2 * (b5.STAGES_7X7 + 2)) <= 232448
 
 
 # ---------------------------------------------------------------- gates

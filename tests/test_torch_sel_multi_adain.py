@@ -117,7 +117,7 @@ def fixture_params(fx):
     """The fixture's flax params tree (its other trees dropped)."""
     return {k: v for k, v in fx["trees"].items()
             if k not in ("batch_stats", "grads", "grads_std", "grads_f64",
-                         "stats_after")}
+                         "grads_f64s", "stats_after")}
 
 
 def fixture_bundle(network, fx, **over):

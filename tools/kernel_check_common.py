@@ -66,13 +66,15 @@ def check_prep(op, k, packed, bits):
     return int(not ok)
 
 
-def sass_counts(name: str, mnemonics, function: str = "") -> str:
-    """'SASS: n IMMA, ...' of the built ``csrc/<name>.cu``, by cuobjdump; with
-    ``function``, of the kernels whose (mangled) name contains it only."""
+def sass_counts(name: str, mnemonics, function: str = "",
+                lib: Path = None) -> str:
+    """'SASS: n IMMA, ...' of the built ``csrc/<name>.cu`` (or of the library
+    ``lib``), by cuobjdump; with ``function``, of the kernels whose
+    (mangled) name contains it only."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return "cuobjdump not in the toolkit"
-    text = subprocess.run([str(tool), "-sass", str(build.build(name))],
+    text = subprocess.run([str(tool), "-sass", str(lib or build.build(name))],
                           capture_output=True, text=True).stdout
     if function:
         text = "".join(part for part in text.split("Function : ")[1:]

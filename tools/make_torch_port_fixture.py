@@ -157,7 +157,10 @@ gradients with those targets given (``ModelBundle.loss(targets=...)``).
 The slice-5b fixtures (``--mrf``, ``--spade``, ``--seg-adain``,
 ``--wct-train``; 64px, batch 2, full width: rp_blocks 5, hidden_dim 32;
 spade's condition 512 channels, ndf 2, the instance norm; seg_adain's head
-32 wide over 19 classes; loss weights content 1, style 2, mrf 1, seg 1)
+32 wide over 19 classes; loss weights content 1, style 2, mrf 1, seg 1),
+and the adain training fixture (``--adain-train``: the same keys as
+wct_train's, without the freeze, at the widths of
+``configs/train_deeper_rp_adain.yaml``: rp_blocks 5, hidden_dim 16)
 hold:
   * ``weights_seed``: the params are ``rpst_torch.bridge.
     {mrf,spade,seg_adain}_weights_from_seed(weights_seed)`` (wct:
@@ -199,7 +202,7 @@ quantized with ``act_scales[1]``) and ``q8_out`` (conv_a's int8 output at
 
 Usage:
   python tools/make_torch_port_fixture.py --mrf | --spade | --seg-adain
-      | --wct-train
+      | --wct-train | --adain-train
   python tools/make_torch_port_fixture.py --ld | --ld-adain | ... |
       --ld-adain5
   python tools/make_torch_port_fixture.py --adain | --wct | --q8-targets
@@ -258,7 +261,9 @@ SLICE5B = {
     "spade": dict(WIDE, network="spade", ndf=2, spade_norm="instance"),
     "seg_adain": dict(WIDE, network="seg_adain", seg_hidden_dim=32,
                       class_num=19, seg_loss_weight=1.0),
-    "wct_train": dict(WIDE, network="wct")}
+    "wct_train": dict(WIDE, network="wct"),
+    # configs/train_deeper_rp_adain.yaml's widths
+    "adain_train": dict(network="adain", rp_blocks=5, hidden_dim=16)}
 # the LD family at its yamls' widths (configs/train_ld*_rp_adain.yaml)
 LD = ("ld_adain", "ld_adain2", "ld_adain3", "ld_adain4", "ld_adain5")
 LD_HIDDEN = {"ld_adain": 16, "ld_adain2": 8}
@@ -810,13 +815,20 @@ def make_slice4_fixture(network: str, seed: int = 0, size: int = 64) -> dict:
     return arrays
 
 
-def slice4_grads_f64(network: str, arrays: dict) -> dict:
+def slice4_grads_f64(network: str, arrays: dict,
+                     f64_stats: bool = False) -> dict:
     """rpst's standard-path gradients in float64 at a slice-4 fixture's
     point (its params, batch_stats, images and VGG): ``grads_f64/<path>``.
     Where rpst's two float32 gradients sit as far from these as from each
     other or further, float32 rounding that both paths share (the same
     elementwise ops on almost the same inputs round alike) is what the
-    port's gradients can be held to. Turns on JAX's float64 mode."""
+    port's gradients can be held to. With ``f64_stats`` the feature
+    statistics run in float64 too (``ld_f64_stats``; rpst rounds them to
+    float32 even for float64 features, which leaves ccam's float64
+    gradients 2% of max from the port's float64 ones):
+    ``grads_f64s/<path>``, the float64 function the card's float64
+    gradients are held to (``chip_smoke.py`` phase 34). Turns on JAX's
+    float64 mode."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -840,11 +852,15 @@ def slice4_grads_f64(network: str, arrays: dict) -> dict:
     std = build_model(load_config(dict(
         SLICE4[network], img_size=c.shape[1], lr=TRAIN["lr"],
         lr_decay=TRAIN["lr_decay"], **SLICE4_LOSS)))
-    grads = jax.jit(jax.grad(lambda p, e, v, x, y: std.loss(
-        {"params": p, **e}, v, x, y, train=True)[0]))(params, extra,
-                                                       vgg_vars, c, s)
-    out = {f"grads_f64/{k}": np.asarray(v, np.float64)
-           for k, v in _flat(grads)}
+    undo = ld_f64_stats() if f64_stats else (lambda: None)
+    try:
+        grads = jax.jit(jax.grad(lambda p, e, v, x, y: std.loss(
+            {"params": p, **e}, v, x, y, train=True)[0]))(params, extra,
+                                                           vgg_vars, c, s)
+    finally:
+        undo()
+    key = "grads_f64s" if f64_stats else "grads_f64"
+    out = {f"{key}/{k}": np.asarray(v, np.float64) for k, v in _flat(grads)}
     assert all(v.dtype == np.float64 for v in out.values())
     return out
 
@@ -985,8 +1001,9 @@ def _grad_keys(grads, prefix=""):
 
 def make_slice5b_fixture(network: str, seed: int = 0,
                          size: int = 64) -> dict:
-    """The mrf / spade / seg_adain / wct_train fixture's arrays, computed
-    afresh with JAX on the CPU (rpst's int8 kernel in interpret mode)."""
+    """The mrf / spade / seg_adain / wct_train / adain_train fixture's
+    arrays, computed afresh with JAX on the CPU (rpst's int8 kernel in
+    interpret mode)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -1021,7 +1038,7 @@ def make_slice5b_fixture(network: str, seed: int = 0,
                                        dtype=np.int32)
         label = jnp.asarray(arrays["label"])
 
-    if network != "wct_train":
+    if network not in ("wct_train", "adain_train"):
         var = {"params": params}
         sl = cfg.stylized_layers
         arrays["out_f32"] = np.asarray(jax.jit(bundle.stylize)(
@@ -1122,7 +1139,8 @@ def _f64_calc_mean_std(feat, eps: float = 1e-5):
 
 def ld_f64_stats():
     """Run rpst's feature statistics (AdaIN, the style loss) in float64 for
-    the LD fixtures' float64 gradients, until the returned undo is called.
+    the LD fixtures' float64 gradients (and the slice-4 fixtures'
+    ``grads_f64s``), until the returned undo is called.
     With the statistics rounded to float32, as rpst computes them, the two
     frameworks' float64 gradients of the LD family sit up to 4e-4 of max
     apart (each rounds its float32 sums in another order, and the LD losses
@@ -1213,10 +1231,11 @@ def main():
         if args.grads_f64:
             with np.load(args.dst) as npz:
                 arrays = {k: npz[k] for k in npz.files
-                          if not k.startswith("grads_f64/")}
+                          if not k.startswith(("grads_f64/", "grads_f64s/"))}
         else:
             arrays = make_slice4_fixture(slice4[0], args.seed, args.size)
         arrays.update(slice4_grads_f64(slice4[0], arrays))
+        arrays.update(slice4_grads_f64(slice4[0], arrays, f64_stats=True))
     elif args.target_cache:
         arrays = make_target_cache_fixture(args.seed, args.size)
         args.dst = args.dst or str(TARGET_CACHE_DST)

@@ -9,8 +9,10 @@ through the user's entry points, the flagship's three variants
 target cache, mrf, spade and seg_adain (standard and int8 serving,
 training) with wct's training and its frozen-encoder resume, and the LD
 family (ld_adain .. ld_adain5: standard serving and training, int8 serving
-of v1 and v2, v1's 7x7 convs on B5's 7x7 form) and adain's training, and
-times them. Needs one
+of v1 and v2, v1's 7x7 convs on B5's 7x7 form), adain's training, and the
+masked stylize, SE attention and test dumps of slice 7 (the flagship yaml
+as written through train_torch.py and test_torch.py), and times them.
+Needs one
 NVIDIA
 Hopper card; run from the repository root with no arguments:
 
@@ -306,6 +308,31 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                float32 and float64 gradients by the slice-5b rule, the
                3-step trajectory, no kernel launched; the yaml's 512px b8
                train step timed in float32 and bfloat16 with its peak memory
+
+ 50. masks fixture  the masked stylize on the card vs rpst's JAX
+               (tests/fixtures/torch_port_masks.npz, 64px b2, seeded label
+               maps holding the filter's four cases): the flagship yaml's
+               multi_adain at full width (attention se, use_mask; and with
+               sort), ccam, sel_multi_adain, src, seg_adain and LD v1, f32
+               (1e-4) and bf16 (MAE < 1e-2 or 3 x rpst's own bf16
+               distance), no B1 and no B4 launched (rpst's gates); the SE
+               flagship's train-mode loss parts, float32 gradients (4 x
+               each tensor's own float32 error in rpst) and moved
+               BatchNorm statistics
+ 51. flagship yaml  configs/train_constant_multiscale_rp_adain.yaml as
+               written (512px b8 bf16, attention se, use_mask) through
+               train_torch.py as a subprocess, only data paths, VGG,
+               output and cadence overridden: 3 steps, a test dump of a
+               synthetic photoreal set (tools/make_photoreal_set.py) in
+               which a masked AdaIN ran; test_torch.py on the checkpoint
+               writes the same files, its PNGs the masked stylize's
+ 52. masks timing  the yaml's model at 512px b1 / b8, bf16 and f32:
+               masked stylize vs the same model without labels in both
+               orders, with peak memory; the masked AdaIN op alone; the
+               yaml's b8 bf16 train step (img/s, peak memory)
+ 53. test_torch    test_torch.py on the recon yaml (exec_strategy folded:
+               15 B1 launches for its one batch) and on
+               configs/train_dynamic_sanet.yaml (claim-map sheets written)
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -790,7 +817,14 @@ def main():
     # ---- 49. adain training on the card ------------------------------------
     _adain_train(dev, name_power)
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-49")
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 50-53")
+    # ---- 50-53. slice 7: masks, SE attention, the test dumps ---------------
+    _masks_fixture(dev)
+    _flagship_yaml(dev)
+    _masks_timing(dev, rng, name_power)
+    recon_b1 = _test_torch_paths(dev)
+
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-53")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -808,7 +842,8 @@ def main():
          "source": "src/rpst_torch/csrc/folded_conv.cu",
          "replaces": "src/rpst/ops/pallas/folded_conv.py:650",
          "launches": (main_launches + train_launches[0] + q8_launches["B1"]
-                      + q8t_launches[0] + s4_serve["B1"] + s4_train[0]),
+                      + q8t_launches[0] + s4_serve["B1"] + s4_train[0]
+                      + recon_b1),
          "max_abs_err": f32_err, "ms": b12["B1"]["ms"],
          "plain_ms": b12["B1"]["plain_ms"], "bound_ms": bnd["B1"][0],
          "bound_by": bnd["B1"][1], "library_ms": b12["B1"]["library_ms"]},
@@ -4193,7 +4228,7 @@ def _mst_parity(bundle, c, s, folded, standard):
     with torch.inference_mode():
         feats = {dt: _encode_folded(bundle.folded_weights(dt), c, s, dt)
                  for dt in (torch.float32, torch.bfloat16)}
-        cf_std, sf_std = bundle.model.ms.encode(c, s)
+        cf_std, sf_std, _ = bundle.model.ms.encode(c, s)
         cf_f, sf_f = (unfold(f[-1]) for f in feats[torch.float32])
         cf_s, sf_s = (f[-1].permute(0, 2, 3, 1) for f in (cf_std, sf_std))
         width = cf_f.shape[-1]
@@ -6019,6 +6054,410 @@ def _adain_train(dev, name_power):
             f"({name_power})")
         del state, b, c, s
         torch.cuda.empty_cache()
+
+
+# ---- 50-53. slice 7: masks, SE attention, the test dumps ------------------
+MASKS_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_masks.npz"
+FLAGSHIP_YAML = REPO / "configs" / "train_constant_multiscale_rp_adain.yaml"
+RECON_YAML = (REPO / "configs"
+              / "train_constant_multiscale_rp_adain_recon.yaml")
+# the bfloat16 rule of tests/test_torch_masks.py: MAE < 1e-2, or 3 x rpst's
+# own bfloat16 distance from its float32 output where that is more
+MASK_BF16_MAE, MASK_BF16_OWN = 1e-2, 3.0
+# the SE flagship's float32 gradients: 4 x the tensor's own float32 error in
+# rpst (its float32 gradient from its float64 one) on the card, as phases
+# 34 / 39 / 45 hold theirs (2 x on the CPU)
+MASK_GRAD_SPREAD = 4.0
+# a folded flagship stylize launches B1 on its 15 RP layers (phase 3)
+B1_PER_STYLIZE = 15
+
+
+def _tool(name):
+    """A module of tools/ (numpy and PIL only) by file name."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name,
+                                                  REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _npz_tree(fx, prefix):
+    """The flax tree of a fixture's ``prefix`` keys (``a/b/c`` paths)."""
+    tree = {}
+    for key, value in fx.items():
+        if key.startswith(prefix):
+            node = tree
+            *parents, leaf = key[len(prefix):].split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = value
+    return tree
+
+
+def _mask_case_bundle(dev, fx, case, dtype):
+    """A masks-fixture case's bundle on the card in ``dtype``: its config
+    (stored in the fixture), its weights (stored, or the ``bridge`` draw of
+    the stored seed), the feature models' 4-stage VGG from ``vgg_seed``."""
+    from rpst_torch import bridge
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model, build_vgg
+    cfg = json.loads(str(fx[f"{case}/config"]))
+    cfg = load_config(dict(cfg, img_size=fx["content"].shape[1],
+                           compute_dtype=dtype))
+    if f"{case}/weights_seed" in fx:
+        seed = int(fx[f"{case}/weights_seed"])
+        tree = {"src": lambda: bridge.src_weights_from_seed(seed),
+                "seg_adain": lambda: bridge.seg_adain_weights_from_seed(
+                    seed, seg_hidden_dim=cfg.seg_hidden_dim,
+                    class_num=cfg.class_num, rp_blocks=cfg.rp_blocks,
+                    hidden_dim=cfg.hidden_dim),
+                "ld_adain": lambda: bridge.ld_weights_from_seed(
+                    case, seed, cfg.ld_layer_num, cfg.hidden_dim,
+                    cfg.stylized_layers)}[case]()
+        sd = bridge.from_flax_params(tree)
+    else:
+        sd = {**bridge.from_flax_params(_npz_tree(fx, f"{case}/params/")),
+              **bridge.from_flax_batch_stats(
+                  _npz_tree(fx, f"{case}/batch_stats/"))}
+    bundle = build_model(cfg, dev)
+    bundle.load_state_dict(sd)
+    if bundle.from_features:
+        bundle.vgg = build_vgg(cfg.replace(seed=int(fx["vgg_seed"]) - 1),
+                               dev)[0]
+    return bundle
+
+
+def _masks_fixture(dev):
+    """Phase 50: the masked stylize on the card against rpst's JAX
+    (tests/fixtures/torch_port_masks.npz, 64px b2): the flagship yaml's
+    multi_adain (attention se, use_mask; and with sort), ccam,
+    sel_multi_adain, src, seg_adain and LD v1 with seeded label maps, f32
+    (F32_TOL) and bf16 (MAE < 1e-2 or 3 x rpst's own bf16 distance); no B1
+    and no B4 launched (rpst's gates: labels and use_mask keep the folded
+    and int8 paths shut); the labels' filter read on the maps; then the SE
+    flagship's train-mode loss parts (rtol 1e-4), float32 gradients (rtol
+    5e-3, atol 1e-4 x max or 4 x the tensor's own float32 error in rpst)
+    and moved BatchNorm statistics (1e-5)."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import from_flax_batch_stats, from_flax_params
+    from rpst_torch.ops.segment import label_validity
+    with np.load(MASKS_FIXTURE) as npz:
+        fx = {k: npz[k] for k in npz.files}
+    c, s, cl, sl = (torch.from_numpy(fx[k]).to(dev) for k in
+                    ("content", "style", "c_labels", "s_labels"))
+    valid = int(label_validity(cl, sl, 64).sum())
+    if valid == 0:
+        raise AssertionError("masks fixture: no label passes the filter")
+    cases = sorted({k.split("/")[0] for k in fx if k.endswith("/config")})
+    for case in cases:
+        ref32 = fx[f"{case}/out_f32"]
+        for dt in ("float32", "bfloat16"):
+            bundle = _mask_case_bundle(dev, fx, case, dt)
+            _reset_counts()
+            out = bundle.stylize(c, s, cl, sl)
+            torch.cuda.synchronize()
+            launched = _counts(("B1", "B4"))
+            if any(launched):
+                raise AssertionError(f"{case} {dt} masked stylize launched "
+                                     f"B1/B4 {launched}")
+            if dt == "float32":
+                err, mae = check_close(f"masks {case} f32", out,
+                                       torch.from_numpy(ref32).to(dev), F32_TOL)
+                note = f"max abs err {err:.3g}, MAE {mae:.3g} (tol {F32_TOL})"
+            else:
+                ref = fx[f"{case}/out_bf16"]
+                got = out.float().cpu().numpy()
+                mae = float(np.abs(got - ref).mean())
+                own = float(np.abs(ref - ref32).mean())
+                limit = max(MASK_BF16_MAE, MASK_BF16_OWN * own)
+                if not (np.isfinite(got).all() and mae < limit):
+                    raise AssertionError(f"masks {case} bf16 MAE {mae} >= "
+                                         f"{limit} (rpst's own {own})")
+                note = (f"MAE {mae:.3g} (limit {limit:.3g}; rpst's own bf16 "
+                        f"distance {own:.3g})")
+            log("50 masks fixture", f"{case} {dt}: {note}; B1/B4 0/0")
+            del bundle
+    bundle = _mask_case_bundle(dev, fx, "multi_adain", "float32")
+    bundle.model.train()
+    vgg = _5b_vgg(dev, int(fx["vgg_seed"]))
+    _reset_counts()
+    total, parts = bundle.loss(vgg, c, s)
+    total.backward()
+    if any(_counts(("B1", "B2", "B3", "B4", "B5"))):
+        raise AssertionError("the SE flagship's loss launched a kernel")
+    for k in ("content_loss", "style_loss", "total_loss"):
+        got, want = float(parts[k].detach()), float(fx[f"multi_adain/{k}"])
+        if not abs(got - want) <= LOSS_RTOL * abs(want):
+            raise AssertionError(f"SE flagship {k}: {got} vs rpst {want}")
+    ref = from_flax_params(_npz_tree(fx, "multi_adain/grads/"))
+    f64 = from_flax_params(_npz_tree(fx, "multi_adain/grads_f64/"))
+    worst = (0.0, "")
+    for name, p in bundle.model.named_parameters():
+        size = float(f64[name].abs().max())
+        got = p.grad.detach().float().cpu()
+        if size == 0.0:
+            if float(got.abs().max()) > 1e-9:
+                raise AssertionError(f"SE flagship {name}: a gradient where "
+                                     "rpst's is zero")
+            continue
+        own = float((ref[name] - f64[name]).abs().max()) / size
+        atol = max(GRAD_ATOL_REL, MASK_GRAD_SPREAD * own) * size
+        err = (got - ref[name]).abs()
+        if not bool((err <= atol + GRAD_RTOL * ref[name].abs()).all()):
+            raise AssertionError(f"SE flagship gradient {name}: max abs err "
+                                 f"{float(err.max())} > atol {atol}")
+        worst = max(worst, (float(err.max()) / size, name))
+    moved = from_flax_batch_stats(_npz_tree(fx, "multi_adain/stats_after/"))
+    sd = bundle.model.state_dict()
+    stat_err = max(float((sd[n].float().cpu() - v).abs().max())
+                   for n, v in moved.items())
+    if not stat_err <= 1e-5:
+        raise AssertionError(f"SE flagship running statistics {stat_err}")
+    log("50 masks fixture", f"{len(cases)} cases x f32/bf16 held; {valid} "
+        "labels of the fixture's maps pass the filter; SE flagship train "
+        f"mode: loss parts within {LOSS_RTOL}, gradients worst err / max "
+        f"{worst[0]:.3g} ({worst[1]}), moved statistics {stat_err:.3g}")
+
+
+def _photoreal(root, n=2, size=IMG):
+    """The synthetic photoreal test set (tools/make_photoreal_set.py)."""
+    return _tool("make_photoreal_set").make_photoreal_set(root, n, size)
+
+
+def _driver_run(script, args, timeout=600):
+    """A driver as a subprocess; returns its log (stdout + stderr)."""
+    proc = subprocess.run([sys.executable, str(REPO / script), *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=str(REPO))
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"{script} rc {proc.returncode}:\n{text[-3000:]}")
+    return text
+
+
+def _dump_names(path):
+    return sorted(p.name for p in Path(path).iterdir())
+
+
+def _flagship_yaml(dev):
+    """Phase 51: configs/train_constant_multiscale_rp_adain.yaml as
+    written (attention se, use_mask, photoreal test set, 512px b8 bf16)
+    through train_torch.py as a subprocess, overriding only the data paths,
+    the VGG (seeded: none is in the repository), the output and the
+    cadence (max_iter 4, test_iter 2, log_iter 1, snapshot_save_iter 2):
+    3 steps, a test dump at step 2 of the synthetic photoreal set (2 pairs)
+    in which a masked AdaIN ran (the logged labels past the filter), no
+    kernel launched; then test_torch.py on the saved checkpoint writes the
+    same file names; the dumped PNG is the masked stylize of that
+    checkpoint in this process (within 3 8-bit levels: bfloat16 on another
+    process's cuDNN choices), and the unmasked one is further from it."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rpst_torch.config import load_config
+    from rpst_torch.data import build_test_dataset, iter_batches
+    from rpst_torch.models import build_model
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        photo = _photoreal(tmp / "photo")
+        out = tmp / "flagship"
+        paths = [f"content_dir={tmp / 'corpus' / 'content'}",
+                 f"style_dir={tmp / 'corpus' / 'style'}",
+                 f"test_dir={photo}", "vgg=", f"output={out}"]
+        t0 = time.perf_counter()
+        text = _driver_run("train_torch.py", [
+            "--config", str(FLAGSHIP_YAML), "--device", "cuda", "--set",
+            *paths, "max_iter=4", "test_iter=2", "log_iter=1",
+            "snapshot_save_iter=2"])
+        wall = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in
+                 (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+        if [ln["step"] for ln in lines] != [1, 2, 3] or any(
+                ln["skipped"] or not np.isfinite(ln["total_loss"])
+                for ln in lines):
+            raise AssertionError(f"flagship yaml metrics: {lines}")
+        valid = [int(m.split("masked AdaIN, ")[1].split(" ")[0])
+                 for m in text.splitlines() if "masked AdaIN, " in m]
+        names = [f"in{k}-tar{k}{t}" for k in range(2)
+                 for t in ("-cat.png", ".png")]
+        if _dump_names(out / "test" / "2") != sorted(names) \
+                or not valid or not all(valid):
+            raise AssertionError(f"flagship yaml test dump: "
+                                 f"{_dump_names(out / 'test')} valid {valid}"
+                                 f"\n{text[-3000:]}")
+        if "B1/B2/B3 launches: 0/0/0" not in text:
+            raise AssertionError("the SE flagship (standard) launched B1-B3")
+        rate = [m for m in text.splitlines() if "Iterations 3," in m]
+        log("51 flagship yaml", f"train_torch.py {FLAGSHIP_YAML.name} as "
+            f"written ({IMG}px b8 bfloat16, attention se, use_mask): 3 steps "
+            f"in {wall:.1f}s wall, total_loss "
+            f"{[round(ln['total_loss'], 4) for ln in lines]}; test dump at "
+            f"step 2: {len(names)} files, masked AdaIN with {valid} label(s) "
+            f"past the filter; {rate[-1].split(' - ')[-1][:60] if rate else ''}")
+        text = _driver_run("test_torch.py", [
+            "--config", str(FLAGSHIP_YAML), "--device", "cuda", "--set",
+            *paths])
+        test_out = out / "test" / "test_output"
+        if _dump_names(test_out) != sorted(names) \
+                or "Loaded checkpoint" not in text:
+            raise AssertionError(f"test_torch.py: {_dump_names(test_out)}"
+                                 f"\n{text[-3000:]}")
+        cfg = load_config(str(FLAGSHIP_YAML), dict(test_dir=str(photo),
+                                                   vgg=""))
+        bundle = build_model(cfg, dev)
+        saved = torch.load(out / "checkpoints" / "3" / "state.pt",
+                           map_location="cpu", weights_only=True)
+        bundle.load_state_dict(saved["params"])
+        content, style, c_names, s_names, c_m, s_m = next(iter_batches(
+            build_test_dataset(cfg), cfg.batch_size))
+        c, s = (torch.from_numpy(a).to(dev) for a in (content, style))
+        cl, sl = (torch.from_numpy(a).to(dev) for a in (c_m, s_m))
+        masked = bundle.stylize(c, s, cl, sl).cpu().numpy()
+        plain = bundle.stylize(c, s).cpu().numpy()
+        written = np.stack([np.asarray(Image.open(
+            test_out / f"{cn}-{sn}.png"), np.float32)
+            for cn, sn in zip(c_names, s_names)])
+        to8 = lambda a: np.floor(np.clip(a, 0, 1) * 255 + 0.5)  # noqa: E731
+        gap_masked = float(np.abs(to8(masked) - written).max())
+        gap_plain = float(np.abs(to8(plain) - written).max())
+        if not (gap_masked <= 3.0 and gap_plain > gap_masked + 2.0):
+            raise AssertionError(f"test_torch.py's PNGs: {gap_masked} levels "
+                                 f"from the masked stylize, {gap_plain} from "
+                                 "the unmasked one")
+        log("51 flagship yaml", f"test_torch.py on checkpoint 3: the same "
+            f"{len(names)} files; its PNGs within {gap_masked:.0f} level of "
+            f"the masked stylize, {gap_plain:.0f} levels from the unmasked")
+
+
+def _masks_timing(dev, rng, name_power):
+    """Phase 52: the flagship yaml's model (attention se, use_mask; seeded
+    weights) at 512px b1 / b8, bf16 and f32: the masked stylize (the
+    photoreal label maps of tools/make_photoreal_set.py) against the same
+    model without labels, in both orders (masked, plain, plain, masked),
+    CUDA events, median of 3 after 1, the peak device memory of each; the
+    masked AdaIN op alone at (8, 512, 512, 32) against the plain AdaIN; the
+    yaml's b8 bf16 train step, img/s and peak memory."""
+    import numpy as np
+    import torch
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.ops.segment import masked_adain_batch
+    from rpst_torch.ops.stats import adaptive_instance_normalization
+    from rpst_torch.train.step import create_train_state, train_step
+    label_maps = _tool("make_photoreal_set").label_maps
+    rows = {}
+    for batch in (1, 8):
+        c, s = (torch.from_numpy(rng.random((batch, IMG, IMG, 3),
+                                            np.float32)).to(dev)
+                for _ in range(2))
+        maps = [label_maps(IMG, rng) for _ in range(batch)]
+        cl, sl = (torch.from_numpy(np.stack([m[i] for m in maps])
+                                   .astype(np.int64)).to(dev) for i in (0, 1))
+        for dt in ("bfloat16", "float32"):
+            cfg = load_config(str(FLAGSHIP_YAML), dict(vgg="",
+                                                       compute_dtype=dt))
+            bundle = build_model(cfg, dev)
+            init_torch_default(bundle.model, 0)
+            paths = {"masked": lambda: bundle.stylize(c, s, cl, sl),
+                     "plain": lambda: bundle.stylize(c, s)}
+            for path in ("masked", "plain", "plain", "masked"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                ms = cuda_ms(paths[path], iters=3, warmup=1)
+                peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                rows.setdefault((batch, dt, path), []).append(ms)
+                log("52 masks timing", f"{IMG}px b{batch} {dt:8s} {path:6s}: "
+                    f"{ms:9.3f} ms {batch * 1e3 / ms:8.2f} img/s, peak "
+                    f"{peak:.2f} GiB ({name_power})")
+            del bundle
+        del c, s, cl, sl
+    feat = torch.randn(8, IMG, IMG, 32, device=dev)
+    sfeat = torch.randn(8, IMG, IMG, 32, device=dev) * 2 + 1
+    maps = [label_maps(IMG, rng) for _ in range(8)]
+    cl, sl = (torch.from_numpy(np.stack([m[i] for m in maps])
+                               .astype(np.int64)).to(dev) for i in (0, 1))
+    op_ms = cuda_ms(lambda: masked_adain_batch(feat, sfeat, cl, sl, 64),
+                    iters=5, warmup=2)
+    plain_ms = cuda_ms(lambda: adaptive_instance_normalization(feat, sfeat),
+                       iters=5, warmup=2)
+    log("52 masks timing", f"masked AdaIN (8, {IMG}, {IMG}, 32) f32, 64 "
+        f"labels: {op_ms:.3f} ms; plain AdaIN {plain_ms:.3f} ms "
+        f"({name_power})")
+    del feat, sfeat
+    cfg = load_config(str(FLAGSHIP_YAML), dict(vgg=""))
+    bundle = build_model(cfg, dev)
+    init_torch_default(bundle.model, 0)
+    vgg = _5b_vgg(dev, 1)
+    c, s = (torch.from_numpy(rng.random((cfg.batch_size, IMG, IMG, 3),
+                                        np.float32)).to(dev)
+            for _ in range(2))
+    state = create_train_state(bundle)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if any(_counts(("B1", "B2", "B3", "B5"))):
+        raise AssertionError("the SE flagship's train step launched a kernel")
+    log("52 masks timing", f"train step {FLAGSHIP_YAML.name} {IMG}px "
+        f"b{cfg.batch_size} {cfg.compute_dtype} (attention se): {ms:9.3f} "
+        f"ms/step {cfg.batch_size * 1e3 / ms:8.2f} img/s, peak {peak:.2f} "
+        f"GiB ({name_power})")
+    del state, bundle
+    torch.cuda.empty_cache()
+
+
+def _test_torch_paths(dev):
+    """Phase 53: test_torch.py beyond masks, as subprocesses: on the recon
+    yaml (iden_photoreal, unmasked) with exec_strategy folded at 512px, its
+    2 pairs one batch of 2: one folded stylize, 15 B1 launches (logged by
+    test_torch.py); on configs/train_dynamic_sanet.yaml (paired set, b1):
+    the stylized PNGs and dynamic_sanet's claim-map sheets, one a batch
+    (the PIL route where matplotlib is missing). Returns the recon run's
+    B1 launches."""
+    from PIL import Image
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        photo = _photoreal(tmp / "photo")
+        out = tmp / "recon"
+        text = _driver_run("test_torch.py", [
+            "--config", str(RECON_YAML), "--device", "cuda", "--set",
+            "exec_strategy=folded", f"test_dir={photo}", "vgg=",
+            f"output={out}"])
+        b1 = _logged_count(text, "B1")
+        files = _dump_names(out / "test" / "test_output")
+        if b1 != B1_PER_STYLIZE or len(files) != 4:
+            raise AssertionError(f"recon test_torch.py: {b1} B1, {files}\n"
+                                 f"{text[-3000:]}")
+        log("53 test_torch", f"{RECON_YAML.name} (exec_strategy folded, "
+            f"iden_photoreal, {IMG}px b2): {len(files)} files, {b1} B1 "
+            "launches (one folded stylize)")
+        paired = tmp / "paired"
+        for sub, stem in (("content", "in"), ("style", "tar")):
+            (paired / sub).mkdir(parents=True)
+            for k in range(2):
+                Image.open(photo / sub / f"{stem}{k}.png").save(
+                    paired / sub / f"p{k}.png")
+        out = tmp / "dyn"
+        _driver_run("test_torch.py", [
+            "--config", str(DYN_YAML), "--device", "cuda", "--set",
+            f"test_dir={paired}", "vgg=", f"output={out}"])
+        sheets = _dump_names(out / "claim_map")
+        sizes = [Image.open(out / "claim_map" / n).size for n in sheets]
+        files = _dump_names(out / "test" / "test_output")
+        if sheets != ["it_0_bid_0.png", "it_0_bid_1.png"] or len(files) != 4:
+            raise AssertionError(f"dynamic_sanet test_torch.py: {sheets}, "
+                                 f"{files}")
+        log("53 test_torch", f"{DYN_YAML.name} ({IMG}px b1, paired): "
+            f"{len(files)} files and claim maps {sheets} {sizes}")
+    return b1
 
 
 if __name__ == "__main__":

@@ -55,8 +55,11 @@ standard-layout networks, the LD family, and ccam's and mst's yamls with
 their ``shuffle: true``, which ``--set shuffle=false`` turns off; src's
 and ld_adain's ``use_mask: true``, spade's batch norms and ld_adain3-5
 serve standard under q8; ``--set use_mask=false`` serves ld_adain's q8;
+the flagship yaml's ``attention: se`` serves standard under folded and q8;
 ``--mode auto`` serves the LD family standard, ``rpst_torch.policy``). The
-feature
+requests carry no segmentation masks, so ``use_mask`` stylizes by plain
+AdaIN here, as rpst's ``serve.py`` does; ``test_torch.py`` stylizes a
+test set with its masks. The feature
 models (sanet, dynamic_sanet, src) load their frozen VGG from the config's
 ``vgg`` (``.pth`` or ``.npz``), or seed a random one, with a warning.
 

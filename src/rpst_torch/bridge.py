@@ -36,7 +36,10 @@ generator ``rp_decoder.head.norm_s.mlp_shared.weight``, ``...conv_s``,
   * ``from_reference_checkpoint(ckpt)``: the reference ``.pth`` layout
     ``{'encoder': sd, 'decoder': sd}``, which
     ``tools/export_reference_checkpoint.py`` writes from an rpst
-    checkpoint: ``{i}.conv.weight`` keys for the flagship (rpstack),
+    checkpoint: ``{i}.conv.weight`` keys for the flagship (rpstack), with
+    ``{i}.attention_block.*`` for an encoder block's SE bottleneck
+    (``attention: se``: convs, BatchNorms with their running statistics,
+    ``se.fc.{0,2}``) onto the block's ``SEBottleneck_0``,
     ``{2i}.weight`` keys of ``nn.Sequential(Conv2d, ReLU)`` for adain and
     wct (rpseq), ``{'transform': sd, 'decoder': sd}`` for sanet and
     dynamic_sanet (the decoder's convs at the Sequential indices
@@ -47,7 +50,8 @@ generator ``rp_decoder.head.norm_s.mlp_shared.weight``, ``...conv_s``,
 
 ``load_weights(path)`` reads either file: ``.pth`` (reference layout) or
 ``.npz`` whose keys are flax paths (``rp_decoder/block_0/PadConv_0/Conv_0/
-kernel``, optionally under a leading ``params/``).
+kernel``, optionally under a leading ``params/``; ``batch_stats/...`` keys
+go through ``from_flax_batch_stats``).
 
 The frozen VGG encoder (``nn.vgg.VGG19Encoder``, names ``conv_{i}.Conv_0``)
 has three sources, all to the same state_dict:
@@ -154,10 +158,25 @@ def from_flax_batch_stats(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# the reference SE bottleneck's keys under ``{i}.attention_block`` -> the
+# port's under ``block_{i}.SEBottleneck_0`` (the flax names)
+_SE_REF_NAMES = {"se.fc.0": "SELayer_0.Dense_0", "se.fc.2": "SELayer_0.Dense_1"}
+
+
+def _se_from_reference(stem: str, leaf: str):
+    """The port's name of a reference ``attention_block`` key (``conv1.
+    weight``, ``bn1.running_mean``, ``se.fc.0.weight``), or None for the
+    BatchNorm's ``num_batches_tracked``, which the port does not keep."""
+    if leaf == "num_batches_tracked":
+        return None
+    return f"{_SE_REF_NAMES.get(stem, stem)}.{leaf}"
+
+
 def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
     """``{'encoder': sd, 'decoder': sd}`` of numpy arrays or CPU tensors ->
     port state_dict. ``{i}.conv.weight`` keys (OIHW) are the flagship's
-    Conv2dBlock stacks; ``{2i}.weight`` keys are the conv + ReLU Sequentials
+    Conv2dBlock stacks, ``{i}.attention_block.*`` their SE bottlenecks;
+    ``{2i}.weight`` keys are the conv + ReLU Sequentials
     of adain and wct, whose conv i sits at index 2i. ``{'transform': sd,
     'decoder': sd}`` is a SANet's, ``{'decoder': sd}`` SourceNet's."""
     if "transform" in ckpt:
@@ -173,13 +192,19 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
             parts = key.split(".")
             if len(parts) == 3 and parts[1] == "conv":
                 name = f"{stack}.block_{parts[0]}.PadConv_0.Conv_0.{parts[2]}"
+            elif len(parts) >= 4 and parts[1] == "attention_block":
+                se = _se_from_reference(".".join(parts[2:-1]), parts[-1])
+                if se is None:
+                    continue
+                name = f"{stack}.block_{parts[0]}.SEBottleneck_0.{se}"
             elif len(parts) == 2 and parts[0].isdigit() \
                     and int(parts[0]) % 2 == 0:
                 name = f"{part}.conv_{int(parts[0]) // 2}.Conv_0.{parts[1]}"
             else:
-                raise ValueError(f"{part}.{key}: only plain Conv2dBlocks and "
-                                 "conv + ReLU Sequentials are ported (no "
-                                 "inception/attention state)")
+                raise ValueError(f"{part}.{key}: only plain Conv2dBlocks "
+                                 "(with their SE attention) and conv + ReLU "
+                                 "Sequentials are ported (no inception "
+                                 "state)")
             sd[name] = torch.tensor(np.asarray(value, np.float32))
     return sd
 
@@ -246,7 +271,9 @@ def load_weights(path) -> Dict[str, torch.Tensor]:
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path) as npz:
-            return from_flax_params(flax_tree_from_npz(npz))
+            tree = flax_tree_from_npz(npz)
+        stats = tree.pop("batch_stats", {})
+        return {**from_flax_params(tree), **from_flax_batch_stats(stats)}
     if path.suffix in (".pth", ".pt"):
         return from_reference_checkpoint(
             torch.load(path, map_location="cpu", weights_only=True))

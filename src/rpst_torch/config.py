@@ -31,6 +31,7 @@ DEFAULTS: Dict[str, Any] = {
     "n_clusters": 3,
     "mst_lambda": 0.0,
     "use_mask": False,
+    "max_seg_labels": 64,  # the label universe of masked AdaIN
     "img_size": 512,
     "seed": 0,
     "compute_dtype": "float32",  # 'float32' | 'bfloat16'
@@ -75,6 +76,7 @@ DEFAULTS: Dict[str, Any] = {
     "content_dir": "",
     "style_dir": "",
     "test_dir": "",
+    "test_dataset": "paired",  # | 'photoreal' | 'iden_photoreal' | 'fmt'
     "output": "output/run",
     "checkpoint_path": "",
     "resume": False,

@@ -1,7 +1,10 @@
 """Host-side image IO of the port; counterpart of ``rpst.data.transforms``
-and, for training, of ``rpst.data``'s ``ImageFolderDataset``,
-``CityscapesDataset`` (with ``convert_label``), ``InfiniteSampler`` and
-``InfiniteLoader``.
+(``load_image``, ``load_mask``), for training of ``rpst.data``'s
+``ImageFolderDataset``, ``CityscapesDataset`` (with ``convert_label``),
+``InfiniteSampler`` and ``InfiniteLoader``, and for the test dumps of its
+test datasets (``PairedDataset``, ``PhotorealisticPairedDataset`` with its
+``labelme_segmentation/`` masks, ``IdentityDataset``, ``FmtDataset``,
+``build_test_dataset``) and ``iter_batches``.
 
 The reference transform is a bilinear squash to ``img_size`` x ``img_size``
 and a [0, 1] float, with no mean/std normalization. rpst decodes with a
@@ -29,6 +32,19 @@ def load_image(path, img_size: int) -> np.ndarray:
     if img_size:
         img = img.resize((img_size, img_size), Image.BILINEAR)
     return np.asarray(img, dtype=np.float32) / 255.0
+
+
+def load_mask(path, img_size: int) -> np.ndarray:
+    """Segmentation mask -> (img_size, img_size) int32 label map: a
+    nearest resize (labels are not interpolated), the first channel of a
+    multi-channel file."""
+    img = Image.open(str(path))
+    if img_size:
+        img = img.resize((img_size, img_size), Image.NEAREST)
+    arr = np.asarray(img)
+    if arr.ndim == 3:
+        arr = arr[..., 0]
+    return arr.astype(np.int32)
 
 
 def image_paths(path) -> list:
@@ -71,6 +87,121 @@ class ImageFolderDataset:
 
     def __getitem__(self, index):
         return load_image(self.paths[index], self.img_size)
+
+
+class FmtDataset(ImageFolderDataset):
+    """The reference's ``FmtDataset`` (``datasets/base.py:168-185``): the
+    images matching ``fmt``."""
+
+
+# ---------------------------------------------------------------- test sets
+# Each item is the reference's 6-tuple (content, style, content name, style
+# name, content mask, style mask); the masks are decoded label maps (or
+# None) where the reference passed their paths into the model.
+
+class PairedDataset:
+    """``content/`` and ``style/`` subfolders matched by file name
+    (``datasets/base.py:51-86``)."""
+
+    def __init__(self, root, img_size: int):
+        self.root = root
+        self.content_dir = os.path.join(root, "content")
+        self.style_dir = os.path.join(root, "style")
+        self.content_names = sorted(os.listdir(self.content_dir))
+        self.img_size = img_size
+
+    def __len__(self):
+        return len(self.content_names)
+
+    def _names(self, index):
+        cname = self.content_names[index]
+        return cname, cname
+
+    def __getitem__(self, index):
+        cname, sname = self._names(index)
+        content = load_image(os.path.join(self.content_dir, cname),
+                             self.img_size)
+        style = load_image(os.path.join(self.style_dir, sname), self.img_size)
+        return (content, style, os.path.splitext(cname)[0],
+                os.path.splitext(sname)[0], None, None)
+
+
+class PhotorealisticPairedDataset(PairedDataset):
+    """``in{k}`` contents paired with ``tar{k}`` styles, their masks
+    ``labelme_segmentation/<name>.png`` where present
+    (``datasets/base.py:89-131``)."""
+
+    def __init__(self, root, img_size: int, max_labels: int = 64):
+        super().__init__(root, img_size)
+        self.seg_dir = os.path.join(root, "labelme_segmentation")
+        self.max_labels = max_labels
+
+    def _names(self, index):
+        cname = self.content_names[index]
+        return cname, "tar{}".format(cname.replace("in", ""))
+
+    def _mask(self, name: str):
+        path = os.path.join(self.seg_dir, f"{os.path.splitext(name)[0]}.png")
+        if not os.path.exists(path):
+            return None
+        return load_mask(path, self.img_size)
+
+    def __getitem__(self, index):
+        cname, sname = self._names(index)
+        content = load_image(os.path.join(self.content_dir, cname),
+                             self.img_size)
+        style = load_image(os.path.join(self.style_dir, sname), self.img_size)
+        return (content, style, os.path.splitext(cname)[0],
+                os.path.splitext(sname)[0], self._mask(cname),
+                self._mask(sname))
+
+
+class IdentityDataset(PhotorealisticPairedDataset):
+    """The reconstruction check: the style is the content
+    (``datasets/base.py:134-165``)."""
+
+    def __getitem__(self, index):
+        cname, sname = self._names(index)
+        content = load_image(os.path.join(self.content_dir, cname),
+                             self.img_size)
+        mask = self._mask(cname)
+        return (content, content, os.path.splitext(cname)[0],
+                os.path.splitext(sname)[0], mask, mask)
+
+
+def build_test_dataset(cfg):
+    """The test set of ``cfg.test_dataset`` under ``cfg.test_dir``
+    (rpst's dispatch, reference ``train.py:150-157``)."""
+    kind = cfg.test_dataset
+    if kind == "photoreal":
+        return PhotorealisticPairedDataset(cfg.test_dir, cfg.img_size,
+                                           cfg.max_seg_labels)
+    if kind == "iden_photoreal":
+        return IdentityDataset(cfg.test_dir, cfg.img_size, cfg.max_seg_labels)
+    if kind == "fmt":
+        return FmtDataset(cfg.test_dir, cfg.img_size)
+    if kind == "paired":
+        return PairedDataset(cfg.test_dir, cfg.img_size)
+    raise ValueError(f"unknown test_dataset {kind!r}")
+
+
+def iter_batches(dataset, batch_size: int):
+    """A test set in order, ``batch_size`` items at a time: (content,
+    style) NHWC float32 arrays, the two name lists, and the (N, H, W)
+    int32 masks of both sides, or None when the set has none."""
+    n = len(dataset)
+    for start in range(0, n, batch_size):
+        items = [dataset[i] for i in range(start, min(start + batch_size, n))]
+        content = np.stack([it[0] for it in items])
+        style = np.stack([it[1] for it in items])
+        c_names = [it[2] for it in items]
+        s_names = [it[3] for it in items]
+        if items[0][4] is not None:
+            c_masks = np.stack([it[4] for it in items])
+            s_masks = np.stack([it[5] for it in items])
+        else:
+            c_masks = s_masks = None
+        yield content, style, c_names, s_names, c_masks, s_masks
 
 
 _IGNORE = -1

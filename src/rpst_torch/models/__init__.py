@@ -22,8 +22,12 @@ and v2, both on B5.
 
 A :class:`ModelBundle` holds the ``nn.Module`` with its weights on one
 device and exposes what the serving CLI calls:
-  * ``stylize(content, style)`` -> image, NHWC in [0, 1] on the bundle's
-    device (the reference's ``network.test`` path); the feature models
+  * ``stylize(content, style, c_labels=None, s_labels=None)`` -> image,
+    NHWC in [0, 1] on the bundle's device (the reference's
+    ``network.test`` path); with ``use_mask`` and segmentation label maps
+    (N, H, W) the test-mode networks (the multiscale family, the LD family,
+    src) fuse by the segment-masked AdaIN, on the standard path (the
+    folded and int8 paths take no labels, as rpst's); the feature models
     (sanet, dynamic_sanet, src) stylize from the features of ``bundle.vgg``,
     the frozen encoder the caller sets (``build_vgg``);
     ``stylize_with_aux`` also returns dynamic_sanet's claim maps,
@@ -112,9 +116,9 @@ _FEAT_MODELS = ("sanet", "dynamic_sanet", "src")
 # the flagship's constant stack and its three variants: folded and int8 q8
 # paths on B1-B4
 _FOLDED_FAMILY = ("multi_adain", "sel_multi_adain", "ccam", "mst")
-# the networks whose standard stylize runs in test mode (the channel
-# shuffle; the LD family's masks, slice 7)
-_TEST_MODE_MODELS = ("multi_adain", "ccam") + _LD
+# the networks whose standard stylize runs in test mode and takes labels
+# (the channel shuffle, the masks; rpst's ``_TEST_MODE_MODELS``)
+_TEST_MODE_MODELS = ("multi_adain", "sel_multi_adain", "ccam", "mst") + _LD
 # the RPSequence families whose int8 path runs on the standard layout (B5),
 # and the functions that take their float conv lists from the model
 _STD_Q8 = {"adain": std_blocks, "wct": std_blocks, "mrf": mrf_blocks,
@@ -577,21 +581,30 @@ class ModelBundle:
                 and batch >= TRAIN_Q8_TARGETS_MIN_BATCH)
 
     def stylize(self, content: torch.Tensor, style: torch.Tensor,
+                c_labels: Optional[torch.Tensor] = None,
+                s_labels: Optional[torch.Tensor] = None,
                 batch_encode: bool = False,
                 folded: Optional[bool] = None) -> torch.Tensor:
         """Inference: (N, H, W, 3) content and style on the bundle's device
-        -> (N, H, W, 3) float32. ``folded`` (default ``folded_infer()``)
-        picks the folded path; otherwise the standard model runs in eval
-        mode (BatchNorm on its running statistics; multi_adain's and ccam's
-        test-time channel shuffle), under bfloat16 autocast when
+        -> (N, H, W, 3) float32. ``folded`` (default ``folded_infer()``
+        when no labels are given, rpst's rule) picks the folded path;
+        otherwise the standard model runs in eval mode (BatchNorm on its
+        running statistics; the test mode of ``_TEST_MODE_MODELS``: the
+        channel shuffle, the masks), under bfloat16 autocast when
         compute_dtype says so (the feature models: on the features of one 2N
         pass of ``bundle.vgg``; sanet's attention on B6 and both SANets'
-        transforms in float32). Runs under ``torch.inference_mode``."""
+        transforms in float32). ``c_labels`` / ``s_labels`` (N, H, W)
+        integer label maps reach the test-mode networks, adain, seg_adain
+        and src (which read them only with ``use_mask``; adain's and
+        seg_adain's never, as rpst builds them). Runs under
+        ``torch.inference_mode``."""
+        labelled = c_labels is not None
         if folded is None:
-            folded = self.folded_infer()
-        elif folded and not self.folded_infer():
-            raise ValueError("folded execution needs exec_strategy: folded "
-                             "and a network/config the folded path covers")
+            folded = self.folded_infer() and not labelled
+        elif folded and (labelled or not self.folded_infer()):
+            raise ValueError("folded execution needs exec_strategy: folded, "
+                             "a network/config the folded path covers and "
+                             "no labels")
         with torch.inference_mode():
             if folded:
                 return self.stylize_folded(
@@ -600,12 +613,19 @@ class ModelBundle:
             training = self.model.training
             self.model.eval()
             try:
+                labels = {"c_labels": c_labels, "s_labels": s_labels}
                 with self._autocast():
                     if self.from_features:
-                        return self.model(*self._features(content,
-                                                          style)).float()
-                    kw = ({"test_mode": True}
-                          if self.network in _TEST_MODE_MODELS else {})
+                        kw = (dict(labels, test_mode=True)
+                              if self.network == "src" else {})
+                        return self.model(*self._features(content, style),
+                                          **kw).float()
+                    if self.network in _TEST_MODE_MODELS:
+                        kw = dict(labels, test_mode=True)
+                    elif self.network in ("adain", "seg_adain"):
+                        kw = labels
+                    else:
+                        kw = {}
                     return self.model(content, style, **kw).float()
             finally:
                 self.model.train(training)
@@ -645,9 +665,11 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
         raise ValueError(f"network {n!r} is not ported to rpst_torch yet: "
                          f"ROADMAP.md section A {_NOT_PORTED[n]}")
     device = torch.device(device)
+    labels = dict(max_seg_labels=cfg.max_seg_labels)
     if n == "adain":
+        # rpst builds adain without use_mask: its labels fuse plainly
         model = AdaINRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
-                        use_mask=bool(cfg.use_mask), device=device)
+                        device=device)
     elif n == "wct":
         model = WCTRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
                       method=cfg.wct_method, wct_dtype=cfg.wct_dtype,
@@ -659,7 +681,8 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
                         ada_module=cfg.ada_module,
                         blockwise=cfg.adaptive_blockwise, device=device)
     elif n == "src":
-        model = SourceNet(use_mask=bool(cfg.use_mask), device=device)
+        model = SourceNet(use_mask=bool(cfg.use_mask), **labels,
+                          device=device)
     elif n == "mrf":
         model = MRFRP(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
                       k=cfg.k, mrf_chunk=cfg.mrf_chunk, device=device)
@@ -678,7 +701,8 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
                           hidden_dim=cfg.hidden_dim,
                           stylized_layers=cfg.stylized_layers,
                           inception_num=cfg.inception_num,
-                          use_mask=bool(cfg.use_mask), device=device)
+                          use_mask=bool(cfg.use_mask), **labels,
+                          device=device)
     elif n in _FOLDED_FAMILY:
         stack = dict(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim,
                      enc_stack_way=_stack_way(cfg),
@@ -688,13 +712,13 @@ def build_model(cfg: Config, device="cpu") -> ModelBundle:
                        shuffle_layers=cfg.shuffle_layers, sort=bool(cfg.sort))
         if n == "multi_adain":
             model = MultiScaleAdaINRP(**stack, **shuffle,
-                                      use_mask=bool(cfg.use_mask))
+                                      use_mask=bool(cfg.use_mask), **labels)
         elif n == "sel_multi_adain":
-            model = SELastRP(**stack, use_mask=bool(cfg.use_mask))
+            model = SELastRP(**stack, use_mask=bool(cfg.use_mask), **labels)
         elif n == "ccam":
             model = CCAMRP(**stack, **shuffle,
                            stylized_layers=cfg.stylized_layers,
-                           use_mask=bool(cfg.use_mask))
+                           use_mask=bool(cfg.use_mask), **labels)
         else:
             model = MSTRP(**stack, stylized_layers=cfg.stylized_layers,
                           n_clusters=cfg.n_clusters,

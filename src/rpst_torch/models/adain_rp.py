@@ -19,9 +19,20 @@ each shallower scale is re-fused and added residually:
 The three variants keep the flagship under ``ms`` and rpst's parameter
 names (``attention_block``, ``ccam_{i}.scale``).
 
-Of MultiScaleAdaINRP only the constant stack without inception, attention
-(in the encoder), sort or masks is ported; those options, and AdaINRP's
-``use_mask``, raise ``NotImplementedError`` naming their ROADMAP.md slice.
+Masks: with ``use_mask`` and label maps (N, H, W) given in test mode
+(``forward(..., test_mode=True, c_labels=, s_labels=)``, what
+``ModelBundle.stylize`` passes), each fusion is the segment-masked AdaIN
+of ``ops.segment`` over ``max_seg_labels`` labels, as rpst's ``_fuse``;
+``use_mask`` without labels stays plain AdaIN. ``AdaINRP`` masks whenever
+it is given labels and ``use_mask`` (rpst reads no test mode there).
+
+The multiscale encoder takes ``attention="se"`` (an SE bottleneck in every
+block); ``sort`` orders the channels of both the content and the style
+features by the *style* pass's SE weights, as rpst keeps the reference's
+behaviour (its shared encoder caches the maps of its last call).
+
+Of MultiScaleAdaINRP the deeper stacks and inception are not ported; they
+raise ``NotImplementedError`` naming their ROADMAP.md slice.
 """
 
 from __future__ import annotations
@@ -35,8 +46,9 @@ from ..nn.attention import SEBottleneck
 from ..nn.blocks import (RPSequence, RPStack, rp_constant_dims,
                          rp_decrease_dims, rp_increase_dims)
 from ..ops.mst import mst_transfer_batch
+from ..ops.segment import masked_adain_nchw
 from ..ops.stats import adaptive_instance_normalization
-from .base import channel_shuffle
+from .base import channel_shuffle, sort_channels_by_attention
 
 
 def _adain_nchw(content_feat, style_feat):
@@ -44,6 +56,16 @@ def _adain_nchw(content_feat, style_feat):
     out = adaptive_instance_normalization(content_feat.permute(0, 2, 3, 1),
                                           style_feat.permute(0, 2, 3, 1))
     return out.permute(0, 3, 1, 2)
+
+
+def _fuse(content_feat, style_feat, c_labels, s_labels, use_mask: bool,
+          num_labels: int):
+    """NCHW AdaIN, or the segment-masked AdaIN when ``use_mask`` and labels
+    are given (rpst's ``_fuse``, ``adain_rp.py:41-47``)."""
+    if use_mask and c_labels is not None:
+        return masked_adain_nchw(content_feat, style_feat, c_labels,
+                                 s_labels, num_labels)
+    return _adain_nchw(content_feat, style_feat)
 
 
 def rp_sequence_pair(rp_blocks: int, hidden_dim: int, device=None,
@@ -73,48 +95,51 @@ def encode_pair(encoder: nn.Module, content, style):
 
 class AdaINRP(nn.Module):
     """Single-scale RP AdaIN (reference AdaINRPNet) with the flax module
-    names ``encoder`` and ``decoder``."""
+    names ``encoder`` and ``decoder``. rpst's registry builds it without
+    ``use_mask`` (``models/__init__.py`` passes only the widths), so the
+    adain network's labels fuse by plain AdaIN; the option is the module's,
+    as rpst's."""
 
     def __init__(self, rp_blocks: int = 5, hidden_dim: int = 16,
-                 use_mask: bool = False, device=None, dtype=None):
+                 use_mask: bool = False, max_seg_labels: int = 64,
+                 device=None, dtype=None):
         super().__init__()
-        if use_mask:
-            raise NotImplementedError(
-                "AdaINRP use_mask is not ported yet: ROADMAP.md section A "
-                "slice 7 (masks)")
+        self.use_mask, self.max_seg_labels = use_mask, max_seg_labels
         self.encoder, self.decoder = rp_sequence_pair(rp_blocks, hidden_dim,
                                                       device, dtype)
 
-    def forward(self, content: torch.Tensor, style: torch.Tensor):
+    def forward(self, content: torch.Tensor, style: torch.Tensor,
+                c_labels=None, s_labels=None):
         """content, style (N, H, W, 3) NHWC -> stylized (N, H, W, 3)."""
         cf, sf = encode_pair(self.encoder, content, style)
-        return self.decoder(_adain_nchw(cf, sf)).permute(0, 2, 3, 1)
+        fused = _fuse(cf, sf, c_labels, s_labels, self.use_mask,
+                      self.max_seg_labels)
+        return self.decoder(fused).permute(0, 2, 3, 1)
 
 
 class MultiScaleAdaINRP(nn.Module):
     """Multiscale RP AdaIN with the shared encoder ``rp_shared_encoder`` and
     the decoder ``rp_decoder`` (the flax module names). ``shuffle`` shuffles
     the channels of the features 0 .. ``shuffle_layers`` at test time only
-    (``forward(..., test_mode=True)``, what serving runs)."""
+    (``forward(..., test_mode=True)``, what serving runs); ``sort`` orders
+    the channels by the style pass's SE weights in both modes; masks fuse
+    at test time only."""
 
     def __init__(self, rp_blocks: int = 5, hidden_dim: int = 32,
                  enc_stack_way: str = "constant", inception_num: int = 0,
                  attention: str = "none", shuffle: bool = False,
                  shuffle_layers: int = 1, sort: bool = False,
-                 use_mask: bool = False, device=None, dtype=None):
+                 use_mask: bool = False, max_seg_labels: int = 64,
+                 device=None, dtype=None):
         super().__init__()
-        unported = (
-            ("enc_stack_way='deeper'", enc_stack_way == "deeper",
-             "slice 4 (its remainder: the deeper stacks)"),
-            ("sort", sort, "slice 4 (its remainder: needs SE attention in "
-             "the encoder)"),
-            ("use_mask", use_mask, "slice 7 (masks)"))
-        for what, on, where in unported:
-            if on:
-                raise NotImplementedError(
-                    f"MultiScaleAdaINRP {what} is not ported yet: ROADMAP.md "
-                    f"section A {where}")
+        if enc_stack_way == "deeper":
+            raise NotImplementedError(
+                "MultiScaleAdaINRP enc_stack_way='deeper' is not ported yet: "
+                "ROADMAP.md section A slice 4 (its remainder: the deeper "
+                "stacks)")
         self.shuffle, self.shuffle_layers = shuffle, shuffle_layers
+        self.sort, self.use_mask = sort, use_mask
+        self.max_seg_labels = max_seg_labels
         enc_dims = rp_constant_dims(rp_blocks, 3, hidden_dim, hidden_dim)
         dec_dims = rp_constant_dims(rp_blocks, hidden_dim, hidden_dim, 3)
         self.rp_shared_encoder = RPStack(enc_dims, inception_num=inception_num,
@@ -124,35 +149,47 @@ class MultiScaleAdaINRP(nn.Module):
 
     def encode(self, content, style):
         """NHWC content and style -> their NCHW intermediate feature lists
-        (two passes of the shared encoder, as rpst runs them)."""
+        and the style pass's SE weights per layer (two passes of the shared
+        encoder, content first, as rpst runs them)."""
         c = content.permute(0, 3, 1, 2).contiguous()
         s = style.permute(0, 3, 1, 2).contiguous()
-        return (self.rp_shared_encoder.intermediates(c),
-                self.rp_shared_encoder.intermediates(s))
+        cf, _ = self.rp_shared_encoder.intermediates_with_attention(c)
+        sf, s_atts = self.rp_shared_encoder.intermediates_with_attention(s)
+        return cf, sf, s_atts
 
-    def prep_feats(self, feats, test_mode: bool):
-        """The test-time channel shuffle of features 0 .. shuffle_layers."""
-        if not (test_mode and self.shuffle):
-            return feats
-        return [channel_shuffle(f) if i <= self.shuffle_layers else f
-                for i, f in enumerate(feats)]
+    def prep_feats(self, feats, atts, test_mode: bool, sort: bool = True):
+        """The test-time channel shuffle of features 0 .. shuffle_layers,
+        then (``sort``) each layer's channels ordered by ``atts``."""
+        if test_mode and self.shuffle:
+            feats = [channel_shuffle(f) if i <= self.shuffle_layers else f
+                     for i, f in enumerate(feats)]
+        if sort and self.sort:
+            feats = [f if a is None else sort_channels_by_attention(f, a)
+                     for f, a in zip(feats, atts)]
+        return feats
 
-    def decode(self, content_feats, style_feats):
-        stylized = _adain_nchw(content_feats[-1], style_feats[-1])
+    def decode(self, content_feats, style_feats, c_labels=None,
+               s_labels=None, use_mask: bool = False):
+        fuse = lambda cf, sf: _fuse(cf, sf, c_labels, s_labels, use_mask,
+                                    self.max_seg_labels)
+        stylized = fuse(content_feats[-1], style_feats[-1])
         stylized = self.rp_decoder.apply_block(stylized, 0)
         pairs = list(zip(content_feats[:-1], style_feats[:-1]))[::-1]
         for i, (cf, sf) in enumerate(pairs):
-            fusion = _adain_nchw(cf, sf)
-            stylized = self.rp_decoder.apply_block(stylized + fusion, i + 1)
+            stylized = self.rp_decoder.apply_block(stylized + fuse(cf, sf),
+                                                   i + 1)
         return stylized
 
     def forward(self, content: torch.Tensor, style: torch.Tensor,
-                test_mode: bool = False):
+                test_mode: bool = False, c_labels=None, s_labels=None):
         """content, style (N, H, W, 3) NHWC -> stylized (N, H, W, 3) NHWC;
-        NCHW-contiguous inside."""
-        cf, sf = self.encode(content, style)
-        cf, sf = (self.prep_feats(f, test_mode) for f in (cf, sf))
-        return self.decode(cf, sf).permute(0, 2, 3, 1)
+        NCHW-contiguous inside. Labels (N, H, W) are read in test mode with
+        ``use_mask``."""
+        cf, sf, s_atts = self.encode(content, style)
+        # both sides sort by the style pass's maps (rpst adain_rp.py:154-162)
+        cf, sf = (self.prep_feats(f, s_atts, test_mode) for f in (cf, sf))
+        return self.decode(cf, sf, c_labels, s_labels,
+                           self.use_mask and test_mode).permute(0, 2, 3, 1)
 
 
 class CCAMDec(nn.Module):
@@ -190,11 +227,12 @@ class CCAMRP(nn.Module):
                  attention: str = "none", shuffle: bool = False,
                  shuffle_layers: int = 1, sort: bool = False,
                  stylized_layers: int = 5, use_mask: bool = False,
-                 device=None, dtype=None):
+                 max_seg_labels: int = 64, device=None, dtype=None):
         super().__init__()
         self.ms = MultiScaleAdaINRP(
             rp_blocks, hidden_dim, enc_stack_way, inception_num, attention,
-            shuffle, shuffle_layers, sort, use_mask, device, dtype)
+            shuffle, shuffle_layers, sort, use_mask, max_seg_labels, device,
+            dtype)
         self.stylized_layers = stylized_layers
         for i in range(rp_blocks):
             self.add_module(f"ccam_{i}", CCAMDec(device, dtype))
@@ -204,17 +242,22 @@ class CCAMRP(nn.Module):
         return [getattr(self, f"ccam_{i}")
                 for i in range(self.ms.rp_decoder.num_blocks)]
 
-    def forward(self, content, style, test_mode: bool = False):
+    def forward(self, content, style, test_mode: bool = False,
+                c_labels=None, s_labels=None):
         # the reference's CCAM decode drops the sort branch; the shuffle
-        # applies at test time
-        cf, sf = self.ms.encode(content, style)
-        cf, sf = (self.ms.prep_feats(f, test_mode) for f in (cf, sf))
+        # and the masks apply at test time
+        cf, sf, _ = self.ms.encode(content, style)
+        cf, sf = (self.ms.prep_feats(f, None, test_mode, sort=False)
+                  for f in (cf, sf))
         dec, att = self.ms.rp_decoder, self.channel_attentions
-        stylized = _adain_nchw(cf[-1], sf[-1])
+        use_mask = self.ms.use_mask and test_mode
+        fuse = lambda x, y: _fuse(x, y, c_labels, s_labels, use_mask,
+                                  self.ms.max_seg_labels)
+        stylized = fuse(cf[-1], sf[-1])
         stylized = dec.apply_block(stylized + att[0](cf[-1], sf[-1]), 0)
         for i, sfi in enumerate(sf[:-1][::-1]):
             if i + 1 < self.stylized_layers:
-                stylized = _adain_nchw(stylized, sfi)
+                stylized = fuse(stylized, sfi)
                 stylized = dec.apply_block(
                     stylized + att[i + 1](stylized, sfi), i + 1)
             else:
@@ -225,28 +268,38 @@ class CCAMRP(nn.Module):
 class SELastRP(nn.Module):
     """Multiscale AdaIN with one SE bottleneck on the final fusion
     (SELastMultiScaleAdaINRPNet): the shallower fusions are
-    ``AdaIN(stylized, style_feat)``, no residual add."""
+    ``AdaIN(stylized, style_feat)``, no residual add. With masks (test
+    mode, ``use_mask``, labels) each shallower fusion is rpst's
+    ``masked_adain(content_feat, style_feat)`` instead, and the bottleneck
+    is skipped (``adain_rp.py:275-286``); the deepest stays plain AdaIN."""
 
     def __init__(self, rp_blocks: int = 5, hidden_dim: int = 32,
                  enc_stack_way: str = "constant", inception_num: int = 0,
                  attention: str = "none", use_mask: bool = False,
-                 device=None, dtype=None):
+                 max_seg_labels: int = 64, device=None, dtype=None):
         super().__init__()
         self.ms = MultiScaleAdaINRP(
             rp_blocks, hidden_dim, enc_stack_way, inception_num, attention,
-            use_mask=use_mask, device=device, dtype=dtype)
+            use_mask=use_mask, max_seg_labels=max_seg_labels, device=device,
+            dtype=dtype)
         self.attention_block = SEBottleneck(hidden_dim, device=device,
                                             dtype=dtype)
 
-    def forward(self, content, style):
-        cf, sf = self.ms.encode(content, style)
+    def forward(self, content, style, test_mode: bool = False,
+                c_labels=None, s_labels=None):
+        cf, sf, _ = self.ms.encode(content, style)
         dec = self.ms.rp_decoder
+        masked = self.ms.use_mask and test_mode and c_labels is not None
         stylized = dec.apply_block(_adain_nchw(cf[-1], sf[-1]), 0)
-        pairs = sf[:-1][::-1]
-        for i, sfi in enumerate(pairs):
-            stylized = _adain_nchw(stylized, sfi)
-            if i == len(pairs) - 1:
-                stylized, _ = self.attention_block(stylized)
+        pairs = list(zip(cf[:-1], sf[:-1]))[::-1]
+        for i, (cfi, sfi) in enumerate(pairs):
+            if masked:
+                stylized = masked_adain_nchw(cfi, sfi, c_labels, s_labels,
+                                             self.ms.max_seg_labels)
+            else:
+                stylized = _adain_nchw(stylized, sfi)
+                if i == len(pairs) - 1:
+                    stylized, _ = self.attention_block(stylized)
             stylized = dec.apply_block(stylized, i + 1)
         return stylized.permute(0, 2, 3, 1)
 
@@ -275,8 +328,10 @@ class MSTRP(nn.Module):
         self.stylized_layers = stylized_layers
         self.n_clusters, self.mst_lambda = n_clusters, mst_lambda
 
-    def forward(self, content, style):
-        cf, sf = self.ms.encode(content, style)
+    def forward(self, content, style, test_mode: bool = False,
+                c_labels=None, s_labels=None):
+        """rpst's MSTRP takes and ignores the test mode and the labels."""
+        cf, sf, _ = self.ms.encode(content, style)
         dec = self.ms.rp_decoder
         stylized = dec.apply_block(mst_nchw(
             cf[-1].detach(), sf[-1].detach(), self.n_clusters,

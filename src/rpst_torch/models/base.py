@@ -6,7 +6,8 @@
     relu1_1 .. relu4_1;
   * content loss: the MSE between the relu4_1 features of the stylized
     image and the content image;
-  * ``channel_shuffle``, the test-time shuffle of the multiscale models.
+  * ``channel_shuffle``, the test-time shuffle of the multiscale models,
+    and ``sort_channels_by_attention``, their ``sort`` by SE weights.
 
 The targets (style and content features) carry no gradient: they run under
 ``torch.no_grad`` as one batched 2N VGG forward, where rpst wraps the same
@@ -69,3 +70,13 @@ def channel_shuffle(feat: torch.Tensor, groups: int = 4) -> torch.Tensor:
     n, c, h, w = feat.shape
     return (feat.reshape(n, groups, c // groups, h, w).transpose(1, 2)
             .reshape(n, c, h, w))
+
+
+def sort_channels_by_attention(feat: torch.Tensor,
+                               attention: torch.Tensor) -> torch.Tensor:
+    """The channels of an NCHW tensor in descending order of the SE weights
+    ``attention`` (N, C, 1, 1) (rpst ``models/base.py:86-92``, the
+    reference's ``sort_by_weights``). rpst's ``argsort`` is stable, so tied
+    weights keep their channel order here too."""
+    order = torch.argsort(-attention[:, :, 0, 0], dim=1, stable=True)
+    return feat.gather(1, order[:, :, None, None].expand_as(feat))

@@ -28,8 +28,12 @@ parameter names follow the flax tree (``rp_enc{i}_small_revf``,
 ``rp_enc{i}_big_revf`` with ``conv1x1`` / ``conv_a`` / ``conv_b`` for the
 pooled branch, ``up_{i}`` with its (s, s, C, Co) ``kernel`` in flax's
 layout, ``rp_dec{i}``), so ``rpst_torch.bridge`` maps the flax params one
-to one. Masked AdaIN (``c_labels`` / ``s_labels``) is ROADMAP.md section A
-slice 7; without labels ``use_mask`` serves plain AdaIN, as in rpst.
+to one. With ``use_mask`` and label maps in test mode
+(``forward(..., test_mode=True, c_labels=, s_labels=)``) every fusion is
+the segment-masked AdaIN of ``ops.segment``, of the content feature (v1-v3
+too: rpst's masked branch fuses ``cf``, not the running stylized,
+``ld_adain.py:327-330``); without labels ``use_mask`` serves plain AdaIN,
+as in rpst.
 rpst's measurement-only int8 switches of the pooled branch and the v5
 upsampler (``VGGISH_INT8``, ``NONOVERLAP_INT8``) are TPU hardware hooks
 and are not ported.
@@ -44,7 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.blocks import Conv2dBlock, PadConv, pad2d
-from .adain_rp import _adain_nchw
+from .adain_rp import _adain_nchw, _fuse
 
 
 def resize_nearest(x: torch.Tensor, h: int, w: int,
@@ -159,13 +163,13 @@ class LDAdaINRP(nn.Module):
     def __init__(self, variant: int = 1, layer_num: int = 5,
                  hidden_dim: int = 16, stylized_layers: int = 5,
                  inception_num: int = 0, use_mask: bool = False,
-                 device=None, dtype=None):
+                 max_seg_labels: int = 64, device=None, dtype=None):
         super().__init__()
         if variant not in (1, 2, 3, 4, 5):
             raise ValueError(f"LD variant must be 1..5, got {variant}")
         self.variant, self.layer_num = variant, layer_num
         self.stylized_layers = stylized_layers
-        self.use_mask = use_mask
+        self.use_mask, self.max_seg_labels = use_mask, max_seg_labels
         kw = dict(inception_num=inception_num, device=device, dtype=dtype)
         widths = ld_widths(variant, layer_num, hidden_dim)
         cin_small = cin_big = 3
@@ -231,21 +235,23 @@ class LDAdaINRP(nn.Module):
         return feats
 
     def decode(self, content_feats, style_feats, c_labels=None,
-               s_labels=None) -> torch.Tensor:
-        """The decoder on NCHW feature lists -> NCHW image."""
-        if c_labels is not None or s_labels is not None:
-            raise NotImplementedError(
-                "LD masked AdaIN (c_labels / s_labels) is not ported yet: "
-                "ROADMAP.md section A slice 7 (masks)")
+               s_labels=None, use_mask: bool = False) -> torch.Tensor:
+        """The decoder on NCHW feature lists -> NCHW image; ``use_mask``
+        with labels fuses by the masked AdaIN of the content feature."""
+        masked = use_mask and c_labels is not None
+        fuse_content = lambda cf, sf: _fuse(  # noqa: E731
+            cf, sf, c_labels, s_labels, use_mask, self.max_seg_labels)
         decs = self.decs()
-        stylized = decs[0](_adain_nchw(content_feats[-1], style_feats[-1]))
+        stylized = decs[0](fuse_content(content_feats[-1], style_feats[-1]))
         pairs = list(zip(content_feats[:-1], style_feats[:-1]))[::-1]
         for i, (cf, sf) in enumerate(pairs):
             if self.variant in (4, 5):  # content-side fusion (:791)
                 stylized = decs[i + 1](torch.cat(
-                    [stylized, _adain_nchw(cf, sf)], dim=1))
+                    [stylized, fuse_content(cf, sf)], dim=1))
             elif i < self.stylized_layers - 1:  # running fusion (:550)
-                stylized = decs[i + 1](stylized + _adain_nchw(stylized, sf))
+                fusion = (fuse_content(cf, sf) if masked
+                          else _adain_nchw(stylized, sf))
+                stylized = decs[i + 1](stylized + fusion)
             else:
                 stylized = decs[i + 1](stylized)
         return stylized
@@ -267,4 +273,5 @@ class LDAdaINRP(nn.Module):
         else:
             cf = self.encode_intermediate(c.contiguous())
             sf = self.encode_intermediate(s.contiguous())
-        return self.decode(cf, sf, c_labels, s_labels).permute(0, 2, 3, 1)
+        return self.decode(cf, sf, c_labels, s_labels,
+                           self.use_mask and test_mode).permute(0, 2, 3, 1)

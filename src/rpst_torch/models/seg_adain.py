@@ -101,11 +101,9 @@ class SegAdaINRP(nn.Module):
 
     def forward(self, content: torch.Tensor, style: torch.Tensor,
                 c_labels=None, s_labels=None):
-        """content, style (N, H, W, 3) -> stylized: ``AdaINRP``'s."""
-        if c_labels is not None or s_labels is not None:
-            raise NotImplementedError(
-                "seg_adain's masked AdaIN (labels at stylize) is not ported "
-                "yet: ROADMAP.md section A slice 7 (masks)")
+        """content, style (N, H, W, 3) -> stylized: ``AdaINRP``'s. rpst's
+        ``SegAdaINRP`` takes the labels and reads none of them
+        (``seg_adain.py:91-93``): its ``adain_rp`` has no ``use_mask``."""
         return self.adain_rp(content, style)
 
     def loss(self, vgg, content: torch.Tensor, style: torch.Tensor,

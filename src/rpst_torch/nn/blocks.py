@@ -7,20 +7,24 @@ so ``rpst_torch.bridge`` maps flax params one to one. Every conv is
 stride-1: full spatial resolution at every layer. ``Conv2dBlock`` stacks
 pad by reflection; ``RPSequence`` (adain, wct) pads with zeros.
 
-Not ported yet (they raise ``NotImplementedError``): inception 1x1 stacks,
-SE/SK attention inside the blocks, batch/instance norm and prelu, which
-belong to ROADMAP.md section A slice 4's remainder (the Conv2dBlock
-options). sel_multi_adain's SE bottleneck after the last fusion is
-``nn.attention``.
+``attention="se"`` puts rpst's SE bottleneck (``nn.attention.
+SEBottleneck``, module ``SEBottleneck_0``) after a block's activation;
+``RPStack.intermediates_with_attention`` also returns each block's SE
+channel weights, which the multiscale models' ``sort`` reads. Not ported
+yet (they raise ``NotImplementedError``): inception 1x1 stacks, SK
+attention, batch/instance norm and prelu, which belong to ROADMAP.md
+section A slice 4's remainder (the Conv2dBlock options).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .attention import SEBottleneck
 
 
 def pad2d(x: torch.Tensor, pad: int, mode: str = "reflect") -> torch.Tensor:
@@ -64,15 +68,16 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 _SLICE_OF_OPTION = {
     "inception_num": "slice 4 (its remainder: the inception configs)",
-    "attention": "slice 4 (its remainder: SE/SK attention in the blocks)",
+    "attention": "slice 4 (its remainder: SK attention in the blocks)",
     "norm": "slice 4 (its remainder: the Conv2dBlock norm bn / in)",
     "activation": "slice 4 (its remainder: the Conv2dBlock prelu)",
 }
 
 
 class Conv2dBlock(nn.Module):
-    """pad -> conv -> activation (reference ``network/base.py:114-198``),
-    with norm ``none`` and activation ``lrelu`` (slope 0.2) or ``relu``."""
+    """pad -> conv -> activation [-> SE bottleneck] (reference
+    ``network/base.py:114-198``), with norm ``none``, activation ``lrelu``
+    (slope 0.2) or ``relu``, attention ``none`` or ``se``."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  padding: int = 1, norm: str = "none",
@@ -82,7 +87,7 @@ class Conv2dBlock(nn.Module):
         super().__init__()
         for opt, value, ok in (
                 ("inception_num", inception_num, not inception_num),
-                ("attention", attention, attention == "none"),
+                ("attention", attention, attention in ("none", "se")),
                 ("norm", norm, norm in ("none", "sn")),
                 ("activation", activation, activation in ("lrelu", "relu"))):
             if not ok:
@@ -92,9 +97,20 @@ class Conv2dBlock(nn.Module):
         self.slope = 0.2 if activation == "lrelu" else 0.0
         self.PadConv_0 = PadConv(in_features, features, kernel_size, padding,
                                  pad_type, device=device, dtype=dtype)
+        if attention == "se":
+            self.SEBottleneck_0 = SEBottleneck(features, device=device,
+                                               dtype=dtype)
+
+    def forward_with_attention(self, x) -> Tuple[torch.Tensor,
+                                                 Optional[torch.Tensor]]:
+        """(output, SE channel weights (N, C, 1, 1) or None)."""
+        x = F.leaky_relu(self.PadConv_0(x), self.slope)
+        if hasattr(self, "SEBottleneck_0"):
+            return self.SEBottleneck_0(x)
+        return x, None
 
     def forward(self, x):
-        return F.leaky_relu(self.PadConv_0(x), self.slope)
+        return self.forward_with_attention(x)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -174,11 +190,17 @@ class RPStack(nn.Module):
         return x
 
     def intermediates(self, x) -> List[torch.Tensor]:
-        feats = []
+        return self.intermediates_with_attention(x)[0]
+
+    def intermediates_with_attention(self, x):
+        """Each block's output, and its SE channel weights (None for a
+        block without attention)."""
+        feats, atts = [], []
         for blk in self.blocks:
-            x = blk(x)
+            x, att = blk.forward_with_attention(x)
             feats.append(x)
-        return feats
+            atts.append(att)
+        return feats, atts
 
     def apply_block(self, x, idx: int):
         return self.blocks[idx](x)

@@ -138,8 +138,51 @@ def test_reference_checkpoint_rpseq_layout(adain_wide):
     ("adain", dict(use_mask=True), "slice 7"),
     ("wct", dict(wct_dtype="float16"), "wct_dtype")])
 def test_unported_options_raise(network, extra, match):
-    with pytest.raises((NotImplementedError, ValueError), match=match):
-        build_model(load_config(dict(network=network, **extra)))
+    """wct's unknown ``wct_dtype`` raises. adain's ``use_mask``, which the
+    refusal pinned until slice 7 (this case keeps its id), builds as rpst
+    builds it, without the module's ``use_mask`` (rpst's registry passes
+    only the widths): its labels fuse by plain AdaIN, and q8 stays off, as
+    rpst's gate says. The module's own option masks as rpst's AdaINRP
+    (use_mask=True) does, f32 1e-4."""
+    if network == "wct":
+        with pytest.raises((NotImplementedError, ValueError), match=match):
+            build_model(load_config(dict(network=network, **extra)))
+        return
+    from rpst.models.adain_rp import AdaINRP as JaxAdaINRP
+    from rpst_torch.bridge import rpseq_weights_from_seed
+    from rpst_torch.models.adain_rp import AdaINRP
+    sys.path.insert(0, str(REPO / "tools"))
+    from make_photoreal_set import label_maps
+    rng = np.random.default_rng(3)
+    c, s = (rng.random((2, 32, 32, 3), dtype=np.float32) for _ in range(2))
+    maps = [label_maps(32, rng) for _ in range(2)]
+    cl, sl = (np.stack([m[i] for m in maps]).astype(np.int32)
+              for i in (0, 1))
+    tree = rpseq_weights_from_seed(3, rp_blocks=3, hidden_dim=8)
+    cfg = load_config(dict(network="adain", rp_blocks=3, hidden_dim=8,
+                           img_size=32, **extra))
+    bundle = build_model(cfg)
+    bundle.load_state_dict(from_flax_params(tree))
+    assert not bundle.q8_infer()
+    args = [torch.from_numpy(a) for a in (c, s, cl, sl)]
+    jb = j_build_model(j_load_config(dict(network="adain", rp_blocks=3,
+                                          hidden_dim=8, img_size=32,
+                                          **extra)))
+    ref = jb.stylize({"params": tree}, None, jnp.asarray(c), jnp.asarray(s),
+                     jnp.asarray(cl), jnp.asarray(sl))
+    np.testing.assert_allclose(bundle.stylize(*args).numpy(),
+                               np.asarray(ref), rtol=1e-4, atol=1e-4)
+    module = AdaINRP(rp_blocks=3, hidden_dim=8, use_mask=True)
+    module.load_state_dict(from_flax_params(tree))
+    ref = JaxAdaINRP(rp_blocks=3, hidden_dim=8, use_mask=True).apply(
+        {"params": tree}, jnp.asarray(c), jnp.asarray(s),
+        c_labels=jnp.asarray(cl), s_labels=jnp.asarray(sl))
+    with torch.no_grad():
+        got = module(*args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+    assert not np.allclose(got.numpy(), bundle.stylize(*args[:2]).numpy(),
+                           atol=1e-3)
 
 
 # ---------------------------------------------------------------- wct op

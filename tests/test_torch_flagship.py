@@ -3,6 +3,9 @@ the bridged standard model against flax MultiScaleAdaINRP, the folded
 stylize against rpst's stylize_multi_adain_folded, and folded against
 standard within the port. Same numpy-seeded inputs, same flax params."""
 
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +21,8 @@ from rpst_torch.models.fast_path import (folded_blocks,
                                          stylize_multi_adain_folded)
 from rpst_torch.ops.folded_conv import fused_folded_conv
 from torch_threads import one_torch_thread  # noqa: F401
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
 SMALL = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=3,
              attention="none", inception_num=0)
@@ -135,10 +140,41 @@ def test_unported_networks_raise(network):
 
 @pytest.mark.parametrize("extra", [dict(attention="se"), dict(use_mask=True),
                                    dict(inception_num=1), dict(sort=True),
-                                   dict(enc_stack_way="deeper")])
+                                   dict(enc_stack_way="deeper"),
+                                   dict(attention="sk")])
 def test_unported_options_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(load_config(dict(SMALL, hidden_dim=8, **extra)))
+    """The options of slice 4's remainder (inception, the deeper stacks, SK
+    attention) raise naming their slice. SE attention, the masks and sort,
+    which the refusal pinned until slice 7 ported them, build and stylize
+    as rpst's (these cases keep their ids): the flax weights through the
+    bridge, test mode with seeded label maps, f32 1e-4."""
+    if "attention" in extra and extra["attention"] == "sk" \
+            or "inception_num" in extra or "enc_stack_way" in extra:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_model(load_config(dict(SMALL, hidden_dim=8, **extra)))
+        return
+    from make_photoreal_set import label_maps
+    from rpst_torch.bridge import from_flax_batch_stats
+    rng = np.random.default_rng(7)
+    over = dict(attention="se", **extra) if "sort" in extra else extra
+    cfg = load_config(dict(SMALL, hidden_dim=16, img_size=32, **over))
+    c, s = (rng.random((2, 32, 32, 3), dtype=np.float32) for _ in range(2))
+    maps = [label_maps(32, rng) for _ in range(2)]
+    cl, sl = (np.stack([m[i] for m in maps]).astype(np.int32)
+              for i in (0, 1))
+    jb = j_build_model(cfg)
+    v = jax.tree.map(np.asarray, dict(jb.model.init(
+        jax.random.PRNGKey(0), jnp.asarray(c), jnp.asarray(s))))
+    ref = jb.stylize(v, None, jnp.asarray(c), jnp.asarray(s),
+                     jnp.asarray(cl), jnp.asarray(sl))
+    bundle = build_model(cfg)
+    bundle.load_state_dict({
+        **from_flax_params(v["params"]),
+        **from_flax_batch_stats(v.get("batch_stats", {}))})
+    got = bundle.stylize(*(torch.from_numpy(a) for a in (c, s, cl, sl)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+    assert not bundle.folded_infer()
 
 
 @pytest.mark.parametrize("option", [dict(norm="bn"), dict(norm="in"),

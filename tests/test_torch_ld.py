@@ -210,23 +210,36 @@ def test_batched_encode_equals_per_pair(network, monkeypatch):
 
 
 def test_masks_raise_and_use_mask_serves_plain_adain():
-    """Labels are slice 7; ``use_mask`` without them (the v1 and v4 yamls
-    set it) stylizes as plain AdaIN, as in rpst."""
+    """``use_mask`` without labels (the v1 and v4 yamls set it) stylizes as
+    plain AdaIN, as in rpst; with labels (slice 7 ported them: the refusal
+    this test pinned is gone, its name kept) v4's content-side fusion is
+    the masked AdaIN, as rpst's ``LDAdaINRP`` in test mode, f32 1e-4."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    from make_photoreal_set import label_maps
     rng = np.random.default_rng(4)
-    c, s = (torch.from_numpy(rng.random((1, 16, 16, 3), dtype=np.float32))
+    c, s = (torch.from_numpy(rng.random((1, 32, 32, 3), dtype=np.float32))
             for _ in range(2))
+    tree = ld_weights_from_seed("ld_adain4", 4, 3, 8, 3)
     outs = []
     for use_mask in (False, True):
         cfg = load_config(dict(network="ld_adain4", rp_blocks=3,
-                               hidden_dim=8, img_size=16, use_mask=use_mask))
+                               hidden_dim=8, img_size=32, use_mask=use_mask))
         bundle = build_model(cfg)
-        bundle.load_state_dict(from_flax_params(ld_weights_from_seed(
-            "ld_adain4", 4, 3, 8, 3)))
+        bundle.load_state_dict(from_flax_params(tree))
         outs.append(bundle.stylize(c, s))
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
-    labels = torch.zeros(1, 16, 16, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        bundle.model(c, s, c_labels=labels, s_labels=labels)
+    cl, sl = (torch.from_numpy(m[None].astype(np.int64))
+              for m in label_maps(32, rng))
+    masked = bundle.stylize(c, s, cl, sl)
+    jm = jld.LDAdaINRP(variant=4, layer_num=3, hidden_dim=8,
+                       stylized_layers=3, use_mask=True)
+    ref = jm.apply({"params": tree}, jnp.asarray(c.numpy()),
+                   jnp.asarray(s.numpy()), c_labels=jnp.asarray(cl.numpy()),
+                   s_labels=jnp.asarray(sl.numpy()), test_mode=True)
+    np.testing.assert_allclose(masked.numpy(), np.asarray(ref), **TOL)
+    assert not torch.allclose(masked, outs[1], atol=1e-4)
 
 
 def test_config_and_registry():

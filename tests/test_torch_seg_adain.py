@@ -175,10 +175,20 @@ def test_module_loss_matches_flax():
 
 
 def test_stylize_with_labels_names_slice_7():
-    _, _, _, port, _, c, s, _ = _small()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        port(torch.from_numpy(c), torch.from_numpy(s),
-             c_labels=torch.zeros(2, 32, 32))
+    """Labels at stylize, which raised until slice 7 (the name kept), are
+    taken and read by nothing, as rpst's ``SegAdaINRP`` reads none
+    (``seg_adain.py:91-93``): the output equals rpst's with the same labels
+    and the port's own without them."""
+    jm, v, _, port, _, c, s, label = _small()
+    labels = torch.from_numpy(np.clip(label, 0, None))
+    got = port(torch.from_numpy(c), torch.from_numpy(s), c_labels=labels,
+               s_labels=labels)
+    ref = jm.apply(v, jnp.asarray(c), jnp.asarray(s),
+                   c_labels=jnp.asarray(labels.numpy()),
+                   s_labels=jnp.asarray(labels.numpy()))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+    torch.testing.assert_close(
+        got, port(torch.from_numpy(c), torch.from_numpy(s)), rtol=0, atol=0)
 
 
 def test_unlabelled_steps_keep_optax_count_for_the_head():

@@ -444,8 +444,9 @@ def test_port_never_imports_jax():
         "import rpst_torch.ops.flash_attention, rpst_torch.models.sanet\n"
         "import rpst_torch.nn.decoder, rpst_torch.models.src_adain\n"
         "import rpst_torch.ops.affinity, rpst_torch.ops.adaptive_attention\n"
+        "import rpst_torch.ops.segment, rpst_torch.dumps, rpst_torch.viz\n"
         "import importlib.util as u\n"
-        "for name in ('serve_torch', 'train_torch'):\n"
+        "for name in ('serve_torch', 'train_torch', 'test_torch'):\n"
         "    spec = u.spec_from_file_location(name, name + '.py')\n"
         "    spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -458,8 +459,10 @@ def test_port_never_imports_jax():
 
 PORT_FILES = sorted([*(REPO / "src" / "rpst_torch").rglob("*.py"),
                      REPO / "serve_torch.py", REPO / "train_torch.py",
-                     REPO / "chip_smoke.py", REPO / "profile_torch.py",
-                     REPO / "tools" / "b4_compile_check.py"])
+                     REPO / "test_torch.py", REPO / "chip_smoke.py",
+                     REPO / "profile_torch.py",
+                     REPO / "tools" / "b4_compile_check.py",
+                     REPO / "tools" / "make_photoreal_set.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

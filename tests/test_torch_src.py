@@ -142,10 +142,43 @@ def test_q8_plan_calibration_and_stylize_match_rpst(bundle, fx):
 
 
 def test_labels_raise_naming_slice_7(bundle, fx):
-    feats = bundle.vgg(torch.from_numpy(fx["content"]))
-    labels = torch.zeros(2, 64, 64, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        bundle.model(feats, feats, c_labels=labels, s_labels=labels)
+    """Labels, which raised until slice 7 (the name kept), fuse at relu4_1
+    by the masked AdaIN with ``use_mask`` in test mode, on label maps
+    resized by rpst's integer nearest index: against rpst's
+    ``SourceNet.stylize_from_feats`` on the fixture's weights, f32 1e-4;
+    without ``use_mask`` or test mode the fusion stays plain AdaIN.
+    ``resize_labels`` is rpst's ``_resize_labels`` at sizes where a float
+    scale would pick other rows."""
+    import jax.numpy as jnp
+
+    from rpst.models import src_adain as jsrc
+    from rpst_torch.models.src_adain import resize_labels
+    rng = np.random.default_rng(8)
+    for h_in, h in ((64, 8), (600, 77), (37, 11), (5, 13)):
+        lab = rng.integers(0, 9, (2, h_in, h_in + 3)).astype(np.int32)
+        np.testing.assert_array_equal(
+            resize_labels(torch.from_numpy(lab), h, h + 1).numpy(),
+            np.asarray(jsrc._resize_labels(jnp.asarray(lab), h, h + 1)))
+    sys.path.insert(0, str(REPO / "tools"))
+    from make_photoreal_set import label_maps
+    maps = [label_maps(64, rng) for _ in range(2)]
+    cl, sl = (torch.from_numpy(np.stack([m[i] for m in maps])
+                               .astype(np.int64)) for i in (0, 1))
+    feats = [f.detach() for f in bundle.vgg(torch.from_numpy(fx["content"]))]
+    sfeats = [f.detach() for f in bundle.vgg(torch.from_numpy(fx["style"]))]
+    plain = bundle.model(feats, sfeats, cl, sl, test_mode=True)
+    torch.testing.assert_close(plain, bundle.model(feats, sfeats))
+    masked_model = SourceNet(use_mask=True)
+    masked_model.load_state_dict(bundle.model.state_dict())
+    got = masked_model(feats, sfeats, cl, sl, test_mode=True)
+    torch.testing.assert_close(masked_model(feats, sfeats, cl, sl), plain)
+    jm = jsrc.SourceNet(use_mask=True)
+    params = src_weights_from_seed(int(fx["weights_seed"]))
+    ref = jm.apply({"params": params}, [jnp.asarray(f.numpy()) for f in feats],
+                   [jnp.asarray(f.numpy()) for f in sfeats],
+                   jnp.asarray(cl.numpy()), jnp.asarray(sl.numpy()), True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+    assert not torch.allclose(got, plain, atol=1e-3)
 
 
 def test_q8_gates_and_the_mask_flag():

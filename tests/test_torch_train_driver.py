@@ -80,9 +80,25 @@ def test_cpu_run_writes_metrics_and_checkpoints_and_resumes(run_dir):
 def test_unported_options_raise(run_dir, override, slice_):
     """The options of later slices raise naming their slice. The LD
     networks, which slice 5b refused until the port built them, train: two
-    CPU steps of each (these cases keep their ids)."""
+    CPU steps of each; ``test_dir``, which slice 7 refused until the port
+    took its test dumps, stylizes a photoreal set with its masks every
+    ``test_iter`` steps into ``<output>/test/<step>`` (these cases keep
+    their ids)."""
     args = ["--config", str(run_dir / "cfg.yaml"), "--device", "cpu",
             "--set", override]
+    if slice_ == "slice 7":
+        sys.path.insert(0, str(REPO / "tools"))
+        from make_photoreal_set import make_photoreal_set
+        photo = make_photoreal_set(run_dir / "photo", n=3, size=32)
+        _driver().main([*args[:-1], f"test_dir={photo}", "use_mask=true",
+                        "test_dataset=photoreal", "test_iter=2",
+                        "max_iter=4"])
+        out = run_dir / "out" / "test"
+        names = [f"in{k}-tar{k}{tail}" for k in range(3)
+                 for tail in ("-cat.png", ".png")]
+        assert sorted(p.name for p in (out / "2").iterdir()) == sorted(names)
+        assert sorted(p.name for p in out.iterdir()) == ["2"]
+        return
     if slice_ == "slice 5b":
         _driver().main([*args, "max_iter=3"])
         lines = [json.loads(ln) for ln in (run_dir / "out" / "logs"

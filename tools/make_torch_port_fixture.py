@@ -200,7 +200,32 @@ concat of its 3x3 small and 7x7 big branch, requantized with
 quantized with ``act_scales[1]``) and ``q8_out`` (conv_a's int8 output at
 ``act_scales[2]``).
 
+The masks fixture (``--masks``: tests/fixtures/torch_port_masks.npz; 64px,
+batch 2, one (content, style) batch and one pair of label maps per sample
+from ``tools/make_photoreal_set.label_maps``, which exercise the four
+cases of the masked AdaIN's filter) holds, for each case of ``MASKS`` (the
+flagship yaml's multi_adain at full width with ``attention: se`` and
+``use_mask``, and the same with ``sort`` (``multi_adain_sort``); ccam, sel_multi_adain, src, seg_adain and LD v1 with
+``use_mask`` at a small width):
+  * ``content``, ``style``, ``c_labels``, ``s_labels`` (int32), ``vgg_seed``;
+  * ``<case>/config``: the case's config keys as a JSON string;
+  * ``<case>/params/<path>`` and ``<case>/batch_stats/<path>`` (the SE
+    BatchNorms' running statistics drawn from numpy, their scales and
+    biases too; the RP stacks He-uniform, ``_he_stacks``; ccam's scales
+    0.3 .. 0.7), or ``<case>/weights_seed`` where the port's ``bridge``
+    draws the params (src, seg_adain, LD v1);
+  * ``<case>/out_f32``, ``<case>/out_bf16``: rpst's ``ModelBundle.stylize``
+    with the labels in float32 and at compute_dtype bfloat16 (stored
+    float32); ``<case>/out_nomask``: float32 without labels;
+  * for ``multi_adain``: ``<case>/content_loss``, ``style_loss``,
+    ``total_loss`` and ``<case>/grads/<path>`` of rpst's float32
+    ``ModelBundle.loss`` (the standard path in train mode: the SE
+    BatchNorms on batch statistics), ``<case>/stats_after/<path>``, its
+    moved running statistics, and ``<case>/grads_f64/<path>``, the same
+    gradients in float64 (``masks_grads_f64``).
+
 Usage:
+  python tools/make_torch_port_fixture.py --masks
   python tools/make_torch_port_fixture.py --mrf | --spade | --seg-adain
       | --wct-train | --adain-train
   python tools/make_torch_port_fixture.py --ld | --ld-adain | ... |
@@ -218,6 +243,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from pathlib import Path
@@ -275,6 +301,25 @@ SLICE5B.update({n: dict(network=n, rp_blocks=5, ld_layer_num=5,
 # own float32 and float64 runs: a trajectory float32 cannot pin)
 LD_LR = 1e-4
 LD_SIZE = 32
+MASKS_DST = REPO / "tests" / "fixtures" / "torch_port_masks.npz"
+SMALL = dict(rp_blocks=3, hidden_dim=16)
+# the masks fixture's cases: the flagship yaml's settings at full width,
+# the others narrow (``use_mask`` on for all; the labels reach seg_adain's
+# stylize, which reads none of them, as rpst's)
+MASKS = {
+    "multi_adain": dict(FLAGSHIP, attention="se", sort=False, shuffle=False,
+                        use_mask=True, content_weight=1.0, style_weight=1.0),
+    "multi_adain_sort": dict(FLAGSHIP, attention="se", sort=True,
+                             shuffle=False, use_mask=True),
+    "ccam": dict(SMALL, network="ccam", stylized_layers=3, shuffle=False,
+                 use_mask=True),
+    "sel_multi_adain": dict(SMALL, network="sel_multi_adain", use_mask=True),
+    "src": dict(network="src", use_mask=True),
+    "seg_adain": dict(SMALL, network="seg_adain", seg_hidden_dim=16,
+                      class_num=19, use_mask=True),
+    "ld_adain": dict(network="ld_adain", rp_blocks=3, ld_layer_num=3,
+                     stylized_layers=3, hidden_dim=8, inception_num=0,
+                     use_mask=True)}
 SLICE5B_LOSS = dict(content_weight=1.0, style_weight=2.0)
 SLICE5B_DST = {n: REPO / "tests" / "fixtures" / f"torch_port_{n}.npz"
                for n in SLICE5B}
@@ -1126,6 +1171,181 @@ def make_slice5b_fixture(network: str, seed: int = 0,
     return arrays
 
 
+def _bn_draw(tree, rng, stats: bool):
+    """Every BatchNorm of a flax tree redrawn from ``rng``: its scale
+    U(0.5, 1.5) and bias U(-0.2, 0.2) (``stats`` False: a params tree), or
+    its running mean U(-0.2, 0.2) and variance U(0.5, 1.5) (a batch_stats
+    tree), so that eval mode's statistics are not the identity."""
+    import numpy as np
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out[k] = _bn_draw(v, rng, stats)
+            continue
+        a = np.asarray(v, np.float32)
+        if (stats and k == "mean") or (not stats and k == "bias"
+                                       and a.ndim == 1 and "scale" in tree):
+            a = rng.uniform(-0.2, 0.2, a.shape).astype(np.float32)
+        elif (stats and k == "var") or (not stats and k == "scale"
+                                        and a.ndim == 1 and "bias" in tree):
+            a = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        out[k] = a
+    return out
+
+
+def mask_case_params(case: str, seed: int, c, s):
+    """(params, batch_stats) numpy trees of a masks-fixture case, and the
+    seed the port's ``bridge`` draws them from (None where they are
+    stored)."""
+    import jax
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst_torch import bridge
+    cfg = MASKS[case]
+    rng = np.random.default_rng(seed + 1)
+    if case == "src":
+        return bridge.src_weights_from_seed(seed), {}, seed
+    if case == "seg_adain":
+        return bridge.seg_adain_weights_from_seed(
+            seed, seg_hidden_dim=cfg["seg_hidden_dim"],
+            class_num=cfg["class_num"], rp_blocks=cfg["rp_blocks"],
+            hidden_dim=cfg["hidden_dim"]), {}, seed
+    if case == "ld_adain":
+        return bridge.ld_weights_from_seed(
+            case, seed, cfg["ld_layer_num"], cfg["hidden_dim"],
+            cfg["stylized_layers"]), {}, seed
+    bundle = build_model(load_config(dict(cfg, img_size=c.shape[1])))
+    variables = jax.tree.map(np.asarray, dict(jax.jit(
+        lambda c, s: bundle.model.init(jax.random.PRNGKey(seed), c, s))(
+        c, s)))
+    params = dict(variables["params"])
+    if case.startswith("multi_adain"):
+        he = _he_stacks(params, rng)
+        for stack in he:
+            for blk, leaves in he[stack].items():
+                params[stack] = dict(params[stack])
+                params[stack][blk] = dict(params[stack][blk], **leaves)
+    else:
+        params["ms"] = dict(params["ms"])
+        he = _he_stacks(params["ms"], rng)
+        for stack in he:
+            params["ms"][stack] = {
+                blk: dict(params["ms"][stack][blk], **leaves)
+                for blk, leaves in he[stack].items()}
+    if case == "ccam":
+        for i in range(cfg["rp_blocks"]):
+            params[f"ccam_{i}"] = {
+                "scale": np.full((1,), CCAM_SCALES[i], np.float32)}
+    params = _bn_draw(params, rng, stats=False)
+    stats = _bn_draw(variables.get("batch_stats", {}), rng, stats=True)
+    return params, stats, None
+
+
+def make_masks_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The masks fixture's arrays, computed afresh with JAX on the CPU."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst_torch.bridge import vgg_weights_from_seed
+    sys.path.insert(0, str(REPO / "tools"))
+    from make_photoreal_set import label_maps
+
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN["batch"], size, size, 3)
+    content = rng.random(shape, dtype=np.float32)
+    style = rng.random(shape, dtype=np.float32)
+    maps = [label_maps(size, rng) for _ in range(TRAIN["batch"])]
+    c_labels = np.stack([m[0] for m in maps]).astype(np.int32)
+    s_labels = np.stack([m[1] for m in maps]).astype(np.int32)
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    cl, sl = jnp.asarray(c_labels), jnp.asarray(s_labels)
+    vgg_vars = jax.tree.map(jnp.asarray,
+                            vgg_weights_from_seed(TRAIN["vgg_seed"]))
+    arrays = dict(content=content, style=style, c_labels=c_labels,
+                  s_labels=s_labels, vgg_seed=np.int64(TRAIN["vgg_seed"]))
+    for case, cfg in MASKS.items():
+        arrays[f"{case}/config"] = np.array(json.dumps(cfg))
+        params, stats, weights_seed = mask_case_params(case, seed, c, s)
+        if weights_seed is None:
+            arrays.update({f"{case}/params/{k}": np.asarray(v, np.float32)
+                           for k, v in _flat(params)})
+            arrays.update({f"{case}/batch_stats/{k}":
+                           np.asarray(v, np.float32)
+                           for k, v in _flat(stats)})
+        else:
+            arrays[f"{case}/weights_seed"] = np.int64(weights_seed)
+        var = {"params": jax.tree.map(jnp.asarray, params)}
+        if stats:
+            var["batch_stats"] = jax.tree.map(jnp.asarray, stats)
+        for key, dt, labels in (("out_f32", "float32", (cl, sl)),
+                                ("out_bf16", "bfloat16", (cl, sl)),
+                                ("out_nomask", "float32", (None, None))):
+            b = build_model(load_config(dict(cfg, img_size=size,
+                                             compute_dtype=dt)))
+            out = jax.jit(lambda v, c, s, cl, sl, b=b: b.stylize(
+                v, vgg_vars, c, s, cl, sl))(var, c, s, *labels)
+            arrays[f"{case}/{key}"] = np.asarray(out, np.float32)
+        if case != "multi_adain":
+            continue
+        bundle = build_model(load_config(dict(cfg, img_size=size)))
+
+        def loss_fn(p):
+            total, (parts, muts) = bundle.loss(
+                {"params": p, "batch_stats": var["batch_stats"]}, vgg_vars,
+                c, s, train=True)
+            return total, (parts, muts)
+
+        (_, (parts, muts)), grads = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True))(var["params"])
+        arrays.update({f"{case}/{k}": np.float32(parts[k]) for k in
+                       ("content_loss", "style_loss", "total_loss")})
+        arrays.update({f"{case}/grads/{k}": np.asarray(v, np.float32)
+                       for k, v in _flat(grads)})
+        arrays.update({f"{case}/stats_after/{k}": np.asarray(v, np.float32)
+                       for k, v in _flat(muts["batch_stats"])})
+    arrays.update(masks_grads_f64(arrays))
+    return arrays
+
+
+def masks_grads_f64(arrays: dict) -> dict:
+    """rpst's float64 gradients of the masks fixture's SE flagship loss at
+    its point: ``multi_adain/grads_f64/<path>``, the measure of each
+    gradient's own float32 error (the SE BatchNorms' backward amplifies
+    float32 rounding). Turns on JAX's float64 mode."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    jax.config.update("jax_enable_x64", True)
+
+    def tree(prefix):
+        return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), _unflat(
+            {k[len(prefix):]: v for k, v in arrays.items()
+             if k.startswith(prefix)}))
+
+    var = {"params": tree("multi_adain/params/"),
+           "batch_stats": tree("multi_adain/batch_stats/")}
+    c, s = (jnp.asarray(arrays[k], jnp.float64) for k in ("content", "style"))
+    vgg_vars = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                            vgg_weights_from_seed(int(arrays["vgg_seed"])))
+    bundle = build_model(load_config(dict(MASKS["multi_adain"],
+                                          img_size=c.shape[1])))
+    grads = jax.jit(jax.grad(lambda p, st, v, x, y: bundle.loss(
+        {"params": p, "batch_stats": st}, v, x, y, train=True)[0]))(
+        var["params"], var["batch_stats"], vgg_vars, c, s)
+    return {f"multi_adain/grads_f64/{k}": np.asarray(v, np.float64)
+            for k, v in _flat(grads)}
+
+
 def _f64_calc_mean_std(feat, eps: float = 1e-5):
     """rpst's ``calc_mean_std`` with the reductions in the features' own
     type (rpst's casts them to float32, also for float64 features)."""
@@ -1202,6 +1422,8 @@ def main():
                         help=f"write the {name} fixture instead")
     ap.add_argument("--ld", action="store_true",
                     help="write the five LD fixtures instead")
+    ap.add_argument("--masks", action="store_true",
+                    help="write the masks fixture instead")
     ap.add_argument("--grads-f64", action="store_true",
                     help="with a slice-4 network: only (re)compute the "
                          "fixture's float64 gradients")
@@ -1214,6 +1436,12 @@ def main():
 
     slice4 = [n for n in SLICE4 if getattr(args, n)]
     slice5b = [n for n in SLICE5B if getattr(args, n)]
+    if args.masks:
+        arrays = make_masks_fixture(args.seed, args.size or 64)
+        dst = args.dst or str(MASKS_DST)
+        np.savez_compressed(dst, **arrays)
+        print(f"wrote {dst} ({len(arrays)} arrays)")
+        return
     if args.ld:
         for network in LD:
             arrays = make_slice5b_fixture(network, args.seed,

@@ -39,7 +39,17 @@ seg_adain with ``seg_dir`` (a folder of Cityscapes side-by-side images:
 content on the left ``img_size`` columns, the label ids on the next)
 trains on labelled content batches, its segmentation head through the
 class-weighted cross entropy; without it, unlabelled (the head then gets
-zero gradients).
+zero gradients). The multiscale family takes ``attention: se`` (an SE
+bottleneck in every encoder block, its BatchNorms moving their running
+statistics) and ``sort``, which keep it off the folded path, as in rpst:
+the flagship yaml (``configs/train_constant_multiscale_rp_adain.yaml``)
+trains standard, as written.
+
+With ``test_dir`` set, every ``test_iter`` steps the config's test set
+(``test_dataset``) is stylized into ``<output>/test/<step>/``
+(``{content}-{style}-cat.png`` and ``{content}-{style}.png``, rpst's
+``run_test_dump``), with its segmentation masks where ``use_mask`` is set
+and the set has them (``rpst_torch.dumps``).
 
     python train_torch.py --config cfg.yaml [--set key=value ...]
                           [--device cuda|cpu]
@@ -48,8 +58,7 @@ zero gradients).
 ``--device cpu`` runs the kernels' plain PyTorch versions. At the end it
 logs the B6, B5 and B1/B2/B3 launch counts of the run. Options of later slices
 raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
-and ``distributed`` (slice 8), ``grad_accum > 1`` and ``remat`` (slice 8),
-and ``test_dir`` test dumps (slice 7).
+and ``distributed`` (slice 8), ``grad_accum > 1`` and ``remat`` (slice 8).
 """
 
 import argparse
@@ -65,7 +74,9 @@ import torch  # noqa: E402
 
 from rpst_torch.config import load_config  # noqa: E402
 from rpst_torch.data import (CityscapesDataset,  # noqa: E402
-                             ImageFolderDataset, InfiniteLoader)
+                             ImageFolderDataset, InfiniteLoader,
+                             build_test_dataset)
+from rpst_torch.dumps import dump_test_set  # noqa: E402
 from rpst_torch.metrics import logger  # noqa: E402
 from rpst_torch.models import build_model, build_vgg  # noqa: E402
 from rpst_torch.models.fast_path_q8_std import (  # noqa: E402
@@ -89,7 +100,6 @@ _UNPORTED = {
     "distributed": (lambda c: bool(c.distributed), "section A slice 8"),
     "grad_accum": (lambda c: int(c.grad_accum) > 1, "section A slice 8"),
     "remat": (lambda c: bool(c.remat), "section A slice 8"),
-    "test_dir": (lambda c: bool(c.test_dir), "section A slice 7 (test dumps)"),
 }
 
 
@@ -127,11 +137,6 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    output = Path(cfg.output)
-    for sub in ("logs", "checkpoints"):
-        (output / sub).mkdir(exist_ok=True, parents=True)
-    writer = MetricWriter(output)
-
     bundle = build_model(cfg, device)
     init_torch_default(bundle.model, cfg.seed)
     vgg, vgg_source = build_vgg(cfg, device)
@@ -156,6 +161,13 @@ def main(argv=None):
         raise SystemExit(f"no images: {len(content_ds)} content in "
                          f"{cfg.seg_dir if seg_training else cfg.content_dir!r}"
                          f", {len(style_ds)} style in {cfg.style_dir!r}")
+    test_ds = build_test_dataset(cfg) if cfg.test_dir else None
+    # the output tree is made once the data is there: a run that cannot
+    # start writes nothing
+    output = Path(cfg.output)
+    for sub in ("logs", "checkpoints"):
+        (output / sub).mkdir(exist_ok=True, parents=True)
+    writer = MetricWriter(output)
 
     # a wct resume freezes the encoder (rpst train.py:158)
     freeze = ("encoder",) if (cfg.network == "wct" and cfg.resume) else ()
@@ -277,6 +289,9 @@ def main(argv=None):
                                      f"/{tc['hit_steps'] + tc['miss_steps']}")
                     logger.info(f"Iterations {begin + i}, elapsed time: "
                                 f"{elapsed:.3f}{rate_str}{loss_str}")
+                if test_ds is not None and i % cfg.test_iter == 0:
+                    dump_test_set(bundle, test_ds, cfg.batch_size,
+                                  output / "test" / str(begin + i))
                 if (i % cfg.snapshot_save_iter == 0 or (i + 1) == cfg.max_iter
                         or stop.requested):
                     path = save_checkpoint(output / "checkpoints", state)

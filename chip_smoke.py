@@ -11,7 +11,9 @@ training) with wct's training and its frozen-encoder resume, and the LD
 family (ld_adain .. ld_adain5: standard serving and training, int8 serving
 of v1 and v2, v1's 7x7 convs on B5's 7x7 form), adain's training, and the
 masked stylize, SE attention and test dumps of slice 7 (the flagship yaml
-as written through train_torch.py and test_torch.py), and times them.
+as written through train_torch.py and test_torch.py), slice 4's remainder
+(the deeper yaml as written, SK attention, the Conv2dBlock norms) and
+grad_accum / remat on the folded train step, and times them.
 Needs one
 NVIDIA
 Hopper card; run from the repository root with no arguments:
@@ -333,6 +335,24 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  53. test_torch    test_torch.py on the recon yaml (exec_strategy folded:
                15 B1 launches for its one batch) and on
                configs/train_dynamic_sanet.yaml (claim-map sheets written)
+ 54. slice4r fixture  slice 4's remainder vs rpst's JAX
+               (tests/fixtures/torch_port_slice4r.npz, 64px b2): the
+               deeper yaml's model (deeper stacks, inception 3, use_mask:
+               masked stylize), multi_adain with SK attention, the SE
+               flagship under grad_accum 2 (rpst's _accumulate_grads), in
+               f32 and bf16, float32 / float64 gradients by the slice-5b
+               rule, running statistics; Conv2dBlocks with bn / in and
+               prelu; no B1 and no B4 launched
+ 55. deeper yaml  configs/train_deeper_multiscale_rp_adain.yaml as written
+               (512px b1) through train_torch.py: 3 steps, a masked test
+               dump, test_torch.py on the checkpoint; its step timed in
+               f32 and bf16 with peak memory
+ 56. accum/remat  the folded flagship step at 512px b8, bf16 and f32, with
+               grad_accum 1 / 2 / 4 and remat off / on: exact B1 / B2 / B3
+               launches, gradients held to grad_accum 1, time and peak
+               memory; the SE model's remat step vs its plain step (the
+               running statistics moved once); spade's b4 f32 step under
+               grad_accum 4
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -824,7 +844,19 @@ def main():
     _masks_timing(dev, rng, name_power)
     recon_b1 = _test_torch_paths(dev)
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-53")
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 54-56")
+    # ---- 54-56. slice 4's remainder, grad_accum and remat ------------------
+    t0 = time.perf_counter()
+    _s4r_fixture(dev)
+    log("time", f"phase 54 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    _deeper_yaml(dev, name_power)
+    log("time", f"phase 55 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    accum = _accum_remat(dev, name_power)
+    log("time", f"phase 56 {time.perf_counter() - t0:.1f}s")
+
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-56")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -843,21 +875,23 @@ def main():
          "replaces": "src/rpst/ops/pallas/folded_conv.py:650",
          "launches": (main_launches + train_launches[0] + q8_launches["B1"]
                       + q8t_launches[0] + s4_serve["B1"] + s4_train[0]
-                      + recon_b1),
+                      + recon_b1 + accum[0]),
          "max_abs_err": f32_err, "ms": b12["B1"]["ms"],
          "plain_ms": b12["B1"]["plain_ms"], "bound_ms": bnd["B1"][0],
          "bound_by": bnd["B1"][1], "library_ms": b12["B1"]["library_ms"]},
         {"name": "fused_folded_conv_grad_input", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:339",
-         "launches": train_launches[1] + q8t_launches[1] + s4_train[1],
+         "launches": (train_launches[1] + q8t_launches[1] + s4_train[1]
+                      + accum[1]),
          "max_abs_err": bwd["B2"]["err"], "ms": b12["B2"]["ms"],
          "plain_ms": b12["B2"]["plain_ms"], "bound_ms": bnd["B2"][0],
          "bound_by": bnd["B2"][1], "library_ms": b12["B2"]["library_ms"]},
         {"name": "fused_folded_conv_grad_weight", "route": "cuda",
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
-         "launches": train_launches[2] + q8t_launches[2] + s4_train[2],
+         "launches": (train_launches[2] + q8t_launches[2] + s4_train[2]
+                      + accum[2]),
          "max_abs_err": bwd["B3"]["err"], "ms": bwd["B3"]["ms"],
          "plain_ms": bwd["B3"]["plain_ms"], "bound_ms": bnd["B3"][0],
          "bound_by": bnd["B3"][1], "library_ms": bwd["B3"]["library_ms"]},
@@ -6458,6 +6492,513 @@ def _test_torch_paths(dev):
         log("53 test_torch", f"{DYN_YAML.name} ({IMG}px b1, paired): "
             f"{len(files)} files and claim maps {sheets} {sizes}")
     return b1
+
+
+
+# ---- 54-56. slice 4's remainder, grad_accum and remat ----------------------
+S4R_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_slice4r.npz"
+DEEPER_YAML = REPO / "configs" / "train_deeper_multiscale_rp_adain.yaml"
+# the bf16 rule of phase 50 (MAE < 1e-2 or 3 x rpst's own bf16 distance);
+# gradients by the slice-5b rule with the card's spread (4 x the larger of
+# the two frameworks' own float32 errors), float64 at 1e-4 of max
+S4R_SPREAD_CARD = 4.0
+# a gradient under this share of the largest of its model is zero but for
+# rounding (a conv bias before a batch / instance norm or an AdaIN); the
+# port's is then held under ten times that
+S4R_ZERO = 1e-5
+# the folded flagship train step's launches per microbatch (PER_STEP), and
+# with remat: the whole loss recomputed in the backward runs every B1 of
+# the forward again (the 4 of the no-grad VGG target pass too: the
+# non-reentrant checkpoint reruns the function up to its last saved
+# tensor, the loss), B2 and B3 unchanged
+def remat_per_step(accum, remat):
+    b1, b2, b3 = PER_STEP
+    return (b1 * accum * (2 if remat else 1), b2 * accum, b3 * accum)
+
+
+def _s4r_port_name(path):
+    """A flax param path of the slice-4r fixture -> the port's name."""
+    *stem, leaf = path.split("/")
+    if leaf == "kernel" or (leaf == "scale" and stem
+                            and stem[-1].startswith(("bn", "BatchNorm_"))):
+        leaf = "weight"
+    return ".".join([*stem, leaf])
+
+
+def _s4r_grad_view(grad, kind):
+    """The port's gradient in the fixture's layout: a kernel's HWIO [...,
+    :8, :8] corner, a Linear weight as flax's (in, out) corner."""
+    if kind == "grads":
+        return grad
+    g = grad.permute(2, 3, 1, 0) if grad.dim() == 4 else grad.t()
+    return g[..., :8, :8]
+
+
+def s4r_check_grads(label, fx, case, g32, g64, spread):
+    """The port's float32 (``g32``) and float64 (``g64``) gradients of a
+    slice-4r case (name -> tensor) against rpst's (the fixture's
+    ``<case>/grads|gradpatch|gradnorm`` and ``<case>/f64/...``): float64
+    within 1e-4 of max (+ 5e-3 x |value|); float32 within 1e-4 of max or
+    ``spread`` x the larger of the two frameworks' own float32 errors where
+    that is more (+ 5e-3 x |value|), the port's own error under 3e-3 or
+    twice rpst's worst; a rounding-zero tensor (S4R_ZERO) stays one.
+    Returns (worst float32 err / max, worst float64 err / max, zeros)."""
+    import numpy as np
+    pre = f"{case}/"
+    keys = [k for k in fx if k.startswith(pre) and k.split("/")[1] in
+            ("grads", "gradpatch")]
+    top = max(float(np.abs(fx[f"{pre}f64/{k[len(pre):]}"]).max())
+              for k in keys)
+    views = {}
+    for key in keys:
+        kind, _, path = key[len(pre):].partition("/")
+        name = _s4r_port_name(path)
+        views[key] = tuple(_s4r_grad_view(g[name], kind).double().cpu()
+                           .numpy() for g in (g32, g64))
+    live = [k for k in keys
+            if float(np.abs(fx[f"{pre}f64/{k[len(pre):]}"]).max())
+            >= S4R_ZERO * top]
+    rpst_worst = max(float(np.abs(fx[k] - fx[f"{pre}f64/{k[len(pre):]}"])
+                           .max()) / float(np.abs(fx[
+                               f"{pre}f64/{k[len(pre):]}"]).max())
+                     for k in live)
+    w32 = w64 = 0.0
+    zeros = 0
+    for key in keys:
+        ref, ref64 = fx[key], fx[f"{pre}f64/{key[len(pre):]}"]
+        got, got64 = views[key]
+        if key not in live:
+            if float(np.abs(got).max()) > 10 * S4R_ZERO * top:
+                raise AssertionError(f"{label} {key}: {np.abs(got).max()} "
+                                     "where rpst's gradient is zero")
+            zeros += 1
+            continue
+        size = float(np.abs(ref64).max())
+        e64 = np.abs(got64 - ref64)
+        if not (e64 <= GRAD_ATOL_REL * size + GRAD_RTOL * np.abs(ref64)).all():
+            raise AssertionError(f"{label} {key} float64: max err "
+                                 f"{e64.max() / size:.3g} x max")
+        own_port = float(np.abs(got - got64).max()) / size
+        own_rpst = float(np.abs(ref - ref64).max()) / size
+        if own_port > max(3e-3, 2 * rpst_worst):
+            raise AssertionError(f"{label} {key}: the port's own float32 "
+                                 f"error {own_port:.3g}, rpst's worst "
+                                 f"{rpst_worst:.3g}")
+        atol = max(GRAD_ATOL_REL, spread * max(own_port, own_rpst)) * size
+        e32 = np.abs(got - ref)
+        if not (e32 <= atol + GRAD_RTOL * np.abs(ref)).all():
+            raise AssertionError(f"{label} {key} float32: max err "
+                                 f"{e32.max() / size:.3g} x max (atol "
+                                 f"{atol / size:.3g})")
+        w32 = max(w32, float(e32.max()) / size)
+        w64 = max(w64, float(e64.max()) / size)
+    return w32, w64, zeros
+
+
+def s4r_case(dev, fx, case, spread, dtype="float32"):
+    """One model case of tests/fixtures/torch_port_slice4r.npz on ``dev``
+    (the card in phase 54, the CPU in tests/test_torch_slice4r.py): the
+    stylize in ``dtype`` (f32 within F32_TOL or by the float64 rule with
+    ``spread``, bf16 by phase 50's rule;
+    masked with the fixture's label maps where the case sets use_mask),
+    then in float32 the first train step (``train.step.train_step``, the
+    case's grad_accum) in float32 and float64: its loss parts (rtol 1e-4),
+    its gradients before Adam (``s4r_check_grads``) and the running
+    statistics after it (1e-5). Returns a summary line."""
+    import numpy as np
+    import torch
+    from rpst_torch import bridge
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.train.step import create_train_state, train_step
+    raw = json.loads(str(fx[f"{case}/config"]))
+    size = fx["content"].shape[1]
+    c, s, cl, sl = (torch.from_numpy(fx[k]).to(dev) for k in
+                    ("content", "style", "c_labels", "s_labels"))
+    labels = (cl, sl) if raw.get("use_mask") else ()
+
+    def bundle(dt, vgg=""):
+        b = build_model(load_config(dict(raw, img_size=size, vgg=vgg,
+                                         compute_dtype=dt)), dev)
+        params, stats = bridge.flax_weights_from_seed(
+            build_model(load_config(dict(raw, img_size=size))).model,
+            int(fx["weights_seed"]))
+        b.load_state_dict({**bridge.from_flax_params(params),
+                           **bridge.from_flax_batch_stats(stats)})
+        return b
+
+    b = bundle(dtype)
+    if b.folded_infer() or b.q8_infer():
+        raise AssertionError(f"{case}: the folded / q8 gate is open")
+    out = b.stylize(c, s, *labels)
+    ref32 = torch.from_numpy(fx[f"{case}/out_f32"]).to(dev)
+    if dtype == "float32":
+        # F32_TOL, or where float32 itself errs more (the seeded deeper
+        # stack's outputs reach ~270), ``spread`` x the larger of the two
+        # frameworks' own distances from rpst's float64 stylize (its
+        # masked AdaIN and statistics in float64 too); the port's own
+        # distance under ``spread`` x rpst's
+        got = out.double().cpu().numpy()
+        ref = fx[f"{case}/out_f32"].astype(np.float64)
+        ref64 = fx[f"{case}/out_f64"]
+        own_port = float(np.abs(got - ref64).max())
+        own_rpst = float(np.abs(ref - ref64).max())
+        atol = max(F32_TOL, spread * max(own_port, own_rpst))
+        err = np.abs(got - ref)
+        if not (np.isfinite(got).all() and own_port <= max(
+                F32_TOL, spread * own_rpst)
+                and (err <= atol + F32_TOL * np.abs(ref)).all()):
+            raise AssertionError(f"slice4r {case} f32: max abs err "
+                                 f"{err.max()} (atol {atol}); own float32 "
+                                 f"errors: port {own_port}, rpst {own_rpst}")
+        note = (f"stylize f32 max abs err {err.max():.3g} (own float32 "
+                f"errors vs float64: port {own_port:.3g}, rpst "
+                f"{own_rpst:.3g}; max |out| {np.abs(ref64).max():.3g})")
+    else:
+        ref = fx[f"{case}/out_bf16"]
+        got = out.float().cpu().numpy()
+        mae = float(np.abs(got - ref).mean())
+        own = float(np.abs(ref - fx[f"{case}/out_f32"]).mean())
+        limit = max(MASK_BF16_MAE, MASK_BF16_OWN * own)
+        if not (np.isfinite(got).all() and mae < limit):
+            raise AssertionError(f"slice4r {case} bf16 MAE {mae} >= {limit}")
+        return f"{case} bf16 stylize MAE {mae:.3g} (limit {limit:.3g})"
+    del b
+    grads, parts = {}, {}
+    stat_err = 0.0
+    for dt in (torch.float32, torch.float64):
+        b = bundle("float32")
+        b.model.to(dt)
+        vgg = _5b_vgg(dev, int(fx["vgg_seed"])).to(dt)
+        state = create_train_state(b)
+        first = {}
+
+        def keep(optimizer, args, kwargs, model=b.model, first=first):
+            first.update({n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()})
+        hook = state.optimizer.register_step_pre_hook(keep)
+        parts[dt] = train_step(state, vgg, c.to(dt), s.to(dt))
+        hook.remove()
+        grads[dt] = first
+        if dt == torch.float32:
+            moved = bridge.from_flax_batch_stats(_npz_tree(
+                fx, f"{case}/stats_after/"))
+            sd = b.model.state_dict()
+            stat_err = max([float((sd[n].float().cpu() - v).abs().max())
+                            for n, v in moved.items()] or [0.0])
+            if set(moved) != {n for n, _ in b.model.named_buffers()} \
+                    or not stat_err <= 1e-5:
+                raise AssertionError(f"slice4r {case} running statistics "
+                                     f"{stat_err}")
+        del b, state
+    for k in ("content_loss", "style_loss", "total_loss"):
+        got, want = float(parts[torch.float32][k]), float(fx[f"{case}/{k}"])
+        if not abs(got - want) <= LOSS_RTOL * abs(want):
+            raise AssertionError(f"slice4r {case} {k}: {got} vs rpst {want}")
+    w32, w64, zeros = s4r_check_grads(f"slice4r {case}", fx, case,
+                                      grads[torch.float32],
+                                      grads[torch.float64], spread)
+    return (f"{case}: {note}; step (grad_accum {raw.get('grad_accum', 1)}) "
+            f"loss parts within {LOSS_RTOL}, gradients worst err / max "
+            f"{w32:.3g} (float32), {w64:.3g} (float64), {zeros} zero up to "
+            f"rounding; running statistics {stat_err:.3g}")
+
+
+def s4r_block(dev, fx, case):
+    """A Conv2dBlock case of the slice-4r fixture (bn / in, prelu,
+    inception, SK): eval and train outputs within F32_TOL, the running
+    statistics after the train forward within 1e-5."""
+    import torch
+    from rpst_torch import bridge
+    from rpst_torch.nn.blocks import Conv2dBlock
+    raw = json.loads(str(fx[f"{case}/config"]))
+    cin, feat = raw.pop("in_features"), raw.pop("features")
+    block = Conv2dBlock(cin, feat, **raw)
+    params, stats = bridge.flax_weights_from_seed(block,
+                                                  int(fx["weights_seed"]))
+    block.load_state_dict({**bridge.from_flax_params(params),
+                           **bridge.from_flax_batch_stats(stats)})
+    block.to(dev)
+    x = torch.from_numpy(fx[f"{case}/x"]).to(dev).permute(0, 3, 1, 2)
+    errs = []
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            block.train(mode == "train")
+            out = block(x).permute(0, 2, 3, 1)
+            errs.append(check_close(
+                f"slice4r {case} {mode}", out,
+                torch.from_numpy(fx[f"{case}/out_{mode}"]).to(dev),
+                F32_TOL)[0])
+    moved = bridge.from_flax_batch_stats(_npz_tree(fx, f"{case}/stats_after/"))
+    sd = block.state_dict()
+    stat_err = max([float((sd[n].cpu() - v).abs().max())
+                    for n, v in moved.items()] or [0.0])
+    if not stat_err <= 1e-5:
+        raise AssertionError(f"slice4r {case} running statistics {stat_err}")
+    return (f"{case} ({raw}): eval / train max abs err {errs[0]:.3g} / "
+            f"{errs[1]:.3g}, running statistics {stat_err:.3g}")
+
+
+def _s4r_fixture(dev):
+    """Phase 54: slice 4's remainder on the card against rpst's JAX
+    (tests/fixtures/torch_port_slice4r.npz, 64px b2, weights drawn by
+    bridge.flax_weights_from_seed): the deeper yaml's model (deeper
+    stacks, 3 inception convs a block, hidden 16, use_mask with seeded
+    label maps: masked stylize), a constant multi_adain with SK attention
+    at full width, the SE flagship yaml's model under grad_accum 2 (rpst's
+    _accumulate_grads: loss parts, gradients, BatchNorm statistics moved
+    twice), each in f32 and bf16, with float32 and float64 gradients by
+    the slice-5b rule; the Conv2dBlocks with bn / in and prelu (and
+    inception, SK); no B1 and no B4 launched (rpst's gates stay shut)."""
+    import numpy as np
+    with np.load(S4R_FIXTURE) as npz:
+        fx = {k: npz[k] for k in npz.files}
+    cases = sorted({k.split("/")[0] for k in fx if k.endswith("/config")})
+    for case in cases:
+        _reset_counts()
+        if f"{case}/x" in fx:
+            log("54 slice4r fixture", s4r_block(dev, fx, case))
+        else:
+            for dt in ("float32", "bfloat16"):
+                log("54 slice4r fixture",
+                    s4r_case(dev, fx, case, S4R_SPREAD_CARD, dt))
+        if any(_counts(("B1", "B4"))):
+            raise AssertionError(f"slice4r {case} launched B1/B4 "
+                                 f"{_counts(('B1', 'B4'))}")
+
+
+def _deeper_yaml(dev, name_power):
+    """Phase 55: configs/train_deeper_multiscale_rp_adain.yaml as written
+    (512px b1 float32, deeper stacks, 3 inception convs a block, hidden
+    16, use_mask, photoreal test set) through train_torch.py as a
+    subprocess, only the data paths, the VGG (seeded), the output and the
+    cadence overridden: 3 steps and a test dump at step 2 in which a masked
+    AdaIN ran; test_torch.py on the checkpoint writes the same files; then
+    the yaml's train step timed in float32 and in bfloat16 (CUDA events,
+    median of 3 after 1) with its peak memory, no kernel launched."""
+    import numpy as np
+    import torch
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import create_train_state, train_step
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "4", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        photo = _photoreal(tmp / "photo")
+        out = tmp / "deeper"
+        paths = [f"content_dir={tmp / 'corpus' / 'content'}",
+                 f"style_dir={tmp / 'corpus' / 'style'}",
+                 f"test_dir={photo}", "vgg=", f"output={out}",
+                 "num_workers=2"]
+        t0 = time.perf_counter()
+        text = _driver_run("train_torch.py", [
+            "--config", str(DEEPER_YAML), "--device", "cuda", "--set",
+            *paths, "max_iter=4", "test_iter=2", "log_iter=1",
+            "snapshot_save_iter=2"])
+        wall = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in
+                 (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+        if [ln["step"] for ln in lines] != [1, 2, 3] or any(
+                ln["skipped"] or not np.isfinite(ln["total_loss"])
+                for ln in lines):
+            raise AssertionError(f"deeper yaml metrics: {lines}")
+        valid = [int(m.split("masked AdaIN, ")[1].split(" ")[0])
+                 for m in text.splitlines() if "masked AdaIN, " in m]
+        names = [f"in{k}-tar{k}{t}" for k in range(2)
+                 for t in ("-cat.png", ".png")]
+        if _dump_names(out / "test" / "2") != sorted(names) \
+                or not valid or not all(valid) \
+                or "B1/B2/B3 launches: 0/0/0" not in text:
+            raise AssertionError(f"deeper yaml test dump: "
+                                 f"{_dump_names(out / 'test')} valid {valid}"
+                                 f"\n{text[-3000:]}")
+        log("55 deeper yaml", f"train_torch.py {DEEPER_YAML.name} as written "
+            f"({IMG}px b1 float32, deeper, inception 3, use_mask): 3 steps "
+            f"in {wall:.1f}s wall, total_loss "
+            f"{[round(ln['total_loss'], 4) for ln in lines]}; test dump at "
+            f"step 2: {len(names)} files, masked AdaIN with {valid} label(s) "
+            "past the filter; B1/B2/B3 0/0/0")
+        text = _driver_run("test_torch.py", [
+            "--config", str(DEEPER_YAML), "--device", "cuda", "--set",
+            *paths])
+        if _dump_names(out / "test" / "test_output") != sorted(names) \
+                or "Loaded checkpoint" not in text:
+            raise AssertionError(f"deeper test_torch.py:\n{text[-3000:]}")
+        log("55 deeper yaml", f"test_torch.py on checkpoint 3: the same "
+            f"{len(names)} files")
+    vgg = _5b_vgg(dev, 1)
+    rng = np.random.default_rng(55)
+    for dt in ("float32", "bfloat16"):
+        cfg = load_config(str(DEEPER_YAML), dict(img_size=IMG, vgg="",
+                                                 test_dir="",
+                                                 compute_dtype=dt))
+        b = build_model(cfg, dev)
+        init_torch_default(b.model, 0)
+        c, s = (torch.from_numpy(rng.random((cfg.batch_size, IMG, IMG, 3),
+                                            np.float32)).to(dev)
+                for _ in range(2))
+        state = create_train_state(b)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if any(_counts(("B1", "B2", "B3", "B4", "B5"))):
+            raise AssertionError("the deeper yaml's step launched a kernel")
+        log("55 deeper yaml", f"train step {DEEPER_YAML.name} {IMG}px "
+            f"b{cfg.batch_size} {dt}: {ms:9.3f} ms/step "
+            f"{cfg.batch_size * 1e3 / ms:8.2f} img/s, peak {peak:.2f} GiB "
+            f"({name_power})")
+        del state, b, c, s
+        torch.cuda.empty_cache()
+
+
+def _accum_remat(dev, name_power):
+    """Phase 56: grad_accum and remat on the folded flagship train step
+    (bench config, exec_strategy folded) at 512px b8, bf16 and f32:
+    grad_accum 1 / 2 / 4 with remat off and on, each 1 + 2 timed steps
+    with exact B1 / B2 / B3 launches (remat_per_step), its first step's
+    loss and float32 gradients held to grad_accum 1's (no BatchNorm: the
+    full batch's; 1e-4 of max + 5e-3 x |value|; with remat alone 1e-6 of
+    max), step time and peak memory; the SE flagship yaml's model (64px
+    b2, BatchNorm) with remat against the plain step: loss parts, gradients
+    and running statistics (moved once); spade's b4 float32 step at
+    bench.py's widths (phase 43's, whose b4 f32 step outgrew 80 GB) with
+    grad_accum 4: one step, its time and peak memory. Returns the B1 / B2 /
+    B3 launches of the timed flagship steps."""
+    import numpy as np
+    import torch
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    from rpst_torch.train.step import create_train_state, train_step
+    rng = np.random.default_rng(56)
+    vgg = _5b_vgg(dev, 1)
+    c, s = (torch.from_numpy(rng.random((8, IMG, IMG, 3), np.float32))
+            .to(dev) for _ in range(2))
+    total = [0, 0, 0]
+
+    def run(cfg, c, s, steps, timed):
+        """``steps`` train steps of a bundle of ``cfg`` (seeded by
+        init_torch_default) or of ``cfg()``, a bundle factory."""
+        if callable(cfg):
+            b = cfg()
+        else:
+            b = build_model(cfg, dev)
+            init_torch_default(b.model, 0)
+        state = create_train_state(b)
+        first, losses = {}, []
+
+        def keep(optimizer, args, kwargs):
+            if not first:
+                first.update({n: p.grad.detach().float().clone()
+                              for n, p in b.model.named_parameters()})
+        hook = state.optimizer.register_step_pre_hook(keep)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        times = []
+        for i in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            parts = train_step(state, vgg, c, s)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append({k: float(v) for k, v in parts.items()})
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        hook.remove()
+        counts = _counts()
+        bufs = {n: x.detach().clone() for n, x in b.model.named_buffers()}
+        del state, b
+        torch.cuda.empty_cache()
+        ms = statistics.median(times[1:]) if timed else times[-1]
+        return ms, peak, counts, first, losses, bufs
+
+    for dt in ("bfloat16", "float32"):
+        base = None
+        for accum in (1, 2, 4):
+            for remat in (False, True):
+                cfg = load_config(dict(FLAGSHIP, img_size=IMG, batch_size=8,
+                                       exec_strategy="folded", vgg="",
+                                       compute_dtype=dt, grad_accum=accum,
+                                       remat=remat))
+                ms, peak, counts, first, losses, _ = run(cfg, c, s, 3, True)
+                want = tuple(3 * n for n in remat_per_step(accum, remat))
+                if counts != want:
+                    raise AssertionError(f"accum {accum} remat {remat} {dt}: "
+                                         f"B1/B2/B3 {counts}, want {want}")
+                total = [t + n for t, n in zip(total, counts)]
+                note = ""
+                if base is None:
+                    base = (first, losses[0])
+                elif dt == "float32":
+                    tight = accum == 1  # remat alone: the same sums
+                    worst = 0.0
+                    for n, g in base[0].items():
+                        size = float(g.abs().max())
+                        atol = (1e-6 if tight else GRAD_ATOL_REL) * size
+                        e = (first[n] - g).abs()
+                        if not bool((e <= atol + (0 if tight else GRAD_RTOL)
+                                     * g.abs()).all()):
+                            raise AssertionError(
+                                f"accum {accum} remat {remat}: gradient {n} "
+                                f"max err {float(e.max()) / size:.3g} x max")
+                        worst = max(worst, float(e.max()) / size)
+                    for k, v in base[1].items():
+                        if k != "skipped" and not abs(losses[0][k] - v) <= (
+                                1e-6 if tight else 1e-5) * abs(v):
+                            raise AssertionError(f"accum {accum} remat "
+                                                 f"{remat} {k}: {losses[0][k]}"
+                                                 f" vs {v}")
+                    note = (f"; gradients vs grad_accum 1 worst err / max "
+                            f"{worst:.3g}")
+                log("56 accum/remat", f"folded flagship {IMG}px b8 {dt} "
+                    f"grad_accum {accum} remat {str(remat).lower()}: "
+                    f"{ms:9.3f} ms/step {8e3 / ms:7.2f} img/s, peak "
+                    f"{peak:6.2f} GiB, B1/B2/B3 a step "
+                    f"{'/'.join(str(n // 3) for n in counts)}{note} "
+                    f"({name_power})")
+    small = dict(network="multi_adain", rp_blocks=5, hidden_dim=32,
+                 attention="se", img_size=64, batch_size=2, vgg="",
+                 content_weight=1.0, style_weight=1.0)
+    cs, ss = (torch.from_numpy(rng.random((2, 64, 64, 3), np.float32))
+              .to(dev) for _ in range(2))
+    plain = run(load_config(small), cs, ss, 1, False)
+    rem = run(load_config(dict(small, remat=True)), cs, ss, 1, False)
+    worst = 0.0
+    for n, g in plain[3].items():
+        size = float(g.abs().max())
+        e = float((rem[3][n] - g).abs().max())
+        if not e <= 1e-5 * size:
+            raise AssertionError(f"SE remat gradient {n}: {e / size:.3g} x max")
+        worst = max(worst, e / size)
+    stat = max(float((rem[5][n] - v).abs().max()) for n, v in plain[5].items())
+    loss = abs(rem[4][0]["total_loss"] - plain[4][0]["total_loss"])
+    if not (stat <= 1e-6 and loss <= 1e-6 * abs(plain[4][0]["total_loss"])):
+        raise AssertionError(f"SE remat vs plain: statistics {stat}, loss "
+                             f"{loss}")
+    log("56 accum/remat", f"SE flagship (BatchNorm) 64px b2 remat vs plain: "
+        f"total_loss off by {loss:.3g}, gradients worst {worst:.3g} x max, "
+        f"running statistics {stat:.3g} (moved once)")
+    cs, ss = (torch.from_numpy(rng.random((4, IMG, IMG, 3), np.float32))
+              .to(dev) for _ in range(2))
+    ms, peak, counts, _, losses, _ = run(
+        lambda: _5b_bundle(dev, "spade", IMG, grad_accum=4), cs, ss, 1,
+        False)
+    if not np.isfinite(losses[0]["total_loss"]):
+        raise AssertionError(f"spade b4 f32 grad_accum 4: {losses}")
+    log("56 accum/remat", f"spade (bench.py's widths, phase 43's: rp_blocks "
+        f"5, hidden 32, ndf 2) {IMG}px b4 float32 grad_accum 4: one step "
+        f"{ms:9.3f} ms (the run's first, cuDNN's choices included), peak "
+        f"{peak:6.2f} GiB, total_loss {losses[0]['total_loss']:.4f} "
+        f"({name_power})")
+    return tuple(total)
 
 
 if __name__ == "__main__":

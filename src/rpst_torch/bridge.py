@@ -37,6 +37,7 @@ generator ``rp_decoder.head.norm_s.mlp_shared.weight``, ``...conv_s``,
     ``{'encoder': sd, 'decoder': sd}``, which
     ``tools/export_reference_checkpoint.py`` writes from an rpst
     checkpoint: ``{i}.conv.weight`` keys for the flagship (rpstack), with
+    ``{i}.inception.{j}.0.*`` for its inception 1x1 convs and
     ``{i}.attention_block.*`` for an encoder block's SE bottleneck
     (``attention: se``: convs, BatchNorms with their running statistics,
     ``se.fc.{0,2}``) onto the block's ``SEBottleneck_0``,
@@ -82,7 +83,7 @@ from __future__ import annotations
 import re
 from collections.abc import Mapping
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -115,8 +116,13 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
     """rpst params tree (``{'rp_shared_encoder': {'block_0': {'PadConv_0':
     {'Conv_0': {'kernel', 'bias'}}}}, ...}``) -> port state_dict. Conv
     kernels (HWIO) become OIHW weights, Dense kernels (in, out) Linear
-    weights (out, in), a BatchNorm's ``scale`` its ``weight``; a CCAM
-    module's ``scale`` keeps its name."""
+    weights (out, in), a BatchNorm's ``scale`` (``bn*``, a Conv2dBlock's
+    ``BatchNorm_0``) its ``weight``; a CCAM module's ``scale`` and a
+    Conv2dBlock's ``prelu_alpha`` keep their names. The inception 1x1
+    convs (``inception_{j}``) and the SK bottleneck (``SKBottleneck_0/
+    {conv1, bn1, SKLayer_0/{branch_i, fc1, fc2}, conv3, bn3}``, grouped
+    branch kernels (3, 3, C / groups, Co) -> (Co, C / groups, 3, 3)) are
+    plain convs and BatchNorms to it."""
     sd = {}
     for key, value in _flatten(tree):
         arr = np.array(value, np.float32)  # a writable copy
@@ -135,9 +141,10 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{key}: expected an HWIO conv kernel or a "
                                  f"Dense kernel (in, out), got shape "
                                  f"{arr.shape}")
-        elif key.endswith(".scale") and key.split(".")[-2].startswith("bn"):
+        elif key.endswith(".scale") and key.split(".")[-2].startswith(
+                ("bn", "BatchNorm_")):
             key = key[:-len("scale")] + "weight"
-        elif not (key.endswith(".bias") or key.endswith(".scale")):
+        elif key.rpartition(".")[2] not in ("bias", "scale", "prelu_alpha"):
             raise ValueError(f"unexpected flax param {key!r}")
         sd[key] = torch.from_numpy(arr)
     return sd
@@ -175,7 +182,8 @@ def _se_from_reference(stem: str, leaf: str):
 def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
     """``{'encoder': sd, 'decoder': sd}`` of numpy arrays or CPU tensors ->
     port state_dict. ``{i}.conv.weight`` keys (OIHW) are the flagship's
-    Conv2dBlock stacks, ``{i}.attention_block.*`` their SE bottlenecks;
+    Conv2dBlock stacks, ``{i}.inception.{j}.0.*`` their inception 1x1
+    convs, ``{i}.attention_block.*`` their SE bottlenecks;
     ``{2i}.weight`` keys are the conv + ReLU Sequentials
     of adain and wct, whose conv i sits at index 2i. ``{'transform': sd,
     'decoder': sd}`` is a SANet's, ``{'decoder': sd}`` SourceNet's."""
@@ -192,6 +200,11 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
             parts = key.split(".")
             if len(parts) == 3 and parts[1] == "conv":
                 name = f"{stack}.block_{parts[0]}.PadConv_0.Conv_0.{parts[2]}"
+            elif (len(parts) == 5 and parts[1] == "inception"
+                  and parts[3] == "0"):
+                # Sequential(Conv2d 1x1, ...) at {i}.inception.{j}
+                name = f"{stack}.block_{parts[0]}.inception_{parts[2]}." \
+                       f"{parts[4]}"
             elif len(parts) >= 4 and parts[1] == "attention_block":
                 se = _se_from_reference(".".join(parts[2:-1]), parts[-1])
                 if se is None:
@@ -202,9 +215,9 @@ def from_reference_checkpoint(ckpt) -> Dict[str, torch.Tensor]:
                 name = f"{part}.conv_{int(parts[0]) // 2}.Conv_0.{parts[1]}"
             else:
                 raise ValueError(f"{part}.{key}: only plain Conv2dBlocks "
-                                 "(with their SE attention) and conv + ReLU "
-                                 "Sequentials are ported (no inception "
-                                 "state)")
+                                 "(with their inception convs and SE "
+                                 "attention, the keys rpst's export writes) "
+                                 "and conv + ReLU Sequentials are read")
             sd[name] = torch.tensor(np.asarray(value, np.float32))
     return sd
 
@@ -573,3 +586,64 @@ def ld_weights_from_seed(network: str, seed: int, layer_num: int = 5,
                            * (s * s * hidden_dim) ** -0.5).astype(np.float32),
                 "bias": np.zeros(hidden_dim, np.float32)}
     return tree
+
+
+def flax_weights_from_seed(model: torch.nn.Module, seed: int
+                           ) -> Tuple[dict, dict]:
+    """(params, batch_stats) flax trees for ``model``'s parameters and
+    BatchNorm buffers, drawn from ``numpy.random.default_rng(seed)`` in the
+    state_dict's order (so a machine without JAX rebuilds them; the
+    slice-4-remainder fixture's models: deeper stacks, inception, SK,
+    the Conv2dBlock norms and prelu): conv kernels (HWIO) He-uniform, conv
+    and Linear biases U(+-1/sqrt(fan_in)), Linear kernels (in, out)
+    U(+-1/sqrt(in)), BatchNorm scales U(0.5, 1.5), biases U(-0.2, 0.2),
+    running means N(0, 0.2^2) and variances U(0.5, 1.5), a prelu slope
+    U(0.1, 0.4), a CCAM scale U(0, 0.1). ``from_flax_params`` /
+    ``from_flax_batch_stats`` of the two give the port's state_dict."""
+    from .nn.attention import BatchNorm
+    rng = np.random.default_rng(seed)
+    bns = {name for name, m in model.named_modules()
+           if isinstance(m, BatchNorm)}
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, value):
+        for part in path[:-1]:
+            tree = tree.setdefault(part, {})
+        tree[path[-1]] = value.astype(np.float32)
+
+    fan_in = {}
+    for name, t in model.state_dict().items():
+        stem, _, leaf = name.rpartition(".")
+        path = stem.split(".") if stem else []
+        shape = tuple(t.shape)
+        if stem in bns:
+            if leaf == "weight":
+                put(params, path + ["scale"], rng.uniform(0.5, 1.5, shape))
+            elif leaf == "bias":
+                put(params, path + ["bias"], rng.uniform(-0.2, 0.2, shape))
+            elif leaf == "running_mean":
+                put(stats, path + ["mean"], rng.normal(0.0, 0.2, shape))
+            elif leaf == "running_var":
+                put(stats, path + ["var"], rng.uniform(0.5, 1.5, shape))
+            continue
+        if leaf == "weight" and len(shape) == 4:
+            fan = int(np.prod(shape[1:]))
+            lim = (6.0 / fan) ** 0.5
+            fan_in[stem] = fan
+            put(params, path + ["kernel"], rng.uniform(
+                -lim, lim, shape).transpose(2, 3, 1, 0))
+        elif leaf == "weight" and len(shape) == 2:
+            fan_in[stem] = shape[1]
+            lim = shape[1] ** -0.5
+            put(params, path + ["kernel"], rng.uniform(-lim, lim, shape).T)
+        elif leaf == "bias":
+            lim = fan_in.get(stem, shape[0]) ** -0.5
+            put(params, path + ["bias"], rng.uniform(-lim, lim, shape))
+        elif leaf == "prelu_alpha":
+            put(params, path + [leaf], np.asarray(rng.uniform(0.1, 0.4)))
+        elif leaf == "scale":
+            put(params, path + [leaf], rng.uniform(0.0, 0.1, shape))
+        else:
+            raise ValueError(f"no draw for {name!r}")
+    return params, stats

@@ -31,8 +31,13 @@ block); ``sort`` orders the channels of both the content and the style
 features by the *style* pass's SE weights, as rpst keeps the reference's
 behaviour (its shared encoder caches the maps of its last call).
 
-Of MultiScaleAdaINRP the deeper stacks and inception are not ported; they
-raise ``NotImplementedError`` naming their ROADMAP.md slice.
+The multiscale encoder takes ``inception_num`` 1x1 convs in every block
+and ``attention`` ``se`` or ``sk``; its decoder takes neither, as rpst
+builds it. ``enc_stack_way: deeper`` doubles the encoder's width every
+block (3 -> hidden -> ... -> hidden * 2^(rp_blocks - 1)) and halves the
+decoder's back down, the fusions pairing the widths in reverse order; the
+deeper encoder takes no attention (rpst's deeper builder has no attention
+argument), whatever the config says.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ from torch import nn
 
 from ..nn.attention import SEBottleneck
 from ..nn.blocks import (RPSequence, RPStack, rp_constant_dims,
-                         rp_decrease_dims, rp_increase_dims)
+                         rp_decrease_dims, rp_deeper_dims, rp_increase_dims,
+                         rp_shallower_dims)
 from ..ops.mst import mst_transfer_batch
 from ..ops.segment import masked_adain_nchw
 from ..ops.stats import adaptive_instance_normalization
@@ -119,7 +125,8 @@ class AdaINRP(nn.Module):
 
 class MultiScaleAdaINRP(nn.Module):
     """Multiscale RP AdaIN with the shared encoder ``rp_shared_encoder`` and
-    the decoder ``rp_decoder`` (the flax module names). ``shuffle`` shuffles
+    the decoder ``rp_decoder`` (the flax module names), constant or deeper
+    stacks (``enc_stack_way``). ``shuffle`` shuffles
     the channels of the features 0 .. ``shuffle_layers`` at test time only
     (``forward(..., test_mode=True)``, what serving runs); ``sort`` orders
     the channels by the style pass's SE weights in both modes; masks fuse
@@ -132,16 +139,17 @@ class MultiScaleAdaINRP(nn.Module):
                  use_mask: bool = False, max_seg_labels: int = 64,
                  device=None, dtype=None):
         super().__init__()
-        if enc_stack_way == "deeper":
-            raise NotImplementedError(
-                "MultiScaleAdaINRP enc_stack_way='deeper' is not ported yet: "
-                "ROADMAP.md section A slice 4 (its remainder: the deeper "
-                "stacks)")
         self.shuffle, self.shuffle_layers = shuffle, shuffle_layers
         self.sort, self.use_mask = sort, use_mask
         self.max_seg_labels = max_seg_labels
-        enc_dims = rp_constant_dims(rp_blocks, 3, hidden_dim, hidden_dim)
-        dec_dims = rp_constant_dims(rp_blocks, hidden_dim, hidden_dim, 3)
+        if enc_stack_way == "deeper":  # rpst adain_rp.py:108-113
+            enc_out = hidden_dim * 2 ** (rp_blocks - 1)
+            enc_dims = rp_deeper_dims(rp_blocks, 3, hidden_dim, enc_out)
+            dec_dims = rp_shallower_dims(rp_blocks, enc_out, enc_out // 2, 3)
+            attention = "none"  # the deeper builder takes no attention
+        else:
+            enc_dims = rp_constant_dims(rp_blocks, 3, hidden_dim, hidden_dim)
+            dec_dims = rp_constant_dims(rp_blocks, hidden_dim, hidden_dim, 3)
         self.rp_shared_encoder = RPStack(enc_dims, inception_num=inception_num,
                                          attention=attention, device=device,
                                          dtype=dtype)

@@ -1,4 +1,4 @@
-"""SE channel attention; port of ``rpst.nn.attention`` (reference
+"""SE and SK channel attention; port of ``rpst.nn.attention`` (reference
 ``network/attention.py``):
 
   * ``SELayer``: squeeze-excitation (attention.py:5-22);
@@ -12,12 +12,18 @@ same biased variance (torch's BatchNorm2d would move them by the unbiased
 one); eval mode uses the running statistics. Its names are torch's
 (``weight``, ``bias``, ``running_mean``, ``running_var``), so a
 reference ``.pth`` maps onto them; ``bridge`` maps flax's ``scale`` and
-``batch_stats`` ``mean`` / ``var``. ``SKLayer`` / ``SKBottleneck`` stay with
-the Conv2dBlock options (ROADMAP.md section A slice 4's remainder).
+``batch_stats`` ``mean`` / ``var``.
+
+  * ``SKLayer``: selective kernel, M dilated 3x3 grouped convs with zero
+    padding and a softmax over the branches (attention.py:69-105);
+  * ``SKBottleneck``: 1x1 conv-bn-relu -> SK -> 1x1 conv-bn -> + residual
+    -> relu (attention.py:108-130), the Conv2dBlock's ``attention: sk``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Tuple
 
 import torch
@@ -27,12 +33,32 @@ from torch import nn
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
+# set while a checkpointed forward is recomputed in the backward
+# (``train.step``'s remat): the running statistics moved once, in the
+# forward, as rpst's pure ``jax.checkpoint`` takes them from its one
+# forward
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Inside the block ``BatchNorm.update_running`` leaves the running
+    statistics where they are (``torch.utils.checkpoint``'s recompute
+    context: a recomputed train forward would move them twice)."""
+    old = getattr(_FROZEN, "on", False)
+    _FROZEN.on = True
+    try:
+        yield
+    finally:
+        _FROZEN.on = old
+
 
 def bn_batch_stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
-    """Batch mean and biased variance over ``dims`` in float32, in flax's
-    fast form: E[x^2] - E[x]^2, clamped at 0."""
-    v = x.float()
+    """Batch mean and biased variance over ``dims`` in float32 at least
+    (float64 features stay float64, as flax promotes them), in flax's fast
+    form: E[x^2] - E[x]^2, clamped at 0."""
+    v = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = v.mean(dim=dims)
     var = torch.clamp((v * v).mean(dim=dims) - mean * mean, min=0.0)
     return mean, var
@@ -60,7 +86,10 @@ class BatchNorm(nn.Module):
 
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """running = 0.9 running + 0.1 batch, in place (a skipped step puts
-        the old values back: ``train.step``)."""
+        the old values back: ``train.step``); nothing inside
+        ``running_stats_frozen``."""
+        if getattr(_FROZEN, "on", False):
+            return
         with torch.no_grad():
             for buf, v in ((self.running_mean, mean),
                            (self.running_var, var)):
@@ -121,3 +150,59 @@ class SEBottleneck(nn.Module):
         out = F.relu(self.bn2(self.conv2(out)))
         out, att = self.SELayer_0(self.bn3(self.conv3(out)))
         return F.relu(out + x), att
+
+
+class SKLayer(nn.Module):
+    """Selective kernel: ``M`` 3x3 convs ``branch_{i}`` of dilation and zero
+    padding 1 + i, grouped by 32 where the input width divides by 32 (else
+    1), each through a ReLU; their sum's global mean through ``fc1`` (to
+    max(in_ch // r, L) channels) -> ReLU -> ``fc2`` (to out_channels * M)
+    gives per-channel weights, softmaxed over the M branches, which mix
+    the branches. No conv has a bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, M: int = 2,
+                 r: int = 16, L: int = 32, device=None, dtype=None):
+        super().__init__()
+        self.M, self.out_channels = M, out_channels
+        d = max(in_channels // r, L)
+        groups = 32 if in_channels % 32 == 0 else 1
+        kw = dict(bias=False, device=device, dtype=dtype)
+        for i in range(M):
+            self.add_module(f"branch_{i}", nn.Conv2d(
+                in_channels, out_channels, 3, padding=1 + i,
+                dilation=1 + i, groups=groups, **kw))
+        self.fc1 = nn.Conv2d(out_channels, d, 1, **kw)
+        self.fc2 = nn.Conv2d(d, out_channels * M, 1, **kw)
+
+    def forward(self, x):
+        branches = [F.relu(getattr(self, f"branch_{i}")(x))
+                    for i in range(self.M)]
+        u = branches[0]
+        for b in branches[1:]:
+            u = u + b
+        z = F.relu(self.fc1(u.mean(dim=(2, 3), keepdim=True)))
+        ab = self.fc2(z).reshape(x.shape[0], self.M, self.out_channels)
+        ab = torch.softmax(ab, dim=1).to(branches[0].dtype)
+        out = branches[0] * ab[:, 0, :, None, None]
+        for i in range(1, self.M):
+            out = out + branches[i] * ab[:, i, :, None, None]
+        return out
+
+
+class SKBottleneck(nn.Module):
+    """conv1x1-bn-relu -> SK -> conv1x1-bn -> + residual -> relu, no conv
+    bias (``inplanes == planes``)."""
+
+    def __init__(self, planes: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.conv1 = nn.Conv2d(planes, planes, 1, **kw)
+        self.bn1 = BatchNorm(planes, device, dtype)
+        self.SKLayer_0 = SKLayer(planes, planes, device=device, dtype=dtype)
+        self.conv3 = nn.Conv2d(planes, planes, 1, **kw)
+        self.bn3 = BatchNorm(planes, device, dtype)
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn3(self.conv3(self.SKLayer_0(out)))
+        return F.relu(out + x)

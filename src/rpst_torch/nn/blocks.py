@@ -1,5 +1,5 @@
 """Convolution blocks and RP (resolution-preserving) stacks; port of
-``rpst.nn.blocks`` for the options the flagship, adain and wct use.
+``rpst.nn.blocks``.
 
 The modules take NCHW tensors, PyTorch's layout for ``F.conv2d``; module
 and parameter names follow the flax tree (``block_{i}.PadConv_0.Conv_0``),
@@ -7,13 +7,16 @@ so ``rpst_torch.bridge`` maps flax params one to one. Every conv is
 stride-1: full spatial resolution at every layer. ``Conv2dBlock`` stacks
 pad by reflection; ``RPSequence`` (adain, wct) pads with zeros.
 
-``attention="se"`` puts rpst's SE bottleneck (``nn.attention.
-SEBottleneck``, module ``SEBottleneck_0``) after a block's activation;
+A ``Conv2dBlock`` is rpst's: pad -> conv -> ``inception_num`` 1x1 convs
+(``inception_{i}``) -> norm (``bn``: flax-semantics ``BatchNorm_0``;
+``in``: instance norm) -> activation (``lrelu`` slope 0.2, ``relu``,
+``prelu`` with one scalar ``prelu_alpha``)
+-> attention (``se``: rpst's SE bottleneck ``SEBottleneck_0``; ``sk``: the
+selective-kernel bottleneck ``SKBottleneck_0``).
 ``RPStack.intermediates_with_attention`` also returns each block's SE
-channel weights, which the multiscale models' ``sort`` reads. Not ported
-yet (they raise ``NotImplementedError``): inception 1x1 stacks, SK
-attention, batch/instance norm and prelu, which belong to ROADMAP.md
-section A slice 4's remainder (the Conv2dBlock options).
+channel weights, which the multiscale models' ``sort`` reads. The norms
+``ln`` and ``adain`` raise ``NotImplementedError``, as rpst's Conv2dBlock
+refuses them (the reference never defines their classes).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import SEBottleneck
+from .attention import BatchNorm, SEBottleneck, SKBottleneck
 
 
 def pad2d(x: torch.Tensor, pad: int, mode: str = "reflect") -> torch.Tensor:
@@ -66,18 +69,10 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
 
 
-_SLICE_OF_OPTION = {
-    "inception_num": "slice 4 (its remainder: the inception configs)",
-    "attention": "slice 4 (its remainder: SK attention in the blocks)",
-    "norm": "slice 4 (its remainder: the Conv2dBlock norm bn / in)",
-    "activation": "slice 4 (its remainder: the Conv2dBlock prelu)",
-}
-
-
 class Conv2dBlock(nn.Module):
-    """pad -> conv -> activation [-> SE bottleneck] (reference
-    ``network/base.py:114-198``), with norm ``none``, activation ``lrelu``
-    (slope 0.2) or ``relu``, attention ``none`` or ``se``."""
+    """pad -> conv -> inception 1x1 convs -> norm -> activation [-> SE or
+    SK bottleneck] (reference ``network/base.py:114-198``; rpst
+    ``nn/blocks.py:118-169``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  padding: int = 1, norm: str = "none",
@@ -85,28 +80,59 @@ class Conv2dBlock(nn.Module):
                  inception_num: int = 0, attention: str = "none",
                  device=None, dtype=None):
         super().__init__()
-        for opt, value, ok in (
-                ("inception_num", inception_num, not inception_num),
-                ("attention", attention, attention in ("none", "se")),
-                ("norm", norm, norm in ("none", "sn")),
-                ("activation", activation, activation in ("lrelu", "relu"))):
-            if not ok:
-                raise NotImplementedError(
-                    f"Conv2dBlock option {opt}={value!r} is not ported yet: "
-                    f"ROADMAP.md section A {_SLICE_OF_OPTION[opt]}")
-        self.slope = 0.2 if activation == "lrelu" else 0.0
+        if norm not in ("none", "sn", "bn", "in"):
+            # rpst raises for ln / adain: the reference never defines them
+            raise NotImplementedError(
+                f"Conv2dBlock norm {norm!r}: rpst refuses it too (the "
+                "reference's 'ln' / 'adain' norm classes are undefined)")
+        if activation not in ("lrelu", "relu", "prelu"):
+            raise ValueError(f"activation {activation!r}: the port builds "
+                             "lrelu, relu and prelu (no model of rpst uses "
+                             "another)")
+        if attention not in ("none", "se", "sk"):
+            raise ValueError(f"unknown attention {attention!r}")
+        self.norm, self.activation = norm, activation
+        self.inception_num = inception_num or 0
         self.PadConv_0 = PadConv(in_features, features, kernel_size, padding,
                                  pad_type, device=device, dtype=dtype)
+        for i in range(self.inception_num):
+            self.add_module(f"inception_{i}", nn.Conv2d(
+                features, features, 1, device=device, dtype=dtype))
+        if norm == "bn":
+            self.BatchNorm_0 = BatchNorm(features, device, dtype)
+        if activation == "prelu":
+            self.prelu_alpha = nn.Parameter(torch.full(
+                (), 0.25, device=device, dtype=dtype or torch.float32))
         if attention == "se":
             self.SEBottleneck_0 = SEBottleneck(features, device=device,
                                                dtype=dtype)
+        elif attention == "sk":
+            self.SKBottleneck_0 = SKBottleneck(features, device=device,
+                                               dtype=dtype)
+
+    def _act(self, x):
+        if self.activation == "prelu":
+            # jnp promotes x with the float32 scalar, as rpst's where does
+            dt = torch.promote_types(x.dtype, self.prelu_alpha.dtype)
+            x = x.to(dt)
+            return torch.where(x >= 0, x, self.prelu_alpha.to(dt) * x)
+        return F.leaky_relu(x, 0.2 if self.activation == "lrelu" else 0.0)
 
     def forward_with_attention(self, x) -> Tuple[torch.Tensor,
                                                  Optional[torch.Tensor]]:
         """(output, SE channel weights (N, C, 1, 1) or None)."""
-        x = F.leaky_relu(self.PadConv_0(x), self.slope)
+        x = self.PadConv_0(x)
+        for i in range(self.inception_num):
+            x = getattr(self, f"inception_{i}")(x)
+        if self.norm == "bn":
+            x = self.BatchNorm_0(x)
+        elif self.norm == "in":
+            x = instance_norm(x)
+        x = self._act(x)
         if hasattr(self, "SEBottleneck_0"):
             return self.SEBottleneck_0(x)
+        if hasattr(self, "SKBottleneck_0"):
+            return self.SKBottleneck_0(x), None
         return x, None
 
     def forward(self, x):

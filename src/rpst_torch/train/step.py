@@ -24,18 +24,36 @@ refuses them with ``grad_accum`` and with labels (``check_target_cache``).
 A step may take content labels (seg_adain's segmentation loss; rpst's
 ``make_train_step(with_labels=True)``).
 
-Not ported: gradient accumulation and rematerialization
-(``train_torch.py`` refuses ``grad_accum > 1`` and ``remat``).
+``grad_accum: k`` (rpst's ``_accumulate_grads``, ``step.py:68-116``) splits
+the batch into k equal microbatches (the labels with it) run one after the
+other: the losses, loss parts and gradients are averaged (summed, then
+scaled by 1 / k, as rpst's scan does), and one Adam step and one schedule
+count follow. Each microbatch's train forward takes its own BatchNorm
+batch statistics and moves the running ones, so a step moves them k times
+and the averaged gradient is the full batch's only for a network without
+BatchNorm. A batch that k does not divide raises, and so do precomputed
+targets (``check_target_cache``).
+
+``remat: true`` (rpst ``step.py:155-161``) checkpoints the whole loss
+function, not block by block, as rpst's ``jax.checkpoint(loss_fn)``: the
+forward keeps only its inputs and the backward recomputes it
+(``torch.utils.checkpoint``, non-reentrant), so the folded step launches
+B1 again in the recompute. The recompute leaves the BatchNorm running
+statistics alone (``nn.attention.running_stats_frozen``): they move once,
+as in a plain step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import ModelBundle
+from ..nn.attention import running_stats_frozen
 from ..nn.vgg import VGG19Encoder
 from ..nn.vgg_folded import ConvAct
 from ..ops.folded_conv import folded_conv_act
@@ -126,26 +144,73 @@ def check_target_cache(cfg, with_labels: bool = False) -> None:
                          "families")
 
 
+def _remat_contexts():
+    """``torch.utils.checkpoint``'s (forward, recompute) contexts: the
+    recompute leaves the running statistics alone."""
+    return contextlib.nullcontext(), running_stats_frozen()
+
+
+def step_loss(bundle: ModelBundle, vgg: VGG19Encoder, content, style,
+              conv_act: ConvAct = folded_conv_act, targets=None,
+              content_label=None, remat: bool = False):
+    """``bundle.loss`` -> (total, parts); with ``remat`` under one
+    non-reentrant checkpoint of the whole function."""
+    def loss_fn(c, s, lab):
+        kw = {} if lab is None else {"content_label": lab}
+        return bundle.loss(vgg, c, s, targets=targets, conv_act=conv_act,
+                           **kw)
+    if not remat:
+        return loss_fn(content, style, content_label)
+    return checkpoint(loss_fn, content, style, content_label,
+                      use_reentrant=False, context_fn=_remat_contexts)
+
+
 def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
                style: torch.Tensor, conv_act: ConvAct = folded_conv_act,
                targets=None, content_label: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
     """One step on a (content, style) batch, NHWC in [0, 1] on the model's
-    device: loss, backward, then Adam unless the loss or a gradient is not
-    finite; a skipped step also puts the model's buffers back. ``targets``
-    are precomputed loss targets (``DeviceTargetCache.targets_for_batch``);
-    ``content_label`` (N, H, W) integer labels of the content batch
-    (seg_adain). Returns the loss parts (detached device scalars) with
+    device: loss, backward (over ``grad_accum`` microbatches, the whole
+    loss checkpointed with ``remat``), then Adam unless the loss or a
+    gradient is not finite; a skipped step also puts the model's buffers
+    back. ``targets`` are precomputed loss targets
+    (``DeviceTargetCache.targets_for_batch``); ``content_label`` (N, H, W)
+    integer labels of the content batch (seg_adain). Returns the loss
+    parts (detached device scalars, averaged over the microbatches) with
     ``skipped`` 1.0 or 0.0; ``state.step`` advances either way."""
+    cfg = state.bundle.cfg
+    accum = int(cfg.get("grad_accum", 1))
+    remat = bool(cfg.get("remat", False))
     if targets is not None:
-        check_target_cache(state.bundle.cfg, content_label is not None)
+        check_target_cache(cfg, content_label is not None)
+    n = content.shape[0]
+    if n % accum:
+        raise ValueError(f"batch {n} not divisible by grad_accum {accum}")
+    mb = n // accum
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     buffers = [b.clone() for b in state.model.buffers()]
-    kw = {} if content_label is None else {"content_label": content_label}
-    total, parts = state.bundle.loss(vgg, content, style, targets=targets,
-                                     conv_act=conv_act, **kw)
-    total.backward()
+    total_sum, parts_sum = None, {}
+    for i in range(accum):
+        rows = slice(i * mb, (i + 1) * mb)
+        total, parts = step_loss(
+            state.bundle, vgg, content[rows], style[rows], conv_act,
+            targets,
+            None if content_label is None else content_label[rows], remat)
+        total.backward()
+        total = total.detach()
+        total_sum = total if total_sum is None else total_sum + total
+        for k, v in parts.items():
+            v = v.detach()
+            parts_sum[k] = parts_sum[k] + v if k in parts_sum else v
+    if accum > 1:  # rpst's mean: the sums times 1 / accum
+        inv = 1.0 / accum
+        total_sum = total_sum * inv
+        parts_sum = {k: v * inv for k, v in parts_sum.items()}
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
     for group in opt.param_groups:  # jax.grad's zeros where nothing flows
         for p in group["params"]:
             if p.grad is None:
@@ -153,7 +218,7 @@ def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
     lr = state.schedule(adam_count(opt))
     for group in opt.param_groups:
         group["lr"] = lr
-    skipped = apply_update_if_finite(opt, total)
+    skipped = apply_update_if_finite(opt, total_sum)
     if skipped:
         with torch.no_grad():
             for b, old in zip(state.model.buffers(), buffers):
@@ -161,6 +226,6 @@ def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
     state.step += 1
     if not skipped:
         state.bundle.weights_changed()
-    out = {k: v.detach() for k, v in parts.items()}
+    out = dict(parts_sum)
     out["skipped"] = torch.tensor(float(skipped))
     return out

@@ -86,8 +86,15 @@ def test_npz_of_flax_paths(flax_params, tmp_path, prefix):
 
 
 def test_rejects_unported_checkpoint_state(flax_params):
+    """A key rpst's export never writes is refused. The inception 1x1
+    convs' ``{i}.inception.{j}.0.*``, which this case refused until the
+    port built them (the name kept), load onto ``inception_{j}``."""
     exported = _export_tool().export_tree(flax_params)
-    exported["encoder"]["0.inception.0.0.weight"] = np.zeros((8, 8, 1, 1))
+    exported["encoder"]["0.inception.0.0.weight"] = np.ones((8, 8, 1, 1))
+    got = from_reference_checkpoint(exported)
+    assert float(got["rp_shared_encoder.block_0.inception_0.weight"]
+                 .sum()) == 64.0
+    exported["encoder"]["0.norm.running_mean"] = np.zeros(8)
     with pytest.raises(ValueError, match="only plain Conv2dBlocks"):
         from_reference_checkpoint(exported)
     with pytest.raises(KeyError):

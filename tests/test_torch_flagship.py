@@ -143,16 +143,11 @@ def test_unported_networks_raise(network):
                                    dict(enc_stack_way="deeper"),
                                    dict(attention="sk")])
 def test_unported_options_raise(extra):
-    """The options of slice 4's remainder (inception, the deeper stacks, SK
-    attention) raise naming their slice. SE attention, the masks and sort,
-    which the refusal pinned until slice 7 ported them, build and stylize
-    as rpst's (these cases keep their ids): the flax weights through the
-    bridge, test mode with seeded label maps, f32 1e-4."""
-    if "attention" in extra and extra["attention"] == "sk" \
-            or "inception_num" in extra or "enc_stack_way" in extra:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(load_config(dict(SMALL, hidden_dim=8, **extra)))
-        return
+    """The options the refusal pinned until the port built them, SE
+    attention, the masks and sort (slice 7), inception, the deeper stacks
+    and SK attention (slice 4's remainder), build and stylize as rpst's
+    (these cases keep their ids): the flax weights through the bridge,
+    test mode with seeded label maps, f32 1e-4."""
     from make_photoreal_set import label_maps
     from rpst_torch.bridge import from_flax_batch_stats
     rng = np.random.default_rng(7)
@@ -180,20 +175,37 @@ def test_unported_options_raise(extra):
 @pytest.mark.parametrize("option", [dict(norm="bn"), dict(norm="in"),
                                     dict(activation="prelu")])
 def test_block_refusals_name_a_queued_slice(option):
-    """rpst's Conv2dBlock norm bn / in and prelu (``nn/blocks.py:142-155``)
-    are refused with the slice that queues them: slice 4's remainder, which
-    ROADMAP.md section A still lists (slice 5 is closed)."""
-    from pathlib import Path
-
+    """rpst's Conv2dBlock norm bn / in and prelu (``nn/blocks.py:142-155``),
+    which the port refused naming slice 4's remainder until it built them
+    (the cases keep their ids), match rpst's at op size in train and eval
+    mode: the output, and for bn the moved running statistics."""
+    from rpst.nn.blocks import Conv2dBlock as JaxConv2dBlock
+    from rpst_torch.bridge import from_flax_batch_stats
     from rpst_torch.nn.blocks import Conv2dBlock
-    with pytest.raises(NotImplementedError) as err:
-        Conv2dBlock(8, 8, **option)
-    msg = str(err.value)
-    assert "ROADMAP.md section A slice 4 (its remainder" in msg, msg
-    roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md") \
-        .read_text()
-    queue = roadmap.split("### A.", 1)[1].split("### B.", 1)[0]
-    assert "**Slice 4's remainder" in queue and "slice 5" not in msg
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 10, 9, 6)).astype(np.float32)
+    mod = JaxConv2dBlock(features=8, padding=1, **option)
+    v = jax.tree.map(np.array, dict(mod.init(jax.random.PRNGKey(0),
+                                             jnp.asarray(x))))
+    port = Conv2dBlock(6, 8, **option)
+    port.load_state_dict({
+        **from_flax_params(v["params"]),
+        **from_flax_batch_stats(v.get("batch_stats", {}))})
+    for train in (False, True):
+        if train:
+            ref, muts = mod.apply(v, jnp.asarray(x), train=True,
+                                  mutable=["batch_stats"])
+        else:
+            ref, muts = mod.apply(v, jnp.asarray(x)), {}
+        port.train(train)
+        with torch.no_grad():
+            got = port(torch.from_numpy(x).permute(0, 3, 1, 2))
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(ref), rtol=1e-4, atol=1e-4)
+        for name, buf in from_flax_batch_stats(
+                muts.get("batch_stats", {})).items():
+            np.testing.assert_allclose(port.state_dict()[name].numpy(),
+                                       buf.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_bf16_folded_stylize_matches_rpst():

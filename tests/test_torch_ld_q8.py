@@ -226,8 +226,9 @@ def test_7x7_plan_counts_the_kernels_tiles_and_bytes():
 # ---------------------------------------------------------------- gates
 
 def _gate(**kw):
-    """``q8_infer`` of a config (the gate reads the config alone, so an
-    inception stack, which the port builds only in slice 4, can be asked)."""
+    """``q8_infer`` of a config (the gate reads the config alone; an
+    inception stack, which the port builds since slice 4's remainder,
+    keeps it shut, as rpst's)."""
     cfg = load_config(dict(dict(img_size=32), **kw))
     return ModelBundle(network=cfg.network, model=None, cfg=cfg,
                        device=torch.device("cpu")).q8_infer()

@@ -128,12 +128,51 @@ def _features(rng, n, h, w, c, offset):
     return (offset + rng.normal(size=(n, h, w, c))).astype(np.float32)
 
 
+def masked_adain_f64(cf, sf, cl, sl, num_labels):
+    """A numpy float64 oracle of the masked AdaIN, independent of both
+    frameworks: each label that passes the filter (over 10 pixels on both
+    sides, under 100x apart) normalized by its two-pass unbiased std."""
+    out = []
+    for f, g, a, b in zip(np.asarray(cf, np.float64),
+                          np.asarray(sf, np.float64), cl, sl):
+        o = f.copy()
+        for lab in range(num_labels):
+            mc, ms = a == lab, b == lab
+            nc, ns = int(mc.sum()), int(ms.sum())
+            if not (nc > 10 and ns > 10 and nc < 100 * ns
+                    and ns < 100 * nc):
+                continue
+            x, y = f[mc], g[ms]
+            o[mc] = ((x - x.mean(0)) / np.sqrt(x.var(0, ddof=1) + 1e-5)
+                     * np.sqrt(y.var(0, ddof=1) + 1e-5) + y.mean(0))
+        out.append(o)
+    return np.stack(out)
+
+
+def own_f32_errors(cf, sf, cl, sl):
+    """The port's and rpst's float32 distances (max abs) from the float64
+    oracle on the same float32 inputs."""
+    oracle = masked_adain_f64(cf, sf, cl, sl, 64)
+    port = segment.masked_adain_batch(*(torch.from_numpy(np.asarray(a)) for
+                                        a in (cf, sf, cl, sl)), 64).numpy()
+    ref = np.asarray(jseg.masked_adain_batch(cf, sf, cl, sl, 64))
+    return (float(np.abs(port - oracle).max()),
+            float(np.abs(ref - oracle).max()), oracle)
+
+
 @pytest.mark.parametrize("case", ["four_cases", "batch", "offset"])
 def test_masked_adain_matches_rpst(case):
     """The op against rpst's ``masked_adain_batch`` at f32 1e-4: one sample
     whose label maps hold the four cases (labels that pass, a region of 9
     pixels, a pair 169x apart, a label >= num_labels), a batch of three
-    with a style of another size, and features 30 above their spread."""
+    with a style of another size, and features 30 above their spread.
+    Both frameworks take the one-pass variance in float32, which cancels
+    where the mean sits far above the spread: there each is held to a
+    float64 oracle (its float32 error under 2e-4 of the output's size),
+    and the two to each other within 1e-4 or 2 x the larger of their own
+    float32 errors, where that is more (at ``offset`` the port's error is
+    9.7e-3 at outputs up to 70, rpst's 2.9e-3, on an AVX-512 CPU: the
+    summation order of the one-hot products moves it)."""
     rng = np.random.default_rng(0)
     n, size, offset = {"four_cases": (1, 64, 0.0), "batch": (3, 64, 0.5),
                        "offset": (2, 64, 30.0)}[case]
@@ -148,7 +187,12 @@ def test_masked_adain_matches_rpst(case):
     ref = np.asarray(jseg.masked_adain_batch(cf, sf, cl, sl, 64))
     got = segment.masked_adain_batch(*(torch.from_numpy(a) for a in
                                        (cf, sf, cl, sl)), 64)
-    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    own_port, own_rpst, oracle = own_f32_errors(cf, sf, cl, sl)
+    size = float(np.abs(oracle).max())
+    assert max(own_port, own_rpst) <= 2e-4 * size, (own_port, own_rpst)
+    np.testing.assert_allclose(
+        got.numpy(), ref, rtol=TOL["rtol"],
+        atol=max(TOL["atol"], 2 * max(own_port, own_rpst)))
     if case == "four_cases":
         untouched = np.isin(cl[0], (2, 3, 65))
         np.testing.assert_array_equal(got.numpy()[0][untouched],
@@ -179,8 +223,11 @@ def test_label_validity_is_the_filter():
 def test_masked_adain_bfloat16_returns_bfloat16():
     """A bfloat16 feature computes in float32 and returns bfloat16, as
     rpst's cast: rpst's output on the same inputs, bit for bit but where
-    the two float32 results straddle a bfloat16 rounding boundary (under
-    0.1% of the values, within 2^-6 of the value)."""
+    the two float32 results straddle a bfloat16 rounding boundary: each
+    value that differs is at most one bfloat16 step plus 2 x the larger
+    of the two frameworks' own float32 errors (against the float64
+    oracle) apart; 102 of 65,536 values differ on an AVX-512 CPU, where
+    the port's float32 error is 6.1e-5, rpst's 1.0e-5."""
     rng = np.random.default_rng(2)
     maps = [label_maps(64, rng) for _ in range(2)]
     cl = np.stack([m[0] for m in maps]).astype(np.int32)
@@ -194,9 +241,17 @@ def test_masked_adain_bfloat16_returns_bfloat16():
         jnp.asarray(cf.float().numpy(), jnp.bfloat16),
         jnp.asarray(sf.float().numpy(), jnp.bfloat16), cl, sl, 64)
         .astype(jnp.float32))
-    np.testing.assert_allclose(got.float().numpy(), ref, rtol=2 ** -6,
-                               atol=1e-6)
-    assert (got.float().numpy() != ref).mean() < 1e-3
+    own_port, own_rpst, oracle = own_f32_errors(
+        cf.float().numpy(), sf.float().numpy(), cl, sl)
+    limit = 2 * max(own_port, own_rpst)
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, ref, rtol=2 ** -6, atol=limit)
+    # where they differ, by one bfloat16 step beyond the two float32
+    # results' spread (which near 0 spans several steps)
+    differ = got != ref
+    top = np.maximum(np.abs(got[differ]), np.abs(ref[differ]))
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert np.all(np.abs(got - ref)[differ] <= step + limit)
 
 
 def test_masked_adain_leaves_autocast():

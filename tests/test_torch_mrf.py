@@ -253,6 +253,26 @@ def float64_stats():
         stats.calc_mean_std, base.calc_mean_std = old
 
 
+def check_part(key, got, got64, fx):
+    """A float32 loss part against rpst's at rtol 1e-4; where the fixture
+    holds rpst's float64 part (``f64/<part>``, mrf's), the two float64
+    parts agree to 1e-6 (rpst rounds the style statistics to float32 also
+    in float64: 2.2e-8 apart) and the float32 bound is 2 x the larger of the two
+    frameworks' own float32 errors where that is more (mrf's k-th
+    similarity choice is discontinuous: a near-tie that float32 swaps moves
+    the loss; the port's own error there reads 8.0e-4 on an AVX-512 CPU
+    with one torch thread, rpst's 4.7e-5)."""
+    ref = float(fx[key])
+    rtol = 1e-4
+    if f"f64/{key}" in fx:
+        ref64 = float(fx[f"f64/{key}"])
+        np.testing.assert_allclose(got64, ref64, rtol=1e-6,
+                                   err_msg=f"{key} float64")
+        own = max(abs(got - got64), abs(ref - ref64)) / abs(ref64)
+        rtol = max(rtol, GRAD_SPREAD * own)
+    np.testing.assert_allclose(got, ref, rtol=rtol, err_msg=key)
+
+
 def check_loss_grads_trajectory(network, label=None, freeze=(),
                                 f64_atol=1e-4, f64_stats=False):
     """3 train steps (with ``label`` as content labels, ``freeze`` left out
@@ -268,7 +288,8 @@ def check_loss_grads_trajectory(network, label=None, freeze=(),
     b64, vgg64 = fixture_bundle(network, fx)
     b64.model.double().train()
     with float64_stats() if f64_stats else contextlib.nullcontext():
-        total, _ = b64.loss(vgg64.double(), c.double(), s.double(), **kw)
+        total, parts64 = b64.loss(vgg64.double(), c.double(), s.double(),
+                                  **kw)
         total.backward()
     bundle, vgg = fixture_bundle(network, fx)
     state = create_train_state(bundle, freeze_prefixes=freeze)
@@ -284,10 +305,10 @@ def check_loss_grads_trajectory(network, label=None, freeze=(),
              for _ in range(len(fx["trajectory"]))]
     hook.remove()
     parts = {k: v for k, v in steps[0].items() if k != "skipped"}
-    assert set(parts) == {k for k in fx if k.endswith("_loss")}
+    assert set(parts) == {k for k in fx
+                          if k.endswith("_loss") and "/" not in k}
     for k, v in parts.items():
-        np.testing.assert_allclose(float(v), float(fx[k]), rtol=1e-4,
-                                   err_msg=k)
+        check_part(k, float(v), float(parts64[k]), fx)
     check_grads(first, _grads(b64.model), fx, f64_atol)
     losses = [float(p["total_loss"]) for p in steps]
     np.testing.assert_allclose(losses[1:], fx["trajectory"][1:],
@@ -349,10 +370,15 @@ def port_log():
     lines, handler = [], Keep()
     logger = logging.getLogger("rpst_torch")
     logger.addHandler(handler)
+    # INFO whatever ran before in this process (the logger's level is set
+    # where a driver configures it)
+    level = logger.level
+    logger.setLevel(logging.INFO)
     try:
         yield lines
     finally:
         logger.removeHandler(handler)
+        logger.setLevel(level)
 
 
 # ------------------------------------------------------------------ ops

@@ -446,8 +446,11 @@ def test_port_never_imports_jax():
         "import rpst_torch.ops.affinity, rpst_torch.ops.adaptive_attention\n"
         "import rpst_torch.ops.segment, rpst_torch.dumps, rpst_torch.viz\n"
         "import importlib.util as u\n"
-        "for name in ('serve_torch', 'train_torch', 'test_torch'):\n"
-        "    spec = u.spec_from_file_location(name, name + '.py')\n"
+        "import rpst_torch.nn.attention, rpst_torch.nn.blocks\n"
+        "for name in ('serve_torch', 'train_torch', 'test_torch',\n"
+        "             'tools/flops_estimate_torch'):\n"
+        "    spec = u.spec_from_file_location(name.split('/')[-1],\n"
+        "                                     name + '.py')\n"
         "    spec.loader.exec_module(u.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'rpst')]\n"
@@ -462,6 +465,7 @@ PORT_FILES = sorted([*(REPO / "src" / "rpst_torch").rglob("*.py"),
                      REPO / "test_torch.py", REPO / "chip_smoke.py",
                      REPO / "profile_torch.py",
                      REPO / "tools" / "b4_compile_check.py",
+                     REPO / "tools" / "flops_estimate_torch.py",
                      REPO / "tools" / "make_photoreal_set.py"])
 
 

@@ -5,10 +5,18 @@ stylize, int8 stylize in interpret mode, loss parts and gradients at 64px,
 batch 2, the decoder's fixed width of 512).
 
 Tolerances: the stylize 1e-4 (rtol = atol); loss parts rtol 1e-4; gradients
-rtol 5e-3 with atol 1e-4 x the tensor's max (the flagship's,
-tests/test_folded.py:133-138); q8 with rpst's scales PSNR >= 40 dB in
-float32 around the int8 layers and >= 30 dB in bfloat16; calibration scales
-2e-2 (the pass runs in bfloat16).
+by the slice-5b rule (``test_torch_mrf.check_grads``): the port's float64
+gradients against rpst's float64 ones (the fixture's ``f64/``, from
+``tools/make_torch_port_fixture.py --src``) at 1e-4 of max,
+the float32 ones at 1e-4 of max or 2 x the larger of the two frameworks'
+own float32 errors where that is more (with one torch thread the port's
+float32 bias gradients sit up to 5.5e-4 of max from its float64 ones on an
+AVX-512 CPU, rpst's 2.4e-5); q8 with rpst's scales: each framework's int8
+output against rpst's float64 stylize (``out_f64``), the port's PSNR
+within 1 dB of rpst's (both ~35.5 dB in float32), and the two within 3 dB
+below the lower of them (two int8 errors of one size that flip at
+different rounding boundaries add in quadrature), and >= 30 dB in
+bfloat16; calibration scales 2e-2 (the pass runs in bfloat16).
 """
 
 import importlib.util
@@ -89,7 +97,9 @@ def test_stylize_needs_the_four_stage_vgg(bundle, fx):
 
 def test_loss_parts_and_gradients_match_rpst(bundle, fx):
     """The content loss is taken against the AdaIN target t; the mixed
-    total uses the config's weights (1 and 2)."""
+    total uses the config's weights (1 and 2). The gradients are held by
+    the slice-5b rule against rpst's float32 and float64 ones."""
+    from test_torch_mrf import check_grads
     c, s = (torch.from_numpy(fx[k]) for k in ("content", "style"))
     bundle.model.zero_grad(set_to_none=True)
     total, parts = bundle.loss(bundle.vgg, c, s)
@@ -98,24 +108,22 @@ def test_loss_parts_and_gradients_match_rpst(bundle, fx):
     for k in LOSS_KEYS:
         np.testing.assert_allclose(float(parts[k].detach()), float(fx[k]),
                                    rtol=1e-4, err_msg=k)
-    params = dict(bundle.model.named_parameters())
-    checked = 0
-    for key, ref in fx.items():
-        kind, _, path = key.partition("/")
-        if kind not in ("grads", "gradpatch", "gradnorm"):
-            continue
-        grad = params[path.replace("/", ".").replace("kernel", "weight")].grad
-        if kind == "gradnorm":
-            np.testing.assert_allclose(float(grad.norm()), float(ref),
-                                       rtol=1e-3, err_msg=path)
-            continue
-        got = grad if kind == "grads" else grad.permute(2, 3, 1, 0)[...,
-                                                                    :8, :8]
-        np.testing.assert_allclose(got.numpy(), ref, rtol=5e-3,
-                                   atol=1e-4 * np.abs(ref).max(),
-                                   err_msg=path)
-        checked += 1
-    assert checked == 2 * 9  # the decoder's 9 convs, bias and kernel
+    b64 = build_model(bundle.cfg)
+    b64.load_state_dict(bundle.model.state_dict())
+    b64.model.double()
+    b64.vgg = VGG19Encoder(4)
+    b64.vgg.load_state_dict(bundle.vgg.state_dict())
+    b64.vgg.double()
+    total64, parts64 = b64.loss(b64.vgg, c.double(), s.double())
+    total64.backward()
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(float(parts64[k].detach()),
+                                   float(fx[f"f64/{k}"]), rtol=1e-6,
+                                   err_msg=f"{k} float64")
+    grads = {n: p.grad for n, p in bundle.model.named_parameters()}
+    grads64 = {n: p.grad for n, p in b64.model.named_parameters()}
+    # the decoder's 9 convs, bias and kernel
+    assert check_grads(grads, grads64, fx) == 2 * 9
     bundle.model.zero_grad(set_to_none=True)
 
 
@@ -132,11 +140,20 @@ def test_q8_plan_calibration_and_stylize_match_rpst(bundle, fx):
     own = bundle.calibrate_q8(c, s)["act_scales"]
     np.testing.assert_allclose(own, fx["act_scales"], rtol=2e-2)
     scales = {"act_scales": fx["act_scales"]}
-    for dt, key, min_psnr in ((torch.float32, "out_q8_f32", 40.0),
-                              (torch.bfloat16, "out_q8_bf16", 30.0)):
-        got = bundle.stylize_q8(c, s, scales, dtype=dt)
-        assert got.dtype == torch.float32
-        assert _psnr(got.numpy(), fx[key]) >= min_psnr, key
+    # the float reference of both int8 paths: rpst's float64 stylize, which
+    # the port's float32 stylize meets to 1e-4
+    np.testing.assert_allclose(bundle.stylize(c, s).numpy(), fx["out_f64"],
+                               **TOL)
+    got = bundle.stylize_q8(c, s, scales, dtype=torch.float32)
+    assert got.dtype == torch.float32
+    own_port = _psnr(got.numpy(), fx["out_f64"])
+    own_rpst = _psnr(fx["out_q8_f32"], fx["out_f64"])
+    assert own_port >= own_rpst - 1.0, (own_port, own_rpst)
+    assert _psnr(got.numpy(), fx["out_q8_f32"]) >= min(own_port,
+                                                       own_rpst) - 3.0
+    got = bundle.stylize_q8(c, s, scales, dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    assert _psnr(got.numpy(), fx["out_q8_bf16"]) >= 30.0
     with pytest.raises(ValueError, match="act scales"):
         bundle.stylize_q8(c, s, {"act_scales": fx["act_scales"][:5]})
 

@@ -78,12 +78,15 @@ def test_cpu_run_writes_metrics_and_checkpoints_and_resumes(run_dir):
     ("grad_accum=2", "slice 8"), ("remat=true", "slice 8"),
     ("test_dir=/x", "slice 7"), ("network=ld_adain", "slice 5b")])
 def test_unported_options_raise(run_dir, override, slice_):
-    """The options of later slices raise naming their slice. The LD
+    """The options of later slices raise naming their slice: the
+    multi-device ``mesh_shape`` and ``distributed`` (slice 8). The LD
     networks, which slice 5b refused until the port built them, train: two
     CPU steps of each; ``test_dir``, which slice 7 refused until the port
     took its test dumps, stylizes a photoreal set with its masks every
-    ``test_iter`` steps into ``<output>/test/<step>`` (these cases keep
-    their ids)."""
+    ``test_iter`` steps into ``<output>/test/<step>``; ``grad_accum=2`` and
+    ``remat=true``, which slice 8 refused until the port took its
+    single-device half, train two CPU steps each (these cases keep their
+    ids)."""
     args = ["--config", str(run_dir / "cfg.yaml"), "--device", "cpu",
             "--set", override]
     if slice_ == "slice 7":
@@ -99,7 +102,7 @@ def test_unported_options_raise(run_dir, override, slice_):
         assert sorted(p.name for p in (out / "2").iterdir()) == sorted(names)
         assert sorted(p.name for p in out.iterdir()) == ["2"]
         return
-    if slice_ == "slice 5b":
+    if slice_ == "slice 5b" or override in ("grad_accum=2", "remat=true"):
         _driver().main([*args, "max_iter=3"])
         lines = [json.loads(ln) for ln in (run_dir / "out" / "logs"
                                            / "metrics.jsonl").read_text()

@@ -654,7 +654,8 @@ def make_dynamic_sanet_fixture(seed: int = 0, size: int = 64) -> dict:
 
 
 def make_src_fixture(seed: int = 0, size: int = 64) -> dict:
-    """The src fixture's arrays (rpst's int8 kernel in interpret mode)."""
+    """The src fixture's arrays (rpst's int8 kernel in interpret mode),
+    with rpst's float64 readings (``src_f64_readings``)."""
     from rpst.models import fast_path_q8 as q8
     from rpst_torch.bridge import src_weights_from_seed
 
@@ -662,8 +663,10 @@ def make_src_fixture(seed: int = 0, size: int = 64) -> dict:
         return q8.stylize_src_q8(p, vgg_vars, scales, c, s, dtype=dt,
                                  interpret=True)
 
-    return _feature_fixture(SRC, src_weights_from_seed(seed), 4, seed, size,
-                            (q8.calibrate_src_q8, stylize))[-1]
+    arrays = _feature_fixture(SRC, src_weights_from_seed(seed), 4, seed,
+                              size, (q8.calibrate_src_q8, stylize))[-1]
+    arrays.update(src_f64_readings(arrays))
+    return arrays
 
 
 def mst_labels(cf, sf, n_clusters: int = 3):
@@ -1159,16 +1162,264 @@ def make_slice5b_fixture(network: str, seed: int = 0,
     try:
         def f64(tree):
             return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
-        _, g64 = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        (_, parts64), g64 = jax.jit(jax.value_and_grad(loss_fn,
+                                                       has_aux=True))(
             f64(np_params), f64(vgg_weights_from_seed(TRAIN["vgg_seed"])),
             jnp.asarray(content, jnp.float64),
             jnp.asarray(style, jnp.float64), label)
         arrays.update(_grad_keys(jax.tree.map(
             lambda a: np.asarray(a, np.float32), g64), "f64/"))
+        # the float64 loss parts: mrf's k-th similarity choice is
+        # discontinuous, so its test holds each framework's float32 parts
+        # to these
+        arrays.update({f"f64/{k}": np.float64(v) for k, v in
+                       parts64.items()})
     finally:
         undo()
         jax.config.update("jax_enable_x64", False)
     return arrays
+
+
+def src_f64_readings(arrays: dict) -> dict:
+    """rpst's float64 readings at the src fixture's point (turns JAX's
+    float64 mode on and off again): the loss parts ``f64/<part>`` and the
+    gradients in ``_loss_and_grads``'s keys under ``f64/`` (src's float32
+    gradients are noisy, so its test holds each framework's float32 error
+    against these), and the float64 stylize ``out_f64`` (the reference each
+    framework's int8 output is read against)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst_torch.bridge import src_weights_from_seed, vgg_weights_from_seed
+
+    jax.config.update("jax_enable_x64", True)
+    try:
+        def f64(tree):
+            return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+        bundle = build_model(load_config(dict(
+            SRC, img_size=arrays["content"].shape[1])))
+        params = f64(src_weights_from_seed(int(arrays["weights_seed"])))
+        vgg_vars = f64(vgg_weights_from_seed(int(arrays["vgg_seed"]), 4))
+        c, s = (jnp.asarray(arrays[k], jnp.float64)
+                for k in ("content", "style"))
+        own = {}
+        _loss_and_grads(bundle, vgg_vars, params, c, s, own)
+        out = {f"f64/{k}": np.asarray(v, np.float64) for k, v in own.items()}
+        out["out_f64"] = np.asarray(jax.jit(bundle.stylize)(
+            {"params": params}, vgg_vars, c, s), np.float64)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    return out
+
+
+SLICE4R_DST = REPO / "tests" / "fixtures" / "torch_port_slice4r.npz"
+# the slice-4-remainder fixture's models: the deeper yaml's
+# (configs/train_deeper_multiscale_rp_adain.yaml: deeper stacks, 3 inception
+# convs a block, hidden 16, use_mask), a constant multi_adain with SK
+# attention at full width (its SK branches group by 32), and the SE
+# flagship yaml's model under grad_accum 2
+SLICE4R = {
+    "deeper": dict(network="multi_adain", enc_stack_way="deeper",
+                   rp_blocks=5, hidden_dim=16, inception_num=3,
+                   use_mask=True, content_weight=1.0, style_weight=1.0),
+    "sk": dict(FLAGSHIP, attention="sk", content_weight=1.0,
+               style_weight=2.0),
+    "se_accum2": dict(FLAGSHIP, attention="se", use_mask=True,
+                      content_weight=1.0, style_weight=1.0, grad_accum=2),
+}
+# the Conv2dBlock cases: (in, out, options)
+SLICE4R_BLOCKS = {
+    "block_bn": (32, 32, dict(inception_num=1, norm="bn",
+                              activation="prelu", attention="sk")),
+    "block_in": (16, 16, dict(norm="in", activation="prelu")),
+}
+
+
+def _s4r_grad_keys(grads, prefix):
+    """Vectors and scalars in full (``grads/``), a conv kernel's [..., :8,
+    :8] corner and a Dense kernel in full (``gradpatch/``), every leaf's
+    norm (``gradnorm/``)."""
+    import numpy as np
+    out = {}
+    for k, v in _flat(grads):
+        g = np.asarray(v)
+        out[f"{prefix}gradnorm/{k}"] = np.asarray(np.linalg.norm(g), g.dtype)
+        if g.ndim <= 1:
+            out[f"{prefix}grads/{k}"] = g
+        else:
+            out[f"{prefix}gradpatch/{k}"] = g[..., :8, :8].copy()
+    return out
+
+
+def make_slice4r_fixture(seed: int = 0, size: int = 64) -> dict:
+    """The slice-4-remainder fixture's arrays (``--slice4r``), computed
+    afresh with JAX on the CPU. The weights are
+    ``rpst_torch.bridge.flax_weights_from_seed`` of the port's model (stored
+    as their seed); ``content``, ``style`` (2, size, size, 3) and the label
+    maps ``c_labels`` / ``s_labels`` of ``tools/make_photoreal_set.py``.
+    Block cases hold their ``config`` (in / out widths and options) too.
+    Per model case ``<case>/``: ``config`` (the config's JSON),
+    ``out_f64`` (rpst's stylize in float64, its masked AdaIN and feature
+    statistics too), ``out_f32`` and ``out_bf16`` (rpst's
+    stylize in test mode, masked where the case sets ``use_mask``), the
+    loss parts, the gradients (``_s4r_grad_keys``) in float32 and under
+    ``f64/`` in float64 with the feature statistics in float64
+    (``ld_f64_stats``), and ``stats_after/<path>`` the running statistics
+    after the step's train forward(s); ``se_accum2`` is rpst's
+    ``_accumulate_grads`` over 2 microbatches (its float64 gradients the
+    mean of the two microbatches' float64 gradients). Per block case
+    ``<case>/``: its input ``x`` (2, 12, 10, in), ``out_eval`` (running
+    statistics), ``out_train`` and ``stats_after``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from make_photoreal_set import label_maps
+    from rpst.config import load_config
+    from rpst.models import build_model
+    from rpst.nn.blocks import Conv2dBlock as JaxConv2dBlock
+    from rpst.train.step import TrainState, _accumulate_grads
+    from rpst_torch import bridge
+    from rpst_torch.config import load_config as port_config
+    from rpst_torch.models import build_model as port_build
+    from rpst_torch.nn.blocks import Conv2dBlock
+
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN["batch"], size, size, 3)
+    content = rng.random(shape, dtype=np.float32)
+    style = rng.random(shape, dtype=np.float32)
+    maps = [label_maps(size, rng) for _ in range(shape[0])]
+    cl = np.stack([m[0] for m in maps]).astype(np.int32)
+    sl = np.stack([m[1] for m in maps]).astype(np.int32)
+    arrays = dict(weights_seed=np.int64(seed),
+                  vgg_seed=np.int64(TRAIN["vgg_seed"]), content=content,
+                  style=style, c_labels=cl, s_labels=sl)
+    vgg_np = bridge.vgg_weights_from_seed(TRAIN["vgg_seed"])
+    vgg_vars = jax.tree.map(jnp.asarray, vgg_np)
+    c, s = jnp.asarray(content), jnp.asarray(style)
+    for case, cfg in SLICE4R.items():
+        arrays[f"{case}/config"] = np.asarray(json.dumps(cfg))
+        cfg = dict(cfg, img_size=size)
+        params, stats = bridge.flax_weights_from_seed(
+            port_build(port_config(cfg)).model, seed)
+        variables = {"params": params}
+        if stats:
+            variables["batch_stats"] = stats
+        bundle = build_model(load_config(cfg))
+        labels = ((jnp.asarray(cl), jnp.asarray(sl)) if cfg.get("use_mask")
+                  else ())
+        arrays[f"{case}/out_f32"] = np.asarray(jax.jit(bundle.stylize)(
+            variables, vgg_vars, c, s, *labels), np.float32)
+        bf16 = build_model(load_config(dict(cfg, compute_dtype="bfloat16")))
+        arrays[f"{case}/out_bf16"] = np.asarray(jax.jit(bf16.stylize)(
+            variables, vgg_vars, c, s, *labels), np.float32)
+        extra = {k: v for k, v in variables.items() if k != "params"}
+
+        def loss_fn(p, e, x, y, lab, vv=vgg_vars, b=bundle):
+            total, (parts, muts) = b.loss({"params": p, **e}, vv, x, y,
+                                          train=True)
+            return total, (parts, muts)
+        grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True),
+                          static_argnums=())
+        accum = int(cfg.get("grad_accum", 1))
+        if accum > 1:
+            state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                               extra=extra, opt_state=None,
+                               rng=jax.random.PRNGKey(0))
+            _, parts, muts, grads = _accumulate_grads(
+                lambda p, e, x, y, lab: grad_fn(p, e, x, y, None), state,
+                accum, c, s)
+        else:
+            (_, (parts, muts)), grads = grad_fn(params, extra, c, s, None)
+        arrays.update({f"{case}/{k}": np.float32(v) for k, v in
+                       parts.items()})
+        arrays.update(_s4r_grad_keys(jax.tree.map(
+            lambda a: np.asarray(a, np.float32), grads), f"{case}/"))
+        for k, v in _flat(muts.get("batch_stats", {})):
+            arrays[f"{case}/stats_after/{k}"] = np.asarray(v, np.float32)
+        jax.config.update("jax_enable_x64", True)
+        undo = ld_f64_stats()
+        undo_mask = _f64_masked_adain()
+        try:
+            def f64(tree):
+                return jax.tree.map(
+                    lambda a: jnp.asarray(np.asarray(a), jnp.float64), tree)
+            p64, e64, v64 = f64(params), f64(extra), f64(vgg_np)
+            c64, s64 = (jnp.asarray(a, jnp.float64) for a in (content,
+                                                               style))
+            arrays[f"{case}/out_f64"] = np.asarray(jax.jit(bundle.stylize)(
+                {"params": p64, **e64}, v64, c64, s64, *labels), np.float64)
+            mb = shape[0] // accum
+
+            def g64(x, y):
+                return jax.jit(jax.grad(lambda p: loss_fn(
+                    p, e64, x, y, None, v64)[0]))(p64)
+            gs = [g64(c64[i * mb:(i + 1) * mb], s64[i * mb:(i + 1) * mb])
+                  for i in range(accum)]
+            mean = jax.tree.map(lambda *g: sum(g) / accum, *gs)
+            arrays.update(_s4r_grad_keys(jax.tree.map(np.asarray, mean),
+                                         f"{case}/f64/"))
+        finally:
+            undo_mask()
+            undo()
+            jax.config.update("jax_enable_x64", False)
+    for case, (cin, feat, opts) in SLICE4R_BLOCKS.items():
+        x = rng.normal(size=(2, 12, 10, cin)).astype(np.float32)
+        params, stats = bridge.flax_weights_from_seed(
+            Conv2dBlock(cin, feat, **opts), seed)
+        variables = {"params": params}
+        if stats:
+            variables["batch_stats"] = stats
+        mod = JaxConv2dBlock(features=feat, padding=1, **opts)
+        arrays[f"{case}/config"] = np.asarray(json.dumps(
+            dict(opts, in_features=cin, features=feat)))
+        arrays[f"{case}/x"] = x
+        arrays[f"{case}/out_eval"] = np.asarray(mod.apply(
+            variables, jnp.asarray(x)), np.float32)
+        out, muts = mod.apply(variables, jnp.asarray(x), train=True,
+                              mutable=["batch_stats"])
+        arrays[f"{case}/out_train"] = np.asarray(out, np.float32)
+        for k, v in _flat(muts.get("batch_stats", {})):
+            arrays[f"{case}/stats_after/{k}"] = np.asarray(v, np.float32)
+    return arrays
+
+
+def _f64_masked_adain():
+    """rpst's masked AdaIN in its features' own type until the returned undo
+    is called (rpst's casts to float32, also for float64 features): the
+    slice-4r fixture's float64 stylize ``out_f64``, the oracle that each
+    framework's float32 stylize is read against."""
+    import jax.numpy as jnp
+
+    from rpst.ops import segment
+    old = segment.masked_adain
+
+    def masked_adain(content_feat, style_feat, content_labels, style_labels,
+                     num_labels):
+        dt = content_feat.dtype
+        h, w, c = content_feat.shape
+        cf, sf = content_feat.reshape(-1, c), style_feat.reshape(-1, c)
+        cl, sl = content_labels.reshape(-1), style_labels.reshape(-1)
+        lids = jnp.arange(num_labels, dtype=cl.dtype)
+        c_mean, c_std, c_count = segment._per_label_stats(
+            cf, (cl[None, :] == lids[:, None]).astype(dt))
+        s_mean, s_std, s_count = segment._per_label_stats(
+            sf, (sl[None, :] == lids[:, None]).astype(dt))
+        valid = ((c_count > 10) & (s_count > 10)
+                 & (c_count < 100 * s_count) & (s_count < 100 * c_count))
+        in_range = (cl >= 0) & (cl < num_labels)
+        safe = jnp.clip(cl, 0, num_labels - 1)
+        pix = (valid[safe] & in_range)[:, None]
+        norm = (cf - c_mean[safe]) / c_std[safe] * s_std[safe] + s_mean[safe]
+        return jnp.where(pix, norm, cf).reshape(h, w, c)
+    segment.masked_adain = masked_adain
+
+    def undo():
+        segment.masked_adain = old
+    return undo
 
 
 def _bn_draw(tree, rng, stats: bool):
@@ -1427,6 +1678,10 @@ def main():
     ap.add_argument("--grads-f64", action="store_true",
                     help="with a slice-4 network: only (re)compute the "
                          "fixture's float64 gradients")
+    ap.add_argument("--slice4r", action="store_true",
+                    help="tests/fixtures/torch_port_slice4r.npz: the deeper "
+                         "yaml's model, SK attention, the SE flagship under "
+                         "grad_accum 2, the Conv2dBlock norms and prelu")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -1448,6 +1703,13 @@ def main():
                                           args.size or LD_SIZE)
             np.savez_compressed(SLICE5B_DST[network], **arrays)
             print(f"wrote {SLICE5B_DST[network]} ({len(arrays)} arrays)")
+        return
+    if args.slice4r:
+        sys.path.insert(0, str(REPO / "tools"))
+        arrays = make_slice4r_fixture(args.seed, args.size or 64)
+        dst = args.dst or str(SLICE4R_DST)
+        np.savez_compressed(dst, **arrays)
+        print(f"wrote {dst} ({len(arrays)} arrays)")
         return
     size = args.size or (LD_SIZE if slice5b and slice5b[0] in LD else 64)
     args.size = size

@@ -56,9 +56,13 @@ and the set has them (``rpst_torch.dumps``).
 
 ``--device cuda`` (the default) without a CUDA device exits non-zero;
 ``--device cpu`` runs the kernels' plain PyTorch versions. At the end it
-logs the B6, B5 and B1/B2/B3 launch counts of the run. Options of later slices
-raise ``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape``
-and ``distributed`` (slice 8), ``grad_accum > 1`` and ``remat`` (slice 8).
+logs the B6, B5 and B1/B2/B3 launch counts of the run. ``grad_accum: k``
+splits each batch into k microbatches whose gradients are averaged before
+one Adam step (the batch must divide by k; not with ``target_cache``), and
+``remat: true`` recomputes the whole loss's forward in the backward
+(``rpst_torch.train.step``). The multi-device options raise
+``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape`` and
+``distributed`` (slice 8).
 """
 
 import argparse
@@ -98,8 +102,6 @@ from rpst_torch.train.target_cache import DeviceTargetCache  # noqa: E402
 _UNPORTED = {
     "mesh_shape": (lambda c: bool(c.mesh_shape), "section A slice 8"),
     "distributed": (lambda c: bool(c.distributed), "section A slice 8"),
-    "grad_accum": (lambda c: int(c.grad_accum) > 1, "section A slice 8"),
-    "remat": (lambda c: bool(c.remat), "section A slice 8"),
 }
 
 

@@ -13,7 +13,10 @@ of v1 and v2, v1's 7x7 convs on B5's 7x7 form), adain's training, and the
 masked stylize, SE attention and test dumps of slice 7 (the flagship yaml
 as written through train_torch.py and test_torch.py), slice 4's remainder
 (the deeper yaml as written, SK attention, the Conv2dBlock norms) and
-grad_accum / remat on the folded train step, and times them.
+grad_accum / remat on the folded train step, and slice 8a (B2's and
+B3's halo modes; two ranks sharing the card over gloo: row-sharded
+serving and training of the three folded networks, data-parallel
+training, train_torch.py on a spatial mesh), and times them.
 Needs one
 NVIDIA
 Hopper card; run from the repository root with no arguments:
@@ -84,8 +87,8 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                unfused (B1 + B4) and once with fuse_pairs (B1 + B4 + B7);
                then serve_torch.py --mode q8 as a subprocess
  16. q8 timing     512px stylize b1/b8 in bfloat16: q8 with B4, q8 with B7
-               pairs, folded B1 and standard, in both orders (the policy's
-               A/B), beside phase 7's rows
+               pairs, folded B1 and standard (one order, for the script's time
+               limit), beside phase 7's rows
 
  17. B5 kernels    B5 vs its plain version (float64 conv: exact integer
                sums) at every shape the adain / wct stylize and the int8 VGG
@@ -119,7 +122,8 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                f32 folded, 3 steps in this process, counts reset before and
                read after: exact B1/B2/B3/B5 launches per step
  22. wide timing   512px: adain b1/b4 standard f32/bf16 vs q8, wct b1; the
-               flagship train step b1/b4 with and without int8 targets
+               flagship train step b1/b4 with and without int8 targets (one
+               order each, for the script's time limit)
 
  23. B6 kernels    B6a-d (forward, forward + LSE, dQ, dK/dV) vs their plain
                versions at the shapes of a 512px SANet stylize, relu4_1 (N,
@@ -163,10 +167,10 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                and read after: exact 6 / 6 / 6 B6 fwd / dQ / dK/dV per step;
                then 2 steps in bfloat16 the same way (the forward is then the
                tensor-core kernel)
- 28. sanet timing   512px stylize b1 / b4 standard f32, bf16 and q8, and the
-               train step b1 / b4 f32 and bf16, each with B6, with the plain
-               attention and with the SDPA call in B6's place (in this script
-               only)
+ 28. sanet timing   512px stylize b1 / b4 standard f32, bf16 and q8, each
+               with B6, with the plain attention and with the SDPA call in
+               B6's place (in this script only), and the train step b1 / b4
+               f32 and bf16 with B6 (its plain / SDPA steps cut for time)
 
  29. 6b fixtures  dynamic_sanet and src on the card vs rpst's JAX output
                (tests/fixtures/torch_port_{dynamic_sanet,src}.npz, 64px b2):
@@ -190,8 +194,8 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  32. 6b parity     512px b2: dynamic_sanet streamed vs dense, f32 (1e-3) and
                bf16 (2e-2 x span); q8 vs f32 for both networks (> 30 dB)
  33. 6b timing     512px stylize b1 / b4: dynamic_sanet streamed and dense,
-               standard f32, bf16 and q8, src f32, bf16 and q8, q8 against
-               bf16 in both orders (the policy's A/B); each network's train
+               standard f32, bf16 and q8, src f32, bf16 and q8 (one order,
+               for the script's time limit); each network's train
                step at its config's batch (b1, b8), f32
 
  34. slice-4 fixture  sel_multi_adain, ccam and mst on the card vs rpst's JAX
@@ -234,10 +238,10 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                against the loaders' key streams, 23/17/15 a miss and 19/17/15
                a hit
  38. slice-4 timing   512px stylize b1 / b8 of each variant (folded bf16,
-               standard bf16, q8, folded f32) in both orders; the train step
-               at each variant's settings; the flagship's b1 / b4 step, f32
-               and bf16, with float targets, int8 targets and the cache
-               hitting, in both orders
+               standard bf16, q8, folded f32); the train step at each
+               variant's settings; the flagship's b1 / b4 step, f32 and
+               bf16, with float targets, int8 targets and the cache hitting
+               (one order each, for the script's time limit)
 
  39. 5b fixtures  mrf, spade, seg_adain and wct training on the card vs
                rpst's JAX (tests/fixtures/torch_port_{mrf,spade,seg_adain,
@@ -270,7 +274,7 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                memory, the frozen encoder's bytes unchanged; a wct
                checkpoint saved without the freeze refused on resume
  43. 5b timing    512px stylize b1 / b4 of the three networks: f32, then
-               bf16 against q8 in both orders; the train step b1 of the
+               bf16 and q8 (one order: time); the train step b1 of the
                three and of wct, f32, with its peak memory
 
  44. B5 7x7     B5's 7x7 form (wgmma, conv2d_q8_7x7.cu) vs its plain
@@ -300,8 +304,8 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
  47. LD train     train_torch.py on each LD yaml's settings at 512px: 3
                steps and a resume for 2, in this process, no kernel
                launched, the resumed run's peak memory
- 48. LD timing    512px stylize b1 / b4: v1 / v2 standard bf16 against q8
-               in both orders, v3-v5 bf16; v2's 2N encode against two
+ 48. LD timing    512px stylize b1 / b4: v1 / v2 standard bf16 and q8
+               (one order: time), v3-v5 bf16; v2's 2N encode against two
                passes at b1, b2, b4 in both orders; each yaml's train step
 
  49. adain train  adain's training vs rpst's JAX
@@ -353,6 +357,26 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                memory; the SE model's remat step vs its plain step (the
                running statistics moved once); spade's b4 f32 step under
                grad_accum 4
+
+ 57. halo       B2 with row_rings=False and B3 with given rings (listed and
+               dense, bit-equal across two runs), and FoldedConvActHalo's
+               backward, vs their plain versions at one 512px row share's
+               lane-filling shape (1,128,256,128->128), folded and dense
+               kernels, f32 (1e-4) and bf16 (2e-2); each timed beside its
+               one-device mode, plain and the library call
+ 58. spatial    two ranks on the one card over gloo (chip_smoke.py
+               --spatial-rank): the three folded networks at 64px on
+               {spatial: 2} vs rpst's row-sharded functions
+               (tests/fixtures/torch_port_spatial.npz: stylize, loss parts,
+               gradients by the float32 rule); the flagship at 512px b2:
+               stylize and train steps on {spatial: 2} and {data: 2} vs the
+               one-device folded path (loss, gradients, the Adam step),
+               sel_multi_adain (running statistics) and ccam steps on
+               {spatial: 2}; launches of B2 row_rings=False and B3 rings
+ 59. spatial train  train_torch.py on the flagship yaml (attention none,
+               use_mask false, folded) with mesh_shape {spatial: 2}: the
+               driver starts its 2 ranks, 3 steps at 512px b8 bf16, one
+               checkpoint and the loss lines from rank 0
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -856,7 +880,19 @@ def main():
     accum = _accum_remat(dev, name_power)
     log("time", f"phase 56 {time.perf_counter() - t0:.1f}s")
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-56")
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 57-59")
+    # ---- 57-59. slice 8a: the halo modes, two ranks on the one card -------
+    t0 = time.perf_counter()
+    halo = _halo_kernels(dev, name_power)
+    log("time", f"phase 57 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    sp_counts = _spatial_ranks(dev, name_power)
+    log("time", f"phase 58 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    cli_halo = _spatial_train_cli(dev)
+    log("time", f"phase 59 {time.perf_counter() - t0:.1f}s")
+
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-59")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -932,7 +968,19 @@ def main():
          "launches": ld_serve[1], "max_abs_err": b5_7["err"],
          "ms": b5_7["ms"], "plain_ms": b5_7["plain_ms"],
          "bound_ms": b5_7["bound_ms"], "bound_by": b5_7["bound_by"],
-         "library_ms": b5_7["library_ms"]}]}
+         "library_ms": b5_7["library_ms"]},
+        # the halo modes of B2 and B3 (one row shard's backward, slice 8a),
+        # rows of their own: timed at HALO_SHAPE f32 with a folded kernel
+        # (phase 57; B3 in the listed mode the row-sharded step runs), their
+        # launches those of phases 58 (both ranks) and 59 (rank 0)
+        {"name": "fused_folded_conv_grad_input_halo", "route": "cuda",
+         "source": bwd_src, "mode": "row_rings=False",
+         "replaces": "src/rpst/ops/pallas/folded_conv.py:339",
+         "launches": sp_counts[3] + cli_halo[0], **halo["B2"]},
+        {"name": "fused_folded_conv_grad_weight_rings", "route": "cuda",
+         "source": bwd_src, "mode": "rings",
+         "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
+         "launches": sp_counts[4] + cli_halo[1], **halo["B3"]}]}
     # B6's numbers at relu4_1 of a 512px stylize, (1, 4096, 4096, 512) f32
     # (phase 23); library_ms is F.scaled_dot_product_attention(scale=1.0)
     # forward for B6a / B6b and its autograd backward, which yields dQ, dK
@@ -1251,7 +1299,8 @@ def _counters():
 def _reset_counts():
     for c in _counters().values():
         c.launches = 0
-        for sub in ("launches_bf16", "launches_7x7"):
+        for sub in ("launches_bf16", "launches_7x7", "launches_halo",
+                    "launches_rings"):
             if hasattr(c, sub):
                 setattr(c, sub, 0)
 
@@ -1929,8 +1978,9 @@ def _logged_count(text, label):
 def _q8_timing(dev, rng, name_power, rows):
     """Phase 16: 512px q8 stylize b1/b8 (bf16, as served), with B4 alone
     and with B7 pairs, beside folded B1 and standard in bfloat16, all four
-    in both orders in this call (the A/B of policy.FUSE_PAIRS and
-    Q8_AUTO_BATCHES), CUDA events; then phase 7's rows."""
+    once in this call (the A/B of policy.FUSE_PAIRS and Q8_AUTO_BATCHES
+    took both orders; one keeps the script inside its time limit), CUDA
+    events; then phase 7's rows."""
     import numpy as np
     import torch
     from rpst_torch.config import load_config
@@ -1958,8 +2008,7 @@ def _q8_timing(dev, rng, name_power, rows):
                 "folded B1": lambda: stylize_multi_adain_folded(
                     w, c, s, dtype=bf),
                 "standard": lambda: _standard(std, c, s, bf)}
-            order = list(paths)
-            for path in order + order[::-1]:
+            for path in paths:  # one order: the script's time limit
                 ms = cuda_ms(paths[path], iters=5, warmup=2)
                 log("16 q8 timing", f"512px b{batch} bfloat16 {path:12s}: "
                     f"{ms:8.3f} ms  {batch * 1e3 / ms:8.2f} img/s  "
@@ -2480,9 +2529,8 @@ def _wide_timing(dev, rng, name_power):
                     "standard bf16": lambda: _standard(bundle, c, s,
                                                        torch.bfloat16),
                     "q8 B5": lambda: bundle.stylize_q8(c, s, scales)}
-                # bf16, q8, q8, bf16: the policy's A/B in both orders
-                for path in ("standard f32", "standard bf16", "q8 B5",
-                             "q8 B5", "standard bf16"):
+                # one order: the script's time limit
+                for path in ("standard f32", "standard bf16", "q8 B5"):
                     fn = paths[path]
                     ms = cuda_ms(fn, iters=3, warmup=1)
                     log("22 wide timing", f"{network} 512px b{batch} "
@@ -2501,11 +2549,9 @@ def _wide_timing(dev, rng, name_power):
             c, s = pair(batch)
             scales = calibrate_vgg_targets_q8(vgg, c, s)
             for dt in ("float32", "bfloat16"):
-                # float, int8, int8, float: both orders inside one call
+                # one order: the script's time limit
                 for label, sc in (("float targets", None),
-                                  ("int8 targets B5", scales),
-                                  ("int8 targets B5", scales),
-                                  ("float targets", None)):
+                                  ("int8 targets B5", scales)):
                     bundle = build_model(cfg.replace(compute_dtype=dt), dev)
                     init_torch_default(bundle.model, cfg.seed)
                     bundle.q8_target_scales = sc
@@ -3215,9 +3261,9 @@ def _sanet_train(dev):
 
 
 def _sanet_timing(dev, rng, name_power):
-    """Phase 28: the 512px SANet stylize (standard f32, bf16, q8) and train
-    step at b1 and b4, with B6, with the plain attention and with the SDPA
-    call in B6's place. CUDA events, medians."""
+    """Phase 28: the 512px SANet stylize (standard f32, bf16, q8) at b1 and
+    b4, with B6, with the plain attention and with the SDPA call in B6's
+    place, and the train step with B6. CUDA events, medians."""
     import numpy as np
     import torch
     from rpst_torch.ops.flash_attention import sanet_attention
@@ -3254,7 +3300,9 @@ def _sanet_timing(dev, rng, name_power):
     for batch in (1, 4):
         c, s = pair(batch)
         for dt in ("float32", "bfloat16"):
-            for label, attention in attentions:
+            # B6 only (the plain / SDPA steps are cut for the time limit;
+            # phase 23 times B6 against both)
+            for label, attention in attentions[:1]:
                 bundle = _sanet_bundle(dev, IMG, compute_dtype=dt)
                 bundle.model.attention = attention
                 state = create_train_state(bundle)
@@ -3689,8 +3737,7 @@ def _6b_timing(dev, rng, name_power):
                         scales = bundle.calibrate_q8(c, s)
                         paths.append(("q8 B5", lambda: bundle.stylize_q8(
                             c, s, scales)))
-                        paths += [paths[1], paths[0]]  # both orders
-                    for path, fn in paths:
+                    for path, fn in paths:  # one order: the time limit
                         ms = cuda_ms(fn, iters=3, warmup=1)
                         log("33 6b timing", f"stylize {IMG}px b{batch} "
                             f"{network} {route:8s} {path:17s}: {ms:9.3f} ms "
@@ -4630,10 +4677,11 @@ def _s4_train(dev):
 
 def _s4_timing(dev, rng, name_power):
     """Phase 38: 512px stylize b1 / b8 for each variant (folded B1,
-    standard, q8 on B4; bf16, as the yamls serve, and f32 folded) in both
-    orders; each variant's train step at its settings; the flagship's b1 /
-    b4 step, f32 and bf16, with float targets, int8 targets and the cache
-    hitting, in both orders."""
+    standard, q8 on B4; bf16, as the yamls serve, and f32 folded); each
+    variant's train step at its settings; the flagship's b1 / b4 step, f32
+    and bf16, with float targets, int8 targets and the cache hitting (one
+    order each, for the script's time limit: the A/Bs of the policy
+    table were taken in both orders)."""
     import numpy as np
     import torch
     from rpst_torch.models import build_model, build_vgg
@@ -4660,8 +4708,8 @@ def _s4_timing(dev, rng, name_power):
                 "folded bf16": lambda: bundle.stylize(c, s),
                 "standard bf16": lambda: bundle.stylize(c, s, folded=False),
                 "q8 bf16": lambda: bundle.stylize_q8(c, s, scales)}
-            order = ("folded bf16", "standard bf16", "q8 bf16", "folded f32",
-                     "q8 bf16", "standard bf16", "folded bf16")
+            # one order: the script's time limit
+            order = ("folded bf16", "standard bf16", "q8 bf16", "folded f32")
             for path in order:
                 ms = cuda_ms(paths[path], iters=3, warmup=1)
                 log("38 slice-4 timing", f"{network} 512px b{batch} "
@@ -4710,7 +4758,7 @@ def _s4_timing(dev, rng, name_power):
                 return train_step(state, vgg, c, s, targets=targets)
 
             bundle.cfg = cfg.replace(train_q8_targets=True)
-            for kind in ("float", "int8", "cache", "cache", "int8", "float"):
+            for kind in ("float", "int8", "cache"):  # one order: time
                 ms = cuda_ms(lambda: step(kind), iters=3, warmup=1)
                 log("38 slice-4 timing", f"flagship train step 512px "
                     f"b{batch} {dt:8s} {kind:5s} targets: {ms:8.3f} ms "
@@ -5324,8 +5372,7 @@ def _5b_timing(dev, rng, name_power):
                     scales = bundle.calibrate_q8(c, s)
                     paths.append(("q8 B5", lambda: bundle.stylize_q8(
                         c, s, scales)))
-                    paths += [paths[1], paths[0]]  # both orders
-                for path, fn in paths:
+                for path, fn in paths:  # one order: the time limit
                     # spade's float32 generator: ~0.24 s an image
                     ms = cuda_ms(fn, iters=3 if network == "spade" else 5,
                                  warmup=1 if network == "spade" else 2)
@@ -5942,8 +5989,7 @@ def _ld_timing(dev, rng, name_power):
                 scales = bundle.calibrate_q8(c, s)
                 paths.append(("q8 B5", lambda: bundle.stylize_q8(c, s,
                                                                  scales)))
-                paths += [paths[1], paths[0]]  # both orders
-            for path, fn in paths:
+            for path, fn in paths:  # one order: the time limit
                 ms = cuda_ms(fn, iters=3, warmup=1)
                 log("48 LD timing", f"stylize {IMG}px b{batch} {network:9s} "
                     f"{path:17s}: {ms:9.3f} ms {batch * 1e3 / ms:8.2f} img/s "
@@ -7001,5 +7047,543 @@ def _accum_remat(dev, name_power):
     return tuple(total)
 
 
+# ---------------------------------------------------------------- 57-59
+# the lane-filling training shape of one row shard of a 512px image on
+# {spatial: 2}: (1, 128, 256, 128 -> 128) folded; the only shape that reaches
+# the halo kernels under rpst's gate (4C and 4Co multiples of 128)
+HALO_SHAPE = (1, 128, 256, 128, 128)
+SPATIAL_NETS = ("multi_adain", "sel_multi_adain", "ccam")
+# the spatial fixture's points (tools/make_torch_port_fixture.py
+# spatial_sources(): the flagship train fixture and the two slice-4 ones)
+SPATIAL_SRC = {
+    "multi_adain": ("torch_port_train.npz",
+                    dict(FLAGSHIP, content_weight=1.0, style_weight=1.0)),
+    "sel_multi_adain": ("torch_port_sel_multi_adain.npz",
+                        dict(FLAGSHIP, network="sel_multi_adain",
+                             content_weight=1.0, style_weight=2.0)),
+    "ccam": ("torch_port_ccam.npz",
+             dict(FLAGSHIP, network="ccam", stylized_layers=5,
+                  shuffle=False, shuffle_layers=1, content_weight=1.0,
+                  style_weight=2.0)),
+}
+
+
+def _halo_kernels(dev, name_power):
+    """Phase 57: B2 with row_rings=False and B3 with given rings, and
+    FoldedConvActHalo's backward, against their plain versions at
+    HALO_SHAPE with a folded and a dense kernel, float32 (1e-4) and
+    bfloat16 (2e-2); B3 bit-equal across two runs in both modes; each
+    timed beside its one-device mode, its plain version and the library
+    call (conv2d_input / conv2d_weight on the ring-padded folded tensor).
+    Returns the kernels-line numbers (f32, folded: B3 listed)."""
+    import torch
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    from rpst_torch.ops.folded import fold_conv_kernel, folded_reflect_pad
+    from rpst_torch.ops import folded_conv as fc
+    g = torch.Generator().manual_seed(57)
+    n, h, w, c4, c4o = HALO_SHAPE
+    dk_atol = DK_ATOL_512 * (n * h * w / 512) ** 0.5
+    out = {}
+    for kname in ("folded", "dense"):
+        kf = (fold_conv_kernel(torch.randn(3, 3, c4 // 4, c4o // 4,
+                                           generator=g) * 0.2)
+              if kname == "folded"
+              else torch.randn(3, 3, c4, c4o, generator=g) * 0.05)
+        x = torch.randn(n, h, w, c4, generator=g)
+        gz = torch.randn(n, h, w, c4o, generator=g)
+        rings = torch.randn(n, 2, w, c4, generator=g)
+        b = torch.randn(c4o, generator=g) * 0.1
+        for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            kind, size = ("f32", 4) if dt == torch.float32 else ("bf16", 2)
+            xd, gd, rd, kd = (t.to(dev, dt).contiguous()
+                              for t in (x, gz, rings, kf))
+            khat = kd.flip(0, 1).transpose(2, 3).contiguous()
+            dx = fc.fused_folded_conv_grad_input(gd, khat, row_rings=False)
+            torch.cuda.synchronize()
+            e2, _ = check_close(
+                f"B2 halo {kname} {dt}", dx,
+                fc.fused_folded_conv_grad_input_plain(gd, khat, False), tol)
+            e3 = 0.0
+            for listed in (True, False):
+                dk, db = fc.fused_folded_conv_grad_weight(xd, gd, listed, rd)
+                dk2, db2 = fc.fused_folded_conv_grad_weight(xd, gd, listed,
+                                                            rd)
+                torch.cuda.synchronize()
+                if not (torch.equal(dk, dk2) and torch.equal(db, db2)):
+                    raise AssertionError(f"B3 rings {kname} {dt} listed="
+                                         f"{listed}: two runs differ")
+                rdk, rdb = fc.fused_folded_conv_grad_weight_plain(
+                    xd, gd, listed, rd)
+                atol = dk_atol if dt == torch.float32 else BF16_TOL * max(
+                    1.0, float(rdk.abs().max()))
+                for name, a, r in (("dk", dk, rdk), ("db", db, rdb)):
+                    err = float((a - r).abs().max())
+                    if not torch.allclose(a, r, rtol=1e-4 if dt ==
+                                          torch.float32 else BF16_TOL,
+                                          atol=atol):
+                        raise AssertionError(
+                            f"B3 rings {kname} {dt} listed={listed} {name}:"
+                            f" max abs err {err} (atol {atol:.3g})")
+                    e3 = max(e3, err)
+            # the Function's backward on the card vs autograd of B1's plain
+            # version with the rings as inputs, on the same card tensors
+            ins = [t.detach().requires_grad_(True) for t in
+                   (xd, kd, b.to(dev, dt), rd[:, :1].contiguous(),
+                    rd[:, 1:].contiguous())]
+            y = fc.folded_conv_act_halo(*ins, listed=kname == "folded")
+            got = torch.autograd.grad(y, ins, gd)
+            ref_in = [t.detach().float().requires_grad_(True) for t in ins]
+            y_ref = fc.fused_folded_conv_plain(
+                *ref_in[:3], 0.2, rings=torch.cat(ref_in[3:], dim=1))
+            ref = torch.autograd.grad(y_ref, ref_in, gd.float())
+            ef = 0.0
+            for name, a, r in zip(("dx", "dk", "db", "d_above", "d_below"),
+                                  got, ref):
+                if kname == "folded" and name == "dk":
+                    # the listed mode: the fold's 36 blocks
+                    mask = fc.listed_blocks().to(dev)[:, :, :, None, :, None]
+                    r = (r.reshape(3, 3, 4, c4 // 4, 4, c4o // 4)
+                         * mask).reshape(r.shape)
+                sc = max(1.0, float(r.abs().max()))
+                err = float((a.float() - r).abs().max())
+                if not err <= (tol if name in ("dx", "d_above", "d_below")
+                               else 4 * tol) * sc:
+                    raise AssertionError(f"FoldedConvActHalo {kname} {dt} "
+                                         f"{name}: max abs err {err}")
+                ef = max(ef, err / sc)
+            # timing beside the one-device modes
+            xp = folded_reflect_pad(xd, rd).permute(0, 3, 1, 2)
+            gp = gd.permute(0, 3, 1, 2)
+            wf = kd.permute(3, 2, 0, 1).contiguous()
+            listed = kname == "folded"
+            t = {"B2": cuda_ms(lambda: fc.fused_folded_conv_grad_input(
+                     gd, khat)),
+                 "B2 halo": cuda_ms(lambda: fc.fused_folded_conv_grad_input(
+                     gd, khat, row_rings=False)),
+                 "B2 halo plain": cuda_ms(
+                     lambda: fc.fused_folded_conv_grad_input_plain(
+                         gd, khat, False)),
+                 "B2 lib": cuda_ms(lambda: conv2d_input(xp.shape, wf, gp)),
+                 "B3": cuda_ms(lambda: fc.fused_folded_conv_grad_weight(
+                     xd, gd, listed)),
+                 "B3 rings": cuda_ms(lambda: fc.fused_folded_conv_grad_weight(
+                     xd, gd, listed, rd)),
+                 "B3 rings plain": cuda_ms(
+                     lambda: fc.fused_folded_conv_grad_weight_plain(
+                         xd, gd, listed, rd)),
+                 "B3 lib": cuda_ms(lambda: conv2d_weight(
+                     xp, (c4o, c4, 3, 3), gp))}
+            bnd = folded_bound(n, h, w, c4, c4o, kind, size, listed)
+            log("57 halo", f"{HALO_SHAPE} {kind} {kname}: B2 row_rings=False "
+                f"max abs err {e2:.3g}, B3 rings (listed + dense, bit-equal "
+                f"across two runs) {e3:.3g}, FoldedConvActHalo backward "
+                f"{ef:.3g} x max; B2 halo {t['B2 halo']:.4f} ms (one-device "
+                f"mode {t['B2']:.4f}, plain {t['B2 halo plain']:.4f}, "
+                f"conv2d_input {t['B2 lib']:.4f}); B3 rings {t['B3 rings']:.4f}"
+                f" ms (reflect mode {t['B3']:.4f}, plain "
+                f"{t['B3 rings plain']:.4f}, conv2d_weight {t['B3 lib']:.4f});"
+                f" bound {bnd[0]:.4f} ms by {bnd[1]} ({name_power})")
+            if (kind, kname) == ("f32", "folded"):
+                out["B2"] = {"max_abs_err": e2, "ms": t["B2 halo"],
+                             "plain_ms": t["B2 halo plain"],
+                             "bound_ms": bnd[0], "bound_by": bnd[1],
+                             "library_ms": t["B2 lib"]}
+                out["B3"] = {"max_abs_err": e3, "ms": t["B3 rings"],
+                             "plain_ms": t["B3 rings plain"],
+                             "bound_ms": bnd[0], "bound_by": bnd[1],
+                             "library_ms": t["B3 lib"]}
+    return out
+
+
+def _spatial_fixture_bundle(network, dev, dtype=None):
+    """The port's bundle, VGG and images at the spatial fixture's point of
+    ``network`` on ``dev`` (float64 on the CPU for ``dtype`` float64)."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import (flax_tree_from_npz, from_flax_batch_stats,
+                                   from_flax_params, vgg_from_flax,
+                                   vgg_weights_from_seed)
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.vgg import VGG19Encoder
+    name, cfg = SPATIAL_SRC[network]
+    with np.load(REPO / "tests" / "fixtures" / name) as npz:
+        tree = flax_tree_from_npz(npz)
+        fx = {k: npz[k] for k in ("content", "style", "vgg_seed")}
+    bundle = build_model(load_config(dict(
+        cfg, img_size=fx["content"].shape[1], exec_strategy="folded")), dev)
+    sd = from_flax_params({k: v for k, v in tree.items()
+                           if k in ("ms", "rp_shared_encoder", "rp_decoder",
+                                    "attention_block")
+                           or k.startswith("ccam_")})
+    sd.update(from_flax_batch_stats(tree.get("batch_stats", {})))
+    bundle.load_state_dict(sd)
+    vgg = VGG19Encoder()
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(
+        int(fx["vgg_seed"]))))
+    vgg = vgg.to(dev)
+    c, s = (torch.from_numpy(fx[k]).to(dev) for k in ("content", "style"))
+    if dtype == torch.float64:
+        bundle.model.double()
+        bundle.folded_dtype = lambda: torch.float64
+        vgg.double()
+        c, s = c.double(), s.double()
+    bundle.model.train()
+    return bundle, vgg, c, s
+
+
+def _corner(g):
+    """The gradient corner the spatial fixture keeps (vectors whole, a
+    kernel's or Linear's [:8, :8]) in the port's layout."""
+    return g[:8, :8].contiguous() if g.ndim >= 2 else g
+
+
+def _flagship_512(dev, network="multi_adain", **over):
+    """A seeded full-width bundle of ``network`` at 512px (folded, f32, or
+    as ``over`` says) and a b2 batch."""
+    import numpy as np
+    import torch
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model, build_vgg
+    from rpst_torch.nn.blocks import init_torch_default
+    cfg = load_config({**SPATIAL_SRC[network][1], "img_size": IMG,
+                       "exec_strategy": "folded", "lr": 1e-4,
+                       "lr_decay": 0.0, **over})
+    bundle = build_model(cfg, dev)
+    init_torch_default(bundle.model, 0)
+    if network == "ccam":  # live CCAM residuals
+        with torch.no_grad():
+            for i, m in enumerate(bundle.model.channel_attentions):
+                m.scale.fill_(0.3 + 0.1 * i)
+    vgg, _ = build_vgg(cfg, dev)
+    rng = np.random.default_rng(58)
+    c, s = (torch.from_numpy(rng.random((2, IMG, IMG, 3), np.float32))
+            .to(dev) for _ in range(2))
+    bundle.model.train()
+    return bundle, vgg, c, s
+
+
+def _mesh_step(bundle, vgg, c, s, mesh):
+    """One train_step on ``mesh`` (or one device): (total, the gradients
+    the optimizer stepped on, the parameters before and after, buffers)."""
+    from rpst_torch.train.step import create_train_state, train_step
+    state = create_train_state(bundle, mesh=mesh)
+    seen = {}
+
+    def keep(opt, *_):
+        seen.update({n: p.grad.detach().clone() for n, p in
+                     bundle.model.named_parameters() if p.grad is not None})
+    state.optimizer.register_step_pre_hook(keep)
+    before = {n: p.detach().clone() for n, p in
+              bundle.model.named_parameters()}
+    parts = train_step(state, vgg, c, s)
+    after = {n: p.detach().clone() for n, p in
+             bundle.model.named_parameters()}
+    buffers = {n: b.clone() for n, b in bundle.model.named_buffers()}
+    return (float(parts["total_loss"]), seen, before, after, buffers,
+            state.schedule(0))
+
+
+def spatial_rank(rank, init, out_dir):
+    """Phase 58, one rank (``python3 chip_smoke.py --spatial-rank R INIT
+    OUT``): joins the other rank over gloo on the one card and runs
+    the row-sharded paths: the fixture's three networks at 64px on
+    {spatial: 2} (stylize, loss, gradient corners); the flagship at 512px
+    b2 (stylize and a train step on {spatial: 2}, a train step on {data:
+    2}); sel_multi_adain and ccam train steps on {spatial: 2}. Saves
+    ``<out>/rank<r>.pt``: the results and this rank's launch counts."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO / "src"))
+    from rpst_torch.dist import average_grads, make_mesh, shard_batch
+    from rpst_torch.models.fast_path_spatial import (loss_spatial,
+                                                     stylize_spatial)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)  # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            world_size=2, rank=int(rank))
+    res = {}
+    try:
+        s2 = make_mesh({"spatial": 2}, dev)
+        d2 = make_mesh({"data": 2}, dev)
+        _reset_counts()
+        for net in SPATIAL_NETS:
+            bundle, vgg, c, s = _spatial_fixture_bundle(net, dev)
+            c_l, s_l = (shard_batch(t, s2, spatial=True) for t in (c, s))
+            res[f"fx/{net}/out"] = stylize_spatial(bundle, c_l, s_l, s2)
+            total, parts = loss_spatial(bundle, vgg, c_l, s_l, s2)
+            total.backward()
+            average_grads(list(bundle.model.parameters()), s2.reduce_axes())
+            for k in ("content_loss", "style_loss", "total_loss"):
+                res[f"fx/{net}/{k}"] = parts[k].detach()
+            for n, p in bundle.model.named_parameters():
+                res[f"fx/{net}/grads/{n}"] = _corner(p.grad)
+        bundle, vgg, c, s = _flagship_512(dev)
+        c_l, s_l = (shard_batch(t, s2, spatial=True) for t in (c, s))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["512/out"] = stylize_spatial(bundle, c_l, s_l, s2)
+        torch.cuda.synchronize()
+        res["512/stylize_s"] = torch.tensor(time.perf_counter() - t0)
+        for key, mesh in (("512/s2", s2), ("512/d2", d2)):
+            bundle, vgg, c, s = _flagship_512(dev)
+            sp = mesh is s2
+            c_l, s_l = (shard_batch(t, mesh, spatial=sp) for t in (c, s))
+            total, grads, before, after, _, lr = _mesh_step(bundle, vgg, c_l,
+                                                            s_l, mesh)
+            res[f"{key}/total_loss"] = torch.tensor(total)
+            res[f"{key}/lr"] = torch.tensor(lr)
+            for n in grads:
+                res[f"{key}/grads/{n}"] = grads[n]
+                res[f"{key}/before/{n}"] = before[n]
+                res[f"{key}/after/{n}"] = after[n]
+        for net in ("sel_multi_adain", "ccam"):
+            bundle, vgg, c, s = _flagship_512(dev, net)
+            c_l, s_l = (shard_batch(t, s2, spatial=True) for t in (c, s))
+            total, grads, _, _, buffers, _ = _mesh_step(bundle, vgg, c_l, s_l,
+                                                        s2)
+            res[f"512/{net}/total_loss"] = torch.tensor(total)
+            for n, g in grads.items():
+                res[f"512/{net}/grads/{n}"] = g
+            for n, b in buffers.items():
+                res[f"512/{net}/buffers/{n}"] = b
+        torch.cuda.synchronize()
+        cnt = _counters()
+        res["counts"] = torch.tensor([
+            cnt["B1"].launches, cnt["B2"].launches, cnt["B3"].launches,
+            cnt["B2"].launches_halo, cnt["B3"].launches_rings])
+        dist.barrier()
+    finally:
+        torch.save({k: v.detach().cpu() for k, v in res.items()},
+                   Path(out_dir) / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _check_grad_rule(label, got, ref, own, rel=4.0):
+    """Each tensor of ``got`` within rtol 5e-3 and max(1e-4, rel x own)
+    of the tensor's max from ``ref``; ``own`` the float32 errors per tensor
+    (absolute). Returns the worst error / max."""
+    import torch
+    worst = 0.0
+    for n, r in ref.items():
+        a = got[n].double().cpu()
+        r = r.double().cpu()
+        size = max(float(r.abs().max()), 1e-30)
+        err = float((a - r).abs().max())
+        atol = max(1e-4, rel * own.get(n, 0.0) / size) * size
+        if not torch.allclose(a, r, rtol=5e-3, atol=atol):
+            raise AssertionError(f"{label} {n}: max abs err {err} "
+                                 f"({err / size:.3g} x max, atol {atol:.3g})")
+        worst = max(worst, err / size)
+    return worst
+
+
+def _spatial_ranks(dev, name_power):
+    """Phase 58: two ranks on the one card over gloo (``spatial_rank``)
+    against the one-device folded path on the card, and against rpst's
+    row-sharded functions (tests/fixtures/torch_port_spatial.npz, {spatial:
+    2}): stylize 1e-4; loss parts rtol 1e-4; float32 gradients within
+    rtol 5e-3 and 4 x the larger own float32 error (rpst's: its float32
+    against its float64; the port's: the card's against its one-device
+    float64 on the CPU), at least 1e-4 of the max; the 512px steps'
+    gradients against the one-device step's by phase 9's rule (rtol 5e-3,
+    1e-4 of the max); each rank's Adam step the optimizer's rule on those
+    averaged gradients, the two ranks bit-equal; sel_multi_adain's running
+    statistics (rtol 1e-4, atol 1e-5). Returns the launch counts of both
+    ranks together."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import from_flax_params, from_flax_batch_stats
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--spatial-rank",
+             str(r), str(tmp / "init"), str(tmp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=str(REPO))
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError("phase 58 ranks failed:\n" + "\n".join(
+                f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(logs)))
+        res = [torch.load(tmp / f"rank{r}.pt", weights_only=True)
+               for r in range(2)]
+        wall = time.perf_counter() - t0
+    fx_path = REPO / "tests" / "fixtures" / "torch_port_spatial.npz"
+    with np.load(fx_path) as npz:
+        fx = {k: npz[k] for k in npz.files}
+
+    def fx_tree(net, what):
+        prefix = f"{net}/s2/{what}/"
+        tree = {}
+        for k, v in fx.items():
+            if k.startswith(prefix):
+                node = tree
+                *parents, leaf = k[len(prefix):].split("/")
+                for q in parents:
+                    node = node.setdefault(q, {})
+                node[leaf] = v
+        return (from_flax_batch_stats(tree) if what == "stats_after"
+                else from_flax_params(tree))
+
+    cat_rows = lambda key: torch.cat([res[0][key], res[1][key]],  # noqa
+                                     dim=1)
+    for net in SPATIAL_NETS:
+        out = cat_rows(f"fx/{net}/out")
+        err, _ = check_close(f"58 fixture {net} stylize", out,
+                             torch.from_numpy(fx[f"{net}/s2/out"]), F32_TOL)
+        for k in ("content_loss", "style_loss", "total_loss"):
+            if not np.isclose(float(res[0][f"fx/{net}/{k}"]),
+                              fx[f"{net}/s2/{k}"], rtol=LOSS_RTOL):
+                raise AssertionError(f"58 fixture {net} {k}: "
+                                     f"{float(res[0][f'fx/{net}/{k}'])} vs "
+                                     f"{fx[f'{net}/s2/{k}']}")
+        # the port's own float32 error: against its one-device float64 loss
+        # on the CPU (the card's kernels take no float64)
+        b64, vgg64, c64, s64 = _spatial_fixture_bundle(
+            net, torch.device("cpu"), torch.float64)
+        total64, _ = b64.loss(vgg64, c64, s64)
+        total64.backward()
+        g64 = {n: _corner(p.grad) for n, p in b64.model.named_parameters()}
+        ref32, ref64 = fx_tree(net, "grads"), fx_tree(net, "grads_f64")
+        got = {n[len(f"fx/{net}/grads/"):]: v for n, v in res[0].items()
+               if n.startswith(f"fx/{net}/grads/")}
+        own = {n: max(float((torch.as_tensor(ref32[n]).double()
+                             - torch.as_tensor(ref64[n]).double()).abs().max()),
+                      float((got[n].double() - g64[n]).abs().max()))
+               for n in ref32}
+        worst = _check_grad_rule(f"58 fixture {net}", got, ref32, own)
+        log("58 spatial", f"{net} 64px b2 on {{spatial: 2}} vs rpst's "
+            f"row-sharded functions: stylize max abs err {err:.3g}, loss "
+            f"parts within rtol 1e-4, gradients worst {worst:.3g} x max")
+    # 512px against the one-device folded path on the card
+    bundle, vgg, c, s = _flagship_512(dev)
+    with torch.inference_mode():
+        ref_out = bundle.stylize(c, s)
+    err, _ = check_close("58 512 stylize", cat_rows("512/out"), ref_out.cpu(),
+                         F32_TOL)
+    single = _mesh_step(bundle, vgg, c, s, None)
+    for key in ("512/s2", "512/d2"):
+        loss = float(res[0][f"{key}/total_loss"])
+        if not np.isclose(loss, single[0], rtol=LOSS_RTOL):
+            raise AssertionError(f"58 {key} loss {loss} vs {single[0]}")
+        got = {n[len(f"{key}/grads/"):]: v for n, v in res[0].items()
+               if n.startswith(f"{key}/grads/")}
+        worst = _check_grad_rule(f"58 {key}", got, single[1], {})
+        lr = float(res[0][f"{key}/lr"])
+        for n, g in got.items():
+            before = res[0][f"{key}/before/{n}"]
+            expect = before - lr * g / (g.abs() + 1e-8)
+            for r in range(2):
+                if not torch.equal(res[r][f"{key}/after/{n}"],
+                                   res[0][f"{key}/after/{n}"]):
+                    raise AssertionError(f"58 {key} {n}: ranks differ")
+            e = float((res[0][f"{key}/after/{n}"] - expect).abs().max())
+            if not e <= 1e-6:
+                raise AssertionError(f"58 {key} {n}: Adam step off by {e}")
+        log("58 spatial", f"flagship {IMG}px b2 {key[4:]}: loss {loss:.6g} "
+            f"(one device {single[0]:.6g}), gradients worst {worst:.3g} x "
+            f"max, the Adam step the rule on them, ranks bit-equal")
+    for net in ("sel_multi_adain", "ccam"):
+        b, v, c2, s2_ = _flagship_512(dev, net)
+        one = _mesh_step(b, v, c2, s2_, None)
+        loss = float(res[0][f"512/{net}/total_loss"])
+        if not np.isclose(loss, one[0], rtol=LOSS_RTOL):
+            raise AssertionError(f"58 {net} loss {loss} vs {one[0]}")
+        got = {n[len(f"512/{net}/grads/"):]: t for n, t in res[0].items()
+               if n.startswith(f"512/{net}/grads/")}
+        # the float32 noise of these gradients (the BatchNorm backward, the
+        # CCAM softmax amplify it): the one-device folded path against the
+        # one-device standard path (cuDNN), the same function
+        std, v, c2, s2_ = _flagship_512(dev, net, exec_strategy="standard")
+        std.loss(v, c2, s2_)[0].backward()
+        own = {n: float((one[1][n] - p.grad).abs().max())
+               for n, p in std.model.named_parameters() if n in one[1]}
+        worst = _check_grad_rule(f"58 {net}", got, one[1], own)
+        stat = 0.0
+        for n, buf in one[4].items():
+            for r in range(2):
+                a = res[r][f"512/{net}/buffers/{n}"]
+                if not torch.allclose(a, buf.cpu(), rtol=1e-4, atol=1e-5):
+                    raise AssertionError(f"58 {net} buffer {n} rank {r}")
+                stat = max(stat, float((a - buf.cpu()).abs().max()))
+        log("58 spatial", f"{net} {IMG}px b2 {{spatial: 2}} step: loss "
+            f"{loss:.6g} (one device {one[0]:.6g}), gradients worst "
+            f"{worst:.3g} x max, running statistics within {stat:.3g}")
+    counts = [int(x) for x in (res[0]["counts"] + res[1]["counts"])]
+    log("58 spatial", f"two ranks over gloo on the one card: {wall:.1f}s "
+        f"wall (shared card: no scaling figure); launches of both ranks "
+        f"B1/B2/B3 {counts[0]}/{counts[1]}/{counts[2]}, of which B2 "
+        f"row_rings=False {counts[3]}, B3 rings {counts[4]}; {IMG}px stylize "
+        f"{float(res[0]['512/stylize_s']) * 1e3:.1f} ms on rank 0 "
+        f"({name_power})")
+    return counts
+
+
+def _spatial_train_cli(dev):
+    """Phase 59: train_torch.py with mesh_shape {spatial: 2} on the flagship
+    yaml (the main path's model: attention none, use_mask false, folded),
+    512px b8 bfloat16, 3 steps, its two ranks started by train_torch.py
+    over gloo on the one card: one checkpoint tree, written by rank 0, its
+    log lines only; returns rank 0's (B2 row_rings=False, B3 rings)
+    launches."""
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
+                       check=True, capture_output=True, timeout=300)
+        out = tmp / "spatial"
+        t0 = time.perf_counter()
+        text = _driver_run("train_torch.py", [
+            "--config", str(FLAGSHIP_YAML), "--device", "cuda", "--set",
+            f"content_dir={tmp / 'corpus' / 'content'}",
+            f"style_dir={tmp / 'corpus' / 'style'}", "test_dir=", "vgg=",
+            f"output={out}", "attention=none", "use_mask=false",
+            "exec_strategy=folded", "mesh_shape={spatial: 2}", "max_iter=4",
+            "log_iter=1", "snapshot_save_iter=100", "num_workers=2"])
+        wall = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in
+                 (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+        if [ln["step"] for ln in lines] != [1, 2, 3] or any(
+                ln["skipped"] or not np.isfinite(ln["total_loss"])
+                for ln in lines):
+            raise AssertionError(f"59 spatial train metrics: {lines}")
+        if _dump_names(out / "checkpoints") != ["3"]:
+            raise AssertionError(f"59 checkpoints {_dump_names(out / 'checkpoints')}")
+        iters = [m for m in text.splitlines() if "Iterations " in m]
+        if len(iters) != 3 or "row-sharded folded training" not in text:
+            raise AssertionError(f"59 log: {len(iters)} loss lines\n"
+                                 f"{text[-3000:]}")
+        halo = [m for m in text.splitlines()
+                if "B2 row_rings=False / B3 rings launches:" in m]
+        a, b = (int(x) for x in halo[-1].split(": ")[-1].split("/"))
+        if not (a > 0 and b > 0):
+            raise AssertionError(f"59 halo launches {a}/{b}")
+        log("59 spatial train", f"train_torch.py {FLAGSHIP_YAML.name} "
+            f"(attention none, use_mask false, folded) on mesh_shape "
+            f"{{spatial: 2}}, {IMG}px b8 bfloat16, 2 ranks over gloo on the "
+            f"one card: 3 steps in {wall:.1f}s wall (build, start and "
+            f"loading included), total_loss "
+            f"{[round(ln['total_loss'], 4) for ln in lines]}; one "
+            f"checkpoint (3), 3 loss lines (rank 0); rank 0's B2 "
+            f"row_rings=False / B3 rings launches {a}/{b}")
+        return a, b
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 5 and sys.argv[1] == "--spatial-rank":
+        spatial_rank(*sys.argv[2:])
+    else:
+        main()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Serving CLI of the PyTorch/CUDA port: stylize a folder of content
 images against a style image, or serve a line-JSON TCP daemon with dynamic
-request batching. The counterpart of ``serve.py``, with the same flags
-except ``--mesh``, plus ``--device`` and ``--weights``; it imports no JAX.
+request batching. The counterpart of ``serve.py``, with the same flags,
+plus ``--device`` and ``--weights``; it imports no JAX.
 
   * ``--mode q8``       int8 PTQ serving: calibrates per-tensor activation
                         scales on the first min(batch, 8) content images
@@ -68,10 +68,23 @@ rpst checkpoint by ``tools/export_reference_checkpoint.py``) or an ``.npz``
 of flax parameter paths; without it the weights are seeded from the
 config's ``seed``, with a warning.
 
+``--mesh`` (rpst ``serve.py:99-133``) sweeps --content over ranks, one
+process each, which the command starts itself after building the CUDA
+kernels once (``rpst_torch.dist.launch``): ``--mesh N`` data parallel over
+N ranks, each stylizing its share of every batch, for every network;
+``--mesh data=a,spatial=b`` also shards image rows, the row-sharded folded
+stylize of multi_adain, sel_multi_adain and ccam (halo rows and all-reduced
+statistics; ``img_size % (4 * spatial) == 0``). Under a mesh ``--mode q8``
+gives way to folded with a warning, mst refuses a spatial axis, and the
+other networks on a spatial axis refuse naming ROADMAP.md section A slice
+8b; so does ``--daemon``, which serves one process. Rank 0 writes the
+images. Ranks share a card over gloo where they outnumber the GPUs.
+
 Usage:
   python serve_torch.py --config cfg.yaml --content in/ --style style.png \
       --out stylized/ [--mode folded] [--batch 8] [--device cuda] \
-      [--weights w.pth] [--set key=val ...]
+      [--weights w.pth] [--mesh N | --mesh data=a,spatial=b] \
+      [--set key=val ...]
   python serve_torch.py ... --daemon [--port N] [--max-wait-ms 5]
 """
 
@@ -89,6 +102,9 @@ import yaml
 from rpst_torch.bridge import load_weights
 from rpst_torch.config import load_config
 from rpst_torch.data import image_paths, load_image, to_u8
+from rpst_torch.dist import (is_main_process, make_mesh, rank_device,
+                             replicate, setup_distributed)
+from rpst_torch.dist.launch import spawn
 from rpst_torch.metrics import logger, save_image
 from rpst_torch.models import build_model, build_vgg
 from rpst_torch.nn.blocks import init_torch_default
@@ -98,7 +114,9 @@ from rpst_torch.ops.folded_conv import fused_folded_conv
 from rpst_torch.ops.folded_conv2_q8 import fused_folded_conv2_q8
 from rpst_torch.ops.folded_conv_q8 import fused_folded_conv_q8
 from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
-                                make_run_impl, resolve_mode, serve_daemon)
+                                gather_batch, make_mesh_run_impl,
+                                make_run_impl, mesh_mode, parse_mesh,
+                                resolve_mode, serve_daemon)
 
 
 def _load_images(path: Path, img_size: int):
@@ -115,7 +133,7 @@ def _log_launches():
     logger.info(f"B6 flash_attention launches: {launch_counts()['B6_fwd']}")
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--content", required=True)
@@ -143,8 +161,17 @@ def main():
                         help="daemon batching window: the first queued "
                         "request waits at most this long for the batch "
                         "to fill before dispatching")
+    parser.add_argument("--mesh", default="1",
+                        help="N (data parallel over N ranks) or axis=size "
+                        "pairs like data=2,spatial=2 (a spatial axis shards "
+                        "image rows: the folded multi_adain, "
+                        "sel_multi_adain, ccam)")
     parser.add_argument("--set", nargs="*", default=[])
-    args = parser.parse_args()
+    # a rank's place, added by the command to the ranks it starts
+    parser.add_argument("--rank-init", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, default=-1,
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -157,9 +184,41 @@ def main():
     if args.mode != "standard":
         overrides.setdefault("exec_strategy", "folded")
     cfg = load_config(args.config, overrides)
+    mesh_shape = parse_mesh(args.mesh)
+    world = int(np.prod(list(mesh_shape.values())))
+    mesh = None
+    if world > 1:
+        if args.daemon:
+            raise NotImplementedError(
+                "--daemon serves one process; --mesh sweeps --content "
+                "(a daemon over ranks is ROADMAP.md section A slice 8b)")
+        if args.batch % mesh_shape.get("data", 1):
+            raise ValueError(f"--batch {args.batch} must divide by the data "
+                             f"axis {mesh_shape.get('data', 1)}")
+        if args.rank < 0:
+            # refuse here what every rank would refuse, then start them
+            probe = build_model(cfg)
+            mesh_mode(probe, resolve_mode(probe, args.mode,
+                                          batch=args.batch), mesh_shape)
+            logger.info(f"--mesh {mesh_shape}: starting {world} ranks")
+            rc = spawn([str(Path(__file__).resolve()),
+                        *(argv if argv is not None else sys.argv[1:])],
+                       world, lambda r, url: ["--rank-init", url, "--rank",
+                                              str(r)],
+                       build_kernels=device.type == "cuda")
+            if rc:
+                raise SystemExit(f"serve_torch.py: a rank exited with {rc}")
+            return
+        setup_distributed(args.rank_init, world, args.rank, device.type)
+        mesh = make_mesh(mesh_shape, rank_device(device.type))
+        device = mesh.device
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
 
     bundle = build_model(cfg, device)
     mode = resolve_mode(bundle, args.mode, batch=args.batch)
+    if mesh is not None:
+        mode = mesh_mode(bundle, mode, mesh_shape)
     if args.weights:
         bundle.load_state_dict(load_weights(args.weights))
         logger.info(f"Loaded weights {args.weights}")
@@ -167,6 +226,8 @@ def main():
         init_torch_default(bundle.model, cfg.seed)
         logger.warning(f"No --weights: serving randomly initialized params "
                        f"(seed {cfg.seed})")
+    if mesh is not None:
+        replicate(bundle.model, mesh)
 
     if bundle.from_features:
         bundle.vgg, vgg_source = build_vgg(cfg, device)
@@ -188,7 +249,8 @@ def main():
         scales = calibrate_scales(bundle, calib,
                                   calib_style.expand_as(calib).contiguous())
         logger.info(f"Calibrated {len(scales['act_scales'])} layer scales")
-    run_impl = make_run_impl(bundle, mode, scales)
+    run_impl = (make_run_impl(bundle, mode, scales) if mesh is None
+                else make_mesh_run_impl(bundle, mode, mesh))
 
     def run_u8(content, style):
         """uint8 across the host<->device boundary (4x less transfer than
@@ -199,7 +261,8 @@ def main():
             torch.uint8)
 
     out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if is_main_process():
+        out_dir.mkdir(parents=True, exist_ok=True)
     style_u8 = to_u8(styles[0][1])
 
     if args.daemon:
@@ -216,13 +279,25 @@ def main():
     style_dev = torch.from_numpy(style_u8)[None].to(device)
 
     def _dispatch(chunk):
-        """Decode + copy + asynchronous launch of one batch."""
-        batch = torch.from_numpy(to_u8(np.stack([img for _, img in chunk])))
+        """Decode + copy + asynchronous launch of one batch (on a mesh: this
+        rank's share, the last batch padded to a whole share a rank; the
+        shares gathered)."""
+        imgs = [img for _, img in chunk]
+        if mesh is not None:
+            d = mesh.data
+            imgs += imgs[-1:] * (-len(imgs) % d)
+            per = len(imgs) // d
+            i = mesh.axis("data").index
+            imgs = imgs[i * per:(i + 1) * per]
+        batch = torch.from_numpy(to_u8(np.stack(imgs)))
         b = batch.to(device)
-        return run_u8(b, style_dev.expand(b.shape[0], -1, -1, -1))
+        y = run_u8(b, style_dev.expand(b.shape[0], -1, -1, -1))
+        return y if mesh is None else gather_batch(y, mesh)
 
     def _flush(chunk, out):
         arr = out.cpu().numpy()  # waits for the device
+        if not is_main_process():  # rank 0 writes the images
+            return
         for b, (name, _) in enumerate(chunk):
             save_image(arr[b], out_dir / f"{name}-{styles[0][0]}.png")
 
@@ -240,10 +315,15 @@ def main():
             _flush(*pending)
             n_done += len(pending[0])
     dt = time.perf_counter() - t0
-    logger.info(f"Stylized {n_done} images in {dt:.2f}s "
-                f"({n_done / dt:.1f} img/s incl host IO, {device}) "
-                f"-> {out_dir}")
-    _log_launches()
+    if is_main_process():
+        logger.info(f"Stylized {n_done} images in {dt:.2f}s "
+                    f"({n_done / dt:.1f} img/s incl host IO, {device}"
+                    + (f", mesh {mesh_shape}" if mesh is not None else "")
+                    + f") -> {out_dir}")
+        _log_launches()
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

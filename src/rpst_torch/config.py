@@ -81,9 +81,17 @@ DEFAULTS: Dict[str, Any] = {
     "checkpoint_path": "",
     "resume": False,
     "vgg": "",
-    # options train_torch.py refuses until their slice is ported
+    # multi-device training (rpst schema.py:121-127): a {data?, spatial?}
+    # rank grid; the distributed keys start one process per rank from
+    # outside (torchrun's environment where they are unset)
     "mesh_shape": None,
     "distributed": False,
+    "coordinator_address": "",
+    "num_processes": -1,
+    "process_id": -1,
+    # the row-sharded folded route of multi_adain / ccam / sel_multi_adain
+    # on a mesh (rpst schema.py:153; off: data parallel)
+    "folded_train_pallas": True,
     "grad_accum": 1,
     "remat": False,
     # int8 no-grad VGG loss targets of the folded families' loss (B5)

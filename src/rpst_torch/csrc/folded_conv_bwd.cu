@@ -6,8 +6,20 @@
 //      `_make_bwd_input_kernel` :165)
 //   B3 `fused_folded_conv_grad_weight` (wrapper :468, body
 //      `_make_bwd_weight_kernel` :382)
-// They run inside the autograd Function of rpst_torch/ops/folded_conv.py,
-// which forms gz = where(y > 0, g, alpha * g) from the saved output first.
+// They run inside the autograd Functions of rpst_torch/ops/folded_conv.py,
+// which form gz = where(y > 0, g, alpha * g) from the saved output first.
+// Each has a second mode for a row shard of the image (row-sharded
+// training, rpst's `folded_conv_act_halo` :604), whose two virtual rows
+// above and below came from the neighbour shards (or the reflect ring at
+// the image's edge) through B1's `rings`:
+//   B2 `row_rings=False` (rpst :339, ring branch :312-331): the adjoint of
+//      the ring ROWS is left out (the caller routes their gradient, from
+//      ops/folded_conv.py `fused_folded_conv_ring_grads`, back to where
+//      the rows came from); the ring columns' adjoint stays on every row;
+//   B3 with given rings (rpst :468, ring rows read at :445-447): the ring
+//      rows are read from `rings` (N, 2, W, 4C), row 0 above and row 1
+//      below, their ring columns by the same channel-block rule, in place
+//      of the rows it otherwise builds from x's reflect ring.
 //
 // B2 computes dx (N, H, W, 4C) from gz (N, H, W, 4Co) and the rotated,
 // transposed kernel khat[r, c] = kf[2 - r, 2 - c]^T, (3, 3, 4Co, 4C):
@@ -87,8 +99,9 @@ namespace {
 template <typename T>
 int launch_grad_input(const void* gz, const void* khat, void* wp, void* bits,
                       void* dx, int N, int H, int W, int C4o, int C4,
-                      void* stream) {
+                      bool row_rings, void* stream) {
   folded::Args<T> a{};
+  a.row_rings = row_rings ? 1 : 0;
   a.x = static_cast<const T*>(gz);
   a.y = static_cast<T*>(dx);
   a.H = H;
@@ -146,7 +159,8 @@ __device__ __forceinline__ int gathered_channel(int packed, int cb, int v) {
 // % groups == w / (wtm wtn). A db item's block sums gz's columns instead.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-    grad_weight_mma(const T* __restrict__ x, const T* __restrict__ gz,
+    grad_weight_mma(const T* __restrict__ x, const T* __restrict__ rings,
+                    const T* __restrict__ gz,
                     const int* __restrict__ items, float* __restrict__ dk,
                     float* __restrict__ db, float* __restrict__ dk_part,
                     float* __restrict__ db_part, int H, int W, int C4,
@@ -154,9 +168,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   using Cf = Cfg<T>;
   constexpr int KC = Cf::KC, PE = Cf::PE, KSTEP = Cf::KSTEP;
   extern __shared__ __align__(128) unsigned char smem[];
-  // per chunk position and input block: the pixel (n H + row) W + col the
-  // tap's window reads there (ring rows and columns resolved), -1 past the
-  // segment; one buffer per stage
+  // per chunk position and input block: the pixel (n H + row) W + col of x
+  // the tap's window reads there (ring rows and columns resolved), or -2 -
+  // (n 2 + ring row) W - col for a row of `rings`, -1 past the segment; one
+  // buffer per stage
   __shared__ int s_src[STAGES][KC][4];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -187,8 +202,9 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int xm = m0 + (tid % xpr) * PE, gn = n0 + (tid % gpr) * PE;
   // whole pieces by cp.async where a piece lies in one channel block and
   // rows are 16-byte aligned; element by element otherwise (C = 3)
-  const bool x_fast =
-      C % PE == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool x_fast = C % PE == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(rings) % 16 == 0;
   const bool g_fast =
       Co % PE == 0 && reinterpret_cast<uintptr_t>(gz) % 16 == 0;
   const int xblk = xm < Mg ? block_of(inb, xm / C) : 0;
@@ -197,6 +213,10 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   auto stage_x = [&](int st) {
     return reinterpret_cast<T*>(smem) + st * Cf::STAGE;
+  };
+  // the first element of the pixel s_src names
+  auto src_px = [&](int pix) {
+    return pix >= 0 ? x + (size_t)pix * C4 : rings + (size_t)(-2 - pix) * C4;
   };
 
   auto fill_src = [&](long pb, int buf) {
@@ -212,13 +232,19 @@ __global__ void __launch_bounds__(THREADS, 2)
         const int rem = pi - n * hw;
         const int r = rem / W;
         int rg = r + dr - 1, cg = rem - r * W + dc - 1;
-        // ring rows by the channel half (sub-row s / 2), ring columns by
-        // the block parity (sub-column s % 2), as ops/folded.py builds them
-        if (rg < 0) rg = (s >> 1) == 0 ? 1 : 0;
-        else if (rg == H) rg = (s >> 1) == 0 ? H - 1 : H - 2;
+        // ring rows by the channel half (sub-row s / 2), or the given
+        // rows; ring columns by the block parity (sub-column s % 2), as
+        // ops/folded.py builds them
+        const int ring = rg < 0 ? 0 : rg == H ? 1 : -1;
         if (cg < 0) cg = (s & 1) == 0 ? 1 : 0;
         else if (cg == W) cg = (s & 1) == 0 ? W - 1 : W - 2;
-        pix = (n * H + rg) * W + cg;
+        if (ring >= 0 && rings != nullptr) {
+          pix = -2 - ((n * 2 + ring) * W + cg);
+        } else {
+          if (rg < 0) rg = (s >> 1) == 0 ? 1 : 0;
+          else if (rg == H) rg = (s >> 1) == 0 ? H - 1 : H - 2;
+          pix = (n * H + rg) * W + cg;
+        }
       }
       s_src[buf][k][s] = pix;
     }
@@ -231,8 +257,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       T* dst = xs + k * XS + (xm - m0);
       if (x_fast) {
         const int pix = xm < Mg ? s_src[st][k][xblk] : -1;
-        hmma::cp_async16(dst, pix >= 0 ? x + (size_t)pix * C4 + xch : x,
-                         pix >= 0 ? 16 : 0);
+        hmma::cp_async16(dst, pix != -1 ? src_px(pix) + xch : x,
+                         pix != -1 ? 16 : 0);
       } else {
 #pragma unroll
         for (int q = 0; q < PE; ++q) {
@@ -240,7 +266,7 @@ __global__ void __launch_bounds__(THREADS, 2)
           T v = zero;
           if (m < Mg) {
             const int pix = s_src[st][k][block_of(inb, m / C)];
-            if (pix >= 0) v = x[(size_t)pix * C4 + gathered_channel(inb, C, m)];
+            if (pix != -1) v = src_px(pix)[gathered_channel(inb, C, m)];
           }
           dst[q] = v;
         }
@@ -468,15 +494,16 @@ __global__ void grad_weight_reduce(const float* __restrict__ dk_part,
 }  // namespace b3
 
 template <typename T>
-int launch_grad_weight(const void* x, const void* gz, const void* items,
-                       void* dk, void* db, void* dk_part, void* db_part,
-                       int n_items, int N, int H, int W, int C4, int C4o,
-                       int seg_len, void* stream) {
+int launch_grad_weight(const void* x, const void* rings, const void* gz,
+                       const void* items, void* dk, void* db, void* dk_part,
+                       void* db_part, int n_items, int N, int H, int W,
+                       int C4, int C4o, int seg_len, void* stream) {
   using Cf = b3::Cfg<T>;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long P = (long)N * H * W;
   if (!folded::shape_ok(N, H, W, C4, C4o) || P >= (1L << 31) ||
-      n_items < 1 || n_items > 65535 || seg_len < 1 || seg_len % Cf::KC)
+      n_items < 1 || n_items > 65535 || seg_len < 1 || seg_len % Cf::KC ||
+      2L * N * W >= (1L << 30))  // the ring rows' codes in s_src
     return static_cast<int>(cudaErrorInvalidValue);
   const long S = (P + seg_len - 1) / seg_len;
   if (S > 65535 || (S > 1 && (dk_part == nullptr || db_part == nullptr)))
@@ -487,8 +514,9 @@ int launch_grad_weight(const void* x, const void* gz, const void* items,
                              Cf::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(n_items, (unsigned)S), b3::THREADS, Cf::SMEM, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gz),
-      static_cast<const int*>(items), static_cast<float*>(dk),
+      static_cast<const T*>(x), static_cast<const T*>(rings),
+      static_cast<const T*>(gz), static_cast<const int*>(items),
+      static_cast<float*>(dk),
       static_cast<float*>(db), static_cast<float*>(dk_part),
       static_cast<float*>(db_part), H, W, C4, C4o, P, seg_len);
   err = cudaGetLastError();
@@ -512,14 +540,15 @@ int launch_grad_weight(const void* x, const void* gz, const void* items,
 // T; wp scratch of 9 * ceil(C4o / KE) * C4 * KE T (KE = 8 float or 16 bf16)
 // and bits scratch of 9 uint32, filled by the launch with khat packed
 // K-major and its non-zero block table. cudaErrorInvalidValue for a shape
-// it refuses (H, W >= 2, channels multiples of 4).
+// it refuses (H, W >= 2, channels multiples of 4). `_halo_` leaves out the
+// ring rows' adjoint (row_rings=False).
 extern "C" int rpst_folded_conv_grad_input_f32(const void* gz,
                                                const void* khat, void* wp,
                                                void* bits, void* dx, int N,
                                                int H, int W, int C4o, int C4,
                                                void* stream) {
   return launch_grad_input<float>(gz, khat, wp, bits, dx, N, H, W, C4o, C4,
-                                  stream);
+                                  true, stream);
 }
 
 extern "C" int rpst_folded_conv_grad_input_bf16(const void* gz,
@@ -528,7 +557,21 @@ extern "C" int rpst_folded_conv_grad_input_bf16(const void* gz,
                                                 int H, int W, int C4o,
                                                 int C4, void* stream) {
   return launch_grad_input<__nv_bfloat16>(gz, khat, wp, bits, dx, N, H, W,
-                                          C4o, C4, stream);
+                                          C4o, C4, true, stream);
+}
+
+extern "C" int rpst_folded_conv_grad_input_halo_f32(
+    const void* gz, const void* khat, void* wp, void* bits, void* dx, int N,
+    int H, int W, int C4o, int C4, void* stream) {
+  return launch_grad_input<float>(gz, khat, wp, bits, dx, N, H, W, C4o, C4,
+                                  false, stream);
+}
+
+extern "C" int rpst_folded_conv_grad_input_halo_bf16(
+    const void* gz, const void* khat, void* wp, void* bits, void* dx, int N,
+    int H, int W, int C4o, int C4, void* stream) {
+  return launch_grad_input<__nv_bfloat16>(gz, khat, wp, bits, dx, N, H, W,
+                                          C4o, C4, false, stream);
 }
 
 // B3: x (N, H, W, C4) and gz (N, H, W, C4o) of T; items (n_items, 8)
@@ -538,21 +581,41 @@ extern "C" int rpst_folded_conv_grad_input_bf16(const void* gz,
 // (seg_len a multiple of the chunk: 64 float32, 128 bf16); for S > 1,
 // dk_part (S, n_items * 8192) and db_part (S, C4o) are float scratch
 // (unused, may be null, for S == 1). dk's blocks that no item lists are
-// left as they are: the caller zeros them for the listed mode.
+// left as they are: the caller zeros them for the listed mode. `_rings_`
+// takes the two virtual rows, rings (N, 2, W, C4) of T, in place of x's
+// reflect ring.
 extern "C" int rpst_folded_conv_grad_weight_f32(
     const void* x, const void* gz, const void* items, void* dk, void* db,
     void* dk_part, void* db_part, int n_items, int N, int H, int W, int C4,
     int C4o, int seg_len, void* stream) {
-  return launch_grad_weight<float>(x, gz, items, dk, db, dk_part, db_part,
-                                   n_items, N, H, W, C4, C4o, seg_len,
-                                   stream);
+  return launch_grad_weight<float>(x, nullptr, gz, items, dk, db, dk_part,
+                                   db_part, n_items, N, H, W, C4, C4o,
+                                   seg_len, stream);
 }
 
 extern "C" int rpst_folded_conv_grad_weight_bf16(
     const void* x, const void* gz, const void* items, void* dk, void* db,
     void* dk_part, void* db_part, int n_items, int N, int H, int W, int C4,
     int C4o, int seg_len, void* stream) {
-  return launch_grad_weight<__nv_bfloat16>(x, gz, items, dk, db, dk_part,
-                                           db_part, n_items, N, H, W, C4,
-                                           C4o, seg_len, stream);
+  return launch_grad_weight<__nv_bfloat16>(x, nullptr, gz, items, dk, db,
+                                           dk_part, db_part, n_items, N, H,
+                                           W, C4, C4o, seg_len, stream);
+}
+
+extern "C" int rpst_folded_conv_grad_weight_rings_f32(
+    const void* x, const void* rings, const void* gz, const void* items,
+    void* dk, void* db, void* dk_part, void* db_part, int n_items, int N,
+    int H, int W, int C4, int C4o, int seg_len, void* stream) {
+  return launch_grad_weight<float>(x, rings, gz, items, dk, db, dk_part,
+                                   db_part, n_items, N, H, W, C4, C4o,
+                                   seg_len, stream);
+}
+
+extern "C" int rpst_folded_conv_grad_weight_rings_bf16(
+    const void* x, const void* rings, const void* gz, const void* items,
+    void* dk, void* db, void* dk_part, void* db_part, int n_items, int N,
+    int H, int W, int C4, int C4o, int seg_len, void* stream) {
+  return launch_grad_weight<__nv_bfloat16>(x, rings, gz, items, dk, db,
+                                           dk_part, db_part, n_items, N, H,
+                                           W, C4, C4o, seg_len, stream);
 }

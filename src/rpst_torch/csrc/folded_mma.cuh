@@ -7,7 +7,8 @@
 //   B1: y  = lrelu_alpha(conv3x3(reflect_ring(x)) + b), the ring rows from
 //        `rings` or by the reflect rule from x, the ring columns by the
 //        channel-block rule;
-//   B2: dx = conv3x3(zero_pad(gz), khat) + the adjoint of the reflect ring;
+//   B2: dx = conv3x3(zero_pad(gz), khat) + the adjoint of the reflect ring
+//        (its ring rows left out for a row shard: `row_rings`);
 //   B4: the same conv on int8 x and weights, summed in int32, with the
 //        int8 epilogue of q8_common.cuh (the section "int8" below);
 //   B7: two B4 layers in one block, layer 2 reading layer 1 from shared
@@ -143,6 +144,10 @@ struct Args {
   T* y;                        // (N, H, W, C4out)
   int H, W, C4in, C4out, ksteps, tiles_w;
   float alpha;
+  // B2: 1 adds the adjoint of the reflect ring ROWS (one device), 0 leaves
+  // it out (a row shard, whose virtual rows came from its neighbours:
+  // their gradient is the caller's); the ring columns' adjoint is always in
+  int row_rings;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -578,7 +583,8 @@ __global__ void __launch_bounds__(THREADS, MINB)
   // ---- B2's ring blocks: 0 the ring row above, 1 below, 2 the ring column
   // left, 3 right; warp row wm owns ring wm where the tile needs it
   const int ring = BWD && wm < 4 ? wm : -1;
-  const bool need[4] = {r0 == 0, r0 + TH - 1 >= H - 2, c0 == 0,
+  const bool need[4] = {a.row_rings && r0 == 0,
+                        a.row_rings && r0 + TH - 1 >= H - 2, c0 == 0,
                         c0 + TW - 1 >= W - 2};
   const bool ring_on = (ring == 0 && need[0]) || (ring == 1 && need[1]) ||
                        (ring == 2 && need[2]) || (ring == 3 && need[3]);

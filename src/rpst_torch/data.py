@@ -269,16 +269,29 @@ def collate(items):
     return np.stack(items)
 
 
-def InfiniteSampler(n: int, seed=None):
+def InfiniteSampler(n: int, seed=None, shard_index: int = 0,
+                    shard_count: int = 1):
     """Endless stream of indices, a fresh permutation each epoch, the same
     stream as rpst's ``InfiniteSampler`` for the same seed. The reference
     starts at ``i = n - 1`` of the first permutation, so the first epoch
-    yields one element before reshuffling: kept."""
+    yields one element before reshuffling: kept.
+
+    ``shard_index`` / ``shard_count`` (rpst ``sampler.py:8-27``): the
+    stream positions congruent to ``shard_index`` modulo ``shard_count``
+    of the same stream (the seed must match across ranks), so the ranks of
+    a data-parallel run in lockstep draw the one-process stream between
+    them, each a disjoint share."""
+    if not 0 <= shard_index < shard_count:
+        raise ValueError(f"shard_index {shard_index} outside [0, "
+                         f"{shard_count})")
     rng = np.random.default_rng(seed)
     i = n - 1
+    pos = 0  # the position in the whole stream
     order = rng.permutation(n)
     while True:
-        yield int(order[i])
+        if pos % shard_count == shard_index:
+            yield int(order[i])
+        pos += 1
         i += 1
         if i >= n:
             order = rng.permutation(n)
@@ -297,16 +310,20 @@ class InfiniteLoader:
     ``with_indices`` it yields (dataset indices, batch), the keys of the
     target cache (``train.target_cache``), as rpst's loader does. A dataset
     of (content, label) pairs (``CityscapesDataset``) yields a tuple of two
-    stacked batches."""
+    stacked batches. ``shard_index`` / ``shard_count`` pass to the sampler
+    (a data-parallel rank's share of the stream, ``batch_size`` its share of
+    the batch)."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
                  seed=None, prefetch: int = 4, skip: int = 0,
-                 with_indices: bool = False):
+                 with_indices: bool = False, shard_index: int = 0,
+                 shard_count: int = 1):
         self.dataset = dataset
         self.with_indices = with_indices
         self.batch_size = batch_size
         self.prefetch = max(1, prefetch)
-        self._sampler = InfiniteSampler(len(dataset), seed)
+        self._sampler = InfiniteSampler(len(dataset), seed, shard_index,
+                                        shard_count)
         for _ in range(skip * batch_size):
             next(self._sampler)
         self._cond = threading.Condition()

@@ -41,6 +41,8 @@ _GRAD_INPUT_ARGS = [_PTR] * 5 + [_INT] * 5 + [_PTR]
 # x, gz, items (B3's work list), dk, db, dk_part, db_part (device
 # pointers), n_items, N, H, W, C4, C4o, seg_len, stream
 _GRAD_WEIGHT_ARGS = [_PTR] * 7 + [_INT] * 7 + [_PTR]
+# B3's rings mode: x, rings, then as above
+_GRAD_WEIGHT_RINGS_ARGS = [_PTR] * 8 + [_INT] * 7 + [_PTR]
 # x, w, wp and bits scratch (w packed K-major and its block table, filled
 # by the launch), scales, y, s1, s2, part (device pointers), N, H, W, C4,
 # C4o, out_int8, with_stats, stream
@@ -76,6 +78,14 @@ SIGNATURES = {
         "rpst_folded_conv_grad_input_bf16": (_GRAD_INPUT_ARGS, _INT),
         "rpst_folded_conv_grad_weight_f32": (_GRAD_WEIGHT_ARGS, _INT),
         "rpst_folded_conv_grad_weight_bf16": (_GRAD_WEIGHT_ARGS, _INT),
+        # the halo modes of a row shard: B2 without the ring rows' adjoint,
+        # B3 with given ring rows
+        "rpst_folded_conv_grad_input_halo_f32": (_GRAD_INPUT_ARGS, _INT),
+        "rpst_folded_conv_grad_input_halo_bf16": (_GRAD_INPUT_ARGS, _INT),
+        "rpst_folded_conv_grad_weight_rings_f32": (_GRAD_WEIGHT_RINGS_ARGS,
+                                                   _INT),
+        "rpst_folded_conv_grad_weight_rings_bf16": (_GRAD_WEIGHT_RINGS_ARGS,
+                                                    _INT),
     },
     "folded_conv_q8": {
         "rpst_folded_conv_q8": (_FOLDED_CONV_Q8_ARGS, _INT),

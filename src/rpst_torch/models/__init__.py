@@ -461,12 +461,16 @@ class ModelBundle:
 
     def stylize_folded(self, blocks, extras, content, style, dtype,
                        conv=None, train: bool = False,
-                       batch_encode: bool = False) -> torch.Tensor:
+                       batch_encode: bool = False,
+                       ops: Optional[Dict[str, Any]] = None) -> torch.Tensor:
         """The network's folded forward on ``blocks`` (``folded_blocks`` or
         ``live_folded_blocks``) and ``extras`` (``folded_extras``); ``conv``
         the RP layer function (B1 by default), ``train`` sel_multi_adain's
-        batch-statistic BatchNorms."""
+        batch-statistic BatchNorms; ``ops`` the family function's other
+        swappable pieces (``adain``, ``bottleneck``, ``ccam``: a row
+        shard's, ``fast_path_spatial.spatial_ops``)."""
         kw = {} if conv is None else {"conv": conv}
+        kw.update(ops or {})
         c = self.cfg
         if self.network == "sel_multi_adain":
             return stylize_sel_multi_adain_folded(

@@ -24,6 +24,12 @@ The three variants on the same stack (rpst ``fast_path.py:139-392``):
     features unfolded to raster order for it (its k-means and chain
     labeling are order-sensitive) and refolded.
 
+The row-sharded forms of the three (``models.fast_path_spatial``) run these
+same bodies on a row share of the images, with the layer function
+(``conv``), the AdaIN (``adain``), the SE bottleneck's 3x3 conv and pool and
+the CCAM energy's sum swapped for their halo-exchanging or all-reducing
+forms.
+
 Every RP conv layer goes through ``_conv_lrelu``, the one dispatch point: on a
 CUDA tensor it launches the hand-written B1 kernel at every layer, the
 12->128 and 128->12 image layers included, and under grad mode B1's
@@ -34,7 +40,7 @@ carry over.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,7 +110,9 @@ def _encode_folded(blocks, content, style, dtype, conv: Callable = _conv_lrelu):
 def stylize_multi_adain_folded(blocks: Tuple[Blocks, Blocks], content,
                                style, dtype=torch.bfloat16,
                                batch_encode: bool = False,
-                               conv: Callable = _conv_lrelu) -> torch.Tensor:
+                               conv: Callable = _conv_lrelu,
+                               adain: Callable = folded_adain
+                               ) -> torch.Tensor:
     """Folded-domain MultiScaleAdaINRP forward: encode both images keeping
     all intermediates, AdaIN at the deepest scale, then per-scale residual
     re-fusion through the decoder. content, style (N, H, W, 3) NHWC with
@@ -113,7 +121,8 @@ def stylize_multi_adain_folded(blocks: Tuple[Blocks, Blocks], content,
     ``batch_encode`` runs content and style as one 2N encoder pass (exact:
     the encoder is shared), 5 + 5 layers instead of 5 + 5 + 5 at rp_blocks 5.
     ``conv`` is the layer function; a benchmark passes B1's plain version
-    to time it on the card. With ``live_folded_blocks`` the result is
+    to time it on the card; ``adain`` the fusion (a row shard's all-reduces
+    its statistics). With ``live_folded_blocks`` the result is
     differentiable with respect to the model's parameters."""
     enc, dec = blocks
     if batch_encode:
@@ -126,11 +135,11 @@ def stylize_multi_adain_folded(blocks: Tuple[Blocks, Blocks], content,
                                           conv)
 
     k, b = dec[0]
-    stylized = conv(folded_adain(c_feats[-1], s_feats[-1]), k, b)
+    stylized = conv(adain(c_feats[-1], s_feats[-1]), k, b)
     pairs = list(zip(c_feats[:-1], s_feats[:-1]))[::-1]
     for i, (cf, sf) in enumerate(pairs):
         k, b = dec[i + 1]
-        stylized = conv(stylized + folded_adain(cf, sf), k, b)
+        stylized = conv(stylized + adain(cf, sf), k, b)
     return unfold(stylized).to(content.dtype)
 
 
@@ -189,11 +198,15 @@ def _folded_bn_train(x_f, affine, bn, eps: float = BN_EPS):
                                  shift.to(x_f.dtype))
 
 
-def _folded_se_bottleneck(x_f, se, dtype, train: bool = False):
+def _folded_se_bottleneck(x_f, se, dtype, train: bool = False,
+                          conv3x3: Callable = folded_zero_conv,
+                          pool: Callable = folded_channel_pool):
     """SEBottleneck (rpst ``nn/attention.py:53-82``) in the folded domain:
     the 1x1 and zero-pad 3x3 convs fold exactly, the BatchNorms apply as
     tiled channel affines (running statistics, or the batch's in train
-    mode), and the SE pool is the exact mean over (Hf, Wf, sub-position)."""
+    mode), and the SE pool is the exact mean over (Hf, Wf, sub-position).
+    ``conv3x3`` and ``pool``: the zero-pad 3x3 conv and the pool (a row
+    shard's exchange halo rows and all-reduce the sums)."""
     def bn(x, i):
         if train:
             return _folded_bn_train(x, se["affine"][i], se["bn"][i])
@@ -201,9 +214,9 @@ def _folded_se_bottleneck(x_f, se, dtype, train: bool = False):
         return folded_channel_affine(x, s.to(dtype), b.to(dtype))
 
     out = F.relu(bn(folded_zero_conv(x_f, se["k1"]), 0))
-    out = F.relu(bn(folded_zero_conv(out, se["k2"]), 1))
+    out = F.relu(bn(conv3x3(out, se["k2"]), 1))
     out = bn(folded_zero_conv(out, se["k3"]), 2)
-    y = folded_channel_pool(out).float()
+    y = pool(out).float()
     y = F.relu(F.linear(y, se["dense"][0]))
     y = torch.sigmoid(F.linear(y, se["dense"][1]))
     out = folded_channel_affine(out, y.to(out.dtype))
@@ -213,7 +226,10 @@ def _folded_se_bottleneck(x_f, se, dtype, train: bool = False):
 def stylize_sel_multi_adain_folded(blocks, se, content, style,
                                    dtype=torch.bfloat16,
                                    conv: Callable = _conv_lrelu,
-                                   train: bool = False) -> torch.Tensor:
+                                   train: bool = False,
+                                   adain: Callable = folded_adain,
+                                   bottleneck: Callable = _folded_se_bottleneck
+                                   ) -> torch.Tensor:
     """Folded SELastRP (reference ``adain_rp.py:451-481``): the running
     AdaIN re-fusion, the SE bottleneck (``se_weights``) on the final
     fusion, no residual add. ``train`` is rpst's
@@ -223,12 +239,12 @@ def stylize_sel_multi_adain_folded(blocks, se, content, style,
     c_feats, s_feats = _encode_folded(blocks, content, style, dtype, conv)
     dec = blocks[1]
     k, b = dec[0]
-    stylized = conv(folded_adain(c_feats[-1], s_feats[-1]), k, b)
+    stylized = conv(adain(c_feats[-1], s_feats[-1]), k, b)
     pairs = s_feats[:-1][::-1]
     for i, sf in enumerate(pairs):
-        stylized = folded_adain(stylized, sf)
+        stylized = adain(stylized, sf)
         if i == len(pairs) - 1:
-            stylized = _folded_se_bottleneck(stylized, se, dtype, train)
+            stylized = bottleneck(stylized, se, dtype, train)
         k, b = dec[i + 1]
         stylized = conv(stylized, k, b)
     return unfold(stylized).to(content.dtype)
@@ -262,24 +278,30 @@ def _ccam_attention(energy: torch.Tensor, scale: float = 1.0
     return torch.softmax(e.amax(dim=-1, keepdim=True) - e, dim=-1)
 
 
-def _folded_ccam(x_f, y_f, scale):
+def _folded_ccam(x_f, y_f, scale, reduce: Optional[Callable] = None):
     """CCAMDec (reference ``adain_rp.py:167-189``) on folded tensors: the
     energy from one full-width (4C, 4C) product in float32 (its diagonal
     blocks summed), the recombination through kron(I4, attention) in the
-    features' type. Inputs detached: only ``scale`` gets a gradient."""
+    features' type. Inputs detached: only ``scale`` gets a gradient.
+    ``reduce``: applied to the energy, a sum over positions (a row shard
+    all-reduces it)."""
     x_f, y_f = x_f.detach(), y_f.detach()
     n, hh, ww, c4 = x_f.shape
     xr = x_f.reshape(n, hh * ww, c4)
     yr = y_f.reshape(n, hh * ww, c4)
-    att4 = _block_eye4(_ccam_attention(
-        torch.einsum("npa,npb->nab", xr.float(), yr.float())))
+    energy = torch.einsum("npa,npb->nab", xr.float(), yr.float())
+    if reduce is not None:
+        energy = reduce(energy)
+    att4 = _block_eye4(_ccam_attention(energy))
     out = torch.einsum("npk,nck->npc", yr, att4.to(yr.dtype))
     return x_f + scale * out.reshape(n, hh, ww, c4)
 
 
 def stylize_ccam_folded(blocks, scales, content, style,
                         stylized_layers: int = 5, dtype=torch.bfloat16,
-                        conv: Callable = _conv_lrelu) -> torch.Tensor:
+                        conv: Callable = _conv_lrelu,
+                        adain: Callable = folded_adain,
+                        ccam: Callable = _folded_ccam) -> torch.Tensor:
     """Folded CCAMRP (reference ``adain_rp.py:348-422``): AdaIN fusion plus
     the CCAM residual before each decoder block, ``stylized_layers``
     scales. ``scales`` are the ``ccam_{i}.scale`` parameters (live in
@@ -290,16 +312,16 @@ def stylize_ccam_folded(blocks, scales, content, style,
     def scale(i):
         return scales[i].to(dtype)
 
-    stylized = folded_adain(c_feats[-1], s_feats[-1])
-    att_res = _folded_ccam(c_feats[-1], s_feats[-1], scale(0))
+    stylized = adain(c_feats[-1], s_feats[-1])
+    att_res = ccam(c_feats[-1], s_feats[-1], scale(0))
     k, b = dec[0]
     stylized = conv(stylized + att_res, k, b)
     for i, sf in enumerate(s_feats[:-1][::-1]):
         k, b = dec[i + 1]
         if i + 1 < stylized_layers:
-            stylized = folded_adain(stylized, sf)
-            stylized = conv(stylized + _folded_ccam(stylized, sf,
-                                                    scale(i + 1)), k, b)
+            stylized = adain(stylized, sf)
+            stylized = conv(stylized + ccam(stylized, sf, scale(i + 1)), k,
+                            b)
         else:
             stylized = conv(stylized, k, b)
     return unfold(stylized).to(content.dtype)

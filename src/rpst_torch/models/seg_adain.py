@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.collectives import all_reduce, batch_axes
 from ..nn.blocks import RPStack, rp_constant_dims
 from .adain_rp import AdaINRP
 from .base import perceptual_rp_losses
@@ -67,7 +68,11 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
     w_map = (weight.to(logits.device)[safe] if weight is not None
              else torch.ones_like(picked))
     w_map = torch.where(valid, w_map, torch.zeros_like(w_map))
-    return -(picked * w_map).sum() / torch.clamp(w_map.sum(), min=1.0)
+    num, den = -(picked * w_map).sum(), w_map.sum()
+    axes = batch_axes()
+    if axes:  # a data-parallel step: the global batch's sums
+        num, den = all_reduce(torch.stack([num, den]), axes)
+    return num / torch.clamp(den, min=1.0)
 
 
 class SegRPNet(nn.Module):

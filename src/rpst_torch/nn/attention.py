@@ -26,9 +26,12 @@ import contextlib
 import threading
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..dist.collectives import all_reduce, batch_axes
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -57,8 +60,20 @@ def bn_batch_stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """Batch mean and biased variance over ``dims`` in float32 at least
     (float64 features stay float64, as flax promotes them), in flax's fast
-    form: E[x^2] - E[x]^2, clamped at 0."""
+    form: E[x^2] - E[x]^2, clamped at 0. Inside ``dist.over_batch`` (a
+    multi-device step) the sums span every rank's share too: the global
+    batch's statistics, as rpst's GSPMD step takes them."""
     v = x.to(torch.promote_types(x.dtype, torch.float32))
+    axes = batch_axes()
+    if axes:
+        dims = (dims,) if isinstance(dims, int) else tuple(dims)
+        count = float(np.prod([v.shape[d] for d in dims]))
+        for ax in axes:
+            count *= ax.size
+        sums = all_reduce(torch.stack([v.sum(dim=dims),
+                                       (v * v).sum(dim=dims)]), axes)
+        mean = sums[0] / count
+        return mean, torch.clamp(sums[1] / count - mean * mean, min=0.0)
     mean = v.mean(dim=dims)
     var = torch.clamp((v * v).mean(dim=dims) - mean * mean, min=0.0)
     return mean, var

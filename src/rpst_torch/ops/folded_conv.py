@@ -8,7 +8,13 @@ Ports of ``rpst.ops.pallas.folded_conv``:
   * B3 ``fused_folded_conv_grad_weight``: dk and db, the folded correlation
     (same source);
   * ``FoldedConvAct``, the counterpart of rpst's custom VJP
-    ``folded_conv_act``: forward B1, backward B2 + B3.
+    ``folded_conv_act``: forward B1, backward B2 + B3;
+  * the halo modes of a row shard (rpst ``folded_conv_act_halo`` :604, the
+    trainable core of row-sharded training): B2 with ``row_rings=False``
+    (the ring rows' adjoint left out), B3 with the given ``rings``,
+    ``fused_folded_conv_ring_grads`` (the gradient of the two given rows,
+    plain PyTorch as rpst leaves it to XLA) and ``FoldedConvActHalo``, its
+    custom VJP over (x, k, b, above, below).
 
 Each wrapper takes a CUDA tensor to its hand-written kernel or raises; a
 CPU tensor takes its ``*_plain`` version, the same function in plain
@@ -51,9 +57,14 @@ _launch_lock = threading.Lock()
 _B3_TARGET_BLOCKS = 4 * 132
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, mode: str = "") -> None:
+    """One launch of ``wrapper`` (and of its ``mode``, counted again as
+    ``launches_<mode>``)."""
     with _launch_lock:
         wrapper.launches += 1
+        if mode:
+            name = f"launches_{mode}"
+            setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def _check_common(name, tensors, dtype, device):
@@ -167,16 +178,19 @@ def fused_folded_conv(x_f, folded_kernel, folded_bias, alpha=0.2,
     are the reflect ring. Both devices check the same contract.
 
     Under grad mode with an input that requires grad, the call goes through
-    ``FoldedConvAct`` (backward B2 + B3), so no gradient is dropped; the
-    ``rings`` override has no backward in this slice and raises there."""
+    ``FoldedConvAct`` (backward B2 + B3), so no gradient is dropped; a
+    ``rings`` override has no backward here, as rpst's ``fused_folded_conv``
+    has none, and raises there: the differentiable form is
+    ``folded_conv_act_halo``."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x_f, folded_kernel, folded_bias, rings)):
         if rings is not None:
             raise NotImplementedError(
-                "fused_folded_conv: the gradient of a rings override (the "
-                "halo path folded_conv_act_halo) is ROADMAP.md section A "
-                "slice 8")
+                "fused_folded_conv: a rings override has no gradient here "
+                "(nor in rpst's fused_folded_conv); differentiate through "
+                "folded_conv_act_halo (ops.folded_conv.FoldedConvActHalo), "
+                "which takes the two rows as inputs")
         return FoldedConvAct.apply(x_f, folded_kernel, folded_bias, alpha)
     _check_x("fused_folded_conv", x_f)
     if rings is not None:  # else the kernel reads the reflect ring of x
@@ -208,12 +222,14 @@ def _block_masks(c4, device):
     return blk % 2 == 0, blk < 2
 
 
-def fused_folded_conv_grad_input_plain(gz, khat):
+def fused_folded_conv_grad_input_plain(gz, khat, row_rings=True):
     """B2 in plain PyTorch: the gradient on the ring-padded grid is the FULL
     conv of gz with khat; its interior is the SAME-zero conv, and the ring
     values go back where ``folded_reflect_pad`` read them from: the ring
     columns (on every padded row) by the sub-column rule, then the ring
-    rows by the sub-row rule. Accumulates in float32; returns gz's type."""
+    rows by the sub-row rule, unless ``row_rings`` is False (a row shard:
+    its ring rows came from elsewhere). Accumulates in float32; returns
+    gz's type."""
     h, w = gz.shape[1], gz.shape[2]
     g = conv_nhwc(F.pad(_acc(gz), (0, 0, 2, 2, 2, 2)), _acc(khat))
     sj0, si0 = _block_masks(g.shape[-1], g.device)
@@ -227,6 +243,8 @@ def fused_folded_conv_grad_input_plain(gz, khat):
     # ring rows -> interior rows
     top, bottom = g[:, 0], g[:, h + 1]
     g = g[:, 1:h + 1].clone()
+    if not row_rings:
+        return g.to(gz.dtype)
     g[:, 1] += torch.where(si0, top, 0.0)
     g[:, 0] += torch.where(si0, 0.0, top)
     g[:, h - 1] += torch.where(si0, bottom, 0.0)
@@ -234,13 +252,16 @@ def fused_folded_conv_grad_input_plain(gz, khat):
     return g.to(gz.dtype)
 
 
-def fused_folded_conv_grad_input(gz, khat):
+def fused_folded_conv_grad_input(gz, khat, row_rings=True):
     """dL/dx_f of the fused folded conv given gz = dL/d(pre-activation).
 
     gz (N, H, W, 4Co), khat (3, 3, 4Co, 4C) = ``kf.flip(0, 1).transpose(2,
     3)``, both of one type (float32/bfloat16), contiguous, on one device.
     Returns dx (N, H, W, 4C) of gz's type, the reflect-ring adjoint (rows
-    and columns) included."""
+    and columns) included; ``row_rings=False`` (rpst's halo mode, a row
+    shard) leaves out the ring rows' part, whose gradient
+    ``fused_folded_conv_ring_grads`` gives. ``.launches_halo`` counts the
+    launches of that mode."""
     _check_x("fused_folded_conv_grad_input", gz)
     if khat.ndim != 4 or tuple(khat.shape[:3]) != (3, 3, gz.shape[3]) \
             or khat.shape[3] % 4:
@@ -249,17 +270,48 @@ def fused_folded_conv_grad_input(gz, khat):
     _check_common("fused_folded_conv_grad_input",
                   (("gz", gz), ("khat", khat)), gz.dtype, gz.device)
     if gz.device.type == "cpu":
-        return fused_folded_conv_grad_input_plain(gz, khat)
+        return fused_folded_conv_grad_input_plain(gz, khat, row_rings)
     n, h, w, c4o = gz.shape
     c4 = khat.shape[3]
     dx = torch.empty((n, h, w, c4), dtype=gz.dtype, device=gz.device)
-    _launch(f"rpst_folded_conv_grad_input_{_ENTRY[gz.dtype]}", "B2", gz,
-            khat, *_scratch(khat), dx, n, h, w, c4o, c4)
-    _count(fused_folded_conv_grad_input)
+    mode = "" if row_rings else "halo"
+    _launch(f"rpst_folded_conv_grad_input_{mode + '_' if mode else ''}"
+            f"{_ENTRY[gz.dtype]}", "B2", gz, khat, *_scratch(khat), dx, n, h,
+            w, c4o, c4)
+    _count(fused_folded_conv_grad_input, mode)
     return dx
 
 
 fused_folded_conv_grad_input.launches = 0
+fused_folded_conv_grad_input.launches_halo = 0
+
+
+def fused_folded_conv_ring_grads(gz, khat):
+    """The gradients of the two virtual rows of a ``rings`` override
+    (rpst ``fused_folded_conv_ring_grads`` :562, XLA there, so plain
+    PyTorch here on every device): (d_above, d_below), each (N, 1, W, 4C)
+    float32 (float64 for float64 input). The row above reaches output row
+    0 through khat[2] (after the rotation), the row below output row H-1
+    through khat[0], each with its own ring columns' corner terms scattered
+    by the sub-column rule, as B2's ring rows. 2 rows x 3 products an
+    image."""
+    n, h, w, c4o = gz.shape
+    sj0, _ = _block_masks(khat.shape[-1], gz.device)
+
+    def ring_grad(g, kr):
+        """g (N, W, 4Co), kr (3, 4Co, 4C) -> (N, 1, W, 4C)."""
+        zero = torch.zeros_like(g[:, :1])
+        mid = (torch.cat([zero, g[:, :w - 1]], dim=1) @ kr[0] + g @ kr[1]
+               + torch.cat([g[:, 1:], zero], dim=1) @ kr[2])
+        corner0, corner_w = g[:, 0] @ kr[2], g[:, w - 1] @ kr[0]
+        mid[:, 1] += torch.where(sj0, corner0, 0.0)
+        mid[:, 0] += torch.where(sj0, 0.0, corner0)
+        mid[:, w - 1] += torch.where(sj0, corner_w, 0.0)
+        mid[:, w - 2] += torch.where(sj0, 0.0, corner_w)
+        return mid[:, None]
+
+    g, k = _acc(gz), _acc(khat)
+    return ring_grad(g[:, 0], k[2]), ring_grad(g[:, h - 1], k[0])
 
 
 # ---------------------------------------------------------------- B3
@@ -272,13 +324,15 @@ def listed_blocks():
     return _fold_placement(torch.float32, torch.device("cpu")).any(dim=-1)
 
 
-def fused_folded_conv_grad_weight_plain(x_f, gz, listed=False):
+def fused_folded_conv_grad_weight_plain(x_f, gz, listed=False, rings=None):
     """B3 in plain PyTorch: dk[dr, dc] = window(dr, dc) of the ring-padded
     x_f, transposed, times gz, summed over every position; db = sum of gz.
     Both float32 (float64 for float64 input). ``listed``: dk is zero outside
-    the 36 blocks of ``listed_blocks``."""
+    the 36 blocks of ``listed_blocks``. ``rings`` (N, 2, W, 4C): the ring
+    rows the forward read, in place of x_f's reflect ring."""
     h, w = x_f.shape[1], x_f.shape[2]
-    xp = folded_reflect_pad(_acc(x_f))
+    xp = folded_reflect_pad(_acc(x_f),
+                            None if rings is None else _acc(rings))
     g = _acc(gz)
     dk = torch.stack([torch.stack([
         torch.einsum("nhwi,nhwo->io", xp[:, dr:dr + h, dc:dc + w], g)
@@ -370,10 +424,13 @@ def b3_segment(p, items, chunk):
     return _ceil_div(_ceil_div(p, s), chunk) * chunk
 
 
-def fused_folded_conv_grad_weight(x_f, gz, listed=False):
+def fused_folded_conv_grad_weight(x_f, gz, listed=False, rings=None):
     """(dL/dKf (3, 3, 4C, 4Co), dL/db (4Co,)), both float32, for the fused
     folded conv: x_f (N, H, W, 4C) and gz (N, H, W, 4Co) of one type,
-    contiguous, on one device; the kernel reads the reflect ring from x_f.
+    contiguous, on one device; the kernel reads the reflect ring from x_f,
+    or the ring rows from ``rings`` (N, 2, W, 4C) of x_f's type where given
+    (rpst's halo mode: the rows the forward's ``rings`` held; counted again
+    in ``.launches_rings``).
 
     ``listed`` is the caller's word that the folded kernel is
     ``fold_conv_kernel``'s output, so that only the 36 blocks of
@@ -385,10 +442,17 @@ def fused_folded_conv_grad_weight(x_f, gz, listed=False):
             or x_f.shape[3] % 4 or gz.shape[3] % 4:
         raise ValueError(f"x_f {tuple(x_f.shape)} and gz {tuple(gz.shape)} "
                          f"must share (N, H, W), channels multiples of 4")
-    _check_common("fused_folded_conv_grad_weight",
-                  (("x_f", x_f), ("gz", gz)), x_f.dtype, x_f.device)
+    tensors = (("x_f", x_f), ("gz", gz))
+    if rings is not None:
+        n, _, w, c4 = x_f.shape
+        if tuple(rings.shape) != (n, 2, w, c4):
+            raise ValueError(f"rings must be {(n, 2, w, c4)}, got "
+                             f"{tuple(rings.shape)}")
+        tensors += (("rings", rings),)
+    _check_common("fused_folded_conv_grad_weight", tensors, x_f.dtype,
+                  x_f.device)
     if x_f.device.type == "cpu":
-        return fused_folded_conv_grad_weight_plain(x_f, gz, listed)
+        return fused_folded_conv_grad_weight_plain(x_f, gz, listed, rings)
     n, h, w, c4 = x_f.shape
     c4o = gz.shape[3]
     listed = bool(listed)
@@ -403,13 +467,19 @@ def fused_folded_conv_grad_weight(x_f, gz, listed=False):
     part = (torch.empty((segments, n_items * B3_TILE), **f32),
             torch.empty((segments, c4o), **f32)) if segments > 1 \
         else (None, None)
-    _launch(f"rpst_folded_conv_grad_weight_{_ENTRY[x_f.dtype]}", "B3", x_f,
-            gz, items, dk, db, *part, n_items, n, h, w, c4, c4o, seg)
-    _count(fused_folded_conv_grad_weight)
+    if rings is None:
+        _launch(f"rpst_folded_conv_grad_weight_{_ENTRY[x_f.dtype]}", "B3",
+                x_f, gz, items, dk, db, *part, n_items, n, h, w, c4, c4o, seg)
+    else:
+        _launch(f"rpst_folded_conv_grad_weight_rings_{_ENTRY[x_f.dtype]}",
+                "B3", x_f, rings, gz, items, dk, db, *part, n_items, n, h, w,
+                c4, c4o, seg)
+    _count(fused_folded_conv_grad_weight, "" if rings is None else "rings")
     return dk, db
 
 
 fused_folded_conv_grad_weight.launches = 0
+fused_folded_conv_grad_weight.launches_rings = 0
 
 
 # ---------------------------------------------------------------- autograd
@@ -465,3 +535,55 @@ def folded_conv_lrelu(x_f, folded_kernel, folded_bias):
 
 def folded_conv_relu(x_f, folded_kernel, folded_bias):
     return folded_conv_act(x_f, folded_kernel, folded_bias, 0.0)
+
+
+class FoldedConvActHalo(torch.autograd.Function):
+    """The fused folded conv on a row shard, differentiable in its two
+    virtual rows too; the counterpart of rpst's custom VJP
+    ``folded_conv_act_halo`` (:604-647).
+
+    Inputs (x_f, k, b, above, below), ``above`` / ``below`` (N, 1, W, 4C)
+    the rows the shard's neighbours hold (or the reflect ring at the image's
+    edge), which the caller's halo exchange made and whose gradients its
+    backward routes back. Forward: B1 with ``rings = cat(above, below)``.
+    Backward: gz = where(y > 0, g, alpha g); dx by B2 with ``row_rings=
+    False``, (d_above, d_below) by ``fused_folded_conv_ring_grads``, (dk,
+    db) by B3 with the same rings (``listed`` as ``FoldedConvAct``'s), cast
+    as rpst casts them: dk, db to the kernel's type, the rows' gradients to
+    theirs."""
+
+    @staticmethod
+    def forward(ctx, x_f, folded_kernel, folded_bias, above, below, alpha,
+                listed=False):
+        rings = torch.cat([above, below], dim=1).to(x_f.dtype).contiguous()
+        y = fused_folded_conv(x_f, folded_kernel, folded_bias, alpha, rings)
+        ctx.save_for_backward(x_f, folded_kernel, y, rings)
+        ctx.alpha, ctx.listed = alpha, listed
+        ctx.row_dtypes = (above.dtype, below.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x_f, kf, y, rings = ctx.saved_tensors
+        need_x, need_k, need_b, need_a, need_be = ctx.needs_input_grad[:5]
+        gz = torch.where(y > 0, g, g * ctx.alpha).contiguous()
+        khat = kf.flip(0, 1).transpose(2, 3).contiguous()
+        dx = dk = db = d_above = d_below = None
+        if need_x:
+            dx = fused_folded_conv_grad_input(gz, khat, row_rings=False)
+        if need_a or need_be:
+            d_above, d_below = fused_folded_conv_ring_grads(gz, khat)
+            d_above = d_above.to(ctx.row_dtypes[0])
+            d_below = d_below.to(ctx.row_dtypes[1])
+        if need_k or need_b:
+            dk, db = fused_folded_conv_grad_weight(x_f, gz, ctx.listed, rings)
+            dk, db = dk.to(kf.dtype), db.to(kf.dtype)
+        return dx, dk, db, d_above, d_below, None, None
+
+
+def folded_conv_act_halo(x_f, folded_kernel, folded_bias, above, below,
+                         alpha=0.2, listed=False):
+    """``FoldedConvActHalo``; ``listed`` only where ``folded_kernel`` is
+    ``fold_conv_kernel``'s output (the live training fold)."""
+    return FoldedConvActHalo.apply(x_f, folded_kernel, folded_bias, above,
+                                   below, alpha, listed)

@@ -10,7 +10,12 @@ the line-JSON TCP daemon; port of ``rpst.serving`` on PyTorch.
     window, and the batch dispatches when full or when the window closes,
     padded to the batch size. Launches are asynchronous on CUDA; the
     flusher thread's ``.cpu()`` is the synchronisation point;
-  * ``serve_daemon`` is the TCP loop, same protocol as rpst's.
+  * ``serve_daemon`` is the TCP loop, same protocol as rpst's;
+  * ``parse_mesh`` / ``mesh_mode`` / ``make_mesh_run_impl`` serve over a
+    mesh of ranks (rpst ``serve.py:99-133``, ``:170-241``): ``--mesh N``
+    data parallel for every network, a ``spatial`` axis the row-sharded
+    folded stylize of multi_adain, sel_multi_adain and ccam
+    (``models.fast_path_spatial``).
 
 Protocol (one JSON object per line, localhost TCP):
 
@@ -90,6 +95,74 @@ def calibrate_scales(bundle, calib: torch.Tensor,
                        "with a single-image batch")
         torch.cuda.empty_cache()
         return bundle.calibrate_q8(calib[:1], calib_style[:1])
+
+
+def parse_mesh(spec: str) -> Dict[str, int]:
+    """``--mesh``: ``N`` (data parallel over N ranks) or ``axis=size``
+    pairs, ``data=2,spatial=2``; axes within {data, spatial} (a ``model``
+    axis is ROADMAP.md section A slice 8b)."""
+    from .dist import check_mesh_shape
+    spec = spec.strip()
+    if spec.isdigit():
+        return {"data": int(spec)}
+    return check_mesh_shape({k.strip(): int(v) for k, v in
+                             (kv.split("=", 1) for kv in spec.split(","))})
+
+
+def mesh_mode(bundle, mode: str, mesh_shape: Dict[str, int]) -> str:
+    """The mode served over ``mesh_shape``: q8 gives way to folded (rpst's
+    warning, ``serve.py:174-180``; B4's int8 path is one-device); a
+    ``spatial`` axis takes only the row-sharded folded stylize of
+    multi_adain, sel_multi_adain and ccam: mst refuses it (rpst
+    ``:189-192``: its k-means and chain labelling see whole images), and
+    every other network or mode names ROADMAP.md section A slice 8b."""
+    size = int(np.prod(list(mesh_shape.values())))
+    if size > 1 and mode == "q8":
+        logger.warning("--mesh with --mode q8 is unsupported (the int8 path "
+                       "runs on one device); using folded")
+        mode = "folded" if bundle.folded_infer() else "standard"
+    if mesh_shape.get("spatial", 1) > 1:
+        from .models.fast_path_spatial import SPATIAL_FAMILIES
+        if bundle.network == "mst":
+            raise ValueError("mst's k-means and chain labelling cannot shard "
+                             "rows; use a data-only mesh (--mesh N)")
+        if bundle.network not in SPATIAL_FAMILIES or mode != "folded":
+            raise NotImplementedError(
+                f"row-sharded serving of {bundle.network} ({mode}) is not "
+                "ported: the folded multi_adain, sel_multi_adain and ccam "
+                "take a spatial axis; the rest (sanet, dynamic_sanet, the "
+                "standard layout) is ROADMAP.md section A slice 8b")
+    return mode
+
+
+def make_mesh_run_impl(bundle, mode: str, mesh) -> Callable:
+    """``run_impl(content, style) -> stylized`` of this rank for a batch
+    share (the rank's images of a batch): the whole batch share's output,
+    float32, on every rank of its row group. Row-sharded (a spatial axis):
+    each rank stylizes its rows, then the rows are gathered."""
+    from .dist.collectives import all_gather
+    if mesh.spatial == 1:
+        return make_run_impl(bundle, mode)
+    from .dist import shard_rows
+    from .models.fast_path_spatial import check_height, stylize_spatial
+    check_height(bundle.cfg.img_size, mesh.spatial, False)
+    ax = mesh.axis("spatial")
+
+    def run(content, style):
+        y = stylize_spatial(bundle, shard_rows(content, mesh).contiguous(),
+                            shard_rows(style, mesh).contiguous(), mesh)
+        return torch.cat(all_gather(y, ax), dim=1)
+    return run
+
+
+def gather_batch(y: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole batch from each data rank's share (every share the same
+    size), in data-rank order, on every rank."""
+    from .dist.collectives import all_gather
+    ax = mesh.axis("data")
+    if ax.size == 1:
+        return y
+    return torch.cat(all_gather(y, ax), dim=0)
 
 
 def make_run_impl(bundle, mode: str, scales=None,

@@ -41,6 +41,26 @@ forward keeps only its inputs and the backward recomputes it
 B1 again in the recompute. The recompute leaves the BatchNorm running
 statistics alone (``nn.attention.running_stats_frozen``): they move once,
 as in a plain step.
+
+On a mesh (``TrainState.mesh``, rpst's ``make_sharded_train_step``,
+``dist/mesh.py:190-283``) every rank runs this step on its share of the
+batch, by one of two routes:
+
+  * **row-sharded** where ``dist.spatial_folded_train_ok`` holds (the
+    folded multi_adain, ccam, sel_multi_adain): the loss of
+    ``models.fast_path_spatial.loss_spatial`` on the rank's rows, the
+    global loss on every rank, through the halo kernels (B3's listed
+    mode); also on a mesh with no ``spatial`` axis, as rpst's shard_map;
+  * **data-parallel** otherwise: the one-device loss on the rank's batch
+    share, its batch reductions (BatchNorm's statistics, seg_adain's cross
+    entropy) over the global batch (``dist.over_batch``), as rpst's GSPMD
+    step computes them.
+
+Either way the parameters' gradients are then averaged over the mesh
+(each rank seeded its own copy of the loss: ``dist.collectives``), and
+the loss parts too, so every rank takes the same Adam step and the same
+skip decision. ``grad_accum`` splits the rank's share into microbatches on
+both routes; ``remat`` recomputes with the same batch reductions.
 """
 
 from __future__ import annotations
@@ -52,6 +72,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import (Mesh, average_grads, mean_over, over_batch,
+                    spatial_folded_train_ok)
 from ..models import ModelBundle
 from ..nn.attention import running_stats_frozen
 from ..nn.vgg import VGG19Encoder
@@ -109,6 +131,8 @@ class TrainState:
     generator: torch.Generator
     schedule: Callable[[int], float]
     frozen: Tuple[str, ...] = ()
+    # the rank's mesh on a multi-device run (None: one device)
+    mesh: Optional[Mesh] = None
 
     @property
     def model(self):
@@ -116,19 +140,46 @@ class TrainState:
 
 
 def create_train_state(bundle: ModelBundle,
-                       freeze_prefixes: Tuple[str, ...] = ()) -> TrainState:
+                       freeze_prefixes: Tuple[str, ...] = (),
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """Training state over the bundle's current weights; puts the model in
     train mode (sel_multi_adain's and spade's BatchNorms then take batch
     statistics). ``freeze_prefixes``: top-level modules left untrained
-    (``trainable_parameters``)."""
+    (``trainable_parameters``). ``mesh``: this rank's place on a
+    multi-device run (the weights must already be rank 0's:
+    ``dist.replicate``); ``train_route`` says how its steps run."""
     cfg = bundle.cfg
+    if mesh is not None:
+        train_route(bundle, mesh)  # refuses what no route takes
     bundle.model.train()
     params = trainable_parameters(bundle.model, tuple(freeze_prefixes))
     return TrainState(step=0, bundle=bundle,
                       optimizer=make_optimizer(cfg, params),
                       generator=torch.Generator().manual_seed(cfg.seed),
                       schedule=reference_lr_schedule(cfg.lr, cfg.lr_decay),
-                      frozen=tuple(freeze_prefixes))
+                      frozen=tuple(freeze_prefixes), mesh=mesh)
+
+
+def train_route(bundle: ModelBundle, mesh) -> str:
+    """"single" (no mesh), "spatial" (the row-sharded folded route, where
+    ``dist.spatial_folded_train_ok`` holds) or "data" (data parallel) on
+    ``mesh`` (a Mesh, or a mesh_shape dict). A ``spatial`` axis for a
+    network the row-sharded route does not take raises: rpst rows-shards
+    those by GSPMD, ROADMAP.md section A slice 8b."""
+    if mesh is None:
+        return "single"
+    shape = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
+    if spatial_folded_train_ok(bundle, shape):
+        return "spatial"
+    if int(shape.get("spatial", 1)) > 1:
+        raise NotImplementedError(
+            f"a spatial mesh axis for {bundle.network} (exec_strategy "
+            f"{bundle.cfg.get('exec_strategy', 'standard')}, img_size "
+            f"{bundle.cfg.img_size}) is not ported: only the folded "
+            "multi_adain, ccam and sel_multi_adain train row-sharded, with "
+            "img_size a multiple of 16 x spatial; the rest is ROADMAP.md "
+            "section A slice 8b")
+    return "data"
 
 
 def check_target_cache(cfg, with_labels: bool = False) -> None:
@@ -144,25 +195,42 @@ def check_target_cache(cfg, with_labels: bool = False) -> None:
                          "families")
 
 
-def _remat_contexts():
-    """``torch.utils.checkpoint``'s (forward, recompute) contexts: the
-    recompute leaves the running statistics alone."""
-    return contextlib.nullcontext(), running_stats_frozen()
+@contextlib.contextmanager
+def _recompute(axes):
+    with running_stats_frozen(), over_batch(axes):
+        yield
+
+
+def _remat_contexts(axes=()):
+    """``torch.utils.checkpoint``'s ``context_fn``: (forward, recompute)
+    contexts; the recompute leaves the running statistics alone and takes
+    the batch reductions over the same ranks as the forward."""
+    return lambda: (contextlib.nullcontext(), _recompute(axes))
 
 
 def step_loss(bundle: ModelBundle, vgg: VGG19Encoder, content, style,
               conv_act: ConvAct = folded_conv_act, targets=None,
-              content_label=None, remat: bool = False):
-    """``bundle.loss`` -> (total, parts); with ``remat`` under one
-    non-reentrant checkpoint of the whole function."""
+              content_label=None, remat: bool = False,
+              mesh: Optional[Mesh] = None):
+    """``bundle.loss`` -> (total, parts) on one device, or this rank's loss
+    on ``mesh`` (``train_route``: ``fast_path_spatial.loss_spatial`` on the
+    rows, or the batch share's loss with global batch reductions); with
+    ``remat`` under one non-reentrant checkpoint of the whole function."""
+    route = train_route(bundle, mesh)
+    axes = () if mesh is None else mesh.reduce_axes()
+
     def loss_fn(c, s, lab):
+        if route == "spatial":
+            from ..models.fast_path_spatial import loss_spatial
+            return loss_spatial(bundle, vgg, c, s, mesh)
         kw = {} if lab is None else {"content_label": lab}
-        return bundle.loss(vgg, c, s, targets=targets, conv_act=conv_act,
-                           **kw)
+        with over_batch(axes):
+            return bundle.loss(vgg, c, s, targets=targets,
+                               conv_act=conv_act, **kw)
     if not remat:
         return loss_fn(content, style, content_label)
     return checkpoint(loss_fn, content, style, content_label,
-                      use_reentrant=False, context_fn=_remat_contexts)
+                      use_reentrant=False, context_fn=_remat_contexts(axes))
 
 
 def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
@@ -177,12 +245,18 @@ def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
     (``DeviceTargetCache.targets_for_batch``); ``content_label`` (N, H, W)
     integer labels of the content batch (seg_adain). Returns the loss
     parts (detached device scalars, averaged over the microbatches) with
-    ``skipped`` 1.0 or 0.0; ``state.step`` advances either way."""
+    ``skipped`` 1.0 or 0.0; ``state.step`` advances either way. On a mesh
+    (``state.mesh``) ``content`` / ``style`` are this rank's share (its
+    batch share, and its rows on the row-sharded route), and the gradients
+    and parts are averaged over the mesh before the update."""
     cfg = state.bundle.cfg
     accum = int(cfg.get("grad_accum", 1))
     remat = bool(cfg.get("remat", False))
     if targets is not None:
         check_target_cache(cfg, content_label is not None)
+        if state.mesh is not None:
+            raise ValueError("precomputed loss targets (the target cache) "
+                             "are for one device")
     n = content.shape[0]
     if n % accum:
         raise ValueError(f"batch {n} not divisible by grad_accum {accum}")
@@ -196,7 +270,8 @@ def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
         total, parts = step_loss(
             state.bundle, vgg, content[rows], style[rows], conv_act,
             targets,
-            None if content_label is None else content_label[rows], remat)
+            None if content_label is None else content_label[rows], remat,
+            state.mesh)
         total.backward()
         total = total.detach()
         total_sum = total if total_sum is None else total_sum + total
@@ -215,6 +290,12 @@ def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    if state.mesh is not None:
+        axes = state.mesh.reduce_axes()
+        average_grads([p for g in opt.param_groups for p in g["params"]],
+                      axes)
+        parts_sum = mean_over({**parts_sum, "total_loss": total_sum}, axes)
+        total_sum = parts_sum["total_loss"]
     lr = state.schedule(adam_count(opt))
     for group in opt.param_groups:
         group["lr"] = lr

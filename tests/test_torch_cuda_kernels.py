@@ -784,3 +784,62 @@ def test_b6_refuses_what_the_kernel_does_not_take(cuda_device):
     flat = torch.zeros(q.numel() + 1, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_fwd(flat[1:].view(q.shape), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL),
+                                       (torch.bfloat16, BF16_TOL)])
+@pytest.mark.parametrize("shape", [(1, 16, 32, 32, 32), (2, 9, 17, 32, 3),
+                                   (1, 5, 7, 3, 32)])
+def test_halo_modes_match_plain_on_card(cuda_device, dtype, tol, shape):
+    """B2 with row_rings=False and B3 with given rings (listed and dense)
+    against their plain versions on the same card tensors (cuDNN without
+    TF32), dx to B1's tolerances, dk / db as test_b2_b3_match_plain_on_card
+    holds them, B3 bit-equal across two launches; and, in float32,
+    FoldedConvActHalo's backward on the card against its plain form on the
+    CPU, at slope 1 (an activation mask read from two devices' outputs
+    flips where y is near 0)."""
+    from rpst_torch.ops import folded_conv as fc
+    x, k, b = _layer(1, *shape, cuda_device)
+    rng = np.random.default_rng(2)
+    n, h, w = shape[:3]
+    rings = torch.from_numpy(rng.standard_normal(
+        (n, 2, w, x.shape[3]), dtype=np.float32)).to(cuda_device)
+    gz = torch.from_numpy(rng.standard_normal(
+        (n, h, w, k.shape[3]), dtype=np.float32)).to(cuda_device)
+    x, k, rings, gz = (t.to(dtype).contiguous() for t in (x, k, rings, gz))
+    khat = k.flip(0, 1).transpose(2, 3).contiguous()
+    before = (fc.fused_folded_conv_grad_input.launches_halo,
+              fc.fused_folded_conv_grad_weight.launches_rings)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        dx = fc.fused_folded_conv_grad_input(gz, khat, row_rings=False)
+        got = {listed: [fc.fused_folded_conv_grad_weight(x, gz, listed,
+                                                         rings)
+                        for _ in range(2)] for listed in (False, True)}
+        torch.cuda.synchronize()
+        rdx = fc.fused_folded_conv_grad_input_plain(gz, khat, row_rings=False)
+        ref = {listed: fc.fused_folded_conv_grad_weight_plain(x, gz, listed,
+                                                              rings)
+               for listed in (False, True)}
+    assert (fc.fused_folded_conv_grad_input.launches_halo,
+            fc.fused_folded_conv_grad_weight.launches_rings) == (
+                before[0] + 1, before[1] + 4)
+    torch.testing.assert_close(dx.float(), rdx.float(), rtol=tol, atol=tol)
+    atol = 2e-3 * (n * h * w / 512) ** 0.5
+    for listed, ((dk, db), (dk2, db2)) in got.items():
+        assert torch.equal(dk, dk2) and torch.equal(db, db2)
+        torch.testing.assert_close(dk, ref[listed][0], rtol=1e-4, atol=atol)
+        torch.testing.assert_close(db, ref[listed][1], rtol=1e-4, atol=atol)
+    if dtype != torch.float32:
+        return
+    ins = [t.detach().cpu() for t in (x, k, b, rings[:, :1], rings[:, 1:])]
+    g = torch.from_numpy(rng.standard_normal((n, h, w, k.shape[3]),
+                                             dtype=np.float32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ts = [t.to(dev).contiguous().requires_grad_(True) for t in ins]
+        y = fc.folded_conv_act_halo(*ts, alpha=1.0)
+        outs.append([a.cpu() for a in torch.autograd.grad(y, ts, g.to(dev))])
+    for a, r in zip(*outs):
+        torch.testing.assert_close(a, r, rtol=F32_TOL, atol=F32_TOL * max(
+            1.0, float(r.abs().max())))

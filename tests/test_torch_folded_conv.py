@@ -88,12 +88,13 @@ def test_cpu_tensor_takes_plain_and_counts_no_launch(rng):
 
 def test_refuses_grad_instead_of_detaching(rng):
     """An input that requires grad takes the autograd Function (B2/B3
-    backward) instead of being detached; the rings override, whose
-    gradient belongs to the halo path, is refused."""
+    backward) instead of being detached; the rings override, which has no
+    gradient here (nor in rpst's fused_folded_conv), is refused, naming the
+    halo path that takes the rows as inputs (folded_conv_act_halo)."""
     _, (xt, kt, bt) = _layer(rng, 1, 4, 4, 8, 8)
     y = fused_folded_conv(xt, kt.requires_grad_(), bt)
     assert y.grad_fn is not None and "FoldedConvAct" in type(y.grad_fn).__name__
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="folded_conv_act_halo"):
         fused_folded_conv(xt, kt, bt, rings=torch.zeros(1, 2, 4, 32))
     with torch.no_grad():
         assert fused_folded_conv(xt, kt, bt).grad_fn is None

@@ -78,15 +78,14 @@ def test_cpu_run_writes_metrics_and_checkpoints_and_resumes(run_dir):
     ("grad_accum=2", "slice 8"), ("remat=true", "slice 8"),
     ("test_dir=/x", "slice 7"), ("network=ld_adain", "slice 5b")])
 def test_unported_options_raise(run_dir, override, slice_):
-    """The options of later slices raise naming their slice: the
-    multi-device ``mesh_shape`` and ``distributed`` (slice 8). The LD
-    networks, which slice 5b refused until the port built them, train: two
-    CPU steps of each; ``test_dir``, which slice 7 refused until the port
-    took its test dumps, stylizes a photoreal set with its masks every
-    ``test_iter`` steps into ``<output>/test/<step>``; ``grad_accum=2`` and
-    ``remat=true``, which slice 8 refused until the port took its
-    single-device half, train two CPU steps each (these cases keep their
-    ids)."""
+    """Options that later slices ported, each once refused naming its
+    slice (these cases keep their ids): the LD networks (slice 5b) train
+    two CPU steps each; ``test_dir`` (slice 7) stylizes a photoreal set
+    with its masks every ``test_iter`` steps into ``<output>/test/<step>``;
+    ``grad_accum=2`` and ``remat=true`` (slice 8's single-device half) and
+    the multi-device ``mesh_shape={data: 2}`` (two ranks train_torch.py
+    starts itself, over gloo) and ``distributed=true`` (one process: nothing to
+    join) (slice 8a) train two CPU steps each. Rank 0 alone writes."""
     args = ["--config", str(run_dir / "cfg.yaml"), "--device", "cpu",
             "--set", override]
     if slice_ == "slice 7":
@@ -102,7 +101,9 @@ def test_unported_options_raise(run_dir, override, slice_):
         assert sorted(p.name for p in (out / "2").iterdir()) == sorted(names)
         assert sorted(p.name for p in out.iterdir()) == ["2"]
         return
-    if slice_ == "slice 5b" or override in ("grad_accum=2", "remat=true"):
+    if slice_ == "slice 5b" or override in (
+            "grad_accum=2", "remat=true", "mesh_shape={data: 2}",
+            "distributed=true"):
         _driver().main([*args, "max_iter=3"])
         lines = [json.loads(ln) for ln in (run_dir / "out" / "logs"
                                            / "metrics.jsonl").read_text()
@@ -110,9 +111,31 @@ def test_unported_options_raise(run_dir, override, slice_):
         assert [ln["step"] for ln in lines] == [1, 2]
         assert all(np.isfinite(ln["total_loss"]) and ln["skipped"] == 0.0
                    for ln in lines)
+        assert sorted(p.name for p in (run_dir / "out" / "checkpoints")
+                      .iterdir()) == ["2"]
         return
     with pytest.raises(NotImplementedError, match=slice_):
         _driver().main(args)
+
+
+@pytest.mark.parametrize("overrides", [
+    ["mesh_shape={data: 2, model: 2}"],
+    ["network=sanet", "exec_strategy=standard", "mesh_shape={spatial: 2}"],
+    ["network=adain", "exec_strategy=standard", "mesh_shape={spatial: 2}"],
+    ["exec_strategy=standard", "mesh_shape={data: 2, spatial: 2}"],
+    ["network=mst", "mesh_shape={spatial: 2}"]],
+    ids=["model-axis", "sanet-spatial", "adain-spatial",
+         "standard-multi_adain-spatial", "mst-spatial"])
+def test_slice_8b_refusals(run_dir, overrides):
+    """What multi-device training still refuses names ROADMAP.md section A
+    slice 8b, before any rank starts or anything is written: channel tensor
+    parallelism (a ``model`` axis) and row sharding of every network but
+    the folded multi_adain, ccam and sel_multi_adain (rpst shards those by
+    GSPMD)."""
+    with pytest.raises(NotImplementedError, match="section A slice 8b"):
+        _driver().main(["--config", str(run_dir / "cfg.yaml"), "--device",
+                        "cpu", "--set", *overrides])
+    assert not (run_dir / "out").exists()
 
 
 def test_cuda_without_a_card_exits_nonzero(run_dir):

@@ -1628,6 +1628,138 @@ def ld_f64_stats():
     return undo
 
 
+SPATIAL_DST = REPO / "tests" / "fixtures" / "torch_port_spatial.npz"
+# the row-sharded fixture's meshes (8 virtual CPU devices)
+SPATIAL_MESHES = {"s2": {"spatial": 2}, "d2s2": {"data": 2, "spatial": 2}}
+
+
+def spatial_sources() -> dict:
+    """network -> (the fixture whose point the spatial fixture takes: its
+    params, batch_stats, images and VGG seed; the network's config)."""
+    return {"multi_adain": (TRAIN_DST, dict(FLAGSHIP)),
+            "sel_multi_adain": (SLICE4_DST["sel_multi_adain"],
+                                dict(SLICE4["sel_multi_adain"],
+                                     **SLICE4_LOSS)),
+            "ccam": (SLICE4_DST["ccam"], dict(SLICE4["ccam"],
+                                              **SLICE4_LOSS))}
+
+
+def grad_corner(v):
+    """What the spatial fixture keeps of a gradient: vectors whole, the
+    [..., :8, :8] corner of a matrix or kernel."""
+    import numpy as np
+    v = np.asarray(v)
+    return v if v.ndim < 2 else np.ascontiguousarray(v[..., :8, :8])
+
+
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``: put in place of
+    ``rpst.models.fast_path_spatial.jnp`` so that its statistics and sums,
+    which it casts to float32, run in float64 for the float64 readings."""
+
+    def __init__(self, jnp):
+        self._jnp = jnp
+        self.float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, name)
+
+
+def make_spatial_fixture() -> dict:
+    """rpst's row-sharded folded serving and training of multi_adain,
+    sel_multi_adain and ccam (``rpst.models.fast_path_spatial``) on
+    ``SPATIAL_MESHES`` of the 8 virtual CPU devices, at the points of the
+    flagship train fixture and the two slice-4 fixtures (full width, 64px,
+    batch 2): per network and mesh ``<net>/<mesh>/out`` (the float32
+    stylize, interpret-mode kernels), ``content_loss`` / ``style_loss`` /
+    ``total_loss`` and ``grads/<path>`` (float32, interpret mode), their
+    ``_f64`` twins (float64 with float64 statistics, the XLA halo branch:
+    interpret=False on the CPU) and, for sel_multi_adain, the moved running
+    statistics ``stats_after/<path>``. Gradients keep ``grad_corner``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from rpst.dist import make_mesh
+    from rpst.models import fast_path_spatial as fps
+    from rpst_torch.bridge import vgg_weights_from_seed
+
+    arrays = {}
+    for network, (src, _) in spatial_sources().items():
+        with np.load(src) as npz:
+            flat = {k: npz[k] for k in npz.files}
+        tree = _unflat({k: v for k, v in flat.items()
+                        if k.startswith(("params/", "batch_stats/"))})
+        params, stats = tree["params"], tree.get("batch_stats", {})
+        content, style = flat["content"], flat["style"]
+        vgg = vgg_weights_from_seed(int(flat["vgg_seed"]))["params"]
+        # the source fixture's loss weights (the flagship's: the defaults)
+        weights = dict(SLICE4_LOSS) if network != "multi_adain" \
+            else dict(content_weight=1.0, style_weight=1.0)
+        for mname, shape in SPATIAL_MESHES.items():
+            n_dev = int(np.prod(list(shape.values())))
+            mesh = make_mesh(shape, jax.devices()[:n_dev])
+            key = f"{network}/{mname}"
+
+            def run(p, st, v, c, s, dtype, interpret):
+                if network == "multi_adain":
+                    out = fps.stylize_multi_adain_folded_spatial(
+                        p, c, s, mesh, dtype=dtype, interpret=interpret)
+                    res = fps.loss_and_grads_multi_adain_folded_spatial(
+                        p, v, c, s, mesh, dtype=dtype, interpret=interpret,
+                        **weights)
+                elif network == "ccam":
+                    out = fps.stylize_ccam_folded_spatial(
+                        {"params": p}, c, s, mesh, stylized_layers=5,
+                        dtype=dtype, interpret=interpret)
+                    res = fps.loss_and_grads_ccam_folded_spatial(
+                        p, v, c, s, mesh, stylized_layers=5, dtype=dtype,
+                        interpret=interpret, **weights)
+                else:
+                    out = fps.stylize_sel_multi_adain_folded_spatial(
+                        {"params": p, "batch_stats": st}, c, s, mesh,
+                        dtype=dtype, interpret=interpret)
+                    res = fps.loss_and_grads_sel_folded_spatial(
+                        p, st, v, c, s, mesh, dtype=dtype,
+                        interpret=interpret, **weights)
+                return out, res
+
+            cast = lambda t, dt: jax.tree.map(  # noqa: E731
+                lambda a: jnp.asarray(a, dt), t)
+            out, res = jax.jit(lambda *a: run(*a, jnp.float32, True))(
+                cast(params, jnp.float32), cast(stats, jnp.float32),
+                cast(vgg, jnp.float32), jnp.asarray(content),
+                jnp.asarray(style))
+            arrays[f"{key}/out"] = np.asarray(out, np.float32)
+            total, parts, grads = res[:3]
+            for k in ("content_loss", "style_loss", "total_loss"):
+                arrays[f"{key}/{k}"] = np.float32(parts[k])
+            arrays.update({f"{key}/grads/{k}": grad_corner(v).astype(
+                np.float32) for k, v in _flat(grads)})
+            if len(res) == 4:
+                arrays.update({f"{key}/stats_after/{k}": np.asarray(
+                    v, np.float32) for k, v in _flat(
+                        res[3]["batch_stats"])})
+            old = fps.jnp
+            try:
+                jax.config.update("jax_enable_x64", True)
+                fps.jnp = _Float64Numpy(jnp)
+                _, res = jax.jit(lambda *a: run(*a, jnp.float64,
+                                                False))(
+                    cast(params, jnp.float64), cast(stats, jnp.float64),
+                    cast(vgg, jnp.float64),
+                    jnp.asarray(content, jnp.float64),
+                    jnp.asarray(style, jnp.float64))
+                for k in ("content_loss", "style_loss", "total_loss"):
+                    arrays[f"{key}/{k}_f64"] = np.float64(res[1][k])
+                arrays.update({f"{key}/grads_f64/{k}": grad_corner(v)
+                               for k, v in _flat(res[2])})
+            finally:
+                fps.jnp = old
+                jax.config.update("jax_enable_x64", False)
+            print(f"{key}: total {float(total):.6g}", flush=True)
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -1682,15 +1814,28 @@ def main():
                     help="tests/fixtures/torch_port_slice4r.npz: the deeper "
                          "yaml's model, SK attention, the SE flagship under "
                          "grad_accum 2, the Conv2dBlock norms and prelu")
+    ap.add_argument("--spatial", action="store_true",
+                    help="write tests/fixtures/torch_port_spatial.npz: "
+                         "rpst's row-sharded folded serving and training")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    if args.spatial:  # the meshes' virtual CPU devices
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + " --xla_force_host_platform_device_count=8").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     slice4 = [n for n in SLICE4 if getattr(args, n)]
     slice5b = [n for n in SLICE5B if getattr(args, n)]
+    if args.spatial:
+        arrays = make_spatial_fixture()
+        dst = args.dst or str(SPATIAL_DST)
+        np.savez_compressed(dst, **arrays)
+        print(f"wrote {dst} ({len(arrays)} arrays)")
+        return
     if args.masks:
         arrays = make_masks_fixture(args.seed, args.size or 64)
         dst = args.dst or str(MASKS_DST)

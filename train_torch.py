@@ -60,12 +60,31 @@ logs the B6, B5 and B1/B2/B3 launch counts of the run. ``grad_accum: k``
 splits each batch into k microbatches whose gradients are averaged before
 one Adam step (the batch must divide by k; not with ``target_cache``), and
 ``remat: true`` recomputes the whole loss's forward in the backward
-(``rpst_torch.train.step``). The multi-device options raise
-``NotImplementedError`` naming their ROADMAP.md slice: ``mesh_shape`` and
-``distributed`` (slice 8).
+(``rpst_torch.train.step``).
+
+Multi-device runs (rpst ``train.py:61-98``): ``mesh_shape`` lays the ranks
+on ``data`` and ``spatial`` axes (``{data: 2}``, ``{spatial: 2}``, ``{data:
+2, spatial: 2}``), one process per rank, each on ``cuda:(local_rank %
+device_count)`` (or the CPU). Without ``distributed`` the command starts its
+own ranks on this host, after building the CUDA kernels once
+(``rpst_torch.dist.launch``); with ``distributed: true`` each process is
+one rank, started from outside with ``coordinator_address`` (``host:port``
+or a ``tcp://`` / ``file://`` URL), ``num_processes`` and ``process_id``
+(or torchrun's environment where unset). The folded multi_adain, ccam and
+sel_multi_adain train row-sharded on B1-B3's halo modes (also on a mesh
+without a ``spatial`` axis, as rpst's shard_map); every other network trains
+data parallel, its BatchNorm statistics over the global batch. Each data
+rank draws its share of the image stream (``InfiniteSampler``'s shards),
+and the ranks of one row group split its images' rows. Rank 0 alone writes
+the checkpoints, the metrics and the test dumps; the target cache and the
+int8 loss targets stay off on a mesh, as in rpst. Refused, naming ROADMAP.md
+section A slice 8b: a ``model`` axis, and a ``spatial`` axis for a network
+the row-sharded route does not take. Ranks share a card over gloo where
+there are more ranks than GPUs (NCCL otherwise).
 """
 
 import argparse
+import logging
 import sys
 import time
 from pathlib import Path
@@ -80,6 +99,10 @@ from rpst_torch.config import load_config  # noqa: E402
 from rpst_torch.data import (CityscapesDataset,  # noqa: E402
                              ImageFolderDataset, InfiniteLoader,
                              build_test_dataset)
+from rpst_torch.dist import (check_mesh_shape, is_main_process,  # noqa: E402
+                             make_mesh, rank_device, replicate,
+                             setup_distributed, shard_rows)
+from rpst_torch.dist.launch import in_rank, spawn  # noqa: E402
 from rpst_torch.dumps import dump_test_set  # noqa: E402
 from rpst_torch.metrics import logger  # noqa: E402
 from rpst_torch.models import build_model, build_vgg  # noqa: E402
@@ -95,22 +118,24 @@ from rpst_torch.train.checkpoint import (latest_step,  # noqa: E402
                                          restore_checkpoint, save_checkpoint)
 from rpst_torch.train.fault import CheckpointOnSignal  # noqa: E402
 from rpst_torch.train.metrics import MetricWriter, StepTimer  # noqa: E402
-from rpst_torch.train.step import create_train_state, train_step  # noqa: E402
+from rpst_torch.train.step import (create_train_state,  # noqa: E402
+                                   train_route, train_step)
 from rpst_torch.train.target_cache import DeviceTargetCache  # noqa: E402
-
-# config key -> (is it asked for?, the ROADMAP.md place that ports it)
-_UNPORTED = {
-    "mesh_shape": (lambda c: bool(c.mesh_shape), "section A slice 8"),
-    "distributed": (lambda c: bool(c.distributed), "section A slice 8"),
-}
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError for a config this port cannot train yet."""
-    for key, (asked, where) in _UNPORTED.items():
-        if asked(cfg):
-            raise NotImplementedError(
-                f"train_torch.py: {key} is not ported yet: ROADMAP.md {where}")
+    """Raise NotImplementedError for a config this port cannot train yet:
+    a ``model`` mesh axis, a ``spatial`` axis for a network the row-sharded
+    route does not take (ROADMAP.md section A slice 8b)."""
+    if cfg.mesh_shape:
+        train_route(build_model(cfg), check_mesh_shape(cfg.mesh_shape))
+
+
+def mesh_size(cfg) -> int:
+    size = 1
+    for v in (cfg.mesh_shape or {}).values():
+        size *= int(v)
+    return size
 
 
 def parse_args(argv=None):
@@ -134,13 +159,47 @@ def main(argv=None):
         raise SystemExit("train_torch.py: --device cuda but "
                          "torch.cuda.is_available() is False (use --device "
                          "cpu to train on the plain PyTorch versions)")
-    device = torch.device(args.device)
+    if mesh_size(cfg) > 1 and not cfg.distributed and not in_rank():
+        # start this command's ranks here, each a process of its own
+        world = mesh_size(cfg)
+        logger.info(f"mesh {dict(cfg.mesh_shape)}: starting {world} ranks")
+        rc = spawn(
+            [str(Path(__file__).resolve()), "--config", args.config,
+             "--device", args.device, "--set", *args.set], world,
+            lambda r, url: ["distributed=true",
+                            f"coordinator_address={url}",
+                            f"num_processes={world}", f"process_id={r}"],
+            build_kernels=args.device == "cuda")
+        if rc:
+            raise SystemExit(f"train_torch.py: a rank exited with {rc}")
+        return
+    mesh = None
+    if cfg.distributed or in_rank():
+        setup_distributed(cfg.coordinator_address, cfg.num_processes,
+                          cfg.process_id, args.device)
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            mesh = make_mesh(cfg.mesh_shape, rank_device(args.device))
+        if not is_main_process():  # rank 0 logs the run
+            logger.setLevel(logging.WARNING)
+    device = mesh.device if mesh is not None else torch.device(args.device)
     if device.type == "cuda":  # f32 convs outside the kernels in full f32
+        if mesh is not None:  # this rank's card
+            torch.cuda.set_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    main_proc = is_main_process()
+    data_shards = mesh.data if mesh is not None else 1
+    if cfg.batch_size % data_shards:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"{data_shards} data ranks")
+    local_batch = cfg.batch_size // data_shards
+    data_index = mesh.axis("data").index if mesh is not None else 0
 
     bundle = build_model(cfg, device)
     init_torch_default(bundle.model, cfg.seed)
+    if mesh is not None:
+        replicate(bundle.model, mesh)
     vgg, vgg_source = build_vgg(cfg, device)
     bundle.vgg = vgg  # the feature models stylize from its features
     if cfg.vgg and vgg_source == str(cfg.vgg):
@@ -165,15 +224,16 @@ def main(argv=None):
                          f", {len(style_ds)} style in {cfg.style_dir!r}")
     test_ds = build_test_dataset(cfg) if cfg.test_dir else None
     # the output tree is made once the data is there: a run that cannot
-    # start writes nothing
+    # start writes nothing; rank 0 alone writes it
     output = Path(cfg.output)
-    for sub in ("logs", "checkpoints"):
-        (output / sub).mkdir(exist_ok=True, parents=True)
-    writer = MetricWriter(output)
+    if main_proc:
+        for sub in ("logs", "checkpoints"):
+            (output / sub).mkdir(exist_ok=True, parents=True)
+    writer = MetricWriter(output) if main_proc else None
 
     # a wct resume freezes the encoder (rpst train.py:158)
     freeze = ("encoder",) if (cfg.network == "wct" and cfg.resume) else ()
-    state = create_train_state(bundle, freeze_prefixes=freeze)
+    state = create_train_state(bundle, freeze_prefixes=freeze, mesh=mesh)
     if freeze:
         logger.info(f"Frozen for this run: {', '.join(freeze)}")
     begin = 0
@@ -193,7 +253,7 @@ def main(argv=None):
     # families on one device, grad_accum 1 (the port trains no other way)
     use_tcache = (bool(cfg.get("target_cache", 0)) and bundle.folded_infer()
                   and not seg_training and cfg.img_size % 8 == 0
-                  and int(cfg.get("grad_accum", 1)) == 1)
+                  and int(cfg.get("grad_accum", 1)) == 1 and mesh is None)
     if cfg.get("target_cache", 0) and not use_tcache:
         logger.warning("target_cache ignored: needs a single-device "
                        "folded-family run with grad_accum=1")
@@ -211,13 +271,29 @@ def main(argv=None):
 
     # the resumed run continues both image streams where the saved run
     # stopped (one batch per step); the cache keys batches by dataset index
-    content_iter = InfiniteLoader(content_ds, cfg.batch_size,
+    # a data rank draws its share of each stream, local_batch a step
+    shard = dict(shard_index=data_index, shard_count=data_shards)
+    content_iter = InfiniteLoader(content_ds, local_batch,
                                   cfg.num_workers, seed=cfg.seed, skip=begin,
-                                  with_indices=use_tcache)
-    style_iter = InfiniteLoader(style_ds, cfg.batch_size, cfg.num_workers,
+                                  with_indices=use_tcache, **shard)
+    style_iter = InfiniteLoader(style_ds, local_batch, cfg.num_workers,
                                 seed=cfg.seed + 1, skip=begin,
-                                with_indices=use_tcache)
-    if cfg.train_q8_targets and use_tcache:
+                                with_indices=use_tcache, **shard)
+    route = train_route(bundle, mesh)
+    if mesh is not None:
+        logger.info(f"Mesh: {dict(mesh.shape)} over {mesh.backend}: "
+                    + ("row-sharded folded training (B1-B3 halo modes on "
+                       "each rank's rows)" if route == "spatial"
+                       else "data parallel"))
+    if cfg.train_q8_targets and mesh is not None:
+        if route == "spatial":
+            logger.info("train_q8_targets inactive: the row-sharded folded "
+                        "route keeps float loss targets (its loss runs on "
+                        "the rows of each rank)")
+        else:
+            logger.warning("train_q8_targets skipped on a multi-device "
+                           "mesh, as rpst skips it")
+    elif cfg.train_q8_targets and use_tcache:
         logger.info("train_q8_targets superseded by target_cache (the "
                     "target pass it quantizes is skipped entirely)")
     elif cfg.train_q8_targets:
@@ -272,10 +348,13 @@ def main(argv=None):
                 else:
                     content = torch.from_numpy(next(content_iter)).to(device)
                     style = torch.from_numpy(next(style_iter)).to(device)
+                if route == "spatial":  # this rank's rows of the share
+                    content = shard_rows(content, mesh).contiguous()
+                    style = shard_rows(style, mesh).contiguous()
                 parts = train_step(state, vgg, content, style,
                                    targets=targets, content_label=label)
                 timer.tick()
-                if i % cfg.log_iter == 0:
+                if i % cfg.log_iter == 0 and main_proc:
                     values = {k: float(v) for k, v in parts.items()}
                     elapsed = time.perf_counter() - start
                     writer.write(begin + i, values)
@@ -291,11 +370,12 @@ def main(argv=None):
                                      f"/{tc['hit_steps'] + tc['miss_steps']}")
                     logger.info(f"Iterations {begin + i}, elapsed time: "
                                 f"{elapsed:.3f}{rate_str}{loss_str}")
-                if test_ds is not None and i % cfg.test_iter == 0:
+                if (test_ds is not None and i % cfg.test_iter == 0
+                        and main_proc):
                     dump_test_set(bundle, test_ds, cfg.batch_size,
                                   output / "test" / str(begin + i))
                 if (i % cfg.snapshot_save_iter == 0 or (i + 1) == cfg.max_iter
-                        or stop.requested):
+                        or stop.requested) and main_proc:
                     path = save_checkpoint(output / "checkpoints", state)
                     logger.info(f"Saved checkpoint {path}")
                 if stop.requested:
@@ -304,7 +384,8 @@ def main(argv=None):
     finally:
         content_iter.close()
         style_iter.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     b1, b2, b3 = (c.launches - n for c, n in zip(counters, launches0))
     logger.info("B6 fwd/dq/dkv launches: " + "/".join(
         str(n - b6_0[k]) for k, n in launch_counts().items()))
@@ -313,6 +394,12 @@ def main(argv=None):
     if use_tcache:
         logger.info(f"target_cache stats: {target_cache.stats()}")
     logger.info(f"B1/B2/B3 launches: {b1}/{b2}/{b3}")
+    if mesh is not None:
+        logger.info("B2 row_rings=False / B3 rings launches: "
+                    f"{fused_folded_conv_grad_input.launches_halo}/"
+                    f"{fused_folded_conv_grad_weight.launches_rings}")
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -383,6 +383,7 @@ The last lines: the kernels JSON, the card's name and power limit, and
 repository, it exits non-zero and prints no result.
 """
 
+import copy
 import json
 import os
 import socket
@@ -570,17 +571,22 @@ def main():
         f"{torch.version.cuda}")
 
     # ---- 1. build ---------------------------------------------------------
+    # one nvcc a source, all started together in the background; a phase
+    # waits for the libraries it launches (``built``), so the longest build
+    # (folded_conv2_q8.cu, B7: 16 instances) overlaps phases 2-11
     t0 = time.perf_counter()
-    build.build_all()
-    for lib in build.SIGNATURES:
-        build.load(lib)
-        info = build.build_info[lib]
-        regs = [ln.replace("ptxas info    :", "").strip()
-                for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        log("1 build", f"{lib}.cu built in {info['seconds']:.2f}s; ptxas: "
-            f"{regs}")
-    log("1 build", f"all built and loaded in {time.perf_counter() - t0:.2f}s")
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(len(build.SIGNATURES))
+    builds = {lib: pool.submit(build.build, lib) for lib in build.SIGNATURES}
+
+    def built(*libs):
+        for lib in libs or tuple(build.SIGNATURES):
+            builds[lib].result()  # raises a failed build's error
+            build.load(lib)
+
+    built("folded_conv", "folded_conv_bwd")
+    log("1 build", f"B1-B3 built and loaded after "
+        f"{time.perf_counter() - t0:.2f}s, the others building")
 
     # ---- 2. kernel vs plain -----------------------------------------------
     g = torch.Generator().manual_seed(0)
@@ -639,8 +645,8 @@ def main():
                     f"{k.shape[3]} {str(dt)[6:]}: max abs err {err:.3g} "
                     f"(tol {tol})")
     log("2 kernels", f"{fused_folded_conv.launches} comparison launches")
-    bwd = _check_backward_kernels(dev, name_power)
-    b12 = _b1_b2_timing(dev, name_power)
+    bwd = _timed(_check_backward_kernels, dev, name_power)
+    b12 = _timed(_b1_b2_timing, dev, name_power)
 
     # ---- 3. slice vs the JAX reference fixture ----------------------------
     fx_path = REPO / "tests" / "fixtures" / "torch_port_flagship.npz"
@@ -794,79 +800,91 @@ def main():
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 8-11")
     # ---- 8-11. training ---------------------------------------------------
-    _train_fixture(dev)
-    _train_parity(dev, rng)
-    train_launches = _train_main_path(dev)
-    _train_timing(dev, rng, name_power)
+    _timed(_train_fixture, dev)
+    _timed(_train_parity, dev, rng)
+    train_launches = _timed(_train_main_path, dev)
+    _timed(_train_timing, dev, rng, name_power)
 
+    t0 = time.perf_counter()
+    built()
+    pool.shutdown()
+    for lib in build.SIGNATURES:
+        info = build.build_info[lib]
+        regs = [ln.replace("ptxas info    :", "").strip()
+                for ln in info["log"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        log("1 build", f"{lib}.cu built in {info['seconds']:.2f}s; ptxas: "
+            f"{regs}")
+    log("1 build", f"all built and loaded; waited "
+        f"{time.perf_counter() - t0:.2f}s for the last after phase 11")
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 12-16")
     # ---- 12-16. int8 (q8) serving -----------------------------------------
-    q8k = _q8_kernels(dev, name_power)
-    _q8_fixture(dev)
-    _q8_parity(dev, rng)
-    q8_launches = _q8_serve(dev, rng)
-    _q8_timing(dev, rng, name_power, rows)
+    q8k = _timed(_q8_kernels, dev, name_power)
+    _timed(_q8_fixture, dev)
+    _timed(_q8_parity, dev, rng)
+    q8_launches = _timed(_q8_serve, dev, rng)
+    _timed(_q8_timing, dev, rng, name_power, rows)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 17-22")
     # ---- 17-22. the wide standard-layout path (B5) ------------------------
-    b5k = _b5_kernels(dev, name_power)
-    _wide_fixtures(dev)
-    _q8_targets_fixture(dev)
-    b5_serve = _wide_serve(dev, rng)
-    q8t_launches = _q8_targets_train(dev)
-    _wide_timing(dev, rng, name_power)
+    b5k = _timed(_b5_kernels, dev, name_power)
+    _timed(_wide_fixtures, dev)
+    _timed(_q8_targets_fixture, dev)
+    b5_serve = _timed(_wide_serve, dev, rng)
+    q8t_launches = _timed(_q8_targets_train, dev)
+    _timed(_wide_timing, dev, rng, name_power)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 23-28")
     # ---- 23-28. the static SANet on B6 -----------------------------------
-    b6k = _b6_kernels(dev, name_power)
-    _sanet_fixture(dev)
-    _sanet_parity(dev, rng)
-    sanet_serve = _sanet_serve(dev, rng)
-    sanet_train = _sanet_train(dev)
-    _sanet_timing(dev, rng, name_power)
+    b6k = _timed(_b6_kernels, dev, name_power)
+    _timed(_sanet_fixture, dev)
+    _timed(_sanet_parity, dev, rng)
+    sanet_serve = _timed(_sanet_serve, dev, rng)
+    sanet_train = _timed(_sanet_train, dev)
+    _timed(_sanet_timing, dev, rng, name_power)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 29-33")
     # ---- 29-33. slice 6b: dynamic_sanet and src on B5 ----------------------
-    _6b_fixtures(dev)
-    b5_6b = _6b_serve(dev, rng)
-    _6b_train(dev)
-    _6b_parity(dev, rng)
-    _6b_timing(dev, rng, name_power)
+    _timed(_6b_fixtures, dev)
+    b5_6b = _timed(_6b_serve, dev, rng)
+    _timed(_6b_train, dev)
+    _timed(_6b_parity, dev, rng)
+    _timed(_6b_timing, dev, rng, name_power)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 34-38")
     # ---- 34-38. slice 4 (sel_multi_adain, ccam, mst), the target cache ----
-    _s4_fixtures(dev)
-    _s4_parity(dev, rng)
-    s4_serve = _s4_serve(dev, rng)
-    s4_train = _s4_train(dev)
-    _s4_timing(dev, rng, name_power)
+    _timed(_s4_fixtures, dev)
+    _timed(_s4_parity, dev, rng)
+    s4_serve = _timed(_s4_serve, dev, rng)
+    s4_train = _timed(_s4_train, dev)
+    _timed(_s4_timing, dev, rng, name_power)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 39-43")
     # ---- 39-43. slice 5b (mrf, spade, seg_adain), wct training -----------
-    _5b_fixtures(dev)
-    _5b_parity(dev, rng)
-    b5_5b = _5b_serve(dev, rng)
-    _5b_train(dev)
-    _5b_timing(dev, rng, name_power)
+    _timed(_5b_fixtures, dev)
+    _timed(_5b_parity, dev, rng)
+    b5_5b = _timed(_5b_serve, dev, rng)
+    _timed(_5b_train, dev)
+    _timed(_5b_timing, dev, rng, name_power)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 44-48")
     # ---- 44-48. the LD family, B5's 7x7 form -------------------------------
-    b5_7 = _ld_kernels(dev, name_power)
-    _ld_fixtures(dev)
-    ld_serve = _ld_serve(dev, rng)
-    _ld_train(dev)
-    _ld_timing(dev, rng, name_power)
+    b5_7 = _timed(_ld_kernels, dev, name_power)
+    _timed(_ld_fixtures, dev)
+    ld_serve = _timed(_ld_serve, dev, rng)
+    _timed(_ld_train, dev)
+    _timed(_ld_timing, dev, rng, name_power)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phase 49")
     # ---- 49. adain training on the card ------------------------------------
-    _adain_train(dev, name_power)
+    _timed(_adain_train, dev, name_power)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 50-53")
     # ---- 50-53. slice 7: masks, SE attention, the test dumps ---------------
-    _masks_fixture(dev)
-    _flagship_yaml(dev)
-    _masks_timing(dev, rng, name_power)
-    recon_b1 = _test_torch_paths(dev)
+    _timed(_masks_fixture, dev)
+    _timed(_flagship_yaml, dev)
+    _timed(_masks_timing, dev, rng, name_power)
+    recon_b1 = _timed(_test_torch_paths, dev)
 
     log("time", f"{time.perf_counter() - t_main:.1f}s before phases 54-56")
     # ---- 54-56. slice 4's remainder, grad_accum and remat ------------------
@@ -892,7 +910,17 @@ def main():
     cli_halo = _spatial_train_cli(dev)
     log("time", f"phase 59 {time.perf_counter() - t0:.1f}s")
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-59")
+    log("time", f"{time.perf_counter() - t_main:.1f}s before phases 60-62")
+    # ---- 60-62. slice 8b: row-sharded SANet serving, the model axis, the
+    # daemon over ranks; 60-61 in one launch of two ranks on the one card
+    t0 = time.perf_counter()
+    s8b, b6_shard, tp_share = _slice8b_ranks(dev, name_power)
+    log("time", f"phases 60-61 {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    _mesh_daemon(dev)
+    log("time", f"phase 62 {time.perf_counter() - t0:.1f}s")
+
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-62")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -911,7 +939,7 @@ def main():
          "replaces": "src/rpst/ops/pallas/folded_conv.py:650",
          "launches": (main_launches + train_launches[0] + q8_launches["B1"]
                       + q8t_launches[0] + s4_serve["B1"] + s4_train[0]
-                      + recon_b1 + accum[0]),
+                      + recon_b1 + accum[0] + s8b["B1"]),
          "max_abs_err": f32_err, "ms": b12["B1"]["ms"],
          "plain_ms": b12["B1"]["plain_ms"], "bound_ms": bnd["B1"][0],
          "bound_by": bnd["B1"][1], "library_ms": b12["B1"]["library_ms"]},
@@ -919,7 +947,7 @@ def main():
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:339",
          "launches": (train_launches[1] + q8t_launches[1] + s4_train[1]
-                      + accum[1]),
+                      + accum[1] + s8b["B2"]),
          "max_abs_err": bwd["B2"]["err"], "ms": b12["B2"]["ms"],
          "plain_ms": b12["B2"]["plain_ms"], "bound_ms": bnd["B2"][0],
          "bound_by": bnd["B2"][1], "library_ms": b12["B2"]["library_ms"]},
@@ -927,7 +955,7 @@ def main():
          "source": bwd_src,
          "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
          "launches": (train_launches[2] + q8t_launches[2] + s4_train[2]
-                      + accum[2]),
+                      + accum[2] + s8b["B3"]),
          "max_abs_err": bwd["B3"]["err"], "ms": bwd["B3"]["ms"],
          "plain_ms": bwd["B3"]["plain_ms"], "bound_ms": bnd["B3"][0],
          "bound_by": bnd["B3"][1], "library_ms": bwd["B3"]["library_ms"]},
@@ -981,18 +1009,35 @@ def main():
          "source": bwd_src, "mode": "rings",
          "replaces": "src/rpst/ops/pallas/folded_conv.py:468",
          "launches": sp_counts[4] + cli_halo[1], **halo["B3"]}]}
+    # B1-B3 at the flagship's share width on {model: 2} (phase 61), rows of
+    # their own: their launches those of phase 61's folded steps (both
+    # ranks; the one-device rows above count them too)
+    for name, key, line in (("fused_folded_conv", "B1", 650),
+                            ("fused_folded_conv_grad_input", "B2", 339),
+                            ("fused_folded_conv_grad_weight", "B3", 468)):
+        kernels["kernels"].append(
+            {"name": f"{name}_model_share", "route": "cuda",
+             "source": ("src/rpst_torch/csrc/folded_conv.cu" if key == "B1"
+                        else bwd_src),
+             "mode": f"model axis share {TP_SHARE_SHAPE}",
+             "replaces": f"src/rpst/ops/pallas/folded_conv.py:{line}",
+             "launches": s8b[key], **tp_share[key]})
     # B6's numbers at relu4_1 of a 512px stylize, (1, 4096, 4096, 512) f32
     # (phase 23); library_ms is F.scaled_dot_product_attention(scale=1.0)
     # forward for B6a / B6b and its autograd backward, which yields dQ, dK
     # and dV together, for B6c and B6d. Each bfloat16 kernel is a kernel of
     # its own (tensor cores, one bf16 product a fragment), held against its
-    # plain version in phase 23; since the static transform runs float32 as
-    # rpst's (its flax convs take no dtype), no main path launches them:
-    # every SANet launch is the float32 kernels'
-    b6_launches = {"B6a": sanet_serve["B6a"], "B6b": sanet_train[0],
-                   "B6c": sanet_train[1], "B6d": sanet_train[2],
-                   "B6a_bf16": sanet_serve["B6a_bf16"], "B6b_bf16": 0,
-                   "B6c_bf16": 0, "B6d_bf16": 0}
+    # plain version in phase 23; the one-device static transform runs
+    # float32 as rpst's (its flax convs take no dtype), so only the
+    # row-sharded bfloat16 stylize (phase 60, rpst's stylize_sanet_spatial
+    # in compute_dtype) launches the bfloat16 forward; no path launches the
+    # bfloat16 forward with LSE or backward
+    b6_launches = {"B6a": sanet_serve["B6a"] + s8b["B6a"],
+                   "B6b": sanet_train[0] + s8b["B6b"],
+                   "B6c": sanet_train[1] + s8b["B6c"],
+                   "B6d": sanet_train[2] + s8b["B6d"],
+                   "B6a_bf16": sanet_serve["B6a_bf16"] + s8b["B6a_bf16"],
+                   "B6b_bf16": 0, "B6c_bf16": 0, "B6d_bf16": 0}
     for key, fn_name, line in (("B6a", "flash_fwd", 260),
                                ("B6b", "flash_fwd_lse", 109),
                                ("B6c", "flash_bwd_dq", 220),
@@ -1006,6 +1051,16 @@ def main():
              "source": "src/rpst_torch/csrc/flash_attention.cu",
              "replaces": f"src/rpst/ops/pallas/flash_attention.py:{line}",
              "launches": b6_launches[key], **b6k[key]})
+    # B6a on one row share of {spatial: 2} (phase 60), f32 and bf16, rows
+    # of their own; their launches those of phase 60 (both ranks)
+    for kind, name, key in (("f32", "flash_fwd", "B6a"),
+                            ("bf16", "flash_fwd_bf16", "B6a_bf16")):
+        kernels["kernels"].append(
+            {"name": f"{name}_row_share", "route": "cuda",
+             "source": "src/rpst_torch/csrc/flash_attention.cu",
+             "mode": f"spatial row share {B6_SHARD_SHAPE}",
+             "replaces": "src/rpst/ops/pallas/flash_attention.py:260",
+             "launches": s8b[key], **b6_shard[kind]})
     for k in kernels["kernels"]:
         if not (k["launches"] > 0 or k["name"] in OFF_PATH):
             raise AssertionError(f"{k['name']} was launched no time on the "
@@ -1015,6 +1070,14 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _timed(fn, *args):
+    """``fn(*args)``, logging its wall time as a ``[time]`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log("time", f"{fn.__name__} {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def _grad_case(g, dev, n, h, w, c4, c4o, folded=False):
@@ -2588,10 +2651,11 @@ LSE_TOL = 1e-4
 # each module's forward with LSE once and both backward kernels once (f, g
 # and h are trained, so dQ, dK and dV are all needed)
 B6_PER_STYLIZE, SANET_Q8_B5, B6_PER_STEP = 2, 16, (6, 6, 6)
-# the bfloat16 instances of B6: on no main path since the static SANet's
-# transform runs float32 as rpst's (phase 23 still holds them against plain)
-OFF_PATH = ("flash_fwd_bf16", "flash_fwd_lse_bf16", "flash_bwd_dq_bf16",
-            "flash_bwd_dkv_bf16")
+# the bfloat16 instances of B6 that no path launches: the one-device static
+# SANet's transform runs float32 as rpst's, and only the row-sharded
+# bfloat16 stylize (phase 60) launches the bfloat16 forward (phase 23 still
+# holds them all against plain)
+OFF_PATH = ("flash_fwd_lse_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 # gradients through the softmax (f and g, and f's bias): logits with a
 # standard deviation near 8 amplify the float32 rounding of the scores, so
 # the two frameworks' sums agree to ~1e-3 of the tensor's max there
@@ -3261,9 +3325,10 @@ def _sanet_train(dev):
 
 
 def _sanet_timing(dev, rng, name_power):
-    """Phase 28: the 512px SANet stylize (standard f32, bf16, q8) at b1 and
-    b4, with B6, with the plain attention and with the SDPA call in B6's
-    place, and the train step with B6. CUDA events, medians."""
+    """Phase 28: the 512px SANet stylize (standard f32, bf16, q8) at b1 (b4
+    cut for the time limit in PR 20), with B6, with the plain attention and
+    with the SDPA call in B6's place, and the train step with B6. CUDA
+    events, medians."""
     import numpy as np
     import torch
     from rpst_torch.ops.flash_attention import sanet_attention
@@ -3276,7 +3341,7 @@ def _sanet_timing(dev, rng, name_power):
 
     attentions = (("B6", sanet_attention), ("plain", _plain_attention),
                   ("SDPA", _sdpa))
-    for batch in (1, 4):
+    for batch in (1,):  # b4 cut for the time limit (PR 20)
         c, s = pair(batch)
         for dt in ("float32", "bfloat16"):
             bundle = _sanet_bundle(dev, IMG, compute_dtype=dt)
@@ -3297,7 +3362,7 @@ def _sanet_timing(dev, rng, name_power):
                         f"{batch * 1e3 / ms:8.2f} img/s ({name_power})")
             del bundle
             torch.cuda.empty_cache()
-    for batch in (1, 4):
+    for batch in (1,):  # b4 cut for the time limit (PR 20)
         c, s = pair(batch)
         for dt in ("float32", "bfloat16"):
             # B6 only (the plain / SDPA steps are cut for the time limit;
@@ -3709,8 +3774,9 @@ def _6b_parity(dev, rng):
 
 
 def _6b_timing(dev, rng, name_power):
-    """Phase 33: 512px b1 / b4 stylize of dynamic_sanet (streamed and dense;
-    standard float32, bfloat16 and q8) and src (float32, bfloat16, q8), q8
+    """Phase 33: 512px b1 stylize (b4 cut for the time limit, PR 20) of
+    dynamic_sanet (streamed and dense; standard float32, bfloat16 and q8)
+    and src (float32, bfloat16, q8), q8
     against bfloat16 in both orders (bf16, q8, q8, bf16); each network's
     train step at its config's batch. CUDA events, medians."""
     import numpy as np
@@ -3722,7 +3788,7 @@ def _6b_timing(dev, rng, name_power):
                                                  np.float32)).to(dev)
                      for _ in range(2))
 
-    for batch in (1, 4):
+    for batch in (1,):  # b4 cut for the time limit (PR 20)
         c, s = pair(batch)
         for network in ("dynamic_sanet", "src"):
             routes = (("streamed", "always"), ("dense", "never")) \
@@ -4396,12 +4462,19 @@ def _s4_parity(dev, rng):
 
 
 
+# the serve_torch.py runs of phase 36: both modes of sel_multi_adain, ccam's
+# q8 and mst's folded (cut from both modes of each and the ccam daemon for
+# the time limit: the CLI code is one, and phases 6 and 62 drive the daemon)
+S4_CLI_MODES = {"sel_multi_adain": ("folded", "q8"), "ccam": ("q8",),
+                "mst": ("folded",)}
+
+
 def _s4_serve(dev, rng):
     """Phase 36: sel_multi_adain's serving main path (8 requests through
     build_model -> resolve_mode -> [calibrate_scales ->] make_run_impl ->
     DynamicBatcher(b4), folded and q8, counts reset before and read after);
-    serve_torch.py --mode folded and --mode q8 for each variant; the daemon
-    for ccam. Returns the in-process runs' B1 and B4 launches."""
+    serve_torch.py in the modes of ``S4_CLI_MODES``. Returns the in-process
+    runs' B1 and B4 launches."""
     import numpy as np
     import torch
     from PIL import Image
@@ -4480,6 +4553,8 @@ def _s4_serve(dev, rng):
             for mode, b1, b4 in (
                     ("folded", 2 * S4_STYLIZE_B1, 0),
                     ("q8", S4_CALIB_B1 + 2 * S4_Q8["B1"], 2 * S4_Q8["B4"])):
+                if mode not in S4_CLI_MODES[network]:
+                    continue
                 t0 = time.perf_counter()
                 text, n_png = _serve_child(cfg_path, tmp, f"{network}_{mode}",
                                            mode, extra)
@@ -4495,14 +4570,6 @@ def _s4_serve(dev, rng):
                     f"{mode}: 8 PNGs, B1 / B4 launches {child}, "
                     f"{time.perf_counter() - t0:.1f}s wall; "
                     f"{rate[-1].split(' - ')[-1] if rate else ''}")
-        # the daemon on ccam's yaml (folded)
-        import yaml
-        ccam_cfg = tmp / "ccam.yaml"
-        ccam_cfg.write_text(json.dumps(dict(
-            yaml.safe_load(CCAM_YAML.read_text()), img_size=IMG,
-            shuffle=False, test_dir="", vgg="")))
-        _, stats = _daemon_round_trip(ccam_cfg, tmp, dict(os.environ))
-        log("36 slice-4 serve", f"ccam daemon: 6/6 ok replies, stats {stats}")
     return total
 
 
@@ -5121,9 +5188,9 @@ def _5b_serve(dev, rng):
     widths): 8 requests through build_model -> resolve_mode ->
     [calibrate_scales ->] make_run_impl -> DynamicBatcher(b4), standard and
     q8, counts reset before and read after (q8: 7 / 4 / 4 B5 a batch); then
-    serve_torch.py --mode q8 as a subprocess for each, and for spade at
-    configs/TrainConfig.yaml (hidden 2: 0 B5). Returns the in-process q8
-    runs' B5 launches."""
+    serve_torch.py --mode q8 as a subprocess for each (spade at
+    configs/TrainConfig.yaml, hidden 2, cut for the time limit: phase 42
+    trains that yaml). Returns the in-process q8 runs' B5 launches."""
     import numpy as np
     import torch
     from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
@@ -5187,7 +5254,6 @@ def _5b_serve(dev, rng):
         cases = [(network, None, (f"network={network}", "rp_blocks=5",
                                   "hidden_dim=32"),
                   S5B_PLAN[network]) for network in S5B_NETWORKS]
-        cases.append(("spade", TRAIN_CONFIG_YAML, (), {"scales": 0, "B5": 0}))
         for network, yaml, sets, plan in cases:
             cfg = yaml
             if cfg is None:
@@ -5346,7 +5412,7 @@ def _5b_train(dev):
 
 
 def _5b_timing(dev, rng, name_power):
-    """Phase 43: 512px b1 / b4 stylize of mrf, spade and seg_adain (bench.py's
+    """Phase 43: 512px b1 stylize of mrf, spade and seg_adain (bench.py's
     widths), float32, then bfloat16 against q8 in both orders (bf16, q8, q8,
     bf16); the train step b1 of the three and of wct (its yaml's widths),
     float32. CUDA events, medians."""
@@ -5362,7 +5428,7 @@ def _5b_timing(dev, rng, name_power):
                                                  np.float32)).to(dev)
                      for _ in range(2))
 
-    for batch in (1, 4):
+    for batch in (1,):  # b4 cut for the time limit (PR 19's run has it)
         c, s = pair(batch)
         for network in S5B_NETWORKS:
             for dt in ("float32", "bfloat16"):
@@ -5392,7 +5458,7 @@ def _5b_timing(dev, rng, name_power):
             bundle = _5b_bundle(dev, network, IMG)
         state = create_train_state(bundle)
         torch.cuda.reset_peak_memory_stats(dev)
-        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=5, warmup=2)
+        ms = cuda_ms(lambda: train_step(state, vgg, c, s), iters=3, warmup=1)
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         log("43 5b timing", f"train step {IMG}px b1 {network} float32: "
             f"{ms:9.3f} ms/step {1e3 / ms:8.2f} img/s, peak {peak:.2f} GiB "
@@ -5794,9 +5860,9 @@ def _ld_serve(dev, rng):
     -> [calibrate_scales ->] make_run_impl -> DynamicBatcher(b2), standard
     for the five and q8 for v1 / v2, counts reset before and read after
     (q8: 6 B5, two 7x7, and 4 B5 a batch; standard none); then
-    serve_torch.py on each yaml at b1 as a subprocess (v1 and v2 --mode q8,
-    v1 with use_mask=false; v3-v5 --mode folded, which serves standard with
-    a warning). Returns the q8 runs' (B5, 7x7) launches."""
+    serve_torch.py on the v1 and v2 yamls at b1 as a subprocess (--mode
+    q8, v1 with use_mask=false). Returns the q8 runs' (B5, 7x7)
+    launches."""
     import numpy as np
     import torch
     from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
@@ -5861,8 +5927,11 @@ def _ld_serve(dev, rng):
                     f"{psnr:.2f} dB (bound > {Q8_VS_FOLDED_PSNR})")
             del bundle, batcher
             torch.cuda.empty_cache()
-        for network in LD_NETWORKS:
-            q8 = network in LD_Q8
+        # serve_torch.py on the two q8 yamls only (v3-v5's standard serving
+        # is the CLI's generic path, driven in-process above; cut for the
+        # time limit)
+        for network in LD_Q8:
+            q8 = True
             sets = ("--set", f"img_size={IMG}", "vgg=", "test_dir=",
                     *(("use_mask=false",) if network == "ld_adain" else ()))
             t0 = time.perf_counter()
@@ -6819,8 +6888,8 @@ def _deeper_yaml(dev, name_power):
     16, use_mask, photoreal test set) through train_torch.py as a
     subprocess, only the data paths, the VGG (seeded), the output and the
     cadence overridden: 3 steps and a test dump at step 2 in which a masked
-    AdaIN ran; test_torch.py on the checkpoint writes the same files; then
-    the yaml's train step timed in float32 and in bfloat16 (CUDA events,
+    AdaIN ran (test_torch.py runs in phases 51 and 53); then the yaml's
+    train step timed in float32 and in bfloat16 (CUDA events,
     median of 3 after 1) with its peak memory, no kernel launched."""
     import numpy as np
     import torch
@@ -6868,14 +6937,6 @@ def _deeper_yaml(dev, name_power):
             f"{[round(ln['total_loss'], 4) for ln in lines]}; test dump at "
             f"step 2: {len(names)} files, masked AdaIN with {valid} label(s) "
             "past the filter; B1/B2/B3 0/0/0")
-        text = _driver_run("test_torch.py", [
-            "--config", str(DEEPER_YAML), "--device", "cuda", "--set",
-            *paths])
-        if _dump_names(out / "test" / "test_output") != sorted(names) \
-                or "Loaded checkpoint" not in text:
-            raise AssertionError(f"deeper test_torch.py:\n{text[-3000:]}")
-        log("55 deeper yaml", f"test_torch.py on checkpoint 3: the same "
-            f"{len(names)} files")
     vgg = _5b_vgg(dev, 1)
     rng = np.random.default_rng(55)
     for dt in ("float32", "bfloat16"):
@@ -6911,8 +6972,8 @@ def _accum_remat(dev, name_power):
     loss and float32 gradients held to grad_accum 1's (no BatchNorm: the
     full batch's; 1e-4 of max + 5e-3 x |value|; with remat alone 1e-6 of
     max), step time and peak memory; the SE flagship yaml's model (64px
-    b2, BatchNorm) with remat against the plain step: loss parts, gradients
-    and running statistics (moved once); spade's b4 float32 step at
+    b2, BatchNorm) in float64 with remat against the plain step: loss
+    parts, gradients (1e-5 of max) and running statistics (moved once); spade's b4 float32 step at
     bench.py's widths (phase 43's, whose b4 f32 step outgrew 80 GB) with
     grad_accum 4: one step, its time and peak memory. Returns the B1 / B2 /
     B3 launches of the timed flagship steps."""
@@ -6928,21 +6989,28 @@ def _accum_remat(dev, name_power):
             .to(dev) for _ in range(2))
     total = [0, 0, 0]
 
-    def run(cfg, c, s, steps, timed):
+    def run(cfg, c, s, steps, timed, f64=False):
         """``steps`` train steps of a bundle of ``cfg`` (seeded by
-        init_torch_default) or of ``cfg()``, a bundle factory."""
+        init_torch_default) or of ``cfg()``, a bundle factory; ``f64``:
+        the model, VGG and images in float64."""
         if callable(cfg):
             b = cfg()
         else:
             b = build_model(cfg, dev)
             init_torch_default(b.model, 0)
+        enc = vgg
+        if f64:
+            b.model.double()
+            enc = copy.deepcopy(vgg).double()
+            c, s = c.double(), s.double()
         state = create_train_state(b)
         first, losses = {}, []
 
         def keep(optimizer, args, kwargs):
             if not first:
-                first.update({n: p.grad.detach().float().clone()
-                              for n, p in b.model.named_parameters()})
+                first.update({n: p.grad.detach().to(torch.promote_types(
+                    p.grad.dtype, torch.float32)).clone()
+                    for n, p in b.model.named_parameters()})
         hook = state.optimizer.register_step_pre_hook(keep)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -6952,7 +7020,7 @@ def _accum_remat(dev, name_power):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            parts = train_step(state, vgg, c, s)
+            parts = train_step(state, enc, c, s)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
@@ -7015,23 +7083,33 @@ def _accum_remat(dev, name_power):
                  content_weight=1.0, style_weight=1.0)
     cs, ss = (torch.from_numpy(rng.random((2, 64, 64, 3), np.float32))
               .to(dev) for _ in range(2))
-    plain = run(load_config(small), cs, ss, 1, False)
-    rem = run(load_config(dict(small, remat=True)), cs, ss, 1, False)
+    # in float64: the float32 step moves by 7e-6 to 1.1e-5 of max between
+    # two runs of itself on the card (the VGG max-pool backward's atomics),
+    # the limit's size; float64 keeps that noise ~1e-15 (ROADMAP.md section C)
+    plain = run(load_config(small), cs, ss, 1, False, f64=True)
+    again = run(load_config(small), cs, ss, 1, False, f64=True)
+    rem = run(load_config(dict(small, remat=True)), cs, ss, 1, False,
+              f64=True)
+    spread = max(float((again[3][n] - g).abs().max())
+                 / max(float(g.abs().max()), 1e-30)
+                 for n, g in plain[3].items())
     worst = 0.0
     for n, g in plain[3].items():
         size = float(g.abs().max())
         e = float((rem[3][n] - g).abs().max())
         if not e <= 1e-5 * size:
-            raise AssertionError(f"SE remat gradient {n}: {e / size:.3g} x max")
+            raise AssertionError(f"SE remat gradient {n}: {e / size:.3g} x "
+                                 f"max")
         worst = max(worst, e / size)
     stat = max(float((rem[5][n] - v).abs().max()) for n, v in plain[5].items())
     loss = abs(rem[4][0]["total_loss"] - plain[4][0]["total_loss"])
     if not (stat <= 1e-6 and loss <= 1e-6 * abs(plain[4][0]["total_loss"])):
         raise AssertionError(f"SE remat vs plain: statistics {stat}, loss "
                              f"{loss}")
-    log("56 accum/remat", f"SE flagship (BatchNorm) 64px b2 remat vs plain: "
-        f"total_loss off by {loss:.3g}, gradients worst {worst:.3g} x max, "
-        f"running statistics {stat:.3g} (moved once)")
+    log("56 accum/remat", f"SE flagship (BatchNorm) 64px b2 float64 remat vs "
+        f"plain: total_loss off by {loss:.3g}, gradients worst {worst:.3g} x "
+        f"max (limit 1e-5; plain vs plain {spread:.3g}), running statistics "
+        f"{stat:.3g} (moved once)")
     cs, ss = (torch.from_numpy(rng.random((4, IMG, IMG, 3), np.float32))
               .to(dev) for _ in range(2))
     ms, peak, counts, _, losses, _ = run(
@@ -7053,6 +7131,15 @@ def _accum_remat(dev, name_power):
 # the halo kernels under rpst's gate (4C and 4Co multiples of 128)
 HALO_SHAPE = (1, 128, 256, 128, 128)
 SPATIAL_NETS = ("multi_adain", "sel_multi_adain", "ccam")
+# phase 58's train steps on a mesh, (key, network, axis, px, global batch,
+# grad_accum): the flagship on {data: 2} (the data-parallel gradient average)
+# and sel_multi_adain there (BatchNorm over the global batch), both with
+# rpst's global microbatches (``redeal_microbatches``); sel_multi_adain's and
+# ccam's row-sharded steps with BatchNorm running statistics on {spatial: 2}
+MESH_STEPS_58 = (("d2", "multi_adain", "data", IMG, 4, 2),
+                 ("d2_sel", "sel_multi_adain", "data", 256, 4, 2),
+                 ("s2_sel", "sel_multi_adain", "spatial", 256, 2, 1),
+                 ("s2_ccam", "ccam", "spatial", 256, 2, 1))
 # the spatial fixture's points (tools/make_torch_port_fixture.py
 # spatial_sources(): the flagship train fixture and the two slice-4 ones)
 SPATIAL_SRC = {
@@ -7238,15 +7325,15 @@ def _corner(g):
     return g[:8, :8].contiguous() if g.ndim >= 2 else g
 
 
-def _flagship_512(dev, network="multi_adain", **over):
-    """A seeded full-width bundle of ``network`` at 512px (folded, f32, or
-    as ``over`` says) and a b2 batch."""
+def _flagship_512(dev, network="multi_adain", size=IMG, n=2, **over):
+    """A seeded full-width bundle of ``network`` at ``size`` px (512 by
+    default; folded, f32, or as ``over`` says) and a batch of ``n``."""
     import numpy as np
     import torch
     from rpst_torch.config import load_config
     from rpst_torch.models import build_model, build_vgg
     from rpst_torch.nn.blocks import init_torch_default
-    cfg = load_config({**SPATIAL_SRC[network][1], "img_size": IMG,
+    cfg = load_config({**SPATIAL_SRC[network][1], "img_size": size,
                        "exec_strategy": "folded", "lr": 1e-4,
                        "lr_decay": 0.0, **over})
     bundle = build_model(cfg, dev)
@@ -7257,7 +7344,7 @@ def _flagship_512(dev, network="multi_adain", **over):
                 m.scale.fill_(0.3 + 0.1 * i)
     vgg, _ = build_vgg(cfg, dev)
     rng = np.random.default_rng(58)
-    c, s = (torch.from_numpy(rng.random((2, IMG, IMG, 3), np.float32))
+    c, s = (torch.from_numpy(rng.random((n, size, size, 3), np.float32))
             .to(dev) for _ in range(2))
     bundle.model.train()
     return bundle, vgg, c, s
@@ -7284,14 +7371,64 @@ def _mesh_step(bundle, vgg, c, s, mesh):
             state.schedule(0))
 
 
+def _run_mesh_steps(res, dev, s2, steps):
+    """One rank's half of ``steps`` (``MESH_STEPS_58``' form) into ``res``:
+    each step's loss, the gradients the optimizer stepped on, the
+    parameters before and after, the buffers, and where grad_accum > 1 the
+    time of ``redeal_microbatches`` on this rank's batch share; then the
+    median of 3 re-deals (after one) of a 512px b8 global batch on {data:
+    2} at grad_accum 2."""
+    import torch
+    from rpst_torch.dist import make_mesh, shard_batch
+    from rpst_torch.train.step import redeal_microbatches
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    d2 = make_mesh({"data": 2}, dev)
+    for key, net, axis, size, n, accum in steps:
+        mesh = d2 if axis == "data" else s2
+        bundle, vgg, c, s = _flagship_512(dev, net, size, n, grad_accum=accum)
+        c_l, s_l = (shard_batch(t, mesh, spatial=axis == "spatial")
+                    for t in (c, s))
+        if accum > 1:
+            sync()
+            t0 = time.perf_counter()
+            redeal_microbatches(c_l, mesh, accum)
+            sync()
+            res[f"{key}/redeal_s"] = torch.tensor(time.perf_counter() - t0)
+        total, grads, before, after, buffers, lr = _mesh_step(
+            bundle, vgg, c_l, s_l, mesh)
+        res[f"{key}/total_loss"] = torch.tensor(total)
+        res[f"{key}/lr"] = torch.tensor(lr)
+        for n_, g in grads.items():
+            res[f"{key}/grads/{n_}"] = g
+            res[f"{key}/before/{n_}"] = before[n_]
+            res[f"{key}/after/{n_}"] = after[n_]
+        for n_, b in buffers.items():
+            res[f"{key}/buffers/{n_}"] = b
+        del bundle, vgg, c, s, c_l, s_l, grads, before, after, buffers
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    # the re-deal alone at a 512px b8 step's size (4 images a rank)
+    x = torch.rand(4, IMG, IMG, 3, device=dev)
+    times = []
+    for _ in range(4):
+        sync()
+        t0 = time.perf_counter()
+        redeal_microbatches(x, d2, 2)
+        sync()
+        times.append(time.perf_counter() - t0)
+    res["redeal_b8_s"] = torch.tensor(statistics.median(times[1:]))
+
+
 def spatial_rank(rank, init, out_dir):
     """Phase 58, one rank (``python3 chip_smoke.py --spatial-rank R INIT
     OUT``): joins the other rank over gloo on the one card and runs
     the row-sharded paths: the fixture's three networks at 64px on
-    {spatial: 2} (stylize, loss, gradient corners); the flagship at 512px
-    b2 (stylize and a train step on {spatial: 2}, a train step on {data:
-    2}); sel_multi_adain and ccam train steps on {spatial: 2}. Saves
-    ``<out>/rank<r>.pt``: the results and this rank's launch counts."""
+    {spatial: 2} (stylize, loss, gradient corners); the flagship's 512px
+    b2 stylize on {spatial: 2}; the ``MESH_STEPS_58`` train steps (the
+    gradients the optimizer stepped on, the parameters before and after,
+    the buffers; ``redeal_microbatches``' time where grad_accum > 1).
+    Saves ``<out>/rank<r>.pt``: the results and this rank's launch
+    counts."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(REPO / "src"))
@@ -7306,7 +7443,6 @@ def spatial_rank(rank, init, out_dir):
     res = {}
     try:
         s2 = make_mesh({"spatial": 2}, dev)
-        d2 = make_mesh({"data": 2}, dev)
         _reset_counts()
         for net in SPATIAL_NETS:
             bundle, vgg, c, s = _spatial_fixture_bundle(net, dev)
@@ -7326,28 +7462,7 @@ def spatial_rank(rank, init, out_dir):
         res["512/out"] = stylize_spatial(bundle, c_l, s_l, s2)
         torch.cuda.synchronize()
         res["512/stylize_s"] = torch.tensor(time.perf_counter() - t0)
-        for key, mesh in (("512/s2", s2), ("512/d2", d2)):
-            bundle, vgg, c, s = _flagship_512(dev)
-            sp = mesh is s2
-            c_l, s_l = (shard_batch(t, mesh, spatial=sp) for t in (c, s))
-            total, grads, before, after, _, lr = _mesh_step(bundle, vgg, c_l,
-                                                            s_l, mesh)
-            res[f"{key}/total_loss"] = torch.tensor(total)
-            res[f"{key}/lr"] = torch.tensor(lr)
-            for n in grads:
-                res[f"{key}/grads/{n}"] = grads[n]
-                res[f"{key}/before/{n}"] = before[n]
-                res[f"{key}/after/{n}"] = after[n]
-        for net in ("sel_multi_adain", "ccam"):
-            bundle, vgg, c, s = _flagship_512(dev, net)
-            c_l, s_l = (shard_batch(t, s2, spatial=True) for t in (c, s))
-            total, grads, _, _, buffers, _ = _mesh_step(bundle, vgg, c_l, s_l,
-                                                        s2)
-            res[f"512/{net}/total_loss"] = torch.tensor(total)
-            for n, g in grads.items():
-                res[f"512/{net}/grads/{n}"] = g
-            for n, b in buffers.items():
-                res[f"512/{net}/buffers/{n}"] = b
+        _run_mesh_steps(res, dev, s2, MESH_STEPS_58)
         torch.cuda.synchronize()
         cnt = _counters()
         res["counts"] = torch.tensor([
@@ -7379,6 +7494,69 @@ def _check_grad_rule(label, got, ref, own, rel=4.0):
     return worst
 
 
+def _check_mesh_steps(res, dev, steps):
+    """Both ranks' ``_run_mesh_steps`` results (``res``) against the
+    one-device steps (``_spatial_ranks`` states the rule); logs a line a
+    step."""
+    import numpy as np
+    import torch
+    for key, net, axis, size, n, accum in steps:
+        b, v, c, s = _flagship_512(dev, net, size, n, grad_accum=accum)
+        one = _mesh_step(b, v, c, s, None)
+        loss = float(res[0][f"{key}/total_loss"])
+        if not np.isclose(loss, one[0], rtol=LOSS_RTOL):
+            raise AssertionError(f"58 {key} loss {loss} vs {one[0]}")
+        got = {n_[len(f"{key}/grads/"):]: t for n_, t in res[0].items()
+               if n_.startswith(f"{key}/grads/")}
+        own = {}
+        if net != "multi_adain":
+            # the float32 noise of these gradients (the BatchNorm backward
+            # and the CCAM softmax amplify it): the one-device folded step
+            # against the one-device standard step (cuDNN), the same function
+            b, v, c, s = _flagship_512(dev, net, size, n, grad_accum=accum,
+                                       exec_strategy="standard")
+            std = _mesh_step(b, v, c, s, None)[1]
+            own = {n_: float((one[1][n_] - g).abs().max())
+                   for n_, g in std.items() if n_ in one[1]}
+        worst = _check_grad_rule(f"58 {key}", got, one[1], own)
+        lr = float(res[0][f"{key}/lr"])
+        adam = 0.0
+        for n_, g in got.items():
+            before = res[0][f"{key}/before/{n_}"]
+            expect = before - lr * g / (g.abs() + 1e-8)
+            for r in range(2):
+                if not torch.equal(res[r][f"{key}/after/{n_}"],
+                                   res[0][f"{key}/after/{n_}"]):
+                    raise AssertionError(f"58 {key} {n_}: ranks differ")
+            adam = max(adam, float((res[0][f"{key}/after/{n_}"]
+                                    - expect).abs().max()))
+        if not adam <= 1e-6:
+            raise AssertionError(f"58 {key}: Adam step off by {adam}")
+        stat = 0.0
+        for n_, buf in one[4].items():
+            for r in range(2):
+                a = res[r][f"{key}/buffers/{n_}"]
+                if not torch.allclose(a, buf.cpu(), rtol=1e-4, atol=1e-5):
+                    raise AssertionError(f"58 {key} buffer {n_} rank {r}")
+                stat = max(stat, float((a - buf.cpu()).abs().max()))
+        redeal = ""
+        if accum > 1:
+            ms = float(res[0][f"{key}/redeal_s"]) * 1e3
+            redeal = (f", redeal_microbatches {ms:.2f} ms on rank 0 "
+                      f"({n // 2} images of {size}px a rank, gloo)")
+        log("58 spatial", f"{net} {size}px b{n} grad_accum {accum} step on "
+            f"{{{axis}: 2}}: loss {loss:.6g} (one device {one[0]:.6g}), "
+            f"gradients worst {worst:.3g} x max, the Adam step the rule on "
+            f"them (off by {adam:.3g}), ranks bit-equal, running statistics "
+            f"within {stat:.3g}{redeal}")
+        del b, v, c, s, one
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log("58 spatial", f"redeal_microbatches of a {IMG}px b8 global batch on "
+        f"{{data: 2}} at grad_accum 2 (4 images a rank, gloo): "
+        f"{float(res[0]['redeal_b8_s']) * 1e3:.2f} ms on rank 0 (median of 3)")
+
+
 def _spatial_ranks(dev, name_power):
     """Phase 58: two ranks on the one card over gloo (``spatial_rank``)
     against the one-device folded path on the card, and against rpst's
@@ -7386,12 +7564,15 @@ def _spatial_ranks(dev, name_power):
     2}): stylize 1e-4; loss parts rtol 1e-4; float32 gradients within
     rtol 5e-3 and 4 x the larger own float32 error (rpst's: its float32
     against its float64; the port's: the card's against its one-device
-    float64 on the CPU), at least 1e-4 of the max; the 512px steps'
-    gradients against the one-device step's by phase 9's rule (rtol 5e-3,
-    1e-4 of the max); each rank's Adam step the optimizer's rule on those
-    averaged gradients, the two ranks bit-equal; sel_multi_adain's running
-    statistics (rtol 1e-4, atol 1e-5). Returns the launch counts of both
-    ranks together."""
+    float64 on the CPU), at least 1e-4 of the max; the flagship's 512px
+    stylize on {spatial: 2} against one device's, 1e-4; each
+    ``MESH_STEPS_58`` step against the one-device step of the same global
+    batch and grad_accum by phase 9's rule (loss rtol 1e-4; gradients rtol
+    5e-3, 1e-4 of the max, or for sel_multi_adain and ccam 4 x their own
+    float32 noise, the one-device folded step against the standard one),
+    each rank's Adam step the optimizer's rule on those gradients, the two
+    ranks bit-equal, the running statistics rtol 1e-4, atol 1e-5. Returns
+    the launch counts of both ranks together."""
     import numpy as np
     import torch
     from rpst_torch.bridge import from_flax_params, from_flax_batch_stats
@@ -7472,54 +7653,10 @@ def _spatial_ranks(dev, name_power):
         ref_out = bundle.stylize(c, s)
     err, _ = check_close("58 512 stylize", cat_rows("512/out"), ref_out.cpu(),
                          F32_TOL)
-    single = _mesh_step(bundle, vgg, c, s, None)
-    for key in ("512/s2", "512/d2"):
-        loss = float(res[0][f"{key}/total_loss"])
-        if not np.isclose(loss, single[0], rtol=LOSS_RTOL):
-            raise AssertionError(f"58 {key} loss {loss} vs {single[0]}")
-        got = {n[len(f"{key}/grads/"):]: v for n, v in res[0].items()
-               if n.startswith(f"{key}/grads/")}
-        worst = _check_grad_rule(f"58 {key}", got, single[1], {})
-        lr = float(res[0][f"{key}/lr"])
-        for n, g in got.items():
-            before = res[0][f"{key}/before/{n}"]
-            expect = before - lr * g / (g.abs() + 1e-8)
-            for r in range(2):
-                if not torch.equal(res[r][f"{key}/after/{n}"],
-                                   res[0][f"{key}/after/{n}"]):
-                    raise AssertionError(f"58 {key} {n}: ranks differ")
-            e = float((res[0][f"{key}/after/{n}"] - expect).abs().max())
-            if not e <= 1e-6:
-                raise AssertionError(f"58 {key} {n}: Adam step off by {e}")
-        log("58 spatial", f"flagship {IMG}px b2 {key[4:]}: loss {loss:.6g} "
-            f"(one device {single[0]:.6g}), gradients worst {worst:.3g} x "
-            f"max, the Adam step the rule on them, ranks bit-equal")
-    for net in ("sel_multi_adain", "ccam"):
-        b, v, c2, s2_ = _flagship_512(dev, net)
-        one = _mesh_step(b, v, c2, s2_, None)
-        loss = float(res[0][f"512/{net}/total_loss"])
-        if not np.isclose(loss, one[0], rtol=LOSS_RTOL):
-            raise AssertionError(f"58 {net} loss {loss} vs {one[0]}")
-        got = {n[len(f"512/{net}/grads/"):]: t for n, t in res[0].items()
-               if n.startswith(f"512/{net}/grads/")}
-        # the float32 noise of these gradients (the BatchNorm backward, the
-        # CCAM softmax amplify it): the one-device folded path against the
-        # one-device standard path (cuDNN), the same function
-        std, v, c2, s2_ = _flagship_512(dev, net, exec_strategy="standard")
-        std.loss(v, c2, s2_)[0].backward()
-        own = {n: float((one[1][n] - p.grad).abs().max())
-               for n, p in std.model.named_parameters() if n in one[1]}
-        worst = _check_grad_rule(f"58 {net}", got, one[1], own)
-        stat = 0.0
-        for n, buf in one[4].items():
-            for r in range(2):
-                a = res[r][f"512/{net}/buffers/{n}"]
-                if not torch.allclose(a, buf.cpu(), rtol=1e-4, atol=1e-5):
-                    raise AssertionError(f"58 {net} buffer {n} rank {r}")
-                stat = max(stat, float((a - buf.cpu()).abs().max()))
-        log("58 spatial", f"{net} {IMG}px b2 {{spatial: 2}} step: loss "
-            f"{loss:.6g} (one device {one[0]:.6g}), gradients worst "
-            f"{worst:.3g} x max, running statistics within {stat:.3g}")
+    log("58 spatial", f"flagship {IMG}px b2 stylize on {{spatial: 2}} vs one "
+        f"device: max abs err {err:.3g}")
+    del bundle, vgg, c, s, ref_out
+    _check_mesh_steps(res, dev, MESH_STEPS_58)
     counts = [int(x) for x in (res[0]["counts"] + res[1]["counts"])]
     log("58 spatial", f"two ranks over gloo on the one card: {wall:.1f}s "
         f"wall (shared card: no scaling figure); launches of both ranks "
@@ -7582,8 +7719,648 @@ def _spatial_train_cli(dev):
         return a, b
 
 
+# ---------------------------------------------------------------------------
+# slice 8b: row-sharded SANet serving, the model axis, the daemon over ranks
+# ---------------------------------------------------------------------------
+
+SLICE8B_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_slice8b.npz"
+# the fixture's SANet cases (tools/make_torch_port_fixture.py SANET_SPATIAL)
+SANET_8B = {"sanet_f32": ("sanet", "aea", "float32"),
+            "sanet_bf16": ("sanet", "aea", "bfloat16"),
+            "dynamic_sanet_aea": ("dynamic_sanet", "aea", "float32"),
+            "dynamic_sanet_relu": ("dynamic_sanet", "relu", "float32")}
+# the 512px row-sharded cases of phase 60
+SANET_8B_512 = ("sanet_f32", "sanet_bf16", "dynamic_sanet_relu")
+# B6a on one row share of a 512px relu4_1 on {spatial: 2}
+B6_SHARD_SHAPE = (1, 2048, 4096, 512)
+# the flagship's layer at the model axis's share width: (N, Hf, Wf, 4C ->
+# 4Co / 2) at 512px, hidden 32 on {model: 2}
+TP_SHARE_SHAPE = (1, 256, 256, 128, 64)
+# the aea module's limit (its sigmoid at scale 50 amplifies the thresholds'
+# float32 rounding; tests/test_torch_dynamic_sanet.py holds rpst's aea
+# stylize to it)
+AEA_TOL = 1e-3
+# the sanet step on {model: 2}: image size, and its gradients' limit as a
+# share of the model's largest gradient (one device's own float32 step moves
+# by 3-6e-4 of it between 1 and 4 CPU threads at tests/test_torch_tp.py's
+# widths)
+SANET_TP_SIZE = 256
+SANET_TP_GRAD_REL = 1e-3
+
+
+def _sanet_case(case, size, dev, seed=0):
+    """(bundle, content, style) of a SANET_8B case at ``size`` px, batch 1:
+    weights from the bridge's seeds, the 5-stage VGG from
+    ``vgg_weights_from_seed(1, 5)``, the images numpy's ``default_rng(seed)``
+    (the fixture's point at 64px)."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import (dynamic_sanet_weights_from_seed,
+                                   from_flax_params, sanet_weights_from_seed,
+                                   vgg_from_flax, vgg_weights_from_seed)
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.vgg import VGG19Encoder
+    net, ada, dt = SANET_8B[case]
+    cfg = load_config(dict(network=net, ada_module=ada, img_size=size,
+                           vgg="", compute_dtype=dt,
+                           adaptive_blockwise="always"))
+    bundle = build_model(cfg, dev)
+    tree = (sanet_weights_from_seed(seed) if net == "sanet"
+            else dynamic_sanet_weights_from_seed(seed, size))
+    bundle.load_state_dict(from_flax_params(tree))
+    vgg = VGG19Encoder(num_stages=5)
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(1, 5)))
+    bundle.vgg = vgg.to(dev)
+    gen = np.random.default_rng(seed)
+    c, s = (torch.from_numpy(gen.random((1, size, size, 3), dtype=np.float32))
+            .to(dev) for _ in range(2))
+    return bundle, c, s
+
+
+def _sanet_tp_case(dev):
+    """(bundle, vgg, content, style) of the sanet step on {model: 2}:
+    configs/train_static_sanet.yaml at ``SANET_TP_SIZE`` px, batch 1, in
+    float32 (the yaml trains under bfloat16 autocast), the sanet fixture's
+    weights (``bridge.sanet_weights_from_seed(0)``, VGG seed 1: under a torch
+    default init the stylized image's relu4_1 / relu5_1 channels have no
+    variance, and the normalized content loss's gradient then moves by 30%
+    of its size under a 1e-6 change of the weights), the images numpy's
+    ``default_rng(61)``."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import (from_flax_params, sanet_weights_from_seed,
+                                   vgg_from_flax, vgg_weights_from_seed)
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.vgg import VGG19Encoder
+    cfg = load_config(str(SANET_YAML), {
+        "img_size": SANET_TP_SIZE, "vgg": "", "batch_size": 1,
+        "lr_decay": 0.0, "compute_dtype": "float32"})
+    bundle = build_model(cfg, dev)
+    bundle.load_state_dict(from_flax_params(sanet_weights_from_seed(0)))
+    vgg = VGG19Encoder(num_stages=5)
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(1, 5)))
+    vgg = vgg.to(dev)
+    bundle.vgg = vgg
+    gen = np.random.default_rng(61)
+    c, s = (torch.from_numpy(gen.random(
+        (1, SANET_TP_SIZE, SANET_TP_SIZE, 3), np.float32)).to(dev)
+        for _ in range(2))
+    return bundle, vgg, c, s
+
+
+def _gathered_grads(model):
+    """Each parameter's gradient whole (a model axis's shares gathered),
+    by name; every rank of the axis calls it together."""
+    import torch
+    from rpst_torch.dist import tp
+    from rpst_torch.dist.collectives import all_gather
+    out = {}
+    for n, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        g, spec = p.grad.detach(), tp.spec_of(p)
+        out[n] = g.clone() if spec is None else torch.cat(
+            all_gather(g.contiguous(), spec.axis), dim=spec.dim)
+    return out
+
+
+def _tp_steps(bundle, vgg, c, s, mesh, steps, on_step1=None):
+    """``steps`` train_steps on ``mesh``'s model axis (the model already
+    sharded): per step the loss parts and this rank's B1 / B2 / B3 / B6b-d
+    launches; the step-1 gradients whole (``_gathered_grads``, taken
+    before the Adam step); the state."""
+    import torch
+    from rpst_torch.train.step import create_train_state, train_step
+    state = create_train_state(bundle, mesh=mesh)
+    seen = {}
+
+    def keep(opt, *_):
+        if not seen:
+            seen.update(_gathered_grads(bundle.model))
+    state.optimizer.register_step_pre_hook(keep)
+    cnt = _counters()
+    rows = []
+    for _ in range(steps):
+        _reset_counts()
+        parts = train_step(state, vgg, c, s)
+        torch.cuda.synchronize()
+        rows.append({"parts": {k: float(v) for k, v in parts.items()},
+                     "launches": [cnt[k].launches for k in
+                                  ("B1", "B2", "B3", "B6b", "B6c", "B6d")]})
+    return rows, seen, state
+
+
+def slice8b_rank(rank, init, out_dir):
+    """Phases 60-61, one rank (``python3 chip_smoke.py --slice8b-rank R INIT
+    OUT``): joins the other rank over gloo on the one card. Phase 60: the
+    fixture's SANet cases at 64px and three at 512px on {spatial: 2}
+    (``stylize_sanet_spatial``), each 512px stylize's B6a launches on this
+    rank. Phase 61 on {model: 2}: the flagship at 512px b2, 3 steps folded
+    and 3 standard (loss parts, launches per step, step-1 gradients whole,
+    the bytes this rank stores), the folded run's checkpoint (rank 0
+    writes) and its column-parallel stylize after the steps; one sanet
+    step at 256px b1. Saves ``<out>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO / "src"))
+    from rpst_torch.dist import make_mesh, shard_batch, tp
+    from rpst_torch.dist.collectives import all_gather
+    from rpst_torch.models.fast_path import live_folded_blocks
+    from rpst_torch.models.fast_path_spatial import stylize_sanet_spatial
+    from rpst_torch.ops.folded_conv import fused_folded_conv
+    from rpst_torch.train.checkpoint import save_checkpoint
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)  # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            world_size=2, rank=int(rank))
+    res = {}
+    try:
+        s2 = make_mesh({"spatial": 2}, dev)
+        ax = s2.axis("spatial")
+        cnt = _counters()
+        for case in SANET_8B:
+            b, c, s = _sanet_case(case, 64, dev)
+            y = stylize_sanet_spatial(b, shard_batch(c, s2, True),
+                                      shard_batch(s, s2, True), s2)
+            res[f"60/fx/{case}"] = torch.cat(all_gather(y, ax), dim=1)
+        for case in SANET_8B_512:
+            b, c, s = _sanet_case(case, IMG, dev)
+            c_l, s_l = shard_batch(c, s2, True), shard_batch(s, s2, True)
+            stylize_sanet_spatial(b, c_l, s_l, s2)  # warm-up
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = stylize_sanet_spatial(b, c_l, s_l, s2)
+            torch.cuda.synchronize()
+            res[f"60/512/{case}/ms"] = torch.tensor(
+                (time.perf_counter() - t0) * 1e3)
+            res[f"60/512/{case}/b6a"] = torch.tensor(
+                [cnt["B6a"].launches, cnt["B6a"].launches_bf16])
+            res[f"60/512/{case}/out"] = torch.cat(all_gather(y, ax), dim=1)
+            del b, c, s, c_l, s_l, y
+            torch.cuda.empty_cache()
+        m2 = make_mesh({"model": 2}, dev)
+        for strat in ("folded", "standard"):
+            bundle, vgg, c, s = _flagship_512(dev, exec_strategy=strat)
+            n_params = sum(p.numel() for p in bundle.model.parameters())
+            whole = (tp.stored_numel(bundle.model) + 2 * n_params) * 4
+            tp.shard_model(bundle.model, m2.axis("model"))
+            rows, grads, state = _tp_steps(bundle, vgg, c, s, m2, 3)
+            key = f"61/{strat}"
+            res[f"{key}/losses"] = torch.tensor(
+                [[r["parts"][k] for k in ("content_loss", "style_loss",
+                                          "total_loss")] for r in rows])
+            res[f"{key}/launches"] = torch.tensor(
+                [r["launches"] for r in rows])
+            res[f"{key}/bytes"] = torch.tensor(
+                [tp.stored_numel(bundle.model, state.optimizer) * 4, whole])
+            for n, g in grads.items():
+                res[f"{key}/grads/{n}"] = g
+            if strat == "folded":
+                path = save_checkpoint(Path(out_dir) / "ckpt", state,
+                                       write=int(rank) == 0)
+                res["61/ckpt"] = torch.tensor(list(path.encode()),
+                                              dtype=torch.uint8)
+                bundle.model.eval()
+                with torch.no_grad():
+                    res["61/tp_out"] = bundle.stylize_folded(
+                        live_folded_blocks(bundle.model, torch.float32),
+                        None, c, s, torch.float32,
+                        conv=tp.folded_column(
+                            lambda x, k, b: fused_folded_conv(x, k, b, 0.2)))
+            del bundle, vgg, c, s, state, grads
+            torch.cuda.empty_cache()
+        bundle, vgg, c, s = _sanet_tp_case(dev)
+        tp.shard_model(bundle.model, m2.axis("model"))
+        bundle.model.train()
+        rows, grads, _ = _tp_steps(bundle, vgg, c, s, m2, 1)
+        res["61/sanet/total_loss"] = torch.tensor(
+            rows[0]["parts"]["total_loss"])
+        res["61/sanet/launches"] = torch.tensor(rows[0]["launches"])
+        for n, g in grads.items():
+            res[f"61/sanet/grads/{n}"] = g
+        dist.barrier()
+    finally:
+        torch.save({k: v.detach().cpu() for k, v in res.items()},
+                   Path(out_dir) / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _b6a_shard(dev, name_power):
+    """Phase 60's kernel check: B6a at ``B6_SHARD_SHAPE`` (one row share's
+    queries against the whole style), float32 and bfloat16, against its
+    plain version, timed beside it and beside F.scaled_dot_product_attention
+    (scale 1.0); the bound is the operations 4 Nq Nk C at the type's peak or
+    the bytes of q, k, v and O. Returns the kernels JSON numbers by type."""
+    import torch
+    from rpst_torch.ops import flash_attention as fa
+    n, nq, nk, c = B6_SHARD_SHAPE
+    out = {}
+    for dtype, tol, kind, size in ((torch.float32, F32_TOL, "f32", 4),
+                                   (torch.bfloat16, BF16_TOL, "bf16", 2)):
+        q, k, v, _ = _attention_inputs(dev, dtype, n, nq, nk, c)
+        with torch.no_grad():
+            o = fa.flash_fwd(q, k, v)
+            torch.cuda.synchronize()
+            ref, _ = fa.flash_fwd_lse_plain(q, k, v)
+            err, _ = check_close(f"60 B6a shard {kind}", o, ref, tol)
+            ms = cuda_ms(lambda: fa.flash_fwd(q, k, v), iters=10)
+            plain = cuda_ms(lambda: fa.flash_fwd_lse_plain(q, k, v),
+                            iters=3, warmup=1)
+            lib = cuda_ms(lambda: _sdpa(q, k, v), iters=10)
+        qb, kb = n * nq * c * size, n * nk * c * size
+        b_ms, b_by = bound_ms(4 * n * nq * nk * c, qb + 2 * kb + qb, kind)
+        log("60 sanet spatial", f"B6a one row share {B6_SHARD_SHAPE} {kind}: "
+            f"max abs err {err:.3g} vs plain (tol {tol}); {ms:.4f} ms vs "
+            f"plain {plain:.4f}, SDPA {lib:.4f}; bound {b_ms:.4f} ms by "
+            f"{b_by} ({100 * b_ms / ms:.1f}% of it; {name_power})")
+        out[kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        del q, k, v, o, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_share_kernels(dev, name_power):
+    """Phase 61's kernel check: B1, B2 and B3 (listed) at the flagship's
+    share width on {model: 2}, ``TP_SHARE_SHAPE`` f32 with a folded kernel,
+    against their plain versions, timed beside them and beside the library
+    call on the ring-padded folded tensor (F.conv2d, conv2d_input,
+    conv2d_weight); the bound ``folded_bound`` of the 36 listed blocks.
+    Returns the kernels JSON numbers per kernel."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    from rpst_torch.ops.folded import fold_bias, folded_reflect_pad
+    from rpst_torch.ops.folded_conv import (
+        fused_folded_conv, fused_folded_conv_grad_input,
+        fused_folded_conv_grad_input_plain, fused_folded_conv_grad_weight,
+        fused_folded_conv_grad_weight_plain, fused_folded_conv_plain)
+    g = torch.Generator().manual_seed(61)
+    n, h, w, c4, c4o = TP_SHARE_SHAPE
+    x, gz, khat = _grad_case(g, dev, n, h, w, c4, c4o, True)
+    kf = khat.flip(0, 1).transpose(2, 3).contiguous()
+    b = fold_bias(torch.randn(c4o // 4, generator=g).to(dev) * 0.1)
+    xp = folded_reflect_pad(x).permute(0, 3, 1, 2)
+    gp = gz.permute(0, 3, 1, 2)
+    wf = kf.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        y = fused_folded_conv(x, kf, b, 0.2)
+        dx = fused_folded_conv_grad_input(gz, khat)
+        torch.cuda.synchronize()
+        err = {"B1": check_close("61 B1 share", y, fused_folded_conv_plain(
+                   x, kf, b, 0.2), F32_TOL)[0],
+               "B2": check_close("61 B2 share", dx,
+                                 fused_folded_conv_grad_input_plain(gz, khat),
+                                 F32_TOL)[0],
+               "B3": _check_b3("61 share f32", x, gz,
+                               DK_ATOL_512 * (n * h * w / 512) ** 0.5)}
+        t = {"B1": (lambda: fused_folded_conv(x, kf, b, 0.2),
+                    lambda: fused_folded_conv_plain(x, kf, b, 0.2),
+                    lambda: F.conv2d(xp, wf, b)),
+             "B2": (lambda: fused_folded_conv_grad_input(gz, khat),
+                    lambda: fused_folded_conv_grad_input_plain(gz, khat),
+                    lambda: conv2d_input(xp.shape, wf, gp)),
+             "B3": (lambda: fused_folded_conv_grad_weight(x, gz, True),
+                    lambda: fused_folded_conv_grad_weight_plain(x, gz, True),
+                    lambda: conv2d_weight(xp, (c4o, c4, 3, 3), gp))}
+        out = {}
+        bnd = folded_bound(n, h, w, c4, c4o, "f32", 4, True)
+        for key, (kern, plain, lib) in t.items():
+            ms, p_ms, l_ms = (cuda_ms(kern), cuda_ms(plain, iters=5),
+                              cuda_ms(lib))
+            log("61 model axis", f"{key} at the share width {TP_SHARE_SHAPE}"
+                f" f32 folded: max abs err {err[key]:.3g} vs plain; "
+                f"{ms:.4f} ms vs plain {p_ms:.4f}, library {l_ms:.4f}; "
+                f"bound {bnd[0]:.4f} ms by {bnd[1]} ({100 * bnd[0] / ms:.1f}% "
+                f"of it; {name_power})")
+            out[key] = {"max_abs_err": err[key], "ms": ms, "plain_ms": p_ms,
+                        "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "library_ms": l_ms}
+    return out
+
+
+def _slice8b_ranks(dev, name_power):
+    """Phases 60-61: two ranks on the one card over gloo
+    (``slice8b_rank``), checked here against the one-device paths on the
+    card and rpst's fixture. 60: the 64px cases against rpst's
+    ``stylize_sanet_spatial`` (float32 1e-4, aea 1e-3, bfloat16 MAE 1e-2 or
+    3x rpst's own bfloat16 distance); at 512px float32 against the
+    one-device stylize (1e-4; dynamic_sanet streamed), bfloat16 against the
+    same bfloat16 function on one device (MAE 1e-2, or 3x its own bfloat16
+    distance from the float32 stylize); 2 B6a a sanet stylize
+    a rank (the bfloat16 kernel in bfloat16), 0 for dynamic_sanet. 61: the
+    {model: 2} steps' loss parts (rtol 1e-5) and step-1 gradients (rtol
+    5e-3, 1e-4 of each tensor's max: phase 9's rule) against the one-device
+    step, 23 / 17 / 15 B1 / B2 / B3 a folded step a rank, the checkpoint
+    served by one device equal to the ranks' column-parallel stylize
+    (1e-4), and by ``serve_torch.py --weights`` within one uint8 step; the
+    sanet step's gradients within ``SANET_TP_GRAD_REL`` of the largest and
+    6 / 6 / 6 B6b-d a rank.
+    Returns the launch counts for the kernels JSON."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rpst_torch.bridge import load_weights
+    from rpst_torch.dist import make_mesh
+    from rpst_torch.models.fast_path_spatial import stylize_sanet_spatial
+    torch.cuda.empty_cache()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--slice8b-rank",
+         str(r), str(tmp / "init"), str(tmp)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=str(REPO))
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("phases 60-61 ranks failed:\n" + "\n".join(
+            f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(logs)))
+    res = [torch.load(tmp / f"rank{r}.pt", weights_only=True)
+           for r in range(2)]
+    log("time", f"phases 60-61 ranks {time.perf_counter() - t0:.1f}s")
+    counts = {"B6a": 0, "B6a_bf16": 0, "B1": 0, "B2": 0, "B3": 0, "B6b": 0,
+              "B6c": 0, "B6d": 0}
+    # ---- 60 ---------------------------------------------------------------
+    with np.load(SLICE8B_FIXTURE) as npz:
+        fx = {k: npz[k] for k in npz.files if k.endswith("/out")}
+    own = float(np.abs(fx["sanet_bf16/out"] - fx["sanet_f32/out"]).mean())
+    for case in SANET_8B:
+        got = res[0][f"60/fx/{case}"]
+        if not torch.equal(got, res[1][f"60/fx/{case}"]):
+            raise AssertionError(f"60 fixture {case}: the ranks differ")
+        ref = torch.from_numpy(fx[f"{case}/out"])
+        if case == "sanet_bf16":
+            mae = float((got - ref).abs().mean())
+            if not mae <= max(1e-2, 3 * own):
+                raise AssertionError(f"60 fixture {case}: MAE {mae}")
+            text = f"MAE {mae:.3g} (limit {max(1e-2, 3 * own):.3g})"
+        else:
+            tol = AEA_TOL if case == "dynamic_sanet_aea" else F32_TOL
+            err, _ = check_close(f"60 fixture {case}", got, ref, tol)
+            text = f"max abs err {err:.3g} (tol {tol})"
+        log("60 sanet spatial", f"{case} 64px on {{spatial: 2}} vs rpst's "
+            f"stylize_sanet_spatial: {text}")
+    for case in SANET_8B_512:
+        got = res[0][f"60/512/{case}/out"]
+        b, c, s = _sanet_case(case, IMG, dev)
+        with torch.inference_mode():
+            if case == "sanet_bf16":
+                ref = stylize_sanet_spatial(b, c, s, make_mesh(
+                    {"spatial": 1}, dev)).cpu()
+                b32, _, _ = _sanet_case("sanet_f32", IMG, dev)
+                own = float((b32.stylize(c, s).cpu() - ref).abs().mean())
+                del b32
+            else:
+                ref = b.stylize(c, s).cpu()
+        del b, c, s
+        torch.cuda.empty_cache()
+        if case == "sanet_bf16":
+            # the bf16 rule (ROADMAP section C): MAE 1e-2, or 3x the
+            # function's own bf16 distance (its bf16 against the f32
+            # stylize on one device)
+            mae = float((got - ref).abs().mean())
+            if not mae <= max(1e-2, 3 * own):
+                raise AssertionError(f"60 {case} 512: MAE {mae}, own "
+                                     f"bf16 distance {own}")
+            text = (f"MAE {mae:.3g} vs the same bf16 function on one device "
+                    f"(limit {max(1e-2, 3 * own):.3g}: its own bf16 "
+                    f"distance from f32 {own:.3g})")
+        else:
+            err, _ = check_close(f"60 {case} 512", got, ref, F32_TOL)
+            text = f"max abs err {err:.3g} vs the one-device stylize"
+        want = {"sanet_f32": [2, 0], "sanet_bf16": [2, 2],
+                "dynamic_sanet_relu": [0, 0]}[case]
+        per_rank = [res[r][f"60/512/{case}/b6a"].tolist() for r in range(2)]
+        if any(pr != want for pr in per_rank):
+            raise AssertionError(f"60 {case}: B6a launches (all, bf16) a "
+                                 f"rank {per_rank}, expected {want}")
+        counts["B6a"] += sum(pr[0] - pr[1] for pr in per_rank)
+        counts["B6a_bf16"] += sum(pr[1] for pr in per_rank)
+        log("60 sanet spatial", f"{case} {IMG}px b1 on {{spatial: 2}}: "
+            f"{text}; B6a launches (of them bf16) per rank {per_rank}; "
+            f"stylize {float(res[0][f'60/512/{case}/ms']):.1f} ms on rank 0 "
+            f"(two ranks share the card; {name_power})")
+    b6_shard = _b6a_shard(dev, name_power)
+    # ---- 61 ---------------------------------------------------------------
+    share = _tp_share_kernels(dev, name_power)
+    for strat in ("folded", "standard"):
+        key = f"61/{strat}"
+        bundle, vgg, c, s = _flagship_512(dev, exec_strategy=strat)
+        single = _mesh_step(bundle, vgg, c, s, None)
+        del bundle, vgg
+        for r in range(2):
+            loss = float(res[r][f"{key}/losses"][0, 2])
+            if not np.isclose(loss, single[0], rtol=1e-5):
+                raise AssertionError(f"61 {strat} rank {r} loss {loss} vs "
+                                     f"{single[0]}")
+            got = {n[len(f"{key}/grads/"):]: v for n, v in res[r].items()
+                   if n.startswith(f"{key}/grads/")}
+            worst = _check_grad_rule(f"61 {strat} rank {r}", got, single[1],
+                                     {})
+        launches = [res[r][f"{key}/launches"].tolist() for r in range(2)]
+        want = [23, 17, 15] if strat == "folded" else [0, 0, 0]
+        if any(row[:3] != want for per in launches for row in per):
+            raise AssertionError(f"61 {strat}: B1/B2/B3 launches per step "
+                                 f"a rank {launches}, expected {want}")
+        for i, k in enumerate(("B1", "B2", "B3")):
+            counts[k] += sum(row[i] for per in launches for row in per)
+        stored, whole = res[0][f"{key}/bytes"].tolist()
+        losses = res[0][f"{key}/losses"][:, 2].tolist()
+        log("61 model axis", f"flagship {IMG}px b2 {strat} on {{model: 2}}, "
+            f"3 steps: total_loss {[round(v, 6) for v in losses]} (one "
+            f"device's step 1 {single[0]:.6g}); step-1 gradients worst "
+            f"{worst:.3g} x max; B1/B2/B3 a step a rank "
+            f"{[per[0][:3] for per in launches]}; parameters + Adam state "
+            f"{stored / 2 ** 20:.2f} MiB a rank against {whole / 2 ** 20:.2f} "
+            f"MiB on one device")
+    ckpt = Path(res[0]["61/ckpt"].numpy().tobytes().decode())
+    bundle, _, c, s = _flagship_512(dev)
+    bundle.load_state_dict(load_weights(ckpt / "state.pt"))
+    bundle.model.eval()
+    with torch.inference_mode():
+        served = bundle.stylize(c, s).cpu()
+    err, _ = check_close("61 checkpoint served", served, res[0]["61/tp_out"],
+                         F32_TOL)
+    # serve_torch.py on one device reads the checkpoint
+    (tmp / "c").mkdir()
+    u8 = lambda t: (torch.clamp(t, 0, 1) * 255 + 0.5).to(  # noqa: E731
+        torch.uint8).cpu().numpy()
+    Image.fromarray(u8(c[0])).save(tmp / "c" / "c0.png")
+    Image.fromarray(u8(s[0])).save(tmp / "s.png")
+    cfg_path = tmp / "cfg.yaml"
+    cfg_path.write_text(json.dumps(dict(SPATIAL_SRC["multi_adain"][1],
+                                        img_size=IMG)))
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "serve_torch.py"), "--config",
+         str(cfg_path), "--content", str(tmp / "c"), "--style",
+         str(tmp / "s.png"), "--out", str(tmp / "srv"), "--mode", "folded",
+         "--batch", "1", "--device", "cuda", "--weights",
+         str(ckpt / "state.pt")], capture_output=True, text=True,
+        timeout=300, cwd=str(REPO))
+    if proc.returncode:
+        raise AssertionError(f"61 serve_torch --weights rc "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    png = np.asarray(Image.open(tmp / "srv" / "c0-s.png")).astype(int)
+    cu, su = (torch.from_numpy(np.asarray(Image.open(p))).to(dev)[None]
+              .float() / 255 for p in (tmp / "c" / "c0.png", tmp / "s.png"))
+    with torch.inference_mode():
+        want_png = u8(bundle.stylize(cu, su)[0]).astype(int)
+    step = int(np.abs(png - want_png).max())
+    if step > 1:
+        raise AssertionError(f"61 serve_torch PNG off by {step} steps")
+    del bundle
+    log("61 model axis", f"checkpoint {ckpt.name} (one-device layout) "
+        f"served by one device equals the ranks' column-parallel stylize: "
+        f"max abs err {err:.3g}; serve_torch.py --mode folded --weights "
+        f"state.pt within {step} uint8 step")
+    # the sanet step on {model: 2}
+    bundle, vgg, c, s = _sanet_tp_case(dev)
+    bundle.model.train()
+    single = _mesh_step(bundle, vgg, c, s, None)
+    # float32 decides here (softmax logits near 8 and the VGG's dead
+    # channels amplify rounding): each gradient within rtol 5e-3 and
+    # SANET_TP_GRAD_REL of the model's largest gradient, as
+    # tests/test_torch_tp.py holds the SANets on the CPU
+    largest = max(float(g.abs().max()) for g in single[1].values())
+    worst = 0.0
+    for r in range(2):
+        loss = float(res[r]["61/sanet/total_loss"])
+        if not np.isclose(loss, single[0], rtol=1e-5):
+            raise AssertionError(f"61 sanet rank {r} loss {loss} vs "
+                                 f"{single[0]}")
+        for n, ref in single[1].items():
+            got = res[r][f"61/sanet/grads/{n}"].double()
+            ref = ref.double().cpu()
+            err = float((got - ref).abs().max())
+            if not torch.allclose(got, ref, rtol=GRAD_RTOL,
+                                  atol=SANET_TP_GRAD_REL * largest):
+                raise AssertionError(f"61 sanet {n}: max abs err {err} "
+                                     f"({err / largest:.3g} of the largest "
+                                     "gradient)")
+            worst = max(worst, err / largest)
+    b6 = [res[r]["61/sanet/launches"].tolist()[3:] for r in range(2)]
+    if any(x != [6, 6, 6] for x in b6):
+        raise AssertionError(f"61 sanet: B6b/c/d launches a rank {b6}")
+    for i, k in enumerate(("B6b", "B6c", "B6d")):
+        counts[k] += sum(x[i] for x in b6)
+    log("61 model axis", f"sanet {SANET_TP_SIZE}px b1 on {{model: 2}}, one "
+        f"step: loss "
+        f"{float(res[0]['61/sanet/total_loss']):.6g} (one device "
+        f"{single[0]:.6g}), gradients worst {worst:.3g} of the largest "
+        f"(limit {SANET_TP_GRAD_REL}); B6b/c/d a rank {b6}")
+    tmp_dir.cleanup()
+    return counts, b6_shard, share
+
+
+def _mesh_daemon(dev):
+    """Phase 62: serve_torch.py --daemon --mesh 2 on the flagship folded at
+    512px, batch 2, its two ranks on the one card over {data: 2}: 4
+    requests over TCP, every PNG within one uint8 step of the one-device
+    folded stylize of the same images in this process (the weights
+    serve_torch.py seeds without --weights), and a shutdown that every rank
+    obeys (exit code 0)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.blocks import init_torch_default
+    rng = np.random.default_rng(62)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "content").mkdir()
+        (tmp / "style").mkdir()
+        for i in range(4):
+            Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                            "RGB").save(tmp / "content" / f"c{i}.png")
+        Image.fromarray(rng.integers(0, 256, (IMG, IMG, 3), np.uint8),
+                        "RGB").save(tmp / "style" / "s.png")
+        cfg_path = tmp / "cfg.yaml"
+        cfg_path.write_text(json.dumps(dict(FLAGSHIP, img_size=IMG)))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "serve_torch.py"), "--config",
+             str(cfg_path), "--content", str(tmp / "content"), "--style",
+             str(tmp / "style" / "s.png"), "--out", str(tmp / "mesh"),
+             "--mode", "folded", "--batch", "2", "--device", "cuda",
+             "--daemon", "--port", "0", "--max-wait-ms", "200", "--mesh",
+             "2"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=str(REPO))
+        try:
+            port, lines = None, []
+            deadline = time.time() + 300
+            while time.time() < deadline and port is None:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line)
+                if "DAEMON LISTENING" in line:
+                    port = int(line.split("DAEMON LISTENING")[1].split()[0]
+                               .rsplit(":", 1)[1])
+            if port is None:
+                raise AssertionError("62 daemon did not start:\n"
+                                     + "".join(lines[-40:]))
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=300) as sock:
+                f = sock.makefile("rw")
+                for i in range(4):
+                    f.write(json.dumps({"id": f"r{i}", "content": str(
+                        tmp / "content" / f"c{i}.png")}) + "\n")
+                f.flush()
+                replies = [json.loads(f.readline()) for _ in range(4)]
+                f.write(json.dumps({"cmd": "shutdown"}) + "\n")
+                f.flush()
+                if not json.loads(f.readline()).get("shutdown"):
+                    raise AssertionError("62: no shutdown reply")
+            rest, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or not all(r.get("ok") for r in replies):
+            raise AssertionError(f"62 daemon rc {proc.returncode}, replies "
+                                 f"{replies}:\n" + (rest or "")[-3000:])
+        cfg = load_config(str(cfg_path), {"exec_strategy": "folded"})
+        bundle = build_model(cfg, dev)
+        init_torch_default(bundle.model, cfg.seed)
+        u8 = lambda p: torch.from_numpy(np.asarray(  # noqa: E731
+            Image.open(p)).copy()).to(dev)[None].float() / 255
+        style = u8(tmp / "style" / "s.png")
+        step = 0
+        with torch.inference_mode():
+            for r in replies:
+                i = int(r["id"][1:])
+                y = bundle.stylize(u8(tmp / "content" / f"c{i}.png"), style)
+                want = (torch.clamp(y[0], 0, 1) * 255 + 0.5).to(
+                    torch.uint8).cpu().numpy().astype(int)
+                got = np.asarray(Image.open(r["out"])).astype(int)
+                step = max(step, int(np.abs(got - want).max()))
+        if step > 1:
+            raise AssertionError(f"62 mesh daemon PNGs off by {step} steps")
+    log("62 daemon", f"serve_torch.py --daemon --mesh 2 (flagship folded "
+        f"{IMG}px, batch 2, two ranks on the one card): 4 requests answered, "
+        f"every PNG within {step} uint8 step of the one-device folded "
+        f"stylize; shutdown stopped both ranks (exit 0); {wall:.1f}s wall "
+        f"with the ranks' start")
+
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--spatial-rank":
         spatial_rank(*sys.argv[2:])
+    elif len(sys.argv) == 5 and sys.argv[1] == "--slice8b-rank":
+        slice8b_rank(*sys.argv[2:])
     else:
         main()

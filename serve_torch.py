@@ -68,17 +68,23 @@ rpst checkpoint by ``tools/export_reference_checkpoint.py``) or an ``.npz``
 of flax parameter paths; without it the weights are seeded from the
 config's ``seed``, with a warning.
 
-``--mesh`` (rpst ``serve.py:99-133``) sweeps --content over ranks, one
-process each, which the command starts itself after building the CUDA
-kernels once (``rpst_torch.dist.launch``): ``--mesh N`` data parallel over
-N ranks, each stylizing its share of every batch, for every network;
-``--mesh data=a,spatial=b`` also shards image rows, the row-sharded folded
-stylize of multi_adain, sel_multi_adain and ccam (halo rows and all-reduced
-statistics; ``img_size % (4 * spatial) == 0``). Under a mesh ``--mode q8``
-gives way to folded with a warning, mst refuses a spatial axis, and the
-other networks on a spatial axis refuse naming ROADMAP.md section A slice
-8b; so does ``--daemon``, which serves one process. Rank 0 writes the
-images. Ranks share a card over gloo where they outnumber the GPUs.
+``--mesh`` (rpst ``serve.py:99-133``) sweeps --content, or serves the
+daemon, over ranks, one process each, which the command starts itself after
+building the CUDA kernels once (``rpst_torch.dist.launch``): ``--mesh N``
+data parallel over N ranks, each stylizing its share of every batch, for
+every network; ``--mesh data=a,spatial=b`` also shards image rows, the
+row-sharded folded stylize of multi_adain, sel_multi_adain and ccam (halo
+rows and all-reduced statistics; ``img_size % (4 * spatial) == 0``) and the
+row-sharded standard stylize of sanet and dynamic_sanet (``--mode
+standard``: halo VGG convs, B6 on each rank's query rows, in the config's
+compute_dtype; ``img_size % (32 * spatial) == 0``). Under a mesh ``--mode
+q8`` gives way to folded with a warning, mst refuses a spatial axis, the
+other standard-layout networks on a spatial axis refuse naming ROADMAP.md
+section A slice 8c, and a ``model`` axis raises ``ValueError`` (serving
+takes data and spatial, as rpst's). With ``--daemon`` rank 0 owns the
+socket and the batcher and sends each batch to every rank; ``{"cmd":
+"shutdown"}`` stops them all. Rank 0 writes the images. Ranks share a card
+over gloo where they outnumber the GPUs.
 
 Usage:
   python serve_torch.py --config cfg.yaml --content in/ --style style.png \
@@ -116,7 +122,7 @@ from rpst_torch.ops.folded_conv_q8 import fused_folded_conv_q8
 from rpst_torch.serving import (DynamicBatcher, calibrate_scales,
                                 gather_batch, make_mesh_run_impl,
                                 make_run_impl, mesh_mode, parse_mesh,
-                                resolve_mode, serve_daemon)
+                                resolve_mode, serve_daemon, serve_ranks)
 
 
 def _load_images(path: Path, img_size: int):
@@ -165,7 +171,8 @@ def main(argv=None):
                         help="N (data parallel over N ranks) or axis=size "
                         "pairs like data=2,spatial=2 (a spatial axis shards "
                         "image rows: the folded multi_adain, "
-                        "sel_multi_adain, ccam)")
+                        "sel_multi_adain, ccam; sanet and dynamic_sanet "
+                        "standard)")
     parser.add_argument("--set", nargs="*", default=[])
     # a rank's place, added by the command to the ranks it starts
     parser.add_argument("--rank-init", default="", help=argparse.SUPPRESS)
@@ -188,10 +195,6 @@ def main(argv=None):
     world = int(np.prod(list(mesh_shape.values())))
     mesh = None
     if world > 1:
-        if args.daemon:
-            raise NotImplementedError(
-                "--daemon serves one process; --mesh sweeps --content "
-                "(a daemon over ranks is ROADMAP.md section A slice 8b)")
         if args.batch % mesh_shape.get("data", 1):
             raise ValueError(f"--batch {args.batch} must divide by the data "
                              f"axis {mesh_shape.get('data', 1)}")
@@ -209,7 +212,9 @@ def main(argv=None):
             if rc:
                 raise SystemExit(f"serve_torch.py: a rank exited with {rc}")
             return
-        setup_distributed(args.rank_init, world, args.rank, device.type)
+        # a daemon's ranks wait in the next broadcast while it is idle
+        setup_distributed(args.rank_init, world, args.rank, device.type,
+                          timeout_s=7 * 86400.0 if args.daemon else 600.0)
         mesh = make_mesh(mesh_shape, rank_device(device.type))
         device = mesh.device
         if device.type == "cuda":
@@ -266,14 +271,26 @@ def main(argv=None):
     style_u8 = to_u8(styles[0][1])
 
     if args.daemon:
-        batcher = DynamicBatcher(run_u8, batch_size=args.batch,
-                                 max_wait_ms=args.max_wait_ms, device=device)
-        try:
-            serve_daemon(batcher, cfg.img_size, out_dir, port=args.port,
-                         default_style=style_u8, to_u8=to_u8)
-        finally:
-            batcher.close()
-        _log_launches()
+        run, follow, stop = (run_u8, None, None) if mesh is None \
+            else serve_ranks(run_u8, mesh)
+        if follow is not None and not is_main_process():
+            follow()  # until rank 0's daemon stops
+        else:
+            # on a mesh the batches stay on the host: rank 0 sends them
+            batcher = DynamicBatcher(
+                run, batch_size=args.batch, max_wait_ms=args.max_wait_ms,
+                device=device if mesh is None else "cpu")
+            try:
+                serve_daemon(batcher, cfg.img_size, out_dir, port=args.port,
+                             default_style=style_u8, to_u8=to_u8)
+            finally:
+                batcher.close()
+                if stop is not None:
+                    stop()
+            _log_launches()
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
         return
 
     style_dev = torch.from_numpy(style_u8)[None].to(device)

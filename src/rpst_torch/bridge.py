@@ -261,6 +261,28 @@ def _mirror_decoder_from_reference(dec) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def tp_shares(tree, index: int, tp: int, min_channels: int = 32) -> dict:
+    """A flax param tree (numpy, full shapes) cut to the shares of model
+    rank ``index`` of ``tp``: every leaf rpst's ``_tp_leaf_spec`` shards
+    (a 4-D kernel on its last dim, a 1-D vector, where that size divides by
+    ``tp`` and reaches ``min_channels``) sliced to this rank's part, the
+    rest whole. ``from_flax_params`` of it is what ``dist.tp.shard_model``
+    keeps on that rank."""
+    from .dist.tp import flax_leaf_spec
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out[k] = tp_shares(v, index, tp, min_channels)
+            continue
+        v = np.asarray(v)
+        dim = flax_leaf_spec(v.shape, tp, min_channels)
+        if dim is not None:
+            step = v.shape[dim] // tp
+            v = np.take(v, range(index * step, (index + 1) * step), axis=dim)
+        out[k] = v
+    return out
+
+
 def flax_tree_from_npz(npz) -> dict:
     """Flat ``a/b/c`` keys of an npz -> nested dict; keys without a ``/``
     (non-parameter arrays) are skipped, a leading ``params/`` is dropped."""
@@ -279,8 +301,10 @@ def flax_tree_from_npz(npz) -> dict:
 
 
 def load_weights(path) -> Dict[str, torch.Tensor]:
-    """A ``.pth`` reference checkpoint or an ``.npz`` of flax paths ->
-    port state_dict."""
+    """A ``.pth`` reference checkpoint, the port's own training checkpoint
+    (``<output>/checkpoints/<step>/state.pt``: its ``params``, the
+    one-device layout whatever mesh trained it) or an ``.npz`` of flax
+    paths -> port state_dict."""
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path) as npz:
@@ -288,8 +312,10 @@ def load_weights(path) -> Dict[str, torch.Tensor]:
         stats = tree.pop("batch_stats", {})
         return {**from_flax_params(tree), **from_flax_batch_stats(stats)}
     if path.suffix in (".pth", ".pt"):
-        return from_reference_checkpoint(
-            torch.load(path, map_location="cpu", weights_only=True))
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if "params" in ckpt and "opt_state" in ckpt:  # train_torch.py's
+            return dict(ckpt["params"])
+        return from_reference_checkpoint(ckpt)
     raise ValueError(f"--weights must be .pth or .npz, got {path}")
 
 

@@ -9,7 +9,15 @@ every rank of a :class:`~rpst_torch.dist.mesh.Axis`:
   * ``halo_rows``: the rows a row shard reads above and below it
     (``fast_path_spatial._halo_rows`` :44-61): its neighbours' edge rows,
     the reflect ring at the image's top and bottom; the backward sends
-    each row's cotangent back to the rank that owns the row.
+    each row's cotangent back to the rank that owns the row;
+  * ``enter_model`` / ``gather_channels`` / ``gather_folded``: Megatron's
+    f / g pair of a column-parallel layer on the ``model`` axis
+    (``dist.tp``). f is the identity forward and sums the input's
+    cotangents over the axis backward (each rank's output channels
+    contribute their part of dx); g gathers the ranks' channel shares
+    forward (in the folded layout, each of the 4 sub-position blocks
+    share by share) and backward keeps this rank's slice of the cotangent,
+    which every rank holds whole and equal. Neither averages.
 
 The gradient rule that goes with them (rpst ``_spatial_loss_and_grads``
 :723-731): every rank seeds cotangent 1 on its own copy of the loss, the
@@ -128,6 +136,91 @@ def halo_rows(x_l: torch.Tensor, ax: Axis, reflect=None
     above = reflect(x_l, True) if ax.index == 0 else prev
     below = reflect(x_l, False) if ax.index == ax.size - 1 else nxt
     return above, below
+
+
+class _EnterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, (ctx.ax,)), None
+
+
+def enter_model(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """Megatron's f: ``x`` as is; backward, the sum over ``ax`` of the
+    cotangents (each rank's channel share contributes its part of dx)."""
+    if ax.size == 1 or not x.requires_grad:
+        return x
+    return _EnterModel.apply(x, ax)
+
+
+def _gather_cat(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    return torch.cat(all_gather(t.contiguous(), ax), dim=dim)
+
+
+class _GatherDim(torch.autograd.Function):
+    """Shares along ``dim`` of every rank of ``ax`` concatenated in rank
+    order (``blocks`` > 1: each of ``blocks`` equal blocks of ``dim`` holds
+    one share of every rank, the folded layout's sub-positions);
+    backward: this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, blocks):
+        dim = dim % x.dim()
+        ctx.ax, ctx.dim, ctx.blocks = ax, dim, blocks
+        if blocks == 1:
+            return _gather_cat(x, ax, dim)
+        parts = all_gather(x.contiguous(), ax)
+        shape = list(x.shape)
+        c = shape[dim] // blocks
+        split = shape[:dim] + [blocks, 1, c] + shape[dim + 1:]
+        y = torch.cat([p.reshape(split) for p in parts], dim=dim + 1)
+        return y.reshape(shape[:dim] + [blocks * ax.size * c]
+                         + shape[dim + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, dim, blocks = ctx.ax, ctx.dim, ctx.blocks
+        shape = list(g.shape)
+        c = shape[dim] // (blocks * ax.size)
+        v = g.reshape(shape[:dim] + [blocks, ax.size, c] + shape[dim + 1:])
+        mine = v.narrow(dim + 1, ax.index, 1)
+        return (mine.reshape(shape[:dim] + [blocks * c] + shape[dim + 1:])
+                .contiguous(), None, None, None)
+
+
+def gather_channels(x: torch.Tensor, ax: Axis, dim: int = 1) -> torch.Tensor:
+    """Megatron's g: every rank's channel share of ``x`` along ``dim``
+    (NCHW's 1 by default) concatenated in rank order; backward, this rank's
+    slice of the cotangent."""
+    if ax.size == 1:
+        return x
+    return _GatherDim.apply(x, ax, dim, 1)
+
+
+def gather_folded(x_f: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """``gather_channels`` of a folded (N, Hf, Wf, 4 Co/tp) share into the
+    full (N, Hf, Wf, 4 Co): channel s Co + o (sub-position s, channel o),
+    so each sub-position's block takes every rank's share in turn, not one
+    rank's four blocks after another's."""
+    if ax.size == 1:
+        return x_f
+    return _GatherDim.apply(x_f, ax, -1, 4)
+
+
+def max_over(flag: bool, device=None) -> bool:
+    """The maximum over every rank of the run of a host flag (every rank
+    calls it together); the flag itself on one process."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    if dist.get_backend() == "nccl":
+        t = t.to(device if device is not None else "cuda")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 @torch.no_grad()

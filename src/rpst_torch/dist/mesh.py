@@ -9,13 +9,18 @@ names each rank's place on the axes:
     after the backward;
   * ``spatial``: image rows (``models.fast_path_spatial``): halo rows cross
     neighbouring ranks and the statistics are all-reduced, in the forward
-    and the backward.
+    and the backward;
+  * ``model``: output channels (channel tensor parallelism, ``dist.tp``):
+    each rank stores its share of every sharded conv and per-channel
+    vector and computes its share of every sharded conv's output
+    channels; the model axis does not split the batch.
 
 Ranks are laid out row-major over the axes in the order ``mesh_shape``
 gives them, as rpst reshapes its device list: under ``{data: 2, spatial:
-2}`` rank 2 d + s holds batch share d, row share s. Every rank holds the
-full parameters (``replicate`` broadcasts rank 0's). rpst's ``model`` axis
-(channel tensor parallelism) is ROADMAP.md section A slice 8b.
+2}`` rank 2 d + s holds batch share d, row share s. ``replicate``
+broadcasts rank 0's parameters; on a ``model`` axis ``tp.shard_model``
+then keeps each rank's share. ``model`` together with ``spatial`` is
+ROADMAP.md section A slice 8c (rpst takes it by GSPMD).
 
 Transport (``choose_backend``): NCCL where every rank has a GPU of its
 own; gloo where ranks share a GPU (two ranks on one card: NCCL refuses
@@ -37,7 +42,9 @@ import torch.distributed as dist
 
 from ..metrics import logger
 
-AXES = ("data", "spatial")
+AXES = ("data", "spatial", "model")
+# the axes that split the batch: what a sum over the batch spans
+BATCH_AXES = ("data", "spatial")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -128,7 +135,7 @@ class Axis:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place on a ``{data?, spatial?}`` rank grid (rpst
+    """This rank's place on a ``{data?, spatial?, model?}`` rank grid (rpst
     ``make_mesh`` :63), its device, and one process group per axis."""
     shape: Dict[str, int]
     rank: int
@@ -155,21 +162,28 @@ class Mesh:
     def data(self) -> int:
         return self.shape.get("data", 1)
 
+    @property
+    def model(self) -> int:
+        return self.shape.get("model", 1)
+
     def reduce_axes(self) -> Tuple[Axis, ...]:
-        """The axes of size > 1, data first: what a global sum spans."""
-        return tuple(self.axes[a] for a in AXES
+        """The batch axes of size > 1, data first: what a global sum over
+        the batch spans (the ``model`` axis holds one batch share whole)."""
+        return tuple(self.axes[a] for a in BATCH_AXES
                      if a in self.axes and self.axes[a].size > 1)
 
 
 def check_mesh_shape(mesh_shape) -> Dict[str, int]:
     """``mesh_shape`` as an ordered {axis: size}, axes within {data,
-    spatial}; a ``model`` axis (channel tensor parallelism) and unknown
-    axes raise."""
+    spatial, model}; unknown axes raise, and so does ``model`` together
+    with ``spatial`` beyond size 1 (rpst takes that by GSPMD: ROADMAP.md
+    section A slice 8c)."""
     shape = {str(k): int(v) for k, v in dict(mesh_shape).items()}
-    if "model" in shape:
+    if shape.get("model", 1) > 1 and shape.get("spatial", 1) > 1:
         raise NotImplementedError(
-            "mesh axis 'model' (channel tensor parallelism) is not ported "
-            "yet: ROADMAP.md section A slice 8b")
+            f"mesh {shape}: a model axis together with a spatial axis is "
+            "not ported (rpst partitions it by GSPMD): ROADMAP.md section A "
+            "slice 8c")
     unknown = set(shape) - set(AXES)
     if unknown:
         raise ValueError(f"mesh axes must be within {AXES}, got {shape}")

@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.tp import folded_column, tag_folded
 from ..nn.attention import BN_EPS, SEBottleneck, bn_batch_stats
 from ..ops.folded import (fold, fold_bias, fold_conv1x1_kernel,
                           fold_conv_kernel, folded_adain,
@@ -69,7 +70,10 @@ def _stack_blocks(stack, dtype, detach: bool = True) -> Blocks:
         if detach:
             weight, bias = weight.detach(), bias.detach()
         kernel = weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
-        out.append((fold_conv_kernel(kernel).to(dtype).contiguous(),
+        # a column share (model axis) folds to the share's 4 Co / tp
+        # outputs, tagged for ``dist.tp.folded_column``
+        out.append((tag_folded(fold_conv_kernel(kernel).to(dtype)
+                               .contiguous(), conv.weight),
                     fold_bias(bias).to(dtype).contiguous()))
     return out
 
@@ -154,17 +158,20 @@ def se_weights(block: SEBottleneck, dtype, detach: bool = True
     folded 3x3), the BatchNorms' (weight, bias) and the SE layer's two
     Linear weights in float32, and the modules themselves (``bn``, whose
     running statistics eval mode reads and train mode moves). Detached
-    for serving; live (differentiable) for training."""
+    for serving; live (differentiable) for training. A conv whose kernel
+    a model axis shards folds to its share's outputs, tagged for
+    ``dist.tp.folded_column`` (column parallel, as the RP stacks)."""
     def p(t):
         return t.detach() if detach else t
 
-    def hwio(conv):
-        return p(conv.weight).permute(2, 3, 1, 0)
+    def folded(conv, fold_kernel):
+        k = fold_kernel(p(conv.weight).permute(2, 3, 1, 0)).to(dtype)
+        return tag_folded(k, conv.weight)
 
     return {
-        "k1": fold_conv1x1_kernel(hwio(block.conv1)).to(dtype),
-        "k2": fold_conv_kernel(hwio(block.conv2)).to(dtype),
-        "k3": fold_conv1x1_kernel(hwio(block.conv3)).to(dtype),
+        "k1": folded(block.conv1, fold_conv1x1_kernel),
+        "k2": folded(block.conv2, fold_conv_kernel),
+        "k3": folded(block.conv3, fold_conv1x1_kernel),
         "affine": [(p(bn.weight).float(), p(bn.bias).float())
                    for bn in (block.bn1, block.bn2, block.bn3)],
         "dense": [p(block.SELayer_0.Dense_0.weight).float(),
@@ -206,16 +213,22 @@ def _folded_se_bottleneck(x_f, se, dtype, train: bool = False,
     tiled channel affines (running statistics, or the batch's in train
     mode), and the SE pool is the exact mean over (Hf, Wf, sub-position).
     ``conv3x3`` and ``pool``: the zero-pad 3x3 conv and the pool (a row
-    shard's exchange halo rows and all-reduce the sums)."""
+    shard's exchange halo rows and all-reduce the sums). A column share's
+    kernel (``se_weights`` on a model axis) computes its output channels,
+    gathered in the folded channel order."""
     def bn(x, i):
         if train:
             return _folded_bn_train(x, se["affine"][i], se["bn"][i])
         s, b = _folded_bn_affine(se["affine"][i], se["bn"][i])
         return folded_channel_affine(x, s.to(dtype), b.to(dtype))
 
-    out = F.relu(bn(folded_zero_conv(x_f, se["k1"]), 0))
-    out = F.relu(bn(conv3x3(out, se["k2"]), 1))
-    out = bn(folded_zero_conv(out, se["k3"]), 2)
+    def column(conv):
+        return folded_column(lambda x, k, b: conv(x, k))
+
+    conv1x1 = column(folded_zero_conv)
+    out = F.relu(bn(conv1x1(x_f, se["k1"], None), 0))
+    out = F.relu(bn(column(conv3x3)(out, se["k2"], None), 1))
+    out = bn(conv1x1(out, se["k3"], None), 2)
     y = pool(out).float()
     y = F.relu(F.linear(y, se["dense"][0]))
     y = torch.sigmoid(F.linear(y, se["dense"][1]))

@@ -1,5 +1,7 @@
 """Row-sharded ("spatial") folded serving and training of multi_adain,
-sel_multi_adain and ccam; port of ``rpst.models.fast_path_spatial``.
+sel_multi_adain and ccam, and row-sharded serving of sanet and
+dynamic_sanet (``stylize_sanet_spatial``); port of
+``rpst.models.fast_path_spatial``.
 
 rpst runs the folded stylize inside one ``shard_map`` over a mesh's
 ``spatial`` axis. Here every rank runs the same folded bodies
@@ -157,7 +159,9 @@ def _check_family(bundle) -> None:
             f"row-sharded (spatial) execution of {bundle.network} "
             f"(exec_strategy {bundle.cfg.get('exec_strategy', 'standard')}) "
             "is not ported: the folded multi_adain, sel_multi_adain and "
-            "ccam take it; the others are ROADMAP.md section A slice 8b")
+            "ccam take it (sanet and dynamic_sanet serve row-sharded through "
+            "stylize_sanet_spatial); the others are ROADMAP.md section A "
+            "slice 8c")
 
 
 def stylize_spatial(bundle, content_l, style_l, mesh: Mesh,
@@ -295,7 +299,158 @@ def loss_spatial(bundle, vgg: VGG19Encoder, content_l, style_l,
     return total, {**parts, "total_loss": total}
 
 
-__all__ = ["SPATIAL_FAMILIES", "check_height", "conv_lrelu_halo",
+# ------------------------------------------------- SANet / AdaptiveSANet
+
+SANET_FAMILIES = ("sanet", "dynamic_sanet")
+
+
+def check_sanet_height(h: int, spatial: int) -> None:
+    """rpst's rule (:538-542): four VGG pools and two relu5_1 rows a row
+    share, h % (32 spatial) == 0."""
+    if h % (32 * spatial):
+        raise ValueError(f"image height {h} must be a multiple of "
+                         f"{32 * spatial} (four VGG pools and two relu5_1 "
+                         f"rows on each of {spatial} row shares)")
+
+
+def mvn_spatial(x_l, mesh: Mesh, eps: float = 1e-5):
+    """``ops.stats.mean_variance_norm`` of a row-sharded NHWC tap (rpst
+    ``_mvn_spatial`` :436): float32 mean and unbiased variance over the
+    whole image's H W, the sums all-reduced over ``spatial``; the result in
+    x's type."""
+    n, hh, ww, c = x_l.shape
+    ax = mesh.axis("spatial")
+    m = hh * ww * ax.size
+    v = x_l.float()
+    sums = all_reduce(torch.stack([v.sum(dim=(1, 2), keepdim=True),
+                                   (v * v).sum(dim=(1, 2), keepdim=True)]),
+                      ax)
+    mean = sums[0] / m
+    var = (sums[1] - m * mean * mean) / max(m - 1, 1)
+    std = torch.sqrt(torch.clamp(var, min=0.0) + eps)
+    return ((v - mean) / std).to(x_l.dtype)
+
+
+def _conv1x1(x, conv, dtype):
+    """rpst's ``_conv1x1_p`` (:453): a 1x1 conv of NHWC ``x`` in ``dtype``
+    (input, weight and bias cast to it)."""
+    from .sanet import conv1x1_nhwc
+    return conv1x1_nhwc(x.to(dtype), conv.weight.to(dtype),
+                        conv.bias.to(dtype))
+
+
+def sanet_attention_spatial(att, content_l, style_full, dtype, mesh: Mesh,
+                            adaptive: bool = False, ada_module: str = "aea"):
+    """One (adaptive) SANet attention module on this rank's content rows
+    against the whole style (rpst ``_sanet_attention_spatial`` :460): f on
+    the whole image's mean-variance norm of the rows, g and h on the style,
+    all in ``dtype``; the static module on B6 (``ops.flash_attention``:
+    this shard's query rows, the bfloat16 instance in bfloat16), the
+    adaptive one through its factorized psi0 / psi1 thresholds (per query,
+    so row-local) and the streamed adaptive attention; out_conv plus the
+    content rows."""
+    from ..ops.adaptive_attention import adaptive_reweighted_attention
+    from ..ops.affinity import l2_normalize_channels
+    from ..ops.flash_attention import sanet_attention
+    from ..ops.stats import mean_variance_norm
+    from .sanet import AEA_SCALE, VARIANT, aea_thresholds_factorized
+    f = _conv1x1(mvn_spatial(content_l, mesh), att.f, dtype)
+    g = _conv1x1(mean_variance_norm(style_full), att.g, dtype)
+    h = _conv1x1(style_full, att.h, dtype)
+    n, hc, wc, c = f.shape
+    hw_s = g.shape[1] * g.shape[2]
+    fm, gm, hm = (f.reshape(n, hc * wc, c), g.reshape(n, hw_s, c),
+                  h.reshape(n, hw_s, c))
+    if adaptive:
+        cn = l2_normalize_channels(content_l.reshape(n, hc * wc, -1).float())
+        sn = l2_normalize_channels(style_full.reshape(n, hw_s, -1).float())
+        layer = att.attention_layer
+        psi = [(m.weight.float(), m.bias.float())
+               for m in (layer.f_psi[0], layer.f_psi[2])]
+        clamp = aea_thresholds_factorized(cn, sn, *psi, ada_module)
+        o = adaptive_reweighted_attention(fm, gm, hm, clamp.to(fm.dtype),
+                                          VARIANT[ada_module], AEA_SCALE)
+    else:
+        o = sanet_attention(fm, gm, hm)
+    return _conv1x1(o.reshape(n, hc, wc, c), att.out_conv, dtype) \
+        + content_l.to(dtype)
+
+
+def _vgg_program(num_stages: int):
+    """(pre, act) per conv of the VGG encoder and its tap indices: the 1x1
+    head, reflect 3x3 relu convs, a pool before the last conv of stages 2+
+    (``fast_path_q8_std._vgg_q8_layers``'s program)."""
+    program, taps = [(None, False), (None, True)], [1]
+    for stage in range(2, num_stages + 1):
+        specs = _STAGES[stage - 1]
+        program += [("pool" if j == len(specs) - 1 else None, True)
+                    for j in range(len(specs))]
+        taps.append(len(program) - 1)
+    return program, taps
+
+
+def stylize_sanet_spatial(bundle, content_l, style_l, mesh: Mesh,
+                          dtype=None) -> torch.Tensor:
+    """SANet / AdaptiveSANet serving on this rank's row share (rpst
+    ``stylize_sanet_spatial`` :514): the 5-stage VGG encode of both images
+    with halo-exchanged reflect convs and row-local pools, the style's
+    relu4_1 and relu5_1 gathered whole, the attention modules on the rows
+    (``sanet_attention_spatial``), the halo merge conv and the mirror
+    decoder with row-local upsamples. Everything in ``dtype``, the
+    config's compute_dtype by default, as rpst runs it: in bfloat16 the
+    attention is B6's bfloat16 instance (one device's stylize keeps the
+    transform in float32). (n, H / spatial, W, 3) rows of content and
+    style -> the stylized rows, float32. Every rank of the ``spatial`` axis
+    calls it together; ``bundle.vgg`` must be set."""
+    from ..dist.collectives import all_gather
+    from .fast_path_q8_std import _MIRROR_PROGRAM
+    if bundle.network not in SANET_FAMILIES:
+        raise ValueError(f"stylize_sanet_spatial serves {SANET_FAMILIES}, "
+                         f"not {bundle.network}")
+    ax = mesh.axis("spatial")
+    check_sanet_height(content_l.shape[1] * ax.size, ax.size)
+    if dtype is None:
+        dtype = (torch.bfloat16 if bundle.cfg.compute_dtype == "bfloat16"
+                 else torch.float32)
+    vgg, model = bundle.vgg, bundle.model
+    program, tap_idx = _vgg_program(5)
+    adaptive = bundle.network == "dynamic_sanet"
+    with torch.inference_mode():
+        n = content_l.shape[0]
+        x = torch.cat([content_l, style_l]).to(dtype)
+        taps = []
+        for li, (pre, act) in enumerate(program):
+            if pre == "pool":
+                x = _maxpool2x_any(x)
+            c = vgg.conv(li)
+            x = reflect_conv_halo_std(x, c.weight.to(dtype),
+                                      c.bias.to(dtype), mesh, act)
+            if li in tap_idx:
+                taps.append(x)
+        c4, s4 = taps[3][:n], taps[3][n:]
+        c5, s5 = taps[4][:n], taps[4][n:]
+        s4, s5 = (torch.cat(all_gather(t, ax), dim=1) for t in (s4, s5))
+        tr = model.transform
+        kw = {"adaptive": adaptive}
+        if adaptive:
+            kw["ada_module"] = tr.sanet4_1.ada_module
+        a4 = sanet_attention_spatial(tr.sanet4_1, c4, s4, dtype, mesh, **kw)
+        a5 = sanet_attention_spatial(tr.sanet5_1, c5, s5, dtype, mesh, **kw)
+        merged = a4 + a5.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        mc = tr.merge_conv.Conv_0
+        x = reflect_conv_halo_std(merged, mc.weight.to(dtype),
+                                  mc.bias.to(dtype), mesh, act=False)
+        for li, (pre, act) in enumerate(_MIRROR_PROGRAM):
+            if pre == "up":
+                x = x.repeat_interleave(2, 1).repeat_interleave(2, 2)
+            c = getattr(model.decoder, f"conv{li}").Conv_0
+            x = reflect_conv_halo_std(x, c.weight.to(dtype),
+                                      c.bias.to(dtype), mesh, act)
+        return x.float()
+
+
+__all__ = ["SPATIAL_FAMILIES", "SANET_FAMILIES", "check_sanet_height",
+           "mvn_spatial", "sanet_attention_spatial", "stylize_sanet_spatial", "check_height", "conv_lrelu_halo",
            "folded_adain_spatial", "zero_conv_halo", "channel_pool_spatial",
            "spatial_ops", "stylize_spatial", "reflect_conv_halo_std",
            "vgg_taps_spatial", "tap_stats_spatial",

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.tp import column
 from ..nn.blocks import Conv2dBlock, PadConv, pad2d
 from .adain_rp import _adain_nchw, _fuse
 
@@ -94,7 +95,10 @@ class NonOverlapConvTranspose(nn.Module):
     projection C -> s * s * Co on the coarse grid and a depth-to-space, one
     matrix product (rpst's exact rewrite of flax's ``nn.ConvTranspose``,
     whose taps it applies spatially flipped). ``kernel`` (s, s, C, Co) in
-    flax's layout and ``bias`` (Co,). NCHW in and out."""
+    flax's layout and ``bias`` (Co,). NCHW in and out. On a ``model`` mesh
+    axis it is column parallel (``dist.tp``): a share of Co a rank."""
+
+    tp_column_kernel = "kernel"
 
     def __init__(self, in_features: int, features: int, stride: int,
                  device=None, dtype=None):
@@ -117,6 +121,9 @@ class NonOverlapConvTranspose(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
+        return column(self._project, x, self.kernel, 1)
+
+    def _project(self, x):
         n, c, h, w = x.shape
         s, co = self.stride, self.kernel.shape[3]
         km = self.kernel.flip(0, 1).permute(2, 0, 1, 3).reshape(c, s * s * co)

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.tp import column
 from ..nn.blocks import PadConv
 from ..nn.decoder import VGGMirrorDecoder, upsample_nearest_2x_nhwc
 from ..ops.adaptive_attention import (adaptive_attention_dense,
@@ -67,12 +68,16 @@ def conv1x1_nhwc(x: torch.Tensor, weight: torch.Tensor,
     """A 1x1 conv (OI11 weight) of an NHWC tensor as a linear map of its
     channel axis: (N, H, W, C) -> (N, H, W, O), contiguous. One batched
     product, which reads the VGG's features (NHWC views of NCHW tensors)
-    through their strides: no transpose copy on either side."""
-    n, h, w, c = x.shape
-    wt = weight.flatten(1).t().to(x.dtype)
-    y = torch.baddbmm(bias.to(x.dtype), x.reshape(n, h * w, c),
-                      wt.expand(n, -1, -1))
-    return y.reshape(n, h, w, -1)
+    through their strides: no transpose copy on either side. A column share
+    of the weight (a ``model`` mesh axis) maps onto its output channels,
+    gathered after (``dist.tp.column``)."""
+    def project(v):
+        n, h, w, c = v.shape
+        wt = weight.flatten(1).t().to(v.dtype)
+        y = torch.baddbmm(bias.to(v.dtype), v.reshape(n, h * w, c),
+                          wt.expand(n, -1, -1))
+        return y.reshape(n, h, w, -1)
+    return column(project, x, weight, -1)
 
 
 def sanet_attention_block(content, style, f, g, h, out_conv,

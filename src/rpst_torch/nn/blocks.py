@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.tp import column
 from .attention import BatchNorm, SEBottleneck, SKBottleneck
 
 
@@ -54,7 +55,9 @@ class PadConv(nn.Module):
     def forward(self, x):
         if self.pad_type == "zero":  # the conv pads with zeros itself
             c = self.Conv_0
-            return F.conv2d(x, c.weight, c.bias, padding=self.padding)
+            return column(lambda v: F.conv2d(v, c.weight, c.bias,
+                                             padding=self.padding),
+                          x, c.weight, 1)
         return self.Conv_0(pad2d(x, self.padding, self.pad_type))
 
 

@@ -12,10 +12,15 @@ the line-JSON TCP daemon; port of ``rpst.serving`` on PyTorch.
     flusher thread's ``.cpu()`` is the synchronisation point;
   * ``serve_daemon`` is the TCP loop, same protocol as rpst's;
   * ``parse_mesh`` / ``mesh_mode`` / ``make_mesh_run_impl`` serve over a
-    mesh of ranks (rpst ``serve.py:99-133``, ``:170-241``): ``--mesh N``
+    mesh of ranks (rpst ``serve.py:99-133``, ``:170-258``): ``--mesh N``
     data parallel for every network, a ``spatial`` axis the row-sharded
-    folded stylize of multi_adain, sel_multi_adain and ccam
-    (``models.fast_path_spatial``).
+    folded stylize of multi_adain, sel_multi_adain and ccam and the
+    row-sharded standard stylize of sanet and dynamic_sanet
+    (``models.fast_path_spatial``); serving takes the ``data`` and
+    ``spatial`` axes only, as rpst's;
+  * ``serve_ranks`` runs the daemon over a mesh (rpst ``serve.py:286-296``):
+    rank 0 owns the socket and the batcher and broadcasts each batch with a
+    command word; every rank runs its share; rank 0 replies.
 
 Protocol (one JSON object per line, localhost TCP):
 
@@ -99,39 +104,54 @@ def calibrate_scales(bundle, calib: torch.Tensor,
 
 def parse_mesh(spec: str) -> Dict[str, int]:
     """``--mesh``: ``N`` (data parallel over N ranks) or ``axis=size``
-    pairs, ``data=2,spatial=2``; axes within {data, spatial} (a ``model``
-    axis is ROADMAP.md section A slice 8b)."""
+    pairs, ``data=2,spatial=2``; axes within {data, spatial}: any other,
+    ``model`` too, raises ``ValueError``, as rpst's serve.py asserts
+    (channel tensor parallelism is a training axis)."""
     from .dist import check_mesh_shape
     spec = spec.strip()
     if spec.isdigit():
         return {"data": int(spec)}
-    return check_mesh_shape({k.strip(): int(v) for k, v in
-                             (kv.split("=", 1) for kv in spec.split(","))})
+    shape = {k.strip(): int(v) for k, v in
+             (kv.split("=", 1) for kv in spec.split(","))}
+    if not set(shape) <= {"data", "spatial"}:
+        raise ValueError(f"--mesh {spec!r}: serving takes the axes data and "
+                         f"spatial, got {sorted(shape)}")
+    return check_mesh_shape(shape)
 
 
 def mesh_mode(bundle, mode: str, mesh_shape: Dict[str, int]) -> str:
     """The mode served over ``mesh_shape``: q8 gives way to folded (rpst's
     warning, ``serve.py:174-180``; B4's int8 path is one-device); a
-    ``spatial`` axis takes only the row-sharded folded stylize of
-    multi_adain, sel_multi_adain and ccam: mst refuses it (rpst
+    ``spatial`` axis takes the row-sharded folded stylize of multi_adain,
+    sel_multi_adain and ccam and the row-sharded standard stylize of sanet
+    and dynamic_sanet (``serve.py:246-258``): mst refuses it (rpst
     ``:189-192``: its k-means and chain labelling see whole images), and
-    every other network or mode names ROADMAP.md section A slice 8b."""
+    every other network or mode names ROADMAP.md section A slice 8c."""
     size = int(np.prod(list(mesh_shape.values())))
     if size > 1 and mode == "q8":
         logger.warning("--mesh with --mode q8 is unsupported (the int8 path "
                        "runs on one device); using folded")
         mode = "folded" if bundle.folded_infer() else "standard"
     if mesh_shape.get("spatial", 1) > 1:
-        from .models.fast_path_spatial import SPATIAL_FAMILIES
+        from .models.fast_path_spatial import (SANET_FAMILIES,
+                                               SPATIAL_FAMILIES, check_height,
+                                               check_sanet_height)
         if bundle.network == "mst":
             raise ValueError("mst's k-means and chain labelling cannot shard "
                              "rows; use a data-only mesh (--mesh N)")
-        if bundle.network not in SPATIAL_FAMILIES or mode != "folded":
+        spatial = mesh_shape["spatial"]
+        if bundle.network in SANET_FAMILIES and mode == "standard":
+            check_sanet_height(bundle.cfg.img_size, spatial)
+            return mode
+        if bundle.network in SPATIAL_FAMILIES and mode == "folded":
+            check_height(bundle.cfg.img_size, spatial, False)
+        else:
             raise NotImplementedError(
                 f"row-sharded serving of {bundle.network} ({mode}) is not "
                 "ported: the folded multi_adain, sel_multi_adain and ccam "
-                "take a spatial axis; the rest (sanet, dynamic_sanet, the "
-                "standard layout) is ROADMAP.md section A slice 8b")
+                "and the standard sanet and dynamic_sanet take a spatial "
+                "axis; the rest of the standard layout is ROADMAP.md "
+                "section A slice 8c")
     return mode
 
 
@@ -139,18 +159,24 @@ def make_mesh_run_impl(bundle, mode: str, mesh) -> Callable:
     """``run_impl(content, style) -> stylized`` of this rank for a batch
     share (the rank's images of a batch): the whole batch share's output,
     float32, on every rank of its row group. Row-sharded (a spatial axis):
-    each rank stylizes its rows, then the rows are gathered."""
+    each rank stylizes its rows (the folded families, or sanet /
+    dynamic_sanet in the standard layout), then the rows are gathered."""
     from .dist.collectives import all_gather
     if mesh.spatial == 1:
         return make_run_impl(bundle, mode)
     from .dist import shard_rows
-    from .models.fast_path_spatial import check_height, stylize_spatial
-    check_height(bundle.cfg.img_size, mesh.spatial, False)
+    from .models import fast_path_spatial as fps
+    if bundle.network in fps.SANET_FAMILIES:
+        fps.check_sanet_height(bundle.cfg.img_size, mesh.spatial)
+        stylize = fps.stylize_sanet_spatial
+    else:
+        fps.check_height(bundle.cfg.img_size, mesh.spatial, False)
+        stylize = fps.stylize_spatial
     ax = mesh.axis("spatial")
 
     def run(content, style):
-        y = stylize_spatial(bundle, shard_rows(content, mesh).contiguous(),
-                            shard_rows(style, mesh).contiguous(), mesh)
+        y = stylize(bundle, shard_rows(content, mesh).contiguous(),
+                    shard_rows(style, mesh).contiguous(), mesh)
         return torch.cat(all_gather(y, ax), dim=1)
     return run
 
@@ -163,6 +189,63 @@ def gather_batch(y: torch.Tensor, mesh) -> torch.Tensor:
     if ax.size == 1:
         return y
     return torch.cat(all_gather(y, ax), dim=0)
+
+
+# the daemon's command words (``serve_ranks``): rank 0 -> every rank
+_STOP, _BATCH = 0, 1
+
+
+def _broadcast(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Rank 0's ``t`` on every rank (host memory under gloo)."""
+    import torch.distributed as dist
+    wire = t.to(mesh.device) if mesh.backend == "nccl" else t.cpu()
+    dist.broadcast(wire, src=0)
+    return wire
+
+
+def serve_ranks(run_u8: Callable, mesh):
+    """The daemon over a mesh (rpst ``serve.py:286-296``): (rank 0's
+    ``run(content, style)`` for its ``DynamicBatcher``, the other ranks'
+    ``follow()`` loop, ``stop()`` for rank 0 after the daemon).
+    ``run_u8(content, style)`` is this rank's uint8 stylize of its batch
+    share (``make_mesh_run_impl`` behind the uint8 boundary). Rank 0 sends
+    every rank a command word and each uint8 batch (the batcher pads it to
+    its batch size, which the data axis divides); every rank runs its data
+    share, and the outputs are gathered onto every rank in data-rank order.
+    ``follow`` returns at the stop word, which ``stop`` sends."""
+    ax = mesh.axis("data")
+
+    def share_and_run(content, style):
+        per = content.shape[0] // ax.size
+        mine = slice(ax.index * per, (ax.index + 1) * per)
+        y = run_u8(content[mine].to(mesh.device),
+                   style[mine].to(mesh.device))
+        return gather_batch(y, mesh)
+
+    def run(content, style):
+        if content.shape[0] % ax.size:
+            raise ValueError(f"batch {content.shape[0]} does not divide "
+                             f"into {ax.size} data shares")
+        _broadcast(torch.tensor([_BATCH, *content.shape]), mesh)
+        return share_and_run(_broadcast(content, mesh),
+                             _broadcast(style, mesh))
+
+    def follow():
+        with torch.inference_mode():
+            while True:
+                word = _broadcast(torch.zeros(5, dtype=torch.int64), mesh)
+                if int(word[0]) == _STOP:
+                    return
+                shape = [int(v) for v in word[1:]]
+                content = _broadcast(torch.empty(shape, dtype=torch.uint8),
+                                     mesh)
+                style = _broadcast(torch.empty(shape, dtype=torch.uint8),
+                                   mesh)
+                share_and_run(content, style)
+
+    def stop():
+        _broadcast(torch.tensor([_STOP, 0, 0, 0, 0]), mesh)
+    return run, follow, stop
 
 
 def make_run_impl(bundle, mode: str, scales=None,

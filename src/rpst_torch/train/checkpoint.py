@@ -6,6 +6,13 @@ and buffers: sel_multi_adain's BatchNorm running statistics), the Adam
 state_dict (moments and count), and the ``torch.Generator`` state. The
 step is stored in the file and mirrored in the directory name. Restoring
 all of it makes a resumed run continue the same computation.
+
+A run on a ``model`` mesh axis (``dist.tp``) writes the one-device layout:
+every rank joins the gather of the shares to the full shapes (parameters,
+buffers and Adam moments; rpst's ``gather_replicated``) and one rank
+writes, so a one-device run, serving or a resume on another mesh reads the
+file as it reads any other; restoring onto a model axis keeps each rank's
+slice again.
 """
 
 from __future__ import annotations
@@ -17,17 +24,24 @@ from typing import Optional
 
 import torch
 
+from ..dist import tp
+
 STATE_FILE = "state.pt"
 
 
-def save_checkpoint(root, state) -> str:
-    """Write ``<root>/<state.step>/state.pt``; returns the directory."""
+def save_checkpoint(root, state, write: bool = True) -> str:
+    """Write ``<root>/<state.step>/state.pt``; returns the directory. On a
+    model axis every rank calls it (the shares are gathered) and those
+    with ``write`` False write nothing."""
     path = Path(root).resolve() / str(state.step)
+    # the one-device layout (a model without shares: its state_dicts)
+    params = tp.full_state_dict(state.model)
+    opt = tp.full_optimizer_state(state.optimizer)
+    if not write:
+        return str(path)
     path.mkdir(parents=True, exist_ok=True)
     tmp = path / f"{STATE_FILE}.tmp"
-    torch.save({"step": state.step,
-                "params": state.model.state_dict(),
-                "opt_state": state.optimizer.state_dict(),
+    torch.save({"step": state.step, "params": params, "opt_state": opt,
                 "rng": state.generator.get_state()}, tmp)
     os.replace(tmp, path / STATE_FILE)  # a reader never sees half a file
     return str(path)
@@ -63,8 +77,10 @@ def restore_checkpoint(path, state):
                          + (f" (frozen: {', '.join(state.frozen)}; a "
                             "checkpoint saved without the freeze cannot "
                             "resume a frozen run)" if state.frozen else ""))
-    state.bundle.load_state_dict(saved["params"])
-    state.optimizer.load_state_dict(saved["opt_state"])
+    # each rank keeps its slices of a sharded leaf; the rest loads whole
+    tp.load_full_state_dict(state.model, saved["params"])
+    tp.load_full_optimizer_state(state.optimizer, saved["opt_state"])
+    state.bundle.weights_changed()
     state.generator.set_state(saved["rng"])
     state.step = int(saved["step"])
     return state

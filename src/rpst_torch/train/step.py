@@ -44,23 +44,38 @@ as in a plain step.
 
 On a mesh (``TrainState.mesh``, rpst's ``make_sharded_train_step``,
 ``dist/mesh.py:190-283``) every rank runs this step on its share of the
-batch, by one of two routes:
+batch, by one of three routes:
 
   * **row-sharded** where ``dist.spatial_folded_train_ok`` holds (the
     folded multi_adain, ccam, sel_multi_adain): the loss of
     ``models.fast_path_spatial.loss_spatial`` on the rank's rows, the
     global loss on every rank, through the halo kernels (B3's listed
     mode); also on a mesh with no ``spatial`` axis, as rpst's shard_map;
+  * **channel tensor parallel** on a ``model`` axis (rpst's
+    ``state_sharding=tp_shardings(...)``, any network): the model holds
+    this rank's shares (``dist.tp.shard_model``); the one-device loss runs
+    with its column-parallel layers computing their output-channel shares
+    (the folded convs through ``dist.tp.folded_column``: B1 / B2 / B3 at
+    the share's width) and the other sharded leaves gathered at use
+    (``dist.tp.gathered``); the ranks of one model group hold the same
+    batch share;
   * **data-parallel** otherwise: the one-device loss on the rank's batch
     share, its batch reductions (BatchNorm's statistics, seg_adain's cross
     entropy) over the global batch (``dist.over_batch``), as rpst's GSPMD
-    step computes them.
+    step computes them (also on the tensor-parallel route).
 
-Either way the parameters' gradients are then averaged over the mesh
-(each rank seeded its own copy of the loss: ``dist.collectives``), and
-the loss parts too, so every rank takes the same Adam step and the same
-skip decision. ``grad_accum`` splits the rank's share into microbatches on
-both routes; ``remat`` recomputes with the same batch reductions.
+On every route the parameters' gradients are then averaged over the batch
+axes, ``data`` and ``spatial`` (each rank seeded its own copy of the loss:
+``dist.collectives``), and the loss parts too, so every rank takes the
+same Adam step and the same skip decision; the model axis's collectives
+sum and gather, and nothing is averaged over it. ``grad_accum: k`` cuts
+the GLOBAL batch into k contiguous microbatches, as rpst's
+``_accumulate_grads`` cuts its global array (``step.py:78-83``), and each
+rank takes its batch share of each: a rank's local batch is a contiguous
+share of the global one, so on a ``data`` axis the step first re-deals
+the images over the axis (``redeal_microbatches``), and microbatch k of
+rank r is rank r's share of global images [k n / accum, (k + 1) n /
+accum). ``remat`` recomputes with the same batch reductions.
 """
 
 from __future__ import annotations
@@ -72,8 +87,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..dist import (Mesh, average_grads, mean_over, over_batch,
-                    spatial_folded_train_ok)
+from ..dist import (Mesh, average_grads, check_mesh_shape, mean_over,
+                    over_batch, spatial_folded_train_ok)
+from ..dist import tp
+from ..dist.collectives import all_gather
 from ..models import ModelBundle
 from ..nn.attention import running_stats_frozen
 from ..nn.vgg import VGG19Encoder
@@ -161,14 +178,19 @@ def create_train_state(bundle: ModelBundle,
 
 
 def train_route(bundle: ModelBundle, mesh) -> str:
-    """"single" (no mesh), "spatial" (the row-sharded folded route, where
+    """"single" (no mesh), "model" (channel tensor parallel, a ``model``
+    axis), "spatial" (the row-sharded folded route, where
     ``dist.spatial_folded_train_ok`` holds) or "data" (data parallel) on
     ``mesh`` (a Mesh, or a mesh_shape dict). A ``spatial`` axis for a
-    network the row-sharded route does not take raises: rpst rows-shards
-    those by GSPMD, ROADMAP.md section A slice 8b."""
+    network the row-sharded route does not take raises, and so does one
+    beside a ``model`` axis: rpst row-shards those by GSPMD, ROADMAP.md
+    section A slice 8c."""
     if mesh is None:
         return "single"
     shape = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
+    if int(shape.get("model", 1)) > 1:
+        check_mesh_shape(shape)  # refuses model beside spatial
+        return "model"
     if spatial_folded_train_ok(bundle, shape):
         return "spatial"
     if int(shape.get("spatial", 1)) > 1:
@@ -178,7 +200,7 @@ def train_route(bundle: ModelBundle, mesh) -> str:
             f"{bundle.cfg.img_size}) is not ported: only the folded "
             "multi_adain, ccam and sel_multi_adain train row-sharded, with "
             "img_size a multiple of 16 x spatial; the rest is ROADMAP.md "
-            "section A slice 8b")
+            "section A slice 8c")
     return "data"
 
 
@@ -218,19 +240,45 @@ def step_loss(bundle: ModelBundle, vgg: VGG19Encoder, content, style,
     ``remat`` under one non-reentrant checkpoint of the whole function."""
     route = train_route(bundle, mesh)
     axes = () if mesh is None else mesh.reduce_axes()
+    if route == "model":  # the folded convs of a share's kernel: B1-B3
+        conv_act = tp.folded_column(conv_act)  # at its width, gathered
 
     def loss_fn(c, s, lab):
         if route == "spatial":
             from ..models.fast_path_spatial import loss_spatial
             return loss_spatial(bundle, vgg, c, s, mesh)
         kw = {} if lab is None else {"content_label": lab}
-        with over_batch(axes):
+        shared = (tp.gathered(bundle.model) if route == "model"
+                  else contextlib.nullcontext())
+        with over_batch(axes), shared:
             return bundle.loss(vgg, c, s, targets=targets,
                                conv_act=conv_act, **kw)
     if not remat:
         return loss_fn(content, style, content_label)
     return checkpoint(loss_fn, content, style, content_label,
                       use_reentrant=False, context_fn=_remat_contexts(axes))
+
+
+def redeal_microbatches(x: torch.Tensor, mesh: Mesh,
+                        accum: int) -> torch.Tensor:
+    """This rank's batch share ``x`` (rank r of D on ``data`` holds global
+    images [r n / D, (r + 1) n / D)) re-dealt so that its k-th contiguous
+    block of n / (D accum) images is its share of the global microbatch k
+    (global images [k n / accum, (k + 1) n / accum)), rpst's grouping
+    (``_accumulate_grads``). Every rank of the data axis calls it
+    together."""
+    ax = mesh.axis("data")
+    if ax.size == 1 or accum == 1:
+        return x
+    glob = torch.cat(all_gather(x, ax), dim=0)
+    n = glob.shape[0]
+    if n % (accum * ax.size):
+        raise ValueError(f"global batch {n} does not split into grad_accum "
+                         f"{accum} microbatches of {ax.size} data shares")
+    big, small = n // accum, n // (accum * ax.size)
+    idx = [k * big + ax.index * small + j for k in range(accum)
+           for j in range(small)]
+    return glob[torch.tensor(idx, device=glob.device)].contiguous()
 
 
 def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
@@ -260,6 +308,12 @@ def train_step(state: TrainState, vgg: VGG19Encoder, content: torch.Tensor,
     n = content.shape[0]
     if n % accum:
         raise ValueError(f"batch {n} not divisible by grad_accum {accum}")
+    if accum > 1 and state.mesh is not None:  # rpst's global microbatches
+        content, style = (redeal_microbatches(t, state.mesh, accum)
+                          for t in (content, style))
+        if content_label is not None:
+            content_label = redeal_microbatches(content_label, state.mesh,
+                                                accum)
     mb = n // accum
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)

@@ -294,18 +294,22 @@ def test_serve_mesh_matches_one_device(serve_dir, mesh, extra):
 
 @pytest.mark.parametrize("mesh,extra,err,match", [
     ("spatial=2", ["--mode", "standard", "--set", "network=sanet"],
-     NotImplementedError, "slice 8b"),
-    ("spatial=2", ["--mode", "standard"], NotImplementedError, "slice 8b"),
+     ValueError, "multiple of 64"),
+    ("spatial=2", ["--mode", "standard"], NotImplementedError, "slice 8c"),
     ("spatial=2", ["--set", "network=mst"], ValueError, "data-only mesh"),
-    ("data=2,model=2", [], NotImplementedError, "slice 8b"),
-    ("2", ["--daemon"], NotImplementedError, "slice 8b")],
+    ("data=2,model=2", [], ValueError, "axes data and spatial"),
+    ("2", ["--daemon", "--batch", "3"], ValueError, "divide by the data")],
     ids=["sanet-spatial", "standard-spatial", "mst-spatial", "model-axis",
          "daemon"])
 def test_serve_mesh_refusals(serve_dir, mesh, extra, err, match):
-    """What serving over a mesh refuses, before any rank starts: sanet /
-    dynamic_sanet and the standard layout on a spatial axis and a model axis
-    (ROADMAP.md section A slice 8b), mst on a spatial axis (rpst
-    serve.py:189-192), the daemon over ranks."""
+    """What serving over a mesh refuses, before any rank starts: sanet on a
+    spatial axis at a height without four pools and two relu5_1 rows a row
+    share (rpst's assert, fast_path_spatial.py:538-542; 32px here, 64 needed
+    on 2 shares), the other standard-layout networks on a spatial axis
+    (ROADMAP.md section A slice 8c), mst on a spatial axis (rpst
+    serve.py:189-192), a model axis (rpst's serve.py:132 assert: serving
+    takes data and spatial), and a daemon batch the data axis does not
+    divide."""
     with pytest.raises(err, match=match):
         _serve(["--config", str(serve_dir / "cfg.yaml"), "--content",
                 str(serve_dir / "c"), "--style", str(serve_dir / "s.png"),

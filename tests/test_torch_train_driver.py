@@ -119,7 +119,7 @@ def test_unported_options_raise(run_dir, override, slice_):
 
 
 @pytest.mark.parametrize("overrides", [
-    ["mesh_shape={data: 2, model: 2}"],
+    ["mesh_shape={spatial: 2, model: 2}"],
     ["network=sanet", "exec_strategy=standard", "mesh_shape={spatial: 2}"],
     ["network=adain", "exec_strategy=standard", "mesh_shape={spatial: 2}"],
     ["exec_strategy=standard", "mesh_shape={data: 2, spatial: 2}"],
@@ -128,11 +128,11 @@ def test_unported_options_raise(run_dir, override, slice_):
          "standard-multi_adain-spatial", "mst-spatial"])
 def test_slice_8b_refusals(run_dir, overrides):
     """What multi-device training still refuses names ROADMAP.md section A
-    slice 8b, before any rank starts or anything is written: channel tensor
-    parallelism (a ``model`` axis) and row sharding of every network but
+    slice 8c, before any rank starts or anything is written: a ``model``
+    axis beside a ``spatial`` one, and row sharding of every network but
     the folded multi_adain, ccam and sel_multi_adain (rpst shards those by
-    GSPMD)."""
-    with pytest.raises(NotImplementedError, match="section A slice 8b"):
+    GSPMD). A ``model`` axis alone trains (tests/test_torch_tp.py)."""
+    with pytest.raises(NotImplementedError, match="section A slice 8c"):
         _driver().main(["--config", str(run_dir / "cfg.yaml"), "--device",
                         "cpu", "--set", *overrides])
     assert not (run_dir / "out").exists()

@@ -69,8 +69,18 @@ FAMILIES = [
 # spade's param-free batch norm, whose float32 gradients at these widths sit
 # ~1e-3 of their max apart in any two summation orders) and the cross
 # entropy's global sums
+# the {model: 2} suite's networks: FAMILIES and the folded forms of the
+# flagship's variants (the SE bottleneck's convs and the CCAM residuals on
+# the folded path, column parallel beside B1-B3)
+TP_FAMILIES = FAMILIES + [("sel_multi_adain", {"exec_strategy": "folded"}),
+                          ("ccam", {"exec_strategy": "folded"})]
 F64_FAMILIES = [("sel_multi_adain", {}), ("spade", {"spade_norm": "batch"}),
                 ("seg_adain", {})]
+
+
+# the SANets' transforms run in float32 whatever the model's type, as
+# rpst's flax modules do: no float64 step
+F32_ONLY = ("sanet", "dynamic_sanet")
 
 
 def family_id(net, over):
@@ -171,6 +181,7 @@ def dp_case(net, over, mesh=None, remat=False, accum=1, f64=False):
     c, s = torch.from_numpy(c), torch.from_numpy(s)
     if f64:
         bundle.model.double()
+        bundle.folded_dtype = lambda: torch.float64
         vgg.double()
         c, s = c.double(), s.double()
     label = None if label is None else torch.from_numpy(label)
@@ -228,6 +239,244 @@ def suite_dp(rank, out):
                 out[f"{key}/params/{n}"] = p.detach().clone()
 
 
+# rpst's stylize_sanet_spatial cases of tests/fixtures/torch_port_slice8b.npz
+# (tools/make_torch_port_fixture.py --slice8b): network, ada_module, dtype
+SANET_CASES = {"sanet_f32": ("sanet", "aea", torch.float32),
+               "sanet_bf16": ("sanet", "aea", torch.bfloat16),
+               "dynamic_sanet_aea": ("dynamic_sanet", "aea", torch.float32),
+               "dynamic_sanet_relu": ("dynamic_sanet", "relu",
+                                      torch.float32)}
+
+
+def sanet_bundle(case, size, seed=0, vgg_seed=1):
+    """(bundle, content, style) of a SANET_CASES entry at ``size`` px,
+    batch 1: weights from ``bridge``'s seeds, images from numpy's."""
+    from rpst_torch.bridge import (dynamic_sanet_weights_from_seed,
+                                   sanet_weights_from_seed)
+    net, ada, dt = SANET_CASES[case]
+    cfg = load_config(dict(network=net, ada_module=ada, img_size=size,
+                           vgg="", adaptive_blockwise="never",
+                           compute_dtype="bfloat16"
+                           if dt == torch.bfloat16 else "float32"))
+    bundle = build_model(cfg)
+    tree = (sanet_weights_from_seed(seed) if net == "sanet"
+            else dynamic_sanet_weights_from_seed(seed, size))
+    bundle.load_state_dict(from_flax_params(tree))
+    vgg = VGG19Encoder(num_stages=5)
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(vgg_seed, 5)))
+    bundle.vgg = vgg
+    gen = np.random.default_rng(seed)
+    c = torch.from_numpy(gen.random((1, size, size, 3), dtype=np.float32))
+    s = torch.from_numpy(gen.random((1, size, size, 3), dtype=np.float32))
+    return bundle, c, s
+
+
+def suite_sanet_spatial(rank, out):
+    """rpst's row-sharded SANet serving on {spatial: 2}: each SANET_CASES
+    entry's stylize at 64px, rows gathered."""
+    from rpst_torch.dist.collectives import all_gather
+    from rpst_torch.models.fast_path_spatial import stylize_sanet_spatial
+    mesh = make_mesh({"spatial": 2}, torch.device("cpu"), subset=True)
+    if not mesh.active:
+        return
+    for case in SANET_CASES:
+        bundle, c, s = sanet_bundle(case, 64)
+        y = stylize_sanet_spatial(bundle, shard_batch(c, mesh, True),
+                                  shard_batch(s, mesh, True), mesh)
+        out[f"{case}/out"] = torch.cat(all_gather(y, mesh.axis("spatial")),
+                                       dim=1)
+
+
+def column_ops(mesh, out):
+    """A conv and a folded conv + lrelu, whole and as this rank's column
+    share (``dist.tp``): outputs, dx and the share's dW / db under one
+    cotangent (``ops/<op>/<what>/{got,ref}``), and the folded shares
+    concatenated without the sub-position interleave."""
+    import copy
+    from rpst_torch.dist import tp
+    from rpst_torch.dist.collectives import all_gather
+    from rpst_torch.ops.folded import fold, fold_bias, fold_conv_kernel
+    from rpst_torch.ops.folded_conv import folded_conv_act
+    ax = mesh.axis("model")
+    gen = torch.Generator().manual_seed(0)
+    part = slice(ax.index * 4, (ax.index + 1) * 4)
+    conv = torch.nn.Conv2d(6, 8, 3, padding=1)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen))
+        conv.bias.copy_(torch.randn(8, generator=gen))
+    col = copy.deepcopy(conv)
+    tp.shard_model(col, ax, min_channels=8)
+    x = torch.randn(2, 6, 8, 8, generator=gen)
+    gy = torch.randn(2, 8, 8, 8, generator=gen)
+    for name, m in (("ref", conv), ("got", col)):
+        xr = x.clone().requires_grad_()
+        y = m(xr)
+        (y * gy).sum().backward()
+        dw, db = m.weight.grad, m.bias.grad
+        if name == "ref":
+            dw, db = dw[part], db[part]
+        for k, v in (("y", y), ("dx", xr.grad), ("dw", dw), ("db", db)):
+            out[f"ops/conv/{k}/{name}"] = v.detach()
+    # folded: (1, 8, 8, 4) -> 4C = 16 in, 4 Co = 32 out, shares of 16
+    x_f = fold(torch.randn(1, 8, 8, 4, generator=gen))
+    kern = torch.randn(3, 3, 4, 8, generator=gen) * 0.2
+    bias = torch.randn(8, generator=gen)
+    gy = torch.randn(1, 4, 4, 32, generator=gen)
+    fk, fb = (fold_conv_kernel(kern).requires_grad_(),
+              fold_bias(bias).requires_grad_())
+    xr = x_f.clone().requires_grad_()
+    y = folded_conv_act(xr, fk, fb, 0.2)
+    (y * gy).sum().backward()
+    out["ops/folded/y/ref"] = y.detach()
+    out["ops/folded/dx/ref"] = xr.grad
+    out["ops/folded/dk/ref"] = fk.grad.reshape(3, 3, 16, 4, 8)[
+        ..., part].reshape(3, 3, 16, 16)
+    out["ops/folded/db/ref"] = fb.grad.reshape(4, 8)[:, part].reshape(16)
+    fk_s = fold_conv_kernel(kern[..., part].contiguous()).requires_grad_()
+    fb_s = fold_bias(bias[part]).requires_grad_()
+    fk_s.tp_column = ax
+    xg = x_f.clone().requires_grad_()
+    y = tp.folded_column(folded_conv_act)(xg, fk_s, fb_s, 0.2)
+    (y * gy).sum().backward()
+    out["ops/folded/y/got"] = y.detach()
+    out["ops/folded/dx/got"] = xg.grad
+    out["ops/folded/dk/got"] = fk_s.grad
+    out["ops/folded/db/got"] = fb_s.grad
+    with torch.no_grad():
+        share = folded_conv_act(x_f, fk_s, fb_s, 0.2)
+        out["ops/folded/concat"] = torch.cat(all_gather(share, ax), dim=-1)
+
+
+def suite_tp(rank, out):
+    """Every TP_FAMILIES entry's SGD(1.0) step on {model: 2}
+    (column-parallel layers, min_channels 8 so that the tiny widths shard),
+    in float32 and, but for F32_ONLY, in float64 (the folded path too): the
+    updated parameters and buffers in the one-device layout, and what the
+    rank stores."""
+    from rpst_torch.dist import tp
+    mesh = make_mesh({"model": 2}, torch.device("cpu"), subset=True)
+    if not mesh.active:
+        return
+    column_ops(mesh, out)
+    cases = [(n, o, f64) for n, o in TP_FAMILIES for f64 in (False, True)
+             if not (f64 and n in F32_ONLY)]
+    for net, over, f64 in cases:
+        key = family_id(net, over) + ("/f64" if f64 else "")
+        bundle, vgg, c, s, label = dp_case(net, over, mesh, f64=f64)
+        whole = tp.stored_numel(bundle.model)
+        out[f"{key}/sharded"] = torch.tensor(tp.shard_model(
+            bundle.model, mesh.axis("model"), min_channels=8))
+        if bundle.folded_infer() and net == "sel_multi_adain":
+            se = bundle.folded_extras(live=True)  # the SE convs' shares
+            out[f"{key}/se_widths"] = torch.tensor([
+                se[k].shape[-1] if tp.column_axis(se[k]) else 0
+                for k in ("k1", "k2", "k3")])
+        state = sgd_state(bundle, mesh)
+        parts = train_step(state, vgg, c, s, content_label=label)
+        out[f"{key}/total_loss"] = parts["total_loss"]
+        out[f"{key}/stored"] = torch.tensor([tp.stored_numel(bundle.model),
+                                             whole])
+        for n, t in tp.full_state_dict(bundle.model).items():
+            out[f"{key}/state/{n}"] = t.clone()
+
+
+# rpst's tests/test_dist.py BASE at hidden 16 (tools/make_torch_port_fixture.py
+# TP_BASE), its TP test's min_channels
+TP_BASE = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=3,
+               hidden_dim=16, img_size=16, batch_size=8, lr=1e-3,
+               lr_decay=0.0, vgg="")
+TP_MIN_CHANNELS = 8
+
+
+def tp_fixture_point():
+    """(rpst's initial params as a flax tree, content, style, VGG seed) of
+    the slice-8b fixture's TP point."""
+    tree = {}
+    with np.load(FIX / "torch_port_slice8b.npz") as npz:
+        for k in npz.files:
+            if k.startswith("tp/params0/"):
+                node = tree
+                *parents, leaf = k[len("tp/params0/"):].split("/")
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = npz[k]
+        return tree, npz["tp/content"], npz["tp/style"], int(npz["vgg_seed"])
+
+
+def tp_fixture_state(mesh):
+    """(state, vgg, content, style) at the slice-8b fixture's TP point: the
+    fixture's initial params, sharded over ``mesh``'s model axis, Adam as
+    the driver builds it."""
+    from rpst_torch.dist import tp
+    from rpst_torch.train.step import create_train_state
+    tree, c, s, vgg_seed = tp_fixture_point()
+    bundle = build_model(load_config(TP_BASE))
+    bundle.load_state_dict(from_flax_params(tree))
+    if mesh is not None:
+        tp.shard_model(bundle.model, mesh.axis("model"), TP_MIN_CHANNELS)
+    vgg = VGG19Encoder()
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(vgg_seed)))
+    state = create_train_state(bundle, mesh=mesh)
+    c, s = torch.from_numpy(c), torch.from_numpy(s)
+    if mesh is not None:
+        c, s = shard_batch(c, mesh), shard_batch(s, mesh)
+    return state, vgg, c, s
+
+
+def suite_tp_fixture(rank, out):
+    """One Adam step of rpst's TP test point on {data: 2, model: 2}: the
+    loss, the updated state in the one-device layout, what each rank
+    stores, and the checkpoint round trip (written full-shape, restored
+    onto {model: 2} shares again)."""
+    from rpst_torch.dist import tp
+    from rpst_torch.train.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    mesh = make_mesh({"data": 2, "model": 2}, torch.device("cpu"))
+    state, vgg, c, s = tp_fixture_state(mesh)
+    for n, p in state.model.named_parameters():
+        out[f"share0/{n}"] = p.detach().clone()
+    parts = train_step(state, vgg, c, s)
+    out["total_loss"] = parts["total_loss"]
+    for n, t in tp.full_state_dict(state.model).items():
+        out[f"state/{n}"] = t.clone()
+    for n, p in state.model.named_parameters():
+        out[f"shape/{n}"] = torch.tensor(p.shape)
+    opt = state.optimizer.state_dict()["state"]
+    out["moments_numel"] = torch.tensor(sum(
+        v.numel() for st in opt.values() for k, v in st.items()
+        if k in ("exp_avg", "exp_avg_sq")))
+    out["stored"] = torch.tensor(tp.stored_numel(state.model,
+                                                 state.optimizer))
+    root = Path(sys.argv[5]) / "ckpt"
+    out["ckpt_root"] = torch.tensor(list(str(root).encode()),
+                                    dtype=torch.uint8)
+    path = save_checkpoint(root, state, write=rank == 0)
+    dist.barrier()
+    again, _, _, _ = tp_fixture_state(mesh)
+    restore_checkpoint(path, again)
+    full = tp.full_optimizer_state(again.optimizer)["state"]
+    mine = state.optimizer.state_dict()["state"]
+    for i, st in again.optimizer.state_dict()["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"restored_moment/{i}/{k}"] = (st[k] - mine[i][k]).abs().max()
+            out[f"full_moment/{i}/{k}"] = full[i][k]
+    for n, t in again.model.state_dict().items():
+        out[f"restored/{n}"] = (t - state.model.state_dict()[n]).abs().max()
+    out["restored_step"] = torch.tensor(again.step)
+
+
+def suite_accum(rank, out):
+    """sel_multi_adain's (BatchNorm) float64 SGD(1.0) step with grad_accum
+    2 on {data: 2}: the updated parameters and running statistics."""
+    mesh = make_mesh({"data": 2}, torch.device("cpu"))
+    bundle, vgg, c, s, _ = dp_case("sel_multi_adain", {}, mesh, accum=2,
+                                   f64=True)
+    out["total_loss"] = train_step(sgd_state(bundle, mesh), vgg, c,
+                                   s)["total_loss"]
+    for n, t in bundle.model.state_dict().items():
+        out[f"state/{n}"] = t.clone()
+
+
 def main():
     suite, rank, world, init, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -237,7 +486,10 @@ def main():
                             world_size=world, rank=rank)
     out = {}
     try:
-        {"spatial": suite_spatial, "dp": suite_dp}[suite](rank, out)
+        {"spatial": suite_spatial, "dp": suite_dp, "tp": suite_tp,
+         "sanet_spatial": suite_sanet_spatial,
+         "tp_fixture": suite_tp_fixture, "accum": suite_accum}[suite](
+            rank, out)
         dist.barrier()
     finally:
         torch.save({k: v.detach().cpu() for k, v in out.items()},

@@ -1760,6 +1760,105 @@ def make_spatial_fixture() -> dict:
     return arrays
 
 
+SLICE8B_DST = REPO / "tests" / "fixtures" / "torch_port_slice8b.npz"
+# rpst's tests/test_dist.py BASE at hidden_dim 16 (its TP test's config)
+TP_BASE = dict(network="multi_adain", enc_stack_way="constant", rp_blocks=3,
+               hidden_dim=16, img_size=16, batch_size=8, lr=1e-3,
+               lr_decay=0.0)
+TP_MESH = {"data": 2, "model": 4}
+TP_MIN_CHANNELS = 8
+# the SANet cases: network, ada_module, compute dtype
+SANET_SPATIAL = {"sanet_f32": ("sanet", "aea", "float32"),
+                 "sanet_bf16": ("sanet", "aea", "bfloat16"),
+                 "dynamic_sanet_aea": ("dynamic_sanet", "aea", "float32"),
+                 "dynamic_sanet_relu": ("dynamic_sanet", "relu", "float32")}
+
+
+def make_slice8b_fixture(seed: int = 0, size: int = 64) -> dict:
+    """rpst's slice-8b paths on the virtual CPU devices:
+
+      * ``<case>/out``: ``stylize_sanet_spatial`` on {spatial: 2} of each
+        ``SANET_SPATIAL`` case at ``size`` px, batch 1 (its flash kernel in
+        interpret mode), the weights ``bridge.sanet_weights_from_seed`` /
+        ``dynamic_sanet_weights_from_seed(seed)``, the 5-stage VGG
+        ``vgg_weights_from_seed(TRAIN['vgg_seed'], 5)``, the images numpy's
+        ``default_rng(seed)`` draws (content, then style);
+      * ``tp/params0/<path>``, ``tp/content``, ``tp/style``: the point of
+        rpst's ``test_tp_channel_sharding_matches_single_device``
+        (``TP_BASE``, ``jax.random.PRNGKey(0)``; the VGG from
+        ``vgg_weights_from_seed(TRAIN['vgg_seed'])``);
+      * ``tp/one/…`` and ``tp/mesh/…``: ``total_loss`` and the updated
+        ``params/<path>`` of one Adam step, one device
+        (``make_train_step``) and ``TP_MESH`` with ``tp_shardings(...,
+        min_channels=TP_MIN_CHANNELS)`` (``make_sharded_train_step``)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from rpst.config import load_config
+    from rpst.dist import (make_mesh, make_sharded_train_step, replicate,
+                           shard_batch, tp_shardings)
+    from rpst.models import build_model
+    from rpst.models.fast_path_spatial import stylize_sanet_spatial
+    from rpst.train import create_train_state, make_train_step
+    from rpst_torch.bridge import (dynamic_sanet_weights_from_seed,
+                                   sanet_weights_from_seed,
+                                   vgg_weights_from_seed)
+
+    arrays = dict(seed=np.int64(seed), vgg_seed=np.int64(TRAIN["vgg_seed"]))
+    mesh = make_mesh({"spatial": 2}, jax.devices()[:2])
+    vgg5 = jax.tree.map(jnp.asarray,
+                        vgg_weights_from_seed(TRAIN["vgg_seed"], 5))
+    for case, (net, ada, dt) in SANET_SPATIAL.items():
+        rng = np.random.default_rng(seed)
+        c = rng.random((1, size, size, 3), dtype=np.float32)
+        s = rng.random((1, size, size, 3), dtype=np.float32)
+        tree = (sanet_weights_from_seed(seed) if net == "sanet"
+                else dynamic_sanet_weights_from_seed(seed, size))
+        variables = {"params": jax.tree.map(jnp.asarray, tree)}
+        out = stylize_sanet_spatial(
+            variables, vgg5, jnp.asarray(c), jnp.asarray(s), mesh,
+            adaptive=net == "dynamic_sanet", ada_module=ada,
+            dtype=jnp.bfloat16 if dt == "bfloat16" else jnp.float32,
+            interpret=True)
+        arrays[f"{case}/out"] = np.asarray(out, np.float32)
+        print(f"{case}: |out| max {float(jnp.abs(out).max()):.4g}",
+              flush=True)
+
+    cfg = load_config(TP_BASE)
+    rng = jax.random.PRNGKey(0)
+    c = np.random.default_rng(0).random((8, 16, 16, 3), np.float32)
+    s = np.random.default_rng(1).random((8, 16, 16, 3), np.float32)
+    vgg4 = jax.tree.map(jnp.asarray, vgg_weights_from_seed(TRAIN["vgg_seed"]))
+    bundle = build_model(cfg)
+    state, tx = create_train_state(bundle, rng, jnp.asarray(c),
+                                   jnp.asarray(s), vgg4)
+    arrays.update({f"tp/params0/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(state.params)})
+    arrays["tp/content"], arrays["tp/style"] = c, s
+    one, parts = make_train_step(bundle, tx)(state, vgg4, jnp.asarray(c),
+                                             jnp.asarray(s))
+    arrays["tp/one/total_loss"] = np.float32(parts["total_loss"])
+    arrays.update({f"tp/one/params/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(one.params)})
+    bundle2 = build_model(load_config(TP_BASE))
+    state2, tx2 = create_train_state(bundle2, rng, jnp.asarray(c),
+                                     jnp.asarray(s), vgg4)
+    tmesh = make_mesh(TP_MESH)
+    sharding = tp_shardings(state2, tmesh, min_channels=TP_MIN_CHANNELS)
+    state2 = jax.device_put(state2, sharding)
+    step = make_sharded_train_step(bundle2, tx2, tmesh,
+                                   state_sharding=sharding)
+    tp_state, tp_parts = step(state2, replicate(vgg4, tmesh),
+                              shard_batch(jnp.asarray(c), tmesh),
+                              shard_batch(jnp.asarray(s), tmesh))
+    arrays["tp/mesh/total_loss"] = np.float32(tp_parts["total_loss"])
+    arrays.update({f"tp/mesh/params/{k}": np.asarray(v, np.float32)
+                   for k, v in _flat(tp_state.params)})
+    print(f"tp: one {float(parts['total_loss']):.6g} mesh "
+          f"{float(tp_parts['total_loss']):.6g}", flush=True)
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -1817,10 +1916,14 @@ def main():
     ap.add_argument("--spatial", action="store_true",
                     help="write tests/fixtures/torch_port_spatial.npz: "
                          "rpst's row-sharded folded serving and training")
+    ap.add_argument("--slice8b", action="store_true",
+                    help="write tests/fixtures/torch_port_slice8b.npz: "
+                         "rpst's row-sharded SANet serving and its channel "
+                         "tensor-parallel train step")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    if args.spatial:  # the meshes' virtual CPU devices
+    if args.spatial or args.slice8b:  # the meshes' virtual CPU devices
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + " --xla_force_host_platform_device_count=8").strip()
@@ -1830,6 +1933,12 @@ def main():
 
     slice4 = [n for n in SLICE4 if getattr(args, n)]
     slice5b = [n for n in SLICE5B if getattr(args, n)]
+    if args.slice8b:
+        arrays = make_slice8b_fixture(args.seed, args.size or 64)
+        dst = args.dst or str(SLICE8B_DST)
+        np.savez_compressed(dst, **arrays)
+        print(f"wrote {dst} ({len(arrays)} arrays)")
+        return
     if args.spatial:
         arrays = make_spatial_fixture()
         dst = args.dst or str(SPATIAL_DST)

@@ -63,9 +63,9 @@ one Adam step (the batch must divide by k; not with ``target_cache``), and
 (``rpst_torch.train.step``).
 
 Multi-device runs (rpst ``train.py:61-98``): ``mesh_shape`` lays the ranks
-on ``data`` and ``spatial`` axes (``{data: 2}``, ``{spatial: 2}``, ``{data:
-2, spatial: 2}``), one process per rank, each on ``cuda:(local_rank %
-device_count)`` (or the CPU). Without ``distributed`` the command starts its
+on ``data``, ``spatial`` and ``model`` axes (``{data: 2}``, ``{spatial:
+2}``, ``{data: 2, spatial: 2}``, ``{data: 2, model: 2}``), one process per
+rank, each on ``cuda:(local_rank % device_count)`` (or the CPU). Without ``distributed`` the command starts its
 own ranks on this host, after building the CUDA kernels once
 (``rpst_torch.dist.launch``); with ``distributed: true`` each process is
 one rank, started from outside with ``coordinator_address`` (``host:port``
@@ -73,14 +73,23 @@ or a ``tcp://`` / ``file://`` URL), ``num_processes`` and ``process_id``
 (or torchrun's environment where unset). The folded multi_adain, ccam and
 sel_multi_adain train row-sharded on B1-B3's halo modes (also on a mesh
 without a ``spatial`` axis, as rpst's shard_map); every other network trains
-data parallel, its BatchNorm statistics over the global batch. Each data
-rank draws its share of the image stream (``InfiniteSampler``'s shards),
-and the ranks of one row group split its images' rows. Rank 0 alone writes
-the checkpoints, the metrics and the test dumps; the target cache and the
-int8 loss targets stay off on a mesh, as in rpst. Refused, naming ROADMAP.md
-section A slice 8b: a ``model`` axis, and a ``spatial`` axis for a network
-the row-sharded route does not take. Ranks share a card over gloo where
-there are more ranks than GPUs (NCCL otherwise).
+data parallel, its BatchNorm statistics over the global batch. A ``model``
+axis (any network; rpst's ``tp_shardings``) keeps each rank's share of
+every conv kernel and per-channel vector of at least 32 channels, and of
+their Adam moments, and computes each sharded conv's output-channel share
+(``rpst_torch.dist.tp``; the folded convs on B1-B3 at the share's width).
+Each data rank draws its share of the image stream (``InfiniteSampler``'s
+shards), the ranks of one model group the same share, and the ranks of one
+row group split its images' rows. Every rank takes the stop decision of a
+SIGTERM / SIGINT together, at ``log_iter`` boundaries (the maximum of the
+ranks' flags), so all checkpoint the same step and exit 0. Rank 0 alone
+writes the checkpoints, the metrics and the test dumps (on a model axis
+every rank first joins the gather to the full shapes: the checkpoint is
+the one-device layout); the target cache and the int8 loss targets stay
+off on a mesh, as in rpst. Refused, naming ROADMAP.md section A slice 8c:
+a ``spatial`` axis for a network the row-sharded route does not take, and
+``model`` beside ``spatial``. Ranks share a card over gloo where there are
+more ranks than GPUs (NCCL otherwise).
 """
 
 import argparse
@@ -100,8 +109,8 @@ from rpst_torch.data import (CityscapesDataset,  # noqa: E402
                              ImageFolderDataset, InfiniteLoader,
                              build_test_dataset)
 from rpst_torch.dist import (check_mesh_shape, is_main_process,  # noqa: E402
-                             make_mesh, rank_device, replicate,
-                             setup_distributed, shard_rows)
+                             make_mesh, max_over, rank_device, replicate,
+                             setup_distributed, shard_rows, tp)
 from rpst_torch.dist.launch import in_rank, spawn  # noqa: E402
 from rpst_torch.dumps import dump_test_set  # noqa: E402
 from rpst_torch.metrics import logger  # noqa: E402
@@ -125,8 +134,8 @@ from rpst_torch.train.target_cache import DeviceTargetCache  # noqa: E402
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a config this port cannot train yet:
-    a ``model`` mesh axis, a ``spatial`` axis for a network the row-sharded
-    route does not take (ROADMAP.md section A slice 8b)."""
+    a ``spatial`` axis for a network the row-sharded route does not take,
+    or beside a ``model`` axis (ROADMAP.md section A slice 8c)."""
     if cfg.mesh_shape:
         train_route(build_model(cfg), check_mesh_shape(cfg.mesh_shape))
 
@@ -200,6 +209,13 @@ def main(argv=None):
     init_torch_default(bundle.model, cfg.seed)
     if mesh is not None:
         replicate(bundle.model, mesh)
+        if mesh.model > 1:  # this rank's channel shares from here on
+            whole = tp.stored_numel(bundle.model)
+            n = tp.shard_model(bundle.model, mesh.axis("model"))
+            logger.info(f"model axis {mesh.model}: {n} leaves channel-"
+                        f"sharded, {tp.stored_numel(bundle.model)} of "
+                        f"{whole} parameter and buffer elements stored a "
+                        "rank")
     vgg, vgg_source = build_vgg(cfg, device)
     bundle.vgg = vgg  # the feature models stylize from its features
     if cfg.vgg and vgg_source == str(cfg.vgg):
@@ -282,9 +298,11 @@ def main(argv=None):
     route = train_route(bundle, mesh)
     if mesh is not None:
         logger.info(f"Mesh: {dict(mesh.shape)} over {mesh.backend}: "
-                    + ("row-sharded folded training (B1-B3 halo modes on "
-                       "each rank's rows)" if route == "spatial"
-                       else "data parallel"))
+                    + {"spatial": "row-sharded folded training (B1-B3 halo "
+                                  "modes on each rank's rows)",
+                       "model": "channel tensor parallel (each rank's "
+                                "output-channel shares), data parallel "
+                                "over data"}.get(route, "data parallel"))
     if cfg.train_q8_targets and mesh is not None:
         if route == "spatial":
             logger.info("train_q8_targets inactive: the row-sharded folded "
@@ -321,6 +339,23 @@ def main(argv=None):
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else "")
                 + f", batch {cfg.batch_size}, {cfg.img_size}px")
+
+    sharded = tp.is_sharded(bundle.model)
+    dump_copy = {}
+
+    def dump_bundle():
+        """The bundle the test dumps stylize: on a model axis a one-device
+        copy (every rank joins the gather; rank 0 gets the copy)."""
+        if not sharded:
+            return bundle
+        full = tp.full_state_dict(bundle.model)
+        if not main_proc:
+            return None
+        if "b" not in dump_copy:
+            dump_copy["b"] = build_model(cfg, device)
+            dump_copy["b"].vgg = vgg
+        dump_copy["b"].load_state_dict(full)
+        return dump_copy["b"]
 
     counters = (fused_folded_conv, fused_folded_conv_grad_input,
                 fused_folded_conv_grad_weight)
@@ -370,16 +405,28 @@ def main(argv=None):
                                      f"/{tc['hit_steps'] + tc['miss_steps']}")
                     logger.info(f"Iterations {begin + i}, elapsed time: "
                                 f"{elapsed:.3f}{rate_str}{loss_str}")
-                if (test_ds is not None and i % cfg.test_iter == 0
-                        and main_proc):
-                    dump_test_set(bundle, test_ds, cfg.batch_size,
-                                  output / "test" / str(begin + i))
+                if test_ds is not None and i % cfg.test_iter == 0:
+                    dumped = dump_bundle()
+                    if main_proc:
+                        dump_test_set(dumped, test_ds, cfg.batch_size,
+                                      output / "test" / str(begin + i))
+                # the ranks agree on a stop at log_iter boundaries (rpst
+                # train.py:354-381): a rank that stopped alone would leave
+                # the others waiting in the next collective
+                stop_now = stop.requested
+                if mesh is not None:
+                    stop_now = (max_over(stop.requested, device)
+                                if i % cfg.log_iter == 0 else False)
                 if (i % cfg.snapshot_save_iter == 0 or (i + 1) == cfg.max_iter
-                        or stop.requested) and main_proc:
-                    path = save_checkpoint(output / "checkpoints", state)
-                    logger.info(f"Saved checkpoint {path}")
-                if stop.requested:
-                    logger.info("Signal received: checkpointed, exiting")
+                        or stop_now) and (main_proc or sharded):
+                    path = save_checkpoint(output / "checkpoints", state,
+                                           write=main_proc)
+                    if main_proc:
+                        logger.info(f"Saved checkpoint {path}")
+                if stop_now:
+                    rank = mesh.rank if mesh is not None else 0
+                    logger.warning(f"Signal received: rank {rank} stops "
+                                   f"after step {begin + i}, checkpointed")
                     break
     finally:
         content_iter.close()

@@ -378,6 +378,22 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                driver starts its 2 ranks, 3 steps at 512px b8 bf16, one
                checkpoint and the loss lines from rank 0
 
+ 60-61. slice 8b  two ranks on the one card (chip_smoke.py --slice8b-rank):
+               sanet / dynamic_sanet on {spatial: 2} vs rpst's
+               stylize_sanet_spatial (tests/fixtures/torch_port_slice8b.npz)
+               and at 512px vs one device; the flagship's and a sanet step
+               on {model: 2} vs one device, the checkpoint served
+ 62. daemon     serve_torch.py --daemon --mesh 2: 4 requests over TCP, the
+               PNGs vs the one-device stylize, a shutdown every rank obeys
+ 63. slice 8c   two ranks on the one card (chip_smoke.py --slice8c-rank):
+               the standard layout of adain, wct, mrf, spade, seg_adain,
+               src and LD v1-v5 on {spatial: 2} through the serving run
+               function: at rpst's test size vs
+               tests/fixtures/torch_port_slice8c.npz (uint8 within one
+               step of rpst's one device and GSPMD, float32 1e-4), at 512px
+               b1 vs the one-device stylize (f32 1e-4; adain and LD v1 in
+               bf16 too), each timed beside one device; no kernel launched
+
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
 repository, it exits non-zero and prints no result.
@@ -919,8 +935,13 @@ def main():
     t0 = time.perf_counter()
     _mesh_daemon(dev)
     log("time", f"phase 62 {time.perf_counter() - t0:.1f}s")
+    # ---- 63. slice 8c: the standard layout served row-sharded, two ranks
+    # on the one card
+    t0 = time.perf_counter()
+    _slice8c_ranks(dev, name_power)
+    log("time", f"phase 63 {time.perf_counter() - t0:.1f}s")
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-62")
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-63")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -8357,10 +8378,234 @@ def _mesh_daemon(dev):
         f"stylize; shutdown stopped both ranks (exit 0); {wall:.1f}s wall "
         f"with the ranks' start")
 
+# ---- slice 8c: row-sharded serving of the standard layout -----------------
+STD_8C = ("adain", "wct", "mrf", "spade", "seg_adain", "src") + LD_NETWORKS
+STD_8C_BF16 = ("adain", "ld_adain")
+SLICE8C_FIXTURE = REPO / "tests" / "fixtures" / "torch_port_slice8c.npz"
+# the fixture's point: rpst's tests/test_spatial_gspmd.py _TINY (the table
+# of tools/make_torch_port_fixture.py TINY_8C / CASES_8C), the LD family
+# with use_mask off
+TINY_8C = dict(img_size=32, rp_blocks=2, hidden_dim=8, inception_num=0,
+               attention="none", compute_dtype="float32", vgg="")
+
+
+def _fx_8c_bundle(network, dev):
+    """A STD_8C network at the slice-8c fixture's point: ``TINY_8C``, the
+    family's seeded draw (``bridge.weights_from_seed(cfg, 0)``), src's VGG
+    from ``vgg_weights_from_seed(1)``."""
+    from rpst_torch.bridge import (from_flax_params, vgg_from_flax,
+                                   vgg_weights_from_seed, weights_from_seed)
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.vgg import VGG19Encoder
+    over = {"use_mask": False} if network in LD_NETWORKS else {}
+    cfg = load_config(dict(TINY_8C, network=network, **over))
+    bundle = build_model(cfg, dev)
+    bundle.load_state_dict(from_flax_params(weights_from_seed(cfg, 0)))
+    if bundle.from_features:
+        vgg = VGG19Encoder()
+        vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(1)))
+        bundle.vgg = vgg.to(dev)
+    return bundle
+
+
+def _std_8c_bundle(network, dev, dtype="float32"):
+    """A STD_8C network at 512px at the widths the earlier phases serve it
+    at, seeded: adain / wct at bench.py's (``_rpseq_bundle``), mrf / spade
+    / seg_adain at bench.py's (``_5b_bundle``), src on its yaml with
+    use_mask off (``_6b_bundle``), the LD family at its yamls'
+    (``_ld_bundle``); in compute_dtype ``dtype``."""
+    over = {"compute_dtype": dtype}
+    if network in ("adain", "wct"):
+        return _rpseq_bundle(network, dev, IMG, **over)
+    if network in S5B_NETWORKS:
+        return _5b_bundle(dev, network, IMG, **over)
+    if network == "src":
+        return _6b_bundle(dev, "src", IMG, **over)
+    return _ld_bundle(dev, network, IMG, **over)
+
+
+def _images_8c(dev):
+    """The 512px b1 content and style of phase 63 (numpy's
+    ``default_rng(63)``)."""
+    import numpy as np
+    import torch
+    gen = np.random.default_rng(63)
+    return tuple(torch.from_numpy(gen.random((1, IMG, IMG, 3), np.float32))
+                 .to(dev) for _ in range(2))
+
+
+def _runs_8c():
+    return ([(n, "float32") for n in STD_8C]
+            + [(n, "bfloat16") for n in STD_8C_BF16])
+
+
+def slice8c_rank(rank, init, out_dir):
+    """Phase 63, one rank (``python3 chip_smoke.py --slice8c-rank R INIT
+    OUT``): joins the other rank over gloo on the one card and serves
+    every STD_8C network's standard layout on {spatial: 2} through
+    ``serving.make_mesh_run_impl`` (the CLI's and the daemon's run
+    function): at the slice-8c fixture's point (32px b2), then at 512px b1
+    (float32 for all, bfloat16 for adain and LD v1) after one warm-up
+    call, timed. Saves ``<out>/rank<r>.pt``: the gathered outputs, the
+    timed call's ms and each network's wall seconds on this rank, and
+    every kernel's launches (none expected)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO / "src"))
+    from rpst_torch.dist import make_mesh
+    from rpst_torch.serving import make_mesh_run_impl
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)  # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            world_size=2, rank=int(rank))
+    res = {}
+    try:
+        s2 = make_mesh({"spatial": 2}, dev)
+        _reset_counts()
+        with np.load(SLICE8C_FIXTURE) as npz:
+            c, s = (torch.from_numpy(npz[k]).to(dev).float() / 255
+                    for k in ("content", "style"))
+        for net in STD_8C:
+            run = make_mesh_run_impl(_fx_8c_bundle(net, dev), "standard", s2)
+            res[f"63/fx/{net}"] = run(c, s)
+        c, s = _images_8c(dev)
+        for net, dt in _runs_8c():
+            t_net = time.perf_counter()
+            run = make_mesh_run_impl(_std_8c_bundle(net, dev, dt),
+                                     "standard", s2)
+            run(c, s)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = run(c, s)
+            torch.cuda.synchronize()
+            key = f"63/512/{net}/{dt}"
+            res[f"{key}/ms"] = torch.tensor((time.perf_counter() - t0) * 1e3)
+            res[f"{key}/out"] = y
+            res[f"{key}/wall_s"] = torch.tensor(time.perf_counter() - t_net)
+            del run, y
+            torch.cuda.empty_cache()
+        res["63/launches"] = torch.tensor(
+            [c.launches for c in _counters().values()])
+        dist.barrier()
+    finally:
+        torch.save({k: v.detach().cpu() for k, v in res.items()},
+                   Path(out_dir) / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _slice8c_ranks(dev, name_power):
+    """Phase 63: the standard layout of adain, wct, mrf, spade, seg_adain,
+    src and LD v1-v5 served row-sharded by two ranks on the one card over
+    gloo (``slice8c_rank``), rpst's GSPMD route made explicit. At the
+    fixture's point each output within one uint8 step of rpst's
+    single-device and GSPMD serving (``torch_port_slice8c.npz``) and its
+    float32 within 1e-4 of rpst's single-device stylize; at 512px b1 each
+    float32 output within 1e-4 of the one-device stylize on the card, the
+    bfloat16 ones (adain, LD v1) within MAE 1e-2 or 3x the one-device
+    bfloat16 distance from float32 (the bf16 rule of ROADMAP section C);
+    no kernel of the port launched on either rank (rpst's route reaches no
+    Pallas call). Logs each network's sharded and one-device ms and a
+    ``[time]`` line per network."""
+    import numpy as np
+    import torch
+    torch.cuda.empty_cache()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--slice8c-rank",
+         str(r), str(tmp / "init"), str(tmp)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=str(REPO))
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("phase 63 ranks failed:\n" + "\n".join(
+            f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(logs)))
+    res = [torch.load(tmp / f"rank{r}.pt", weights_only=True)
+           for r in range(2)]
+    tmp_dir.cleanup()
+    log("time", f"phase 63 ranks {time.perf_counter() - t0:.1f}s")
+    for r in range(2):
+        if int(res[r]["63/launches"].sum()):
+            raise AssertionError(f"63: rank {r} launched kernels of the "
+                                 f"port: {res[r]['63/launches'].tolist()}")
+    u8 = lambda t: (np.clip(t, 0.0, 1.0) * 255.0 + 0.5).astype(  # noqa
+        np.uint8).astype(int)
+    with np.load(SLICE8C_FIXTURE) as npz:
+        fx = {k: npz[k] for k in npz.files}
+    for net in STD_8C:
+        got = res[0][f"63/fx/{net}"]
+        if not torch.equal(got, res[1][f"63/fx/{net}"]):
+            raise AssertionError(f"63 fixture {net}: the ranks differ")
+        steps = [int(np.abs(u8(got.numpy()) - fx[f"{net}/{k}"].astype(
+            int)).max()) for k in ("one", "s2")]
+        if max(steps) > 1:
+            raise AssertionError(f"63 fixture {net}: uint8 steps from rpst's "
+                                 f"one device / GSPMD {steps}")
+        err, _ = check_close(f"63 fixture {net}", got,
+                             torch.from_numpy(fx[f"{net}/one_f32"]), F32_TOL)
+        log("63 std spatial", f"{net} 32px b2 on {{spatial: 2}} vs rpst: "
+            f"uint8 steps from its one device / GSPMD {steps}, float32 max "
+            f"abs err {err:.3g} from its one-device stylize")
+    c, s = _images_8c(dev)
+    f32_ref = {}
+    for net, dt in _runs_8c():
+        t_net = time.perf_counter()
+        key = f"63/512/{net}/{dt}"
+        got = res[0][f"{key}/out"]
+        if not torch.equal(got, res[1][f"{key}/out"]):
+            raise AssertionError(f"{key}: the ranks differ")
+        bundle = _std_8c_bundle(net, dev, dt)
+        with torch.inference_mode():
+            bundle.stylize(c, s, folded=False)  # warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref = bundle.stylize(c, s, folded=False)
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t1) * 1e3
+        ref = ref.cpu()
+        del bundle
+        torch.cuda.empty_cache()
+        if dt == "float32":
+            f32_ref[net] = ref
+            err, _ = check_close(key, got, ref, F32_TOL)
+            text = f"max abs err {err:.3g} vs the one-device stylize"
+        else:
+            own = float((ref - f32_ref[net]).abs().mean())
+            mae = float((got - ref).abs().mean())
+            if not mae <= max(1e-2, 3 * own):
+                raise AssertionError(f"{key}: MAE {mae}, own bf16 distance "
+                                     f"{own}")
+            text = (f"MAE {mae:.3g} vs the one-device bf16 stylize (limit "
+                    f"{max(1e-2, 3 * own):.3g}: its own bf16 distance from "
+                    f"f32 {own:.3g})")
+        ms = float(res[0][f"{key}/ms"])
+        log("63 std spatial", f"{net} {IMG}px b1 {dt} on {{spatial: 2}}: "
+            f"{text}; {ms:.1f} ms a stylize on rank 0 with the rows' "
+            f"gather, {one_ms:.1f} ms on one device (two ranks share the "
+            f"card; {name_power})")
+        log("time", f"63 {net} {dt}: ranks "
+            f"{float(res[0][f'{key}/wall_s']):.1f}s, one device "
+            f"{time.perf_counter() - t_net:.1f}s")
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--spatial-rank":
         spatial_rank(*sys.argv[2:])
     elif len(sys.argv) == 5 and sys.argv[1] == "--slice8b-rank":
         slice8b_rank(*sys.argv[2:])
+    elif len(sys.argv) == 5 and sys.argv[1] == "--slice8c-rank":
+        slice8c_rank(*sys.argv[2:])
     else:
         main()

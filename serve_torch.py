@@ -74,14 +74,18 @@ building the CUDA kernels once (``rpst_torch.dist.launch``): ``--mesh N``
 data parallel over N ranks, each stylizing its share of every batch, for
 every network; ``--mesh data=a,spatial=b`` also shards image rows, the
 row-sharded folded stylize of multi_adain, sel_multi_adain and ccam (halo
-rows and all-reduced statistics; ``img_size % (4 * spatial) == 0``) and the
+rows and all-reduced statistics; ``img_size % (4 * spatial) == 0``), the
 row-sharded standard stylize of sanet and dynamic_sanet (``--mode
 standard``: halo VGG convs, B6 on each rank's query rows, in the config's
-compute_dtype; ``img_size % (32 * spatial) == 0``). Under a mesh ``--mode
-q8`` gives way to folded with a warning, mst refuses a spatial axis, the
-other standard-layout networks on a spatial axis refuse naming ROADMAP.md
-section A slice 8c, and a ``model`` axis raises ``ValueError`` (serving
-takes data and spatial, as rpst's). With ``--daemon`` rank 0 owns the
+compute_dtype; ``img_size % (32 * spatial) == 0``), and the row-sharded
+standard stylize of every other network but mst (adain, wct, mrf, spade,
+seg_adain, src, ld_adain .. ld_adain5, and multi_adain, sel_multi_adain
+and ccam in ``--mode standard``: rpst's GSPMD route, the one-device
+stylize with halo rows and statistics summed over the shares; launches no
+kernel of the port; ``img_size % spatial == 0``). Under a mesh ``--mode
+q8`` gives way to folded with a warning, mst refuses a spatial axis, and a
+``model`` axis raises ``ValueError`` (serving takes data and spatial, as
+rpst's). With ``--daemon`` rank 0 owns the
 socket and the batcher and sends each batch to every rank; ``{"cmd":
 "shutdown"}`` stops them all. Rank 0 writes the images. Ranks share a card
 over gloo where they outnumber the GPUs.

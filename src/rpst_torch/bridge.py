@@ -614,6 +614,31 @@ def ld_weights_from_seed(network: str, seed: int, layer_num: int = 5,
     return tree
 
 
+def weights_from_seed(cfg, seed: int = 0) -> dict:
+    """The seeded ``params`` tree of ``cfg.network`` at the config's
+    widths, as each family's fixtures draw it: adain / wct
+    ``rpseq_weights_from_seed``, mrf, spade, seg_adain, src and the LD
+    family their own draws."""
+    n = cfg.network
+    width = dict(rp_blocks=cfg.rp_blocks, hidden_dim=cfg.hidden_dim)
+    if n in ("adain", "wct"):
+        return rpseq_weights_from_seed(seed, **width)
+    if n == "mrf":
+        return mrf_weights_from_seed(seed, **width)
+    if n == "spade":
+        return spade_weights_from_seed(seed, ndf=cfg.ndf, **width)
+    if n == "seg_adain":
+        return seg_adain_weights_from_seed(
+            seed, seg_hidden_dim=cfg.seg_hidden_dim,
+            class_num=cfg.class_num, **width)
+    if n == "src":
+        return src_weights_from_seed(seed)
+    if n.startswith("ld_adain"):
+        return ld_weights_from_seed(n, seed, cfg.ld_layer_num,
+                                    cfg.hidden_dim, cfg.stylized_layers)
+    raise ValueError(f"no seeded draw for {n!r}")
+
+
 def flax_weights_from_seed(model: torch.nn.Module, seed: int
                            ) -> Tuple[dict, dict]:
     """(params, batch_stats) flax trees for ``model``'s parameters and

@@ -32,13 +32,37 @@ in: the reductions over the batch inside it (BatchNorm's batch statistics,
 ``nn.attention.bn_batch_stats``; seg_adain's cross entropy) sum over those
 ranks too, so they are the global batch's, as rpst's GSPMD step computes
 them.
+
+``row_shares(axis)`` is the context the row-sharded standard layout runs
+in (rpst's GSPMD partitioning of the standard program, made explicit):
+inside it every 4-D activation a row-share primitive of the port is given
+(``nn.rows`` / ``nn.blocks`` pads, padded convs, norms and pools,
+``ops.stats``, ``ops.wct``, the SE / SK pools, the CCAM energies, LD's
+resize) is this rank's even share of its image's rows,
+global height = local height x axis size, and the primitive computes what
+one device computes on the whole image:
+
+  * ``halo_pad``: the k rows a pad adds above and below, the neighbours'
+    edge rows inside the image, the reflect / replicate / zero rows at its
+    top and bottom;
+  * ``sum_rows`` / ``row_moments``: sums over the shares, in float64
+    across them, and the two-pass mean and variance of one device;
+  * ``gather_rows`` / ``on_whole``: where a tensor stops splitting evenly
+    (a ceil pool at an odd share, a pad that grows a share on more than
+    two, fewer rows than a halo needs) it is gathered once and its stream
+    runs whole on every rank as a :class:`Whole` tensor, which the
+    primitives compute as one device does; a primitive that gathered hands
+    back this rank's rows where the output splits evenly again.
+
+Outside the context, or on one rank, every primitive computes exactly what
+it computes without it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,6 +70,7 @@ import torch.distributed as dist
 from .mesh import Axis
 
 _BATCH = threading.local()
+_ROWS = threading.local()
 
 
 def _staged(t: torch.Tensor, ax: Axis) -> torch.Tensor:
@@ -121,6 +146,22 @@ class _Exchange(torch.autograd.Function):
         return d_top, d_bottom, None
 
 
+def _halo(x: torch.Tensor, k: int, ax: Axis, dim: int,
+          edge: Callable[[torch.Tensor, bool], torch.Tensor]
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k rows above, k rows below) the row share ``x`` along ``dim``: the
+    neighbours' edge rows through one exchange, ``edge(x, top)`` at the
+    image's top and bottom."""
+    if ax.size == 1:
+        return edge(x, True), edge(x, False)
+    h = x.shape[dim]
+    prev, nxt = _Exchange.apply(x.narrow(dim, 0, k), x.narrow(dim, h - k, k),
+                                ax)
+    above = edge(x, True) if ax.index == 0 else prev
+    below = edge(x, False) if ax.index == ax.size - 1 else nxt
+    return above, below
+
+
 def halo_rows(x_l: torch.Tensor, ax: Axis, reflect=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(row above, row below) of the row shard ``x_l`` (N, H, W, C), each
@@ -130,12 +171,37 @@ def halo_rows(x_l: torch.Tensor, ax: Axis, reflect=None
     Differentiable in ``x_l`` through the exchange and ``reflect``."""
     if reflect is None:
         from ..ops.folded import _row_ring as reflect
-    if ax.size == 1:
-        return reflect(x_l, True), reflect(x_l, False)
-    prev, nxt = _Exchange.apply(x_l[:, :1], x_l[:, -1:], ax)
-    above = reflect(x_l, True) if ax.index == 0 else prev
-    below = reflect(x_l, False) if ax.index == ax.size - 1 else nxt
-    return above, below
+    return _halo(x_l, 1, ax, 1, reflect)
+
+
+def edge_rows(x: torch.Tensor, k: int, top: bool, mode: str,
+              dim: int) -> torch.Tensor:
+    """The k rows a one-device ``mode`` pad (reflect | replicate | zero)
+    puts above (``top``) or below ``x`` along ``dim``: rows k .. 1 (or
+    H-2 .. H-1-k) reflected, the edge row repeated, or zeros."""
+    h = x.shape[dim]
+    if mode == "reflect":
+        return x.narrow(dim, 1 if top else h - 1 - k, k).flip(dim)
+    if mode == "replicate":
+        row = x.narrow(dim, 0 if top else h - 1, 1)
+        return torch.cat([row] * k, dim=dim) if k > 1 else row
+    if mode == "zero":
+        shape = list(x.shape)
+        shape[dim] = k
+        return x.new_zeros(shape)
+    raise ValueError(f"pad mode {mode!r}: reflect, replicate or zero")
+
+
+def halo_pad(x: torch.Tensor, k: int, mode: str, ax: Axis,
+             dim: int = 1) -> torch.Tensor:
+    """The row share ``x`` with the k rows a one-device ``mode`` pad of the
+    whole image puts around it along ``dim``: the neighbours' edge rows
+    inside the image, ``edge_rows`` at its top and bottom (a share needs k
+    rows, k + 1 for reflect). Differentiable: the backward sends each
+    row's cotangent to the rank that owns the row."""
+    above, below = _halo(x, k, ax, dim,
+                         lambda v, top: edge_rows(v, k, top, mode, dim))
+    return torch.cat([above, x, below], dim=dim)
 
 
 class _EnterModel(torch.autograd.Function):
@@ -283,3 +349,103 @@ def over_batch(axes: Sequence[Axis]):
 def batch_axes() -> Tuple[Axis, ...]:
     """The axes a batch reduction spans here (``over_batch``); () alone."""
     return getattr(_BATCH, "axes", ())
+
+
+# ------------------------------------------------------------ row shares
+
+class Whole(torch.Tensor):
+    """A tensor of a row-share run that every rank holds whole (a stream
+    ``gather_rows`` started): the row-share primitives compute it as one
+    device does, and torch functions of it return ``Whole`` tensors, so
+    the stream stays whole until a primitive hands back a share."""
+
+
+@contextlib.contextmanager
+def row_shares(ax: Axis):
+    """Inside the block the row-share primitives read each activation as
+    this rank's even share of the rows of ``ax`` (a size-1 axis: one
+    device). Every rank of ``ax`` enters it together."""
+    old = getattr(_ROWS, "axis", None)
+    _ROWS.axis = ax if ax.size > 1 else None
+    try:
+        yield
+    finally:
+        _ROWS.axis = old
+
+
+def row_axis(x: Optional[torch.Tensor] = None) -> Optional[Axis]:
+    """The axis whose row share ``x`` is inside ``row_shares`` (without
+    ``x``: the context's axis); None outside it, on one rank, or for a
+    ``Whole`` tensor: compute as one device does."""
+    ax = getattr(_ROWS, "axis", None)
+    return None if isinstance(x, Whole) else ax
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows along ``dim`` concatenated in rank order; backward:
+    the cotangents summed over the ranks (each rank's copy of the whole
+    stream feeds its own outputs), this rank's rows of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.h = ax, dim, x.shape[dim]
+        return _gather_cat(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _reduce(g, (ctx.ax,))
+        return g.narrow(ctx.dim, ctx.ax.index * ctx.h, ctx.h), None, None
+
+
+def gather_rows(x: torch.Tensor, dim: int, ax: Axis) -> Whole:
+    """The whole tensor from every rank's row share (``x`` itself where it
+    is already ``Whole``), on every rank, differentiable."""
+    if isinstance(x, Whole):
+        return x
+    return _GatherRows.apply(x.as_subclass(torch.Tensor), ax,
+                             dim).as_subclass(Whole)
+
+
+def on_whole(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+             dim: int, ax: Axis) -> torch.Tensor:
+    """``fn`` on the whole of the row share ``x`` on every rank (exact; the
+    redundant work is a layer's). Its output comes back as this rank's
+    even share of its rows (a slice, no communication), or as ``Whole``
+    where its height does not divide by the axis."""
+    y = fn(gather_rows(x, dim, ax))
+    h = y.shape[dim]
+    if h % ax.size:
+        return y.as_subclass(Whole)
+    step = h // ax.size
+    return y.as_subclass(torch.Tensor).narrow(dim, ax.index * step, step)
+
+
+def whole_rows(y: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    """The whole tensor, a plain one, from a row share or a ``Whole``
+    tensor (a run's output: the image on every rank)."""
+    return gather_rows(y, dim, ax).as_subclass(torch.Tensor)
+
+
+def sum_rows(t: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The sum over the row shares of ``ax`` of a partial sum ``t``, in
+    float64 across them (as ``fast_path_spatial._folded_stats`` sums),
+    differentiable; float64."""
+    return all_reduce(t.double(), ax)
+
+
+def row_moments(v: torch.Tensor, dims, ax: Axis, unbiased: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, variance) over ``dims`` (the row dim among them) of the whole
+    image from the row share ``v``, keepdim, in v's type, in one device's
+    two-pass form: the shares' sums all-reduced for the mean, then the
+    sums of squared deviations about it (a one-pass E[x^2] - mean^2 reads
+    float32 noise above 1e-4 against one device); variance over n - 1
+    (at least 1) when ``unbiased``, else over n."""
+    dims = tuple(dims)
+    n = ax.size
+    for d in dims:
+        n *= v.shape[d]
+    mean = (sum_rows(v.sum(dim=dims, keepdim=True), ax) / n).to(v.dtype)
+    dev = sum_rows(((v - mean) ** 2).sum(dim=dims, keepdim=True), ax)
+    var = dev / (max(n - 1, 1) if unbiased else n)
+    return mean, var.to(v.dtype)

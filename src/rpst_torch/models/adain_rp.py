@@ -47,6 +47,7 @@ from typing import List
 import torch
 from torch import nn
 
+from ..dist.collectives import row_axis, sum_rows
 from ..nn.attention import SEBottleneck
 from ..nn.blocks import (RPSequence, RPStack, rp_constant_dims,
                          rp_decrease_dims, rp_deeper_dims, rp_increase_dims,
@@ -217,6 +218,9 @@ class CCAMDec(nn.Module):
         xr = x.reshape(n, c, h * w)
         yr = y.reshape(n, y.shape[1], h * w)
         energy = torch.einsum("ncp,nkp->nck", xr, yr)
+        ax = row_axis(x)
+        if ax is not None:  # a row share's positions: the whole image's sum
+            energy = sum_rows(energy, ax).to(energy.dtype)
         energy_new = energy.amax(dim=-1, keepdim=True) - energy
         attention = torch.softmax(energy_new, dim=-1)
         out = torch.einsum("nck,nkp->ncp", attention, yr).reshape(n, c, h, w)

@@ -1,7 +1,9 @@
 """Row-sharded ("spatial") folded serving and training of multi_adain,
-sel_multi_adain and ccam, and row-sharded serving of sanet and
-dynamic_sanet (``stylize_sanet_spatial``); port of
-``rpst.models.fast_path_spatial``.
+sel_multi_adain and ccam, row-sharded serving of sanet and dynamic_sanet
+(``stylize_sanet_spatial``), and row-sharded serving of the standard
+layout of every other network but mst (``stylize_std_spatial``); port of
+``rpst.models.fast_path_spatial`` and of rpst's GSPMD serving route
+(``serve.py:246-281``).
 
 rpst runs the folded stylize inside one ``shard_map`` over a mesh's
 ``spatial`` axis. Here every rank runs the same folded bodies
@@ -28,6 +30,16 @@ on every rank, and the gradients are averaged over the mesh by the step.
 A row share needs three VGG pools and two relu4_1 rows: img_size % (16 x
 spatial) == 0 (rpst's rule); serving needs two folded rows a share:
 img_size % (4 x spatial) == 0.
+
+The standard layout (``stylize_std_spatial``) is rpst's GSPMD partitioning
+made explicit: the bundle's one-device ``stylize`` runs on the row shares
+inside ``dist.row_shares``, where the port's shared primitives (``nn.rows``
+/ ``nn.blocks`` pads, padded convs and pools, ``ops.stats``, ``ops.wct``,
+the SE / SK pools, the CCAM energies, LD's resize) exchange halo rows and
+sum their statistics over the shares, and a tensor that stops splitting
+evenly runs whole on every rank. Its only height rule is rpst's:
+img_size % spatial == 0. It launches no kernel of the port, as rpst's
+GSPMD route reaches no Pallas call.
 """
 
 from __future__ import annotations
@@ -37,7 +49,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist import Mesh, all_reduce, halo_rows, over_batch
+from ..dist import (Mesh, all_reduce, halo_pad, halo_rows, over_batch,
+                    row_shares)
 from ..nn.vgg import _STAGES, VGG19Encoder
 from ..ops.folded import _pad_cols_ring, conv_nhwc
 from ..ops.folded_conv import folded_conv_act_halo
@@ -156,12 +169,13 @@ def _family_ops(bundle, ops: dict) -> dict:
 def _check_family(bundle) -> None:
     if bundle.network not in SPATIAL_FAMILIES or not bundle.folded_infer():
         raise NotImplementedError(
-            f"row-sharded (spatial) execution of {bundle.network} "
+            f"row-sharded (spatial) folded execution of {bundle.network} "
             f"(exec_strategy {bundle.cfg.get('exec_strategy', 'standard')}) "
             "is not ported: the folded multi_adain, sel_multi_adain and "
-            "ccam take it (sanet and dynamic_sanet serve row-sharded through "
-            "stylize_sanet_spatial); the others are ROADMAP.md section A "
-            "slice 8c")
+            "ccam take it; the standard layout serves row-sharded through "
+            "stylize_std_spatial (sanet and dynamic_sanet through "
+            "stylize_sanet_spatial), and its training is ROADMAP.md section "
+            "A slice 8c")
 
 
 def stylize_spatial(bundle, content_l, style_l, mesh: Mesh,
@@ -184,22 +198,14 @@ def stylize_spatial(bundle, content_l, style_l, mesh: Mesh,
 
 # ---------------------------------------------------------------- training
 
-def _std_reflect(x, top: bool):
-    """The 1-pixel reflection row above (top) or below a standard NHWC
-    tensor: its row 1 / row H-2."""
-    return x[:, 1:2] if top else x[:, -2:-1]
-
-
 def reflect_conv_halo_std(x_l, w, b, mesh: Mesh, act: bool = True):
     """A standard-layout reflect-pad 3x3 conv (+ relu) on a row share (rpst
-    ``_reflect_conv_halo_std`` :403): NHWC x, OIHW w; 1x1 convs are
-    row-local."""
+    ``_reflect_conv_halo_std`` :403): NHWC x, OIHW w, the one-row reflect
+    halo of ``dist.halo_pad``; 1x1 convs are row-local."""
     if w.shape[-1] == 1:
         y = conv_nhwc(x_l, w.permute(2, 3, 1, 0)) + b
     else:
-        above, below = halo_rows(x_l, mesh.axis("spatial"),
-                                 reflect=_std_reflect)
-        xp = torch.cat([above, x_l, below], dim=1)
+        xp = halo_pad(x_l, 1, "reflect", mesh.axis("spatial"), dim=1)
         xp = torch.cat([xp[:, :, 1:2], xp, xp[:, :, -2:-1]], dim=2)
         y = conv_nhwc(xp, w.permute(2, 3, 1, 0)) + b
     return F.relu(y) if act else y
@@ -449,7 +455,47 @@ def stylize_sanet_spatial(bundle, content_l, style_l, mesh: Mesh,
         return x.float()
 
 
-__all__ = ["SPATIAL_FAMILIES", "SANET_FAMILIES", "check_sanet_height",
+# ------------------------------------------------- the standard layout
+
+# the networks whose standard stylize serves on row shares: every one but
+# mst (its k-means and chain labelling see whole images, rpst
+# serve.py:189-192) and the SANets (their own route above)
+STD_SPATIAL_FAMILIES = ("adain", "wct", "mrf", "spade", "seg_adain", "src",
+                        "ld_adain", "ld_adain2", "ld_adain3", "ld_adain4",
+                        "ld_adain5", "multi_adain", "sel_multi_adain",
+                        "ccam")
+
+
+def check_std_height(h: int, spatial: int) -> None:
+    """rpst's one height rule for its GSPMD route (``serve.py:189-190``):
+    the rows split evenly over the axis."""
+    if h % spatial:
+        raise ValueError(f"image height {h} must be a multiple of the "
+                         f"spatial axis {spatial}")
+
+
+def stylize_std_spatial(bundle, content_l, style_l,
+                        mesh: Mesh) -> torch.Tensor:
+    """The one-device standard stylize (``bundle.stylize(...,
+    folded=False)``: eval mode, the config's compute_dtype, the feature
+    models' 2N VGG pass) of this rank's row share, inside
+    ``dist.row_shares``: (n, H / spatial, W, 3) content and style rows of
+    one image batch -> this rank's rows of the stylized batch, or the
+    whole batch as a ``dist.Whole`` tensor where the output's rows do not
+    split evenly (src's at a height whose VGG pools round up);
+    ``dist.whole_rows`` gives the image. Every rank of the ``spatial``
+    axis calls it together; ``bundle.vgg`` must be set for src."""
+    if bundle.network not in STD_SPATIAL_FAMILIES:
+        raise ValueError(f"stylize_std_spatial serves {STD_SPATIAL_FAMILIES}"
+                         f", not {bundle.network}")
+    ax = mesh.axis("spatial")
+    check_std_height(content_l.shape[1] * ax.size, ax.size)
+    with row_shares(ax):
+        return bundle.stylize(content_l, style_l, folded=False)
+
+
+__all__ = ["SPATIAL_FAMILIES", "SANET_FAMILIES", "STD_SPATIAL_FAMILIES",
+           "check_std_height", "stylize_std_spatial", "check_sanet_height",
            "mvn_spatial", "sanet_attention_spatial", "stylize_sanet_spatial", "check_height", "conv_lrelu_halo",
            "folded_adain_spatial", "zero_conv_halo", "channel_pool_spatial",
            "spatial_ops", "stylize_spatial", "reflect_conv_halo_std",

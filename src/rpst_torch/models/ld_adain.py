@@ -34,6 +34,14 @@ the segment-masked AdaIN of ``ops.segment``, of the content feature (v1-v3
 too: rpst's masked branch fuses ``cf``, not the running stylized,
 ``ld_adain.py:327-330``); without labels ``use_mask`` serves plain AdaIN,
 as in rpst.
+
+On a row share (``dist.row_shares``) the pooled branch's ceil pool and
+trailing pad gather a tensor once it stops splitting evenly, and the
+coarse stream then runs whole (``dist.on_whole``); ``resize_nearest``
+takes each destination row's source by its global index, from the share
+where every rank's sources are local, else from the gathered source, and
+hands back the share's rows.
+
 rpst's measurement-only int8 switches of the pooled branch and the v5
 upsampler (``VGGISH_INT8``, ``NONOVERLAP_INT8``) are TPU hardware hooks
 and are not ported.
@@ -47,8 +55,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.collectives import Whole, gather_rows, row_axis
 from ..dist.tp import column
 from ..nn.blocks import Conv2dBlock, PadConv, pad2d
+from ..nn.rows import maxpool_ceil
 from .adain_rp import _adain_nchw, _fuse
 
 
@@ -60,9 +70,25 @@ def resize_nearest(x: torch.Tensor, h: int, w: int,
     floating point, which can pick another source at the non-integer ratios
     the pooled branch reaches, (H/2 + 2) -> H)."""
     hd, wd = (1, 2) if channels_last else (2, 3)
-    hi = torch.arange(h, device=x.device) * x.shape[hd] // h
     wi = torch.arange(w, device=x.device) * x.shape[wd] // w
-    return x.index_select(hd, hi).index_select(wd, wi)
+    ax = row_axis()
+    if ax is None:
+        hi = torch.arange(h, device=x.device) * x.shape[hd] // h
+        return x.index_select(hd, hi).index_select(wd, wi)
+    # row shares: (h, w) is the size of this rank's share of the output
+    whole = isinstance(x, Whole)
+    h_in = x.shape[hd] * (1 if whole else ax.size)
+    src = torch.arange(h * ax.size) * h_in // (h * ax.size)
+    if not whole:
+        hx = x.shape[hd]
+        if all(int(src[r * h]) >= r * hx and int(src[(r + 1) * h - 1])
+               < (r + 1) * hx for r in range(ax.size)):
+            mine = src[ax.index * h:(ax.index + 1) * h] - ax.index * hx
+            return x.index_select(hd, mine.to(x.device)).index_select(wd, wi)
+        x = gather_rows(x, hd, ax)
+    mine = src[ax.index * h:(ax.index + 1) * h].to(x.device)
+    return (x.as_subclass(torch.Tensor).index_select(hd, mine)
+            .index_select(wd, wi))
 
 
 class VGGishBigBranch(nn.Module):
@@ -85,7 +111,7 @@ class VGGishBigBranch(nn.Module):
     def forward(self, x):
         x = self.conv1x1(x)
         x = F.relu(self.conv_b(F.relu(self.conv_a(x))))
-        x = F.max_pool2d(x, 2, 2, ceil_mode=True)
+        x = maxpool_ceil(x)
         return pad2d(x, 1) if self.trailing_pad else x
 
 
@@ -235,7 +261,9 @@ class LDAdaINRP(nn.Module):
             fine, coarse = small(fine), big(coarse)
             b = getattr(self, f"up_{i}")(coarse) if self.variant == 5 \
                 else coarse
-            if b.shape[2:] != fine.shape[2:]:
+            # a whole (gathered) coarse stream returns to the fine share's
+            # rows through the resize too
+            if b.shape[2:] != fine.shape[2:] or isinstance(b, Whole):
                 b = resize_nearest(b, fine.shape[2], fine.shape[3],
                                    channels_last=False)
             feats.append(torch.cat([fine, b], dim=1))

@@ -18,6 +18,10 @@ reference ``.pth`` maps onto them; ``bridge`` maps flax's ``scale`` and
     padding and a softmax over the branches (attention.py:69-105);
   * ``SKBottleneck``: 1x1 conv-bn-relu -> SK -> 1x1 conv-bn -> + residual
     -> relu (attention.py:108-130), the Conv2dBlock's ``attention: sk``.
+
+On a row share (``dist.row_shares``) the pools are the whole image's and
+the padded convs read their pad rows from the neighbours; an eval
+BatchNorm is row-local.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..dist.collectives import all_reduce, batch_axes
+from .rows import conv2d_rows, spatial_mean
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -137,7 +142,7 @@ class SELayer(nn.Module):
         self.Dense_1 = nn.Linear(hidden, channel, **kw)
 
     def forward(self, x):
-        y = x.mean(dim=(2, 3))
+        y = spatial_mean(x)
         y = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(y))))
         att = y[:, :, None, None]
         return x * att, att
@@ -162,7 +167,7 @@ class SEBottleneck(nn.Module):
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = F.relu(self.bn2(conv2d_rows(self.conv2, out)))
         out, att = self.SELayer_0(self.bn3(self.conv3(out)))
         return F.relu(out + x), att
 
@@ -190,12 +195,12 @@ class SKLayer(nn.Module):
         self.fc2 = nn.Conv2d(d, out_channels * M, 1, **kw)
 
     def forward(self, x):
-        branches = [F.relu(getattr(self, f"branch_{i}")(x))
+        branches = [F.relu(conv2d_rows(getattr(self, f"branch_{i}"), x))
                     for i in range(self.M)]
         u = branches[0]
         for b in branches[1:]:
             u = u + b
-        z = F.relu(self.fc1(u.mean(dim=(2, 3), keepdim=True)))
+        z = F.relu(self.fc1(spatial_mean(u)[:, :, None, None]))
         ab = self.fc2(z).reshape(x.shape[0], self.M, self.out_channels)
         ab = torch.softmax(ab, dim=1).to(branches[0].dtype)
         out = branches[0] * ab[:, 0, :, None, None]

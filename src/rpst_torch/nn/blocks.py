@@ -17,6 +17,12 @@ selective-kernel bottleneck ``SKBottleneck_0``).
 channel weights, which the multiscale models' ``sort`` reads. The norms
 ``ln`` and ``adain`` raise ``NotImplementedError``, as rpst's Conv2dBlock
 refuses them (the reference never defines their classes).
+
+Row shares (``dist.row_shares``, the row-sharded standard layout):
+``PadConv``, ``pad2d`` (``nn.rows``) and ``instance_norm`` compute on a
+share what one device computes on the whole image: the pad's rows come
+from the neighbours (``dist.halo_pad``), the statistics are summed over the
+shares. Column padding stays local.
 """
 
 from __future__ import annotations
@@ -27,22 +33,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.collectives import row_axis, row_moments
 from ..dist.tp import column
 from .attention import BatchNorm, SEBottleneck, SKBottleneck
-
-
-def pad2d(x: torch.Tensor, pad: int, mode: str = "reflect") -> torch.Tensor:
-    """Spatial padding of an NCHW tensor: reflect | replicate | zero."""
-    if pad == 0:
-        return x
-    tmode = {"reflect": "reflect", "replicate": "replicate",
-             "zero": "constant"}[mode]
-    return F.pad(x, (pad, pad, pad, pad), mode=tmode)
+from .rows import _TORCH_PAD, _conv_rows, pad2d
 
 
 class PadConv(nn.Module):
     """Explicit-padding conv: pad (reflect/replicate/zero), then VALID conv
-    (the reference's ``nn.ReflectionPad2d + nn.Conv2d`` pairs)."""
+    (the reference's ``nn.ReflectionPad2d + nn.Conv2d`` pairs). On a row
+    share the pad's rows are a halo (``dist.halo_pad``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  padding: int = 1, pad_type: str = "reflect",
@@ -52,23 +52,37 @@ class PadConv(nn.Module):
         self.Conv_0 = nn.Conv2d(in_features, features, kernel_size,
                                 bias=use_bias, device=device, dtype=dtype)
 
-    def forward(self, x):
+    def _padded(self, x, rows: bool = True):
+        """The conv of ``x`` padded in both dims (``rows``) or, after a
+        halo, in its columns only."""
+        p, c = self.padding, self.Conv_0
         if self.pad_type == "zero":  # the conv pads with zeros itself
-            c = self.Conv_0
             return column(lambda v: F.conv2d(v, c.weight, c.bias,
-                                             padding=self.padding),
+                                             padding=(p if rows else 0, p)),
                           x, c.weight, 1)
-        return self.Conv_0(pad2d(x, self.padding, self.pad_type))
+        if rows:
+            return c(pad2d(x, p, self.pad_type))
+        return c(F.pad(x, (p, p, 0, 0), mode=_TORCH_PAD[self.pad_type]))
+
+    def forward(self, x):
+        if self.padding and row_axis(x) is not None:
+            return _conv_rows(x, self.padding, self.pad_type, self._padded)
+        return self._padded(x)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """torch's InstanceNorm2d without affine on an NCHW tensor: the mean and
     the biased variance over H, W (rpst ``nn/blocks.py:106-110``), reduced
     in float32 at least and rounded to x's type, the normalization in x's
-    type (as ``jnp.mean`` / ``jnp.var`` reduce a bfloat16 tensor)."""
+    type (as ``jnp.mean`` / ``jnp.var`` reduce a bfloat16 tensor). On a row
+    share, over the whole image (``dist.row_moments``)."""
     v = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = v.mean(dim=(2, 3), keepdim=True)
-    var = ((v - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    ax = row_axis(x)
+    if ax is None:
+        mean = v.mean(dim=(2, 3), keepdim=True)
+        var = ((v - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    else:
+        mean, var = row_moments(v, (2, 3), ax, unbiased=False)
     return (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
 
 

@@ -13,6 +13,10 @@ NCHW, as the port's other modules; every conv is zero-padded and stride 1,
 so the condition always has the features' size (rpst's nearest resize is
 the identity there; here the sizes are asserted equal).
 
+On a row share (``dist.row_shares``) the 3x3 convs read their zero pad's
+rows from the neighbours (``blocks.conv2d_rows``) and the instance norm is
+the whole image's; the eval BatchNorm reads running statistics, row-local.
+
 Types, as rpst's: its SPADE convs take no dtype, so flax promotes their
 bfloat16 inputs to the float32 parameters and the decoder computes float32
 whatever the working type. Only the param-free norms see the working type:
@@ -32,6 +36,7 @@ from torch import nn
 
 from .attention import BatchNorm
 from .blocks import instance_norm
+from .rows import conv2d_rows
 
 PARAM_FREE_NORMS = ("instance", "batch", "syncbatch")
 
@@ -44,7 +49,7 @@ def _conv(cin: int, cout: int, ks: int, bias: bool = True, device=None):
 def _f32_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """The conv on x promoted to the float32 parameters (flax's
     ``promote_dtype``)."""
-    return conv(x.to(conv.weight.dtype))
+    return conv2d_rows(conv, x.to(conv.weight.dtype))
 
 
 class SPADE(nn.Module):
@@ -76,8 +81,8 @@ class SPADE(nn.Module):
         else:
             normalized = self.pf_bn(x).to(dtype or x.dtype)
         actv = F.relu(_f32_conv(self.mlp_shared, condition))
-        gamma = self.mlp_gamma(actv)
-        beta = self.mlp_beta(actv)
+        gamma = conv2d_rows(self.mlp_gamma, actv)
+        beta = conv2d_rows(self.mlp_beta, actv)
         return normalized * (1.0 + gamma) + beta
 
 
@@ -104,8 +109,9 @@ class SpadeResnetBlock(nn.Module):
             return F.leaky_relu(v, 0.2)
         x_s = (self.conv_s(self.norm_s(x, condition, dtype))
                if self.learned_shortcut else x)
-        dx = self.conv_0(actvn(self.norm_0(x, condition, dtype)))
-        dx = self.conv_1(actvn(self.norm_1(dx, condition, dtype)))
+        dx = conv2d_rows(self.conv_0, actvn(self.norm_0(x, condition, dtype)))
+        dx = conv2d_rows(self.conv_1,
+                         actvn(self.norm_1(dx, condition, dtype)))
         return x_s + dx
 
 

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.folded import fold_bias, fold_conv_kernel
 from .blocks import PadConv
+from .rows import maxpool_ceil
 
 # (in_ch, out_ch) of each 3x3 conv, grouped per stage; the 1x1 head is
 # separate. A pool precedes the last conv of stages 2..5.
@@ -43,11 +44,6 @@ _TORCH_CONV_INDICES = [0, 2, 5, 9, 12, 16, 19, 22, 25, 29, 32, 35, 38, 42]
 def num_convs(num_stages: int) -> int:
     """The head plus the 3x3 convs up to relu{num_stages}_1."""
     return 1 + sum(len(_STAGES[s]) for s in range(num_stages))
-
-
-def maxpool_ceil(x: torch.Tensor) -> torch.Tensor:
-    """2x2/2 max pool of an NCHW tensor with ceil_mode semantics."""
-    return F.max_pool2d(x, 2, 2, ceil_mode=True)
 
 
 class VGG19Encoder(nn.Module):

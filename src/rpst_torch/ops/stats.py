@@ -6,12 +6,16 @@
   * ``mean_variance_norm`` (``network/sanet.py:20-24``)
 
 Reductions run in float32 whatever the activation type, and use the
-two-pass form (mean, then the sum of squared deviations), as rpst does.
+two-pass form (mean, then the sum of squared deviations), as rpst does. On
+a row share (``dist.row_shares``) the statistics are the whole image's:
+each pass's sums all-reduced over the shares (``dist.row_moments``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..dist.collectives import row_axis, row_moments
 
 
 def calc_mean_std(feat: torch.Tensor, eps: float = 1e-5):
@@ -19,9 +23,14 @@ def calc_mean_std(feat: torch.Tensor, eps: float = 1e-5):
     if feat.ndim != 4:
         raise ValueError(f"expected NHWC, got shape {tuple(feat.shape)}")
     f32 = feat.float()
-    mean = f32.mean(dim=(1, 2), keepdim=True)
-    n = feat.shape[1] * feat.shape[2]
-    var = ((f32 - mean) ** 2).sum(dim=(1, 2), keepdim=True) / max(n - 1, 1)
+    ax = row_axis(feat)
+    if ax is None:
+        mean = f32.mean(dim=(1, 2), keepdim=True)
+        n = feat.shape[1] * feat.shape[2]
+        var = (((f32 - mean) ** 2).sum(dim=(1, 2), keepdim=True)
+               / max(n - 1, 1))
+    else:
+        mean, var = row_moments(f32, (1, 2), ax, unbiased=True)
     std = torch.sqrt(var + eps)
     return mean.to(feat.dtype), std.to(feat.dtype)
 

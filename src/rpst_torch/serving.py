@@ -12,11 +12,12 @@ the line-JSON TCP daemon; port of ``rpst.serving`` on PyTorch.
     flusher thread's ``.cpu()`` is the synchronisation point;
   * ``serve_daemon`` is the TCP loop, same protocol as rpst's;
   * ``parse_mesh`` / ``mesh_mode`` / ``make_mesh_run_impl`` serve over a
-    mesh of ranks (rpst ``serve.py:99-133``, ``:170-258``): ``--mesh N``
+    mesh of ranks (rpst ``serve.py:99-133``, ``:170-281``): ``--mesh N``
     data parallel for every network, a ``spatial`` axis the row-sharded
-    folded stylize of multi_adain, sel_multi_adain and ccam and the
-    row-sharded standard stylize of sanet and dynamic_sanet
-    (``models.fast_path_spatial``); serving takes the ``data`` and
+    folded stylize of multi_adain, sel_multi_adain and ccam, the
+    row-sharded standard stylize of sanet and dynamic_sanet, and that of
+    every other network but mst (rpst's GSPMD route;
+    ``models.fast_path_spatial``); serving takes the ``data`` and
     ``spatial`` axes only, as rpst's;
   * ``serve_ranks`` runs the daemon over a mesh (rpst ``serve.py:286-296``):
     rank 0 owns the socket and the batcher and broadcasts each batch with a
@@ -123,35 +124,28 @@ def mesh_mode(bundle, mode: str, mesh_shape: Dict[str, int]) -> str:
     """The mode served over ``mesh_shape``: q8 gives way to folded (rpst's
     warning, ``serve.py:174-180``; B4's int8 path is one-device); a
     ``spatial`` axis takes the row-sharded folded stylize of multi_adain,
-    sel_multi_adain and ccam and the row-sharded standard stylize of sanet
-    and dynamic_sanet (``serve.py:246-258``): mst refuses it (rpst
-    ``:189-192``: its k-means and chain labelling see whole images), and
-    every other network or mode names ROADMAP.md section A slice 8c."""
+    sel_multi_adain and ccam (``serve.py:246-258``), the row-sharded
+    standard stylize of sanet and dynamic_sanet, and that of every other
+    network (rpst's GSPMD route, ``:276-281``, its one height rule
+    img_size % spatial == 0, ``:189-190``); mst refuses it (rpst
+    ``:189-192``: its k-means and chain labelling see whole images)."""
     size = int(np.prod(list(mesh_shape.values())))
     if size > 1 and mode == "q8":
         logger.warning("--mesh with --mode q8 is unsupported (the int8 path "
                        "runs on one device); using folded")
         mode = "folded" if bundle.folded_infer() else "standard"
     if mesh_shape.get("spatial", 1) > 1:
-        from .models.fast_path_spatial import (SANET_FAMILIES,
-                                               SPATIAL_FAMILIES, check_height,
-                                               check_sanet_height)
+        from .models import fast_path_spatial as fps
         if bundle.network == "mst":
             raise ValueError("mst's k-means and chain labelling cannot shard "
                              "rows; use a data-only mesh (--mesh N)")
         spatial = mesh_shape["spatial"]
-        if bundle.network in SANET_FAMILIES and mode == "standard":
-            check_sanet_height(bundle.cfg.img_size, spatial)
-            return mode
-        if bundle.network in SPATIAL_FAMILIES and mode == "folded":
-            check_height(bundle.cfg.img_size, spatial, False)
+        if bundle.network in fps.SANET_FAMILIES:
+            fps.check_sanet_height(bundle.cfg.img_size, spatial)
+        elif mode == "folded":
+            fps.check_height(bundle.cfg.img_size, spatial, False)
         else:
-            raise NotImplementedError(
-                f"row-sharded serving of {bundle.network} ({mode}) is not "
-                "ported: the folded multi_adain, sel_multi_adain and ccam "
-                "and the standard sanet and dynamic_sanet take a spatial "
-                "axis; the rest of the standard layout is ROADMAP.md "
-                "section A slice 8c")
+            fps.check_std_height(bundle.cfg.img_size, spatial)
     return mode
 
 
@@ -159,9 +153,10 @@ def make_mesh_run_impl(bundle, mode: str, mesh) -> Callable:
     """``run_impl(content, style) -> stylized`` of this rank for a batch
     share (the rank's images of a batch): the whole batch share's output,
     float32, on every rank of its row group. Row-sharded (a spatial axis):
-    each rank stylizes its rows (the folded families, or sanet /
-    dynamic_sanet in the standard layout), then the rows are gathered."""
-    from .dist.collectives import all_gather
+    each rank stylizes its rows (the folded families in ``folded``, sanet
+    / dynamic_sanet, and every other network's standard layout), then the
+    rows are gathered."""
+    from .dist.collectives import whole_rows
     if mesh.spatial == 1:
         return make_run_impl(bundle, mode)
     from .dist import shard_rows
@@ -169,15 +164,17 @@ def make_mesh_run_impl(bundle, mode: str, mesh) -> Callable:
     if bundle.network in fps.SANET_FAMILIES:
         fps.check_sanet_height(bundle.cfg.img_size, mesh.spatial)
         stylize = fps.stylize_sanet_spatial
-    else:
+    elif mode == "folded":
         fps.check_height(bundle.cfg.img_size, mesh.spatial, False)
         stylize = fps.stylize_spatial
+    else:
+        stylize = fps.stylize_std_spatial
     ax = mesh.axis("spatial")
 
     def run(content, style):
         y = stylize(bundle, shard_rows(content, mesh).contiguous(),
                     shard_rows(style, mesh).contiguous(), mesh)
-        return torch.cat(all_gather(y, ax), dim=1)
+        return whole_rows(y, 1, ax)
     return run
 
 

@@ -295,7 +295,8 @@ def test_serve_mesh_matches_one_device(serve_dir, mesh, extra):
 @pytest.mark.parametrize("mesh,extra,err,match", [
     ("spatial=2", ["--mode", "standard", "--set", "network=sanet"],
      ValueError, "multiple of 64"),
-    ("spatial=2", ["--mode", "standard"], NotImplementedError, "slice 8c"),
+    ("spatial=3", ["--mode", "standard"], ValueError,
+     "multiple of the spatial axis 3"),
     ("spatial=2", ["--set", "network=mst"], ValueError, "data-only mesh"),
     ("data=2,model=2", [], ValueError, "axes data and spatial"),
     ("2", ["--daemon", "--batch", "3"], ValueError, "divide by the data")],
@@ -305,8 +306,9 @@ def test_serve_mesh_refusals(serve_dir, mesh, extra, err, match):
     """What serving over a mesh refuses, before any rank starts: sanet on a
     spatial axis at a height without four pools and two relu5_1 rows a row
     share (rpst's assert, fast_path_spatial.py:538-542; 32px here, 64 needed
-    on 2 shares), the other standard-layout networks on a spatial axis
-    (ROADMAP.md section A slice 8c), mst on a spatial axis (rpst
+    on 2 shares), the standard layout of the other networks at a height the
+    spatial axis does not divide (rpst's one rule for its GSPMD route,
+    serve.py:189-190: 32px on 3 shares), mst on a spatial axis (rpst
     serve.py:189-192), a model axis (rpst's serve.py:132 assert: serving
     takes data and spatial), and a daemon batch the data axis does not
     divide."""

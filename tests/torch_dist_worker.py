@@ -287,6 +287,194 @@ def suite_sanet_spatial(rank, out):
                                        dim=1)
 
 
+# rpst's tests/test_spatial_gspmd.py _TINY and FAMILIES: the slice-8c
+# fixture's configs (tools/make_torch_port_fixture.py SLICE8C); the
+# ``_l5`` points run LD v3 / v5 at five layers, where the coarse streams
+# stop splitting evenly over four row shares
+TINY_8C = dict(img_size=32, rp_blocks=2, hidden_dim=8, inception_num=0,
+               attention="none", compute_dtype="float32", vgg="")
+LD_NETS = ("ld_adain", "ld_adain2", "ld_adain3", "ld_adain4", "ld_adain5")
+CASES_8C = {"adain": {}, "wct": {}, "mrf": {}, "spade": {},
+            "seg_adain": {}, "src": {},
+            **{n: {"network": n, "use_mask": False} for n in LD_NETS},
+            "ld_adain3_l5": {"network": "ld_adain3", "use_mask": False,
+                             "ld_layer_num": 5, "stylized_layers": 5},
+            "ld_adain5_l5": {"network": "ld_adain5", "use_mask": False,
+                             "ld_layer_num": 5, "stylized_layers": 5}}
+# beyond rpst's GSPMD test (held to the port's one device): the
+# multiscale family's standard layout (SE pools and bottlenecks, sort,
+# shuffle, CCAM energies), src at 40px (its VGG pools reach odd shares and
+# its stream runs whole), LD v1 / v2 on four shares
+EXTRA_8C = {"multi_adain_se": {"network": "multi_adain", "attention": "se",
+                               "sort": True, "shuffle": True},
+            "sel_multi_adain": {"network": "sel_multi_adain"},
+            "ccam": {"network": "ccam", "shuffle": False},
+            "src_40": {"network": "src", "img_size": 40},
+            "ld_adain_s4": {"network": "ld_adain", "use_mask": False},
+            "ld_adain2_s4": {"network": "ld_adain2", "use_mask": False}}
+# (case, mesh, compute dtype) of the slice-8c suite
+RUNS_8C = ([(c, "s2", "float32") for c in list(CASES_8C)[:11]]
+           + [("adain", "d2s2", "float32"),
+              ("ld_adain3_l5", "s4", "float32"),
+              ("ld_adain5_l5", "s4", "float32"),
+              ("adain", "s2", "bfloat16"), ("ld_adain", "s2", "bfloat16"),
+              ("multi_adain_se", "s2", "float32"),
+              ("sel_multi_adain", "s2", "float32"),
+              ("ccam", "s2", "float32"), ("src_40", "s2", "float32"),
+              ("ld_adain_s4", "s4", "float32"),
+              ("ld_adain2_s4", "s4", "float32")])
+# the row-share primitives whose input gradients the suite also holds
+GRAD_PRIMS = ("pad2d/reflect/1", "padconv/reflect/3", "padconv/zero/7",
+              "maxpool_twice", "resize_pad", "instance_norm")
+# (case, img_size, mesh) of the suite's height sweep: shares of 3 rows
+# (odd: pools and pads gather), of 6 on four ranks and of 18 (9 after the
+# first pool); src's VGG needs 10px on one device
+SWEEP_8C = [(c, size, m) for c in list(CASES_8C)[:11] + list(EXTRA_8C)[:3]
+            for size, m in ((6, "s2"), (12, "s4"), (36, "s2"))
+            if not (c == "src" and size < 10)]
+
+
+def images_8c(size=32, seed=0):
+    """The slice-8c fixture's uint8 (2, size, size, 3) content and style
+    (numpy's ``default_rng(seed)`` floats cut to uint8, as rpst's test
+    makes them)."""
+    rng = np.random.default_rng(seed)
+    return tuple((rng.random((2, size, size, 3), np.float32) * 255
+                  ).astype(np.uint8) for _ in range(2))
+
+
+def case_8c(case, dtype="float32", device="cpu", size=None):
+    """(bundle, content, style) of a CASES_8C / EXTRA_8C entry (at
+    ``size`` px where given): the config, seeded weights (the families'
+    ``bridge.weights_from_seed(cfg, 0)``, the multiscale ones
+    ``flax_weights_from_seed``), src's VGG from ``vgg_weights_from_seed(1)``,
+    the images of ``images_8c`` in [0, 1]."""
+    from rpst_torch.bridge import flax_weights_from_seed, weights_from_seed
+    over = dict(CASES_8C[case] if case in CASES_8C else EXTRA_8C[case])
+    over.setdefault("network", case)
+    if size is not None:
+        over["img_size"] = size
+    cfg = load_config(dict(TINY_8C, **over, compute_dtype=dtype))
+    bundle = build_model(cfg, device)
+    if case in CASES_8C or cfg.network in ("src", *LD_NETS):
+        bundle.load_state_dict(from_flax_params(weights_from_seed(cfg, 0)))
+    else:
+        params, stats = flax_weights_from_seed(bundle.model, 0)
+        sd = from_flax_params(params)
+        sd.update(from_flax_batch_stats(stats))
+        bundle.load_state_dict(sd)
+    if bundle.from_features:
+        vgg = VGG19Encoder()
+        vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(1)))
+        bundle.vgg = vgg.to(device)
+    c, s = (torch.from_numpy(a).to(device).float() / 255
+            for a in images_8c(cfg.img_size))
+    return bundle, c, s
+
+
+def suite_std_spatial(rank, out):
+    """RUNS_8C through ``serving.make_mesh_run_impl`` (the entry the CLI
+    and the daemon take), each batch gathered whole (``<case>/<mesh>/
+    <dtype>``); the SWEEP_8C heights (``sweep/<case>/<size>/<mesh>``); and
+    the row-share primitives on {spatial: 2} and {spatial: 4} against their
+    one-device ops (``prim/...``: got, ref)."""
+    from rpst_torch.serving import gather_batch, make_mesh_run_impl
+    meshes = {m: make_mesh(MESHES[m], torch.device("cpu"), subset=True)
+              for m in ("s2", "s4", "d2s2")}
+    for case, mname, dtype in RUNS_8C:
+        mesh = meshes[mname]
+        if not mesh.active:
+            continue
+        bundle, c, s = case_8c(case, dtype)
+        run = make_mesh_run_impl(bundle, "standard", mesh)
+        y = run(shard_batch(c, mesh), shard_batch(s, mesh))
+        out[f"{case}/{mname}/{dtype}"] = gather_batch(y, mesh)
+    for case, size, mname in SWEEP_8C:
+        mesh = meshes[mname]
+        if not mesh.active:
+            continue
+        bundle, c, s = case_8c(case, size=size)
+        run = make_mesh_run_impl(bundle, "standard", mesh)
+        out[f"sweep/{case}/{size}/{mname}"] = run(c, s)
+    for mname in ("s2", "s4"):
+        if meshes[mname].active:
+            row_share_prims(meshes[mname], out, f"prim/{mname}")
+
+
+def row_share_prims(mesh, out, key):
+    """Each row-share primitive on this rank's share of a seeded NCHW
+    tensor, the share's rows gathered, beside the one-device op."""
+    import torch.nn.functional as F
+    from rpst_torch.dist.collectives import row_shares, whole_rows
+    from rpst_torch.models.ld_adain import resize_nearest
+    from rpst_torch.nn.blocks import PadConv, instance_norm, pad2d
+    from rpst_torch.nn.rows import conv2d_rows, maxpool_ceil, spatial_mean
+    from rpst_torch.ops.stats import calc_mean_std
+    ax = mesh.axis("spatial")
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 3, 24, 10, generator=gen)
+    mine = x[:, :, ax.index * 24 // ax.size:(ax.index + 1) * 24 // ax.size]
+    def seeded(conv):
+        for p in (conv.weight, conv.bias):
+            p.data = torch.randn(p.shape, generator=gen)
+        return conv
+
+    conv7 = seeded(torch.nn.Conv2d(3, 4, 7, padding=3))
+    ops = {f"pad2d/{m}/{p}": (lambda v, m=m, p=p: pad2d(v, p, m))
+           for m in ("reflect", "replicate", "zero") for p in (1, 2)}
+    for m in ("reflect", "replicate", "zero"):
+        for ks in (3, 7):
+            pc = PadConv(3, 4, ks, ks // 2, m)
+            seeded(pc.Conv_0)
+            ops[f"padconv/{m}/{ks}"] = pc
+    ops.update({
+        "conv2d_rows": lambda v: conv2d_rows(conv7, v),
+        "instance_norm": instance_norm,
+        "maxpool_ceil": maxpool_ceil,
+        "maxpool_twice": lambda v: maxpool_ceil(maxpool_ceil(v)),
+        "resize_up": lambda v: resize_nearest(
+            maxpool_ceil(v), v.shape[2], v.shape[3], channels_last=False),
+        "resize_pad": lambda v: resize_nearest(
+            pad2d(maxpool_ceil(v), 1), v.shape[2], v.shape[3],
+            channels_last=False)})
+    # 2 rows a share on four: fewer than a 7x7 halo takes, run whole
+    short = torch.randn(1, 3, 2 * ax.size, 6, generator=gen)
+    for m in ("reflect", "zero"):
+        ops[f"short/padconv/{m}/7"] = ops[f"padconv/{m}/7"]
+    with torch.no_grad():
+        for name, op in ops.items():
+            v = short if name.startswith("short/") else x
+            k = v.shape[2] // ax.size
+            ref = op(v)
+            with row_shares(ax):
+                got = whole_rows(op(v[:, :, ax.index * k:(ax.index + 1) * k]),
+                                 2, ax)
+            out[f"{key}/{name}/got"], out[f"{key}/{name}/ref"] = got, ref
+        for name, op in (("spatial_mean", spatial_mean),
+                         ("calc_mean_std", lambda v: torch.cat(
+                             calc_mean_std(v.permute(0, 2, 3, 1)), -1))):
+            ref = op(x)
+            with row_shares(ax):
+                got = op(mine)
+            out[f"{key}/{name}/got"], out[f"{key}/{name}/ref"] = got, ref
+    # the gradients through the halo, the gather and the sums: each rank
+    # seeds its copy of the loss over the gathered output divided by the
+    # axis size (the loss-copy rule of dist.average_grads); the shares'
+    # input gradients gathered are one device's
+    for name in GRAD_PRIMS:
+        op = ops[name]
+        xr = x.clone().requires_grad_()
+        y = op(xr)
+        g = torch.randn(y.shape, generator=gen)
+        (y * g).sum().backward()
+        xs = mine.clone().requires_grad_()
+        with row_shares(ax):
+            ys = whole_rows(op(xs), 2, ax)
+        ((ys * g).sum() / ax.size).backward()
+        out[f"{key}/grad/{name}/ref"] = xr.grad
+        out[f"{key}/grad/{name}/got"] = whole_rows(xs.grad, 2, ax)
+
+
 def column_ops(mesh, out):
     """A conv and a folded conv + lrelu, whole and as this rank's column
     share (``dist.tp``): outputs, dx and the share's dW / db under one
@@ -488,6 +676,7 @@ def main():
     try:
         {"spatial": suite_spatial, "dp": suite_dp, "tp": suite_tp,
          "sanet_spatial": suite_sanet_spatial,
+         "std_spatial": suite_std_spatial,
          "tp_fixture": suite_tp_fixture, "accum": suite_accum}[suite](
             rank, out)
         dist.barrier()

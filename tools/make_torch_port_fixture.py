@@ -1859,6 +1859,104 @@ def make_slice8b_fixture(seed: int = 0, size: int = 64) -> dict:
     return arrays
 
 
+SLICE8C_DST = REPO / "tests" / "fixtures" / "torch_port_slice8c.npz"
+# rpst's tests/test_spatial_gspmd.py _TINY and FAMILIES, and two LD points
+# at five layers, where the coarse streams stop splitting evenly over four
+# row shares (tests/torch_dist_worker.py CASES_8C keeps the same table)
+TINY_8C = dict(img_size=32, rp_blocks=2, hidden_dim=8, inception_num=0,
+               attention="none", compute_dtype="float32")
+CASES_8C = {"adain": {}, "wct": {}, "mrf": {}, "spade": {},
+            "seg_adain": {}, "src": {},
+            **{n: {"network": n, "use_mask": False} for n in LD},
+            "ld_adain3_l5": {"network": "ld_adain3", "use_mask": False,
+                             "ld_layer_num": 5, "stylized_layers": 5},
+            "ld_adain5_l5": {"network": "ld_adain5", "use_mask": False,
+                             "ld_layer_num": 5, "stylized_layers": 5}}
+MESHES_8C = {"s2": {"data": 1, "spatial": 2}, "s4": {"data": 1, "spatial": 4},
+             "d2s2": {"data": 2, "spatial": 2}}
+
+
+def images_8c(size: int = 32, seed: int = 0):
+    """(content, style) uint8 (2, size, size, 3): numpy's
+    ``default_rng(seed)`` floats cut to uint8, as rpst's test makes them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return tuple((rng.random((2, size, size, 3), np.float32) * 255
+                  ).astype(np.uint8) for _ in range(2))
+
+
+def make_slice8c_fixture(seed: int = 0) -> dict:
+    """rpst's serving of the standard layout on one device and by GSPMD on
+    the virtual CPU devices (``tests/test_spatial_gspmd.py``'s jit: uint8
+    in, float32 stylize, ``clip * 255 + 0.5`` floored to uint8 out, images
+    and output on ``P("data", "spatial")``), per ``CASES_8C`` entry:
+
+      * ``<case>/one``: the single-device uint8 output, and ``one_f32`` its
+        float32 stylize before the uint8 cut;
+      * ``<case>/<mesh>``: the GSPMD uint8 output on {spatial: 2} (every
+        case of rpst's test), {data: 2, spatial: 2} (adain) and {spatial:
+        4} (the ``_l5`` points);
+      * ``content``, ``style``: ``images_8c()``; the weights are each
+        family's seeded draw at the case's widths
+        (``bridge.weights_from_seed(cfg, seed)``), src's VGG
+        ``vgg_weights_from_seed(TRAIN['vgg_seed'])``, stored as seeds."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from rpst.config import load_config
+    from rpst.dist import make_mesh
+    from rpst.models import build_model
+    from rpst_torch import bridge
+    from rpst_torch.config import load_config as port_config
+
+    c_u8, s_u8 = images_8c()
+    arrays = dict(seed=np.int64(seed), vgg_seed=np.int64(TRAIN["vgg_seed"]),
+                  content=c_u8, style=s_u8)
+    vgg_vars = jax.tree.map(jnp.asarray, bridge.vgg_weights_from_seed(
+        TRAIN["vgg_seed"]))
+    for case, over in CASES_8C.items():
+        net = over.get("network", case)
+        cfg = load_config({**TINY_8C, "network": net, **over})
+        bundle = build_model(cfg)
+        tree = bridge.weights_from_seed(port_config(
+            dict(TINY_8C, **{"network": net, **over})), seed)
+        variables = {"params": jax.tree.map(jnp.asarray, tree)}
+
+        def stylize(v, c, s):
+            return bundle.stylize(v, vgg_vars, c.astype(jnp.float32) / 255.0,
+                                  s.astype(jnp.float32) / 255.0)
+
+        def run(v, c, s):
+            y = jnp.clip(stylize(v, c, s).astype(jnp.float32), 0.0, 1.0)
+            return (y * 255.0 + 0.5).astype(jnp.uint8)
+
+        c, s = jnp.asarray(c_u8), jnp.asarray(s_u8)
+        arrays[f"{case}/one"] = np.asarray(jax.jit(run)(variables, c, s))
+        arrays[f"{case}/one_f32"] = np.asarray(
+            jax.jit(stylize)(variables, c, s), np.float32)
+        meshes = (("s4",) if case.endswith("_l5")
+                  else ("s2", "d2s2") if case == "adain" else ("s2",))
+        for mname in meshes:
+            shape = MESHES_8C[mname]
+            mesh = make_mesh(shape, jax.devices()[:int(np.prod(
+                list(shape.values())))])
+            img = NamedSharding(mesh, P("data", "spatial"))
+            rep = NamedSharding(mesh, P())
+            got = jax.jit(run, in_shardings=(rep, img, img),
+                          out_shardings=img)(
+                jax.device_put(variables, rep), jax.device_put(c, img),
+                jax.device_put(s, img))
+            arrays[f"{case}/{mname}"] = np.asarray(got)
+            diff = np.abs(arrays[f"{case}/one"].astype(int)
+                          - arrays[f"{case}/{mname}"].astype(int)).max()
+            inner = float(np.mean((arrays[f"{case}/one"] > 0)
+                                  & (arrays[f"{case}/one"] < 255)))
+            print(f"{case}/{mname}: GSPMD vs one device {diff} u8 steps; "
+                  f"{inner:.2f} of the pixels inside (0, 255)", flush=True)
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -1920,10 +2018,14 @@ def main():
                     help="write tests/fixtures/torch_port_slice8b.npz: "
                          "rpst's row-sharded SANet serving and its channel "
                          "tensor-parallel train step")
+    ap.add_argument("--slice8c", action="store_true",
+                    help="write tests/fixtures/torch_port_slice8c.npz: "
+                         "rpst's serving of the standard layout on one "
+                         "device and by GSPMD on row-sharded meshes")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    if args.spatial or args.slice8b:  # the meshes' virtual CPU devices
+    if args.spatial or args.slice8b or args.slice8c:  # virtual CPU devices
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + " --xla_force_host_platform_device_count=8").strip()
@@ -1933,6 +2035,12 @@ def main():
 
     slice4 = [n for n in SLICE4 if getattr(args, n)]
     slice5b = [n for n in SLICE5B if getattr(args, n)]
+    if args.slice8c:
+        arrays = make_slice8c_fixture(args.seed)
+        dst = args.dst or str(SLICE8C_DST)
+        np.savez_compressed(dst, **arrays)
+        print(f"wrote {dst} ({len(arrays)} arrays)")
+        return
     if args.slice8b:
         arrays = make_slice8b_fixture(args.seed, args.size or 64)
         dst = args.dst or str(SLICE8B_DST)

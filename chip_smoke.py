@@ -393,6 +393,20 @@ Phases (each prints its own line; any failed check raises, exit code != 0):
                step of rpst's one device and GSPMD, float32 1e-4), at 512px
                b1 vs the one-device stylize (f32 1e-4; adain and LD v1 in
                bf16 too), each timed beside one device; no kernel launched
+ 64. slice 8c train  phase 63's two ranks on the one card, after
+               phase 63's serving: the standard layout trained on
+               {spatial: 2} (train.step's rows route): rpst's 16 spatial_ok
+               networks at its _TINY vs
+               tests/fixtures/torch_port_slice8c_train.npz (SGD(1.0), rpst's
+               limits or 1e-3 of the largest update, ranks bit-equal); sanet
+               (train_static_sanet.yaml, 512px b1, f32 and bf16) with
+               exactly 6 / 6 / 6 B6b-d a rank, the flagship's standard
+               layout (512px b2) and the 15 others at 256px b2 vs one
+               device's step; B6b-d at one row share (1, 2048, 4096, 512)
+               beside the whole image's, f32 and bf16, vs plain, timed with
+               SDPA and the bound; train_torch.py on {spatial: 2, model: 2}
+               (4 ranks, 2 steps of the flagship yaml's standard layout at
+               256px)
 
 The last lines: the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or away from the
@@ -938,10 +952,15 @@ def main():
     # ---- 63. slice 8c: the standard layout served row-sharded, two ranks
     # on the one card
     t0 = time.perf_counter()
-    _slice8c_ranks(dev, name_power)
+    s8c = _slice8c_ranks(dev, name_power)
     log("time", f"phase 63 {time.perf_counter() - t0:.1f}s")
+    # ---- 64. slice 8c: the standard layout trained row-sharded (in phase
+    # 63's two ranks), the row-share B6b-d, the model axis beside spatial
+    t0 = time.perf_counter()
+    s8c_b6, b6_rows = _slice8c_train_check(s8c, dev, name_power, b6k)
+    log("time", f"phase 64 {time.perf_counter() - t0:.1f}s")
 
-    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-63")
+    log("time", f"{time.perf_counter() - t_main:.1f}s for phases 1-64")
     # bounds at the shapes the times were taken at (phases 2, 12, 17)
     bnd = {
         # B1 and B2 at the timed folded kernel: its 36 listed blocks
@@ -1054,9 +1073,9 @@ def main():
     # in compute_dtype) launches the bfloat16 forward; no path launches the
     # bfloat16 forward with LSE or backward
     b6_launches = {"B6a": sanet_serve["B6a"] + s8b["B6a"],
-                   "B6b": sanet_train[0] + s8b["B6b"],
-                   "B6c": sanet_train[1] + s8b["B6c"],
-                   "B6d": sanet_train[2] + s8b["B6d"],
+                   "B6b": sanet_train[0] + s8b["B6b"] + s8c_b6[0],
+                   "B6c": sanet_train[1] + s8b["B6c"] + s8c_b6[1],
+                   "B6d": sanet_train[2] + s8b["B6d"] + s8c_b6[2],
                    "B6a_bf16": sanet_serve["B6a_bf16"] + s8b["B6a_bf16"],
                    "B6b_bf16": 0, "B6c_bf16": 0, "B6d_bf16": 0}
     for key, fn_name, line in (("B6a", "flash_fwd", 260),
@@ -1082,6 +1101,21 @@ def main():
              "mode": f"spatial row share {B6_SHARD_SHAPE}",
              "replaces": "src/rpst/ops/pallas/flash_attention.py:260",
              "launches": s8b[key], **b6_shard[kind]})
+    # B6b-d on one row share of {spatial: 2} (phase 64), f32 and bf16, rows
+    # of their own; their launches those of phase 64's sanet steps (both
+    # ranks), all float32: the row-sharded step runs one device's loss,
+    # whose transform is float32 in either compute_dtype, as rpst's
+    for kind, suffix in (("f32", ""), ("bf16", "_bf16")):
+        for i, (key, name, line) in enumerate((
+                ("B6b", "flash_fwd_lse", 109), ("B6c", "flash_bwd_dq", 220),
+                ("B6d", "flash_bwd_dkv", 240))):
+            kernels["kernels"].append(
+                {"name": f"{name}{suffix}_row_share", "route": "cuda",
+                 "source": "src/rpst_torch/csrc/flash_attention.cu",
+                 "mode": f"spatial row share {B6_SHARD_SHAPE}",
+                 "replaces": f"src/rpst/ops/pallas/flash_attention.py:{line}",
+                 "launches": s8c_b6[i] if kind == "f32" else 0,
+                 **b6_rows[(kind, key)]})
     for k in kernels["kernels"]:
         if not (k["launches"] > 0 or k["name"] in OFF_PATH):
             raise AssertionError(f"{k['name']} was launched no time on the "
@@ -2676,7 +2710,9 @@ B6_PER_STYLIZE, SANET_Q8_B5, B6_PER_STEP = 2, 16, (6, 6, 6)
 # SANet's transform runs float32 as rpst's, and only the row-sharded
 # bfloat16 stylize (phase 60) launches the bfloat16 forward (phase 23 still
 # holds them all against plain)
-OFF_PATH = ("flash_fwd_lse_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+OFF_PATH = ("flash_fwd_lse_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+            "flash_fwd_lse_bf16_row_share", "flash_bwd_dq_bf16_row_share",
+            "flash_bwd_dkv_bf16_row_share")
 # gradients through the softmax (f and g, and f's bias): logits with a
 # standard deviation near 8 amplify the float32 rounding of the scores, so
 # the two frameworks' sums agree to ~1e-3 of the tensor's max there
@@ -8447,9 +8483,10 @@ def slice8c_rank(rank, init, out_dir):
     ``serving.make_mesh_run_impl`` (the CLI's and the daemon's run
     function): at the slice-8c fixture's point (32px b2), then at 512px b1
     (float32 for all, bfloat16 for adain and LD v1) after one warm-up
-    call, timed. Saves ``<out>/rank<r>.pt``: the gathered outputs, the
-    timed call's ms and each network's wall seconds on this rank, and
-    every kernel's launches (none expected)."""
+    call, timed; then phase 64's training (``_train_64_rank``). Saves
+    ``<out>/rank<r>.pt``: the gathered outputs, the timed call's ms and
+    each network's wall seconds on this rank, every kernel's launches in
+    phase 63 (none expected), and phase 64's readings."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -8490,6 +8527,10 @@ def slice8c_rank(rank, init, out_dir):
         res["63/launches"] = torch.tensor(
             [c.launches for c in _counters().values()])
         dist.barrier()
+        t0 = time.perf_counter()
+        _train_64_rank(rank, res, dev, s2)
+        res["64/rank_s"] = torch.tensor(time.perf_counter() - t0)
+        dist.barrier()
     finally:
         torch.save({k: v.detach().cpu() for k, v in res.items()},
                    Path(out_dir) / f"rank{rank}.pt")
@@ -8499,7 +8540,9 @@ def slice8c_rank(rank, init, out_dir):
 def _slice8c_ranks(dev, name_power):
     """Phase 63: the standard layout of adain, wct, mrf, spade, seg_adain,
     src and LD v1-v5 served row-sharded by two ranks on the one card over
-    gloo (``slice8c_rank``), rpst's GSPMD route made explicit. At the
+    gloo (``slice8c_rank``, whose processes then run phase 64's training:
+    their results are returned for ``_slice8c_train_check``), rpst's
+    GSPMD route made explicit. At the
     fixture's point each output within one uint8 step of rpst's
     single-device and GSPMD serving (``torch_port_slice8c.npz``) and its
     float32 within 1e-4 of rpst's single-device stylize; at 512px b1 each
@@ -8598,6 +8641,463 @@ def _slice8c_ranks(dev, name_power):
         log("time", f"63 {net} {dt}: ranks "
             f"{float(res[0][f'{key}/wall_s']):.1f}s, one device "
             f"{time.perf_counter() - t_net:.1f}s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# slice 8c's training half: the standard layout trained on row shares
+# ---------------------------------------------------------------------------
+
+SLICE8C_TRAIN_FIXTURE = (REPO / "tests" / "fixtures"
+                         / "torch_port_slice8c_train.npz")
+# the networks phase 64 trains at 256px b2 on {spatial: 2}, at their yaml /
+# bench.py widths: rpst's 16 spatial_ok networks but sanet and the flagship
+# multi_adain, which it trains at 512px
+TRAIN_64_SIZE = 256
+TRAIN_64 = (("adain", {}), ("multi_adain", {"enc_stack_way": "deeper"}),
+            ("sel_multi_adain", {}), ("ccam", {}), ("wct", {}), ("mrf", {}),
+            ("spade", {}), ("seg_adain", {}), ("src", {}),
+            ("dynamic_sanet", {})) + tuple((n, {}) for n in LD_NETWORKS)
+# the sharded step's gradients against one device's: a share of the
+# model's largest gradient (float32; phase 61's rule for the SANets,
+# whose float32 steps move by 3-6e-4 of it between two summation orders),
+# and the float32 rule of phase 9 for the flagship (rtol 5e-3, 1e-4 of each
+# tensor's max)
+TRAIN_64_GRAD_REL = 1e-3
+
+
+def _worker():
+    """tests/torch_dist_worker.py: the fixture's point (``train_case_8c``)
+    and its comparison (``compress_leaf`` / ``leaf_errors``)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_worker
+    return torch_dist_worker
+
+
+def _train_64_case(net, over, dev):
+    """(bundle, vgg, content, style, label) of a TRAIN_64 entry at
+    TRAIN_64_SIZE b2: the earlier phases' seeded bundles at their widths
+    (adain / wct ``_rpseq_bundle``, mrf / spade / seg_adain ``_5b_bundle``,
+    src / dynamic_sanet ``_6b_bundle``, LD ``_ld_bundle``, the multiscale
+    family ``_flagship_512`` standard), the config's seeded VGG, images and
+    seg_adain's labels from numpy's ``default_rng(64)``."""
+    import numpy as np
+    import torch
+    from rpst_torch.models import build_vgg
+    size = TRAIN_64_SIZE
+    if net in ("adain", "wct"):
+        bundle = _rpseq_bundle(net, dev, size)
+    elif net in S5B_NETWORKS:
+        bundle = _5b_bundle(dev, net, size)
+    elif net in ("src", "dynamic_sanet"):
+        bundle = _6b_bundle(dev, net, size)
+    elif net in LD_NETWORKS:
+        bundle = _ld_bundle(dev, net, size)
+    else:
+        bundle = _flagship_512(dev, net, size, 2,
+                               exec_strategy="standard", **over)[0]
+    vgg = bundle.vgg if bundle.from_features else build_vgg(bundle.cfg,
+                                                            dev)[0]
+    rng = np.random.default_rng(64)
+    c, s = (torch.from_numpy(rng.random((2, size, size, 3), np.float32))
+            .to(dev) for _ in range(2))
+    label = (torch.from_numpy(rng.integers(
+        -1, bundle.cfg.class_num, (2, size, size))).to(dev)
+        if net == "seg_adain" else None)
+    bundle.model.train()
+    return bundle, vgg, c, s, label
+
+
+def _sanet_train_case(dev, dtype):
+    """(bundle, vgg, content, style, None) of configs/train_static_sanet.yaml
+    at 512px b1 in compute_dtype ``dtype``: the sanet fixture's weights
+    (``sanet_weights_from_seed(0)``, VGG seed 1), images numpy's
+    ``default_rng(64)``."""
+    import numpy as np
+    import torch
+    from rpst_torch.bridge import (from_flax_params, sanet_weights_from_seed,
+                                   vgg_from_flax, vgg_weights_from_seed)
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.nn.vgg import VGG19Encoder
+    cfg = load_config(str(SANET_YAML), {
+        "img_size": IMG, "vgg": "", "batch_size": 1, "lr_decay": 0.0,
+        "compute_dtype": dtype})
+    bundle = build_model(cfg, dev)
+    bundle.load_state_dict(from_flax_params(sanet_weights_from_seed(0)))
+    vgg = VGG19Encoder(num_stages=5)
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(1, 5)))
+    bundle.vgg = vgg = vgg.to(dev)
+    rng = np.random.default_rng(64)
+    c, s = (torch.from_numpy(rng.random((1, IMG, IMG, 3), np.float32))
+            .to(dev) for _ in range(2))
+    bundle.model.train()
+    return bundle, vgg, c, s, None
+
+
+def _grad_step(make, mesh, timed=False):
+    """One train_step (Adam, as the drivers build it) of ``make()``'s case
+    on ``mesh`` (its batch share and rows) or one device: (loss parts, the
+    gradients the optimizer stepped on, this rank's B6b, B6c, B6d and
+    bfloat16 B6b launches in the step, and with ``timed`` the wall ms of a
+    second step, synchronised, else None)."""
+    import torch
+    from rpst_torch.dist import shard_batch
+    from rpst_torch.train.step import create_train_state, train_step
+    bundle, vgg, c, s, label = make()
+    if mesh is not None:
+        c, s = (shard_batch(t, mesh, spatial=True) for t in (c, s))
+        if label is not None:
+            label = shard_batch(label, mesh, spatial=True)
+    state = create_train_state(bundle, mesh=mesh)
+    seen = {}
+    state.optimizer.register_step_pre_hook(lambda *_: seen.update(
+        {n: p.grad.detach().clone() for n, p in
+         bundle.model.named_parameters() if p.grad is not None}))
+    cnt = _counters()
+    _reset_counts()
+    parts = train_step(state, vgg, c, s, content_label=label)
+    torch.cuda.synchronize()
+    launches = [cnt[k].launches for k in ("B6b", "B6c", "B6d")]
+    launches.append(cnt["B6b"].launches_bf16)
+    ms = None
+    if timed:
+        grads = dict(seen)
+        t0 = time.perf_counter()
+        train_step(state, vgg, c, s, content_label=label)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        seen.clear()
+        seen.update(grads)
+    return ({k: float(v) for k, v in parts.items()}, seen,
+            torch.tensor(launches), ms)
+
+
+def _grad_errors(got, ref):
+    """(max |got - ref| over every tensor / the largest |ref|, the worst
+    tensor by phase 9's rule: max |got - ref| / (1e-4 max |ref| + 5e-3
+    |ref|), above 1 fails it; a tensor zero but for rounding, under 1e-5
+    of the largest, is held under 1e-4 of the largest instead)."""
+    ref = {n: g for n, g in ref.items() if g.numel()}
+    top = max(float(g.abs().max()) for g in ref.values())
+    worst = max(float((got[n] - g).abs().max()) for n, g in ref.items())
+    p9 = 0.0
+    for n, g in ref.items():
+        size = float(g.abs().max())
+        if size < 1e-5 * top:
+            p9 = max(p9, float(got[n].abs().max()) / (1e-4 * top))
+        else:
+            p9 = max(p9, float(((got[n] - g).abs()
+                                / (1e-4 * size + 5e-3 * g.abs())).max()))
+    return worst / top, p9
+
+
+def _train_64_rank(rank, res, dev, s2):
+    """Phase 64's work on one rank of phase 63's two (``slice8c_rank``),
+    into ``res``: at the slice-8c training fixture's point (rpst's _TINY,
+    32px b4) every TRAIN_8C network's SGD(1.0) step on {spatial: 2}
+    (``train.step``'s rows route); then configs/train_static_sanet.yaml at
+    512px b1 in float32 and bfloat16, the flagship's standard layout at
+    512px b2 and TRAIN_64 at 256px b2, one step each on {spatial: 2}: its
+    loss, this rank's B6b-d launches in it, and (sanet float32 and the
+    flagship) a second step's wall time. The one-device steps the card
+    holds them against are dealt over the two ranks after (a case whose
+    index is this rank's parity; sanet bfloat16 with sanet float32, whose
+    gradients give its own bfloat16 distance): their loss, ms and the
+    errors of the sharded gradients against theirs."""
+    import torch
+    W = _worker()
+    for net, over in W.TRAIN_8C:
+        fid = W.family_id(net, over)
+        for k, v in W.train_step_8c(net, over, s2).items():
+            res[f"64/fx/s2/{fid}/{k}"] = v
+    cases = [("sanet_float32", lambda: _sanet_train_case(dev, "float32")),
+             ("flagship", lambda: _flagship_512(
+                 dev, "multi_adain", IMG, 2, exec_strategy="standard")
+              + (None,)),
+             ("sanet_bfloat16", lambda: _sanet_train_case(dev, "bfloat16"))]
+    cases += [(W.family_id(net, over),
+               lambda net=net, over=over: _train_64_case(net, over, dev))
+              for net, over in TRAIN_64]
+    timed = ("sanet_float32", "flagship")
+    mine = {}
+    for i, (key, make) in enumerate(cases):
+        t0 = time.perf_counter()
+        parts, grads, launches, ms = _grad_step(make, s2, key in timed)
+        res[f"64/{key}/launches"] = launches
+        res[f"64/{key}/total_loss"] = torch.tensor(parts["total_loss"])
+        res[f"64/{key}/rank_s"] = torch.tensor(time.perf_counter() - t0)
+        if ms is not None:
+            res[f"64/{key}/step_ms"] = torch.tensor(ms)
+        if i % 2 == int(rank):
+            mine[key] = {n: g.cpu() for n, g in grads.items()}
+        del grads
+        torch.cuda.empty_cache()
+    f32 = None
+    for key, make in cases:
+        if key not in mine:
+            continue
+        one_parts, one_grads, _, one_ms = _grad_step(make, None,
+                                                     key in timed)
+        one_grads = {n: g.cpu() for n, g in one_grads.items()}
+        res[f"64/{key}/one_loss"] = torch.tensor(one_parts["total_loss"])
+        if one_ms is not None:
+            res[f"64/{key}/one_ms"] = torch.tensor(one_ms)
+        res[f"64/{key}/grad_err"] = torch.tensor(
+            _grad_errors(mine.pop(key), one_grads))
+        if key == "sanet_float32":
+            f32 = one_grads
+        elif key == "sanet_bfloat16":  # its own bfloat16 distance
+            res[f"64/{key}/own"] = torch.tensor(
+                _grad_errors(one_grads, f32)[0])
+        del one_grads
+        torch.cuda.empty_cache()
+
+
+def _b6bd_shard(dev, name_power, whole=None):
+    """Phase 64's kernel check: B6b (forward with LSE), B6c (dQ) and B6d
+    (dK / dV) at ``B6_SHARD_SHAPE`` (one row share's queries against the
+    whole style), float32 and bfloat16, against their plain versions
+    (phase 23's checks), timed beside plain and
+    F.scaled_dot_product_attention forward (B6b) and its autograd backward
+    (B6c, B6d); the bounds of phase 23. ``whole``: phase 23's kernels JSON
+    numbers by kernel at the whole image's (1, 4096, 4096, 512) in this
+    run, logged beside. Returns the kernels JSON numbers of the shard by
+    type and kernel."""
+    import torch
+    from rpst_torch.ops import flash_attention as fa
+    out = {}
+    n, nq, nk, c = B6_SHARD_SHAPE
+    for dtype, tol, kind, size in ((torch.float32, F32_TOL, "f32", 4),
+                                   (torch.bfloat16, BF16_TOL, "bf16", 2)):
+        err = _b6_compare(f"64 row share {kind}", dev, dtype, B6_SHARD_SHAPE,
+                          1.0, tol)
+        q, k, v, d_o = _attention_inputs(dev, dtype, *B6_SHARD_SHAPE)
+        with torch.no_grad():
+            o, lse = fa.flash_fwd_lse(q, k, v)
+            delta = (d_o.float() * o.float()).sum(-1)
+            ms = {"B6b": cuda_ms(lambda: fa.flash_fwd_lse(q, k, v),
+                                 iters=10),
+                  "B6c": cuda_ms(lambda: fa.flash_bwd_dq(
+                      q, k, v, d_o, lse, delta), iters=10),
+                  "B6d": cuda_ms(lambda: fa.flash_bwd_dkv(
+                      q, k, v, d_o, lse, delta), iters=10)}
+            plain = {"B6b": cuda_ms(lambda: fa.flash_fwd_lse_plain(
+                         q, k, v), iters=3, warmup=1),
+                     "B6c": cuda_ms(lambda: fa.flash_bwd_dq_plain(
+                         q, k, v, d_o, lse, delta), iters=3, warmup=1),
+                     "B6d": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
+                         q, k, v, d_o, lse, delta), iters=3, warmup=1)}
+            lib_fwd = cuda_ms(lambda: _sdpa(q, k, v), iters=10)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        graph = _sdpa(*leaves)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            graph, leaves, d_o, retain_graph=True), iters=5, warmup=2)
+        del graph, leaves
+        lib = {"B6b": lib_fwd, "B6c": lib_bwd, "B6d": lib_bwd}
+        qb, kb, rows = n * nq * c * size, n * nk * c * size, n * nq * 4
+        work = n * nq * nk * c
+        bounds = {
+            "B6b": bound_ms(4 * work, qb + 2 * kb + qb + rows, kind),
+            "B6c": bound_ms(6 * work, 2 * qb + 2 * kb + 2 * rows + qb, kind),
+            "B6d": bound_ms(8 * work, 2 * qb + 2 * kb + 2 * rows + 2 * kb,
+                            kind)}
+        for key in ("B6b", "B6c", "B6d"):
+            b_ms, b_by = bounds[key]
+            at = (whole or {}).get(key if kind == "f32" else f"{key}_bf16")
+            beside = ("" if at is None else
+                      f"; the whole image's {at['ms']:.4f} ms, SDPA "
+                      f"{at['library_ms']:.4f} (phase 23)")
+            log("64 row share", f"{key} {B6_SHARD_SHAPE} {kind}: max abs err "
+                f"{err[key]:.3g} vs plain (tol {tol}); {ms[key]:.4f} ms vs "
+                f"plain {plain[key]:.4f}, SDPA {lib[key]:.4f}; bound "
+                f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / ms[key]:.1f}% of "
+                f"it){beside} ({name_power})")
+            out[(kind, key)] = {
+                "max_abs_err": err[key], "ms": ms[key],
+                "plain_ms": plain[key], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib[key]}
+        del q, k, v, d_o, o, lse, delta
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fx_64_check(res):
+    """The fixture part of phase 64 against rpst's one-device and GSPMD
+    steps (``torch_port_slice8c_train.npz``): every TRAIN_8C network's
+    {spatial: 2} step, every rank bit-equal, its loss at rtol 1e-4 and each
+    updated tensor at rpst's limits or within 1e-3 of the largest update
+    (tests/test_torch_tp.py's float32 rule: cuDNN's and the shares'
+    summation orders). The CPU test, tests/test_torch_std_spatial_train.py,
+    holds the same steps at rpst's limits with the float32-noise rule, and
+    in float64."""
+    import numpy as np
+    W = _worker()
+    with np.load(SLICE8C_TRAIN_FIXTURE) as npz:
+        fx = {k: npz[k] for k in npz.files}
+    r0 = {k: v.numpy() for k, v in res[0].items()}
+    for net, over in W.TRAIN_8C:
+        fid = W.family_id(net, over)
+        key = f"64/fx/s2/{fid}/"
+        for part in ("loss", "digest"):
+            if not np.array_equal(res[0][key + part], res[1][key + part]):
+                raise AssertionError(f"64 fixture {fid}: the ranks differ")
+        got = {}
+        for k, v in r0.items():
+            if k.startswith(key + "state/"):
+                name, part = k[len(key) + 6:].rsplit("/", 1)
+                got.setdefault(name, {})[part] = v
+        loss = float(r0[key + "loss"])
+        worst = 0.0
+        for step in ("one", "d2s2"):
+            ref_loss = float(fx[f"{fid}/{step}/loss"])
+            if abs(loss - ref_loss) > 1e-4 * abs(ref_loss):
+                raise AssertionError(f"64 fixture {fid}: loss {loss} vs "
+                                     f"rpst's {step} {ref_loss}")
+            ref = W.unpack_leaves(fx[f"{fid}/{step}/state"], got)
+            largest = max(float(v["upd_max"]) for v in ref.values())
+            u_tol = 1e-3 * largest
+            bad = {}
+            for n in ref:
+                strict = W.leaf_errors(got[n], ref[n], 1e-5, 1e-4)
+                if strict and W.leaf_errors(got[n], ref[n], u_tol, 0.0):
+                    bad[n] = strict
+            if bad:
+                raise AssertionError(f"64 fixture {fid} vs rpst's {step}: "
+                                     f"{dict(list(bad.items())[:3])}")
+            worst = max(worst, max(float(np.abs(
+                got[n].get("full", got[n].get("pick")) - ref[n].get(
+                    "full", ref[n].get("pick"))).max(initial=0.0))
+                for n in ref) / largest)
+        log("64 slice 8c train", f"{fid} 32px b4 SGD(1.0) on {{spatial: 2}} "
+            f"vs rpst's one device / GSPMD: loss {loss:.7g} (rpst "
+            f"{float(fx[f'{fid}/one/loss']):.7g} / "
+            f"{float(fx[f'{fid}/d2s2/loss']):.7g}), worst update element "
+            f"{worst:.3g} of the largest update off; ranks bit-equal")
+
+
+def _slice8c_train_check(res, dev, name_power, whole=None):
+    """Phase 64: the standard layout trained row-sharded by phase 63's two
+    ranks on the one card over gloo (``_train_64_rank``), rpst's GSPMD
+    step made explicit. The fixture's point against rpst
+    (``_fx_64_check``); sanet (configs/train_static_sanet.yaml, 512px b1,
+    float32 and bfloat16), the flagship's standard layout (512px b2) and
+    TRAIN_64 (256px b2) against one device's step on the card: the loss
+    at rtol 1e-4, the gradients within ``TRAIN_64_GRAD_REL`` of the
+    largest (the flagship by phase 9's rule; sanet bfloat16's loss and
+    gradients within 3x their own bfloat16 distance from float32 where
+    that is more), exactly 6 / 6 /
+    6 B6b-d on each rank in sanet's steps (float32 kernels: the one-device
+    transform runs float32 as rpst's, in bfloat16 too) and none elsewhere;
+    then the row-share B6b-d kernels (``_b6bd_shard``) and train_torch.py
+    on {spatial: 2, model: 2} (4 ranks on the one card, 2 steps of the
+    flagship yaml's standard layout); ``whole``: phase 23's B6 numbers at
+    the whole image's shape. Returns (the row-share B6b-d launches over
+    both ranks, their kernels JSON numbers)."""
+    log("time", f"phase 64 ranks {float(res[0]['64/rank_s']):.1f}s (in "
+        "phase 63's processes)")
+    _fx_64_check(res)
+    keys = (["sanet_float32", "flagship", "sanet_bfloat16"]
+            + [_worker().family_id(n, o) for n, o in TRAIN_64])
+    launches = [0, 0, 0]
+    for i, key in enumerate(keys):
+        ref = res[i % 2]  # the rank that took the one-device step
+        counts = [res[r][f"64/{key}/launches"].tolist() for r in range(2)]
+        want = [6, 6, 6, 0] if key.startswith("sanet") else [0, 0, 0, 0]
+        if counts != [want, want]:
+            raise AssertionError(f"64 {key}: B6b/c/d (bf16 B6b) launches a "
+                                 f"rank {counts}, want {want}")
+        if key.startswith("sanet"):
+            launches = [a + b + c for a, b, c in
+                        zip(launches, counts[0][:3], counts[1][:3])]
+        loss, one = (float(ref[f"64/{key}/{k}"])
+                     for k in ("total_loss", "one_loss"))
+        if float(res[0][f"64/{key}/total_loss"]) != float(
+                res[1][f"64/{key}/total_loss"]):
+            raise AssertionError(f"64 {key}: the ranks' losses differ")
+        loss_tol = 1e-4
+        if key == "sanet_bfloat16":  # 3x its own bfloat16 distance
+            f32_one = float(ref["64/sanet_float32/one_loss"])
+            loss_tol = max(loss_tol, 3 * abs(one - f32_one) / abs(f32_one))
+        if abs(loss - one) > loss_tol * abs(one):
+            raise AssertionError(f"64 {key}: loss {loss} vs one device {one}"
+                                 f" (rtol {loss_tol:.3g})")
+        rel, p9 = ref[f"64/{key}/grad_err"].tolist()
+        if key == "flagship":
+            ok, rule = p9 <= 1.0, "phase 9's rule"
+        elif key == "sanet_bfloat16":
+            own = float(ref[f"64/{key}/own"])
+            limit = max(TRAIN_64_GRAD_REL, 3 * own)
+            ok, rule = rel <= limit, (f"limit {limit:.3g}: 3x its own "
+                                      f"bf16 distance {own:.3g}")
+        else:
+            ok, rule = rel <= TRAIN_64_GRAD_REL, f"limit {TRAIN_64_GRAD_REL}"
+        if not ok:
+            raise AssertionError(f"64 {key}: gradients {rel:.3g} of the "
+                                 f"largest off one device's ({rule}; phase "
+                                 f"9's measure {p9:.3g})")
+        timing = ""
+        if f"64/{key}/one_ms" in ref:
+            timing = (f"; a second step {float(ref[f'64/{key}/step_ms']):.1f}"
+                      f" ms on a rank (two ranks share the card), "
+                      f"{float(ref[f'64/{key}/one_ms']):.1f} ms on one "
+                      f"device ({name_power})")
+        log("64 slice 8c train", f"{key} on {{spatial: 2}} vs one device: "
+            f"loss {loss:.7g} / {one:.7g}, gradients {rel:.3g} of the "
+            f"largest off ({rule}; phase 9's measure {p9:.3g}), B6b/c/d "
+            f"launches a rank {counts[0][:3]} (bf16 B6b {counts[0][3]}); "
+            f"{float(res[0][f'64/{key}/rank_s']):.1f}s on rank 0{timing}")
+    b6 = _b6bd_shard(dev, name_power, whole)
+    _model_spatial_cli()
+    return launches, b6
+
+
+def _model_spatial_cli():
+    """Phase 64's driver run: train_torch.py with mesh_shape {spatial: 2,
+    model: 2} on the flagship yaml in the standard layout (attention se,
+    use_mask false), 256px b2 float32, 2 steps, its four ranks started by
+    train_torch.py over gloo on the one card: the rows route logged with
+    the model axis, 2 loss lines and one checkpoint from rank 0."""
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(REPO / "tools" /
+                                            "make_synthetic_corpus.py"),
+                        str(tmp / "corpus"), "--n", "4", "--size",
+                        str(TRAIN_64_SIZE)],
+                       check=True, capture_output=True, timeout=300)
+        out = tmp / "rows"
+        t0 = time.perf_counter()
+        text = _driver_run("train_torch.py", [
+            "--config", str(FLAGSHIP_YAML), "--device", "cuda", "--set",
+            f"content_dir={tmp / 'corpus' / 'content'}",
+            f"style_dir={tmp / 'corpus' / 'style'}", "test_dir=", "vgg=",
+            f"output={out}", "use_mask=false", "exec_strategy=standard",
+            "compute_dtype=float32", "batch_size=2",
+            f"img_size={TRAIN_64_SIZE}", "mesh_shape={spatial: 2, model: 2}",
+            "max_iter=3", "log_iter=1", "snapshot_save_iter=100",
+            "num_workers=0"])
+        wall = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in
+                 (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+        if [ln["step"] for ln in lines] != [1, 2] or any(
+                ln["skipped"] or not np.isfinite(ln["total_loss"])
+                for ln in lines):
+            raise AssertionError(f"64 model x spatial metrics: {lines}")
+        if _dump_names(out / "checkpoints") != ["2"]:
+            raise AssertionError(
+                f"64 checkpoints {_dump_names(out / 'checkpoints')}")
+        if "row-sharded standard layout" not in text or \
+                "channel tensor parallel on the model axis" not in text:
+            raise AssertionError(f"64 route not logged:\n{text[-3000:]}")
+        log("64 slice 8c train", f"train_torch.py {FLAGSHIP_YAML.name} "
+            f"(standard, attention se, use_mask false) on mesh_shape "
+            f"{{spatial: 2, model: 2}}, {TRAIN_64_SIZE}px b2 float32, 4 "
+            f"ranks over "
+            f"gloo on the one card: 2 steps in {wall:.1f}s wall (start and "
+            f"loading included), total_loss "
+            f"{[round(ln['total_loss'], 4) for ln in lines]}; one checkpoint "
+            f"(2) from rank 0")
 
 
 if __name__ == "__main__":

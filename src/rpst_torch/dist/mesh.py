@@ -19,8 +19,9 @@ Ranks are laid out row-major over the axes in the order ``mesh_shape``
 gives them, as rpst reshapes its device list: under ``{data: 2, spatial:
 2}`` rank 2 d + s holds batch share d, row share s. ``replicate``
 broadcasts rank 0's parameters; on a ``model`` axis ``tp.shard_model``
-then keeps each rank's share. ``model`` together with ``spatial`` is
-ROADMAP.md section A slice 8c (rpst takes it by GSPMD).
+then keeps each rank's share. ``model`` beside ``spatial`` trains the
+standard layout on row shares with column-parallel layers (rpst takes
+that mesh by GSPMD, ``train.step.train_route``'s "rows" route).
 
 Transport (``choose_backend``): NCCL where every rank has a GPU of its
 own; gloo where ranks share a GPU (two ranks on one card: NCCL refuses
@@ -175,15 +176,8 @@ class Mesh:
 
 def check_mesh_shape(mesh_shape) -> Dict[str, int]:
     """``mesh_shape`` as an ordered {axis: size}, axes within {data,
-    spatial, model}; unknown axes raise, and so does ``model`` together
-    with ``spatial`` beyond size 1 (rpst takes that by GSPMD: ROADMAP.md
-    section A slice 8c)."""
+    spatial, model}; unknown axes and sizes below 1 raise."""
     shape = {str(k): int(v) for k, v in dict(mesh_shape).items()}
-    if shape.get("model", 1) > 1 and shape.get("spatial", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {shape}: a model axis together with a spatial axis is "
-            "not ported (rpst partitions it by GSPMD): ROADMAP.md section A "
-            "slice 8c")
     unknown = set(shape) - set(AXES)
     if unknown:
         raise ValueError(f"mesh axes must be within {AXES}, got {shape}")

@@ -503,7 +503,8 @@ class ModelBundle:
     def loss(self, vgg: VGG19Encoder, content: torch.Tensor,
              style: torch.Tensor, targets=None,
              conv_act: ConvAct = folded_conv_act,
-             content_label: Optional[torch.Tensor] = None
+             content_label: Optional[torch.Tensor] = None,
+             folded: Optional[bool] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss (rpst's ``ModelBundle.loss``):
         (total, parts) with parts ``style_loss``, ``content_loss`` and
@@ -527,9 +528,12 @@ class ModelBundle:
         sweep, the stylized pass); else, where ``q8_targets_active``, from
         the int8 VGG chain on B5; else the folded float pass. Standard: the
         module's forward in train mode, then ``perceptual_rp_losses``, under
-        bfloat16 autocast when compute_dtype says so."""
+        bfloat16 autocast when compute_dtype says so; ``folded=False``
+        takes it for a folded config too (the row-sharded standard layout,
+        ``fast_path_spatial.loss_std_spatial``)."""
         c = self.cfg
-        if targets is not None and not self.folded_infer():
+        if targets is not None and (not self.folded_infer()
+                                    or folded is False):
             raise ValueError("precomputed loss targets (the target cache) "
                              "need a folded-family config (folded_infer)")
         if content_label is not None and self.network != "seg_adain":
@@ -540,7 +544,7 @@ class ModelBundle:
             with torch.autocast(self.device.type, dtype=torch.bfloat16,
                                 enabled=c.compute_dtype == "bfloat16"):
                 parts = self.model.loss(vgg, content, style, **kw)
-        elif self.folded_infer():
+        elif self.folded_infer() and folded is not False:
             dtype = self.folded_dtype()
             stylized = self.stylize_folded(
                 live_folded_blocks(self.model, dtype),

@@ -12,6 +12,11 @@
 The targets (style and content features) carry no gradient: they run under
 ``torch.no_grad`` as one batched 2N VGG forward, where rpst wraps the same
 forward in ``stop_gradient``.
+
+On a row share (``dist.row_shares``: the row-sharded standard layout) the
+statistics are the whole image's already (``ops.stats``), and
+``feature_mse`` takes the mean of an image-shaped MSE over the whole
+image, so every rank holds the global loss.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from ..dist.collectives import row_axis, sum_rows
 from ..ops.stats import calc_mean_std, mean_variance_norm
 
 VGGFeatures = Callable[[torch.Tensor], List[torch.Tensor]]
@@ -27,6 +33,19 @@ VGGFeatures = Callable[[torch.Tensor], List[torch.Tensor]]
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a - b) ** 2).mean()
+
+
+def feature_mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``mse`` of two image-shaped tensors (features or images, either
+    layout); on a row share the mean over the whole image: the shares'
+    sums of squared errors (in float32 at least, float64 across them)
+    over the global count, in the squared error's type."""
+    d = (a - b) ** 2
+    ax = row_axis(d)
+    if ax is None:
+        return d.mean()
+    v = d.to(torch.promote_types(d.dtype, torch.float32))
+    return (sum_rows(v.sum(), ax) / (d.numel() * ax.size)).to(d.dtype)
 
 
 def style_stat_loss(input_feat: torch.Tensor,
@@ -42,8 +61,8 @@ def normalized_content_loss(input_feat: torch.Tensor,
                             target_feat: torch.Tensor) -> torch.Tensor:
     """SANet's mean-variance-normalized content MSE (sanet.py:226-230); the
     target carries no gradient."""
-    return mse(mean_variance_norm(input_feat),
-               mean_variance_norm(target_feat.detach()))
+    return feature_mse(mean_variance_norm(input_feat),
+                       mean_variance_norm(target_feat.detach()))
 
 
 def perceptual_rp_losses(vgg_features: VGGFeatures, stylized: torch.Tensor,
@@ -57,7 +76,7 @@ def perceptual_rp_losses(vgg_features: VGGFeatures, stylized: torch.Tensor,
     with torch.no_grad():
         f_sc = vgg_features(torch.cat([style, content], dim=0))
     loss_s = sum(style_stat_loss(a, b[:n]) for a, b in zip(f_stylized, f_sc))
-    loss_c = mse(f_stylized[-1], f_sc[-1][n:])
+    loss_c = feature_mse(f_stylized[-1], f_sc[-1][n:])
     total = content_weight * loss_c + style_weight * loss_s
     return {"style_loss": loss_s, "content_loss": loss_c,
             "total_loss": total}, total

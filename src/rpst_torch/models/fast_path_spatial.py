@@ -39,7 +39,15 @@ the SE / SK pools, the CCAM energies, LD's resize) exchange halo rows and
 sum their statistics over the shares, and a tensor that stops splitting
 evenly runs whole on every rank. Its only height rule is rpst's:
 img_size % spatial == 0. It launches no kernel of the port, as rpst's
-GSPMD route reaches no Pallas call.
+GSPMD route reaches no Pallas call. Its training (``loss_std_spatial``)
+runs the one-device standard loss the same way, for every network but mst
+(the ``model`` axis beside ``spatial`` too, ``train.step``'s "rows"
+route): the frozen VGG's taps, the losses' means (``models.base.
+feature_mse``), BatchNorm's and the segmentation loss's sums over the
+shares; the MRF term gathers its two relu4_1 features whole; sanet's
+attention is the port's one-device kernel on a shard, B6b with LSE and
+B6c / B6d backward on the share's query rows against the gathered style
+(rpst's GSPMD step computes the same function densely).
 """
 
 from __future__ import annotations
@@ -168,14 +176,13 @@ def _family_ops(bundle, ops: dict) -> dict:
 
 def _check_family(bundle) -> None:
     if bundle.network not in SPATIAL_FAMILIES or not bundle.folded_infer():
-        raise NotImplementedError(
+        raise ValueError(
             f"row-sharded (spatial) folded execution of {bundle.network} "
             f"(exec_strategy {bundle.cfg.get('exec_strategy', 'standard')}) "
-            "is not ported: the folded multi_adain, sel_multi_adain and "
-            "ccam take it; the standard layout serves row-sharded through "
-            "stylize_std_spatial (sanet and dynamic_sanet through "
-            "stylize_sanet_spatial), and its training is ROADMAP.md section "
-            "A slice 8c")
+            "is for the folded multi_adain, sel_multi_adain and ccam; the "
+            "standard layout serves row-sharded through stylize_std_spatial "
+            "(sanet and dynamic_sanet through stylize_sanet_spatial) and "
+            "trains row-sharded through loss_std_spatial")
 
 
 def stylize_spatial(bundle, content_l, style_l, mesh: Mesh,
@@ -474,6 +481,39 @@ def check_std_height(h: int, spatial: int) -> None:
                          f"spatial axis {spatial}")
 
 
+# the networks whose standard layout trains on row shares: rpst's 16
+# spatial_ok networks (tests/test_train_matrix.py:46-64), every one but mst
+STD_SPATIAL_TRAIN = STD_SPATIAL_FAMILIES + SANET_FAMILIES
+
+
+def loss_std_spatial(bundle, vgg: VGG19Encoder, content_l, style_l,
+                     mesh: Mesh, content_label=None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, parts) of the one-device standard training loss
+    (``bundle.loss(..., folded=False)``: train mode, the config's
+    compute_dtype) on this rank's row share, inside ``dist.row_shares``
+    and with its batch reductions over ``data`` x ``spatial``
+    (``dist.over_batch``): (n, H / spatial, W, 3) content and style rows
+    of the rank's batch share (and (n, H / spatial, W) labels for
+    seg_adain) -> the GLOBAL loss on every rank (rpst's GSPMD step,
+    ``dist/mesh.py:243-248``), differentiable in the model's parameters
+    through this rank's rows; the step averages the gradients over the
+    batch axes (``dist.average_grads``). sanet's attention is B6b-d on the
+    share's query rows against the gathered style (``sanet.whole_style``).
+    Every rank of the mesh calls it together."""
+    if bundle.network not in STD_SPATIAL_TRAIN:
+        raise ValueError(f"loss_std_spatial trains {STD_SPATIAL_TRAIN}, not "
+                         f"{bundle.network}")
+    ax = mesh.axis("spatial")
+    check_std_height(content_l.shape[1] * ax.size, ax.size)
+    kw = {} if content_label is None else {"content_label": content_label}
+    with row_shares(ax), over_batch(mesh.reduce_axes()):
+        total, parts = bundle.loss(vgg, content_l, style_l, folded=False,
+                                   **kw)
+    plain = lambda t: t.as_subclass(torch.Tensor)  # noqa: E731
+    return plain(total), {k: plain(v) for k, v in parts.items()}
+
+
 def stylize_std_spatial(bundle, content_l, style_l,
                         mesh: Mesh) -> torch.Tensor:
     """The one-device standard stylize (``bundle.stylize(...,
@@ -495,7 +535,8 @@ def stylize_std_spatial(bundle, content_l, style_l,
 
 
 __all__ = ["SPATIAL_FAMILIES", "SANET_FAMILIES", "STD_SPATIAL_FAMILIES",
-           "check_std_height", "stylize_std_spatial", "check_sanet_height",
+           "STD_SPATIAL_TRAIN", "check_std_height", "loss_std_spatial",
+           "stylize_std_spatial", "check_sanet_height",
            "mvn_spatial", "sanet_attention_spatial", "stylize_sanet_spatial", "check_height", "conv_lrelu_halo",
            "folded_adain_spatial", "zero_conv_halo", "channel_pool_spatial",
            "spatial_ops", "stylize_spatial", "reflect_conv_halo_std",

@@ -16,7 +16,10 @@ decoder, every conv zero-padded, stride 1, ReLU. The loss has three parts
     content-encoder features against the content encoding.
 
 As in rpst, the loss is computed per sample and averaged (the reference's
-``view(C, -1)`` mixes the samples of a batch above 1).
+``view(C, -1)`` mixes the samples of a batch above 1). On a row share
+(``dist.row_shares``) the top-k runs over the whole image: the two relu4_1
+features are gathered (``dist.gather_rows``) and the MRF term is one
+device's on every rank, ties at the k-th similarity in its order.
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ..dist.collectives import gather_rows, row_axis
 from ..nn.blocks import RPSequence, rp_decrease_dims, rp_increase_dims
 from ..ops.affinity import (cal_affinity_map, cal_dist,
                             mrf_topk_masked_dist_sum)
-from .base import mse, style_stat_loss
+from .base import feature_mse, style_stat_loss
 
 
 def mrf_loss(content_feat: torch.Tensor, style_feat: torch.Tensor,
@@ -37,7 +41,13 @@ def mrf_loss(content_feat: torch.Tensor, style_feat: torch.Tensor,
     """The MRF loss of (N, H, W, C) NHWC features, in their type: the
     per-sample masked distance sum over H * W * k, averaged. ``chunk > 0``
     streams the (HW, HW) matrices in row chunks of that many positions
-    (``mrf_topk_masked_dist_sum``)."""
+    (``mrf_topk_masked_dist_sum``). On a row share both features are
+    gathered whole first, and the loss is a plain tensor, equal on every
+    rank."""
+    ax = row_axis()
+    if ax is not None:
+        content_feat, style_feat = (gather_rows(f, 1, ax)
+                                    for f in (content_feat, style_feat))
     n, h, w, c = content_feat.shape
     if chunk:
         totals = torch.stack([mrf_topk_masked_dist_sum(cf, sf, k, chunk)
@@ -47,7 +57,7 @@ def mrf_loss(content_feat: torch.Tensor, style_feat: torch.Tensor,
         dist = cal_dist(content_feat.reshape(n, h * w, c).transpose(1, 2),
                         style_feat.reshape(n, h * w, c).transpose(1, 2))
         totals = (aff * dist).sum(dim=(1, 2))
-    return (totals / (h * w * k)).mean()
+    return (totals / (h * w * k)).mean().as_subclass(torch.Tensor)
 
 
 class MRFRP(nn.Module):
@@ -92,6 +102,6 @@ class MRFRP(nn.Module):
         style_prime = self.rp_style_encoder(stylized)
         loss_s = style_stat_loss(style_prime.permute(0, 2, 3, 1),
                                  sf.permute(0, 2, 3, 1))
-        loss_c = mse(content_prime, cf)
+        loss_c = feature_mse(content_prime, cf)
         return {"mrf_loss": loss_mrf, "style_loss": loss_s,
                 "content_loss": loss_c}

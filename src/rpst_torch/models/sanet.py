@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.collectives import gather_rows, row_axis
 from ..dist.tp import column
 from ..nn.blocks import PadConv
 from ..nn.decoder import VGGMirrorDecoder, upsample_nearest_2x_nhwc
@@ -58,7 +59,7 @@ from ..ops.adaptive_attention import (adaptive_attention_dense,
 from ..ops.affinity import cal_affinity_matrix, l2_normalize_channels
 from ..ops.flash_attention import sanet_attention
 from ..ops.stats import mean_variance_norm
-from .base import mse, normalized_content_loss, style_stat_loss
+from .base import feature_mse, normalized_content_loss, style_stat_loss
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -80,6 +81,19 @@ def conv1x1_nhwc(x: torch.Tensor, weight: torch.Tensor,
     return column(project, x, weight, -1)
 
 
+def whole_style(style: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(style for its own statistics, style to mix with the content): on a
+    row share (``dist.row_shares``) the style's rows gathered whole
+    (``dist.gather_rows``, whose adjoint hands each rank its rows' share
+    of dK / dV), as a ``dist.Whole`` tensor and as a plain one (the
+    queries' side stays the rank's rows); else ``style`` twice."""
+    ax = row_axis()
+    if ax is None:
+        return style, style
+    whole = gather_rows(style, 1, ax)
+    return whole, whole.as_subclass(torch.Tensor)
+
+
 def sanet_attention_block(content, style, f, g, h, out_conv,
                           attention: Attention = sanet_attention):
     """One style-attention module on NHWC features, in float32 whatever the
@@ -88,15 +102,18 @@ def sanet_attention_block(content, style, f, g, h, out_conv,
     ``mean_variance_norm`` runs in the features' own type first, as rpst's
     does, and its output is cast. ``f`` .. ``out_conv`` are float32 (weight,
     bias) pairs of 1x1 convs. Shared by the module and the int8 serving
-    path."""
+    path. On a row share the content's rows are the queries and the keys
+    and values come from the whole style (``whole_style``)."""
     with torch.autocast(content.device.type, enabled=False):
         n, hc, wc, c = content.shape
+        style, _ = whole_style(style)
+        plain = lambda t: t.as_subclass(torch.Tensor)  # noqa: E731
         fm = conv1x1_nhwc(mean_variance_norm(content).float(), *f).reshape(
             n, hc * wc, -1)
         gm = conv1x1_nhwc(mean_variance_norm(style).float(), *g).reshape(
             n, style.shape[1] * style.shape[2], -1)
         hm = conv1x1_nhwc(style.float(), *h).reshape(gm.shape)
-        o = attention(fm, gm, hm).reshape(n, hc, wc, -1)
+        o = attention(plain(fm), plain(gm), plain(hm)).reshape(n, hc, wc, -1)
         return conv1x1_nhwc(o, *out_conv) + content.float()
 
 
@@ -206,14 +223,18 @@ def adaptive_attention_block(content, style, f: Pair, g: Pair, h: Pair,
     attention, aux holds ``claim_value`` only; dense: the affinity and the
     (HWc, HWs) attention, aux also holds ``claim_before`` (the softmax) and
     ``claim_after`` (the re-weighted attention). Shared by the module and
-    the int8 serving path."""
+    the int8 serving path. On a row share the content's rows are the
+    queries against the whole style (``whole_style``): the thresholds are
+    per query, so they need no more."""
     with torch.autocast(content.device.type, enabled=False):
-        content, style = content.float(), style.float()
+        content = content.float()
+        style_w, style = (t.float() for t in whole_style(style))
         n, hc, wc, c = content.shape
         hw_s = style.shape[1] * style.shape[2]
         fm = conv1x1_nhwc(mean_variance_norm(content), *f).reshape(
             n, hc * wc, -1)
-        gm = conv1x1_nhwc(mean_variance_norm(style), *g).reshape(n, hw_s, -1)
+        gm = conv1x1_nhwc(mean_variance_norm(style_w), *g).reshape(
+            n, hw_s, -1).as_subclass(torch.Tensor)
         hm = conv1x1_nhwc(style, *h).reshape(gm.shape)
         variant = VARIANT[ada_module]
         if streamed:
@@ -337,7 +358,9 @@ class AdaptiveTransform(nn.Module):
 
     def forward(self, c4, s4, c5, s5, force_dense: bool = False):
         """NHWC relu4_1 / relu5_1 features -> (the fused feature NCHW
-        float32, {"relu4_1": aux, "relu5_1": aux})."""
+        float32, {"relu4_1": aux, "relu5_1": aux}). On a row share the
+        style is gathered whole first (``whole_style``)."""
+        s4, s5 = (whole_style(t)[0] for t in (s4, s5))
         check_style_size(self.dims, s4, s5)
         outs, aux = [], {}
         for name, c, s in (("relu4_1", c4, s4), ("relu5_1", c5, s5)):
@@ -417,10 +440,11 @@ class SAModel(nn.Module):
                      for g, s in zip(g_t_feats, style_feats))
         icc = self.stylize_from_feats(content_feats, content_feats)
         iss = self.stylize_from_feats(style_feats, style_feats)
-        l_identity1 = mse(icc, content) + mse(iss, style)
+        l_identity1 = feature_mse(icc, content) + feature_mse(iss, style)
         fcc = vgg_features(icc)
         fss = vgg_features(iss)
-        l_identity2 = sum(mse(a, b) + mse(c, d) for a, b, c, d in
+        l_identity2 = sum(feature_mse(a, b) + feature_mse(c, d)
+                          for a, b, c, d in
                           zip(fcc, content_feats, fss, style_feats))
         return {"content_loss": loss_c, "style_loss": loss_s,
                 "l_identity1_loss": l_identity1,

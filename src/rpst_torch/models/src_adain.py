@@ -20,7 +20,7 @@ from torch import nn
 from ..nn.decoder import VGGMirrorDecoder
 from ..ops.segment import masked_adain_batch
 from ..ops.stats import adaptive_instance_normalization as adain
-from .base import mse, style_stat_loss
+from .base import feature_mse, style_stat_loss
 
 
 def resize_labels(labels: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -76,7 +76,7 @@ class SourceNet(nn.Module):
             style_feats = vgg_features(style)
             t = adain(content_feats[-1], style_feats[-1])
         g_t_feats = vgg_features(self.decode(t))
-        loss_c = mse(g_t_feats[-1], t)
+        loss_c = feature_mse(g_t_feats[-1], t)
         loss_s = sum(style_stat_loss(g, s)
                      for g, s in zip(g_t_feats, style_feats))
         return {"style_loss": loss_s, "content_loss": loss_c}

@@ -43,39 +43,54 @@ statistics alone (``nn.attention.running_stats_frozen``): they move once,
 as in a plain step.
 
 On a mesh (``TrainState.mesh``, rpst's ``make_sharded_train_step``,
-``dist/mesh.py:190-283``) every rank runs this step on its share of the
-batch, by one of three routes:
+``dist/mesh.py:182-271``) every rank runs this step on its share of the
+batch, by one of four routes (``train_route``):
 
-  * **row-sharded** where ``dist.spatial_folded_train_ok`` holds (the
-    folded multi_adain, ccam, sel_multi_adain): the loss of
+  * **spatial** (row-sharded folded) where ``dist.spatial_folded_train_ok``
+    holds (the folded multi_adain, ccam, sel_multi_adain): the loss of
     ``models.fast_path_spatial.loss_spatial`` on the rank's rows, the
     global loss on every rank, through the halo kernels (B3's listed
     mode); also on a mesh with no ``spatial`` axis, as rpst's shard_map;
-  * **channel tensor parallel** on a ``model`` axis (rpst's
-    ``state_sharding=tp_shardings(...)``, any network): the model holds
-    this rank's shares (``dist.tp.shard_model``); the one-device loss runs
-    with its column-parallel layers computing their output-channel shares
-    (the folded convs through ``dist.tp.folded_column``: B1 / B2 / B3 at
-    the share's width) and the other sharded leaves gathered at use
-    (``dist.tp.gathered``); the ranks of one model group hold the same
-    batch share;
-  * **data-parallel** otherwise: the one-device loss on the rank's batch
-    share, its batch reductions (BatchNorm's statistics, seg_adain's cross
-    entropy) over the global batch (``dist.over_batch``), as rpst's GSPMD
-    step computes them (also on the tensor-parallel route).
+  * **rows** (row-sharded standard layout) for every other ``spatial``
+    axis, a ``model`` axis beside it included (rpst jits ``bundle.loss``
+    unchanged under GSPMD, ``:243-248``, images on ``P("data",
+    "spatial")``): the one-device standard loss
+    (``fast_path_spatial.loss_std_spatial``) on the rank's rows inside
+    ``dist.row_shares``, so every rank holds the GLOBAL loss and
+    differentiates it through its own rows; its batch reductions
+    (BatchNorm, the segmentation loss) over ``data`` x ``spatial``;
+    sanet's attention is B6b-d on the share's query rows against the
+    gathered style. The folded three take it where the folded route
+    turns them away (labels, SE attention, a height the folded route
+    cannot split, a ``model`` axis), as rpst's GSPMD step runs them
+    without its Pallas kernels;
+  * **model** (channel tensor parallel) on a ``model`` axis with no
+    ``spatial`` one (rpst's ``state_sharding=tp_shardings(...)``, any
+    network): the model holds this rank's shares (``dist.tp.shard_model``);
+    the one-device loss runs with its column-parallel layers computing
+    their output-channel shares (the folded convs through
+    ``dist.tp.folded_column``: B1 / B2 / B3 at the share's width) and the
+    other sharded leaves gathered at use (``dist.tp.gathered``); the ranks
+    of one model group hold the same batch share. Beside a ``spatial``
+    axis the rows route does the same on row shares;
+  * **data** (data parallel) otherwise: the one-device loss on the rank's
+    batch share, its batch reductions (BatchNorm's statistics, seg_adain's
+    cross entropy) over the global batch (``dist.over_batch``), as rpst's
+    GSPMD step computes them.
 
 On every route the parameters' gradients are then averaged over the batch
 axes, ``data`` and ``spatial`` (each rank seeded its own copy of the loss:
 ``dist.collectives``), and the loss parts too, so every rank takes the
-same Adam step and the same skip decision; the model axis's collectives
+same update and the same skip decision; the model axis's collectives
 sum and gather, and nothing is averaged over it. ``grad_accum: k`` cuts
 the GLOBAL batch into k contiguous microbatches, as rpst's
 ``_accumulate_grads`` cuts its global array (``step.py:78-83``), and each
 rank takes its batch share of each: a rank's local batch is a contiguous
 share of the global one, so on a ``data`` axis the step first re-deals
-the images over the axis (``redeal_microbatches``), and microbatch k of
-rank r is rank r's share of global images [k n / accum, (k + 1) n /
-accum). ``remat`` recomputes with the same batch reductions.
+the images over the axis (``redeal_microbatches``; a row share keeps its
+rows), and microbatch k of rank r is rank r's share of global images
+[k n / accum, (k + 1) n / accum). ``remat`` recomputes with the same
+batch reductions and row shares.
 """
 
 from __future__ import annotations
@@ -88,7 +103,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..dist import (Mesh, average_grads, check_mesh_shape, mean_over,
-                    over_batch, spatial_folded_train_ok)
+                    over_batch, row_shares, spatial_folded_train_ok)
 from ..dist import tp
 from ..dist.collectives import all_gather
 from ..models import ModelBundle
@@ -178,29 +193,32 @@ def create_train_state(bundle: ModelBundle,
 
 
 def train_route(bundle: ModelBundle, mesh) -> str:
-    """"single" (no mesh), "model" (channel tensor parallel, a ``model``
-    axis), "spatial" (the row-sharded folded route, where
-    ``dist.spatial_folded_train_ok`` holds) or "data" (data parallel) on
-    ``mesh`` (a Mesh, or a mesh_shape dict). A ``spatial`` axis for a
-    network the row-sharded route does not take raises, and so does one
-    beside a ``model`` axis: rpst row-shards those by GSPMD, ROADMAP.md
-    section A slice 8c."""
+    """"single" (no mesh), "spatial" (the row-sharded folded route, where
+    ``dist.spatial_folded_train_ok`` holds), "rows" (the row-sharded
+    standard layout: any other ``spatial`` axis, a ``model`` axis beside
+    it included), "model" (channel tensor parallel, a ``model`` axis with
+    no ``spatial`` one) or "data" (data parallel) on ``mesh`` (a Mesh, or
+    a mesh_shape dict). mst on a ``spatial`` axis raises ``ValueError``,
+    as rpst's does (its k-means and chain labelling see whole images);
+    so does a height the axis does not divide (``check_std_height``)."""
+    from ..models.fast_path_spatial import check_std_height
     if mesh is None:
         return "single"
-    shape = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
-    if int(shape.get("model", 1)) > 1:
-        check_mesh_shape(shape)  # refuses model beside spatial
+    shape = check_mesh_shape(mesh.shape if isinstance(mesh, Mesh)
+                             else dict(mesh))
+    spatial = int(shape.get("spatial", 1))
+    if spatial > 1 and bundle.network == "mst":
+        raise ValueError("mst trains on a data-only mesh: its k-means and "
+                         "chain labelling see whole images (rpst "
+                         "tests/test_train_matrix.py:154-168); got "
+                         f"{shape}")
+    if int(shape.get("model", 1)) > 1 and spatial == 1:
         return "model"
-    if spatial_folded_train_ok(bundle, shape):
+    if spatial_folded_train_ok(bundle, shape):  # never beside a model axis
         return "spatial"
-    if int(shape.get("spatial", 1)) > 1:
-        raise NotImplementedError(
-            f"a spatial mesh axis for {bundle.network} (exec_strategy "
-            f"{bundle.cfg.get('exec_strategy', 'standard')}, img_size "
-            f"{bundle.cfg.img_size}) is not ported: only the folded "
-            "multi_adain, ccam and sel_multi_adain train row-sharded, with "
-            "img_size a multiple of 16 x spatial; the rest is ROADMAP.md "
-            "section A slice 8c")
+    if spatial > 1:
+        check_std_height(bundle.cfg.img_size, spatial)
+        return "rows"
     return "data"
 
 
@@ -218,16 +236,18 @@ def check_target_cache(cfg, with_labels: bool = False) -> None:
 
 
 @contextlib.contextmanager
-def _recompute(axes):
-    with running_stats_frozen(), over_batch(axes):
+def _recompute(axes, rows=None):
+    with running_stats_frozen(), over_batch(axes), (
+            contextlib.nullcontext() if rows is None else row_shares(rows)):
         yield
 
 
-def _remat_contexts(axes=()):
+def _remat_contexts(axes=(), rows=None):
     """``torch.utils.checkpoint``'s ``context_fn``: (forward, recompute)
     contexts; the recompute leaves the running statistics alone and takes
-    the batch reductions over the same ranks as the forward."""
-    return lambda: (contextlib.nullcontext(), _recompute(axes))
+    the batch reductions over the same ranks, and the row shares of the
+    same axis, as the forward."""
+    return lambda: (contextlib.nullcontext(), _recompute(axes, rows))
 
 
 def step_loss(bundle: ModelBundle, vgg: VGG19Encoder, content, style,
@@ -235,28 +255,35 @@ def step_loss(bundle: ModelBundle, vgg: VGG19Encoder, content, style,
               content_label=None, remat: bool = False,
               mesh: Optional[Mesh] = None):
     """``bundle.loss`` -> (total, parts) on one device, or this rank's loss
-    on ``mesh`` (``train_route``: ``fast_path_spatial.loss_spatial`` on the
-    rows, or the batch share's loss with global batch reductions); with
-    ``remat`` under one non-reentrant checkpoint of the whole function."""
+    on ``mesh`` (``train_route``: ``fast_path_spatial.loss_spatial`` or
+    ``loss_std_spatial`` on the rows, or the batch share's loss with
+    global batch reductions); with ``remat`` under one non-reentrant
+    checkpoint of the whole function."""
     route = train_route(bundle, mesh)
     axes = () if mesh is None else mesh.reduce_axes()
-    if route == "model":  # the folded convs of a share's kernel: B1-B3
-        conv_act = tp.folded_column(conv_act)  # at its width, gathered
+    rows = mesh.axis("spatial") if route == "rows" else None
+    if mesh is not None and mesh.model > 1:  # the folded convs of a
+        conv_act = tp.folded_column(conv_act)  # share: B1-B3 at its width
 
     def loss_fn(c, s, lab):
         if route == "spatial":
             from ..models.fast_path_spatial import loss_spatial
             return loss_spatial(bundle, vgg, c, s, mesh)
         kw = {} if lab is None else {"content_label": lab}
-        shared = (tp.gathered(bundle.model) if route == "model"
-                  else contextlib.nullcontext())
+        shared = (tp.gathered(bundle.model) if mesh is not None
+                  and mesh.model > 1 else contextlib.nullcontext())
+        if route == "rows":
+            from ..models.fast_path_spatial import loss_std_spatial
+            with shared:
+                return loss_std_spatial(bundle, vgg, c, s, mesh, **kw)
         with over_batch(axes), shared:
             return bundle.loss(vgg, c, s, targets=targets,
                                conv_act=conv_act, **kw)
     if not remat:
         return loss_fn(content, style, content_label)
     return checkpoint(loss_fn, content, style, content_label,
-                      use_reentrant=False, context_fn=_remat_contexts(axes))
+                      use_reentrant=False,
+                      context_fn=_remat_contexts(axes, rows))
 
 
 def redeal_microbatches(x: torch.Tensor, mesh: Mesh,

@@ -247,16 +247,17 @@ def test_spatial_folded_train_ok_gates():
 
 def test_mesh_layout_and_refusals():
     """Rank layout row-major over the axes as rpst reshapes its devices;
-    a model axis beside a spatial one and unknown axes refuse; a one-rank
-    mesh needs no group."""
+    a model axis beside a spatial one is a mesh (the rows route trains it:
+    tests/test_torch_std_spatial_train.py), unknown axes refuse; a
+    one-rank mesh needs no group."""
     from rpst_torch.dist import check_mesh_shape
     mesh = make_mesh({"data": 1, "spatial": 1}, torch.device("cpu"))
     assert mesh.size == 1 and mesh.reduce_axes() == ()
     assert mesh.axis("spatial").index == 0
     assert check_mesh_shape({"data": 2, "model": 2}) == {"data": 2,
                                                          "model": 2}
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        check_mesh_shape({"spatial": 2, "model": 2})
+    assert check_mesh_shape({"spatial": 2, "model": 2}) == {"spatial": 2,
+                                                            "model": 2}
     with pytest.raises(ValueError, match="within"):
         check_mesh_shape({"rows": 2})
     with pytest.raises(ValueError, match="needs 4 ranks"):

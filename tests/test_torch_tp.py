@@ -46,8 +46,11 @@ FIXTURE = REPO / "tests" / "fixtures" / "torch_port_slice8b.npz"
 IDS = [W.family_id(n, o) for n, o in W.TP_FAMILIES]
 F64 = [(n, o) for n, o in W.TP_FAMILIES if n not in W.F32_ONLY]
 # the networks whose float32 updates at these widths differ by more than
-# rpst's limits between any two summation orders
-FLOAT32_NOISE = ("src", "sanet", "dynamic_sanet", "ld_adain2", "ld_adain3")
+# rpst's limits between any two summation orders (mst: 2.3e-4 of the
+# largest update from one device's with AMX-BF16's oneDNN kernels, 8e-7
+# without them; its float64 step 8e-8)
+FLOAT32_NOISE = ("src", "sanet", "dynamic_sanet", "ld_adain2", "ld_adain3",
+                 "mst")
 
 
 def _run(suite, world, tmp_path_factory):
@@ -239,15 +242,16 @@ def _ok_ckpt(fx_ranks):
 
 
 def test_refusals_name_a_queued_slice():
-    """Every refusal of the port that names a ROADMAP.md section A slice
-    names one still queued there (8c), none that is done."""
+    """No refusal of the port names a ROADMAP.md section A slice any more:
+    slice 8c, the last one queued, is ported (its training half and the
+    model axis beside spatial), and ROADMAP.md lists it among the done."""
     named = set()
     files = [REPO / "train_torch.py", REPO / "serve_torch.py"]
     files += sorted((REPO / "src" / "rpst_torch").rglob("*.py"))
     for path in files:
         named |= set(re.findall(r"section A\s+slice (\d\w*)",
                                 path.read_text()))
-    assert named <= {"8c"}, named
+    assert named == set(), named
     roadmap = (REPO / "ROADMAP.md").read_text()
     assert "slice 8c" in roadmap
 

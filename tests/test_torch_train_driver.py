@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import yaml
 from PIL import Image
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -127,15 +128,30 @@ def test_unported_options_raise(run_dir, override, slice_):
     ids=["model-axis", "sanet-spatial", "adain-spatial",
          "standard-multi_adain-spatial", "mst-spatial"])
 def test_slice_8b_refusals(run_dir, overrides):
-    """What multi-device training still refuses names ROADMAP.md section A
-    slice 8c, before any rank starts or anything is written: a ``model``
-    axis beside a ``spatial`` one, and row sharding of every network but
-    the folded multi_adain, ccam and sel_multi_adain (rpst shards those by
-    GSPMD). A ``model`` axis alone trains (tests/test_torch_tp.py)."""
-    with pytest.raises(NotImplementedError, match="section A slice 8c"):
-        _driver().main(["--config", str(run_dir / "cfg.yaml"), "--device",
-                        "cpu", "--set", *overrides])
-    assert not (run_dir / "out").exists()
+    """What multi-device training once refused naming ROADMAP.md section A
+    slice 8c now trains (these cases keep their ids): a ``model`` axis
+    beside a ``spatial`` one and row sharding of every network but mst
+    take the row-sharded standard layout (``train_route`` "rows";
+    tests/test_torch_std_spatial_train.py runs them against rpst and
+    drives train_torch.py on {spatial: 2}); mst on a spatial axis raises
+    ValueError, as rpst's does, before any rank starts or anything is
+    written."""
+    from rpst_torch.config import load_config
+    from rpst_torch.models import build_model
+    from rpst_torch.train.step import train_route
+    drv = _driver()
+    args = ["--config", str(run_dir / "cfg.yaml"), "--device", "cpu",
+            "--set", *overrides]
+    over = {k: yaml.safe_load(v) for k, v in
+            (kv.split("=", 1) for kv in overrides)}
+    cfg = load_config(str(run_dir / "cfg.yaml"), over)
+    if cfg.network == "mst":
+        with pytest.raises(ValueError, match="data-only mesh"):
+            drv.main(args)
+        assert not (run_dir / "out").exists()
+        return
+    drv.check_ported(cfg)
+    assert train_route(build_model(cfg), cfg.mesh_shape) == "rows"
 
 
 def test_cuda_without_a_card_exits_nonzero(run_dir):

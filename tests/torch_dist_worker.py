@@ -665,6 +665,293 @@ def suite_accum(rank, out):
         out[f"state/{n}"] = t.clone()
 
 
+# ----------------------------------------------- slice 8c: training
+
+# rpst's tests/test_train_matrix.py FAMILIES with spatial_ok: every
+# network but mst (the slice-8c training fixture's cases)
+TRAIN_8C = [(n, o) for n, o in FAMILIES
+            if n != "mst" and o.get("exec_strategy") != "folded"]
+TRAIN_MESHES_8C = {"s2": {"spatial": 2}, "d2s2": {"data": 2, "spatial": 2},
+                   "s2m2": {"spatial": 2, "model": 2}}
+# remat and grad_accum on the rows route ({data: 2, spatial: 2}, float64:
+# a microbatch of one image puts float32 summation order past rpst's
+# limits): the recompute under the same row shares, rpst's microbatches
+# re-dealt over data with the rows (and seg_adain's labels) kept
+TRAIN_OPTS_8C = [("sel_multi_adain", {"remat": True}),
+                 ("sel_multi_adain", {"grad_accum": 2}),
+                 ("seg_adain", {"grad_accum": 2})]
+# the float64 runs: the networks whose float32 updates at these widths
+# differ by more than rpst's limits between two summation orders (against
+# the port's one device: spade, src; against rpst's: sel's BatchNorm, ccam,
+# wct, LD v1 / v3 / v4), and seg_adain's cross-entropy sums over the
+# shares; the SANets' transforms stay float32, as rpst's
+TRAIN_F64_8C = [(n, {}) for n in ("spade", "src", "sel_multi_adain",
+                                  "ccam", "wct", "seg_adain", "ld_adain",
+                                  "ld_adain3", "ld_adain4")]
+# a leaf above this many elements is kept as its sum, its norm, PROJECTIONS
+# seeded random projections and PICKS seeded elements
+# (tools/make_torch_port_fixture.py compresses rpst's the same way)
+BIG_LEAF = 2048
+PROJECTIONS = 2
+PICKS = 256
+
+
+def _leaf_draw(name, n):
+    """(projection vectors (PROJECTIONS, n), picked indices) of a leaf,
+    seeded by the CRC of its name (Python's ``hash`` differs between
+    processes)."""
+    import zlib
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    return (rng.standard_normal((PROJECTIONS, n)),
+            rng.choice(n, size=min(PICKS, n), replace=False))
+
+
+def compress_leaf(name, after, before):
+    """What is kept of a leaf after a step (``after``, with its value
+    ``before`` it): {"full", "upd_max"} for a small leaf; for one above
+    BIG_LEAF elements {"size", "sum", "abs_sum", "norm", "proj",
+    "proj_abs", "r_l1", "pick", "upd_max"}, float64: its size, its sum, the
+    sum of its absolute
+    values, its norm, its projections on the seeded vectors r and those of
+    its absolute values on |r|, the L1 norms of r, its values at the
+    seeded indices, and its largest absolute update."""
+    a = np.asarray(after, np.float64).reshape(-1)
+    upd = float(np.abs(a - np.asarray(before, np.float64).reshape(-1)).max()
+                ) if a.size else 0.0
+    if a.size <= BIG_LEAF:
+        return {"full": a, "upd_max": np.array(upd)}
+    r, idx = _leaf_draw(name, a.size)
+    return {"size": np.array(a.size), "sum": np.array(a.sum()),
+            "abs_sum": np.array(np.abs(a).sum()),
+            "norm": np.array(np.linalg.norm(a)), "proj": r @ a,
+            "proj_abs": np.abs(r) @ np.abs(a),
+            "r_l1": np.abs(r).sum(axis=1), "pick": a[idx],
+            "upd_max": np.array(upd)}
+
+
+def pack_leaves(leaves):
+    """The compressed leaves of one step ({leaf: {part: array}}) as one
+    float32 vector, leaves and parts in sorted order (the fixture's form:
+    rpst's values are float32)."""
+    return np.concatenate([np.asarray(leaves[n][p], np.float32).reshape(-1)
+                           for n in sorted(leaves) for p in sorted(leaves[n])])
+
+
+def unpack_leaves(flat, like):
+    """``pack_leaves``' inverse, the layout read from ``like`` (the port's
+    compressed step of the same network)."""
+    out, i = {}, 0
+    for n in sorted(like):
+        out[n] = {}
+        for p in sorted(like[n]):
+            k = np.asarray(like[n][p]).size
+            out[n][p] = np.asarray(flat[i:i + k], np.float64).reshape(
+                np.shape(like[n][p]))
+            i += k
+    if i != len(flat):
+        raise ValueError(f"packed step of {len(flat)} values, layout {i}")
+    return out
+
+
+def leaf_errors(got, ref, atol, rtol, noise=(), factor=2.0):
+    """The ways a compressed leaf ``got`` exceeds an elementwise limit
+    ``|got - ref| <= atol + rtol |ref|`` against ``ref`` (both from
+    ``compress_leaf``), as a list of strings (empty: within). A full leaf
+    is checked element by element; a big one at its picked elements, and
+    its sum, norm and projections against the bounds the elementwise limit
+    implies for them. ``noise``: pairs (a, b) of compressed readings of
+    the same leaf; each statistic's bound adds ``factor`` times the larger
+    of their largest distances in it (ROADMAP section C's float32-noise
+    rule, per tensor: 2x the larger own float32 error on the CPU, 4x on
+    the card)."""
+    bad = []
+
+    def over(what, d, bound):
+        if noise:  # per leaf and statistic, as ROADMAP section C holds it
+            bound = bound + factor * max(float(np.abs(np.asarray(a[what])
+                                                 - np.asarray(b[what])).max(
+                                                     initial=0.0))
+                                    for a, b in noise)
+        d, bound = np.abs(np.asarray(d)), np.asarray(bound)
+        if np.any(d > bound):
+            bad.append(f"{what}: {d.max():.3g} > {bound.min():.3g}")
+    if "full" in ref:
+        over("full", got["full"] - ref["full"],
+             atol + rtol * np.abs(ref["full"]))
+        return bad
+    size = float(ref["size"])
+    over("pick", got["pick"] - ref["pick"],
+         atol + rtol * np.abs(ref["pick"]))
+    over("sum", got["sum"] - ref["sum"], atol * size + rtol * ref["abs_sum"])
+    over("norm", got["norm"] - ref["norm"],
+         atol * np.sqrt(size) + rtol * ref["norm"])
+    over("proj", got["proj"] - ref["proj"],
+         atol * ref["r_l1"] + rtol * ref["proj_abs"])
+    return bad
+
+
+def train_case_8c(net, over, mesh=None, f64=False, device="cpu"):
+    """(bundle, vgg, content, style, label) of a TRAIN_8C entry at rpst's
+    ``_TINY`` (test_train_matrix.py:37-40): seeded weights (the families'
+    ``bridge.weights_from_seed(cfg, 0)``, the multiscale ones
+    ``flax_weights_from_seed``, the SANets' own draws), the VGG from
+    ``vgg_weights_from_seed(1)``, the images and labels of rpst's
+    ``_setup`` (numpy's ``default_rng(0)``); on ``mesh`` the rank's batch
+    share and rows, the model's channel shares on a ``model`` axis
+    (min_channels 8, so that the tiny widths shard); ``f64``: the model,
+    VGG and images in float64; on ``device`` (a mesh's own otherwise)."""
+    from rpst_torch.bridge import (dynamic_sanet_weights_from_seed,
+                                   flax_weights_from_seed,
+                                   sanet_weights_from_seed,
+                                   weights_from_seed)
+    from rpst_torch.dist import tp
+    cfg = load_config(dict(TINY, network=net, **over))
+    device = mesh.device if mesh is not None else torch.device(device)
+    bundle = build_model(cfg, device)
+    if net == "sanet":
+        sd = from_flax_params(sanet_weights_from_seed(0))
+    elif net == "dynamic_sanet":
+        sd = from_flax_params(dynamic_sanet_weights_from_seed(
+            0, cfg.img_size))
+    elif net in ("multi_adain", "sel_multi_adain", "ccam"):
+        params, stats = flax_weights_from_seed(bundle.model, 0)
+        sd = from_flax_params(params)
+        sd.update(from_flax_batch_stats(stats))
+    else:
+        sd = from_flax_params(weights_from_seed(cfg, 0))
+    bundle.load_state_dict(sd)
+    vgg = VGG19Encoder(num_stages=bundle.vgg_stages)
+    vgg.load_state_dict(vgg_from_flax(vgg_weights_from_seed(
+        1, bundle.vgg_stages)))
+    vgg = vgg.to(device)
+    gen = np.random.default_rng(0)
+    img = cfg.img_size
+    c = torch.from_numpy(gen.random((4, img, img, 3), np.float32))
+    s = torch.from_numpy(gen.random((4, img, img, 3), np.float32))
+    label = (torch.from_numpy(gen.integers(-1, cfg.class_num, (4, img, img))
+                              .astype(np.int64))
+             if net == "seg_adain" else None)
+    if f64:
+        bundle.model.double()
+        vgg.double()
+        c, s = c.double(), s.double()
+    c, s = c.to(device), s.to(device)
+    label = None if label is None else label.to(device)
+    if mesh is not None:
+        c, s = (shard_batch(t, mesh, spatial=True) for t in (c, s))
+        if label is not None:
+            label = shard_batch(label, mesh, spatial=True)
+        if mesh.model > 1:
+            tp.shard_model(bundle.model, mesh.axis("model"), min_channels=8)
+    if bundle.from_features:
+        bundle.vgg = vgg
+    return bundle, vgg, c, s, label
+
+
+def _stats_own_type(feat, eps=1e-5):
+    """``ops.stats.calc_mean_std`` with its reductions in the features' own
+    type (it casts them to float32, as rpst does), row shares included."""
+    from rpst_torch.dist.collectives import row_axis, row_moments
+    ax = row_axis(feat)
+    if ax is None:
+        mean = feat.mean(dim=(1, 2), keepdim=True)
+        n = feat.shape[1] * feat.shape[2]
+        var = ((feat - mean) ** 2).sum(dim=(1, 2), keepdim=True) / max(
+            n - 1, 1)
+    else:
+        mean, var = row_moments(feat, (1, 2), ax, unbiased=True)
+    return mean, torch.sqrt(var + eps)
+
+
+def float64_stats():
+    """The port's feature statistics in the features' type until the
+    returned undo is called: a float64 step is then float64 throughout,
+    and a row-sharded one meets one device's to float64 rounding (with
+    them in float32 both read float32 sums in two orders)."""
+    from rpst_torch.models import base
+    from rpst_torch.ops import stats
+    old = stats.calc_mean_std, base.calc_mean_std
+    stats.calc_mean_std = base.calc_mean_std = _stats_own_type
+
+    def undo():
+        stats.calc_mean_std, base.calc_mean_std = old
+    return undo
+
+
+def train_step_8c(net, over, mesh=None, f64=False, device="cpu"):
+    """One SGD(1.0) step of a TRAIN_8C entry (``f64``: in float64, the
+    statistics too: ``float64_stats``): {"loss", "state/<name>/..."
+    (the one-device layout, ``compress_leaf``), "digest" (the SHA-256 of
+    every parameter's and buffer's bytes)}."""
+    import hashlib
+    from rpst_torch.dist import tp
+    bundle, vgg, c, s, label = train_case_8c(net, over, mesh, f64,
+                                             device=device)
+    before = {n: t.clone() for n, t in tp.full_state_dict(
+        bundle.model).items()}
+    undo = float64_stats() if f64 else (lambda: None)
+    try:
+        parts = train_step(sgd_state(bundle, mesh), vgg, c, s,
+                           content_label=label)
+    finally:
+        undo()
+    out = {"loss": parts["total_loss"].detach().double()}
+    full = tp.full_state_dict(bundle.model)
+    h = hashlib.sha256()
+    for n in sorted(full):
+        t = full[n].detach().cpu().contiguous()
+        h.update(t.numpy().tobytes())
+        if not t.is_floating_point():
+            continue
+        for k, v in compress_leaf(n, t.numpy(),
+                                  before[n].cpu().numpy()).items():
+            out[f"state/{n}/{k}"] = torch.from_numpy(np.asarray(v))
+    out["digest"] = torch.tensor(list(h.digest()), dtype=torch.uint8)
+    return out
+
+
+def suite_std_spatial_train(rank, out):
+    """Every TRAIN_8C entry's SGD(1.0) step in float32 on TRAIN_MESHES_8C,
+    and the TRAIN_F64_8C entries' in float64 on {spatial: 2}
+    (``<mesh>/<family>[/f64]/...``; the {spatial: 2} steps dealt over two
+    pairs of ranks, (0, 1) and (2, 3)); TRAIN_OPTS_8C in float64 on
+    {data: 2, spatial: 2}; the one-device steps the test
+    holds them against, dealt over the ranks (``one/<family>[/f64]/...``);
+    mst's refusal of a spatial axis."""
+    import dataclasses
+    from rpst_torch.train.step import train_route
+    d2s2 = make_mesh(TRAIN_MESHES_8C["d2s2"], torch.device("cpu"))
+    s2m2 = make_mesh(TRAIN_MESHES_8C["s2m2"], torch.device("cpu"))
+    # the data axis's two halves of d2s2, each a {spatial: 2} mesh
+    pair = dataclasses.replace(d2s2, shape={"spatial": 2},
+                               axes={"spatial": d2s2.axis("spatial")})
+    jobs = [(n, o, False) for n, o in TRAIN_8C] + [
+        (n, o, True) for n, o in TRAIN_F64_8C]
+    opts = [(n, o, True) for n, o in TRAIN_OPTS_8C]
+
+    def run(mname, mesh, net, over, f64):
+        key = f"{mname}/{family_id(net, over)}" + ("/f64" if f64 else "")
+        for k, v in train_step_8c(net, over, mesh, f64).items():
+            out[f"{key}/{k}"] = v
+    for i, (net, over, f64) in enumerate(jobs + opts):
+        if i % dist.get_world_size() == rank:
+            run("one", None, net, over, f64)
+    for i, (net, over, f64) in enumerate(jobs):
+        if i % 2 == d2s2.axis("data").index:
+            run("s2", pair, net, over, f64)
+    for mname, mesh in (("d2s2", d2s2), ("s2m2", s2m2)):
+        for net, over in TRAIN_8C:
+            run(mname, mesh, net, over, False)
+    for net, over, f64 in opts:
+        run("d2s2", d2s2, net, over, f64)
+    try:
+        train_route(build_model(load_config(dict(TINY, network="mst"))),
+                    pair)
+    except ValueError as err:
+        out["mst_refusal"] = torch.tensor(list(str(err).encode()),
+                                          dtype=torch.uint8)
+
+
 def main():
     suite, rank, world, init, out_dir = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -677,6 +964,7 @@ def main():
         {"spatial": suite_spatial, "dp": suite_dp, "tp": suite_tp,
          "sanet_spatial": suite_sanet_spatial,
          "std_spatial": suite_std_spatial,
+         "std_spatial_train": suite_std_spatial_train,
          "tp_fixture": suite_tp_fixture, "accum": suite_accum}[suite](
             rank, out)
         dist.barrier()

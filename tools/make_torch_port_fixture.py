@@ -1957,6 +1957,116 @@ def make_slice8c_fixture(seed: int = 0) -> dict:
     return arrays
 
 
+SLICE8C_TRAIN_DST = (REPO / "tests" / "fixtures"
+                     / "torch_port_slice8c_train.npz")
+
+
+def _seeded_trees(net: str, over: dict):
+    """(params, batch_stats) flax trees of a TRAIN_8C entry at rpst's
+    ``_TINY``: the draws ``tests/torch_dist_worker.py train_case_8c``
+    loads into the port."""
+    from rpst_torch import bridge
+    from rpst_torch.config import load_config as port_config
+    from rpst_torch.models import build_model as port_model
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_worker as W
+    cfg = port_config(dict(W.TINY, network=net, **over))
+    if net == "sanet":
+        return bridge.sanet_weights_from_seed(0), {}
+    if net == "dynamic_sanet":
+        return bridge.dynamic_sanet_weights_from_seed(0, cfg.img_size), {}
+    if net in ("multi_adain", "sel_multi_adain", "ccam"):
+        return bridge.flax_weights_from_seed(port_model(cfg).model, 0)
+    return bridge.weights_from_seed(cfg, 0), {}
+
+
+def make_slice8c_train_fixture() -> dict:
+    """rpst's one-device SGD(1.0) step and its GSPMD {data: 2, spatial: 2}
+    step (``tests/test_train_matrix.py``: ``_single_step`` and
+    ``_sharded_step(..., spatial=True)``) at its ``_TINY`` for the 16
+    ``spatial_ok`` networks (``tests/torch_dist_worker.py TRAIN_8C``),
+    with the port's seeded weights (``_seeded_trees``) and VGG
+    (``vgg_weights_from_seed(1)``) in place of rpst's init, and rpst's
+    images and labels. Per network ``<family>/<step>/loss`` (``step`` one
+    or d2s2) and ``<family>/<step>/state``: every updated parameter and
+    batch statistic in the port's layout and names, kept as
+    ``torch_dist_worker.compress_leaf`` keeps the port's (the SANets'
+    512-wide leaves as sums, norms, seeded projections and picks), packed
+    into one float32 vector (``torch_dist_worker.pack_leaves``)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+    from rpst.config import load_config
+    from rpst.dist import (make_mesh, make_sharded_train_step, replicate,
+                           shard_batch)
+    from rpst.models import build_model
+    from rpst.train import create_train_state, make_train_step
+    from rpst_torch import bridge
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_dist_worker as W
+
+    rpst_tiny = {k: v for k, v in W.TINY.items() if k != "vgg"}
+    arrays = {}
+    for net, over in W.TRAIN_8C:
+        fid = W.family_id(net, over)
+        cfg = load_config({**rpst_tiny, "network": net, **over})
+        bundle = build_model(cfg)
+        img = cfg.img_size
+        gen = np.random.default_rng(0)
+        c = jnp.asarray(gen.random((4, img, img, 3), np.float32))
+        s = jnp.asarray(gen.random((4, img, img, 3), np.float32))
+        label = (jnp.asarray(gen.integers(-1, cfg.class_num, (4, img, img))
+                             .astype(np.int32))
+                 if net == "seg_adain" else None)
+        vgg_vars = jax.tree.map(jnp.asarray, bridge.vgg_weights_from_seed(
+            1, bundle.vgg_stages))
+        state, _ = create_train_state(bundle, jax.random.PRNGKey(0), c, s,
+                                      vgg_vars)
+        params, stats = _seeded_trees(net, over)
+        params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32),
+                              params)
+        assert (jax.tree.structure(params)
+                == jax.tree.structure(state.params)), fid
+        extra = dict(state.extra)
+        if stats:
+            extra["batch_stats"] = jax.tree.map(
+                lambda a: jnp.asarray(a, jnp.float32), stats)
+        tx = optax.sgd(1.0)
+        state = state.replace(params=params, extra=extra,
+                              opt_state=tx.init(params))
+
+        def port_state(st):
+            sd = bridge.from_flax_params(jax.tree.map(np.asarray,
+                                                      st.params))
+            sd.update(bridge.from_flax_batch_stats(jax.tree.map(
+                np.asarray, st.extra.get("batch_stats", {}))))
+            return {k: v.numpy() for k, v in sd.items()}
+        before = port_state(state)
+        lab = () if label is None else (label,)
+        step = make_train_step(bundle, tx, with_labels=label is not None)
+        fresh = lambda: jax.tree.map(jnp.array, state)  # noqa: E731
+        runs = {"one": step(fresh(), vgg_vars, c, s, *lab)}
+        mesh = make_mesh({"data": 2, "spatial": 2}, jax.devices()[:4])
+        sharded = make_sharded_train_step(bundle, tx, mesh, spatial=True,
+                                          with_labels=label is not None)
+        lab = () if label is None else (
+            shard_batch(label, mesh, spatial=True),)
+        runs["d2s2"] = sharded(replicate(fresh(), mesh),
+                               replicate(vgg_vars, mesh),
+                               shard_batch(c, mesh, spatial=True),
+                               shard_batch(s, mesh, spatial=True), *lab)
+        for name, (new, parts) in runs.items():
+            arrays[f"{fid}/{name}/loss"] = np.float64(parts["total_loss"])
+            arrays[f"{fid}/{name}/state"] = W.pack_leaves({
+                k: W.compress_leaf(k, v, before[k])
+                for k, v in port_state(new).items()})
+        print(f"{fid}: loss one {float(runs['one'][1]['total_loss']):.7g} "
+              f"d2s2 {float(runs['d2s2'][1]['total_loss']):.7g}",
+              flush=True)
+    return arrays
+
+
 def _unflat(flat: dict) -> dict:
     tree: dict = {}
     for path, v in flat.items():
@@ -2022,10 +2132,15 @@ def main():
                     help="write tests/fixtures/torch_port_slice8c.npz: "
                          "rpst's serving of the standard layout on one "
                          "device and by GSPMD on row-sharded meshes")
+    ap.add_argument("--slice8c-train", action="store_true",
+                    help="write tests/fixtures/torch_port_slice8c_train.npz: "
+                         "rpst's one-device and GSPMD {data: 2, spatial: 2} "
+                         "SGD(1.0) train steps of its 16 spatial_ok networks")
     ap.add_argument("dst", nargs="?", default=None)
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    if args.spatial or args.slice8b or args.slice8c:  # virtual CPU devices
+    if (args.spatial or args.slice8b or args.slice8c
+            or args.slice8c_train):  # virtual CPU devices
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + " --xla_force_host_platform_device_count=8").strip()
@@ -2035,6 +2150,12 @@ def main():
 
     slice4 = [n for n in SLICE4 if getattr(args, n)]
     slice5b = [n for n in SLICE5B if getattr(args, n)]
+    if args.slice8c_train:
+        arrays = make_slice8c_train_fixture()
+        dst = args.dst or str(SLICE8C_TRAIN_DST)
+        np.savez_compressed(dst, **arrays)
+        print(f"wrote {dst} ({len(arrays)} arrays)")
+        return
     if args.slice8c:
         arrays = make_slice8c_fixture(args.seed)
         dst = args.dst or str(SLICE8C_DST)

@@ -72,12 +72,18 @@ one rank, started from outside with ``coordinator_address`` (``host:port``
 or a ``tcp://`` / ``file://`` URL), ``num_processes`` and ``process_id``
 (or torchrun's environment where unset). The folded multi_adain, ccam and
 sel_multi_adain train row-sharded on B1-B3's halo modes (also on a mesh
-without a ``spatial`` axis, as rpst's shard_map); every other network trains
-data parallel, its BatchNorm statistics over the global batch. A ``model``
-axis (any network; rpst's ``tp_shardings``) keeps each rank's share of
-every conv kernel and per-channel vector of at least 32 channels, and of
-their Adam moments, and computes each sharded conv's output-channel share
-(``rpst_torch.dist.tp``; the folded convs on B1-B3 at the share's width).
+without a ``spatial`` axis, as rpst's shard_map); on a ``spatial`` axis
+every other network but mst (and the folded three where that route turns
+them away, or beside a ``model`` axis) trains its standard layout
+row-sharded (``rpst_torch.train.step``'s "rows" route, rpst's GSPMD step:
+the one-device loss on each rank's rows, sanet's attention on B6b-d);
+without one, data parallel, its BatchNorm statistics over the global
+batch. mst on a ``spatial`` axis raises ``ValueError``, as rpst's does. A
+``model`` axis (any network; rpst's ``tp_shardings``) keeps each rank's
+share of every conv kernel and per-channel vector of at least 32 channels,
+and of their Adam moments, and computes each sharded conv's output-channel
+share (``rpst_torch.dist.tp``; the folded convs on B1-B3 at the share's
+width), also beside a ``spatial`` axis. The log names the route taken.
 Each data rank draws its share of the image stream (``InfiniteSampler``'s
 shards), the ranks of one model group the same share, and the ranks of one
 row group split its images' rows. Every rank takes the stop decision of a
@@ -85,11 +91,10 @@ SIGTERM / SIGINT together, at ``log_iter`` boundaries (the maximum of the
 ranks' flags), so all checkpoint the same step and exit 0. Rank 0 alone
 writes the checkpoints, the metrics and the test dumps (on a model axis
 every rank first joins the gather to the full shapes: the checkpoint is
-the one-device layout); the target cache and the int8 loss targets stay
-off on a mesh, as in rpst. Refused, naming ROADMAP.md section A slice 8c:
-a ``spatial`` axis for a network the row-sharded route does not take, and
-``model`` beside ``spatial``. Ranks share a card over gloo where there are
-more ranks than GPUs (NCCL otherwise).
+the one-device layout, and a resume on any mesh re-shards it); the target
+cache and the int8 loss targets stay off on a mesh, as in rpst. Ranks
+share a card over gloo where there are more ranks than GPUs (NCCL
+otherwise).
 """
 
 import argparse
@@ -133,9 +138,9 @@ from rpst_torch.train.target_cache import DeviceTargetCache  # noqa: E402
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError for a config this port cannot train yet:
-    a ``spatial`` axis for a network the row-sharded route does not take,
-    or beside a ``model`` axis (ROADMAP.md section A slice 8c)."""
+    """Raise, before any rank starts, for a mesh no route trains: mst on a
+    ``spatial`` axis, an img_size the ``spatial`` axis does not divide, an
+    unknown axis (``ValueError``, as rpst refuses them)."""
     if cfg.mesh_shape:
         train_route(build_model(cfg), check_mesh_shape(cfg.mesh_shape))
 
@@ -300,6 +305,10 @@ def main(argv=None):
         logger.info(f"Mesh: {dict(mesh.shape)} over {mesh.backend}: "
                     + {"spatial": "row-sharded folded training (B1-B3 halo "
                                   "modes on each rank's rows)",
+                       "rows": "row-sharded standard layout (the "
+                               "one-device loss on each rank's rows"
+                               + (", channel tensor parallel on the model "
+                                  "axis" if mesh.model > 1 else "") + ")",
                        "model": "channel tensor parallel (each rank's "
                                 "output-channel shares), data parallel "
                                 "over data"}.get(route, "data parallel"))
@@ -383,9 +392,11 @@ def main(argv=None):
                 else:
                     content = torch.from_numpy(next(content_iter)).to(device)
                     style = torch.from_numpy(next(style_iter)).to(device)
-                if route == "spatial":  # this rank's rows of the share
-                    content = shard_rows(content, mesh).contiguous()
+                if route in ("spatial", "rows"):  # this rank's rows of its
+                    content = shard_rows(content, mesh).contiguous()  # share
                     style = shard_rows(style, mesh).contiguous()
+                    if label is not None:
+                        label = shard_rows(label, mesh).contiguous()
                 parts = train_step(state, vgg, content, style,
                                    targets=targets, content_label=label)
                 timer.tick()

@@ -773,17 +773,10 @@ def main():
         env = dict(os.environ)
         swept = tmp / "swept"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(REPO / "serve_torch.py"),
-             "--config", str(cfg_path), "--content", str(tmp / "content"),
+        out_log = _serve_cli(
+            ["--config", str(cfg_path), "--content", str(tmp / "content"),
              "--style", str(tmp / "style" / "s.png"), "--out", str(swept),
-             "--mode", "folded", "--batch", "4", "--device", "cuda"],
-            capture_output=True, text=True, timeout=300, env=env,
-            cwd=str(REPO))
-        out_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise AssertionError(f"serve_torch sweep rc {proc.returncode}:\n"
-                                 f"{out_log[-3000:]}")
+             "--mode", "folded", "--batch", "4", "--device", "cuda"])
         pngs = sorted(swept.glob("*.png"))
         sweep_launches = _logged_launches(out_log)
         if len(pngs) != 8 or not sweep_launches > 0:
@@ -832,7 +825,7 @@ def main():
     # ---- 8-11. training ---------------------------------------------------
     _timed(_train_fixture, dev)
     _timed(_train_parity, dev, rng)
-    train_launches = _timed(_train_main_path, dev)
+    train_launches = _timed(_train_main_path, dev, name_power)
     _timed(_train_timing, dev, rng, name_power)
 
     t0 = time.perf_counter()
@@ -1414,11 +1407,13 @@ def _counters():
             "B6d": flash_bwd_dkv}
 
 
+_COUNT_ATTRS = ("launches", "launches_bf16", "launches_7x7", "launches_halo",
+                "launches_rings")
+
+
 def _reset_counts():
     for c in _counters().values():
-        c.launches = 0
-        for sub in ("launches_bf16", "launches_7x7", "launches_halo",
-                    "launches_rings"):
+        for sub in _COUNT_ATTRS:
             if hasattr(c, sub):
                 setattr(c, sub, 0)
 
@@ -1436,6 +1431,46 @@ def _counts(names=("B1", "B2", "B3")):
     if names == Q8_KERNELS:
         return {k: c[k].launches for k in names}
     return tuple(c[k].launches for k in names)
+
+
+def _serve_cli(argv):
+    """``serve_torch.py`` (one device) run in this process on ``argv``: its
+    ``main``, the entry point its command line calls, without an
+    interpreter's start-up (~10 s of each run as a subprocess). The launch
+    counts start from 0, as in a fresh process, and are put back after the
+    run. Returns the port logger's lines as the command prints them; a
+    failing run raises."""
+    import importlib.util
+    import logging
+    spec = importlib.util.spec_from_file_location("serve_torch",
+                                                  REPO / "serve_torch.py")
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(self.format(record))
+    handler = Keep()
+    handler.setFormatter(logging.Formatter(
+        "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+    logger = logging.getLogger("rpst_torch")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    counters = _counters()
+    saved = {k: {a: getattr(c, a) for a in _COUNT_ATTRS if hasattr(c, a)}
+             for k, c in counters.items()}
+    _reset_counts()
+    try:
+        driver.main(list(argv))
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+        for k, attrs in saved.items():
+            for a, v in attrs.items():
+                setattr(counters[k], a, v)
+    return "\n".join(lines)
 
 
 def _train_cli(argv):
@@ -1595,16 +1630,165 @@ def _train_parity(dev, rng):
         f"bound > {BF16_COS}); launches {runs['kernels'][2]}")
 
 
-def _train_main_path(dev):
+# phase 10's decoder corpus: 32 JPEGs (quality 90) and 32 PNGs of 1024x768,
+# decoded to 512px by the port's four loader threads (num_workers' default)
+DECODE_FILES, DECODE_SIZE, DECODE_THREADS = 32, (1024, 768), 4
+
+
+def _host_headers_found() -> bool:
+    """Whether the host compiler finds the decoder's headers."""
+    src = "#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+    try:
+        proc = subprocess.run([os.environ.get("CXX") or "g++", "-E", "-x",
+                               "c++", "-", "-o", os.devnull], input=src,
+                              capture_output=True, text=True, timeout=60)
+    except FileNotFoundError:
+        return False
+    return proc.returncode == 0
+
+
+def _decoder_check(tmp, name_power):
+    """Phase 10's decoder: whether ``rpst_torch.native_io`` built here (its
+    first error line if not; the phase fails if the compiler finds
+    jpeglib.h and png.h and the build failed all the same). Seeded JPEGs
+    and PNGs decoded to 512px on the loader's thread count through PIL,
+    and where it built through it too, byte for byte against PIL's, each
+    timed (warm reads: the files were just written)."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from PIL import Image
+    from rpst_torch import native_io
+    from rpst_torch.kernels import build
+
+    def pil(path):
+        img = Image.open(str(path)).convert("RGB").resize((IMG, IMG),
+                                                          Image.BILINEAR)
+        return np.asarray(img, dtype=np.float32) / 255.0
+
+    decoders = {"PIL": pil}
+    if native_io.available():
+        log("10 decoder", "native_io built on this host ("
+            f"{build.build_info['imageio']['seconds']:.2f}s of g++ in this "
+            "run)")
+        decoders = {"native": lambda p: native_io.load_image_native(p, IMG),
+                    "PIL": pil}
+    elif native_io.reason() == "RPST_NATIVE_IO=0":
+        log("10 decoder", "native_io switched off (RPST_NATIVE_IO=0)")
+    else:
+        why = native_io.reason()
+        first = next((ln for ln in why.splitlines() if "error" in ln),
+                     why.splitlines()[0] if why else "")
+        log("10 decoder", f"native_io did not build on this host: {first}")
+        if _host_headers_found():
+            raise AssertionError("jpeglib.h and png.h are found but "
+                                 f"native_io did not build:\n{why[-3000:]}")
+        log("10 decoder", "jpeglib.h / png.h not found by the host "
+            "compiler: the loaders decode with PIL (the same bytes)")
+
+    w, h = DECODE_SIZE
+    ramp = (np.linspace(0, 1, w)[None, :, None]
+            * np.linspace(0.2, 1, h)[:, None, None])
+    files = {fmt: [tmp / f"decode_{i:02d}.{ext}" for i in range(DECODE_FILES)]
+             for fmt, ext in (("jpeg", "jpg"), ("png", "png"))}
+
+    def write(seed_path):
+        seed, path = seed_path
+        r = np.random.default_rng(seed)
+        img = ((ramp * r.uniform(80, 230, 3)).astype(np.uint8)
+               + r.integers(0, 24, (h, w, 3), dtype=np.uint8))
+        Image.fromarray(img, "RGB").save(
+            path, **({"quality": 90} if path.suffix == ".jpg" else {}))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, enumerate(files["jpeg"] + files["png"])))
+
+    rates = {}
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        for fmt in ("jpeg", "png"):
+            outs = {}
+            for label, fn in decoders.items():
+                t0 = time.perf_counter()
+                outs[label] = list(pool.map(fn, files[fmt]))
+                rates[f"{fmt} {label}"] = (len(files[fmt])
+                                           / (time.perf_counter() - t0))
+            for path, a, b in zip(files[fmt], outs.get("native", outs["PIL"]),
+                                  outs["PIL"]):
+                if a is None or a.tobytes() != b.tobytes():
+                    raise AssertionError(f"native decode of {path.name} "
+                                         "differs from PIL's")
+    log("10 decoder", f"{2 * DECODE_FILES} files ({DECODE_FILES} JPEG q90 + "
+        f"{DECODE_FILES} PNG, {w}x{h}) decoded to {IMG}px"
+        + (": native == PIL byte for byte" if "native" in decoders else "")
+        + f"; {DECODE_THREADS} threads, img/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f" (warm reads; host of the {name_power} machine)")
+
+
+def _graphcut_check(dev):
+    """Phase 10's chain-MRF solvers: the native Viterbi against the port's
+    DP (``ops.graphcut.chain_map_labeling``, on the card) on one seeded
+    (C = 512, k = 3) Potts problem, to equal energy; the build must
+    succeed. ``chain_labeling_native`` returns the labels on the card."""
+    import numpy as np
+    import torch
+    from rpst_torch.ops import graphcut_native as gn
+    from rpst_torch.ops.graphcut import chain_map_labeling
+
+    d = np.random.default_rng(0).random((512, 3))
+    v = 0.5 * (np.ones((3, 3)) - np.eye(3))
+    native = gn.chain_viterbi_cpp(d, v)
+    dt, vt = torch.from_numpy(d).to(dev), torch.from_numpy(v).to(dev)
+    dp = chain_map_labeling(dt, vt).cpu().numpy()
+    e_native, e_dp = gn.chain_energy_cpp(d, v, native), \
+        gn.chain_energy_cpp(d, v, dp)
+    via = gn.chain_labeling_native(dt, vt)
+    if abs(e_native - e_dp) > 1e-9 * abs(e_native) or via.device != dt.device \
+            or not np.array_equal(via.cpu().numpy(), native):
+        raise AssertionError(f"graph cut: native energy {e_native}, DP "
+                             f"{e_dp}, chain_labeling_native on "
+                             f"{via.device}")
+    log("10 graphcut", f"native Viterbi == the DP on the card at (512, 3): "
+        f"energy {e_native:.9f} vs {e_dp:.9f}, "
+        f"{int((native != dp).sum())} labels differ (ties); "
+        f"chain_labeling_native on {via.device}")
+
+
+def _trace_kernels(trace_dir):
+    """{"B1" | "B2" | "B3": (launches, summed device ms)} of the main
+    kernels in the ``*.pt.trace.json`` under ``trace_dir``: B1 and B2's
+    shared ``folded_mma_kernel`` told apart by its BWD template argument,
+    B3's ``grad_weight_mma`` (the weight packing and B3's reduce left
+    out)."""
+    import re
+    (path,) = Path(trace_dir).glob("*.pt.trace.json")
+    out = {k: [0, 0.0] for k in ("B1", "B2", "B3")}
+    for ev in json.loads(path.read_text())["traceEvents"]:
+        if ev.get("cat") != "kernel":
+            continue
+        name = ev.get("name", "")
+        bwd = re.search(r"folded_mma_kernel<[^,]+,\s*\w+,\s*(\w+)", name)
+        key = (("B2" if bwd.group(1) in ("true", "1") else "B1") if bwd
+               else "B3" if "grad_weight_mma" in name else None)
+        if key:
+            out[key][0] += 1
+            out[key][1] += ev.get("dur", 0) / 1e3
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _train_main_path(dev, name_power):
     """Phase 10: train_torch.py on a 512px synthetic corpus, b4 f32 folded:
-    3 steps as a subprocess, then 2 resumed steps through the same entry
-    point in this process, counts reset before and read after. Returns the
-    resumed run's B1/B2/B3 launches."""
+    3 steps as a subprocess, step 2 traced (``profile_iter`` 2,
+    ``profile_steps`` 1), then 2 resumed steps through the same entry
+    point in this process, counts reset before and read after; the native
+    decoder and graph cut beside it. Returns the resumed run's B1/B2/B3
+    launches."""
     import importlib.util
     import numpy as np
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        _decoder_check(tmp, name_power)
+        _graphcut_check(dev)
         subprocess.run([sys.executable, str(REPO / "tools" /
                                             "make_synthetic_corpus.py"),
                         str(tmp / "corpus"), "--n", "8", "--size", str(IMG)],
@@ -1614,6 +1798,7 @@ def _train_main_path(dev):
         cfg_path.write_text(json.dumps(dict(
             FLAGSHIP, img_size=IMG, exec_strategy="folded", batch_size=4,
             max_iter=4, snapshot_save_iter=2, log_iter=1, num_workers=4,
+            profile_iter=2, profile_steps=1,
             content_dir=str(tmp / "corpus" / "content"),
             style_dir=str(tmp / "corpus" / "style"), output=str(out))))
         t0 = time.perf_counter()
@@ -1635,6 +1820,21 @@ def _train_main_path(dev):
         log("10 train", f"train_torch.py b4 512px f32 folded, 3 steps in "
             f"{time.perf_counter() - t0:.1f}s wall (img/s per step "
             f"{rates}); child launches {child[0]}")
+        trace_dir = out / "logs" / "trace"
+        if f"Wrote device trace for steps 2..2 -> {trace_dir}" not in text:
+            raise AssertionError(f"no trace line for step 2:\n{text[-3000:]}")
+        traced = _trace_kernels(trace_dir)
+        if tuple(traced[k][0] for k in ("B1", "B2", "B3")) != PER_STEP:
+            raise AssertionError(f"the step 2 trace holds {traced}, expected "
+                                 f"{PER_STEP} B1/B2/B3 launches")
+        elapsed = [ln.split("elapsed time: ")[1].split(",")[0]
+                   for ln in text.splitlines() if "elapsed time: " in ln]
+        log("10 trace", f"step 2's trace holds B1/B2/B3 "
+            + ", ".join(f"{k} {n} launches {ms:.3f} ms" for k, (n, ms)
+                        in traced.items())
+            + f" of device time; step seconds {elapsed} (step 2 traced, its "
+            f"start included; step 3 includes the trace's stop and "
+            f"export) ({name_power})")
 
         spec = importlib.util.spec_from_file_location(
             "train_torch", REPO / "train_torch.py")
@@ -2056,16 +2256,10 @@ def _q8_serve(dev, rng):
 
         swept = tmp / "swept"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, str(REPO / "serve_torch.py"),
-             "--config", str(cfg_path), "--content", str(tmp / "content"),
+        text = _serve_cli(
+            ["--config", str(cfg_path), "--content", str(tmp / "content"),
              "--style", str(tmp / "style" / "s.png"), "--out", str(swept),
-             "--mode", "q8", "--batch", "4", "--device", "cuda"],
-            capture_output=True, text=True, timeout=300, cwd=str(REPO))
-        text = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise AssertionError(f"serve_torch q8 rc {proc.returncode}:\n"
-                                 f"{text[-3000:]}")
+             "--mode", "q8", "--batch", "4", "--device", "cuda"])
         plan = _q8_plan(bundle, FUSE_PAIRS)
         child = {k: _logged_count(text, k) for k in Q8_KERNELS}
         want = {k: 2 * plan[k] for k in Q8_KERNELS}  # 2 batches
@@ -2456,18 +2650,13 @@ def _q8_targets_fixture(dev):
 
 
 def _serve_child(cfg_path, tmp, out_name, mode, extra=()):
-    """serve_torch.py as a subprocess on tmp's 8 PNGs at batch 4; returns
+    """serve_torch.py (``_serve_cli``) on tmp's 8 PNGs at batch 4; returns
     its log text and PNG count."""
-    proc = subprocess.run(
-        [sys.executable, str(REPO / "serve_torch.py"), "--config",
-         str(cfg_path), "--content", str(tmp / "content"), "--style",
-         str(tmp / "style" / "s.png"), "--out", str(tmp / out_name),
-         "--mode", mode, "--batch", "4", "--device", "cuda", *extra],
-        capture_output=True, text=True, timeout=600, cwd=str(REPO))
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise AssertionError(f"serve_torch {out_name} rc {proc.returncode}:\n"
-                             f"{text[-3000:]}")
+    text = _serve_cli(
+        ["--config", str(cfg_path), "--content", str(tmp / "content"),
+         "--style", str(tmp / "style" / "s.png"), "--out",
+         str(tmp / out_name), "--mode", mode, "--batch", "4", "--device",
+         "cuda", *extra])
     return text, len(list((tmp / out_name).glob("*.png")))
 
 
@@ -5992,26 +6181,22 @@ def _ld_serve(dev, rng):
             sets = ("--set", f"img_size={IMG}", "vgg=", "test_dir=",
                     *(("use_mask=false",) if network == "ld_adain" else ()))
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, str(REPO / "serve_torch.py"), "--config",
-                 str(LD_YAML[network]), "--content", str(tmp / "content"),
-                 "--style", str(tmp / "style" / "s.png"), "--out",
-                 str(tmp / f"out_{network}"), "--mode",
+            text = _serve_cli(
+                ["--config", str(LD_YAML[network]), "--content",
+                 str(tmp / "content"), "--style", str(tmp / "style" / "s.png"),
+                 "--out", str(tmp / f"out_{network}"), "--mode",
                  "q8" if q8 else "folded", "--batch", "1", "--device",
-                 "cuda", *sets], capture_output=True, text=True,
-                timeout=600, cwd=str(REPO))
-            text = proc.stdout + proc.stderr
+                 "cuda", *sets])
             n_png = len(list((tmp / f"out_{network}").glob("*.png")))
             b5, b7 = _logged_count(text, "B5"), _logged_7x7(text)
             plan = LD_PLAN.get(network)
-            ok = proc.returncode == 0 and n_png == 8 and (
+            ok = n_png == 8 and (
                 (b5 == 8 * plan["B5"] and b7 == 8 * plan["B5_7x7"]
                  and f"Calibrated {plan['scales']} layer scales" in text)
                 if q8 else (b5 == 0 and "falling back to standard" in text))
             if not ok:
-                raise AssertionError(f"serve_torch {network}: rc "
-                                     f"{proc.returncode}, {n_png} PNGs, B5 "
-                                     f"{b5} ({b7} 7x7):\n{text[-3000:]}")
+                raise AssertionError(f"serve_torch {network}: {n_png} PNGs, "
+                                     f"B5 {b5} ({b7} 7x7):\n{text[-3000:]}")
             rate = [ln for ln in text.splitlines() if "Stylized" in ln]
             log("46 LD serve", f"serve_torch.py {LD_YAML[network].name} "
                 f"--mode {'q8' if q8 else 'folded (standard)'} b1: 8 PNGs, "

@@ -70,6 +70,12 @@ DEFAULTS: Dict[str, Any] = {
     "batch_size": 1,
     "max_iter": 1_000_000,
     "log_iter": 1,
+    # capture a torch.profiler device trace spanning ``profile_steps``
+    # steps starting at iteration ``profile_iter`` (0 = off); written to
+    # <output>/logs/trace for TensorBoard / Perfetto (SURVEY §5: the
+    # reference's only observability is wall-clock prints)
+    "profile_iter": 0,
+    "profile_steps": 3,
     "snapshot_save_iter": 10000,
     "test_iter": 10000,
     "num_workers": 8,

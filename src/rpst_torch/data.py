@@ -1,15 +1,17 @@
 """Host-side image IO of the port; counterpart of ``rpst.data.transforms``
 (``load_image``, ``load_mask``), for training of ``rpst.data``'s
-``ImageFolderDataset``, ``CityscapesDataset`` (with ``convert_label``),
-``InfiniteSampler`` and ``InfiniteLoader``, and for the test dumps of its
-test datasets (``PairedDataset``, ``PhotorealisticPairedDataset`` with its
-``labelme_segmentation/`` masks, ``IdentityDataset``, ``FmtDataset``,
-``build_test_dataset``) and ``iter_batches``.
+``ImageFolderDataset``, ``FlatFolderDataset``, ``CityscapesDataset`` (with
+``convert_label``), ``InfiniteSampler`` and ``InfiniteLoader``, and for
+the test dumps of its test datasets (``PairedDataset``,
+``PhotorealisticPairedDataset`` with its ``labelme_segmentation/`` masks,
+``IdentityDataset``, ``FmtDataset``, ``build_test_dataset``) and
+``iter_batches``.
 
 The reference transform is a bilinear squash to ``img_size`` x ``img_size``
-and a [0, 1] float, with no mean/std normalization. rpst decodes with a
-native libjpeg/libpng path that is bit-exact with PIL; here PIL alone does
-it, so the bytes are the same.
+and a [0, 1] float, with no mean/std normalization. ``load_image`` decodes
+through the native libjpeg / libpng decoder (``native_io``, bit-exact with
+PIL) and through PIL where that declines the file or did not build, as
+rpst's does: the bytes are the same either way.
 """
 
 from __future__ import annotations
@@ -21,13 +23,19 @@ from pathlib import Path
 import numpy as np
 from PIL import Image, ImageFile
 
+from . import native_io
+
 Image.MAX_IMAGE_PIXELS = None
 ImageFile.LOAD_TRUNCATED_IMAGES = True
 
 
 def load_image(path, img_size: int) -> np.ndarray:
     """Load -> RGB -> (img_size, img_size) bilinear squash -> f32 HWC in
-    [0, 1]; ``img_size`` 0 keeps the image's size."""
+    [0, 1]; ``img_size`` 0 keeps the image's size. The native decoder
+    first, PIL for what it declines."""
+    arr = native_io.load_image_native(path, img_size)
+    if arr is not None:
+        return arr
     img = Image.open(str(path)).convert("RGB")
     if img_size:
         img = img.resize((img_size, img_size), Image.BILINEAR)
@@ -87,6 +95,17 @@ class ImageFolderDataset:
 
     def __getitem__(self, index):
         return load_image(self.paths[index], self.img_size)
+
+
+class FlatFolderDataset(ImageFolderDataset):
+    """The reference's ``FlatFolderDataset`` (``datasets/base.py:7-28``):
+    the images matching ``fmt`` (default ``*/P*``), then ``root2``'s files,
+    each set sorted."""
+
+    def __init__(self, root, img_size: int, fmt: str = "*/P*", root2=None):
+        super().__init__(root, img_size, fmt)
+        if root2 is not None:
+            self.paths.extend(sorted(Path(root2).glob("*")))
 
 
 class FmtDataset(ImageFolderDataset):

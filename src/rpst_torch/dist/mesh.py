@@ -192,7 +192,9 @@ def make_mesh(mesh_shape=None, device: Optional[torch.device] = None,
     2, 'spatial': 2}``; None puts every rank on ``data``) over the initialized
     process group, whose size must equal the product of the axes (or, with
     ``subset``, be at least it: the mesh then spans the first ranks, and
-    the others get an inactive mesh). Every rank calls it in the same order
+    the others get an inactive mesh). ``device`` None means this rank's
+    card (``rank_device("cuda")``, which raises without one); a CPU mesh
+    passes ``torch.device("cpu")``. Every rank calls it in the same order
     (it creates the axes' process groups)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
@@ -203,8 +205,7 @@ def make_mesh(mesh_shape=None, device: Optional[torch.device] = None,
         raise ValueError(f"mesh {shape} needs {need} ranks, the run has "
                          f"{world}")
     backend = dist.get_backend() if dist.is_initialized() else "none"
-    device = device if device is not None else rank_device(
-        "cuda" if torch.cuda.is_available() else "cpu")
+    device = device if device is not None else rank_device("cuda")
     staged = backend == "gloo"
     grid = np.arange(need).reshape(sizes)
     active = rank < need

@@ -11,7 +11,17 @@ The hash covers the source, every header under ``csrc`` and the flags, so
 an edited source or header rebuilds and an unchanged one loads the cached
 library. A build that fails, or a missing
 nvcc, raises: there is no fallback. Nothing is built when a module is
-imported; the CPU tests never reach this file.
+imported.
+
+The host libraries (``csrc/host/<name>.cpp``: the image decoder
+``imageio``, linked against libjpeg and libpng, and the chain-MRF solvers
+``graphcut``) are built the same way with the host compiler, ``$CXX`` or
+else ``g++``, at their first ``load``::
+
+    g++ -O3 -fPIC -shared -std=c++17 -o build/rpst_torch/lib<name>-<hash>.so \
+        <name>.cpp [-ljpeg -lpng]
+
+They need no nvcc, so the CPU tests build and run them too.
 """
 
 from __future__ import annotations
@@ -113,6 +123,28 @@ SIGNATURES = {
     },
 }
 
+HOST_CSRC = CSRC / "host"
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+_F32P, _I32P = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+_F64P = ctypes.POINTER(ctypes.c_double)
+# host library -> (link flags, C signatures as in SIGNATURES)
+HOST_SIGNATURES = {
+    "imageio": (["-ljpeg", "-lpng"], {
+        # path, out_w, out_h, out (float32 HWC); 0 or an error code
+        "rpst_load_image_rgb": ([ctypes.c_char_p, _INT, _INT, _F32P], _INT),
+        "rpst_image_size": ([ctypes.c_char_p, _I32P, _I32P], _INT),
+    }),
+    "graphcut": ([], {
+        # D (C, k), V (k, k), C, k, [max_cycles,] labels out (C,)
+        "chain_viterbi": ([_F64P, _F64P, ctypes.c_int64, ctypes.c_int64,
+                           _I32P], None),
+        "aexpansion_chain": ([_F64P, _F64P, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int32, _I32P], None),
+        "chain_energy_of": ([_F64P, _F64P, ctypes.c_int64, ctypes.c_int64,
+                             _I32P], ctypes.c_double),
+    }),
+}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when cached), "log": nvcc output}
@@ -129,30 +161,52 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
-    exists; returns the library's path."""
-    src = CSRC / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _compile(name: str, src: Path, key: bytes, cmd_for) -> Path:
+    """The library ``lib<name>-<hash of key>.so`` under ``BUILD_DIR``,
+    compiled by ``cmd_for(output path)`` unless it exists. The build writes
+    a temporary file that ``os.replace`` moves into place, so concurrent
+    builders never see a partial library; a failed build raises."""
+    digest = hashlib.sha256(key).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():  # keep the log of this process's own build
         build_info.setdefault(name, {"seconds": 0.0, "log": "cached"})
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = cmd_for(tmp)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial .so
+        raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}) "
+                           f"building {src}:\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
     build_info[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
     return lib
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
+    exists; returns the library's path."""
+    src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    return _compile(name, src, src.read_bytes() + headers
+                    + " ".join(NVCC_FLAGS).encode(),
+                    lambda out: [_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                                 str(src)])
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/host/<name>.cpp`` with ``$CXX`` (else ``g++``) unless
+    a library of the same source, compiler and flags exists."""
+    src = HOST_CSRC / f"{name}.cpp"
+    cmd = [os.environ.get("CXX") or "g++", *HOST_FLAGS]
+    link = HOST_SIGNATURES[name][0]
+    return _compile(name, src, src.read_bytes() + " ".join(
+        [*cmd, *link]).encode(),
+        lambda out: [*cmd, "-o", str(out), str(src), *link])
 
 
 def build_all() -> None:
@@ -165,12 +219,16 @@ def build_all() -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes library of ``csrc/<name>.cu``, built on first use, with
+    """The ctypes library of ``csrc/<name>.cu`` (or of a host library,
+    ``csrc/host/<name>.cpp``), built on first use, with
     ``argtypes``/``restype`` set for every exported function."""
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
+            host = name in HOST_SIGNATURES
+            lib = ctypes.CDLL(str(build_host(name) if host else build(name)))
+            signatures = (HOST_SIGNATURES[name][1] if host
+                          else SIGNATURES[name])
+            for fn, (argtypes, restype) in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
             _libs[name] = lib

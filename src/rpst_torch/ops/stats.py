@@ -4,6 +4,8 @@
     eps inside the sqrt (reference ``network/base.py:399-407``)
   * ``adaptive_instance_normalization`` (``network/base.py:410-418``)
   * ``mean_variance_norm`` (``network/sanet.py:20-24``)
+  * ``groupwise_adain``: AdaIN to one channel-averaged prototype mean and
+    std of the style per sample (``utils/mst.py:18-30``)
 
 Reductions run in float32 whatever the activation type, and use the
 two-pass form (mean, then the sum of squared deviations), as rpst does. On
@@ -52,3 +54,15 @@ def mean_variance_norm(feat: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Zero mean, unit std per (N, C)."""
     mean, std = calc_mean_std(feat, eps)
     return (feat - mean) / std
+
+
+def groupwise_adain(content_feat: torch.Tensor, style_feat: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """AdaIN against the style's prototype statistics: its per-channel mean
+    and std averaged over the channels, so every content channel is
+    recoloured with one mean and one std per sample."""
+    content_mean, content_std = calc_mean_std(content_feat, eps)
+    style_mean, style_std = calc_mean_std(style_feat, eps)
+    normalized = (content_feat - content_mean) / content_std
+    return (normalized * style_std.mean(dim=-1, keepdim=True)
+            + style_mean.mean(dim=-1, keepdim=True))

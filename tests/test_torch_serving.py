@@ -449,6 +449,8 @@ def test_port_never_imports_jax():
         "import rpst_torch.nn.attention, rpst_torch.nn.blocks\n"
         "import rpst_torch.dist, rpst_torch.dist.launch\n"
         "import rpst_torch.models.fast_path_spatial\n"
+        "import rpst_torch.native_io, rpst_torch.ops.graphcut_native\n"
+        "import rpst_torch.train.profiler\n"
         "for name in ('serve_torch', 'train_torch', 'test_torch',\n"
         "             'tools/flops_estimate_torch'):\n"
         "    spec = u.spec_from_file_location(name.split('/')[-1],\n"

@@ -5,6 +5,7 @@ refused, train), and ``--device cuda`` without a card exits non-zero."""
 
 import importlib.util
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -46,11 +47,49 @@ def run_dir(tmp_path):
     return tmp_path
 
 
+class _Lines(logging.Handler):
+    """The port logger's messages while installed (``with _Lines() as l``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("rpst_torch").addHandler(self)
+        return self.lines
+
+    def __exit__(self, *exc):
+        logging.getLogger("rpst_torch").removeHandler(self)
+
+
+def _traces(out):
+    return sorted((out / "logs" / "trace").glob("*.pt.trace.json"))
+
+
 def test_cpu_run_writes_metrics_and_checkpoints_and_resumes(run_dir):
+    """Also rpst's trace window (train.py:281-298, :380): profile_iter 1 for
+    one step writes a torch.profiler trace with the step's convolutions and
+    logs rpst's line; on the resume (loop steps 1-2) a window opened at the
+    loop's step 2 is still open at the end and is closed there, unlogged.
+    The metrics also go to TensorBoard event files where tensorboard
+    imports."""
     main = _driver().main
     cfg = str(run_dir / "cfg.yaml")
-    main(["--config", cfg, "--device", "cpu"])
+    with _Lines() as lines:
+        main(["--config", cfg, "--device", "cpu", "--set", "profile_iter=1",
+              "profile_steps=1"])
     out = run_dir / "out"
+    assert f"Wrote device trace for steps 1..1 -> {out / 'logs' / 'trace'}" \
+        in lines
+    (first,) = _traces(out)
+    names = {e.get("name") for e in
+             json.loads(first.read_text())["traceEvents"]}
+    assert "aten::convolution" in names
+    if importlib.util.find_spec("tensorboard") is not None:
+        assert list((out / "logs").glob("events.out.tfevents.*"))
     lines = [json.loads(ln) for ln in
              (out / "logs" / "metrics.jsonl").read_text().splitlines()]
     assert [ln["step"] for ln in lines] == [1, 2, 3]
@@ -65,8 +104,11 @@ def test_cpu_run_writes_metrics_and_checkpoints_and_resumes(run_dir):
     assert saved["step"] == 3 and set(saved) == {"step", "params",
                                                  "opt_state", "rng"}
 
-    main(["--config", cfg, "--device", "cpu", "--set", "resume=true",
-          "max_iter=3"])
+    with _Lines() as log:
+        main(["--config", cfg, "--device", "cpu", "--set", "resume=true",
+              "max_iter=3", "profile_iter=2", "profile_steps=3"])
+    assert not [ln for ln in log if "Wrote device trace" in ln]
+    assert len(_traces(out)) == 2
     lines = [json.loads(ln) for ln in
              (out / "logs" / "metrics.jsonl").read_text().splitlines()]
     assert [ln["step"] for ln in lines] == [1, 2, 3, 4, 5]

@@ -9,7 +9,8 @@ matrix products and convolutions (2 FLOPs a multiply-add), not the
 elementwise work (activations, AdaIN, norms, softmax) that XLA's cost
 analysis adds to rpst's count, so the port's number sits a few percent
 below rpst's for the conv-bound families. It prints FLOPs only, no device
-rate; the counter runs the stylize, so use a card at 512px:
+rate; the counter runs the stylize, so use a card at 512px (``--device
+cuda``, the default, exits non-zero without one):
 
     python tools/flops_estimate_torch.py [family ...] [--img 512]
                                          [--device cuda|cpu]
@@ -79,9 +80,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("families", nargs="*", default=list(FAMILIES))
     ap.add_argument("--img", type=int, default=512)
-    ap.add_argument("--device", default=("cuda" if torch.cuda.is_available()
-                                         else "cpu"))
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; exits non-zero without a card) "
+                         "or cpu")
     args = ap.parse_args(argv)
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("flops_estimate_torch.py: --device cuda but "
+                         "torch.cuda.is_available() is False (pass --device "
+                         "cpu)")
     print(f"{'family':<16} {f'GFLOP/img ({args.img}px)':>18}")
     for name in args.families:
         print(f"{name:<16} "

@@ -60,7 +60,12 @@ logs the B6, B5 and B1/B2/B3 launch counts of the run. ``grad_accum: k``
 splits each batch into k microbatches whose gradients are averaged before
 one Adam step (the batch must divide by k; not with ``target_cache``), and
 ``remat: true`` recomputes the whole loss's forward in the backward
-(``rpst_torch.train.step``).
+(``rpst_torch.train.step``). ``profile_iter: k`` (0, off, by default) makes
+rank 0 trace steps k .. k + ``profile_steps`` - 1 of the loop with
+``torch.profiler`` into ``<output>/logs/trace`` (``*.pt.trace.json``;
+``rpst_torch.train.profiler``), as rpst's ``train.py:281-298``. Where
+``tensorboard`` imports, the metrics are also written as TensorBoard event
+files beside ``metrics.jsonl``.
 
 Multi-device runs (rpst ``train.py:61-98``): ``mesh_shape`` lays the ranks
 on ``data``, ``spatial`` and ``model`` axes (``{data: 2}``, ``{spatial:
@@ -132,6 +137,7 @@ from rpst_torch.train.checkpoint import (latest_step,  # noqa: E402
                                          restore_checkpoint, save_checkpoint)
 from rpst_torch.train.fault import CheckpointOnSignal  # noqa: E402
 from rpst_torch.train.metrics import MetricWriter, StepTimer  # noqa: E402
+from rpst_torch.train.profiler import start_trace, stop_trace  # noqa: E402
 from rpst_torch.train.step import (create_train_state,  # noqa: E402
                                    train_route, train_step)
 from rpst_torch.train.target_cache import DeviceTargetCache  # noqa: E402
@@ -372,10 +378,25 @@ def main(argv=None):
     b5_0 = fused_conv2d_q8.launches
     b6_0 = launch_counts()
     timer = StepTimer(sync_every=max(cfg.log_iter, 10), device=device)
+    trace_dir = output / "logs" / "trace"
+    profiling = False
     try:
         with CheckpointOnSignal() as stop:
             for i in range(1, cfg.max_iter):
                 start = time.perf_counter()
+                # rpst train.py:281-298: rank 0 traces steps profile_iter ..
+                # profile_iter + profile_steps - 1 of this run's loop
+                if cfg.profile_iter and main_proc:
+                    if i == cfg.profile_iter:
+                        start_trace(trace_dir, device)
+                        profiling = True
+                    elif profiling and i >= (cfg.profile_iter
+                                             + cfg.profile_steps):
+                        stop_trace()
+                        profiling = False
+                        logger.info(f"Wrote device trace for steps "
+                                    f"{cfg.profile_iter}..{i - 1} -> "
+                                    f"{trace_dir}")
                 targets = label = None
                 if seg_training:
                     content_np, label_np = next(content_iter)
@@ -440,6 +461,8 @@ def main(argv=None):
                                    f"after step {begin + i}, checkpointed")
                     break
     finally:
+        if profiling:  # the loop ended inside the trace window
+            stop_trace()
         content_iter.close()
         style_iter.close()
         if writer is not None:

@@ -1,0 +1,11 @@
+"""folded_conv_roofline.serve: the least time of the traced window's
+``rpst_torch.ops.folded_conv`` launches by their shapes' bounds over the
+device time of their kernels, in %."""
+
+from harness import readers
+
+
+def read(run):
+    if run["kind"] != "serve":
+        return None
+    return readers.roofline(run, "folded_conv", "serve")
